@@ -1,0 +1,67 @@
+"""State conversion between the JAX package and the port, via numpy.
+
+`htm_state_from_numpy` takes a JAX `HTMState` handed over as numpy
+arrays: either a nested mapping ``{"sp": {leaf: array}, "tm": {...}}``
+or any object whose ``sp`` / ``tm`` attributes carry the leaves (a JAX
+state itself works, since ``np.asarray`` reads its arrays; its random
+key is not read). A single-stream state becomes a batch of one.
+`htm_state_to_numpy` is the inverse and returns the nested mapping with
+the JAX dtypes (uint32 words restored through a view), so a round trip
+is bit-equal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from .state import HTMState, SPState, TMState
+
+# leaves the JAX package stores as uint32 and the port as int32
+U32_LEAVES = frozenset({"active_bits", "winner_bits", "prediction"})
+
+
+def _get(obj, name):
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def _leaf_to_torch(name: str, x, batched: bool, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if name in U32_LEAVES:
+        a = a.view(np.int32)
+    if not batched:
+        a = a[None]
+    return torch.from_numpy(np.array(a, order="C")).to(device)  # a copy
+
+
+def _leaf_to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    return a.view(np.uint32) if name in U32_LEAVES else a
+
+
+def htm_state_from_numpy(tree, device="cpu") -> HTMState:
+    """JAX `HTMState` leaves (numpy) -> port `HTMState` on ``device``."""
+    sp, tm = _get(tree, "sp"), _get(tree, "tm")
+    batched = np.asarray(_get(tm, "step")).ndim == 1
+
+    def build(cls, src):
+        return cls(**{
+            f.name: _leaf_to_torch(f.name, _get(src, f.name), batched,
+                                   device)
+            for f in dataclasses.fields(cls)
+        })
+
+    return HTMState(sp=build(SPState, sp), tm=build(TMState, tm))
+
+
+def htm_state_to_numpy(state: HTMState) -> dict:
+    """Port `HTMState` -> ``{"sp": {leaf: array}, "tm": {...}}`` with the
+    JAX package's dtypes and a leading stream axis."""
+    return {
+        part: {f.name: _leaf_to_numpy(f.name, getattr(sub, f.name))
+               for f in dataclasses.fields(sub)}
+        for part, sub in (("sp", state.sp), ("tm", state.tm))
+    }

@@ -1,0 +1,484 @@
+"""Batched TemporalMemory step.
+
+Counterpart of `bithtm_tpu/models/temporal_memory.py` (reference
+`networks.py:91-128`, `projections.py:245-293`), written out over a
+leading stream axis B instead of vmapped. The order of one step:
+
+  1. bursting from the previous prediction        (`networks.py:96-97`)
+  2. winner-cell selection, with jittered ties     (`networks.py:100-104`)
+  3. learning in the A active-column rows: permanence update and death,
+     segment allocation, synapse growth            (`networks.py:106-113`)
+  4. activation (predicted | bursting)             (`networks.py:115-119`)
+  5. the full-table pass: punishment of matching segments in inactive
+     columns and the forward activity -> next prediction
+     (`networks.py:121-127`); `ops.active_set.table_update` runs it
+     through the CUDA kernel on the card.
+
+Random draws come from a provider (`rng.py`), so the tests can replay
+the JAX draws. The synapse tables are updated in place: the state
+passed in is consumed, as the JAX scan donates its carry.
+
+Rows are written back with plain scatters where the JAX step uses
+clipped takes, dropped scatters and a one-hot dot (TPU workarounds);
+scatters that the JAX step drops go to a padding row that is sliced off,
+so no index is written twice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import TMConfig
+from ..ops.active_set import (
+    argmax_onehot,
+    column_mask_from_cols,
+    compact_first_k,
+    pack_bits,
+    percell_max,
+    percell_sum,
+    prediction_words,
+    rank_ascending,
+    seg_counts_packed,
+    seg_counts_packed_rows,
+    synapse_activation_conn,
+    table_update,
+    take_percell,
+    unpack_bits,
+)
+from ..ops.bitops import lsr32, popcount32
+from ..rng import Draws
+from ..state import TMState
+
+# the growth key packs the cell id into its low bits and needs >= 15
+# random bits above it (temporal_memory.py:456): at most 2^16 cells
+MAX_PACKED_CELL_BITS = 16
+
+
+class TMOutput(NamedTuple):
+    """Per-step observables (`networks.py:39-46`). The dense (B, N)
+    masks are built only on request (`dense_outputs`); `htm_scan` reads
+    only `prev_col_prediction` and `bursting_columns`."""
+
+    active_mask: torch.Tensor | None       # (B, N) bool
+    winner_mask: torch.Tensor | None       # (B, N) bool
+    prediction: torch.Tensor | None        # (B, N) bool, for the next step
+    prev_prediction: torch.Tensor | None   # (B, N) bool, this step's input
+    prev_col_prediction: torch.Tensor      # (B, C) bool any cell predicted
+    bursting_columns: torch.Tensor         # (B, C) bool
+    metrics: dict
+
+
+def _rows(table: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """(B, C, ...) table at (B, A) columns -> (B, A, ...)."""
+    idx = cols.long().reshape(*cols.shape, *([1] * (table.dim() - 2)))
+    return table.gather(1, idx.expand(*cols.shape, *table.shape[2:]))
+
+
+def _put_rows(table: torch.Tensor, cols: torch.Tensor,
+              rows: torch.Tensor) -> torch.Tensor:
+    """Write (B, A, ...) rows into the (B, C, ...) table in place at the
+    (distinct) columns ``cols``."""
+    idx = cols.long().reshape(*cols.shape, *([1] * (table.dim() - 2)))
+    return table.scatter_(1, idx.expand_as(rows), rows)
+
+
+def _dense(cols: torch.Tensor, rows: torch.Tensor,
+           column_dim: int) -> torch.Tensor:
+    """(B, A) cols + (B, A, ...) rows -> (B, C, ...) zero elsewhere."""
+    out = rows.new_zeros((rows.shape[0], column_dim, *rows.shape[2:]))
+    return _put_rows(out, cols, rows)
+
+
+def _winner_selection(cfg: TMConfig, state: TMState, draws: Draws,
+                      active_cols, pred_rows):
+    """Steps 1-2 in active-column space (`temporal_memory.py:106-161`).
+    Returns (col_burst (B, A), winner_rows (B, A, D), cell_max_j
+    (B, A, D), seg_j (B, A, G))."""
+    D, G, K = cfg.cell_dim, cfg.segments_per_column, cfg.synapse_capacity
+    B, A = active_cols.shape
+    col_burst = ~pred_rows.any(-1)
+
+    # per-segment potential at the active rows, re-derived from the
+    # activity the previous forward pass cached (the table is unchanged)
+    pot_rows, _ = seg_counts_packed_rows(
+        _rows(state.synapse_act, active_cols).reshape(B, A, G, K), K)
+    match_rows = pot_rows >= cfg.segment_matching_threshold
+    segcell_rows = _rows(state.seg_cell, active_cols)
+
+    # jittered best matching segment per cell (networks.py:73-82)
+    seg_j = torch.where(match_rows,
+                        pot_rows.to(torch.float32) + draws.u_seg, 0.0)
+    cell_max_j = percell_max(segcell_rows, seg_j, D, 0.0)
+    col_matching = cell_max_j.amax(-1) >= cfg.segment_matching_threshold
+
+    # jittered least-used cell (networks.py:84-89)
+    seg_count = percell_sum(segcell_rows, torch.ones_like(segcell_rows),
+                            D).to(torch.float32)
+    least_j = seg_count + draws.u_least
+
+    # a bursting column picks exactly one winner (networks.py:102-104)
+    burst_score = torch.where(col_matching[..., None], cell_max_j,
+                              -least_j)
+    winner_rows = pred_rows | (col_burst[..., None]
+                               & argmax_onehot(burst_score))
+    return col_burst, winner_rows, cell_max_j, seg_j
+
+
+def _allocate(cfg: TMConfig, segcell_rows, syn_rows, match_rows, unacc):
+    """Segment allocation for unaccounted winner cells, by deterministic
+    rank pairing (`temporal_memory.py:164-218`): eligible slots ordered
+    recyclable-allocated, then unallocated, then (policy "evict") mature
+    non-matching slots by ascending live count; the i-th unaccounted cell
+    takes the i-th slot. Returns (new_seg (B, A, G), new_owner
+    (B, A, G), n_dropped (B,), n_evicted (B,))."""
+    D, G = cfg.cell_dim, cfg.segments_per_column
+    syn_count = (syn_rows >= 0).sum(-1, dtype=torch.int32)      # (B, A, G)
+    recyclable = syn_count < cfg.segment_matching_threshold
+    unallocated = segcell_rows >= D
+    g = torch.arange(G, dtype=torch.int32, device=syn_rows.device)
+    key = g + G * unallocated.to(torch.int32)
+    if cfg.allocation_policy == "evict":
+        evictable = ~match_rows & ~recyclable
+        key = torch.where(recyclable, key, 2 * G + syn_count * G + g)
+        eligible = recyclable | evictable
+    else:
+        evictable = torch.zeros_like(recyclable)
+        eligible = recyclable
+    # rank among eligible slots by ascending key (keys are distinct)
+    elig_rank = torch.where(
+        eligible,
+        ((key[..., :, None] > key[..., None, :])
+         & eligible[..., None, :]).sum(-1, dtype=torch.int32),
+        -1)
+    un_rank = torch.where(unacc, rank_ascending(unacc), -2)      # (B, A, D)
+    assign = (eligible[..., :, None] & unacc[..., None, :]
+              & (elig_rank[..., :, None] == un_rank[..., None, :]))
+    new_seg = assign.any(-1)
+    d = torch.arange(D, dtype=torch.int32, device=syn_rows.device)
+    new_owner = (assign * d).sum(-1, dtype=torch.int32)
+    n_dropped = (unacc.sum((1, 2), dtype=torch.int32)
+                 - assign.sum((1, 2, 3), dtype=torch.int32))
+    n_evicted = (new_seg & evictable).sum((1, 2), dtype=torch.int32)
+    return new_seg, new_owner, n_dropped, n_evicted
+
+
+def _select_and_fill(pkey, valid, n_grow, free, samp: int, cell_bits: int):
+    """`sortfill_packed_cell` (`temporal_memory.py:221-314`): per row,
+    the ``n_grow`` smallest valid keys, their cells (the low
+    ``cell_bits`` bits) written into the first free slots.
+
+    The keys are sorted as int64. A valid key is below 2^31 and may be
+    exactly 0x7FFFFFFF at 2^16 cells, so an int32 sort against a
+    0xFFFFFFFF sentinel (which would read as -1) would put the invalid
+    keys first; the sentinel here is 2^32 - 1 and ``n_valid`` counts
+    the mask. Returns (gathered (B, L, K), wrote_l (B, L, K),
+    n_chosen (B, L))."""
+    Wc = pkey.shape[-1]
+    free_rank = rank_ascending(free)                            # (B, L, K)
+    n_chosen = torch.minimum(n_grow, valid.sum(-1, dtype=torch.int32))
+    kk = min(samp, Wc)
+    keys = torch.where(valid, pkey, (1 << 32) - 1)
+    sorted_key = torch.sort(keys, dim=-1).values[..., :kk]
+    chosen_cell = (sorted_key & ((1 << cell_bits) - 1)).to(torch.int32)
+    # slot k takes the free_rank[k]-th chosen cell
+    pick = free_rank.clamp(0, kk - 1).long()
+    gathered = chosen_cell.gather(-1, pick)
+    wrote_l = free & (free_rank < n_chosen[..., None])
+    return gathered, wrote_l, n_chosen
+
+
+def _grow(cfg: TMConfig, rnd, syn_rows, perm_rows, learn_rows,
+          act_prev_rows, prev_cols, prev_winner_bits):
+    """Synapse growth toward the previous winner cells
+    (`temporal_memory.py:350-498`, `projections.py:111-161`): each
+    learning segment grows clip(samp - active potential, 0,
+    min(samp, n_winners)) random candidates that it does not already
+    target, into its free slots. The growing segments are compacted to
+    an L-wide list first. Returns (syn_rows, perm_rows, n_grown,
+    overflow, n_winners_dropped, n_growth_dropped), counts (B,)."""
+    C, D, G, K = (cfg.column_dim, cfg.cell_dim, cfg.segments_per_column,
+                  cfg.synapse_capacity)
+    Wc, L = cfg.resolved_winner_capacity, cfg.resolved_growth_capacity
+    samp = cfg.segment_sampling_synapses
+    B, A = prev_cols.shape
+    dev = syn_rows.device
+
+    n_winners = popcount32(prev_winner_bits).sum((1, 2), dtype=torch.int32)
+
+    # candidates: previous winner cells, ascending id, the Wc lowest
+    grid_cell = (prev_cols[..., None] * D
+                 + torch.arange(D, dtype=torch.int32, device=dev)
+                 ).reshape(B, A * D)
+    grid_valid = unpack_bits(prev_winner_bits, D).reshape(B, A * D)
+    cand_cell, cand_valid = compact_first_k(grid_valid, grid_cell, Wc)
+    n_winners_eff = torch.clamp(n_winners, max=Wc)
+
+    # the growing segments, compacted to L rows (ascending slot id);
+    # invalid rows point at the padding row A*G
+    learn_flat = learn_rows.reshape(B, A * G)
+    slots = torch.arange(A * G, dtype=torch.int32,
+                         device=dev).expand(B, A * G)
+    lidx, lvalid = compact_first_k(learn_flat, slots, L)
+    lidx = torch.where(lvalid, lidx, A * G).long()
+    take = lidx.clamp(max=A * G - 1)[..., None].expand(B, L, K)  # clipped
+    syn_l = syn_rows.reshape(B, A * G, K).gather(1, take)
+    act_l = act_prev_rows.reshape(B, A * G, K).gather(1, take)
+    live_l = syn_l >= 0
+    row_potential = (act_l & live_l).sum(-1, dtype=torch.int32)  # (B, L)
+    n_grow = torch.where(
+        lvalid,
+        torch.minimum(torch.clamp(samp - row_potential, min=0),
+                      torch.clamp(n_winners_eff, max=samp)[:, None]),
+        0)
+
+    # existing targets: only active live synapses can target a candidate,
+    # and only rows with potential < samp grow, so the first samp active
+    # targets suffice (temporal_memory.py:425-449)
+    if samp < K:
+        act_valid = act_l & live_l
+        r_act = rank_ascending(act_valid)
+        r_act = torch.where(act_valid & (r_act < samp), r_act, samp)
+        syn_cmp = torch.full((B, L, samp + 1), -1, dtype=torch.int32,
+                             device=dev)
+        syn_cmp.scatter_(-1, r_act.long(), syn_l)
+        syn_cmp = syn_cmp[..., :samp]
+    else:
+        syn_cmp = syn_l
+    existing = (syn_cmp[..., :, None]
+                == cand_cell[:, None, None, :]).any(-2)          # (B, L, Wc)
+    valid = cand_valid[:, None, :] & ~existing
+    n_cells = C * D
+    cell_bits = max(1, (n_cells - 1).bit_length())
+    free = ~live_l
+    # random bits above the cell id (logical shift: rnd carries 32 bits)
+    pkey = ((lsr32(rnd, cell_bits + 1).to(torch.int64) << cell_bits)
+            | cand_cell[:, None, :].to(torch.int64))
+    gathered, wrote_l, n_chosen = _select_and_fill(
+        pkey, valid, n_grow, free, samp, cell_bits)
+    new_syn_l = torch.where(wrote_l, gathered, syn_l)
+
+    # scatter the L rows back; invalid rows land in the padding row
+    idx = lidx[..., None].expand(B, L, K)
+    syn_pad = torch.cat(
+        [syn_rows.reshape(B, A * G, K),
+         syn_rows.new_full((B, 1, K), -1)], 1)
+    syn_rows = syn_pad.scatter_(1, idx, new_syn_l)[:, :A * G].reshape(
+        B, A, G, K)
+    wrote = torch.zeros((B, A * G + 1, K), dtype=torch.bool, device=dev)
+    wrote = wrote.scatter_(1, idx, wrote_l)[:, :A * G].reshape(B, A, G, K)
+    perm_rows = torch.where(wrote, cfg.permanence_initial, perm_rows)
+
+    n_free = free.sum(-1, dtype=torch.int32)
+    overflow = (torch.clamp(n_chosen - n_free, min=0) * lvalid).sum(
+        -1, dtype=torch.int32)
+    n_growth_dropped = (learn_flat.sum(-1, dtype=torch.int32)
+                        - lvalid.sum(-1, dtype=torch.int32))
+    return (syn_rows, perm_rows, wrote_l.sum((1, 2), dtype=torch.int32),
+            overflow,
+            n_winners - n_winners_eff, n_growth_dropped)
+
+
+def _learn(cfg: TMConfig, state: TMState, draws: Draws, active_cols,
+           pred_rows, winner_rows, cell_max_j, seg_j):
+    """Step 3 minus punishment, in active-column row space
+    (`temporal_memory.py:501-643`, `projections.py:257-293`). A no-op on
+    step 0 (`projections.py:258-259`). Writes the rows back into
+    ``state.synapse_cell`` / ``state.synapse_perm`` in place and returns
+    (seg_cell, metrics)."""
+    D, G, K = cfg.cell_dim, cfg.segments_per_column, cfg.synapse_capacity
+    B, A = active_cols.shape
+    has_prev = (state.step > 0)[:, None, None]
+
+    segcell_rows = _rows(state.seg_cell, active_cols)
+    syn_rows = _rows(state.synapse_cell, active_cols).reshape(B, A, G, K)
+    perm_rows = _rows(state.synapse_perm, active_cols).reshape(B, A, G, K)
+    # slots killed by punishment keep a stale target; clean them here
+    stale = perm_rows < 0.0
+    syn_rows = torch.where(stale, -1, syn_rows)
+    perm_rows = torch.where(stale, -1.0, perm_rows)
+    act_prev_raw = _rows(state.synapse_act, active_cols).reshape(B, A, G, K)
+    act_prev_rows = act_prev_raw != 0
+    pot_rows, conn_rows = seg_counts_packed_rows(act_prev_raw, K)
+    match_rows = pot_rows >= cfg.segment_matching_threshold
+    active_seg_rows = match_rows & (
+        conn_rows >= cfg.segment_activation_threshold)
+
+    owner_pred = take_percell(pred_rows, segcell_rows, D, False)
+    owner_winner = take_percell(winner_rows, segcell_rows, D, False)
+    owner_max = take_percell(cell_max_j, segcell_rows, D, 0.0)
+    seg_best = match_rows & ((seg_j - owner_max).abs() < cfg.epsilon)
+    learn_rows = (match_rows & owner_winner
+                  & (active_seg_rows | (~owner_pred & seg_best))
+                  & has_prev)
+
+    # segment allocation for unaccounted winners (recycle first)
+    unacc = winner_rows & (cell_max_j < cfg.epsilon) & has_prev
+    new_seg, new_owner, n_dropped, n_evicted = _allocate(
+        cfg, segcell_rows, syn_rows, match_rows, unacc)
+    segcell_rows = torch.where(new_seg, new_owner, segcell_rows)
+    syn_rows = torch.where(new_seg[..., None], -1, syn_rows)
+    perm_rows = torch.where(new_seg[..., None], -1.0, perm_rows)
+    learn_rows = learn_rows | new_seg
+
+    # permanence update and death on learning rows
+    live_rows = syn_rows >= 0
+    delta = torch.where(act_prev_rows, cfg.permanence_increment,
+                        -cfg.permanence_decrement).to(torch.float32)
+    perm_rows = perm_rows + (learn_rows[..., None] & live_rows) * delta
+    dead_rows = live_rows & (perm_rows < 0.0)
+    syn_rows = torch.where(dead_rows, -1, syn_rows)
+    perm_rows = torch.where(dead_rows, -1.0, perm_rows)
+
+    (syn_rows, perm_rows, n_grown, overflow, winners_dropped,
+     growth_dropped) = _grow(cfg, draws.rnd, syn_rows, perm_rows,
+                             learn_rows, act_prev_rows, state.active_cols,
+                             state.winner_bits)
+
+    # write the rows back (the punishment pass touches only other columns)
+    _put_rows(state.synapse_cell, active_cols, syn_rows.reshape(B, A, -1))
+    _put_rows(state.synapse_perm, active_cols, perm_rows.reshape(B, A, -1))
+    seg_cell = _put_rows(state.seg_cell.clone(), active_cols, segcell_rows)
+
+    metrics = {
+        "tm_new_segments": new_seg.sum((1, 2), dtype=torch.int32),
+        "tm_grown_synapses": n_grown,
+        "tm_learning_segments": learn_rows.sum((1, 2), dtype=torch.int32),
+        "tm_dropped_new_segments": n_dropped,
+        "tm_evicted_segments": n_evicted,
+        "tm_dropped_synapses": overflow,
+        "tm_dropped_winner_candidates": winners_dropped,
+        "tm_dropped_growth_segments": growth_dropped,
+    }
+    return seg_cell, metrics
+
+
+def _check_supported(cfg: TMConfig) -> None:
+    cell_bits = max(1, (cfg.num_cells - 1).bit_length())
+    if cell_bits > MAX_PACKED_CELL_BITS:
+        raise NotImplementedError(
+            f"{cfg.num_cells} cells need the index-keyed growth selection "
+            f"(sortfill_packed_idx, above 2^{MAX_PACKED_CELL_BITS} cells), "
+            f"which the PyTorch port does not have yet")
+
+
+def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
+            active_cols: torch.Tensor, learning: bool = True,
+            compute_winner: bool = True, detailed_metrics: bool = True,
+            col_active: torch.Tensor | None = None,
+            dense_outputs: bool = True) -> tuple[TMState, TMOutput]:
+    """One TM timestep for B streams (`temporal_memory.py:713-996`).
+
+    ``active_cols`` (B, A) is the SP's top-k list in any order (sorted
+    here). ``draws`` holds this step's random numbers (`rng.Draws`); it
+    may be None when neither ``learning`` nor ``compute_winner`` is set.
+    ``col_active`` optionally passes the matching (B, C) mask. With
+    ``dense_outputs=False`` the (B, N) masks of `TMOutput` are None."""
+    _check_supported(cfg)
+    C, D, G, K = (cfg.column_dim, cfg.cell_dim, cfg.segments_per_column,
+                  cfg.synapse_capacity)
+    B, A = active_cols.shape
+    if (learning or compute_winner) and draws is None:
+        raise ValueError("a learning or winner-computing step needs draws")
+    active_cols = torch.sort(active_cols.to(torch.int32), dim=-1).values
+
+    prev_prediction = state.prediction                          # (B, W, C)
+    W = prev_prediction.shape[1]
+    pred_rows = unpack_bits(
+        prev_prediction.gather(
+            2, active_cols.long()[:, None, :].expand(B, W, A)
+        ).transpose(1, 2), D)                                   # (B, A, D)
+    if col_active is None:
+        col_active = column_mask_from_cols(active_cols, C)
+
+    if learning or compute_winner:
+        col_burst, winner_rows, cell_max_j, seg_j = _winner_selection(
+            cfg, state, draws, active_cols, pred_rows)
+    else:
+        col_burst = ~pred_rows.any(-1)
+        winner_rows = torch.zeros_like(pred_rows)
+
+    # activation: predicted cells + whole bursting columns
+    act_rows = pred_rows | col_burst[..., None]
+    act_bits = pack_bits(act_rows)                              # (B, A, W)
+
+    if learning:
+        seg_cell, learn_metrics = _learn(
+            cfg, state, draws, active_cols, pred_rows, winner_rows,
+            cell_max_j, seg_j)
+        # punish the matching segments of inactive columns
+        # (projections.py:269,290-293), fused into the table pass
+        pun_word = torch.where(
+            col_active | (state.step <= 0)[:, None], 0,
+            state.matching_word)
+        (perm_full, act_now, _, _, matching, _,
+         prediction) = table_update(
+            state.synapse_cell, state.synapse_perm, state.synapse_act,
+            pun_word, active_cols, act_bits, seg_cell, D,
+            cfg.permanence_punishment, cfg.permanence_threshold,
+            cfg.segment_matching_threshold,
+            cfg.segment_activation_threshold)
+        if detailed_metrics:
+            learn_metrics["tm_punished_segments"] = popcount32(
+                pun_word).sum(-1, dtype=torch.int32)
+            learn_metrics["tm_punished_columns"] = (pun_word != 0).sum(
+                -1, dtype=torch.int32)
+    else:
+        # inference: the tables are frozen; only the forward pass runs
+        perm_full, seg_cell, learn_metrics = (
+            state.synapse_perm, state.seg_cell, {})
+        act_now = synapse_activation_conn(
+            state.synapse_cell, perm_full, active_cols, act_bits, D,
+            cfg.permanence_threshold, K)
+        potential, connected = seg_counts_packed(act_now, G, K)
+        matching = potential >= cfg.segment_matching_threshold
+        seg_active = matching & (
+            connected >= cfg.segment_activation_threshold)
+        prediction = prediction_words(seg_cell, seg_active, D)
+
+    new_state = TMState(
+        synapse_cell=state.synapse_cell,
+        synapse_perm=perm_full,
+        seg_cell=seg_cell,
+        active_cols=active_cols,
+        active_bits=act_bits,
+        winner_bits=pack_bits(winner_rows),
+        synapse_act=act_now,
+        prediction=prediction,
+        matching_word=pack_bits(matching)[..., 0],  # G <= 32
+        step=state.step + 1,
+    )
+
+    metrics = {
+        "tm_bursting_columns": col_burst.sum(-1, dtype=torch.int32),
+        "tm_active_cells": act_rows.sum((1, 2), dtype=torch.int32),
+        "tm_winner_cells": winner_rows.sum((1, 2), dtype=torch.int32),
+        **learn_metrics,
+    }
+    if detailed_metrics:
+        metrics.update(
+            tm_predicted_cells=popcount32(prediction).sum(
+                (1, 2), dtype=torch.int32),
+            tm_matching_segments=matching.sum((1, 2), dtype=torch.int32),
+            tm_pool_occupancy=(seg_cell < D).sum((1, 2), dtype=torch.int32),
+        )
+    dense = {k: None for k in ("active_mask", "winner_mask", "prediction",
+                               "prev_prediction")}
+    if dense_outputs:
+        N = C * D
+        dense = dict(
+            active_mask=_dense(active_cols, act_rows, C).reshape(B, N),
+            winner_mask=_dense(active_cols, winner_rows, C).reshape(B, N),
+            prediction=unpack_bits(prediction.transpose(1, 2),
+                                   D).reshape(B, N),
+            prev_prediction=unpack_bits(prev_prediction.transpose(1, 2),
+                                        D).reshape(B, N),
+        )
+    out = TMOutput(
+        prev_col_prediction=(prev_prediction != 0).any(-2),
+        bursting_columns=_dense(active_cols, col_burst, C),
+        metrics=metrics,
+        **dense,
+    )
+    return new_state, out

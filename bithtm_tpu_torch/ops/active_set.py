@@ -1,0 +1,284 @@
+"""Compact active-set encoding and the full-table pass.
+
+Counterpart of `bithtm_tpu/ops/active_set.py`. HTM activates exactly A
+columns per step, so the active (and winner) cell sets are carried as
+
+    cols: (B, A) int32     the active column ids
+    bits: (B, A, W) int32  per-column cell bitmask (32-bit words), W = ceil(D/32)
+
+Every function takes a leading stream axis B. The full-table pass
+(`table_update`, `synapse_activation_conn`) asks, for every synapse slot,
+whether its presynaptic cell is in that set; on a CUDA tensor it runs
+the hand-written kernel of `ops/kernels.py`, on a CPU tensor the plain
+version beside it (`table_update_ref`, `synapse_activation_conn_ref`).
+The plain versions gather from a dense (B, C*D) active-cell mask; the
+kernel builds the same mask as a bitmap in shared memory.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .bitops import wrap_u32
+
+
+def cell_words(cell_dim: int) -> int:
+    return (cell_dim + 31) // 32
+
+
+def act_scale(synapses: int) -> int:
+    """Scale of the packed activity v = act + scale*conn (conn implies
+    act, so v is 0, 1 or 1+scale); scale > synapses, so a per-segment sum
+    r = potential + scale*connected decodes exactly. The smallest power
+    of two above `synapses`, except synapses+1 where that keeps 1+scale
+    within int8 (K=64 gives 65)."""
+    s = 1 << synapses.bit_length()
+    if s + 1 > 127 and synapses <= 125:
+        return synapses + 1
+    return s
+
+
+def act_dtype(synapses: int) -> torch.dtype:
+    """uint8 when 1+scale <= 127 (every shipped K), bf16 when the scale
+    is bf16-exact, float32 above."""
+    scale = act_scale(synapses)
+    if 1 + scale <= 127:
+        return torch.uint8
+    return torch.bfloat16 if scale <= 128 else torch.float32
+
+
+def pack_act_conn(act: torch.Tensor, conn: torch.Tensor,
+                  synapses: int) -> torch.Tensor:
+    """(bool act, bool conn) -> packed activity value (see act_scale)."""
+    scale = act_scale(synapses)
+    v = torch.where(act, torch.where(conn, 1 + scale, 1), 0)
+    return v.to(act_dtype(synapses))
+
+
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """(..., D) bool -> (..., W) int32 words (bit d of word d//32)."""
+    D = mask.shape[-1]
+    W = cell_words(D)
+    pad = W * 32 - D
+    if pad:
+        mask = torch.cat([mask, mask.new_zeros((*mask.shape[:-1], pad))],
+                         dim=-1)
+    m = mask.reshape(*mask.shape[:-1], W, 32).to(torch.int64)
+    weights = torch.ones(32, dtype=torch.int64, device=mask.device) << \
+        torch.arange(32, device=mask.device)
+    return wrap_u32((m * weights).sum(-1))
+
+
+def unpack_bits(bits: torch.Tensor, cell_dim: int) -> torch.Tensor:
+    """(..., W) int32 words -> (..., D) bool."""
+    W = bits.shape[-1]
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    expanded = (bits[..., None] >> shifts) & 1                 # (..., W, 32)
+    flat = expanded.reshape(*bits.shape[:-1], W * 32)
+    return flat[..., :cell_dim] != 0
+
+
+def prediction_words(seg_cell: torch.Tensor, seg_active: torch.Tensor,
+                     cell_dim: int) -> torch.Tensor:
+    """(B, C, G) owner cells + active flags -> (B, W, C) int32 packed
+    per-cell prediction: bit d of word [b, w, c] is set iff some active
+    segment of column c is owned by cell w*32 + d. The unallocated
+    owner (seg_cell == cell_dim) never lands in a word. torch has no OR
+    reduction, so the segment axis is OR-ed in a loop over G."""
+    G = seg_cell.shape[-1]
+    words = []
+    for w in range(cell_words(cell_dim)):
+        upper = min(32 * (w + 1), cell_dim)
+        in_w = seg_active & (seg_cell >= 32 * w) & (seg_cell < upper)
+        sft = (seg_cell - 32 * w).clamp(0, 31).to(torch.int64)
+        bit = torch.where(in_w, torch.ones_like(sft) << sft, 0)
+        acc = bit[..., 0]
+        for g in range(1, G):
+            acc = acc | bit[..., g]
+        words.append(wrap_u32(acc))
+    return torch.stack(words, dim=-2)
+
+
+def column_mask_from_cols(cols: torch.Tensor, column_dim: int
+                          ) -> torch.Tensor:
+    """(..., A) column ids -> (..., C) bool mask."""
+    out = torch.zeros((*cols.shape[:-1], column_dim), dtype=torch.bool,
+                      device=cols.device)
+    return out.scatter_(-1, cols.long(), True)
+
+
+def active_cell_mask(cols: torch.Tensor, bits: torch.Tensor,
+                     column_dim: int, cell_dim: int) -> torch.Tensor:
+    """Compact (B, A) cols + (B, A, W) bits -> dense (B, C*D) bool mask
+    of active cells, indexed by global cell id c*D + d."""
+    B, A = cols.shape
+    rows = unpack_bits(bits, cell_dim)                         # (B, A, D)
+    mask = torch.zeros((B, column_dim, cell_dim), dtype=torch.bool,
+                       device=cols.device)
+    mask.scatter_(1, cols.long()[:, :, None].expand(B, A, cell_dim), rows)
+    return mask.reshape(B, column_dim * cell_dim)
+
+
+def _slot_active(syn: torch.Tensor, perm: torch.Tensor, cols, bits,
+                 cell_dim: int) -> torch.Tensor:
+    """act[b, c, j]: slot is live (syn >= 0, perm >= 0) and its
+    presynaptic cell is in the (cols, bits) active set."""
+    B, C, J = syn.shape
+    N = C * cell_dim
+    mask = active_cell_mask(cols, bits, C, cell_dim)
+    idx = syn.clamp(0, N - 1).reshape(B, C * J).long()
+    hit = mask.gather(1, idx).reshape(B, C, J)
+    return hit & (syn >= 0) & (syn < N) & (perm >= 0.0)
+
+
+def synapse_activation_conn_ref(syn, perm, cols, bits, cell_dim: int,
+                                perm_threshold: float, synapses: int
+                                ) -> torch.Tensor:
+    """Plain version of the `act_conn` kernel: packed activity
+    v = act + scale*(perm >= threshold) over a read-only table."""
+    thr = torch.tensor(perm_threshold, dtype=torch.float32)
+    act = _slot_active(syn, perm, cols, bits, cell_dim)
+    return pack_act_conn(act, perm >= thr, synapses)
+
+
+def table_update_ref(syn, perm, act_prev, pun_word, cols, bits,
+                     cell_dim: int, synapses: int, punishment: float,
+                     perm_threshold: float) -> torch.Tensor:
+    """Plain version of the `table_update` kernel. Punishes in place:
+    perm -= punishment where bit g = j // K of the column's ``pun_word``
+    is set and ``act_prev != 0``; then returns the packed activity of
+    the punished table. A slot is dead iff perm < 0, so a slot the
+    punishment kills drops out of the activity without a syn write."""
+    J = syn.shape[-1]
+    g_lane = torch.arange(J, device=syn.device) // synapses
+    pen = (((pun_word[:, :, None] >> g_lane) & 1) == 1) & (act_prev != 0)
+    pun = torch.tensor(punishment, dtype=torch.float32)
+    perm.copy_(torch.where(pen, perm - pun, perm))
+    return synapse_activation_conn_ref(syn, perm, cols, bits, cell_dim,
+                                       perm_threshold, synapses)
+
+
+def _on_device(name: str, t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(
+            f"{name}: tensors on {t.device} are not supported; the plain "
+            f"version runs on the CPU and the kernel on CUDA")
+    return t.device.type
+
+
+def synapse_activation_conn(syn, perm, cols, bits, cell_dim: int,
+                            perm_threshold: float, synapses: int
+                            ) -> torch.Tensor:
+    """Activation + connected activity over a frozen table (the
+    inference forward): the `act_conn` kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if _on_device("synapse_activation_conn", syn) == "cuda":
+        from .kernels import act_conn_cuda
+
+        return act_conn_cuda(syn, perm, cols, bits, cell_dim,
+                             perm_threshold, synapses)
+    return synapse_activation_conn_ref(syn, perm, cols, bits, cell_dim,
+                                       perm_threshold, synapses)
+
+
+def table_update(syn, perm, act_prev, pun_word, cols, bits, seg_cell,
+                 cell_dim: int, punishment: float, perm_threshold: float,
+                 matching_threshold: int, activation_threshold: int):
+    """The full-table part of a learning TM step: punishment + implicit
+    death + activation (the `table_update` kernel for CUDA tensors, the
+    plain version for CPU tensors; perm is updated in place), then the
+    per-segment counts, flags and packed prediction as torch ops.
+
+    Returns (perm', act packed, potential, connected, matching,
+    seg_active, prediction (B, W, C))."""
+    G = seg_cell.shape[-1]
+    K = syn.shape[-1] // G
+    if _on_device("table_update", syn) == "cuda":
+        from .kernels import table_update_cuda
+
+        act = table_update_cuda(syn, perm, act_prev, pun_word, cols, bits,
+                                cell_dim, K, punishment, perm_threshold)
+    else:
+        act = table_update_ref(syn, perm, act_prev, pun_word, cols, bits,
+                               cell_dim, K, punishment, perm_threshold)
+    potential, connected = seg_counts_packed(act, G, K)
+    matching = potential >= matching_threshold
+    seg_active = matching & (connected >= activation_threshold)
+    prediction = prediction_words(seg_cell, seg_active, cell_dim)
+    return perm, act, potential, connected, matching, seg_active, prediction
+
+
+def seg_counts_packed(packed: torch.Tensor, num_segments: int,
+                      synapses: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, C, G*K) packed activity -> (potential, connected) int32 (B, C, G)
+    per-segment counts: a (B, C, G, K) reshape-sum decoded exactly."""
+    B, C, _ = packed.shape
+    return seg_counts_packed_rows(
+        packed.reshape(B, C, num_segments, synapses), synapses)
+
+
+def seg_counts_packed_rows(act_rows: torch.Tensor, synapses: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., K) packed activity rows -> (potential, connected) int32."""
+    scale = act_scale(synapses)
+    r = act_rows.to(torch.int32).sum(-1, dtype=torch.int32)
+    connected = r // scale
+    return r - scale * connected, connected
+
+
+def compact_first_k(valid: torch.Tensor, values: torch.Tensor, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per row, the first k ``values[valid]`` in index order. Returns
+    (out (B, k), out_valid (B, k)); out is 0 past the valid count.
+    Entries past k land in a padding column that is sliced off."""
+    B = valid.shape[0]
+    rank = rank_ascending(valid)
+    pos = torch.where(valid & (rank < k), rank, k).long()
+    out = values.new_zeros((B, k + 1)).scatter_(1, pos, values)[:, :k]
+    n = valid.sum(-1, dtype=torch.int32, keepdim=True)
+    out_valid = torch.arange(k, device=valid.device) < n
+    return out, out_valid
+
+
+# ---- per-cell reductions over the segment axis. seg_cell holds the
+# owner cell within its column; cell_dim marks an unallocated slot.
+
+
+def percell_max(seg_cell: torch.Tensor, values: torch.Tensor,
+                cell_dim: int, init) -> torch.Tensor:
+    """(..., G) owners + (..., G) values -> (..., D) per-cell max."""
+    d = torch.arange(cell_dim, device=seg_cell.device)
+    onehot = seg_cell[..., None] == d                          # (..., G, D)
+    return torch.where(onehot, values[..., None], init).amax(-2)
+
+
+def percell_sum(seg_cell: torch.Tensor, values: torch.Tensor,
+                cell_dim: int) -> torch.Tensor:
+    """(..., G) owners + (..., G) values -> (..., D) per-cell sum."""
+    d = torch.arange(cell_dim, device=seg_cell.device)
+    onehot = seg_cell[..., None] == d
+    return torch.where(onehot, values[..., None], 0).sum(-2,
+                                                          dtype=values.dtype)
+
+
+def take_percell(values: torch.Tensor, seg_cell: torch.Tensor,
+                 cell_dim: int, fill) -> torch.Tensor:
+    """values (..., D) at owners seg_cell (..., G) -> (..., G); the
+    unallocated owner yields ``fill``."""
+    picked = values.gather(-1, seg_cell.clamp(0, cell_dim - 1).long())
+    return torch.where(seg_cell < cell_dim, picked,
+                       torch.tensor(fill, dtype=values.dtype,
+                                    device=values.device))
+
+
+def rank_ascending(mask: torch.Tensor) -> torch.Tensor:
+    """0-based rank of each True among Trues along the last axis."""
+    return torch.cumsum(mask.to(torch.int32), dim=-1,
+                        dtype=torch.int32) - 1
+
+
+def argmax_onehot(values: torch.Tensor) -> torch.Tensor:
+    """One-hot of the first argmax along the last axis."""
+    idx = torch.argmax(values, dim=-1)
+    d = torch.arange(values.shape[-1], device=values.device)
+    return d == idx[..., None]

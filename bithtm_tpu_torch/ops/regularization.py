@@ -1,0 +1,63 @@
+"""Boosting and global inhibition (reference `regularizations.py:4-29`),
+counterpart of `bithtm_tpu/ops/regularization.py`."""
+
+from __future__ import annotations
+
+import torch
+
+from .active_set import column_mask_from_cols
+
+
+def boost_factor(duty_cycle: torch.Tensor, intensity: float,
+                 density: float) -> torch.Tensor:
+    """exp(-(intensity / density) * duty_cycle)."""
+    return torch.exp(-(intensity / density) * duty_cycle)
+
+
+def boost(overlaps: torch.Tensor, duty_cycle: torch.Tensor,
+          intensity: float, density: float) -> torch.Tensor:
+    """Boosted overlaps (f32). `torch.exp` may differ from XLA's `exp` by
+    one ulp, so the boost factor agrees with the JAX package within 1 ulp
+    and the boosted overlap, rounded once more by the product, within
+    2 ulp (ROADMAP.md, fault g)."""
+    return boost_factor(duty_cycle, intensity, density) * overlaps.to(
+        torch.float32)
+
+
+def _fma_f32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for float32 tensors, rounded once, as a fused
+    multiply-add rounds it. The product of two f32 values is exact in
+    f64; the f64 sum is rounded to odd (TwoSum error term, then the last
+    bit forced to 1 where inexact), which makes the final rounding to
+    f32 the correct single rounding."""
+    p = a.double() * float(torch.tensor(b, dtype=torch.float32))
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def duty_cycle_update(duty_cycle: torch.Tensor, active_mask: torch.Tensor,
+                      momentum: float) -> torch.Tensor:
+    """EMA of column activity, updated every step whether or not the
+    model learns (reference `networks.py:33`). XLA contracts the JAX
+    package's ``duty * momentum + mask * (1 - momentum)`` into one fused
+    multiply-add when it compiles the step, so the port rounds it once
+    too (`_fma_f32`); two roundings differ in the last bit on about one
+    value in seven."""
+    return _fma_f32(duty_cycle, momentum,
+                    active_mask.to(torch.float32) * (1.0 - momentum))
+
+
+def k_winners(boosted: torch.Tensor, k: int):
+    """Global inhibition: exact top-k along the last axis, ties to the
+    lowest index (as `jax.lax.top_k`), through a stable descending sort;
+    `torch.topk` promises no tie order. Returns ((..., k) int32 indices
+    in descending value order, (..., C) bool mask)."""
+    idx = torch.sort(boosted, dim=-1, descending=True,
+                     stable=True).indices[..., :k].to(torch.int32)
+    return idx, column_mask_from_cols(idx, boosted.shape[-1])

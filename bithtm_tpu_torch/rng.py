@@ -1,0 +1,51 @@
+"""Random draws of the temporal memory, behind one provider object.
+
+Each step of the JAX package draws, per stream, two uniform tie-break
+jitters and the growth priorities (`temporal_memory.py:141,152,455`).
+The port takes all three from a provider's `step()`, so the tests can
+replay the JAX draws exactly while production draws from a
+`torch.Generator`. A provider is called once per HTM step; ``need`` is
+False when the step draws nothing (inference without winner cells).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .config import TMConfig
+
+
+class Draws(NamedTuple):
+    u_seg: torch.Tensor    # (B, A, G) f32 uniform in [0, 1)
+    u_least: torch.Tensor  # (B, A, D) f32 uniform in [0, 1)
+    rnd: torch.Tensor      # (B, L, Wc) int32 carrying 32 random bits
+
+
+class TorchDraws:
+    """Production provider: draws on ``device`` from ``generator``
+    (None: the device's default generator, seeded by
+    `torch.manual_seed`)."""
+
+    def __init__(self, cfg: TMConfig, batch: int, device,
+                 generator: torch.Generator | None = None):
+        self.cfg = cfg
+        self.batch = batch
+        self.device = torch.device(device)
+        self.generator = generator
+
+    def step(self, need: bool = True) -> Draws | None:
+        if not need:
+            return None
+        cfg, B, g = self.cfg, self.batch, self.generator
+        A, D, G = (cfg.active_columns, cfg.cell_dim,
+                   cfg.segments_per_column)
+        L, Wc = cfg.resolved_growth_capacity, cfg.resolved_winner_capacity
+        kw = dict(generator=g, device=self.device)
+        return Draws(
+            u_seg=torch.rand((B, A, G), dtype=torch.float32, **kw),
+            u_least=torch.rand((B, A, D), dtype=torch.float32, **kw),
+            rnd=torch.randint(-(1 << 31), 1 << 31, (B, L, Wc),
+                              dtype=torch.int32, **kw),
+        )

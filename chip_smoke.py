@@ -1,0 +1,471 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU: `python3 chip_smoke.py`.
+
+Builds the CUDA kernels from `bithtm_tpu_torch/csrc`, checks each one
+against its plain PyTorch version at the bench shapes, checks that the
+port learns and that its CUDA run agrees bit for bit with its CPU run on
+a small input, then drives the main path: the bench configuration
+(2048 columns x 32 cells, G=4 x K=64, int16 SP, B=256 streams) through
+`htm_scan`, 768 learning steps then inference, and checks that every
+kernel of that path was launched once a step, that the metrics are in
+range, that the graph learned to predict and that the state invariants
+hold. Then measures the steady window (the last 128 learning steps) three
+times from one snapshot with the same draws, times the phases of a step
+and profiles 16 of its steps on the device.
+
+Prints the card's name and power limit, the step times, the phase
+times, the profile, a JSON line of per-kernel results, and as the last
+line `{"ok": true, "device": {...}}`. Any
+failure raises and exits non-zero; without a GPU it exits non-zero
+before printing a result.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+import bithtm_tpu_torch as bt
+from bithtm_tpu_torch.models.htm import _step_metrics
+from bithtm_tpu_torch.ops import active_set as pas
+from bithtm_tpu_torch.ops import kernels
+from bithtm_tpu_torch.testing import table_inputs
+
+BENCH = dict(input_dim=1000, column_dim=2048, cell_dim=32,
+             segments_per_column=4, synapse_capacity=64,
+             sp_overrides={"permanence_dtype": "int16"})
+BATCH = 256
+# bench.py runs T=384 learning steps; the smoke runs twice that, so that
+# each of the 100 patterns repeats often enough for its segments to be
+# reinforced past the connection threshold and to predict
+LEARN_STEPS, INFER_STEPS = 768, 16
+# learning steps between two host timings; the last WINDOW learning
+# steps are the timed steady window
+WINDOW = 128
+REPEATS = 3     # runs of that window (the main run and replays)
+PROFILED_STEPS = 16
+# the small drive-recipe config: 64 inputs, 64 columns, 4 cells, A=4
+SMALL = dict(input_dim=64, column_dim=64, cell_dim=4, active_columns=4,
+             segment_activation_threshold=2, segment_matching_threshold=2,
+             segment_sampling_synapses=8)
+SOURCE = "bithtm_tpu_torch/csrc/table_pass.cu"
+REPLACES = {
+    "table_update": "bithtm_tpu/ops/pallas_kernels.py:489",
+    "act_conn": "bithtm_tpu/ops/pallas_kernels.py:698",
+}
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def gpu_info(dev: torch.device) -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    print(smi[dev.index or 0])
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}")
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+
+
+def cuda_ms(fn, n: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def check_kernels(dev) -> dict:
+    """Each kernel against its plain version at the bench shapes,
+    bit-equal, with CUDA-event times of both."""
+    B, C, D = BATCH, BENCH["column_dim"], BENCH["cell_dim"]
+    G, K = BENCH["segments_per_column"], BENCH["synapse_capacity"]
+    A = round(0.02 * C)
+    x = table_inputs(0, B, C, G, K, D, A, device=dev)
+    thr, pun = 0.5, 0.01
+    args = (x["syn"], x["act_prev"], x["pun_word"], x["cols"], x["bits"])
+    syn, act_prev, pun_word, cols, bits = args
+
+    p_ref, p_k = x["perm"].clone(), x["perm"].clone()
+    v_ref = pas.table_update_ref(syn, p_ref, act_prev, pun_word, cols, bits,
+                                 D, K, pun, thr)
+    v_k = kernels.table_update_cuda(syn, p_k, act_prev, pun_word, cols,
+                                    bits, D, K, pun, thr)
+    c_ref = pas.synapse_activation_conn_ref(syn, x["perm"], cols, bits, D,
+                                            thr, K)
+    c_k = kernels.act_conn_cuda(syn, x["perm"], cols, bits, D, thr, K)
+    torch.cuda.synchronize()
+    require(bool((v_ref > 1).any()) and bool((p_ref != x["perm"]).any()),
+            "the bench-shape inputs exercise connected and punished slots")
+    err_tu = max((v_k.float() - v_ref.float()).abs().max().item(),
+                 (p_k - p_ref).abs().max().item())
+    err_ac = (c_k.float() - c_ref.float()).abs().max().item()
+    require(torch.equal(v_k, v_ref), "table_update v == plain")
+    require(torch.equal(p_k.view(torch.int32), p_ref.view(torch.int32)),
+            "table_update perm' == plain, bit for bit")
+    require(torch.equal(c_k, c_ref), "act_conn v == plain")
+
+    p = x["perm"].clone()
+    times = {
+        "table_update": (
+            cuda_ms(lambda: kernels.table_update_cuda(
+                syn, p, act_prev, pun_word, cols, bits, D, K, pun, thr)),
+            cuda_ms(lambda: pas.table_update_ref(
+                syn, p, act_prev, pun_word, cols, bits, D, K, pun, thr))),
+        "act_conn": (
+            cuda_ms(lambda: kernels.act_conn_cuda(
+                syn, x["perm"], cols, bits, D, thr, K)),
+            cuda_ms(lambda: pas.synapse_activation_conn_ref(
+                syn, x["perm"], cols, bits, D, thr, K))),
+    }
+    errs = {"table_update": err_tu, "act_conn": err_ac}
+    for name, (ms, plain_ms) in times.items():
+        print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms at "
+              f"B={B} C={C} G={G} K={K} D={D} A={A}; bit-equal")
+    return {name: {"ms": times[name][0], "plain_ms": times[name][1],
+                   "max_abs_err": errs[name]} for name in times}
+
+
+class DrawsOn:
+    """Production draws made on one device and handed to another, so a
+    CPU run and a CUDA run take the same random numbers."""
+
+    def __init__(self, inner, dev):
+        self.inner, self.dev = inner, dev
+
+    def step(self, need=True):
+        d = self.inner.step(need)
+        return None if d is None else bt.Draws(*(t.to(self.dev) for t in d))
+
+
+def small_inputs(T, B, seed):
+    rng = np.random.RandomState(seed)
+    pats = rng.rand(5, SMALL["input_dim"]) < 0.2
+    t = np.arange(T)
+    return torch.from_numpy(pats[(t[:, None] + np.arange(B)[None]) % 5])
+
+
+def check_learning(dev) -> None:
+    """The drive recipe on the card: bursting falls and correct
+    predictions rise over the epochs."""
+    cfg = bt.make_htm_config(**SMALL)
+    B, T = 4, 60
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state = bt.htm_init_batch(cfg, B, gen, dev)
+    state, m = bt.htm_scan(cfg, state, small_inputs(T, B, 0).to(dev), True,
+                           draws=bt.TorchDraws(cfg.tm, B, dev, gen))
+    burst = m["bursting"].float().mean(1).cpu()
+    correct = m["correct"].float().mean(1).cpu()
+    print(f"learning check: bursting {burst[:5].mean():.2f} -> "
+          f"{burst[-5:].mean():.2f}, correct {correct[:5].mean():.2f} -> "
+          f"{correct[-5:].mean():.2f} of {cfg.sp.active_columns}")
+    require(burst[-5:].mean() < burst[:5].mean(), "bursting falls")
+    require(correct[-5:].mean() > correct[:5].mean(), "correct rises")
+
+
+def check_cpu_agreement(dev) -> None:
+    """The same small run on the CPU (plain versions) and on the card
+    (kernels, D=4), with the same draws: every state leaf and metric
+    equal. Boosting is off so that no `exp` rounding separates the
+    two devices' SP choices."""
+    cfg = bt.make_htm_config(**SMALL, sp_overrides={
+        "boosting_intensity": 0.0})
+    B, n_learn, n_inf = 4, 40, 8
+    x = small_inputs(n_learn + n_inf, B, 1)
+    results = []
+    for where in ("cpu", dev):
+        gen = torch.Generator().manual_seed(2)
+        state = bt.htm_init_batch(cfg, B, gen, "cpu")
+        state = bt.htm_state_from_numpy(bt.htm_state_to_numpy(state), where)
+        draws = DrawsOn(bt.TorchDraws(cfg.tm, B, "cpu", gen), where)
+        xs = x.to(where)
+        state, m1 = bt.htm_scan(cfg, state, xs[:n_learn], True, draws=draws)
+        state, m2 = bt.htm_scan(cfg, state, xs[n_learn:], False,
+                                draws=draws)
+        results.append((bt.htm_state_to_numpy(state),
+                        {k: v.cpu() for k, v in {**m1, **{
+                            f"inf_{k}": v for k, v in m2.items()}}.items()}))
+    (s_cpu, m_cpu), (s_gpu, m_gpu) = results
+    for part in ("sp", "tm"):
+        for name, arr in s_cpu[part].items():
+            require(np.array_equal(arr, s_gpu[part][name]),
+                    f"CPU and CUDA runs agree on {part}.{name}")
+    for k in m_cpu:
+        require(torch.equal(m_cpu[k], m_gpu[k]),
+                f"CPU and CUDA runs agree on metric {k}")
+    require(int(m_cpu["inf_correct"].sum()) > 0, "the small run learned")
+    print(f"CPU/CUDA agreement: {n_learn} learning + {n_inf} inference "
+          f"steps, B={B}, every state leaf and metric equal")
+
+
+def check_tm_invariants(tm) -> None:
+    """`bithtm_tpu/utils/checks.py:42-47`, restated: no NaN permanence,
+    a live permanence has a target, a free target has perm -1."""
+    perm, syn = tm.synapse_perm, tm.synapse_cell
+    require(not bool(torch.isnan(perm).any()), "no NaN permanence")
+    require(not bool(((perm >= 0) & (syn < 0)).any()),
+            "perm >= 0 implies syn >= 0")
+    require(bool((perm[syn < 0] == -1.0).all()), "syn < 0 implies perm == -1")
+
+
+def bench_inputs(cfg, B: int, T: int, dev) -> torch.Tensor:
+    """(T, B, I) inputs as bench.py builds them: 100 patterns at
+    density 0.2, repeated, with 5% of the bits flipped each step."""
+    rng = np.random.RandomState(0)
+    patterns = rng.rand(100, B, cfg.input_dim) < 0.2
+    return torch.from_numpy(patterns[np.arange(T) % 100]
+                            ^ (rng.rand(T, B, cfg.input_dim) < 0.05)).to(dev)
+
+
+def timed_scan(cfg, state, xs, learning: bool, draws):
+    """`htm_scan` with the host time of the run, synchronized at both
+    ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = bt.htm_scan(cfg, state, xs, learning, detailed_metrics=False,
+                           draws=draws)
+    torch.cuda.synchronize()
+    return state, m, time.perf_counter() - t0
+
+
+class Snapshot:
+    """The state and generator at the start of the steady window, with
+    the window's inputs, to run its steps again with the same draws."""
+
+    def __init__(self, cfg, state, gen, xs):
+        self.cfg, self.xs = cfg, xs
+        self.state = copy.deepcopy(state)
+        self.gen_state = gen.get_state()
+
+    def restore(self):
+        gen = torch.Generator(device=self.state.tm.step.device)
+        gen.set_state(self.gen_state)
+        return copy.deepcopy(self.state), bt.TorchDraws(
+            self.cfg.tm, self.state.batch, gen.device, gen)
+
+
+def run_main_path(dev):
+    """The bench configuration through `htm_scan`: LEARN_STEPS learning
+    steps, timed on the host every WINDOW steps (step 0 alone and
+    untimed), then INFER_STEPS inference steps over the learned graph.
+    Returns the launch counts of that run, a snapshot at the start of
+    the steady window (the last WINDOW learning steps) and the median
+    ms/step of REPEATS runs of that window."""
+    cfg = bt.make_htm_config(**BENCH)
+    B, A = BATCH, cfg.sp.active_columns
+    seq = bench_inputs(cfg, B, LEARN_STEPS + INFER_STEPS, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = bt.htm_init_batch(cfg, B, gen, dev)
+    draws = bt.TorchDraws(cfg.tm, B, dev, gen)
+    bounds = [0, 1, *range(WINDOW, LEARN_STEPS + 1, WINDOW)]
+    require(bounds[-1] == LEARN_STEPS, "LEARN_STEPS is a multiple of WINDOW")
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    chunks = []
+    for a, b in zip(bounds, bounds[1:]):
+        if b == LEARN_STEPS:
+            snap = Snapshot(cfg, state, gen, seq[a:b])
+        state, m, s = timed_scan(cfg, state, seq[a:b], True, draws)
+        chunks.append((a, b, s, m))
+    state, m_inf, infer_s = timed_scan(cfg, state, seq[LEARN_STEPS:], False,
+                                       draws)
+    launches = kernels.launch_counts()
+
+    require(launches == {"table_update": LEARN_STEPS,
+                         "act_conn": INFER_STEPS},
+            f"one launch per step of each kernel, got {launches}")
+    m_learn = {k: torch.cat([c[3][k] for c in chunks]) for k in chunks[0][3]}
+    for phase, m, n in (("learning", m_learn, LEARN_STEPS),
+                        ("inference", m_inf, INFER_STEPS)):
+        for k, v in m.items():
+            require(tuple(v.shape) == (n, B), f"{phase} {k} shape")
+            require(bool(torch.isfinite(v.float()).all()),
+                    f"{phase} {k} finite")
+        for k in ("bursting", "correct", "incorrect", "tm_bursting_columns"):
+            require(bool(((m[k] >= 0) & (m[k] <= A)).all()),
+                    f"{phase} {k} in [0, A]")
+        require(bool((m["tm_active_cells"] <= A * cfg.cell_dim).all()),
+                f"{phase} active cells <= A*D")
+    for k in ("tm_dropped_new_segments", "tm_dropped_synapses",
+              "tm_dropped_winner_candidates", "tm_dropped_growth_segments",
+              "tm_evicted_segments"):
+        require(k in m_learn and bool((m_learn[k] >= 0).all()),
+                f"{k} reported")
+    check_tm_invariants(state.tm)
+
+    def mean(m, k):
+        return m[k].double().mean().item()
+
+    print(f"main path on {torch.cuda.get_device_name(0)}: bench config, "
+          f"B={B}, A={A}; per stream and step: ms/step of the batch, "
+          f"bursting, correct and incorrect columns, new, reinforced and "
+          f"evicted segments")
+    for a, b, s, m in chunks + [(LEARN_STEPS, LEARN_STEPS + INFER_STEPS,
+                                 infer_s, m_inf)]:
+        learn = b <= LEARN_STEPS
+        seg = (f" new {mean(m, 'tm_new_segments'):.3f} reinforced "
+               f"{mean(m, 'tm_learning_segments') - mean(m, 'tm_new_segments'):.3f}"
+               f" evicted {mean(m, 'tm_evicted_segments'):.3f}"
+               if learn else "")
+        print(f"  {'learning' if learn else 'inference'} steps {a}-{b}: "
+              f"{1e3 * s / (b - a):.3f} ms/step; bursting "
+              f"{mean(m, 'bursting'):.2f} correct {mean(m, 'correct'):.2f} "
+              f"incorrect {mean(m, 'incorrect'):.2f};{seg}")
+    win_m = chunks[-1][3]
+    require(mean(win_m, "correct") > A / 2 and mean(m_inf, "correct") > A / 2,
+            "after learning, most active columns were predicted (the "
+            "reinforcement and prediction branches ran at bench width)")
+    win_ms = [1e3 * chunks[-1][2] / WINDOW]
+    for _ in range(REPEATS - 1):
+        st, d = snap.restore()
+        st, m, s = timed_scan(cfg, st, snap.xs, True, d)
+        require(all(torch.equal(m[k], win_m[k]) for k in win_m),
+                "a replay of the steady window reproduces its metrics")
+        win_ms.append(1e3 * s / WINDOW)
+        del st
+    med = statistics.median(win_ms)
+    perf = {
+        "learning_ms_per_step": med,
+        "learning_steps_per_s": 1e3 / med,
+        "learning_stream_steps_per_s": B * 1e3 / med,
+        "learning_window_ms_per_step_runs": win_ms,
+        "learning_ms_per_step_after_step_0":
+            1e3 * sum(c[2] for c in chunks[1:]) / (LEARN_STEPS - 1),
+        "inference_ms_per_step": 1e3 * infer_s / INFER_STEPS,
+        "streams": B,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    print(f"steady window: learning steps {LEARN_STEPS - WINDOW}-"
+          f"{LEARN_STEPS}, {REPEATS} runs (the main run and replays with "
+          f"the same draws, metrics equal): "
+          + ", ".join(f"{t:.3f}" for t in win_ms)
+          + f" ms/step; median {med:.3f} ms/step, {1e3 / med:.2f} steps/s, "
+          f"{B * 1e3 / med:.1f} stream-steps/s")
+    print("main path metrics: " + json.dumps(perf))
+    return launches, snap, med
+
+
+def time_phases(snap: Snapshot, xs) -> None:
+    """The phases of `htm_step` over len(xs) learning steps: the host
+    time each takes to issue its work (no synchronization inside the
+    step) and the span it covers on the stream (CUDA events), per step."""
+    cfg = snap.cfg
+    state, draws = snap.restore()
+    names = ("draws", "sp_step", "tm_step", "metrics")
+    host, events = dict.fromkeys(names, 0.0), []
+    torch.cuda.synchronize()
+    for x in xs:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        t = [time.perf_counter()]
+        ev[0].record()
+        d = draws.step(True)
+        t.append(time.perf_counter())
+        ev[1].record()
+        sp_state, sp_out = bt.sp_step(cfg.sp, state.sp, x, True)
+        t.append(time.perf_counter())
+        ev[2].record()
+        tm_state, tm_out = bt.tm_step(
+            cfg.tm, state.tm, d, sp_out.active_columns, True, True,
+            detailed_metrics=False, col_active=sp_out.active_mask,
+            dense_outputs=False)
+        t.append(time.perf_counter())
+        ev[3].record()
+        _step_metrics(cfg, sp_out, tm_out)
+        t.append(time.perf_counter())
+        ev[4].record()
+        state = bt.HTMState(sp=sp_state, tm=tm_state)
+        for i, name in enumerate(names):
+            host[name] += t[i + 1] - t[i]
+        events.append(ev)
+    torch.cuda.synchronize()
+    n = len(xs)
+    span = {name: sum(ev[i].elapsed_time(ev[i + 1]) for ev in events) / n
+            for i, name in enumerate(names)}
+    print(f"phases over {n} steady learning steps (ms/step, host issue / "
+          f"stream span): " + "; ".join(
+              f"{k} {1e3 * host[k] / n:.3f} / {span[k]:.3f}" for k in names))
+
+
+def profile_steps(snap: Snapshot, xs, window_ms: float) -> None:
+    """torch.profiler over len(xs) learning steps of `htm_scan`, after an
+    unprofiled run of the same steps from the same state and draws:
+    device time and launches per step, the top device ops, and the busy
+    share of the device."""
+    cfg = snap.cfg
+    n = len(xs)
+    state, draws = snap.restore()
+    _, _, plain_s = timed_scan(cfg, state, xs, True, draws)
+    del state
+    state, draws = snap.restore()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA], acc_events=True) as prof:
+        _, _, prof_s = timed_scan(cfg, state, xs, True, draws)
+    del state
+    per_op: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            c = per_op.setdefault(e.name, [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us() / 1e3
+    busy = sum(c[1] for c in per_op.values()) / n
+    launches = sum(c[0] for name, c in per_op.items()
+                   if not name.startswith(("Memcpy", "Memset"))) / n
+    plain_ms, prof_ms = 1e3 * plain_s / n, 1e3 * prof_s / n
+    require(busy > 0, "the profiler saw device time")
+    print(f"profile of learning steps {LEARN_STEPS - WINDOW}-"
+          f"{LEARN_STEPS - WINDOW + n}: device busy {busy:.3f} ms/step, "
+          f"{launches:.1f} kernel launches/step; the same steps take "
+          f"{plain_ms:.3f} ms/step unprofiled ({prof_ms:.3f} profiled): "
+          f"busy share {busy / plain_ms:.3f} (steady-window median "
+          f"{window_ms:.3f} ms/step)")
+    for name, (count, ms) in sorted(per_op.items(),
+                                    key=lambda kv: -kv[1][1])[:10]:
+        print(f"  {ms / n:8.3f} ms/step  {count / n:6.1f}/step  {name[:100]}")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA GPU; "
+                         "torch.cuda.is_available() is false")
+    dev = torch.device("cuda", 0)
+    device = gpu_info(dev)
+
+    t0 = time.perf_counter()
+    kernels.build(force=True)
+    print(f"kernels built from {SOURCE} in {time.perf_counter() - t0:.2f} s")
+
+    checks = check_kernels(dev)
+    check_learning(dev)
+    check_cpu_agreement(dev)
+    launches, snap, window_ms = run_main_path(dev)
+    time_phases(snap, snap.xs[:PROFILED_STEPS])
+    profile_steps(snap, snap.xs[:PROFILED_STEPS], window_ms)
+
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[name], "launches": launches[name],
+         **checks[name]} for name in REPLACES]}))
+    print(json.dumps({"ok": True, "device": device}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,125 @@
+"""The full-table pass of the PyTorch port on the CPU: plain versions
+against the JAX package, and the dispatch rules.
+
+`table_update_ref` and `synapse_activation_conn_ref` are checked against
+JAX `table_update_xla` / `synapse_activation_conn` (its XLA path on the
+CPU) and against the Pallas kernel `table_update_tpu` run in interpret
+mode on the salted-hash matcher shape of tests/test_pallas.py. The CUDA
+kernels run only on the card: tests/test_torch_cuda.py and
+`python3 chip_smoke.py` compare them with these plain versions.
+"""
+
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from bithtm_tpu.ops import active_set as jas
+from bithtm_tpu.ops.pallas_kernels import table_update_tpu
+
+from bithtm_tpu_torch.ops import active_set as pas
+from bithtm_tpu_torch.ops import kernels
+from bithtm_tpu_torch.testing import table_inputs
+
+SHAPES = [  # B, C, G, K, D, A
+    (2, 64, 4, 64, 32, 5),
+    (3, 40, 8, 48, 4, 6),
+    (2, 30, 3, 7, 33, 4),
+    (1, 16, 2, 16, 70, 3),
+]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_table_pass_matches_jax(shape):
+    """`table_update` (plain version + counts + prediction) equals JAX
+    `table_update_xla` in all seven outputs, and
+    `synapse_activation_conn` equals JAX `synapse_activation_conn`
+    (vmapped over the streams)."""
+    B, C, G, K, D, A = shape
+    x = table_inputs(sum(shape), *shape)
+    n = {k: v.numpy() for k, v in x.items()}
+    args = (0.01, 0.5, 3, 2)  # punishment, threshold, theta_m, theta_a
+    perm = x["perm"].clone()
+    got = pas.table_update(x["syn"], perm, x["act_prev"], x["pun_word"],
+                           x["cols"], x["bits"], x["seg_cell"], D, *args)
+    assert got[0] is perm  # punished in place
+    conn = pas.synapse_activation_conn(x["syn"], x["perm"], x["cols"],
+                                       x["bits"], D, 0.5, K)
+    bits = jnp.asarray(n["bits"].view(np.uint32))
+    want = jax.jit(jax.vmap(
+        lambda s, p, a, w, c, bb, sc: jas.table_update_xla(
+            s, p, a, w, c, bb, sc, D, *args)))(
+        n["syn"], n["perm"], n["act_prev"], n["pun_word"], n["cols"], bits,
+        n["seg_cell"])
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = np.asarray(w)
+        w = w.view(np.int32) if w.dtype == np.uint32 else w
+        np.testing.assert_array_equal(g.numpy(), w.astype(g.numpy().dtype),
+                                      err_msg=f"output {i}")
+    want_conn = jax.jit(jax.vmap(
+        lambda s, p, c, bb: jas.synapse_activation_conn(
+            s, p, c, bb, D, 0.5, K)))(n["syn"], n["perm"], n["cols"], bits)
+    np.testing.assert_array_equal(conn.numpy(), np.asarray(want_conn))
+
+
+def test_plain_table_update_matches_pallas_interpret():
+    """Against the TPU kernel itself (interpret mode) on the hash-matcher
+    shape of tests/test_pallas.py (C=512, G=4, K=64, A=41, D=32)."""
+    B, C, G, K, D, A = 1, 512, 4, 64, 32, 41
+    x = table_inputs(7, B, C, G, K, D, A, threshold=0.05)
+    n = {k: v[0].numpy() for k, v in x.items()}
+    perm = x["perm"].clone()
+    v = pas.table_update_ref(x["syn"], perm, x["act_prev"], x["pun_word"],
+                             x["cols"], x["bits"], D, K, 0.03, 0.05)
+    want_perm, want_v = table_update_tpu(
+        jnp.asarray(n["syn"]), jnp.asarray(n["perm"]),
+        jnp.asarray(n["act_prev"]), jnp.asarray(n["pun_word"]),
+        jnp.asarray(n["cols"]), jnp.asarray(n["bits"].view(np.uint32)),
+        D, K, 0.03, 0.05, block=128, interpret=True)
+    np.testing.assert_array_equal(perm[0].numpy(), np.asarray(want_perm))
+    np.testing.assert_array_equal(v[0].numpy(), np.asarray(want_v))
+    assert (v != 0).any() and (perm != x["perm"]).any()
+
+
+@pytest.mark.parametrize("fn", ["table_update", "synapse_activation_conn"])
+def test_dispatch_raises_off_cpu_and_cuda(fn):
+    """A tensor that is neither on the CPU nor on CUDA (a `meta` tensor
+    here) raises; nothing falls back to the plain version."""
+    D, K = 32, 64
+    meta = {k: v.to("meta") for k, v in table_inputs(0, *SHAPES[0]).items()}
+    with pytest.raises(RuntimeError, match="not supported"):
+        if fn == "table_update":
+            pas.table_update(meta["syn"], meta["perm"], meta["act_prev"],
+                             meta["pun_word"], meta["cols"], meta["bits"],
+                             meta["seg_cell"], D, 0.01, 0.5, 3, 2)
+        else:
+            pas.synapse_activation_conn(meta["syn"], meta["perm"],
+                                        meta["cols"], meta["bits"], D, 0.5,
+                                        K)
+
+
+def test_cuda_wrappers_reject_cpu_tensors():
+    """The kernel wrappers check their inputs before building or
+    launching anything."""
+    x = table_inputs(0, *SHAPES[0])
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.table_update_cuda(x["syn"], x["perm"], x["act_prev"],
+                                  x["pun_word"], x["cols"], x["bits"], 32,
+                                  64, 0.01, 0.5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.act_conn_cuda(x["syn"], x["perm"], x["cols"], x["bits"], 32,
+                              0.5, 64)
+    assert kernels.launch_counts() == before
+
+
+def test_cuda_source_names_both_entry_points():
+    src = (kernels.CSRC / "table_pass.cu").read_text()
+    for name in kernels._ARGTYPES:
+        assert re.search(rf'extern "C" int {name}\(', src), name
+    assert set(kernels._ARGTYPES) == {k.name for k in kernels.KERNELS}
+    assert "pallas_kernels.py:489" in src and "pallas_kernels.py:698" in src
+    assert Path(kernels.library_path()).parent == kernels.BUILD_DIR
