@@ -1,26 +1,35 @@
 """bithtm_tpu_torch: the PyTorch and CUDA port of bithtm_tpu.
 
-The HTM learning step (SpatialPooler + TemporalMemory) and its T-step
-scan over B independent streams, with the full-table pass of the
-temporal memory as a hand-written CUDA kernel on NVIDIA Hopper
-(`ops/kernels.py`, `csrc/table_pass.cu`) and its plain PyTorch version
-on the CPU. States carry over from the JAX package through `convert`.
+The HTM learning step (SpatialPooler + TemporalMemory), its T-step scan
+over B independent streams and the serving scan (over the synapse
+tables, a frozen word table or a compact serving table), with the
+temporal memory's forward passes as hand-written CUDA kernels on NVIDIA
+Hopper (`ops/kernels.py`, `csrc/`) and their plain PyTorch versions on
+the CPU. States and serving tables carry over from the JAX package
+through `convert`.
 Imports torch only: no JAX, and nothing of `bithtm_tpu`.
 """
 
 from .config import (HTMConfig, SPConfig, TMConfig, config_from_dict,
                      config_to_dict, make_htm_config)
-from .convert import htm_state_from_numpy, htm_state_to_numpy
-from .models.htm import HTMOutput, htm_scan, htm_step
+from .convert import (htm_state_from_numpy, htm_state_to_numpy,
+                      serving_table_from_numpy, serving_table_to_numpy)
+from .models.htm import (HTMOutput, htm_scan, htm_serve_scan, htm_step,
+                         resume_learning)
 from .models.spatial_pooler import SPOutput, sp_step
-from .models.temporal_memory import TMOutput, tm_step
+from .models.temporal_memory import TMOutput, tm_resume, tm_step
+from .ops.active_set import pack_frozen_table
+from .ops.serving import ServingTable, make_serving_table
 from .rng import Draws, TorchDraws
 from .state import HTMState, SPState, TMState, htm_init_batch
 
 __all__ = [
     "Draws", "HTMConfig", "HTMOutput", "HTMState", "SPConfig", "SPOutput",
-    "SPState", "TMConfig", "TMOutput", "TMState", "TorchDraws",
-    "config_from_dict", "config_to_dict", "htm_init_batch", "htm_scan",
-    "htm_state_from_numpy", "htm_state_to_numpy", "htm_step",
-    "make_htm_config", "sp_step", "tm_step",
+    "SPState", "ServingTable", "TMConfig", "TMOutput", "TMState",
+    "TorchDraws", "config_from_dict", "config_to_dict", "htm_init_batch",
+    "htm_scan", "htm_serve_scan", "htm_state_from_numpy",
+    "htm_state_to_numpy", "htm_step", "make_htm_config",
+    "make_serving_table", "pack_frozen_table", "resume_learning",
+    "serving_table_from_numpy", "serving_table_to_numpy", "sp_step",
+    "tm_resume", "tm_step",
 ]

@@ -7,7 +7,8 @@ state itself works, since ``np.asarray`` reads its arrays; its random
 key is not read). A single-stream state becomes a batch of one.
 `htm_state_to_numpy` is the inverse and returns the nested mapping with
 the JAX dtypes (uint32 words restored through a view), so a round trip
-is bit-equal.
+is bit-equal. `serving_table_from_numpy` / `serving_table_to_numpy` do
+the same for a compact serving table (`ops.serving.ServingTable`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .ops.serving import ServingTable
 from .state import HTMState, SPState, TMState
 
 # leaves the JAX package stores as uint32 and the port as int32
@@ -65,3 +67,21 @@ def htm_state_to_numpy(state: HTMState) -> dict:
                for f in dataclasses.fields(sub)}
         for part, sub in (("sp", state.sp), ("tm", state.tm))
     }
+
+
+def serving_table_from_numpy(table, device="cpu") -> ServingTable:
+    """JAX `ServingTable` (``rows``, ``ext_col``: attributes or mapping
+    keys, numpy-readable) -> port `ServingTable` on ``device``; a
+    single-stream table becomes a batch of one."""
+    rows = np.asarray(_get(table, "rows"))
+    batched = rows.ndim == 3
+    return ServingTable(*(
+        _leaf_to_torch(name, _get(table, name), batched, device)
+        for name in ServingTable._fields))
+
+
+def serving_table_to_numpy(table: ServingTable) -> dict:
+    """Port `ServingTable` -> ``{"rows": (B, R, 128), "ext_col": (B, E)}``
+    int32 arrays."""
+    return {name: _leaf_to_numpy(name, getattr(table, name))
+            for name in ServingTable._fields}

@@ -20,11 +20,9 @@
 // Design. The TPU kernel answered "is the presynaptic cell active?" with
 // a salted hash over the A active columns, because Mosaic has no cheap
 // gather. Here each block first builds its stream's active cells as a
-// bitmap in shared memory, one bit per cell at index c*D + d (C*D bits:
-// 8 KB at 2048x32; any D works, not only multiples of 32), then answers
-// membership with one shared-memory load per slot. The grid is
-// (row blocks of C, B); each thread walks its rows with 4-slot vector
-// loads when J % 4 == 0.
+// bitmap in shared memory (active_bitmap.cuh), then answers membership
+// with one shared-memory load per slot. The grid is (row blocks of C, B);
+// each thread walks its rows with 4-slot vector loads when J % 4 == 0.
 //
 // Bound: bytes. table_update moves 14 B/slot (syn 4, perm 4 in + 4 out,
 // act_prev 1, v 1) and act_conn 9 B/slot (syn 4, perm 4, v 1); at
@@ -33,37 +31,19 @@
 // C*D/32 word stores plus A*D bit tests per block, small against the
 // rows each block streams.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "active_bitmap.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSlotsPerBlock = 16384;
+using bithtm::build_bitmap;
+using bithtm::kThreads;
 
-__device__ __forceinline__ void build_bitmap(
-    uint32_t* bm, int n_words, const int* cols, const int* bits,
-    int A, int W, int C, int D) {
-  for (int i = threadIdx.x; i < n_words; i += blockDim.x) bm[i] = 0u;
-  __syncthreads();
-  for (int t = threadIdx.x; t < A * D; t += blockDim.x) {
-    const int a = t / D;
-    const int d = t - a * D;
-    const int col = cols[a];
-    const uint32_t word = static_cast<uint32_t>(bits[a * W + (d >> 5)]);
-    if (col >= 0 && col < C && ((word >> (d & 31)) & 1u)) {
-      const int cell = col * D + d;
-      atomicOr(&bm[cell >> 5], 1u << (cell & 31));
-    }
-  }
-  __syncthreads();
-}
+constexpr int kSlotsPerBlock = 16384;
 
 __device__ __forceinline__ uint8_t slot_value(
     const uint32_t* bm, int syn, float p, int n_cells, float threshold,
     int scale) {
-  const bool act = syn >= 0 && syn < n_cells && p >= 0.0f &&
-                   ((bm[syn >> 5] >> (syn & 31)) & 1u);
+  const bool act = p >= 0.0f && bithtm::cell_active(bm, syn, n_cells);
   return act ? static_cast<uint8_t>(p >= threshold ? 1 + scale : 1) : 0;
 }
 
@@ -139,13 +119,9 @@ int launch(const int* syn, float* perm, const uint8_t* act_prev,
            uint8_t* v_out, int B, int C, int J, int A, int W, int D, int K,
            float punishment, float threshold, int scale,
            cudaStream_t stream) {
-  const size_t smem = (((size_t)C * D + 31) / 32) * sizeof(uint32_t);
+  const size_t smem = bithtm::bitmap_bytes(C, D);
   auto kernel = table_pass_kernel<PUNISH, VEC>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  if (int err = bithtm::allow_shared(kernel, smem)) return err;
   int rows_per_block = kSlotsPerBlock / J;
   if (rows_per_block < 1) rows_per_block = 1;
   if (rows_per_block > C) rows_per_block = C;

@@ -4,7 +4,10 @@ Counterpart of `bithtm_tpu/models/htm.py` (reference
 `networks.py:146-149`): SP then TM for B independent streams at once.
 `htm_scan` is a Python loop over the time axis; the state is updated in
 place (the JAX scan donates its carry), so the state passed in is
-consumed.
+consumed. `htm_serve_scan` is the serving scan (learning off, no winner
+cells, optionally over a compact serving table); both share `_scan_impl`.
+`resume_learning` makes a state served from a compact table safe to
+learn from again.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from ..config import HTMConfig
 from ..rng import TorchDraws
 from ..state import HTMState
 from .spatial_pooler import SPOutput, sp_step
-from .temporal_memory import TMOutput, tm_step
+from .temporal_memory import TMOutput, tm_resume, tm_step
 
 
 class HTMOutput(NamedTuple):
@@ -49,11 +52,13 @@ def _step_metrics(cfg: HTMConfig, sp_out: SPOutput, tm_out: TMOutput
 def htm_step(cfg: HTMConfig, state: HTMState, input_bits: torch.Tensor,
              learning: bool = True, compute_winner: bool = True,
              detailed_metrics: bool = True, draws=None,
-             dense_outputs: bool = True) -> tuple[HTMState, HTMOutput]:
+             dense_outputs: bool = True, frozen_word=None,
+             serving_table=None) -> tuple[HTMState, HTMOutput]:
     """One timestep of B streams: ``input_bits`` is (B, I) bool.
     ``draws`` is a draw provider (`rng.TorchDraws` on the state's device
     when None); it is stepped once per call, as the JAX step splits its
-    key once per step."""
+    key once per step. ``frozen_word`` and ``serving_table`` select the
+    inference forward of `tm_step`."""
     B = state.batch
     if input_bits.shape != (B, cfg.input_dim):
         raise ValueError(f"htm_step expects ({B}, {cfg.input_dim}) inputs, "
@@ -65,18 +70,18 @@ def htm_step(cfg: HTMConfig, state: HTMState, input_bits: torch.Tensor,
     tm_state, tm_out = tm_step(
         cfg.tm, state.tm, step_draws, sp_out.active_columns, learning,
         compute_winner, detailed_metrics=detailed_metrics,
-        col_active=sp_out.active_mask, dense_outputs=dense_outputs)
+        col_active=sp_out.active_mask, dense_outputs=dense_outputs,
+        frozen_word=frozen_word, serving_table=serving_table)
     return (HTMState(sp=sp_state, tm=tm_state),
             HTMOutput(sp_out, tm_out, _step_metrics(cfg, sp_out, tm_out)))
 
 
-def htm_scan(cfg: HTMConfig, state: HTMState, inputs: torch.Tensor,
-             learning: bool = True, compute_winner: bool = True,
-             detailed_metrics: bool = True, draws=None
-             ) -> tuple[HTMState, dict]:
-    """Run a (T, B, I) input sequence through the recurrence. Returns
-    (final state, {metric: (T, B) tensor}). Only the outputs the metrics
-    read are built (no dense (B, N) masks)."""
+def _scan_impl(cfg: HTMConfig, state: HTMState, inputs: torch.Tensor,
+               learning: bool, compute_winner: bool, detailed_metrics: bool,
+               draws=None, frozen_word=None, serving_table=None
+               ) -> tuple[HTMState, dict]:
+    """The loop shared by `htm_scan` and `htm_serve_scan`, so that the
+    serving scan cannot drift from the standard one."""
     B = state.batch
     if inputs.dim() != 3 or tuple(inputs.shape[1:]) != (B, cfg.input_dim):
         raise ValueError(f"htm_scan expects (T, {B}, {cfg.input_dim}) "
@@ -86,7 +91,48 @@ def htm_scan(cfg: HTMConfig, state: HTMState, inputs: torch.Tensor,
     per_step: dict[str, list] = {}
     for x in inputs:
         state, out = htm_step(cfg, state, x, learning, compute_winner,
-                              detailed_metrics, draws, dense_outputs=False)
+                              detailed_metrics, draws, dense_outputs=False,
+                              frozen_word=frozen_word,
+                              serving_table=serving_table)
         for k, v in out.metrics.items():
             per_step.setdefault(k, []).append(v)
     return state, {k: torch.stack(v) for k, v in per_step.items()}
+
+
+def htm_scan(cfg: HTMConfig, state: HTMState, inputs: torch.Tensor,
+             learning: bool = True, compute_winner: bool = True,
+             detailed_metrics: bool = True, draws=None
+             ) -> tuple[HTMState, dict]:
+    """Run a (T, B, I) input sequence through the recurrence. Returns
+    (final state, {metric: (T, B) tensor}). Only the outputs the metrics
+    read are built (no dense (B, N) masks)."""
+    return _scan_impl(cfg, state, inputs, learning, compute_winner,
+                      detailed_metrics, draws)
+
+
+def htm_serve_scan(cfg: HTMConfig, state: HTMState, inputs: torch.Tensor,
+                   compute_winner: bool = False,
+                   detailed_metrics: bool | None = None,
+                   serving_table=None, draws=None) -> tuple[HTMState, dict]:
+    """The serving scan (`htm.py:339-380`): `htm_scan` with learning off
+    and no winner cells by default; bit-equal to ``htm_scan(...,
+    learning=False, compute_winner=False)``.
+
+    With ``serving_table`` (a `make_serving_table` table of this state)
+    the forward pass reads connected synapses only; predictions and
+    metrics stay bit-equal, while the final state's ``synapse_act`` and
+    ``matching_word`` are stale until `resume_learning`. It needs
+    ``compute_winner=False``; ``detailed_metrics`` defaults to False
+    with a table and True without."""
+    if detailed_metrics is None:
+        detailed_metrics = serving_table is None
+    return _scan_impl(cfg, state, inputs, False, compute_winner,
+                      detailed_metrics, draws, serving_table=serving_table)
+
+
+def resume_learning(cfg: HTMConfig, state: HTMState) -> HTMState:
+    """Make a state served from a compact table safe to learn from again
+    (`htm.py:318-336`): `tm_resume` re-derives ``synapse_act`` and
+    ``matching_word``, so serve -> resume -> learn is bit-equal to having
+    served unpacked. A no-op on a state that never served packed."""
+    return HTMState(sp=state.sp, tm=tm_resume(cfg.tm, state.tm))

@@ -14,6 +14,11 @@ leading stream axis B instead of vmapped. The order of one step:
      (`networks.py:121-127`); `ops.active_set.table_update` runs it
      through the CUDA kernel on the card.
 
+Inference runs step 5 as a forward pass only, over the synapse tables,
+a frozen word table (`frozen_word=`) or a compact serving table
+(`serving_table=`); `tm_resume` re-derives the carries a compact serving
+run leaves stale.
+
 Random draws come from a provider (`rng.py`), so the tests can replay
 the JAX draws. The synapse tables are updated in place: the state
 passed in is consumed, as the JAX scan donates its carry.
@@ -26,6 +31,7 @@ so no index is written twice.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -43,11 +49,13 @@ from ..ops.active_set import (
     seg_counts_packed,
     seg_counts_packed_rows,
     synapse_activation_conn,
+    synapse_activation_frozen,
     table_update,
     take_percell,
     unpack_bits,
 )
 from ..ops.bitops import lsr32, popcount32
+from ..ops.serving import ServingTable, serving_counts
 from ..rng import Draws
 from ..state import TMState
 
@@ -363,19 +371,75 @@ def _check_supported(cfg: TMConfig) -> None:
             f"which the PyTorch port does not have yet")
 
 
+def _check_forward_options(learning: bool, compute_winner: bool,
+                           detailed_metrics: bool, frozen_word,
+                           serving_table) -> None:
+    """The guards of `temporal_memory.py:759-776`."""
+    if serving_table is not None:
+        if learning or compute_winner:
+            raise ValueError(
+                "serving_table is a serving-only fast path: it needs "
+                "learning=False and compute_winner=False (winner "
+                "selection reads the full activity table the compact "
+                "form drops)")
+        if frozen_word is not None:
+            raise ValueError("pass either serving_table or frozen_word, "
+                             "not both")
+        if detailed_metrics:
+            raise ValueError(
+                "serving_table computes connected-only counts; "
+                "tm_matching_segments would undercount — pass "
+                "detailed_metrics=False")
+    if frozen_word is not None and learning:
+        raise ValueError("frozen_word is an inference-only fast path; "
+                         "learning mutates the tables it snapshots")
+
+
+def tm_resume(cfg: TMConfig, state: TMState) -> TMState:
+    """Re-derive the carries a compact serving run leaves stale
+    (`temporal_memory.py:684-710`): ``synapse_act`` and ``matching_word``
+    from the frozen tables and the state's own previous active set, as
+    the unpacked inference forward pass would have left them. No input is
+    consumed and no step is taken; one `act_conn` launch on the card."""
+    G, K = cfg.segments_per_column, cfg.synapse_capacity
+    act_now = synapse_activation_conn(
+        state.synapse_cell, state.synapse_perm, state.active_cols,
+        state.active_bits, cfg.cell_dim, cfg.permanence_threshold, K)
+    potential, _ = seg_counts_packed(act_now, G, K)
+    matching = potential >= cfg.segment_matching_threshold
+    return dataclasses.replace(state, synapse_act=act_now,
+                               matching_word=pack_bits(matching)[..., 0])
+
+
 def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             active_cols: torch.Tensor, learning: bool = True,
             compute_winner: bool = True, detailed_metrics: bool = True,
             col_active: torch.Tensor | None = None,
-            dense_outputs: bool = True) -> tuple[TMState, TMOutput]:
+            dense_outputs: bool = True,
+            frozen_word: torch.Tensor | None = None,
+            serving_table: ServingTable | None = None
+            ) -> tuple[TMState, TMOutput]:
     """One TM timestep for B streams (`temporal_memory.py:713-996`).
 
     ``active_cols`` (B, A) is the SP's top-k list in any order (sorted
     here). ``draws`` holds this step's random numbers (`rng.Draws`); it
     may be None when neither ``learning`` nor ``compute_winner`` is set.
     ``col_active`` optionally passes the matching (B, C) mask. With
-    ``dense_outputs=False`` the (B, N) masks of `TMOutput` are None."""
+    ``dense_outputs=False`` the (B, N) masks of `TMOutput` are None.
+
+    ``frozen_word`` (inference only): a `pack_frozen_table` (B, C, J)
+    word table of this state's synapse tables; the forward pass reads it
+    instead of syn + perm, with bit-equal results.
+
+    ``serving_table`` (needs ``learning=False``, ``compute_winner=False``
+    and ``detailed_metrics=False``): a `make_serving_table` compact table
+    of this state. Predictions and metrics are bit-equal to the unpacked
+    path; the carried ``synapse_act`` passes through unchanged (stale)
+    and ``matching_word`` holds the connected-only matching flags, until
+    `tm_resume` re-derives both."""
     _check_supported(cfg)
+    _check_forward_options(learning, compute_winner, detailed_metrics,
+                           frozen_word, serving_table)
     C, D, G, K = (cfg.column_dim, cfg.cell_dim, cfg.segments_per_column,
                   cfg.synapse_capacity)
     B, A = active_cols.shape
@@ -424,13 +488,29 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
                 pun_word).sum(-1, dtype=torch.int32)
             learn_metrics["tm_punished_columns"] = (pun_word != 0).sum(
                 -1, dtype=torch.int32)
+    elif serving_table is not None:
+        # compact serving forward: connected-only counts. seg_active is
+        # exact (connected-active >= theta_a implies potential >= theta_a
+        # >= theta_m); matching holds the connected-matching flags
+        perm_full, seg_cell, learn_metrics = (
+            state.synapse_perm, state.seg_cell, {})
+        conn_cnt = serving_counts(serving_table, active_cols, act_bits, C,
+                                  D, G)                         # (B, C, G)
+        matching = conn_cnt >= cfg.segment_matching_threshold
+        seg_active = conn_cnt >= cfg.segment_activation_threshold
+        prediction = prediction_words(seg_cell, seg_active, D)
+        act_now = state.synapse_act                   # passed through, stale
     else:
         # inference: the tables are frozen; only the forward pass runs
         perm_full, seg_cell, learn_metrics = (
             state.synapse_perm, state.seg_cell, {})
-        act_now = synapse_activation_conn(
-            state.synapse_cell, perm_full, active_cols, act_bits, D,
-            cfg.permanence_threshold, K)
+        if frozen_word is not None:
+            act_now = synapse_activation_frozen(frozen_word, active_cols,
+                                                act_bits, D, K)
+        else:
+            act_now = synapse_activation_conn(
+                state.synapse_cell, perm_full, active_cols, act_bits, D,
+                cfg.permanence_threshold, K)
         potential, connected = seg_counts_packed(act_now, G, K)
         matching = potential >= cfg.segment_matching_threshold
         seg_active = matching & (

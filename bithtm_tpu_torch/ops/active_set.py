@@ -7,12 +7,14 @@ columns per step, so the active (and winner) cell sets are carried as
     bits: (B, A, W) int32  per-column cell bitmask (32-bit words), W = ceil(D/32)
 
 Every function takes a leading stream axis B. The full-table pass
-(`table_update`, `synapse_activation_conn`) asks, for every synapse slot,
+(`table_update`, `synapse_activation_conn`, and `synapse_activation_frozen`
+over a `pack_frozen_table` word table) asks, for every synapse slot,
 whether its presynaptic cell is in that set; on a CUDA tensor it runs
 the hand-written kernel of `ops/kernels.py`, on a CPU tensor the plain
-version beside it (`table_update_ref`, `synapse_activation_conn_ref`).
-The plain versions gather from a dense (B, C*D) active-cell mask; the
-kernel builds the same mask as a bitmap in shared memory.
+version beside it (`table_update_ref`, `synapse_activation_conn_ref`,
+`synapse_activation_frozen_ref`). The plain versions gather from a dense
+(B, C*D) active-cell mask; the kernels build the same mask as a bitmap
+in shared memory.
 """
 
 from __future__ import annotations
@@ -119,16 +121,23 @@ def active_cell_mask(cols: torch.Tensor, bits: torch.Tensor,
     return mask.reshape(B, column_dim * cell_dim)
 
 
+def cells_active(cell: torch.Tensor, cols, bits, column_dim: int,
+                 cell_dim: int) -> torch.Tensor:
+    """(B, ...) cell ids -> bool of the same shape: the cell is in the
+    stream's (cols, bits) active set. Ids outside [0, C*D) are not."""
+    N = column_dim * cell_dim
+    mask = active_cell_mask(cols, bits, column_dim, cell_dim)
+    idx = cell.clamp(0, N - 1).reshape(cell.shape[0], -1).long()
+    hit = mask.gather(1, idx).reshape(cell.shape)
+    return hit & (cell >= 0) & (cell < N)
+
+
 def _slot_active(syn: torch.Tensor, perm: torch.Tensor, cols, bits,
                  cell_dim: int) -> torch.Tensor:
     """act[b, c, j]: slot is live (syn >= 0, perm >= 0) and its
     presynaptic cell is in the (cols, bits) active set."""
-    B, C, J = syn.shape
-    N = C * cell_dim
-    mask = active_cell_mask(cols, bits, C, cell_dim)
-    idx = syn.clamp(0, N - 1).reshape(B, C * J).long()
-    hit = mask.gather(1, idx).reshape(B, C, J)
-    return hit & (syn >= 0) & (syn < N) & (perm >= 0.0)
+    return cells_active(syn, cols, bits, syn.shape[1], cell_dim) & (
+        perm >= 0.0)
 
 
 def synapse_activation_conn_ref(syn, perm, cols, bits, cell_dim: int,
@@ -179,6 +188,72 @@ def synapse_activation_conn(syn, perm, cols, bits, cell_dim: int,
                              perm_threshold, synapses)
     return synapse_activation_conn_ref(syn, perm, cols, bits, cell_dim,
                                        perm_threshold, synapses)
+
+
+FROZEN_CELL_BITS = 24  # cell id field of the frozen serving word
+
+
+def frozen_word_supported(column_dim: int, cell_dim: int) -> bool:
+    """The frozen word packs the cell id into 24 bits."""
+    return column_dim * cell_dim <= (1 << FROZEN_CELL_BITS)
+
+
+def pack_frozen_table(syn_cell: torch.Tensor, syn_perm: torch.Tensor,
+                      perm_threshold: float,
+                      num_cells: int | None = None) -> torch.Tensor:
+    """Pack a frozen (read-only) distal table for serving: one int32 per
+    slot, cell id (bits 0-23) | connected (bit 24, perm >= threshold),
+    -1 where the slot is dead or free (syn < 0 or perm < 0). While the
+    graph is frozen the permanence compare does not change, so the
+    forward pass reads 4 B a slot instead of syn + perm's 8.
+    Elementwise: any leading axes.
+
+    Cell ids must fit the 24-bit field: with ``num_cells`` (= C*D) the
+    geometry is checked, without it the table's largest id."""
+    limit = 1 << FROZEN_CELL_BITS
+    if num_cells is not None:
+        if num_cells > limit:
+            raise ValueError(
+                f"pack_frozen_table: num_cells={num_cells} exceeds the "
+                f"frozen word's {FROZEN_CELL_BITS}-bit cell-id field (max "
+                f"{limit}); the packed table would corrupt the connected "
+                f"bit — use the unpacked serving path for this geometry")
+    else:
+        max_id = int(syn_cell.max()) if syn_cell.numel() else -1
+        if max_id >= limit:
+            raise ValueError(
+                f"pack_frozen_table: cell id {max_id} exceeds the "
+                f"{FROZEN_CELL_BITS}-bit field (max {limit - 1}); the packed "
+                f"table would corrupt the connected bit — use the unpacked "
+                f"serving path for this geometry")
+    thr = torch.tensor(perm_threshold, dtype=torch.float32)
+    live = (syn_cell >= 0) & (syn_perm >= 0.0)
+    conn = (syn_perm >= thr).to(torch.int32)
+    return torch.where(live, syn_cell | (conn << FROZEN_CELL_BITS), -1)
+
+
+def synapse_activation_frozen_ref(frozen_word, cols, bits, cell_dim: int,
+                                  synapses: int) -> torch.Tensor:
+    """Plain version of the `act_frozen` kernel: the packed activity of
+    `synapse_activation_conn_ref` over a `pack_frozen_table` word table
+    (bit-equal to it on the table the words were packed from)."""
+    live = frozen_word >= 0
+    cell = torch.where(live, frozen_word & ((1 << FROZEN_CELL_BITS) - 1), -1)
+    act = cells_active(cell, cols, bits, frozen_word.shape[1], cell_dim)
+    conn = (frozen_word >> FROZEN_CELL_BITS) == 1
+    return pack_act_conn(act & live, conn, synapses)
+
+
+def synapse_activation_frozen(frozen_word, cols, bits, cell_dim: int,
+                              synapses: int) -> torch.Tensor:
+    """The inference forward over a frozen word table: the `act_frozen`
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if _on_device("synapse_activation_frozen", frozen_word) == "cuda":
+        from .kernels import act_frozen_cuda
+
+        return act_frozen_cuda(frozen_word, cols, bits, cell_dim, synapses)
+    return synapse_activation_frozen_ref(frozen_word, cols, bits, cell_dim,
+                                         synapses)
 
 
 def table_update(syn, perm, act_prev, pun_word, cols, bits, seg_cell,

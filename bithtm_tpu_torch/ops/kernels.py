@@ -1,9 +1,11 @@
 """Build, binding and wrappers of the hand-written CUDA kernels.
 
-`csrc/table_pass.cu` is compiled on first use with ``nvcc`` for
-``sm_90a`` into a plain-C shared library under ``bithtm_tpu_torch/_build``
-(keyed by a hash of the sources and flags) and loaded with ctypes.
-Nothing here runs when the module is imported.
+The sources in `csrc/` (`table_pass.cu`, `serving_pass.cu`, sharing
+`active_bitmap.cuh`) are compiled on first use with ``nvcc`` for
+``sm_90a``, one process per source started together, and linked into a
+plain-C shared library under ``bithtm_tpu_torch/_build`` (keyed by a
+hash of the sources and flags), loaded with ctypes. Nothing here runs
+when the module is imported.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 output, launches on the current CUDA stream, raises if the launch
@@ -26,9 +28,10 @@ from .active_set import act_scale, cell_words
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("table_pass.cu",)
+SOURCES = ("table_pass.cu", "serving_pass.cu")
+HEADERS = ("active_bitmap.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 MAX_SHARED_BYTES = 232_448  # what one Hopper block may opt in to
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -39,6 +42,10 @@ _ARGTYPES = {
     # syn, perm, cols, bits, v_out, B, C, J, A, W, D, K, threshold,
     # scale, stream
     "act_conn": [_VP] * 5 + [_I] * 7 + [_F, _I, _VP],
+    # rows, cols, bits, out, B, R, A, W, C, D, stream
+    "serving_activation": [_VP] * 4 + [_I] * 6 + [_VP],
+    # word, cols, bits, v_out, B, C, J, A, W, D, scale, stream
+    "act_frozen": [_VP] * 4 + [_I] * 7 + [_VP],
 }
 
 
@@ -57,7 +64,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libbithtm_kernels_{h.hexdigest()[:16]}.so"
 
@@ -69,13 +76,28 @@ def build(force: bool = False) -> Path:
     if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    steps = [(cmd, p.communicate()[0], p.returncode)
+             for cmd, p in zip(compiles, procs)]
+    if all(rc == 0 for _, _, rc in steps):
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                *map(str, objs)]
+        res = subprocess.run(link, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        steps.append((link, res.stdout, res.returncode))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    for cmd, log, rc in steps:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                               f"{log}")
     os.replace(tmp, out)
     return out
 
@@ -104,7 +126,9 @@ class CudaKernel:
 
 TABLE_UPDATE = CudaKernel("table_update")
 ACT_CONN = CudaKernel("act_conn")
-KERNELS = (TABLE_UPDATE, ACT_CONN)
+SERVING_ACTIVATION = CudaKernel("serving_activation")
+ACT_FROZEN = CudaKernel("act_frozen")
+KERNELS = (TABLE_UPDATE, ACT_CONN, SERVING_ACTIVATION, ACT_FROZEN)
 
 
 def launch_counts() -> dict[str, int]:
@@ -131,30 +155,45 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
                          f"aligned")
 
 
-def _check_active_set(syn, perm, cols, bits, cell_dim: int, synapses: int):
-    if syn.dim() != 3:
-        raise ValueError(f"syn must be (B, C, J), got {tuple(syn.shape)}")
-    B, C, J = syn.shape
+def _check_set(cols, bits, B: int, C: int, cell_dim: int,
+               dev: torch.device) -> tuple[int, int]:
+    """The (B, A) cols + (B, A, W) bits active set over C*cell_dim cells,
+    whose bitmap each block builds in shared memory. Returns (A, W)."""
     A = cols.shape[-1]
     W = cell_words(cell_dim)
-    dev = syn.device
-    # the tables are read with 16-byte vector loads
-    _check("syn", syn, torch.int32, (B, C, J), dev, align=16)
-    _check("perm", perm, torch.float32, (B, C, J), dev, align=16)
     _check("cols", cols, torch.int32, (B, A), dev)
     _check("bits", bits, torch.int32, (B, A, W), dev)
-    if J % synapses or J // synapses > 32:
-        raise ValueError(f"J={J} must be G*K with K={synapses} and G <= 32 "
-                         f"(one punishment bit per segment)")
     if B > 65535:
         raise ValueError(f"B={B} streams exceed the grid's y extent 65535")
-    if 1 + act_scale(synapses) > 127:
-        raise ValueError(f"K={synapses} > 125 packs activity wider than "
-                         f"u8, which the kernels do not take")
     smem = (C * cell_dim + 31) // 32 * 4
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"the active-cell bitmap needs {smem} bytes of "
                          f"shared memory; a block has {MAX_SHARED_BYTES}")
+    return A, W
+
+
+def _check_table(name: str, table, dtype: torch.dtype, cols, bits,
+                 cell_dim: int, synapses: int):
+    """A (B, C, J) table read with 16-byte vector loads, J = G*K."""
+    if table.dim() != 3:
+        raise ValueError(f"{name} must be (B, C, J), got "
+                         f"{tuple(table.shape)}")
+    B, C, J = table.shape
+    _check(name, table, dtype, (B, C, J), table.device, align=16)
+    if J % synapses or J // synapses > 32:
+        raise ValueError(f"J={J} must be G*K with K={synapses} and G <= 32 "
+                         f"(one bit per segment in a column's words)")
+    if 1 + act_scale(synapses) > 127:
+        raise ValueError(f"K={synapses} > 125 packs activity wider than "
+                         f"u8, which the kernels do not take")
+    A, W = _check_set(cols, bits, B, C, cell_dim, table.device)
+    return B, C, J, A, W
+
+
+def _check_active_set(syn, perm, cols, bits, cell_dim: int, synapses: int):
+    B, C, J, A, W = _check_table("syn", syn, torch.int32, cols, bits,
+                                 cell_dim, synapses)
+    _check("perm", perm, torch.float32, (B, C, J), syn.device, align=16)
     return B, C, J, A, W
 
 
@@ -191,4 +230,39 @@ def act_conn_cuda(syn, perm, cols, bits, cell_dim: int,
         ACT_CONN(syn.data_ptr(), perm.data_ptr(), cols.data_ptr(),
                  bits.data_ptr(), v.data_ptr(), B, C, J, A, W, cell_dim,
                  synapses, perm_threshold, act_scale(synapses), stream)
+    return v
+
+
+def serving_activation_cuda(rows, cols, bits, column_dim: int,
+                            cell_dim: int) -> torch.Tensor:
+    """CUDA `serving_activation`: (B, R, 128) u8, g+1 where the word's
+    presynaptic cell is active, over the main and extension rows of a
+    compact serving table (see `serving.serving_activation_ref`)."""
+    if rows.dim() != 3 or rows.shape[-1] != 128:
+        raise ValueError(f"rows must be (B, R, 128), got "
+                         f"{tuple(rows.shape)}")
+    B, R, _ = rows.shape
+    _check("rows", rows, torch.int32, (B, R, 128), rows.device, align=16)
+    A, W = _check_set(cols, bits, B, column_dim, cell_dim, rows.device)
+    out = torch.empty((B, R, 128), dtype=torch.uint8, device=rows.device)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        SERVING_ACTIVATION(rows.data_ptr(), cols.data_ptr(), bits.data_ptr(),
+                           out.data_ptr(), B, R, A, W, column_dim, cell_dim,
+                           stream)
+    return out
+
+
+def act_frozen_cuda(frozen_word, cols, bits, cell_dim: int,
+                    synapses: int) -> torch.Tensor:
+    """CUDA `act_frozen`: packed activity (B, C, J) u8 over a frozen word
+    table (see `active_set.synapse_activation_frozen_ref`)."""
+    B, C, J, A, W = _check_table("frozen_word", frozen_word, torch.int32,
+                                 cols, bits, cell_dim, synapses)
+    v = torch.empty((B, C, J), dtype=torch.uint8, device=frozen_word.device)
+    with torch.cuda.device(frozen_word.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ACT_FROZEN(frozen_word.data_ptr(), cols.data_ptr(), bits.data_ptr(),
+                   v.data_ptr(), B, C, J, A, W, cell_dim, act_scale(synapses),
+                   stream)
     return v

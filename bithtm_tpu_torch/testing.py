@@ -1,5 +1,6 @@
-"""Synthetic inputs for checking the full-table pass (`table_update`,
-`synapse_activation_conn`) and its CUDA kernels against their plain
+"""Synthetic inputs for checking the forward passes (`table_update`,
+`synapse_activation_conn`, `synapse_activation_frozen`,
+`serving_activation`) and their CUDA kernels against their plain
 versions: made with numpy from a seed, at any shape."""
 
 from __future__ import annotations
@@ -8,6 +9,7 @@ import numpy as np
 import torch
 
 from .ops.active_set import act_scale, pack_bits
+from .ops.serving import SERVING_G_BITS
 
 
 def table_inputs(seed: int, B: int, C: int, G: int, K: int, D: int, A: int,
@@ -53,3 +55,15 @@ def table_inputs(seed: int, B: int, C: int, G: int, K: int, D: int, A: int,
     t = {k: torch.from_numpy(v).to(device) for k, v in out.items()}
     t["bits"] = pack_bits(torch.from_numpy(rows)).to(device)
     return t
+
+
+def serving_rows(seed: int, B: int, R: int, C: int, D: int, G: int,
+                 device="cpu", empty: float = 0.4) -> torch.Tensor:
+    """(B, R, 128) int32 compact serving words ``cell << 5 | g`` over C*D
+    cells and G segments, with a share ``empty`` of the lanes -1."""
+    rng = np.random.default_rng(seed)
+    cell = rng.integers(0, C * D, (B, R, 128), dtype=np.int32)
+    g = rng.integers(0, G, (B, R, 128), dtype=np.int32)
+    words = np.where(rng.random((B, R, 128)) < empty, -1,
+                     (cell << SERVING_G_BITS) | g).astype(np.int32)
+    return torch.from_numpy(words).to(device)

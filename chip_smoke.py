@@ -8,9 +8,14 @@ a small input, then drives the main path: the bench configuration
 `htm_scan`, 768 learning steps then inference, and checks that every
 kernel of that path was launched once a step, that the metrics are in
 range, that the graph learned to predict and that the state invariants
-hold. Then measures the steady window (the last 128 learning steps) three
-times from one snapshot with the same draws, times the phases of a step
-and profiles 16 of its steps on the device.
+hold. Then serves the next 64 steps from the learned state three ways
+(`htm_serve_scan` over the synapse tables, over a compact serving table,
+and the scan over the frozen word table), checks that they predict alike
+and launch only their own kernel, and that serve -> `resume_learning` ->
+learn equals learning after the unpacked serve. Then measures the steady
+window (the last 128 learning steps) three times from one snapshot with
+the same draws, times the phases of a step and profiles 16 of its steps
+on the device.
 
 Prints the card's name and power limit, the step times, the phase
 times, the profile, a JSON line of per-kernel results, and as the last
@@ -22,6 +27,7 @@ before printing a result.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -32,10 +38,11 @@ import numpy as np
 import torch
 
 import bithtm_tpu_torch as bt
-from bithtm_tpu_torch.models.htm import _step_metrics
+from bithtm_tpu_torch.models.htm import _scan_impl, _step_metrics
 from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
-from bithtm_tpu_torch.testing import table_inputs
+from bithtm_tpu_torch.ops import serving as psv
+from bithtm_tpu_torch.testing import serving_rows, table_inputs
 
 BENCH = dict(input_dim=1000, column_dim=2048, cell_dim=32,
              segments_per_column=4, synapse_capacity=64,
@@ -45,6 +52,8 @@ BATCH = 256
 # each of the 100 patterns repeats often enough for its segments to be
 # reinforced past the connection threshold and to predict
 LEARN_STEPS, INFER_STEPS = 768, 16
+# serving steps after the main path, and learning steps after resuming
+SERVE_STEPS, RESUME_STEPS = 64, 8
 # learning steps between two host timings; the last WINDOW learning
 # steps are the timed steady window
 WINDOW = 128
@@ -54,10 +63,17 @@ PROFILED_STEPS = 16
 SMALL = dict(input_dim=64, column_dim=64, cell_dim=4, active_columns=4,
              segment_activation_threshold=2, segment_matching_threshold=2,
              segment_sampling_synapses=8)
-SOURCE = "bithtm_tpu_torch/csrc/table_pass.cu"
+SOURCES = {
+    "table_update": "bithtm_tpu_torch/csrc/table_pass.cu",
+    "act_conn": "bithtm_tpu_torch/csrc/table_pass.cu",
+    "serving_activation": "bithtm_tpu_torch/csrc/serving_pass.cu",
+    "act_frozen": "bithtm_tpu_torch/csrc/serving_pass.cu",
+}
 REPLACES = {
     "table_update": "bithtm_tpu/ops/pallas_kernels.py:489",
     "act_conn": "bithtm_tpu/ops/pallas_kernels.py:698",
+    "serving_activation": "bithtm_tpu/ops/pallas_kernels.py:835",
+    "act_frozen": "bithtm_tpu/ops/pallas_kernels.py:772",
 }
 
 
@@ -122,6 +138,22 @@ def check_kernels(dev) -> dict:
             "table_update perm' == plain, bit for bit")
     require(torch.equal(c_k, c_ref), "act_conn v == plain")
 
+    word = pas.pack_frozen_table(syn, x["perm"], thr)
+    # a serving table of one main row a column and 8 extension rows
+    rows = serving_rows(0, B, C + 8, C, D, G, device=dev)
+    f_ref = pas.synapse_activation_frozen_ref(word, cols, bits, D, K)
+    f_k = kernels.act_frozen_cuda(word, cols, bits, D, K)
+    s_ref = psv.serving_activation_ref(rows, cols, bits, C, D)
+    s_k = kernels.serving_activation_cuda(rows, cols, bits, C, D)
+    torch.cuda.synchronize()
+    require(bool((f_ref > 1).any()) and bool((s_ref > 0).any()),
+            "the bench-shape inputs exercise active and connected words")
+    require(torch.equal(f_k, f_ref), "act_frozen v == plain")
+    require(torch.equal(f_ref, c_ref), "act_frozen plain == act_conn plain")
+    require(torch.equal(s_k, s_ref), "serving_activation == plain")
+    err_af = (f_k.float() - f_ref.float()).abs().max().item()
+    err_sa = (s_k.float() - s_ref.float()).abs().max().item()
+
     p = x["perm"].clone()
     times = {
         "table_update": (
@@ -134,11 +166,23 @@ def check_kernels(dev) -> dict:
                 syn, x["perm"], cols, bits, D, thr, K)),
             cuda_ms(lambda: pas.synapse_activation_conn_ref(
                 syn, x["perm"], cols, bits, D, thr, K))),
+        "serving_activation": (
+            cuda_ms(lambda: kernels.serving_activation_cuda(
+                rows, cols, bits, C, D)),
+            cuda_ms(lambda: psv.serving_activation_ref(
+                rows, cols, bits, C, D))),
+        "act_frozen": (
+            cuda_ms(lambda: kernels.act_frozen_cuda(word, cols, bits, D, K)),
+            cuda_ms(lambda: pas.synapse_activation_frozen_ref(
+                word, cols, bits, D, K))),
     }
-    errs = {"table_update": err_tu, "act_conn": err_ac}
+    errs = {"table_update": err_tu, "act_conn": err_ac,
+            "serving_activation": err_sa, "act_frozen": err_af}
     for name, (ms, plain_ms) in times.items():
+        where = (f"R={C + 8} rows of 128" if name == "serving_activation"
+                 else f"C={C} G={G} K={K}")
         print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms at "
-              f"B={B} C={C} G={G} K={K} D={D} A={A}; bit-equal")
+              f"B={B} {where} D={D} A={A}; bit-equal")
     return {name: {"ms": times[name][0], "plain_ms": times[name][1],
                    "max_abs_err": errs[name]} for name in times}
 
@@ -266,11 +310,12 @@ def run_main_path(dev):
     steps, timed on the host every WINDOW steps (step 0 alone and
     untimed), then INFER_STEPS inference steps over the learned graph.
     Returns the launch counts of that run, a snapshot at the start of
-    the steady window (the last WINDOW learning steps) and the median
-    ms/step of REPEATS runs of that window."""
+    the steady window (the last WINDOW learning steps), the median
+    ms/step of REPEATS runs of that window, and the learned state with
+    its generator and the SERVE_STEPS inputs that follow."""
     cfg = bt.make_htm_config(**BENCH)
     B, A = BATCH, cfg.sp.active_columns
-    seq = bench_inputs(cfg, B, LEARN_STEPS + INFER_STEPS, dev)
+    seq = bench_inputs(cfg, B, LEARN_STEPS + INFER_STEPS + SERVE_STEPS, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     state = bt.htm_init_batch(cfg, B, gen, dev)
     draws = bt.TorchDraws(cfg.tm, B, dev, gen)
@@ -285,12 +330,13 @@ def run_main_path(dev):
             snap = Snapshot(cfg, state, gen, seq[a:b])
         state, m, s = timed_scan(cfg, state, seq[a:b], True, draws)
         chunks.append((a, b, s, m))
-    state, m_inf, infer_s = timed_scan(cfg, state, seq[LEARN_STEPS:], False,
-                                       draws)
+    state, m_inf, infer_s = timed_scan(
+        cfg, state, seq[LEARN_STEPS:LEARN_STEPS + INFER_STEPS], False, draws)
     launches = kernels.launch_counts()
 
     require(launches == {"table_update": LEARN_STEPS,
-                         "act_conn": INFER_STEPS},
+                         "act_conn": INFER_STEPS, "serving_activation": 0,
+                         "act_frozen": 0},
             f"one launch per step of each kernel, got {launches}")
     m_learn = {k: torch.cat([c[3][k] for c in chunks]) for k in chunks[0][3]}
     for phase, m, n in (("learning", m_learn, LEARN_STEPS),
@@ -360,7 +406,159 @@ def run_main_path(dev):
           + f" ms/step; median {med:.3f} ms/step, {1e3 / med:.2f} steps/s, "
           f"{B * 1e3 / med:.1f} stream-steps/s")
     print("main path metrics: " + json.dumps(perf))
-    return launches, snap, med
+    return launches, snap, med, (state, gen, seq[LEARN_STEPS + INFER_STEPS:])
+
+
+def differing_leaves(a, b) -> list[str]:
+    return [f"{part}.{f.name}" for part in ("sp", "tm")
+            for f in dataclasses.fields(getattr(a, part))
+            if not torch.equal(getattr(getattr(a, part), f.name),
+                               getattr(getattr(b, part), f.name))]
+
+
+def run_serving(cfg, state, gen, xs) -> dict:
+    """Serve len(xs) steps from the learned state three ways, each from a
+    copy of it: `htm_serve_scan` over the synapse tables (unpacked), over
+    a compact serving table (packed) and `_scan_impl` over the frozen
+    word table (frozen). Each form runs with the launch counts set to 0
+    just before it and read just after: one launch a step of its own
+    kernel and none of the others. The three give equal metrics and
+    predictions, the frozen run the unpacked run's state in every leaf.
+    Then `resume_learning` on the packed state (one `act_conn` launch)
+    gives the unpacked state in every leaf, and RESUME_STEPS learning
+    steps from one generator snapshot leave both equal. Last, the median
+    of REPEATS timed runs of each form, in turns. Returns the launch
+    counts of the packed and frozen runs."""
+    dev = state.tm.step.device
+    B, N, A = state.batch, len(xs), cfg.sp.active_columns
+    C, K = cfg.tm.column_dim, cfg.tm.synapse_capacity
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tab = bt.make_serving_table(cfg.tm, state.tm)
+    word = bt.pack_frozen_table(state.tm.synapse_cell, state.tm.synapse_perm,
+                                cfg.tm.permanence_threshold,
+                                num_cells=cfg.tm.num_cells)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    E = tab.ext_col.shape[1]
+    M = (tab.rows.shape[1] - E) // C
+    mib = {"serving table": (tab.rows.numel() + tab.ext_col.numel()) * 4,
+           "frozen words": word.numel() * 4,
+           "syn + perm": state.tm.synapse_cell.numel() * 8}
+    print(f"serving table at B={B}: M={M} main row(s) a column, E={E} "
+          f"extension rows ({int((tab.ext_col < C).sum())} used over the "
+          f"streams), built with the frozen words in {build_s:.3f} s; "
+          + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in mib.items()))
+
+    # the kernels at the learned table's own shapes, against plain
+    tm = state.tm
+    require(torch.equal(
+        kernels.serving_activation_cuda(tab.rows, tm.active_cols,
+                                        tm.active_bits, C, cfg.tm.cell_dim),
+        psv.serving_activation_ref(tab.rows, tm.active_cols, tm.active_bits,
+                                   C, cfg.tm.cell_dim)),
+        "serving_activation == plain on the learned table")
+    require(torch.equal(
+        kernels.act_frozen_cuda(word, tm.active_cols, tm.active_bits,
+                                cfg.tm.cell_dim, K),
+        pas.synapse_activation_frozen_ref(word, tm.active_cols,
+                                          tm.active_bits, cfg.tm.cell_dim,
+                                          K)),
+        "act_frozen == plain on the learned table")
+
+    forms = {
+        "unpacked": (lambda st: bt.htm_serve_scan(
+            cfg, st, xs, detailed_metrics=False), "act_conn"),
+        "packed": (lambda st: bt.htm_serve_scan(
+            cfg, st, xs, serving_table=tab), "serving_activation"),
+        "frozen": (lambda st: _scan_impl(
+            cfg, st, xs, False, False, False, frozen_word=word), "act_frozen"),
+    }
+    out, launches = {}, {}
+    for name, (fn, kernel) in forms.items():
+        st = copy.deepcopy(state)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out[name] = fn(st)
+        launches[name] = kernels.launch_counts()
+        want = {k: N if k == kernel else 0 for k in launches[name]}
+        require(launches[name] == want,
+                f"{name} serving launches {kernel} once a step and no other "
+                f"kernel, got {launches[name]}")
+    s_u, m_u = out["unpacked"]
+    for name, (st, m) in out.items():
+        require(set(m) == set(m_u) and all(torch.equal(m[k], m_u[k])
+                                           for k in m_u),
+                f"{name} serving metrics == unpacked")
+        require(torch.equal(st.tm.prediction, s_u.tm.prediction),
+                f"{name} serving prediction == unpacked")
+    diff = differing_leaves(out["frozen"][0], s_u)
+    require(not diff, f"frozen serving leaves == unpacked, differ: {diff}")
+    correct = m_u["correct"].double().mean().item()
+    require(correct > A / 2, "the served graph predicts")
+
+    s_p = out["packed"][0]
+    require(not torch.equal(s_p.tm.synapse_act, s_u.tm.synapse_act),
+            "packed serving leaves synapse_act stale")
+    kernels.reset_launch_counts()
+    s_r = bt.resume_learning(cfg, s_p)
+    resumed = kernels.launch_counts()
+    require(resumed == {k: int(k == "act_conn") for k in resumed},
+            f"resume_learning launches act_conn once, got {resumed}")
+    diff = differing_leaves(s_r, s_u)
+    require(not diff, f"resumed leaves == unpacked-served, differ: {diff}")
+    snap = gen.get_state()
+    learned = []
+    for st in (s_r, s_u):
+        g = torch.Generator(device=dev)
+        g.set_state(snap)
+        learned.append(bt.htm_scan(cfg, st, xs[:RESUME_STEPS], True,
+                                   detailed_metrics=False,
+                                   draws=bt.TorchDraws(cfg.tm, B, dev, g)))
+    (s_a, m_a), (s_b, m_b) = learned
+    diff = differing_leaves(s_a, s_b)
+    require(not diff and all(torch.equal(m_a[k], m_b[k]) for k in m_b),
+            f"serve packed -> resume -> learn == serve unpacked -> learn, "
+            f"differ: {diff}")
+    del out, learned, s_u, s_p, s_r, s_a, s_b
+    print(f"serving {N} steps at B={B}: unpacked, packed and frozen word "
+          f"give equal metrics and predictions (correct {correct:.2f} of "
+          f"{A}), frozen == unpacked in every leaf; launches {launches}; "
+          f"packed -> resume_learning (act_conn x1) -> {RESUME_STEPS} "
+          f"learning steps == unpacked -> learning, every leaf and metric")
+
+    runs = {name: [] for name in forms}
+    for _ in range(REPEATS):
+        for name, (fn, _) in forms.items():
+            st = copy.deepcopy(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(st)
+            torch.cuda.synchronize()
+            runs[name].append(1e3 * (time.perf_counter() - t0) / N)
+            del st
+    perf = {f"serving_{name}_ms_per_step": statistics.median(r)
+            for name, r in runs.items()}
+    perf.update({f"serving_{name}_ms_per_step_runs": r
+                 for name, r in runs.items()})
+    print(f"serving step time, median of {REPEATS} runs of {N} steps "
+          f"(ms/step): " + ", ".join(
+              f"{name} {statistics.median(r):.3f} ("
+              + ", ".join(f"{t:.3f}" for t in r) + ")"
+              for name, r in runs.items()))
+    for name, (fn, _) in forms.items():
+        st = copy.deepcopy(state)
+        print(f"profile of {N} {name} serving steps, top device ops:")
+        busy, n_launch = device_profile(lambda: fn(st), N, 5)
+        med = perf[f"serving_{name}_ms_per_step"]
+        print(f"  device busy {busy:.3f} ms/step, {n_launch:.1f} kernel "
+              f"launches/step, busy share {busy / med:.3f} of the median "
+              f"{med:.3f} ms/step")
+        perf[f"serving_{name}_device_busy_ms_per_step"] = busy
+        del st
+    print("serving metrics: " + json.dumps(perf))
+    return {"serving_activation": launches["packed"]["serving_activation"],
+            "act_frozen": launches["frozen"]["act_frozen"]}
 
 
 def time_phases(snap: Snapshot, xs) -> None:
@@ -404,6 +602,31 @@ def time_phases(snap: Snapshot, xs) -> None:
               f"{k} {1e3 * host[k] / n:.3f} / {span[k]:.3f}" for k in names))
 
 
+def device_profile(run, n: int, top: int) -> tuple[float, float]:
+    """torch.profiler over ``run()``, which takes n steps: prints the top
+    device ops a step and returns (device busy ms, kernel launches) a
+    step."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA], acc_events=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    per_op: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            c = per_op.setdefault(e.name, [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us() / 1e3
+    busy = sum(c[1] for c in per_op.values()) / n
+    launches = sum(c[0] for name, c in per_op.items()
+                   if not name.startswith(("Memcpy", "Memset"))) / n
+    require(busy > 0, "the profiler saw device time")
+    for name, (count, ms) in sorted(per_op.items(),
+                                    key=lambda kv: -kv[1][1])[:top]:
+        print(f"  {ms / n:8.3f} ms/step  {count / n:6.1f}/step  {name[:100]}")
+    return busy, launches
+
+
 def profile_steps(snap: Snapshot, xs, window_ms: float) -> None:
     """torch.profiler over len(xs) learning steps of `htm_scan`, after an
     unprofiled run of the same steps from the same state and draws:
@@ -415,31 +638,19 @@ def profile_steps(snap: Snapshot, xs, window_ms: float) -> None:
     _, _, plain_s = timed_scan(cfg, state, xs, True, draws)
     del state
     state, draws = snap.restore()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA], acc_events=True) as prof:
-        _, _, prof_s = timed_scan(cfg, state, xs, True, draws)
-    del state
-    per_op: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            c = per_op.setdefault(e.name, [0, 0.0])
-            c[0] += 1
-            c[1] += e.time_range.elapsed_us() / 1e3
-    busy = sum(c[1] for c in per_op.values()) / n
-    launches = sum(c[0] for name, c in per_op.items()
-                   if not name.startswith(("Memcpy", "Memset"))) / n
-    plain_ms, prof_ms = 1e3 * plain_s / n, 1e3 * prof_s / n
-    require(busy > 0, "the profiler saw device time")
+    t0 = time.perf_counter()
     print(f"profile of learning steps {LEARN_STEPS - WINDOW}-"
-          f"{LEARN_STEPS - WINDOW + n}: device busy {busy:.3f} ms/step, "
-          f"{launches:.1f} kernel launches/step; the same steps take "
-          f"{plain_ms:.3f} ms/step unprofiled ({prof_ms:.3f} profiled): "
-          f"busy share {busy / plain_ms:.3f} (steady-window median "
-          f"{window_ms:.3f} ms/step)")
-    for name, (count, ms) in sorted(per_op.items(),
-                                    key=lambda kv: -kv[1][1])[:10]:
-        print(f"  {ms / n:8.3f} ms/step  {count / n:6.1f}/step  {name[:100]}")
+          f"{LEARN_STEPS - WINDOW + n}, top device ops:")
+    busy, launches = device_profile(
+        lambda: timed_scan(cfg, state, xs, True, draws), n, 10)
+    prof_s = time.perf_counter() - t0
+    del state
+    plain_ms, prof_ms = 1e3 * plain_s / n, 1e3 * prof_s / n
+    print(f"  device busy {busy:.3f} ms/step, {launches:.1f} kernel "
+          f"launches/step; the same steps take {plain_ms:.3f} ms/step "
+          f"unprofiled ({prof_ms:.3f} profiled): busy share "
+          f"{busy / plain_ms:.3f} (steady-window median {window_ms:.3f} "
+          f"ms/step)")
 
 
 def main() -> None:
@@ -451,17 +662,20 @@ def main() -> None:
 
     t0 = time.perf_counter()
     kernels.build(force=True)
-    print(f"kernels built from {SOURCE} in {time.perf_counter() - t0:.2f} s")
+    print(f"kernels built from {', '.join(sorted(set(SOURCES.values())))} "
+          f"in {time.perf_counter() - t0:.2f} s")
 
     checks = check_kernels(dev)
     check_learning(dev)
     check_cpu_agreement(dev)
-    launches, snap, window_ms = run_main_path(dev)
+    launches, snap, window_ms, (state, gen, serve_xs) = run_main_path(dev)
+    launches.update(run_serving(snap.cfg, state, gen, serve_xs))
+    del state
     time_phases(snap, snap.xs[:PROFILED_STEPS])
     profile_steps(snap, snap.xs[:PROFILED_STEPS], window_ms)
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          **checks[name]} for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": device}))

@@ -117,9 +117,17 @@ def test_cuda_wrappers_reject_cpu_tensors():
 
 
 def test_cuda_source_names_both_entry_points():
-    src = (kernels.CSRC / "table_pass.cu").read_text()
+    """Every bound kernel has its C entry point in one of the sources,
+    and each source names the TPU kernels it replaces."""
+    src = {name: (kernels.CSRC / name).read_text()
+           for name in kernels.SOURCES}
+    every = "".join(src.values())
     for name in kernels._ARGTYPES:
-        assert re.search(rf'extern "C" int {name}\(', src), name
+        assert re.search(rf'extern "C" int {name}\(', every), name
     assert set(kernels._ARGTYPES) == {k.name for k in kernels.KERNELS}
-    assert "pallas_kernels.py:489" in src and "pallas_kernels.py:698" in src
+    for name, lines in (("table_pass.cu", (489, 698)),
+                        ("serving_pass.cu", (835, 772))):
+        for line in lines:
+            assert f"pallas_kernels.py:{line}" in src[name], (name, line)
+        assert '#include "active_bitmap.cuh"' in src[name]
     assert Path(kernels.library_path()).parent == kernels.BUILD_DIR
