@@ -44,7 +44,7 @@ def _leaf_to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
     return a.view(np.uint32) if name in U32_LEAVES else a
 
 
-def htm_state_from_numpy(tree, device="cpu") -> HTMState:
+def htm_state_from_numpy(tree, device="cuda") -> HTMState:
     """JAX `HTMState` leaves (numpy) -> port `HTMState` on ``device``."""
     sp, tm = _get(tree, "sp"), _get(tree, "tm")
     batched = np.asarray(_get(tm, "step")).ndim == 1
@@ -69,7 +69,7 @@ def htm_state_to_numpy(state: HTMState) -> dict:
     }
 
 
-def serving_table_from_numpy(table, device="cpu") -> ServingTable:
+def serving_table_from_numpy(table, device="cuda") -> ServingTable:
     """JAX `ServingTable` (``rows``, ``ext_col``: attributes or mapping
     keys, numpy-readable) -> port `ServingTable` on ``device``; a
     single-stream table becomes a batch of one."""

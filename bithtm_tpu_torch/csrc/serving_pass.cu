@@ -1,7 +1,6 @@
-// Serving-path activation passes, for NVIDIA Hopper (sm_90a).
+// Word-table activation passes, for NVIDIA Hopper (sm_90a).
 //
-// Replaces the two Pallas kernels of bithtm_tpu/ops/pallas_kernels.py
-// that the serving forward runs:
+// Replaces three Pallas kernels of bithtm_tpu/ops/pallas_kernels.py:
 //   serving_activation <- serving_activation_tpu (pallas_kernels.py:835,
 //                         body _serving_act_kernel :810): the forward pass
 //                         over a compact serving table (ops/serving.py)
@@ -9,17 +8,22 @@
 //                         (pallas_kernels.py:772, body _act_frozen_kernel
 //                         :739): the forward pass over the frozen word
 //                         table (ops/active_set.py pack_frozen_table)
+//   synapse_activation <- synapse_activation_tpu (pallas_kernels.py:661,
+//                         body _act_kernel :341): the activity-only 0/1
+//                         mask over a synapse cell table
 // Plain PyTorch versions: bithtm_tpu_torch/ops/serving.py
 // (serving_activation_ref) and bithtm_tpu_torch/ops/active_set.py
-// (synapse_activation_frozen_ref).
+// (synapse_activation_frozen_ref, synapse_activation_ref).
 //
 // Per table word w of stream b:
 //   serving_activation: w = cell << 5 | g (-1 = empty lane)
 //       out = (w >= 0 && cell active) ? g + 1 : 0                  (u8)
 //   act_frozen: w = cell (bits 0-23) | connected << 24 (-1 = dead slot)
 //       out = (w >= 0 && cell active) ? (connected ? 1 + scale : 1) : 0
+//   synapse_activation: w = presynaptic cell (< 0 = free slot)
+//       out = cell active ? 1 : 0                                  (u8)
 //
-// Design. Both are elementwise over a stream's words, with the same
+// Design. All three are elementwise over a stream's words, with the same
 // question as table_pass.cu: is the presynaptic cell in this stream's
 // active set? Each block builds that set as a shared-memory bitmap
 // (active_bitmap.cuh) and then streams a contiguous run of the stream's
@@ -30,7 +34,8 @@
 // Bound: bytes, 5 per word (4 in, 1 out). At B=256 a serving table of
 // R = 2048*M + E rows moves 0.34 GB per step for M=1 (about 0.10 ms at
 // the H100's 3.35 TB/s); the frozen table at C=2048, J=256 moves 0.67 GB
-// (about 0.20 ms), against act_conn's 9 B/slot.
+// (about 0.20 ms), against act_conn's 9 B/slot; synapse_activation moves
+// as much as act_frozen over a table of the same size.
 
 #include "active_bitmap.cuh"
 
@@ -63,6 +68,13 @@ struct FrozenWord {
     const bool conn = (w >> kFrozenCellBits) == 1;
     return cell_active(bm, cell, n_cells)
                ? static_cast<uint8_t>(conn ? 1 + scale : 1) : 0;
+  }
+};
+
+struct ActivityWord {
+  __device__ __forceinline__ uint8_t operator()(const uint32_t* bm, int w,
+                                                int n_cells) const {
+    return cell_active(bm, w, n_cells) ? 1 : 0;
   }
 };
 
@@ -135,4 +147,19 @@ extern "C" int act_frozen(const int* word, const int* cols, const int* bits,
                                  FrozenWord{scale}, s);
   return launch<FrozenWord, 1>(word, cols, bits, v_out, B, n, A, W, C, D,
                                FrozenWord{scale}, s);
+}
+
+// syn (B, R, J) int32 presynaptic cells -> out (B, R, J) u8 0/1, over the
+// bitmap of C*D cells.
+extern "C" int synapse_activation(const int* syn, const int* cols,
+                                  const int* bits, uint8_t* out, int B,
+                                  int R, int J, int A, int W, int C, int D,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = R * J;
+  if (n % 4 == 0)
+    return launch<ActivityWord, 4>(syn, cols, bits, out, B, n, A, W, C, D,
+                                   ActivityWord{}, s);
+  return launch<ActivityWord, 1>(syn, cols, bits, out, B, n, A, W, C, D,
+                                 ActivityWord{}, s);
 }

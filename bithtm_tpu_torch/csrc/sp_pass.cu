@@ -1,0 +1,169 @@
+// Spatial pooler Hebbian update and connected re-pack, for NVIDIA Hopper
+// (sm_90a).
+//
+// Replaces sp_update_pack_tpu (bithtm_tpu/ops/pallas_kernels.py:598, body
+// _sp_kernel :549). Plain PyTorch version:
+// bithtm_tpu_torch/models/spatial_pooler.py (sp_update_pack_ref).
+//
+// Per stream b, column c and input lane i of the (C, I_pad) permanence
+// table, with act = (c is one of the stream's A active columns):
+//   int16 units:  p = clip(perm + act * delta[i], -32000, 32000)
+//   float32:      p = perm + act * delta[i]
+//   perm[b, c, i] = p          (every row is written, as on the TPU)
+//   bit j of pack[b, c, w] = (p at lane j*S + w) >= threshold,
+// S = I_pad / 8: the strided pack of ops/overlap.py pack_input. The int16
+// arithmetic is widened to int32, as in the TPU kernel.
+//
+// Design. The TPU kernel built the active-row flag from A compares
+// against program ids. Here each block marks its stream's active columns
+// in a C-bit shared-memory bitmap, then each thread takes 8 neighbouring
+// packed bytes of one row: for each of the 8 strided slices it loads the
+// 8 permanences (16 bytes as int16, 32 as float32) and the 8 deltas, and
+// stores the 8 updated permanences, so every load and store is a 16-byte
+// vector; the 8 packed bytes go out as one 8-byte store. The grid is
+// (runs of packed bytes, B).
+//
+// Bound: bytes. The function needs the permanences read once, the A
+// active rows written and the packed table written: at B=256, C=2048,
+// I_pad=1024, A=41 that is 1.16 GB in int16 and 2.26 GB in float32,
+// about 0.35 ms and 0.67 ms at the H100's 3.35 TB/s. This kernel writes
+// every row back, as the TPU kernel did (4.125 B an input in int16, 8.125
+// in float32: 2.21 GB and 4.36 GB); writing only the active rows is the
+// first step toward the bound.
+
+#include "active_bitmap.cuh"
+
+namespace {
+
+using bithtm::kThreads;
+
+constexpr int kVec = 8;                  // packed bytes a thread
+constexpr int kGroupsPerBlock = 2048;    // runs of kVec packed bytes
+
+struct Int16Units {
+  using T = int16_t;
+  int threshold;
+  __device__ __forceinline__ T update(T p, int d, bool act,
+                                      bool* conn) const {
+    int v = static_cast<int>(p) + (act ? d : 0);
+    v = min(max(v, -32000), 32000);
+    *conn = v >= threshold;
+    return static_cast<T>(v);
+  }
+};
+
+struct Float32 {
+  using T = float;
+  float threshold;
+  __device__ __forceinline__ T update(T p, float d, bool act,
+                                      bool* conn) const {
+    const float v = __fadd_rn(p, __fmul_rn(act ? 1.0f : 0.0f, d));
+    *conn = v >= threshold;
+    return v;
+  }
+};
+
+// 8 consecutive lanes of type T: one 16-byte vector for int16, two for
+// float32.
+template <typename T>
+struct Lanes {
+  static constexpr int kVectors = sizeof(T) * kVec / 16;
+  int4 v[kVectors];
+  __device__ __forceinline__ void load(const T* p) {
+#pragma unroll
+    for (int k = 0; k < kVectors; ++k)
+      v[k] = reinterpret_cast<const int4*>(p)[k];
+  }
+  __device__ __forceinline__ void store(T* p) const {
+#pragma unroll
+    for (int k = 0; k < kVectors; ++k) reinterpret_cast<int4*>(p)[k] = v[k];
+  }
+  __device__ __forceinline__ T& operator[](int e) {
+    return reinterpret_cast<T*>(v)[e];
+  }
+};
+
+template <class Op, typename D>
+__global__ void __launch_bounds__(kThreads) sp_update_pack_kernel(
+    typename Op::T* __restrict__ perm, const D* __restrict__ delta,
+    const int* __restrict__ cols, uint8_t* __restrict__ pack, int C,
+    int I_pad, int A, Op op) {
+  extern __shared__ uint32_t active[];
+  const int b = blockIdx.y;
+  for (int i = threadIdx.x; i < (C + 31) >> 5; i += blockDim.x)
+    active[i] = 0u;
+  __syncthreads();
+  for (int a = threadIdx.x; a < A; a += blockDim.x) {
+    const int c = cols[(size_t)b * A + a];
+    if (c >= 0 && c < C) atomicOr(&active[c >> 5], 1u << (c & 31));
+  }
+  __syncthreads();
+
+  const int S = I_pad >> 3;
+  const int row_groups = S / kVec;
+  const long long n_groups = (long long)C * row_groups;
+  const long long g0 = (long long)blockIdx.x * kGroupsPerBlock;
+  const long long g1 = min(g0 + kGroupsPerBlock, n_groups);
+  const D* dl = delta + (size_t)b * I_pad;
+  for (long long g = g0 + threadIdx.x; g < g1; g += blockDim.x) {
+    const int c = static_cast<int>(g / row_groups);
+    const int w0 = static_cast<int>(g - (long long)c * row_groups) * kVec;
+    const bool act = (active[c >> 5] >> (c & 31)) & 1u;
+    typename Op::T* row = perm + ((size_t)b * C + c) * I_pad;
+    uint8_t byte[kVec] = {0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i0 = j * S + w0;
+      Lanes<typename Op::T> p;
+      Lanes<D> d;
+      p.load(row + i0);
+      d.load(dl + i0);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        bool conn;
+        p[e] = op.update(p[e], d[e], act, &conn);
+        byte[e] |= static_cast<uint8_t>(conn) << j;
+      }
+      p.store(row + i0);
+    }
+    uint2 out;
+    out.x = byte[0] | byte[1] << 8 | byte[2] << 16 | (uint32_t)byte[3] << 24;
+    out.y = byte[4] | byte[5] << 8 | byte[6] << 16 | (uint32_t)byte[7] << 24;
+    *reinterpret_cast<uint2*>(pack + ((size_t)b * C + c) * S + w0) = out;
+  }
+}
+
+template <class Op, typename D>
+int launch(void* perm, const void* delta, const int* cols, uint8_t* pack,
+           int B, int C, int I_pad, int A, Op op, cudaStream_t stream) {
+  const size_t smem = ((size_t)C + 31) / 32 * sizeof(uint32_t);
+  auto kernel = sp_update_pack_kernel<Op, D>;
+  if (int err = bithtm::allow_shared(kernel, smem)) return err;
+  const long long n_groups = (long long)C * (I_pad / 8 / kVec);
+  dim3 grid((unsigned)((n_groups + kGroupsPerBlock - 1) / kGroupsPerBlock),
+            B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<typename Op::T*>(perm), static_cast<const D*>(delta), cols,
+      pack, C, I_pad, A, op);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// perm (B, C, I_pad) int16 (quantized) or float32, updated in place;
+// delta (B, I_pad) int32 (quantized) or float32; cols (B, A) int32;
+// pack (B, C, I_pad / 8) u8. I_pad is a multiple of 1024 and every pointer
+// 16-byte aligned. Launches on the given stream, allocates nothing and
+// returns cudaGetLastError() after the launch (0 = success).
+extern "C" int sp_update_pack(void* perm, const void* delta, const int* cols,
+                              uint8_t* pack, int B, int C, int I_pad, int A,
+                              int quantized, float threshold_f,
+                              int threshold_i, void* stream) {
+  if (I_pad % 1024 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (quantized)
+    return launch<Int16Units, int>(perm, delta, cols, pack, B, C, I_pad, A,
+                                   Int16Units{threshold_i}, s);
+  return launch<Float32, float>(perm, delta, cols, pack, B, C, I_pad, A,
+                                Float32{threshold_f}, s);
+}

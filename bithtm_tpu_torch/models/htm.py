@@ -6,12 +6,17 @@ Counterpart of `bithtm_tpu/models/htm.py` (reference
 place (the JAX scan donates its carry), so the state passed in is
 consumed. `htm_serve_scan` is the serving scan (learning off, no winner
 cells, optionally over a compact serving table); both share `_scan_impl`.
-`resume_learning` makes a state served from a compact table safe to
-learn from again.
+`htm_scan_autocap` runs `htm_scan` in chunks under tuned list widths and
+widens them on the first counted drop. `resume_learning` makes a state
+served from a compact table safe to learn from again.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import functools
+import time
 from typing import NamedTuple
 
 import torch
@@ -29,6 +34,13 @@ class HTMOutput(NamedTuple):
     metrics: dict
 
 
+@functools.cache
+def _f32_reciprocal(n: int) -> float:
+    """1/n rounded to float32: XLA divides by a constant as a product
+    with this reciprocal (ROADMAP fault i)."""
+    return (torch.tensor(1.0, dtype=torch.float32) / n).item()
+
+
 def _step_metrics(cfg: HTMConfig, sp_out: SPOutput, tm_out: TMOutput
                   ) -> dict:
     """The per-step metrics of the example loop (`example.py:50-57`),
@@ -44,7 +56,8 @@ def _step_metrics(cfg: HTMConfig, sp_out: SPOutput, tm_out: TMOutput
         "bursting": burstings,
         "correct": corrects,
         "incorrect": incorrects,
-        "anomaly": burstings.to(torch.float32) / cfg.sp.active_columns,
+        "anomaly": burstings.to(torch.float32) * _f32_reciprocal(
+            cfg.sp.active_columns),
         **tm_out.metrics,
     }
 
@@ -108,6 +121,94 @@ def htm_scan(cfg: HTMConfig, state: HTMState, inputs: torch.Tensor,
     read are built (no dense (B, N) masks)."""
     return _scan_impl(cfg, state, inputs, learning, compute_winner,
                       detailed_metrics, draws)
+
+
+CAP_DROP_METRICS = ("tm_dropped_winner_candidates",
+                    "tm_dropped_growth_segments")
+
+
+def _cap_drops(metrics: dict) -> int:
+    """The counted winner/growth cap drops of a chunk: one host read."""
+    return int(sum(metrics[k].sum(dtype=torch.int64)
+                   for k in CAP_DROP_METRICS if k in metrics))
+
+
+def htm_scan_autocap(cfg: HTMConfig, state: HTMState, inputs: torch.Tensor,
+                     *, tuned: dict, safe: dict | None = None,
+                     chunk: int = 256, learning: bool = True,
+                     compute_winner: bool = True,
+                     detailed_metrics: bool = False, on_chunk=None,
+                     draws=None) -> tuple[HTMState, dict, dict]:
+    """Chunked `htm_scan` under the ``tuned`` list widths
+    (``winner_capacity`` / ``growth_capacity`` overrides), widened on the
+    first counted drop (`htm.py:225-315`).
+
+    The widths are per-step scratch, not state, so a config with other
+    caps resumes from the same state. Before each tuned chunk the state
+    and the draw provider's generator state are copied; if the chunk
+    counts any drop of `CAP_DROP_METRICS`, both are restored, the config
+    escalates to the ``safe`` overrides (default: the config's own auto
+    caps) and the same chunk runs again, with the same random stream,
+    so the trajectory up to the escalation is the tuned one and the rest
+    the safe one. The draw provider is rebuilt for the config in force
+    (``draws.with_config``: the growth draws are (L, Wc) of that
+    config); ``draws`` defaults to a `TorchDraws` on the state's device
+    and its default generator.
+
+    Returns ``(state, metrics, info)``: metrics {name: (T, B)} over all
+    chunks, as `htm_scan` returns them; ``info`` holds
+    ``escalated_at_step`` (None if the tuned caps held), ``tuned_drops``
+    (the drops of the discarded chunk) and ``chunks``. Each chunk reads
+    one scalar on the host. ``on_chunk(start_step, seconds, escalated,
+    drops)`` is called after each produced chunk.
+
+    One deliberate difference from the JAX function: ``drops`` is the
+    count of the chunk as produced, under whichever caps ran it, where
+    JAX reports the discarded tuned run's count for the escalating chunk
+    and 0 for every later one. A safe chunk that drops is reported, not
+    hidden. The JAX ``unroll`` has no meaning
+    here (the scan is a Python loop)."""
+    def with_caps(overrides):
+        return dataclasses.replace(
+            cfg, tm=dataclasses.replace(cfg.tm, **overrides))
+
+    cfg_tuned, cfg_safe = with_caps(tuned), with_caps(safe or {})
+    if draws is None:
+        draws = TorchDraws(cfg_tuned.tm, state.batch, state.tm.step.device)
+    draws = draws.with_config(cfg_tuned.tm)
+    active_cfg = cfg_tuned
+    per_chunk: list[dict] = []
+    escalated_at, tuned_drops = None, 0
+    for t0 in range(0, inputs.shape[0], chunk):
+        xs = inputs[t0:t0 + chunk]
+        wall0 = time.perf_counter()
+        tuned_now = active_cfg is cfg_tuned
+        if tuned_now:
+            saved = copy.deepcopy(state), draws.get_state()
+        new_state, m = htm_scan(active_cfg, state, xs, learning,
+                                compute_winner, detailed_metrics, draws)
+        drops = _cap_drops(m)
+        escalated_now = tuned_now and drops > 0
+        if escalated_now:
+            # discard the dropping chunk, re-run it under the safe caps
+            tuned_drops, escalated_at = drops, t0
+            active_cfg = cfg_safe
+            state, gen_state = saved
+            draws = draws.with_config(cfg_safe.tm)
+            draws.set_state(gen_state)
+            new_state, m = htm_scan(active_cfg, state, xs, learning,
+                                    compute_winner, detailed_metrics, draws)
+            drops = _cap_drops(m)
+        state = new_state
+        per_chunk.append(m)
+        if on_chunk is not None:
+            if state.tm.step.is_cuda:
+                torch.cuda.synchronize(state.tm.step.device)
+            on_chunk(t0, time.perf_counter() - wall0, escalated_now, drops)
+    metrics = {k: torch.cat([m[k] for m in per_chunk]) for k in per_chunk[0]}
+    info = {"escalated_at_step": escalated_at, "tuned_drops": tuned_drops,
+            "chunks": len(per_chunk)}
+    return state, metrics, info
 
 
 def htm_serve_scan(cfg: HTMConfig, state: HTMState, inputs: torch.Tensor,

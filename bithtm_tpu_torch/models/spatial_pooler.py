@@ -7,6 +7,10 @@ updates whether or not the model learns (`networks.py:33`).
 
 The permanence and connected tables are updated in place: the state
 passed in is consumed, as the JAX scan donates its carry.
+
+`sp_update_pack` is the fused update + re-pack of the whole table, an
+entry point of its own with the CUDA kernel of the same name
+(`ops/kernels.py`) and its plain version `sp_update_pack_ref`.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import SPConfig
+from ..ops.active_set import _on_device, column_mask_from_cols
 from ..ops.overlap import overlaps as _overlaps, pack_input
 from ..ops.regularization import boost, duty_cycle_update, k_winners
 from ..state import SPState
@@ -28,30 +33,78 @@ class SPOutput(NamedTuple):
     boosted_overlaps: torch.Tensor  # (B, C) f32
 
 
-def _hebbian_rows(cfg: SPConfig, rows: torch.Tensor,
-                  input_bits: torch.Tensor):
-    """Hebbian update of gathered rows (B, A, I_pad) toward the inputs
-    (`projections.py:23-24`: delta = x * (inc + dec) - dec); padding
-    lanes get delta 0 and stay at the rail. Returns (rows', threshold)."""
-    B, _, I_pad = rows.shape
-    I = cfg.input_dim
-    x = torch.zeros((B, I_pad), dtype=torch.int32, device=rows.device)
+def hebbian_delta(cfg: SPConfig, input_bits: torch.Tensor, I_pad: int
+                  ) -> tuple[torch.Tensor, int | float]:
+    """The per-input Hebbian delta (`projections.py:23-24`: delta =
+    x * (inc + dec) - dec) of (B, I) inputs, (B, I_pad): int32 units on
+    an int16 table, float32 otherwise; padding lanes get 0 and stay at
+    the rail. Returns (delta, connected threshold in the table's
+    units)."""
+    B, I = input_bits.shape[0], cfg.input_dim
+    x = torch.zeros((B, I_pad), dtype=torch.int32, device=input_bits.device)
     x[:, :I] = input_bits.to(torch.int32)
-    in_range = (torch.arange(I_pad, device=rows.device) < I)[None, None]
+    in_range = torch.arange(I_pad, device=input_bits.device) < I
     if cfg.quantized:
-        # exact integer units; the clip saturates a chronically
-        # reinforced synapse at the rail instead of wrapping int16
         inc = cfg.to_units(cfg.permanence_increment)
         dec = cfg.to_units(cfg.permanence_decrement)
-        delta = torch.where(in_range, (x * (inc + dec) - dec)[:, None], 0)
-        rows = (rows.to(torch.int32) + delta).clamp(-32000, 32000).to(
-            torch.int16)
-        return rows, cfg.to_units(cfg.permanence_threshold)
+        delta = torch.where(in_range, x * (inc + dec) - dec, 0)
+        return delta, cfg.to_units(cfg.permanence_threshold)
     xf = x.to(torch.float32)
     delta = xf * (cfg.permanence_increment + cfg.permanence_decrement) \
         - cfg.permanence_decrement
-    delta = torch.where(in_range, delta[:, None], 0.0)
-    return rows + delta, cfg.permanence_threshold
+    return torch.where(in_range, delta, 0.0), cfg.permanence_threshold
+
+
+def _hebbian_rows(cfg: SPConfig, rows: torch.Tensor,
+                  input_bits: torch.Tensor):
+    """Hebbian update of gathered rows (B, A, I_pad) toward the inputs.
+    Returns (rows', threshold)."""
+    delta, thr = hebbian_delta(cfg, input_bits, rows.shape[-1])
+    if cfg.quantized:
+        # exact integer units; the clip saturates a chronically
+        # reinforced synapse at the rail instead of wrapping int16
+        rows = (rows.to(torch.int32) + delta[:, None]).clamp(
+            -32000, 32000).to(torch.int16)
+        return rows, thr
+    return rows + delta[:, None], thr
+
+
+def sp_update_pack_ref(permanence: torch.Tensor, delta_row: torch.Tensor,
+                       active_cols: torch.Tensor, threshold
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the `sp_update_pack` kernel: every row of the
+    (B, C, I_pad) ``permanence`` (int16 units or float32) becomes
+    perm + act * delta_row, act = 1 on the (B, A) ``active_cols`` and 0
+    elsewhere (int16: widened to int32 and clipped to +-32000), in
+    place; returns (permanence, connected (B, C, I_pad/8) u8 of every
+    row in `pack_input`'s strided layout). The arithmetic of the TPU
+    kernel (`pallas_kernels.py:549-595`), so the float32 path multiplies
+    by act before it adds."""
+    act = column_mask_from_cols(active_cols, permanence.shape[1])[..., None]
+    if permanence.dtype == torch.int16:
+        p = (permanence.to(torch.int32) + act * delta_row.to(torch.int32)
+             [:, None]).clamp(-32000, 32000).to(torch.int16)
+    else:
+        p = permanence + act.to(torch.float32) * delta_row[:, None]
+    permanence.copy_(p)
+    return permanence, pack_input(p >= threshold)
+
+
+def sp_update_pack(permanence: torch.Tensor, delta_row: torch.Tensor,
+                   active_cols: torch.Tensor, threshold
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SP's Hebbian update of the active rows and the re-pack of
+    every row's connected bits in one pass (the fused form of the
+    learning half of `sp_step`, which does not call it, as the JAX step
+    does not dispatch its kernel): the `sp_update_pack` kernel for CUDA
+    tensors, the plain version for CPU tensors. ``delta_row`` and
+    ``threshold`` come from `hebbian_delta`."""
+    if _on_device("sp_update_pack", permanence) == "cuda":
+        from ..ops.kernels import sp_update_pack_cuda
+
+        return sp_update_pack_cuda(permanence, delta_row, active_cols,
+                                   threshold)
+    return sp_update_pack_ref(permanence, delta_row, active_cols, threshold)
 
 
 def sp_step(cfg: SPConfig, state: SPState, input_bits: torch.Tensor,

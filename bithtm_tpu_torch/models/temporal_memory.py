@@ -14,6 +14,11 @@ leading stream axis B instead of vmapped. The order of one step:
      (`networks.py:121-127`); `ops.active_set.table_update` runs it
      through the CUDA kernel on the card.
 
+Growth picks its random candidates by one packed integer key a
+candidate: the cell id below the random bits up to 2^16 cells, the
+candidate's list index above (16K x 64), decoded after the selection by
+`take_small_table` (the `small_table_take` kernel on the card).
+
 Inference runs step 5 as a forward pass only, over the synapse tables,
 a frozen word table (`frozen_word=`) or a compact serving table
 (`serving_table=`); `tm_resume` re-derives the carries a compact serving
@@ -52,6 +57,7 @@ from ..ops.active_set import (
     synapse_activation_frozen,
     table_update,
     take_percell,
+    take_small_table,
     unpack_bits,
 )
 from ..ops.bitops import lsr32, popcount32
@@ -59,9 +65,9 @@ from ..ops.serving import ServingTable, serving_counts
 from ..rng import Draws
 from ..state import TMState
 
-# the growth key packs the cell id into its low bits and needs >= 15
-# random bits above it (temporal_memory.py:456): at most 2^16 cells
-MAX_PACKED_CELL_BITS = 16
+# the index-keyed growth key (above 2^16 cells) holds the candidate's
+# list index below bit 30; invalid keys sort last
+PACKED_IDX_SENTINEL = 0x7FFFFFFF
 
 
 class TMOutput(NamedTuple):
@@ -172,24 +178,43 @@ def _allocate(cfg: TMConfig, segcell_rows, syn_rows, match_rows, unacc):
     return new_seg, new_owner, n_dropped, n_evicted
 
 
-def _select_and_fill(pkey, valid, n_grow, free, samp: int, cell_bits: int):
-    """`sortfill_packed_cell` (`temporal_memory.py:221-314`): per row,
-    the ``n_grow`` smallest valid keys, their cells (the low
-    ``cell_bits`` bits) written into the first free slots.
+def _select_and_fill(pkey, valid, n_grow, free, samp: int, low_bits: int,
+                     cand_cell=None):
+    """`_select_and_fill` (`temporal_memory.py:221-347`): per row, the
+    ``n_grow`` smallest valid keys, written into the first free slots.
 
-    The keys are sorted as int64. A valid key is below 2^31 and may be
-    exactly 0x7FFFFFFF at 2^16 cells, so an int32 sort against a
-    0xFFFFFFFF sentinel (which would read as -1) would put the invalid
-    keys first; the sentinel here is 2^32 - 1 and ``n_valid`` counts
-    the mask. Returns (gathered (B, L, K), wrote_l (B, L, K),
-    n_chosen (B, L))."""
+    Without ``cand_cell``, `sortfill_packed_cell`: the low ``low_bits``
+    bits of a key are the cell. The keys are sorted as int64: a valid key
+    is below 2^31 and may be exactly 0x7FFFFFFF at 2^16 cells, so an
+    int32 sort against a 0xFFFFFFFF sentinel (which would read as -1)
+    would put the invalid keys first; the sentinel here is 2^32 - 1.
+
+    With ``cand_cell`` (B, Wc), `sortfill_packed_idx`: the low bits are
+    the candidate's list index, decoded to its cell by
+    `take_small_table`. The keys are int32 below 2^30 with the sentinel
+    0x7FFFFFFF. Valid keys are distinct (the index sits in the low bits),
+    so the kk smallest of `torch.topk` are the keys the JAX split-block
+    sort selects, in the same order; sentinels tie, but any order of
+    equal keys is the same values, and their decoded cells land only in
+    slots that ``wrote_l`` never writes.
+
+    ``n_valid`` counts the mask. Returns (gathered (B, L, K), wrote_l
+    (B, L, K), n_chosen (B, L))."""
     Wc = pkey.shape[-1]
     free_rank = rank_ascending(free)                            # (B, L, K)
     n_chosen = torch.minimum(n_grow, valid.sum(-1, dtype=torch.int32))
     kk = min(samp, Wc)
-    keys = torch.where(valid, pkey, (1 << 32) - 1)
-    sorted_key = torch.sort(keys, dim=-1).values[..., :kk]
-    chosen_cell = (sorted_key & ((1 << cell_bits) - 1)).to(torch.int32)
+    low = (1 << low_bits) - 1
+    if cand_cell is None:
+        keys = torch.where(valid, pkey, (1 << 32) - 1)
+        sorted_key = torch.sort(keys, dim=-1).values[..., :kk]
+        chosen_cell = (sorted_key & low).to(torch.int32)
+    else:
+        keys = torch.where(valid, pkey, PACKED_IDX_SENTINEL)
+        sorted_key = torch.topk(keys, kk, dim=-1, largest=False,
+                                sorted=True).values
+        chosen_cell = take_small_table(cand_cell.contiguous(),
+                                       sorted_key & low)
     # slot k takes the free_rank[k]-th chosen cell
     pick = free_rank.clamp(0, kk - 1).long()
     gathered = chosen_cell.gather(-1, pick)
@@ -260,11 +285,22 @@ def _grow(cfg: TMConfig, rnd, syn_rows, perm_rows, learn_rows,
     n_cells = C * D
     cell_bits = max(1, (n_cells - 1).bit_length())
     free = ~live_l
-    # random bits above the cell id (logical shift: rnd carries 32 bits)
-    pkey = ((lsr32(rnd, cell_bits + 1).to(torch.int64) << cell_bits)
-            | cand_cell[:, None, :].to(torch.int64))
-    gathered, wrote_l, n_chosen = _select_and_fill(
-        pkey, valid, n_grow, free, samp, cell_bits)
+    # random bits above what identifies the candidate (logical shifts:
+    # rnd carries 32 bits in int32)
+    if 31 - cell_bits >= 15:
+        # the cell id fits with >= 15 random bits (up to 2^16 cells)
+        pkey = ((lsr32(rnd, cell_bits + 1).to(torch.int64) << cell_bits)
+                | cand_cell[:, None, :].to(torch.int64))
+        gathered, wrote_l, n_chosen = _select_and_fill(
+            pkey, valid, n_grow, free, samp, cell_bits)
+    else:
+        # larger cell spaces: the candidate's list index, random bits in
+        # [idx_bits, 29], decoded to its cell after the selection
+        idx_bits = max(1, (Wc - 1).bit_length())
+        pkey = ((lsr32(rnd, idx_bits + 2) << idx_bits)
+                | torch.arange(Wc, dtype=torch.int32, device=dev))
+        gathered, wrote_l, n_chosen = _select_and_fill(
+            pkey, valid, n_grow, free, samp, idx_bits, cand_cell)
     new_syn_l = torch.where(wrote_l, gathered, syn_l)
 
     # scatter the L rows back; invalid rows land in the padding row
@@ -362,15 +398,6 @@ def _learn(cfg: TMConfig, state: TMState, draws: Draws, active_cols,
     return seg_cell, metrics
 
 
-def _check_supported(cfg: TMConfig) -> None:
-    cell_bits = max(1, (cfg.num_cells - 1).bit_length())
-    if cell_bits > MAX_PACKED_CELL_BITS:
-        raise NotImplementedError(
-            f"{cfg.num_cells} cells need the index-keyed growth selection "
-            f"(sortfill_packed_idx, above 2^{MAX_PACKED_CELL_BITS} cells), "
-            f"which the PyTorch port does not have yet")
-
-
 def _check_forward_options(learning: bool, compute_winner: bool,
                            detailed_metrics: bool, frozen_word,
                            serving_table) -> None:
@@ -437,7 +464,6 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
     path; the carried ``synapse_act`` passes through unchanged (stale)
     and ``matching_word`` holds the connected-only matching flags, until
     `tm_resume` re-derives both."""
-    _check_supported(cfg)
     _check_forward_options(learning, compute_winner, detailed_metrics,
                            frozen_word, serving_table)
     C, D, G, K = (cfg.column_dim, cfg.cell_dim, cfg.segments_per_column,

@@ -7,14 +7,17 @@ columns per step, so the active (and winner) cell sets are carried as
     bits: (B, A, W) int32  per-column cell bitmask (32-bit words), W = ceil(D/32)
 
 Every function takes a leading stream axis B. The full-table pass
-(`table_update`, `synapse_activation_conn`, and `synapse_activation_frozen`
-over a `pack_frozen_table` word table) asks, for every synapse slot,
-whether its presynaptic cell is in that set; on a CUDA tensor it runs
-the hand-written kernel of `ops/kernels.py`, on a CPU tensor the plain
+(`table_update`, `synapse_activation_conn`, `synapse_activation_frozen`
+over a `pack_frozen_table` word table, and the activity-only
+`synapse_activation`) asks, for every synapse slot, whether its
+presynaptic cell is in that set; on a CUDA tensor it runs the
+hand-written kernel of `ops/kernels.py`, on a CPU tensor the plain
 version beside it (`table_update_ref`, `synapse_activation_conn_ref`,
-`synapse_activation_frozen_ref`). The plain versions gather from a dense
-(B, C*D) active-cell mask; the kernels build the same mask as a bitmap
-in shared memory.
+`synapse_activation_frozen_ref`, `synapse_activation_ref`). The plain
+versions gather from a dense (B, C*D) active-cell mask; the kernels
+build the same mask as a bitmap in shared memory. `take_small_table`,
+the index -> cell decode of the growth keys above 2^16 cells, follows
+the same rule (`small_table_take` kernel, `take_small_table_ref`).
 """
 
 from __future__ import annotations
@@ -188,6 +191,54 @@ def synapse_activation_conn(syn, perm, cols, bits, cell_dim: int,
                              perm_threshold, synapses)
     return synapse_activation_conn_ref(syn, perm, cols, bits, cell_dim,
                                        perm_threshold, synapses)
+
+
+def synapse_activation_ref(syn, cols, bits, column_dim: int,
+                           cell_dim: int) -> torch.Tensor:
+    """Plain version of the `synapse_activation` kernel: (B, R, J) u8, 1
+    where the slot's presynaptic cell is in the (cols, bits) active set;
+    free slots (< 0) and ids outside [0, C*D) are not. Activity only, no
+    permanence (JAX `synapse_activation_xla`, which returns bool, and
+    its Pallas kernel, bf16 0/1)."""
+    return cells_active(syn, cols, bits, column_dim, cell_dim).to(
+        torch.uint8)
+
+
+def synapse_activation(syn, cols, bits, column_dim: int,
+                       cell_dim: int) -> torch.Tensor:
+    """The activity-only 0/1 mask of every slot of a (B, R, J) synapse
+    cell table: the `synapse_activation` kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if _on_device("synapse_activation", syn) == "cuda":
+        from .kernels import synapse_activation_cuda
+
+        return synapse_activation_cuda(syn, cols, bits, column_dim,
+                                       cell_dim)
+    return synapse_activation_ref(syn, cols, bits, column_dim, cell_dim)
+
+
+def take_small_table_ref(table: torch.Tensor, idx: torch.Tensor
+                         ) -> torch.Tensor:
+    """Plain version of the `small_table_take` kernel: out[b, ...] =
+    table[b, idx[b, ...]] for table (B, Wc) and idx (B, ...) int32, 0
+    where idx is outside [0, Wc) (as JAX `take_small_table`'s
+    compare-select-reduce and its zero-padded Pallas chunks give)."""
+    B, Wc = table.shape
+    flat = idx.reshape(B, -1)
+    got = table.gather(1, flat.clamp(0, Wc - 1).long())
+    return torch.where((flat >= 0) & (flat < Wc), got, 0).reshape(idx.shape)
+
+
+def take_small_table(table: torch.Tensor, idx: torch.Tensor
+                     ) -> torch.Tensor:
+    """Per-stream lookup in a small shared table (B, Wc), Wc <= 2048:
+    the `small_table_take` kernel for CUDA tensors, the plain version
+    for CPU tensors. Out-of-range indices give 0."""
+    if _on_device("take_small_table", table) == "cuda":
+        from .kernels import small_table_take_cuda
+
+        return small_table_take_cuda(table, idx)
+    return take_small_table_ref(table, idx)
 
 
 FROZEN_CELL_BITS = 24  # cell id field of the frozen serving word

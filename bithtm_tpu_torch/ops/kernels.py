@@ -1,6 +1,7 @@
 """Build, binding and wrappers of the hand-written CUDA kernels.
 
-The sources in `csrc/` (`table_pass.cu`, `serving_pass.cu`, sharing
+The sources in `csrc/` (`table_pass.cu`, `serving_pass.cu`,
+`small_take.cu` and `sp_pass.cu`; all but `small_take.cu` share
 `active_bitmap.cuh`) are compiled on first use with ``nvcc`` for
 ``sm_90a``, one process per source started together, and linked into a
 plain-C shared library under ``bithtm_tpu_torch/_build`` (keyed by a
@@ -28,11 +29,13 @@ from .active_set import act_scale, cell_words
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("table_pass.cu", "serving_pass.cu")
+SOURCES = ("table_pass.cu", "serving_pass.cu", "small_take.cu",
+           "sp_pass.cu")
 HEADERS = ("active_bitmap.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 MAX_SHARED_BYTES = 232_448  # what one Hopper block may opt in to
+MAX_SMALL_TABLE = 2048      # words of a small_table_take table (8 KB)
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
@@ -46,6 +49,13 @@ _ARGTYPES = {
     "serving_activation": [_VP] * 4 + [_I] * 6 + [_VP],
     # word, cols, bits, v_out, B, C, J, A, W, D, scale, stream
     "act_frozen": [_VP] * 4 + [_I] * 7 + [_VP],
+    # syn, cols, bits, out, B, R, J, A, W, C, D, stream
+    "synapse_activation": [_VP] * 4 + [_I] * 7 + [_VP],
+    # table, idx, out, B, Wc, n, stream
+    "small_table_take": [_VP] * 3 + [_I] * 3 + [_VP],
+    # perm, delta, cols, pack, B, C, I_pad, A, quantized, threshold_f,
+    # threshold_i, stream
+    "sp_update_pack": [_VP] * 4 + [_I] * 5 + [_F, _I, _VP],
 }
 
 
@@ -128,7 +138,11 @@ TABLE_UPDATE = CudaKernel("table_update")
 ACT_CONN = CudaKernel("act_conn")
 SERVING_ACTIVATION = CudaKernel("serving_activation")
 ACT_FROZEN = CudaKernel("act_frozen")
-KERNELS = (TABLE_UPDATE, ACT_CONN, SERVING_ACTIVATION, ACT_FROZEN)
+SYNAPSE_ACTIVATION = CudaKernel("synapse_activation")
+SMALL_TABLE_TAKE = CudaKernel("small_table_take")
+SP_UPDATE_PACK = CudaKernel("sp_update_pack")
+KERNELS = (TABLE_UPDATE, ACT_CONN, SERVING_ACTIVATION, ACT_FROZEN,
+           SYNAPSE_ACTIVATION, SMALL_TABLE_TAKE, SP_UPDATE_PACK)
 
 
 def launch_counts() -> dict[str, int]:
@@ -266,3 +280,94 @@ def act_frozen_cuda(frozen_word, cols, bits, cell_dim: int,
                    v.data_ptr(), B, C, J, A, W, cell_dim, act_scale(synapses),
                    stream)
     return v
+
+
+def synapse_activation_cuda(syn, cols, bits, column_dim: int,
+                            cell_dim: int) -> torch.Tensor:
+    """CUDA `synapse_activation`: (B, R, J) u8, 1 where the slot's
+    presynaptic cell is in the active set (see
+    `active_set.synapse_activation_ref`)."""
+    if syn.dim() != 3:
+        raise ValueError(f"syn must be (B, R, J), got {tuple(syn.shape)}")
+    B, R, J = syn.shape
+    _check("syn", syn, torch.int32, (B, R, J), syn.device, align=16)
+    A, W = _check_set(cols, bits, B, column_dim, cell_dim, syn.device)
+    out = torch.empty((B, R, J), dtype=torch.uint8, device=syn.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(syn.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        SYNAPSE_ACTIVATION(syn.data_ptr(), cols.data_ptr(), bits.data_ptr(),
+                           out.data_ptr(), B, R, J, A, W, column_dim,
+                           cell_dim, stream)
+    return out
+
+
+def small_table_take_cuda(table, idx) -> torch.Tensor:
+    """CUDA `small_table_take`: out[b, ...] = table[b, idx[b, ...]] where
+    0 <= idx < Wc, 0 elsewhere (see `active_set.take_small_table_ref`)."""
+    if table.dim() != 2 or idx.dim() < 2:
+        raise ValueError(f"table must be (B, Wc) and idx (B, ...), got "
+                         f"{tuple(table.shape)} and {tuple(idx.shape)}")
+    B, Wc = table.shape
+    if not 1 <= Wc <= MAX_SMALL_TABLE:
+        raise ValueError(f"table width {Wc} is outside [1, "
+                         f"{MAX_SMALL_TABLE}], what one block stages in "
+                         f"shared memory")
+    _check("table", table, torch.int32, (B, Wc), table.device)
+    _check("idx", idx, torch.int32, (B, *idx.shape[1:]), table.device)
+    out = torch.empty_like(idx)
+    n = idx[0].numel()
+    if B * n == 0:
+        return out
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        SMALL_TABLE_TAKE(table.data_ptr(), idx.data_ptr(), out.data_ptr(), B,
+                         Wc, n, stream)
+    return out
+
+
+def sp_update_pack_cuda(permanence, delta_row, active_cols, threshold
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA `sp_update_pack`: the Hebbian update of the active rows of
+    ``permanence`` (B, C, I_pad), int16 units or float32, in place, and
+    the (B, C, I_pad/8) u8 connected table of every row (see
+    `spatial_pooler.sp_update_pack_ref`). ``delta_row`` (B, I_pad) is
+    int32 units for an int16 table, float32 for a float32 one."""
+    if permanence.dim() != 3:
+        raise ValueError(f"permanence must be (B, C, I_pad), got "
+                         f"{tuple(permanence.shape)}")
+    B, C, I_pad = permanence.shape
+    dev = permanence.device
+    if permanence.dtype not in (torch.int16, torch.float32):
+        raise TypeError(f"permanence must be int16 or float32, got "
+                        f"{permanence.dtype}")
+    quantized = permanence.dtype == torch.int16
+    if I_pad % 1024:
+        raise ValueError(f"I_pad={I_pad} must be 8*S with S a multiple of "
+                         f"128 (ops/overlap.py input_words)")
+    if quantized and threshold != int(threshold):
+        raise ValueError(f"an int16 table takes an integer threshold in "
+                         f"units, got {threshold}")
+    _check("permanence", permanence, permanence.dtype, (B, C, I_pad), dev,
+           align=16)
+    _check("delta_row", delta_row,
+           torch.int32 if quantized else torch.float32, (B, I_pad), dev,
+           align=16)
+    A = active_cols.shape[-1]
+    _check("active_cols", active_cols, torch.int32, (B, A), dev)
+    if B > 65535:
+        raise ValueError(f"B={B} streams exceed the grid's y extent 65535")
+    if (C + 31) // 32 * 4 > MAX_SHARED_BYTES:
+        raise ValueError(f"the active-column bitmap of C={C} columns "
+                         f"exceeds {MAX_SHARED_BYTES} bytes")
+    pack = torch.empty((B, C, I_pad // 8), dtype=torch.uint8, device=dev)
+    if pack.numel() == 0:
+        return permanence, pack
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        SP_UPDATE_PACK(permanence.data_ptr(), delta_row.data_ptr(),
+                       active_cols.data_ptr(), pack.data_ptr(), B, C, I_pad,
+                       A, int(quantized), float(threshold),
+                       int(threshold) if quantized else 0, stream)
+    return permanence, pack

@@ -6,6 +6,9 @@ The port takes all three from a provider's `step()`, so the tests can
 replay the JAX draws exactly while production draws from a
 `torch.Generator`. A provider is called once per HTM step; ``need`` is
 False when the step draws nothing (inference without winner cells).
+`htm_scan_autocap` also needs ``with_config`` (the same random stream
+drawing at another config's list widths) and ``get_state`` /
+``set_state`` (to replay a chunk).
 """
 
 from __future__ import annotations
@@ -34,6 +37,28 @@ class TorchDraws:
         self.batch = batch
         self.device = torch.device(device)
         self.generator = generator
+
+    def with_config(self, cfg: TMConfig) -> TorchDraws:
+        """The same generator drawing for ``cfg``: the growth draws are
+        (L, Wc) of the config in force."""
+        return TorchDraws(cfg, self.batch, self.device, self.generator)
+
+    def _gen(self) -> torch.Generator:
+        if self.generator is not None:
+            return self.generator
+        if self.device.type == "cuda":
+            index = self.device.index
+            if index is None:
+                index = torch.cuda.current_device()
+            return torch.cuda.default_generators[index]
+        return torch.default_generator
+
+    def get_state(self) -> torch.Tensor:
+        """The generator's state, to replay the draws that follow."""
+        return self._gen().get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self._gen().set_state(state)
 
     def step(self, need: bool = True) -> Draws | None:
         if not need:

@@ -112,9 +112,11 @@ def tm_init(cfg: TMConfig, batch: int, device) -> TMState:
 def htm_init_batch(cfg: HTMConfig, batch: int,
                    generator: torch.Generator | None = None,
                    device=None) -> HTMState:
-    """A batch of independent streams on ``device``; the SP init draws
-    from ``generator`` (None: the device's default generator)."""
+    """A batch of independent streams on ``device`` (None: the
+    generator's device, else the card); the SP init draws from
+    ``generator`` (None: the device's default generator)."""
     if device is None:
-        device = generator.device if generator is not None else "cpu"
+        device = generator.device if generator is not None else "cuda"
     return HTMState(sp=sp_init(cfg.sp, batch, generator, device),
                     tm=tm_init(cfg.tm, batch, device))
+

@@ -1,21 +1,34 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
 Builds the CUDA kernels from `bithtm_tpu_torch/csrc`, checks each one
-against its plain PyTorch version at the bench shapes, checks that the
-port learns and that its CUDA run agrees bit for bit with its CPU run on
-a small input, then drives the main path: the bench configuration
-(2048 columns x 32 cells, G=4 x K=64, int16 SP, B=256 streams) through
-`htm_scan`, 768 learning steps then inference, and checks that every
-kernel of that path was launched once a step, that the metrics are in
-range, that the graph learned to predict and that the state invariants
-hold. Then serves the next 64 steps from the learned state three ways
-(`htm_serve_scan` over the synapse tables, over a compact serving table,
-and the scan over the frozen word table), checks that they predict alike
-and launch only their own kernel, and that serve -> `resume_learning` ->
-learn equals learning after the unpacked serve. Then measures the steady
-window (the last 128 learning steps) three times from one snapshot with
-the same draws, times the phases of a step and profiles 16 of its steps
-on the device.
+against its plain PyTorch version (bench shapes; `small_table_take` at
+the 16K x 64 shapes), with its time, its plain version's, its bound and
+where one exists a single PyTorch call's; checks that the port learns
+and that its CUDA run agrees bit for bit with its CPU run on a small
+input, then drives the main path: the bench configuration (2048 columns
+x 32 cells, G=4 x K=64, int16 SP, B=256 streams) through `htm_scan`, 768
+learning steps then inference, and checks that every kernel of that path
+was launched once a step, that the metrics are in range, that the graph
+learned to predict and that the state invariants hold. Then serves the
+next 64 steps from the learned state three ways (`htm_serve_scan` over
+the synapse tables, over a compact serving table, and the scan over the
+frozen word table), checks that they predict alike and launch only
+their own kernel, and that serve -> `resume_learning` -> learn equals
+learning after the unpacked serve. Then drives the two entry points
+that no scan calls (`sp_update_pack` against `sp_step`'s learning,
+`synapse_activation` against the state's own activity), measures the
+steady window (the last 128 learning steps) three times from one
+snapshot with the same draws, times the phases of a step and profiles 16
+of its steps on the device.
+
+Last, with the bench state freed, the 16K x 64 path (16384 columns x 64
+cells, A=328, B=64): `htm_scan_autocap` under the tuned caps of
+`bench.py` (Wc=384, L=336) over 512 learning steps in chunks of 128,
+with the index-keyed growth selection and its `small_table_take` decode
+launched once a step, then inference and serving packed and unpacked
+(each form launching only its own kernel), and the table and serving
+kernels held against their plain versions and timed at that geometry on
+the learned state.
 
 Prints the card's name and power limit, the step times, the phase
 times, the profile, a JSON line of per-kernel results, and as the last
@@ -38,10 +51,12 @@ import numpy as np
 import torch
 
 import bithtm_tpu_torch as bt
+from bithtm_tpu_torch.models import spatial_pooler as psp
 from bithtm_tpu_torch.models.htm import _scan_impl, _step_metrics
 from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
 from bithtm_tpu_torch.ops import serving as psv
+from bithtm_tpu_torch.ops.overlap import padded_input_dim
 from bithtm_tpu_torch.testing import serving_rows, table_inputs
 
 BENCH = dict(input_dim=1000, column_dim=2048, cell_dim=32,
@@ -59,27 +74,50 @@ SERVE_STEPS, RESUME_STEPS = 64, 8
 WINDOW = 128
 REPEATS = 3     # runs of that window (the main run and replays)
 PROFILED_STEPS = 16
+ENTRY_STEPS = 4  # SP steps that check sp_update_pack against sp_step
 # the small drive-recipe config: 64 inputs, 64 columns, 4 cells, A=4
 SMALL = dict(input_dim=64, column_dim=64, cell_dim=4, active_columns=4,
              segment_activation_threshold=2, segment_matching_threshold=2,
              segment_sampling_synapses=8)
+# the scaled geometry of docs/PERFORMANCE.md ("Scaled config: 16K columns
+# x 64 cells", BASELINE.json configs[4]) with the bench's fast stack, at
+# its per-chip batch; tuned caps of bench.py --winner_capacity 384
+# --growth_capacity 336
+GEOM_16K = dict(input_dim=1000, column_dim=16384, cell_dim=64,
+                segments_per_column=4, synapse_capacity=64,
+                sp_overrides={"permanence_dtype": "int16"})
+BATCH_16K = 64
+TUNED_16K = dict(winner_capacity=384, growth_capacity=336)
+LEARN_16K, CHUNK_16K, INFER_16K, SERVE_16K = 512, 128, 16, 32
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SOURCES = {
     "table_update": "bithtm_tpu_torch/csrc/table_pass.cu",
     "act_conn": "bithtm_tpu_torch/csrc/table_pass.cu",
     "serving_activation": "bithtm_tpu_torch/csrc/serving_pass.cu",
     "act_frozen": "bithtm_tpu_torch/csrc/serving_pass.cu",
+    "synapse_activation": "bithtm_tpu_torch/csrc/serving_pass.cu",
+    "small_table_take": "bithtm_tpu_torch/csrc/small_take.cu",
+    "sp_update_pack": "bithtm_tpu_torch/csrc/sp_pass.cu",
 }
 REPLACES = {
     "table_update": "bithtm_tpu/ops/pallas_kernels.py:489",
     "act_conn": "bithtm_tpu/ops/pallas_kernels.py:698",
     "serving_activation": "bithtm_tpu/ops/pallas_kernels.py:835",
     "act_frozen": "bithtm_tpu/ops/pallas_kernels.py:772",
+    "synapse_activation": "bithtm_tpu/ops/pallas_kernels.py:661",
+    "small_table_take": "bithtm_tpu/ops/pallas_kernels.py:885",
+    "sp_update_pack": "bithtm_tpu/ops/pallas_kernels.py:598",
 }
 
 
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def only(**counts) -> dict:
+    """A launch-count dict: the given counts, every other kernel 0."""
+    return {k.name: counts.get(k.name, 0) for k in kernels.KERNELS}
 
 
 def gpu_info(dev: torch.device) -> dict:
@@ -108,9 +146,38 @@ def cuda_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_row(name: str, kernel, plain, moved: int, at: str,
+               library=None) -> dict:
+    """Times of a kernel call, its plain version and the library call
+    (CUDA events, 20 calls after 3), and its bound: ``moved`` bytes (each
+    input read once, each output written once; an in-place output only
+    where it changes) over the card's memory rate. The kernels do a few
+    integer operations a byte, far below any peak rate, so bytes bound
+    them all. Every caller has required the kernel's output to equal the
+    plain version's bit for bit, so the error is 0."""
+    row = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+           "max_abs_err": 0.0, "bound_ms": 1e3 * moved / HBM_BYTES_PER_S,
+           "bound_by": "bytes",
+           "library_ms": None if library is None else cuda_ms(library),
+           "at": at}
+    lib = ("none" if library is None
+           else f"{row['library_ms']:.4f} ms")
+    print(f"kernel {name}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+          f"ms, bound {row['bound_ms']:.4f} ms ({moved / 1e6:.1f} MB), "
+          f"library call {lib}, at {at}; bit-equal")
+    return row
+
+
 def check_kernels(dev) -> dict:
-    """Each kernel against its plain version at the bench shapes,
-    bit-equal, with CUDA-event times of both."""
+    """Each kernel against its plain version, bit-equal, with the times
+    and bound of `kernel_row`: the table and serving kernels and
+    `synapse_activation` at the bench shapes, `sp_update_pack` at the
+    bench SP shapes in int16 (the bench's) and float32, `small_table_take`
+    at the 16K shapes under the tuned and the auto caps."""
     B, C, D = BATCH, BENCH["column_dim"], BENCH["cell_dim"]
     G, K = BENCH["segments_per_column"], BENCH["synapse_capacity"]
     A = round(0.02 * C)
@@ -118,6 +185,7 @@ def check_kernels(dev) -> dict:
     thr, pun = 0.5, 0.01
     args = (x["syn"], x["act_prev"], x["pun_word"], x["cols"], x["bits"])
     syn, act_prev, pun_word, cols, bits = args
+    at = f"B={B} C={C} G={G} K={K} D={D} A={A}"
 
     p_ref, p_k = x["perm"].clone(), x["perm"].clone()
     v_ref = pas.table_update_ref(syn, p_ref, act_prev, pun_word, cols, bits,
@@ -127,16 +195,19 @@ def check_kernels(dev) -> dict:
     c_ref = pas.synapse_activation_conn_ref(syn, x["perm"], cols, bits, D,
                                             thr, K)
     c_k = kernels.act_conn_cuda(syn, x["perm"], cols, bits, D, thr, K)
+    a_ref = pas.synapse_activation_ref(syn, cols, bits, C, D)
+    a_k = kernels.synapse_activation_cuda(syn, cols, bits, C, D)
     torch.cuda.synchronize()
     require(bool((v_ref > 1).any()) and bool((p_ref != x["perm"]).any()),
             "the bench-shape inputs exercise connected and punished slots")
-    err_tu = max((v_k.float() - v_ref.float()).abs().max().item(),
-                 (p_k - p_ref).abs().max().item())
-    err_ac = (c_k.float() - c_ref.float()).abs().max().item()
     require(torch.equal(v_k, v_ref), "table_update v == plain")
     require(torch.equal(p_k.view(torch.int32), p_ref.view(torch.int32)),
             "table_update perm' == plain, bit for bit")
     require(torch.equal(c_k, c_ref), "act_conn v == plain")
+    require(torch.equal(a_k, a_ref), "synapse_activation == plain")
+    require(torch.equal((a_ref != 0) & (x["perm"] >= 0), c_ref != 0),
+            "synapse_activation on live slots == act_conn's activity")
+    punished = int((p_ref != x["perm"]).sum())
 
     word = pas.pack_frozen_table(syn, x["perm"], thr)
     # a serving table of one main row a column and 8 extension rows
@@ -151,40 +222,138 @@ def check_kernels(dev) -> dict:
     require(torch.equal(f_k, f_ref), "act_frozen v == plain")
     require(torch.equal(f_ref, c_ref), "act_frozen plain == act_conn plain")
     require(torch.equal(s_k, s_ref), "serving_activation == plain")
-    err_af = (f_k.float() - f_ref.float()).abs().max().item()
-    err_sa = (s_k.float() - s_ref.float()).abs().max().item()
 
     p = x["perm"].clone()
-    times = {
-        "table_update": (
-            cuda_ms(lambda: kernels.table_update_cuda(
-                syn, p, act_prev, pun_word, cols, bits, D, K, pun, thr)),
-            cuda_ms(lambda: pas.table_update_ref(
-                syn, p, act_prev, pun_word, cols, bits, D, K, pun, thr))),
-        "act_conn": (
-            cuda_ms(lambda: kernels.act_conn_cuda(
-                syn, x["perm"], cols, bits, D, thr, K)),
-            cuda_ms(lambda: pas.synapse_activation_conn_ref(
-                syn, x["perm"], cols, bits, D, thr, K))),
-        "serving_activation": (
-            cuda_ms(lambda: kernels.serving_activation_cuda(
-                rows, cols, bits, C, D)),
-            cuda_ms(lambda: psv.serving_activation_ref(
-                rows, cols, bits, C, D))),
-        "act_frozen": (
-            cuda_ms(lambda: kernels.act_frozen_cuda(word, cols, bits, D, K)),
-            cuda_ms(lambda: pas.synapse_activation_frozen_ref(
-                word, cols, bits, D, K))),
+    out = {
+        "table_update": kernel_row(
+            "table_update",
+            lambda: kernels.table_update_cuda(syn, p, act_prev, pun_word,
+                                              cols, bits, D, K, pun, thr),
+            lambda: pas.table_update_ref(syn, p, act_prev, pun_word, cols,
+                                         bits, D, K, pun, thr),
+            nbytes(syn, x["perm"], act_prev, pun_word, cols, bits, v_ref)
+            + 4 * punished, at),
+        "act_conn": kernel_row(
+            "act_conn",
+            lambda: kernels.act_conn_cuda(syn, x["perm"], cols, bits, D, thr,
+                                          K),
+            lambda: pas.synapse_activation_conn_ref(syn, x["perm"], cols,
+                                                    bits, D, thr, K),
+            nbytes(syn, x["perm"], cols, bits, c_ref), at),
+        "serving_activation": kernel_row(
+            "serving_activation",
+            lambda: kernels.serving_activation_cuda(rows, cols, bits, C, D),
+            lambda: psv.serving_activation_ref(rows, cols, bits, C, D),
+            nbytes(rows, cols, bits, s_ref),
+            f"B={B} R={C + 8} rows of 128 D={D} A={A}"),
+        "act_frozen": kernel_row(
+            "act_frozen",
+            lambda: kernels.act_frozen_cuda(word, cols, bits, D, K),
+            lambda: pas.synapse_activation_frozen_ref(word, cols, bits, D,
+                                                      K),
+            nbytes(word, cols, bits, f_ref), at),
+        "synapse_activation": kernel_row(
+            "synapse_activation",
+            lambda: kernels.synapse_activation_cuda(syn, cols, bits, C, D),
+            lambda: pas.synapse_activation_ref(syn, cols, bits, C, D),
+            nbytes(syn, cols, bits, a_ref), at),
     }
-    errs = {"table_update": err_tu, "act_conn": err_ac,
-            "serving_activation": err_sa, "act_frozen": err_af}
-    for name, (ms, plain_ms) in times.items():
-        where = (f"R={C + 8} rows of 128" if name == "serving_activation"
-                 else f"C={C} G={G} K={K}")
-        print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms at "
-              f"B={B} {where} D={D} A={A}; bit-equal")
-    return {name: {"ms": times[name][0], "plain_ms": times[name][1],
-                   "max_abs_err": errs[name]} for name in times}
+    del x, p, p_ref, p_k, v_ref, v_k, c_ref, c_k, a_ref, a_k, word, rows
+    del f_ref, f_k, s_ref, s_k
+    out["sp_update_pack"] = check_sp_update_pack(dev)
+    out["small_table_take"] = check_small_table_take(dev)
+    return out
+
+
+def sp_inputs(cfg, B: int, g: torch.Generator, dev):
+    """An SP permanence table as `sp_init` draws it (padding lanes at the
+    rail), the Hebbian delta of a density-0.2 input and A active columns
+    per stream."""
+    C, I = cfg.column_dim, cfg.input_dim
+    I_pad = padded_input_dim(I)
+    perm = torch.randn((B, C, I_pad), generator=g, device=dev) \
+        * cfg.permanence_std + cfg.permanence_mean
+    if cfg.quantized:
+        perm = torch.round(perm / cfg.permanence_quantum).to(torch.int16)
+        perm[..., I:] = -32000
+    else:
+        perm[..., I:] = -1e9
+    x = torch.rand((B, I), generator=g, device=dev) < 0.2
+    delta, thr = psp.hebbian_delta(cfg, x, I_pad)
+    cols = torch.rand((B, C), generator=g, device=dev).topk(
+        cfg.active_columns, -1).indices.to(torch.int32)
+    return perm, delta, cols, thr
+
+
+def check_sp_update_pack(dev) -> dict:
+    """`sp_update_pack` against its plain version at the bench SP shapes
+    (B=256, C=2048, I_pad=1024), int16 (the bench's dtype, the row
+    returned) and float32 (printed). Its bound counts the permanences
+    read once, the active rows written and the connected table written
+    (every row re-packed)."""
+    cfg16 = bt.make_htm_config(**BENCH).sp
+    rows = {}
+    for cfg in (cfg16, dataclasses.replace(cfg16,
+                                           permanence_dtype="float32")):
+        g = torch.Generator(device=dev).manual_seed(5)
+        perm, delta, cols, thr = sp_inputs(cfg, BATCH, g, dev)
+        p_ref, p_k = perm.clone(), perm.clone()
+        _, pack_ref = psp.sp_update_pack_ref(p_ref, delta, cols, thr)
+        _, pack_k = kernels.sp_update_pack_cuda(p_k, delta, cols, thr)
+        torch.cuda.synchronize()
+        require(torch.equal(p_k.view(torch.uint8), p_ref.view(torch.uint8))
+                and torch.equal(pack_k, pack_ref),
+                f"sp_update_pack {perm.dtype} == plain, bit for bit")
+        require(bool(pack_ref.any()) and not bool(torch.equal(p_ref, perm)),
+                "the SP inputs connect and learn")
+        B, C, I_pad = perm.shape
+        written = B * cfg.active_columns * I_pad * perm.element_size()
+        p = perm.clone()
+        rows[perm.dtype] = kernel_row(
+            f"sp_update_pack {str(perm.dtype).split('.')[1]}",
+            lambda: kernels.sp_update_pack_cuda(p, delta, cols, thr),
+            lambda: psp.sp_update_pack_ref(p, delta, cols, thr),
+            nbytes(perm, delta, cols, pack_ref) + written,
+            f"B={B} C={C} I_pad={I_pad} A={cfg.active_columns} "
+            f"{str(perm.dtype).split('.')[1]}")
+        del perm, p, p_ref, p_k, pack_ref, pack_k
+    return rows[torch.int16]
+
+
+def check_small_table_take(dev) -> dict:
+    """`small_table_take` against its plain version at the 16K shapes
+    (B=64, kk=32) under the tuned caps (L=336, Wc=384: the row returned,
+    the 16K path's own) and the auto caps (L=824, Wc=768), with 15%
+    sentinel-decoded indices (>= Wc) and 10% negative ones. The library
+    call is `torch.gather` over the indices clamped into the table and
+    widened to int64 outside the timed call, without the mask that zeroes
+    the out-of-range ones: less work than the kernel's, so its time is a
+    lower bound on a library call's."""
+    B, kk = BATCH_16K, 32
+    rows = {}
+    for L, Wc in ((336, 384), (824, 768)):
+        g = torch.Generator(device=dev).manual_seed(Wc)
+        table = torch.randint(0, 1 << 20, (B, Wc), generator=g, device=dev,
+                              dtype=torch.int32)
+        idx = torch.randint(0, Wc, (B, L, kk), generator=g, device=dev,
+                            dtype=torch.int32)
+        u = torch.rand((B, L, kk), generator=g, device=dev)
+        low = (1 << (Wc - 1).bit_length()) - 1
+        idx = torch.where(u < 0.15, low, torch.where(u < 0.25, -1, idx))
+        want = pas.take_small_table_ref(table, idx)
+        got = kernels.small_table_take_cuda(table, idx)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want) and bool((want != 0).any())
+                and bool((idx >= Wc).any()),
+                f"small_table_take == plain at L={L}, Wc={Wc}")
+        flat = idx.clamp(0, Wc - 1).reshape(B, -1).long()
+        rows[Wc] = kernel_row(
+            "small_table_take",
+            lambda: kernels.small_table_take_cuda(table, idx),
+            lambda: pas.take_small_table_ref(table, idx),
+            nbytes(table, idx, want), f"B={B} L={L} kk={kk} Wc={Wc}",
+            library=lambda: torch.gather(table, 1, flat))
+    return rows[384]
 
 
 class DrawsOn:
@@ -334,9 +503,7 @@ def run_main_path(dev):
         cfg, state, seq[LEARN_STEPS:LEARN_STEPS + INFER_STEPS], False, draws)
     launches = kernels.launch_counts()
 
-    require(launches == {"table_update": LEARN_STEPS,
-                         "act_conn": INFER_STEPS, "serving_activation": 0,
-                         "act_frozen": 0},
+    require(launches == only(table_update=LEARN_STEPS, act_conn=INFER_STEPS),
             f"one launch per step of each kernel, got {launches}")
     m_learn = {k: torch.cat([c[3][k] for c in chunks]) for k in chunks[0][3]}
     for phase, m, n in (("learning", m_learn, LEARN_STEPS),
@@ -561,6 +728,46 @@ def run_serving(cfg, state, gen, xs) -> dict:
             "act_frozen": launches["frozen"]["act_frozen"]}
 
 
+def run_entry_points(cfg, state, xs) -> dict:
+    """The two entry points that no scan calls, on the learned bench
+    state, with the launch counts set to 0 just before and read just
+    after: ENTRY_STEPS learning steps of `sp_step` on a copy of the SP
+    state, each held against `hebbian_delta` + `sp_update_pack` over the
+    whole table from the step's starting permanences (the same
+    permanences and the connected bits of every row), and
+    `synapse_activation` over the learned synapse table, whose activity
+    on live slots must be the state's own (the last forward pass's).
+    Returns the launch counts."""
+    sp, tm = copy.deepcopy(state.sp), state.tm
+    C, D = cfg.tm.column_dim, cfg.tm.cell_dim
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for x in xs[:ENTRY_STEPS]:
+        before = sp.permanence.clone()
+        sp, out = bt.sp_step(cfg.sp, sp, x, True)
+        delta, thr = psp.hebbian_delta(cfg.sp, x, before.shape[-1])
+        perm, pack = psp.sp_update_pack(before, delta, out.active_columns,
+                                        thr)
+        require(torch.equal(perm, sp.permanence)
+                and torch.equal(pack, sp.connected),
+                "sp_update_pack == the learning of sp_step")
+        del before, perm, pack
+    act = pas.synapse_activation(tm.synapse_cell, tm.active_cols,
+                                 tm.active_bits, C, D)
+    launches = kernels.launch_counts()
+    require(torch.equal((act != 0) & (tm.synapse_perm >= 0),
+                        tm.synapse_act != 0),
+            "synapse_activation on live slots == the state's activity")
+    require(launches == only(sp_update_pack=ENTRY_STEPS,
+                             synapse_activation=1),
+            f"the entry points launch their kernels, got {launches}")
+    print(f"entry points on the learned bench state: {ENTRY_STEPS} SP "
+          f"learning steps == sp_update_pack over the whole table; "
+          f"synapse_activation == the state's activity on live slots "
+          f"({int((act != 0).sum())} active slots); launches {launches}")
+    return launches
+
+
 def time_phases(snap: Snapshot, xs) -> None:
     """The phases of `htm_step` over len(xs) learning steps: the host
     time each takes to issue its work (no synchronization inside the
@@ -602,10 +809,15 @@ def time_phases(snap: Snapshot, xs) -> None:
               f"{k} {1e3 * host[k] / n:.3f} / {span[k]:.3f}" for k in names))
 
 
+# the device names of the port's own kernels (csrc/*.cu)
+PORT_KERNELS = ("table_pass_kernel", "word_pass_kernel", "small_take_kernel",
+                "sp_update_pack_kernel")
+
+
 def device_profile(run, n: int, top: int) -> tuple[float, float]:
     """torch.profiler over ``run()``, which takes n steps: prints the top
-    device ops a step and returns (device busy ms, kernel launches) a
-    step."""
+    device ops a step, then the port's own kernels outside the top, and
+    returns (device busy ms, kernel launches) a step."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA], acc_events=True) as prof:
@@ -621,17 +833,20 @@ def device_profile(run, n: int, top: int) -> tuple[float, float]:
     launches = sum(c[0] for name, c in per_op.items()
                    if not name.startswith(("Memcpy", "Memset"))) / n
     require(busy > 0, "the profiler saw device time")
-    for name, (count, ms) in sorted(per_op.items(),
-                                    key=lambda kv: -kv[1][1])[:top]:
-        print(f"  {ms / n:8.3f} ms/step  {count / n:6.1f}/step  {name[:100]}")
+    ranked = sorted(per_op.items(), key=lambda kv: -kv[1][1])
+    for i, (name, (count, ms)) in enumerate(ranked):
+        if i < top or any(k in name for k in PORT_KERNELS):
+            print(f"  {ms / n:8.3f} ms/step  {count / n:6.1f}/step  "
+                  f"{name[:100]}")
     return busy, launches
 
 
-def profile_steps(snap: Snapshot, xs, window_ms: float) -> None:
-    """torch.profiler over len(xs) learning steps of `htm_scan`, after an
-    unprofiled run of the same steps from the same state and draws:
-    device time and launches per step, the top device ops, and the busy
-    share of the device."""
+def profile_steps(snap: Snapshot, xs, what: str) -> float:
+    """torch.profiler over len(xs) learning steps of `htm_scan` (``what``
+    names them), after an unprofiled run of the same steps from the same
+    state and draws: device time and launches per step, the top device
+    ops, and the busy share of the device. Returns the unprofiled
+    ms/step."""
     cfg = snap.cfg
     n = len(xs)
     state, draws = snap.restore()
@@ -639,8 +854,7 @@ def profile_steps(snap: Snapshot, xs, window_ms: float) -> None:
     del state
     state, draws = snap.restore()
     t0 = time.perf_counter()
-    print(f"profile of learning steps {LEARN_STEPS - WINDOW}-"
-          f"{LEARN_STEPS - WINDOW + n}, top device ops:")
+    print(f"profile of {what}, top device ops:")
     busy, launches = device_profile(
         lambda: timed_scan(cfg, state, xs, True, draws), n, 10)
     prof_s = time.perf_counter() - t0
@@ -649,8 +863,201 @@ def profile_steps(snap: Snapshot, xs, window_ms: float) -> None:
     print(f"  device busy {busy:.3f} ms/step, {launches:.1f} kernel "
           f"launches/step; the same steps take {plain_ms:.3f} ms/step "
           f"unprofiled ({prof_ms:.3f} profiled): busy share "
-          f"{busy / plain_ms:.3f} (steady-window median {window_ms:.3f} "
-          f"ms/step)")
+          f"{busy / plain_ms:.3f}")
+    return plain_ms
+
+
+def run_16k(dev) -> tuple[dict, dict]:
+    """The 16K x 64 path at full width, B=64, on the bench input recipe:
+    `htm_scan_autocap` under the tuned caps over LEARN_16K learning steps
+    in chunks of CHUNK_16K, then INFER_16K inference steps and SERVE_16K
+    serving steps unpacked and packed (equal metrics and predictions,
+    each form launching only its own kernel, once a step). Requires
+    `small_table_take` and `table_update` once per learning step run (a
+    chunk re-run after an escalation runs its steps again), grown
+    synapses, no counted cap drop in the produced trajectory, the state
+    invariants and bursting falling from the first chunk to the last;
+    then holds the table kernels, `serving_activation` over the learned
+    serving table and `synapse_activation` against their plain versions
+    on the learned state and times them (`kernel_row`). Returns (launch
+    counts of the learning run, the kernel rows at this geometry)."""
+    cfg = bt.make_htm_config(**GEOM_16K)
+    B, A, T = BATCH_16K, cfg.sp.active_columns, LEARN_16K
+    C, D, K = cfg.tm.column_dim, cfg.tm.cell_dim, cfg.tm.synapse_capacity
+    seq = bench_inputs(cfg, B, T + INFER_16K + SERVE_16K, dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    state = bt.htm_init_batch(cfg, B, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    chunks = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    state, m, info = bt.htm_scan_autocap(
+        cfg, state, seq[:T], tuned=TUNED_16K, chunk=CHUNK_16K,
+        draws=bt.TorchDraws(cfg.tm, B, dev, gen),
+        on_chunk=lambda *a: chunks.append(a))
+    launches = kernels.launch_counts()
+    esc = info["escalated_at_step"]
+    run = T + (0 if esc is None else min(CHUNK_16K, T - esc))
+    require(launches == only(table_update=run, small_table_take=run),
+            f"table_update and small_table_take once per learning step "
+            f"({run} run), got {launches}")
+    require(all(int(m[k].sum()) == 0 for k in bt.CAP_DROP_METRICS),
+            "no counted cap drop in the produced trajectory")
+    require(int(m["tm_grown_synapses"].sum()) > 0, "synapses grew")
+    for k, v in m.items():
+        require(tuple(v.shape) == (T, B) and bool(torch.isfinite(
+            v.float()).all()), f"16K learning {k}: (T, B), finite")
+    check_tm_invariants(state.tm)
+
+    def mean(m, k, a=0, b=None):
+        return m[k][a:b].double().mean().item()
+
+    first = mean(m, "bursting", 0, CHUNK_16K)
+    last = mean(m, "bursting", T - CHUNK_16K)
+    require(last < first, "bursting falls from the first chunk to the last")
+    print(f"16K x 64 on {torch.cuda.get_device_name(0)}: {C} columns x {D} "
+          f"cells, A={A}, B={B}, tuned caps {TUNED_16K}, chunk "
+          f"{CHUNK_16K}; state built in {init_s:.2f} s; escalated_at_step "
+          f"{esc}, tuned_drops {info['tuned_drops']}; launches {launches}")
+    for t_0, s, escalated, drops in chunks:
+        t_1 = min(t_0 + CHUNK_16K, T)
+        print(f"  learning steps {t_0}-{t_1}: {1e3 * s / (t_1 - t_0):.3f} "
+              f"ms/step{' (escalated, re-run)' if escalated else ''}; "
+              f"drops {drops}; bursting {mean(m, 'bursting', t_0, t_1):.2f} "
+              f"correct {mean(m, 'correct', t_0, t_1):.2f} of {A}; winner "
+              f"cells {mean(m, 'tm_winner_cells', t_0, t_1):.1f}, grown "
+              f"{mean(m, 'tm_grown_synapses', t_0, t_1):.1f}, learning "
+              f"segments {mean(m, 'tm_learning_segments', t_0, t_1):.1f}")
+
+    kernels.reset_launch_counts()
+    state, m_inf, infer_s = timed_scan(cfg, state, seq[T:T + INFER_16K],
+                                       False, bt.TorchDraws(cfg.tm, B, dev,
+                                                            gen))
+    require(kernels.launch_counts() == only(act_conn=INFER_16K),
+            "16K inference launches act_conn once a step")
+
+    serve_xs = seq[T + INFER_16K:]
+    tab = bt.make_serving_table(cfg.tm, state.tm)
+    served = {}
+    for name, kw, kernel in (
+            ("unpacked", {"detailed_metrics": False}, "act_conn"),
+            ("packed", {"serving_table": tab}, "serving_activation")):
+        st = copy.deepcopy(state)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, ms = bt.htm_serve_scan(cfg, st, serve_xs, **kw)
+        torch.cuda.synchronize()
+        served[name] = (st.tm.prediction, ms, time.perf_counter() - t0)
+        got = kernels.launch_counts()
+        require(got == only(**{kernel: SERVE_16K}),
+                f"16K {name} serving launches {kernel} once a step and no "
+                f"other kernel, got {got}")
+        del st
+    (p_u, m_u, s_u), (p_p, m_p, s_p) = served["unpacked"], served["packed"]
+    require(torch.equal(p_u, p_p) and set(m_u) == set(m_p)
+            and all(torch.equal(m_u[k], m_p[k]) for k in m_u),
+            "16K serving: packed == unpacked in metrics and predictions")
+    E = tab.ext_col.shape[1]
+    perf = {
+        "learning_ms_per_step_chunks": [1e3 * c[1] / min(CHUNK_16K, T - c[0])
+                                        for c in chunks],
+        "escalated_at_step": esc,
+        "inference_ms_per_step": 1e3 * infer_s / INFER_16K,
+        "serving_unpacked_ms_per_step": 1e3 * s_u / SERVE_16K,
+        "serving_packed_ms_per_step": 1e3 * s_p / SERVE_16K,
+        "serving_table_rows": tab.rows.shape[1], "serving_table_ext": E,
+        "streams": B,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    print(f"  inference {INFER_16K} steps: {perf['inference_ms_per_step']:.3f}"
+          f" ms/step, correct {mean(m_inf, 'correct'):.2f} of {A}; serving "
+          f"{SERVE_16K} steps: unpacked {perf['serving_unpacked_ms_per_step']:.3f}"
+          f", packed {perf['serving_packed_ms_per_step']:.3f} ms/step (table "
+          f"R={tab.rows.shape[1]}, E={E}), equal predictions, correct "
+          f"{mean(m_u, 'correct'):.2f}")
+    del served, p_u, p_p
+
+    tm = state.tm
+    cols, bits = tm.active_cols, tm.active_bits
+    thr, pun = cfg.tm.permanence_threshold, cfg.tm.permanence_punishment
+    # the punishment words of a learning step whose active set is this one
+    pun_word = torch.where(pas.column_mask_from_cols(cols, C), 0,
+                           tm.matching_word)
+    p_ref, p_k = tm.synapse_perm.clone(), tm.synapse_perm.clone()
+    args = (tm.synapse_cell, tm.synapse_act, pun_word, cols, bits)
+    v_ref = pas.table_update_ref(args[0], p_ref, *args[1:], D, K, pun, thr)
+    v_k = kernels.table_update_cuda(args[0], p_k, *args[1:], D, K, pun, thr)
+    c_ref = pas.synapse_activation_conn_ref(tm.synapse_cell, tm.synapse_perm,
+                                            cols, bits, D, thr, K)
+    c_k = kernels.act_conn_cuda(tm.synapse_cell, tm.synapse_perm, cols, bits,
+                                D, thr, K)
+    a_ref = pas.synapse_activation_ref(tm.synapse_cell, cols, bits, C, D)
+    a_k = kernels.synapse_activation_cuda(tm.synapse_cell, cols, bits, C, D)
+    s_ref = psv.serving_activation_ref(tab.rows, cols, bits, C, D)
+    s_k = kernels.serving_activation_cuda(tab.rows, cols, bits, C, D)
+    torch.cuda.synchronize()
+    require(torch.equal(v_k, v_ref) and torch.equal(
+        p_k.view(torch.int32), p_ref.view(torch.int32)),
+        "table_update == plain on the learned 16K state")
+    require(torch.equal(c_k, c_ref) and torch.equal(c_ref, tm.synapse_act),
+            "act_conn == plain == the state's activity at 16K")
+    require(torch.equal(a_k, a_ref), "synapse_activation == plain at 16K")
+    require(torch.equal(s_k, s_ref) and bool((s_ref > 0).any()),
+            "serving_activation == plain on the learned 16K serving table")
+    punished = int((p_ref != tm.synapse_perm).sum())
+    at = f"B={B} C={C} G={cfg.tm.segments_per_column} K={K} D={D} A={A}, " \
+         f"the learned 16K state"
+    p = tm.synapse_perm.clone()
+    rows = {
+        "table_update": kernel_row(
+            "table_update", lambda: kernels.table_update_cuda(
+                args[0], p, *args[1:], D, K, pun, thr),
+            lambda: pas.table_update_ref(args[0], p, *args[1:], D, K, pun,
+                                         thr),
+            nbytes(tm.synapse_cell, tm.synapse_perm, *args[1:], v_ref)
+            + 4 * punished, at),
+        "act_conn": kernel_row(
+            "act_conn", lambda: kernels.act_conn_cuda(
+                tm.synapse_cell, tm.synapse_perm, cols, bits, D, thr, K),
+            lambda: pas.synapse_activation_conn_ref(
+                tm.synapse_cell, tm.synapse_perm, cols, bits, D, thr, K),
+            nbytes(tm.synapse_cell, tm.synapse_perm, cols, bits, c_ref), at),
+        "synapse_activation": kernel_row(
+            "synapse_activation", lambda: kernels.synapse_activation_cuda(
+                tm.synapse_cell, cols, bits, C, D),
+            lambda: pas.synapse_activation_ref(tm.synapse_cell, cols, bits,
+                                               C, D),
+            nbytes(tm.synapse_cell, cols, bits, a_ref), at),
+        "serving_activation": kernel_row(
+            "serving_activation", lambda: kernels.serving_activation_cuda(
+                tab.rows, cols, bits, C, D),
+            lambda: psv.serving_activation_ref(tab.rows, cols, bits, C, D),
+            nbytes(tab.rows, cols, bits, s_ref),
+            f"B={B} R={tab.rows.shape[1]} rows of 128 D={D} A={A}, the "
+            f"learned 16K serving table"),
+    }
+    perf["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del p, p_ref, p_k, v_ref, v_k, c_ref, c_k, a_ref, a_k, args, pun_word
+    del tab, s_ref, s_k
+
+    # where a learning step's time goes: phases and a device profile of
+    # PROFILED_STEPS more steps, under the caps in force
+    caps = {} if esc is not None else TUNED_16K
+    snap = Snapshot(dataclasses.replace(
+        cfg, tm=dataclasses.replace(cfg.tm, **caps)), state, gen,
+        serve_xs[:PROFILED_STEPS])
+    del state, tm
+    time_phases(snap, snap.xs)
+    perf["learning_ms_per_step_profiled_steps_unprofiled"] = profile_steps(
+        snap, snap.xs, f"{len(snap.xs)} 16K learning steps after step "
+        f"{T + INFER_16K}")
+    print("16K metrics: " + json.dumps(perf))
+    print("16K kernels: " + json.dumps(rows))
+    return launches, rows
 
 
 def main() -> None:
@@ -670,9 +1077,19 @@ def main() -> None:
     check_cpu_agreement(dev)
     launches, snap, window_ms, (state, gen, serve_xs) = run_main_path(dev)
     launches.update(run_serving(snap.cfg, state, gen, serve_xs))
+    entry = run_entry_points(snap.cfg, state, serve_xs)
+    launches.update(sp_update_pack=entry["sp_update_pack"],
+                    synapse_activation=entry["synapse_activation"])
     del state
     time_phases(snap, snap.xs[:PROFILED_STEPS])
-    profile_steps(snap, snap.xs[:PROFILED_STEPS], window_ms)
+    profile_steps(snap, snap.xs[:PROFILED_STEPS],
+                  f"learning steps {LEARN_STEPS - WINDOW}-"
+                  f"{LEARN_STEPS - WINDOW + PROFILED_STEPS} (steady-window "
+                  f"median {window_ms:.3f} ms/step)")
+    del snap
+    torch.cuda.empty_cache()
+    launches_16k, _ = run_16k(dev)
+    launches["small_table_take"] = launches_16k["small_table_take"]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

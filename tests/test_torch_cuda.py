@@ -12,6 +12,7 @@ import types
 import pytest
 import torch
 
+from bithtm_tpu_torch.models import spatial_pooler as psp
 from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
 from bithtm_tpu_torch.ops import serving as psv
@@ -23,7 +24,17 @@ SHAPES = [  # B, C, G, K, D, A
     (2, 30, 3, 7, 33, 4),     # two bitmask words; J % 4 != 0, C*J % 4 != 0
     (1, 16, 2, 16, 70, 3),    # three words
     (1, 8192, 1, 8, 64, 9),   # a 64 KB bitmap: shared memory opt-in
+    (1, 16384, 1, 8, 64, 20),  # the 16K x 64 geometry's 128 KB bitmap
 ]
+
+
+def launched(before: dict) -> dict:
+    """The launches of each kernel since ``before``."""
+    return {k: v - before[k] for k, v in kernels.launch_counts().items()}
+
+
+def only(**counts) -> dict:
+    return {k.name: counts.get(k.name, 0) for k in kernels.KERNELS}
 
 
 @pytest.fixture
@@ -56,10 +67,7 @@ def test_kernels_match_plain(shape, cuda):
     assert torch.equal(p_k.view(torch.int32), p_ref.view(torch.int32))
     assert torch.equal(c_k, c_ref)
     assert (v_ref > 1).any() and (p_ref != x["perm"]).any()
-    after = kernels.launch_counts()
-    assert {k: after[k] - before[k] for k in after} == {
-        "table_update": 1, "act_conn": 1, "serving_activation": 0,
-        "act_frozen": 0}
+    assert launched(before) == only(table_update=1, act_conn=1)
 
 
 @pytest.mark.cuda
@@ -118,10 +126,7 @@ def test_serving_kernels_match_plain(shape, cuda):
         x["syn"], x["perm"], cols, bits, D, 0.5, K))
     assert torch.equal(s_k, s_ref)
     assert (f_ref > 1).any() and (s_ref > 0).any()
-    after = kernels.launch_counts()
-    assert {k: after[k] - before[k] for k in after} == {
-        "table_update": 0, "act_conn": 0, "serving_activation": 1,
-        "act_frozen": 1}
+    assert launched(before) == only(serving_activation=1, act_frozen=1)
 
 
 @pytest.mark.cuda
@@ -188,3 +193,119 @@ def test_serving_wrappers_reject_bad_inputs(kernel, bad, cuda):
             kernels.act_frozen_cuda(t, cols, bits, D, K)
         else:
             kernels.serving_activation_cuda(t, cols, bits, C, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+def test_synapse_activation_matches_plain(shape, cuda):
+    """`synapse_activation` against its plain version over the table of
+    `table_inputs` with ids outside the cell space added, one launch;
+    where a slot is live its activity is `act_conn`'s."""
+    B, C, G, K, D, A = shape
+    x = table_inputs(sum(shape) + 3, *shape, device=cuda)
+    syn = x["syn"].clone()
+    syn.view(-1)[::7] = C * D + 5
+    syn.view(-1)[3::11] = -9
+    before = kernels.launch_counts()
+    got = kernels.synapse_activation_cuda(syn, x["cols"], x["bits"], C, D)
+    want = pas.synapse_activation_ref(syn, x["cols"], x["bits"], C, D)
+    torch.cuda.synchronize()
+    assert launched(before) == only(synapse_activation=1)
+    assert torch.equal(got, want) and got.any()
+    v = pas.synapse_activation_conn_ref(x["syn"], x["perm"], x["cols"],
+                                        x["bits"], D, 0.5, K)
+    act = kernels.synapse_activation_cuda(x["syn"], x["cols"], x["bits"], C,
+                                          D)
+    assert torch.equal((act != 0) & (x["perm"] >= 0), v != 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Wc,L,kk", [
+    (64, 768, 824, 32),    # the 16K auto caps
+    (64, 384, 336, 32),    # the 16K tuned caps
+    (2, 129, 13, 7),       # n % 4 != 0: the scalar path
+    (3, 2048, 5, 16),      # the largest table one block stages
+    (1, 1, 4, 4),
+])
+def test_small_table_take_matches_plain(B, Wc, L, kk, cuda):
+    """`small_table_take` against its plain version, with sentinel-
+    decoded (>= Wc), negative and in-range indices; one launch."""
+    g = torch.Generator(device=cuda).manual_seed(Wc + L)
+    table = torch.randint(0, 1 << 20, (B, Wc), generator=g, device=cuda,
+                          dtype=torch.int32)
+    idx = torch.randint(0, Wc, (B, L, kk), generator=g, device=cuda,
+                        dtype=torch.int32)
+    low = (1 << max(1, (Wc - 1).bit_length())) - 1
+    u = torch.rand((B, L, kk), generator=g, device=cuda)
+    idx = torch.where(u < 0.15, low, torch.where(u < 0.25, -7, idx))
+    before = kernels.launch_counts()
+    got = kernels.small_table_take_cuda(table, idx)
+    torch.cuda.synchronize()
+    assert launched(before) == only(small_table_take=1)
+    want = pas.take_small_table_ref(table, idx)
+    assert torch.equal(got, want)
+    assert torch.equal(pas.take_small_table(table, idx), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
+@pytest.mark.parametrize("B,C,I_pad,A", [(2, 96, 1024, 7),
+                                         (3, 2048, 1024, 41),
+                                         (1, 40, 2048, 5)])
+def test_sp_update_pack_matches_plain(dtype, B, C, I_pad, A, cuda):
+    """`sp_update_pack` against its plain version, both dtypes, with
+    rows at the int16 rail; the dispatcher launches the kernel once."""
+    g = torch.Generator(device=cuda).manual_seed(C + A)
+    if dtype == torch.int16:
+        perm = torch.randint(-300, 300, (B, C, I_pad), generator=g,
+                             device=cuda, dtype=torch.int16)
+        perm[:, :3, :16] = 31990
+        delta = torch.randint(-3, 7, (B, I_pad), generator=g, device=cuda,
+                              dtype=torch.int32) * 3
+        thr = 0
+    else:
+        perm = (torch.rand((B, C, I_pad), generator=g, device=cuda) - 0.5) \
+            * 0.2
+        delta = (torch.rand((B, I_pad), generator=g, device=cuda) - 0.3) \
+            * 0.05
+        thr = 0.01
+    cols = torch.stack([torch.randperm(C, generator=g, device=cuda)[:A]
+                        for _ in range(B)]).int()
+    cols[:, 0] = torch.arange(B, device=cuda)   # a railed row learns
+    p_ref = perm.clone()
+    want_perm, want_pack = psp.sp_update_pack_ref(p_ref, delta, cols, thr)
+    before = kernels.launch_counts()
+    got_perm, got_pack = psp.sp_update_pack(perm, delta, cols, thr)
+    torch.cuda.synchronize()
+    assert launched(before) == only(sp_update_pack=1)
+    assert got_perm is perm
+    assert torch.equal(got_perm.view(torch.uint8),
+                       want_perm.view(torch.uint8))
+    assert torch.equal(got_pack, want_pack) and got_pack.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,bad", [
+    ("small_table_take", "width"), ("small_table_take", "dtype"),
+    ("sp_update_pack", "dtype"), ("sp_update_pack", "align"),
+    ("sp_update_pack", "threshold")])
+def test_new_wrappers_reject_bad_inputs(kernel, bad, cuda):
+    table = torch.zeros((2, 4096 if bad == "width" else 64),
+                        dtype=torch.int32, device=cuda)
+    idx = torch.zeros((2, 8, 4), dtype=torch.int32, device=cuda)
+    perm = torch.zeros((2, 8, 1024), dtype=torch.int16, device=cuda)
+    delta = torch.zeros((2, 1024), dtype=torch.int32, device=cuda)
+    cols = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    thr = 0.5 if bad == "threshold" else 0
+    if bad == "dtype":
+        idx, delta = idx.long(), delta.float()
+    elif bad == "align":
+        flat = torch.empty(perm.numel() + 1, dtype=torch.int16, device=cuda)
+        perm = flat[1:].view(perm.shape)
+    before = kernels.launch_counts()
+    with pytest.raises((TypeError, ValueError)):
+        if kernel == "small_table_take":
+            kernels.small_table_take_cuda(table, idx)
+        else:
+            kernels.sp_update_pack_cuda(perm, delta, cols, thr)
+    assert launched(before) == only()

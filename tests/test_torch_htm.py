@@ -83,6 +83,17 @@ class ReplayDraws:
         self.tm_cfg = tm_cfg
         self.keys = keys
 
+    def with_config(self, tm_cfg):
+        """The same key stream drawing at ``tm_cfg``'s list widths, as
+        the JAX step draws at the config in force."""
+        return ReplayDraws(tm_cfg, self.keys)
+
+    def get_state(self):
+        return self.keys
+
+    def set_state(self, keys):
+        self.keys = keys
+
     def step(self, need: bool = True):
         pair = jax.vmap(jax.random.split)(self.keys)
         self.keys, sub = pair[:, 0], pair[:, 1]
@@ -155,7 +166,7 @@ def test_sp_step_matches_jax(dtype):
                               sp_overrides={"permanence_dtype": dtype})
     B = 3
     jfull = jax_htm_init_batch(jax.random.key(5), jcfg, B)
-    jstate, pstate = jfull.sp, htm_state_from_numpy(jfull).sp
+    jstate, pstate = jfull.sp, htm_state_from_numpy(jfull, "cpu").sp
     rng = np.random.RandomState(3)
     for t in range(25):
         x = rng.rand(B, 200) < 0.2
@@ -214,7 +225,7 @@ def test_tm_step_matches_jax(policy, punishment):
                               permanence_punishment=punishment)
     B, A = 3, 4
     jfull = jax_htm_init_batch(jax.random.key(1), jcfg, B)
-    pfull = htm_state_from_numpy(jfull)
+    pfull = htm_state_from_numpy(jfull, "cpu")
     jtm, ptm = jfull.tm, pfull.tm
     rng = np.random.RandomState(0)
     colsets = np.stack([rng.choice(12, A, replace=False) for _ in range(10)])
@@ -284,7 +295,7 @@ def test_htm_scan_matches_jax(variant):
     x = pats[(t[:, None] + np.arange(B)[None, :]) % 5]         # (T, B, I)
 
     jstate = jax_htm_init_batch(jax.random.key(2), jcfg, B)
-    pstate = htm_state_from_numpy(jstate)
+    pstate = htm_state_from_numpy(jstate, "cpu")
     draws = ReplayDraws(pcfg.tm, copy_keys(jstate.key))
     _assert_sp_trajectory_untied(jcfg, jstate.sp, x, n_learn)
 
@@ -309,7 +320,7 @@ def test_port_learns_with_torch_generator():
     `torch.Generator`: bursting falls and correct predictions rise."""
     cfg = bt.make_htm_config(**SMALL)
     gen = torch.Generator().manual_seed(0)
-    state = bt.htm_init_batch(cfg, 4, gen)
+    state = bt.htm_init_batch(cfg, 4, gen, "cpu")
     pats = torch.from_numpy(np.random.RandomState(0).rand(5, 64) < 0.2)
     x = pats[torch.arange(60) % 5][:, None, :].expand(60, 4, 64)
     state, m = bt.htm_scan(cfg, state, x, True,

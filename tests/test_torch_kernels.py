@@ -126,8 +126,11 @@ def test_cuda_source_names_both_entry_points():
         assert re.search(rf'extern "C" int {name}\(', every), name
     assert set(kernels._ARGTYPES) == {k.name for k in kernels.KERNELS}
     for name, lines in (("table_pass.cu", (489, 698)),
-                        ("serving_pass.cu", (835, 772))):
+                        ("serving_pass.cu", (835, 772, 661)),
+                        ("small_take.cu", (885,)),
+                        ("sp_pass.cu", (598,))):
         for line in lines:
             assert f"pallas_kernels.py:{line}" in src[name], (name, line)
-        assert '#include "active_bitmap.cuh"' in src[name]
+        assert ('#include "active_bitmap.cuh"' in src[name]) == (
+            name != "small_take.cu")
     assert Path(kernels.library_path()).parent == kernels.BUILD_DIR

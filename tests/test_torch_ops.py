@@ -50,6 +50,9 @@ CONFIGS = [
          segment_sampling_synapses=8, allocation_policy="reference"),
     dict(input_dim=300, column_dim=16384, cell_dim=64, winner_capacity=96,
          growth_capacity=40),
+    # chip_smoke.py's 16K x 64 path: A=328, auto caps Wc=768, L=824
+    dict(input_dim=1000, column_dim=16384, cell_dim=64, segments_per_column=4,
+         synapse_capacity=64, sp_overrides={"permanence_dtype": "int16"}),
 ]
 
 
@@ -92,7 +95,7 @@ def test_convert_round_trip(batched):
     jstate = jstate.replace(
         sp=jax.tree.map(rand_like, jstate.sp),
         tm=jax.tree.map(rand_like, jstate.tm))
-    pstate = bt.htm_state_from_numpy(jstate)
+    pstate = bt.htm_state_from_numpy(jstate, "cpu")
     assert pstate.batch == (3 if batched else 1)
     back = bt.htm_state_to_numpy(pstate)
     for part in ("sp", "tm"):
@@ -106,7 +109,7 @@ def test_convert_round_trip(batched):
     assert back["tm"]["prediction"].dtype == np.uint32
     assert pstate.tm.prediction.dtype == torch.int32
     # and port -> numpy -> port again
-    again = bt.htm_state_from_numpy(back)
+    again = bt.htm_state_from_numpy(back, "cpu")
     for f in dataclasses.fields(again.tm):
         assert torch.equal(getattr(again.tm, f.name),
                            getattr(pstate.tm, f.name))

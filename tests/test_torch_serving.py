@@ -177,7 +177,7 @@ def test_make_serving_table_matches_jax():
     E = got["ext_col"].shape[1]
     assert E >= 2 and (got["ext_col"][0] < C).sum() >= 2
     assert (got["ext_col"][1] == C).all()
-    back = bt.serving_table_from_numpy(jtab)
+    back = bt.serving_table_from_numpy(jtab, "cpu")
     assert all(torch.equal(a, b) for a, b in zip(back, ptab))
 
     thr = pcfg.tm.permanence_threshold
@@ -324,7 +324,7 @@ def _serve_jax(jcfg, jstate, serve, form):
 
 
 def _serve_port(pcfg, jstate, serve, form):
-    state = bt.htm_state_from_numpy(jstate)
+    state = bt.htm_state_from_numpy(jstate, "cpu")
     draws = ReplayDraws(pcfg.tm, copy_keys(jstate.key))
     x = torch.from_numpy(serve)
     if form == "unpacked":
@@ -365,7 +365,7 @@ def test_port_serving_table_matches_jax_on_trained_state(trained):
     jcfg, pcfg, jstate, _, _ = trained
     jtab = jsv.make_serving_table(jcfg.tm, jstate.tm)
     ptab = bt.make_serving_table(pcfg.tm,
-                                 bt.htm_state_from_numpy(jstate).tm)
+                                 bt.htm_state_from_numpy(jstate, "cpu").tm)
     got = bt.serving_table_to_numpy(ptab)
     np.testing.assert_array_equal(got["rows"], np.asarray(jtab.rows))
     np.testing.assert_array_equal(got["ext_col"], np.asarray(jtab.ext_col))
@@ -398,9 +398,10 @@ def test_serve_resume_learn_matches_jax(trained):
 
 def test_resume_learning_noop_on_unserved_state(trained):
     jcfg, pcfg, jstate, _, _ = trained
-    state = bt.htm_state_from_numpy(jstate)
+    state = bt.htm_state_from_numpy(jstate, "cpu")
     want = bt.htm_state_to_numpy(state)
-    resumed = bt.resume_learning(pcfg, bt.htm_state_from_numpy(jstate))
+    resumed = bt.resume_learning(pcfg,
+                                 bt.htm_state_from_numpy(jstate, "cpu"))
     assert_tree_equal(jstate, bt.htm_state_to_numpy(resumed), "resumed")
     for name in ("synapse_act", "matching_word"):
         np.testing.assert_array_equal(want["tm"][name],
@@ -418,7 +419,7 @@ def test_serving_contract_guards():
                              segment_matching_threshold=2,
                              segment_sampling_synapses=4)
     gen = torch.Generator().manual_seed(1)
-    state = bt.htm_init_batch(cfg, 2, gen)
+    state = bt.htm_init_batch(cfg, 2, gen, "cpu")
     tab = bt.make_serving_table(cfg.tm, state.tm)
     assert tuple(tab.rows.shape) == (2, 32, 128)
     assert tuple(tab.ext_col.shape) == (2, 0)
