@@ -38,6 +38,7 @@
 // as much as act_frozen over a table of the same size.
 
 #include "active_bitmap.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -84,7 +85,7 @@ __global__ void __launch_bounds__(kThreads) word_pass_kernel(
     const int* __restrict__ words, const int* __restrict__ cols,
     const int* __restrict__ bits, uint8_t* __restrict__ out, int n, int A,
     int W, int C, int D, Op op) {
-  extern __shared__ uint32_t bm[];
+  extern __shared__ __align__(16) uint32_t bm[];
   const int b = blockIdx.y;
   const int n_cells = C * D;
   build_bitmap(bm, (n_cells + 31) >> 5, cols + (size_t)b * A,
@@ -109,8 +110,10 @@ __global__ void __launch_bounds__(kThreads) word_pass_kernel(
 
 template <class Op, int VEC>
 int launch(const int* words, const int* cols, const int* bits, uint8_t* out,
-           int B, int n, int A, int W, int C, int D, Op op,
+           int B, int n, int A, int W, int C, int D, Op op, int device,
            cudaStream_t stream) {
+  bithtm::DeviceGuard guard(device);
+  if (int err = guard.error()) return err;
   const size_t smem = bithtm::bitmap_bytes(C, D);
   auto kernel = word_pass_kernel<Op, VEC>;
   if (int err = bithtm::allow_shared(kernel, smem)) return err;
@@ -122,31 +125,31 @@ int launch(const int* words, const int* cols, const int* bits, uint8_t* out,
 
 }  // namespace
 
-// Each entry point launches on the given stream, allocates nothing and
-// returns cudaGetLastError() after the launch (0 = success). cols (B, A)
-// and bits (B, A, W) int32, as in table_pass.cu.
+// Each entry point launches on the given stream of the given device,
+// allocates nothing and returns cudaGetLastError() after the launch (0 =
+// success). cols (B, A) and bits (B, A, W) int32, as in table_pass.cu.
 
 // rows (B, R, 128) int32 serving words -> out (B, R, 128) u8.
 extern "C" int serving_activation(const int* rows, const int* cols,
                                   const int* bits, uint8_t* out, int B,
                                   int R, int A, int W, int C, int D,
-                                  void* stream) {
+                                  int device, void* stream) {
   return launch<ServingWord, 4>(rows, cols, bits, out, B, R * 128, A, W, C,
-                                D, ServingWord{},
+                                D, ServingWord{}, device,
                                 static_cast<cudaStream_t>(stream));
 }
 
 // word (B, C, J) int32 frozen words -> v_out (B, C, J) u8.
 extern "C" int act_frozen(const int* word, const int* cols, const int* bits,
                           uint8_t* v_out, int B, int C, int J, int A, int W,
-                          int D, int scale, void* stream) {
+                          int D, int scale, int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = C * J;
   if (n % 4 == 0)
     return launch<FrozenWord, 4>(word, cols, bits, v_out, B, n, A, W, C, D,
-                                 FrozenWord{scale}, s);
+                                 FrozenWord{scale}, device, s);
   return launch<FrozenWord, 1>(word, cols, bits, v_out, B, n, A, W, C, D,
-                               FrozenWord{scale}, s);
+                               FrozenWord{scale}, device, s);
 }
 
 // syn (B, R, J) int32 presynaptic cells -> out (B, R, J) u8 0/1, over the
@@ -154,12 +157,12 @@ extern "C" int act_frozen(const int* word, const int* cols, const int* bits,
 extern "C" int synapse_activation(const int* syn, const int* cols,
                                   const int* bits, uint8_t* out, int B,
                                   int R, int J, int A, int W, int C, int D,
-                                  void* stream) {
+                                  int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = R * J;
   if (n % 4 == 0)
     return launch<ActivityWord, 4>(syn, cols, bits, out, B, n, A, W, C, D,
-                                   ActivityWord{}, s);
+                                   ActivityWord{}, device, s);
   return launch<ActivityWord, 1>(syn, cols, bits, out, B, n, A, W, C, D,
-                                 ActivityWord{}, s);
+                                 ActivityWord{}, device, s);
 }

@@ -20,12 +20,18 @@
 // loads and stores where the run is aligned. The grid is (index blocks, B).
 //
 // Bound: bytes, 8 a lookup (idx 4 in, out 4) plus the table. At the 16K
-// auto caps (B=64, L=824, kk=32, Wc=768) that is 13.7 MB, about 4 us at
-// the H100's 3.35 TB/s: a launch costs about as much, so launch latency,
-// not the lookup, sets this kernel's time.
+// tuned caps (B=64, L=336, kk=32, Wc=384) that is 5.6 MB, about 1.7 us at
+// the H100's 3.35 TB/s, and the kernel takes about 3 us on the device.
+// What bounds a call is the host: the wrapper's checks, the output's
+// allocation and the ctypes call take longer than the kernel, so the
+// device waits on the next launch. The wrappers therefore pass the device
+// index and the raw current stream straight through (launch.cuh) instead
+// of entering a device context and building a stream object each call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -67,11 +73,14 @@ __global__ void __launch_bounds__(kThreads) small_take_kernel(
 }  // namespace
 
 // table (B, Wc) int32 with Wc <= 2048, idx (B, n) int32 -> out (B, n)
-// int32. Launches on the given stream, allocates nothing and returns
-// cudaGetLastError() after the launch (0 = success).
+// int32. Launches on the given stream of the given device, allocates
+// nothing and returns cudaGetLastError() after the launch (0 = success).
 extern "C" int small_table_take(const int* table, const int* idx, int* out,
-                                int B, int Wc, int n, void* stream) {
+                                int B, int Wc, int n, int device,
+                                void* stream) {
   if (Wc < 1 || Wc > kMaxTable) return (int)cudaErrorInvalidValue;
+  bithtm::DeviceGuard guard(device);
+  if (int err = guard.error()) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid((n + kIdxPerBlock - 1) / kIdxPerBlock, B);
   const bool aligned = n % 4 == 0 &&

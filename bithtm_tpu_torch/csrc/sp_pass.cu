@@ -32,6 +32,7 @@
 // first step toward the bound.
 
 #include "active_bitmap.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -135,7 +136,10 @@ __global__ void __launch_bounds__(kThreads) sp_update_pack_kernel(
 
 template <class Op, typename D>
 int launch(void* perm, const void* delta, const int* cols, uint8_t* pack,
-           int B, int C, int I_pad, int A, Op op, cudaStream_t stream) {
+           int B, int C, int I_pad, int A, Op op, int device,
+           cudaStream_t stream) {
+  bithtm::DeviceGuard guard(device);
+  if (int err = guard.error()) return err;
   const size_t smem = ((size_t)C + 31) / 32 * sizeof(uint32_t);
   auto kernel = sp_update_pack_kernel<Op, D>;
   if (int err = bithtm::allow_shared(kernel, smem)) return err;
@@ -153,17 +157,18 @@ int launch(void* perm, const void* delta, const int* cols, uint8_t* pack,
 // perm (B, C, I_pad) int16 (quantized) or float32, updated in place;
 // delta (B, I_pad) int32 (quantized) or float32; cols (B, A) int32;
 // pack (B, C, I_pad / 8) u8. I_pad is a multiple of 1024 and every pointer
-// 16-byte aligned. Launches on the given stream, allocates nothing and
-// returns cudaGetLastError() after the launch (0 = success).
+// 16-byte aligned. Launches on the given stream of the given device,
+// allocates nothing and returns cudaGetLastError() after the launch (0 =
+// success).
 extern "C" int sp_update_pack(void* perm, const void* delta, const int* cols,
                               uint8_t* pack, int B, int C, int I_pad, int A,
                               int quantized, float threshold_f,
-                              int threshold_i, void* stream) {
+                              int threshold_i, int device, void* stream) {
   if (I_pad % 1024 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (quantized)
     return launch<Int16Units, int>(perm, delta, cols, pack, B, C, I_pad, A,
-                                   Int16Units{threshold_i}, s);
+                                   Int16Units{threshold_i}, device, s);
   return launch<Float32, float>(perm, delta, cols, pack, B, C, I_pad, A,
-                                Float32{threshold_f}, s);
+                                Float32{threshold_f}, device, s);
 }

@@ -17,151 +17,222 @@
 //   act   = syn >= 0 && perm' >= 0 && cell syn is in stream b's active set
 //   v     = act ? (perm' >= threshold ? 1 + scale : 1) : 0      (u8)
 //
+// Bound: bytes. The function reads syn 4, perm 4 and act_prev 1 B a slot
+// and writes v 1 B a slot and the punished permanences; act_conn reads
+// syn and perm and writes v, 9 B a slot. The first schedule wrote every
+// permanence back (14 B a slot). At B=256, C=2048, J=256 and at B=64,
+// C=16384, J=256 alike (268M slots), 10 B a slot is 2.68 GB, 0.80 ms at
+// the H100's 3.35 TB/s, and 9 B a slot 0.72 ms.
+//
 // Design. The TPU kernel answered "is the presynaptic cell active?" with
 // a salted hash over the A active columns, because Mosaic has no cheap
-// gather. Here each block first builds its stream's active cells as a
-// bitmap in shared memory (active_bitmap.cuh), then answers membership
-// with one shared-memory load per slot. The grid is (row blocks of C, B);
-// each thread walks its rows with 4-slot vector loads when J % 4 == 0.
+// gather. Here a block holds its stream's active cells as a bitmap in
+// shared memory (active_bitmap.cuh) and answers with one shared-memory
+// load a slot.
 //
-// Bound: bytes. table_update moves 14 B/slot (syn 4, perm 4 in + 4 out,
-// act_prev 1, v 1) and act_conn 9 B/slot (syn 4, perm 4, v 1); at
-// B=256, C=2048, J=256 that is 1.88 GB and 1.21 GB per step, about
-// 0.56 ms and 0.36 ms at the H100's 3.35 TB/s. The bitmap build costs
-// C*D/32 word stores plus A*D bit tests per block, small against the
-// rows each block streams.
+// The first schedule gave each block 16,384 slots of one stream (grid
+// (row blocks of C, B), 256 threads) and built the bitmap in every
+// block. At 16384x64 that is 16,384 blocks, each zeroing 32,768 words and
+// setting 20,992 cells (one atomicOr a bit) before streaming 229 KB; the
+// 128 KB bitmap leaves one block an SM, so the card ran about 124 waves
+// in which the build cost about as much as the streaming, and 8 warps an
+// SM kept about 9 KB of loads in flight where Little's law at 3.35 TB/s
+// asks for about 25 KB: 4.75 ms on an H100 for the learned 16K state.
+//
+// This schedule (`range_grid`, `walk_rows` in active_bitmap.cuh): one
+// contiguous range of the B*C flattened rows a block, the bitmap rebuilt
+// only where the range crosses into the next stream, over eight waves of
+// resident blocks (at 16384x64: 1,056 blocks of about 993 rows, at most
+// 2 builds each, against 16,384 builds); 1024 threads where the bitmap
+// leaves one 256-thread block an SM, each thread with two groups of 4
+// slots in flight (about 72 KB of loads an SM), else 256 threads with one
+// group and as many blocks an SM as fit; a build of one atomicOr a word
+// where D % 32 == 0 (A*W operations, not A*D); and a permanence written
+// back only where its group of slots was punished.
 
 #include "active_bitmap.cuh"
+#include "launch.cuh"
 
 namespace {
 
-using bithtm::build_bitmap;
-using bithtm::kThreads;
+using bithtm::cell_active;
 
-constexpr int kSlotsPerBlock = 16384;
 
 __device__ __forceinline__ uint8_t slot_value(
     const uint32_t* bm, int syn, float p, int n_cells, float threshold,
     int scale) {
-  const bool act = p >= 0.0f && bithtm::cell_active(bm, syn, n_cells);
+  const bool act = p >= 0.0f && cell_active(bm, syn, n_cells);
   return act ? static_cast<uint8_t>(p >= threshold ? 1 + scale : 1) : 0;
 }
 
 // PUNISH selects table_update (punish, write perm) over act_conn.
-template <bool PUNISH, int VEC>
-__global__ void __launch_bounds__(kThreads) table_pass_kernel(
+template <bool PUNISH, int VEC, int THREADS>
+__global__ void __launch_bounds__(THREADS) table_pass_kernel(
     const int* __restrict__ syn, float* __restrict__ perm,
     const uint8_t* __restrict__ act_prev, const int* __restrict__ pun_word,
     const int* __restrict__ cols, const int* __restrict__ bits,
-    uint8_t* __restrict__ v_out, int C, int J, int A, int W, int D, int K,
-    int rows_per_block, float punishment, float threshold, int scale) {
-  extern __shared__ uint32_t bm[];
-  const int b = blockIdx.y;
+    uint8_t* __restrict__ v_out, int B, int C, int J, int A, int W, int D,
+    int K, float punishment, float threshold, int scale) {
+  // groups of VEC slots a thread keeps in flight: two in a wide block,
+  // which runs alone on its SM; one where several narrow blocks share it
+  constexpr int kUnroll = THREADS == bithtm::kWideThreads ? 2 : 1;
+  extern __shared__ __align__(16) uint32_t bm[];
   const int n_cells = C * D;
-  build_bitmap(bm, (n_cells + 31) >> 5, cols + (size_t)b * A,
-               bits + (size_t)b * A * W, A, W, C, D);
+  bithtm::walk_rows(bm, B, C, cols, bits, A, W, C, D,
+                    [&](int b, int lo, int hi) {
+    // the stream's slots [lo*J, hi*J), as offsets from its first slot
+    const size_t base = (size_t)b * C * J;
+    const int* pw_row = pun_word + (size_t)b * C;
+    const int end = hi * J;
+    for (int s0 = lo * J + threadIdx.x * VEC; s0 < end;
+         s0 += THREADS * VEC * kUnroll) {
+      int sy[kUnroll][VEC];
+      float p[kUnroll][VEC];
+      uint8_t ap[kUnroll][VEC];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int s = s0 + u * THREADS * VEC;
+        if (s >= end) break;
+        const size_t i = base + s;
+        if constexpr (VEC == 4) {
+          const int4 s4 = *reinterpret_cast<const int4*>(syn + i);
+          const float4 p4 = *reinterpret_cast<const float4*>(perm + i);
+          sy[u][0] = s4.x; sy[u][1] = s4.y; sy[u][2] = s4.z; sy[u][3] = s4.w;
+          p[u][0] = p4.x; p[u][1] = p4.y; p[u][2] = p4.z; p[u][3] = p4.w;
+          if constexpr (PUNISH) {
+            const uchar4 a4 = *reinterpret_cast<const uchar4*>(act_prev + i);
+            ap[u][0] = a4.x; ap[u][1] = a4.y; ap[u][2] = a4.z;
+            ap[u][3] = a4.w;
+          }
+        } else {
+          sy[u][0] = syn[i];
+          p[u][0] = perm[i];
+          if constexpr (PUNISH) ap[u][0] = act_prev[i];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int s = s0 + u * THREADS * VEC;
+        if (s >= end) break;
+        const size_t i = base + s;
+        const int c = s / J;       // VEC divides J: one row per group
+        const int j0 = s - c * J;
+        bool punished = false;  // perm is written back only if it changed
+        if constexpr (PUNISH) {
+          const uint32_t pw = static_cast<uint32_t>(pw_row[c]);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const int g = (j0 + e) / K;
+            if (((pw >> g) & 1u) && ap[u][e] != 0) {
+              p[u][e] = __fsub_rn(p[u][e], punishment);
+              punished = true;
+            }
+          }
+        }
+        uint8_t v[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          v[e] = slot_value(bm, sy[u][e], p[u][e], n_cells, threshold, scale);
+        if constexpr (VEC == 4) {
+          if (punished)
+            *reinterpret_cast<float4*>(perm + i) =
+                make_float4(p[u][0], p[u][1], p[u][2], p[u][3]);
+          *reinterpret_cast<uchar4*>(v_out + i) =
+              make_uchar4(v[0], v[1], v[2], v[3]);
+        } else {
+          if (punished) perm[i] = p[u][0];
+          v_out[i] = v[0];
+        }
+      }
+    }
+  });
+}
 
-  const int row0 = blockIdx.x * rows_per_block;
-  const int rows = min(rows_per_block, C - row0);
-  if (rows <= 0) return;
-  const size_t base = ((size_t)b * C + row0) * J;
-  const int n = rows * J;
-  for (int s = threadIdx.x * VEC; s < n; s += blockDim.x * VEC) {
-    const size_t i = base + s;
-    const int c = row0 + s / J;
-    const int j0 = s % J;
-    int sy[VEC];
-    float p[VEC];
-    uint8_t ap[VEC];
-    uint8_t v[VEC];
-    if constexpr (VEC == 4) {
-      const int4 s4 = *reinterpret_cast<const int4*>(syn + i);
-      const float4 p4 = *reinterpret_cast<const float4*>(perm + i);
-      sy[0] = s4.x; sy[1] = s4.y; sy[2] = s4.z; sy[3] = s4.w;
-      p[0] = p4.x; p[1] = p4.y; p[2] = p4.z; p[3] = p4.w;
-      if constexpr (PUNISH) {
-        const uchar4 a4 = *reinterpret_cast<const uchar4*>(act_prev + i);
-        ap[0] = a4.x; ap[1] = a4.y; ap[2] = a4.z; ap[3] = a4.w;
-      }
-    } else {
-      sy[0] = syn[i];
-      p[0] = perm[i];
-      if constexpr (PUNISH) ap[0] = act_prev[i];
-    }
-    if constexpr (PUNISH) {
-      const uint32_t pw =
-          static_cast<uint32_t>(pun_word[(size_t)b * C + c]);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const int g = (j0 + e) / K;
-        if (((pw >> g) & 1u) && ap[e] != 0) p[e] = __fsub_rn(p[e], punishment);
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      v[e] = slot_value(bm, sy[e], p[e], n_cells, threshold, scale);
-    if constexpr (VEC == 4) {
-      if constexpr (PUNISH)
-        *reinterpret_cast<float4*>(perm + i) =
-            make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<uchar4*>(v_out + i) =
-          make_uchar4(v[0], v[1], v[2], v[3]);
-    } else {
-      if constexpr (PUNISH) perm[i] = p[0];
-      v_out[i] = v[0];
-    }
-  }
+template <bool PUNISH, int VEC>
+int grid_for(int C, int D, int device, bithtm::Grid* grid) {
+  return bithtm::range_grid(
+      table_pass_kernel<PUNISH, VEC, bithtm::kThreads>,
+      table_pass_kernel<PUNISH, VEC, bithtm::kWideThreads>,
+      bithtm::bitmap_bytes(C, D), device, grid);
 }
 
 template <bool PUNISH, int VEC>
 int launch(const int* syn, float* perm, const uint8_t* act_prev,
            const int* pun_word, const int* cols, const int* bits,
            uint8_t* v_out, int B, int C, int J, int A, int W, int D, int K,
-           float punishment, float threshold, int scale,
+           float punishment, float threshold, int scale, int device,
            cudaStream_t stream) {
+  bithtm::DeviceGuard guard(device);
+  if (int err = guard.error()) return err;
+  bithtm::Grid g;
+  if (int err = grid_for<PUNISH, VEC>(C, D, device, &g)) return err;
   const size_t smem = bithtm::bitmap_bytes(C, D);
-  auto kernel = table_pass_kernel<PUNISH, VEC>;
-  if (int err = bithtm::allow_shared(kernel, smem)) return err;
-  int rows_per_block = kSlotsPerBlock / J;
-  if (rows_per_block < 1) rows_per_block = 1;
-  if (rows_per_block > C) rows_per_block = C;
-  dim3 grid((C + rows_per_block - 1) / rows_per_block, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      syn, perm, act_prev, pun_word, cols, bits, v_out, C, J, A, W, D, K,
-      rows_per_block, punishment, threshold, scale);
+  if (g.threads == bithtm::kWideThreads)
+    table_pass_kernel<PUNISH, VEC, bithtm::kWideThreads>
+        <<<g.blocks, g.threads, smem, stream>>>(
+            syn, perm, act_prev, pun_word, cols, bits, v_out, B, C, J, A, W,
+            D, K, punishment, threshold, scale);
+  else
+    table_pass_kernel<PUNISH, VEC, bithtm::kThreads>
+        <<<g.blocks, g.threads, smem, stream>>>(
+            syn, perm, act_prev, pun_word, cols, bits, v_out, B, C, J, A, W,
+            D, K, punishment, threshold, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Each entry point launches on the given stream, allocates nothing and
-// returns cudaGetLastError() after the launch (0 = success). Tables are
-// contiguous (B, C, J); cols (B, A) and bits (B, A, W) int32.
+// Each entry point launches on the given stream of the given device,
+// allocates nothing and returns cudaGetLastError() after the launch (0 =
+// success). Tables are contiguous (B, C, J) with C*J < 2^31, 16-byte
+// aligned; cols (B, A) and bits (B, A, W) int32.
 extern "C" int table_update(const int* syn, float* perm,
                             const uint8_t* act_prev, const int* pun_word,
                             const int* cols, const int* bits,
                             uint8_t* v_out, int B, int C, int J, int A,
                             int W, int D, int K, float punishment,
-                            float threshold, int scale, void* stream) {
+                            float threshold, int scale, int device,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (J % 4 == 0)
     return launch<true, 4>(syn, perm, act_prev, pun_word, cols, bits, v_out,
                            B, C, J, A, W, D, K, punishment, threshold,
-                           scale, s);
+                           scale, device, s);
   return launch<true, 1>(syn, perm, act_prev, pun_word, cols, bits, v_out,
                          B, C, J, A, W, D, K, punishment, threshold, scale,
-                         s);
+                         device, s);
 }
 
 extern "C" int act_conn(const int* syn, const float* perm, const int* cols,
                         const int* bits, uint8_t* v_out, int B, int C,
                         int J, int A, int W, int D, int K, float threshold,
-                        int scale, void* stream) {
+                        int scale, int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = const_cast<float*>(perm);  // read only: PUNISH is false
   if (J % 4 == 0)
     return launch<false, 4>(syn, p, nullptr, nullptr, cols, bits, v_out, B,
-                            C, J, A, W, D, K, 0.0f, threshold, scale, s);
+                            C, J, A, W, D, K, 0.0f, threshold, scale, device,
+                            s);
   return launch<false, 1>(syn, p, nullptr, nullptr, cols, bits, v_out, B, C,
-                          J, A, W, D, K, 0.0f, threshold, scale, s);
+                          J, A, W, D, K, 0.0f, threshold, scale, device, s);
+}
+
+// The grid that table_update (punish != 0) or act_conn launches for a
+// table of rows of J slots over a bitmap of C*D cells on `device`: blocks
+// and threads a block. Returns a cudaError_t as int (0 = success).
+extern "C" int table_pass_grid(int punish, int C, int J, int D, int device,
+                               int* blocks, int* threads) {
+  bithtm::DeviceGuard guard(device);
+  if (int err = guard.error()) return err;
+  bithtm::Grid g;
+  int err;
+  if (punish)
+    err = J % 4 == 0 ? grid_for<true, 4>(C, D, device, &g)
+                     : grid_for<true, 1>(C, D, device, &g);
+  else
+    err = J % 4 == 0 ? grid_for<false, 4>(C, D, device, &g)
+                     : grid_for<false, 1>(C, D, device, &g);
+  *blocks = g.blocks;
+  *threads = g.threads;
+  return err;
 }

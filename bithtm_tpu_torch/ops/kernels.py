@@ -1,21 +1,28 @@
 """Build, binding and wrappers of the hand-written CUDA kernels.
 
 The sources in `csrc/` (`table_pass.cu`, `serving_pass.cu`,
-`small_take.cu` and `sp_pass.cu`; all but `small_take.cu` share
-`active_bitmap.cuh`) are compiled on first use with ``nvcc`` for
-``sm_90a``, one process per source started together, and linked into a
-plain-C shared library under ``bithtm_tpu_torch/_build`` (keyed by a
-hash of the sources and flags), loaded with ctypes. Nothing here runs
-when the module is imported.
+`small_take.cu` and `sp_pass.cu`; all include `launch.cuh`, all but
+`small_take.cu` `active_bitmap.cuh`) are compiled on first use with
+``nvcc`` for ``sm_90a``, one process per source started together, and
+linked into a plain-C shared library under ``bithtm_tpu_torch/_build``
+(keyed by a hash of the sources and flags), loaded with ctypes. Nothing
+here runs when the module is imported.
 
-Each wrapper checks device, dtype, shape and contiguity, allocates the
-output, launches on the current CUDA stream, raises if the launch
-reports an error, and counts its launches (`launch_counts`).
+Each wrapper checks device, dtype, shape, contiguity and alignment in one
+pass over its tensors (`_ptr`), allocates the output, and calls the C
+entry point with the tensors' device index and the raw handle of that
+device's current stream: the entry point makes the device current only
+if it is not, and launches on that stream. The wrapper raises if the
+launch reports an error and counts its launches (`launch_counts`). A
+kernel that is quick on the device (`small_table_take`, about 3 us) is
+bound by this host issue, so it holds no device context, builds no
+stream object and takes no attribute lookup on the ctypes function.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,31 +38,32 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("table_pass.cu", "serving_pass.cu", "small_take.cu",
            "sp_pass.cu")
-HEADERS = ("active_bitmap.cuh",)
+HEADERS = ("active_bitmap.cuh", "launch.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 MAX_SHARED_BYTES = 232_448  # what one Hopper block may opt in to
 MAX_SMALL_TABLE = 2048      # words of a small_table_take table (8 KB)
+MAX_STREAM_WORDS = 1 << 30  # a stream's words, indexed in int32 on the card
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# every entry point ends with (device, stream)
 _ARGTYPES = {
     # syn, perm, act_prev, pun_word, cols, bits, v_out,
-    # B, C, J, A, W, D, K, punishment, threshold, scale, stream
-    "table_update": [_VP] * 7 + [_I] * 7 + [_F, _F, _I, _VP],
-    # syn, perm, cols, bits, v_out, B, C, J, A, W, D, K, threshold,
-    # scale, stream
-    "act_conn": [_VP] * 5 + [_I] * 7 + [_F, _I, _VP],
-    # rows, cols, bits, out, B, R, A, W, C, D, stream
-    "serving_activation": [_VP] * 4 + [_I] * 6 + [_VP],
-    # word, cols, bits, v_out, B, C, J, A, W, D, scale, stream
-    "act_frozen": [_VP] * 4 + [_I] * 7 + [_VP],
-    # syn, cols, bits, out, B, R, J, A, W, C, D, stream
-    "synapse_activation": [_VP] * 4 + [_I] * 7 + [_VP],
-    # table, idx, out, B, Wc, n, stream
-    "small_table_take": [_VP] * 3 + [_I] * 3 + [_VP],
+    # B, C, J, A, W, D, K, punishment, threshold, scale
+    "table_update": [_VP] * 7 + [_I] * 7 + [_F, _F, _I, _I, _VP],
+    # syn, perm, cols, bits, v_out, B, C, J, A, W, D, K, threshold, scale
+    "act_conn": [_VP] * 5 + [_I] * 7 + [_F, _I, _I, _VP],
+    # rows, cols, bits, out, B, R, A, W, C, D
+    "serving_activation": [_VP] * 4 + [_I] * 6 + [_I, _VP],
+    # word, cols, bits, v_out, B, C, J, A, W, D, scale
+    "act_frozen": [_VP] * 4 + [_I] * 7 + [_I, _VP],
+    # syn, cols, bits, out, B, R, J, A, W, C, D
+    "synapse_activation": [_VP] * 4 + [_I] * 7 + [_I, _VP],
+    # table, idx, out, B, Wc, n
+    "small_table_take": [_VP] * 3 + [_I] * 3 + [_I, _VP],
     # perm, delta, cols, pack, B, C, I_pad, A, quantized, threshold_f,
-    # threshold_i, stream
-    "sp_update_pack": [_VP] * 4 + [_I] * 5 + [_F, _I, _VP],
+    # threshold_i
+    "sp_update_pack": [_VP] * 4 + [_I] * 5 + [_F, _I, _I, _VP],
 }
 
 
@@ -112,6 +120,17 @@ def build(force: bool = False) -> Path:
     return out
 
 
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return ctypes.CDLL(str(build()))
+
+
+def _stream(device: int) -> int:
+    """The raw handle of device ``device``'s current CUDA stream, read
+    without building a `torch.cuda.Stream`."""
+    return torch._C._cuda_getCurrentRawStream(device)
+
+
 class CudaKernel:
     """One C entry point of the kernel library, with its launch count."""
 
@@ -120,15 +139,18 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
 
-    def __call__(self, *args) -> None:
+    def bind(self):
+        """The ctypes function, its argument types set once."""
         if self._fn is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = getattr(lib, self.name)
+            fn = getattr(_library(), self.name)
             fn.argtypes = _ARGTYPES[self.name]
             fn.restype = ctypes.c_int
             self._fn = fn
-        err = self._fn(*args)
-        if err != 0:
+        return self._fn
+
+    def __call__(self, *args) -> None:
+        err = (self._fn or self.bind())(*args)
+        if err:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
         self.launches += 1
@@ -154,61 +176,87 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device, align: int = 1) -> None:
-    if t.device != device or t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor on {device}, got "
-                         f"{t.device}")
+def table_pass_grid(punish: bool, C: int, J: int, cell_dim: int,
+                    device: int = 0) -> tuple[int, int]:
+    """(blocks, threads a block) of the row-range grid that
+    `table_update` (``punish``) or `act_conn` launches on card ``device``
+    for tables of rows of J slots over C*cell_dim cells
+    (`csrc/active_bitmap.cuh` `range_grid`)."""
+    fn = _library().table_pass_grid
+    fn.argtypes = [_I] * 5 + [ctypes.POINTER(_I)] * 2
+    fn.restype = ctypes.c_int
+    blocks, threads = _I(), _I()
+    err = fn(int(punish), C, J, cell_dim, device, ctypes.byref(blocks),
+             ctypes.byref(threads))
+    if err:
+        raise RuntimeError(f"table_pass_grid failed: cudaError {err}")
+    return blocks.value, threads.value
+
+
+def _ptr(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
+         device: int, align: int = 1) -> int:
+    """The data pointer of ``t``, once it is a contiguous CUDA tensor on
+    card ``device`` (the index of the call's first tensor; -1 off the
+    card), of ``dtype`` and ``shape`` (None: any), ``align``-byte
+    aligned."""
+    if device < 0 or t.get_device() != device:
+        on = f" on cuda:{device}" if device >= 0 else ""
+        raise ValueError(f"{name} must be a CUDA tensor{on}, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got "
+    if shape is not None and t.shape != shape:
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % align:
+    ptr = t.data_ptr()
+    if ptr % align or not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous and {align}-byte "
                          f"aligned")
+    return ptr
 
 
-def _check_set(cols, bits, B: int, C: int, cell_dim: int,
-               dev: torch.device) -> tuple[int, int]:
-    """The (B, A) cols + (B, A, W) bits active set over C*cell_dim cells,
-    whose bitmap each block builds in shared memory. Returns (A, W)."""
-    A = cols.shape[-1]
-    W = cell_words(cell_dim)
-    _check("cols", cols, torch.int32, (B, A), dev)
-    _check("bits", bits, torch.int32, (B, A, W), dev)
+def _grid_y(B: int) -> None:
+    """The serving and SP kernels run one grid row a stream."""
     if B > 65535:
         raise ValueError(f"B={B} streams exceed the grid's y extent 65535")
+
+
+def _active_set(cols, bits, B: int, C: int, cell_dim: int, device: int):
+    """The (B, A) cols + (B, A, W) bits active set over C*cell_dim cells,
+    whose bitmap a block builds in shared memory. Returns (A, W, cols
+    pointer, bits pointer)."""
+    A = cols.shape[-1]
+    W = cell_words(cell_dim)
+    cols_p = _ptr("cols", cols, torch.int32, (B, A), device)
+    bits_p = _ptr("bits", bits, torch.int32, (B, A, W), device)
     smem = (C * cell_dim + 31) // 32 * 4
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"the active-cell bitmap needs {smem} bytes of "
                          f"shared memory; a block has {MAX_SHARED_BYTES}")
-    return A, W
+    return A, W, cols_p, bits_p
 
 
-def _check_table(name: str, table, dtype: torch.dtype, cols, bits,
-                 cell_dim: int, synapses: int):
-    """A (B, C, J) table read with 16-byte vector loads, J = G*K."""
+def _table(name: str, table, dtype: torch.dtype, cols, bits, cell_dim: int,
+           synapses: int):
+    """A (B, C, J) table read with 16-byte vector loads, J = G*K, and its
+    active set. Returns (B, C, J, A, W, device, table, cols and bits
+    pointers)."""
     if table.dim() != 3:
         raise ValueError(f"{name} must be (B, C, J), got "
                          f"{tuple(table.shape)}")
     B, C, J = table.shape
-    _check(name, table, dtype, (B, C, J), table.device, align=16)
+    dev = table.get_device()
+    table_p = _ptr(name, table, dtype, None, dev, align=16)
     if J % synapses or J // synapses > 32:
         raise ValueError(f"J={J} must be G*K with K={synapses} and G <= 32 "
                          f"(one bit per segment in a column's words)")
     if 1 + act_scale(synapses) > 127:
         raise ValueError(f"K={synapses} > 125 packs activity wider than "
                          f"u8, which the kernels do not take")
-    A, W = _check_set(cols, bits, B, C, cell_dim, table.device)
-    return B, C, J, A, W
-
-
-def _check_active_set(syn, perm, cols, bits, cell_dim: int, synapses: int):
-    B, C, J, A, W = _check_table("syn", syn, torch.int32, cols, bits,
-                                 cell_dim, synapses)
-    _check("perm", perm, torch.float32, (B, C, J), syn.device, align=16)
-    return B, C, J, A, W
+    if C * J > MAX_STREAM_WORDS:
+        raise ValueError(f"a stream's C*J = {C * J} slots exceed "
+                         f"{MAX_STREAM_WORDS}")
+    A, W, cols_p, bits_p = _active_set(cols, bits, B, C, cell_dim, dev)
+    return B, C, J, A, W, dev, table_p, cols_p, bits_p
 
 
 def table_update_cuda(syn, perm, act_prev, pun_word, cols, bits,
@@ -216,19 +264,16 @@ def table_update_cuda(syn, perm, act_prev, pun_word, cols, bits,
                       perm_threshold: float) -> torch.Tensor:
     """CUDA `table_update`: punishes ``perm`` in place and returns the
     packed activity (B, C, J) u8 (see `active_set.table_update_ref`)."""
-    B, C, J, A, W = _check_active_set(syn, perm, cols, bits, cell_dim,
-                                      synapses)
-    _check("act_prev", act_prev, torch.uint8, (B, C, J), syn.device,
-           align=16)
-    _check("pun_word", pun_word, torch.int32, (B, C), syn.device)
+    B, C, J, A, W, dev, syn_p, cols_p, bits_p = _table(
+        "syn", syn, torch.int32, cols, bits, cell_dim, synapses)
+    perm_p = _ptr("perm", perm, torch.float32, syn.shape, dev, align=16)
+    act_p = _ptr("act_prev", act_prev, torch.uint8, syn.shape, dev,
+                 align=16)
+    pun_p = _ptr("pun_word", pun_word, torch.int32, (B, C), dev)
     v = torch.empty((B, C, J), dtype=torch.uint8, device=syn.device)
-    with torch.cuda.device(syn.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        TABLE_UPDATE(syn.data_ptr(), perm.data_ptr(), act_prev.data_ptr(),
-                     pun_word.data_ptr(), cols.data_ptr(), bits.data_ptr(),
-                     v.data_ptr(), B, C, J, A, W, cell_dim, synapses,
-                     punishment, perm_threshold, act_scale(synapses),
-                     stream)
+    TABLE_UPDATE(syn_p, perm_p, act_p, pun_p, cols_p, bits_p, v.data_ptr(),
+                 B, C, J, A, W, cell_dim, synapses, punishment,
+                 perm_threshold, act_scale(synapses), dev, _stream(dev))
     return v
 
 
@@ -236,14 +281,13 @@ def act_conn_cuda(syn, perm, cols, bits, cell_dim: int,
                   perm_threshold: float, synapses: int) -> torch.Tensor:
     """CUDA `act_conn`: packed activity (B, C, J) u8 over a read-only
     table (see `active_set.synapse_activation_conn_ref`)."""
-    B, C, J, A, W = _check_active_set(syn, perm, cols, bits, cell_dim,
-                                      synapses)
+    B, C, J, A, W, dev, syn_p, cols_p, bits_p = _table(
+        "syn", syn, torch.int32, cols, bits, cell_dim, synapses)
+    perm_p = _ptr("perm", perm, torch.float32, syn.shape, dev, align=16)
     v = torch.empty((B, C, J), dtype=torch.uint8, device=syn.device)
-    with torch.cuda.device(syn.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        ACT_CONN(syn.data_ptr(), perm.data_ptr(), cols.data_ptr(),
-                 bits.data_ptr(), v.data_ptr(), B, C, J, A, W, cell_dim,
-                 synapses, perm_threshold, act_scale(synapses), stream)
+    ACT_CONN(syn_p, perm_p, cols_p, bits_p, v.data_ptr(), B, C, J, A, W,
+             cell_dim, synapses, perm_threshold, act_scale(synapses), dev,
+             _stream(dev))
     return v
 
 
@@ -256,14 +300,14 @@ def serving_activation_cuda(rows, cols, bits, column_dim: int,
         raise ValueError(f"rows must be (B, R, 128), got "
                          f"{tuple(rows.shape)}")
     B, R, _ = rows.shape
-    _check("rows", rows, torch.int32, (B, R, 128), rows.device, align=16)
-    A, W = _check_set(cols, bits, B, column_dim, cell_dim, rows.device)
+    dev = rows.get_device()
+    rows_p = _ptr("rows", rows, torch.int32, None, dev, align=16)
+    _grid_y(B)
+    A, W, cols_p, bits_p = _active_set(cols, bits, B, column_dim, cell_dim,
+                                       dev)
     out = torch.empty((B, R, 128), dtype=torch.uint8, device=rows.device)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        SERVING_ACTIVATION(rows.data_ptr(), cols.data_ptr(), bits.data_ptr(),
-                           out.data_ptr(), B, R, A, W, column_dim, cell_dim,
-                           stream)
+    SERVING_ACTIVATION(rows_p, cols_p, bits_p, out.data_ptr(), B, R, A, W,
+                       column_dim, cell_dim, dev, _stream(dev))
     return out
 
 
@@ -271,14 +315,13 @@ def act_frozen_cuda(frozen_word, cols, bits, cell_dim: int,
                     synapses: int) -> torch.Tensor:
     """CUDA `act_frozen`: packed activity (B, C, J) u8 over a frozen word
     table (see `active_set.synapse_activation_frozen_ref`)."""
-    B, C, J, A, W = _check_table("frozen_word", frozen_word, torch.int32,
-                                 cols, bits, cell_dim, synapses)
+    B, C, J, A, W, dev, word_p, cols_p, bits_p = _table(
+        "frozen_word", frozen_word, torch.int32, cols, bits, cell_dim,
+        synapses)
+    _grid_y(B)
     v = torch.empty((B, C, J), dtype=torch.uint8, device=frozen_word.device)
-    with torch.cuda.device(frozen_word.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        ACT_FROZEN(frozen_word.data_ptr(), cols.data_ptr(), bits.data_ptr(),
-                   v.data_ptr(), B, C, J, A, W, cell_dim, act_scale(synapses),
-                   stream)
+    ACT_FROZEN(word_p, cols_p, bits_p, v.data_ptr(), B, C, J, A, W, cell_dim,
+               act_scale(synapses), dev, _stream(dev))
     return v
 
 
@@ -290,40 +333,40 @@ def synapse_activation_cuda(syn, cols, bits, column_dim: int,
     if syn.dim() != 3:
         raise ValueError(f"syn must be (B, R, J), got {tuple(syn.shape)}")
     B, R, J = syn.shape
-    _check("syn", syn, torch.int32, (B, R, J), syn.device, align=16)
-    A, W = _check_set(cols, bits, B, column_dim, cell_dim, syn.device)
+    dev = syn.get_device()
+    syn_p = _ptr("syn", syn, torch.int32, None, dev, align=16)
+    _grid_y(B)
+    A, W, cols_p, bits_p = _active_set(cols, bits, B, column_dim, cell_dim,
+                                       dev)
     out = torch.empty((B, R, J), dtype=torch.uint8, device=syn.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(syn.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        SYNAPSE_ACTIVATION(syn.data_ptr(), cols.data_ptr(), bits.data_ptr(),
-                           out.data_ptr(), B, R, J, A, W, column_dim,
-                           cell_dim, stream)
+    SYNAPSE_ACTIVATION(syn_p, cols_p, bits_p, out.data_ptr(), B, R, J, A, W,
+                       column_dim, cell_dim, dev, _stream(dev))
     return out
 
 
 def small_table_take_cuda(table, idx) -> torch.Tensor:
     """CUDA `small_table_take`: out[b, ...] = table[b, idx[b, ...]] where
-    0 <= idx < Wc, 0 elsewhere (see `active_set.take_small_table_ref`)."""
-    if table.dim() != 2 or idx.dim() < 2:
+    0 <= idx < Wc, 0 elsewhere (see `active_set.take_small_table_ref`).
+    Its kernel takes about 3 us, so this path reads each tensor once."""
+    shape = table.shape
+    if len(shape) != 2 or idx.dim() < 2 or idx.shape[0] != shape[0]:
         raise ValueError(f"table must be (B, Wc) and idx (B, ...), got "
-                         f"{tuple(table.shape)} and {tuple(idx.shape)}")
-    B, Wc = table.shape
+                         f"{tuple(shape)} and {tuple(idx.shape)}")
+    B, Wc = shape
     if not 1 <= Wc <= MAX_SMALL_TABLE:
         raise ValueError(f"table width {Wc} is outside [1, "
                          f"{MAX_SMALL_TABLE}], what one block stages in "
                          f"shared memory")
-    _check("table", table, torch.int32, (B, Wc), table.device)
-    _check("idx", idx, torch.int32, (B, *idx.shape[1:]), table.device)
+    dev = table.get_device()
+    table_p = _ptr("table", table, torch.int32, None, dev)
+    idx_p = _ptr("idx", idx, torch.int32, None, dev)
     out = torch.empty_like(idx)
-    n = idx[0].numel()
-    if B * n == 0:
-        return out
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        SMALL_TABLE_TAKE(table.data_ptr(), idx.data_ptr(), out.data_ptr(), B,
-                         Wc, n, stream)
+    n = idx.numel() // B if B else 0
+    if n:
+        SMALL_TABLE_TAKE(table_p, idx_p, out.data_ptr(), B, Wc, n, dev,
+                         _stream(dev))
     return out
 
 
@@ -338,7 +381,6 @@ def sp_update_pack_cuda(permanence, delta_row, active_cols, threshold
         raise ValueError(f"permanence must be (B, C, I_pad), got "
                          f"{tuple(permanence.shape)}")
     B, C, I_pad = permanence.shape
-    dev = permanence.device
     if permanence.dtype not in (torch.int16, torch.float32):
         raise TypeError(f"permanence must be int16 or float32, got "
                         f"{permanence.dtype}")
@@ -349,25 +391,23 @@ def sp_update_pack_cuda(permanence, delta_row, active_cols, threshold
     if quantized and threshold != int(threshold):
         raise ValueError(f"an int16 table takes an integer threshold in "
                          f"units, got {threshold}")
-    _check("permanence", permanence, permanence.dtype, (B, C, I_pad), dev,
-           align=16)
-    _check("delta_row", delta_row,
-           torch.int32 if quantized else torch.float32, (B, I_pad), dev,
-           align=16)
+    dev = permanence.get_device()
+    perm_p = _ptr("permanence", permanence, permanence.dtype, None, dev,
+                  align=16)
+    delta_p = _ptr("delta_row", delta_row,
+                   torch.int32 if quantized else torch.float32, (B, I_pad),
+                   dev, align=16)
     A = active_cols.shape[-1]
-    _check("active_cols", active_cols, torch.int32, (B, A), dev)
-    if B > 65535:
-        raise ValueError(f"B={B} streams exceed the grid's y extent 65535")
+    cols_p = _ptr("active_cols", active_cols, torch.int32, (B, A), dev)
+    _grid_y(B)
     if (C + 31) // 32 * 4 > MAX_SHARED_BYTES:
         raise ValueError(f"the active-column bitmap of C={C} columns "
                          f"exceeds {MAX_SHARED_BYTES} bytes")
-    pack = torch.empty((B, C, I_pad // 8), dtype=torch.uint8, device=dev)
+    pack = torch.empty((B, C, I_pad // 8), dtype=torch.uint8,
+                       device=permanence.device)
     if pack.numel() == 0:
         return permanence, pack
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        SP_UPDATE_PACK(permanence.data_ptr(), delta_row.data_ptr(),
-                       active_cols.data_ptr(), pack.data_ptr(), B, C, I_pad,
-                       A, int(quantized), float(threshold),
-                       int(threshold) if quantized else 0, stream)
+    SP_UPDATE_PACK(perm_p, delta_p, cols_p, pack.data_ptr(), B, C, I_pad, A,
+                   int(quantized), float(threshold),
+                   int(threshold) if quantized else 0, dev, _stream(dev))
     return permanence, pack

@@ -3,7 +3,9 @@
 Builds the CUDA kernels from `bithtm_tpu_torch/csrc`, checks each one
 against its plain PyTorch version (bench shapes; `small_table_take` at
 the 16K x 64 shapes), with its time, its plain version's, its bound and
-where one exists a single PyTorch call's; checks that the port learns
+where one exists a single PyTorch call's (the table kernels with the
+grid their launcher chose; `small_table_take` with its wrapper's host
+issue, stage by stage, and its device time); checks that the port learns
 and that its CUDA run agrees bit for bit with its CPU run on a small
 input, then drives the main path: the bench configuration (2048 columns
 x 32 cells, G=4 x K=64, int16 SP, B=256 streams) through `htm_scan`, 768
@@ -151,25 +153,36 @@ def nbytes(*tensors) -> int:
 
 
 def kernel_row(name: str, kernel, plain, moved: int, at: str,
-               library=None) -> dict:
+               library=None, **extra) -> dict:
     """Times of a kernel call, its plain version and the library call
     (CUDA events, 20 calls after 3), and its bound: ``moved`` bytes (each
     input read once, each output written once; an in-place output only
     where it changes) over the card's memory rate. The kernels do a few
     integer operations a byte, far below any peak rate, so bytes bound
     them all. Every caller has required the kernel's output to equal the
-    plain version's bit for bit, so the error is 0."""
+    plain version's bit for bit, so the error is 0. ``extra`` fields
+    (the launch grid, host issue) join the row and its printed line."""
     row = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
            "max_abs_err": 0.0, "bound_ms": 1e3 * moved / HBM_BYTES_PER_S,
            "bound_by": "bytes",
            "library_ms": None if library is None else cuda_ms(library),
-           "at": at}
+           "at": at, **extra}
     lib = ("none" if library is None
            else f"{row['library_ms']:.4f} ms")
+    more = "".join(f", {k} {v}" for k, v in extra.items())
     print(f"kernel {name}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
           f"ms, bound {row['bound_ms']:.4f} ms ({moved / 1e6:.1f} MB), "
-          f"library call {lib}, at {at}; bit-equal")
+          f"library call {lib}, at {at}{more}; bit-equal")
     return row
+
+
+def table_grid(punish: bool, syn, D: int) -> str:
+    """The row-range grid `table_update` (``punish``) or `act_conn`
+    launches for ``syn``'s (B, C, J) table: blocks x threads."""
+    _, C, J = syn.shape
+    blocks, threads = kernels.table_pass_grid(punish, C, J, D,
+                                              syn.get_device())
+    return f"{blocks}x{threads}"
 
 
 def check_kernels(dev) -> dict:
@@ -232,14 +245,15 @@ def check_kernels(dev) -> dict:
             lambda: pas.table_update_ref(syn, p, act_prev, pun_word, cols,
                                          bits, D, K, pun, thr),
             nbytes(syn, x["perm"], act_prev, pun_word, cols, bits, v_ref)
-            + 4 * punished, at),
+            + 4 * punished, at, grid=table_grid(True, syn, D)),
         "act_conn": kernel_row(
             "act_conn",
             lambda: kernels.act_conn_cuda(syn, x["perm"], cols, bits, D, thr,
                                           K),
             lambda: pas.synapse_activation_conn_ref(syn, x["perm"], cols,
                                                     bits, D, thr, K),
-            nbytes(syn, x["perm"], cols, bits, c_ref), at),
+            nbytes(syn, x["perm"], cols, bits, c_ref), at,
+            grid=table_grid(False, syn, D)),
         "serving_activation": kernel_row(
             "serving_activation",
             lambda: kernels.serving_activation_cuda(rows, cols, bits, C, D),
@@ -328,9 +342,13 @@ def check_small_table_take(dev) -> dict:
     call is `torch.gather` over the indices clamped into the table and
     widened to int64 outside the timed call, without the mask that zeroes
     the out-of-range ones: less work than the kernel's, so its time is a
-    lower bound on a library call's."""
+    lower bound on a library call's. The kernel is quicker on the device
+    than the wrapper issues it, so each row also holds the wrapper's host
+    issue a call (`host_issue_us`, stage by stage) and the kernel's own
+    device time under torch.profiler, taken after every host timing: a
+    profiler session slows the host timings that follow it."""
     B, kk = BATCH_16K, 32
-    rows = {}
+    rows, calls = {}, {}
     for L, Wc in ((336, 384), (824, 768)):
         g = torch.Generator(device=dev).manual_seed(Wc)
         table = torch.randint(0, 1 << 20, (B, Wc), generator=g, device=dev,
@@ -347,13 +365,97 @@ def check_small_table_take(dev) -> dict:
                 and bool((idx >= Wc).any()),
                 f"small_table_take == plain at L={L}, Wc={Wc}")
         flat = idx.clamp(0, Wc - 1).reshape(B, -1).long()
+        calls[Wc] = (lambda t=table, i=idx:
+                     kernels.small_table_take_cuda(t, i))
+        split = host_issue_us(table, idx, flat)
+        print(f"small_table_take host issue at L={L}, Wc={Wc} (us a call, "
+              f"perf_counter over {HOST_CALLS} calls, no synchronize): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
         rows[Wc] = kernel_row(
-            "small_table_take",
-            lambda: kernels.small_table_take_cuda(table, idx),
+            "small_table_take", calls[Wc],
             lambda: pas.take_small_table_ref(table, idx),
             nbytes(table, idx, want), f"B={B} L={L} kk={kk} Wc={Wc}",
-            library=lambda: torch.gather(table, 1, flat))
+            library=lambda: torch.gather(table, 1, flat),
+            host_issue_us=split["wrapper"],
+            library_host_issue_us=split["library call"])
+    for Wc, call in calls.items():
+        rows[Wc]["device_ms"] = profiled_ms(call, "small_take_kernel")
+        print(f"small_table_take at Wc={Wc}: {rows[Wc]['device_ms']:.4f} ms "
+              f"on the device (torch.profiler), {rows[Wc]['ms']:.4f} ms a "
+              f"call by events, {rows[Wc]['host_issue_us']:.3f} us of host "
+              f"issue")
     return rows[384]
+
+
+HOST_CALLS = 1000
+
+
+def host_issue_us(table, idx, flat) -> dict:
+    """The host time of `small_table_take_cuda` a call, in us, and of
+    each stage of it (perf_counter over HOST_CALLS calls, no synchronize):
+    the loop alone, the one-pass checks, the output's allocation, the raw
+    stream handle, the ctypes call alone (launching the kernel), the whole
+    wrapper; the two stages the wrapper no longer runs, the device
+    context and the `torch.cuda.Stream` object it built every call; and
+    the library call, `torch.gather` over ``flat``."""
+    dev = table.get_device()
+    B, Wc = table.shape
+    n = idx.numel() // B
+    out = torch.empty_like(idx)
+    fn = kernels.SMALL_TABLE_TAKE.bind()
+    ptrs = (table.data_ptr(), idx.data_ptr(), out.data_ptr())
+    stream = kernels._stream(dev)
+
+    def checks():
+        kernels._ptr("table", table, torch.int32, None, dev)
+        kernels._ptr("idx", idx, torch.int32, None, dev)
+
+    def device_context():
+        with torch.cuda.device(table.device):
+            pass
+
+    stages = {
+        "loop": lambda: None,
+        "checks": checks,
+        "allocation": lambda: torch.empty_like(idx),
+        "raw stream": lambda: kernels._stream(dev),
+        "ctypes call": lambda: fn(*ptrs, B, Wc, n, dev, stream),
+        "wrapper": lambda: kernels.small_table_take_cuda(table, idx),
+        "device context (replaced)": device_context,
+        "stream object (replaced)":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "library call": lambda: torch.gather(table, 1, flat),
+    }
+    us = {}
+    for name, f in stages.items():
+        for _ in range(10):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            f()
+        us[name] = 1e6 * (time.perf_counter() - t0) / HOST_CALLS
+        torch.cuda.synchronize()
+    return us
+
+
+def profiled_ms(fn, kernel: str, n: int = 200) -> float:
+    """Device ms a launch of ``kernel`` over n calls of ``fn`` under
+    torch.profiler (the mean over the launches it records)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    require(len(times) >= n // 2, f"the profiler saw {len(times)} of {n} "
+            f"{kernel} launches")
+    return sum(times) / len(times) / 1e3
 
 
 class DrawsOn:
@@ -1019,13 +1121,14 @@ def run_16k(dev) -> tuple[dict, dict]:
             lambda: pas.table_update_ref(args[0], p, *args[1:], D, K, pun,
                                          thr),
             nbytes(tm.synapse_cell, tm.synapse_perm, *args[1:], v_ref)
-            + 4 * punished, at),
+            + 4 * punished, at, grid=table_grid(True, tm.synapse_cell, D)),
         "act_conn": kernel_row(
             "act_conn", lambda: kernels.act_conn_cuda(
                 tm.synapse_cell, tm.synapse_perm, cols, bits, D, thr, K),
             lambda: pas.synapse_activation_conn_ref(
                 tm.synapse_cell, tm.synapse_perm, cols, bits, D, thr, K),
-            nbytes(tm.synapse_cell, tm.synapse_perm, cols, bits, c_ref), at),
+            nbytes(tm.synapse_cell, tm.synapse_perm, cols, bits, c_ref), at,
+            grid=table_grid(False, tm.synapse_cell, D)),
         "synapse_activation": kernel_row(
             "synapse_activation", lambda: kernels.synapse_activation_cuda(
                 tm.synapse_cell, cols, bits, C, D),

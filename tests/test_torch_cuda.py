@@ -25,6 +25,11 @@ SHAPES = [  # B, C, G, K, D, A
     (1, 16, 2, 16, 70, 3),    # three words
     (1, 8192, 1, 8, 64, 9),   # a 64 KB bitmap: shared memory opt-in
     (1, 16384, 1, 8, 64, 20),  # the 16K x 64 geometry's 128 KB bitmap
+    # the row ranges of the table kernels' grid (csrc/active_bitmap.cuh
+    # range_grid, walk_rows; thousands of blocks at small bitmaps):
+    (300, 7, 2, 8, 4, 3),     # a row or none a block, some across a stream
+    (30000, 2, 2, 8, 4, 1),   # each range across several streams
+    (5, 16384, 1, 8, 64, 20),  # ranges across streams, 128 KB bitmap
 ]
 
 
@@ -68,6 +73,108 @@ def test_kernels_match_plain(shape, cuda):
     assert torch.equal(c_k, c_ref)
     assert (v_ref > 1).any() and (p_ref != x["perm"]).any()
     assert launched(before) == only(table_update=1, act_conn=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,repeat", [
+    ((2, 64, 4, 64, 32, 5), "duplicates"),
+    ((3, 2048, 4, 64, 64, 16), "duplicates"),
+    ((2, 64, 4, 64, 32, 5), "initial"),
+])
+def test_table_kernels_take_repeated_cols(shape, repeat, cuda):
+    """D % 32 == 0 (the word-at-a-time bitmap build) with repeated active
+    columns: half of each stream's columns repeat its first one with the
+    same cell words, or, as an initial state holds, every column is 0
+    with no active cell. Both kernels equal their plain versions."""
+    B, C, G, K, D, A = shape
+    x = table_inputs(sum(shape) + 4, *shape, device=cuda)
+    cols, bits = x["cols"].clone(), x["bits"].clone()
+    if repeat == "duplicates":
+        cols[:, A // 2:] = cols[:, :1]
+        bits[:, A // 2:] = bits[:, :1]
+    else:
+        cols.zero_()
+        bits.zero_()
+    p_ref, p_k = x["perm"].clone(), x["perm"].clone()
+    v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"],
+                                 x["pun_word"], cols, bits, D, K, 0.01, 0.5)
+    v_k = kernels.table_update_cuda(x["syn"], p_k, x["act_prev"],
+                                    x["pun_word"], cols, bits, D, K, 0.01,
+                                    0.5)
+    c_ref = pas.synapse_activation_conn_ref(x["syn"], x["perm"], cols, bits,
+                                            D, 0.5, K)
+    c_k = kernels.act_conn_cuda(x["syn"], x["perm"], cols, bits, D, 0.5, K)
+    torch.cuda.synchronize()
+    assert torch.equal(v_k, v_ref) and torch.equal(c_k, c_ref)
+    assert torch.equal(p_k.view(torch.int32), p_ref.view(torch.int32))
+    assert bool((v_ref != 0).any()) == (repeat == "duplicates")
+
+
+@pytest.mark.cuda
+def test_table_kernels_alternate_bitmap_sizes(cuda):
+    """A 128 KB, a 64 KB and again a 128 KB bitmap in one process: the
+    launcher caches each size's grid, and no size lowers the shared
+    memory another needs."""
+    for shape in ((1, 16384, 1, 8, 64, 20), (1, 8192, 1, 8, 64, 9),
+                  (2, 16384, 1, 8, 64, 20)):
+        B, C, G, K, D, A = shape
+        x = table_inputs(sum(shape) + 5, *shape, device=cuda)
+        p_ref, p_k = x["perm"].clone(), x["perm"].clone()
+        v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"],
+                                     x["pun_word"], x["cols"], x["bits"], D,
+                                     K, 0.01, 0.5)
+        v_k = kernels.table_update_cuda(x["syn"], p_k, x["act_prev"],
+                                        x["pun_word"], x["cols"], x["bits"],
+                                        D, K, 0.01, 0.5)
+        c_k = kernels.act_conn_cuda(x["syn"], x["perm"], x["cols"],
+                                    x["bits"], D, 0.5, K)
+        torch.cuda.synchronize()
+        assert torch.equal(v_k, v_ref)
+        assert torch.equal(p_k.view(torch.int32), p_ref.view(torch.int32))
+        assert torch.equal(c_k, pas.synapse_activation_conn_ref(
+            x["syn"], x["perm"], x["cols"], x["bits"], D, 0.5, K))
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_current_stream(cuda):
+    """`table_update`, `act_conn` and `small_table_take` launched under
+    ``torch.cuda.stream(side)`` run on ``side``: their inputs are written
+    there only after a spin of about 20 ms, so a launch on any other
+    stream would read the -1s left before it."""
+    B, C, G, K, D, A = SHAPES[0]
+    x = table_inputs(11, *SHAPES[0], device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    table = torch.randint(0, 1 << 20, (B, 384), generator=g, device=cuda,
+                          dtype=torch.int32)
+    idx = torch.randint(0, 384, (B, 336, 32), generator=g, device=cuda,
+                        dtype=torch.int32)
+    syn, idx_late = torch.full_like(x["syn"], -1), torch.full_like(idx, -1)
+    p_k = torch.full_like(x["perm"], -1.0)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(40_000_000)
+        syn.copy_(x["syn"])
+        p_k.copy_(x["perm"])
+        idx_late.copy_(idx)
+        v_k = kernels.table_update_cuda(syn, p_k, x["act_prev"],
+                                        x["pun_word"], x["cols"], x["bits"],
+                                        D, K, 0.01, 0.5)
+        c_k = kernels.act_conn_cuda(syn, x["perm"], x["cols"], x["bits"], D,
+                                    0.5, K)
+        t_k = kernels.small_table_take_cuda(table, idx_late)
+    side.synchronize()
+    p_ref = x["perm"].clone()
+    v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"],
+                                 x["pun_word"], x["cols"], x["bits"], D, K,
+                                 0.01, 0.5)
+    c_ref = pas.synapse_activation_conn_ref(x["syn"], x["perm"], x["cols"],
+                                            x["bits"], D, 0.5, K)
+    torch.cuda.synchronize()
+    assert torch.equal(v_k, v_ref) and torch.equal(c_k, c_ref)
+    assert torch.equal(p_k.view(torch.int32), p_ref.view(torch.int32))
+    assert torch.equal(t_k, pas.take_small_table_ref(table, idx))
+    assert bool((v_ref > 1).any()) and bool((t_k != 0).any())
 
 
 @pytest.mark.cuda

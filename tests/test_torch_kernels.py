@@ -9,6 +9,7 @@ kernels run only on the card: tests/test_torch_cuda.py and
 `python3 chip_smoke.py` compare them with these plain versions.
 """
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -16,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from bithtm_tpu.ops import active_set as jas
 from bithtm_tpu.ops.pallas_kernels import table_update_tpu
@@ -114,6 +116,52 @@ def test_cuda_wrappers_reject_cpu_tensors():
         kernels.act_conn_cuda(x["syn"], x["perm"], x["cols"], x["bits"], 32,
                               0.5, 64)
     assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("wrapper", [
+    "serving_activation", "act_frozen", "synapse_activation",
+    "small_table_take", "sp_update_pack"])
+def test_every_wrapper_rejects_cpu_tensors(wrapper):
+    """The other five wrappers, too, raise on CPU tensors before they
+    build or launch anything."""
+    B, C, G, K, D, A = SHAPES[0]
+    x = table_inputs(1, *SHAPES[0])
+    calls = {
+        "serving_activation": lambda: kernels.serving_activation_cuda(
+            torch.zeros((B, C, 128), dtype=torch.int32), x["cols"],
+            x["bits"], C, D),
+        "act_frozen": lambda: kernels.act_frozen_cuda(
+            x["syn"], x["cols"], x["bits"], D, K),
+        "synapse_activation": lambda: kernels.synapse_activation_cuda(
+            x["syn"], x["cols"], x["bits"], C, D),
+        "small_table_take": lambda: kernels.small_table_take_cuda(
+            torch.zeros((B, 64), dtype=torch.int32),
+            torch.zeros((B, 8, 4), dtype=torch.int32)),
+        "sp_update_pack": lambda: kernels.sp_update_pack_cuda(
+            torch.zeros((B, 8, 1024), dtype=torch.int16),
+            torch.zeros((B, 1024), dtype=torch.int32), x["cols"], 0),
+    }
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        calls[wrapper]()
+    assert kernels.launch_counts() == before
+
+
+def test_entry_points_take_device_and_stream():
+    """Every kernel's C entry point ends with (int device, void* stream)
+    and takes as many arguments as its ctypes argument types list; the
+    library's hash covers every header of `csrc/`."""
+    every = "".join((kernels.CSRC / name).read_text()
+                    for name in kernels.SOURCES)
+    for name, argtypes in kernels._ARGTYPES.items():
+        params = re.search(rf'extern "C" int {name}\(([^)]*)\)',
+                           every).group(1)
+        assert re.search(r"int device,\s*void\* stream$", params.strip()), \
+            name
+        assert len(argtypes) == params.count(",") + 1, name
+        assert argtypes[-2:] == [ctypes.c_int, ctypes.c_void_p], name
+    assert set(kernels.HEADERS) == {
+        p.name for p in kernels.CSRC.glob("*.cuh")}
 
 
 def test_cuda_source_names_both_entry_points():
