@@ -158,8 +158,10 @@ struct Grid {
 // on an SM, else the wide one, so that one block an SM (the 128 KB
 // bitmap) still keeps enough loads in flight; and kWaves x (SMs x
 // resident blocks an SM) blocks. Queried once per (kernel, device, smem)
-// and cached; the caller has made `device` current. Returns a
-// cudaError_t as int (0 = success).
+// and cached; the cache holds kEntries pairs (the four table and word
+// kernels' variants at two or three bitmap sizes fill about 14) and a
+// miss only queries again. The caller has made `device` current. Returns
+// a cudaError_t as int (0 = success).
 template <typename Kernel>
 int range_grid(Kernel narrow, Kernel wide, size_t smem, int device,
                     Grid* grid) {
@@ -169,7 +171,7 @@ int range_grid(Kernel narrow, Kernel wide, size_t smem, int device,
     size_t smem;
     Grid grid;
   };
-  constexpr int kEntries = 16;
+  constexpr int kEntries = 32;
   static std::mutex mu;
   static Entry cache[kEntries];
   static int used = 0;

@@ -23,19 +23,45 @@
 //   synapse_activation: w = presynaptic cell (< 0 = free slot)
 //       out = cell active ? 1 : 0                                  (u8)
 //
+// Bound: bytes, 5 per word (4 in, 1 out), plus the active set. At B=256
+// a serving table of R = 2048*M + E rows moves 0.34 GB per step for M=1
+// (about 0.10 ms at the H100's 3.35 TB/s); at 16384x64, B=64, the
+// learned table (R = 16384) moves 0.67 GB (0.20 ms). The frozen table at
+// C=2048, J=256 moves 0.67 GB (about 0.20 ms), against act_conn's 9
+// B/slot; synapse_activation moves as much as act_frozen over a table of
+// the same size (1.34 GB, 0.40 ms, at 16384x64, B=64, J=256).
+//
 // Design. All three are elementwise over a stream's words, with the same
 // question as table_pass.cu: is the presynaptic cell in this stream's
-// active set? Each block builds that set as a shared-memory bitmap
-// (active_bitmap.cuh) and then streams a contiguous run of the stream's
-// words with 16-byte int4 loads and uchar4 stores. The grid is
-// (word blocks, B); a serving table's main and extension rows are one
-// run of R*128 words, so one launch covers both.
+// active set? A block holds that set as a shared-memory bitmap
+// (active_bitmap.cuh) and streams words with 16-byte int4 loads and
+// uchar4 stores where a row's width is a multiple of 4, one word a load
+// elsewhere.
 //
-// Bound: bytes, 5 per word (4 in, 1 out). At B=256 a serving table of
-// R = 2048*M + E rows moves 0.34 GB per step for M=1 (about 0.10 ms at
-// the H100's 3.35 TB/s); the frozen table at C=2048, J=256 moves 0.67 GB
-// (about 0.20 ms), against act_conn's 9 B/slot; synapse_activation moves
-// as much as act_frozen over a table of the same size.
+// serving_activation and synapse_activation run the row-range schedule
+// of table_pass.cu (`range_grid`, `walk_rows` in active_bitmap.cuh): one
+// contiguous range of the B*R flattened rows a block (a serving row is
+// 128 words, a synapse row J; a serving table's main and extension rows
+// are rows alike, so one launch covers both), the bitmap rebuilt only
+// where the range crosses into the next stream, over eight waves of
+// resident blocks (at 16384x64, B=64: 1,056 blocks of about 993 rows, at
+// most 2 builds each). 1024 threads where the bitmap leaves one
+// 256-thread block an SM, each with eight groups of 4 words in flight
+// (128 KB of loads an SM), else 256 threads with two groups (64 KB an SM
+// at eight blocks). A word moves about half the bytes of a table slot,
+// so a range streams half as long behind each bitmap build and the
+// latency of its first loads; the word passes keep more groups in flight
+// than table_pass.cu (two and one), which left them short of their bound
+// on the card.
+//
+// Their first schedule gave each block 16,384 words of one stream (grid
+// (word blocks, B), 256 threads) and built the bitmap in every block: at
+// 16384x64 that is 8,192 blocks for a serve and 16,384 for
+// synapse_activation, each zeroing 32,768 words before streaming 80 KB,
+// with one block and about 4 KB of loads in flight an SM: 0.98 and 1.69
+// ms on an H100, against bounds of 0.20 and 0.40. act_frozen keeps that
+// schedule (`word_pass_kernel`): at the bench shapes it streams at 86% of
+// its bound.
 
 #include "active_bitmap.cuh"
 #include "launch.cuh"
@@ -46,7 +72,8 @@ using bithtm::build_bitmap;
 using bithtm::cell_active;
 using bithtm::kThreads;
 
-constexpr int kWordsPerBlock = 16384;
+constexpr int kWordsPerBlock = 16384;  // act_frozen's block
+constexpr int kServingWidth = 128;     // words a serving row
 constexpr int kServingGBits = 5;   // ops/serving.py SERVING_G_BITS
 constexpr int kFrozenCellBits = 24;  // ops/active_set.py FROZEN_CELL_BITS
 
@@ -79,12 +106,14 @@ struct ActivityWord {
   }
 };
 
-// out[b, i] = op(bm_b, words[b, i]) for i < n, the n words of stream b.
-template <class Op, int VEC>
+// The frozen pass (act_frozen): out[b, i] = op(bm_b, words[b, i]) for
+// i < n, the n words of stream b; a block of kWordsPerBlock words of one
+// stream, each block building its stream's bitmap.
+template <int VEC>
 __global__ void __launch_bounds__(kThreads) word_pass_kernel(
     const int* __restrict__ words, const int* __restrict__ cols,
     const int* __restrict__ bits, uint8_t* __restrict__ out, int n, int A,
-    int W, int C, int D, Op op) {
+    int W, int C, int D, FrozenWord op) {
   extern __shared__ __align__(16) uint32_t bm[];
   const int b = blockIdx.y;
   const int n_cells = C * D;
@@ -108,14 +137,14 @@ __global__ void __launch_bounds__(kThreads) word_pass_kernel(
   }
 }
 
-template <class Op, int VEC>
-int launch(const int* words, const int* cols, const int* bits, uint8_t* out,
-           int B, int n, int A, int W, int C, int D, Op op, int device,
-           cudaStream_t stream) {
+template <int VEC>
+int launch_frozen(const int* words, const int* cols, const int* bits,
+                  uint8_t* out, int B, int n, int A, int W, int C, int D,
+                  FrozenWord op, int device, cudaStream_t stream) {
   bithtm::DeviceGuard guard(device);
   if (int err = guard.error()) return err;
   const size_t smem = bithtm::bitmap_bytes(C, D);
-  auto kernel = word_pass_kernel<Op, VEC>;
+  auto kernel = word_pass_kernel<VEC>;
   if (int err = bithtm::allow_shared(kernel, smem)) return err;
   dim3 grid((n + kWordsPerBlock - 1) / kWordsPerBlock, B);
   kernel<<<grid, kThreads, smem, stream>>>(words, cols, bits, out, n, A, W,
@@ -123,20 +152,99 @@ int launch(const int* words, const int* cols, const int* bits, uint8_t* out,
   return (int)cudaGetLastError();
 }
 
+// The row-range word pass: out[b, r, j] = op(bm_b, words[b, r, j]) for
+// the rows r of each stream b in this block's range of the B*rows
+// flattened rows of width words each. VEC (4 or 1) divides width.
+template <class Op, int VEC, int THREADS>
+__global__ void __launch_bounds__(THREADS) word_range_kernel(
+    const int* __restrict__ words, const int* __restrict__ cols,
+    const int* __restrict__ bits, uint8_t* __restrict__ out, int B,
+    int rows, int width, int A, int W, int C, int D, Op op) {
+  // groups of VEC words a thread keeps in flight: eight in a wide block,
+  // which runs alone on its SM; two where several narrow blocks share it
+  constexpr int kUnroll = THREADS == bithtm::kWideThreads ? 8 : 2;
+  extern __shared__ __align__(16) uint32_t bm[];
+  const int n_cells = C * D;
+  bithtm::walk_rows(bm, B, rows, cols, bits, A, W, C, D,
+                    [&](int b, int lo, int hi) {
+    // the stream's words [lo*width, hi*width), as offsets from its first
+    const size_t base = (size_t)b * rows * width;
+    const int end = hi * width;
+    for (int s0 = lo * width + threadIdx.x * VEC; s0 < end;
+         s0 += THREADS * VEC * kUnroll) {
+      int w[kUnroll][VEC];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int s = s0 + u * THREADS * VEC;
+        if (s >= end) break;
+        if constexpr (VEC == 4) {
+          const int4 w4 = *reinterpret_cast<const int4*>(words + base + s);
+          w[u][0] = w4.x; w[u][1] = w4.y; w[u][2] = w4.z; w[u][3] = w4.w;
+        } else {
+          w[u][0] = words[base + s];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int s = s0 + u * THREADS * VEC;
+        if (s >= end) break;
+        if constexpr (VEC == 4) {
+          *reinterpret_cast<uchar4*>(out + base + s) = make_uchar4(
+              op(bm, w[u][0], n_cells), op(bm, w[u][1], n_cells),
+              op(bm, w[u][2], n_cells), op(bm, w[u][3], n_cells));
+        } else {
+          out[base + s] = op(bm, w[u][0], n_cells);
+        }
+      }
+    }
+  });
+}
+
+template <class Op, int VEC>
+int grid_for(int C, int D, int device, bithtm::Grid* grid) {
+  return bithtm::range_grid(
+      word_range_kernel<Op, VEC, bithtm::kThreads>,
+      word_range_kernel<Op, VEC, bithtm::kWideThreads>,
+      bithtm::bitmap_bytes(C, D), device, grid);
+}
+
+template <class Op, int VEC>
+int launch_range(const int* words, const int* cols, const int* bits,
+                 uint8_t* out, int B, int rows, int width, int A, int W,
+                 int C, int D, Op op, int device, cudaStream_t stream) {
+  bithtm::DeviceGuard guard(device);
+  if (int err = guard.error()) return err;
+  bithtm::Grid g;
+  if (int err = grid_for<Op, VEC>(C, D, device, &g)) return err;
+  const size_t smem = bithtm::bitmap_bytes(C, D);
+  if (g.threads == bithtm::kWideThreads)
+    word_range_kernel<Op, VEC, bithtm::kWideThreads>
+        <<<g.blocks, g.threads, smem, stream>>>(words, cols, bits, out, B,
+                                                rows, width, A, W, C, D, op);
+  else
+    word_range_kernel<Op, VEC, bithtm::kThreads>
+        <<<g.blocks, g.threads, smem, stream>>>(words, cols, bits, out, B,
+                                                rows, width, A, W, C, D, op);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry point launches on the given stream of the given device,
 // allocates nothing and returns cudaGetLastError() after the launch (0 =
-// success). cols (B, A) and bits (B, A, W) int32, as in table_pass.cu.
+// success). Tables are contiguous and 16-byte aligned, with fewer than
+// 2^31 words a stream; cols (B, A) and bits (B, A, W) int32, as in
+// table_pass.cu.
 
 // rows (B, R, 128) int32 serving words -> out (B, R, 128) u8.
 extern "C" int serving_activation(const int* rows, const int* cols,
                                   const int* bits, uint8_t* out, int B,
                                   int R, int A, int W, int C, int D,
                                   int device, void* stream) {
-  return launch<ServingWord, 4>(rows, cols, bits, out, B, R * 128, A, W, C,
-                                D, ServingWord{}, device,
-                                static_cast<cudaStream_t>(stream));
+  return launch_range<ServingWord, 4>(rows, cols, bits, out, B, R,
+                                      kServingWidth, A, W, C, D,
+                                      ServingWord{}, device,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 // word (B, C, J) int32 frozen words -> v_out (B, C, J) u8.
@@ -146,10 +254,10 @@ extern "C" int act_frozen(const int* word, const int* cols, const int* bits,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = C * J;
   if (n % 4 == 0)
-    return launch<FrozenWord, 4>(word, cols, bits, v_out, B, n, A, W, C, D,
-                                 FrozenWord{scale}, device, s);
-  return launch<FrozenWord, 1>(word, cols, bits, v_out, B, n, A, W, C, D,
-                               FrozenWord{scale}, device, s);
+    return launch_frozen<4>(word, cols, bits, v_out, B, n, A, W, C, D,
+                            FrozenWord{scale}, device, s);
+  return launch_frozen<1>(word, cols, bits, v_out, B, n, A, W, C, D,
+                          FrozenWord{scale}, device, s);
 }
 
 // syn (B, R, J) int32 presynaptic cells -> out (B, R, J) u8 0/1, over the
@@ -159,10 +267,29 @@ extern "C" int synapse_activation(const int* syn, const int* cols,
                                   int R, int J, int A, int W, int C, int D,
                                   int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n = R * J;
-  if (n % 4 == 0)
-    return launch<ActivityWord, 4>(syn, cols, bits, out, B, n, A, W, C, D,
-                                   ActivityWord{}, device, s);
-  return launch<ActivityWord, 1>(syn, cols, bits, out, B, n, A, W, C, D,
-                                 ActivityWord{}, device, s);
+  if (J % 4 == 0)
+    return launch_range<ActivityWord, 4>(syn, cols, bits, out, B, R, J, A,
+                                         W, C, D, ActivityWord{}, device, s);
+  return launch_range<ActivityWord, 1>(syn, cols, bits, out, B, R, J, A, W,
+                                       C, D, ActivityWord{}, device, s);
+}
+
+// The grid that serving_activation (serving != 0: rows of 128 words, J
+// unused) or synapse_activation (rows of J words) launches over a bitmap
+// of C*D cells on `device`: blocks and threads a block. Returns a
+// cudaError_t as int (0 = success).
+extern "C" int word_pass_grid(int serving, int C, int J, int D, int device,
+                              int* blocks, int* threads) {
+  bithtm::DeviceGuard guard(device);
+  if (int err = guard.error()) return err;
+  bithtm::Grid g;
+  int err;
+  if (serving)
+    err = grid_for<ServingWord, 4>(C, D, device, &g);
+  else
+    err = J % 4 == 0 ? grid_for<ActivityWord, 4>(C, D, device, &g)
+                     : grid_for<ActivityWord, 1>(C, D, device, &g);
+  *blocks = g.blocks;
+  *threads = g.threads;
+  return err;
 }

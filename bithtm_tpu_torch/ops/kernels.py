@@ -65,6 +65,12 @@ _ARGTYPES = {
     # threshold_i
     "sp_update_pack": [_VP] * 4 + [_I] * 5 + [_F, _I, _I, _VP],
 }
+# the grid queries of the row-range kernels: (flag, C, J, D, device,
+# blocks out, threads out); they launch nothing
+_GRID_ARGTYPES = {
+    "table_pass_grid": [_I] * 5 + [ctypes.POINTER(_I)] * 2,
+    "word_pass_grid": [_I] * 5 + [ctypes.POINTER(_I)] * 2,
+}
 
 
 def _nvcc() -> str:
@@ -176,21 +182,35 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
+def _grid(name: str, flag: bool, C: int, J: int, cell_dim: int,
+          device: int) -> tuple[int, int]:
+    fn = getattr(_library(), name)
+    fn.argtypes = _GRID_ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    blocks, threads = _I(), _I()
+    err = fn(int(flag), C, J, cell_dim, device, ctypes.byref(blocks),
+             ctypes.byref(threads))
+    if err:
+        raise RuntimeError(f"{name} failed: cudaError {err}")
+    return blocks.value, threads.value
+
+
 def table_pass_grid(punish: bool, C: int, J: int, cell_dim: int,
                     device: int = 0) -> tuple[int, int]:
     """(blocks, threads a block) of the row-range grid that
     `table_update` (``punish``) or `act_conn` launches on card ``device``
     for tables of rows of J slots over C*cell_dim cells
     (`csrc/active_bitmap.cuh` `range_grid`)."""
-    fn = _library().table_pass_grid
-    fn.argtypes = [_I] * 5 + [ctypes.POINTER(_I)] * 2
-    fn.restype = ctypes.c_int
-    blocks, threads = _I(), _I()
-    err = fn(int(punish), C, J, cell_dim, device, ctypes.byref(blocks),
-             ctypes.byref(threads))
-    if err:
-        raise RuntimeError(f"table_pass_grid failed: cudaError {err}")
-    return blocks.value, threads.value
+    return _grid("table_pass_grid", punish, C, J, cell_dim, device)
+
+
+def word_pass_grid(serving: bool, C: int, J: int, cell_dim: int,
+                   device: int = 0) -> tuple[int, int]:
+    """(blocks, threads a block) of the row-range grid that
+    `serving_activation` (``serving``: rows of 128 words, J unused) or
+    `synapse_activation` (rows of J words) launches on card ``device``
+    over C*cell_dim cells."""
+    return _grid("word_pass_grid", serving, C, J, cell_dim, device)
 
 
 def _ptr(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
@@ -215,9 +235,15 @@ def _ptr(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
 
 
 def _grid_y(B: int) -> None:
-    """The serving and SP kernels run one grid row a stream."""
+    """`act_frozen` and `sp_update_pack` run one grid row a stream."""
     if B > 65535:
         raise ValueError(f"B={B} streams exceed the grid's y extent 65535")
+
+
+def _stream_words(n: int) -> None:
+    """The kernels index a stream's n words in int32."""
+    if n > MAX_STREAM_WORDS:
+        raise ValueError(f"a stream's {n} words exceed {MAX_STREAM_WORDS}")
 
 
 def _active_set(cols, bits, B: int, C: int, cell_dim: int, device: int):
@@ -252,9 +278,7 @@ def _table(name: str, table, dtype: torch.dtype, cols, bits, cell_dim: int,
     if 1 + act_scale(synapses) > 127:
         raise ValueError(f"K={synapses} > 125 packs activity wider than "
                          f"u8, which the kernels do not take")
-    if C * J > MAX_STREAM_WORDS:
-        raise ValueError(f"a stream's C*J = {C * J} slots exceed "
-                         f"{MAX_STREAM_WORDS}")
+    _stream_words(C * J)
     A, W, cols_p, bits_p = _active_set(cols, bits, B, C, cell_dim, dev)
     return B, C, J, A, W, dev, table_p, cols_p, bits_p
 
@@ -302,10 +326,12 @@ def serving_activation_cuda(rows, cols, bits, column_dim: int,
     B, R, _ = rows.shape
     dev = rows.get_device()
     rows_p = _ptr("rows", rows, torch.int32, None, dev, align=16)
-    _grid_y(B)
+    _stream_words(R * 128)
     A, W, cols_p, bits_p = _active_set(cols, bits, B, column_dim, cell_dim,
                                        dev)
     out = torch.empty((B, R, 128), dtype=torch.uint8, device=rows.device)
+    if out.numel() == 0:
+        return out
     SERVING_ACTIVATION(rows_p, cols_p, bits_p, out.data_ptr(), B, R, A, W,
                        column_dim, cell_dim, dev, _stream(dev))
     return out
@@ -335,7 +361,7 @@ def synapse_activation_cuda(syn, cols, bits, column_dim: int,
     B, R, J = syn.shape
     dev = syn.get_device()
     syn_p = _ptr("syn", syn, torch.int32, None, dev, align=16)
-    _grid_y(B)
+    _stream_words(R * J)
     A, W, cols_p, bits_p = _active_set(cols, bits, B, column_dim, cell_dim,
                                        dev)
     out = torch.empty((B, R, J), dtype=torch.uint8, device=syn.device)

@@ -3,9 +3,10 @@
 Builds the CUDA kernels from `bithtm_tpu_torch/csrc`, checks each one
 against its plain PyTorch version (bench shapes; `small_table_take` at
 the 16K x 64 shapes), with its time, its plain version's, its bound and
-where one exists a single PyTorch call's (the table kernels with the
-grid their launcher chose; `small_table_take` with its wrapper's host
-issue, stage by stage, and its device time); checks that the port learns
+where one exists a single PyTorch call's (the table kernels and the
+row-range word kernels with the grid their launcher chose;
+`small_table_take` with its wrapper's host issue, stage by stage, and
+its device time); checks that the port learns
 and that its CUDA run agrees bit for bit with its CPU run on a small
 input, then drives the main path: the bench configuration (2048 columns
 x 32 cells, G=4 x K=64, int16 SP, B=256 streams) through `htm_scan`, 768
@@ -185,6 +186,15 @@ def table_grid(punish: bool, syn, D: int) -> str:
     return f"{blocks}x{threads}"
 
 
+def word_grid(serving: bool, table, C: int, D: int) -> str:
+    """The row-range grid `serving_activation` (``serving``, a (B, R,
+    128) table) or `synapse_activation` (a (B, R, J) table) launches over
+    C*D cells: blocks x threads."""
+    blocks, threads = kernels.word_pass_grid(serving, C, table.shape[-1],
+                                             D, table.get_device())
+    return f"{blocks}x{threads}"
+
+
 def check_kernels(dev) -> dict:
     """Each kernel against its plain version, bit-equal, with the times
     and bound of `kernel_row`: the table and serving kernels and
@@ -259,7 +269,8 @@ def check_kernels(dev) -> dict:
             lambda: kernels.serving_activation_cuda(rows, cols, bits, C, D),
             lambda: psv.serving_activation_ref(rows, cols, bits, C, D),
             nbytes(rows, cols, bits, s_ref),
-            f"B={B} R={C + 8} rows of 128 D={D} A={A}"),
+            f"B={B} R={C + 8} rows of 128 D={D} A={A}",
+            grid=word_grid(True, rows, C, D)),
         "act_frozen": kernel_row(
             "act_frozen",
             lambda: kernels.act_frozen_cuda(word, cols, bits, D, K),
@@ -270,7 +281,8 @@ def check_kernels(dev) -> dict:
             "synapse_activation",
             lambda: kernels.synapse_activation_cuda(syn, cols, bits, C, D),
             lambda: pas.synapse_activation_ref(syn, cols, bits, C, D),
-            nbytes(syn, cols, bits, a_ref), at),
+            nbytes(syn, cols, bits, a_ref), at,
+            grid=word_grid(False, syn, C, D)),
     }
     del x, p, p_ref, p_k, v_ref, v_k, c_ref, c_k, a_ref, a_k, word, rows
     del f_ref, f_k, s_ref, s_k
@@ -912,8 +924,8 @@ def time_phases(snap: Snapshot, xs) -> None:
 
 
 # the device names of the port's own kernels (csrc/*.cu)
-PORT_KERNELS = ("table_pass_kernel", "word_pass_kernel", "small_take_kernel",
-                "sp_update_pack_kernel")
+PORT_KERNELS = ("table_pass_kernel", "word_range_kernel", "word_pass_kernel",
+                "small_take_kernel", "sp_update_pack_kernel")
 
 
 def device_profile(run, n: int, top: int) -> tuple[float, float]:
@@ -973,15 +985,17 @@ def run_16k(dev) -> tuple[dict, dict]:
     """The 16K x 64 path at full width, B=64, on the bench input recipe:
     `htm_scan_autocap` under the tuned caps over LEARN_16K learning steps
     in chunks of CHUNK_16K, then INFER_16K inference steps and SERVE_16K
-    serving steps unpacked and packed (equal metrics and predictions,
-    each form launching only its own kernel, once a step). Requires
-    `small_table_take` and `table_update` once per learning step run (a
-    chunk re-run after an escalation runs its steps again), grown
+    serving steps unpacked and packed, REPEATS runs of each in turns
+    (equal metrics and predictions, each form launching only its own
+    kernel, once a step; the median time and a device profile of each).
+    Requires `small_table_take` and `table_update` once per learning step
+    run (a chunk re-run after an escalation runs its steps again), grown
     synapses, no counted cap drop in the produced trajectory, the state
     invariants and bursting falling from the first chunk to the last;
     then holds the table kernels, `serving_activation` over the learned
     serving table and `synapse_activation` against their plain versions
-    on the learned state and times them (`kernel_row`). Returns (launch
+    on the learned state and times them (`kernel_row`, with the grid of
+    each row-range kernel). Returns (launch
     counts of the learning run, the kernel rows at this geometry)."""
     cfg = bt.make_htm_config(**GEOM_16K)
     B, A, T = BATCH_16K, cfg.sp.active_columns, LEARN_16K
@@ -1043,23 +1057,26 @@ def run_16k(dev) -> tuple[dict, dict]:
 
     serve_xs = seq[T + INFER_16K:]
     tab = bt.make_serving_table(cfg.tm, state.tm)
-    served = {}
-    for name, kw, kernel in (
-            ("unpacked", {"detailed_metrics": False}, "act_conn"),
-            ("packed", {"serving_table": tab}, "serving_activation")):
-        st = copy.deepcopy(state)
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        st, ms = bt.htm_serve_scan(cfg, st, serve_xs, **kw)
-        torch.cuda.synchronize()
-        served[name] = (st.tm.prediction, ms, time.perf_counter() - t0)
-        got = kernels.launch_counts()
-        require(got == only(**{kernel: SERVE_16K}),
-                f"16K {name} serving launches {kernel} once a step and no "
-                f"other kernel, got {got}")
-        del st
-    (p_u, m_u, s_u), (p_p, m_p, s_p) = served["unpacked"], served["packed"]
+    forms = {"unpacked": ({"detailed_metrics": False}, "act_conn"),
+             "packed": ({"serving_table": tab}, "serving_activation")}
+    served, runs = {}, {name: [] for name in forms}
+    for rep in range(REPEATS):
+        for name, (kw, kernel) in forms.items():
+            st = copy.deepcopy(state)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            st, ms = bt.htm_serve_scan(cfg, st, serve_xs, **kw)
+            torch.cuda.synchronize()
+            runs[name].append(1e3 * (time.perf_counter() - t0) / SERVE_16K)
+            got = kernels.launch_counts()
+            require(got == only(**{kernel: SERVE_16K}),
+                    f"16K {name} serving launches {kernel} once a step and "
+                    f"no other kernel, got {got}")
+            if rep == 0:
+                served[name] = (st.tm.prediction, ms)
+            del st
+    (p_u, m_u), (p_p, m_p) = served["unpacked"], served["packed"]
     require(torch.equal(p_u, p_p) and set(m_u) == set(m_p)
             and all(torch.equal(m_u[k], m_p[k]) for k in m_u),
             "16K serving: packed == unpacked in metrics and predictions")
@@ -1069,19 +1086,35 @@ def run_16k(dev) -> tuple[dict, dict]:
                                         for c in chunks],
         "escalated_at_step": esc,
         "inference_ms_per_step": 1e3 * infer_s / INFER_16K,
-        "serving_unpacked_ms_per_step": 1e3 * s_u / SERVE_16K,
-        "serving_packed_ms_per_step": 1e3 * s_p / SERVE_16K,
+        **{f"serving_{name}_ms_per_step": statistics.median(r)
+           for name, r in runs.items()},
+        **{f"serving_{name}_ms_per_step_runs": r for name, r in runs.items()},
         "serving_table_rows": tab.rows.shape[1], "serving_table_ext": E,
         "streams": B,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     print(f"  inference {INFER_16K} steps: {perf['inference_ms_per_step']:.3f}"
           f" ms/step, correct {mean(m_inf, 'correct'):.2f} of {A}; serving "
-          f"{SERVE_16K} steps: unpacked {perf['serving_unpacked_ms_per_step']:.3f}"
-          f", packed {perf['serving_packed_ms_per_step']:.3f} ms/step (table "
-          f"R={tab.rows.shape[1]}, E={E}), equal predictions, correct "
-          f"{mean(m_u, 'correct'):.2f}")
+          f"{SERVE_16K} steps, median of {REPEATS} runs in turns (the first "
+          f"checked): " + ", ".join(
+              f"{name} {statistics.median(r):.3f} ("
+              + ", ".join(f"{t:.3f}" for t in r) + ")"
+              for name, r in runs.items())
+          + f" ms/step (table R={tab.rows.shape[1]}, E={E}), equal "
+          f"predictions, correct {mean(m_u, 'correct'):.2f}")
     del served, p_u, p_p
+    for name, (kw, _) in forms.items():
+        st = copy.deepcopy(state)
+        print(f"profile of {SERVE_16K} 16K {name} serving steps, top device "
+              f"ops:")
+        busy, n_launch = device_profile(
+            lambda: bt.htm_serve_scan(cfg, st, serve_xs, **kw), SERVE_16K, 5)
+        med = perf[f"serving_{name}_ms_per_step"]
+        print(f"  device busy {busy:.3f} ms/step, {n_launch:.1f} kernel "
+              f"launches/step, busy share {busy / med:.3f} of the median "
+              f"{med:.3f} ms/step")
+        perf[f"serving_{name}_device_busy_ms_per_step"] = busy
+        del st
 
     tm = state.tm
     cols, bits = tm.active_cols, tm.active_bits
@@ -1134,14 +1167,16 @@ def run_16k(dev) -> tuple[dict, dict]:
                 tm.synapse_cell, cols, bits, C, D),
             lambda: pas.synapse_activation_ref(tm.synapse_cell, cols, bits,
                                                C, D),
-            nbytes(tm.synapse_cell, cols, bits, a_ref), at),
+            nbytes(tm.synapse_cell, cols, bits, a_ref), at,
+            grid=word_grid(False, tm.synapse_cell, C, D)),
         "serving_activation": kernel_row(
             "serving_activation", lambda: kernels.serving_activation_cuda(
                 tab.rows, cols, bits, C, D),
             lambda: psv.serving_activation_ref(tab.rows, cols, bits, C, D),
             nbytes(tab.rows, cols, bits, s_ref),
             f"B={B} R={tab.rows.shape[1]} rows of 128 D={D} A={A}, the "
-            f"learned 16K serving table"),
+            f"learned 16K serving table",
+            grid=word_grid(True, tab.rows, C, D)),
     }
     perf["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
     del p, p_ref, p_k, v_ref, v_k, c_ref, c_k, a_ref, a_k, args, pun_word

@@ -25,11 +25,13 @@ SHAPES = [  # B, C, G, K, D, A
     (1, 16, 2, 16, 70, 3),    # three words
     (1, 8192, 1, 8, 64, 9),   # a 64 KB bitmap: shared memory opt-in
     (1, 16384, 1, 8, 64, 20),  # the 16K x 64 geometry's 128 KB bitmap
-    # the row ranges of the table kernels' grid (csrc/active_bitmap.cuh
-    # range_grid, walk_rows; thousands of blocks at small bitmaps):
+    # the row ranges of the table and word kernels' grid
+    # (csrc/active_bitmap.cuh range_grid, walk_rows; thousands of blocks
+    # at small bitmaps):
     (300, 7, 2, 8, 4, 3),     # a row or none a block, some across a stream
     (30000, 2, 2, 8, 4, 1),   # each range across several streams
     (5, 16384, 1, 8, 64, 20),  # ranges across streams, 128 KB bitmap
+    (3, 16384, 1, 7, 64, 20),  # J % 4 != 0 under the 128 KB bitmap
 ]
 
 
@@ -111,38 +113,57 @@ def test_table_kernels_take_repeated_cols(shape, repeat, cuda):
 
 
 @pytest.mark.cuda
-def test_table_kernels_alternate_bitmap_sizes(cuda):
-    """A 128 KB, a 64 KB and again a 128 KB bitmap in one process: the
-    launcher caches each size's grid, and no size lowers the shared
+@pytest.mark.parametrize("middle", [
+    (1, 8192, 1, 8, 64, 9),     # a 64 KB bitmap
+    (2, 2048, 4, 64, 32, 41),   # the bench's 8 KB bitmap
+])
+def test_table_kernels_alternate_bitmap_sizes(middle, cuda):
+    """A 128 KB, a smaller and again a 128 KB bitmap in one process,
+    through the table kernels, the word kernels and `act_frozen`: the
+    launchers cache each size's grid, and no size lowers the shared
     memory another needs."""
-    for shape in ((1, 16384, 1, 8, 64, 20), (1, 8192, 1, 8, 64, 9),
-                  (2, 16384, 1, 8, 64, 20)):
+    for shape in ((1, 16384, 1, 8, 64, 20), middle, (2, 16384, 1, 8, 64, 20)):
         B, C, G, K, D, A = shape
         x = table_inputs(sum(shape) + 5, *shape, device=cuda)
+        cols, bits = x["cols"], x["bits"]
         p_ref, p_k = x["perm"].clone(), x["perm"].clone()
         v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"],
-                                     x["pun_word"], x["cols"], x["bits"], D,
-                                     K, 0.01, 0.5)
+                                     x["pun_word"], cols, bits, D, K, 0.01,
+                                     0.5)
         v_k = kernels.table_update_cuda(x["syn"], p_k, x["act_prev"],
-                                        x["pun_word"], x["cols"], x["bits"],
-                                        D, K, 0.01, 0.5)
-        c_k = kernels.act_conn_cuda(x["syn"], x["perm"], x["cols"],
-                                    x["bits"], D, 0.5, K)
+                                        x["pun_word"], cols, bits, D, K,
+                                        0.01, 0.5)
+        c_k = kernels.act_conn_cuda(x["syn"], x["perm"], cols, bits, D, 0.5,
+                                    K)
+        word = pas.pack_frozen_table(x["syn"], x["perm"], 0.5)
+        rows = serving_rows(sum(shape) + 6, B, C + 8, C, D, G, device=cuda)
+        got = (kernels.act_frozen_cuda(word, cols, bits, D, K),
+               kernels.serving_activation_cuda(rows, cols, bits, C, D),
+               kernels.synapse_activation_cuda(x["syn"], cols, bits, C, D))
+        want = (pas.synapse_activation_frozen_ref(word, cols, bits, D, K),
+                psv.serving_activation_ref(rows, cols, bits, C, D),
+                pas.synapse_activation_ref(x["syn"], cols, bits, C, D))
         torch.cuda.synchronize()
         assert torch.equal(v_k, v_ref)
         assert torch.equal(p_k.view(torch.int32), p_ref.view(torch.int32))
         assert torch.equal(c_k, pas.synapse_activation_conn_ref(
-            x["syn"], x["perm"], x["cols"], x["bits"], D, 0.5, K))
+            x["syn"], x["perm"], cols, bits, D, 0.5, K))
+        for name, g, w in zip(("act_frozen", "serving_activation",
+                               "synapse_activation"), got, want):
+            assert torch.equal(g, w), (name, shape)
 
 
 @pytest.mark.cuda
 def test_kernels_launch_on_the_current_stream(cuda):
-    """`table_update`, `act_conn` and `small_table_take` launched under
+    """`table_update`, `act_conn`, `small_table_take`,
+    `serving_activation` and `synapse_activation` launched under
     ``torch.cuda.stream(side)`` run on ``side``: their inputs are written
     there only after a spin of about 20 ms, so a launch on any other
     stream would read the -1s left before it."""
     B, C, G, K, D, A = SHAPES[0]
     x = table_inputs(11, *SHAPES[0], device=cuda)
+    rows = serving_rows(11, B, C, C, D, G, device=cuda)
+    rows_late = torch.full_like(rows, -1)
     g = torch.Generator(device=cuda).manual_seed(11)
     table = torch.randint(0, 1 << 20, (B, 384), generator=g, device=cuda,
                           dtype=torch.int32)
@@ -157,12 +178,17 @@ def test_kernels_launch_on_the_current_stream(cuda):
         syn.copy_(x["syn"])
         p_k.copy_(x["perm"])
         idx_late.copy_(idx)
+        rows_late.copy_(rows)
         v_k = kernels.table_update_cuda(syn, p_k, x["act_prev"],
                                         x["pun_word"], x["cols"], x["bits"],
                                         D, K, 0.01, 0.5)
         c_k = kernels.act_conn_cuda(syn, x["perm"], x["cols"], x["bits"], D,
                                     0.5, K)
         t_k = kernels.small_table_take_cuda(table, idx_late)
+        s_k = kernels.serving_activation_cuda(rows_late, x["cols"],
+                                              x["bits"], C, D)
+        a_k = kernels.synapse_activation_cuda(syn, x["cols"], x["bits"], C,
+                                              D)
     side.synchronize()
     p_ref = x["perm"].clone()
     v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"],
@@ -174,7 +200,12 @@ def test_kernels_launch_on_the_current_stream(cuda):
     assert torch.equal(v_k, v_ref) and torch.equal(c_k, c_ref)
     assert torch.equal(p_k.view(torch.int32), p_ref.view(torch.int32))
     assert torch.equal(t_k, pas.take_small_table_ref(table, idx))
+    assert torch.equal(s_k, psv.serving_activation_ref(rows, x["cols"],
+                                                       x["bits"], C, D))
+    assert torch.equal(a_k, pas.synapse_activation_ref(x["syn"], x["cols"],
+                                                       x["bits"], C, D))
     assert bool((v_ref > 1).any()) and bool((t_k != 0).any())
+    assert bool((s_k != 0).any()) and bool((a_k != 0).any())
 
 
 @pytest.mark.cuda
@@ -212,16 +243,23 @@ def test_wrapper_rejects_bad_inputs(bad, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
-def test_serving_kernels_match_plain(shape, cuda):
+@pytest.mark.parametrize("shape,R", [(s, s[1] + 8) for s in SHAPES] + [
+    # streams of one to three serving rows, more streams than the row
+    # ranges of the grid: every range crosses several streams
+    ((9000, 3, 2, 8, 4, 1), 1),
+    ((20000, 3, 2, 8, 4, 1), 3),
+    ((3, 16384, 1, 8, 64, 20), 16384),  # main rows only, 128 KB bitmap
+])
+def test_serving_kernels_match_plain(shape, R, cuda):
     """`act_frozen` and `serving_activation` against their plain versions
-    (the serving table with 8 extension rows below its C main rows), one
-    launch each; the frozen words also give `act_conn`'s activity."""
+    (a serving table of R rows: 8 extension rows below C main rows, or
+    fewer rows than columns), one launch each; the frozen words also
+    give `act_conn`'s activity."""
     B, C, G, K, D, A = shape
     x = table_inputs(sum(shape) + 1, *shape, device=cuda)
     cols, bits = x["cols"], x["bits"]
     word = pas.pack_frozen_table(x["syn"], x["perm"], 0.5)
-    rows = serving_rows(sum(shape) + 2, B, C + 8, C, D, G, device=cuda)
+    rows = serving_rows(sum(shape) + 2, B, R, C, D, G, device=cuda)
     before = kernels.launch_counts()
     f_ref = pas.synapse_activation_frozen_ref(word, cols, bits, D, K)
     f_k = kernels.act_frozen_cuda(word, cols, bits, D, K)
@@ -324,6 +362,45 @@ def test_synapse_activation_matches_plain(shape, cuda):
     act = kernels.synapse_activation_cuda(x["syn"], x["cols"], x["bits"], C,
                                           D)
     assert torch.equal((act != 0) & (x["perm"] >= 0), v != 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R", [(3, 0), (0, 5)])
+def test_word_kernels_take_empty_tables(B, R, cuda):
+    """`serving_activation` and `synapse_activation` over a table without
+    words return an empty u8 output of its shape, launch nothing, and
+    where there are streams equal their plain versions."""
+    x = table_inputs(12, max(B, 1), *SHAPES[0][1:], device=cuda)
+    C, D = SHAPES[0][1], SHAPES[0][4]
+    cols, bits = x["cols"][:B], x["bits"][:B]
+    rows = torch.zeros((B, R, 128), dtype=torch.int32, device=cuda)
+    syn = torch.zeros((B, R, 6), dtype=torch.int32, device=cuda)
+    before = kernels.launch_counts()
+    s_k = kernels.serving_activation_cuda(rows, cols, bits, C, D)
+    a_k = kernels.synapse_activation_cuda(syn, cols, bits, C, D)
+    assert launched(before) == only()
+    assert s_k.shape == rows.shape and a_k.shape == syn.shape
+    assert s_k.dtype == a_k.dtype == torch.uint8
+    if B:
+        assert torch.equal(s_k, psv.serving_activation_ref(rows, cols, bits,
+                                                           C, D))
+        assert torch.equal(a_k, pas.synapse_activation_ref(syn, cols, bits,
+                                                           C, D))
+
+
+@pytest.mark.cuda
+def test_word_pass_grid(cuda):
+    """The word kernels' row-range grid (`kernels.word_pass_grid`): under
+    the 128 KB bitmap of 16384x64, 1,024-thread blocks, one an SM, over
+    eight waves; under the 8 KB bitmap of 2048x32, 256-thread blocks,
+    at least four an SM, over eight waves."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for serving, J in ((True, 128), (False, 256), (False, 7)):
+        assert kernels.word_pass_grid(serving, 16384, J, 64) == (8 * sms,
+                                                                 1024)
+        blocks, threads = kernels.word_pass_grid(serving, 2048, J, 32)
+        assert threads == 256 and blocks % (8 * sms) == 0
+        assert blocks >= 8 * sms * 4
 
 
 @pytest.mark.cuda

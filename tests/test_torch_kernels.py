@@ -164,6 +164,20 @@ def test_entry_points_take_device_and_stream():
         p.name for p in kernels.CSRC.glob("*.cuh")}
 
 
+@pytest.mark.parametrize("name", ["table_pass_grid", "word_pass_grid"])
+def test_grid_queries_match_their_signatures(name):
+    """Each row-range grid query is named in the sources with the C
+    parameter types its ctypes argument types give, and stays out of
+    the launched kernels' table."""
+    every = "".join((kernels.CSRC / n).read_text() for n in kernels.SOURCES)
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', every).group(1)
+    ctype = {"int": ctypes.c_int, "int*": ctypes.POINTER(ctypes.c_int)}
+    got = [ctype[p.strip().rsplit(None, 1)[0].replace(" ", "")]
+           for p in params.split(",")]
+    assert got == kernels._GRID_ARGTYPES[name]
+    assert name not in kernels._ARGTYPES
+
+
 def test_cuda_source_names_both_entry_points():
     """Every bound kernel has its C entry point in one of the sources,
     and each source names the TPU kernels it replaces."""
