@@ -28,6 +28,8 @@
 
 #include <mutex>
 
+#include "launch.cuh"
+
 namespace bithtm {
 
 constexpr int kThreads = 256;
@@ -41,8 +43,6 @@ constexpr int kMinResidentThreads = 1024;
 // last wave, and a block's range still crosses at most one stream at both
 // geometries.
 constexpr int kWaves = 8;
-// What one Hopper block may opt in to (ops/kernels.py MAX_SHARED_BYTES).
-constexpr size_t kMaxShared = 232448;
 
 // Zeroes the n_words words of bm (16-byte aligned), 16 bytes a store.
 __device__ __forceinline__ void zero_bitmap(uint32_t* bm, int n_words) {
@@ -136,15 +136,6 @@ __device__ __forceinline__ void walk_rows(
 // Bytes of the bitmap of C*D cells.
 inline size_t bitmap_bytes(int C, int D) {
   return (((size_t)C * D + 31) / 32) * sizeof(uint32_t);
-}
-
-// Lets `kernel` take `smem` bytes of dynamic shared memory (needed above
-// 48 KB). Returns a cudaError_t as int (0 = success).
-template <typename Kernel>
-int allow_shared(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 struct Grid {

@@ -5,12 +5,26 @@
 // of that device). The Python wrappers no longer enter a device context
 // around every call; the entry point switches the device only when the
 // thread's current one is another, and switches it back after the launch.
+// A kernel that takes more than 48 KB of dynamic shared memory opts in
+// first (`allow_shared`).
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace bithtm {
+
+// What one Hopper block may opt in to (ops/kernels.py MAX_SHARED_BYTES).
+constexpr size_t kMaxShared = 232448;
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory (needed above
+// 48 KB). Returns a cudaError_t as int (0 = success).
+template <typename Kernel>
+int allow_shared(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
 class DeviceGuard {
  public:

@@ -191,7 +191,9 @@ def _select_and_fill(pkey, valid, n_grow, free, samp: int, low_bits: int,
 
     With ``cand_cell`` (B, Wc), `sortfill_packed_idx`: the low bits are
     the candidate's list index, decoded to its cell by
-    `take_small_table`. The keys are int32 below 2^30 with the sentinel
+    `take_small_table` in place of the keys, which masks them itself and
+    reads the list where it lies (one launch on the card, no copy). The
+    keys are int32 below 2^30 with the sentinel
     0x7FFFFFFF. Valid keys are distinct (the index sits in the low bits),
     so the kk smallest of `torch.topk` are the keys the JAX split-block
     sort selects, in the same order; sentinels tie, but any order of
@@ -213,8 +215,8 @@ def _select_and_fill(pkey, valid, n_grow, free, samp: int, low_bits: int,
         keys = torch.where(valid, pkey, PACKED_IDX_SENTINEL)
         sorted_key = torch.topk(keys, kk, dim=-1, largest=False,
                                 sorted=True).values
-        chosen_cell = take_small_table(cand_cell.contiguous(),
-                                       sorted_key & low)
+        chosen_cell = take_small_table(cand_cell, sorted_key, low,
+                                       in_place=True)
     # slot k takes the free_rank[k]-th chosen cell
     pick = free_rank.clamp(0, kk - 1).long()
     gathered = chosen_cell.gather(-1, pick)

@@ -217,28 +217,36 @@ def synapse_activation(syn, cols, bits, column_dim: int,
     return synapse_activation_ref(syn, cols, bits, column_dim, cell_dim)
 
 
-def take_small_table_ref(table: torch.Tensor, idx: torch.Tensor
+def take_small_table_ref(table: torch.Tensor, keys: torch.Tensor,
+                         mask: int = -1, in_place: bool = False
                          ) -> torch.Tensor:
     """Plain version of the `small_table_take` kernel: out[b, ...] =
-    table[b, idx[b, ...]] for table (B, Wc) and idx (B, ...) int32, 0
-    where idx is outside [0, Wc) (as JAX `take_small_table`'s
-    compare-select-reduce and its zero-padded Pallas chunks give)."""
+    table[b, k] with k = keys[b, ...] & mask, for table (B, Wc) and keys
+    (B, ...) int32, 0 where k is outside [0, Wc) (as JAX
+    `take_small_table(table, keys & mask)`'s compare-select-reduce and
+    its zero-padded Pallas chunks give). ``mask`` -1 takes the keys as
+    indices; ``in_place`` writes the result over ``keys``."""
     B, Wc = table.shape
-    flat = idx.reshape(B, -1)
+    flat = keys.reshape(B, -1)
+    if mask != -1:
+        flat = flat & mask
     got = table.gather(1, flat.clamp(0, Wc - 1).long())
-    return torch.where((flat >= 0) & (flat < Wc), got, 0).reshape(idx.shape)
+    res = torch.where((flat >= 0) & (flat < Wc), got, 0).reshape(keys.shape)
+    return keys.copy_(res) if in_place else res
 
 
-def take_small_table(table: torch.Tensor, idx: torch.Tensor
+def take_small_table(table: torch.Tensor, keys: torch.Tensor,
+                     mask: int = -1, in_place: bool = False
                      ) -> torch.Tensor:
-    """Per-stream lookup in a small shared table (B, Wc), Wc <= 2048:
-    the `small_table_take` kernel for CUDA tensors, the plain version
-    for CPU tensors. Out-of-range indices give 0."""
+    """Per-stream lookup in a shared table (B, Wc) of any width at the
+    indices ``keys & mask``: the `small_table_take` kernel for CUDA
+    tensors, the plain version for CPU tensors. Out-of-range indices
+    give 0. ``in_place`` decodes over ``keys``."""
     if _on_device("take_small_table", table) == "cuda":
         from .kernels import small_table_take_cuda
 
-        return small_table_take_cuda(table, idx)
-    return take_small_table_ref(table, idx)
+        return small_table_take_cuda(table, keys, mask, in_place)
+    return take_small_table_ref(table, keys, mask, in_place)
 
 
 FROZEN_CELL_BITS = 24  # cell id field of the frozen serving word

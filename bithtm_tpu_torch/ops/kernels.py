@@ -8,15 +8,18 @@ linked into a plain-C shared library under ``bithtm_tpu_torch/_build``
 (keyed by a hash of the sources and flags), loaded with ctypes. Nothing
 here runs when the module is imported.
 
-Each wrapper checks device, dtype, shape, contiguity and alignment in one
-pass over its tensors (`_ptr`), allocates the output, and calls the C
-entry point with the tensors' device index and the raw handle of that
-device's current stream: the entry point makes the device current only
-if it is not, and launches on that stream. The wrapper raises if the
-launch reports an error and counts its launches (`launch_counts`). A
-kernel that is quick on the device (`small_table_take`, about 3 us) is
-bound by this host issue, so it holds no device context, builds no
-stream object and takes no attribute lookup on the ctypes function.
+Each wrapper first checks the limits that only the card has, from the
+shapes alone (`_bitmap`, `_grid_y`, `_stream_words` and the others named
+in the port section of README.md), so that they raise before any tensor
+is read; then device, dtype, shape, contiguity and alignment in one pass
+over its tensors (`_ptr`); allocates the output, and calls the C entry
+point with the tensors' device index and the raw handle of that device's
+current stream: the entry point makes the device current only if it is
+not, and launches on that stream. The wrapper raises if the launch
+reports an error and counts its launches (`launch_counts`). A kernel
+that is quick on the device (`small_table_take`, about 3 us) is bound by
+this host issue, so it holds no device context, builds no stream object
+and takes no attribute lookup on the ctypes function.
 """
 
 from __future__ import annotations
@@ -42,8 +45,11 @@ HEADERS = ("active_bitmap.cuh", "launch.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 MAX_SHARED_BYTES = 232_448  # what one Hopper block may opt in to
-MAX_SMALL_TABLE = 2048      # words of a small_table_take table (8 KB)
+# the active-cell bitmap a block builds in shared memory: C*D cells
+MAX_BITMAP_CELLS = 8 * MAX_SHARED_BYTES   # 1,859,584
 MAX_STREAM_WORDS = 1 << 30  # a stream's words, indexed in int32 on the card
+MAX_GRID_Y = 65_535         # streams of a kernel with one grid row a stream
+MAX_PACKED_K = 125          # K whose packed activity fits u8 (act_scale)
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # every entry point ends with (device, stream)
@@ -59,8 +65,8 @@ _ARGTYPES = {
     "act_frozen": [_VP] * 4 + [_I] * 7 + [_I, _VP],
     # syn, cols, bits, out, B, R, J, A, W, C, D
     "synapse_activation": [_VP] * 4 + [_I] * 7 + [_I, _VP],
-    # table, idx, out, B, Wc, n
-    "small_table_take": [_VP] * 3 + [_I] * 3 + [_I, _VP],
+    # table, table_stride, keys, out, B, Wc, n, mask
+    "small_table_take": [_VP, _I, _VP, _VP] + [_I] * 4 + [_I, _VP],
     # perm, delta, cols, pack, B, C, I_pad, A, quantized, threshold_f,
     # threshold_i
     "sp_update_pack": [_VP] * 4 + [_I] * 5 + [_F, _I, _I, _VP],
@@ -234,52 +240,70 @@ def _ptr(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
     return ptr
 
 
+# ---- the card-only limits, checked from shapes before any tensor is
+# read (README.md, port section)
+
+
 def _grid_y(B: int) -> None:
     """`act_frozen` and `sp_update_pack` run one grid row a stream."""
-    if B > 65535:
-        raise ValueError(f"B={B} streams exceed the grid's y extent 65535")
+    if B > MAX_GRID_Y:
+        raise ValueError(f"B={B} streams exceed the grid's y extent "
+                         f"{MAX_GRID_Y} (the one-grid-row-a-stream limit of "
+                         f"act_frozen and sp_update_pack)")
 
 
 def _stream_words(n: int) -> None:
     """The kernels index a stream's n words in int32."""
     if n > MAX_STREAM_WORDS:
-        raise ValueError(f"a stream's {n} words exceed {MAX_STREAM_WORDS}")
+        raise ValueError(f"a stream's {n} words exceed {MAX_STREAM_WORDS} "
+                         f"(the kernels' int32 stream-words limit)")
 
 
-def _active_set(cols, bits, B: int, C: int, cell_dim: int, device: int):
-    """The (B, A) cols + (B, A, W) bits active set over C*cell_dim cells,
-    whose bitmap a block builds in shared memory. Returns (A, W, cols
-    pointer, bits pointer)."""
+def _bitmap(C: int, cell_dim: int) -> None:
+    """A block builds the active-cell bitmap of C*D cells in shared
+    memory."""
+    if C * cell_dim > MAX_BITMAP_CELLS:
+        raise ValueError(
+            f"the active-cell bitmap of C*D = {C * cell_dim} cells needs "
+            f"{(C * cell_dim + 31) // 32 * 4} bytes of shared memory; a "
+            f"block has {MAX_SHARED_BYTES} (the bitmap limit C*D <= "
+            f"{MAX_BITMAP_CELLS})")
+
+
+def _active_set(cols, bits, B: int, cell_dim: int, device: int):
+    """The (B, A) cols + (B, A, W) bits active set, whose bitmap a block
+    builds in shared memory (the caller has checked `_bitmap`). Returns
+    (A, W, cols pointer, bits pointer)."""
     A = cols.shape[-1]
     W = cell_words(cell_dim)
     cols_p = _ptr("cols", cols, torch.int32, (B, A), device)
     bits_p = _ptr("bits", bits, torch.int32, (B, A, W), device)
-    smem = (C * cell_dim + 31) // 32 * 4
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"the active-cell bitmap needs {smem} bytes of "
-                         f"shared memory; a block has {MAX_SHARED_BYTES}")
     return A, W, cols_p, bits_p
 
 
 def _table(name: str, table, dtype: torch.dtype, cols, bits, cell_dim: int,
-           synapses: int):
+           synapses: int, stream_rows: bool = False):
     """A (B, C, J) table read with 16-byte vector loads, J = G*K, and its
-    active set. Returns (B, C, J, A, W, device, table, cols and bits
-    pointers)."""
+    active set (``stream_rows``: a kernel with one grid row a stream).
+    Returns (B, C, J, A, W, device, table, cols and bits pointers)."""
     if table.dim() != 3:
         raise ValueError(f"{name} must be (B, C, J), got "
                          f"{tuple(table.shape)}")
     B, C, J = table.shape
-    dev = table.get_device()
-    table_p = _ptr(name, table, dtype, None, dev, align=16)
     if J % synapses or J // synapses > 32:
         raise ValueError(f"J={J} must be G*K with K={synapses} and G <= 32 "
                          f"(one bit per segment in a column's words)")
-    if 1 + act_scale(synapses) > 127:
-        raise ValueError(f"K={synapses} > 125 packs activity wider than "
-                         f"u8, which the kernels do not take")
+    if synapses > MAX_PACKED_K:
+        raise ValueError(f"K={synapses} > {MAX_PACKED_K} packs activity "
+                         f"wider than u8, which the kernels do not take "
+                         f"(the packed-K limit)")
     _stream_words(C * J)
-    A, W, cols_p, bits_p = _active_set(cols, bits, B, C, cell_dim, dev)
+    _bitmap(C, cell_dim)
+    if stream_rows:
+        _grid_y(B)
+    dev = table.get_device()
+    table_p = _ptr(name, table, dtype, None, dev, align=16)
+    A, W, cols_p, bits_p = _active_set(cols, bits, B, cell_dim, dev)
     return B, C, J, A, W, dev, table_p, cols_p, bits_p
 
 
@@ -324,11 +348,11 @@ def serving_activation_cuda(rows, cols, bits, column_dim: int,
         raise ValueError(f"rows must be (B, R, 128), got "
                          f"{tuple(rows.shape)}")
     B, R, _ = rows.shape
+    _stream_words(R * 128)
+    _bitmap(column_dim, cell_dim)
     dev = rows.get_device()
     rows_p = _ptr("rows", rows, torch.int32, None, dev, align=16)
-    _stream_words(R * 128)
-    A, W, cols_p, bits_p = _active_set(cols, bits, B, column_dim, cell_dim,
-                                       dev)
+    A, W, cols_p, bits_p = _active_set(cols, bits, B, cell_dim, dev)
     out = torch.empty((B, R, 128), dtype=torch.uint8, device=rows.device)
     if out.numel() == 0:
         return out
@@ -343,8 +367,7 @@ def act_frozen_cuda(frozen_word, cols, bits, cell_dim: int,
     table (see `active_set.synapse_activation_frozen_ref`)."""
     B, C, J, A, W, dev, word_p, cols_p, bits_p = _table(
         "frozen_word", frozen_word, torch.int32, cols, bits, cell_dim,
-        synapses)
-    _grid_y(B)
+        synapses, stream_rows=True)
     v = torch.empty((B, C, J), dtype=torch.uint8, device=frozen_word.device)
     ACT_FROZEN(word_p, cols_p, bits_p, v.data_ptr(), B, C, J, A, W, cell_dim,
                act_scale(synapses), dev, _stream(dev))
@@ -359,11 +382,11 @@ def synapse_activation_cuda(syn, cols, bits, column_dim: int,
     if syn.dim() != 3:
         raise ValueError(f"syn must be (B, R, J), got {tuple(syn.shape)}")
     B, R, J = syn.shape
+    _stream_words(R * J)
+    _bitmap(column_dim, cell_dim)
     dev = syn.get_device()
     syn_p = _ptr("syn", syn, torch.int32, None, dev, align=16)
-    _stream_words(R * J)
-    A, W, cols_p, bits_p = _active_set(cols, bits, B, column_dim, cell_dim,
-                                       dev)
+    A, W, cols_p, bits_p = _active_set(cols, bits, B, cell_dim, dev)
     out = torch.empty((B, R, J), dtype=torch.uint8, device=syn.device)
     if out.numel() == 0:
         return out
@@ -372,28 +395,50 @@ def synapse_activation_cuda(syn, cols, bits, column_dim: int,
     return out
 
 
-def small_table_take_cuda(table, idx) -> torch.Tensor:
-    """CUDA `small_table_take`: out[b, ...] = table[b, idx[b, ...]] where
-    0 <= idx < Wc, 0 elsewhere (see `active_set.take_small_table_ref`).
-    Its kernel takes about 3 us, so this path reads each tensor once."""
-    shape = table.shape
-    if len(shape) != 2 or idx.dim() < 2 or idx.shape[0] != shape[0]:
-        raise ValueError(f"table must be (B, Wc) and idx (B, ...), got "
-                         f"{tuple(shape)} and {tuple(idx.shape)}")
+def small_table_take_cuda(table, keys, mask: int = -1,
+                          in_place: bool = False) -> torch.Tensor:
+    """CUDA `small_table_take`: out[b, ...] = table[b, k] with k = keys[b,
+    ...] & mask where 0 <= k < Wc, 0 elsewhere, for a (B, Wc) table of any
+    width whose rows may be a strided view (unit stride within a row;
+    see `active_set.take_small_table_ref`); ``in_place`` writes out over
+    ``keys`` and allocates nothing. Its kernel takes about 3 us, so this
+    path checks both tensors in one pass and does nothing else before the
+    launch."""
+    shape, kshape = table.shape, keys.shape
+    if (len(shape) != 2 or len(kshape) < 2 or kshape[0] != shape[0]
+            or shape[1] < 1 or not -(1 << 31) <= mask < 1 << 31):
+        raise ValueError(f"table must be (B, Wc) with Wc >= 1, keys (B, ...) "
+                         f"and mask an int32; got {tuple(shape)}, "
+                         f"{tuple(kshape)} and {mask}")
     B, Wc = shape
-    if not 1 <= Wc <= MAX_SMALL_TABLE:
-        raise ValueError(f"table width {Wc} is outside [1, "
-                         f"{MAX_SMALL_TABLE}], what one block stages in "
-                         f"shared memory")
+    n = keys.numel() // B if B else 0
+    _stream_words(n)
+    row, lane = table.stride()
     dev = table.get_device()
-    table_p = _ptr("table", table, torch.int32, None, dev)
-    idx_p = _ptr("idx", idx, torch.int32, None, dev)
-    out = torch.empty_like(idx)
-    n = idx.numel() // B if B else 0
+    if (dev < 0 or keys.get_device() != dev or table.dtype != torch.int32
+            or keys.dtype != torch.int32 or lane != 1
+            or not (Wc <= row < 1 << 31 or B == 1)
+            or not keys.is_contiguous()):
+        _take_error(table, keys, dev)
+    out = keys if in_place else torch.empty_like(keys)
     if n:
-        SMALL_TABLE_TAKE(table_p, idx_p, out.data_ptr(), B, Wc, n, dev,
-                         _stream(dev))
+        keys_p = keys.data_ptr()
+        SMALL_TABLE_TAKE(table.data_ptr(), row, keys_p,
+                         keys_p if in_place else out.data_ptr(), B, Wc, n,
+                         mask, dev, _stream(dev))
     return out
+
+
+def _take_error(table, keys, dev: int):
+    """Raises what `small_table_take_cuda`'s one-pass check refused."""
+    if dev < 0:
+        raise ValueError(f"table must be a CUDA tensor, got {table.device}")
+    if table.dtype != torch.int32:
+        raise TypeError(f"table must be torch.int32, got {table.dtype}")
+    _ptr("keys", keys, torch.int32, None, dev)
+    raise ValueError(f"table rows must have unit stride and not overlap, "
+                     f"got strides {table.stride()} for shape "
+                     f"{tuple(table.shape)}")
 
 
 def sp_update_pack_cuda(permanence, delta_row, active_cols, threshold
@@ -417,6 +462,15 @@ def sp_update_pack_cuda(permanence, delta_row, active_cols, threshold
     if quantized and threshold != int(threshold):
         raise ValueError(f"an int16 table takes an integer threshold in "
                          f"units, got {threshold}")
+    _grid_y(B)
+    smem = 4 * I_pad + (C + 31) // 32 * 4
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"the delta row of I_pad={I_pad} and the "
+                         f"active-column bitmap of C={C} columns need {smem} "
+                         f"bytes of shared memory; a block has "
+                         f"{MAX_SHARED_BYTES} (the sp_update_pack shared-"
+                         f"memory limit 4*I_pad + 4*ceil(C/32) <= "
+                         f"{MAX_SHARED_BYTES})")
     dev = permanence.get_device()
     perm_p = _ptr("permanence", permanence, permanence.dtype, None, dev,
                   align=16)
@@ -425,10 +479,6 @@ def sp_update_pack_cuda(permanence, delta_row, active_cols, threshold
                    dev, align=16)
     A = active_cols.shape[-1]
     cols_p = _ptr("active_cols", active_cols, torch.int32, (B, A), dev)
-    _grid_y(B)
-    if (C + 31) // 32 * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"the active-column bitmap of C={C} columns "
-                         f"exceeds {MAX_SHARED_BYTES} bytes")
     pack = torch.empty((B, C, I_pad // 8), dtype=torch.uint8,
                        device=permanence.device)
     if pack.numel() == 0:

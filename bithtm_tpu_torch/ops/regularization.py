@@ -10,16 +10,23 @@ from .active_set import column_mask_from_cols
 
 def boost_factor(duty_cycle: torch.Tensor, intensity: float,
                  density: float) -> torch.Tensor:
-    """exp(-(intensity / density) * duty_cycle)."""
-    return torch.exp(-(intensity / density) * duty_cycle)
+    """exp(-(intensity / density) * duty_cycle), float32. The argument is
+    rounded to float32 as the JAX package rounds it; the exponential is
+    taken in float64 and rounded once to float32, so the CPU and the card
+    give the same factor (their float32 `exp`s differ by 1 ulp on about
+    three factors in ten and by 2 on some, ROADMAP.md fault k). The
+    rounded value lies within 1 ulp of any float32 `exp` accurate to
+    1 ulp, so it keeps the 1-ulp agreement with the JAX package."""
+    arg = -(intensity / density) * duty_cycle
+    return torch.exp(arg.double()).float()
 
 
 def boost(overlaps: torch.Tensor, duty_cycle: torch.Tensor,
           intensity: float, density: float) -> torch.Tensor:
-    """Boosted overlaps (f32). `torch.exp` may differ from XLA's `exp` by
-    one ulp, so the boost factor agrees with the JAX package within 1 ulp
-    and the boosted overlap, rounded once more by the product, within
-    2 ulp (ROADMAP.md, fault g)."""
+    """Boosted overlaps (f32). XLA's `exp` may differ from the correctly
+    rounded factor by one ulp, so the boost factor agrees with the JAX
+    package within 1 ulp and the boosted overlap, rounded once more by
+    the product, within 2 ulp (ROADMAP.md, fault g)."""
     return boost_factor(duty_cycle, intensity, density) * overlaps.to(
         torch.float32)
 

@@ -1,7 +1,8 @@
 """Synthetic inputs for checking the forward passes (`table_update`,
 `synapse_activation_conn`, `synapse_activation_frozen`,
 `serving_activation`) and their CUDA kernels against their plain
-versions: made with numpy from a seed, at any shape."""
+versions, made with numpy from a seed at any shape; and the check of the
+SP's boost on one device against the CPU (`boost_agreement`)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import numpy as np
 import torch
 
 from .ops.active_set import act_scale, pack_bits
+from .ops.regularization import boost, boost_factor, k_winners
 from .ops.serving import SERVING_G_BITS
 
 
@@ -67,3 +69,59 @@ def serving_rows(seed: int, B: int, R: int, C: int, D: int, G: int,
     words = np.where(rng.random((B, R, 128)) < empty, -1,
                      (cell << SERVING_G_BITS) | g).astype(np.int32)
     return torch.from_numpy(words).to(device)
+
+
+def float_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in float32 units in the last place, elementwise: the
+    distance of the two values in the ordered int32 view of the format
+    (+0.0 and -0.0 are 0 apart). Returns int64."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def boost_agreement(duty_cycle: torch.Tensor, overlaps: torch.Tensor,
+                    intensity: float, density: float, k: int,
+                    device) -> dict:
+    """The SP's `boost_factor`, `boost` and `k_winners` computed on
+    ``device`` and on the CPU from the same (B, C) float32 duty cycles and
+    int32 overlaps, held to the contract of ROADMAP fault g: the factors
+    within 1 ulp, the boosted overlaps within 2, and the same k-winner
+    set in every stream whose top-k boundary gap (between the k-th and
+    the (k+1)-th boosted value on the CPU) exceeds 4 ulp. Returns the
+    counts: values 0, 1, 2 and more ulp apart, near-tie streams (gap <= 4
+    ulp), streams whose sets differ outside and at near ties, streams
+    whose winner order differs, and ``ok``."""
+    got = []
+    for where in ("cpu", device):
+        duty, ov = duty_cycle.to(where), overlaps.to(where)
+        factor = boost_factor(duty, intensity, density)
+        boosted = boost(ov, duty, intensity, density)
+        idx, mask = k_winners(boosted, k)
+        got.append([t.cpu() for t in (factor, boosted, idx, mask)])
+    (f_c, v_c, i_c, m_c), (f_d, v_d, i_d, m_d) = got
+    top = torch.sort(v_c, dim=-1, descending=True).values
+    near = float_ulps(top[:, k - 1], top[:, k]) <= 4
+    differ = (m_c != m_d).any(-1)
+
+    def hist(u, most):
+        out = {str(i): int((u == i).sum()) for i in range(most + 1)}
+        out[f">{most}"] = int((u > most).sum())
+        return out
+
+    out = {
+        "values": v_c.numel(),
+        "factor_ulps": hist(float_ulps(f_c, f_d), 1),
+        "boosted_ulps": hist(float_ulps(v_c, v_d), 2),
+        "streams": v_c.shape[0],
+        "near_ties": int(near.sum()),
+        "sets_differ": int((differ & ~near).sum()),
+        "sets_differ_at_near_ties": int((differ & near).sum()),
+        "order_differs": int((i_c != i_d).any(-1).sum()),
+    }
+    out["ok"] = (out["factor_ulps"][">1"] == 0
+                 and out["boosted_ulps"][">2"] == 0
+                 and out["sets_differ"] == 0)
+    return out

@@ -2,11 +2,13 @@
 
 Builds the CUDA kernels from `bithtm_tpu_torch/csrc`, checks each one
 against its plain PyTorch version (bench shapes; `small_table_take` at
-the 16K x 64 shapes), with its time, its plain version's, its bound and
-where one exists a single PyTorch call's (the table kernels and the
-row-range word kernels with the grid their launcher chose;
-`small_table_take` with its wrapper's host issue, stage by stage, and
-its device time); checks that the port learns
+the 16K x 64 shapes with its index mask, and at Wc = 2049 and 4096;
+`sp_update_pack` also with inactive rows past the rail and -0.0), with
+its time, its plain version's, its bound and where one exists a single
+PyTorch call's (the table kernels and the row-range word kernels with
+the grid their launcher chose; `small_table_take` with its wrapper's
+host issue, stage by stage, its call site old and new, and its device
+time); checks that the port learns
 and that its CUDA run agrees bit for bit with its CPU run on a small
 input, then drives the main path: the bench configuration (2048 columns
 x 32 cells, G=4 x K=64, int16 SP, B=256 streams) through `htm_scan`, 768
@@ -19,7 +21,9 @@ frozen word table), checks that they predict alike and launch only
 their own kernel, and that serve -> `resume_learning` -> learn equals
 learning after the unpacked serve. Then drives the two entry points
 that no scan calls (`sp_update_pack` against `sp_step`'s learning,
-`synapse_activation` against the state's own activity), measures the
+`synapse_activation` against the state's own activity), holds the SP's
+boost on the card against the CPU's (seeded and learned duty cycles,
+ROADMAP fault k), measures the
 steady window (the last 128 learning steps) three times from one
 snapshot with the same draws, times the phases of a step and profiles 16
 of its steps on the device.
@@ -59,7 +63,8 @@ from bithtm_tpu_torch.models.htm import _scan_impl, _step_metrics
 from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
 from bithtm_tpu_torch.ops import serving as psv
-from bithtm_tpu_torch.ops.overlap import padded_input_dim
+from bithtm_tpu_torch.ops.overlap import overlaps, padded_input_dim
+from bithtm_tpu_torch import testing
 from bithtm_tpu_torch.testing import serving_rows, table_inputs
 
 BENCH = dict(input_dim=1000, column_dim=2048, cell_dim=32,
@@ -311,12 +316,35 @@ def sp_inputs(cfg, B: int, g: torch.Generator, dev):
     return perm, delta, cols, thr
 
 
+def with_edges(perm: torch.Tensor) -> torch.Tensor:
+    """A copy of an SP permanence table whose every row holds values that
+    change without learning: int16 lanes 0-7 at 32767 and 8-15 at -32768
+    (past the +-32000 rail, so the clip moves them), float32 lanes 0-15
+    at -0.0 (p + 0 * d is +0.0 where d >= 0, stays -0.0 where d < 0)."""
+    edge = perm.clone()
+    if edge.dtype == torch.int16:
+        edge[..., :8], edge[..., 8:16] = 32767, -32768
+    else:
+        edge[..., :16] = -0.0
+    return edge
+
+
+def inactive_rows_changed(before, after, cols) -> int:
+    """How many rows outside the (B, A) active columns changed a bit."""
+    changed = (before.view(torch.uint8) != after.view(torch.uint8)).reshape(
+        *before.shape[:2], -1).any(-1)
+    return int((changed & ~pas.column_mask_from_cols(
+        cols, before.shape[1])).sum())
+
+
 def check_sp_update_pack(dev) -> dict:
     """`sp_update_pack` against its plain version at the bench SP shapes
     (B=256, C=2048, I_pad=1024), int16 (the bench's dtype, the row
-    returned) and float32 (printed). Its bound counts the permanences
-    read once, the active rows written and the connected table written
-    (every row re-packed)."""
+    returned) and float32 (printed), on the `sp_init`-like table (timed)
+    and on one whose inactive rows change too (`with_edges`: past the
+    rail, -0.0). Its bound counts the permanences read once, the active
+    rows written and the connected table written (every row
+    re-packed)."""
     cfg16 = bt.make_htm_config(**BENCH).sp
     rows = {}
     for cfg in (cfg16, dataclasses.replace(cfg16,
@@ -332,6 +360,7 @@ def check_sp_update_pack(dev) -> dict:
                 f"sp_update_pack {perm.dtype} == plain, bit for bit")
         require(bool(pack_ref.any()) and not bool(torch.equal(p_ref, perm)),
                 "the SP inputs connect and learn")
+        unmoved = inactive_rows_changed(perm, p_ref, cols) == 0
         B, C, I_pad = perm.shape
         written = B * cfg.active_columns * I_pad * perm.element_size()
         p = perm.clone()
@@ -342,101 +371,182 @@ def check_sp_update_pack(dev) -> dict:
             nbytes(perm, delta, cols, pack_ref) + written,
             f"B={B} C={C} I_pad={I_pad} A={cfg.active_columns} "
             f"{str(perm.dtype).split('.')[1]}")
-        del perm, p, p_ref, p_k, pack_ref, pack_k
+        del p, p_ref, p_k, pack_ref, pack_k
+        # as many tables live as above, so that the check adds no peak
+        edge = with_edges(perm)
+        e_ref, e_k = edge.clone(), edge.clone()
+        _, epack_ref = psp.sp_update_pack_ref(e_ref, delta, cols, thr)
+        _, epack_k = kernels.sp_update_pack_cuda(e_k, delta, cols, thr)
+        torch.cuda.synchronize()
+        require(torch.equal(e_k.view(torch.uint8), e_ref.view(torch.uint8))
+                and torch.equal(epack_k, epack_ref),
+                f"sp_update_pack {perm.dtype} == plain, bit for bit, with "
+                f"inactive rows that change")
+        moved = inactive_rows_changed(edge, e_ref, cols)
+        require(moved > 0 and unmoved,
+                "with_edges changes inactive rows, the plain table none")
+        print(f"sp_update_pack {perm.dtype}: bit-equal with {moved} inactive "
+              f"rows changed (past the rail or -0.0)")
+        del perm, edge, e_ref, e_k, epack_ref, epack_k
     return rows[torch.int16]
+
+
+def growth_keys(Wc: int, shape, g: torch.Generator, dev):
+    """Index-keyed growth keys over a list of Wc candidates, as `_grow`
+    makes them above 2^16 cells: random bits above the list index, 15%
+    of them the sentinel 0x7FFFFFFF, whose index bits decode to >= Wc
+    where Wc is not a power of two. Returns (keys, the index mask)."""
+    bits = max(1, (Wc - 1).bit_length())
+    hi = torch.randint(0, 1 << (30 - bits), shape, generator=g, device=dev,
+                       dtype=torch.int32)
+    idx = torch.randint(0, Wc, shape, generator=g, device=dev,
+                        dtype=torch.int32)
+    keys = (hi << bits) | idx
+    u = torch.rand(shape, generator=g, device=dev)
+    return torch.where(u < 0.15, 0x7FFFFFFF, keys), (1 << bits) - 1
 
 
 def check_small_table_take(dev) -> dict:
     """`small_table_take` against its plain version at the 16K shapes
     (B=64, kk=32) under the tuned caps (L=336, Wc=384: the row returned,
-    the 16K path's own) and the auto caps (L=824, Wc=768), with 15%
-    sentinel-decoded indices (>= Wc) and 10% negative ones. The library
-    call is `torch.gather` over the indices clamped into the table and
-    widened to int64 outside the timed call, without the mask that zeroes
-    the out-of-range ones: less work than the kernel's, so its time is a
-    lower bound on a library call's. The kernel is quicker on the device
-    than the wrapper issues it, so each row also holds the wrapper's host
-    issue a call (`host_issue_us`, stage by stage) and the kernel's own
-    device time under torch.profiler, taken after every host timing: a
-    profiler session slows the host timings that follow it."""
+    the 16K path's own) and the auto caps (L=824, Wc=768), and, for
+    bit-equality only, at Wc = 2049 and 4096. The table is a strided view
+    (rows Wc + 1 words apart), as `_grow`'s candidate list is. Checked:
+    growth keys decoded with their index mask, into a new tensor and in
+    place of the keys (the call `_grow` makes), and unmasked indices with
+    15% sentinel-decoded ones (>= Wc) and 10% negative ones. The timed
+    call is the masked decode in place. The library call is
+    `torch.gather` over the contiguous table at the decoded indices
+    clamped into it and widened to int64 outside the timed call, without
+    the mask or the zeroing of the out-of-range ones: less work than the
+    kernel's, so its time is a lower bound on a library call's. The call
+    site is timed old (the list made contiguous, `keys & mask`, then the
+    take) against new (the masked take in place). The kernel is quicker
+    on the device than the wrapper issues it, so each row also holds the
+    wrapper's host issue a call (`host_issue_us`, stage by stage) and the
+    kernel's own device time under torch.profiler, taken after every host
+    timing: a profiler session slows the host timings that follow it."""
     B, kk = BATCH_16K, 32
     rows, calls = {}, {}
-    for L, Wc in ((336, 384), (824, 768)):
+    for L, Wc in ((336, 384), (824, 768), (336, 2049), (336, 4096)):
         g = torch.Generator(device=dev).manual_seed(Wc)
-        table = torch.randint(0, 1 << 20, (B, Wc), generator=g, device=dev,
-                              dtype=torch.int32)
+        table = torch.randint(0, 1 << 20, (B, Wc + 1), generator=g,
+                              device=dev, dtype=torch.int32)[:, :Wc]
+        keys, low = growth_keys(Wc, (B, L, kk), g, dev)
         idx = torch.randint(0, Wc, (B, L, kk), generator=g, device=dev,
                             dtype=torch.int32)
         u = torch.rand((B, L, kk), generator=g, device=dev)
-        low = (1 << (Wc - 1).bit_length()) - 1
-        idx = torch.where(u < 0.15, low, torch.where(u < 0.25, -1, idx))
-        want = pas.take_small_table_ref(table, idx)
-        got = kernels.small_table_take_cuda(table, idx)
+        idx = torch.where(u < 0.15, max(low, Wc),
+                          torch.where(u < 0.25, -1, idx))
+        want = pas.take_small_table_ref(table, keys, low)
+        got = kernels.small_table_take_cuda(table, keys, low)
+        decoded = keys.clone()
+        got_p = kernels.small_table_take_cuda(table, decoded, low,
+                                              in_place=True)
+        want_i = pas.take_small_table_ref(table, idx)
+        got_i = kernels.small_table_take_cuda(table, idx)
         torch.cuda.synchronize()
-        require(torch.equal(got, want) and bool((want != 0).any())
-                and bool((idx >= Wc).any()),
-                f"small_table_take == plain at L={L}, Wc={Wc}")
-        flat = idx.clamp(0, Wc - 1).reshape(B, -1).long()
-        calls[Wc] = (lambda t=table, i=idx:
-                     kernels.small_table_take_cuda(t, i))
-        split = host_issue_us(table, idx, flat)
+        require(torch.equal(got, want) and got_p is decoded
+                and torch.equal(decoded, want)
+                and torch.equal(want, pas.take_small_table_ref(
+                    table.contiguous(), keys & low))
+                and bool((want != 0).any())
+                and (bool(((keys & low) >= Wc).any()) or low < Wc),
+                f"small_table_take(keys, mask), new and in place, == plain "
+                f"at L={L}, Wc={Wc}")
+        require(torch.equal(got_i, want_i) and bool((idx >= Wc).any()),
+                f"small_table_take(indices) == plain at L={L}, Wc={Wc}")
+        print(f"small_table_take at L={L}, Wc={Wc}: masked growth keys (new "
+              f"tensor and in place) and raw indices bit-equal to the plain "
+              f"version")
+        if Wc > 768:
+            continue
+        dense = table.contiguous()
+        flat = (keys & low).clamp(0, Wc - 1).reshape(B, -1).long()
+        buf = keys.clone()
+        calls[Wc] = (lambda t=table, k=buf, m=low:
+                     kernels.small_table_take_cuda(t, k, m, True))
+        split = host_issue_us(table, keys, low, buf, flat)
         print(f"small_table_take host issue at L={L}, Wc={Wc} (us a call, "
               f"perf_counter over {HOST_CALLS} calls, no synchronize): "
               + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+        site = {"old": cuda_ms(lambda: kernels.small_table_take_cuda(
+                    table.contiguous(), keys & low)),
+                "new": cuda_ms(calls[Wc])}
+        print(f"small_table_take call site at Wc={Wc} (CUDA events, ms a "
+              f"call): contiguous list + keys & mask + take "
+              f"{site['old']:.4f}, masked take in place {site['new']:.4f}")
         rows[Wc] = kernel_row(
             "small_table_take", calls[Wc],
-            lambda: pas.take_small_table_ref(table, idx),
-            nbytes(table, idx, want), f"B={B} L={L} kk={kk} Wc={Wc}",
-            library=lambda: torch.gather(table, 1, flat),
-            host_issue_us=split["wrapper"],
-            library_host_issue_us=split["library call"])
+            lambda: pas.take_small_table_ref(table, keys, low),
+            nbytes(dense, keys, want), f"B={B} L={L} kk={kk} Wc={Wc}",
+            library=lambda: torch.gather(dense, 1, flat),
+            host_issue_us=split["wrapper, in place"],
+            library_host_issue_us=split["library call"],
+            call_site_old_ms=site["old"], call_site_new_ms=site["new"])
     for Wc, call in calls.items():
         rows[Wc]["device_ms"] = profiled_ms(call, "small_take_kernel")
         print(f"small_table_take at Wc={Wc}: {rows[Wc]['device_ms']:.4f} ms "
               f"on the device (torch.profiler), {rows[Wc]['ms']:.4f} ms a "
-              f"call by events, {rows[Wc]['host_issue_us']:.3f} us of host "
-              f"issue")
+              f"call by events ({rows[Wc]['library_ms']:.4f} for "
+              f"torch.gather), {rows[Wc]['host_issue_us']:.3f} us of host "
+              f"issue ({rows[Wc]['library_host_issue_us']:.3f} for "
+              f"torch.gather)")
     return rows[384]
 
 
 HOST_CALLS = 1000
 
 
-def host_issue_us(table, idx, flat) -> dict:
+def host_issue_us(table, keys, mask: int, buf, flat) -> dict:
     """The host time of `small_table_take_cuda` a call, in us, and of
     each stage of it (perf_counter over HOST_CALLS calls, no synchronize):
-    the loop alone, the one-pass checks, the output's allocation, the raw
-    stream handle, the ctypes call alone (launching the kernel), the whole
-    wrapper; the two stages the wrapper no longer runs, the device
-    context and the `torch.cuda.Stream` object it built every call; and
-    the library call, `torch.gather` over ``flat``."""
+    the loop alone, the one-pass checks of the wrapper, the raw stream
+    handle, the ctypes call alone (launching the kernel), the whole
+    wrapper decoding ``buf`` in place (the call `_grow` makes) and into a
+    new tensor; the allocation that the in-place call skips
+    (`torch.empty_like`) and `torch.empty` with the device index; the old
+    call site (the list made contiguous, `keys & mask`, then the
+    wrapper); and the library call, `torch.gather` over ``flat``."""
     dev = table.get_device()
     B, Wc = table.shape
-    n = idx.numel() // B
-    out = torch.empty_like(idx)
+    n = keys.numel() // B
+    row = table.stride(0)
     fn = kernels.SMALL_TABLE_TAKE.bind()
-    ptrs = (table.data_ptr(), idx.data_ptr(), out.data_ptr())
+    ptrs = (table.data_ptr(), row, buf.data_ptr(), buf.data_ptr())
     stream = kernels._stream(dev)
+    dense = table.contiguous()
 
     def checks():
-        kernels._ptr("table", table, torch.int32, None, dev)
-        kernels._ptr("idx", idx, torch.int32, None, dev)
-
-    def device_context():
-        with torch.cuda.device(table.device):
-            pass
+        # the wrapper's own checks, as it runs them
+        shape, kshape = table.shape, keys.shape
+        if (len(shape) != 2 or len(kshape) < 2 or kshape[0] != shape[0]
+                or shape[1] < 1 or not -(1 << 31) <= mask < 1 << 31):
+            raise ValueError
+        kernels._stream_words(keys.numel() // shape[0])
+        r, lane = table.stride()
+        d = table.get_device()
+        if (d < 0 or keys.get_device() != d or table.dtype != torch.int32
+                or keys.dtype != torch.int32 or lane != 1
+                or not (shape[1] <= r < 1 << 31 or shape[0] == 1)
+                or not keys.is_contiguous()):
+            raise ValueError
 
     stages = {
         "loop": lambda: None,
         "checks": checks,
-        "allocation": lambda: torch.empty_like(idx),
         "raw stream": lambda: kernels._stream(dev),
-        "ctypes call": lambda: fn(*ptrs, B, Wc, n, dev, stream),
-        "wrapper": lambda: kernels.small_table_take_cuda(table, idx),
-        "device context (replaced)": device_context,
-        "stream object (replaced)":
-            lambda: torch.cuda.current_stream().cuda_stream,
-        "library call": lambda: torch.gather(table, 1, flat),
+        "ctypes call": lambda: fn(*ptrs, B, Wc, n, mask, dev, stream),
+        "wrapper, in place": lambda: kernels.small_table_take_cuda(
+            table, buf, mask, True),
+        "wrapper, new tensor": lambda: kernels.small_table_take_cuda(
+            table, keys, mask),
+        "allocation (empty_like)": lambda: torch.empty_like(keys),
+        "allocation (torch.empty, device index)": lambda: torch.empty(
+            keys.shape, dtype=torch.int32, device=dev),
+        "old call site": lambda: kernels.small_table_take_cuda(
+            table.contiguous(), keys & mask),
+        "library call": lambda: torch.gather(dense, 1, flat),
     }
     us = {}
     for name, f in stages.items():
@@ -509,11 +619,11 @@ def check_learning(dev) -> None:
 
 def check_cpu_agreement(dev) -> None:
     """The same small run on the CPU (plain versions) and on the card
-    (kernels, D=4), with the same draws: every state leaf and metric
-    equal. Boosting is off so that no `exp` rounding separates the
-    two devices' SP choices."""
-    cfg = bt.make_htm_config(**SMALL, sp_overrides={
-        "boosting_intensity": 0.0})
+    (kernels, D=4), with the same draws and boosting on: every state leaf
+    and metric equal (the boost factor rounds alike on both devices,
+    ROADMAP fault k)."""
+    cfg = bt.make_htm_config(**SMALL)
+    require(cfg.sp.boosting_intensity > 0, "the agreement run boosts")
     B, n_learn, n_inf = 4, 40, 8
     x = small_inputs(n_learn + n_inf, B, 1)
     results = []
@@ -539,7 +649,43 @@ def check_cpu_agreement(dev) -> None:
                 f"CPU and CUDA runs agree on metric {k}")
     require(int(m_cpu["inf_correct"].sum()) > 0, "the small run learned")
     print(f"CPU/CUDA agreement: {n_learn} learning + {n_inf} inference "
-          f"steps, B={B}, every state leaf and metric equal")
+          f"steps, B={B}, boosting intensity {cfg.sp.boosting_intensity}, "
+          f"every state leaf and metric equal")
+
+
+def check_boost(dev, sp, xs) -> None:
+    """ROADMAP fault k: the SP's boost factor, boosted overlaps and
+    k-winner sets on the card against the CPU from the same inputs, at the
+    bench shapes (B=256, C=2048, A=41, boosting intensity 0.3, density
+    41/2048), held to fault g's contract (`testing.boost_agreement`):
+    duty cycles drawn from a seeded generator (uniform in [0, 3 x
+    density], 10% at 0) with binomial overlaps, and the learned state's
+    own duty cycles with the overlaps of its next input. Prints how many
+    values are 0, 1 and 2 ulp apart and how many streams are near-ties."""
+    cfg = bt.make_htm_config(**BENCH).sp
+    B, C, A = BATCH, cfg.column_dim, cfg.active_columns
+    rng = np.random.default_rng(7)
+    duty = rng.random((B, C), dtype=np.float32) * np.float32(3 * cfg.density)
+    duty[rng.random((B, C)) < 0.1] = 0.0
+    cases = {
+        "seeded duty cycles": (torch.from_numpy(duty), torch.from_numpy(
+            rng.binomial(200, 0.1, (B, C)).astype(np.int32))),
+        "learned duty cycles": (sp.duty_cycle.cpu(), overlaps(
+            sp.connected, xs[0]).cpu()),
+    }
+    for name, (d, ov) in cases.items():
+        got = testing.boost_agreement(d, ov, cfg.boosting_intensity,
+                                      cfg.density, A, dev)
+        print(f"boost on the card vs the CPU, {name} (B={B}, C={C}, A={A}, "
+              f"intensity {cfg.boosting_intensity}): factor ulps "
+              f"{got['factor_ulps']}, boosted ulps {got['boosted_ulps']} of "
+              f"{got['values']} values; {got['near_ties']} of {got['streams']}"
+              f" streams near-ties (top-k gap <= 4 ulp); k-winner sets differ "
+              f"in {got['sets_differ']} other streams and "
+              f"{got['sets_differ_at_near_ties']} near-tie streams, order in "
+              f"{got['order_differs']}")
+        require(got["ok"], f"the card keeps fault g's contract on the boost "
+                f"({name})")
 
 
 def check_tm_invariants(tm) -> None:
@@ -605,6 +751,8 @@ def run_main_path(dev):
     bounds = [0, 1, *range(WINDOW, LEARN_STEPS + 1, WINDOW)]
     require(bounds[-1] == LEARN_STEPS, "LEARN_STEPS is a multiple of WINDOW")
     torch.cuda.synchronize()
+    # the peak of this path, not of the kernel checks before it
+    torch.cuda.reset_peak_memory_stats()
 
     kernels.reset_launch_counts()
     chunks = []
@@ -1216,6 +1364,7 @@ def main() -> None:
     launches, snap, window_ms, (state, gen, serve_xs) = run_main_path(dev)
     launches.update(run_serving(snap.cfg, state, gen, serve_xs))
     entry = run_entry_points(snap.cfg, state, serve_xs)
+    check_boost(dev, state.sp, serve_xs)
     launches.update(sp_update_pack=entry["sp_update_pack"],
                     synapse_activation=entry["synapse_activation"])
     del state

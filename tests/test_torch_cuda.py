@@ -9,14 +9,18 @@ the card. No JAX here, so the file runs where the GPU is:
 
 import types
 
+import numpy as np
 import pytest
 import torch
 
+import bithtm_tpu_torch as bt
 from bithtm_tpu_torch.models import spatial_pooler as psp
+from bithtm_tpu_torch.models import temporal_memory as ptm
 from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
 from bithtm_tpu_torch.ops import serving as psv
-from bithtm_tpu_torch.testing import serving_rows, table_inputs
+from bithtm_tpu_torch.testing import (boost_agreement, serving_rows,
+                                      table_inputs)
 
 SHAPES = [  # B, C, G, K, D, A
     (2, 64, 4, 64, 32, 5),    # the bench's G, K, D
@@ -408,27 +412,90 @@ def test_word_pass_grid(cuda):
     (64, 768, 824, 32),    # the 16K auto caps
     (64, 384, 336, 32),    # the 16K tuned caps
     (2, 129, 13, 7),       # n % 4 != 0: the scalar path
-    (3, 2048, 5, 16),      # the largest table one block stages
+    (3, 2048, 5, 16),
+    (3, 2049, 5, 16),      # wider than the first design's 2048 words
+    (2, 4096, 9, 32),
+    (2, 60000, 7, 16),     # wider than a block stages: the read-only cache
     (1, 1, 4, 4),
 ])
-def test_small_table_take_matches_plain(B, Wc, L, kk, cuda):
-    """`small_table_take` against its plain version, with sentinel-
-    decoded (>= Wc), negative and in-range indices; one launch."""
+@pytest.mark.parametrize("masked", [False, True])
+def test_small_table_take_matches_plain(B, Wc, L, kk, masked, cuda):
+    """`small_table_take` against its plain version, one launch a call:
+    growth keys decoded with their index mask (random bits above the
+    index, 15% the sentinel 0x7FFFFFFF) from a strided view of the table
+    (rows Wc + 1 words apart, as `_grow`'s candidate list), into a new
+    tensor and in place of the keys; or raw indices with sentinel-decoded
+    (>= Wc), negative and in-range ones."""
     g = torch.Generator(device=cuda).manual_seed(Wc + L)
-    table = torch.randint(0, 1 << 20, (B, Wc), generator=g, device=cuda,
-                          dtype=torch.int32)
+    table = torch.randint(0, 1 << 20, (B, Wc + masked), generator=g,
+                          device=cuda, dtype=torch.int32)[:, :Wc]
     idx = torch.randint(0, Wc, (B, L, kk), generator=g, device=cuda,
                         dtype=torch.int32)
-    low = (1 << max(1, (Wc - 1).bit_length())) - 1
+    bits = max(1, (Wc - 1).bit_length())
+    low = (1 << bits) - 1
     u = torch.rand((B, L, kk), generator=g, device=cuda)
-    idx = torch.where(u < 0.15, low, torch.where(u < 0.25, -7, idx))
+    if masked:
+        hi = torch.randint(0, 1 << (30 - bits), (B, L, kk), generator=g,
+                           device=cuda, dtype=torch.int32)
+        keys, mask = torch.where(u < 0.15, 0x7FFFFFFF, (hi << bits) | idx), low
+    else:
+        keys = torch.where(u < 0.15, max(low, Wc),
+                           torch.where(u < 0.25, -7, idx))
+        mask = -1
     before = kernels.launch_counts()
-    got = kernels.small_table_take_cuda(table, idx)
+    got = kernels.small_table_take_cuda(table, keys, mask)
     torch.cuda.synchronize()
     assert launched(before) == only(small_table_take=1)
-    want = pas.take_small_table_ref(table, idx)
+    want = pas.take_small_table_ref(table, keys, mask)
     assert torch.equal(got, want)
-    assert torch.equal(pas.take_small_table(table, idx), want)
+    assert torch.equal(pas.take_small_table(table, keys, mask), want)
+    if masked:
+        assert torch.equal(want, pas.take_small_table_ref(table, keys & mask))
+        before = kernels.launch_counts()
+        assert pas.take_small_table(table, keys, mask, in_place=True) is keys
+        torch.cuda.synchronize()
+        assert launched(before) == only(small_table_take=1)
+        assert torch.equal(keys, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Wc", [2049, 4096])
+def test_grow_matches_cpu_above_2048_candidates(Wc, cuda):
+    """`_grow` above 2^16 cells (4096 x 32, the index-keyed selection)
+    with a candidate list wider than 2048 words, on the card and on the
+    CPU from the same rows and draws: every output equal, and the decode
+    launched once."""
+    B, A, G, K, D, C, L = 2, 80, 2, 16, 32, 4096, 40
+    cfg = bt.make_htm_config(64, C, D, active_columns=A,
+                             segments_per_column=G, synapse_capacity=K,
+                             segment_sampling_synapses=8,
+                             winner_capacity=Wc, growth_capacity=L).tm
+    rng = np.random.default_rng(Wc)
+    cols = np.stack([np.sort(rng.choice(C, A, replace=False))
+                     for _ in range(B)]).astype(np.int32)
+    winners = rng.random((B, A, D)) < 0.9        # about 2300 candidates
+    live = rng.random((B, A, G, K)) < 0.5
+    syn = np.where(live, rng.integers(0, C * D, (B, A, G, K)), -1)
+    inputs = dict(
+        rnd=rng.integers(-(1 << 31), 1 << 31, (B, L, Wc), dtype=np.int64
+                         ).astype(np.int32),
+        syn_rows=syn.astype(np.int32),
+        perm_rows=np.where(live, rng.random((B, A, G, K)), -1.0).astype(
+            np.float32),
+        learn_rows=rng.random((B, A, G)) < 0.3,
+        act_prev_rows=live & (rng.random((B, A, G, K)) < 0.2),
+        prev_cols=cols,
+        prev_winner_bits=pas.pack_bits(torch.from_numpy(winners)).numpy())
+    outs = []
+    for where in ("cpu", cuda):
+        t = {k: torch.from_numpy(v).to(where) for k, v in inputs.items()}
+        before = kernels.launch_counts()
+        outs.append([o.cpu() for o in ptm._grow(cfg, **t)])
+        assert launched(before) == only(
+            small_table_take=int(where != "cpu"))
+    for got, want in zip(*outs[::-1]):
+        assert torch.equal(got, want)
+    assert int(outs[0][2].sum()) > 0               # synapses grew
 
 
 @pytest.mark.cuda
@@ -436,9 +503,13 @@ def test_small_table_take_matches_plain(B, Wc, L, kk, cuda):
 @pytest.mark.parametrize("B,C,I_pad,A", [(2, 96, 1024, 7),
                                          (3, 2048, 1024, 41),
                                          (1, 40, 2048, 5)])
-def test_sp_update_pack_matches_plain(dtype, B, C, I_pad, A, cuda):
+@pytest.mark.parametrize("edges", [False, True])
+def test_sp_update_pack_matches_plain(dtype, B, C, I_pad, A, edges, cuda):
     """`sp_update_pack` against its plain version, both dtypes, with
-    rows at the int16 rail; the dispatcher launches the kernel once."""
+    rows near the int16 rail that learn; with ``edges``, every row also
+    holds values that change without learning (int16 past the +-32000
+    rail, float32 -0.0), so the kernel must store vectors of inactive
+    rows too. The dispatcher launches the kernel once."""
     g = torch.Generator(device=cuda).manual_seed(C + A)
     if dtype == torch.int16:
         perm = torch.randint(-300, 300, (B, C, I_pad), generator=g,
@@ -456,7 +527,11 @@ def test_sp_update_pack_matches_plain(dtype, B, C, I_pad, A, cuda):
     cols = torch.stack([torch.randperm(C, generator=g, device=cuda)[:A]
                         for _ in range(B)]).int()
     cols[:, 0] = torch.arange(B, device=cuda)   # a railed row learns
-    p_ref = perm.clone()
+    if edges and dtype == torch.int16:
+        perm[:, :, 16:24], perm[:, :, 24:32] = 32767, -32768
+    elif edges:
+        perm[:, :, :32] = -0.0
+    start, p_ref = perm.clone(), perm.clone()
     want_perm, want_pack = psp.sp_update_pack_ref(p_ref, delta, cols, thr)
     before = kernels.launch_counts()
     got_perm, got_pack = psp.sp_update_pack(perm, delta, cols, thr)
@@ -466,16 +541,22 @@ def test_sp_update_pack_matches_plain(dtype, B, C, I_pad, A, cuda):
     assert torch.equal(got_perm.view(torch.uint8),
                        want_perm.view(torch.uint8))
     assert torch.equal(got_pack, want_pack) and got_pack.any()
+    if edges:
+        inactive = ~pas.column_mask_from_cols(cols, C)
+        changed = (want_perm.view(torch.uint8)
+                   != start.view(torch.uint8)).reshape(B, C, -1).any(-1)
+        assert changed[inactive].any()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,bad", [
-    ("small_table_take", "width"), ("small_table_take", "dtype"),
+    ("small_table_take", "rank"), ("small_table_take", "dtype"),
     ("sp_update_pack", "dtype"), ("sp_update_pack", "align"),
     ("sp_update_pack", "threshold")])
 def test_new_wrappers_reject_bad_inputs(kernel, bad, cuda):
-    table = torch.zeros((2, 4096 if bad == "width" else 64),
-                        dtype=torch.int32, device=cuda)
+    table = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    if bad == "rank":
+        table = table[0]
     idx = torch.zeros((2, 8, 4), dtype=torch.int32, device=cuda)
     perm = torch.zeros((2, 8, 1024), dtype=torch.int16, device=cuda)
     delta = torch.zeros((2, 1024), dtype=torch.int32, device=cuda)
@@ -493,3 +574,23 @@ def test_new_wrappers_reject_bad_inputs(kernel, bad, cuda):
         else:
             kernels.sp_update_pack_cuda(perm, delta, cols, thr)
     assert launched(before) == only()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_boost_keeps_the_contract_on_the_card(seed, cuda):
+    """ROADMAP fault k at the bench shapes (B=256, C=2048, A=41,
+    intensity 0.3, density 41/2048): the boost factor on the card within
+    1 ulp of the CPU's, the boosted overlap within 2, and the same
+    k-winner set in every stream whose top-k gap exceeds 4 ulp."""
+    cfg = bt.make_htm_config(1000, 2048, 32).sp
+    rng = np.random.default_rng(seed)
+    B, C = 256, cfg.column_dim
+    duty = rng.random((B, C), dtype=np.float32) * np.float32(3 * cfg.density)
+    duty[rng.random((B, C)) < 0.1] = 0.0
+    ov = rng.binomial(200, 0.1, (B, C)).astype(np.int32)
+    got = boost_agreement(torch.from_numpy(duty), torch.from_numpy(ov),
+                          cfg.boosting_intensity, cfg.density,
+                          cfg.active_columns, cuda)
+    assert got["ok"], got
+    assert got["near_ties"] < B

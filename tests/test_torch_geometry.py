@@ -46,30 +46,48 @@ SENTINEL = 0x7FFFFFFF
 # ---- take_small_table ------------------------------------------------
 
 
-@pytest.mark.parametrize("Wc", [1, 129, 384, 700, 768])
-def test_take_small_table_matches_jax(Wc):
+@pytest.mark.parametrize("Wc,masked", [
+    (1, False), (129, False), (384, False), (700, False), (768, False),
+    # growth keys and their index mask, as `_grow` passes them; above
+    # 2048 JAX has no Pallas kernel, only its compare-select-reduce
+    (384, True), (2049, True), (4096, True)])
+def test_take_small_table_matches_jax(Wc, masked):
     """Port (plain version and dispatcher) vs JAX `take_small_table`
-    (its compare-select-reduce on the CPU) and `small_table_take_tpu`
-    in interpret mode, with in-range, sentinel-decoded (>= Wc) and
-    negative indices: 0 outside [0, Wc) in all four."""
-    rng = np.random.RandomState(Wc)
+    (its compare-select-reduce on the CPU) and, up to Wc = 2048,
+    `small_table_take_tpu` in interpret mode: with in-range,
+    sentinel-decoded (>= Wc) and negative indices, or (``masked``) with
+    index-keyed growth keys decoded as `take_small_table(table, keys,
+    low)` against JAX's `take_small_table(table, keys & low)`: 0 outside
+    [0, Wc) in all four."""
+    rng = np.random.RandomState(Wc + masked)
     B, L, kk = 2, 13, 7
     table = rng.randint(0, 1 << 20, size=(B, Wc)).astype(np.int32)
     idx = rng.randint(0, Wc, size=(B, L, kk)).astype(np.int32)
-    low = (1 << max(1, (Wc - 1).bit_length())) - 1
+    bits = max(1, (Wc - 1).bit_length())
+    low = (1 << bits) - 1
     odd = rng.rand(B, L, kk)
-    idx[odd < 0.15] = low                      # a sentinel key's index
-    idx[(odd >= 0.15) & (odd < 0.25)] = -rng.randint(1, 300)
-    idx[:, 0, 0] = Wc                          # just past the table
-    got = pas.take_small_table_ref(torch.from_numpy(table),
-                                   torch.from_numpy(idx))
-    assert torch.equal(got, pas.take_small_table(torch.from_numpy(table),
-                                                 torch.from_numpy(idx)))
+    if masked:
+        hi = rng.randint(0, 1 << (30 - bits), size=(B, L, kk))
+        keys = ((hi << bits) | idx).astype(np.int32)
+        keys[odd < 0.15] = SENTINEL
+        mask = low
+        idx = keys & low
+    else:
+        idx[odd < 0.15] = low                  # a sentinel key's index
+        idx[(odd >= 0.15) & (odd < 0.25)] = -rng.randint(1, 300)
+        idx[:, 0, 0] = Wc                      # just past the table
+        keys, mask = idx, -1
+    t = torch.from_numpy
+    got = pas.take_small_table_ref(t(table), t(keys), mask)
+    assert torch.equal(got, pas.take_small_table(t(table), t(keys), mask))
     want = np.stack([np.asarray(jas.take_small_table(
         jnp.asarray(table[b]), jnp.asarray(idx[b]))) for b in range(B)])
     np.testing.assert_array_equal(got.numpy(), want)
     inside = (idx >= 0) & (idx < Wc)
     assert (got.numpy()[~inside] == 0).all() and inside.any()
+    assert (~inside).any() or low < Wc
+    if Wc > 16 * 128:
+        return
     for b in range(B):
         flat = np.zeros(1024, np.int32)
         flat[:L * kk] = idx[b].reshape(-1)
@@ -144,6 +162,8 @@ BIG = dict(input_dim=64, active_columns=16, segments_per_column=2,
     ((4096, 32), {}),                         # Wc = 128, full sort
     ((4096, 32), {"winner_capacity": 384}),   # JAX: split selection
     ((2048, 64), {}),                         # two bitmask words
+    # JAX: the compare-select-reduce decode above 16*128 candidates
+    ((4096, 32), {"winner_capacity": 2049}),
 ])
 def test_learning_scan_above_2_16_cells_matches_jax(geometry, caps,
                                                     monkeypatch):
@@ -157,9 +177,9 @@ def test_learning_scan_above_2_16_cells_matches_jax(geometry, caps,
     calls = []
     real = ptm.take_small_table
 
-    def counted(table, idx):
-        calls.append(tuple(idx.shape))
-        return real(table, idx)
+    def counted(table, keys, mask=-1, in_place=False):
+        calls.append(tuple(keys.shape))
+        return real(table, keys, mask, in_place)
 
     monkeypatch.setattr(ptm, "take_small_table", counted)
     B, n_learn, n_inf = 2, 12, 4
@@ -295,10 +315,14 @@ def test_synapse_activation_matches_jax(D):
 
 
 @pytest.mark.parametrize("quantized", [True, False])
-def test_sp_update_pack_matches_pallas_interpret(quantized):
+@pytest.mark.parametrize("edges", [False, True])
+def test_sp_update_pack_matches_pallas_interpret(quantized, edges):
     """`sp_update_pack_ref` against `sp_update_pack_tpu` in interpret
     mode, per stream, mirroring tests/test_pallas.py:95-134: active rows
-    updated (int16 saturating at +-32000), every row re-packed."""
+    updated (int16 saturating at +-32000), every row re-packed. With
+    ``edges``, every row also holds values that change without learning:
+    int16 past the rail (the clip moves them), float32 -0.0 (p + 0 * d is
+    +0.0 where d >= 0)."""
     rng = np.random.RandomState(3)
     B, C, I_pad, I = 2, 16, 1024, 1000
     lane = np.arange(I_pad)
@@ -310,11 +334,15 @@ def test_sp_update_pack_matches_pallas_interpret(quantized):
         perm = rng.randint(-200, 200, size=(B, C, I_pad)).astype(np.int16)
         perm[:, :, I:] = -32000
         perm[:, :3, :8] = 31998            # saturates at the rail
+        if edges:
+            perm[:, :, 8:16], perm[:, :, 16:24] = 32767, -32768
         delta = np.where(lane < I, xp * 9 - 3, 0).astype(np.int32)
         thr = 0
     else:
         perm = (rng.rand(B, C, I_pad).astype(np.float32) - 0.5) * 0.2
         perm[:, :, I:] = -1e9
+        if edges:
+            perm[:, :, :64] = -0.0
         delta = np.where(lane < I, xp * 0.045 - 0.015, 0.0).astype(
             np.float32)
         thr = 0.0
@@ -329,11 +357,15 @@ def test_sp_update_pack_matches_pallas_interpret(quantized):
                                       np.asarray(want_pack))
         np.testing.assert_array_equal(got_pack[b].numpy(), np.asarray(
             jax_pack_input(jnp.asarray(np.asarray(want_perm) >= thr))))
-    changed = (got_perm.numpy() != perm).any(-1)
-    assert changed.sum() == B * 5 and changed[np.arange(B)[:, None],
-                                              cols].all()
+    bits = got_perm.numpy().view(np.uint8) != perm.view(np.uint8)
+    changed = bits.reshape(B, C, -1).any(-1)
+    assert changed[np.arange(B)[:, None], cols].all()
+    assert changed.sum() == (B * C if edges else B * 5)
     if quantized:
         assert (got_perm.numpy() == 32000).any()
+    if edges and not quantized:
+        signs = np.signbit(got_perm.numpy()[:, :, :64])
+        assert signs.any() and not signs.all()
 
 
 def _sp_update_pack_cpu(perm, delta, cols, thr):
@@ -402,7 +434,7 @@ def test_new_cuda_wrappers_reject_cpu_tensors():
         kernels.sp_update_pack_cuda(
             torch.zeros((2, 8, 1024), dtype=torch.int16),
             torch.zeros((2, 1024), dtype=torch.int32), i, 0)
-    with pytest.raises(ValueError, match="outside"):
+    with pytest.raises(ValueError, match=r"table must be \(B, Wc\)"):
         kernels.small_table_take_cuda(
-            torch.zeros((2, 4096), dtype=torch.int32), i[..., None])
+            torch.zeros((4096,), dtype=torch.int32), i[..., None])
     assert kernels.launch_counts() == before

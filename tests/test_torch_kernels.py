@@ -196,3 +196,57 @@ def test_cuda_source_names_both_entry_points():
         assert ('#include "active_bitmap.cuh"' in src[name]) == (
             name != "small_take.cu")
     assert Path(kernels.library_path()).parent == kernels.BUILD_DIR
+
+
+# ---- the limits only the card has (README.md, port section) ----------
+
+
+def _view(*shape, dtype=torch.int32):
+    """A CPU tensor of ``shape`` that holds one element: the wrappers
+    must raise on its shape before they read it."""
+    return torch.zeros((1,) * len(shape), dtype=dtype).expand(*shape)
+
+
+def _active(B, A=3, W=1):
+    return _view(B, A), _view(B, A, W)
+
+
+LIMIT_CALLS = {
+    # C*D = 58,113 * 32 cells, one past the bitmap's 1,859,584
+    "bitmap, table pass": (lambda: kernels.act_conn_cuda(
+        _view(1, 58_113, 64), _view(1, 58_113, 64, dtype=torch.float32),
+        *_active(1), 32, 0.5, 64), "the bitmap limit"),
+    "bitmap, serving rows": (lambda: kernels.serving_activation_cuda(
+        _view(1, 4, 128), *_active(1, W=2), 32_768, 64), "the bitmap limit"),
+    "bitmap, synapse_activation": (lambda: kernels.synapse_activation_cuda(
+        _view(1, 4, 8), *_active(1, W=2), 32_768, 64), "the bitmap limit"),
+    "streams, act_frozen": (lambda: kernels.act_frozen_cuda(
+        _view(65_536, 2, 64), *_active(65_536), 32, 64),
+        "one-grid-row-a-stream limit"),
+    "streams, sp_update_pack": (lambda: kernels.sp_update_pack_cuda(
+        _view(65_536, 2, 1024, dtype=torch.int16), _view(65_536, 1024),
+        _view(65_536, 3), 0), "one-grid-row-a-stream limit"),
+    "shared memory, sp_update_pack": (lambda: kernels.sp_update_pack_cuda(
+        _view(1, 1_827_000, 1024, dtype=torch.int16), _view(1, 1024),
+        _view(1, 3), 0), "sp_update_pack shared-memory limit"),
+    "stream words": (lambda: kernels.small_table_take_cuda(
+        _view(1, 384), _view(1, 1 << 15, (1 << 15) + 1)),
+        "stream-words limit"),
+    "packed K": (lambda: kernels.act_conn_cuda(
+        _view(1, 4, 126), _view(1, 4, 126, dtype=torch.float32),
+        *_active(1), 32, 0.5, 126), "packed-K limit"),
+}
+
+
+@pytest.mark.parametrize("limit", list(LIMIT_CALLS))
+def test_card_only_limits_raise_from_shapes(limit):
+    """Each limit that only the kernels have raises a ValueError naming
+    it from the shapes alone: the tensors here are CPU views of one
+    element, which the wrappers would refuse as off the card if they
+    read them first. Nothing launches."""
+    call, name = LIMIT_CALLS[limit]
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match=name):
+        call()
+    assert kernels.launch_counts() == before
+    assert kernels.MAX_BITMAP_CELLS == 1_859_584

@@ -176,6 +176,36 @@ def test_k_winners_ties_go_to_lowest_index(k):
     assert_eq(idx[0], np.arange(k, dtype=np.int32))
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_boost_agreement_counts_ulps_against_jax(seed):
+    """`testing.float_ulps` counts the ulps between float32 values (signed
+    zeros 0 apart, across zero the sum of both sides), and
+    `testing.boost_agreement`, the card check of ROADMAP fault k, finds
+    no difference between the CPU and itself on bench-like duty cycles,
+    whose factors lie within 1 ulp of JAX's."""
+    from bithtm_tpu_torch.testing import boost_agreement, float_ulps
+
+    x = np.float32([1.0, 0.0, -0.0, 3e-38, -1e-45])
+    up = np.nextafter(x, np.float32(np.inf))
+    assert float_ulps(T(up), T(x)).tolist() == [1, 1, 1, 1, 1]
+    assert float_ulps(T(np.float32([0.0, 1e-45])),
+                      T(np.float32([-0.0, -1e-45]))).tolist() == [0, 2]
+    cfg = bt.make_htm_config(1000, 2048, 32).sp
+    rng = np.random.default_rng(seed)
+    duty = rng.random((8, 2048), dtype=np.float32) * np.float32(
+        3 * cfg.density)
+    ov = rng.binomial(200, 0.1, (8, 2048)).astype(np.int32)
+    got = boost_agreement(T(duty), T(ov), cfg.boosting_intensity,
+                          cfg.density, cfg.active_columns, "cpu")
+    assert got["ok"] and got["factor_ulps"]["0"] == got["values"]
+    assert got["boosted_ulps"]["0"] == got["values"]
+    assert got["sets_differ"] == got["order_differs"] == 0
+    factor = preg.boost_factor(T(duty), cfg.boosting_intensity, cfg.density)
+    want = jreg.boost_factor(jnp.asarray(duty), cfg.boosting_intensity,
+                             cfg.density)
+    assert int(float_ulps(factor, T(np.asarray(want))).max()) <= 1
+
+
 # ---- active-set ops --------------------------------------------------
 
 
