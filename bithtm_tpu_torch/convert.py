@@ -6,9 +6,10 @@ or any object whose ``sp`` / ``tm`` attributes carry the leaves (a JAX
 state itself works, since ``np.asarray`` reads its arrays; its random
 key is not read). A single-stream state becomes a batch of one.
 `htm_state_to_numpy` is the inverse and returns the nested mapping with
-the JAX dtypes (uint32 words restored through a view), so a round trip
-is bit-equal. `serving_table_from_numpy` / `serving_table_to_numpy` do
-the same for a compact serving table (`ops.serving.ServingTable`).
+the JAX dtypes (uint32 words restored through a view), copied, so a
+round trip is bit-equal and a later step does not change it.
+`serving_table_from_numpy` / `serving_table_to_numpy` do the same for a
+compact serving table (`ops.serving.ServingTable`).
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ def _leaf_to_torch(name: str, x, batched: bool, device) -> torch.Tensor:
 
 
 def _leaf_to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
-    a = t.detach().cpu().numpy()
+    # a copy even of a CPU tensor: a step updates the tables in place
+    a = t.detach().to("cpu", copy=True).numpy()
     return a.view(np.uint32) if name in U32_LEAVES else a
 
 

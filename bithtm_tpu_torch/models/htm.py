@@ -66,25 +66,56 @@ def htm_step(cfg: HTMConfig, state: HTMState, input_bits: torch.Tensor,
              learning: bool = True, compute_winner: bool = True,
              detailed_metrics: bool = True, draws=None,
              dense_outputs: bool = True, frozen_word=None,
-             serving_table=None) -> tuple[HTMState, HTMOutput]:
+             serving_table=None, boosting=None, inhibition=None,
+             temporal_memory=None, overlap=None, proximal_update=None,
+             distal_forward=None) -> tuple[HTMState, HTMOutput]:
     """One timestep of B streams: ``input_bits`` is (B, I) bool.
     ``draws`` is a draw provider (`rng.TorchDraws` on the state's device
     when None); it is stepped once per call, as the JAX step splits its
     key once per step. ``frozen_word`` and ``serving_table`` select the
-    inference forward of `tm_step`."""
+    inference forward of `tm_step`.
+
+    The component hooks of `htm.py:48-88`: ``boosting``, ``inhibition``,
+    ``overlap`` and ``proximal_update`` go to `sp_step`,
+    ``distal_forward`` to `tm_step` (inference only), and
+    ``temporal_memory`` replaces `tm_step` itself:
+
+      temporal_memory(tm_cfg, tm_state, draws, active_cols (B, A),
+                      learning, compute_winner) -> (tm_state, TMOutput)
+
+    with this step's draws (None where the step draws nothing) in place
+    of the JAX key. A host-side TM plugs in through
+    `host_hooks.HostTemporalMemory`."""
     B = state.batch
     if input_bits.shape != (B, cfg.input_dim):
         raise ValueError(f"htm_step expects ({B}, {cfg.input_dim}) inputs, "
                          f"got {tuple(input_bits.shape)}")
+    if (frozen_word is not None or serving_table is not None
+            or distal_forward is not None) and temporal_memory is not None:
+        raise ValueError(
+            "frozen_word/serving_table/distal_forward configure the "
+            "built-in tm_step; a temporal_memory hook would silently "
+            "ignore them — pass them to the hook yourself instead")
     if draws is None:
         draws = TorchDraws(cfg.tm, B, state.tm.step.device)
     step_draws = draws.step(need=learning or compute_winner)
-    sp_state, sp_out = sp_step(cfg.sp, state.sp, input_bits, learning)
-    tm_state, tm_out = tm_step(
-        cfg.tm, state.tm, step_draws, sp_out.active_columns, learning,
-        compute_winner, detailed_metrics=detailed_metrics,
-        col_active=sp_out.active_mask, dense_outputs=dense_outputs,
-        frozen_word=frozen_word, serving_table=serving_table)
+    sp_state, sp_out = sp_step(cfg.sp, state.sp, input_bits, learning,
+                               boosting=boosting, inhibition=inhibition,
+                               overlap=overlap,
+                               proximal_update=proximal_update)
+    if temporal_memory is None:
+        # the SP's mask is the stock k_winners one only without an
+        # inhibition hook; a hook's mask feeds the duty cycle alone
+        tm_state, tm_out = tm_step(
+            cfg.tm, state.tm, step_draws, sp_out.active_columns, learning,
+            compute_winner, detailed_metrics=detailed_metrics,
+            col_active=sp_out.active_mask if inhibition is None else None,
+            dense_outputs=dense_outputs, frozen_word=frozen_word,
+            serving_table=serving_table, distal_forward=distal_forward)
+    else:
+        tm_state, tm_out = temporal_memory(
+            cfg.tm, state.tm, step_draws, sp_out.active_columns, learning,
+            compute_winner)
     return (HTMState(sp=sp_state, tm=tm_state),
             HTMOutput(sp_out, tm_out, _step_metrics(cfg, sp_out, tm_out)))
 

@@ -108,15 +108,37 @@ def sp_update_pack(permanence: torch.Tensor, delta_row: torch.Tensor,
 
 
 def sp_step(cfg: SPConfig, state: SPState, input_bits: torch.Tensor,
-            learning: bool) -> tuple[SPState, SPOutput]:
-    """One SP timestep for B streams: ``input_bits`` is (B, I) bool."""
-    ov = _overlaps(state.connected, input_bits)
-    boosted = boost(ov, state.duty_cycle, cfg.boosting_intensity,
-                    cfg.density)
-    active_columns, active_mask = k_winners(boosted, cfg.active_columns)
+            learning: bool, boosting=None, inhibition=None, overlap=None,
+            proximal_update=None) -> tuple[SPState, SPOutput]:
+    """One SP timestep for B streams: ``input_bits`` is (B, I) bool.
+
+    The component hooks of `spatial_pooler.py:39-61`, with the stream
+    axis; None selects the built-in rule:
+
+      boosting(cfg, overlaps (B, C) i32, duty_cycle (B, C) f32) -> (B, C) f32
+      inhibition(cfg, boosted (B, C) f32) -> ((B, A) i32 cols, (B, C) mask)
+      overlap(cfg, state, input_bits (B, I) bool) -> (B, C) overlaps
+      proximal_update(cfg, state, input_bits, active_columns (B, A) i32)
+          -> (permanence, connected)  # the state's new tables"""
+    if overlap is None:
+        ov = _overlaps(state.connected, input_bits)
+    else:
+        ov = overlap(cfg, state, input_bits)
+    if boosting is None:
+        boosted = boost(ov, state.duty_cycle, cfg.boosting_intensity,
+                        cfg.density)
+    else:
+        boosted = boosting(cfg, ov, state.duty_cycle)
+    if inhibition is None:
+        active_columns, active_mask = k_winners(boosted, cfg.active_columns)
+    else:
+        active_columns, active_mask = inhibition(cfg, boosted)
 
     permanence, connected = state.permanence, state.connected
-    if learning:
+    if learning and proximal_update is not None:
+        permanence, connected = proximal_update(cfg, state, input_bits,
+                                                active_columns)
+    elif learning:
         idx = active_columns.long()
         rows = permanence.gather(
             1, idx[:, :, None].expand(-1, -1, permanence.shape[-1]))

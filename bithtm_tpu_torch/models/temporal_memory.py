@@ -49,6 +49,7 @@ from ..ops.active_set import (
     pack_bits,
     percell_max,
     percell_sum,
+    prediction_dense,
     prediction_words,
     rank_ascending,
     seg_counts_packed,
@@ -82,6 +83,20 @@ class TMOutput(NamedTuple):
     prev_col_prediction: torch.Tensor      # (B, C) bool any cell predicted
     bursting_columns: torch.Tensor         # (B, C) bool
     metrics: dict
+
+
+class TMDebug(NamedTuple):
+    """The decision trace of a step (`tm_step(return_debug=True)`), for
+    the oracle (`bithtm_tpu_torch/oracle`): every choice that depends on
+    a random draw, per stream. All False on a step that does not learn."""
+
+    winner_mask: torch.Tensor        # (B, N) bool
+    learning_segments: torch.Tensor  # (B, C, G) bool, new ones included
+    punished_segments: torch.Tensor  # (B, C, G) bool
+    new_segments: torch.Tensor       # (B, C, G) bool, allocated this step
+    grown_mask: torch.Tensor         # (B, C, G, K) bool, slots grown
+    synapse_cell: torch.Tensor       # (B, C, G, K) int32 after the step
+    seg_cell: torch.Tensor           # (B, C, G) int32 after the step
 
 
 def _rows(table: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
@@ -231,8 +246,9 @@ def _grow(cfg: TMConfig, rnd, syn_rows, perm_rows, learn_rows,
     learning segment grows clip(samp - active potential, 0,
     min(samp, n_winners)) random candidates that it does not already
     target, into its free slots. The growing segments are compacted to
-    an L-wide list first. Returns (syn_rows, perm_rows, n_grown,
-    overflow, n_winners_dropped, n_growth_dropped), counts (B,)."""
+    an L-wide list first. Returns (syn_rows, perm_rows, wrote (B, A, G,
+    K) the slots grown, n_grown, overflow, n_winners_dropped,
+    n_growth_dropped), counts (B,)."""
     C, D, G, K = (cfg.column_dim, cfg.cell_dim, cfg.segments_per_column,
                   cfg.synapse_capacity)
     Wc, L = cfg.resolved_winner_capacity, cfg.resolved_growth_capacity
@@ -321,18 +337,21 @@ def _grow(cfg: TMConfig, rnd, syn_rows, perm_rows, learn_rows,
         -1, dtype=torch.int32)
     n_growth_dropped = (learn_flat.sum(-1, dtype=torch.int32)
                         - lvalid.sum(-1, dtype=torch.int32))
-    return (syn_rows, perm_rows, wrote_l.sum((1, 2), dtype=torch.int32),
-            overflow,
+    return (syn_rows, perm_rows, wrote,
+            wrote_l.sum((1, 2), dtype=torch.int32), overflow,
             n_winners - n_winners_eff, n_growth_dropped)
 
 
 def _learn(cfg: TMConfig, state: TMState, draws: Draws, active_cols,
-           pred_rows, winner_rows, cell_max_j, seg_j):
+           pred_rows, winner_rows, cell_max_j, seg_j,
+           return_debug: bool = False):
     """Step 3 minus punishment, in active-column row space
     (`temporal_memory.py:501-643`, `projections.py:257-293`). A no-op on
     step 0 (`projections.py:258-259`). Writes the rows back into
     ``state.synapse_cell`` / ``state.synapse_perm`` in place and returns
-    (seg_cell, metrics)."""
+    (seg_cell, metrics, debug): ``debug`` is None unless
+    ``return_debug``, else the (B, C, G) ``learning_segments`` and
+    ``new_segments`` and the (B, C, G, K) ``grown_mask``."""
     D, G, K = cfg.cell_dim, cfg.segments_per_column, cfg.synapse_capacity
     B, A = active_cols.shape
     has_prev = (state.step > 0)[:, None, None]
@@ -377,7 +396,7 @@ def _learn(cfg: TMConfig, state: TMState, draws: Draws, active_cols,
     syn_rows = torch.where(dead_rows, -1, syn_rows)
     perm_rows = torch.where(dead_rows, -1.0, perm_rows)
 
-    (syn_rows, perm_rows, n_grown, overflow, winners_dropped,
+    (syn_rows, perm_rows, wrote, n_grown, overflow, winners_dropped,
      growth_dropped) = _grow(cfg, draws.rnd, syn_rows, perm_rows,
                              learn_rows, act_prev_rows, state.active_cols,
                              state.winner_bits)
@@ -397,13 +416,27 @@ def _learn(cfg: TMConfig, state: TMState, draws: Draws, active_cols,
         "tm_dropped_winner_candidates": winners_dropped,
         "tm_dropped_growth_segments": growth_dropped,
     }
-    return seg_cell, metrics
+    debug = None
+    if return_debug:
+        C = cfg.column_dim
+        debug = dict(learning_segments=_dense(active_cols, learn_rows, C),
+                     new_segments=_dense(active_cols, new_seg, C),
+                     grown_mask=_dense(active_cols, wrote, C))
+    return seg_cell, metrics, debug
 
 
 def _check_forward_options(learning: bool, compute_winner: bool,
                            detailed_metrics: bool, frozen_word,
-                           serving_table) -> None:
-    """The guards of `temporal_memory.py:759-776`."""
+                           serving_table, distal_forward=None) -> None:
+    """The guards of `temporal_memory.py:759-784`."""
+    if distal_forward is not None and (
+            learning or frozen_word is not None or serving_table is not None):
+        raise ValueError(
+            "distal_forward substitutes the inference forward pass only "
+            "(the learning path fuses its forward into the punish/death "
+            "table kernel — substitute the whole step via the "
+            "temporal_memory= hook to change learning-mode semantics); "
+            "it also cannot combine with frozen_word/serving_table")
     if serving_table is not None:
         if learning or compute_winner:
             raise ValueError(
@@ -440,21 +473,50 @@ def tm_resume(cfg: TMConfig, state: TMState) -> TMState:
                                matching_word=pack_bits(matching)[..., 0])
 
 
+def tm_segment_observables(cfg: TMConfig, state: TMState) -> dict:
+    """The per-segment forward observables of a post-step state
+    (`temporal_memory.py:646-681`): decoded from the packed activity the
+    last forward pass cached, the potential and connected-active synapse
+    counts of every segment wrt the previous step's active cells, and
+    the matching and active masks they give. Returns ``{"potential",
+    "connected_active", "matching", "active"}`` as (..., C, G)
+    tensors."""
+    G, K = cfg.segments_per_column, cfg.synapse_capacity
+    act = state.synapse_act
+    potential, connected = seg_counts_packed_rows(
+        act.reshape(*act.shape[:-1], G, K), K)
+    matching = potential >= cfg.segment_matching_threshold
+    active = matching & (connected >= cfg.segment_activation_threshold)
+    return {"potential": potential, "connected_active": connected,
+            "matching": matching, "active": active}
+
+
 def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             active_cols: torch.Tensor, learning: bool = True,
             compute_winner: bool = True, detailed_metrics: bool = True,
             col_active: torch.Tensor | None = None,
             dense_outputs: bool = True,
             frozen_word: torch.Tensor | None = None,
-            serving_table: ServingTable | None = None
-            ) -> tuple[TMState, TMOutput]:
+            serving_table: ServingTable | None = None,
+            return_debug: bool = False, epsilon: float | None = None,
+            distal_forward=None):
     """One TM timestep for B streams (`temporal_memory.py:713-996`).
+    Returns (state, `TMOutput`), and the step's `TMDebug` third with
+    ``return_debug``.
 
     ``active_cols`` (B, A) is the SP's top-k list in any order (sorted
     here). ``draws`` holds this step's random numbers (`rng.Draws`); it
     may be None when neither ``learning`` nor ``compute_winner`` is set.
     ``col_active`` optionally passes the matching (B, C) mask. With
     ``dense_outputs=False`` the (B, N) masks of `TMOutput` are None.
+    ``epsilon`` overrides ``cfg.epsilon`` (the tie tolerance of the
+    best-matching segment) for this call.
+
+    ``distal_forward(cfg, state, active_cols (B, A), act_bits (B, A, W))
+    -> (act_now, potential, connected)`` (inference only) replaces the
+    forward pass over the synapse tables: the packed activity (B, C, G*K)
+    and the (B, C, G) per-segment counts; the thresholds and the
+    prediction stay built in.
 
     ``frozen_word`` (inference only): a `pack_frozen_table` (B, C, J)
     word table of this state's synapse tables; the forward pass reads it
@@ -467,7 +529,9 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
     and ``matching_word`` holds the connected-only matching flags, until
     `tm_resume` re-derives both."""
     _check_forward_options(learning, compute_winner, detailed_metrics,
-                           frozen_word, serving_table)
+                           frozen_word, serving_table, distal_forward)
+    if epsilon is not None and epsilon != cfg.epsilon:
+        cfg = dataclasses.replace(cfg, epsilon=float(epsilon))
     C, D, G, K = (cfg.column_dim, cfg.cell_dim, cfg.segments_per_column,
                   cfg.synapse_capacity)
     B, A = active_cols.shape
@@ -495,10 +559,11 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
     act_rows = pred_rows | col_burst[..., None]
     act_bits = pack_bits(act_rows)                              # (B, A, W)
 
+    debug = None
     if learning:
-        seg_cell, learn_metrics = _learn(
+        seg_cell, learn_metrics, debug = _learn(
             cfg, state, draws, active_cols, pred_rows, winner_rows,
-            cell_max_j, seg_j)
+            cell_max_j, seg_j, return_debug)
         # punish the matching segments of inactive columns
         # (projections.py:269,290-293), fused into the table pass
         pun_word = torch.where(
@@ -516,6 +581,10 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
                 pun_word).sum(-1, dtype=torch.int32)
             learn_metrics["tm_punished_columns"] = (pun_word != 0).sum(
                 -1, dtype=torch.int32)
+        if return_debug:
+            g = torch.arange(G, dtype=torch.int32, device=pun_word.device)
+            debug["punished_segments"] = (
+                (pun_word[..., None] >> g) & 1) != 0
     elif serving_table is not None:
         # compact serving forward: connected-only counts. seg_active is
         # exact (connected-active >= theta_a implies potential >= theta_a
@@ -532,14 +601,18 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
         # inference: the tables are frozen; only the forward pass runs
         perm_full, seg_cell, learn_metrics = (
             state.synapse_perm, state.seg_cell, {})
-        if frozen_word is not None:
-            act_now = synapse_activation_frozen(frozen_word, active_cols,
-                                                act_bits, D, K)
+        if distal_forward is not None:
+            act_now, potential, connected = distal_forward(
+                cfg, state, active_cols, act_bits)
         else:
-            act_now = synapse_activation_conn(
-                state.synapse_cell, perm_full, active_cols, act_bits, D,
-                cfg.permanence_threshold, K)
-        potential, connected = seg_counts_packed(act_now, G, K)
+            if frozen_word is not None:
+                act_now = synapse_activation_frozen(frozen_word, active_cols,
+                                                    act_bits, D, K)
+            else:
+                act_now = synapse_activation_conn(
+                    state.synapse_cell, perm_full, active_cols, act_bits, D,
+                    cfg.permanence_threshold, K)
+            potential, connected = seg_counts_packed(act_now, G, K)
         matching = potential >= cfg.segment_matching_threshold
         seg_active = matching & (
             connected >= cfg.segment_activation_threshold)
@@ -571,17 +644,18 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             tm_matching_segments=matching.sum((1, 2), dtype=torch.int32),
             tm_pool_occupancy=(seg_cell < D).sum((1, 2), dtype=torch.int32),
         )
+    N = C * D
     dense = {k: None for k in ("active_mask", "winner_mask", "prediction",
                                "prev_prediction")}
+    if dense_outputs or return_debug:
+        dense["winner_mask"] = _dense(active_cols, winner_rows,
+                                      C).reshape(B, N)
     if dense_outputs:
-        N = C * D
-        dense = dict(
+        dense.update(
             active_mask=_dense(active_cols, act_rows, C).reshape(B, N),
-            winner_mask=_dense(active_cols, winner_rows, C).reshape(B, N),
-            prediction=unpack_bits(prediction.transpose(1, 2),
-                                   D).reshape(B, N),
-            prev_prediction=unpack_bits(prev_prediction.transpose(1, 2),
-                                        D).reshape(B, N),
+            prediction=prediction_dense(prediction, D).reshape(B, N),
+            prev_prediction=prediction_dense(prev_prediction,
+                                             D).reshape(B, N),
         )
     out = TMOutput(
         prev_col_prediction=(prev_prediction != 0).any(-2),
@@ -589,4 +663,16 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
         metrics=metrics,
         **dense,
     )
-    return new_state, out
+    if not return_debug:
+        return new_state, out
+    if debug is None:   # no learning: no decision was made
+        debug = dict(
+            learning_segments=torch.zeros_like(seg_cell, dtype=torch.bool),
+            punished_segments=torch.zeros_like(seg_cell, dtype=torch.bool),
+            new_segments=torch.zeros_like(seg_cell, dtype=torch.bool),
+            grown_mask=torch.zeros_like(new_state.synapse_cell,
+                                        dtype=torch.bool).reshape(B, C, G, K))
+    return new_state, out, TMDebug(
+        winner_mask=dense["winner_mask"],
+        synapse_cell=new_state.synapse_cell.reshape(B, C, G, K).clone(),
+        seg_cell=seg_cell, **debug)

@@ -22,6 +22,7 @@ the same rule (`small_table_take` kernel, `take_small_table_ref`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .bitops import wrap_u32
@@ -104,6 +105,49 @@ def prediction_words(seg_cell: torch.Tensor, seg_active: torch.Tensor,
     return torch.stack(words, dim=-2)
 
 
+def prediction_dense(pred_words: torch.Tensor, cell_dim: int
+                     ) -> torch.Tensor:
+    """(..., W, C) packed prediction -> (..., C, D) dense bool."""
+    return unpack_bits(pred_words.transpose(-1, -2), cell_dim)
+
+
+def _host_u32(words) -> np.ndarray:
+    """Host words as uint32: the port's int32 words (and a CPU tensor's)
+    viewed with the same bits."""
+    if isinstance(words, torch.Tensor):
+        words = words.detach().cpu().numpy()
+    words = np.asarray(words)
+    return words.view(np.uint32) if words.dtype == np.int32 else words
+
+
+def prediction_dense_host(pred_words, cell_dim: int) -> np.ndarray:
+    """NumPy form of `prediction_dense` for host-side readers (the oracle
+    bridge, the state checks): (..., W, C) words -> (..., C, D) bool."""
+    words = _host_u32(pred_words)                      # (..., W, C)
+    d = np.arange(cell_dim)
+    sel = np.take(words, d // 32, axis=-2)             # (..., D, C)
+    dense = (sel >> (d % 32).astype(np.uint32)[..., :, None]) & 1
+    return np.swapaxes(dense, -1, -2).astype(bool)     # (..., C, D)
+
+
+def matching_dense_host(matching_word, segments_per_column: int
+                        ) -> np.ndarray:
+    """NumPy form: (..., C) packed matching word -> (..., C, G) dense
+    bool (bit g = segment g matching). The one host-side decoder of the
+    carried `matching_word` (the oracle bridge and the state checks)."""
+    word = _host_u32(matching_word)
+    g = np.arange(segments_per_column).astype(np.uint32)
+    return ((word[..., :, None] >> g) & 1) != 0
+
+
+def dense_from_compact(cols: torch.Tensor, bits: torch.Tensor,
+                       column_dim: int, cell_dim: int) -> torch.Tensor:
+    """Compact (B, A) cols + (B, A, W) bits -> dense (B, C, D) bool."""
+    rows = unpack_bits(bits, cell_dim)                          # (B, A, D)
+    out = rows.new_zeros((rows.shape[0], column_dim, cell_dim))
+    return out.scatter_(1, cols.long()[..., None].expand_as(rows), rows)
+
+
 def column_mask_from_cols(cols: torch.Tensor, column_dim: int
                           ) -> torch.Tensor:
     """(..., A) column ids -> (..., C) bool mask."""
@@ -116,12 +160,8 @@ def active_cell_mask(cols: torch.Tensor, bits: torch.Tensor,
                      column_dim: int, cell_dim: int) -> torch.Tensor:
     """Compact (B, A) cols + (B, A, W) bits -> dense (B, C*D) bool mask
     of active cells, indexed by global cell id c*D + d."""
-    B, A = cols.shape
-    rows = unpack_bits(bits, cell_dim)                         # (B, A, D)
-    mask = torch.zeros((B, column_dim, cell_dim), dtype=torch.bool,
-                       device=cols.device)
-    mask.scatter_(1, cols.long()[:, :, None].expand(B, A, cell_dim), rows)
-    return mask.reshape(B, column_dim * cell_dim)
+    return dense_from_compact(cols, bits, column_dim, cell_dim).reshape(
+        cols.shape[0], column_dim * cell_dim)
 
 
 def cells_active(cell: torch.Tensor, cols, bits, column_dim: int,

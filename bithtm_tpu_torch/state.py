@@ -120,3 +120,10 @@ def htm_init_batch(cfg: HTMConfig, batch: int,
     return HTMState(sp=sp_init(cfg.sp, batch, generator, device),
                     tm=tm_init(cfg.tm, batch, device))
 
+
+def htm_init(cfg: HTMConfig, generator: torch.Generator | None = None,
+             device=None) -> HTMState:
+    """A single stream: `htm_init_batch` at B=1. The port's step is
+    batched, so a single stream is a batch of one throughout."""
+    return htm_init_batch(cfg, 1, generator, device)
+

@@ -49,9 +49,11 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -98,6 +100,7 @@ BATCH_16K = 64
 TUNED_16K = dict(winner_capacity=384, growth_capacity=336)
 LEARN_16K, CHUNK_16K, INFER_16K, SERVE_16K = 512, 128, 16, 32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {
     "table_update": "bithtm_tpu_torch/csrc/table_pass.cu",
     "act_conn": "bithtm_tpu_torch/csrc/table_pass.cu",
@@ -293,6 +296,7 @@ def check_kernels(dev) -> dict:
     del f_ref, f_k, s_ref, s_k
     out["sp_update_pack"] = check_sp_update_pack(dev)
     out["small_table_take"] = check_small_table_take(dev)
+    out["reference_stack"] = check_reference_kernels(dev)
     return out
 
 
@@ -1346,6 +1350,276 @@ def run_16k(dev) -> tuple[dict, dict]:
     return launches, rows
 
 
+def check_reference_kernels(dev) -> dict:
+    """`table_update` and `act_conn` against their plain versions at the
+    reference stack's table (G=8, K=48, J=384, the `act_scale(48)` u8
+    packing; C=2048, D=32, A=41) at B=1, the single-stream API's batch,
+    and B=256: bit-equal, with the times and bound of `kernel_row` and
+    the grid each launched."""
+    C, D, G, K, A = 2048, 32, 8, 48, 41
+    thr, pun = 0.5, 0.01
+    rows = {}
+    for B in (1, BATCH):
+        x = table_inputs(B + 48, B, C, G, K, D, A, device=dev)
+        syn, act_prev, pun_word = x["syn"], x["act_prev"], x["pun_word"]
+        cols, bits, perm = x["cols"], x["bits"], x["perm"]
+        p_ref, p_k = perm.clone(), perm.clone()
+        v_ref = pas.table_update_ref(syn, p_ref, act_prev, pun_word, cols,
+                                     bits, D, K, pun, thr)
+        v_k = kernels.table_update_cuda(syn, p_k, act_prev, pun_word, cols,
+                                        bits, D, K, pun, thr)
+        c_ref = pas.synapse_activation_conn_ref(syn, perm, cols, bits, D,
+                                                thr, K)
+        c_k = kernels.act_conn_cuda(syn, perm, cols, bits, D, thr, K)
+        torch.cuda.synchronize()
+        require(bool((v_ref > 1).any()) and bool((p_ref != perm).any()),
+                f"the reference-stack inputs at B={B} exercise connected "
+                f"and punished slots")
+        require(torch.equal(v_k, v_ref) and torch.equal(
+            p_k.view(torch.int32), p_ref.view(torch.int32)),
+            f"table_update == plain at the reference stack, B={B}")
+        require(torch.equal(c_k, c_ref),
+                f"act_conn == plain at the reference stack, B={B}")
+        punished = int((p_ref != perm).sum())
+        at = f"B={B} C={C} G={G} K={K} D={D} A={A}, the reference stack"
+        p = perm.clone()
+        rows[f"table_update B={B}"] = kernel_row(
+            "table_update",
+            lambda: kernels.table_update_cuda(syn, p, act_prev, pun_word,
+                                              cols, bits, D, K, pun, thr),
+            lambda: pas.table_update_ref(syn, p, act_prev, pun_word, cols,
+                                         bits, D, K, pun, thr),
+            nbytes(syn, perm, act_prev, pun_word, cols, bits, v_ref)
+            + 4 * punished, at, grid=table_grid(True, syn, D))
+        rows[f"act_conn B={B}"] = kernel_row(
+            "act_conn",
+            lambda: kernels.act_conn_cuda(syn, perm, cols, bits, D, thr, K),
+            lambda: pas.synapse_activation_conn_ref(syn, perm, cols, bits, D,
+                                                    thr, K),
+            nbytes(syn, perm, cols, bits, c_ref), at,
+            grid=table_grid(False, syn, D))
+        del x, syn, act_prev, pun_word, cols, bits, perm, p, p_ref, p_k
+        del v_ref, v_k, c_ref, c_k
+    print("reference-stack kernels: " + json.dumps(rows))
+    return rows
+
+
+# the single-stream reference API at the README's defaults (1000 inputs,
+# 2048 columns x 32 cells: A=41, G=8, K=48, float32 SP, evict), on
+# example.py's input recipe (density 0.2, 5% noise)
+REFERENCE = dict(input_dim=1000, column_dim=2048, cell_dim=32)
+# B=1 learning through the wrapper: epochs of example.py's 100 patterns
+# (a synapse grows at 0.21 and connects at 0.5 after three reinforcements,
+# so a pattern is first predicted on its fifth visit), a checkpoint after
+# SAVE_EPOCHS of them, then inference steps
+B1_EPOCHS, B1_PATTERNS, B1_SAVE_EPOCHS, B1_INFER = 6, 100, 5, 16
+# the oracle gate: learning then inference steps on the learned B=1
+# state, where segments grow, are reinforced and are punished (from a
+# fresh state, 24 learning steps over 6 patterns grew segments and
+# reinforced none)
+ORACLE_LEARN, ORACLE_INFER = 24, 4
+CLI_ARGS = ["--epochs", "1", "--input_patterns", "20", "--batch", "4",
+            "--scan", "--quiet"]
+
+
+def run_reference_api(dev) -> dict:
+    """The single-stream reference API on the card at the README's
+    defaults (`HierarchicalTemporalMemory(1000, 2048, 32)`), each part
+    with the launch counts set to 0 just before it and read just after:
+
+    (a) B=1 learning through the wrapper: B1_EPOCHS epochs of 100
+        patterns (ms/step each, host time, synchronized), then B1_INFER
+        inference steps; `table_update` once a learning step, `act_conn`
+        once an inference step, no other kernel; bursting falls. A device
+        profile of 16 more learning steps on (b)'s wrapper.
+    (b) checkpoints: saved after B1_SAVE_EPOCHS epochs of (a), restored
+        into a fresh wrapper that runs the rest: every leaf and metric
+        equal to (a)'s uninterrupted run.
+    (c) the oracle gate: `example.oracle_checked_run` (the CLI's
+        `--oracle`) from (a)'s learned state, the oracle built from it,
+        ORACLE_LEARN learning then ORACLE_INFER inference steps of the
+        next epoch, every step judged by the port's NumPy oracle; the
+        same launch rule; segments grown, reinforced and punished.
+    (d) the CLI: `python -m bithtm_tpu_torch.example` with CLI_ARGS and a
+        checkpoint, then again resuming from it: rc 0, the timesteps/s
+        line.
+
+    Also prints the small drive recipe's metrics through the wrapper.
+    Returns the launch counts of (a) and (c)."""
+    from bithtm_tpu_torch import example
+    from bithtm_tpu_torch.utils import checkpoint
+
+    cfg = bt.make_htm_config(**REFERENCE)
+    A, I = cfg.sp.active_columns, cfg.input_dim
+    require((A, cfg.tm.segments_per_column, cfg.tm.synapse_capacity,
+             cfg.sp.permanence_dtype, cfg.tm.allocation_policy)
+            == (41, 8, 48, "float32", "evict"),
+            "the README's defaults are the reference stack")
+    out = {}
+
+    # (a) B=1 learning through the wrapper, with (b)'s checkpoint
+    rng = np.random.RandomState(1)
+    pats = rng.rand(B1_PATTERNS, I) < 0.2
+    T = B1_EPOCHS * B1_PATTERNS
+    xs = torch.from_numpy(example.noisy_inputs(
+        rng, pats, B1_EPOCHS + 1, 0.05)).to(dev)
+    htm = bt.HierarchicalTemporalMemory(**REFERENCE, seed=1, device=dev)
+    tmp = tempfile.TemporaryDirectory(prefix=".smoke_", dir=REPO)
+    ckpt = os.path.join(tmp.name, "b1")
+    metrics, epoch_ms = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for epoch in range(B1_EPOCHS):
+        if epoch == B1_SAVE_EPOCHS:
+            checkpoint.save(ckpt, htm.state, htm.generator)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in xs[epoch * B1_PATTERNS:(epoch + 1) * B1_PATTERNS]:
+            htm.process(x)
+            metrics.append(htm.last_metrics)
+        torch.cuda.synchronize()
+        epoch_ms.append(1e3 * (time.perf_counter() - t0) / B1_PATTERNS)
+    learned = copy.deepcopy(htm.state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    infer = []
+    for x in xs[T:T + B1_INFER]:
+        htm.process(x, learning=False)
+        infer.append(htm.last_metrics)
+    torch.cuda.synchronize()
+    infer_ms = 1e3 * (time.perf_counter() - t0) / B1_INFER
+    out["b1"] = kernels.launch_counts()
+    require(out["b1"] == only(table_update=T, act_conn=B1_INFER),
+            f"B=1 learning launches table_update once a learning step and "
+            f"act_conn once an inference step, got {out['b1']}")
+
+    def epoch_mean(k, e):
+        return statistics.mean(m[k] for m in
+                               metrics[e * B1_PATTERNS:(e + 1) * B1_PATTERNS])
+
+    burst = [epoch_mean("bursting", e) for e in range(B1_EPOCHS)]
+    correct = [epoch_mean("correct", e) for e in range(B1_EPOCHS)]
+    require(burst[-1] < burst[0] and correct[-1] > correct[0],
+            f"B=1 learning: bursting falls and correct rises over the "
+            f"epochs: {burst}, {correct}")
+    print(f"B=1 learning through HierarchicalTemporalMemory({I}, "
+          f"{cfg.column_dim}, {cfg.cell_dim}) (A={A}, G=8, K=48, float32 "
+          f"SP), {B1_PATTERNS} patterns: "
+          + "; ".join(f"epoch {e}: {epoch_ms[e]:.3f} ms/step, bursting "
+                      f"{burst[e]:.2f}, correct {correct[e]:.2f}"
+                      for e in range(B1_EPOCHS))
+          + f"; inference {infer_ms:.3f} ms/step, correct "
+          f"{statistics.mean(m['correct'] for m in infer):.2f} of {A}; "
+          f"launches {out['b1']}")
+
+    # (b) restore into a fresh wrapper and run the rest
+    fresh = bt.HierarchicalTemporalMemory(**REFERENCE, seed=99,
+                                          device=dev)
+    fresh.state = checkpoint.restore(ckpt, fresh.state, fresh.generator)
+    T0 = B1_SAVE_EPOCHS * B1_PATTERNS
+    for t in range(T0, T):
+        fresh.process(xs[t])
+        require(fresh.last_metrics == metrics[t],
+                f"the restored wrapper's step {t} metrics == the "
+                f"uninterrupted run's")
+    diff = differing_leaves(fresh.state, learned)
+    require(not diff, f"restored -> {T - T0} steps == uninterrupted, "
+            f"every leaf; differ: {diff}")
+    print(f"checkpoint: saved after step {T0} on the card, restored into a "
+          f"fresh wrapper, {T - T0} more steps: every leaf and metric equal "
+          f"to the uninterrupted run")
+
+    # the device time of a B=1 learning step, on the restored wrapper
+    more = xs[T:T + 2 * PROFILED_STEPS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in more[:PROFILED_STEPS]:
+        fresh.process(x)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0) / PROFILED_STEPS
+    print(f"profile of {PROFILED_STEPS} B=1 learning steps after step "
+          f"{T + PROFILED_STEPS}, top device ops:")
+    busy, n_launch = device_profile(
+        lambda: [fresh.process(x) for x in more[PROFILED_STEPS:]],
+        PROFILED_STEPS, 10)
+    print(f"  device busy {busy:.3f} ms/step, {n_launch:.1f} kernel "
+          f"launches/step; {plain_ms:.3f} ms/step unprofiled (the "
+          f"{PROFILED_STEPS} steps before): busy share "
+          f"{busy / plain_ms:.3f}")
+    # (c) the oracle gate, on the learned state and the next epoch
+    n = ORACLE_LEARN + ORACLE_INFER
+    sums: dict[str, int] = {}
+
+    def add(t, tm_out):
+        for k, v in tm_out.metrics.items():
+            sums[k] = sums.get(k, 0) + int(v.sum())
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    gate = example.oracle_checked_run(
+        cfg, xs[T:T + n].cpu().numpy(),
+        [True] * ORACLE_LEARN + [False] * ORACLE_INFER, 2, dev, add,
+        state=learned)
+    out["oracle"] = kernels.launch_counts()
+    require(out["oracle"] == only(table_update=ORACLE_LEARN,
+                                  act_conn=ORACLE_INFER),
+            f"the oracle gate launches table_update once a learning step "
+            f"and act_conn once an inference step, got {out['oracle']}")
+    reinforced = sums["tm_learning_segments"] - sums["tm_new_segments"]
+    require(sums["tm_grown_synapses"] > 0 and reinforced > 0
+            and sums["tm_punished_segments"] > 0,
+            f"the gate grows, reinforces and punishes segments: {sums}")
+    print(f"oracle gate on {torch.cuda.get_device_name(0)} at {I} -> "
+          f"{cfg.column_dim}x{cfg.cell_dim} (A={A}, G=8, K=48, float32 SP), "
+          f"from the state learned over {T} steps: {gate['steps']} steps "
+          f"({ORACLE_LEARN} learning, {ORACLE_INFER} inference), every step "
+          f"bit-exact against the port's BAMI oracle; port steps "
+          f"{gate['port_s']:.2f} s, oracle {gate['oracle_s']:.2f} s "
+          f"({gate['oracle_s'] / gate['steps']:.2f} s a step, building it "
+          f"included); grown {sums['tm_grown_synapses']} synapses, new "
+          f"{sums['tm_new_segments']}, reinforced {reinforced}, punished "
+          f"{sums['tm_punished_segments']} segments, predicted cells "
+          f"{sums['tm_predicted_cells']}; launches {out['oracle']}")
+    del htm, fresh, learned
+
+    # the small drive recipe through the wrapper
+    small = bt.HierarchicalTemporalMemory(
+        64, 64, 4, active_columns=4, segment_activation_threshold=2,
+        segment_matching_threshold=2, segment_sampling_synapses=8,
+        device=dev)
+    pats = np.random.RandomState(0).rand(5, 64) < 0.2
+    per_epoch = []
+    for _ in range(6):
+        for p in pats:
+            small.process(p)
+        per_epoch.append(dict(small.last_metrics))
+    print("drive recipe HierarchicalTemporalMemory(64, 64, 4, A=4), 6 "
+          "epochs of 5 patterns, the last step of each: " + "; ".join(
+              f"bursting {m['bursting']} correct {m['correct']} incorrect "
+              f"{m['incorrect']}" for m in per_epoch))
+    require(per_epoch[-1]["bursting"] < per_epoch[0]["bursting"]
+            and per_epoch[-1]["correct"] > per_epoch[0]["correct"],
+            "the drive recipe learns: bursting falls, correct rises")
+
+    # (d) the CLI, then resuming from its checkpoint
+    cli = [sys.executable, "-m", "bithtm_tpu_torch.example", *CLI_ARGS,
+           "--checkpoint", os.path.join(tmp.name, "cli")]
+    for run in ("first", "resumed"):
+        t0 = time.perf_counter()
+        res = subprocess.run(cli, cwd=REPO, capture_output=True, text=True,
+                             timeout=300)
+        line = [s for s in res.stdout.splitlines() if "timesteps/s" in s]
+        require(res.returncode == 0 and len(line) == 1
+                and (run == "first") != ("resumed from" in res.stdout),
+                f"the CLI ({run}) runs on the card: rc {res.returncode}, "
+                f"{res.stdout[-500:]} {res.stderr[-1500:]}")
+        print(f"CLI {run}: python -m bithtm_tpu_torch.example "
+              f"{' '.join(CLI_ARGS)} --checkpoint DIR: rc 0 in "
+              f"{time.perf_counter() - t0:.1f} s, {line[0]}")
+    tmp.cleanup()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; "
@@ -1377,6 +1651,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches_16k, _ = run_16k(dev)
     launches["small_table_take"] = launches_16k["small_table_take"]
+    torch.cuda.empty_cache()
+    run_reference_api(dev)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -36,6 +36,10 @@ SHAPES = [  # B, C, G, K, D, A
     (30000, 2, 2, 8, 4, 1),   # each range across several streams
     (5, 16384, 1, 8, 64, 20),  # ranges across streams, 128 KB bitmap
     (3, 16384, 1, 7, 64, 20),  # J % 4 != 0 under the 128 KB bitmap
+    # the reference stack (G=8, K=48: J=384, u8 packing at act_scale(48))
+    # at the single-stream API's B=1 and at B=256
+    (1, 2048, 8, 48, 32, 41),
+    (256, 2048, 8, 48, 32, 41),
 ]
 
 
@@ -594,3 +598,24 @@ def test_boost_keeps_the_contract_on_the_card(seed, cuda):
                           cfg.active_columns, cuda)
     assert got["ok"], got
     assert got["near_ties"] < B
+
+
+@pytest.mark.cuda
+def test_oracle_gate_on_the_card(cuda):
+    """The single-stream step on the card at the reference stack's G=8,
+    K=48 and float32 SP, judged every step by the port's NumPy oracle
+    (`example.oracle_checked_run`, the CLI's ``--oracle``): learning
+    launches `table_update` once a step, inference `act_conn`, nothing
+    else."""
+    from bithtm_tpu_torch import example
+
+    cfg = bt.make_htm_config(200, 256, 8, 10, segment_activation_threshold=4,
+                             segment_matching_threshold=4,
+                             segment_sampling_synapses=8)
+    rng = np.random.RandomState(0)
+    xs = example.noisy_inputs(rng, rng.rand(4, 200) < 0.2, 5, 0.05)
+    learning = [True] * 16 + [False] * 4
+    before = kernels.launch_counts()
+    res = example.oracle_checked_run(cfg, xs, learning, 0, cuda)
+    assert res["steps"] == 20
+    assert launched(before) == only(table_update=16, act_conn=4)

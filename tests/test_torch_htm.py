@@ -333,12 +333,18 @@ def test_port_learns_with_torch_generator():
 
 
 def test_port_imports_without_jax():
-    """The port imports with `jax` and `bithtm_tpu` blocked."""
+    """The port imports with `jax` and `bithtm_tpu` blocked: the package,
+    its kernels, the wrappers, the oracle, the utilities and the CLI."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['bithtm_tpu'] = None\n"
         "import bithtm_tpu_torch, bithtm_tpu_torch.ops.kernels\n"
+        "import bithtm_tpu_torch.networks, bithtm_tpu_torch.oracle\n"
+        "import bithtm_tpu_torch.host_hooks, bithtm_tpu_torch.example\n"
+        "import bithtm_tpu_torch.utils.checks\n"
+        "import bithtm_tpu_torch.utils.checkpoint\n"
+        "import bithtm_tpu_torch.utils.metrics_log\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and\n"
         "       (m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'bithtm_tpu'))]\n"
         "assert not bad, bad\n"
