@@ -12,40 +12,66 @@ The single-stream reference API sits on top: the `networks` wrappers
 TM decision trace (`tm_step(return_debug=True)`) that the NumPy oracle
 (`oracle`) judges, `HostTemporalMemory`, checkpoints, the state checks,
 the metrics log (`utils`) and the CLI (`python -m
-bithtm_tpu_torch.example`). The step is batched, so a single stream is a
-batch of one (`htm_init`) and there is no separate `htm_step_batch`.
-States and serving tables carry over from the JAX package through
-`convert`. Imports torch and numpy only: no JAX, and nothing of
-`bithtm_tpu`.
+bithtm_tpu_torch.example`). The NAB-style pipeline sits beside it: the
+encoders and the anomaly stages (`encoders`), the SDR classifier
+(`readout`), the multi-level stack (`models.stack`), the prefetcher and
+the phase timer (`utils`) and the example scripts (`python -m
+bithtm_tpu_torch.examples.<name>`). The step is batched, so a single
+stream is a batch of one (`htm_init`) and there is no separate
+`htm_step_batch`. States, serving tables, classifier and anomaly-stage
+states carry over from the JAX package through `convert`. Imports torch
+and numpy only: no JAX, and nothing of `bithtm_tpu`.
 """
 
 from .config import (HTMConfig, SPConfig, TMConfig, config_from_dict,
-                     config_to_dict, make_htm_config)
+                     config_to_dict, make_htm_config, make_tm_config)
 from .convert import (htm_state_from_numpy, htm_state_to_numpy,
                       serving_table_from_numpy, serving_table_to_numpy)
+from .encoders import (AnomalyLikelihoodState, CategoryEncoder,
+                       CyclicEncoder, DateTimeEncoder, ScalarEncoder,
+                       SeasonalZScoreState, alert_episodes,
+                       anomaly_likelihood_init, anomaly_likelihood_update,
+                       anomaly_score, concat, score_alert_windows,
+                       seasonal_zscore, seasonal_zscore_init,
+                       seasonal_zscore_update)
 from .host_hooks import HostTemporalMemory
 from .models.htm import (CAP_DROP_METRICS, HTMOutput, htm_scan,
                          htm_scan_autocap, htm_serve_scan, htm_step,
                          resume_learning)
 from .models.spatial_pooler import SPOutput, sp_step
+from .models.stack import (StackConfig, StackOutput, make_stack_config,
+                           stack_draws, stack_init, stack_scan, stack_step)
 from .models.temporal_memory import (TMDebug, TMOutput, tm_resume,
                                      tm_segment_observables, tm_step)
 from .networks import HierarchicalTemporalMemory, SpatialPooler, TemporalMemory
 from .ops.active_set import pack_frozen_table, take_small_table
 from .ops.serving import ServingTable, make_serving_table
+from .readout import (ClassifierState, bucket_value, bucketize,
+                      classifier_init, classifier_predict, classifier_update)
 from .rng import Draws, TorchDraws
-from .state import HTMState, SPState, TMState, htm_init, htm_init_batch
+from .state import (HTMState, SPState, TMState, htm_init, htm_init_batch,
+                    sp_init, tm_init)
 
 __all__ = [
-    "CAP_DROP_METRICS", "Draws", "HTMConfig", "HTMOutput", "HTMState",
-    "HierarchicalTemporalMemory", "HostTemporalMemory", "SPConfig",
-    "SPOutput", "SPState", "ServingTable", "SpatialPooler", "TMConfig",
-    "TMDebug", "TMOutput", "TMState", "TemporalMemory", "TorchDraws",
-    "config_from_dict", "config_to_dict", "htm_init", "htm_init_batch",
-    "htm_scan", "htm_scan_autocap", "htm_serve_scan",
-    "htm_state_from_numpy", "htm_state_to_numpy", "htm_step",
-    "make_htm_config", "make_serving_table", "pack_frozen_table",
-    "resume_learning", "serving_table_from_numpy",
-    "serving_table_to_numpy", "sp_step", "take_small_table", "tm_resume",
-    "tm_segment_observables", "tm_step",
+    "AnomalyLikelihoodState", "CAP_DROP_METRICS", "CategoryEncoder",
+    "ClassifierState", "CyclicEncoder", "DateTimeEncoder", "Draws",
+    "HTMConfig", "HTMOutput", "HTMState", "HierarchicalTemporalMemory",
+    "HostTemporalMemory", "SPConfig", "SPOutput", "SPState",
+    "ScalarEncoder", "SeasonalZScoreState", "ServingTable",
+    "SpatialPooler", "StackConfig", "StackOutput", "TMConfig", "TMDebug",
+    "TMOutput", "TMState", "TemporalMemory", "TorchDraws",
+    "alert_episodes", "anomaly_likelihood_init",
+    "anomaly_likelihood_update", "anomaly_score", "bucket_value",
+    "bucketize", "classifier_init", "classifier_predict",
+    "classifier_update", "concat", "config_from_dict", "config_to_dict",
+    "htm_init", "htm_init_batch", "htm_scan", "htm_scan_autocap",
+    "htm_serve_scan", "htm_state_from_numpy", "htm_state_to_numpy",
+    "htm_step", "make_htm_config", "make_serving_table",
+    "make_stack_config", "make_tm_config", "pack_frozen_table",
+    "resume_learning", "score_alert_windows", "seasonal_zscore",
+    "seasonal_zscore_init", "seasonal_zscore_update",
+    "serving_table_from_numpy", "serving_table_to_numpy", "sp_init",
+    "sp_step", "stack_draws", "stack_init", "stack_scan", "stack_step",
+    "take_small_table", "tm_init", "tm_resume", "tm_segment_observables",
+    "tm_step",
 ]

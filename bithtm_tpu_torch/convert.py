@@ -9,7 +9,11 @@ key is not read). A single-stream state becomes a batch of one.
 the JAX dtypes (uint32 words restored through a view), copied, so a
 round trip is bit-equal and a later step does not change it.
 `serving_table_from_numpy` / `serving_table_to_numpy` do the same for a
-compact serving table (`ops.serving.ServingTable`).
+compact serving table (`ops.serving.ServingTable`),
+`named_state_from_numpy` / `named_state_to_numpy` for the readout's
+`ClassifierState` and the two anomaly-stage states, and
+`stack_state_from_numpy` / `stack_state_to_numpy` for a stack's tuple of
+layer states.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .encoders import AnomalyLikelihoodState, SeasonalZScoreState
 from .ops.serving import ServingTable
+from .readout import ClassifierState
 from .state import HTMState, SPState, TMState
 
 # leaves the JAX package stores as uint32 and the port as int32
@@ -87,3 +93,37 @@ def serving_table_to_numpy(table: ServingTable) -> dict:
     int32 arrays."""
     return {name: _leaf_to_numpy(name, getattr(table, name))
             for name in ServingTable._fields}
+
+
+# a leaf of each NamedTuple state and its rank in a single-stream state
+_UNBATCHED_RANK = {ClassifierState: ("weights", 2),
+                   AnomalyLikelihoodState: ("pos", 0),
+                   SeasonalZScoreState: ("pos", 0)}
+
+
+def named_state_from_numpy(cls, tree, device="cuda"):
+    """A JAX `ClassifierState`, `AnomalyLikelihoodState` or
+    `SeasonalZScoreState` (attributes or mapping keys, numpy-readable) ->
+    the port's ``cls`` on ``device``; a single-stream state becomes a
+    batch of one."""
+    name, rank = _UNBATCHED_RANK[cls]
+    batched = np.asarray(_get(tree, name)).ndim == rank + 1
+    return cls(*(_leaf_to_torch(f, _get(tree, f), batched, device)
+                 for f in cls._fields))
+
+
+def named_state_to_numpy(state) -> dict:
+    """A port `ClassifierState` or anomaly-stage state -> ``{leaf:
+    array}`` with a leading stream axis, copied."""
+    return {f: _leaf_to_numpy(f, getattr(state, f)) for f in state._fields}
+
+
+def stack_state_from_numpy(layers, device="cuda") -> tuple:
+    """A JAX stack's tuple of layer `HTMState`s -> the port's tuple."""
+    return tuple(htm_state_from_numpy(s, device) for s in layers)
+
+
+def stack_state_to_numpy(layers) -> tuple:
+    """A port stack's tuple of layer states -> a tuple of nested
+    mappings (`htm_state_to_numpy`)."""
+    return tuple(htm_state_to_numpy(s) for s in layers)

@@ -28,7 +28,7 @@ steady window (the last 128 learning steps) three times from one
 snapshot with the same draws, times the phases of a step and profiles 16
 of its steps on the device.
 
-Last, with the bench state freed, the 16K x 64 path (16384 columns x 64
+Then, with the bench state freed, the 16K x 64 path (16384 columns x 64
 cells, A=328, B=64): `htm_scan_autocap` under the tuned caps of
 `bench.py` (Wc=384, L=336) over 512 learning steps in chunks of 128,
 with the index-keyed growth selection and its `small_table_take` decode
@@ -36,6 +36,22 @@ launched once a step, then inference and serving packed and unpacked
 (each form launching only its own kernel), and the table and serving
 kernels held against their plain versions and timed at that geometry on
 the learned state.
+
+Then the single-stream reference API at 1000 -> 2048x32 (the oracle
+gate, B=1 learning through the wrapper with a checkpoint restored, the
+CLI), and last the NAB-style pipeline at BASELINE configuration 3 (352
+inputs from the scalar and time-of-day encoders -> 512 columns x 8
+cells, A=16, G=8, K=48; `run_anomaly`): the anomaly benchmark's 8 tasks
+x 32 seeds as B=256 streams (the encoders on the card equal to the
+CPU's, one 1,440-step learning scan launching `table_update` once a
+step, the likelihood and z-score on the card within tolerance of the
+CPU's, mean F1 >= 0.9 on the spike and frequency-change tasks), a
+two-layer stack at B=256 (both layers learn, two table kernels a step,
+`stack_scan` equal to a loop of `stack_step`), the sequence-prediction
+and anomaly-detection example scripts, and a scan fed by
+`prefetch_to_device` equal to the direct one; `table_update` and
+`act_conn` are also held bit-equal and timed at that table (D=8, the
+bitmap build's per-cell branch).
 
 Prints the card's name and power limit, the step times, the phase
 times, the profile, a JSON line of per-kernel results, and as the last
@@ -297,6 +313,7 @@ def check_kernels(dev) -> dict:
     out["sp_update_pack"] = check_sp_update_pack(dev)
     out["small_table_take"] = check_small_table_take(dev)
     out["reference_stack"] = check_reference_kernels(dev)
+    out["anomaly_stack"] = check_anomaly_kernels(dev)
     return out
 
 
@@ -1350,16 +1367,15 @@ def run_16k(dev) -> tuple[dict, dict]:
     return launches, rows
 
 
-def check_reference_kernels(dev) -> dict:
-    """`table_update` and `act_conn` against their plain versions at the
-    reference stack's table (G=8, K=48, J=384, the `act_scale(48)` u8
-    packing; C=2048, D=32, A=41) at B=1, the single-stream API's batch,
-    and B=256: bit-equal, with the times and bound of `kernel_row` and
-    the grid each launched."""
-    C, D, G, K, A = 2048, 32, 8, 48, 41
+def table_kernel_rows(dev, C: int, D: int, G: int, K: int, A: int,
+                      batches, what: str) -> dict:
+    """`table_update` and `act_conn` against their plain versions at
+    ``what``'s table (C columns of G*K slots over C*D cells, A active
+    columns) at each batch of ``batches``: bit-equal, with the times and
+    bound of `kernel_row` and the grid each launched."""
     thr, pun = 0.5, 0.01
     rows = {}
-    for B in (1, BATCH):
+    for B in batches:
         x = table_inputs(B + 48, B, C, G, K, D, A, device=dev)
         syn, act_prev, pun_word = x["syn"], x["act_prev"], x["pun_word"]
         cols, bits, perm = x["cols"], x["bits"], x["perm"]
@@ -1373,15 +1389,14 @@ def check_reference_kernels(dev) -> dict:
         c_k = kernels.act_conn_cuda(syn, perm, cols, bits, D, thr, K)
         torch.cuda.synchronize()
         require(bool((v_ref > 1).any()) and bool((p_ref != perm).any()),
-                f"the reference-stack inputs at B={B} exercise connected "
-                f"and punished slots")
+                f"the inputs of {what} at B={B} exercise connected and "
+                f"punished slots")
         require(torch.equal(v_k, v_ref) and torch.equal(
             p_k.view(torch.int32), p_ref.view(torch.int32)),
-            f"table_update == plain at the reference stack, B={B}")
-        require(torch.equal(c_k, c_ref),
-                f"act_conn == plain at the reference stack, B={B}")
+            f"table_update == plain at {what}, B={B}")
+        require(torch.equal(c_k, c_ref), f"act_conn == plain at {what}, B={B}")
         punished = int((p_ref != perm).sum())
-        at = f"B={B} C={C} G={G} K={K} D={D} A={A}, the reference stack"
+        at = f"B={B} C={C} G={G} K={K} D={D} A={A}, {what}"
         p = perm.clone()
         rows[f"table_update B={B}"] = kernel_row(
             "table_update",
@@ -1400,8 +1415,26 @@ def check_reference_kernels(dev) -> dict:
             grid=table_grid(False, syn, D))
         del x, syn, act_prev, pun_word, cols, bits, perm, p, p_ref, p_k
         del v_ref, v_k, c_ref, c_k
-    print("reference-stack kernels: " + json.dumps(rows))
+    print(f"{what} kernels: " + json.dumps(rows))
     return rows
+
+
+def check_reference_kernels(dev) -> dict:
+    """The two table kernels at the reference stack's table (G=8, K=48,
+    J=384, the `act_scale(48)` u8 packing; C=2048, D=32, A=41) at B=1,
+    the single-stream API's batch, and B=256."""
+    return table_kernel_rows(dev, 2048, 32, 8, 48, 41, (1, BATCH),
+                             "the reference stack")
+
+
+def check_anomaly_kernels(dev) -> dict:
+    """The two table kernels at the anomaly configuration's table (512
+    columns x 8 cells, G=8, K=48, A=16) at B=256: D=8 takes the bitmap
+    build's per-cell branch (`active_bitmap.cuh`), which the bench and
+    16K shapes do not."""
+    C, D, A = ANOMALY_WIDTH
+    return table_kernel_rows(dev, C, D, 8, 48, A, (ANOMALY_BATCH,),
+                             "the anomaly stack")
 
 
 # the single-stream reference API at the README's defaults (1000 inputs,
@@ -1620,6 +1653,309 @@ def run_reference_api(dev) -> dict:
     return out
 
 
+# BASELINE.json configuration 3 ("batched multi-stream sequence
+# prediction / anomaly scoring, NAB-style encoders") at the width of
+# examples/anomaly_benchmark.py:160-168: ScalarEncoder(-2.2, 2.2, 256, 17)
+# + CyclicEncoder(24, 96, 9) -> 352 inputs, 512 columns x 8 cells, A=16,
+# G=8, K=48, float32 SP; its 8 tasks x 32 seeds are B=256 streams, the
+# bench's batch
+ANOMALY_WIDTH = (512, 8, 16)   # columns, cells, active columns
+ANOMALY_SEEDS = 32
+ANOMALY_BATCH = 8 * ANOMALY_SEEDS
+# the stack: two such layers (352 -> 512x8 -> 512x8) over the spike trace
+STACK_LEARN, STACK_INFER, STACK_CHECK = 360, 16, 16
+PREFETCH_STEPS, PREFETCH_CHUNK = 64, 16
+# the example scripts, each in a process of its own
+EXAMPLE_RUNS = (["sequence_prediction"], ["anomaly_detection", "--seeds", "1"])
+LIK_TOL = 2.4e-7  # |dL|, the CPU tests' tolerance (erf, sums)
+
+
+def z_tol(z: torch.Tensor) -> torch.Tensor:
+    return 2e-6 + 1e-6 * z.abs()
+
+
+def timed_profile(run, n: int, what: str) -> float:
+    """``run()`` takes n steps (going on from where the last call left
+    the state): timed unprofiled (host time, synchronized), then
+    profiled once more (`device_profile`); prints device busy, launches
+    a step and the busy share. Returns the unprofiled ms/step."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0) / n
+    print(f"profile of {n} {what}, top device ops:")
+    busy, n_launch = device_profile(run, n, 8)
+    print(f"  device busy {busy:.3f} ms/step, {n_launch:.1f} kernel "
+          f"launches/step; {plain_ms:.3f} ms/step unprofiled: busy share "
+          f"{busy / plain_ms:.3f}")
+    return plain_ms
+
+
+def alert_decisions_agree(lik, z, lik_cpu, z_cpu, fire, fire_cpu) -> int:
+    """The card's alert decisions equal the CPU's, except where a
+    likelihood or |z| lies within its tolerance of the threshold (those
+    are printed). Returns the count of such steps."""
+    thr_lik = np.float32(1 - 10 ** -5.0)
+    near = ((np.abs(lik_cpu - thr_lik) <= LIK_TOL)
+            | (np.abs(np.abs(z_cpu) - 5.0) <= 2e-6 + 1e-6 * 5.0))
+    differ = fire != fire_cpu
+    for t, b in np.argwhere(near)[:20]:
+        print(f"step {t} stream {b}: a score within tolerance of its "
+              f"threshold (L {lik[t, b]!r} / {lik_cpu[t, b]!r}, z "
+              f"{z[t, b]!r} / {z_cpu[t, b]!r}), decision "
+              f"{'differs' if differ[t, b] else 'equal'}")
+    require(not (differ & ~near).any(),
+            f"the card's alert decisions == the CPU's away from the "
+            f"thresholds ({int(differ.sum())} differ)")
+    return int(near.sum())
+
+
+def run_anomaly(dev) -> dict:
+    """BASELINE configuration 3 on the card, each part with the launch
+    counts set to 0 just before it and read just after:
+
+    (a) anomaly scoring: the 8 tasks of `make_task` x ANOMALY_SEEDS seeds
+        as B=256 streams (`bithtm_tpu_torch.examples.anomaly_benchmark`):
+        the encoders on the card (equal to the CPU's bit for bit), one
+        1,440-step `htm_scan(learning=True)` launching `table_update`
+        once a step and nothing else, the likelihood (window 300,
+        momentum 0.7, exclude 24) and `seasonal_zscore` (window 96) on
+        the card within the CPU tests' tolerances of the CPU's on the
+        same scores and values, alerts and window scores per stream on
+        the host: mean F1 >= 0.9 on spike and freq_change.
+    (b) the stack 352 -> 512x8 -> 512x8 at B=256 over the spike trace:
+        STACK_LEARN learning steps (two `table_update` a step, both
+        layers' bursting falls), STACK_INFER inference steps (two
+        `act_conn` a step), and from the initial state a `stack_scan` of
+        STACK_CHECK steps equal to a loop of `stack_step` in every leaf.
+    (c) `python -m bithtm_tpu_torch.examples.sequence_prediction` and
+        `... anomaly_detection --seeds 1`, each rc 0 with its assert.
+    (d) an `htm_scan` fed by `prefetch_to_device` in chunks equal to the
+        scan over the whole tensor, every leaf and metric.
+
+    Prints wall time, ms/step, launches a step and the busy share of
+    (a) and (b). Returns the launch counts of (a) and (b)."""
+    from bithtm_tpu_torch.examples import anomaly_benchmark as ab
+    from bithtm_tpu_torch.examples import likelihood_series, nlog10
+    from bithtm_tpu_torch.utils.data import prefetch_to_device
+
+    out = {}
+    C, D, A = ANOMALY_WIDTH
+    cfg = ab.make_config()
+    require((cfg.input_dim, cfg.sp.column_dim, cfg.tm.cell_dim,
+             cfg.sp.active_columns, cfg.tm.segments_per_column,
+             cfg.tm.synapse_capacity, cfg.sp.permanence_dtype)
+            == (352, C, D, A, 8, 48, "float32"),
+            "the anomaly configuration is 352 -> 512x8, A=16, G=8, K=48, "
+            "float32 SP")
+
+    # (a) anomaly scoring at B=256
+    values, windows, fp_only = ab.suite(ab.TASKS, ANOMALY_SEEDS)
+    T, B = values.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = ab.encode(values, dev)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    x_cpu = ab.encode(values, "cpu")
+    require(torch.equal(x.cpu(), x_cpu),
+            f"the encoders on the card == the CPU's, bit for bit: "
+            f"{int((x.cpu() != x_cpu).sum())} bits differ")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = bt.htm_init_batch(cfg, B, gen, dev)
+    draws = bt.TorchDraws(cfg.tm, B, dev, gen)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = bt.htm_scan(cfg, state, x, True, detailed_metrics=False,
+                                 draws=draws)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    out["anomaly"] = kernels.launch_counts()
+    require(out["anomaly"] == only(table_update=T),
+            f"the anomaly scan launches table_update once a step and no "
+            f"other kernel, got {out['anomaly']}")
+    raw = metrics["anomaly"]
+    require(bool(torch.isfinite(raw).all()) and bool((raw >= 0).all())
+            and bool((raw <= 1).all()), "raw anomaly scores in [0, 1]")
+    vals = torch.from_numpy(values)
+    t0 = time.perf_counter()
+    lik = likelihood_series(raw, ab.LIK_WINDOW, ab.LIK_MOMENTUM, ab.PERIOD)
+    z = bt.seasonal_zscore(vals.to(dev), ab.PERIOD, window=4 * ab.PERIOD)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    lik_cpu = likelihood_series(raw.cpu(), ab.LIK_WINDOW, ab.LIK_MOMENTUM,
+                                ab.PERIOD)
+    z_cpu = bt.seasonal_zscore(vals, ab.PERIOD, window=4 * ab.PERIOD)
+    dl = float((lik.cpu() - lik_cpu).abs().max())
+    dz = (z.cpu() - z_cpu).abs()
+    require(dl <= LIK_TOL, f"likelihood on the card within {LIK_TOL} of "
+            f"the CPU's: {dl}")
+    require(bool((dz <= z_tol(z_cpu)).all()),
+            f"z on the card within 2e-6 + 1e-6|z| of the CPU's: max "
+            f"{float(dz.max())}")
+    nlog, z_host = nlog10(lik), z.cpu().numpy()
+    fire = ab.detections(nlog, z_host, 5.0, 5.0)
+    fire_cpu = ab.detections(nlog10(lik_cpu), z_cpu.numpy(), 5.0, 5.0)
+    n_near = alert_decisions_agree(lik.cpu().numpy(), z_host,
+                                   lik_cpu.numpy(), z_cpu.numpy(), fire,
+                                   fire_cpu)
+    t0 = time.perf_counter()
+    results = ab.score_streams(fire, windows, fp_only)
+    host_s = time.perf_counter() - t0
+    print(f"anomaly suite on {torch.cuda.get_device_name(0)}, 8 tasks x "
+          f"{ANOMALY_SEEDS} seeds = B={B}, T={T}, 352 -> {C}x{D} (A={A}, "
+          f"G=8, K=48, float32 SP); per task, mean over seeds (alert: "
+          f"L >= 0.99999 or |z| >= 5 after step "
+          f"{ab.PROBATION_CYCLES * ab.PERIOD}):")
+    table = ab.task_table(ab.TASKS, ANOMALY_SEEDS, results)
+    f1 = {name: f for name, _, _, f, _ in table}
+    print(f"anomaly scan: {scan_s:.2f} s, {1e3 * scan_s / T:.3f} ms/step, "
+          f"launches {out['anomaly']}; encoders {1e3 * enc_s:.1f} ms, "
+          f"likelihood + z on the card {stage_s:.2f} s (max |dL| {dl!r}, "
+          f"max |dz| {float(dz.max())!r} against the CPU; {n_near} "
+          f"decisions within tolerance of a threshold), alerts and scores "
+          f"on the host {1e3 * host_s:.1f} ms")
+    require(f1["spike"] >= 0.9 and f1["freq_change"] >= 0.9,
+            f"mean F1 >= 0.9 on spike and freq_change: {f1}")
+    held = [state]
+
+    def more_steps():
+        held[0], _ = bt.htm_scan(cfg, held[0], x[:PROFILED_STEPS], True,
+                                 detailed_metrics=False, draws=draws)
+
+    timed_profile(more_steps, PROFILED_STEPS,
+                  f"anomaly learning steps after step {T}")
+    del state, held, x, x_cpu, metrics, raw, lik, z, lik_cpu, z_cpu
+
+    # (b) the stack at B=256 over the spike trace
+    scfg = bt.make_stack_config(cfg.input_dim, [(C, D), (C, D)],
+                                **ab.OPTIONS)
+    spike, _, _ = ab.make_task("spike", np.random.RandomState(7000))
+    n = STACK_LEARN + STACK_INFER + 2 * PROFILED_STEPS
+    xs = ab.encode(np.repeat(spike[:n, None], B, 1), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state = bt.stack_init(scfg, B, gen, dev)
+    snap, gen_state = copy.deepcopy(state), gen.get_state()
+    draws = bt.stack_draws(scfg, B, dev, gen)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m_learn = bt.stack_scan(scfg, state, xs[:STACK_LEARN], True,
+                                   draws)
+    torch.cuda.synchronize()
+    learn_s = time.perf_counter() - t0
+    out["stack_learn"] = kernels.launch_counts()
+    require(out["stack_learn"] == only(table_update=2 * STACK_LEARN),
+            f"stack learning launches table_update twice a step, got "
+            f"{out['stack_learn']}")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m_inf = bt.stack_scan(
+        scfg, state, xs[STACK_LEARN:STACK_LEARN + STACK_INFER], False, draws)
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    out["stack_infer"] = kernels.launch_counts()
+    require(out["stack_infer"] == only(act_conn=2 * STACK_INFER),
+            f"stack inference launches act_conn twice a step, got "
+            f"{out['stack_infer']}")
+    burst = {k: m_learn[f"L{k}_bursting"].float().mean(1).cpu()
+             for k in (0, 1)}
+    for k, b in burst.items():
+        require(float(b[-10:].mean()) < float(b[:10].mean()) / 3,
+                f"layer {k} learns: bursting {float(b[:10].mean())} -> "
+                f"{float(b[-10:].mean())}")
+    print(f"stack {cfg.input_dim} -> {C}x{D} -> {C}x{D} at B={B} over the "
+          f"spike trace: {STACK_LEARN} learning steps {learn_s:.2f} s "
+          f"({1e3 * learn_s / STACK_LEARN:.3f} ms/step), bursting "
+          + ", ".join(f"L{k} {float(b[:10].mean()):.2f} -> "
+                      f"{float(b[-10:].mean()):.2f}"
+                      for k, b in burst.items())
+          + f" of {A}; {STACK_INFER} inference steps "
+          f"{1e3 * infer_s / STACK_INFER:.3f} ms/step, correct "
+          f"{float(m_inf['L0_correct'].float().mean()):.2f} / "
+          f"{float(m_inf['L1_correct'].float().mean()):.2f}; launches "
+          f"{out['stack_learn']} / {out['stack_infer']}")
+    t1 = STACK_LEARN + STACK_INFER
+    more = [xs[t1:t1 + PROFILED_STEPS], xs[t1 + PROFILED_STEPS:]]
+    held = [state]
+
+    def more_stack_steps():
+        held[0], _ = bt.stack_scan(scfg, held[0], more.pop(0), True, draws)
+
+    timed_profile(more_stack_steps, PROFILED_STEPS,
+                  f"stack learning steps after step {t1}")
+    del state, held, m_learn, m_inf
+    s_loop = copy.deepcopy(snap)
+    gen.set_state(gen_state)
+    draws = bt.stack_draws(scfg, B, dev, gen)
+    for x_t in xs[:STACK_CHECK]:
+        s_loop, _ = bt.stack_step(scfg, s_loop, x_t, True, draws)
+    gen.set_state(gen_state)
+    s_scan, _ = bt.stack_scan(scfg, snap, xs[:STACK_CHECK], True,
+                              bt.stack_draws(scfg, B, dev, gen))
+    for k, (a, b) in enumerate(zip(s_loop, s_scan, strict=True)):
+        diff = differing_leaves(a, b)
+        require(not diff, f"stack_scan == a loop of stack_step, layer {k}: "
+                f"{diff}")
+    print(f"stack_scan of {STACK_CHECK} steps == a loop of stack_step, "
+          f"every leaf of both layers")
+    del s_loop, s_scan, snap, xs
+    torch.cuda.empty_cache()
+
+    # (c) the example scripts, side by side (both are host-bound)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", f"bithtm_tpu_torch.examples.{argv[0]}",
+         *argv[1:]], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for argv in EXAMPLE_RUNS]
+    try:
+        for argv, proc in zip(EXAMPLE_RUNS, procs):
+            stdout, stderr = proc.communicate(timeout=600)
+            name = " ".join(argv)
+            require(proc.returncode == 0,
+                    f"{name}: rc {proc.returncode}, {stdout[-1500:]} "
+                    f"{stderr[-1500:]}")
+            lines = stdout.strip().splitlines()
+            print(f"python -m bithtm_tpu_torch.examples.{name}: rc 0, done "
+                  f"{time.perf_counter() - t0:.1f} s after both started; "
+                  + " | ".join(s.strip() for s in lines[-4:]))
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+
+    # (d) a prefetch-fed scan against the direct scan
+    values = values[:PREFETCH_STEPS]
+    host = ab.encode(values, "cpu").numpy()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    s0 = bt.htm_init_batch(cfg, B, gen, dev)
+    gen_state = gen.get_state()
+    direct, m_direct = bt.htm_scan(cfg, copy.deepcopy(s0),
+                                   torch.from_numpy(host).to(dev), True,
+                                   detailed_metrics=False,
+                                   draws=bt.TorchDraws(cfg.tm, B, dev, gen))
+    gen.set_state(gen_state)
+    draws = bt.TorchDraws(cfg.tm, B, dev, gen)
+    state, parts = s0, []
+    for chunk in prefetch_to_device(
+            (host[i:i + PREFETCH_CHUNK]
+             for i in range(0, PREFETCH_STEPS, PREFETCH_CHUNK)), 2, dev):
+        require(chunk.device == dev, "prefetched chunks lie on the card")
+        state, m = bt.htm_scan(cfg, state, chunk, True,
+                               detailed_metrics=False, draws=draws)
+        parts.append(m)
+    diff = differing_leaves(state, direct) + [
+        k for k, v in m_direct.items()
+        if not torch.equal(torch.cat([m[k] for m in parts]), v)]
+    require(not diff, f"the prefetch-fed scan == the direct scan: {diff}")
+    print(f"prefetch: {PREFETCH_STEPS} steps at B={B} in chunks of "
+          f"{PREFETCH_CHUNK} through prefetch_to_device == one scan over "
+          f"the whole tensor, every leaf and metric")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; "
@@ -1653,6 +1989,8 @@ def main() -> None:
     launches["small_table_take"] = launches_16k["small_table_take"]
     torch.cuda.empty_cache()
     run_reference_api(dev)
+    torch.cuda.empty_cache()
+    run_anomaly(dev)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

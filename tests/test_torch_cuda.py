@@ -619,3 +619,64 @@ def test_oracle_gate_on_the_card(cuda):
     res = example.oracle_checked_run(cfg, xs, learning, 0, cuda)
     assert res["steps"] == 20
     assert launched(before) == only(table_update=16, act_conn=4)
+
+
+@pytest.mark.cuda
+def test_prefetch_and_encoders_on_the_card(cuda):
+    """The encoders on the card equal the CPU's bit for bit; the
+    likelihood and z on the card lie within the CPU tests' tolerances of
+    the CPU's; chunks prefetched to the card arrive in order and equal,
+    and a scan fed by them equals the scan over the whole tensor, every
+    leaf and metric."""
+    import copy
+
+    from bithtm_tpu_torch.examples import likelihood_series
+    from bithtm_tpu_torch.utils.data import prefetch_to_device
+
+    rng = np.random.RandomState(0)
+    v = torch.from_numpy(rng.uniform(-3, 3, (96, 32)).astype(np.float32))
+    for enc in (bt.ScalarEncoder(-2.2, 2.2, 256, 17),
+                bt.CyclicEncoder(24.0, 96, 9)):
+        assert torch.equal(enc(v.to(cuda)).cpu(), enc(v))
+    epochs = rng.randint(1_700_000_000, 2_300_000_000, 64)
+    dt = bt.DateTimeEncoder()
+    assert torch.equal(dt(epochs, cuda).cpu(), dt(epochs, "cpu"))
+
+    scores = torch.from_numpy(rng.uniform(0, 0.3, (200, 8)).astype(
+        np.float32))
+    scores[150:160] = 1.0
+    lik_cpu = likelihood_series(scores, 100, 0.7, 24)
+    lik_gpu = likelihood_series(scores.to(cuda), 100, 0.7, 24).cpu()
+    assert (lik_gpu - lik_cpu).abs().max() <= 2.4e-7
+    z_cpu = bt.seasonal_zscore(v, 8, window=24)
+    z_gpu = bt.seasonal_zscore(v.to(cuda), 8, window=24).cpu()
+    assert bool(((z_gpu - z_cpu).abs() <= 2e-6 + 1e-6 * z_cpu.abs()).all())
+
+    cfg = bt.make_htm_config(64, 64, 4, 4, segment_activation_threshold=2,
+                             segment_matching_threshold=2,
+                             segment_sampling_synapses=8)
+    pats = rng.rand(5, 64) < 0.2
+    xs = pats[np.arange(48) % 5][:, None] ^ (rng.rand(48, 3, 64) < 0.05)
+    chunks = [xs[i:i + 16] for i in range(0, 48, 16)]
+    got = list(prefetch_to_device(iter(chunks), 2, cuda))
+    assert all(g.is_cuda for g in got)
+    assert all(torch.equal(g.cpu(), torch.from_numpy(c))
+               for g, c in zip(got, chunks, strict=True))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    s0 = bt.htm_init_batch(cfg, 3, gen, cuda)
+    gen_state = gen.get_state()
+    direct, m_direct = bt.htm_scan(cfg, copy.deepcopy(s0),
+                                   torch.from_numpy(xs).to(cuda), True,
+                                   draws=bt.TorchDraws(cfg.tm, 3, cuda, gen))
+    gen.set_state(gen_state)
+    draws = bt.TorchDraws(cfg.tm, 3, cuda, gen)
+    state, parts = s0, []
+    for x in prefetch_to_device(iter(chunks), 2, cuda):
+        state, m = bt.htm_scan(cfg, state, x, True, draws=draws)
+        parts.append(m)
+    for k, val in m_direct.items():
+        assert torch.equal(torch.cat([m[k] for m in parts]), val), k
+    a, b = bt.htm_state_to_numpy(state), bt.htm_state_to_numpy(direct)
+    for part in ("sp", "tm"):
+        for name, arr in a[part].items():
+            np.testing.assert_array_equal(arr, b[part][name])

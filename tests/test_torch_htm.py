@@ -334,7 +334,8 @@ def test_port_learns_with_torch_generator():
 
 def test_port_imports_without_jax():
     """The port imports with `jax` and `bithtm_tpu` blocked: the package,
-    its kernels, the wrappers, the oracle, the utilities and the CLI."""
+    its kernels, the wrappers, the oracle, the utilities, the CLI, the
+    encoders, the readout, the stack and the example scripts."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -345,6 +346,14 @@ def test_port_imports_without_jax():
         "import bithtm_tpu_torch.utils.checks\n"
         "import bithtm_tpu_torch.utils.checkpoint\n"
         "import bithtm_tpu_torch.utils.metrics_log\n"
+        "import bithtm_tpu_torch.encoders, bithtm_tpu_torch.readout\n"
+        "import bithtm_tpu_torch.models.stack\n"
+        "import bithtm_tpu_torch.utils.data\n"
+        "import bithtm_tpu_torch.utils.profiling\n"
+        "import bithtm_tpu_torch.examples\n"
+        "import bithtm_tpu_torch.examples.anomaly_detection\n"
+        "import bithtm_tpu_torch.examples.anomaly_benchmark\n"
+        "import bithtm_tpu_torch.examples.sequence_prediction\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and\n"
         "       (m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'bithtm_tpu'))]\n"
         "assert not bad, bad\n"
@@ -352,3 +361,13 @@ def test_port_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_port_exports_every_jax_name_but_htm_step_batch():
+    """`bithtm_tpu_torch.__all__` holds every name of `bithtm_tpu.__all__`
+    but `htm_step_batch` (the port's step is batched), and each resolves."""
+    import bithtm_tpu
+
+    assert set(bithtm_tpu.__all__) - set(bt.__all__) == {"htm_step_batch"}
+    for name in bt.__all__:
+        assert getattr(bt, name) is not None, name
