@@ -19,8 +19,12 @@ the phase timer (`utils`) and the example scripts (`python -m
 bithtm_tpu_torch.examples.<name>`). The step is batched, so a single
 stream is a batch of one (`htm_init`) and there is no separate
 `htm_step_batch`. States, serving tables, classifier and anomaly-stage
-states carry over from the JAX package through `convert`. Imports torch
-and numpy only: no JAX, and nothing of `bithtm_tpu`.
+states carry over from the JAX package through `convert`. The subpackage
+`parallel` (imported on its own, as in JAX) runs the step over a (data x
+model) grid of ranks on `torch.distributed`: streams split over data,
+columns over model (`parallel.mesh`), with per-process feeding and
+restart (`parallel.distributed`). Imports torch and numpy only: no JAX,
+and nothing of `bithtm_tpu`.
 """
 
 from .config import (HTMConfig, SPConfig, TMConfig, config_from_dict,

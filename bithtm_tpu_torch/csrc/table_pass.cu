@@ -71,14 +71,14 @@ __global__ void __launch_bounds__(THREADS) table_pass_kernel(
     const int* __restrict__ syn, float* __restrict__ perm,
     const uint8_t* __restrict__ act_prev, const int* __restrict__ pun_word,
     const int* __restrict__ cols, const int* __restrict__ bits,
-    uint8_t* __restrict__ v_out, int B, int C, int J, int A, int W, int D,
-    int K, float punishment, float threshold, int scale) {
+    uint8_t* __restrict__ v_out, int B, int C, int column_dim, int J, int A,
+    int W, int D, int K, float punishment, float threshold, int scale) {
   // groups of VEC slots a thread keeps in flight: two in a wide block,
   // which runs alone on its SM; one where several narrow blocks share it
   constexpr int kUnroll = THREADS == bithtm::kWideThreads ? 2 : 1;
   extern __shared__ __align__(16) uint32_t bm[];
-  const int n_cells = C * D;
-  bithtm::walk_rows(bm, B, C, cols, bits, A, W, C, D,
+  const int n_cells = column_dim * D;
+  bithtm::walk_rows(bm, B, C, cols, bits, A, W, column_dim, D,
                     [&](int b, int lo, int hi) {
     // the stream's slots [lo*J, hi*J), as offsets from its first slot
     const size_t base = (size_t)b * C * J;
@@ -159,24 +159,24 @@ int grid_for(int C, int D, int device, bithtm::Grid* grid) {
 template <bool PUNISH, int VEC>
 int launch(const int* syn, float* perm, const uint8_t* act_prev,
            const int* pun_word, const int* cols, const int* bits,
-           uint8_t* v_out, int B, int C, int J, int A, int W, int D, int K,
-           float punishment, float threshold, int scale, int device,
-           cudaStream_t stream) {
+           uint8_t* v_out, int B, int C, int column_dim, int J, int A, int W,
+           int D, int K, float punishment, float threshold, int scale,
+           int device, cudaStream_t stream) {
   bithtm::DeviceGuard guard(device);
   if (int err = guard.error()) return err;
   bithtm::Grid g;
-  if (int err = grid_for<PUNISH, VEC>(C, D, device, &g)) return err;
-  const size_t smem = bithtm::bitmap_bytes(C, D);
+  if (int err = grid_for<PUNISH, VEC>(column_dim, D, device, &g)) return err;
+  const size_t smem = bithtm::bitmap_bytes(column_dim, D);
   if (g.threads == bithtm::kWideThreads)
     table_pass_kernel<PUNISH, VEC, bithtm::kWideThreads>
         <<<g.blocks, g.threads, smem, stream>>>(
-            syn, perm, act_prev, pun_word, cols, bits, v_out, B, C, J, A, W,
-            D, K, punishment, threshold, scale);
+            syn, perm, act_prev, pun_word, cols, bits, v_out, B, C,
+            column_dim, J, A, W, D, K, punishment, threshold, scale);
   else
     table_pass_kernel<PUNISH, VEC, bithtm::kThreads>
         <<<g.blocks, g.threads, smem, stream>>>(
-            syn, perm, act_prev, pun_word, cols, bits, v_out, B, C, J, A, W,
-            D, K, punishment, threshold, scale);
+            syn, perm, act_prev, pun_word, cols, bits, v_out, B, C,
+            column_dim, J, A, W, D, K, punishment, threshold, scale);
   return (int)cudaGetLastError();
 }
 
@@ -185,36 +185,41 @@ int launch(const int* syn, float* perm, const uint8_t* act_prev,
 // Each entry point launches on the given stream of the given device,
 // allocates nothing and returns cudaGetLastError() after the launch (0 =
 // success). Tables are contiguous (B, C, J) with C*J < 2^31, 16-byte
-// aligned; cols (B, A) and bits (B, A, W) int32.
+// aligned; cols (B, A) and bits (B, A, W) int32. The bitmap spans
+// column_dim*D cells: column_dim is C for a whole table, and the global
+// column count for a column shard of C rows (a model-parallel rank's),
+// whose synapses may target cells of any shard.
 extern "C" int table_update(const int* syn, float* perm,
                             const uint8_t* act_prev, const int* pun_word,
                             const int* cols, const int* bits,
-                            uint8_t* v_out, int B, int C, int J, int A,
-                            int W, int D, int K, float punishment,
-                            float threshold, int scale, int device,
-                            void* stream) {
+                            uint8_t* v_out, int B, int C, int column_dim,
+                            int J, int A, int W, int D, int K,
+                            float punishment, float threshold, int scale,
+                            int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (J % 4 == 0)
     return launch<true, 4>(syn, perm, act_prev, pun_word, cols, bits, v_out,
-                           B, C, J, A, W, D, K, punishment, threshold,
-                           scale, device, s);
+                           B, C, column_dim, J, A, W, D, K, punishment,
+                           threshold, scale, device, s);
   return launch<true, 1>(syn, perm, act_prev, pun_word, cols, bits, v_out,
-                         B, C, J, A, W, D, K, punishment, threshold, scale,
-                         device, s);
+                         B, C, column_dim, J, A, W, D, K, punishment,
+                         threshold, scale, device, s);
 }
 
 extern "C" int act_conn(const int* syn, const float* perm, const int* cols,
                         const int* bits, uint8_t* v_out, int B, int C,
-                        int J, int A, int W, int D, int K, float threshold,
-                        int scale, int device, void* stream) {
+                        int column_dim, int J, int A, int W, int D, int K,
+                        float threshold, int scale, int device,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = const_cast<float*>(perm);  // read only: PUNISH is false
   if (J % 4 == 0)
     return launch<false, 4>(syn, p, nullptr, nullptr, cols, bits, v_out, B,
-                            C, J, A, W, D, K, 0.0f, threshold, scale, device,
-                            s);
+                            C, column_dim, J, A, W, D, K, 0.0f, threshold,
+                            scale, device, s);
   return launch<false, 1>(syn, p, nullptr, nullptr, cols, bits, v_out, B, C,
-                          J, A, W, D, K, 0.0f, threshold, scale, device, s);
+                          column_dim, J, A, W, D, K, 0.0f, threshold, scale,
+                          device, s);
 }
 
 // The grid that table_update (punish != 0) or act_conn launches for a

@@ -8,7 +8,9 @@ consumed. `htm_serve_scan` is the serving scan (learning off, no winner
 cells, optionally over a compact serving table); both share `_scan_impl`.
 `htm_scan_autocap` runs `htm_scan` in chunks under tuned list widths and
 widens them on the first counted drop. `resume_learning` makes a state
-served from a compact table safe to learn from again.
+served from a compact table safe to learn from again. `htm_step(...,
+shard=)` is the step of a model-parallel rank that holds a column shard
+(`parallel/mesh.py` drives it).
 """
 
 from __future__ import annotations
@@ -22,10 +24,11 @@ from typing import NamedTuple
 import torch
 
 from ..config import HTMConfig
+from ..ops.shard import ColumnShard
 from ..rng import TorchDraws
 from ..state import HTMState
 from .spatial_pooler import SPOutput, sp_step
-from .temporal_memory import TMOutput, tm_resume, tm_step
+from .temporal_memory import COLUMN_SUMS, TMOutput, tm_resume, tm_step
 
 
 class HTMOutput(NamedTuple):
@@ -41,16 +44,27 @@ def _f32_reciprocal(n: int) -> float:
     return (torch.tensor(1.0, dtype=torch.float32) / n).item()
 
 
-def _step_metrics(cfg: HTMConfig, sp_out: SPOutput, tm_out: TMOutput
-                  ) -> dict:
+def _step_metrics(cfg: HTMConfig, sp_out: SPOutput, tm_out: TMOutput,
+                  shard: ColumnShard | None = None) -> dict:
     """The per-step metrics of the example loop (`example.py:50-57`),
     per stream (B,):
     correct = previously predicted columns that became active, incorrect
-    = the rest of the previously predicted, plus the anomaly score."""
+    = the rest of the previously predicted, plus the anomaly score, and
+    the TM's metrics. Under a column shard the column masks are the
+    rank's columns, so correct, the predicted count and the TM's
+    `COLUMN_SUMS` are summed across its group, in one collective;
+    bursting counts active columns, the same on every rank."""
     prev_col_pred = tm_out.prev_col_prediction
     corrects = (prev_col_pred & sp_out.active_mask).sum(-1,
                                                         dtype=torch.int32)
-    incorrects = prev_col_pred.sum(-1, dtype=torch.int32) - corrects
+    predicted = prev_col_pred.sum(-1, dtype=torch.int32)
+    tm_metrics = dict(tm_out.metrics)
+    if shard is not None:
+        summed = [k for k in COLUMN_SUMS if k in tm_metrics]
+        corrects, predicted, *sums = shard.sum(
+            [corrects, predicted, *(tm_metrics[k] for k in summed)])
+        tm_metrics.update(zip(summed, sums))
+    incorrects = predicted - corrects
     burstings = tm_out.bursting_columns.sum(-1, dtype=torch.int32)
     return {
         "bursting": burstings,
@@ -58,7 +72,7 @@ def _step_metrics(cfg: HTMConfig, sp_out: SPOutput, tm_out: TMOutput
         "incorrect": incorrects,
         "anomaly": burstings.to(torch.float32) * _f32_reciprocal(
             cfg.sp.active_columns),
-        **tm_out.metrics,
+        **tm_metrics,
     }
 
 
@@ -68,7 +82,8 @@ def htm_step(cfg: HTMConfig, state: HTMState, input_bits: torch.Tensor,
              dense_outputs: bool = True, frozen_word=None,
              serving_table=None, boosting=None, inhibition=None,
              temporal_memory=None, overlap=None, proximal_update=None,
-             distal_forward=None) -> tuple[HTMState, HTMOutput]:
+             distal_forward=None, shard: ColumnShard | None = None
+             ) -> tuple[HTMState, HTMOutput]:
     """One timestep of B streams: ``input_bits`` is (B, I) bool.
     ``draws`` is a draw provider (`rng.TorchDraws` on the state's device
     when None); it is stepped once per call, as the JAX step splits its
@@ -85,7 +100,12 @@ def htm_step(cfg: HTMConfig, state: HTMState, input_bits: torch.Tensor,
 
     with this step's draws (None where the step draws nothing) in place
     of the JAX key. A host-side TM plugs in through
-    `host_hooks.HostTemporalMemory`."""
+    `host_hooks.HostTemporalMemory`.
+
+    ``shard`` (`ops/shard.py`): the state holds this rank's columns of a
+    model-parallel group; the step then takes no hooks, no inference
+    table and no dense outputs (`sp_step`, `tm_step`), as the JAX
+    sharded step takes none."""
     B = state.batch
     if input_bits.shape != (B, cfg.input_dim):
         raise ValueError(f"htm_step expects ({B}, {cfg.input_dim}) inputs, "
@@ -96,13 +116,16 @@ def htm_step(cfg: HTMConfig, state: HTMState, input_bits: torch.Tensor,
             "frozen_word/serving_table/distal_forward configure the "
             "built-in tm_step; a temporal_memory hook would silently "
             "ignore them — pass them to the hook yourself instead")
+    if shard is not None and temporal_memory is not None:
+        raise ValueError("the column-sharded step takes no temporal_memory "
+                         "hook")
     if draws is None:
         draws = TorchDraws(cfg.tm, B, state.tm.step.device)
     step_draws = draws.step(need=learning or compute_winner)
     sp_state, sp_out = sp_step(cfg.sp, state.sp, input_bits, learning,
                                boosting=boosting, inhibition=inhibition,
                                overlap=overlap,
-                               proximal_update=proximal_update)
+                               proximal_update=proximal_update, shard=shard)
     if temporal_memory is None:
         # the SP's mask is the stock k_winners one only without an
         # inhibition hook; a hook's mask feeds the duty cycle alone
@@ -111,13 +134,15 @@ def htm_step(cfg: HTMConfig, state: HTMState, input_bits: torch.Tensor,
             compute_winner, detailed_metrics=detailed_metrics,
             col_active=sp_out.active_mask if inhibition is None else None,
             dense_outputs=dense_outputs, frozen_word=frozen_word,
-            serving_table=serving_table, distal_forward=distal_forward)
+            serving_table=serving_table, distal_forward=distal_forward,
+            shard=shard)
     else:
         tm_state, tm_out = temporal_memory(
             cfg.tm, state.tm, step_draws, sp_out.active_columns, learning,
             compute_winner)
     return (HTMState(sp=sp_state, tm=tm_state),
-            HTMOutput(sp_out, tm_out, _step_metrics(cfg, sp_out, tm_out)))
+            HTMOutput(sp_out, tm_out,
+                      _step_metrics(cfg, sp_out, tm_out, shard)))
 
 
 def _scan_impl(cfg: HTMConfig, state: HTMState, inputs: torch.Tensor,

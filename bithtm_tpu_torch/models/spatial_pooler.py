@@ -8,6 +8,12 @@ updates whether or not the model learns (`networks.py:33`).
 The permanence and connected tables are updated in place: the state
 passed in is consumed, as the JAX scan donates its carry.
 
+Under a column shard (`ops/shard.py`, a model-parallel rank holding C/n
+columns) only the inhibition crosses the column axis: the boosted
+overlaps are exchanged into the (B, C) array before `k_winners`, and the
+rest (overlap, boost, Hebbian rows, duty EMA) runs on the rank's own
+columns.
+
 `sp_update_pack` is the fused update + re-pack of the whole table, an
 entry point of its own with the CUDA kernel of the same name
 (`ops/kernels.py`) and its plain version `sp_update_pack_ref`.
@@ -23,10 +29,14 @@ from ..config import SPConfig
 from ..ops.active_set import _on_device, column_mask_from_cols
 from ..ops.overlap import overlaps as _overlaps, pack_input
 from ..ops.regularization import boost, duty_cycle_update, k_winners
+from ..ops.shard import ColumnShard
 from ..state import SPState
 
 
 class SPOutput(NamedTuple):
+    """Under a column shard the (B, C) fields hold the rank's columns
+    only; ``active_columns`` holds global ids."""
+
     active_columns: torch.Tensor    # (B, A) int32 top-k, descending value
     active_mask: torch.Tensor       # (B, C) bool
     overlaps: torch.Tensor          # (B, C) int32
@@ -109,7 +119,8 @@ def sp_update_pack(permanence: torch.Tensor, delta_row: torch.Tensor,
 
 def sp_step(cfg: SPConfig, state: SPState, input_bits: torch.Tensor,
             learning: bool, boosting=None, inhibition=None, overlap=None,
-            proximal_update=None) -> tuple[SPState, SPOutput]:
+            proximal_update=None, shard: ColumnShard | None = None
+            ) -> tuple[SPState, SPOutput]:
     """One SP timestep for B streams: ``input_bits`` is (B, I) bool.
 
     The component hooks of `spatial_pooler.py:39-61`, with the stream
@@ -119,7 +130,15 @@ def sp_step(cfg: SPConfig, state: SPState, input_bits: torch.Tensor,
       inhibition(cfg, boosted (B, C) f32) -> ((B, A) i32 cols, (B, C) mask)
       overlap(cfg, state, input_bits (B, I) bool) -> (B, C) overlaps
       proximal_update(cfg, state, input_bits, active_columns (B, A) i32)
-          -> (permanence, connected)  # the state's new tables"""
+          -> (permanence, connected)  # the state's new tables
+
+    ``shard``: the state holds this rank's columns of a model-parallel
+    group (no hooks, as the JAX sharded step takes none): the boosted
+    overlaps are exchanged before the inhibition, and the rank writes
+    back the Hebbian rows it owns (`ColumnShard.put_rows`)."""
+    if shard is not None and any(h is not None for h in (
+            boosting, inhibition, overlap, proximal_update)):
+        raise ValueError("the column-sharded SP step takes no hooks")
     if overlap is None:
         ov = _overlaps(state.connected, input_bits)
     else:
@@ -129,7 +148,12 @@ def sp_step(cfg: SPConfig, state: SPState, input_bits: torch.Tensor,
                         cfg.density)
     else:
         boosted = boosting(cfg, ov, state.duty_cycle)
-    if inhibition is None:
+    if shard is not None:
+        # the global inhibition, over every rank's columns in global order
+        active_columns, active_mask = k_winners(
+            shard.gather_columns(boosted), cfg.active_columns)
+        active_mask = active_mask[:, shard.lo:shard.hi]
+    elif inhibition is None:
         active_columns, active_mask = k_winners(boosted, cfg.active_columns)
     else:
         active_columns, active_mask = inhibition(cfg, boosted)
@@ -139,15 +163,20 @@ def sp_step(cfg: SPConfig, state: SPState, input_bits: torch.Tensor,
         permanence, connected = proximal_update(cfg, state, input_bits,
                                                 active_columns)
     elif learning:
-        idx = active_columns.long()
+        if shard is None:
+            idx = active_columns.long()
+        else:
+            idx, _ = shard.local(active_columns)
         rows = permanence.gather(
             1, idx[:, :, None].expand(-1, -1, permanence.shape[-1]))
         rows, thr = _hebbian_rows(cfg, rows, input_bits)
-        permanence.scatter_(
-            1, idx[:, :, None].expand(-1, -1, rows.shape[-1]), rows)
-        packed = pack_input(rows >= thr)
-        connected.scatter_(
-            1, idx[:, :, None].expand(-1, -1, packed.shape[-1]), packed)
+        for table, new in ((permanence, rows),
+                           (connected, pack_input(rows >= thr))):
+            if shard is None:
+                table.scatter_(
+                    1, idx[:, :, None].expand(-1, -1, new.shape[-1]), new)
+            else:
+                shard.put_rows(table, active_columns, new)
 
     duty = duty_cycle_update(state.duty_cycle, active_mask,
                              cfg.duty_cycle_momentum)

@@ -32,6 +32,14 @@ Rows are written back with plain scatters where the JAX step uses
 clipped takes, dropped scatters and a one-hot dot (TPU workarounds);
 scatters that the JAX step drops go to a padding row that is sliced off,
 so no index is written twice.
+
+Under a column shard (`ops/shard.py`: a model-parallel rank holds C/n
+columns of every C-indexed leaf) every rank takes the rows of the A
+active columns from their owners in one exchange, runs steps 1-4 on the
+same rows with the same draws (so every decision is the unsharded
+step's), writes back only the rows it owns, runs the full-table pass on
+its own rows over the global cell space, and counts the metrics that sum
+over C on its own columns (`htm_step` sums them across the group).
 """
 
 from __future__ import annotations
@@ -63,12 +71,19 @@ from ..ops.active_set import (
 )
 from ..ops.bitops import lsr32, popcount32
 from ..ops.serving import ServingTable, serving_counts
+from ..ops.shard import ColumnShard
 from ..rng import Draws
 from ..state import TMState
 
 # the index-keyed growth key (above 2^16 cells) holds the candidate's
 # list index below bit 30; invalid keys sort last
 PACKED_IDX_SENTINEL = 0x7FFFFFFF
+# the metrics that sum over the columns: a column shard's tm_step counts
+# its own columns and `htm_step` sums them across the model group (the
+# others are counted in active-column space, the same on every rank)
+COLUMN_SUMS = ("tm_punished_segments", "tm_punished_columns",
+               "tm_predicted_cells", "tm_matching_segments",
+               "tm_pool_occupancy")
 
 
 class TMOutput(NamedTuple):
@@ -120,10 +135,11 @@ def _dense(cols: torch.Tensor, rows: torch.Tensor,
     return _put_rows(out, cols, rows)
 
 
-def _winner_selection(cfg: TMConfig, state: TMState, draws: Draws,
-                      active_cols, pred_rows):
-    """Steps 1-2 in active-column space (`temporal_memory.py:106-161`).
-    Returns (col_burst (B, A), winner_rows (B, A, D), cell_max_j
+def _winner_selection(cfg: TMConfig, take, draws: Draws, active_cols,
+                      pred_rows):
+    """Steps 1-2 in active-column space (`temporal_memory.py:106-161`);
+    ``take(leaf)`` gives a C-indexed state leaf's rows at the active
+    columns. Returns (col_burst (B, A), winner_rows (B, A, D), cell_max_j
     (B, A, D), seg_j (B, A, G))."""
     D, G, K = cfg.cell_dim, cfg.segments_per_column, cfg.synapse_capacity
     B, A = active_cols.shape
@@ -132,9 +148,9 @@ def _winner_selection(cfg: TMConfig, state: TMState, draws: Draws,
     # per-segment potential at the active rows, re-derived from the
     # activity the previous forward pass cached (the table is unchanged)
     pot_rows, _ = seg_counts_packed_rows(
-        _rows(state.synapse_act, active_cols).reshape(B, A, G, K), K)
+        take("synapse_act").reshape(B, A, G, K), K)
     match_rows = pot_rows >= cfg.segment_matching_threshold
-    segcell_rows = _rows(state.seg_cell, active_cols)
+    segcell_rows = take("seg_cell")
 
     # jittered best matching segment per cell (networks.py:73-82)
     seg_j = torch.where(match_rows,
@@ -342,12 +358,14 @@ def _grow(cfg: TMConfig, rnd, syn_rows, perm_rows, learn_rows,
             n_winners - n_winners_eff, n_growth_dropped)
 
 
-def _learn(cfg: TMConfig, state: TMState, draws: Draws, active_cols,
-           pred_rows, winner_rows, cell_max_j, seg_j,
+def _learn(cfg: TMConfig, state: TMState, take, put, draws: Draws,
+           active_cols, pred_rows, winner_rows, cell_max_j, seg_j,
            return_debug: bool = False):
     """Step 3 minus punishment, in active-column row space
     (`temporal_memory.py:501-643`, `projections.py:257-293`). A no-op on
-    step 0 (`projections.py:258-259`). Writes the rows back into
+    step 0 (`projections.py:258-259`). ``take(leaf)`` gives a C-indexed
+    leaf's rows at the active columns, ``put(table, cols, rows)`` writes
+    rows back in place. Writes the rows back into
     ``state.synapse_cell`` / ``state.synapse_perm`` in place and returns
     (seg_cell, metrics, debug): ``debug`` is None unless
     ``return_debug``, else the (B, C, G) ``learning_segments`` and
@@ -356,14 +374,14 @@ def _learn(cfg: TMConfig, state: TMState, draws: Draws, active_cols,
     B, A = active_cols.shape
     has_prev = (state.step > 0)[:, None, None]
 
-    segcell_rows = _rows(state.seg_cell, active_cols)
-    syn_rows = _rows(state.synapse_cell, active_cols).reshape(B, A, G, K)
-    perm_rows = _rows(state.synapse_perm, active_cols).reshape(B, A, G, K)
+    segcell_rows = take("seg_cell")
+    syn_rows = take("synapse_cell").reshape(B, A, G, K)
+    perm_rows = take("synapse_perm").reshape(B, A, G, K)
     # slots killed by punishment keep a stale target; clean them here
     stale = perm_rows < 0.0
     syn_rows = torch.where(stale, -1, syn_rows)
     perm_rows = torch.where(stale, -1.0, perm_rows)
-    act_prev_raw = _rows(state.synapse_act, active_cols).reshape(B, A, G, K)
+    act_prev_raw = take("synapse_act").reshape(B, A, G, K)
     act_prev_rows = act_prev_raw != 0
     pot_rows, conn_rows = seg_counts_packed_rows(act_prev_raw, K)
     match_rows = pot_rows >= cfg.segment_matching_threshold
@@ -402,9 +420,9 @@ def _learn(cfg: TMConfig, state: TMState, draws: Draws, active_cols,
                              state.winner_bits)
 
     # write the rows back (the punishment pass touches only other columns)
-    _put_rows(state.synapse_cell, active_cols, syn_rows.reshape(B, A, -1))
-    _put_rows(state.synapse_perm, active_cols, perm_rows.reshape(B, A, -1))
-    seg_cell = _put_rows(state.seg_cell.clone(), active_cols, segcell_rows)
+    put(state.synapse_cell, active_cols, syn_rows.reshape(B, A, -1))
+    put(state.synapse_perm, active_cols, perm_rows.reshape(B, A, -1))
+    seg_cell = put(state.seg_cell.clone(), active_cols, segcell_rows)
 
     metrics = {
         "tm_new_segments": new_seg.sum((1, 2), dtype=torch.int32),
@@ -499,10 +517,19 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             frozen_word: torch.Tensor | None = None,
             serving_table: ServingTable | None = None,
             return_debug: bool = False, epsilon: float | None = None,
-            distal_forward=None):
+            distal_forward=None, shard: ColumnShard | None = None):
     """One TM timestep for B streams (`temporal_memory.py:713-996`).
     Returns (state, `TMOutput`), and the step's `TMDebug` third with
     ``return_debug``.
+
+    ``shard``: the state holds this rank's columns of a model-parallel
+    group (`ops/shard.py`); the C-indexed leaves and ``col_active`` are
+    the rank's columns, ``active_cols`` global ids. The step runs the
+    stock forward pass (no ``frozen_word``, ``serving_table`` or
+    ``distal_forward``) and returns no dense outputs and no debug trace,
+    as the JAX sharded step returns metrics; ``prev_col_prediction`` and
+    the metrics of `COLUMN_SUMS` count the rank's columns (`htm_step`
+    sums them across the group).
 
     ``active_cols`` (B, A) is the SP's top-k list in any order (sorted
     here). ``draws`` holds this step's random numbers (`rng.Draws`); it
@@ -530,6 +557,13 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
     `tm_resume` re-derives both."""
     _check_forward_options(learning, compute_winner, detailed_metrics,
                            frozen_word, serving_table, distal_forward)
+    if shard is not None and (
+            dense_outputs or return_debug or frozen_word is not None
+            or serving_table is not None or distal_forward is not None):
+        raise ValueError(
+            "a column-sharded tm_step runs the stock forward pass and "
+            "returns metrics only: pass dense_outputs=False and no "
+            "return_debug, frozen_word, serving_table or distal_forward")
     if epsilon is not None and epsilon != cfg.epsilon:
         cfg = dataclasses.replace(cfg, epsilon=float(epsilon))
     C, D, G, K = (cfg.column_dim, cfg.cell_dim, cfg.segments_per_column,
@@ -541,16 +575,34 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
 
     prev_prediction = state.prediction                          # (B, W, C)
     W = prev_prediction.shape[1]
-    pred_rows = unpack_bits(
-        prev_prediction.gather(
-            2, active_cols.long()[:, None, :].expand(B, W, A)
-        ).transpose(1, 2), D)                                   # (B, A, D)
-    if col_active is None:
-        col_active = column_mask_from_cols(active_cols, C)
+    if shard is None:
+        pred_words = prev_prediction.gather(
+            2, active_cols.long()[:, None, :].expand(B, W, A))
+
+        def take(leaf):
+            return _rows(getattr(state, leaf), active_cols)
+
+        put = _put_rows
+        if col_active is None:
+            col_active = column_mask_from_cols(active_cols, C)
+    else:
+        # the active rows this step reads, from their owners at once
+        leaves = ((("synapse_act", "seg_cell") if learning or compute_winner
+                   else ()) + (("synapse_cell", "synapse_perm")
+                               if learning else ()))
+        pred_words, *got = shard.rows(
+            active_cols,
+            [prev_prediction, *(getattr(state, n) for n in leaves)],
+            [2] + [1] * len(leaves))
+        take = dict(zip(leaves, got)).__getitem__
+        put = shard.put_rows
+        if col_active is None:
+            col_active = shard.column_mask(active_cols)
+    pred_rows = unpack_bits(pred_words.transpose(1, 2), D)      # (B, A, D)
 
     if learning or compute_winner:
         col_burst, winner_rows, cell_max_j, seg_j = _winner_selection(
-            cfg, state, draws, active_cols, pred_rows)
+            cfg, take, draws, active_cols, pred_rows)
     else:
         col_burst = ~pred_rows.any(-1)
         winner_rows = torch.zeros_like(pred_rows)
@@ -562,8 +614,8 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
     debug = None
     if learning:
         seg_cell, learn_metrics, debug = _learn(
-            cfg, state, draws, active_cols, pred_rows, winner_rows,
-            cell_max_j, seg_j, return_debug)
+            cfg, state, take, put, draws, active_cols, pred_rows,
+            winner_rows, cell_max_j, seg_j, return_debug)
         # punish the matching segments of inactive columns
         # (projections.py:269,290-293), fused into the table pass
         pun_word = torch.where(
@@ -575,7 +627,7 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             pun_word, active_cols, act_bits, seg_cell, D,
             cfg.permanence_punishment, cfg.permanence_threshold,
             cfg.segment_matching_threshold,
-            cfg.segment_activation_threshold)
+            cfg.segment_activation_threshold, column_dim=C)
         if detailed_metrics:
             learn_metrics["tm_punished_segments"] = popcount32(
                 pun_word).sum(-1, dtype=torch.int32)
@@ -611,7 +663,7 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             else:
                 act_now = synapse_activation_conn(
                     state.synapse_cell, perm_full, active_cols, act_bits, D,
-                    cfg.permanence_threshold, K)
+                    cfg.permanence_threshold, K, column_dim=C)
             potential, connected = seg_counts_packed(act_now, G, K)
         matching = potential >= cfg.segment_matching_threshold
         seg_active = matching & (

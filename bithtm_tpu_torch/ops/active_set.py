@@ -167,7 +167,9 @@ def active_cell_mask(cols: torch.Tensor, bits: torch.Tensor,
 def cells_active(cell: torch.Tensor, cols, bits, column_dim: int,
                  cell_dim: int) -> torch.Tensor:
     """(B, ...) cell ids -> bool of the same shape: the cell is in the
-    stream's (cols, bits) active set. Ids outside [0, C*D) are not."""
+    stream's (cols, bits) active set over ``column_dim`` columns. Ids
+    outside [0, C*D) are not. Every caller names the width: the table's
+    rows for a whole table, the global column count for a column shard."""
     N = column_dim * cell_dim
     mask = active_cell_mask(cols, bits, column_dim, cell_dim)
     idx = cell.clamp(0, N - 1).reshape(cell.shape[0], -1).long()
@@ -176,38 +178,46 @@ def cells_active(cell: torch.Tensor, cols, bits, column_dim: int,
 
 
 def _slot_active(syn: torch.Tensor, perm: torch.Tensor, cols, bits,
-                 cell_dim: int) -> torch.Tensor:
+                 cell_dim: int, column_dim: int | None = None
+                 ) -> torch.Tensor:
     """act[b, c, j]: slot is live (syn >= 0, perm >= 0) and its
-    presynaptic cell is in the (cols, bits) active set."""
-    return cells_active(syn, cols, bits, syn.shape[1], cell_dim) & (
-        perm >= 0.0)
+    presynaptic cell is in the (cols, bits) active set of ``column_dim``
+    columns (default: the table's own rows, syn.shape[1]; a column shard
+    passes the global column count, since its synapses target cells of
+    every shard)."""
+    width = syn.shape[1] if column_dim is None else column_dim
+    return cells_active(syn, cols, bits, width, cell_dim) & (perm >= 0.0)
 
 
 def synapse_activation_conn_ref(syn, perm, cols, bits, cell_dim: int,
-                                perm_threshold: float, synapses: int
+                                perm_threshold: float, synapses: int,
+                                column_dim: int | None = None
                                 ) -> torch.Tensor:
     """Plain version of the `act_conn` kernel: packed activity
-    v = act + scale*(perm >= threshold) over a read-only table."""
+    v = act + scale*(perm >= threshold) over a read-only table, whose
+    presynaptic cells lie in ``column_dim`` columns (`_slot_active`)."""
     thr = torch.tensor(perm_threshold, dtype=torch.float32)
-    act = _slot_active(syn, perm, cols, bits, cell_dim)
+    act = _slot_active(syn, perm, cols, bits, cell_dim, column_dim)
     return pack_act_conn(act, perm >= thr, synapses)
 
 
 def table_update_ref(syn, perm, act_prev, pun_word, cols, bits,
                      cell_dim: int, synapses: int, punishment: float,
-                     perm_threshold: float) -> torch.Tensor:
+                     perm_threshold: float,
+                     column_dim: int | None = None) -> torch.Tensor:
     """Plain version of the `table_update` kernel. Punishes in place:
     perm -= punishment where bit g = j // K of the column's ``pun_word``
     is set and ``act_prev != 0``; then returns the packed activity of
-    the punished table. A slot is dead iff perm < 0, so a slot the
-    punishment kills drops out of the activity without a syn write."""
+    the punished table over ``column_dim`` columns (`_slot_active`). A
+    slot is dead iff perm < 0, so a slot the punishment kills drops out
+    of the activity without a syn write."""
     J = syn.shape[-1]
     g_lane = torch.arange(J, device=syn.device) // synapses
     pen = (((pun_word[:, :, None] >> g_lane) & 1) == 1) & (act_prev != 0)
     pun = torch.tensor(punishment, dtype=torch.float32)
     perm.copy_(torch.where(pen, perm - pun, perm))
     return synapse_activation_conn_ref(syn, perm, cols, bits, cell_dim,
-                                       perm_threshold, synapses)
+                                       perm_threshold, synapses, column_dim)
 
 
 def _on_device(name: str, t: torch.Tensor) -> str:
@@ -219,18 +229,19 @@ def _on_device(name: str, t: torch.Tensor) -> str:
 
 
 def synapse_activation_conn(syn, perm, cols, bits, cell_dim: int,
-                            perm_threshold: float, synapses: int
-                            ) -> torch.Tensor:
+                            perm_threshold: float, synapses: int,
+                            column_dim: int | None = None) -> torch.Tensor:
     """Activation + connected activity over a frozen table (the
     inference forward): the `act_conn` kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. ``column_dim`` (default: the table's
+    rows) is the column count of the cell space, for a column shard."""
     if _on_device("synapse_activation_conn", syn) == "cuda":
         from .kernels import act_conn_cuda
 
         return act_conn_cuda(syn, perm, cols, bits, cell_dim,
-                             perm_threshold, synapses)
+                             perm_threshold, synapses, column_dim)
     return synapse_activation_conn_ref(syn, perm, cols, bits, cell_dim,
-                                       perm_threshold, synapses)
+                                       perm_threshold, synapses, column_dim)
 
 
 def synapse_activation_ref(syn, cols, bits, column_dim: int,
@@ -338,6 +349,8 @@ def synapse_activation_frozen_ref(frozen_word, cols, bits, cell_dim: int,
     (bit-equal to it on the table the words were packed from)."""
     live = frozen_word >= 0
     cell = torch.where(live, frozen_word & ((1 << FROZEN_CELL_BITS) - 1), -1)
+    # the cell space of the table's own rows: a frozen table is whole,
+    # never a column shard
     act = cells_active(cell, cols, bits, frozen_word.shape[1], cell_dim)
     conn = (frozen_word >> FROZEN_CELL_BITS) == 1
     return pack_act_conn(act & live, conn, synapses)
@@ -357,11 +370,15 @@ def synapse_activation_frozen(frozen_word, cols, bits, cell_dim: int,
 
 def table_update(syn, perm, act_prev, pun_word, cols, bits, seg_cell,
                  cell_dim: int, punishment: float, perm_threshold: float,
-                 matching_threshold: int, activation_threshold: int):
+                 matching_threshold: int, activation_threshold: int,
+                 column_dim: int | None = None):
     """The full-table part of a learning TM step: punishment + implicit
     death + activation (the `table_update` kernel for CUDA tensors, the
     plain version for CPU tensors; perm is updated in place), then the
-    per-segment counts, flags and packed prediction as torch ops.
+    per-segment counts, flags and packed prediction as torch ops. Every
+    output is per row, so a column shard of the tables gives its rows of
+    the whole-table result when ``column_dim`` names the global column
+    count (default: the table's rows).
 
     Returns (perm', act packed, potential, connected, matching,
     seg_active, prediction (B, W, C))."""
@@ -371,10 +388,12 @@ def table_update(syn, perm, act_prev, pun_word, cols, bits, seg_cell,
         from .kernels import table_update_cuda
 
         act = table_update_cuda(syn, perm, act_prev, pun_word, cols, bits,
-                                cell_dim, K, punishment, perm_threshold)
+                                cell_dim, K, punishment, perm_threshold,
+                                column_dim)
     else:
         act = table_update_ref(syn, perm, act_prev, pun_word, cols, bits,
-                               cell_dim, K, punishment, perm_threshold)
+                               cell_dim, K, punishment, perm_threshold,
+                               column_dim)
     potential, connected = seg_counts_packed(act, G, K)
     matching = potential >= matching_threshold
     seg_active = matching & (connected >= activation_threshold)

@@ -55,10 +55,11 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # every entry point ends with (device, stream)
 _ARGTYPES = {
     # syn, perm, act_prev, pun_word, cols, bits, v_out,
-    # B, C, J, A, W, D, K, punishment, threshold, scale
-    "table_update": [_VP] * 7 + [_I] * 7 + [_F, _F, _I, _I, _VP],
-    # syn, perm, cols, bits, v_out, B, C, J, A, W, D, K, threshold, scale
-    "act_conn": [_VP] * 5 + [_I] * 7 + [_F, _I, _I, _VP],
+    # B, C, column_dim, J, A, W, D, K, punishment, threshold, scale
+    "table_update": [_VP] * 7 + [_I] * 8 + [_F, _F, _I, _I, _VP],
+    # syn, perm, cols, bits, v_out, B, C, column_dim, J, A, W, D, K,
+    # threshold, scale
+    "act_conn": [_VP] * 5 + [_I] * 8 + [_F, _I, _I, _VP],
     # rows, cols, bits, out, B, R, A, W, C, D
     "serving_activation": [_VP] * 4 + [_I] * 6 + [_I, _VP],
     # word, cols, bits, v_out, B, C, J, A, W, D, scale
@@ -282,9 +283,14 @@ def _active_set(cols, bits, B: int, cell_dim: int, device: int):
 
 
 def _table(name: str, table, dtype: torch.dtype, cols, bits, cell_dim: int,
-           synapses: int, stream_rows: bool = False):
+           synapses: int, stream_rows: bool = False,
+           column_dim: int | None = None):
     """A (B, C, J) table read with 16-byte vector loads, J = G*K, and its
     active set (``stream_rows``: a kernel with one grid row a stream).
+    The table's C rows and the bitmap's ``column_dim`` columns (default
+    C) may differ: a model-parallel rank holds a shard of C rows whose
+    synapses target cells of all ``column_dim`` columns, so the stream
+    limit is checked on the rows and the bitmap limit on ``column_dim``.
     Returns (B, C, J, A, W, device, table, cols and bits pointers)."""
     if table.dim() != 3:
         raise ValueError(f"{name} must be (B, C, J), got "
@@ -297,8 +303,10 @@ def _table(name: str, table, dtype: torch.dtype, cols, bits, cell_dim: int,
         raise ValueError(f"K={synapses} > {MAX_PACKED_K} packs activity "
                          f"wider than u8, which the kernels do not take "
                          f"(the packed-K limit)")
+    if column_dim is not None and column_dim < 1:
+        raise ValueError(f"column_dim must be >= 1, got {column_dim}")
     _stream_words(C * J)
-    _bitmap(C, cell_dim)
+    _bitmap(C if column_dim is None else column_dim, cell_dim)
     if stream_rows:
         _grid_y(B)
     dev = table.get_device()
@@ -309,33 +317,41 @@ def _table(name: str, table, dtype: torch.dtype, cols, bits, cell_dim: int,
 
 def table_update_cuda(syn, perm, act_prev, pun_word, cols, bits,
                       cell_dim: int, synapses: int, punishment: float,
-                      perm_threshold: float) -> torch.Tensor:
+                      perm_threshold: float,
+                      column_dim: int | None = None) -> torch.Tensor:
     """CUDA `table_update`: punishes ``perm`` in place and returns the
-    packed activity (B, C, J) u8 (see `active_set.table_update_ref`)."""
+    packed activity (B, C, J) u8 (see `active_set.table_update_ref`).
+    ``column_dim`` (default C): the columns of the cell space the
+    active set spans, for a column shard of C rows."""
     B, C, J, A, W, dev, syn_p, cols_p, bits_p = _table(
-        "syn", syn, torch.int32, cols, bits, cell_dim, synapses)
+        "syn", syn, torch.int32, cols, bits, cell_dim, synapses,
+        column_dim=column_dim)
     perm_p = _ptr("perm", perm, torch.float32, syn.shape, dev, align=16)
     act_p = _ptr("act_prev", act_prev, torch.uint8, syn.shape, dev,
                  align=16)
     pun_p = _ptr("pun_word", pun_word, torch.int32, (B, C), dev)
     v = torch.empty((B, C, J), dtype=torch.uint8, device=syn.device)
     TABLE_UPDATE(syn_p, perm_p, act_p, pun_p, cols_p, bits_p, v.data_ptr(),
-                 B, C, J, A, W, cell_dim, synapses, punishment,
-                 perm_threshold, act_scale(synapses), dev, _stream(dev))
+                 B, C, column_dim or C, J, A, W, cell_dim, synapses,
+                 punishment, perm_threshold, act_scale(synapses), dev,
+                 _stream(dev))
     return v
 
 
 def act_conn_cuda(syn, perm, cols, bits, cell_dim: int,
-                  perm_threshold: float, synapses: int) -> torch.Tensor:
+                  perm_threshold: float, synapses: int,
+                  column_dim: int | None = None) -> torch.Tensor:
     """CUDA `act_conn`: packed activity (B, C, J) u8 over a read-only
-    table (see `active_set.synapse_activation_conn_ref`)."""
+    table (see `active_set.synapse_activation_conn_ref`); ``column_dim``
+    as for `table_update_cuda`."""
     B, C, J, A, W, dev, syn_p, cols_p, bits_p = _table(
-        "syn", syn, torch.int32, cols, bits, cell_dim, synapses)
+        "syn", syn, torch.int32, cols, bits, cell_dim, synapses,
+        column_dim=column_dim)
     perm_p = _ptr("perm", perm, torch.float32, syn.shape, dev, align=16)
     v = torch.empty((B, C, J), dtype=torch.uint8, device=syn.device)
-    ACT_CONN(syn_p, perm_p, cols_p, bits_p, v.data_ptr(), B, C, J, A, W,
-             cell_dim, synapses, perm_threshold, act_scale(synapses), dev,
-             _stream(dev))
+    ACT_CONN(syn_p, perm_p, cols_p, bits_p, v.data_ptr(), B, C,
+             column_dim or C, J, A, W, cell_dim, synapses, perm_threshold,
+             act_scale(synapses), dev, _stream(dev))
     return v
 
 

@@ -9,6 +9,10 @@ False when the step draws nothing (inference without winner cells).
 `htm_scan_autocap` also needs ``with_config`` (the same random stream
 drawing at another config's list widths) and ``get_state`` /
 ``set_state`` (to replay a chunk).
+
+`RowDraws` hands a data-parallel rank its rows of a provider that draws
+the whole batch, so that B streams split over ranks draw what they draw
+in one process.
 """
 
 from __future__ import annotations
@@ -74,3 +78,30 @@ class TorchDraws:
             rnd=torch.randint(-(1 << 31), 1 << 31, (B, L, Wc),
                               dtype=torch.int32, **kw),
         )
+
+
+class RowDraws:
+    """The ``rows`` (a slice of the stream axis) of every draw of
+    ``draws``, a provider of the global batch. Each rank of a data
+    row holds one, over a provider built alike on every rank (same
+    config, batch and generator seed), so that a rank's streams draw
+    the numbers they draw in the single-process run: a rank draws the
+    whole batch and keeps its rows. Replays through the inner provider's
+    ``get_state`` / ``set_state``."""
+
+    def __init__(self, draws, rows: slice):
+        self.draws = draws
+        self.rows = rows
+
+    def with_config(self, cfg: TMConfig) -> RowDraws:
+        return RowDraws(self.draws.with_config(cfg), self.rows)
+
+    def get_state(self):
+        return self.draws.get_state()
+
+    def set_state(self, state) -> None:
+        self.draws.set_state(state)
+
+    def step(self, need: bool = True) -> Draws | None:
+        d = self.draws.step(need)
+        return None if d is None else Draws(*(t[self.rows] for t in d))

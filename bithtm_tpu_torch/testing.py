@@ -1,10 +1,16 @@
 """Synthetic inputs for checking the forward passes (`table_update`,
 `synapse_activation_conn`, `synapse_activation_frozen`,
 `serving_activation`) and their CUDA kernels against their plain
-versions, made with numpy from a seed at any shape; and the check of the
-SP's boost on one device against the CPU (`boost_agreement`)."""
+versions, made with numpy from a seed at any shape; the check of the
+SP's boost on one device against the CPU (`boost_agreement`); and
+`run_ranks`, which runs the ranks of a multi-process check as processes
+with a deadline."""
 
 from __future__ import annotations
+
+import os
+import subprocess
+import time
 
 import numpy as np
 import torch
@@ -125,3 +131,46 @@ def boost_agreement(duty_cycle: torch.Tensor, overlaps: torch.Tensor,
                  and out["boosted_ulps"][">2"] == 0
                  and out["sets_differ"] == 0)
     return out
+
+
+def run_ranks(commands: list[list[str]], log_dir: str, timeout: float,
+              until=None, cwd: str | None = None
+              ) -> tuple[list, list[str]]:
+    """Starts one process a rank (``commands[r]``, output to
+    ``log_dir/rank<r>.log``) and waits until every one has exited, one
+    has failed, ``until(outputs)`` holds (``outputs``: each rank's output
+    so far) or ``timeout`` seconds have passed; then kills every process
+    still running (SIGKILL) and reaps it. Returns (each rank's return
+    code, negative where it was killed; each rank's output)."""
+    paths = [os.path.join(log_dir, f"rank{r}.log")
+             for r in range(len(commands))]
+
+    def outputs():
+        out = []
+        for path in paths:
+            with open(path, errors="replace") as f:
+                out.append(f.read())
+        return out
+
+    procs = []
+    try:
+        for cmd, path in zip(commands, paths):
+            with open(path, "w") as log:
+                procs.append(subprocess.Popen(cmd, stdout=log,
+                                              stderr=subprocess.STDOUT,
+                                              cwd=cwd))
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if (all(c is not None for c in codes)
+                    or any(c not in (None, 0) for c in codes)
+                    or (until is not None and until(outputs()))):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    return [p.returncode for p in procs], outputs()

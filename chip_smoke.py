@@ -37,6 +37,17 @@ launched once a step, then inference and serving packed and unpacked
 kernels held against their plain versions and timed at that geometry on
 the learned state.
 
+Then `bithtm_tpu_torch.parallel` (`run_parallel`), each sharded run held
+bit for bit in every leaf and metric to the single-process run with the
+same draws: (a) the model axis at 16K x 64, the first 16 learned streams
+on a 1 x 2 mesh (8,192 columns a rank) over two worker processes on this
+card under gloo, 16 learning + 8 serving steps, with each rank's kernel
+launches, ms/step, exchange bytes and ms a step and peak memory, and
+`table_update`/`act_conn` on a column shard held and timed; (b) the data
+axis at the bench configuration, the main path's state on a 2 x 1 mesh,
+32 learning steps with no exchange; (c) NCCL in this process, a 1 x 1
+mesh and a one-rank column shard.
+
 Then the single-stream reference API at 1000 -> 2048x32 (the oracle
 gate, B=1 learning through the wrapper with a checkpoint restored, the
 CLI), and last the NAB-style pipeline at BASELINE configuration 3 (352
@@ -82,6 +93,7 @@ from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
 from bithtm_tpu_torch.ops import serving as psv
 from bithtm_tpu_torch.ops.overlap import overlaps, padded_input_dim
+from bithtm_tpu_torch.parallel import mesh as pmesh
 from bithtm_tpu_torch import testing
 from bithtm_tpu_torch.testing import serving_rows, table_inputs
 
@@ -147,12 +159,17 @@ def only(**counts) -> dict:
     return {k.name: counts.get(k.name, 0) for k in kernels.KERNELS}
 
 
-def gpu_info(dev: torch.device) -> dict:
+def gpu_line(dev: torch.device) -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()
-    print(smi[dev.index or 0])
+    return smi[dev.index or 0]
+
+
+def gpu_info(dev: torch.device) -> dict:
+    print(gpu_line(dev))
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1165,7 +1182,9 @@ def run_16k(dev) -> tuple[dict, dict]:
     serving table and `synapse_activation` against their plain versions
     on the learned state and times them (`kernel_row`, with the grid of
     each row-range kernel). Returns (launch
-    counts of the learning run, the kernel rows at this geometry)."""
+    counts of the learning run, the kernel rows at this geometry, the
+    first PAR_16K_BATCH streams of the learned state as host leaves with
+    the caps in force)."""
     cfg = bt.make_htm_config(**GEOM_16K)
     B, A, T = BATCH_16K, cfg.sp.active_columns, LEARN_16K
     C, D, K = cfg.tm.column_dim, cfg.tm.cell_dim, cfg.tm.synapse_capacity
@@ -1357,6 +1376,8 @@ def run_16k(dev) -> tuple[dict, dict]:
     snap = Snapshot(dataclasses.replace(
         cfg, tm=dataclasses.replace(cfg.tm, **caps)), state, gen,
         serve_xs[:PROFILED_STEPS])
+    # the learned streams the parallel phase continues from
+    learned = (host_leaves(state, slice(0, PAR_16K_BATCH)), caps)
     del state, tm
     time_phases(snap, snap.xs)
     perf["learning_ms_per_step_profiled_steps_unprofiled"] = profile_steps(
@@ -1364,7 +1385,499 @@ def run_16k(dev) -> tuple[dict, dict]:
         f"{T + INFER_16K}")
     print("16K metrics: " + json.dumps(perf))
     print("16K kernels: " + json.dumps(rows))
-    return launches, rows
+    return launches, rows, learned
+
+
+# ---- the parallel phase: `bithtm_tpu_torch.parallel` over worker
+# processes on the one card (gloo all_reduce on CUDA tensors; NCCL
+# refuses two ranks on one device), then NCCL in this process
+
+# (a) the model axis at 16K x 64: the first PAR_16K_BATCH learned streams
+# on a 1 x 2 mesh (8,192 columns a rank), PAR_16K_LEARN learning then
+# PAR_16K_SERVE serving steps; (b) the data axis at the bench
+# configuration: the main path's state on a 2 x 1 mesh (128 streams a
+# rank), PAR_BENCH_LEARN learning steps; (c) NCCL, one rank
+PAR_16K_BATCH, PAR_16K_LEARN, PAR_16K_SERVE = 16, 16, 8
+PAR_BENCH_LEARN = 32
+PAR_NCCL_BATCH, PAR_NCCL_LEARN, PAR_NCCL_SERVE = 4, 4, 2
+PAR_SEED = 909           # the draw generator every rank and the reference seed
+PAR_TIMEOUT = 300        # seconds a worker group, and a collective, may take
+PAR_EXCHANGE_REPS = 10   # timed replays of a step's collectives
+
+
+def host_leaves(state, rows=slice(None)) -> dict:
+    """``state``'s leaves (`mesh.state_leaves`) at the streams ``rows``,
+    as host copies."""
+    return {k: t[rows].to("cpu", copy=True)
+            for k, t in pmesh.state_leaves(state).items()}
+
+
+def state_on(leaves: dict, dev):
+    """The state of a `mesh.state_leaves` dict, as copies on ``dev``."""
+    return pmesh.state_from_leaves({k: t.to(dev, copy=True)
+                                    for k, t in leaves.items()})
+
+
+def bit_differing_leaves(a: dict, b: dict) -> list[str]:
+    """The leaves of two leaf dicts that differ in any bit (-0.0 is not
+    0.0 here, as it is to `torch.equal`)."""
+    def raw(t):
+        return t.contiguous().view(-1).view(torch.uint8)
+    return [k for k in a if a[k].shape != b[k].shape
+            or not torch.equal(raw(a[k]), raw(b[k]))]
+
+
+def par_config(job: dict):
+    cfg = bt.make_htm_config(**job["config"])
+    return dataclasses.replace(
+        cfg, tm=dataclasses.replace(cfg.tm, **job["caps"]))
+
+
+def par_run(cfg, state, xs, n_learn: int, learn_step, serve_step,
+            timed: bool = False):
+    """``n_learn`` learning steps, then serving steps over the rest of
+    ``xs``: (state, host metrics a step, host ms a step (synchronized)
+    when ``timed``, launch counts of the learning and the serving
+    steps)."""
+    metrics, ms, counts = [], [], []
+    kernels.reset_launch_counts()
+    for t, x in enumerate(xs):
+        if t == n_learn:
+            counts.append(kernels.launch_counts())
+            kernels.reset_launch_counts()
+        if timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = (learn_step if t < n_learn else serve_step)(state, x)
+        if timed:
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: v.cpu() for k, v in m.items()})
+    counts.append(kernels.launch_counts())
+    return state, metrics, ms, counts
+
+
+def single_steps(cfg, B: int, dev, shard=None):
+    """The learning and serving steps of one process with the draws the
+    ranks make (the global batch from a generator seeded PAR_SEED);
+    ``shard``: through a column shard."""
+    draws = bt.TorchDraws(cfg.tm, B, dev,
+                          torch.Generator(device=dev).manual_seed(PAR_SEED))
+
+    def learn(st, x):
+        st, out = bt.htm_step(cfg, st, x, True, draws=draws,
+                              dense_outputs=False, shard=shard)
+        return st, out.metrics
+
+    def serve(st, x):
+        st, out = bt.htm_step(cfg, st, x, False, False, draws=draws,
+                              dense_outputs=False, shard=shard)
+        return st, out.metrics
+
+    return learn, serve
+
+
+def draws_ms(cfg, B: int, dev) -> float:
+    """CUDA-event ms of one learning step's draws for B streams."""
+    draws = bt.TorchDraws(cfg.tm, B, dev,
+                          torch.Generator(device=dev).manual_seed(PAR_SEED))
+    return cuda_ms(draws.step)
+
+
+def exchange_ms(traffic: dict, steps: int, group, dev) -> float:
+    """Device-synchronized ms a step of the collectives ``steps`` steps
+    made (``traffic``: bytes -> calls), replayed as all_reduces of those
+    sizes after a warm-up."""
+    bufs = [torch.zeros(n, dtype=torch.uint8, device=dev)
+            for n, c in traffic.items() for _ in range(c // steps)]
+    for b in bufs:
+        torch.distributed.all_reduce(b, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PAR_EXCHANGE_REPS):
+        for b in bufs:
+            torch.distributed.all_reduce(b, group=group)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / PAR_EXCHANGE_REPS
+
+
+def parallel_worker(job_path: str, rank: str, port: str) -> None:
+    """One rank of a parallel job (`run_parallel`): joins a gloo group on
+    the card, takes its shard of the job's state, steps it with the
+    `parallel.mesh` steps, times its steps and its exchange, and saves
+    its final shard and metrics."""
+    from bithtm_tpu_torch.parallel import distributed as pdist
+
+    with open(job_path) as f:
+        job = json.load(f)
+    rank = int(rank)
+    n_data, n_model = job["mesh"]
+    dev = torch.device(job["device"])
+    pdist.initialize(f"localhost:{port}", n_data * n_model, rank,
+                     backend="gloo", timeout=PAR_TIMEOUT)
+    mesh = pmesh.make_mesh(n_data, n_model, device=dev)
+    cfg = par_config(job)
+    full = pmesh.state_from_leaves(torch.load(job["state"], mmap=True,
+                                              weights_only=True))
+    B = full.batch
+    state = pmesh.shard_batched_state(full, mesh)
+    del full
+    n_learn = job["learn"]
+    xs = bench_inputs(cfg, B, n_learn + job["serve"], dev)[
+        :, pdist.local_data_slice(B, mesh)]
+    draws = bt.TorchDraws(cfg.tm, B, dev,
+                          torch.Generator(device=dev).manual_seed(PAR_SEED))
+    shard = mesh.column_shard(cfg.tm.column_dim)
+    if shard is not None:  # gloo's first CUDA collectives are slow
+        warm = torch.zeros(1 << 20, dtype=torch.uint8, device=dev)
+        for _ in range(3):
+            torch.distributed.all_reduce(warm, group=shard.group)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = (pmesh.sharded_step(cfg, mesh, True, draws),
+             pmesh.sharded_serve_step(cfg, mesh))
+    summary = {"rank": rank, "mesh": [mesh.data_index, mesh.model_index],
+               "streams": xs.shape[1]}
+    metrics = []
+    for phase, part, n in (("learn", xs[:n_learn], n_learn),
+                           ("serve", xs[n_learn:], 0)):
+        state, m, ms, counts = par_run(cfg, state, part, n, *steps,
+                                       timed=True)
+        traffic = dict(shard.traffic) if shard is not None else {}
+        if shard is not None:
+            shard.traffic.clear()
+        metrics += m
+        summary.update({
+            f"{phase}_ms": ms, f"{phase}_launches": counts[-1],
+            f"{phase}_exchange_bytes_per_step":
+                sum(k * c for k, c in traffic.items()) / max(len(part), 1),
+            f"{phase}_collectives_per_step":
+                sum(traffic.values()) / max(len(part), 1),
+            f"{phase}_exchange_ms_per_step":
+                exchange_ms(traffic, len(part), shard.group, dev)
+                if traffic else 0.0})
+    summary["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.save({"state": host_leaves(state), "metrics": metrics},
+               os.path.join(job["out"], f"rank{rank}.pt"))
+    print("PARALLEL_RANK " + json.dumps(summary), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(job: dict, tmp: str) -> list[dict]:
+    """Runs the ranks of ``job`` as worker processes of this script (the
+    kernels are built already, so none runs nvcc; `testing.run_ranks`:
+    all are killed if one fails or the group outlasts PAR_TIMEOUT).
+    Returns each rank's summary and final shard."""
+    n = job["mesh"][0] * job["mesh"][1]
+    path = os.path.join(tmp, f"{job['name']}.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    port = free_port()
+    logs = os.path.join(tmp, job["name"])
+    os.makedirs(logs, exist_ok=True)
+    rcs, outs = testing.run_ranks(
+        [[sys.executable, os.path.abspath(__file__), "--parallel-worker",
+          path, str(r), str(port)] for r in range(n)], logs, PAR_TIMEOUT,
+        cwd=REPO)
+    if any(rcs):
+        for r, out in enumerate(outs):
+            print(f"--- {job['name']} rank {r} (rc {rcs[r]}):\n{out[-3000:]}")
+        raise RuntimeError(f"check failed: the {job['name']} ranks exited "
+                           f"with {rcs}")
+    ranks = []
+    for r, out in enumerate(outs):
+        line = [ln for ln in out.splitlines()
+                if ln.startswith("PARALLEL_RANK ")]
+        require(len(line) == 1, f"{job['name']} rank {r} reported")
+        got = torch.load(os.path.join(job["out"], f"rank{r}.pt"),
+                         weights_only=True)
+        ranks.append({**json.loads(line[0].split(" ", 1)[1]), **got})
+    return ranks
+
+
+def check_parallel_run(what: str, job: dict, ranks: list[dict],
+                       ref_leaves: dict, ref_metrics: list[dict]) -> None:
+    """Every leaf of the gathered shards and every metric of every rank
+    equal to the single-process run, bit for bit."""
+
+    n_data, n_model = job["mesh"]
+    full = pmesh.assemble_batched_state(
+        [pmesh.state_from_leaves(r["state"]) for r in ranks], n_data,
+        n_model)
+    bad = bit_differing_leaves(host_leaves(full), ref_leaves)
+    require(not bad, f"{what}: the gathered shards equal the single-process "
+            f"state in every leaf, bit for bit (differ: {bad})")
+    for t, ref in enumerate(ref_metrics):
+        for k, v in ref.items():
+            for m in range(n_model):
+                got = torch.cat([ranks[d * n_model + m]["metrics"][t][k]
+                                 for d in range(n_data)])
+                require(torch.equal(got.view(torch.uint8) if
+                                    got.dtype == torch.float32 else got,
+                                    v.view(torch.uint8) if
+                                    v.dtype == torch.float32 else v),
+                        f"{what}: metric {k} of step {t} on model rank {m} "
+                        f"== the single-process run's")
+
+
+def print_ranks(what: str, ranks: list[dict]) -> None:
+    for r in ranks:
+        learn, serve = r["learn_ms"], r["serve_ms"]
+        line = (f"  rank {r['rank']} (data {r['mesh'][0]}, model "
+                f"{r['mesh'][1]}, {r['streams']} streams): learning "
+                f"{statistics.median(learn[1:]):.3f} ms/step (median of steps "
+                f"1-{len(learn) - 1}; step 0 {learn[0]:.3f}), exchange "
+                f"{r['learn_exchange_bytes_per_step'] / 1e6:.3f} MB in "
+                f"{r['learn_collectives_per_step']:.0f} all_reduce, "
+                f"{r['learn_exchange_ms_per_step']:.3f} ms a step")
+        if serve:
+            line += (f"; serving {statistics.median(serve):.3f} ms/step, "
+                     f"exchange {r['serve_exchange_bytes_per_step'] / 1e6:.3f}"
+                     f" MB in {r['serve_collectives_per_step']:.0f} "
+                     f"all_reduce, {r['serve_exchange_ms_per_step']:.3f} ms "
+                     f"a step")
+        line += (f"; launches learning {r['learn_launches']}, serving "
+                 f"{r['serve_launches']}; peak memory "
+                 f"{r['peak_memory_gib']:.2f} GiB")
+        print(line)
+
+
+def shard_table_rows(dev, leaves: dict, cfg) -> dict:
+    """`table_update` and `act_conn` on model rank 0's column shard of the
+    learned 16K streams (the first C/2 rows, ``column_dim`` C): bit-equal
+    to their plain versions and to the whole-table result's rows, with
+    the times and bound of `kernel_row`."""
+    C, D, K = cfg.tm.column_dim, cfg.tm.cell_dim, cfg.tm.synapse_capacity
+    half = C // 2
+    thr, pun = cfg.tm.permanence_threshold, cfg.tm.permanence_punishment
+    syn = leaves["tm.synapse_cell"].to(dev)
+    perm = leaves["tm.synapse_perm"].to(dev)
+    act = leaves["tm.synapse_act"].to(dev)
+    cols = leaves["tm.active_cols"].to(dev)
+    bits = leaves["tm.active_bits"].to(dev)
+    pun_word = torch.where(pas.column_mask_from_cols(cols, C), 0,
+                           leaves["tm.matching_word"].to(dev))
+    p_full = perm.clone()
+    v_full = kernels.table_update_cuda(syn, p_full, act, pun_word, cols, bits,
+                                       D, K, pun, thr)
+    c_full = kernels.act_conn_cuda(syn, perm, cols, bits, D, thr, K)
+    s_syn, s_perm, s_act = (t[:, :half].contiguous() for t in (syn, perm,
+                                                               act))
+    s_pun = pun_word[:, :half].contiguous()
+    p_ref, p_k = s_perm.clone(), s_perm.clone()
+    v_ref = pas.table_update_ref(s_syn, p_ref, s_act, s_pun, cols, bits, D, K,
+                                 pun, thr, column_dim=C)
+    v_k = kernels.table_update_cuda(s_syn, p_k, s_act, s_pun, cols, bits, D,
+                                    K, pun, thr, column_dim=C)
+    c_ref = pas.synapse_activation_conn_ref(s_syn, s_perm, cols, bits, D, thr,
+                                            K, column_dim=C)
+    c_k = kernels.act_conn_cuda(s_syn, s_perm, cols, bits, D, thr, K,
+                                column_dim=C)
+    torch.cuda.synchronize()
+    other = s_syn >= half * D
+    require(bool((other & (v_ref > 0)).any()),
+            "the shard's synapses reach active cells of the other shard")
+    require(torch.equal(v_k, v_ref) and torch.equal(
+        p_k.view(torch.int32), p_ref.view(torch.int32)),
+        "table_update on a column shard == plain")
+    require(torch.equal(v_k, v_full[:, :half]) and torch.equal(
+        p_k.view(torch.int32), p_full[:, :half].contiguous().view(
+            torch.int32)), "table_update on a column shard == the whole "
+            "table's rows")
+    require(torch.equal(c_k, c_ref) and torch.equal(c_k, c_full[:, :half]),
+            "act_conn on a column shard == plain == the whole table's rows")
+    punished = int((p_ref != s_perm).sum())
+    B = syn.shape[0]
+    at = (f"B={B}, a column shard of {half} rows over column_dim={C}, D={D}, "
+          f"K={K}, the learned 16K streams")
+    p = s_perm.clone()
+    rows = {
+        "table_update": kernel_row(
+            "table_update (column shard)", lambda: kernels.table_update_cuda(
+                s_syn, p, s_act, s_pun, cols, bits, D, K, pun, thr,
+                column_dim=C),
+            lambda: pas.table_update_ref(s_syn, p, s_act, s_pun, cols, bits,
+                                         D, K, pun, thr, column_dim=C),
+            nbytes(s_syn, s_perm, s_act, s_pun, cols, bits, v_ref)
+            + 4 * punished, at, grid=table_grid(True, syn, D)),
+        "act_conn": kernel_row(
+            "act_conn (column shard)", lambda: kernels.act_conn_cuda(
+                s_syn, s_perm, cols, bits, D, thr, K, column_dim=C),
+            lambda: pas.synapse_activation_conn_ref(
+                s_syn, s_perm, cols, bits, D, thr, K, column_dim=C),
+            nbytes(s_syn, s_perm, cols, bits, c_ref), at,
+            grid=table_grid(False, syn, D)),
+    }
+    return rows
+
+
+def check_nccl(dev, leaves: dict, cfg) -> None:
+    """(c) NCCL in this process: a 1 x 1 mesh (`initialize` picks NCCL for
+    a card) runs `sharded_step` / `sharded_serve_step`, and the same state
+    runs the column-shard step with a one-rank shard, whose every
+    exchange goes through NCCL; both equal the unsharded steps, bit for
+    bit, in every leaf and metric."""
+    from bithtm_tpu_torch.ops.shard import ColumnShard
+    from bithtm_tpu_torch.parallel import distributed as pdist
+
+    B, L, S = PAR_NCCL_BATCH, PAR_NCCL_LEARN, PAR_NCCL_SERVE
+    sub = {k: v[:B] for k, v in leaves.items()}
+    xs = bench_inputs(cfg, B, L + S, dev)
+    st, ref_m, _, _ = par_run(cfg, state_on(sub, dev), xs, L,
+                              *single_steps(cfg, B, dev))
+    ref = host_leaves(st)
+    del st
+    pdist.initialize(f"localhost:{free_port()}", 1, 0, device=dev,
+                     timeout=PAR_TIMEOUT)
+    try:
+        backend = torch.distributed.get_backend()
+        require(backend == "nccl", f"initialize picks NCCL on a card, got "
+                f"{backend}")
+        mesh = pmesh.make_mesh(1, 1, device=dev)
+        draws = bt.TorchDraws(cfg.tm, B, dev, torch.Generator(
+            device=dev).manual_seed(PAR_SEED))
+        shard = ColumnShard(torch.distributed.group.WORLD, 0, 1,
+                            cfg.tm.column_dim)
+        runs = {
+            "the 1 x 1 mesh": (
+                pmesh.shard_batched_state(pmesh.state_from_leaves(sub),
+                                          mesh),
+                pmesh.sharded_step(cfg, mesh, True, draws),
+                pmesh.sharded_serve_step(cfg, mesh)),
+            "the one-rank column shard": (state_on(sub, dev),
+                                          *single_steps(cfg, B, dev, shard)),
+        }
+        for what, (st, learn, serve) in runs.items():
+            st, m, _, _ = par_run(cfg, st, xs, L, learn, serve)
+            bad = bit_differing_leaves(host_leaves(st), ref)
+            require(not bad and all(torch.equal(a[k], b[k])
+                                    for a, b in zip(m, ref_m) for k in b),
+                    f"{what} under NCCL == the unsharded steps ({bad})")
+        calls = sum(shard.traffic.values())
+        require(calls > 0, "the one-rank shard's exchanges ran through NCCL")
+        print(f"(c) NCCL, one rank on {torch.cuda.get_device_name(0)}: a 1 x "
+              f"1 mesh and a one-rank column shard ({calls} NCCL all_reduce "
+              f"in {L + S} steps), {L} learning + {S} serving steps of "
+              f"{B} learned 16K streams, each == the unsharded steps in "
+              f"every leaf and metric")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_parallel(dev, learned16, bench_path: str, tmp: str) -> dict:
+    """`bithtm_tpu_torch.parallel` on the card, each sharded run against
+    the single-process run of the same steps with the same draws (the
+    global batch from a generator seeded PAR_SEED):
+
+    (a) the model axis at full width: 16K x 64 (A=328, fast stack, the
+        16K run's caps) on a 1 x 2 mesh, 8,192 columns a rank, from the
+        first PAR_16K_BATCH streams of the learned 16K state, so that
+        growth, punishment and eviction run: PAR_16K_LEARN learning and
+        PAR_16K_SERVE serving steps over two worker processes sharing the
+        card under gloo; `table_update` once a learning step,
+        `small_table_take` once a learning step and `act_conn` once a
+        serving step on each rank; every leaf of the gathered shards and
+        every metric equal, bit for bit; each rank's ms/step, its
+        exchange's bytes and ms a step and its peak memory. Beside it,
+        `table_update` and `act_conn` on a column shard of that state
+        (`shard_table_rows`);
+    (b) the data axis at the bench configuration: the main path's state
+        (B=256) on a 2 x 1 mesh, 128 streams a rank, PAR_BENCH_LEARN
+        learning steps, equal bit for bit, with no exchange in a step;
+    (c) NCCL in this process (`check_nccl`).
+
+    Returns the shard rows of the two table kernels."""
+    leaves16, caps = learned16
+    print(f"parallel phase on {gpu_line(dev)}: ranks are worker processes "
+          f"on this one card under gloo (all_reduce on CUDA tensors)")
+    cfg16 = dataclasses.replace(bt.make_htm_config(**GEOM_16K), tm=dataclasses
+                                .replace(bt.make_htm_config(**GEOM_16K).tm,
+                                         **caps))
+    rows = shard_table_rows(dev, leaves16, cfg16)
+    path16 = os.path.join(tmp, "state16.pt")
+    torch.save(leaves16, path16)
+    for what, job, ref_state in (
+            ("(a) 16K x 64, 1 x 2 model mesh",
+             dict(name="model16k", mesh=[1, 2], config=GEOM_16K, caps=caps,
+                  state=path16, learn=PAR_16K_LEARN, serve=PAR_16K_SERVE),
+             lambda: state_on(leaves16, dev)),
+            ("(b) bench configuration, 2 x 1 data mesh",
+             dict(name="databench", mesh=[2, 1], config=BENCH, caps={},
+                  state=bench_path, learn=PAR_BENCH_LEARN, serve=0),
+             lambda: state_on(torch.load(bench_path, mmap=True,
+                                         weights_only=True), dev))):
+        job.update(out=tmp, device=str(dev))
+        cfg = par_config(job)
+        st = ref_state()
+        B = st.batch
+        xs = bench_inputs(cfg, B, job["learn"] + job["serve"], dev)
+        st, ref_m, ref_ms, ref_counts = par_run(
+            cfg, st, xs, job["learn"], *single_steps(cfg, B, dev),
+            timed=True)
+        ref = host_leaves(st)
+        del st
+        torch.cuda.empty_cache()
+        summed = {k: int(sum(int(m[k].sum()) for m in ref_m[:job["learn"]]))
+                  for k in ("tm_grown_synapses", "tm_punished_segments",
+                            "tm_evicted_segments", "tm_new_segments")}
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(job, tmp)
+        group_s = time.perf_counter() - t0
+        check_parallel_run(what, job, ranks, ref, ref_m)
+        n_model = job["mesh"][1]
+        for r in ranks:
+            require(r["learn_launches"] == ref_counts[0],
+                    f"{what}: rank {r['rank']} launches each kernel as the "
+                    f"unsharded step does while learning "
+                    f"({r['learn_launches']} vs {ref_counts[0]})")
+            if job["serve"]:
+                require(r["serve_launches"] == only(act_conn=job["serve"]),
+                        f"{what}: rank {r['rank']} launches act_conn once a "
+                        f"serving step and nothing else")
+            if n_model == 1:
+                require(r["learn_collectives_per_step"] == 0,
+                        f"{what}: no exchange during a data-parallel step")
+        if n_model > 1:
+            require(ref_counts[0] == only(table_update=job["learn"],
+                                          small_table_take=job["learn"]),
+                    f"{what}: table_update and small_table_take once a "
+                    f"learning step, got {ref_counts[0]}")
+            require(summed["tm_grown_synapses"] > 0
+                    and summed["tm_punished_segments"] > 0,
+                    f"{what}: growth and punishment ran ({summed})")
+        print(f"{what}: {job['learn']} learning + {job['serve']} serving "
+              f"steps of {B} streams; the gathered shards == the single-"
+              f"process run in every leaf and every metric of every rank, "
+              f"bit for bit; the single process (all {B} streams, all "
+              f"columns) learning "
+              f"{statistics.median(ref_ms[1:job['learn']]):.3f} ms/step"
+              + (f", serving {statistics.median(ref_ms[job['learn']:]):.3f}"
+                 f" ms/step" if job["serve"] else "")
+              + f" (medians, step 0 apart); the worker group "
+              f"{group_s:.1f} s from spawn to exit; over the learning steps "
+              f"{summed}")
+        print_ranks(what, ranks)
+        if n_model == 1:
+            # a data rank draws the whole batch and keeps its rows
+            own = B // job["mesh"][0]
+            print(f"{what}: the draws of a learning step take "
+                  f"{draws_ms(cfg, B, dev):.4f} ms for the global batch of "
+                  f"{B} streams that each rank draws, "
+                  f"{draws_ms(cfg, own, dev):.4f} ms for a rank's own {own}")
+        print(f"{what} ranks: " + json.dumps(
+            [{k: v for k, v in r.items() if k not in ("state", "metrics")}
+             for r in ranks]))
+        del ranks, ref
+    check_nccl(dev, leaves16, cfg16)
+    return rows
 
 
 def table_kernel_rows(dev, C: int, D: int, G: int, K: int, A: int,
@@ -1960,6 +2473,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; "
                          "torch.cuda.is_available() is false")
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        parallel_worker(*sys.argv[2:5])
+        return
     dev = torch.device("cuda", 0)
     device = gpu_info(dev)
 
@@ -1972,6 +2488,9 @@ def main() -> None:
     check_learning(dev)
     check_cpu_agreement(dev)
     launches, snap, window_ms, (state, gen, serve_xs) = run_main_path(dev)
+    tmp = tempfile.TemporaryDirectory(prefix=".smoke_", dir=REPO)
+    bench_path = os.path.join(tmp.name, "bench.pt")
+    torch.save(host_leaves(state), bench_path)
     launches.update(run_serving(snap.cfg, state, gen, serve_xs))
     entry = run_entry_points(snap.cfg, state, serve_xs)
     check_boost(dev, state.sp, serve_xs)
@@ -1985,8 +2504,15 @@ def main() -> None:
                   f"median {window_ms:.3f} ms/step)")
     del snap
     torch.cuda.empty_cache()
-    launches_16k, _ = run_16k(dev)
+    launches_16k, _, learned16 = run_16k(dev)
     launches["small_table_take"] = launches_16k["small_table_take"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shard_rows = run_parallel(dev, learned16, bench_path, tmp.name)
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s; kernels on a "
+          f"column shard: " + json.dumps(shard_rows))
+    del learned16
+    tmp.cleanup()
     torch.cuda.empty_cache()
     run_reference_api(dev)
     torch.cuda.empty_cache()

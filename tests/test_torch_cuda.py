@@ -680,3 +680,97 @@ def test_prefetch_and_encoders_on_the_card(cuda):
     for part in ("sp", "tm"):
         for name, arr in a[part].items():
             np.testing.assert_array_equal(arr, b[part][name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (3, 2048, 4, 64, 32, 41),    # the bench's table: an 8 KB bitmap
+    (2, 16384, 1, 8, 64, 328),   # the 16K x 64 cell space: 128 KB
+])
+def test_table_kernels_on_a_column_shard(shape, cuda):
+    """`table_update_cuda` and `act_conn_cuda` on a column shard (a
+    quarter of the rows, ``column_dim`` the whole table's columns), whose
+    presynaptic cells lie mostly in the other shards: equal to their
+    plain versions and to the whole table's result at those rows."""
+    B, C, G, K, D, A = shape
+    x = table_inputs(sum(shape) + 9, *shape, device=cuda)
+    cols, bits = x["cols"], x["bits"]
+    rows = slice(C // 4, C // 2)
+    syn, perm, act, pun = (x[k][:, rows].contiguous()
+                           for k in ("syn", "perm", "act_prev", "pun_word"))
+    p_full = x["perm"].clone()
+    v_full = pas.table_update_ref(x["syn"], p_full, x["act_prev"],
+                                  x["pun_word"], cols, bits, D, K, 0.01, 0.5)
+    c_full = pas.synapse_activation_conn_ref(x["syn"], x["perm"], cols, bits,
+                                             D, 0.5, K)
+    p_ref, p_k = perm.clone(), perm.clone()
+    before = kernels.launch_counts()
+    v_ref = pas.table_update_ref(syn, p_ref, act, pun, cols, bits, D, K,
+                                 0.01, 0.5, column_dim=C)
+    v_k = kernels.table_update_cuda(syn, p_k, act, pun, cols, bits, D, K,
+                                    0.01, 0.5, column_dim=C)
+    c_ref = pas.synapse_activation_conn_ref(syn, perm, cols, bits, D, 0.5, K,
+                                            column_dim=C)
+    c_k = kernels.act_conn_cuda(syn, perm, cols, bits, D, 0.5, K,
+                                column_dim=C)
+    torch.cuda.synchronize()
+    assert launched(before) == only(table_update=1, act_conn=1)
+    assert torch.equal(v_k, v_ref) and torch.equal(v_ref, v_full[:, rows])
+    assert torch.equal(p_k.view(torch.int32), p_ref.view(torch.int32))
+    assert torch.equal(p_ref, p_full[:, rows])
+    assert torch.equal(c_k, c_ref) and torch.equal(c_ref, c_full[:, rows])
+    live = syn >= 0
+    elsewhere = live & ((syn < rows.start * D) | (syn >= rows.stop * D))
+    assert elsewhere.sum() > live.sum() // 2
+    assert (elsewhere & (v_ref > 0)).any()
+
+
+@pytest.mark.cuda
+def test_model_parallel_step_on_the_card(cuda, tmp_path):
+    """Two ranks on the card (worker processes, gloo on CUDA tensors) run
+    a 1 x 2 model mesh: four learning and two serving steps equal the
+    unsharded steps in every leaf (shards gathered) and every metric."""
+    from .test_torch_multiprocess import load_tree, run_job
+
+    kw = dict(input_dim=128, column_dim=512, cell_dim=32, active_columns=10,
+              segments_per_column=4, synapse_capacity=16,
+              segment_activation_threshold=3, segment_matching_threshold=3,
+              segment_sampling_synapses=8)
+    cfg = bt.make_htm_config(**kw)
+    B, L, S = 4, 4, 2
+    rng = np.random.RandomState(3)
+    learn, serve = rng.rand(L, B, 128) < 0.2, rng.rand(S, B, 128) < 0.2
+    np.savez(tmp_path / "inputs.npz", learn=learn, serve=serve)
+    run_job([dict(name="card", mesh=[1, 2], config=kw, batch=B, init_seed=1,
+                  draw_seed=2, inputs=str(tmp_path / "inputs.npz"),
+                  device="cuda:0", out=str(tmp_path / "card"))],
+            2, str(tmp_path), timeout=180)
+
+    state = bt.htm_init_batch(cfg, B, torch.Generator().manual_seed(1), "cpu")
+    state = bt.htm_state_from_numpy(bt.htm_state_to_numpy(state), cuda)
+    draws = bt.TorchDraws(cfg.tm, B, cuda,
+                          torch.Generator(device=cuda).manual_seed(2))
+    ms = []
+    for t, x in enumerate(np.concatenate([learn, serve])):
+        state, out = bt.htm_step(cfg, state, torch.from_numpy(x).to(cuda),
+                                 t < L, t < L, draws=draws,
+                                 dense_outputs=False)
+        ms.append(out.metrics)
+    want = bt.htm_state_to_numpy(state)
+    shards = [load_tree(str(tmp_path / f"card_rank{r}.npz")) for r in (0, 1)]
+    from bithtm_tpu_torch.parallel.mesh import batched_state_specs
+
+    for key, spec in batched_state_specs().items():
+        part, name = key.split(".")
+        got = [s[part][name] for s in shards]
+        got = (np.concatenate(got, spec.index("model")) if "model" in spec
+               else got[0])
+        np.testing.assert_array_equal(got.view(np.uint8),
+                                      want[part][name].view(np.uint8), key)
+    for r in (0, 1):
+        for phase, steps in (("learn", ms[:L]), ("serve", ms[L:])):
+            for k in steps[0]:
+                np.testing.assert_array_equal(
+                    shards[r][phase][k],
+                    torch.stack([m[k] for m in steps]).cpu().numpy(),
+                    f"rank {r} {phase} {k}")

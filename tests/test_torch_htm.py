@@ -335,7 +335,8 @@ def test_port_learns_with_torch_generator():
 def test_port_imports_without_jax():
     """The port imports with `jax` and `bithtm_tpu` blocked: the package,
     its kernels, the wrappers, the oracle, the utilities, the CLI, the
-    encoders, the readout, the stack and the example scripts."""
+    encoders, the readout, the stack, the example scripts and the
+    parallel package."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -354,6 +355,8 @@ def test_port_imports_without_jax():
         "import bithtm_tpu_torch.examples.anomaly_detection\n"
         "import bithtm_tpu_torch.examples.anomaly_benchmark\n"
         "import bithtm_tpu_torch.examples.sequence_prediction\n"
+        "import bithtm_tpu_torch.parallel.mesh\n"
+        "import bithtm_tpu_torch.parallel.distributed\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and\n"
         "       (m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'bithtm_tpu'))]\n"
         "assert not bad, bad\n"

@@ -164,6 +164,20 @@ def test_entry_points_take_device_and_stream():
         p.name for p in kernels.CSRC.glob("*.cuh")}
 
 
+def test_table_entry_points_take_column_dim():
+    """`table_update` and `act_conn` take the bitmap's column count right
+    after the table's rows (a column shard's rows differ from it), and
+    their ctypes argument types carry one more int than the kernels of
+    a whole table did."""
+    src = (kernels.CSRC / "table_pass.cu").read_text()
+    for name, n_ptr in (("table_update", 7), ("act_conn", 5)):
+        params = re.search(rf'extern "C" int {name}\(([^)]*)\)',
+                           src).group(1)
+        names = [p.split()[-1].lstrip("*") for p in params.split(",")]
+        assert names[n_ptr:n_ptr + 3] == ["B", "C", "column_dim"], names
+        assert kernels._ARGTYPES[name][n_ptr:n_ptr + 8] == [ctypes.c_int] * 8
+
+
 @pytest.mark.parametrize("name", ["table_pass_grid", "word_pass_grid"])
 def test_grid_queries_match_their_signatures(name):
     """Each row-range grid query is named in the sources with the C
@@ -232,6 +246,12 @@ LIMIT_CALLS = {
     "stream words": (lambda: kernels.small_table_take_cuda(
         _view(1, 384), _view(1, 1 << 15, (1 << 15) + 1)),
         "stream-words limit"),
+    # a column shard of 4 rows over 58,113 columns: the bitmap spans the
+    # global cell space, not the table's rows
+    "bitmap, column shard": (lambda: kernels.table_update_cuda(
+        _view(1, 4, 64), _view(1, 4, 64, dtype=torch.float32),
+        _view(1, 4, 64, dtype=torch.uint8), _view(1, 4), *_active(1), 32,
+        64, 0.01, 0.5, column_dim=58_113), "the bitmap limit"),
     "packed K": (lambda: kernels.act_conn_cuda(
         _view(1, 4, 126), _view(1, 4, 126, dtype=torch.float32),
         *_active(1), 32, 0.5, 126), "packed-K limit"),
