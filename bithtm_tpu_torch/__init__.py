@@ -17,8 +17,11 @@ encoders and the anomaly stages (`encoders`), the SDR classifier
 (`readout`), the multi-level stack (`models.stack`), the prefetcher and
 the phase timer (`utils`) and the example scripts (`python -m
 bithtm_tpu_torch.examples.<name>`). The step is batched, so a single
-stream is a batch of one (`htm_init`) and there is no separate
-`htm_step_batch`. States, serving tables, classifier and anomaly-stage
+stream is a batch of one (`htm_init`) and `htm_step_batch` is `htm_step`
+under the JAX package's name. On the card the scans, `stack_scan` and
+the wrappers' `process` replay the step's CUDA graph (`models.graph`,
+the counterpart of JAX's `jit` with donation; `models.graph.eager()`
+runs their plain loops instead). States, serving tables, classifier and anomaly-stage
 states carry over from the JAX package through `convert`. The subpackage
 `parallel` (imported on its own, as in JAX) runs the step over a (data x
 model) grid of ranks on `torch.distributed`: streams split over data,
@@ -41,7 +44,7 @@ from .encoders import (AnomalyLikelihoodState, CategoryEncoder,
 from .host_hooks import HostTemporalMemory
 from .models.htm import (CAP_DROP_METRICS, HTMOutput, htm_scan,
                          htm_scan_autocap, htm_serve_scan, htm_step,
-                         resume_learning)
+                         htm_step_batch, resume_learning)
 from .models.spatial_pooler import SPOutput, sp_step
 from .models.stack import (StackConfig, StackOutput, make_stack_config,
                            stack_draws, stack_init, stack_scan, stack_step)
@@ -70,7 +73,7 @@ __all__ = [
     "classifier_update", "concat", "config_from_dict", "config_to_dict",
     "htm_init", "htm_init_batch", "htm_scan", "htm_scan_autocap",
     "htm_serve_scan", "htm_state_from_numpy", "htm_state_to_numpy",
-    "htm_step", "make_htm_config", "make_serving_table",
+    "htm_step", "htm_step_batch", "make_htm_config", "make_serving_table",
     "make_stack_config", "make_tm_config", "pack_frozen_table",
     "resume_learning", "score_alert_windows", "seasonal_zscore",
     "seasonal_zscore_init", "seasonal_zscore_update",

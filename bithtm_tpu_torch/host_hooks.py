@@ -3,8 +3,11 @@
 Counterpart of `bithtm_tpu/host_hooks.py`. The reference's composition
 root takes an arbitrary Python object for its temporal-memory slot
 (`networks.py:134,144`), and its example swaps in a pure-Python TM
-(`example.py:7-12`). The port's step runs eagerly, so the host code is
-called as it is, between the SP and the metrics:
+(`example.py:7-12`). JAX calls the host TM inside its compiled step as
+an `io_callback`; a CUDA graph cannot call Python, so the adapter says
+``capturable = False`` and a wrapper that holds it runs the step's loop
+(`models/graph.py`), calling the host code as it is, between the SP and
+the metrics:
 
     def my_tm(active_columns, learning):      # plain NumPy, stateful
         ...
@@ -45,6 +48,8 @@ class HostTemporalMemory:
     carried TMState untouched. Outputs carry the stream axis (B = 1) on
     the device of the active columns.
     """
+
+    capturable = False   # runs Python on the host each step
 
     def __init__(self, step_fn):
         self._fn = step_fn

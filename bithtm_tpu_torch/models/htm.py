@@ -2,15 +2,18 @@
 
 Counterpart of `bithtm_tpu/models/htm.py` (reference
 `networks.py:146-149`): SP then TM for B independent streams at once.
-`htm_scan` is a Python loop over the time axis; the state is updated in
-place (the JAX scan donates its carry), so the state passed in is
-consumed. `htm_serve_scan` is the serving scan (learning off, no winner
+`htm_scan` runs the step over the time axis: on the card as replays of
+the step's CUDA graph (`models/graph.py`, the counterpart of the JAX
+scan's `jax.jit`), on the CPU and inside `graph.eager()` as a Python
+loop. The state passed in is consumed, as the JAX scan donates its
+carry. `htm_serve_scan` is the serving scan (learning off, no winner
 cells, optionally over a compact serving table); both share `_scan_impl`.
 `htm_scan_autocap` runs `htm_scan` in chunks under tuned list widths and
 widens them on the first counted drop. `resume_learning` makes a state
 served from a compact table safe to learn from again. `htm_step(...,
 shard=)` is the step of a model-parallel rank that holds a column shard
-(`parallel/mesh.py` drives it).
+(`parallel/mesh.py` drives it, eagerly). `htm_step_batch` is
+`htm_step` under the JAX package's name for its batched step.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from ..config import HTMConfig
 from ..ops.shard import ColumnShard
 from ..rng import TorchDraws
 from ..state import HTMState
+from . import graph
 from .spatial_pooler import SPOutput, sp_step
 from .temporal_memory import COLUMN_SUMS, TMOutput, tm_resume, tm_step
 
@@ -145,25 +149,58 @@ def htm_step(cfg: HTMConfig, state: HTMState, input_bits: torch.Tensor,
                       _step_metrics(cfg, sp_out, tm_out, shard)))
 
 
+def htm_step_batch(cfg: HTMConfig, state: HTMState,
+                   input_bits: torch.Tensor, learning: bool = True,
+                   compute_winner: bool = True,
+                   detailed_metrics: bool = True, frozen_word=None,
+                   serving_table=None) -> tuple[HTMState, HTMOutput]:
+    """The JAX package's batched step (`htm.py:133-153`, a `vmap` of its
+    single-stream step) under its name and signature: the port's
+    `htm_step` is batched already, with draws from the state's device's
+    default generator."""
+    return htm_step(cfg, state, input_bits, learning, compute_winner,
+                    detailed_metrics, frozen_word=frozen_word,
+                    serving_table=serving_table)
+
+
+def _scan_step(cfg: HTMConfig, learning: bool, compute_winner: bool,
+               detailed_metrics: bool, state: HTMState, x: torch.Tensor,
+               consts, draws) -> tuple[HTMState, dict]:
+    """The step a scan runs, with its metrics as its output; ``consts``
+    is (frozen_word, serving_table)."""
+    frozen_word, serving_table = consts
+    state, out = htm_step(cfg, state, x, learning, compute_winner,
+                          detailed_metrics, draws, dense_outputs=False,
+                          frozen_word=frozen_word,
+                          serving_table=serving_table)
+    return state, out.metrics
+
+
 def _scan_impl(cfg: HTMConfig, state: HTMState, inputs: torch.Tensor,
                learning: bool, compute_winner: bool, detailed_metrics: bool,
                draws=None, frozen_word=None, serving_table=None
                ) -> tuple[HTMState, dict]:
-    """The loop shared by `htm_scan` and `htm_serve_scan`, so that the
-    serving scan cannot drift from the standard one."""
+    """The scan shared by `htm_scan` and `htm_serve_scan`, so that the
+    serving scan cannot drift from the standard one: replays of the
+    step's graph (`graph.scan`) where `graph.replays` says so, else the
+    loop."""
     B = state.batch
     if inputs.dim() != 3 or tuple(inputs.shape[1:]) != (B, cfg.input_dim):
         raise ValueError(f"htm_scan expects (T, {B}, {cfg.input_dim}) "
                          f"inputs, got {tuple(inputs.shape)}")
     if draws is None:
         draws = TorchDraws(cfg.tm, B, state.tm.step.device)
+    step = functools.partial(_scan_step, cfg, learning, compute_winner,
+                             detailed_metrics)
+    consts = (frozen_word, serving_table)
+    if inputs.shape[0] and graph.replays(state.tm.step, draws):
+        return graph.scan(("htm_scan", cfg, learning, compute_winner,
+                           detailed_metrics), step, state, inputs, consts,
+                          draws)
     per_step: dict[str, list] = {}
     for x in inputs:
-        state, out = htm_step(cfg, state, x, learning, compute_winner,
-                              detailed_metrics, draws, dense_outputs=False,
-                              frozen_word=frozen_word,
-                              serving_table=serving_table)
-        for k, v in out.metrics.items():
+        state, m = step(state, x, consts, draws)
+        for k, v in m.items():
             per_step.setdefault(k, []).append(v)
     return state, {k: torch.stack(v) for k, v in per_step.items()}
 
@@ -174,7 +211,10 @@ def htm_scan(cfg: HTMConfig, state: HTMState, inputs: torch.Tensor,
              ) -> tuple[HTMState, dict]:
     """Run a (T, B, I) input sequence through the recurrence. Returns
     (final state, {metric: (T, B) tensor}). Only the outputs the metrics
-    read are built (no dense (B, N) masks)."""
+    read are built (no dense (B, N) masks). On the card each step is a
+    replay of its captured graph and the state returned is the graph's
+    buffers (`models/graph.py`: the state passed in belongs to the
+    call)."""
     return _scan_impl(cfg, state, inputs, learning, compute_winner,
                       detailed_metrics, draws)
 
@@ -200,9 +240,12 @@ def htm_scan_autocap(cfg: HTMConfig, state: HTMState, inputs: torch.Tensor,
     first counted drop (`htm.py:225-315`).
 
     The widths are per-step scratch, not state, so a config with other
-    caps resumes from the same state. Before each tuned chunk the state
-    and the draw provider's generator state are copied; if the chunk
-    counts any drop of `CAP_DROP_METRICS`, both are restored, the config
+    caps resumes from the same state (on the card, the same graph
+    buffers: the tuned config's graph replays, and the safe config's is
+    captured on escalation). Before each tuned chunk the state and the
+    draw provider's generator state are copied; if the chunk counts any
+    drop of `CAP_DROP_METRICS`, both are restored (the state copied back
+    into the buffers it left, `graph.restore_into`), the config
     escalates to the ``safe`` overrides (default: the config's own auto
     caps) and the same chunk runs again, with the same random stream,
     so the trajectory up to the escalation is the tuned one and the rest
@@ -223,7 +266,7 @@ def htm_scan_autocap(cfg: HTMConfig, state: HTMState, inputs: torch.Tensor,
     JAX reports the discarded tuned run's count for the escalating chunk
     and 0 for every later one. A safe chunk that drops is reported, not
     hidden. The JAX ``unroll`` has no meaning
-    here (the scan is a Python loop)."""
+    here (a step is one graph replay or one loop iteration)."""
     def with_caps(overrides):
         return dataclasses.replace(
             cfg, tm=dataclasses.replace(cfg.tm, **overrides))
@@ -249,7 +292,8 @@ def htm_scan_autocap(cfg: HTMConfig, state: HTMState, inputs: torch.Tensor,
             # discard the dropping chunk, re-run it under the safe caps
             tuned_drops, escalated_at = drops, t0
             active_cfg = cfg_safe
-            state, gen_state = saved
+            state = graph.restore_into(new_state, saved[0])
+            gen_state = saved[1]
             draws = draws.with_config(cfg_safe.tm)
             draws.set_state(gen_state)
             new_state, m = htm_scan(active_cfg, state, xs, learning,

@@ -6,7 +6,10 @@ increasingly abstract, temporally stable representations.
 
 `StackConfig` is a tuple of per-layer `HTMConfig`s validated to chain
 dimensionally; the state is a tuple of `HTMState`s; `stack_step` runs
-the layers bottom-up, `stack_scan` is a Python loop of it over T. Each
+the layers bottom-up, `stack_scan` runs it over T: on the card as
+replays of its captured graph (`models/graph.py`, as the JAX
+`stack_scan` is jitted), on the CPU and inside `graph.eager()` as a
+Python loop. Each
 layer draws from its own provider, as each JAX layer splits its own key:
 ``draws`` is a tuple with one provider a layer (`stack_draws` makes them
 from one generator). Like `htm_scan`, both update the layers' tables in
@@ -15,6 +18,7 @@ place, so the state passed in is consumed.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence
 
 import torch
@@ -22,6 +26,7 @@ import torch
 from ..config import make_htm_config
 from ..rng import TorchDraws
 from ..state import htm_init_batch
+from . import graph
 from .htm import htm_step
 
 
@@ -89,15 +94,27 @@ def stack_step(cfg: StackConfig, state, input_bits: torch.Tensor,
     return tuple(new_states), StackOutput(tuple(outputs), metrics)
 
 
+def _stack_scan_step(cfg: StackConfig, learning: bool, state, x, consts,
+                     draws):
+    """The step `stack_scan` runs, with its metrics as its output."""
+    state, out = stack_step(cfg, state, x, learning, draws)
+    return state, out.metrics
+
+
 def stack_scan(cfg: StackConfig, state, inputs: torch.Tensor,
                learning: bool = True, draws=None):
     """`stack_step` over a (T, B, input_dim) sequence. Returns (final
-    state, {metric: (T, B) tensor})."""
+    state, {metric: (T, B) tensor}); on the card the state returned is
+    the graph's buffers (the state passed in belongs to the call)."""
     if draws is None:
         draws = stack_draws(cfg, state[0].batch, state[0].tm.step.device)
+    step = functools.partial(_stack_scan_step, cfg, learning)
+    if inputs.shape[0] and graph.replays(state[0].tm.step, draws):
+        return graph.scan(("stack_scan", cfg, learning), step, state,
+                          inputs, draws=draws)
     per_step: dict[str, list] = {}
     for x in inputs:
-        state, out = stack_step(cfg, state, x, learning, draws)
-        for k, v in out.metrics.items():
+        state, m = step(state, x, None, draws)
+        for k, v in m.items():
             per_step.setdefault(k, []).append(v)
     return state, {k: torch.stack(v) for k, v in per_step.items()}

@@ -9,21 +9,29 @@ B=1, so a user of the reference can switch with little friction:
 
 Each wrapper owns a B=1 state, a `torch.Generator` seeded from ``seed``
 and a draw provider on its device (the card unless ``device="cpu"``).
-The port's step consumes the state it is given, so a wrapper keeps the
-returned state as its own, and assigning ``.state`` stores a copy: a
-caller's state is never updated behind its back. Outputs drop the
-stream axis. For throughput use the functional API (`htm_scan` over
-many streams).
+On the card `process` replays the step's CUDA graph, captured at the
+first call of each flag set (`models/graph.py`; the JAX wrappers call
+jitted steps): the hooks, torch functions on device tensors, are
+captured with the step, and the outputs returned are copies, which the
+next replay does not overwrite. A hook that calls the host
+(`host_hooks.HostTemporalMemory`) runs the step's loop, as the CPU and
+`graph.eager()` do. The port's step consumes the state it is given, so a
+wrapper keeps the returned state as its own, and assigning ``.state``
+stores a copy: a caller's state is never updated behind its back.
+Outputs drop the stream axis. For throughput use the functional API
+(`htm_scan` over many streams).
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 
 import numpy as np
 import torch
 
 from .config import SPConfig, make_htm_config, make_tm_config
+from .models import graph
 from .models.htm import htm_step
 from .models.spatial_pooler import SPOutput, sp_step
 from .models.temporal_memory import TMOutput, tm_step
@@ -62,6 +70,28 @@ class _Stateful:
         return x.reshape(1, -1)
 
 
+def _sp_graph_step(cfg, learning, hooks, state, x, consts, draws):
+    return sp_step(cfg, state, x, learning, *hooks)
+
+
+def _tm_graph_step(cfg, learning, compute_winner, epsilon, state, cols,
+                   consts, draws):
+    return tm_step(cfg, state, draws.step(need=learning or compute_winner),
+                   cols, learning=learning, compute_winner=compute_winner,
+                   epsilon=epsilon)
+
+
+def _htm_graph_step(cfg, learning, compute_winner, hooks, state, x, consts,
+                    draws):
+    boosting, inhibition, temporal_memory, overlap, proximal_update, \
+        distal_forward = hooks
+    return htm_step(cfg, state, x, learning, compute_winner, draws=draws,
+                    boosting=boosting, inhibition=inhibition,
+                    temporal_memory=temporal_memory, overlap=overlap,
+                    proximal_update=proximal_update,
+                    distal_forward=distal_forward)
+
+
 def _generator(device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
@@ -86,10 +116,17 @@ class SpatialPooler(_Stateful):
         self._state = sp_init(self.config, 1, self.generator, self.device)
 
     def process(self, input_bits, learning=True) -> SPOutput:
-        self._state, out = sp_step(
-            self.config, self._state, self._input(input_bits), learning,
-            boosting=self.boosting, inhibition=self.inhibition,
-            overlap=self.overlap, proximal_update=self.proximal_update)
+        x = self._input(input_bits)
+        hooks = (self.boosting, self.inhibition, self.overlap,
+                 self.proximal_update)
+        step = functools.partial(_sp_graph_step, self.config, learning,
+                                 hooks)
+        if graph.replays(x, hooks=hooks):
+            self._state, out = graph.step(
+                ("sp_process", self.config, learning, hooks), step,
+                self._state, x)
+        else:
+            self._state, out = step(self._state, x, None, None)
         return _unbatch(out)
 
 
@@ -116,11 +153,15 @@ class TemporalMemory(_Stateful):
         cols = torch.as_tensor(getattr(sp_output, "active_columns",
                                        sp_output)).to(self.device,
                                                       torch.int32)
-        draws = self.draws.step(need=learning or return_winner_cell)
-        self._state, out = tm_step(
-            self.config, self._state, draws, cols.reshape(1, -1),
-            learning=learning, compute_winner=return_winner_cell,
-            epsilon=epsilon)
+        cols = cols.reshape(1, -1)
+        step = functools.partial(_tm_graph_step, self.config, learning,
+                                 return_winner_cell, epsilon)
+        if graph.replays(cols, self.draws):
+            self._state, out = graph.step(
+                ("tm_process", self.config, learning, return_winner_cell,
+                 epsilon), step, self._state, cols, draws=self.draws)
+        else:
+            self._state, out = step(self._state, cols, None, self.draws)
         return _unbatch(out)
 
 
@@ -157,13 +198,17 @@ class HierarchicalTemporalMemory(_Stateful):
 
     def process(self, input_bits, learning=True, return_winner_cell=True
                 ) -> tuple[SPOutput, TMOutput]:
-        self._state, out = htm_step(
-            self.config, self._state, self._input(input_bits), learning,
-            return_winner_cell, draws=self.draws, boosting=self.boosting,
-            inhibition=self.inhibition,
-            temporal_memory=self.temporal_memory, overlap=self.overlap,
-            proximal_update=self.proximal_update,
-            distal_forward=self.distal_forward)
+        x = self._input(input_bits)
+        hooks = (self.boosting, self.inhibition, self.temporal_memory,
+                 self.overlap, self.proximal_update, self.distal_forward)
+        step = functools.partial(_htm_graph_step, self.config, learning,
+                                 return_winner_cell, hooks)
+        if graph.replays(x, self.draws, hooks):
+            self._state, out = graph.step(
+                ("htm_process", self.config, learning, return_winner_cell,
+                 hooks), step, self._state, x, draws=self.draws)
+        else:
+            self._state, out = step(self._state, x, None, self.draws)
         # one host read for all metrics (int32 and float32 are exact in
         # float64)
         m = out.metrics

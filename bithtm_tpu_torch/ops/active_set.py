@@ -459,9 +459,7 @@ def take_percell(values: torch.Tensor, seg_cell: torch.Tensor,
     """values (..., D) at owners seg_cell (..., G) -> (..., G); the
     unallocated owner yields ``fill``."""
     picked = values.gather(-1, seg_cell.clamp(0, cell_dim - 1).long())
-    return torch.where(seg_cell < cell_dim, picked,
-                       torch.tensor(fill, dtype=values.dtype,
-                                    device=values.device))
+    return torch.where(seg_cell < cell_dim, picked, fill)
 
 
 def rank_ascending(mask: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,12 @@ replay the JAX draws exactly while production draws from a
 False when the step draws nothing (inference without winner cells).
 `htm_scan_autocap` also needs ``with_config`` (the same random stream
 drawing at another config's list widths) and ``get_state`` /
-``set_state`` (to replay a chunk).
+``set_state`` (to replay a chunk). A provider that draws on the card
+can be captured in a step's CUDA graph (`models/graph.py`): it says
+``capturable = True``, names what it draws with ``graph_key()`` and
+registers its generator with the graph (``register_with``), so that
+every replay draws what the loop draws; ``get_state`` / ``set_state``
+stay right between replays. Other providers run the loop.
 
 `RowDraws` hands a data-parallel rank its rows of a provider that draws
 the whole batch, so that B streams split over ranks draw what they draw
@@ -35,6 +40,8 @@ class TorchDraws:
     (None: the device's default generator, seeded by
     `torch.manual_seed`)."""
 
+    capturable = True
+
     def __init__(self, cfg: TMConfig, batch: int, device,
                  generator: torch.Generator | None = None):
         self.cfg = cfg
@@ -60,6 +67,17 @@ class TorchDraws:
     def get_state(self) -> torch.Tensor:
         """The generator's state, to replay the draws that follow."""
         return self._gen().get_state()
+
+    def graph_key(self) -> tuple:
+        """What a captured step draws: the same key draws the same."""
+        return (self.cfg, self.batch, self.device, self.generator)
+
+    def register_with(self, graph) -> None:
+        """Registers a generator of its own with a CUDA graph before its
+        capture (the device's default generator is registered already),
+        so that each replay advances it as a step of the loop does."""
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
 
     def set_state(self, state: torch.Tensor) -> None:
         self._gen().set_state(state)

@@ -64,8 +64,23 @@ and anomaly-detection example scripts, and a scan fed by
 `act_conn` are also held bit-equal and timed at that table (D=8, the
 bitmap build's per-cell branch).
 
+Every entry point above replays its step's CUDA graph (the port's
+default on the card, `bithtm_tpu_torch/models/graph.py`); the launch
+counts count a graph's kernels once a replay. Beside each path, its loop
+(`graph.eager()`) and its graph run from the same learned state with
+`loop_vs_graph`: bit-equal in every leaf and metric, the same launches
+and generator state, then three timed runs of each in turns and a
+device profile of each (ms/step, device busy, launches a step, busy
+share): at the bench configuration 64 learning, 16 inference and 64
+serving steps of each form (`run_graph_bench`), at 16K 128 learning
+steps under `htm_scan_autocap` and a forced escalation, a B=1 wrapper
+epoch (`wrapper_vs_loop`), 128 anomaly learning steps and 64 stack
+learning steps. `small_table_take`, `torch.gather` and `table_update` at
+B=1 are also timed inside a CUDA graph (`graph_ms`).
+
 Prints the card's name and power limit, the step times, the phase
-times, the profile, a JSON line of per-kernel results, and as the last
+times, the profile, a JSON line of per-kernel results, a JSON line of
+the loop-against-graph numbers, and as the last
 line `{"ok": true, "device": {...}}`. Any
 failure raises and exits non-zero; without a GPU it exits non-zero
 before printing a result.
@@ -73,6 +88,7 @@ before printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -87,6 +103,7 @@ import numpy as np
 import torch
 
 import bithtm_tpu_torch as bt
+from bithtm_tpu_torch.models import graph as bgraph
 from bithtm_tpu_torch.models import spatial_pooler as psp
 from bithtm_tpu_torch.models.htm import _scan_impl, _step_metrics
 from bithtm_tpu_torch.ops import active_set as pas
@@ -127,6 +144,10 @@ GEOM_16K = dict(input_dim=1000, column_dim=16384, cell_dim=64,
 BATCH_16K = 64
 TUNED_16K = dict(winner_capacity=384, growth_capacity=336)
 LEARN_16K, CHUNK_16K, INFER_16K, SERVE_16K = 512, 128, 16, 32
+# loop against graph from a learned state: steps of each path
+GRAPH_LEARN, GRAPH_INFER, GRAPH_SERVE = 64, 16, 64   # bench
+GRAPH_16K, GRAPH_ESCALATE = 128, 32   # 16K under autocap; forced escalation
+GRAPH_ANOMALY, GRAPH_STACK = 128, 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {
@@ -522,6 +543,16 @@ def check_small_table_take(dev) -> dict:
             host_issue_us=split["wrapper, in place"],
             library_host_issue_us=split["library call"],
             call_site_old_ms=site["old"], call_site_new_ms=site["new"])
+        rows[Wc]["_dense_flat"] = (dense, flat)
+    for Wc, call in calls.items():
+        # inside a CUDA graph no host issue separates the calls
+        dense = rows[Wc].pop("_dense_flat")
+        rows[Wc]["graph_ms"] = graph_ms(call)
+        rows[Wc]["library_graph_ms"] = graph_ms(
+            lambda d=dense: torch.gather(d[0], 1, d[1]))
+        print(f"small_table_take at Wc={Wc} inside a CUDA graph of 20 calls: "
+              f"{rows[Wc]['graph_ms']:.4f} ms a call, torch.gather "
+              f"{rows[Wc]['library_graph_ms']:.4f}")
     for Wc, call in calls.items():
         rows[Wc]["device_ms"] = profiled_ms(call, "small_take_kernel")
         print(f"small_table_take at Wc={Wc}: {rows[Wc]['device_ms']:.4f} ms "
@@ -756,20 +787,159 @@ def timed_scan(cfg, state, xs, learning: bool, draws):
     return state, m, time.perf_counter() - t0
 
 
-class Snapshot:
+class Start:
+    """A state (and the state of the generator its draws come from) that
+    several runs of one path start from. A run of the loop takes a copy;
+    a run of the graph restores the start into the buffers the graph run
+    before it returned (`keep`), so that only the first graph run
+    captures."""
+
+    def __init__(self, state, gen=None, make_draws=None):
+        self.state = copy.deepcopy(state)
+        self.gen = (None if gen is None
+                    else torch.Generator(device=gen.device))
+        self.gen_state = None if gen is None else gen.get_state()
+        self.draws = None if make_draws is None else make_draws(self.gen)
+        self.held = None
+
+    def restore(self, into_held: bool = True):
+        if self.gen is not None:
+            self.gen.set_state(self.gen_state)
+        held, state = self.held, self.state
+        if into_held and held is not None:
+            self.held = None
+            state = bgraph.restore_into(held, self.state)
+        return copy.deepcopy(state) if state is self.state else state
+
+    def keep(self, state) -> None:
+        self.held = state
+
+
+class Snapshot(Start):
     """The state and generator at the start of the steady window, with
     the window's inputs, to run its steps again with the same draws."""
 
     def __init__(self, cfg, state, gen, xs):
+        super().__init__(state, gen, lambda g: bt.TorchDraws(
+            cfg.tm, state.batch, g.device, g))
         self.cfg, self.xs = cfg, xs
-        self.state = copy.deepcopy(state)
-        self.gen_state = gen.get_state()
 
-    def restore(self):
-        gen = torch.Generator(device=self.state.tm.step.device)
-        gen.set_state(self.gen_state)
-        return copy.deepcopy(self.state), bt.TorchDraws(
-            self.cfg.tm, self.state.batch, gen.device, gen)
+
+def same_tree(a, b) -> bool:
+    """Two pytrees of tensors (states, metric dicts) equal bit for bit,
+    leaf for leaf, in structure and dtype."""
+    (sa, la), (sb, lb) = bgraph.flatten(a), bgraph.flatten(b)
+    return sa == sb and all(x.dtype == y.dtype and torch.equal(x, y)
+                            for x, y in zip(la, lb))
+
+
+def loop_vs_graph(what: str, start: Start, fn, n: int,
+                  timed: bool = True) -> dict:
+    """One path, ``fn(state, k) -> (state, metrics)`` over its first k of
+    n steps drawing from ``start.draws``, run from ``start`` by the loop
+    (`graph.eager()`) and by graph replays, each with the launch counts
+    set to 0 just before and read just after: the two must agree in every
+    leaf and metric, launch the same kernels and leave the generator
+    alike. With ``timed``, then REPEATS runs of each in turns (the graph's
+    restored into its buffers: replays only; host time, synchronized,
+    the start's copy outside it) and a `torch.profiler` run of the first
+    PROFILED_STEPS steps of each: ms/step (median), device busy and
+    kernel launches a step and the busy share. Returns those numbers,
+    the launches and the first graph run's ms/step (its capture
+    included)."""
+    def prepare(mode):
+        st = start.restore(into_held=mode == "graph")
+        torch.cuda.synchronize()
+        return st
+
+    def execute(mode, st, k=n):
+        with bgraph.eager() if mode == "loop" else contextlib.nullcontext():
+            st, m = fn(st, k)
+        if mode == "graph":
+            start.keep(st)
+        return st, m
+
+    def run(mode):
+        st = prepare(mode)
+        t0 = time.perf_counter()
+        st, m = execute(mode, st)
+        torch.cuda.synchronize()
+        return st, m, time.perf_counter() - t0
+
+    got = {}
+    for mode in ("loop", "graph"):
+        kernels.reset_launch_counts()
+        st, m, sec = run(mode)
+        got[mode] = (st, m, kernels.launch_counts(),
+                     None if start.gen is None else start.gen.get_state(),
+                     sec)
+    (s_l, m_l, n_l, g_l, _), (s_g, m_g, n_g, g_g, first_s) = (got["loop"],
+                                                              got["graph"])
+    require(same_tree(s_g, s_l) and same_tree(m_g, m_l),
+            f"{what}: the graph's replays == the loop, every leaf and "
+            f"metric")
+    require(n_g == n_l and any(n_g.values()),
+            f"{what}: the replays launch the loop's kernels, got {n_g} "
+            f"against {n_l}")
+    require(g_l is None or torch.equal(g_g, g_l),
+            f"{what}: the generator ends where the loop leaves it")
+    out = {"launches": {k: v for k, v in n_g.items() if v},
+           "graph_first_run_ms_per_step": 1e3 * first_s / n}
+    del got, s_l, m_l, s_g, m_g
+    if not timed:
+        print(f"{what}: graph == loop over {n} steps in every leaf and "
+              f"metric; launches {out['launches']}")
+        return out
+    runs = {"loop": [], "graph": []}
+    for _ in range(REPEATS):
+        for mode in runs:
+            runs[mode].append(1e3 * run(mode)[2] / n)
+    k = min(n, PROFILED_STEPS)
+    for mode in runs:
+        st = prepare(mode)
+        print(f"  profile of {k} steps of {what}, {mode}, top device ops:")
+        busy, n_launch = device_profile(lambda: execute(mode, st, k), k, 3)
+        med = statistics.median(runs[mode])
+        out[mode] = {"ms_per_step": med, "runs": runs[mode],
+                     "device_busy_ms_per_step": busy,
+                     "launches_per_step": n_launch,
+                     "busy_share": busy / med}
+        del st
+    print(f"{what}: graph == loop over {n} steps in every leaf and metric, "
+          f"launches {out['launches']}; ms/step (median of {REPEATS}; "
+          f"device busy; launches a step; busy share): " + "; ".join(
+              f"{mode} {out[mode]['ms_per_step']:.3f} ("
+              + ", ".join(f"{t:.3f}" for t in runs[mode])
+              + f"; {out[mode]['device_busy_ms_per_step']:.3f}; "
+              f"{out[mode]['launches_per_step']:.1f}; "
+              f"{out[mode]['busy_share']:.3f})" for mode in runs)
+          + f"; the first graph run {out['graph_first_run_ms_per_step']:.3f}"
+          f" ms/step (capture included)")
+    return out
+
+
+def graph_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """ms a call of ``fn`` inside a CUDA graph of n calls (CUDA events
+    over ``reps`` replays after one): the device time of a call with no
+    host issue between calls."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (n * reps)
+    del g
+    return ms
 
 
 def run_main_path(dev):
@@ -847,12 +1017,16 @@ def run_main_path(dev):
             "after learning, most active columns were predicted (the "
             "reinforcement and prediction branches ran at bench width)")
     win_ms = [1e3 * chunks[-1][2] / WINDOW]
+    # the replays' graph captured before they are timed (two steps)
+    snap.keep(timed_scan(cfg, snap.restore(), snap.xs[:2], True,
+                         snap.draws)[0])
     for _ in range(REPEATS - 1):
-        st, d = snap.restore()
-        st, m, s = timed_scan(cfg, st, snap.xs, True, d)
+        st, m, s = timed_scan(cfg, snap.restore(), snap.xs, True,
+                              snap.draws)
         require(all(torch.equal(m[k], win_m[k]) for k in win_m),
                 "a replay of the steady window reproduces its metrics")
         win_ms.append(1e3 * s / WINDOW)
+        snap.keep(st)
         del st
     med = statistics.median(win_ms)
     perf = {
@@ -893,8 +1067,8 @@ def run_serving(cfg, state, gen, xs) -> dict:
     predictions, the frozen run the unpacked run's state in every leaf.
     Then `resume_learning` on the packed state (one `act_conn` launch)
     gives the unpacked state in every leaf, and RESUME_STEPS learning
-    steps from one generator snapshot leave both equal. Last, the median
-    of REPEATS timed runs of each form, in turns. Returns the launch
+    steps from one generator snapshot leave both equal. The forms' times
+    (graph against loop) are `run_graph_bench`'s. Returns the launch
     counts of the packed and frozen runs."""
     dev = state.tm.step.device
     B, N, A = state.batch, len(xs), cfg.sp.active_columns
@@ -939,7 +1113,8 @@ def run_serving(cfg, state, gen, xs) -> dict:
         "packed": (lambda st: bt.htm_serve_scan(
             cfg, st, xs, serving_table=tab), "serving_activation"),
         "frozen": (lambda st: _scan_impl(
-            cfg, st, xs, False, False, False, frozen_word=word), "act_frozen"),
+            cfg, st, xs, False, False, False, frozen_word=word),
+            "act_frozen"),
     }
     out, launches = {}, {}
     for name, (fn, kernel) in forms.items():
@@ -994,38 +1169,46 @@ def run_serving(cfg, state, gen, xs) -> dict:
           f"packed -> resume_learning (act_conn x1) -> {RESUME_STEPS} "
           f"learning steps == unpacked -> learning, every leaf and metric")
 
-    runs = {name: [] for name in forms}
-    for _ in range(REPEATS):
-        for name, (fn, _) in forms.items():
-            st = copy.deepcopy(state)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(st)
-            torch.cuda.synchronize()
-            runs[name].append(1e3 * (time.perf_counter() - t0) / N)
-            del st
-    perf = {f"serving_{name}_ms_per_step": statistics.median(r)
-            for name, r in runs.items()}
-    perf.update({f"serving_{name}_ms_per_step_runs": r
-                 for name, r in runs.items()})
-    print(f"serving step time, median of {REPEATS} runs of {N} steps "
-          f"(ms/step): " + ", ".join(
-              f"{name} {statistics.median(r):.3f} ("
-              + ", ".join(f"{t:.3f}" for t in r) + ")"
-              for name, r in runs.items()))
-    for name, (fn, _) in forms.items():
-        st = copy.deepcopy(state)
-        print(f"profile of {N} {name} serving steps, top device ops:")
-        busy, n_launch = device_profile(lambda: fn(st), N, 5)
-        med = perf[f"serving_{name}_ms_per_step"]
-        print(f"  device busy {busy:.3f} ms/step, {n_launch:.1f} kernel "
-              f"launches/step, busy share {busy / med:.3f} of the median "
-              f"{med:.3f} ms/step")
-        perf[f"serving_{name}_device_busy_ms_per_step"] = busy
-        del st
-    print("serving metrics: " + json.dumps(perf))
     return {"serving_activation": launches["packed"]["serving_activation"],
             "act_frozen": launches["frozen"]["act_frozen"]}
+
+
+def run_graph_bench(cfg, state, gen, xs) -> dict:
+    """Loop against graph at the bench configuration (B=256) from the
+    learned state, with `loop_vs_graph`: GRAPH_LEARN learning steps,
+    GRAPH_INFER inference steps and GRAPH_SERVE serving steps of each
+    form (unpacked, over a compact serving table, over the frozen word
+    table), each bit-equal to the loop and timed against it."""
+    B = state.batch
+    start = Start(state, gen, lambda g: bt.TorchDraws(cfg.tm, B, g.device,
+                                                       g))
+    out = {
+        "learning": loop_vs_graph(
+            "bench learning", start, lambda st, k: bt.htm_scan(
+                cfg, st, xs[:k], True, detailed_metrics=False,
+                draws=start.draws), GRAPH_LEARN),
+        "inference": loop_vs_graph(
+            "bench inference", start, lambda st, k: bt.htm_scan(
+                cfg, st, xs[:k], False, detailed_metrics=False,
+                draws=start.draws), GRAPH_INFER),
+    }
+    del start
+    tab = bt.make_serving_table(cfg.tm, state.tm)
+    word = bt.pack_frozen_table(state.tm.synapse_cell, state.tm.synapse_perm,
+                                cfg.tm.permanence_threshold,
+                                num_cells=cfg.tm.num_cells)
+    forms = {
+        "unpacked": lambda st, k: bt.htm_serve_scan(cfg, st, xs[:k],
+                                                    detailed_metrics=False),
+        "packed": lambda st, k: bt.htm_serve_scan(cfg, st, xs[:k],
+                                                  serving_table=tab),
+        "frozen": lambda st, k: _scan_impl(cfg, st, xs[:k], False, False,
+                                           False, frozen_word=word),
+    }
+    for name, fn in forms.items():
+        out[f"serving_{name}"] = loop_vs_graph(
+            f"bench serving {name}", Start(state), fn, GRAPH_SERVE)
+    return out
 
 
 def run_entry_points(cfg, state, xs) -> dict:
@@ -1073,7 +1256,7 @@ def time_phases(snap: Snapshot, xs) -> None:
     time each takes to issue its work (no synchronization inside the
     step) and the span it covers on the stream (CUDA events), per step."""
     cfg = snap.cfg
-    state, draws = snap.restore()
+    state, draws = snap.restore(), snap.draws
     names = ("draws", "sp_step", "tm_step", "metrics")
     host, events = dict.fromkeys(names, 0.0), []
     torch.cuda.synchronize()
@@ -1141,33 +1324,7 @@ def device_profile(run, n: int, top: int) -> tuple[float, float]:
     return busy, launches
 
 
-def profile_steps(snap: Snapshot, xs, what: str) -> float:
-    """torch.profiler over len(xs) learning steps of `htm_scan` (``what``
-    names them), after an unprofiled run of the same steps from the same
-    state and draws: device time and launches per step, the top device
-    ops, and the busy share of the device. Returns the unprofiled
-    ms/step."""
-    cfg = snap.cfg
-    n = len(xs)
-    state, draws = snap.restore()
-    _, _, plain_s = timed_scan(cfg, state, xs, True, draws)
-    del state
-    state, draws = snap.restore()
-    t0 = time.perf_counter()
-    print(f"profile of {what}, top device ops:")
-    busy, launches = device_profile(
-        lambda: timed_scan(cfg, state, xs, True, draws), n, 10)
-    prof_s = time.perf_counter() - t0
-    del state
-    plain_ms, prof_ms = 1e3 * plain_s / n, 1e3 * prof_s / n
-    print(f"  device busy {busy:.3f} ms/step, {launches:.1f} kernel "
-          f"launches/step; the same steps take {plain_ms:.3f} ms/step "
-          f"unprofiled ({prof_ms:.3f} profiled): busy share "
-          f"{busy / plain_ms:.3f}")
-    return plain_ms
-
-
-def run_16k(dev) -> tuple[dict, dict]:
+def run_16k(dev) -> tuple[dict, dict, tuple, dict]:
     """The 16K x 64 path at full width, B=64, on the bench input recipe:
     `htm_scan_autocap` under the tuned caps over LEARN_16K learning steps
     in chunks of CHUNK_16K, then INFER_16K inference steps and SERVE_16K
@@ -1203,6 +1360,7 @@ def run_16k(dev) -> tuple[dict, dict]:
         draws=bt.TorchDraws(cfg.tm, B, dev, gen),
         on_chunk=lambda *a: chunks.append(a))
     launches = kernels.launch_counts()
+    learning_peak = torch.cuda.max_memory_allocated() / 2**30
     esc = info["escalated_at_step"]
     run = T + (0 if esc is None else min(CHUNK_16K, T - esc))
     require(launches == only(table_update=run, small_table_take=run),
@@ -1248,9 +1406,15 @@ def run_16k(dev) -> tuple[dict, dict]:
     forms = {"unpacked": ({"detailed_metrics": False}, "act_conn"),
              "packed": ({"serving_table": tab}, "serving_activation")}
     served, runs = {}, {name: [] for name in forms}
+    # each form's graph captured (two steps) before the timed runs, which
+    # restore the learned state into its buffers
+    starts = {name: Start(state) for name in forms}
+    for name, (kw, _) in forms.items():
+        starts[name].keep(bt.htm_serve_scan(
+            cfg, starts[name].restore(), serve_xs[:2], **kw)[0])
     for rep in range(REPEATS):
         for name, (kw, kernel) in forms.items():
-            st = copy.deepcopy(state)
+            st = starts[name].restore()
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
@@ -1262,7 +1426,8 @@ def run_16k(dev) -> tuple[dict, dict]:
                     f"16K {name} serving launches {kernel} once a step and "
                     f"no other kernel, got {got}")
             if rep == 0:
-                served[name] = (st.tm.prediction, ms)
+                served[name] = (st.tm.prediction.clone(), ms)
+            starts[name].keep(st)
             del st
     (p_u, m_u), (p_p, m_p) = served["unpacked"], served["packed"]
     require(torch.equal(p_u, p_p) and set(m_u) == set(m_p)
@@ -1279,6 +1444,7 @@ def run_16k(dev) -> tuple[dict, dict]:
         **{f"serving_{name}_ms_per_step_runs": r for name, r in runs.items()},
         "serving_table_rows": tab.rows.shape[1], "serving_table_ext": E,
         "streams": B,
+        "learning_peak_memory_gib": learning_peak,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     print(f"  inference {INFER_16K} steps: {perf['inference_ms_per_step']:.3f}"
@@ -1292,7 +1458,7 @@ def run_16k(dev) -> tuple[dict, dict]:
           f"predictions, correct {mean(m_u, 'correct'):.2f}")
     del served, p_u, p_p
     for name, (kw, _) in forms.items():
-        st = copy.deepcopy(state)
+        st = starts[name].restore()
         print(f"profile of {SERVE_16K} 16K {name} serving steps, top device "
               f"ops:")
         busy, n_launch = device_profile(
@@ -1303,6 +1469,35 @@ def run_16k(dev) -> tuple[dict, dict]:
               f"{med:.3f} ms/step")
         perf[f"serving_{name}_device_busy_ms_per_step"] = busy
         del st
+    del starts
+
+    # loop against graph under autocap from the learned state: the tuned
+    # caps' chunk, then a forced escalation (a growth list of 8 drops)
+    start = Start(state, gen, lambda g: bt.TorchDraws(cfg.tm, B, g.device,
+                                                       g))
+    infos = []
+
+    def autocap(st, xs, tuned, chunk):
+        st, m, info = bt.htm_scan_autocap(cfg, st, xs, tuned=tuned,
+                                          chunk=chunk, draws=start.draws)
+        infos.append(info)
+        return st, m
+
+    perf["graph_vs_loop"] = loop_vs_graph(
+        "16K learning under autocap", start,
+        lambda st, k: autocap(st, seq[:k], TUNED_16K, CHUNK_16K),
+        GRAPH_16K)
+    infos.clear()
+    perf["graph_vs_loop_escalation"] = loop_vs_graph(
+        "16K forced escalation", start,
+        lambda st, k: autocap(st, seq[:k], {"growth_capacity": 8},
+                              GRAPH_ESCALATE // 2), GRAPH_ESCALATE,
+        timed=False)
+    require(len(infos) == 2 and infos[0] == infos[1]
+            and infos[0]["escalated_at_step"] == 0,
+            f"the forced escalation escalates at step 0, alike in the loop "
+            f"and the graph: {infos}")
+    del start
 
     tm = state.tm
     cols, bits = tm.active_cols, tm.active_bits
@@ -1380,12 +1575,11 @@ def run_16k(dev) -> tuple[dict, dict]:
     learned = (host_leaves(state, slice(0, PAR_16K_BATCH)), caps)
     del state, tm
     time_phases(snap, snap.xs)
-    perf["learning_ms_per_step_profiled_steps_unprofiled"] = profile_steps(
-        snap, snap.xs, f"{len(snap.xs)} 16K learning steps after step "
-        f"{T + INFER_16K}")
     print("16K metrics: " + json.dumps(perf))
     print("16K kernels: " + json.dumps(rows))
-    return launches, rows, learned
+    return launches, rows, learned, {
+        "learning": perf["graph_vs_loop"],
+        "escalation": perf["graph_vs_loop_escalation"]}
 
 
 # ---- the parallel phase: `bithtm_tpu_torch.parallel` over worker
@@ -1919,6 +2113,15 @@ def table_kernel_rows(dev, C: int, D: int, G: int, K: int, A: int,
                                          bits, D, K, pun, thr),
             nbytes(syn, perm, act_prev, pun_word, cols, bits, v_ref)
             + 4 * punished, at, grid=table_grid(True, syn, D))
+        if B == 1:
+            # the single-stream step's launch, without host issue between
+            # calls: inside a CUDA graph of 20
+            rows[f"table_update B={B}"]["graph_ms"] = graph_ms(
+                lambda: kernels.table_update_cuda(
+                    syn, p, act_prev, pun_word, cols, bits, D, K, pun, thr))
+            print(f"kernel table_update at B=1 inside a CUDA graph of 20 "
+                  f"calls: {rows[f'table_update B={B}']['graph_ms']:.4f} ms "
+                  f"a call")
         rows[f"act_conn B={B}"] = kernel_row(
             "act_conn",
             lambda: kernels.act_conn_cuda(syn, perm, cols, bits, D, thr, K),
@@ -1968,6 +2171,86 @@ CLI_ARGS = ["--epochs", "1", "--input_patterns", "20", "--batch", "4",
             "--scan", "--quiet"]
 
 
+def wrapper_vs_loop(learned, gen_state, xs, dev) -> dict:
+    """One epoch of `process` through a B=1 reference-API wrapper from
+    the learned state and generator state, by the loop (`graph.eager()`)
+    and by graph replays (two wrappers built alike): every output,
+    `last_metrics` value, the final state and the launches equal; then
+    REPEATS epochs of each in turns (the graph wrapper's state restored
+    into its buffers) and a profile of PROFILED_STEPS more steps: ms/step,
+    device busy, launches a step, busy share."""
+    n = len(xs)
+    wrappers = {mode: bt.HierarchicalTemporalMemory(**REFERENCE, seed=1,
+                                                    device=dev)
+                for mode in ("loop", "graph")}
+
+    def prepare(mode):
+        w = wrappers[mode]
+        st = (bgraph.restore_into(w._state, learned) if mode == "graph"
+              else learned)
+        if st is learned:
+            w.state = learned
+        w.generator.set_state(gen_state)
+        torch.cuda.synchronize()
+        return w
+
+    def epoch(mode, w, k=n):
+        got = []
+        with bgraph.eager() if mode == "loop" else contextlib.nullcontext():
+            for x in xs[:k]:
+                got.append((*w.process(x), w.last_metrics))
+        return got
+
+    def run(mode):
+        w = prepare(mode)
+        t0 = time.perf_counter()
+        got = epoch(mode, w)
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    checked = {}
+    for mode in wrappers:
+        kernels.reset_launch_counts()
+        got, _ = run(mode)
+        checked[mode] = (got, kernels.launch_counts(),
+                         copy.deepcopy(wrappers[mode].state))
+    (g_l, n_l, s_l), (g_g, n_g, s_g) = checked["loop"], checked["graph"]
+    require(all(a[2] == b[2] for a, b in zip(g_l, g_g)),
+            "B=1 wrapper: the graph's last_metrics == the loop's, every step")
+    require(same_tree([a[:2] for a in g_g], [a[:2] for a in g_l])
+            and same_tree(s_g, s_l),
+            "B=1 wrapper: the graph's outputs and state == the loop's")
+    require(n_g == n_l == only(table_update=n),
+            f"B=1 wrapper: table_update once a step in both, got {n_g} and "
+            f"{n_l}")
+    del checked, g_l, g_g, s_l, s_g
+    runs = {mode: [] for mode in wrappers}
+    for _ in range(REPEATS):
+        for mode in runs:
+            runs[mode].append(1e3 * run(mode)[1] / n)
+    out = {"launches": {"table_update": n}}
+    for mode in runs:
+        w = prepare(mode)
+        print(f"  profile of {PROFILED_STEPS} B=1 wrapper steps, {mode}, top "
+              f"device ops:")
+        busy, n_launch = device_profile(
+            lambda: epoch(mode, w, PROFILED_STEPS), PROFILED_STEPS, 3)
+        med = statistics.median(runs[mode])
+        out[mode] = {"ms_per_step": med, "runs": runs[mode],
+                     "device_busy_ms_per_step": busy,
+                     "launches_per_step": n_launch,
+                     "busy_share": busy / med}
+    print(f"B=1 wrapper epoch ({n} steps): graph == loop in every output, "
+          f"metric and leaf; ms/step (median of {REPEATS}; device busy; "
+          f"launches a step; busy share): " + "; ".join(
+              f"{mode} {out[mode]['ms_per_step']:.3f} ("
+              + ", ".join(f"{t:.3f}" for t in runs[mode])
+              + f"; {out[mode]['device_busy_ms_per_step']:.3f}; "
+              f"{out[mode]['launches_per_step']:.1f}; "
+              f"{out[mode]['busy_share']:.3f})" for mode in runs))
+    return out
+
+
 def run_reference_api(dev) -> dict:
     """The single-stream reference API on the card at the README's
     defaults (`HierarchicalTemporalMemory(1000, 2048, 32)`), each part
@@ -1976,8 +2259,9 @@ def run_reference_api(dev) -> dict:
     (a) B=1 learning through the wrapper: B1_EPOCHS epochs of 100
         patterns (ms/step each, host time, synchronized), then B1_INFER
         inference steps; `table_update` once a learning step, `act_conn`
-        once an inference step, no other kernel; bursting falls. A device
-        profile of 16 more learning steps on (b)'s wrapper.
+        once an inference step, no other kernel; bursting falls. Then the
+        last epoch again from the learned state by the loop and by the
+        graph (`wrapper_vs_loop`).
     (b) checkpoints: saved after B1_SAVE_EPOCHS epochs of (a), restored
         into a fresh wrapper that runs the rest: every leaf and metric
         equal to (a)'s uninterrupted run.
@@ -2026,6 +2310,7 @@ def run_reference_api(dev) -> dict:
         torch.cuda.synchronize()
         epoch_ms.append(1e3 * (time.perf_counter() - t0) / B1_PATTERNS)
     learned = copy.deepcopy(htm.state)
+    learned_gen = htm.generator.get_state()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     infer = []
@@ -2075,23 +2360,9 @@ def run_reference_api(dev) -> dict:
           f"fresh wrapper, {T - T0} more steps: every leaf and metric equal "
           f"to the uninterrupted run")
 
-    # the device time of a B=1 learning step, on the restored wrapper
-    more = xs[T:T + 2 * PROFILED_STEPS]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for x in more[:PROFILED_STEPS]:
-        fresh.process(x)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0) / PROFILED_STEPS
-    print(f"profile of {PROFILED_STEPS} B=1 learning steps after step "
-          f"{T + PROFILED_STEPS}, top device ops:")
-    busy, n_launch = device_profile(
-        lambda: [fresh.process(x) for x in more[PROFILED_STEPS:]],
-        PROFILED_STEPS, 10)
-    print(f"  device busy {busy:.3f} ms/step, {n_launch:.1f} kernel "
-          f"launches/step; {plain_ms:.3f} ms/step unprofiled (the "
-          f"{PROFILED_STEPS} steps before): busy share "
-          f"{busy / plain_ms:.3f}")
+    out["wrapper_graph_vs_loop"] = wrapper_vs_loop(
+        learned, learned_gen, xs[T - B1_PATTERNS:T], dev)
+
     # (c) the oracle gate, on the learned state and the next epoch
     n = ORACLE_LEARN + ORACLE_INFER
     sums: dict[str, int] = {}
@@ -2185,24 +2456,6 @@ LIK_TOL = 2.4e-7  # |dL|, the CPU tests' tolerance (erf, sums)
 
 def z_tol(z: torch.Tensor) -> torch.Tensor:
     return 2e-6 + 1e-6 * z.abs()
-
-
-def timed_profile(run, n: int, what: str) -> float:
-    """``run()`` takes n steps (going on from where the last call left
-    the state): timed unprofiled (host time, synchronized), then
-    profiled once more (`device_profile`); prints device busy, launches
-    a step and the busy share. Returns the unprofiled ms/step."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0) / n
-    print(f"profile of {n} {what}, top device ops:")
-    busy, n_launch = device_profile(run, n, 8)
-    print(f"  device busy {busy:.3f} ms/step, {n_launch:.1f} kernel "
-          f"launches/step; {plain_ms:.3f} ms/step unprofiled: busy share "
-          f"{busy / plain_ms:.3f}")
-    return plain_ms
 
 
 def alert_decisions_agree(lik, z, lik_cpu, z_cpu, fire, fire_cpu) -> int:
@@ -2332,21 +2585,19 @@ def run_anomaly(dev) -> dict:
           f"on the host {1e3 * host_s:.1f} ms")
     require(f1["spike"] >= 0.9 and f1["freq_change"] >= 0.9,
             f"mean F1 >= 0.9 on spike and freq_change: {f1}")
-    held = [state]
-
-    def more_steps():
-        held[0], _ = bt.htm_scan(cfg, held[0], x[:PROFILED_STEPS], True,
-                                 detailed_metrics=False, draws=draws)
-
-    timed_profile(more_steps, PROFILED_STEPS,
-                  f"anomaly learning steps after step {T}")
-    del state, held, x, x_cpu, metrics, raw, lik, z, lik_cpu, z_cpu
+    start = Start(state, gen, lambda g: bt.TorchDraws(cfg.tm, B, g.device,
+                                                       g))
+    out["anomaly_graph_vs_loop"] = loop_vs_graph(
+        "anomaly learning", start, lambda st, k: bt.htm_scan(
+            cfg, st, x[:k], True, detailed_metrics=False,
+            draws=start.draws), GRAPH_ANOMALY)
+    del start, state, x, x_cpu, metrics, raw, lik, z, lik_cpu, z_cpu
 
     # (b) the stack at B=256 over the spike trace
     scfg = bt.make_stack_config(cfg.input_dim, [(C, D), (C, D)],
                                 **ab.OPTIONS)
     spike, _, _ = ab.make_task("spike", np.random.RandomState(7000))
-    n = STACK_LEARN + STACK_INFER + 2 * PROFILED_STEPS
+    n = STACK_LEARN + STACK_INFER
     xs = ab.encode(np.repeat(spike[:n, None], B, 1), dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     state = bt.stack_init(scfg, B, gen, dev)
@@ -2390,16 +2641,11 @@ def run_anomaly(dev) -> dict:
           f"{float(m_inf['L0_correct'].float().mean()):.2f} / "
           f"{float(m_inf['L1_correct'].float().mean()):.2f}; launches "
           f"{out['stack_learn']} / {out['stack_infer']}")
-    t1 = STACK_LEARN + STACK_INFER
-    more = [xs[t1:t1 + PROFILED_STEPS], xs[t1 + PROFILED_STEPS:]]
-    held = [state]
-
-    def more_stack_steps():
-        held[0], _ = bt.stack_scan(scfg, held[0], more.pop(0), True, draws)
-
-    timed_profile(more_stack_steps, PROFILED_STEPS,
-                  f"stack learning steps after step {t1}")
-    del state, held, m_learn, m_inf
+    start = Start(state, gen, lambda g: bt.stack_draws(scfg, B, dev, g))
+    out["stack_graph_vs_loop"] = loop_vs_graph(
+        "stack learning", start, lambda st, k: bt.stack_scan(
+            scfg, st, xs[:k], True, start.draws), GRAPH_STACK)
+    del start, state, m_learn, m_inf
     s_loop = copy.deepcopy(snap)
     gen.set_state(gen_state)
     draws = bt.stack_draws(scfg, B, dev, gen)
@@ -2478,45 +2724,64 @@ def main() -> None:
         return
     dev = torch.device("cuda", 0)
     device = gpu_info(dev)
+    began = clock = time.perf_counter()
+    phases = {}
 
-    t0 = time.perf_counter()
+    def phase(name: str) -> None:
+        nonlocal clock
+        now = time.perf_counter()
+        phases[name] = round(now - clock, 1)
+        print(f"phase {name}: {phases[name]} s")
+        clock = now
+
     kernels.build(force=True)
     print(f"kernels built from {', '.join(sorted(set(SOURCES.values())))} "
-          f"in {time.perf_counter() - t0:.2f} s")
+          f"in {time.perf_counter() - clock:.2f} s")
+    phase("build")
 
     checks = check_kernels(dev)
+    phase("check_kernels")
     check_learning(dev)
     check_cpu_agreement(dev)
-    launches, snap, window_ms, (state, gen, serve_xs) = run_main_path(dev)
+    launches, snap, _, (state, gen, serve_xs) = run_main_path(dev)
+    phase("run_main_path")
     tmp = tempfile.TemporaryDirectory(prefix=".smoke_", dir=REPO)
     bench_path = os.path.join(tmp.name, "bench.pt")
     torch.save(host_leaves(state), bench_path)
     launches.update(run_serving(snap.cfg, state, gen, serve_xs))
+    phase("run_serving")
+    graph_paths = {"bench": run_graph_bench(snap.cfg, state, gen, serve_xs)}
+    phase("run_graph_bench")
     entry = run_entry_points(snap.cfg, state, serve_xs)
     check_boost(dev, state.sp, serve_xs)
     launches.update(sp_update_pack=entry["sp_update_pack"],
                     synapse_activation=entry["synapse_activation"])
     del state
     time_phases(snap, snap.xs[:PROFILED_STEPS])
-    profile_steps(snap, snap.xs[:PROFILED_STEPS],
-                  f"learning steps {LEARN_STEPS - WINDOW}-"
-                  f"{LEARN_STEPS - WINDOW + PROFILED_STEPS} (steady-window "
-                  f"median {window_ms:.3f} ms/step)")
     del snap
     torch.cuda.empty_cache()
-    launches_16k, _, learned16 = run_16k(dev)
+    phase("entry points, boost, phases, profile")
+    launches_16k, _, learned16, graph_paths["16k"] = run_16k(dev)
     launches["small_table_take"] = launches_16k["small_table_take"]
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    phase("run_16k")
     shard_rows = run_parallel(dev, learned16, bench_path, tmp.name)
-    print(f"parallel phase: {time.perf_counter() - t0:.1f} s; kernels on a "
-          f"column shard: " + json.dumps(shard_rows))
+    print(f"parallel phase: {time.perf_counter() - clock:.1f} s; kernels on "
+          f"a column shard: " + json.dumps(shard_rows))
     del learned16
     tmp.cleanup()
     torch.cuda.empty_cache()
-    run_reference_api(dev)
+    phase("run_parallel")
+    graph_paths["b1"] = run_reference_api(dev)["wrapper_graph_vs_loop"]
     torch.cuda.empty_cache()
-    run_anomaly(dev)
+    phase("run_reference_api")
+    anomaly = run_anomaly(dev)
+    graph_paths["anomaly"] = anomaly["anomaly_graph_vs_loop"]
+    graph_paths["stack"] = anomaly["stack_graph_vs_loop"]
+    phase("run_anomaly")
+    print("graph vs loop: " + json.dumps(graph_paths))
+    print(f"phases (s): {json.dumps(phases)}; total "
+          f"{time.perf_counter() - began:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

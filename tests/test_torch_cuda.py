@@ -7,6 +7,7 @@ the card. No JAX here, so the file runs where the GPU is:
 `torch.cuda.is_available()` is false.
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -774,3 +775,294 @@ def test_model_parallel_step_on_the_card(cuda, tmp_path):
                     shards[r][phase][k],
                     torch.stack([m[k] for m in steps]).cpu().numpy(),
                     f"rank {r} {phase} {k}")
+
+
+# ---- the compile layer: graph replays against the loop ----------------
+
+GRAPH_CFG = dict(input_dim=128, column_dim=256, cell_dim=8,
+                 active_columns=10, segments_per_column=4,
+                 synapse_capacity=64, segment_activation_threshold=3,
+                 segment_matching_threshold=3, segment_sampling_synapses=8,
+                 sp_overrides={"permanence_dtype": "int16"})
+
+
+def _leaves(state) -> dict:
+    return {f"{part}.{f.name}": getattr(getattr(state, part), f.name)
+            for part in ("sp", "tm")
+            for f in dataclasses.fields(getattr(state, part))}
+
+
+def _assert_same(a, b, what):
+    if isinstance(a, dict):
+        assert list(a) == list(b), what
+        for k in a:
+            assert torch.equal(a[k], b[k]), f"{what}: {k}"
+    elif isinstance(a, tuple):
+        for i, (x, y) in enumerate(zip(a, b, strict=True)):
+            _assert_same(x, y, f"{what}[{i}]")
+    elif a is None:
+        assert b is None, what
+    elif isinstance(a, torch.Tensor):
+        assert torch.equal(a, b), what
+    else:
+        _assert_same(_leaves(a), _leaves(b), what)
+
+
+def _card_sequence(T, B, I, seed, dev):
+    rng = np.random.RandomState(seed)
+    pats = rng.rand(7, B, I) < 0.2
+    return torch.from_numpy(pats[np.arange(T) % 7]).to(dev)
+
+
+def _scan_paths(cfg, B, dev, seeded):
+    """Learning (150 steps: two input blocks), inference, and serving in
+    the three forms from copies of the learned state; returns each
+    path's (state, metrics, launches, generator state after it)."""
+    import copy
+
+    from bithtm_tpu_torch.models.htm import _scan_impl
+
+    torch.manual_seed(3)
+    gen = torch.Generator(device=dev).manual_seed(4) if seeded else None
+    state = bt.htm_init_batch(cfg, B, torch.Generator(device=dev)
+                              .manual_seed(5), dev)
+    draws = bt.TorchDraws(cfg.tm, B, dev, gen)
+    xs = _card_sequence(180, B, cfg.input_dim, 0, dev)
+    out = {}
+
+    def run(name, fn, st):
+        before = kernels.launch_counts()
+        st, m = fn(st)
+        torch.cuda.synchronize()
+        # a copy: the next run consumes the state (on the card, the same
+        # graph buffers)
+        out[name] = (copy.deepcopy(st), m, launched(before),
+                     draws.get_state())
+        return st
+
+    state = run("learning", lambda s: bt.htm_scan(cfg, s, xs[:150], True,
+                                                  draws=draws), state)
+    state = run("inference", lambda s: bt.htm_scan(
+        cfg, s, xs[150:160], False, draws=draws), state)
+    tab = bt.make_serving_table(cfg.tm, state.tm)
+    word = bt.pack_frozen_table(state.tm.synapse_cell, state.tm.synapse_perm,
+                                cfg.tm.permanence_threshold,
+                                num_cells=cfg.tm.num_cells)
+    serve = xs[160:]
+    run("unpacked", lambda s: bt.htm_serve_scan(cfg, s, serve),
+        copy.deepcopy(state))
+    run("packed", lambda s: bt.htm_serve_scan(cfg, s, serve,
+                                              serving_table=tab),
+        copy.deepcopy(state))
+    run("frozen", lambda s: _scan_impl(cfg, s, serve, False, False, False,
+                                       frozen_word=word),
+        copy.deepcopy(state))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeded", [False, True])
+def test_graph_replays_equal_the_loop(seeded, cuda):
+    """`htm_scan` (learning, inference) and `htm_serve_scan` (unpacked,
+    packed, frozen) replaying their graphs equal the loop in every leaf,
+    metric and launch count (each kernel once a replayed step) and leave
+    the generator where the loop leaves it, under the device's default
+    generator and a seeded one."""
+    from bithtm_tpu_torch.models import graph
+
+    cfg = bt.make_htm_config(**GRAPH_CFG)
+    with graph.eager():
+        loop = _scan_paths(cfg, 4, cuda, seeded)
+    replay = _scan_paths(cfg, 4, cuda, seeded)
+    want = {"learning": only(table_update=150),
+            "inference": only(act_conn=10), "unpacked": only(act_conn=20),
+            "packed": only(serving_activation=20),
+            "frozen": only(act_frozen=20)}
+    for name, (s, m, n, g) in replay.items():
+        ls, lm, ln, lg = loop[name]
+        _assert_same(s, ls, name)
+        _assert_same(m, lm, name)
+        assert n == ln == want[name], name
+        assert torch.equal(g, lg), name
+    assert int(replay["inference"][1]["correct"].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_autocap_graph_escalates_like_the_loop(cuda):
+    """An escalating `htm_scan_autocap` on the card: the tuned graph's
+    dropping chunk restored into its buffers and re-run by the safe
+    config's graph, with the tuned chunk's draws, equals the loop."""
+    from bithtm_tpu_torch.models import graph
+
+    kw = dict(input_dim=128, column_dim=96, cell_dim=8, active_columns=24,
+              segments_per_column=4, synapse_capacity=16,
+              segment_activation_threshold=3, segment_matching_threshold=3,
+              segment_sampling_synapses=6)
+    cfg = bt.make_htm_config(**kw)
+    xs = _card_sequence(24, 2, 128, 5, cuda)
+
+    def run():
+        gen = torch.Generator(device=cuda).manual_seed(9)
+        state = bt.htm_init_batch(cfg, 2, gen, cuda)
+        draws = bt.TorchDraws(cfg.tm, 2, cuda, gen)
+        before = kernels.launch_counts()
+        s, m, info = bt.htm_scan_autocap(
+            cfg, state, xs, tuned=dict(growth_capacity=8), chunk=4,
+            draws=draws)
+        torch.cuda.synchronize()
+        return s, m, info, launched(before), gen.get_state()
+
+    with graph.eager():
+        loop = run()
+    replay = run()
+    assert replay[2] == loop[2] and loop[2]["escalated_at_step"] is not None
+    _assert_same(replay[0], loop[0], "state")
+    _assert_same(replay[1], loop[1], "metrics")
+    assert replay[3] == loop[3]
+    assert torch.equal(replay[4], loop[4])
+
+
+@pytest.mark.cuda
+def test_stack_graph_equals_the_loop(cuda):
+    """`stack_scan` replaying its graph (two `htm_step`s and the dense
+    layer-0 output a step) equals the loop, two table kernels a learning
+    step and two `act_conn` an inference step."""
+    from bithtm_tpu_torch.models import graph
+
+    cfg = bt.make_stack_config(128, [(256, 8), (128, 8)], active_columns=10,
+                               segment_activation_threshold=3,
+                               segment_matching_threshold=3,
+                               segment_sampling_synapses=8)
+    xs = _card_sequence(40, 3, 128, 6, cuda)
+
+    def run():
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        state = bt.stack_init(cfg, 3, gen, cuda)
+        draws = bt.stack_draws(cfg, 3, cuda, gen)
+        before = kernels.launch_counts()
+        s, m1 = bt.stack_scan(cfg, state, xs[:32], True, draws)
+        n1 = launched(before)
+        s, m2 = bt.stack_scan(cfg, s, xs[32:], False, draws)
+        torch.cuda.synchronize()
+        return s, m1, m2, n1, launched(before)
+
+    with graph.eager():
+        loop = run()
+    replay = run()
+    for a, b, what in zip(replay[:3], loop[:3], ("state", "learn", "infer")):
+        _assert_same(a, b, what)
+    assert replay[3] == loop[3] == only(table_update=64)
+    assert replay[4] == loop[4] == only(table_update=64, act_conn=16)
+
+
+@pytest.mark.cuda
+def test_wrappers_replay_equal_the_loop(cuda):
+    """The three wrappers' `process` at B=1 replaying their graphs equal
+    the loop in every output, `last_metrics` value and leaf; a wrapper
+    holding `HostTemporalMemory` runs the loop and captures nothing."""
+    from bithtm_tpu_torch import networks as pnet
+    from bithtm_tpu_torch.models import graph
+
+    pats = np.random.RandomState(1).rand(5, 128) < 0.2
+    kw = {k: v for k, v in GRAPH_CFG.items()
+          if k not in ("input_dim", "column_dim", "cell_dim")}
+
+    def run():
+        htm = pnet.HierarchicalTemporalMemory(128, 256, 8, seed=1,
+                                              device=cuda, **kw)
+        sp = pnet.SpatialPooler(128, 256, 10, seed=2, device=cuda)
+        tm = pnet.TemporalMemory(256, 8, 10, seed=3, device=cuda,
+                                 segment_activation_threshold=3,
+                                 segment_matching_threshold=3,
+                                 segment_sampling_synapses=8)
+        outs = []
+        for t in range(24):
+            learning = t < 18
+            o = htm.process(pats[t % 5], learning, t % 3 != 2)
+            s = sp.process(pats[t % 5], learning)
+            m = tm.process(s, learning, epsilon=1e-6 if t % 4 == 0 else None)
+            outs.append((o, dict(htm.last_metrics), s, m))
+        torch.cuda.synchronize()
+        return htm.state, sp.state, tm.state, outs
+
+    with graph.eager():
+        loop = run()
+    replay = run()
+    _assert_same(replay[0], loop[0], "htm state")
+    for name, a, b in (("sp state", replay[1], loop[1]),
+                       ("tm state", replay[2], loop[2])):
+        for f in dataclasses.fields(a):
+            assert torch.equal(getattr(a, f.name), getattr(b, f.name)), \
+                (name, f.name)
+    for t, ((o, mt, s, m), (lo, lmt, ls, lm)) in enumerate(
+            zip(replay[3], loop[3])):
+        assert mt == lmt, t
+        _assert_same(tuple(o[0]) + tuple(o[1]), tuple(lo[0]) + tuple(lo[1]),
+                     f"htm out {t}")
+        _assert_same(tuple(s), tuple(ls), f"sp out {t}")
+        _assert_same(tuple(m), tuple(lm), f"tm out {t}")
+
+    host = pnet.HierarchicalTemporalMemory(
+        128, 256, 8, device=cuda, temporal_memory=bt.HostTemporalMemory(
+            lambda cols, learning: (np.zeros(2048, bool),) * 3), **kw)
+    n = len(graph._LINEAGES)
+    host.process(pats[0])
+    assert len(graph._LINEAGES) == n, "the host TM was captured"
+
+
+@pytest.mark.cuda
+def test_capture_makes_no_host_sync(cuda, monkeypatch):
+    """Every captured step, run under `torch.cuda.set_sync_debug_mode(
+    "error")`, synchronizes nothing: learning, inference, the serving
+    forms, the stack and a wrapper step capture without a raise."""
+    from bithtm_tpu_torch import networks as pnet
+    from bithtm_tpu_torch.models import graph
+
+    real = graph._Graph.step_into_buffers
+    captured = []
+
+    def strict(self):
+        if not torch.cuda.is_current_stream_capturing():
+            return real(self)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real(self)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        captured.append(self)
+
+    monkeypatch.setattr(graph._Graph, "step_into_buffers", strict)
+    cfg = bt.make_htm_config(**GRAPH_CFG)
+    _scan_paths(cfg, 2, cuda, True)
+    stack_cfg = bt.make_stack_config(128, [(256, 8), (128, 8)],
+                                     active_columns=10)
+    bt.stack_scan(stack_cfg, bt.stack_init(stack_cfg, 2, device=cuda),
+                  _card_sequence(3, 2, 128, 1, cuda))
+    kw = {k: v for k, v in GRAPH_CFG.items()
+          if k not in ("input_dim", "column_dim", "cell_dim")}
+    htm = pnet.HierarchicalTemporalMemory(128, 256, 8, device=cuda, **kw)
+    htm.process(np.ones(128, bool))
+    assert len(captured) == 7
+
+
+@pytest.mark.cuda
+def test_profiler_sees_one_kernel_a_replayed_step(cuda):
+    """A `torch.profiler` trace of 8 replayed learning steps holds 8
+    launches of `table_update`'s kernel, as the launch counts say."""
+    cfg = bt.make_htm_config(**GRAPH_CFG)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = bt.htm_init_batch(cfg, 4, gen, cuda)
+    draws = bt.TorchDraws(cfg.tm, 4, cuda, gen)
+    xs = _card_sequence(16, 4, 128, 2, cuda)
+    state, _ = bt.htm_scan(cfg, state, xs[:8], True, draws=draws)
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, _ = bt.htm_scan(cfg, state, xs[8:], True, draws=draws)
+        torch.cuda.synchronize()
+    seen = sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "table_pass_kernel" in e.name)
+    assert launched(before) == only(table_update=8)
+    assert seen == 8

@@ -367,10 +367,21 @@ def test_port_imports_without_jax():
 
 
 def test_port_exports_every_jax_name_but_htm_step_batch():
-    """`bithtm_tpu_torch.__all__` holds every name of `bithtm_tpu.__all__`
-    but `htm_step_batch` (the port's step is batched), and each resolves."""
+    """`bithtm_tpu_torch.__all__` holds every name of `bithtm_tpu.__all__`,
+    `htm_step_batch` too (`htm_step` under the JAX name: the port's step
+    is batched), and besides them exactly the port's own names: the draw
+    providers (the JAX state holds a key), the converters, and what the
+    JAX package exports from its submodules only. Each resolves."""
     import bithtm_tpu
 
-    assert set(bithtm_tpu.__all__) - set(bt.__all__) == {"htm_step_batch"}
+    port_only = {
+        "AnomalyLikelihoodState", "CAP_DROP_METRICS", "Draws",
+        "SeasonalZScoreState", "ServingTable", "TMDebug", "TorchDraws",
+        "concat", "htm_state_from_numpy", "htm_state_to_numpy",
+        "make_serving_table", "pack_frozen_table",
+        "serving_table_from_numpy", "serving_table_to_numpy",
+        "stack_draws", "take_small_table"}
+    assert set(bithtm_tpu.__all__) | port_only == set(bt.__all__)
+    assert not set(bithtm_tpu.__all__) & port_only
     for name in bt.__all__:
         assert getattr(bt, name) is not None, name
