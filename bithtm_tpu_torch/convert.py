@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .encoders import AnomalyLikelihoodState, SeasonalZScoreState
+from .ops.active_set import act_dtype
 from .ops.serving import ServingTable
 from .readout import ClassifierState
 from .state import HTMState, SPState, TMState
@@ -41,13 +42,21 @@ def _leaf_to_torch(name: str, x, batched: bool, device) -> torch.Tensor:
     a = np.asarray(x)
     if name in U32_LEAVES:
         a = a.view(np.int32)
+    bf16 = a.dtype.itemsize == 2 and a.dtype.name in ("bfloat16", "void16")
+    if bf16:  # numpy has no bf16 of its own: move the bits as int16
+        a = a.view(np.int16)
     if not batched:
         a = a[None]
-    return torch.from_numpy(np.array(a, order="C")).to(device)  # a copy
+    t = torch.from_numpy(np.array(a, order="C")).to(device)  # a copy
+    return t.view(torch.bfloat16) if bf16 else t
 
 
 def _leaf_to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
-    # a copy even of a CPU tensor: a step updates the tables in place
+    # a copy even of a CPU tensor: a step updates the tables in place;
+    # numpy has no bf16, so a bf16 leaf (the packed activity at K = 126
+    # and 127, whose values 0, 1 and 129 are exact) leaves as float32
+    if t.dtype == torch.bfloat16:
+        t = t.float()
     a = t.detach().to("cpu", copy=True).numpy()
     return a.view(np.uint32) if name in U32_LEAVES else a
 
@@ -64,7 +73,15 @@ def htm_state_from_numpy(tree, device="cuda") -> HTMState:
             for f in dataclasses.fields(cls)
         })
 
-    return HTMState(sp=build(SPState, sp), tm=build(TMState, tm))
+    tm = build(TMState, tm)
+    # the packed activity in the port's type for K (a float32 leaf of
+    # `htm_state_to_numpy` at K = 126 or 127 goes back to bf16)
+    G = tm.seg_cell.shape[-1]
+    K = tm.synapse_act.shape[-1] // G if G else 0
+    tm = dataclasses.replace(
+        tm, synapse_act=tm.synapse_act.to(act_dtype(K)) if K else
+        tm.synapse_act)
+    return HTMState(sp=build(SPState, sp), tm=tm)
 
 
 def htm_state_to_numpy(state: HTMState) -> dict:

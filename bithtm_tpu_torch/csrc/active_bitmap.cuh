@@ -20,6 +20,17 @@
 // where its range crosses into the next stream: a range of n rows builds
 // at most ceil(n / rows) + 1 bitmaps, where a grid of fixed-size row
 // blocks built one per block.
+//
+// Past the shared memory a block may hold (C*D > 8 * 232,448 cells: 32K x
+// 64 and wider, or a column shard of such a model), the bitmap lives in
+// global memory instead: one pass (`build_bitmaps_kernel`, a block a
+// stream) builds every stream's bitmap of C*D/8 bytes into a scratch
+// buffer that the wrapper allocates (256 KB a stream at 32768x64, 16 MB
+// at B=64, which the H100's 50 MB L2 holds), and the kernels read it
+// through the read-only cache (`cell_active<true>`). `walk_rows<true>`
+// then builds nothing: a block only moves to the next stream's bitmap.
+// The shared-memory path stays as it was for every shape at or under the
+// limit.
 
 #pragma once
 
@@ -89,9 +100,42 @@ __device__ __forceinline__ void build_bitmap(
 }
 
 // Is cell (any int) in the bitmap of n_cells cells? Out of range: no.
+// GLOBAL: bm lies in global memory, written by an earlier kernel, and is
+// read through the read-only cache; else it lies in shared memory.
+template <bool GLOBAL = false>
 __device__ __forceinline__ bool cell_active(const uint32_t* bm, int cell,
                                             int n_cells) {
-  return cell >= 0 && cell < n_cells && ((bm[cell >> 5] >> (cell & 31)) & 1u);
+  if (cell < 0 || cell >= n_cells) return false;
+  const uint32_t word = GLOBAL ? __ldg(bm + (cell >> 5)) : bm[cell >> 5];
+  return (word >> (cell & 31)) & 1u;
+}
+
+// Words from one stream's bitmap to the next in a global scratch buffer:
+// the bitmap's words rounded up to 16 bytes, so that each starts aligned.
+__host__ __device__ __forceinline__ size_t bitmap_stride(int C, int D) {
+  return (((size_t)C * D + 31) / 32 + 3) / 4 * 4;
+}
+
+// Builds stream blockIdx.x's bitmap of C*D cells at bms + b * stride
+// (bitmap_stride(C, D) words a stream): the global-memory path. Static:
+// each source that includes this header has its own copy.
+static __global__ void __launch_bounds__(1024) build_bitmaps_kernel(
+    uint32_t* __restrict__ bms, const int* __restrict__ cols,
+    const int* __restrict__ bits, int A, int W, int C, int D) {
+  const size_t b = blockIdx.x;
+  build_bitmap(bms + b * bitmap_stride(C, D),
+               static_cast<int>(((size_t)C * D + 31) >> 5), cols + b * A,
+               bits + b * A * W, A, W, C, D);
+}
+
+// Launches build_bitmaps_kernel over B streams on `stream`. Returns a
+// cudaError_t as int (0 = success).
+inline int build_bitmaps(uint32_t* bms, const int* cols, const int* bits,
+                         int B, int A, int W, int C, int D,
+                         cudaStream_t stream) {
+  if (B > 0)
+    build_bitmaps_kernel<<<B, 1024, 0, stream>>>(bms, cols, bits, A, W, C, D);
+  return (int)cudaGetLastError();
 }
 
 // This block's rows [r0, r1) of n_rows: n_rows / gridDim.x each, one more
@@ -107,12 +151,14 @@ __device__ __forceinline__ void block_rows(long long n_rows, long long* r0,
 }
 
 // Walks this block's range of the B*rows flattened rows of a (B, rows,
-// ...) table, one stream at a time: builds stream b's bitmap (from cols
-// (B, A) and bits (B, A, W)), then calls body(b, lo, hi) for the stream's
-// rows [lo, hi) of the range, as indices into the stream (0 <= lo < hi
-// <= rows). Every loop bound is the same for the whole block, so the
-// barriers inside are reached by every thread.
-template <class Body>
+// ...) table, one stream at a time: builds stream b's bitmap in the
+// shared bm (from cols (B, A) and bits (B, A, W)), or with GLOBAL takes
+// stream b's from the bitmaps that build_bitmaps wrote at bm, then calls
+// body(bm_b, b, lo, hi) with that bitmap for the stream's rows [lo, hi)
+// of the range, as indices into the stream (0 <= lo < hi <= rows). Every
+// loop bound is the same for the whole block, so the barriers inside are
+// reached by every thread.
+template <bool GLOBAL, class Body>
 __device__ __forceinline__ void walk_rows(
     uint32_t* bm, int B, int rows, const int* cols, const int* bits, int A,
     int W, int C, int D, Body&& body) {
@@ -124,10 +170,16 @@ __device__ __forceinline__ void walk_rows(
     const int b = static_cast<int>(r / rows);
     const long long stream0 = (long long)b * rows;
     const long long hi = r1 < stream0 + rows ? r1 : stream0 + rows;
-    if (!first) __syncthreads();  // no thread still reads the last bitmap
-    build_bitmap(bm, n_words, cols + (size_t)b * A, bits + (size_t)b * A * W,
-                 A, W, C, D);
-    body(b, static_cast<int>(r - stream0), static_cast<int>(hi - stream0));
+    const uint32_t* bm_b = bm;
+    if constexpr (GLOBAL) {
+      bm_b = bm + (size_t)b * bitmap_stride(C, D);
+    } else {
+      if (!first) __syncthreads();  // no thread still reads the last bitmap
+      build_bitmap(bm, n_words, cols + (size_t)b * A,
+                   bits + (size_t)b * A * W, A, W, C, D);
+    }
+    body(bm_b, b, static_cast<int>(r - stream0),
+         static_cast<int>(hi - stream0));
     r = hi;
     first = false;
   }
@@ -137,6 +189,50 @@ __device__ __forceinline__ void walk_rows(
 inline size_t bitmap_bytes(int C, int D) {
   return (((size_t)C * D + 31) / 32) * sizeof(uint32_t);
 }
+
+// The packed activity of a slot, v = 0, 1 or 1 + scale, in the type that
+// ops/active_set.py `act_dtype` gives K, held as its bits: u8 (BYTES 1)
+// at K <= 125, bf16 (2) at K = 126-127 and float32 (4) from K = 128.
+// Every value is exact in each type, and the top 16 bits of a float32
+// with 8 significant bits or fewer are its bf16 (129 = 0x4301).
+template <int BYTES>
+struct Act;
+template <>
+struct Act<1> {
+  using T = uint8_t;
+  __device__ __forceinline__ static T value(int v) {
+    return static_cast<T>(v);
+  }
+  __device__ __forceinline__ static bool nonzero(T x) { return x != 0; }
+};
+template <>
+struct Act<2> {
+  using T = uint16_t;
+  __device__ __forceinline__ static T value(int v) {
+    return static_cast<T>(__float_as_uint(static_cast<float>(v)) >> 16);
+  }
+  // != 0 as a value: -0.0 is zero and NaN is not, as torch's `!= 0`
+  __device__ __forceinline__ static bool nonzero(T x) {
+    return (x & 0x7fffu) != 0;
+  }
+};
+template <>
+struct Act<4> {
+  using T = uint32_t;
+  __device__ __forceinline__ static T value(int v) {
+    return __float_as_uint(static_cast<float>(v));
+  }
+  __device__ __forceinline__ static bool nonzero(T x) {
+    return (x & 0x7fffffffu) != 0;
+  }
+};
+
+// Four values of T loaded or stored as one vector: 4 bytes (as uchar4),
+// 8 or 16.
+template <typename T>
+struct alignas(4 * sizeof(T)) Quad {
+  T e[4];
+};
 
 struct Grid {
   int blocks = 0;

@@ -15,6 +15,7 @@
 #include <cuda_runtime.h>
 
 #include <mutex>
+#include <type_traits>
 
 namespace bithtm {
 
@@ -48,6 +49,33 @@ int allow_shared(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == 0) allowed[used++ % kEntries] = Entry{key, device, smem};
   return err;
+}
+
+// Run-time choices to template arguments: each calls f with a
+// std::integral_constant of the value chosen (read it in f as
+// decltype(arg)::value) and returns what f returns, a cudaError_t as int.
+template <class F>
+int with_bool(bool flag, F&& f) {
+  return flag ? f(std::true_type{}) : f(std::false_type{});
+}
+
+// 4 where n is a multiple of 4 (16-byte vector loads), else 1.
+template <class F>
+int with_vec(int n, F&& f) {
+  return n % 4 == 0 ? f(std::integral_constant<int, 4>{})
+                    : f(std::integral_constant<int, 1>{});
+}
+
+// The packed activity's bytes a value (1: u8, 2: bf16, 4: float32); any
+// other count is refused.
+template <class F>
+int with_bytes(int bytes, F&& f) {
+  switch (bytes) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 class DeviceGuard {

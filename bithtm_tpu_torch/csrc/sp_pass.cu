@@ -34,6 +34,15 @@
 // while the writes fall to the A active rows (as the table pass writes a
 // permanence back only where it is punished). The 8 packed bytes go out
 // as one 8-byte store. The grid is (runs of packed bytes, B).
+//
+// Two more paths, chosen by the wrapper from the shapes (ops/kernels.py):
+//   - past 4 * I_pad + 4 * ceil(C/32) > 232,448 bytes of shared memory
+//     (GMEM): the delta row is read from global memory through the
+//     read-only cache instead of being staged, and the active-column
+//     bitmap is built by a pass before (a block a stream) into a global
+//     scratch, so the kernel holds no shared memory;
+//   - past 65,535 streams (FOLD): the stream is folded into grid x,
+//     (groups blocks x B), where the grid's y extent would not hold it.
 
 #include "active_bitmap.cuh"
 #include "launch.cuh"
@@ -74,10 +83,12 @@ template <typename T>
 struct Lanes {
   static constexpr int kVectors = sizeof(T) * kVec / 16;
   int4 v[kVectors];
+  // RO: p lies in global memory that no thread writes (read-only cache)
+  template <bool RO = false>
   __device__ __forceinline__ void load(const T* p) {
+    const int4* q = reinterpret_cast<const int4*>(p);
 #pragma unroll
-    for (int k = 0; k < kVectors; ++k)
-      v[k] = reinterpret_cast<const int4*>(p)[k];
+    for (int k = 0; k < kVectors; ++k) v[k] = RO ? __ldg(q + k) : q[k];
   }
   // Stores the vectors whose bits differ from `old`'s.
   __device__ __forceinline__ void store_changed(T* p, const Lanes& old) const {
@@ -93,39 +104,72 @@ struct Lanes {
   }
 };
 
-template <class Op>
+// Words of a stream's active-column bitmap.
+__host__ __device__ __forceinline__ int column_words(int C) {
+  return (C + 31) >> 5;
+}
+
+// The GMEM path's first pass: stream blockIdx.x's active-column bitmap
+// (column_words(C) words) at bms + b * column_words(C).
+__global__ void __launch_bounds__(kThreads) build_column_bitmaps_kernel(
+    uint32_t* __restrict__ bms, const int* __restrict__ cols, int C, int A) {
+  const size_t b = blockIdx.x;
+  uint32_t* active = bms + b * column_words(C);
+  for (int i = threadIdx.x; i < column_words(C); i += blockDim.x)
+    active[i] = 0u;
+  __syncthreads();
+  for (int a = threadIdx.x; a < A; a += blockDim.x) {
+    const int c = cols[b * A + a];
+    if (c >= 0 && c < C) atomicOr(&active[c >> 5], 1u << (c & 31));
+  }
+}
+
+template <class Op, bool GMEM, bool FOLD>
 __global__ void __launch_bounds__(kThreads) sp_update_pack_kernel(
     typename Op::T* __restrict__ perm,
     const typename Op::D* __restrict__ delta, const int* __restrict__ cols,
-    uint8_t* __restrict__ pack, int C, int I_pad, int A, Op op) {
+    const uint32_t* __restrict__ col_bms, uint8_t* __restrict__ pack, int C,
+    int I_pad, int A, int blocks_per_stream, Op op) {
   using T = typename Op::T;
   using D = typename Op::D;
   // the delta row (I_pad * 4 bytes, a multiple of 16), then the bitmap
   extern __shared__ int4 smem[];
-  D* dl = reinterpret_cast<D*>(smem);
-  uint32_t* active = reinterpret_cast<uint32_t*>(dl + I_pad);
-  const int b = blockIdx.y;
-  const int4* src = reinterpret_cast<const int4*>(delta + (size_t)b * I_pad);
-  for (int i = threadIdx.x; i < I_pad / 4; i += blockDim.x) smem[i] = src[i];
-  for (int i = threadIdx.x; i < (C + 31) >> 5; i += blockDim.x)
-    active[i] = 0u;
-  __syncthreads();
-  for (int a = threadIdx.x; a < A; a += blockDim.x) {
-    const int c = cols[(size_t)b * A + a];
-    if (c >= 0 && c < C) atomicOr(&active[c >> 5], 1u << (c & 31));
+  const size_t b = FOLD ? blockIdx.x / blocks_per_stream : blockIdx.y;
+  const int bx = FOLD ? blockIdx.x - (int)(b * blocks_per_stream)
+                      : (int)blockIdx.x;
+  const D* dl;
+  const uint32_t* active;
+  if constexpr (GMEM) {
+    dl = delta + b * I_pad;
+    active = col_bms + b * column_words(C);
+  } else {
+    D* dl_s = reinterpret_cast<D*>(smem);
+    uint32_t* active_s = reinterpret_cast<uint32_t*>(dl_s + I_pad);
+    const int4* src = reinterpret_cast<const int4*>(delta + b * I_pad);
+    for (int i = threadIdx.x; i < I_pad / 4; i += blockDim.x) smem[i] = src[i];
+    for (int i = threadIdx.x; i < column_words(C); i += blockDim.x)
+      active_s[i] = 0u;
+    __syncthreads();
+    for (int a = threadIdx.x; a < A; a += blockDim.x) {
+      const int c = cols[b * A + a];
+      if (c >= 0 && c < C) atomicOr(&active_s[c >> 5], 1u << (c & 31));
+    }
+    __syncthreads();
+    dl = dl_s;
+    active = active_s;
   }
-  __syncthreads();
 
   const int S = I_pad >> 3;
   const int row_groups = S / kVec;
   const long long n_groups = (long long)C * row_groups;
-  const long long g0 = (long long)blockIdx.x * kGroupsPerBlock;
+  const long long g0 = (long long)bx * kGroupsPerBlock;
   const long long g1 = min(g0 + kGroupsPerBlock, n_groups);
   for (long long g = g0 + threadIdx.x; g < g1; g += blockDim.x) {
     const int c = static_cast<int>(g / row_groups);
     const int w0 = static_cast<int>(g - (long long)c * row_groups) * kVec;
-    const bool act = (active[c >> 5] >> (c & 31)) & 1u;
-    T* row = perm + ((size_t)b * C + c) * I_pad;
+    const uint32_t word = GMEM ? __ldg(active + (c >> 5)) : active[c >> 5];
+    const bool act = (word >> (c & 31)) & 1u;
+    T* row = perm + (b * C + c) * I_pad;
     Lanes<T> p[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) p[j].load(row + j * S + w0);
@@ -133,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) sp_update_pack_kernel(
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       Lanes<D> d;
-      d.load(dl + j * S + w0);
+      d.template load<GMEM>(dl + j * S + w0);
       Lanes<T> q;
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
@@ -146,49 +190,76 @@ __global__ void __launch_bounds__(kThreads) sp_update_pack_kernel(
     uint2 out;
     out.x = byte[0] | byte[1] << 8 | byte[2] << 16 | (uint32_t)byte[3] << 24;
     out.y = byte[4] | byte[5] << 8 | byte[6] << 16 | (uint32_t)byte[7] << 24;
-    *reinterpret_cast<uint2*>(pack + ((size_t)b * C + c) * S + w0) = out;
+    *reinterpret_cast<uint2*>(pack + (b * C + c) * S + w0) = out;
   }
 }
 
-template <class Op>
-int launch(void* perm, const void* delta, const int* cols, uint8_t* pack,
-           int B, int C, int I_pad, int A, Op op, int device,
+template <class Op, bool GMEM, bool FOLD>
+int launch(void* perm, const void* delta, const int* cols, uint32_t* col_bms,
+           uint8_t* pack, int B, int C, int I_pad, int A, Op op,
            cudaStream_t stream) {
-  bithtm::DeviceGuard guard(device);
-  if (int err = guard.error()) return err;
-  const size_t smem = (size_t)I_pad * 4 + ((size_t)C + 31) / 32 * 4;
-  if (smem > bithtm::kMaxShared) return (int)cudaErrorInvalidValue;
-  auto kernel = sp_update_pack_kernel<Op>;
-  if (int err = bithtm::allow_shared(
-          kernel, smem > 48 * 1024 ? bithtm::kMaxShared : smem))
-    return err;
+  auto kernel = sp_update_pack_kernel<Op, GMEM, FOLD>;
+  size_t smem = 0;
+  if constexpr (GMEM) {
+    if (B > 0)
+      build_column_bitmaps_kernel<<<B, kThreads, 0, stream>>>(col_bms, cols,
+                                                              C, A);
+    if (int err = (int)cudaGetLastError()) return err;
+  } else {
+    smem = (size_t)I_pad * 4 + (size_t)column_words(C) * 4;
+    if (smem > bithtm::kMaxShared) return (int)cudaErrorInvalidValue;
+    if (int err = bithtm::allow_shared(
+            kernel, smem > 48 * 1024 ? bithtm::kMaxShared : smem))
+      return err;
+  }
   const long long n_groups = (long long)C * (I_pad / 8 / kVec);
-  dim3 grid((unsigned)((n_groups + kGroupsPerBlock - 1) / kGroupsPerBlock),
-            B);
+  const int per_stream =
+      (int)((n_groups + kGroupsPerBlock - 1) / kGroupsPerBlock);
+  const dim3 grid = FOLD ? dim3((unsigned)((size_t)per_stream * B), 1)
+                         : dim3(per_stream, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<typename Op::T*>(perm),
-      static_cast<const typename Op::D*>(delta), cols, pack, C, I_pad, A, op);
+      static_cast<const typename Op::D*>(delta), cols, col_bms, pack, C,
+      I_pad, A, per_stream, op);
   return (int)cudaGetLastError();
+}
+
+template <class Op>
+int dispatch(void* perm, const void* delta, const int* cols,
+             uint32_t* col_bms, uint8_t* pack, int B, int C, int I_pad, int A,
+             int fold, Op op, cudaStream_t s) {
+  return bithtm::with_bool(col_bms != nullptr, [&](auto gmem) {
+    return bithtm::with_bool(fold != 0, [&](auto folded) {
+      return launch<Op, decltype(gmem)::value, decltype(folded)::value>(
+          perm, delta, cols, col_bms, pack, B, C, I_pad, A, op, s);
+    });
+  });
 }
 
 }  // namespace
 
 // perm (B, C, I_pad) int16 (quantized) or float32, updated in place;
 // delta (B, I_pad) int32 (quantized) or float32; cols (B, A) int32;
-// pack (B, C, I_pad / 8) u8. I_pad is a multiple of 1024, every pointer
-// 16-byte aligned, B <= 65535 and 4 * I_pad + ceil(C / 32) * 4 <=
-// 232,448 bytes (the delta row and the column bitmap in shared memory).
-// Launches on the given stream of the given device, allocates nothing and
-// returns cudaGetLastError() after the launch (0 = success).
+// pack (B, C, I_pad / 8) u8. I_pad is a multiple of 1024 and every
+// pointer 16-byte aligned. col_bitmaps: null to stage the delta row and
+// the active-column bitmap in shared memory (4 * I_pad + ceil(C / 32) * 4
+// <= 232,448 bytes), else a scratch of B * ceil(C / 32) words that
+// receives the streams' active-column bitmaps first (the GMEM path);
+// fold != 0 puts the streams in grid x (B > 65,535). Launches on the
+// given stream of the given device, allocates nothing and returns
+// cudaGetLastError() after the launch (0 = success).
 extern "C" int sp_update_pack(void* perm, const void* delta, const int* cols,
-                              uint8_t* pack, int B, int C, int I_pad, int A,
-                              int quantized, float threshold_f,
-                              int threshold_i, int device, void* stream) {
+                              uint32_t* col_bitmaps, uint8_t* pack, int B,
+                              int C, int I_pad, int A, int quantized,
+                              float threshold_f, int threshold_i, int fold,
+                              int device, void* stream) {
   if (I_pad % 1024 != 0) return (int)cudaErrorInvalidValue;
+  bithtm::DeviceGuard guard(device);
+  if (int err = guard.error()) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (quantized)
-    return launch(perm, delta, cols, pack, B, C, I_pad, A,
-                  Int16Units{threshold_i}, device, s);
-  return launch(perm, delta, cols, pack, B, C, I_pad, A,
-                Float32{threshold_f}, device, s);
+    return dispatch(perm, delta, cols, col_bitmaps, pack, B, C, I_pad, A,
+                    fold, Int16Units{threshold_i}, s);
+  return dispatch(perm, delta, cols, col_bitmaps, pack, B, C, I_pad, A, fold,
+                  Float32{threshold_f}, s);
 }

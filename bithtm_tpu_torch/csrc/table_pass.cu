@@ -50,36 +50,53 @@
 // where D % 32 == 0 (A*W operations, not A*D); and a permanence written
 // back only where its group of slots was punished.
 
+// Two more paths, chosen by the wrapper from the shapes (ops/kernels.py):
+//   - past the shared memory a block may hold (column_dim*D > 1,859,584
+//     cells), the bitmap of each stream is built once into global memory
+//     and read through the read-only cache (GLOBAL; active_bitmap.cuh);
+//   - the packed activity v and act_prev in the type ops/active_set.py
+//     `act_dtype` gives K (BYTES: u8 at K <= 125, bf16 at K = 126-127,
+//     float32 from K = 128), as the plain versions hold it.
+// The shared-memory u8 kernel at the main path's shapes is the one it was.
+
 #include "active_bitmap.cuh"
 #include "launch.cuh"
 
 namespace {
 
+using bithtm::Act;
 using bithtm::cell_active;
+using bithtm::Quad;
 
-
-__device__ __forceinline__ uint8_t slot_value(
+template <bool GLOBAL, int BYTES>
+__device__ __forceinline__ typename Act<BYTES>::T slot_value(
     const uint32_t* bm, int syn, float p, int n_cells, float threshold,
     int scale) {
-  const bool act = p >= 0.0f && cell_active(bm, syn, n_cells);
-  return act ? static_cast<uint8_t>(p >= threshold ? 1 + scale : 1) : 0;
+  const bool act = p >= 0.0f && cell_active<GLOBAL>(bm, syn, n_cells);
+  return Act<BYTES>::value(act ? (p >= threshold ? 1 + scale : 1) : 0);
 }
 
-// PUNISH selects table_update (punish, write perm) over act_conn.
-template <bool PUNISH, int VEC, int THREADS>
+// PUNISH selects table_update (punish, write perm) over act_conn. GLOBAL:
+// bms holds every stream's bitmap (build_bitmaps), else the block builds
+// them in shared memory. BYTES: the activity type (Act).
+template <bool PUNISH, int VEC, int THREADS, bool GLOBAL, int BYTES>
 __global__ void __launch_bounds__(THREADS) table_pass_kernel(
     const int* __restrict__ syn, float* __restrict__ perm,
-    const uint8_t* __restrict__ act_prev, const int* __restrict__ pun_word,
-    const int* __restrict__ cols, const int* __restrict__ bits,
-    uint8_t* __restrict__ v_out, int B, int C, int column_dim, int J, int A,
-    int W, int D, int K, float punishment, float threshold, int scale) {
+    const typename Act<BYTES>::T* __restrict__ act_prev,
+    const int* __restrict__ pun_word, const int* __restrict__ cols,
+    const int* __restrict__ bits, uint32_t* __restrict__ bms,
+    typename Act<BYTES>::T* __restrict__ v_out, int B, int C,
+    int column_dim, int J, int A, int W, int D, int K, float punishment,
+    float threshold, int scale) {
+  using T = typename Act<BYTES>::T;
   // groups of VEC slots a thread keeps in flight: two in a wide block,
   // which runs alone on its SM; one where several narrow blocks share it
   constexpr int kUnroll = THREADS == bithtm::kWideThreads ? 2 : 1;
-  extern __shared__ __align__(16) uint32_t bm[];
+  extern __shared__ __align__(16) uint32_t smem_bm[];
   const int n_cells = column_dim * D;
-  bithtm::walk_rows(bm, B, C, cols, bits, A, W, column_dim, D,
-                    [&](int b, int lo, int hi) {
+  bithtm::walk_rows<GLOBAL>(GLOBAL ? bms : smem_bm, B, C, cols, bits, A, W,
+                            column_dim, D,
+                            [&](const uint32_t* bm, int b, int lo, int hi) {
     // the stream's slots [lo*J, hi*J), as offsets from its first slot
     const size_t base = (size_t)b * C * J;
     const int* pw_row = pun_word + (size_t)b * C;
@@ -88,7 +105,7 @@ __global__ void __launch_bounds__(THREADS) table_pass_kernel(
          s0 += THREADS * VEC * kUnroll) {
       int sy[kUnroll][VEC];
       float p[kUnroll][VEC];
-      uint8_t ap[kUnroll][VEC];
+      T ap[kUnroll][VEC];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int s = s0 + u * THREADS * VEC;
@@ -100,9 +117,9 @@ __global__ void __launch_bounds__(THREADS) table_pass_kernel(
           sy[u][0] = s4.x; sy[u][1] = s4.y; sy[u][2] = s4.z; sy[u][3] = s4.w;
           p[u][0] = p4.x; p[u][1] = p4.y; p[u][2] = p4.z; p[u][3] = p4.w;
           if constexpr (PUNISH) {
-            const uchar4 a4 = *reinterpret_cast<const uchar4*>(act_prev + i);
-            ap[u][0] = a4.x; ap[u][1] = a4.y; ap[u][2] = a4.z;
-            ap[u][3] = a4.w;
+            const Quad<T> a4 = *reinterpret_cast<const Quad<T>*>(act_prev + i);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ap[u][e] = a4.e[e];
           }
         } else {
           sy[u][0] = syn[i];
@@ -123,61 +140,108 @@ __global__ void __launch_bounds__(THREADS) table_pass_kernel(
 #pragma unroll
           for (int e = 0; e < VEC; ++e) {
             const int g = (j0 + e) / K;
-            if (((pw >> g) & 1u) && ap[u][e] != 0) {
+            if (((pw >> g) & 1u) && Act<BYTES>::nonzero(ap[u][e])) {
               p[u][e] = __fsub_rn(p[u][e], punishment);
               punished = true;
             }
           }
         }
-        uint8_t v[VEC];
+        Quad<T> v;
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
-          v[e] = slot_value(bm, sy[u][e], p[u][e], n_cells, threshold, scale);
+          v.e[e] = slot_value<GLOBAL, BYTES>(bm, sy[u][e], p[u][e], n_cells,
+                                             threshold, scale);
         if constexpr (VEC == 4) {
           if (punished)
             *reinterpret_cast<float4*>(perm + i) =
                 make_float4(p[u][0], p[u][1], p[u][2], p[u][3]);
-          *reinterpret_cast<uchar4*>(v_out + i) =
-              make_uchar4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<Quad<T>*>(v_out + i) = v;
         } else {
           if (punished) perm[i] = p[u][0];
-          v_out[i] = v[0];
+          v_out[i] = v.e[0];
         }
       }
     }
   });
 }
 
-template <bool PUNISH, int VEC>
+template <bool PUNISH, int VEC, bool GLOBAL, int BYTES>
 int grid_for(int C, int D, int device, bithtm::Grid* grid) {
   return bithtm::range_grid(
-      table_pass_kernel<PUNISH, VEC, bithtm::kThreads>,
-      table_pass_kernel<PUNISH, VEC, bithtm::kWideThreads>,
-      bithtm::bitmap_bytes(C, D), device, grid);
+      table_pass_kernel<PUNISH, VEC, bithtm::kThreads, GLOBAL, BYTES>,
+      table_pass_kernel<PUNISH, VEC, bithtm::kWideThreads, GLOBAL, BYTES>,
+      GLOBAL ? 0 : bithtm::bitmap_bytes(C, D), device, grid);
 }
 
-template <bool PUNISH, int VEC>
-int launch(const int* syn, float* perm, const uint8_t* act_prev,
+template <bool PUNISH, int VEC, bool GLOBAL, int BYTES>
+int launch(const int* syn, float* perm, const void* act_prev,
            const int* pun_word, const int* cols, const int* bits,
-           uint8_t* v_out, int B, int C, int column_dim, int J, int A, int W,
-           int D, int K, float punishment, float threshold, int scale,
-           int device, cudaStream_t stream) {
+           uint32_t* bms, void* v_out, int B, int C, int column_dim, int J,
+           int A, int W, int D, int K, float punishment, float threshold,
+           int scale, int device, cudaStream_t stream) {
+  using T = typename Act<BYTES>::T;
   bithtm::DeviceGuard guard(device);
   if (int err = guard.error()) return err;
   bithtm::Grid g;
-  if (int err = grid_for<PUNISH, VEC>(column_dim, D, device, &g)) return err;
-  const size_t smem = bithtm::bitmap_bytes(column_dim, D);
+  if (int err = grid_for<PUNISH, VEC, GLOBAL, BYTES>(column_dim, D, device,
+                                                     &g))
+    return err;
+  size_t smem = 0;
+  if constexpr (GLOBAL) {
+    if (int err = bithtm::build_bitmaps(bms, cols, bits, B, A, W, column_dim,
+                                        D, stream))
+      return err;
+  } else {
+    smem = bithtm::bitmap_bytes(column_dim, D);
+    if (smem > bithtm::kMaxShared) return (int)cudaErrorInvalidValue;
+  }
+  const T* ap = static_cast<const T*>(act_prev);
+  T* v = static_cast<T*>(v_out);
   if (g.threads == bithtm::kWideThreads)
-    table_pass_kernel<PUNISH, VEC, bithtm::kWideThreads>
+    table_pass_kernel<PUNISH, VEC, bithtm::kWideThreads, GLOBAL, BYTES>
         <<<g.blocks, g.threads, smem, stream>>>(
-            syn, perm, act_prev, pun_word, cols, bits, v_out, B, C,
-            column_dim, J, A, W, D, K, punishment, threshold, scale);
+            syn, perm, ap, pun_word, cols, bits, bms, v, B, C, column_dim, J,
+            A, W, D, K, punishment, threshold, scale);
   else
-    table_pass_kernel<PUNISH, VEC, bithtm::kThreads>
+    table_pass_kernel<PUNISH, VEC, bithtm::kThreads, GLOBAL, BYTES>
         <<<g.blocks, g.threads, smem, stream>>>(
-            syn, perm, act_prev, pun_word, cols, bits, v_out, B, C,
-            column_dim, J, A, W, D, K, punishment, threshold, scale);
+            syn, perm, ap, pun_word, cols, bits, bms, v, B, C, column_dim, J,
+            A, W, D, K, punishment, threshold, scale);
   return (int)cudaGetLastError();
+}
+
+// The instantiation for (J % 4 == 0, a global bitmap, the activity's
+// bytes), each picked at run time.
+template <bool PUNISH>
+int dispatch(const int* syn, float* perm, const void* act_prev,
+             const int* pun_word, const int* cols, const int* bits,
+             uint32_t* bms, void* v_out, int B, int C, int column_dim, int J,
+             int A, int W, int D, int K, float punishment, float threshold,
+             int scale, int act_bytes, int device, cudaStream_t s) {
+  return bithtm::with_vec(J, [&](auto vec) {
+    return bithtm::with_bool(bms != nullptr, [&](auto global) {
+      return bithtm::with_bytes(act_bytes, [&](auto bytes) {
+        return launch<PUNISH, decltype(vec)::value, decltype(global)::value,
+                      decltype(bytes)::value>(
+            syn, perm, act_prev, pun_word, cols, bits, bms, v_out, B, C,
+            column_dim, J, A, W, D, K, punishment, threshold, scale, device,
+            s);
+      });
+    });
+  });
+}
+
+template <bool PUNISH>
+int grid_dispatch(int C, int J, int D, int global, int act_bytes, int device,
+                  bithtm::Grid* g) {
+  return bithtm::with_vec(J, [&](auto vec) {
+    return bithtm::with_bool(global != 0, [&](auto glob) {
+      return bithtm::with_bytes(act_bytes, [&](auto bytes) {
+        return grid_for<PUNISH, decltype(vec)::value, decltype(glob)::value,
+                        decltype(bytes)::value>(C, D, device, g);
+      });
+    });
+  });
 }
 
 }  // namespace
@@ -188,55 +252,51 @@ int launch(const int* syn, float* perm, const uint8_t* act_prev,
 // aligned; cols (B, A) and bits (B, A, W) int32. The bitmap spans
 // column_dim*D cells: column_dim is C for a whole table, and the global
 // column count for a column shard of C rows (a model-parallel rank's),
-// whose synapses may target cells of any shard.
+// whose synapses may target cells of any shard. bitmaps: null for the
+// shared-memory bitmap, else a scratch of B * bitmap_stride(column_dim,
+// D) words (16-byte aligned) that receives every stream's bitmap first.
+// act_prev and v_out hold the packed activity in act_bytes bytes a value
+// (1: u8, 2: bf16, 4: float32).
 extern "C" int table_update(const int* syn, float* perm,
-                            const uint8_t* act_prev, const int* pun_word,
+                            const void* act_prev, const int* pun_word,
                             const int* cols, const int* bits,
-                            uint8_t* v_out, int B, int C, int column_dim,
-                            int J, int A, int W, int D, int K,
-                            float punishment, float threshold, int scale,
-                            int device, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (J % 4 == 0)
-    return launch<true, 4>(syn, perm, act_prev, pun_word, cols, bits, v_out,
-                           B, C, column_dim, J, A, W, D, K, punishment,
-                           threshold, scale, device, s);
-  return launch<true, 1>(syn, perm, act_prev, pun_word, cols, bits, v_out,
-                         B, C, column_dim, J, A, W, D, K, punishment,
-                         threshold, scale, device, s);
+                            uint32_t* bitmaps, void* v_out, int B, int C,
+                            int column_dim, int J, int A, int W, int D,
+                            int K, float punishment, float threshold,
+                            int scale, int act_bytes, int device,
+                            void* stream) {
+  return dispatch<true>(syn, perm, act_prev, pun_word, cols, bits, bitmaps,
+                        v_out, B, C, column_dim, J, A, W, D, K, punishment,
+                        threshold, scale, act_bytes, device,
+                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int act_conn(const int* syn, const float* perm, const int* cols,
-                        const int* bits, uint8_t* v_out, int B, int C,
-                        int column_dim, int J, int A, int W, int D, int K,
-                        float threshold, int scale, int device,
-                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                        const int* bits, uint32_t* bitmaps, void* v_out,
+                        int B, int C, int column_dim, int J, int A, int W,
+                        int D, int K, float threshold, int scale,
+                        int act_bytes, int device, void* stream) {
   float* p = const_cast<float*>(perm);  // read only: PUNISH is false
-  if (J % 4 == 0)
-    return launch<false, 4>(syn, p, nullptr, nullptr, cols, bits, v_out, B,
-                            C, column_dim, J, A, W, D, K, 0.0f, threshold,
-                            scale, device, s);
-  return launch<false, 1>(syn, p, nullptr, nullptr, cols, bits, v_out, B, C,
-                          column_dim, J, A, W, D, K, 0.0f, threshold, scale,
-                          device, s);
+  return dispatch<false>(syn, p, nullptr, nullptr, cols, bits, bitmaps,
+                         v_out, B, C, column_dim, J, A, W, D, K, 0.0f,
+                         threshold, scale, act_bytes, device,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The grid that table_update (punish != 0) or act_conn launches for a
-// table of rows of J slots over a bitmap of C*D cells on `device`: blocks
-// and threads a block. Returns a cudaError_t as int (0 = success).
-extern "C" int table_pass_grid(int punish, int C, int J, int D, int device,
-                               int* blocks, int* threads) {
+// table of rows of J slots over a bitmap of C*D cells on `device`, with
+// the bitmap in global memory (global != 0) or shared memory and the
+// activity in act_bytes bytes a value: blocks and threads a block.
+// Returns a cudaError_t as int (0 = success).
+extern "C" int table_pass_grid(int punish, int C, int J, int D, int global,
+                               int act_bytes, int device, int* blocks,
+                               int* threads) {
   bithtm::DeviceGuard guard(device);
   if (int err = guard.error()) return err;
   bithtm::Grid g;
-  int err;
-  if (punish)
-    err = J % 4 == 0 ? grid_for<true, 4>(C, D, device, &g)
-                     : grid_for<true, 1>(C, D, device, &g);
-  else
-    err = J % 4 == 0 ? grid_for<false, 4>(C, D, device, &g)
-                     : grid_for<false, 1>(C, D, device, &g);
+  const int err =
+      punish ? grid_dispatch<true>(C, J, D, global, act_bytes, device, &g)
+             : grid_dispatch<false>(C, J, D, global, act_bytes, device, &g);
   *blocks = g.blocks;
   *threads = g.threads;
   return err;

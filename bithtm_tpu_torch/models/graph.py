@@ -312,6 +312,11 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     return _STREAMS[device]
 
 
+def _path_counts() -> dict:
+    """Each kernel's launches by path, a copy."""
+    return {k: dict(k.paths) for k in kernels.KERNELS}
+
+
 class _Graph:
     """One step over a lineage's buffers at a fixed key: the input and
     output blocks, the counter, and on the card the captured graph and
@@ -353,7 +358,7 @@ class _Graph:
         allocate the output blocks, and on the card capture the step.
         Leaves the draw providers' generators and the launch counts as
         they were."""
-        before = kernels.launch_counts()
+        before = _path_counts()
         try:
             gens = [(p, p.get_state()) for p in providers(self.draws)]
             scratch = unflatten(self.spec, [b.clone() for b in self.bufs])
@@ -371,25 +376,33 @@ class _Graph:
                 self._capture()
         finally:
             for k in kernels.KERNELS:
-                k.launches = before[k.name]
+                k.paths = before[k]
 
     def _capture(self) -> None:
         """Captures `step_into_buffers` on the device's capture stream,
         with Python's cycle collector off and released lineages held, so
         that no graph is destroyed during the capture. Unlike
         `torch.cuda.graph` it neither synchronizes nor empties the
-        allocator's cache: nothing runs while a graph captures."""
+        allocator's cache. One thing does run on the capture stream:
+        `capture_begin` resets the device-side seed and offset that the
+        replays of every graph registered with the same generator read,
+        so the capture stream first waits for the current stream (whose
+        replays of another graph may still be running), and the current
+        stream then waits for the capture stream (whose reset must land
+        before the next replay sets them)."""
         global _HELD
         collecting = gc.isenabled()
         gc.disable()
         _HELD = []
+        capture = _capture_stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        capture.wait_stream(current)
         try:
-            with torch.cuda.device(self.device), \
-                    torch.cuda.stream(_capture_stream(self.device)):
+            with torch.cuda.device(self.device), torch.cuda.stream(capture):
                 graph = torch.cuda.CUDAGraph()
                 for p in providers(self.draws):
                     p.register_with(graph)
-                mid = kernels.launch_counts()
+                mid = _path_counts()
                 graph.capture_begin(pool=self.pool,
                                     capture_error_mode="thread_local")
                 try:
@@ -399,15 +412,17 @@ class _Graph:
                         graph.capture_end()
                     raise
                 graph.capture_end()
-                after = kernels.launch_counts()
+                after = _path_counts()
+            current.wait_stream(capture)
         finally:
             held, _HELD = _HELD, None
             if collecting:
                 gc.enable()
             del held
-        self.launches = [(k, after[k.name] - mid[k.name])
+        self.launches = [(k, path, n - mid[k].get(path, 0))
                          for k in kernels.KERNELS
-                         if after[k.name] > mid[k.name]]
+                         for path, n in after[k].items()
+                         if n > mid[k].get(path, 0)]
         self.graph = graph
 
     def run(self, n: int) -> None:
@@ -420,8 +435,8 @@ class _Graph:
             return
         for _ in range(n):
             self.graph.replay()
-            for k, c in self.launches:
-                k.launches += c
+            for k, path, c in self.launches:
+                k.paths[path] = k.paths.get(path, 0) + c
 
 
 def scan(key, step, state, xs, consts=None, draws=None):

@@ -30,6 +30,7 @@ from ..config import HTMConfig
 from ..ops.shard import ColumnShard
 from ..rng import TorchDraws
 from ..state import HTMState
+from ..utils.profiling import site
 from . import graph
 from .spatial_pooler import SPOutput, sp_step
 from .temporal_memory import COLUMN_SUMS, TMOutput, tm_resume, tm_step
@@ -125,7 +126,8 @@ def htm_step(cfg: HTMConfig, state: HTMState, input_bits: torch.Tensor,
                          "hook")
     if draws is None:
         draws = TorchDraws(cfg.tm, B, state.tm.step.device)
-    step_draws = draws.step(need=learning or compute_winner)
+    with site("htm_step.draws"):
+        step_draws = draws.step(need=learning or compute_winner)
     sp_state, sp_out = sp_step(cfg.sp, state.sp, input_bits, learning,
                                boosting=boosting, inhibition=inhibition,
                                overlap=overlap,
@@ -144,9 +146,10 @@ def htm_step(cfg: HTMConfig, state: HTMState, input_bits: torch.Tensor,
         tm_state, tm_out = temporal_memory(
             cfg.tm, state.tm, step_draws, sp_out.active_columns, learning,
             compute_winner)
+    with site("htm_step.metrics"):
+        metrics = _step_metrics(cfg, sp_out, tm_out, shard)
     return (HTMState(sp=sp_state, tm=tm_state),
-            HTMOutput(sp_out, tm_out,
-                      _step_metrics(cfg, sp_out, tm_out, shard)))
+            HTMOutput(sp_out, tm_out, metrics))
 
 
 def htm_step_batch(cfg: HTMConfig, state: HTMState,

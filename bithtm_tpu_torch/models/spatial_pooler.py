@@ -31,6 +31,7 @@ from ..ops.overlap import overlaps as _overlaps, pack_input
 from ..ops.regularization import boost, duty_cycle_update, k_winners
 from ..ops.shard import ColumnShard
 from ..state import SPState
+from ..utils.profiling import site
 
 
 class SPOutput(NamedTuple):
@@ -139,25 +140,47 @@ def sp_step(cfg: SPConfig, state: SPState, input_bits: torch.Tensor,
     if shard is not None and any(h is not None for h in (
             boosting, inhibition, overlap, proximal_update)):
         raise ValueError("the column-sharded SP step takes no hooks")
-    if overlap is None:
-        ov = _overlaps(state.connected, input_bits)
-    else:
-        ov = overlap(cfg, state, input_bits)
-    if boosting is None:
-        boosted = boost(ov, state.duty_cycle, cfg.boosting_intensity,
-                        cfg.density)
-    else:
-        boosted = boosting(cfg, ov, state.duty_cycle)
+    with site("sp_step.overlap"):
+        if overlap is None:
+            ov = _overlaps(state.connected, input_bits)
+        else:
+            ov = overlap(cfg, state, input_bits)
+    with site("sp_step.boost"):
+        if boosting is None:
+            boosted = boost(ov, state.duty_cycle, cfg.boosting_intensity,
+                            cfg.density)
+        else:
+            boosted = boosting(cfg, ov, state.duty_cycle)
+    with site("sp_step.k_winners"):
+        active_columns, active_mask = _inhibit(cfg, boosted, inhibition,
+                                               shard)
+    with site("sp_step.update"):
+        permanence, connected = _update(cfg, state, input_bits, learning,
+                                        active_columns, proximal_update,
+                                        shard)
+    with site("sp_step.duty_cycle"):
+        duty = duty_cycle_update(state.duty_cycle, active_mask,
+                                 cfg.duty_cycle_momentum)
+    new_state = SPState(permanence=permanence, connected=connected,
+                        duty_cycle=duty)
+    return new_state, SPOutput(active_columns, active_mask, ov, boosted)
+
+
+def _inhibit(cfg: SPConfig, boosted, inhibition, shard):
+    """`sp_step`'s global inhibition: ((B, A) columns, (B, C) mask)."""
     if shard is not None:
         # the global inhibition, over every rank's columns in global order
         active_columns, active_mask = k_winners(
             shard.gather_columns(boosted), cfg.active_columns)
-        active_mask = active_mask[:, shard.lo:shard.hi]
-    elif inhibition is None:
-        active_columns, active_mask = k_winners(boosted, cfg.active_columns)
-    else:
-        active_columns, active_mask = inhibition(cfg, boosted)
+        return active_columns, active_mask[:, shard.lo:shard.hi]
+    if inhibition is None:
+        return k_winners(boosted, cfg.active_columns)
+    return inhibition(cfg, boosted)
 
+
+def _update(cfg: SPConfig, state: SPState, input_bits, learning: bool,
+            active_columns, proximal_update, shard):
+    """`sp_step`'s learning: the new (permanence, connected) tables."""
     permanence, connected = state.permanence, state.connected
     if learning and proximal_update is not None:
         permanence, connected = proximal_update(cfg, state, input_bits,
@@ -177,9 +200,4 @@ def sp_step(cfg: SPConfig, state: SPState, input_bits: torch.Tensor,
                     1, idx[:, :, None].expand(-1, -1, new.shape[-1]), new)
             else:
                 shard.put_rows(table, active_columns, new)
-
-    duty = duty_cycle_update(state.duty_cycle, active_mask,
-                             cfg.duty_cycle_momentum)
-    new_state = SPState(permanence=permanence, connected=connected,
-                        duty_cycle=duty)
-    return new_state, SPOutput(active_columns, active_mask, ov, boosted)
+    return permanence, connected

@@ -74,6 +74,7 @@ from ..ops.serving import ServingTable, serving_counts
 from ..ops.shard import ColumnShard
 from ..rng import Draws
 from ..state import TMState
+from ..utils.profiling import site
 
 # the index-keyed growth key (above 2^16 cells) holds the candidate's
 # list index below bit 30; invalid keys sort last
@@ -398,8 +399,9 @@ def _learn(cfg: TMConfig, state: TMState, take, put, draws: Draws,
 
     # segment allocation for unaccounted winners (recycle first)
     unacc = winner_rows & (cell_max_j < cfg.epsilon) & has_prev
-    new_seg, new_owner, n_dropped, n_evicted = _allocate(
-        cfg, segcell_rows, syn_rows, match_rows, unacc)
+    with site("tm_step._learn/_allocate"):
+        new_seg, new_owner, n_dropped, n_evicted = _allocate(
+            cfg, segcell_rows, syn_rows, match_rows, unacc)
     segcell_rows = torch.where(new_seg, new_owner, segcell_rows)
     syn_rows = torch.where(new_seg[..., None], -1, syn_rows)
     perm_rows = torch.where(new_seg[..., None], -1.0, perm_rows)
@@ -414,10 +416,11 @@ def _learn(cfg: TMConfig, state: TMState, take, put, draws: Draws,
     syn_rows = torch.where(dead_rows, -1, syn_rows)
     perm_rows = torch.where(dead_rows, -1.0, perm_rows)
 
-    (syn_rows, perm_rows, wrote, n_grown, overflow, winners_dropped,
-     growth_dropped) = _grow(cfg, draws.rnd, syn_rows, perm_rows,
-                             learn_rows, act_prev_rows, state.active_cols,
-                             state.winner_bits)
+    with site("tm_step._learn/_grow"):
+        (syn_rows, perm_rows, wrote, n_grown, overflow, winners_dropped,
+         growth_dropped) = _grow(cfg, draws.rnd, syn_rows, perm_rows,
+                                 learn_rows, act_prev_rows,
+                                 state.active_cols, state.winner_bits)
 
     # write the rows back (the punishment pass touches only other columns)
     put(state.synapse_cell, active_cols, syn_rows.reshape(B, A, -1))
@@ -571,56 +574,62 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
     B, A = active_cols.shape
     if (learning or compute_winner) and draws is None:
         raise ValueError("a learning or winner-computing step needs draws")
-    active_cols = torch.sort(active_cols.to(torch.int32), dim=-1).values
+    with site("tm_step.prepare"):
+        active_cols = torch.sort(active_cols.to(torch.int32), dim=-1).values
 
-    prev_prediction = state.prediction                          # (B, W, C)
-    W = prev_prediction.shape[1]
-    if shard is None:
-        pred_words = prev_prediction.gather(
-            2, active_cols.long()[:, None, :].expand(B, W, A))
+        prev_prediction = state.prediction                      # (B, W, C)
+        W = prev_prediction.shape[1]
+        if shard is None:
+            pred_words = prev_prediction.gather(
+                2, active_cols.long()[:, None, :].expand(B, W, A))
 
-        def take(leaf):
-            return _rows(getattr(state, leaf), active_cols)
+            def take(leaf):
+                return _rows(getattr(state, leaf), active_cols)
 
-        put = _put_rows
-        if col_active is None:
-            col_active = column_mask_from_cols(active_cols, C)
-    else:
-        # the active rows this step reads, from their owners at once
-        leaves = ((("synapse_act", "seg_cell") if learning or compute_winner
-                   else ()) + (("synapse_cell", "synapse_perm")
-                               if learning else ()))
-        pred_words, *got = shard.rows(
-            active_cols,
-            [prev_prediction, *(getattr(state, n) for n in leaves)],
-            [2] + [1] * len(leaves))
-        take = dict(zip(leaves, got)).__getitem__
-        put = shard.put_rows
-        if col_active is None:
-            col_active = shard.column_mask(active_cols)
-    pred_rows = unpack_bits(pred_words.transpose(1, 2), D)      # (B, A, D)
+            put = _put_rows
+            if col_active is None:
+                col_active = column_mask_from_cols(active_cols, C)
+        else:
+            # the active rows this step reads, from their owners at once
+            leaves = ((("synapse_act", "seg_cell")
+                       if learning or compute_winner else ())
+                      + (("synapse_cell", "synapse_perm")
+                         if learning else ()))
+            pred_words, *got = shard.rows(
+                active_cols,
+                [prev_prediction, *(getattr(state, n) for n in leaves)],
+                [2] + [1] * len(leaves))
+            take = dict(zip(leaves, got)).__getitem__
+            put = shard.put_rows
+            if col_active is None:
+                col_active = shard.column_mask(active_cols)
+        pred_rows = unpack_bits(pred_words.transpose(1, 2), D)  # (B, A, D)
 
-    if learning or compute_winner:
-        col_burst, winner_rows, cell_max_j, seg_j = _winner_selection(
-            cfg, take, draws, active_cols, pred_rows)
-    else:
-        col_burst = ~pred_rows.any(-1)
-        winner_rows = torch.zeros_like(pred_rows)
+    with site("tm_step.winner_selection"):
+        if learning or compute_winner:
+            col_burst, winner_rows, cell_max_j, seg_j = _winner_selection(
+                cfg, take, draws, active_cols, pred_rows)
+        else:
+            col_burst = ~pred_rows.any(-1)
+            winner_rows = torch.zeros_like(pred_rows)
 
     # activation: predicted cells + whole bursting columns
-    act_rows = pred_rows | col_burst[..., None]
-    act_bits = pack_bits(act_rows)                              # (B, A, W)
+    with site("tm_step.activation"):
+        act_rows = pred_rows | col_burst[..., None]
+        act_bits = pack_bits(act_rows)                          # (B, A, W)
 
     debug = None
     if learning:
-        seg_cell, learn_metrics, debug = _learn(
-            cfg, state, take, put, draws, active_cols, pred_rows,
-            winner_rows, cell_max_j, seg_j, return_debug)
+        with site("tm_step._learn"):
+            seg_cell, learn_metrics, debug = _learn(
+                cfg, state, take, put, draws, active_cols, pred_rows,
+                winner_rows, cell_max_j, seg_j, return_debug)
         # punish the matching segments of inactive columns
         # (projections.py:269,290-293), fused into the table pass
-        pun_word = torch.where(
-            col_active | (state.step <= 0)[:, None], 0,
-            state.matching_word)
+        with site("tm_step.punish"):
+            pun_word = torch.where(
+                col_active | (state.step <= 0)[:, None], 0,
+                state.matching_word)
         (perm_full, act_now, _, _, matching, _,
          prediction) = table_update(
             state.synapse_cell, state.synapse_perm, state.synapse_act,
@@ -628,26 +637,30 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             cfg.permanence_punishment, cfg.permanence_threshold,
             cfg.segment_matching_threshold,
             cfg.segment_activation_threshold, column_dim=C)
-        if detailed_metrics:
-            learn_metrics["tm_punished_segments"] = popcount32(
-                pun_word).sum(-1, dtype=torch.int32)
-            learn_metrics["tm_punished_columns"] = (pun_word != 0).sum(
-                -1, dtype=torch.int32)
-        if return_debug:
-            g = torch.arange(G, dtype=torch.int32, device=pun_word.device)
-            debug["punished_segments"] = (
-                (pun_word[..., None] >> g) & 1) != 0
+        with site("tm_step.punish"):
+            if detailed_metrics:
+                learn_metrics["tm_punished_segments"] = popcount32(
+                    pun_word).sum(-1, dtype=torch.int32)
+                learn_metrics["tm_punished_columns"] = (pun_word != 0).sum(
+                    -1, dtype=torch.int32)
+            if return_debug:
+                g = torch.arange(G, dtype=torch.int32,
+                                 device=pun_word.device)
+                debug["punished_segments"] = (
+                    (pun_word[..., None] >> g) & 1) != 0
     elif serving_table is not None:
         # compact serving forward: connected-only counts. seg_active is
         # exact (connected-active >= theta_a implies potential >= theta_a
         # >= theta_m); matching holds the connected-matching flags
         perm_full, seg_cell, learn_metrics = (
             state.synapse_perm, state.seg_cell, {})
-        conn_cnt = serving_counts(serving_table, active_cols, act_bits, C,
-                                  D, G)                         # (B, C, G)
-        matching = conn_cnt >= cfg.segment_matching_threshold
-        seg_active = conn_cnt >= cfg.segment_activation_threshold
-        prediction = prediction_words(seg_cell, seg_active, D)
+        with site("tm_step.serving_counts"):
+            conn_cnt = serving_counts(serving_table, active_cols, act_bits, C,
+                                      D, G)                         # (B, C, G)
+        with site("tm_step.prediction_words"):
+            matching = conn_cnt >= cfg.segment_matching_threshold
+            seg_active = conn_cnt >= cfg.segment_activation_threshold
+            prediction = prediction_words(seg_cell, seg_active, D)
         act_now = state.synapse_act                   # passed through, stale
     else:
         # inference: the tables are frozen; only the forward pass runs
@@ -657,64 +670,70 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             act_now, potential, connected = distal_forward(
                 cfg, state, active_cols, act_bits)
         else:
-            if frozen_word is not None:
-                act_now = synapse_activation_frozen(frozen_word, active_cols,
-                                                    act_bits, D, K)
-            else:
-                act_now = synapse_activation_conn(
-                    state.synapse_cell, perm_full, active_cols, act_bits, D,
-                    cfg.permanence_threshold, K, column_dim=C)
-            potential, connected = seg_counts_packed(act_now, G, K)
-        matching = potential >= cfg.segment_matching_threshold
-        seg_active = matching & (
-            connected >= cfg.segment_activation_threshold)
-        prediction = prediction_words(seg_cell, seg_active, D)
+            with site("tm_step.table_pass"):
+                if frozen_word is not None:
+                    act_now = synapse_activation_frozen(
+                        frozen_word, active_cols, act_bits, D, K)
+                else:
+                    act_now = synapse_activation_conn(
+                        state.synapse_cell, perm_full, active_cols,
+                        act_bits, D, cfg.permanence_threshold, K,
+                        column_dim=C)
+            with site("tm_step.count_decode"):
+                potential, connected = seg_counts_packed(act_now, G, K)
+        with site("tm_step.prediction_words"):
+            matching = potential >= cfg.segment_matching_threshold
+            seg_active = matching & (
+                connected >= cfg.segment_activation_threshold)
+            prediction = prediction_words(seg_cell, seg_active, D)
 
-    new_state = TMState(
-        synapse_cell=state.synapse_cell,
-        synapse_perm=perm_full,
-        seg_cell=seg_cell,
-        active_cols=active_cols,
-        active_bits=act_bits,
-        winner_bits=pack_bits(winner_rows),
-        synapse_act=act_now,
-        prediction=prediction,
-        matching_word=pack_bits(matching)[..., 0],  # G <= 32
-        step=state.step + 1,
-    )
+    with site("tm_step.outputs"):
+        new_state = TMState(
+            synapse_cell=state.synapse_cell,
+            synapse_perm=perm_full,
+            seg_cell=seg_cell,
+            active_cols=active_cols,
+            active_bits=act_bits,
+            winner_bits=pack_bits(winner_rows),
+            synapse_act=act_now,
+            prediction=prediction,
+            matching_word=pack_bits(matching)[..., 0],  # G <= 32
+            step=state.step + 1,
+        )
 
-    metrics = {
-        "tm_bursting_columns": col_burst.sum(-1, dtype=torch.int32),
-        "tm_active_cells": act_rows.sum((1, 2), dtype=torch.int32),
-        "tm_winner_cells": winner_rows.sum((1, 2), dtype=torch.int32),
-        **learn_metrics,
-    }
-    if detailed_metrics:
-        metrics.update(
-            tm_predicted_cells=popcount32(prediction).sum(
-                (1, 2), dtype=torch.int32),
-            tm_matching_segments=matching.sum((1, 2), dtype=torch.int32),
-            tm_pool_occupancy=(seg_cell < D).sum((1, 2), dtype=torch.int32),
+        metrics = {
+            "tm_bursting_columns": col_burst.sum(-1, dtype=torch.int32),
+            "tm_active_cells": act_rows.sum((1, 2), dtype=torch.int32),
+            "tm_winner_cells": winner_rows.sum((1, 2), dtype=torch.int32),
+            **learn_metrics,
+        }
+        if detailed_metrics:
+            metrics.update(
+                tm_predicted_cells=popcount32(prediction).sum(
+                    (1, 2), dtype=torch.int32),
+                tm_matching_segments=matching.sum((1, 2), dtype=torch.int32),
+                tm_pool_occupancy=(seg_cell < D).sum((1, 2),
+                                                     dtype=torch.int32),
+            )
+        N = C * D
+        dense = {k: None for k in ("active_mask", "winner_mask", "prediction",
+                                   "prev_prediction")}
+        if dense_outputs or return_debug:
+            dense["winner_mask"] = _dense(active_cols, winner_rows,
+                                          C).reshape(B, N)
+        if dense_outputs:
+            dense.update(
+                active_mask=_dense(active_cols, act_rows, C).reshape(B, N),
+                prediction=prediction_dense(prediction, D).reshape(B, N),
+                prev_prediction=prediction_dense(prev_prediction,
+                                                 D).reshape(B, N),
+            )
+        out = TMOutput(
+            prev_col_prediction=(prev_prediction != 0).any(-2),
+            bursting_columns=_dense(active_cols, col_burst, C),
+            metrics=metrics,
+            **dense,
         )
-    N = C * D
-    dense = {k: None for k in ("active_mask", "winner_mask", "prediction",
-                               "prev_prediction")}
-    if dense_outputs or return_debug:
-        dense["winner_mask"] = _dense(active_cols, winner_rows,
-                                      C).reshape(B, N)
-    if dense_outputs:
-        dense.update(
-            active_mask=_dense(active_cols, act_rows, C).reshape(B, N),
-            prediction=prediction_dense(prediction, D).reshape(B, N),
-            prev_prediction=prediction_dense(prev_prediction,
-                                             D).reshape(B, N),
-        )
-    out = TMOutput(
-        prev_col_prediction=(prev_prediction != 0).any(-2),
-        bursting_columns=_dense(active_cols, col_burst, C),
-        metrics=metrics,
-        **dense,
-    )
     if not return_debug:
         return new_state, out
     if debug is None:   # no learning: no decision was made

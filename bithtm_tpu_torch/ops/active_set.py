@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import site
 from .bitops import wrap_u32
 
 
@@ -384,20 +385,23 @@ def table_update(syn, perm, act_prev, pun_word, cols, bits, seg_cell,
     seg_active, prediction (B, W, C))."""
     G = seg_cell.shape[-1]
     K = syn.shape[-1] // G
-    if _on_device("table_update", syn) == "cuda":
-        from .kernels import table_update_cuda
+    with site("tm_step.table_pass"):
+        if _on_device("table_update", syn) == "cuda":
+            from .kernels import table_update_cuda
 
-        act = table_update_cuda(syn, perm, act_prev, pun_word, cols, bits,
-                                cell_dim, K, punishment, perm_threshold,
-                                column_dim)
-    else:
-        act = table_update_ref(syn, perm, act_prev, pun_word, cols, bits,
-                               cell_dim, K, punishment, perm_threshold,
-                               column_dim)
-    potential, connected = seg_counts_packed(act, G, K)
-    matching = potential >= matching_threshold
-    seg_active = matching & (connected >= activation_threshold)
-    prediction = prediction_words(seg_cell, seg_active, cell_dim)
+            act = table_update_cuda(syn, perm, act_prev, pun_word, cols,
+                                    bits, cell_dim, K, punishment,
+                                    perm_threshold, column_dim)
+        else:
+            act = table_update_ref(syn, perm, act_prev, pun_word, cols,
+                                   bits, cell_dim, K, punishment,
+                                   perm_threshold, column_dim)
+    with site("tm_step.count_decode"):
+        potential, connected = seg_counts_packed(act, G, K)
+    with site("tm_step.prediction_words"):
+        matching = potential >= matching_threshold
+        seg_active = matching & (connected >= activation_threshold)
+        prediction = prediction_words(seg_cell, seg_active, cell_dim)
     return perm, act, potential, connected, matching, seg_active, prediction
 
 

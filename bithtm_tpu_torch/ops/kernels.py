@@ -8,18 +8,23 @@ linked into a plain-C shared library under ``bithtm_tpu_torch/_build``
 (keyed by a hash of the sources and flags), loaded with ctypes. Nothing
 here runs when the module is imported.
 
-Each wrapper first checks the limits that only the card has, from the
-shapes alone (`_bitmap`, `_grid_y`, `_stream_words` and the others named
-in the port section of README.md), so that they raise before any tensor
-is read; then device, dtype, shape, contiguity and alignment in one pass
-over its tensors (`_ptr`); allocates the output, and calls the C entry
-point with the tensors' device index and the raw handle of that device's
-current stream: the entry point makes the device current only if it is
-not, and launches on that stream. The wrapper raises if the launch
-reports an error and counts its launches (`launch_counts`). A kernel
-that is quick on the device (`small_table_take`, about 3 us) is bound by
-this host issue, so it holds no device context, builds no stream object
-and takes no attribute lookup on the ctypes function.
+Each wrapper first chooses its kernel's path from the shapes alone
+(`_bitmap`, `_streams`, `_act_bytes`, `_delta`: the bitmap in shared or
+in global memory, the packed activity's type, the streams in grid y or
+folded into grid x, the SP delta row staged or read from global memory;
+README.md, port section) and reports it (`CudaKernel.path`) before any
+tensor is read. Only the stream-words limit (`_stream_words`: the
+kernels index a stream's words in int32) still raises. Then it checks
+device, dtype, shape, contiguity and alignment in one pass over its
+tensors (`_ptr`); allocates the output and any scratch, and calls the C
+entry point with the tensors' device index and the raw handle of that
+device's current stream: the entry point makes the device current only
+if it is not, and launches on that stream. The wrapper raises if the
+launch reports an error and counts its launches (`launch_counts`, and
+by path `path_counts`). A kernel that is quick on the device
+(`small_table_take`, about 3 us) is bound by this host issue, so it
+holds no device context, builds no stream object and takes no attribute
+lookup on the ctypes function.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from pathlib import Path
 
 import torch
 
-from .active_set import act_scale, cell_words
+from .active_set import act_dtype, act_scale, cell_words
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -49,34 +54,38 @@ MAX_SHARED_BYTES = 232_448  # what one Hopper block may opt in to
 MAX_BITMAP_CELLS = 8 * MAX_SHARED_BYTES   # 1,859,584
 MAX_STREAM_WORDS = 1 << 30  # a stream's words, indexed in int32 on the card
 MAX_GRID_Y = 65_535         # streams of a kernel with one grid row a stream
-MAX_PACKED_K = 125          # K whose packed activity fits u8 (act_scale)
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# every entry point ends with (device, stream)
+# every entry point ends with (device, stream); `bitmaps` is the global
+# bitmap scratch (None: the bitmap in shared memory)
 _ARGTYPES = {
-    # syn, perm, act_prev, pun_word, cols, bits, v_out,
-    # B, C, column_dim, J, A, W, D, K, punishment, threshold, scale
-    "table_update": [_VP] * 7 + [_I] * 8 + [_F, _F, _I, _I, _VP],
-    # syn, perm, cols, bits, v_out, B, C, column_dim, J, A, W, D, K,
-    # threshold, scale
-    "act_conn": [_VP] * 5 + [_I] * 8 + [_F, _I, _I, _VP],
-    # rows, cols, bits, out, B, R, A, W, C, D
-    "serving_activation": [_VP] * 4 + [_I] * 6 + [_I, _VP],
-    # word, cols, bits, v_out, B, C, J, A, W, D, scale
-    "act_frozen": [_VP] * 4 + [_I] * 7 + [_I, _VP],
-    # syn, cols, bits, out, B, R, J, A, W, C, D
-    "synapse_activation": [_VP] * 4 + [_I] * 7 + [_I, _VP],
+    # syn, perm, act_prev, pun_word, cols, bits, bitmaps, v_out,
+    # B, C, column_dim, J, A, W, D, K, punishment, threshold, scale,
+    # act_bytes
+    "table_update": [_VP] * 8 + [_I] * 8 + [_F, _F, _I, _I, _I, _VP],
+    # syn, perm, cols, bits, bitmaps, v_out, B, C, column_dim, J, A, W,
+    # D, K, threshold, scale, act_bytes
+    "act_conn": [_VP] * 6 + [_I] * 8 + [_F, _I, _I, _I, _VP],
+    # rows, cols, bits, bitmaps, out, B, R, A, W, C, D
+    "serving_activation": [_VP] * 5 + [_I] * 6 + [_I, _VP],
+    # word, cols, bits, bitmaps, v_out, B, C, J, A, W, D, scale,
+    # act_bytes, fold
+    "act_frozen": [_VP] * 5 + [_I] * 9 + [_I, _VP],
+    # syn, cols, bits, bitmaps, out, B, R, J, A, W, C, D
+    "synapse_activation": [_VP] * 5 + [_I] * 7 + [_I, _VP],
     # table, table_stride, keys, out, B, Wc, n, mask
     "small_table_take": [_VP, _I, _VP, _VP] + [_I] * 4 + [_I, _VP],
-    # perm, delta, cols, pack, B, C, I_pad, A, quantized, threshold_f,
-    # threshold_i
-    "sp_update_pack": [_VP] * 4 + [_I] * 5 + [_F, _I, _I, _VP],
+    # perm, delta, cols, col_bitmaps, pack, B, C, I_pad, A, quantized,
+    # threshold_f, threshold_i, fold
+    "sp_update_pack": [_VP] * 5 + [_I] * 5 + [_F, _I, _I, _I, _VP],
 }
-# the grid queries of the row-range kernels: (flag, C, J, D, device,
-# blocks out, threads out); they launch nothing
+# the grid queries of the row-range kernels, which launch nothing:
+# table_pass_grid (punish, C, J, D, global, act_bytes, device, blocks
+# out, threads out), word_pass_grid (serving, C, J, D, global, device,
+# blocks out, threads out)
 _GRID_ARGTYPES = {
-    "table_pass_grid": [_I] * 5 + [ctypes.POINTER(_I)] * 2,
-    "word_pass_grid": [_I] * 5 + [ctypes.POINTER(_I)] * 2,
+    "table_pass_grid": [_I] * 7 + [ctypes.POINTER(_I)] * 2,
+    "word_pass_grid": [_I] * 6 + [ctypes.POINTER(_I)] * 2,
 }
 
 
@@ -145,12 +154,20 @@ def _stream(device: int) -> int:
 
 
 class CudaKernel:
-    """One C entry point of the kernel library, with its launch count."""
+    """One C entry point of the kernel library, with the path its
+    wrapper chose last (`path`, set from the shapes before any tensor is
+    read) and its launches by path (`paths`), whose sum is its launch
+    count."""
 
     def __init__(self, name: str):
         self.name = name
-        self.launches = 0
+        self.path: tuple[str, ...] = ()
+        self.paths: dict[tuple[str, ...], int] = {}
         self._fn = None
+
+    @property
+    def launches(self) -> int:
+        return sum(self.paths.values())
 
     def bind(self):
         """The ctypes function, its argument types set once."""
@@ -161,12 +178,19 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def __call__(self, *args) -> None:
+    def choose(self, *path: str) -> tuple[str, ...]:
+        """Reports the path the wrapper chose; returns it."""
+        self.path = path
+        return path
+
+    def launch(self, *args) -> None:
+        """Calls the entry point on the path chosen last; raises if it
+        reports an error, else counts the launch under that path."""
         err = (self._fn or self.bind())(*args)
         if err:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
-        self.launches += 1
+        self.paths[self.path] = self.paths.get(self.path, 0) + 1
 
 
 TABLE_UPDATE = CudaKernel("table_update")
@@ -184,40 +208,58 @@ def launch_counts() -> dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
 
 
+def path_counts() -> dict[str, dict[str, int]]:
+    """Each kernel's launches by path, a path's names joined by "+"
+    (`small_table_take`, which has one path, is left out). A launch on
+    the "global" bitmap path or the "gmem_delta" path is two kernels on
+    the card: the bitmap build (`build_bitmaps` or
+    `build_column_bitmaps_kernel`), then the pass; it counts once."""
+    return {k.name: {"+".join(p): n for p, n in k.paths.items()}
+            for k in KERNELS if any(k.paths)}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.paths = {}
 
 
-def _grid(name: str, flag: bool, C: int, J: int, cell_dim: int,
-          device: int) -> tuple[int, int]:
+def _grid(name: str, *args: int) -> tuple[int, int]:
     fn = getattr(_library(), name)
     fn.argtypes = _GRID_ARGTYPES[name]
     fn.restype = ctypes.c_int
     blocks, threads = _I(), _I()
-    err = fn(int(flag), C, J, cell_dim, device, ctypes.byref(blocks),
-             ctypes.byref(threads))
+    err = fn(*args, ctypes.byref(blocks), ctypes.byref(threads))
     if err:
         raise RuntimeError(f"{name} failed: cudaError {err}")
     return blocks.value, threads.value
 
 
 def table_pass_grid(punish: bool, C: int, J: int, cell_dim: int,
-                    device: int = 0) -> tuple[int, int]:
-    """(blocks, threads a block) of the row-range grid that
+                    device: int = 0, synapses: int = 64
+                    ) -> tuple[int, int, tuple[str, str]]:
+    """(blocks, threads a block, path) of the row-range grid that
     `table_update` (``punish``) or `act_conn` launches on card ``device``
-    for tables of rows of J slots over C*cell_dim cells
-    (`csrc/active_bitmap.cuh` `range_grid`)."""
-    return _grid("table_pass_grid", punish, C, J, cell_dim, device)
+    for tables of rows of J = G*``synapses`` slots over C*cell_dim cells
+    (`csrc/active_bitmap.cuh` `range_grid`); the path is the bitmap's
+    ("smem" or "global") and the activity's type ("u8", "bf16", "f32")."""
+    path = (_bitmap(C, cell_dim), _act_name(synapses))
+    blocks, threads = _grid("table_pass_grid", int(punish), C, J, cell_dim,
+                            int(path[0] == "global"), _act_bytes(synapses),
+                            device)
+    return blocks, threads, path
 
 
 def word_pass_grid(serving: bool, C: int, J: int, cell_dim: int,
-                   device: int = 0) -> tuple[int, int]:
-    """(blocks, threads a block) of the row-range grid that
+                   device: int = 0) -> tuple[int, int, tuple[str]]:
+    """(blocks, threads a block, path) of the row-range grid that
     `serving_activation` (``serving``: rows of 128 words, J unused) or
     `synapse_activation` (rows of J words) launches on card ``device``
-    over C*cell_dim cells."""
-    return _grid("word_pass_grid", serving, C, J, cell_dim, device)
+    over C*cell_dim cells; the path is the bitmap's ("smem" or
+    "global")."""
+    path = (_bitmap(C, cell_dim),)
+    blocks, threads = _grid("word_pass_grid", int(serving), C, J, cell_dim,
+                            int(path[0] == "global"), device)
+    return blocks, threads, path
 
 
 def _ptr(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
@@ -241,40 +283,68 @@ def _ptr(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
     return ptr
 
 
-# ---- the card-only limits, checked from shapes before any tensor is
-# read (README.md, port section)
-
-
-def _grid_y(B: int) -> None:
-    """`act_frozen` and `sp_update_pack` run one grid row a stream."""
-    if B > MAX_GRID_Y:
-        raise ValueError(f"B={B} streams exceed the grid's y extent "
-                         f"{MAX_GRID_Y} (the one-grid-row-a-stream limit of "
-                         f"act_frozen and sp_update_pack)")
+# ---- the paths, chosen from shapes before any tensor is read
+# (README.md, port section), and the one limit left
 
 
 def _stream_words(n: int) -> None:
-    """The kernels index a stream's n words in int32."""
+    """The kernels index a stream's n words in int32: the one limit a
+    wrapper still raises on (a stream of 2^30 words is 4 GB of table)."""
     if n > MAX_STREAM_WORDS:
         raise ValueError(f"a stream's {n} words exceed {MAX_STREAM_WORDS} "
                          f"(the kernels' int32 stream-words limit)")
 
 
-def _bitmap(C: int, cell_dim: int) -> None:
-    """A block builds the active-cell bitmap of C*D cells in shared
-    memory."""
-    if C * cell_dim > MAX_BITMAP_CELLS:
-        raise ValueError(
-            f"the active-cell bitmap of C*D = {C * cell_dim} cells needs "
-            f"{(C * cell_dim + 31) // 32 * 4} bytes of shared memory; a "
-            f"block has {MAX_SHARED_BYTES} (the bitmap limit C*D <= "
-            f"{MAX_BITMAP_CELLS})")
+def _bitmap(C: int, cell_dim: int) -> str:
+    """Where the active-cell bitmap of C*D cells lives: "smem", built by
+    each block in shared memory, up to what a block may hold; "global",
+    built once a stream into a global scratch, past it."""
+    return "smem" if C * cell_dim <= MAX_BITMAP_CELLS else "global"
+
+
+def _streams(B: int) -> str:
+    """`act_frozen` and `sp_update_pack` run one grid row a stream
+    ("grid_y") up to the grid's y extent, and fold the streams into grid
+    x past it ("grid_x_streams")."""
+    return "grid_y" if B <= MAX_GRID_Y else "grid_x_streams"
+
+
+_ACT_NAMES = {torch.uint8: "u8", torch.bfloat16: "bf16",
+              torch.float32: "f32"}
+
+
+def _act_name(synapses: int) -> str:
+    """The packed activity's type at K = ``synapses`` (`act_dtype`)."""
+    return _ACT_NAMES[act_dtype(synapses)]
+
+
+def _act_bytes(synapses: int) -> int:
+    return act_dtype(synapses).itemsize
+
+
+def _delta(C: int, I_pad: int) -> str:
+    """Where `sp_update_pack` reads the delta row and the active-column
+    bitmap: staged in shared memory ("smem_delta") while 4*I_pad +
+    4*ceil(C/32) bytes fit a block, else from global memory
+    ("gmem_delta")."""
+    smem = 4 * I_pad + (C + 31) // 32 * 4
+    return "smem_delta" if smem <= MAX_SHARED_BYTES else "gmem_delta"
+
+
+def _bitmap_scratch(path: str, B: int, C: int, cell_dim: int, device):
+    """The global bitmap path's scratch (B streams of C*D bits, each row
+    rounded up to 16 bytes: `bitmap_stride` in active_bitmap.cuh) and its
+    pointer; None on the shared-memory path."""
+    if path != "global":
+        return None, None
+    stride = ((C * cell_dim + 31) // 32 + 3) // 4 * 4
+    scratch = torch.empty((B, stride), dtype=torch.int32, device=device)
+    return scratch, scratch.data_ptr()
 
 
 def _active_set(cols, bits, B: int, cell_dim: int, device: int):
-    """The (B, A) cols + (B, A, W) bits active set, whose bitmap a block
-    builds in shared memory (the caller has checked `_bitmap`). Returns
-    (A, W, cols pointer, bits pointer)."""
+    """The (B, A) cols + (B, A, W) bits active set, whose bitmap the
+    kernel builds. Returns (A, W, cols pointer, bits pointer)."""
     A = cols.shape[-1]
     W = cell_words(cell_dim)
     cols_p = _ptr("cols", cols, torch.int32, (B, A), device)
@@ -282,16 +352,19 @@ def _active_set(cols, bits, B: int, cell_dim: int, device: int):
     return A, W, cols_p, bits_p
 
 
-def _table(name: str, table, dtype: torch.dtype, cols, bits, cell_dim: int,
-           synapses: int, stream_rows: bool = False,
+def _table(kernel: CudaKernel, name: str, table, dtype: torch.dtype, cols,
+           bits, cell_dim: int, synapses: int, stream_rows: bool = False,
            column_dim: int | None = None):
     """A (B, C, J) table read with 16-byte vector loads, J = G*K, and its
     active set (``stream_rows``: a kernel with one grid row a stream).
     The table's C rows and the bitmap's ``column_dim`` columns (default
     C) may differ: a model-parallel rank holds a shard of C rows whose
     synapses target cells of all ``column_dim`` columns, so the stream
-    limit is checked on the rows and the bitmap limit on ``column_dim``.
-    Returns (B, C, J, A, W, device, table, cols and bits pointers)."""
+    limit is checked on the rows and the bitmap's path chosen on
+    ``column_dim``. Reports ``kernel``'s path (bitmap, activity type and,
+    with ``stream_rows``, streams) before it reads a tensor. Returns (B,
+    C, J, A, W, device, table, cols and bits pointers, bitmap scratch and
+    its pointer, path)."""
     if table.dim() != 3:
         raise ValueError(f"{name} must be (B, C, J), got "
                          f"{tuple(table.shape)}")
@@ -299,20 +372,18 @@ def _table(name: str, table, dtype: torch.dtype, cols, bits, cell_dim: int,
     if J % synapses or J // synapses > 32:
         raise ValueError(f"J={J} must be G*K with K={synapses} and G <= 32 "
                          f"(one bit per segment in a column's words)")
-    if synapses > MAX_PACKED_K:
-        raise ValueError(f"K={synapses} > {MAX_PACKED_K} packs activity "
-                         f"wider than u8, which the kernels do not take "
-                         f"(the packed-K limit)")
     if column_dim is not None and column_dim < 1:
         raise ValueError(f"column_dim must be >= 1, got {column_dim}")
     _stream_words(C * J)
-    _bitmap(C if column_dim is None else column_dim, cell_dim)
-    if stream_rows:
-        _grid_y(B)
+    width = C if column_dim is None else column_dim
+    path = kernel.choose(_bitmap(width, cell_dim), _act_name(synapses),
+                         *((_streams(B),) if stream_rows else ()))
     dev = table.get_device()
     table_p = _ptr(name, table, dtype, None, dev, align=16)
     A, W, cols_p, bits_p = _active_set(cols, bits, B, cell_dim, dev)
-    return B, C, J, A, W, dev, table_p, cols_p, bits_p
+    scratch, bm_p = _bitmap_scratch(path[0], B, width, cell_dim,
+                                    table.device)
+    return B, C, J, A, W, dev, table_p, cols_p, bits_p, scratch, bm_p, path
 
 
 def table_update_cuda(syn, perm, act_prev, pun_word, cols, bits,
@@ -320,38 +391,43 @@ def table_update_cuda(syn, perm, act_prev, pun_word, cols, bits,
                       perm_threshold: float,
                       column_dim: int | None = None) -> torch.Tensor:
     """CUDA `table_update`: punishes ``perm`` in place and returns the
-    packed activity (B, C, J) u8 (see `active_set.table_update_ref`).
-    ``column_dim`` (default C): the columns of the cell space the
-    active set spans, for a column shard of C rows."""
-    B, C, J, A, W, dev, syn_p, cols_p, bits_p = _table(
-        "syn", syn, torch.int32, cols, bits, cell_dim, synapses,
-        column_dim=column_dim)
+    packed activity (B, C, J) in `act_dtype(synapses)` (see
+    `active_set.table_update_ref`), as ``act_prev`` holds it.
+    ``column_dim`` (default C): the columns of the cell space the active
+    set spans, for a column shard of C rows."""
+    B, C, J, A, W, dev, syn_p, cols_p, bits_p, _scratch, bm_p, _ = _table(
+        TABLE_UPDATE, "syn", syn, torch.int32, cols, bits, cell_dim,
+        synapses, column_dim=column_dim)
+    dtype = act_dtype(synapses)
     perm_p = _ptr("perm", perm, torch.float32, syn.shape, dev, align=16)
-    act_p = _ptr("act_prev", act_prev, torch.uint8, syn.shape, dev,
-                 align=16)
+    act_p = _ptr("act_prev", act_prev, dtype, syn.shape, dev, align=16)
     pun_p = _ptr("pun_word", pun_word, torch.int32, (B, C), dev)
-    v = torch.empty((B, C, J), dtype=torch.uint8, device=syn.device)
-    TABLE_UPDATE(syn_p, perm_p, act_p, pun_p, cols_p, bits_p, v.data_ptr(),
-                 B, C, column_dim or C, J, A, W, cell_dim, synapses,
-                 punishment, perm_threshold, act_scale(synapses), dev,
-                 _stream(dev))
+    v = torch.empty((B, C, J), dtype=dtype, device=syn.device)
+    TABLE_UPDATE.launch(syn_p, perm_p, act_p, pun_p, cols_p, bits_p, bm_p,
+                        v.data_ptr(), B, C, column_dim or C, J, A, W,
+                        cell_dim, synapses, punishment, perm_threshold,
+                        act_scale(synapses), dtype.itemsize, dev,
+                        _stream(dev))
     return v
 
 
 def act_conn_cuda(syn, perm, cols, bits, cell_dim: int,
                   perm_threshold: float, synapses: int,
                   column_dim: int | None = None) -> torch.Tensor:
-    """CUDA `act_conn`: packed activity (B, C, J) u8 over a read-only
-    table (see `active_set.synapse_activation_conn_ref`); ``column_dim``
-    as for `table_update_cuda`."""
-    B, C, J, A, W, dev, syn_p, cols_p, bits_p = _table(
-        "syn", syn, torch.int32, cols, bits, cell_dim, synapses,
+    """CUDA `act_conn`: packed activity (B, C, J) in
+    `act_dtype(synapses)` over a read-only table (see
+    `active_set.synapse_activation_conn_ref`); ``column_dim`` as for
+    `table_update_cuda`."""
+    B, C, J, A, W, dev, syn_p, cols_p, bits_p, _scratch, bm_p, _ = _table(
+        ACT_CONN, "syn", syn, torch.int32, cols, bits, cell_dim, synapses,
         column_dim=column_dim)
+    dtype = act_dtype(synapses)
     perm_p = _ptr("perm", perm, torch.float32, syn.shape, dev, align=16)
-    v = torch.empty((B, C, J), dtype=torch.uint8, device=syn.device)
-    ACT_CONN(syn_p, perm_p, cols_p, bits_p, v.data_ptr(), B, C,
-             column_dim or C, J, A, W, cell_dim, synapses, perm_threshold,
-             act_scale(synapses), dev, _stream(dev))
+    v = torch.empty((B, C, J), dtype=dtype, device=syn.device)
+    ACT_CONN.launch(syn_p, perm_p, cols_p, bits_p, bm_p, v.data_ptr(), B, C,
+                    column_dim or C, J, A, W, cell_dim, synapses,
+                    perm_threshold, act_scale(synapses), dtype.itemsize, dev,
+                    _stream(dev))
     return v
 
 
@@ -365,28 +441,38 @@ def serving_activation_cuda(rows, cols, bits, column_dim: int,
                          f"{tuple(rows.shape)}")
     B, R, _ = rows.shape
     _stream_words(R * 128)
-    _bitmap(column_dim, cell_dim)
+    path = SERVING_ACTIVATION.choose(_bitmap(column_dim, cell_dim))
     dev = rows.get_device()
     rows_p = _ptr("rows", rows, torch.int32, None, dev, align=16)
     A, W, cols_p, bits_p = _active_set(cols, bits, B, cell_dim, dev)
     out = torch.empty((B, R, 128), dtype=torch.uint8, device=rows.device)
     if out.numel() == 0:
         return out
-    SERVING_ACTIVATION(rows_p, cols_p, bits_p, out.data_ptr(), B, R, A, W,
-                       column_dim, cell_dim, dev, _stream(dev))
+    _scratch, bm_p = _bitmap_scratch(path[0], B, column_dim, cell_dim,
+                                     rows.device)
+    SERVING_ACTIVATION.launch(rows_p, cols_p, bits_p, bm_p, out.data_ptr(),
+                              B, R, A, W, column_dim, cell_dim, dev,
+                              _stream(dev))
     return out
 
 
 def act_frozen_cuda(frozen_word, cols, bits, cell_dim: int,
                     synapses: int) -> torch.Tensor:
-    """CUDA `act_frozen`: packed activity (B, C, J) u8 over a frozen word
-    table (see `active_set.synapse_activation_frozen_ref`)."""
-    B, C, J, A, W, dev, word_p, cols_p, bits_p = _table(
-        "frozen_word", frozen_word, torch.int32, cols, bits, cell_dim,
-        synapses, stream_rows=True)
-    v = torch.empty((B, C, J), dtype=torch.uint8, device=frozen_word.device)
-    ACT_FROZEN(word_p, cols_p, bits_p, v.data_ptr(), B, C, J, A, W, cell_dim,
-               act_scale(synapses), dev, _stream(dev))
+    """CUDA `act_frozen`: packed activity (B, C, J) in
+    `act_dtype(synapses)` over a frozen word table (see
+    `active_set.synapse_activation_frozen_ref`)."""
+    (B, C, J, A, W, dev, word_p, cols_p, bits_p, _scratch, bm_p,
+     path) = _table(
+        ACT_FROZEN, "frozen_word", frozen_word, torch.int32, cols, bits,
+        cell_dim, synapses, stream_rows=True)
+    dtype = act_dtype(synapses)
+    v = torch.empty((B, C, J), dtype=dtype, device=frozen_word.device)
+    if v.numel() == 0:
+        return v
+    ACT_FROZEN.launch(word_p, cols_p, bits_p, bm_p, v.data_ptr(), B, C, J, A,
+                      W, cell_dim, act_scale(synapses), dtype.itemsize,
+                      int(path[-1] == "grid_x_streams"), dev,
+                      _stream(dev))
     return v
 
 
@@ -399,15 +485,18 @@ def synapse_activation_cuda(syn, cols, bits, column_dim: int,
         raise ValueError(f"syn must be (B, R, J), got {tuple(syn.shape)}")
     B, R, J = syn.shape
     _stream_words(R * J)
-    _bitmap(column_dim, cell_dim)
+    path = SYNAPSE_ACTIVATION.choose(_bitmap(column_dim, cell_dim))
     dev = syn.get_device()
     syn_p = _ptr("syn", syn, torch.int32, None, dev, align=16)
     A, W, cols_p, bits_p = _active_set(cols, bits, B, cell_dim, dev)
     out = torch.empty((B, R, J), dtype=torch.uint8, device=syn.device)
     if out.numel() == 0:
         return out
-    SYNAPSE_ACTIVATION(syn_p, cols_p, bits_p, out.data_ptr(), B, R, J, A, W,
-                       column_dim, cell_dim, dev, _stream(dev))
+    _scratch, bm_p = _bitmap_scratch(path[0], B, column_dim, cell_dim,
+                                     syn.device)
+    SYNAPSE_ACTIVATION.launch(syn_p, cols_p, bits_p, bm_p, out.data_ptr(), B,
+                              R, J, A, W, column_dim, cell_dim, dev,
+                              _stream(dev))
     return out
 
 
@@ -439,9 +528,9 @@ def small_table_take_cuda(table, keys, mask: int = -1,
     out = keys if in_place else torch.empty_like(keys)
     if n:
         keys_p = keys.data_ptr()
-        SMALL_TABLE_TAKE(table.data_ptr(), row, keys_p,
-                         keys_p if in_place else out.data_ptr(), B, Wc, n,
-                         mask, dev, _stream(dev))
+        SMALL_TABLE_TAKE.launch(table.data_ptr(), row, keys_p,
+                                keys_p if in_place else out.data_ptr(), B,
+                                Wc, n, mask, dev, _stream(dev))
     return out
 
 
@@ -478,15 +567,7 @@ def sp_update_pack_cuda(permanence, delta_row, active_cols, threshold
     if quantized and threshold != int(threshold):
         raise ValueError(f"an int16 table takes an integer threshold in "
                          f"units, got {threshold}")
-    _grid_y(B)
-    smem = 4 * I_pad + (C + 31) // 32 * 4
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"the delta row of I_pad={I_pad} and the "
-                         f"active-column bitmap of C={C} columns need {smem} "
-                         f"bytes of shared memory; a block has "
-                         f"{MAX_SHARED_BYTES} (the sp_update_pack shared-"
-                         f"memory limit 4*I_pad + 4*ceil(C/32) <= "
-                         f"{MAX_SHARED_BYTES})")
+    path = SP_UPDATE_PACK.choose(_delta(C, I_pad), _streams(B))
     dev = permanence.get_device()
     perm_p = _ptr("permanence", permanence, permanence.dtype, None, dev,
                   align=16)
@@ -499,7 +580,14 @@ def sp_update_pack_cuda(permanence, delta_row, active_cols, threshold
                        device=permanence.device)
     if pack.numel() == 0:
         return permanence, pack
-    SP_UPDATE_PACK(perm_p, delta_p, cols_p, pack.data_ptr(), B, C, I_pad, A,
-                   int(quantized), float(threshold),
-                   int(threshold) if quantized else 0, dev, _stream(dev))
+    col_bitmaps = col_p = None
+    if path[0] == "gmem_delta":  # each stream's active-column bitmap
+        col_bitmaps = torch.empty((B, (C + 31) // 32), dtype=torch.int32,
+                                  device=permanence.device)
+        col_p = col_bitmaps.data_ptr()
+    SP_UPDATE_PACK.launch(perm_p, delta_p, cols_p, col_p, pack.data_ptr(), B,
+                          C, I_pad, A, int(quantized), float(threshold),
+                          int(threshold) if quantized else 0,
+                          int(path[1] == "grid_x_streams"), dev,
+                          _stream(dev))
     return permanence, pack

@@ -3,6 +3,7 @@ counterpart of `bithtm_tpu/ops/regularization.py`."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .active_set import column_mask_from_cols
@@ -16,8 +17,19 @@ def boost_factor(duty_cycle: torch.Tensor, intensity: float,
     give the same factor (their float32 `exp`s differ by 1 ulp on about
     three factors in ten and by 2 on some, ROADMAP.md fault k). The
     rounded value lies within 1 ulp of any float32 `exp` accurate to
-    1 ulp, so it keeps the 1-ulp agreement with the JAX package."""
+    1 ulp, so it keeps the 1-ulp agreement with the JAX package.
+
+    On the CPU the float64 `exp` is numpy's and not ATen's: two CPU
+    calls of ATen's on the same input once gave 18 of 16,384 factors
+    1 ulp apart under the test runner, for a cause not yet found
+    (ROADMAP.md fault g). numpy runs a ufunc on the calling thread (in
+    its own SIMD loops), so its result does not depend on the process's
+    thread count or how ATen splits the work. The card keeps
+    `torch.exp` in float64 (fault k: 0 ulp against the CPU)."""
     arg = -(intensity / density) * duty_cycle
+    if arg.device.type == "cpu":
+        exact = np.exp(arg.detach().numpy().astype(np.float64))
+        return torch.from_numpy(exact.astype(np.float32))
     return torch.exp(arg.double()).float()
 
 

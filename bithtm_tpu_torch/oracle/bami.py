@@ -89,7 +89,10 @@ class OracleTM:
     # ---- helpers -------------------------------------------------------
 
     def cell_segments(self, cell):
-        return [s for s in range(self.S) if self.owner[s] == cell]
+        # a cell's segments lie in its column's G slots
+        c = cell // self.D
+        return [s for s in range(c * self.G, (c + 1) * self.G)
+                if self.owner[s] == cell]
 
     def column_cells(self, column):
         return range(column * self.D, (column + 1) * self.D)

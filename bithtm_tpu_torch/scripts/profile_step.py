@@ -1,0 +1,262 @@
+"""Device time of the HTM step by call site, on the card.
+
+Counterpart of the JAX package's `scripts/profile_step.py`, which reads
+per-op device time a step out of a `jax.profiler` trace. Here the step's
+call sites carry `torch.profiler.record_function` ranges
+(`utils.profiling.site`: `sp_step`'s overlap, boost, k-winners, update
+and duty cycle; `tm_step`'s preparation, winner selection, activation,
+`_learn` with its `_allocate` and `_grow`, punishment, table pass, count
+decode, prediction words and outputs; `htm_step`'s draws and metrics).
+A CUDA graph's replay carries no host ranges, so ``--trace_steps`` steps
+of the loop (`graph.eager()`, `htm_step` one step at a time) are
+profiled with the ranges on; each range's device ms a step is the time
+of the kernels launched inside it. The same steps replayed as the
+scan's graph (the port's default on the card) are profiled too, and
+the ranges' sum is held to within 10% of the graph's device busy a step:
+the loop launches the graph's kernels, so its ranges attribute the
+graph's time. The ranges launch nothing and change no value.
+
+On the CPU (``--device cpu``) the ranges' host time is reported instead,
+under ``"time": "cpu"``, and there is no graph.
+
+Run: python -m bithtm_tpu_torch.scripts.profile_step [--fast] [--batch
+256] [--trace_steps 8] [--inference | --serve] [--column_dim 16384
+--cell_dim 64] [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+
+import numpy as np
+import torch
+
+from .. import htm_init_batch, htm_scan, htm_serve_scan, make_htm_config
+from ..models import graph
+from ..models.htm import htm_step
+from ..rng import TorchDraws
+from ..utils.profiling import call_sites
+from . import add_device, pick_device, synchronize
+
+# bench.py's tuned list widths at 16384 x 64 (`--winner_capacity 384
+# --growth_capacity 336`)
+TUNED_16K = dict(winner_capacity=384, growth_capacity=336)
+TOLERANCE = 0.10   # the ranges' sum against the graph's busy
+
+
+def make_config(args):
+    overrides = {}
+    if args.fast:
+        overrides = dict(segments_per_column=4, synapse_capacity=64,
+                         sp_overrides={"permanence_dtype": "int16"})
+    caps = {}
+    if (args.column_dim, args.cell_dim) == (16384, 64):
+        caps = dict(TUNED_16K)
+    for name in ("winner_capacity", "growth_capacity"):
+        if getattr(args, name):
+            caps[name] = getattr(args, name)
+    return make_htm_config(input_dim=args.input_dim,
+                           column_dim=args.column_dim,
+                           cell_dim=args.cell_dim, **overrides, **caps)
+
+
+def _activities(dev: torch.device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
+def graph_busy(run, steps: int, dev: torch.device) -> tuple[float, float]:
+    """(device busy ms, kernel launches) a step of ``run()``, which runs
+    ``steps`` steps, from `torch.profiler`'s device events."""
+    with torch.profiler.profile(activities=_activities(dev),
+                                acc_events=True) as prof:
+        run()
+        synchronize(dev)
+    busy = launches = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.time_range.elapsed_us() / 1e3
+            launches += not e.name.startswith(("Memcpy", "Memset"))
+    return busy / steps, launches / steps
+
+
+SITE_PREFIXES = ("sp_step.", "tm_step.", "htm_step.")
+
+
+def _kernels_by_site(events) -> dict[str, list]:
+    """{range: [(kernel, ms)]}: each device kernel goes to every range
+    open on the host when its launch call ran (the CUDA runtime event
+    that shares the kernel's correlation id), nested ranges included.
+    The host launch, not the profiler's link of a kernel to an aten op,
+    is what finds the kernels launched through ctypes."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    ranges, launched_at = [], {}
+    for e in events:
+        if e.device_type != cpu:
+            continue
+        if e.name.startswith(SITE_PREFIXES):
+            ranges.append((e.time_range.start, e.time_range.end, e.name))
+        elif e.name.startswith("cuda"):
+            launched_at[e.id] = e.time_range.start
+    out: dict[str, list] = {name: [] for _, _, name in ranges}
+    for e in events:
+        t = launched_at.get(e.id)
+        if (e.device_type != cuda or t is None
+                or e.name.startswith(SITE_PREFIXES)):
+            continue
+        for s0, s1, name in ranges:
+            if s0 <= t <= s1:
+                out[name].append((e.name, e.time_range.elapsed_us() / 1e3))
+    return out
+
+
+def profile_sites(step, steps: int, dev: torch.device, top: int) -> dict:
+    """Runs ``step(t)`` for t < ``steps`` with the call-site ranges on,
+    under `torch.profiler`; returns {range: {"ms": a step, "top": [(op,
+    ms a step)]}} with device time on the card (`_kernels_by_site`) and
+    host time on the CPU, and the device ms a step no range holds
+    (None on the CPU)."""
+    with call_sites(), torch.profiler.profile(
+            activities=_activities(dev), acc_events=True) as prof:
+        for t in range(steps):
+            step(t)
+        synchronize(dev)
+    events = prof.events()
+    if dev.type == "cuda":
+        launched = _kernels_by_site(events)
+        per_site = {name: (sum(ms for _, ms in ks), ks)
+                    for name, ks in launched.items()}
+        total = sum(e.time_range.elapsed_us() / 1e3 for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith(SITE_PREFIXES))
+    else:
+        per_site = {}
+        for e in events:
+            if (e.device_type == torch.autograd.DeviceType.CPU
+                    and e.name.startswith(SITE_PREFIXES)):
+                ms, _ = per_site.get(e.name, (0.0, []))
+                per_site[e.name] = (ms + e.cpu_time_total / 1e3, [])
+        total = None
+    out = {}
+    for name, (ms, ks) in sorted(per_site.items(),
+                                 key=lambda kv: -kv[1][0]):
+        ops: dict[str, float] = {}
+        for op, k_ms in ks:
+            ops[op] = ops.get(op, 0.0) + k_ms
+        ranked = sorted(ops.items(), key=lambda kv: -kv[1])[:top]
+        out[name] = {"ms": ms / steps, "top": [
+            (op[:90], k_ms / steps) for op, k_ms in ranked]}
+    return out, None if total is None else total / steps
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(
+        prog="python -m bithtm_tpu_torch.scripts.profile_step",
+        description=__doc__.split("\n")[0])
+    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--trace_steps", type=int, default=8)
+    p.add_argument("--warmup_steps", type=int, default=0,
+                   help="learning steps before the profiled ones "
+                        "(default: --trace_steps)")
+    p.add_argument("--input_dim", type=int, default=1000)
+    p.add_argument("--column_dim", type=int, default=2048)
+    p.add_argument("--cell_dim", type=int, default=32)
+    p.add_argument("--fast", action="store_true",
+                   help="throughput preset (G=4/K=64 + int16 SP)")
+    p.add_argument("--inference", action="store_true")
+    p.add_argument("--serve", action="store_true",
+                   help="profile htm_serve_scan (learning and the winner "
+                        "pass off)")
+    p.add_argument("--detailed_metrics", action="store_true",
+                   help="include the full-table occupancy metrics")
+    p.add_argument("--winner_capacity", type=int, default=0)
+    p.add_argument("--growth_capacity", type=int, default=0)
+    p.add_argument("--top", type=int, default=3,
+                   help="ops shown inside each range")
+    p.add_argument("--seed", type=int, default=0)
+    add_device(p)
+    args = p.parse_args(argv)
+    dev = pick_device(args.device)
+    cfg = make_config(args)
+    B, T = args.batch, args.trace_steps
+    warm = args.warmup_steps or T
+    rng = np.random.RandomState(args.seed)
+    seq = torch.from_numpy(rng.rand(warm + T, B, args.input_dim)
+                           < 0.2).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    state = htm_init_batch(cfg, B, gen, dev)
+    draws = TorchDraws(cfg.tm, B, dev, gen)
+    learn = not (args.inference or args.serve)
+    winner = not args.serve
+    state, _ = htm_scan(cfg, state, seq[:warm], True, draws=draws)
+    xs = seq[warm:]
+    start, gen_start = copy.deepcopy(state), gen.get_state()
+
+    def scan(st):
+        if args.serve:
+            return htm_serve_scan(cfg, st, xs,
+                                  detailed_metrics=args.detailed_metrics,
+                                  draws=draws)
+        return htm_scan(cfg, st, xs, learn,
+                        detailed_metrics=args.detailed_metrics, draws=draws)
+
+    busy = launches = None
+    if dev.type == "cuda":
+        held = scan(copy.deepcopy(start))[0]     # captures the graph
+        gen.set_state(gen_start)
+        held = graph.restore_into(held, start)
+        box = {}
+        busy, launches = graph_busy(
+            lambda: box.setdefault("state", scan(held)), T, dev)
+        del box, held
+    gen.set_state(gen_start)
+    live = {"state": copy.deepcopy(start)}
+
+    def step(t):
+        live["state"], _ = htm_step(
+            cfg, live["state"], xs[t], learn, winner, args.detailed_metrics,
+            draws, dense_outputs=False)
+
+    with graph.eager():
+        sites, loop_busy = profile_sites(step, T, dev, args.top)
+    top_level = {k: v for k, v in sites.items() if "/" not in k}
+    total = sum(v["ms"] for v in top_level.values())
+    mode = "serve" if args.serve else ("learning" if learn else "inference")
+    out = {"config": f"{args.column_dim}x{args.cell_dim}", "fast": args.fast,
+           "batch": B, "steps": T, "mode": mode,
+           "time": "device" if dev.type == "cuda" else "cpu",
+           "sites": {k: v["ms"] for k, v in sites.items()},
+           "top": {k: v["top"] for k, v in sites.items()},
+           "ranges_ms": total, "loop_busy_ms": loop_busy,
+           "graph_busy_ms": busy, "graph_launches": launches}
+    print(f"# config: fast={args.fast} B={B} steps={T} "
+          f"{args.column_dim}x{args.cell_dim} mode={mode}; "
+          f"{out['time']} ms a step by call site (loop, ranges on)")
+    for name, site in sites.items():
+        ops = "; ".join(f"{op} {ms:.3f}" for op, ms in site["top"])
+        indent = "    " if "/" in name else "  "
+        print(f"{indent}{site['ms']:8.3f} ms/step  {name:28s} {ops}")
+    print(f"# ranges sum {total:.3f} ms/step", end="")
+    if loop_busy is not None:
+        print(f"; the loop's device busy {loop_busy:.3f} ms/step "
+              f"({loop_busy - total:.3f} outside the ranges)", end="")
+    if busy is not None:
+        out["ranges_vs_busy"] = total / busy
+        print(f"; graph busy {busy:.3f} ms/step, {launches:.1f} kernel "
+              f"launches a step; ranges / busy {total / busy:.3f}")
+        if abs(total - busy) > TOLERANCE * busy:
+            raise RuntimeError(
+                f"the ranges sum to {total:.3f} ms a step, more than "
+                f"{TOLERANCE:.0%} from the graph's busy {busy:.3f} ms")
+    else:
+        print()
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -2,9 +2,11 @@
 `synapse_activation_conn`, `synapse_activation_frozen`,
 `serving_activation`) and their CUDA kernels against their plain
 versions, made with numpy from a seed at any shape; the check of the
-SP's boost on one device against the CPU (`boost_agreement`); and
+SP's boost on one device against the CPU (`boost_agreement`);
 `run_ranks`, which runs the ranks of a multi-process check as processes
-with a deadline."""
+with a deadline; and the config-fuzz geometries (`FUZZ_CASES`,
+`fuzz_config`), the port's copy of `tests/test_parity_fuzz.py`'s list,
+which `tests/test_torch_parity_fuzz.py` holds equal to it."""
 
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import time
 import numpy as np
 import torch
 
-from .ops.active_set import act_scale, pack_bits
+from .config import TMConfig
+from .ops.active_set import act_dtype, act_scale, pack_bits
 from .ops.regularization import boost, boost_factor, k_winners
 from .ops.serving import SERVING_G_BITS
 
@@ -26,7 +29,8 @@ def table_inputs(seed: int, B: int, C: int, G: int, K: int, D: int, A: int,
     and free slots, stale dead slots (syn >= 0, perm < 0), permanences
     near 0 that a punishment of 0.01-0.03 kills, targets biased toward
     the active cells, packed previous activity (`act_scale` encoding at
-    ``threshold``), and punished segments outside the active columns.
+    ``threshold``, in `act_dtype(K)`), and punished segments outside the
+    active columns.
 
     Returns tensors on ``device``: syn, perm, act_prev, pun_word, cols,
     bits (int32 words) and seg_cell (owners in [0, D], D = none)."""
@@ -58,9 +62,10 @@ def table_inputs(seed: int, B: int, C: int, G: int, K: int, D: int, A: int,
     np.put_along_axis(pun_word, cols.astype(np.int64), 0, axis=1)
     seg_cell = rng.integers(0, D + 1, (B, C, G), dtype=np.int32)
     out = dict(syn=syn.astype(np.int32), perm=perm,
-               act_prev=act_prev.astype(np.uint8), pun_word=pun_word,
+               act_prev=act_prev.astype(np.int32), pun_word=pun_word,
                cols=cols, seg_cell=seg_cell)
     t = {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+    t["act_prev"] = t["act_prev"].to(act_dtype(K))
     t["bits"] = pack_bits(torch.from_numpy(rows)).to(device)
     return t
 
@@ -174,3 +179,77 @@ def run_ranks(commands: list[list[str]], log_dir: str, timeout: float,
         for p in procs:
             p.wait()
     return [p.returncode for p in procs], outputs()
+
+
+# the config-fuzz geometries of tests/test_parity_fuzz.py, each on a
+# dispatch or encoding boundary of the step: cell_dim off the 32-bit
+# word, K across the packed activity's dtype lines (u8 to K=125, bf16 at
+# 126-127, float32 from 128), lane-unfriendly J = G*K, column_dim % 8 !=
+# 0, A at the JAX matchers' crossovers, tight pools under both policies
+FUZZ_BASE = dict(
+    column_dim=64, cell_dim=4, active_columns=6, segments_per_column=4,
+    synapse_capacity=12, segment_activation_threshold=2,
+    segment_matching_threshold=2, segment_sampling_synapses=4,
+    # incommensurate constants: no permanence lands exactly on 0.0
+    permanence_initial=0.2137, permanence_increment=0.1003,
+    permanence_decrement=0.0997, permanence_punishment=0.0251)
+
+# (name, config overrides, steps)
+FUZZ_CASES = [
+    ("D3_W1_partial", dict(cell_dim=3), 60),
+    ("D24_W1_partial", dict(cell_dim=24), 50),
+    ("D33_W2_minimal", dict(cell_dim=33), 50),
+    ("D48_W2_partial", dict(cell_dim=48, column_dim=48,
+                            active_columns=5), 50),
+    ("D64_W2_full", dict(cell_dim=64, column_dim=32), 40),
+    ("K125_last_u8", dict(synapse_capacity=125, segments_per_column=2,
+                          segment_sampling_synapses=6), 40),
+    ("K126_first_bf16", dict(synapse_capacity=126, segments_per_column=2,
+                             segment_sampling_synapses=6), 40),
+    ("K127_last_bf16", dict(synapse_capacity=127, segments_per_column=2,
+                            segment_sampling_synapses=6), 40),
+    ("K128_first_f32", dict(synapse_capacity=128, segments_per_column=2,
+                            segment_sampling_synapses=6), 40),
+    ("J120_G3K40", dict(segments_per_column=3, synapse_capacity=40), 50),
+    ("J66_G2K33", dict(segments_per_column=2, synapse_capacity=33,
+                       segment_sampling_synapses=5), 50),
+    ("C37_fallback", dict(column_dim=37, active_columns=5), 60),
+    ("C250_fallback", dict(column_dim=250, active_columns=9), 40),
+    ("A47_hash_edge", dict(column_dim=128, active_columns=47), 30),
+    ("A48_chain_edge", dict(column_dim=128, active_columns=48), 30),
+    ("A63_chain_edge", dict(column_dim=192, active_columns=63), 30),
+    ("A64_bisect_edge", dict(column_dim=192, active_columns=64), 30),
+    ("D5_G1_recycle", dict(cell_dim=5, segments_per_column=1), 60),
+    ("D7_G2_evict", dict(cell_dim=7, segments_per_column=2,
+                         allocation_policy="evict", synapse_capacity=9,
+                         segment_sampling_synapses=3), 60),
+    ("D7_G2_reference", dict(cell_dim=7, segments_per_column=2,
+                             allocation_policy="reference",
+                             synapse_capacity=9,
+                             segment_sampling_synapses=3), 60),
+    ("C44_D36_odd_both", dict(column_dim=44, cell_dim=36,
+                              active_columns=7), 50),
+    ("K13_prime_slots", dict(synapse_capacity=13,
+                             segment_sampling_synapses=5), 50),
+]
+
+
+def fuzz_config(**overrides) -> TMConfig:
+    """The port's TMConfig of a fuzz case: `FUZZ_BASE` with
+    ``overrides``."""
+    return TMConfig(**{**FUZZ_BASE, **overrides})
+
+
+def fuzz_seed(name: str) -> int:
+    """A fuzz case's seed: fixed by its name, distinct between cases."""
+    return sum(ord(ch) * 131 ** i for i, ch in enumerate(name)) % 10_000
+
+
+def fuzz_cols(cfg: TMConfig, B: int, rng: np.random.RandomState
+              ) -> np.ndarray:
+    """One step's (B, A) sorted active columns, each stream A distinct
+    columns drawn from ``rng`` (the oracle tests' columns)."""
+    return np.stack([np.sort(rng.choice(cfg.column_dim,
+                                        size=cfg.active_columns,
+                                        replace=False))
+                     for _ in range(B)]).astype(np.int32)

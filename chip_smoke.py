@@ -64,6 +64,22 @@ and anomaly-detection example scripts, and a scan fed by
 `act_conn` are also held bit-equal and timed at that table (D=8, the
 bitmap build's per-cell branch).
 
+Beside those: `check_paths` holds every path the kernels take past the
+main path's shapes bit-equal to the plain versions and times it (the
+packed activity in bf16 and float32 at K = 126-128, the global-memory
+bitmap at 32,768 x 64 and one column past the shared-memory limit and
+on a column shard, 65,536 streams folded into grid x, `sp_update_pack`
+past its shared memory); `run_fuzz_on_card` runs the 22 config-fuzz
+geometries through `tm_step` on the card and the CPU with the same
+draws, bit-equal; `run_parity` runs `scripts.parity_check` (tiny, mid,
+bisect, `--sp`, and `full --from_state` on two streams of the learned
+bench state); `run_profile` runs `scripts.profile_step` at bench
+learning (device ms a step by call site, within 10% of the graph's
+busy); `run_soaks` carries the learned 16K state on to step 2,048
+under `htm_scan_autocap` and runs `soak_evict_pressure` and
+`soak_fast_stack` (2,000 x 256, held to the JAX record). Each kernel's
+row in the `kernels` line lists the paths checked.
+
 Every entry point above replays its step's CUDA graph (the port's
 default on the card, `bithtm_tpu_torch/models/graph.py`); the launch
 counts count a graph's kernels once a replay. Beside each path, its loop
@@ -243,8 +259,8 @@ def table_grid(punish: bool, syn, D: int) -> str:
     """The row-range grid `table_update` (``punish``) or `act_conn`
     launches for ``syn``'s (B, C, J) table: blocks x threads."""
     _, C, J = syn.shape
-    blocks, threads = kernels.table_pass_grid(punish, C, J, D,
-                                              syn.get_device())
+    blocks, threads, _ = kernels.table_pass_grid(punish, C, J, D,
+                                                 syn.get_device())
     return f"{blocks}x{threads}"
 
 
@@ -252,8 +268,8 @@ def word_grid(serving: bool, table, C: int, D: int) -> str:
     """The row-range grid `serving_activation` (``serving``, a (B, R,
     128) table) or `synapse_activation` (a (B, R, J) table) launches over
     C*D cells: blocks x threads."""
-    blocks, threads = kernels.word_pass_grid(serving, C, table.shape[-1],
-                                             D, table.get_device())
+    blocks, threads, _ = kernels.word_pass_grid(serving, C, table.shape[-1],
+                                                D, table.get_device())
     return f"{blocks}x{threads}"
 
 
@@ -1324,7 +1340,7 @@ def device_profile(run, n: int, top: int) -> tuple[float, float]:
     return busy, launches
 
 
-def run_16k(dev) -> tuple[dict, dict, tuple, dict]:
+def run_16k(dev) -> tuple[dict, dict, tuple, dict, tuple]:
     """The 16K x 64 path at full width, B=64, on the bench input recipe:
     `htm_scan_autocap` under the tuned caps over LEARN_16K learning steps
     in chunks of CHUNK_16K, then INFER_16K inference steps and SERVE_16K
@@ -1341,7 +1357,8 @@ def run_16k(dev) -> tuple[dict, dict, tuple, dict]:
     each row-range kernel). Returns (launch
     counts of the learning run, the kernel rows at this geometry, the
     first PAR_16K_BATCH streams of the learned state as host leaves with
-    the caps in force)."""
+    the caps in force, the graph-against-loop numbers, and a copy of the
+    learned state with its generator, config and step for `run_soaks`)."""
     cfg = bt.make_htm_config(**GEOM_16K)
     B, A, T = BATCH_16K, cfg.sp.active_columns, LEARN_16K
     C, D, K = cfg.tm.column_dim, cfg.tm.cell_dim, cfg.tm.synapse_capacity
@@ -1573,13 +1590,17 @@ def run_16k(dev) -> tuple[dict, dict, tuple, dict]:
         serve_xs[:PROFILED_STEPS])
     # the learned streams the parallel phase continues from
     learned = (host_leaves(state, slice(0, PAR_16K_BATCH)), caps)
+    # and the whole learned state, which `run_soaks` carries on
+    carry_gen = torch.Generator(device=dev)
+    carry_gen.set_state(gen.get_state())
+    carry = (copy.deepcopy(state), carry_gen, cfg, T + INFER_16K)
     del state, tm
     time_phases(snap, snap.xs)
     print("16K metrics: " + json.dumps(perf))
     print("16K kernels: " + json.dumps(rows))
     return launches, rows, learned, {
         "learning": perf["graph_vs_loop"],
-        "escalation": perf["graph_vs_loop_escalation"]}
+        "escalation": perf["graph_vs_loop_escalation"]}, carry
 
 
 # ---- the parallel phase: `bithtm_tpu_torch.parallel` over worker
@@ -2151,6 +2172,369 @@ def check_anomaly_kernels(dev) -> dict:
     C, D, A = ANOMALY_WIDTH
     return table_kernel_rows(dev, C, D, 8, 48, A, (ANOMALY_BATCH,),
                              "the anomaly stack")
+
+
+# ---- the kernels' paths past the first design's limits (ROADMAP fault
+# q): each shape launches the same hand-written kernel on another path,
+# chosen from the shapes, held bit-equal to the plain version and timed
+
+PATH_KS = (126, 127, 128)      # bf16, bf16 and float32 packed activity
+PATH_KS_AT = (64, 2048, 32, 2, 41)   # B, C, D, G, A of those tables
+GLOBAL_CS = (32_768, 29_057)   # 2,097,152 cells; one column past the limit
+GLOBAL_AT = (4, 64, 4, 64)     # B, D, G, K of the global-bitmap tables
+WIDE_B = 65_536                # streams past the grid's y extent
+GMEM_SP = (2, 64, 59_392)      # B, C, I_pad: 4 * I_pad > 232,448 bytes
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def path_row(kernel: kernels.CudaKernel, want: tuple, fn, plain, moved: int,
+             at: str) -> dict:
+    """`kernel_row` of a call on a path past the first design's limits:
+    the wrapper must report ``want``."""
+    require(kernel.path == want, f"{kernel.name} at {at} takes the path "
+            f"{want}, got {kernel.path}")
+    row = kernel_row(f"{kernel.name} [{'+'.join(want)}]", fn, plain, moved,
+                     at)
+    row["path"] = list(want)
+    return row
+
+
+def check_table_paths(dev, B, C, D, G, K, A, what, column_rows=None):
+    """`table_update` and `act_conn` (and, on a whole table, the word
+    kernels) at one table, against their plain versions, bit for bit.
+    ``column_rows``: the table is a column shard of its first rows over
+    all C columns (`table_update` only). Returns the rows by kernel."""
+    thr, pun = 0.5, 0.01
+    x = table_inputs(C + K, B, C, G, K, D, A, device=dev)
+    cols, bits = x["cols"], x["bits"]
+    R = C if column_rows is None else column_rows
+    syn, perm = x["syn"][:, :R].contiguous(), x["perm"][:, :R].contiguous()
+    act_prev = x["act_prev"][:, :R].contiguous()
+    pun_word = x["pun_word"][:, :R].contiguous()
+    shard = {} if column_rows is None else {"column_dim": C}
+    bitmap = "smem" if C * D <= kernels.MAX_BITMAP_CELLS else "global"
+    act = {torch.uint8: "u8", torch.bfloat16: "bf16",
+           torch.float32: "f32"}[pas.act_dtype(K)]
+    at = (f"B={B} C={C} G={G} K={K} D={D} A={A}" if column_rows is None
+          else f"B={B}, rows {R} of C={C}, G={G} K={K} D={D} A={A}")
+    p_ref, p_k = perm.clone(), perm.clone()
+    v_ref = pas.table_update_ref(syn, p_ref, act_prev, pun_word, cols, bits,
+                                 D, K, pun, thr, **shard)
+    v_k = kernels.table_update_cuda(syn, p_k, act_prev, pun_word, cols, bits,
+                                    D, K, pun, thr, **shard)
+    torch.cuda.synchronize()
+    require(bool((v_ref > 1).any()) and bool((p_ref != perm).any()),
+            f"the inputs at {what} exercise connected and punished slots")
+    require(same_bits(v_k, v_ref) and same_bits(p_k, p_ref),
+            f"table_update == plain at {what}, bit for bit")
+    punished = int((p_ref != perm).sum())
+    want = (bitmap, act)
+    p = perm.clone()
+    rows = {"table_update": path_row(
+        kernels.TABLE_UPDATE, want,
+        lambda: kernels.table_update_cuda(syn, p, act_prev, pun_word, cols,
+                                          bits, D, K, pun, thr, **shard),
+        lambda: pas.table_update_ref(syn, p, act_prev, pun_word, cols, bits,
+                                     D, K, pun, thr, **shard),
+        nbytes(syn, perm, act_prev, pun_word, cols, bits, v_ref)
+        + 4 * punished, at)}
+    del p, p_ref, p_k, v_ref, v_k
+    if column_rows is not None:
+        return rows
+    c_ref = pas.synapse_activation_conn_ref(syn, perm, cols, bits, D, thr, K)
+    c_k = kernels.act_conn_cuda(syn, perm, cols, bits, D, thr, K)
+    word = pas.pack_frozen_table(syn, perm, thr)
+    f_ref = pas.synapse_activation_frozen_ref(word, cols, bits, D, K)
+    f_k = kernels.act_frozen_cuda(word, cols, bits, D, K)
+    torch.cuda.synchronize()
+    require(same_bits(c_k, c_ref), f"act_conn == plain at {what}")
+    require(same_bits(f_k, f_ref) and same_bits(f_ref, c_ref),
+            f"act_frozen == plain == act_conn at {what}")
+    rows["act_conn"] = path_row(
+        kernels.ACT_CONN, want,
+        lambda: kernels.act_conn_cuda(syn, perm, cols, bits, D, thr, K),
+        lambda: pas.synapse_activation_conn_ref(syn, perm, cols, bits, D,
+                                                thr, K),
+        nbytes(syn, perm, cols, bits, c_ref), at)
+    rows["act_frozen"] = path_row(
+        kernels.ACT_FROZEN, (*want, "grid_y"),
+        lambda: kernels.act_frozen_cuda(word, cols, bits, D, K),
+        lambda: pas.synapse_activation_frozen_ref(word, cols, bits, D, K),
+        nbytes(word, cols, bits, f_ref), at)
+    del c_ref, c_k, f_ref, f_k, word
+    if bitmap == "smem":
+        return rows
+    a_ref = pas.synapse_activation_ref(syn, cols, bits, C, D)
+    a_k = kernels.synapse_activation_cuda(syn, cols, bits, C, D)
+    srows = serving_rows(C, B, C + 8, C, D, G, device=dev)
+    s_ref = psv.serving_activation_ref(srows, cols, bits, C, D)
+    s_k = kernels.serving_activation_cuda(srows, cols, bits, C, D)
+    torch.cuda.synchronize()
+    require(same_bits(a_k, a_ref) and bool(a_ref.any()),
+            f"synapse_activation == plain at {what}")
+    require(same_bits(s_k, s_ref) and bool(s_ref.any()),
+            f"serving_activation == plain at {what}")
+    rows["synapse_activation"] = path_row(
+        kernels.SYNAPSE_ACTIVATION, ("global",),
+        lambda: kernels.synapse_activation_cuda(syn, cols, bits, C, D),
+        lambda: pas.synapse_activation_ref(syn, cols, bits, C, D),
+        nbytes(syn, cols, bits, a_ref), at)
+    rows["serving_activation"] = path_row(
+        kernels.SERVING_ACTIVATION, ("global",),
+        lambda: kernels.serving_activation_cuda(srows, cols, bits, C, D),
+        lambda: psv.serving_activation_ref(srows, cols, bits, C, D),
+        nbytes(srows, cols, bits, s_ref),
+        f"B={B} R={C + 8} rows of 128 D={D} A={A}")
+    return rows
+
+
+def check_sp_paths(dev, B, C, I_pad, quantized: bool) -> dict:
+    """`sp_update_pack` at (B, C, I_pad) against its plain version, bit
+    for bit, on random permanences (int16 units or float32), deltas and
+    one active column in four a stream."""
+    g = torch.Generator(device=dev).manual_seed(B + C + I_pad)
+    if quantized:
+        perm = torch.randint(-3000, 3000, (B, C, I_pad), generator=g,
+                             device=dev, dtype=torch.int16)
+        delta = torch.randint(-100, 100, (B, I_pad), generator=g,
+                              device=dev, dtype=torch.int32)
+        thr = 1000
+    else:
+        perm = torch.rand((B, C, I_pad), generator=g, device=dev)
+        delta = torch.rand((B, I_pad), generator=g, device=dev) * 0.2 - 0.1
+        thr = 0.5
+    A = max(1, C // 4)
+    cols = torch.rand((B, C), generator=g, device=dev).topk(
+        A, -1).indices.to(torch.int32)
+    p_ref, p_k = perm.clone(), perm.clone()
+    _, pack_ref = psp.sp_update_pack_ref(p_ref, delta, cols, thr)
+    _, pack_k = kernels.sp_update_pack_cuda(p_k, delta, cols, thr)
+    torch.cuda.synchronize()
+    dtype = str(perm.dtype).split(".")[1]
+    at = f"B={B} C={C} I_pad={I_pad} A={A} {dtype}"
+    require(same_bits(p_k, p_ref) and same_bits(pack_k, pack_ref)
+            and bool(pack_ref.any()) and not torch.equal(p_ref, perm),
+            f"sp_update_pack == plain at {at}, bit for bit")
+    want = (kernels._delta(C, I_pad), kernels._streams(B))
+    written = B * A * I_pad * perm.element_size()
+    p = perm.clone()
+    return path_row(kernels.SP_UPDATE_PACK, want,
+                    lambda: kernels.sp_update_pack_cuda(p, delta, cols, thr),
+                    lambda: psp.sp_update_pack_ref(p, delta, cols, thr),
+                    nbytes(perm, delta, cols, pack_ref) + written, at)
+
+
+def check_paths(dev) -> dict:
+    """Every path that the kernels of the first design refused (ROADMAP
+    fault q), held bit-equal to the plain versions and timed:
+    `table_update`, `act_conn` and `act_frozen` at K = 126, 127 and 128
+    (bf16, bf16, float32); the five bitmap kernels with the global bitmap
+    at 32,768 x 64 and one column past the limit, B=4; `table_update` on
+    a column shard of 32,768 columns; `act_frozen` and `sp_update_pack`
+    at B = 65,536 with C=2; `sp_update_pack` past its shared memory
+    (I_pad = 59,392, C=64, B=2). Returns {kernel: {case: row}}."""
+    out: dict[str, dict] = {k.name: {} for k in kernels.KERNELS}
+
+    def add(case: str, rows: dict) -> None:
+        for name, row in rows.items():
+            out[name][case] = row
+
+    B, C, D, G, A = PATH_KS_AT
+    for K in PATH_KS:
+        add(f"K={K}", check_table_paths(dev, B, C, D, G, K, A, f"K={K}"))
+        torch.cuda.empty_cache()
+    Bg, D, G, K = GLOBAL_AT
+    for C in GLOBAL_CS:
+        A = round(0.02 * C)
+        add(f"global C={C}", check_table_paths(dev, Bg, C, D, G, K, A,
+                                               f"{C}x{D}, global bitmap"))
+        torch.cuda.empty_cache()
+    C = GLOBAL_CS[0]
+    add("column shard", check_table_paths(
+        dev, Bg, C, D, G, K, round(0.02 * C), "a column shard",
+        column_rows=C // 2))
+    # B = 65,536 streams of 2 columns: act_frozen and sp_update_pack fold
+    # the streams into grid x
+    x = table_inputs(7, WIDE_B, 2, 4, 64, 32, 1, device=dev)
+    word = pas.pack_frozen_table(x["syn"], x["perm"], 0.5)
+    cols, bits = x["cols"], x["bits"]
+    f_ref = pas.synapse_activation_frozen_ref(word, cols, bits, 32, 64)
+    f_k = kernels.act_frozen_cuda(word, cols, bits, 32, 64)
+    torch.cuda.synchronize()
+    require(same_bits(f_k, f_ref) and bool((f_ref > 1).any()),
+            f"act_frozen == plain at B={WIDE_B}")
+    add("B=65536", {"act_frozen": path_row(
+        kernels.ACT_FROZEN, ("smem", "u8", "grid_x_streams"),
+        lambda: kernels.act_frozen_cuda(word, cols, bits, 32, 64),
+        lambda: pas.synapse_activation_frozen_ref(word, cols, bits, 32, 64),
+        nbytes(word, cols, bits, f_ref), f"B={WIDE_B} C=2 G=4 K=64 D=32 A=1"),
+        "sp_update_pack": check_sp_paths(dev, WIDE_B, 2, 1024, True)})
+    del x, word, cols, bits, f_ref, f_k
+    B, C, I_pad = GMEM_SP
+    add("gmem delta int16", {"sp_update_pack": check_sp_paths(
+        dev, B, C, I_pad, True)})
+    add("gmem delta float32", {"sp_update_pack": check_sp_paths(
+        dev, B, C, I_pad, False)})
+    torch.cuda.empty_cache()
+    return {k: v for k, v in out.items() if v}
+
+
+# ---- the port's verification tools on the card: the config-fuzz
+# geometries, full-step oracle parity, the profile by call site, the
+# soaks (bithtm_tpu_torch/scripts)
+
+# parity_check's fresh sizes and their steps; the learned bench state's
+# streams, learning and inference steps for --from_state
+PARITY_SIZES = (("tiny", 80), ("mid", 60), ("bisect", 40))
+PARITY_FROM_STATE = (2, 24, 4)
+PROFILE_ARGS = ["--fast", "--batch", str(BATCH), "--trace_steps", "16",
+                "--warmup_steps", "384"]
+SOAK_16K_TO = 2048      # the step the learned 16K state is carried on to
+SOAK_16K_CHUNK = 256
+SOAK_EVICT = ["--steps", "1024", "--batch", "64", "--window", "256"]
+SOAK_FAST = ["--batch", str(BATCH), "--chunks", "10"]   # 2,000 steps
+
+
+def run_fuzz_on_card(dev) -> dict:
+    """The 22 config-fuzz geometries (`testing.FUZZ_CASES`, the JAX
+    test's list) through `tm_step` at B=2 on the CPU and on the card with
+    the same draws (made on the CPU, `DrawsOn`) and the same columns,
+    every state leaf and every step's metrics bit-equal; prints each
+    case's kernel launches by path (K=126-128 take the bf16 and f32
+    activity)."""
+    out = {}
+    for name, overrides, steps in testing.FUZZ_CASES:
+        cfg = testing.fuzz_config(**overrides)
+        results = []
+        for where in ("cpu", dev):
+            gen = torch.Generator().manual_seed(testing.fuzz_seed(name))
+            draws = DrawsOn(bt.TorchDraws(cfg, 2, "cpu", gen), where)
+            rng = np.random.RandomState(testing.fuzz_seed(name))
+            state = bt.tm_init(cfg, 2, where)
+            metrics = []
+            kernels.reset_launch_counts()
+            for _ in range(steps):
+                cols = torch.from_numpy(testing.fuzz_cols(cfg, 2, rng))
+                state, tm_out = bt.tm_step(cfg, state, draws.step(),
+                                           cols.to(where), True)
+                metrics.append({k: v.cpu() for k, v in
+                                tm_out.metrics.items()})
+            results.append((bt.htm_state_to_numpy(bt.HTMState(
+                sp=bt.SPState(*[torch.zeros(1)] * 3), tm=state))["tm"],
+                metrics, kernels.path_counts()))
+        (s_cpu, m_cpu, _), (s_gpu, m_gpu, paths) = results
+        diff = [k for k in s_cpu if not np.array_equal(
+            s_cpu[k].view(np.uint8), s_gpu[k].view(np.uint8))]
+        diff += [k for k in m_cpu[0] if not all(
+            torch.equal(a[k], b[k]) for a, b in zip(m_cpu, m_gpu))]
+        require(not diff, f"fuzz {name}: the card == the CPU, differing "
+                f"{diff}")
+        require(paths.get("table_update"), f"fuzz {name}: table_update "
+                f"launched on the card")
+        act = pas.act_dtype(cfg.synapse_capacity)
+        require(str(s_gpu["synapse_act"].dtype) == (
+            "float32" if act == torch.bfloat16 else str(act).split(".")[1]),
+            f"fuzz {name}: the activity in {act}")
+        out[name] = {"steps": steps, "paths": paths}
+        print(f"fuzz {name}: {steps} steps at B=2, the card == the CPU in "
+              f"every leaf and metric; launches by path {json.dumps(paths)}")
+    return out
+
+
+def run_parity(dev, learned_bench, tmp: str) -> dict:
+    """`scripts.parity_check` on the card: each fresh size of
+    PARITY_SIZES and ``--sp``, then ``full --from_state`` on the first
+    streams of the learned bench state (``learned_bench``: the state and
+    its next inputs), learning then inference steps, every decision of
+    every step judged."""
+    from bithtm_tpu_torch.scripts import parity_check
+    from bithtm_tpu_torch.utils import checkpoint
+
+    out = {size: parity_check.run_tm_parity(size, steps, dev)
+           for size, steps in PARITY_SIZES}
+    out["sp"] = parity_check.run_sp_parity(dev)
+    streams, learn, infer = PARITY_FROM_STATE
+    state, xs = learned_bench
+    path = os.path.join(tmp, "bench_learned")
+    checkpoint.save(path, state_on(host_leaves(state, slice(0, streams)),
+                                   "cpu"))
+    np.save(os.path.join(tmp, "bench_next.npy"),
+            xs[:learn + infer, :streams].cpu().numpy())
+    kernels.reset_launch_counts()
+    out["full_from_state"] = parity_check.main([
+        "--size", "full", "--from_state", path, "--inputs",
+        os.path.join(tmp, "bench_next.npy"), "--streams", str(streams),
+        "--steps", str(learn), "--inference_steps", str(infer)])["tm"]
+    launches = kernels.launch_counts()
+    require(launches["table_update"] == learn
+            and launches["act_conn"] == infer,
+            f"the from-state run launches table_update once a learning "
+            f"step and act_conn once an inference step, got {launches}")
+    got = out["full_from_state"]
+    require(got["learning_segments"] > got["new_segments"]
+            and got["punished_segments"] > 0 and got["correct"] > 0,
+            "the learned state's segments are reinforced and punished, "
+            "and predict")
+    print("parity on the card: " + json.dumps(
+        {k: {f: v[f] for f in ("port_s", "oracle_s") if f in v}
+         for k, v in out.items() if isinstance(v, dict)}))
+    return out
+
+
+def run_profile(graph_launches: float) -> dict:
+    """`scripts.profile_step` at bench learning (fast stack, B=256) over
+    16 loop steps from a state warmed 384 steps: each call site's device
+    ms a step, its sum within 10% of the graph's busy a step (the script
+    raises otherwise); printed beside the kernel launches a step of the
+    main path's graph (``graph_launches``, from `run_graph_bench`)."""
+    from bithtm_tpu_torch.scripts import profile_step
+
+    out = profile_step.main(PROFILE_ARGS)
+    print(f"profile: ranges {out['ranges_ms']:.3f} ms a step of the loop's "
+          f"{out['loop_busy_ms']:.3f} busy and the graph's "
+          f"{out['graph_busy_ms']:.3f}; the graph launches "
+          f"{out['graph_launches']:.1f} kernels a step here and "
+          f"{graph_launches:.1f} on the main path's learned state")
+    return out
+
+
+def run_soaks(dev, carry16) -> dict:
+    """The soaks on the card: the learned 16K state (``carry16``: state,
+    generator, config and the step it stands at) carried on to
+    SOAK_16K_TO under `htm_scan_autocap` from the tuned caps, with no
+    dropped candidate in the banked run; `soak_evict_pressure` at 1,024
+    steps x B=64 with zero dropped allocations; `soak_fast_stack` at
+    2,000 steps x 256 streams, held to the JAX record."""
+    from bithtm_tpu_torch.scripts import (soak_16k_autocap,
+                                          soak_evict_pressure,
+                                          soak_fast_stack)
+
+    state, gen, cfg, at = carry16
+    B = state.batch
+    xs = bench_inputs(cfg, B, SOAK_16K_TO, dev)[at:]
+    _, soak16 = soak_16k_autocap.run_soak(
+        cfg, state, xs, TUNED_16K, SOAK_16K_CHUNK,
+        bt.TorchDraws(cfg.tm, B, dev, gen), start_step=at)
+    del state, xs
+    require(not any(soak16["banked_drops"].values()),
+            f"the 16K state carried to step {SOAK_16K_TO} drops no "
+            f"candidate in the banked run: {soak16['banked_drops']}")
+    print(f"16K carried on from step {at} to {SOAK_16K_TO}: "
+          f"escalated_at_step {soak16['escalated_at_step']}, banked drops "
+          f"{soak16['banked_drops']}, end to end "
+          f"{soak16['end_to_end_ms_per_step']:.3f} ms/step")
+    torch.cuda.empty_cache()
+    evict = soak_evict_pressure.main(SOAK_EVICT)
+    require(all(w["drops"] == 0 for w in evict["windows"]),
+            "soak_evict_pressure drops no allocation")
+    fast = soak_fast_stack.main(SOAK_FAST)
+    return {"16k": soak16, "evict_pressure": evict, "fast_stack": fast}
 
 
 # the single-stream reference API at the README's defaults (1000 inputs,
@@ -2740,18 +3124,28 @@ def main() -> None:
     phase("build")
 
     checks = check_kernels(dev)
+    main_paths = {k.name: set(k.path) for k in kernels.KERNELS}
+    path_rows = check_paths(dev)
+    print("kernel paths: " + json.dumps(path_rows))
     phase("check_kernels")
     check_learning(dev)
     check_cpu_agreement(dev)
     launches, snap, _, (state, gen, serve_xs) = run_main_path(dev)
     phase("run_main_path")
+    fuzz = run_fuzz_on_card(dev)
+    phase("run_fuzz_on_card")
     tmp = tempfile.TemporaryDirectory(prefix=".smoke_", dir=REPO)
     bench_path = os.path.join(tmp.name, "bench.pt")
     torch.save(host_leaves(state), bench_path)
+    parity = run_parity(dev, (state, serve_xs), tmp.name)
+    phase("run_parity")
     launches.update(run_serving(snap.cfg, state, gen, serve_xs))
     phase("run_serving")
     graph_paths = {"bench": run_graph_bench(snap.cfg, state, gen, serve_xs)}
     phase("run_graph_bench")
+    profile = run_profile(
+        graph_paths["bench"]["learning"]["graph"]["launches_per_step"])
+    phase("run_profile")
     entry = run_entry_points(snap.cfg, state, serve_xs)
     check_boost(dev, state.sp, serve_xs)
     launches.update(sp_update_pack=entry["sp_update_pack"],
@@ -2761,10 +3155,14 @@ def main() -> None:
     del snap
     torch.cuda.empty_cache()
     phase("entry points, boost, phases, profile")
-    launches_16k, _, learned16, graph_paths["16k"] = run_16k(dev)
+    launches_16k, _, learned16, graph_paths["16k"], carry16 = run_16k(dev)
     launches["small_table_take"] = launches_16k["small_table_take"]
     torch.cuda.empty_cache()
     phase("run_16k")
+    soaks = run_soaks(dev, carry16)
+    del carry16
+    torch.cuda.empty_cache()
+    phase("run_soaks")
     shard_rows = run_parallel(dev, learned16, bench_path, tmp.name)
     print(f"parallel phase: {time.perf_counter() - clock:.1f} s; kernels on "
           f"a column shard: " + json.dumps(shard_rows))
@@ -2780,13 +3178,31 @@ def main() -> None:
     graph_paths["stack"] = anomaly["stack_graph_vs_loop"]
     phase("run_anomaly")
     print("graph vs loop: " + json.dumps(graph_paths))
+    print("tools: " + json.dumps({
+        "fuzz": {k: v["paths"] for k, v in fuzz.items()},
+        "parity": {k: {f: v.get(f) for f in ("port_s", "oracle_s")}
+                   for k, v in parity.items() if k != "sp"},
+        "profile": {k: profile[k] for k in (
+            "sites", "ranges_ms", "loop_busy_ms", "graph_busy_ms",
+            "graph_launches")},
+        "soaks": {"16k": {k: soaks["16k"][k] for k in (
+            "escalated_at_step", "banked_drops", "end_to_end_ms_per_step",
+            "tuned_steady_ms_per_step", "safe_steady_ms_per_step")},
+            "evict_pressure": [(w["step"], w["evicted_per_step"],
+                                w["drops"], w["streams_at_full"],
+                                w["ms_per_step"])
+                               for w in soaks["evict_pressure"]["windows"]],
+            "fast_stack": soaks["fast_stack"].get("record")}}))
     print(f"phases (s): {json.dumps(phases)}; total "
           f"{time.perf_counter() - began:.1f} s")
 
+    paths = {name: sorted(main_paths[name].union(*(
+        row["path"] for row in path_rows.get(name, {}).values())))
+        for name in REPLACES}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
-         **checks[name]} for name in REPLACES]}))
+         **checks[name], "paths": paths[name]} for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": device}))
 
 

@@ -341,7 +341,14 @@ def test_serving_wrappers_reject_bad_inputs(kernel, bad, cuda):
         flat = torch.empty(t.numel() + 1, dtype=torch.int32, device=cuda)
         t = flat[1:].view(t.shape)
     else:
-        C = 1 << 20  # a 4 MB active-cell bitmap
+        # a 4 MB active-cell bitmap: no longer refused, it takes the
+        # global-memory bitmap and agrees with the plain version
+        C = 1 << 20
+        got = kernels.serving_activation_cuda(t, cols, bits, C, D)
+        assert kernels.SERVING_ACTIVATION.path == ("global",)
+        assert torch.equal(got, psv.serving_activation_ref(t, cols, bits,
+                                                           C, D))
+        return
     with pytest.raises((TypeError, ValueError)):
         if kernel == "act_frozen":
             kernels.act_frozen_cuda(t, cols, bits, D, K)
@@ -405,9 +412,9 @@ def test_word_pass_grid(cuda):
     at least four an SM, over eight waves."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for serving, J in ((True, 128), (False, 256), (False, 7)):
-        assert kernels.word_pass_grid(serving, 16384, J, 64) == (8 * sms,
-                                                                 1024)
-        blocks, threads = kernels.word_pass_grid(serving, 2048, J, 32)
+        assert kernels.word_pass_grid(serving, 16384, J, 64) == (
+            8 * sms, 1024, ("smem",))
+        blocks, threads, _ = kernels.word_pass_grid(serving, 2048, J, 32)
         assert threads == 256 and blocks % (8 * sms) == 0
         assert blocks >= 8 * sms * 4
 
@@ -926,7 +933,11 @@ def test_autocap_graph_escalates_like_the_loop(cuda):
 def test_stack_graph_equals_the_loop(cuda):
     """`stack_scan` replaying its graph (two `htm_step`s and the dense
     layer-0 output a step) equals the loop, two table kernels a learning
-    step and two `act_conn` an inference step."""
+    step and two `act_conn` an inference step. Six runs, each capturing
+    its inference graph right behind its learning replays, the two
+    graphs sharing one generator: a capture once reset the generator's
+    device-side offset under replays still running, and about every
+    third run then grew other synapses."""
     from bithtm_tpu_torch.models import graph
 
     cfg = bt.make_stack_config(128, [(256, 8), (128, 8)], active_columns=10,
@@ -948,11 +959,13 @@ def test_stack_graph_equals_the_loop(cuda):
 
     with graph.eager():
         loop = run()
-    replay = run()
-    for a, b, what in zip(replay[:3], loop[:3], ("state", "learn", "infer")):
-        _assert_same(a, b, what)
-    assert replay[3] == loop[3] == only(table_update=64)
-    assert replay[4] == loop[4] == only(table_update=64, act_conn=16)
+    for _ in range(6):
+        replay = run()
+        for a, b, what in zip(replay[:3], loop[:3],
+                              ("state", "learn", "infer")):
+            _assert_same(a, b, what)
+        assert replay[3] == loop[3] == only(table_update=64)
+        assert replay[4] == loop[4] == only(table_update=64, act_conn=16)
 
 
 @pytest.mark.cuda
@@ -1066,3 +1079,120 @@ def test_profiler_sees_one_kernel_a_replayed_step(cuda):
                and "table_pass_kernel" in e.name)
     assert launched(before) == only(table_update=8)
     assert seen == 8
+
+
+# the paths the kernels take past the shapes of their first design
+# (ops/kernels.py): (B, C, G, K, D, A) and the path the table kernels take
+PATH_SHAPES = {
+    "K126 bf16": ((2, 64, 2, 126, 32, 5), ("smem", "bf16")),
+    "K127 bf16, J % 4 != 0": ((2, 64, 2, 127, 32, 5), ("smem", "bf16")),
+    "K128 f32": ((2, 64, 2, 128, 32, 5), ("smem", "f32")),
+    # one column past the shared-memory bitmap at D=64
+    "global bitmap": ((2, 29_057, 1, 8, 64, 20), ("global", "u8")),
+    "global bitmap, K128, J % 4 != 0 rows": ((1, 29_057, 1, 129, 64, 20),
+                                             ("global", "f32")),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PATH_SHAPES))
+def test_kernel_paths_match_plain(case, cuda):
+    """`table_update`, `act_conn`, `act_frozen` and, past the bitmap
+    limit, `serving_activation` and `synapse_activation` on each path
+    (the packed activity in bf16 or float32, the global-memory bitmap),
+    bit-equal to their plain versions, reporting the path they took."""
+    shape, path = PATH_SHAPES[case]
+    B, C, G, K, D, A = shape
+    x = table_inputs(sum(shape), *shape, device=cuda)
+    cols, bits = x["cols"], x["bits"]
+    p_ref, p_k = x["perm"].clone(), x["perm"].clone()
+    v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"],
+                                 x["pun_word"], cols, bits, D, K, 0.01, 0.5)
+    v_k = kernels.table_update_cuda(x["syn"], p_k, x["act_prev"],
+                                    x["pun_word"], cols, bits, D, K, 0.01,
+                                    0.5)
+    assert kernels.TABLE_UPDATE.path == path
+    c_k = kernels.act_conn_cuda(x["syn"], x["perm"], cols, bits, D, 0.5, K)
+    word = pas.pack_frozen_table(x["syn"], x["perm"], 0.5)
+    f_k = kernels.act_frozen_cuda(word, cols, bits, D, K)
+    assert kernels.ACT_FROZEN.path == (*path, "grid_y")
+    torch.cuda.synchronize()
+    assert v_k.dtype == pas.act_dtype(K) and torch.equal(v_k, v_ref)
+    assert torch.equal(p_k.view(torch.int32), p_ref.view(torch.int32))
+    c_ref = pas.synapse_activation_conn_ref(x["syn"], x["perm"], cols, bits,
+                                            D, 0.5, K)
+    assert torch.equal(c_k, c_ref)
+    assert torch.equal(f_k, pas.synapse_activation_frozen_ref(word, cols,
+                                                              bits, D, K))
+    assert (v_ref > 1).any() and (p_ref != x["perm"]).any()
+    if path[0] == "global":
+        rows = serving_rows(sum(shape) + 1, B, C + 8, C, D, G, device=cuda)
+        s_k = kernels.serving_activation_cuda(rows, cols, bits, C, D)
+        a_k = kernels.synapse_activation_cuda(x["syn"], cols, bits, C, D)
+        assert kernels.SERVING_ACTIVATION.path == ("global",)
+        assert kernels.SYNAPSE_ACTIVATION.path == ("global",)
+        torch.cuda.synchronize()
+        assert torch.equal(s_k, psv.serving_activation_ref(rows, cols, bits,
+                                                           C, D))
+        assert torch.equal(a_k, pas.synapse_activation_ref(x["syn"], cols,
+                                                           bits, C, D))
+        # a column shard of the first rows over all C columns
+        R = C // 3
+        sh = {k: x[k][:, :R].contiguous()
+              for k in ("syn", "perm", "act_prev", "pun_word")}
+        p_ref, p_k = sh["perm"].clone(), sh["perm"].clone()
+        v_ref = pas.table_update_ref(sh["syn"], p_ref, sh["act_prev"],
+                                     sh["pun_word"], cols, bits, D, K, 0.01,
+                                     0.5, column_dim=C)
+        v_k = kernels.table_update_cuda(sh["syn"], p_k, sh["act_prev"],
+                                        sh["pun_word"], cols, bits, D, K,
+                                        0.01, 0.5, column_dim=C)
+        assert kernels.TABLE_UPDATE.path == path
+        torch.cuda.synchronize()
+        assert torch.equal(v_k, v_ref)
+        assert torch.equal(p_k.view(torch.int32), p_ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["act_frozen streams", "sp streams",
+                                  "sp gmem int16", "sp gmem float32"])
+def test_stream_and_delta_paths_match_plain(case, cuda):
+    """Past 65,535 streams `act_frozen` and `sp_update_pack` fold the
+    streams into grid x; past its shared memory `sp_update_pack` reads
+    the delta row and the column bitmap from global memory. Each is
+    bit-equal to its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    if case == "act_frozen streams":
+        x = table_inputs(31, 65_536, 2, 1, 8, 4, 1, device=cuda)
+        word = pas.pack_frozen_table(x["syn"], x["perm"], 0.5)
+        got = kernels.act_frozen_cuda(word, x["cols"], x["bits"], 4, 8)
+        assert kernels.ACT_FROZEN.path == ("smem", "u8", "grid_x_streams")
+        want = pas.synapse_activation_frozen_ref(word, x["cols"], x["bits"],
+                                                 4, 8)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and (want > 1).any()
+        return
+    B, C, I_pad = (65_536, 2, 1024) if case == "sp streams" else (
+        2, 64, 59_392)
+    if case.endswith("float32"):
+        perm = torch.rand((B, C, I_pad), generator=g, device=cuda)
+        delta = torch.rand((B, I_pad), generator=g, device=cuda) - 0.5
+        thr = 0.5
+    else:
+        perm = torch.randint(-3000, 3000, (B, C, I_pad), generator=g,
+                             device=cuda, dtype=torch.int16)
+        delta = torch.randint(-100, 100, (B, I_pad), generator=g,
+                              device=cuda, dtype=torch.int32)
+        thr = 1000
+    cols = torch.rand((B, C), generator=g, device=cuda).topk(
+        max(1, C // 4), -1).indices.to(torch.int32)
+    p_ref, p_k = perm.clone(), perm.clone()
+    _, pack_ref = psp.sp_update_pack_ref(p_ref, delta, cols, thr)
+    _, pack_k = kernels.sp_update_pack_cuda(p_k, delta, cols, thr)
+    assert kernels.SP_UPDATE_PACK.path == (
+        ("smem_delta", "grid_x_streams") if case == "sp streams"
+        else ("gmem_delta", "grid_y"))
+    torch.cuda.synchronize()
+    assert torch.equal(pack_k, pack_ref) and pack_ref.any()
+    assert torch.equal(p_k.view(torch.uint8), p_ref.view(torch.uint8))
+    assert not torch.equal(p_ref, perm)

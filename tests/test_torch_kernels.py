@@ -168,9 +168,10 @@ def test_table_entry_points_take_column_dim():
     """`table_update` and `act_conn` take the bitmap's column count right
     after the table's rows (a column shard's rows differ from it), and
     their ctypes argument types carry one more int than the kernels of
-    a whole table did."""
+    a whole table did. Their pointers end with the bitmap scratch and the
+    output."""
     src = (kernels.CSRC / "table_pass.cu").read_text()
-    for name, n_ptr in (("table_update", 7), ("act_conn", 5)):
+    for name, n_ptr in (("table_update", 8), ("act_conn", 6)):
         params = re.search(rf'extern "C" int {name}\(([^)]*)\)',
                            src).group(1)
         names = [p.split()[-1].lstrip("*") for p in params.split(",")]
@@ -212,12 +213,13 @@ def test_cuda_source_names_both_entry_points():
     assert Path(kernels.library_path()).parent == kernels.BUILD_DIR
 
 
-# ---- the limits only the card has (README.md, port section) ----------
+# ---- the paths the wrappers choose from shapes (README.md, port
+# section) and the one limit left -------------------------------------
 
 
 def _view(*shape, dtype=torch.int32):
     """A CPU tensor of ``shape`` that holds one element: the wrappers
-    must raise on its shape before they read it."""
+    must choose their path from its shape before they read it."""
     return torch.zeros((1,) * len(shape), dtype=dtype).expand(*shape)
 
 
@@ -225,48 +227,77 @@ def _active(B, A=3, W=1):
     return _view(B, A), _view(B, A, W)
 
 
-LIMIT_CALLS = {
-    # C*D = 58,113 * 32 cells, one past the bitmap's 1,859,584
+def _act_conn_k(K, C=4, D=32):
+    """`act_conn` over (1, C, K) rows of one segment of K slots."""
+    return lambda: kernels.act_conn_cuda(
+        _view(1, C, K), _view(1, C, K, dtype=torch.float32),
+        *_active(1, W=(D + 31) // 32), D, 0.5, K)
+
+
+# name: (call, the kernel whose path it reports, that path); a path of
+# None is the one limit left, which still raises
+PATH_CALLS = {
+    # C*D = 58,113 * 32 cells, one column past the bitmap's 1,859,584
     "bitmap, table pass": (lambda: kernels.act_conn_cuda(
         _view(1, 58_113, 64), _view(1, 58_113, 64, dtype=torch.float32),
-        *_active(1), 32, 0.5, 64), "the bitmap limit"),
+        *_active(1), 32, 0.5, 64), "act_conn", ("global", "u8")),
     "bitmap, serving rows": (lambda: kernels.serving_activation_cuda(
-        _view(1, 4, 128), *_active(1, W=2), 32_768, 64), "the bitmap limit"),
+        _view(1, 4, 128), *_active(1, W=2), 32_768, 64),
+        "serving_activation", ("global",)),
     "bitmap, synapse_activation": (lambda: kernels.synapse_activation_cuda(
-        _view(1, 4, 8), *_active(1, W=2), 32_768, 64), "the bitmap limit"),
+        _view(1, 4, 8), *_active(1, W=2), 32_768, 64),
+        "synapse_activation", ("global",)),
     "streams, act_frozen": (lambda: kernels.act_frozen_cuda(
-        _view(65_536, 2, 64), *_active(65_536), 32, 64),
-        "one-grid-row-a-stream limit"),
+        _view(65_536, 2, 64), *_active(65_536), 32, 64), "act_frozen",
+        ("smem", "u8", "grid_x_streams")),
     "streams, sp_update_pack": (lambda: kernels.sp_update_pack_cuda(
         _view(65_536, 2, 1024, dtype=torch.int16), _view(65_536, 1024),
-        _view(65_536, 3), 0), "one-grid-row-a-stream limit"),
+        _view(65_536, 3), 0), "sp_update_pack",
+        ("smem_delta", "grid_x_streams")),
     "shared memory, sp_update_pack": (lambda: kernels.sp_update_pack_cuda(
         _view(1, 1_827_000, 1024, dtype=torch.int16), _view(1, 1024),
-        _view(1, 3), 0), "sp_update_pack shared-memory limit"),
+        _view(1, 3), 0), "sp_update_pack", ("gmem_delta", "grid_y")),
     "stream words": (lambda: kernels.small_table_take_cuda(
         _view(1, 384), _view(1, 1 << 15, (1 << 15) + 1)),
-        "stream-words limit"),
+        "small_table_take", None),
     # a column shard of 4 rows over 58,113 columns: the bitmap spans the
     # global cell space, not the table's rows
     "bitmap, column shard": (lambda: kernels.table_update_cuda(
         _view(1, 4, 64), _view(1, 4, 64, dtype=torch.float32),
         _view(1, 4, 64, dtype=torch.uint8), _view(1, 4), *_active(1), 32,
-        64, 0.01, 0.5, column_dim=58_113), "the bitmap limit"),
-    "packed K": (lambda: kernels.act_conn_cuda(
-        _view(1, 4, 126), _view(1, 4, 126, dtype=torch.float32),
-        *_active(1), 32, 0.5, 126), "packed-K limit"),
+        64, 0.01, 0.5, column_dim=58_113), "table_update", ("global", "u8")),
+    "packed K": (_act_conn_k(126), "act_conn", ("smem", "bf16")),
+    # the activity's type on both sides of each act_dtype line
+    "K125": (_act_conn_k(125), "act_conn", ("smem", "u8")),
+    "K126": (_act_conn_k(126), "act_conn", ("smem", "bf16")),
+    "K127": (_act_conn_k(127), "act_conn", ("smem", "bf16")),
+    "K128": (_act_conn_k(128), "act_conn", ("smem", "f32")),
+    # exactly MAX_BITMAP_CELLS = 58,112 * 32 cells, and one cell past it
+    "bitmap at the limit": (_act_conn_k(64, C=58_112, D=32), "act_conn",
+                            ("smem", "u8")),
+    "bitmap one cell past": (_act_conn_k(64, C=371_917, D=5), "act_conn",
+                             ("global", "u8")),
 }
 
 
-@pytest.mark.parametrize("limit", list(LIMIT_CALLS))
-def test_card_only_limits_raise_from_shapes(limit):
-    """Each limit that only the kernels have raises a ValueError naming
-    it from the shapes alone: the tensors here are CPU views of one
-    element, which the wrappers would refuse as off the card if they
-    read them first. Nothing launches."""
-    call, name = LIMIT_CALLS[limit]
+@pytest.mark.parametrize("case", list(PATH_CALLS))
+def test_card_limits_choose_a_path_from_shapes(case):
+    """Each shape past a limit of the kernels' first design takes a path
+    of the same kernel, which the wrapper reports (`CudaKernel.path`)
+    from the shapes alone: the tensors here are CPU views of one element,
+    which the wrapper then refuses as off the card, so it has read none
+    of them before it chose. Only the stream-words limit still raises.
+    Nothing launches."""
+    call, name, path = PATH_CALLS[case]
+    kernel = next(k for k in kernels.KERNELS if k.name == name)
+    kernel.path = ()
     before = kernels.launch_counts()
-    with pytest.raises(ValueError, match=name):
-        call()
+    if path is None:
+        with pytest.raises(ValueError, match="stream-words limit"):
+            call()
+    else:
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            call()
+        assert kernel.path == path
     assert kernels.launch_counts() == before
     assert kernels.MAX_BITMAP_CELLS == 1_859_584

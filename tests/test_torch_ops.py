@@ -380,3 +380,62 @@ def test_growth_key_sentinel_does_not_collide():
     # what an int32 sort of the same keys would have done
     s32 = np.sort(jkey.view(np.int32), axis=-1)
     assert s32[0, 0] == -1
+
+
+@pytest.mark.parametrize("threads", ["one", "worker"])
+@pytest.mark.parametrize("flush", [False, True],
+                         ids=["denormals", "flush_denormal"])
+def test_boost_factor_is_exp_rounded_once_whatever_the_threads(threads,
+                                                                flush):
+    """ROADMAP fault g: the CPU factor is numpy's float64 `exp` of the
+    float32 argument rounded once, bit for bit, under one thread and
+    under the worker's count, with and without denormal flushing, at
+    sizes that leave vector tails, 20 calls each. This holds the CPU
+    path to its routing; `test_boost_agreement_counts_ulps_against_jax`
+    holds the factor to JAX."""
+    cfg = bt.make_htm_config(1000, 2048, 32).sp
+    rng = np.random.default_rng(17)
+    scale = np.float32(-(cfg.boosting_intensity / cfg.density))
+    cases = []
+    for size in (2047, 2048, 16383):
+        duty = rng.random(size, dtype=np.float32) * np.float32(
+            3 * cfg.density)
+        exact = np.exp((scale * duty).astype(np.float64)).astype(np.float32)
+        cases.append((duty, exact.view(np.uint32)))
+    workers = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1 if threads == "one" else workers)
+        torch.set_flush_denormal(flush)
+        for duty, want in cases:
+            for call in range(20):
+                got = preg.boost_factor(T(duty), cfg.boosting_intensity,
+                                        cfg.density).numpy().view(np.uint32)
+                assert np.array_equal(got, want), (
+                    f"{int((got != want).sum())} of {want.size} factors "
+                    f"differ at call {call}")
+    finally:
+        torch.set_num_threads(workers)
+        torch.set_flush_denormal(False)
+
+
+@pytest.mark.parametrize("K", [126, 128])
+def test_convert_carries_wide_packed_activity(K):
+    """At K=126 (bf16 activity) and K=128 (float32): a JAX state's
+    `synapse_act` becomes the port's leaf of `act_dtype(K)` with the same
+    values, and back through numpy (float32, numpy having no bf16) it
+    converts to the same port state again."""
+    jcfg = jb.make_htm_config(64, 64, 4, active_columns=4,
+                              segments_per_column=2, synapse_capacity=K)
+    jstate = jb.htm_init_batch(jax.random.key(0), jcfg, 2)
+    rng = np.random.RandomState(K)
+    scale = pas.act_scale(K)
+    act = rng.choice([0, 1, 1 + scale], size=jstate.tm.synapse_act.shape)
+    jstate = jstate.replace(tm=jstate.tm.replace(
+        synapse_act=jnp.asarray(act, jstate.tm.synapse_act.dtype)))
+    pstate = bt.htm_state_from_numpy(jstate, "cpu")
+    assert pstate.tm.synapse_act.dtype == pas.act_dtype(K)
+    np.testing.assert_array_equal(pstate.tm.synapse_act.float().numpy(),
+                                  act)
+    back = bt.htm_state_from_numpy(bt.htm_state_to_numpy(pstate), "cpu")
+    assert back.tm.synapse_act.dtype == pas.act_dtype(K)
+    assert torch.equal(back.tm.synapse_act, pstate.tm.synapse_act)

@@ -23,6 +23,7 @@ from bithtm_tpu.oracle import transplant as jax_transplant
 
 import bithtm_tpu_torch as bt
 from bithtm_tpu_torch import oracle as port_oracle
+from bithtm_tpu_torch import testing
 from bithtm_tpu_torch.convert import htm_state_to_numpy
 from bithtm_tpu_torch.state import tm_init
 
@@ -59,10 +60,7 @@ def debug_view(debug, b):
 
 
 def step_cols(cfg, rng):
-    return np.stack([np.sort(rng.choice(cfg.column_dim,
-                                        size=cfg.active_columns,
-                                        replace=False))
-                     for _ in range(B)]).astype(np.int32)
+    return testing.fuzz_cols(cfg, B, rng)
 
 
 def run_port_parity(cfg, steps, seed, learn_schedule=None):
