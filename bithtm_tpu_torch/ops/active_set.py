@@ -16,8 +16,10 @@ version beside it (`table_update_ref`, `synapse_activation_conn_ref`,
 `synapse_activation_frozen_ref`, `synapse_activation_ref`). The plain
 versions gather from a dense (B, C*D) active-cell mask; the kernels
 build the same mask as a bitmap in shared memory. `take_small_table`,
-the index -> cell decode of the growth keys above 2^16 cells, follows
-the same rule (`small_table_take` kernel, `take_small_table_ref`).
+the index -> cell decode of the growth keys above 2^16 cells, and
+`seg_counts_packed`, the per-segment count decode of the packed activity
+those passes write, follow the same rule (`small_table_take` kernel,
+`take_small_table_ref`; `seg_counts` kernel, `seg_counts_packed_ref`).
 """
 
 from __future__ import annotations
@@ -405,13 +407,26 @@ def table_update(syn, perm, act_prev, pun_word, cols, bits, seg_cell,
     return perm, act, potential, connected, matching, seg_active, prediction
 
 
-def seg_counts_packed(packed: torch.Tensor, num_segments: int,
-                      synapses: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, C, G*K) packed activity -> (potential, connected) int32 (B, C, G)
-    per-segment counts: a (B, C, G, K) reshape-sum decoded exactly."""
+def seg_counts_packed_ref(packed: torch.Tensor, num_segments: int,
+                          synapses: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the `seg_counts` kernel: (B, C, G*K) packed
+    activity -> (potential, connected) int32 (B, C, G) per-segment
+    counts, a (B, C, G, K) reshape-sum decoded exactly."""
     B, C, _ = packed.shape
     return seg_counts_packed_rows(
         packed.reshape(B, C, num_segments, synapses), synapses)
+
+
+def seg_counts_packed(packed: torch.Tensor, num_segments: int,
+                      synapses: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, C, G*K) packed activity -> (potential, connected) int32 (B, C,
+    G) per-segment counts: the `seg_counts` kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if _on_device("seg_counts_packed", packed) == "cuda":
+        from .kernels import seg_counts_cuda
+
+        return seg_counts_cuda(packed, num_segments, synapses)
+    return seg_counts_packed_ref(packed, num_segments, synapses)
 
 
 def seg_counts_packed_rows(act_rows: torch.Tensor, synapses: int

@@ -1,8 +1,9 @@
 """Build, binding and wrappers of the hand-written CUDA kernels.
 
 The sources in `csrc/` (`table_pass.cu`, `serving_pass.cu`,
-`small_take.cu` and `sp_pass.cu`; all include `launch.cuh`, all but
-`small_take.cu` `active_bitmap.cuh`) are compiled on first use with
+`small_take.cu`, `sp_pass.cu`, `overlap_pass.cu` and `count_pass.cu`;
+all include `launch.cuh`, `table_pass.cu`, `serving_pass.cu` and
+`sp_pass.cu` also `active_bitmap.cuh`) are compiled on first use with
 ``nvcc`` for ``sm_90a``, one process per source started together, and
 linked into a plain-C shared library under ``bithtm_tpu_torch/_build``
 (keyed by a hash of the sources and flags), loaded with ctypes. Nothing
@@ -40,12 +41,13 @@ from pathlib import Path
 import torch
 
 from .active_set import act_dtype, act_scale, cell_words
+from .overlap import input_words
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("table_pass.cu", "serving_pass.cu", "small_take.cu",
-           "sp_pass.cu")
+           "sp_pass.cu", "overlap_pass.cu", "count_pass.cu")
 HEADERS = ("active_bitmap.cuh", "launch.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -78,6 +80,10 @@ _ARGTYPES = {
     # perm, delta, cols, col_bitmaps, pack, B, C, I_pad, A, quantized,
     # threshold_f, threshold_i, fold
     "sp_update_pack": [_VP] * 5 + [_I] * 5 + [_F, _I, _I, _I, _VP],
+    # connected, bits, out, B, C, S, I, fold
+    "sp_overlap": [_VP] * 3 + [_I] * 5 + [_I, _VP],
+    # v, potential, connected, B, C, G, K, scale, act_bytes
+    "seg_counts": [_VP] * 3 + [_I] * 6 + [_I, _VP],
 }
 # the grid queries of the row-range kernels, which launch nothing:
 # table_pass_grid (punish, C, J, D, global, act_bytes, device, blocks
@@ -200,8 +206,11 @@ ACT_FROZEN = CudaKernel("act_frozen")
 SYNAPSE_ACTIVATION = CudaKernel("synapse_activation")
 SMALL_TABLE_TAKE = CudaKernel("small_table_take")
 SP_UPDATE_PACK = CudaKernel("sp_update_pack")
+SP_OVERLAP = CudaKernel("sp_overlap")
+SEG_COUNTS = CudaKernel("seg_counts")
 KERNELS = (TABLE_UPDATE, ACT_CONN, SERVING_ACTIVATION, ACT_FROZEN,
-           SYNAPSE_ACTIVATION, SMALL_TABLE_TAKE, SP_UPDATE_PACK)
+           SYNAPSE_ACTIVATION, SMALL_TABLE_TAKE, SP_UPDATE_PACK, SP_OVERLAP,
+           SEG_COUNTS)
 
 
 def launch_counts() -> dict[str, int]:
@@ -303,9 +312,9 @@ def _bitmap(C: int, cell_dim: int) -> str:
 
 
 def _streams(B: int) -> str:
-    """`act_frozen` and `sp_update_pack` run one grid row a stream
-    ("grid_y") up to the grid's y extent, and fold the streams into grid
-    x past it ("grid_x_streams")."""
+    """`act_frozen`, `sp_update_pack` and `sp_overlap` run one grid row a
+    stream ("grid_y") up to the grid's y extent, and fold the streams
+    into grid x past it ("grid_x_streams")."""
     return "grid_y" if B <= MAX_GRID_Y else "grid_x_streams"
 
 
@@ -591,3 +600,60 @@ def sp_update_pack_cuda(permanence, delta_row, active_cols, threshold
                           int(path[1] == "grid_x_streams"), dev,
                           _stream(dev))
     return permanence, pack
+
+
+def sp_overlap_cuda(connected, input_bits) -> torch.Tensor:
+    """CUDA `sp_overlap`: (B, C) int32 overlap counts of a (B, C, S) u8
+    packed connected table with the (B, I) bool inputs, S =
+    `input_words(I)`; the kernel packs the inputs itself (see
+    `overlap.overlaps_ref`). Any C: a column shard's table holds its
+    rows only."""
+    if connected.dim() != 3 or input_bits.dim() != 2:
+        raise ValueError(f"connected must be (B, C, S) and input_bits (B, "
+                         f"I), got {tuple(connected.shape)} and "
+                         f"{tuple(input_bits.shape)}")
+    B, C, S = connected.shape
+    I = input_bits.shape[-1]
+    if S != input_words(I):
+        raise ValueError(f"connected rows of S={S} bytes do not hold "
+                         f"I={I} inputs (input_words: {input_words(I)})")
+    _stream_words(C * S // 4)
+    path = SP_OVERLAP.choose(_streams(B))
+    dev = connected.get_device()
+    conn_p = _ptr("connected", connected, torch.uint8, None, dev, align=16)
+    bits_p = _ptr("input_bits", input_bits, torch.bool, (B, I), dev)
+    out = torch.empty((B, C), dtype=torch.int32, device=connected.device)
+    if out.numel() == 0:
+        return out
+    SP_OVERLAP.launch(conn_p, bits_p, out.data_ptr(), B, C, S, I,
+                      int(path[0] == "grid_x_streams"), dev, _stream(dev))
+    return out
+
+
+def seg_counts_cuda(packed, num_segments: int, synapses: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA `seg_counts`: the (B, C, G*K) packed activity in
+    `act_dtype(K)` -> (potential, connected) int32 (B, C, G), the exact
+    decode of each segment's sum (see
+    `active_set.seg_counts_packed_ref`)."""
+    if packed.dim() != 3:
+        raise ValueError(f"packed must be (B, C, G*K), got "
+                         f"{tuple(packed.shape)}")
+    B, C, J = packed.shape
+    G, K = num_segments, synapses
+    if K < 1 or G < 0 or J != G * K:
+        raise ValueError(f"packed rows of J={J} values are not G={G} "
+                         f"segments of K={K}")
+    dtype = act_dtype(K)
+    _stream_words(C * J * dtype.itemsize // 4)
+    SEG_COUNTS.choose(_act_name(K))
+    dev = packed.get_device()
+    v_p = _ptr("packed", packed, dtype, None, dev, align=16)
+    potential = torch.empty((B, C, G), dtype=torch.int32,
+                            device=packed.device)
+    connected = torch.empty_like(potential)
+    if potential.numel() == 0:
+        return potential, connected
+    SEG_COUNTS.launch(v_p, potential.data_ptr(), connected.data_ptr(), B, C,
+                      G, K, act_scale(K), dtype.itemsize, dev, _stream(dev))
+    return potential, connected

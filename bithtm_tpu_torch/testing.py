@@ -4,7 +4,8 @@
 versions, made with numpy from a seed at any shape; the check of the
 SP's boost on one device against the CPU (`boost_agreement`);
 `run_ranks`, which runs the ranks of a multi-process check as processes
-with a deadline; and the config-fuzz geometries (`FUZZ_CASES`,
+with a deadline; `step_launches`, the kernel launches HTM steps make;
+and the config-fuzz geometries (`FUZZ_CASES`,
 `fuzz_config`), the port's copy of `tests/test_parity_fuzz.py`'s list,
 which `tests/test_torch_parity_fuzz.py` holds equal to it."""
 
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from .config import TMConfig
+from .ops import kernels
 from .ops.active_set import act_dtype, act_scale, pack_bits
 from .ops.regularization import boost, boost_factor, k_winners
 from .ops.serving import SERVING_G_BITS
@@ -80,6 +82,26 @@ def serving_rows(seed: int, B: int, R: int, C: int, D: int, G: int,
     words = np.where(rng.random((B, R, 128)) < empty, -1,
                      (cell << SERVING_G_BITS) | g).astype(np.int32)
     return torch.from_numpy(words).to(device)
+
+
+# the kernels that run a step's distal forward pass, one of them a step
+STEP_KERNELS = ("table_update", "act_conn", "act_frozen",
+                "serving_activation")
+
+
+def step_launches(sp_steps: int | None = None, **counts) -> dict:
+    """The launch count of every kernel (`kernels.launch_counts`'s keys)
+    after HTM steps that launched the given kernels ``counts``, every
+    other kernel 0: beside them one `sp_overlap` a step (``sp_steps``, by
+    default one for each launch of a kernel of STEP_KERNELS, as a step
+    runs the SP once) and one `seg_counts` after each kernel that writes
+    the packed activity (all of STEP_KERNELS but `serving_activation`,
+    whose step counts from the serving table)."""
+    n = sum(counts.get(k, 0) for k in STEP_KERNELS)
+    counts = {"sp_overlap": n if sp_steps is None else sp_steps,
+              "seg_counts": n - counts.get("serving_activation", 0),
+              **counts}
+    return {k.name: counts.get(k.name, 0) for k in kernels.KERNELS}
 
 
 def float_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,10 @@
 Builds the CUDA kernels from `bithtm_tpu_torch/csrc`, checks each one
 against its plain PyTorch version (bench shapes; `small_table_take` at
 the 16K x 64 shapes with its index mask, and at Wc = 2049 and 4096;
-`sp_update_pack` also with inactive rows past the rail and -0.0), with
+`sp_update_pack` also with inactive rows past the rail and -0.0;
+`sp_overlap` and `seg_counts`, the SP overlap and the per-segment count
+decode, also at the 16K x 64 shapes and in a CUDA graph of 20 calls,
+where `seg_counts` must be no slower than the int32 sum), with
 its time, its plain version's, its bound and where one exists a single
 PyTorch call's (the table kernels and the row-range word kernels with
 the grid their launcher chose; `small_table_take` with its wrapper's
@@ -13,7 +16,9 @@ and that its CUDA run agrees bit for bit with its CPU run on a small
 input, then drives the main path: the bench configuration (2048 columns
 x 32 cells, G=4 x K=64, int16 SP, B=256 streams) through `htm_scan`, 768
 learning steps then inference, and checks that every kernel of that path
-was launched once a step, that the metrics are in range, that the graph
+was launched once a step (the table kernel, `sp_overlap` and
+`seg_counts`; `testing.step_launches` gives every count this script
+holds a run to), that the metrics are in range, that the graph
 learned to predict and that the state invariants hold. Then serves the
 next 64 steps from the learned state three ways (`htm_serve_scan` over
 the synapse tables, over a compact serving table, and the scan over the
@@ -68,8 +73,9 @@ Beside those: `check_paths` holds every path the kernels take past the
 main path's shapes bit-equal to the plain versions and times it (the
 packed activity in bf16 and float32 at K = 126-128, the global-memory
 bitmap at 32,768 x 64 and one column past the shared-memory limit and
-on a column shard, 65,536 streams folded into grid x, `sp_update_pack`
-past its shared memory); `run_fuzz_on_card` runs the 22 config-fuzz
+on a column shard, 65,536 streams folded into grid x for `act_frozen`,
+`sp_update_pack` and `sp_overlap`, `seg_counts` on u8, bf16 and float32
+activity at K = 125-128, `sp_update_pack` past its shared memory); `run_fuzz_on_card` runs the 22 config-fuzz
 geometries through `tm_step` on the card and the CPU with the same
 draws, bit-equal; `run_parity` runs `scripts.parity_check` (tiny, mid,
 bisect, `--sp`, and `full --from_state` on two streams of the learned
@@ -125,10 +131,12 @@ from bithtm_tpu_torch.models.htm import _scan_impl, _step_metrics
 from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
 from bithtm_tpu_torch.ops import serving as psv
-from bithtm_tpu_torch.ops.overlap import overlaps, padded_input_dim
+from bithtm_tpu_torch.ops.overlap import (input_words, overlaps,
+                                          overlaps_ref, padded_input_dim)
 from bithtm_tpu_torch.parallel import mesh as pmesh
 from bithtm_tpu_torch import testing
 from bithtm_tpu_torch.testing import serving_rows, table_inputs
+from bithtm_tpu_torch.testing import step_launches as steps
 
 BENCH = dict(input_dim=1000, column_dim=2048, cell_dim=32,
              segments_per_column=4, synapse_capacity=64,
@@ -174,6 +182,8 @@ SOURCES = {
     "synapse_activation": "bithtm_tpu_torch/csrc/serving_pass.cu",
     "small_table_take": "bithtm_tpu_torch/csrc/small_take.cu",
     "sp_update_pack": "bithtm_tpu_torch/csrc/sp_pass.cu",
+    "sp_overlap": "bithtm_tpu_torch/csrc/overlap_pass.cu",
+    "seg_counts": "bithtm_tpu_torch/csrc/count_pass.cu",
 }
 REPLACES = {
     "table_update": "bithtm_tpu/ops/pallas_kernels.py:489",
@@ -183,6 +193,9 @@ REPLACES = {
     "synapse_activation": "bithtm_tpu/ops/pallas_kernels.py:661",
     "small_table_take": "bithtm_tpu/ops/pallas_kernels.py:885",
     "sp_update_pack": "bithtm_tpu/ops/pallas_kernels.py:598",
+    # no Pallas kernel: the JAX functions that XLA fuses into one pass
+    "sp_overlap": "bithtm_tpu/ops/overlap.py:85",
+    "seg_counts": "bithtm_tpu/ops/active_set.py:588",
 }
 
 
@@ -365,9 +378,114 @@ def check_kernels(dev) -> dict:
     del x, p, p_ref, p_k, v_ref, v_k, c_ref, c_k, a_ref, a_k, word, rows
     del f_ref, f_k, s_ref, s_k
     out["sp_update_pack"] = check_sp_update_pack(dev)
+    out.update(check_overlap_and_counts(dev))
     out["small_table_take"] = check_small_table_take(dev)
     out["reference_stack"] = check_reference_kernels(dev)
     out["anomaly_stack"] = check_anomaly_kernels(dev)
+    return out
+
+
+def overlap_inputs(B: int, C: int, I: int, dev, seed: int):
+    """A (B, C, input_words(I)) u8 connected table of random bytes and
+    (B, I) bool inputs at the bench's density 0.2."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    conn = torch.randint(0, 256, (B, C, input_words(I)), generator=g,
+                         device=dev, dtype=torch.uint8)
+    return conn, torch.rand((B, I), generator=g, device=dev) < 0.2
+
+
+def count_inputs(B: int, C: int, G: int, K: int, dev, seed: int):
+    """A (B, C, G*K) packed activity (`pack_act_conn`, in `act_dtype(K)`)
+    with half the slots active and two in five of those connected."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    act = torch.rand((B, C, G * K), generator=g, device=dev) < 0.5
+    conn = act & (torch.rand((B, C, G * K), generator=g, device=dev) < 0.4)
+    return pas.pack_act_conn(act, conn, K)
+
+
+def overlap_row(B: int, C: int, I: int, dev, want_path: tuple,
+                graph: bool = True) -> dict:
+    """`sp_overlap` at (B, C, I) against `overlaps_ref`, bit for bit, with
+    `kernel_row`'s times and bound (the table and the inputs read once,
+    the counts written once) and, with ``graph``, its ms a call in a CUDA
+    graph of 20. torch has no popcount, so no single PyTorch call
+    computes the overlap: no library time."""
+    conn, x = overlap_inputs(B, C, I, dev, B + C + I)
+    want = overlaps_ref(conn, x)
+    got = kernels.sp_overlap_cuda(conn, x)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want) and bool((want > 0).any()),
+            f"sp_overlap == plain at B={B} C={C} I={I}")
+    require(kernels.SP_OVERLAP.path == want_path,
+            f"sp_overlap at B={B} takes {want_path}, got "
+            f"{kernels.SP_OVERLAP.path}")
+    row = kernel_row(f"sp_overlap [{'+'.join(want_path)}]",
+                     lambda: kernels.sp_overlap_cuda(conn, x),
+                     lambda: overlaps_ref(conn, x), nbytes(conn, x, want),
+                     f"B={B} C={C} I={I} S={input_words(I)}",
+                     path=list(want_path))
+    if graph:
+        row["graph_ms"] = graph_ms(lambda: kernels.sp_overlap_cuda(conn, x))
+        print(f"  sp_overlap in a CUDA graph of 20 calls: "
+              f"{row['graph_ms']:.4f} ms a call; no library call")
+    return row
+
+
+def counts_row(B: int, C: int, G: int, K: int, dev,
+               graph: bool = True) -> dict:
+    """`seg_counts` at (B, C, G, K) against `seg_counts_packed_ref`, bit
+    for bit, with `kernel_row`'s times and bound (the activity read once,
+    both counts written once); its library call is the int32 sum over the
+    segment's slots (without the decode). With ``graph``, both in a CUDA
+    graph of 20, where the kernel must be no slower than the sum."""
+    v = count_inputs(B, C, G, K, dev, B + C + G + K)
+    pot, con = pas.seg_counts_packed_ref(v, G, K)
+    kp, kc = kernels.seg_counts_cuda(v, G, K)
+    torch.cuda.synchronize()
+    act = kernels._act_name(K)
+    at = f"B={B} C={C} G={G} K={K} {act}"
+    require(torch.equal(kp, pot) and torch.equal(kc, con)
+            and bool((con > 0).any()), f"seg_counts == plain at {at}")
+    require(kernels.SEG_COUNTS.path == (act,),
+            f"seg_counts at K={K} takes ({act},), got "
+            f"{kernels.SEG_COUNTS.path}")
+
+    def library():
+        return v.view(B, C, G, K).sum(-1, dtype=torch.int32)
+
+    row = kernel_row(f"seg_counts [{act}]",
+                     lambda: kernels.seg_counts_cuda(v, G, K),
+                     lambda: pas.seg_counts_packed_ref(v, G, K),
+                     nbytes(v, pot, con), at, library=library, path=[act])
+    if graph:
+        row["graph_ms"] = graph_ms(lambda: kernels.seg_counts_cuda(v, G, K))
+        row["library_graph_ms"] = graph_ms(library)
+        require(row["graph_ms"] <= row["library_graph_ms"],
+                f"seg_counts no slower than the int32 sum in a CUDA graph "
+                f"at {at}")
+        print(f"  seg_counts in a CUDA graph of 20 calls: "
+              f"{row['graph_ms']:.4f} ms a call, the int32 sum "
+              f"{row['library_graph_ms']:.4f}")
+    return row
+
+
+def check_overlap_and_counts(dev) -> dict:
+    """`sp_overlap` and `seg_counts` at the bench shapes (B=256, C=2048,
+    I=1000, G=4, K=64), each row with the 16K x 64 shapes' row (B=64,
+    C=16384) under "16k"."""
+    I, G, K = (BENCH[k] for k in ("input_dim", "segments_per_column",
+                                  "synapse_capacity"))
+    out = {}
+    for tag, B, C in (("bench", BATCH, BENCH["column_dim"]),
+                      ("16k", BATCH_16K, GEOM_16K["column_dim"])):
+        rows = {"sp_overlap": overlap_row(B, C, I, dev, ("grid_y",)),
+                "seg_counts": counts_row(B, C, G, K, dev)}
+        torch.cuda.empty_cache()
+        for name, row in rows.items():
+            if tag == "bench":
+                out[name] = row
+            else:
+                out[name]["16k"] = row
     return out
 
 
@@ -989,7 +1107,7 @@ def run_main_path(dev):
         cfg, state, seq[LEARN_STEPS:LEARN_STEPS + INFER_STEPS], False, draws)
     launches = kernels.launch_counts()
 
-    require(launches == only(table_update=LEARN_STEPS, act_conn=INFER_STEPS),
+    require(launches == steps(table_update=LEARN_STEPS, act_conn=INFER_STEPS),
             f"one launch per step of each kernel, got {launches}")
     m_learn = {k: torch.cat([c[3][k] for c in chunks]) for k in chunks[0][3]}
     for phase, m, n in (("learning", m_learn, LEARN_STEPS),
@@ -1139,10 +1257,10 @@ def run_serving(cfg, state, gen, xs) -> dict:
         kernels.reset_launch_counts()
         out[name] = fn(st)
         launches[name] = kernels.launch_counts()
-        want = {k: N if k == kernel else 0 for k in launches[name]}
-        require(launches[name] == want,
-                f"{name} serving launches {kernel} once a step and no other "
-                f"kernel, got {launches[name]}")
+        require(launches[name] == steps(**{kernel: N}),
+                f"{name} serving launches {kernel}, sp_overlap and (but "
+                f"packed) seg_counts once a step and no other kernel, got "
+                f"{launches[name]}")
     s_u, m_u = out["unpacked"]
     for name, (st, m) in out.items():
         require(set(m) == set(m_u) and all(torch.equal(m[k], m_u[k])
@@ -1161,8 +1279,9 @@ def run_serving(cfg, state, gen, xs) -> dict:
     kernels.reset_launch_counts()
     s_r = bt.resume_learning(cfg, s_p)
     resumed = kernels.launch_counts()
-    require(resumed == {k: int(k == "act_conn") for k in resumed},
-            f"resume_learning launches act_conn once, got {resumed}")
+    require(resumed == steps(act_conn=1, sp_steps=0),
+            f"resume_learning launches act_conn and seg_counts once, got "
+            f"{resumed}")
     diff = differing_leaves(s_r, s_u)
     require(not diff, f"resumed leaves == unpacked-served, differ: {diff}")
     snap = gen.get_state()
@@ -1258,7 +1377,7 @@ def run_entry_points(cfg, state, xs) -> dict:
                         tm.synapse_act != 0),
             "synapse_activation on live slots == the state's activity")
     require(launches == only(sp_update_pack=ENTRY_STEPS,
-                             synapse_activation=1),
+                             sp_overlap=ENTRY_STEPS, synapse_activation=1),
             f"the entry points launch their kernels, got {launches}")
     print(f"entry points on the learned bench state: {ENTRY_STEPS} SP "
           f"learning steps == sp_update_pack over the whole table; "
@@ -1310,7 +1429,8 @@ def time_phases(snap: Snapshot, xs) -> None:
 
 # the device names of the port's own kernels (csrc/*.cu)
 PORT_KERNELS = ("table_pass_kernel", "word_range_kernel", "word_pass_kernel",
-                "small_take_kernel", "sp_update_pack_kernel")
+                "small_take_kernel", "sp_update_pack_kernel",
+                "sp_overlap_kernel", "seg_counts_kernel")
 
 
 def device_profile(run, n: int, top: int) -> tuple[float, float]:
@@ -1380,8 +1500,9 @@ def run_16k(dev) -> tuple[dict, dict, tuple, dict, tuple]:
     learning_peak = torch.cuda.max_memory_allocated() / 2**30
     esc = info["escalated_at_step"]
     run = T + (0 if esc is None else min(CHUNK_16K, T - esc))
-    require(launches == only(table_update=run, small_table_take=run),
-            f"table_update and small_table_take once per learning step "
+    require(launches == steps(table_update=run, small_table_take=run),
+            f"table_update, small_table_take, sp_overlap and seg_counts "
+            f"once per learning step "
             f"({run} run), got {launches}")
     require(all(int(m[k].sum()) == 0 for k in bt.CAP_DROP_METRICS),
             "no counted cap drop in the produced trajectory")
@@ -1415,8 +1536,9 @@ def run_16k(dev) -> tuple[dict, dict, tuple, dict, tuple]:
     state, m_inf, infer_s = timed_scan(cfg, state, seq[T:T + INFER_16K],
                                        False, bt.TorchDraws(cfg.tm, B, dev,
                                                             gen))
-    require(kernels.launch_counts() == only(act_conn=INFER_16K),
-            "16K inference launches act_conn once a step")
+    require(kernels.launch_counts() == steps(act_conn=INFER_16K),
+            "16K inference launches act_conn, sp_overlap and seg_counts "
+            "once a step")
 
     serve_xs = seq[T + INFER_16K:]
     tab = bt.make_serving_table(cfg.tm, state.tm)
@@ -1439,9 +1561,9 @@ def run_16k(dev) -> tuple[dict, dict, tuple, dict, tuple]:
             torch.cuda.synchronize()
             runs[name].append(1e3 * (time.perf_counter() - t0) / SERVE_16K)
             got = kernels.launch_counts()
-            require(got == only(**{kernel: SERVE_16K}),
-                    f"16K {name} serving launches {kernel} once a step and "
-                    f"no other kernel, got {got}")
+            require(got == steps(**{kernel: SERVE_16K}),
+                    f"16K {name} serving launches {kernel} and the SP's and "
+                    f"counts' kernels once a step, got {got}")
             if rep == 0:
                 served[name] = (st.tm.prediction.clone(), ms)
             starts[name].keep(st)
@@ -2054,15 +2176,16 @@ def run_parallel(dev, learned16, bench_path: str, tmp: str) -> dict:
                     f"unsharded step does while learning "
                     f"({r['learn_launches']} vs {ref_counts[0]})")
             if job["serve"]:
-                require(r["serve_launches"] == only(act_conn=job["serve"]),
-                        f"{what}: rank {r['rank']} launches act_conn once a "
-                        f"serving step and nothing else")
+                require(r["serve_launches"] == steps(act_conn=job["serve"]),
+                        f"{what}: rank {r['rank']} launches act_conn, "
+                        f"sp_overlap and seg_counts once a serving step and "
+                        f"nothing else")
             if n_model == 1:
                 require(r["learn_collectives_per_step"] == 0,
                         f"{what}: no exchange during a data-parallel step")
         if n_model > 1:
-            require(ref_counts[0] == only(table_update=job["learn"],
-                                          small_table_take=job["learn"]),
+            require(ref_counts[0] == steps(table_update=job["learn"],
+                                           small_table_take=job["learn"]),
                     f"{what}: table_update and small_table_take once a "
                     f"learning step, got {ref_counts[0]}")
             require(summed["tm_grown_synapses"] > 0
@@ -2179,6 +2302,7 @@ def check_anomaly_kernels(dev) -> dict:
 # chosen from the shapes, held bit-equal to the plain version and timed
 
 PATH_KS = (126, 127, 128)      # bf16, bf16 and float32 packed activity
+COUNT_KS = (125, 126, 127, 128)  # seg_counts: u8, bf16, bf16, float32
 PATH_KS_AT = (64, 2048, 32, 2, 41)   # B, C, D, G, A of those tables
 GLOBAL_CS = (32_768, 29_057)   # 2,097,152 cells; one column past the limit
 GLOBAL_AT = (4, 64, 4, 64)     # B, D, G, K of the global-bitmap tables
@@ -2336,9 +2460,10 @@ def check_paths(dev) -> dict:
     `table_update`, `act_conn` and `act_frozen` at K = 126, 127 and 128
     (bf16, bf16, float32); the five bitmap kernels with the global bitmap
     at 32,768 x 64 and one column past the limit, B=4; `table_update` on
-    a column shard of 32,768 columns; `act_frozen` and `sp_update_pack`
-    at B = 65,536 with C=2; `sp_update_pack` past its shared memory
-    (I_pad = 59,392, C=64, B=2). Returns {kernel: {case: row}}."""
+    a column shard of 32,768 columns; `act_frozen`, `sp_update_pack` and
+    `sp_overlap` at B = 65,536 with C=2; `seg_counts` on u8, bf16 and
+    float32 activity at K = 125-128; `sp_update_pack` past its shared
+    memory (I_pad = 59,392, C=64, B=2). Returns {kernel: {case: row}}."""
     out: dict[str, dict] = {k.name: {} for k in kernels.KERNELS}
 
     def add(case: str, rows: dict) -> None:
@@ -2374,8 +2499,14 @@ def check_paths(dev) -> dict:
         lambda: kernels.act_frozen_cuda(word, cols, bits, 32, 64),
         lambda: pas.synapse_activation_frozen_ref(word, cols, bits, 32, 64),
         nbytes(word, cols, bits, f_ref), f"B={WIDE_B} C=2 G=4 K=64 D=32 A=1"),
-        "sp_update_pack": check_sp_paths(dev, WIDE_B, 2, 1024, True)})
+        "sp_update_pack": check_sp_paths(dev, WIDE_B, 2, 1024, True),
+        "sp_overlap": overlap_row(WIDE_B, 2, BENCH["input_dim"], dev,
+                                  ("grid_x_streams",), graph=False)})
     del x, word, cols, bits, f_ref, f_k
+    B, C, _, G, _ = PATH_KS_AT
+    for K in COUNT_KS:
+        add(f"K={K}", {"seg_counts": counts_row(B, C, G, K, dev,
+                                                graph=False)})
     B, C, I_pad = GMEM_SP
     add("gmem delta int16", {"sp_update_pack": check_sp_paths(
         dev, B, C, I_pad, True)})
@@ -2604,7 +2735,7 @@ def wrapper_vs_loop(learned, gen_state, xs, dev) -> dict:
     require(same_tree([a[:2] for a in g_g], [a[:2] for a in g_l])
             and same_tree(s_g, s_l),
             "B=1 wrapper: the graph's outputs and state == the loop's")
-    require(n_g == n_l == only(table_update=n),
+    require(n_g == n_l == steps(table_update=n),
             f"B=1 wrapper: table_update once a step in both, got {n_g} and "
             f"{n_l}")
     del checked, g_l, g_g, s_l, s_g
@@ -2704,7 +2835,7 @@ def run_reference_api(dev) -> dict:
     torch.cuda.synchronize()
     infer_ms = 1e3 * (time.perf_counter() - t0) / B1_INFER
     out["b1"] = kernels.launch_counts()
-    require(out["b1"] == only(table_update=T, act_conn=B1_INFER),
+    require(out["b1"] == steps(table_update=T, act_conn=B1_INFER),
             f"B=1 learning launches table_update once a learning step and "
             f"act_conn once an inference step, got {out['b1']}")
 
@@ -2762,8 +2893,8 @@ def run_reference_api(dev) -> dict:
         [True] * ORACLE_LEARN + [False] * ORACLE_INFER, 2, dev, add,
         state=learned)
     out["oracle"] = kernels.launch_counts()
-    require(out["oracle"] == only(table_update=ORACLE_LEARN,
-                                  act_conn=ORACLE_INFER),
+    require(out["oracle"] == steps(table_update=ORACLE_LEARN,
+                                   act_conn=ORACLE_INFER),
             f"the oracle gate launches table_update once a learning step "
             f"and act_conn once an inference step, got {out['oracle']}")
     reinforced = sums["tm_learning_segments"] - sums["tm_new_segments"]
@@ -2923,9 +3054,10 @@ def run_anomaly(dev) -> dict:
     torch.cuda.synchronize()
     scan_s = time.perf_counter() - t0
     out["anomaly"] = kernels.launch_counts()
-    require(out["anomaly"] == only(table_update=T),
-            f"the anomaly scan launches table_update once a step and no "
-            f"other kernel, got {out['anomaly']}")
+    require(out["anomaly"] == steps(table_update=T),
+            f"the anomaly scan launches table_update, sp_overlap and "
+            f"seg_counts once a step and no other kernel, got "
+            f"{out['anomaly']}")
     raw = metrics["anomaly"]
     require(bool(torch.isfinite(raw).all()) and bool((raw >= 0).all())
             and bool((raw <= 1).all()), "raw anomaly scores in [0, 1]")
@@ -2995,7 +3127,7 @@ def run_anomaly(dev) -> dict:
     torch.cuda.synchronize()
     learn_s = time.perf_counter() - t0
     out["stack_learn"] = kernels.launch_counts()
-    require(out["stack_learn"] == only(table_update=2 * STACK_LEARN),
+    require(out["stack_learn"] == steps(table_update=2 * STACK_LEARN),
             f"stack learning launches table_update twice a step, got "
             f"{out['stack_learn']}")
     kernels.reset_launch_counts()
@@ -3005,7 +3137,7 @@ def run_anomaly(dev) -> dict:
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
     out["stack_infer"] = kernels.launch_counts()
-    require(out["stack_infer"] == only(act_conn=2 * STACK_INFER),
+    require(out["stack_infer"] == steps(act_conn=2 * STACK_INFER),
             f"stack inference launches act_conn twice a step, got "
             f"{out['stack_infer']}")
     burst = {k: m_learn[f"L{k}_bursting"].float().mean(1).cpu()

@@ -19,9 +19,11 @@ from bithtm_tpu_torch.models import spatial_pooler as psp
 from bithtm_tpu_torch.models import temporal_memory as ptm
 from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
+from bithtm_tpu_torch.ops import overlap as pov
 from bithtm_tpu_torch.ops import serving as psv
 from bithtm_tpu_torch.testing import (boost_agreement, serving_rows,
                                       table_inputs)
+from bithtm_tpu_torch.testing import step_launches as steps
 
 SHAPES = [  # B, C, G, K, D, A
     (2, 64, 4, 64, 32, 5),    # the bench's G, K, D
@@ -626,7 +628,7 @@ def test_oracle_gate_on_the_card(cuda):
     before = kernels.launch_counts()
     res = example.oracle_checked_run(cfg, xs, learning, 0, cuda)
     assert res["steps"] == 20
-    assert launched(before) == only(table_update=16, act_conn=4)
+    assert launched(before) == steps(table_update=16, act_conn=4)
 
 
 @pytest.mark.cuda
@@ -881,10 +883,10 @@ def test_graph_replays_equal_the_loop(seeded, cuda):
     with graph.eager():
         loop = _scan_paths(cfg, 4, cuda, seeded)
     replay = _scan_paths(cfg, 4, cuda, seeded)
-    want = {"learning": only(table_update=150),
-            "inference": only(act_conn=10), "unpacked": only(act_conn=20),
-            "packed": only(serving_activation=20),
-            "frozen": only(act_frozen=20)}
+    want = {"learning": steps(table_update=150),
+            "inference": steps(act_conn=10), "unpacked": steps(act_conn=20),
+            "packed": steps(serving_activation=20),
+            "frozen": steps(act_frozen=20)}
     for name, (s, m, n, g) in replay.items():
         ls, lm, ln, lg = loop[name]
         _assert_same(s, ls, name)
@@ -964,8 +966,8 @@ def test_stack_graph_equals_the_loop(cuda):
         for a, b, what in zip(replay[:3], loop[:3],
                               ("state", "learn", "infer")):
             _assert_same(a, b, what)
-        assert replay[3] == loop[3] == only(table_update=64)
-        assert replay[4] == loop[4] == only(table_update=64, act_conn=16)
+        assert replay[3] == loop[3] == steps(table_update=64)
+        assert replay[4] == loop[4] == steps(table_update=64, act_conn=16)
 
 
 @pytest.mark.cuda
@@ -1061,7 +1063,8 @@ def test_capture_makes_no_host_sync(cuda, monkeypatch):
 @pytest.mark.cuda
 def test_profiler_sees_one_kernel_a_replayed_step(cuda):
     """A `torch.profiler` trace of 8 replayed learning steps holds 8
-    launches of `table_update`'s kernel, as the launch counts say."""
+    launches of `table_update`'s kernel, 8 of `sp_overlap`'s and 8 of
+    `seg_counts`', as the launch counts say."""
     cfg = bt.make_htm_config(**GRAPH_CFG)
     gen = torch.Generator(device=cuda).manual_seed(0)
     state = bt.htm_init_batch(cfg, 4, gen, cuda)
@@ -1074,11 +1077,13 @@ def test_profiler_sees_one_kernel_a_replayed_step(cuda):
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         state, _ = bt.htm_scan(cfg, state, xs[8:], True, draws=draws)
         torch.cuda.synchronize()
-    seen = sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "table_pass_kernel" in e.name)
-    assert launched(before) == only(table_update=8)
-    assert seen == 8
+    seen = {name: sum(1 for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and name in e.name)
+            for name in ("table_pass_kernel", "sp_overlap_kernel",
+                         "seg_counts_kernel")}
+    assert launched(before) == steps(table_update=8)
+    assert seen == dict.fromkeys(seen, 8)
 
 
 # the paths the kernels take past the shapes of their first design
@@ -1196,3 +1201,178 @@ def test_stream_and_delta_paths_match_plain(case, cuda):
     assert torch.equal(pack_k, pack_ref) and pack_ref.any()
     assert torch.equal(p_k.view(torch.uint8), p_ref.view(torch.uint8))
     assert not torch.equal(p_ref, perm)
+
+
+# ---- the SP overlap and the per-segment count decode (csrc/overlap_pass.cu,
+# csrc/count_pass.cu)
+
+OVERLAP_SHAPES = [  # B, C, input_dim
+    (2, 64, 1000),       # S = 128, the bench's input
+    (1, 37, 1031),       # B=1, C off a multiple of 32, S = 256
+    (3, 130, 2500),      # S = 384, a ragged last row block
+    (2, 5, 64),          # fewer inputs than a row's bytes
+    (2, 3, 40_000),      # S = 5,120: x staged in two tiles
+    (256, 2048, 1000),   # the bench's shapes
+    (64, 16384, 1000),   # the 16K x 64 shapes
+]
+COUNT_SHAPES = [  # B, C, G, K
+    (2, 64, 4, 64),      # the bench's G, K: scale 65, 16-byte vectors
+    (3, 40, 8, 48),      # the reference stack's: three vectors a segment
+    (2, 30, 3, 7),       # one byte a load
+    (2, 7, 2, 124),      # 4-byte words
+    (2, 64, 2, 125),     # the last u8 K
+    (2, 64, 2, 126),     # bf16, 4-byte words
+    (2, 64, 2, 127),     # bf16, one value a load
+    (2, 64, 2, 128),     # float32
+    (2, 5, 1, 300),      # float32, 75 vectors over 32 lanes
+    (256, 2048, 4, 64),  # the bench's shapes
+    (64, 16384, 4, 64),  # the 16K x 64 shapes
+]
+
+
+def _overlap_inputs(B, C, I, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    conn = torch.randint(0, 256, (B, C, pov.input_words(I)), generator=g,
+                         device=dev, dtype=torch.uint8)
+    return conn, torch.rand((B, I), generator=g, device=dev) < 0.3
+
+
+def _count_inputs(B, C, G, K, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    act = torch.rand((B, C, G * K), generator=g, device=dev) < 0.5
+    conn = act & (torch.rand((B, C, G * K), generator=g, device=dev) < 0.4)
+    return pas.pack_act_conn(act, conn, K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", OVERLAP_SHAPES)
+def test_sp_overlap_matches_plain(shape, cuda):
+    """`sp_overlap` (which packs the inputs itself) equals `overlaps_ref`
+    bit for bit, in one launch."""
+    B, C, I = shape
+    conn, x = _overlap_inputs(B, C, I, I + C, cuda)
+    before = kernels.launch_counts()
+    got = kernels.sp_overlap_cuda(conn, x)
+    assert launched(before) == only(sp_overlap=1)
+    want = pov.overlaps_ref(conn, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and bool((want > 0).any())
+    assert kernels.SP_OVERLAP.path == ("grid_y",)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", COUNT_SHAPES)
+def test_seg_counts_matches_plain(shape, cuda):
+    """`seg_counts` equals `seg_counts_packed_ref` bit for bit on u8, bf16
+    and float32 activity, in one launch on the path of its type."""
+    B, C, G, K = shape
+    v = _count_inputs(B, C, G, K, K + C, cuda)
+    before = kernels.launch_counts()
+    pot, con = kernels.seg_counts_cuda(v, G, K)
+    assert launched(before) == only(seg_counts=1)
+    rp, rc = pas.seg_counts_packed_ref(v, G, K)
+    torch.cuda.synchronize()
+    assert torch.equal(pot, rp) and torch.equal(con, rc)
+    assert bool((rc > 0).any()) and bool((rp > 0).any())
+    assert kernels.SEG_COUNTS.path == (kernels._act_name(K),)
+
+
+@pytest.mark.cuda
+def test_overlap_and_counts_fold_streams_into_grid_x(cuda):
+    """65,536 streams, past the grid's y extent: `sp_overlap` folds them
+    into grid x; `seg_counts`' grid strides over every segment."""
+    B = 65_536
+    conn, x = _overlap_inputs(B, 2, 1000, 1, cuda)
+    got = kernels.sp_overlap_cuda(conn, x)
+    assert kernels.SP_OVERLAP.path == ("grid_x_streams",)
+    v = _count_inputs(B, 2, 2, 64, 2, cuda)
+    pot, con = kernels.seg_counts_cuda(v, 2, 64)
+    rp, rc = pas.seg_counts_packed_ref(v, 2, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pov.overlaps_ref(conn, x))
+    assert torch.equal(pot, rp) and torch.equal(con, rc)
+
+
+@pytest.mark.cuda
+def test_overlap_and_counts_launch_on_the_current_stream(cuda):
+    """`sp_overlap` and `seg_counts` launched under
+    ``torch.cuda.stream(side)`` run on ``side``: their inputs are written
+    there only after a spin of about 20 ms."""
+    conn, x = _overlap_inputs(4, 300, 1000, 3, cuda)
+    v = _count_inputs(4, 300, 4, 64, 4, cuda)
+    conn_late, x_late = torch.zeros_like(conn), torch.zeros_like(x)
+    v_late = torch.zeros_like(v)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(40_000_000)
+        conn_late.copy_(conn)
+        x_late.copy_(x)
+        v_late.copy_(v)
+        got = kernels.sp_overlap_cuda(conn_late, x_late)
+        pot, con = kernels.seg_counts_cuda(v_late, 4, 64)
+    side.synchronize()
+    rp, rc = pas.seg_counts_packed_ref(v, 4, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pov.overlaps_ref(conn, x))
+    assert torch.equal(pot, rp) and torch.equal(con, rc)
+    assert bool((got > 0).any()) and bool((rc > 0).any())
+
+
+@pytest.mark.cuda
+def test_overlap_and_count_dispatch_launch_each_kernel_once(cuda):
+    """On CUDA tensors `overlaps` and `seg_counts_packed` launch their
+    kernels once a call, and `table_update`'s dispatcher its kernel and
+    the count decode's once each; the results equal the CPU's."""
+    conn, x = _overlap_inputs(3, 100, 1000, 5, cuda)
+    v = _count_inputs(3, 100, 4, 64, 6, cuda)
+    before = kernels.launch_counts()
+    ov = pov.overlaps(conn, x)
+    assert launched(before) == only(sp_overlap=1)
+    before = kernels.launch_counts()
+    pot, con = pas.seg_counts_packed(v, 4, 64)
+    assert launched(before) == only(seg_counts=1)
+    t = table_inputs(3, *SHAPES[0], device=cuda)
+    before = kernels.launch_counts()
+    out = pas.table_update(t["syn"], t["perm"], t["act_prev"],
+                           t["pun_word"], t["cols"], t["bits"],
+                           t["seg_cell"], 32, 0.01, 0.5, 3, 2)
+    assert launched(before) == only(table_update=1, seg_counts=1)
+    assert torch.equal(ov.cpu(), pov.overlaps(conn.cpu(), x.cpu()))
+    rp, rc = pas.seg_counts_packed(v.cpu(), 4, 64)
+    assert torch.equal(pot.cpu(), rp) and torch.equal(con.cpu(), rc)
+    cp, cc = pas.seg_counts_packed(out[1].cpu(), 4, 64)
+    assert torch.equal(out[2].cpu(), cp) and torch.equal(out[3].cpu(), cc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["dtype", "contiguity", "alignment"])
+def test_overlap_and_count_wrappers_reject_bad_inputs(bad, cuda):
+    """A wrong type, a strided view or a table off a 16-byte boundary
+    raises before anything launches."""
+    conn, x = _overlap_inputs(2, 8, 1000, 7, cuda)
+    v = _count_inputs(2, 8, 4, 64, 8, cuda)
+    if bad == "dtype":
+        calls = (lambda: kernels.sp_overlap_cuda(conn, x.to(torch.uint8)),
+                 lambda: kernels.seg_counts_cuda(v.to(torch.int32), 4, 64))
+        err = TypeError
+    elif bad == "contiguity":
+        wide = torch.zeros((2, 2000), dtype=torch.bool, device=cuda)
+        calls = (lambda: kernels.sp_overlap_cuda(conn, wide[:, ::2]),
+                 lambda: kernels.seg_counts_cuda(
+                     torch.zeros((2, 16, 256), dtype=torch.uint8,
+                                 device=cuda)[:, ::2], 4, 64))
+        err = ValueError
+    else:
+        flat = torch.zeros(conn.numel() + 16, dtype=torch.uint8, device=cuda)
+        flat_v = torch.zeros(v.numel() + 16, dtype=torch.uint8, device=cuda)
+        calls = (lambda: kernels.sp_overlap_cuda(
+                     flat[1:1 + conn.numel()].view(conn.shape), x),
+                 lambda: kernels.seg_counts_cuda(
+                     flat_v[1:1 + v.numel()].view(v.shape), 4, 64))
+        err = ValueError
+    before = kernels.launch_counts()
+    for call in calls:
+        with pytest.raises(err):
+            call()
+    assert launched(before) == only()

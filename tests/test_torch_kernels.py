@@ -24,6 +24,7 @@ from bithtm_tpu.ops.pallas_kernels import table_update_tpu
 
 from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
+from bithtm_tpu_torch.ops import overlap as pov
 from bithtm_tpu_torch.testing import table_inputs
 
 SHAPES = [  # B, C, G, K, D, A
@@ -86,21 +87,29 @@ def test_plain_table_update_matches_pallas_interpret():
     assert (v != 0).any() and (perm != x["perm"]).any()
 
 
-@pytest.mark.parametrize("fn", ["table_update", "synapse_activation_conn"])
+@pytest.mark.parametrize("fn", ["table_update", "synapse_activation_conn",
+                                "overlaps", "seg_counts_packed"])
 def test_dispatch_raises_off_cpu_and_cuda(fn):
     """A tensor that is neither on the CPU nor on CUDA (a `meta` tensor
     here) raises; nothing falls back to the plain version."""
-    D, K = 32, 64
+    B, C, G, K, D, A = SHAPES[0]
     meta = {k: v.to("meta") for k, v in table_inputs(0, *SHAPES[0]).items()}
     with pytest.raises(RuntimeError, match="not supported"):
         if fn == "table_update":
             pas.table_update(meta["syn"], meta["perm"], meta["act_prev"],
                              meta["pun_word"], meta["cols"], meta["bits"],
                              meta["seg_cell"], D, 0.01, 0.5, 3, 2)
-        else:
+        elif fn == "synapse_activation_conn":
             pas.synapse_activation_conn(meta["syn"], meta["perm"],
                                         meta["cols"], meta["bits"], D, 0.5,
                                         K)
+        elif fn == "overlaps":
+            pov.overlaps(torch.zeros((B, C, 128), dtype=torch.uint8,
+                                     device="meta"),
+                         torch.zeros((B, 1000), dtype=torch.bool,
+                                     device="meta"))
+        else:
+            pas.seg_counts_packed(meta["act_prev"], G, K)
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
@@ -120,9 +129,9 @@ def test_cuda_wrappers_reject_cpu_tensors():
 
 @pytest.mark.parametrize("wrapper", [
     "serving_activation", "act_frozen", "synapse_activation",
-    "small_table_take", "sp_update_pack"])
+    "small_table_take", "sp_update_pack", "sp_overlap", "seg_counts"])
 def test_every_wrapper_rejects_cpu_tensors(wrapper):
-    """The other five wrappers, too, raise on CPU tensors before they
+    """The other seven wrappers, too, raise on CPU tensors before they
     build or launch anything."""
     B, C, G, K, D, A = SHAPES[0]
     x = table_inputs(1, *SHAPES[0])
@@ -140,6 +149,10 @@ def test_every_wrapper_rejects_cpu_tensors(wrapper):
         "sp_update_pack": lambda: kernels.sp_update_pack_cuda(
             torch.zeros((B, 8, 1024), dtype=torch.int16),
             torch.zeros((B, 1024), dtype=torch.int32), x["cols"], 0),
+        "sp_overlap": lambda: kernels.sp_overlap_cuda(
+            torch.zeros((B, C, 128), dtype=torch.uint8),
+            torch.zeros((B, 1000), dtype=torch.bool)),
+        "seg_counts": lambda: kernels.seg_counts_cuda(x["act_prev"], G, K),
     }
     before = kernels.launch_counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -208,8 +221,13 @@ def test_cuda_source_names_both_entry_points():
                         ("sp_pass.cu", (598,))):
         for line in lines:
             assert f"pallas_kernels.py:{line}" in src[name], (name, line)
+    # the two kernels with no Pallas counterpart name the JAX function
+    # that XLA fuses into one pass
+    assert "bithtm_tpu/ops/overlap.py:85" in src["overlap_pass.cu"]
+    assert "bithtm_tpu/ops/active_set.py:588" in src["count_pass.cu"]
+    for name in kernels.SOURCES:
         assert ('#include "active_bitmap.cuh"' in src[name]) == (
-            name != "small_take.cu")
+            name in ("table_pass.cu", "serving_pass.cu", "sp_pass.cu"))
     assert Path(kernels.library_path()).parent == kernels.BUILD_DIR
 
 
@@ -277,6 +295,22 @@ PATH_CALLS = {
                             ("smem", "u8")),
     "bitmap one cell past": (_act_conn_k(64, C=371_917, D=5), "act_conn",
                              ("global", "u8")),
+    # the SP overlap folds 65,536 streams into grid x
+    "streams, sp_overlap": (lambda: kernels.sp_overlap_cuda(
+        _view(65_536, 2, 128, dtype=torch.uint8),
+        _view(65_536, 1000, dtype=torch.bool)), "sp_overlap",
+        ("grid_x_streams",)),
+    "streams below, sp_overlap": (lambda: kernels.sp_overlap_cuda(
+        _view(65_535, 2, 128, dtype=torch.uint8),
+        _view(65_535, 1000, dtype=torch.bool)), "sp_overlap", ("grid_y",)),
+    # the count decode reads the activity in its type on both sides of
+    # each act_dtype line
+    **{f"counts K{K}": (
+        lambda K=K: kernels.seg_counts_cuda(
+            _view(1, 4, 2 * K, dtype=pas.act_dtype(K)), 2, K),
+        "seg_counts", (name,))
+       for K, name in ((125, "u8"), (126, "bf16"), (127, "bf16"),
+                       (128, "f32"))},
 }
 
 
@@ -301,3 +335,47 @@ def test_card_limits_choose_a_path_from_shapes(case):
         assert kernel.path == path
     assert kernels.launch_counts() == before
     assert kernels.MAX_BITMAP_CELLS == 1_859_584
+
+
+@pytest.mark.parametrize("bad", ["S", "rank", "J", "K"])
+def test_overlap_and_count_wrappers_check_shapes(bad):
+    """`sp_overlap_cuda` takes rows of `input_words(I)` bytes and
+    `seg_counts_cuda` rows of G*K values: other shapes raise before any
+    tensor is read or anything launches."""
+    calls = {
+        "S": lambda: kernels.sp_overlap_cuda(
+            _view(2, 3, 256, dtype=torch.uint8),
+            _view(2, 1000, dtype=torch.bool)),
+        "rank": lambda: kernels.sp_overlap_cuda(
+            _view(2, 3, 128, dtype=torch.uint8),
+            _view(2, 1, 1000, dtype=torch.bool)),
+        "J": lambda: kernels.seg_counts_cuda(
+            _view(2, 3, 130, dtype=torch.uint8), 2, 64),
+        "K": lambda: kernels.seg_counts_cuda(
+            _view(2, 3, 0, dtype=torch.uint8), 2, 0),
+    }
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="S=|must be|segments"):
+        calls[bad]()
+    assert kernels.launch_counts() == before
+
+
+def test_step_launches_count_the_overlap_and_the_decode():
+    """An HTM step launches its table kernel, one `sp_overlap` and, after
+    every kernel that writes the packed activity, one `seg_counts`
+    (`testing.step_launches`, which the card's checks compare exactly);
+    on CPU tensors the dispatchers launch nothing."""
+    from bithtm_tpu_torch.testing import step_launches
+
+    got = step_launches(table_update=5, act_conn=2, small_table_take=5)
+    assert set(got) == {k.name for k in kernels.KERNELS}
+    assert got["sp_overlap"] == got["seg_counts"] == 7
+    assert step_launches(serving_activation=4)["seg_counts"] == 0
+    assert step_launches(serving_activation=4)["sp_overlap"] == 4
+    assert step_launches(act_conn=1, sp_steps=0)["sp_overlap"] == 0
+    before = kernels.launch_counts()
+    x = table_inputs(2, *SHAPES[0])
+    pas.seg_counts_packed(x["act_prev"], SHAPES[0][2], SHAPES[0][3])
+    pov.overlaps(torch.zeros((2, 3, 128), dtype=torch.uint8),
+                 torch.ones((2, 1000), dtype=torch.bool))
+    assert kernels.launch_counts() == before

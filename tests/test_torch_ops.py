@@ -145,10 +145,26 @@ def test_logical_shift_and_wrap(s):
 # ---- SP ops ----------------------------------------------------------
 
 
-@pytest.mark.parametrize("input_dim", [64, 200, 1000, 1031])
-def test_pack_input_and_overlaps(input_dim):
-    rng = np.random.RandomState(input_dim)
-    B, C = 3, 17
+OVERLAP_SHAPES = [  # B, C, input_dim
+    pytest.param((3, 17, 64), id="64"),
+    pytest.param((3, 17, 200), id="200"),
+    pytest.param((3, 17, 1000), id="1000"),
+    pytest.param((3, 17, 1031), id="1031"),
+    # B=1, C off a multiple of 32, and S = 128, 256 and 384 bytes
+    (1, 40, 1000),
+    (2, 33, 1031),
+    (1, 70, 2500),
+    (4, 1, 2500),
+]
+
+
+@pytest.mark.parametrize("shape", OVERLAP_SHAPES)
+def test_pack_input_and_overlaps(shape):
+    """The strided pack and the overlap (the dispatcher on the CPU and
+    its plain version `overlaps_ref`, the `sp_overlap` kernel's) equal
+    JAX's bit for bit."""
+    B, C, input_dim = shape
+    rng = np.random.RandomState(input_dim + 7 * B + C)
     x = rng.rand(B, input_dim) < 0.3
     conn = rng.rand(B, C, input_dim) < 0.4
     assert pov.input_words(input_dim) == jov.input_words(input_dim)
@@ -160,6 +176,7 @@ def test_pack_input_and_overlaps(input_dim):
     want = jax.vmap(jov.overlaps)(jov.pack_input(jnp.asarray(conn)),
                                   jnp.asarray(x))
     assert_eq(pov.overlaps(packed, T(x)), want)
+    assert_eq(pov.overlaps_ref(packed, T(x)), want)
 
 
 @pytest.mark.parametrize("k", [1, 4, 7])
@@ -272,7 +289,16 @@ def test_column_mask_from_cols():
                   jnp.asarray(cols)))
 
 
-@pytest.mark.parametrize("G,K", [(4, 64), (8, 48), (3, 7)])
+def to_torch(a: np.ndarray) -> torch.Tensor:
+    """A numpy array of JAX's, bfloat16 included (exact through float32)."""
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return T(a)
+
+
+# K=64: scale 65; 125: the last u8 K; 126, 127: bf16; 128: float32
+@pytest.mark.parametrize("G,K", [(4, 64), (8, 48), (3, 7), (2, 125),
+                                 (2, 126), (2, 127), (2, 128)])
 def test_seg_counts_packed(G, K):
     rng = np.random.RandomState(G * K)
     B, C = 2, 6
@@ -280,16 +306,19 @@ def test_seg_counts_packed(G, K):
     conn = act & (rng.rand(B, C, G * K) < 0.4)
     packed = np.asarray(jas.pack_act_conn(jnp.asarray(act),
                                           jnp.asarray(conn), K))
-    pot, con = pas.seg_counts_packed(T(packed), G, K)
+    v = to_torch(packed)
+    assert v.dtype == pas.act_dtype(K)
     jpot, jcon = jax.vmap(lambda p: jas.seg_counts_packed(p, G, K))(
         jnp.asarray(packed))
-    assert_eq(pot, np.asarray(jpot).astype(np.int32))
-    assert_eq(con, np.asarray(jcon).astype(np.int32))
+    for fn in (pas.seg_counts_packed, pas.seg_counts_packed_ref):
+        pot, con = fn(v, G, K)
+        assert_eq(pot, np.asarray(jpot).astype(np.int32))
+        assert_eq(con, np.asarray(jcon).astype(np.int32))
     rows = packed.reshape(B, C, G, K)
-    rpot, rcon = pas.seg_counts_packed_rows(T(rows), K)
+    rpot, rcon = pas.seg_counts_packed_rows(to_torch(rows), K)
     jrpot, jrcon = jas.seg_counts_packed_rows(jnp.asarray(rows), K)
-    assert_eq(rpot, jrpot)
-    assert_eq(rcon, jrcon)
+    assert_eq(rpot, np.asarray(jrpot).astype(np.int32))
+    assert_eq(rcon, np.asarray(jrcon).astype(np.int32))
 
 
 @pytest.mark.parametrize("k", [1, 5, 16, 40])
