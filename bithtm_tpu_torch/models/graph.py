@@ -16,7 +16,7 @@ back into its buffer (`copy_`), and increments ``t``, a counter on the
 device. A scan copies its inputs in and its outputs out once a block of
 `ROWS` steps. On the CPU the same function runs eagerly, step by step;
 the entry points run their plain loop there (the caller asked for the
-CPU), and `buffers_on_cpu()` routes them through this runner, which is
+CPU), and `runner_eager()` routes them through this runner, which is
 how the CPU tests reach it.
 
 Before its capture a graph runs the step once on a scratch copy of the
@@ -39,8 +39,11 @@ returned earlier is never overwritten behind its holder's back. A
 lineage and its graphs live while the state last returned from it does.
 
 `eager()` plays `jax.disable_jit`'s part: inside it every entry point
-runs its plain loop. A hook or draw provider that calls the host during
-the step cannot be captured: it says ``capturable = False`` (a hook; the
+runs its plain loop. Inside `runner_eager()` the entry points run the
+"step into buffers" runner eagerly on any device: the CPU tests' way to
+it, and on the card the graph's work op by op, which
+`scripts/profile_step` attributes to host ranges. A hook or draw
+provider that calls the host during the step cannot be captured: it says ``capturable = False`` (a hook; the
 default is True) or does not say ``capturable = True`` (a draw provider),
 and the entry point then runs its loop on the card too. A capture or a
 replay that fails raises.
@@ -58,6 +61,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..ops import kernels
+from ..utils.profiling import site
 
 ROWS = 128  # steps a scan's input and output blocks hold (a step: 1)
 
@@ -80,11 +84,13 @@ def eager():
     return _set_mode("eager")
 
 
-def buffers_on_cpu():
-    """Inside this context the entry points run a CPU state through
-    the "step into buffers" runner, eagerly (on the card they replay its
-    graph in any case)."""
-    return _set_mode("buffers")
+def runner_eager():
+    """Inside this context the entry points run the "step into buffers"
+    runner eagerly on any device: on the CPU how the tests reach it, on
+    the card the graph's work op by op, with the buffers' copies under the
+    range `graph.buffers`, so that a profiler's host ranges see all of it
+    (`scripts/profile_step`)."""
+    return _set_mode("runner")
 
 
 def providers(draws) -> list:
@@ -98,17 +104,17 @@ def providers(draws) -> list:
 def replays(tensor: torch.Tensor, draws=None, hooks=()) -> bool:
     """Whether an entry point on ``tensor``'s device runs the runner: on
     the card outside `eager()`, where every hook and draw provider can be
-    captured; on the CPU inside `buffers_on_cpu()`. A hook that calls the
+    captured; on any device inside `runner_eager()`. A hook that calls the
     host says ``capturable = False``; a draw provider that draws on the
     card says ``capturable = True``."""
     mode = getattr(_mode, "value", None)
     if mode == "eager" or not all(getattr(h, "capturable", True)
                                   for h in hooks if h is not None):
         return False
-    if tensor.is_cuda:
-        return all(getattr(p, "capturable", False)
-                   for p in providers(draws))
-    return mode == "buffers"
+    if mode == "runner":
+        return True
+    return tensor.is_cuda and all(getattr(p, "capturable", False)
+                                  for p in providers(draws))
 
 
 # ---- pytrees of tensors: dataclasses, NamedTuples, tuples, dicts
@@ -324,7 +330,8 @@ class _Graph:
     the lineage, so that a lineage is freed with its last state."""
 
     def __init__(self, lineage: _Lineage, step, x_spec, x_leaves: list,
-                 consts, draws, rows: int):
+                 consts, draws, rows: int, capture: bool):
+        self.capture = capture
         self.spec, self.bufs = lineage.spec, lineage.bufs
         self.device, self.pool = lineage.device, lineage.pool
         self.step, self.consts, self.draws = step, consts, draws
@@ -339,8 +346,9 @@ class _Graph:
 
     def step_into_buffers(self) -> None:
         """The captured function: one step from the buffers into them."""
-        x = unflatten(self.x_spec,
-                      [b.index_select(0, self.t)[0] for b in self.x_bufs])
+        with site("graph.buffers"):
+            x = unflatten(self.x_spec, [b.index_select(0, self.t)[0]
+                                        for b in self.x_bufs])
         new_state, out = self.step(unflatten(self.spec, self.bufs), x,
                                    self.consts, self.draws)
         new_spec, new_leaves = flatten(new_state)
@@ -348,10 +356,11 @@ class _Graph:
         if new_spec != self.spec or out_spec != self.out_spec:
             raise ValueError("a step changed its state or output structure "
                              "between calls")
-        for b, v in zip(self.out_bufs, out_leaves):
-            b.index_copy_(0, self.t, v.unsqueeze(0))
-        _write_back(self.bufs, new_leaves)
-        self.t.add_(1)
+        with site("graph.buffers"):
+            for b, v in zip(self.out_bufs, out_leaves):
+                b.index_copy_(0, self.t, v.unsqueeze(0))
+            _write_back(self.bufs, new_leaves)
+            self.t.add_(1)
 
     def build(self) -> None:
         """Warm up on a scratch copy of the state from input row 0,
@@ -372,7 +381,7 @@ class _Graph:
             self.out_bufs = [torch.empty((rows, *v.shape), dtype=v.dtype,
                                          device=self.device)
                              for v in out_leaves]
-            if self.device.type == "cuda":
+            if self.capture:
                 self._capture()
         finally:
             for k in kernels.KERNELS:
@@ -426,10 +435,10 @@ class _Graph:
         self.graph = graph
 
     def run(self, n: int) -> None:
-        """n steps from row 0: n replays on the card, each counting the
-        launches it holds; n eager calls on the CPU."""
+        """n steps from row 0: n replays of the captured graph, each
+        counting the launches it holds; else n eager calls."""
         self.t.zero_()
-        if self.device.type != "cuda":
+        if not self.capture:
             for _ in range(n):
                 self.step_into_buffers()
             return
@@ -454,16 +463,19 @@ def scan(key, step, state, xs, consts=None, draws=None):
     rows = ROWS if T > 1 else 1   # one graph for any scan length
     const_key, const_bufs = lineage.const_buffers(consts)
     dev = lineage.device
-    draws_key = tuple(p.graph_key() if dev.type == "cuda" else None
+    capture = (dev.type == "cuda"
+               and getattr(_mode, "value", None) != "runner")
+    draws_key = tuple(p.graph_key() if capture else None
                       for p in providers(draws))
     x_sig = tuple((tuple(x.shape[1:]), x.dtype) for x in x_leaves)
-    full_key = (key, x_spec, x_sig, const_key, draws_key, rows)
+    full_key = (key, x_spec, x_sig, const_key, draws_key, rows, capture)
     graph = lineage.graphs.get(full_key)
     if graph is None:
         graph = lineage.graphs[full_key] = _Graph(
-            lineage, step, x_spec, x_leaves, const_bufs, draws, rows)
-    if dev.type != "cuda":
-        graph.draws = draws   # the CPU runs the provider it is given
+            lineage, step, x_spec, x_leaves, const_bufs, draws, rows,
+            capture)
+    if not capture:
+        graph.draws = draws   # an eager runner runs the provider it is given
     results = None
     for t0 in range(0, T, rows):
         n = min(rows, T - t0)

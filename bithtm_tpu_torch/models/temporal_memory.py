@@ -51,6 +51,7 @@ import torch
 
 from ..config import TMConfig
 from ..ops.active_set import (
+    _on_device,
     argmax_onehot,
     column_mask_from_cols,
     compact_first_k,
@@ -210,50 +211,167 @@ def _allocate(cfg: TMConfig, segcell_rows, syn_rows, match_rows, unacc):
     return new_seg, new_owner, n_dropped, n_evicted
 
 
+def _select_keys(pkey, valid, n_grow, samp: int, index_form: bool):
+    """The selection of `_select_and_fill`: per row, the kk = min(samp,
+    Wc) smallest keys, ascending, invalid keys replaced by the sentinel,
+    and n_chosen = min(n_grow, the valid count). The cell-form keys sort
+    as int64 against the sentinel 2^32 - 1 (a valid key is below 2^31 and
+    may be exactly 0x7FFFFFFF at 2^16 cells, so an int32 sort against
+    0xFFFFFFFF, which reads as -1, would put the invalid keys first; torch's
+    CPU sort has no uint32). The index-form keys are int32 below 2^30
+    with the sentinel 0x7FFFFFFF; valid keys are distinct (the index sits
+    in the low bits), so the kk smallest of `torch.topk` are the keys the
+    JAX split-block sort selects, in the same order, and sentinels tie
+    but are equal values. Returns (sorted keys (B, L, kk), n_chosen (B,
+    L))."""
+    kk = min(samp, pkey.shape[-1])
+    n_chosen = torch.minimum(n_grow, valid.sum(-1, dtype=torch.int32))
+    if not index_form:
+        keys = torch.where(valid, pkey, (1 << 32) - 1)
+        return torch.sort(keys, dim=-1).values[..., :kk], n_chosen
+    keys = torch.where(valid, pkey, PACKED_IDX_SENTINEL)
+    return torch.topk(keys, kk, dim=-1, largest=False,
+                      sorted=True).values, n_chosen
+
+
+def _fill(chosen_cell, n_chosen, free):
+    """The free-slot fill: slot k of a row takes the free_rank[k]-th
+    chosen cell where free_rank[k] < n_chosen. Returns (gathered (B, L,
+    K), wrote_l (B, L, K))."""
+    free_rank = rank_ascending(free)                            # (B, L, K)
+    pick = free_rank.clamp(0, chosen_cell.shape[-1] - 1).long()
+    gathered = chosen_cell.gather(-1, pick)
+    wrote_l = free & (free_rank < n_chosen[..., None])
+    return gathered, wrote_l
+
+
 def _select_and_fill(pkey, valid, n_grow, free, samp: int, low_bits: int,
                      cand_cell=None):
     """`_select_and_fill` (`temporal_memory.py:221-347`): per row, the
     ``n_grow`` smallest valid keys, written into the first free slots.
 
     Without ``cand_cell``, `sortfill_packed_cell`: the low ``low_bits``
-    bits of a key are the cell. The keys are sorted as int64: a valid key
-    is below 2^31 and may be exactly 0x7FFFFFFF at 2^16 cells, so an
-    int32 sort against a 0xFFFFFFFF sentinel (which would read as -1)
-    would put the invalid keys first; the sentinel here is 2^32 - 1.
-
+    bits of a key are the cell, and the keys are int64 (`_select_keys`).
     With ``cand_cell`` (B, Wc), `sortfill_packed_idx`: the low bits are
-    the candidate's list index, decoded to its cell by
-    `take_small_table` in place of the keys, which masks them itself and
-    reads the list where it lies (one launch on the card, no copy). The
-    keys are int32 below 2^30 with the sentinel
-    0x7FFFFFFF. Valid keys are distinct (the index sits in the low bits),
-    so the kk smallest of `torch.topk` are the keys the JAX split-block
-    sort selects, in the same order; sentinels tie, but any order of
-    equal keys is the same values, and their decoded cells land only in
-    slots that ``wrote_l`` never writes.
+    the candidate's list index, decoded to its cell by `take_small_table`
+    in place of the keys, which masks them itself and reads the list
+    where it lies (one launch on the card, no copy); the keys are int32.
+    Sentinel keys decode to cells that land only in slots ``wrote_l``
+    never writes.
 
     ``n_valid`` counts the mask. Returns (gathered (B, L, K), wrote_l
     (B, L, K), n_chosen (B, L))."""
-    Wc = pkey.shape[-1]
-    free_rank = rank_ascending(free)                            # (B, L, K)
-    n_chosen = torch.minimum(n_grow, valid.sum(-1, dtype=torch.int32))
-    kk = min(samp, Wc)
     low = (1 << low_bits) - 1
+    sorted_key, n_chosen = _select_keys(pkey, valid, n_grow, samp,
+                                        cand_cell is not None)
     if cand_cell is None:
-        keys = torch.where(valid, pkey, (1 << 32) - 1)
-        sorted_key = torch.sort(keys, dim=-1).values[..., :kk]
         chosen_cell = (sorted_key & low).to(torch.int32)
     else:
-        keys = torch.where(valid, pkey, PACKED_IDX_SENTINEL)
-        sorted_key = torch.topk(keys, kk, dim=-1, largest=False,
-                                sorted=True).values
         chosen_cell = take_small_table(cand_cell, sorted_key, low,
                                        in_place=True)
-    # slot k takes the free_rank[k]-th chosen cell
-    pick = free_rank.clamp(0, kk - 1).long()
-    gathered = chosen_cell.gather(-1, pick)
-    wrote_l = free & (free_rank < n_chosen[..., None])
+    gathered, wrote_l = _fill(chosen_cell, n_chosen, free)
     return gathered, wrote_l, n_chosen
+
+
+def growth_key_form(n_cells: int, Wc: int) -> tuple[bool, int]:
+    """The growth key's form and low bits: the cell id with >= 15 random
+    bits above it up to 2^16 cells (True, cell bits), else the
+    candidate's list index, random bits in [idx_bits, 29] (False, index
+    bits of Wc)."""
+    cell_bits = max(1, (n_cells - 1).bit_length())
+    if 31 - cell_bits >= 15:
+        return True, cell_bits
+    return False, max(1, (Wc - 1).bit_length())
+
+
+def growth_keys_ref(syn_rows, act_rows, lidx, lvalid, cand_cell,
+                    cand_valid, n_winners_eff, rnd, samp: int,
+                    key_bits: int, cell_form: bool):
+    """The packed growth keys of `grow_select_ref` (JAX `_grow`,
+    `temporal_memory.py:350-498`): per growing row, the (B, L, Wc) keys
+    (int64 in the cell form, int32 in the index form), which of them are
+    valid (in the list and not already a target of the row) and the
+    row's n_grow (B, L). Arguments as `grow_select_ref`'s."""
+    B, R, K = syn_rows.shape
+    L, Wc = lidx.shape[-1], cand_cell.shape[-1]
+    take = lidx.long().clamp(max=R - 1)[..., None].expand(B, L, K)
+    syn_l = syn_rows.gather(1, take)                            # clipped
+    act_l = act_rows.gather(1, take)
+    live_l = syn_l >= 0
+    row_potential = (act_l & live_l).sum(-1, dtype=torch.int32)  # (B, L)
+    n_grow = torch.where(
+        lvalid,
+        torch.minimum(torch.clamp(samp - row_potential, min=0),
+                      torch.clamp(n_winners_eff, max=samp)[:, None]),
+        0)
+
+    # existing targets: only active live synapses can target a candidate,
+    # and only rows with potential < samp grow, so the first samp active
+    # targets suffice (temporal_memory.py:425-449)
+    if samp < K:
+        act_valid = act_l & live_l
+        r_act = rank_ascending(act_valid)
+        r_act = torch.where(act_valid & (r_act < samp), r_act, samp)
+        syn_cmp = torch.full((B, L, samp + 1), -1, dtype=torch.int32,
+                             device=syn_rows.device)
+        syn_cmp.scatter_(-1, r_act.long(), syn_l)
+        syn_cmp = syn_cmp[..., :samp]
+    else:
+        syn_cmp = syn_l
+    existing = (syn_cmp[..., :, None]
+                == cand_cell[:, None, None, :]).any(-2)          # (B, L, Wc)
+    valid = cand_valid[:, None, :] & ~existing
+    # random bits above what identifies the candidate (logical shifts:
+    # rnd carries 32 bits in int32)
+    if cell_form:
+        pkey = ((lsr32(rnd, key_bits + 1).to(torch.int64) << key_bits)
+                | cand_cell[:, None, :].to(torch.int64))
+    else:
+        pkey = ((lsr32(rnd, key_bits + 2) << key_bits)
+                | torch.arange(Wc, dtype=torch.int32, device=rnd.device))
+    return pkey, valid, n_grow
+
+
+def grow_select_ref(syn_rows, act_rows, lidx, lvalid, cand_cell,
+                    cand_valid, n_winners_eff, rnd, samp: int,
+                    key_bits: int, cell_form: bool
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the `grow_select` kernel, `_grow`'s selection:
+    for (B, R, K) synapse rows ``syn_rows`` (int32, -1 free) and their
+    bool activity ``act_rows``, the (B, L) growing rows ``lidx`` (int32,
+    ``lvalid``), the (B, Wc) candidate list ``cand_cell`` (valid entries
+    first, ascending cell id), (B,) ``n_winners_eff`` and (B, L, Wc)
+    int32 random words ``rnd``: each row grows n_grow = clip(samp -
+    active potential, 0, min(samp, n_winners_eff)) candidates it does not
+    already target. Returns (chosen (B, L, kk) int32, kk = min(samp, Wc):
+    the cells of the kk smallest keys, ascending, in the cell form
+    (``cell_form``, ``key_bits`` cell bits), the keys themselves in the
+    index form; n_chosen (B, L) int32 = min(n_grow, valid count)). Only
+    chosen[..., :n_chosen] is defined: the kernel writes the sentinel's
+    decode past it."""
+    pkey, valid, n_grow = growth_keys_ref(
+        syn_rows, act_rows, lidx, lvalid, cand_cell, cand_valid,
+        n_winners_eff, rnd, samp, key_bits, cell_form)
+    sorted_key, n_chosen = _select_keys(pkey, valid, n_grow, samp,
+                                        not cell_form)
+    if cell_form:
+        sorted_key = (sorted_key & ((1 << key_bits) - 1)).to(torch.int32)
+    return sorted_key, n_chosen
+
+
+def grow_select(syn_rows, act_rows, lidx, lvalid, cand_cell, cand_valid,
+                n_winners_eff, rnd, samp: int, key_bits: int,
+                cell_form: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_grow`'s candidate selection: the `grow_select` kernel for CUDA
+    tensors, the plain version for CPU tensors (arguments and results as
+    `grow_select_ref`'s; chosen is defined up to n_chosen)."""
+    args = (syn_rows, act_rows, lidx, lvalid, cand_cell, cand_valid,
+            n_winners_eff, rnd, samp, key_bits, cell_form)
+    if _on_device("grow_select", syn_rows) == "cuda":
+        from ..ops.kernels import grow_select_cuda
+
+        return grow_select_cuda(*args)
+    return grow_select_ref(*args)
 
 
 def _grow(cfg: TMConfig, rnd, syn_rows, perm_rows, learn_rows,
@@ -263,8 +381,11 @@ def _grow(cfg: TMConfig, rnd, syn_rows, perm_rows, learn_rows,
     learning segment grows clip(samp - active potential, 0,
     min(samp, n_winners)) random candidates that it does not already
     target, into its free slots. The growing segments are compacted to
-    an L-wide list first. Returns (syn_rows, perm_rows, wrote (B, A, G,
-    K) the slots grown, n_grown, overflow, n_winners_dropped,
+    an L-wide list first; `grow_select` picks each row's candidates,
+    `take_small_table` decodes the index-form keys (above 2^16 cells) and
+    `_fill` writes them into the free slots, as JAX's `_select_and_fill`
+    selects, decodes and fills. Returns (syn_rows, perm_rows, wrote (B,
+    A, G, K) the slots grown, n_grown, overflow, n_winners_dropped,
     n_growth_dropped), counts (B,)."""
     C, D, G, K = (cfg.column_dim, cfg.cell_dim, cfg.segments_per_column,
                   cfg.synapse_capacity)
@@ -289,60 +410,28 @@ def _grow(cfg: TMConfig, rnd, syn_rows, perm_rows, learn_rows,
     slots = torch.arange(A * G, dtype=torch.int32,
                          device=dev).expand(B, A * G)
     lidx, lvalid = compact_first_k(learn_flat, slots, L)
-    lidx = torch.where(lvalid, lidx, A * G).long()
+    lidx = torch.where(lvalid, lidx, A * G)
+    syn_flat = syn_rows.reshape(B, A * G, K)
+    cell_form, key_bits = growth_key_form(C * D, Wc)
+    chosen, n_chosen = grow_select(
+        syn_flat, act_prev_rows.reshape(B, A * G, K), lidx, lvalid,
+        cand_cell, cand_valid, n_winners_eff, rnd, samp, key_bits,
+        cell_form)
+    if not cell_form:
+        # the index-form keys -> cells, in place
+        chosen = take_small_table(cand_cell, chosen, (1 << key_bits) - 1,
+                                  in_place=True)
+    lidx = lidx.long()
     take = lidx.clamp(max=A * G - 1)[..., None].expand(B, L, K)  # clipped
-    syn_l = syn_rows.reshape(B, A * G, K).gather(1, take)
-    act_l = act_prev_rows.reshape(B, A * G, K).gather(1, take)
-    live_l = syn_l >= 0
-    row_potential = (act_l & live_l).sum(-1, dtype=torch.int32)  # (B, L)
-    n_grow = torch.where(
-        lvalid,
-        torch.minimum(torch.clamp(samp - row_potential, min=0),
-                      torch.clamp(n_winners_eff, max=samp)[:, None]),
-        0)
-
-    # existing targets: only active live synapses can target a candidate,
-    # and only rows with potential < samp grow, so the first samp active
-    # targets suffice (temporal_memory.py:425-449)
-    if samp < K:
-        act_valid = act_l & live_l
-        r_act = rank_ascending(act_valid)
-        r_act = torch.where(act_valid & (r_act < samp), r_act, samp)
-        syn_cmp = torch.full((B, L, samp + 1), -1, dtype=torch.int32,
-                             device=dev)
-        syn_cmp.scatter_(-1, r_act.long(), syn_l)
-        syn_cmp = syn_cmp[..., :samp]
-    else:
-        syn_cmp = syn_l
-    existing = (syn_cmp[..., :, None]
-                == cand_cell[:, None, None, :]).any(-2)          # (B, L, Wc)
-    valid = cand_valid[:, None, :] & ~existing
-    n_cells = C * D
-    cell_bits = max(1, (n_cells - 1).bit_length())
-    free = ~live_l
-    # random bits above what identifies the candidate (logical shifts:
-    # rnd carries 32 bits in int32)
-    if 31 - cell_bits >= 15:
-        # the cell id fits with >= 15 random bits (up to 2^16 cells)
-        pkey = ((lsr32(rnd, cell_bits + 1).to(torch.int64) << cell_bits)
-                | cand_cell[:, None, :].to(torch.int64))
-        gathered, wrote_l, n_chosen = _select_and_fill(
-            pkey, valid, n_grow, free, samp, cell_bits)
-    else:
-        # larger cell spaces: the candidate's list index, random bits in
-        # [idx_bits, 29], decoded to its cell after the selection
-        idx_bits = max(1, (Wc - 1).bit_length())
-        pkey = ((lsr32(rnd, idx_bits + 2) << idx_bits)
-                | torch.arange(Wc, dtype=torch.int32, device=dev))
-        gathered, wrote_l, n_chosen = _select_and_fill(
-            pkey, valid, n_grow, free, samp, idx_bits, cand_cell)
+    syn_l = syn_flat.gather(1, take)
+    free = syn_l < 0
+    gathered, wrote_l = _fill(chosen, n_chosen, free)
     new_syn_l = torch.where(wrote_l, gathered, syn_l)
 
     # scatter the L rows back; invalid rows land in the padding row
     idx = lidx[..., None].expand(B, L, K)
     syn_pad = torch.cat(
-        [syn_rows.reshape(B, A * G, K),
-         syn_rows.new_full((B, 1, K), -1)], 1)
+        [syn_flat, syn_rows.new_full((B, 1, K), -1)], 1)
     syn_rows = syn_pad.scatter_(1, idx, new_syn_l)[:, :A * G].reshape(
         B, A, G, K)
     wrote = torch.zeros((B, A * G + 1, K), dtype=torch.bool, device=dev)

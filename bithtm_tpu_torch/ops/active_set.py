@@ -18,8 +18,10 @@ versions gather from a dense (B, C*D) active-cell mask; the kernels
 build the same mask as a bitmap in shared memory. `take_small_table`,
 the index -> cell decode of the growth keys above 2^16 cells, and
 `seg_counts_packed`, the per-segment count decode of the packed activity
-those passes write, follow the same rule (`small_table_take` kernel,
-`take_small_table_ref`; `seg_counts` kernel, `seg_counts_packed_ref`).
+those passes write, and `pack_bits`, the bit pack of the active, winner
+and matching flags, follow the same rule (`small_table_take` kernel,
+`take_small_table_ref`; `seg_counts` kernel, `seg_counts_packed_ref`;
+`pack_bits` kernel, `pack_bits_ref`).
 """
 
 from __future__ import annotations
@@ -64,8 +66,9 @@ def pack_act_conn(act: torch.Tensor, conn: torch.Tensor,
     return v.to(act_dtype(synapses))
 
 
-def pack_bits(mask: torch.Tensor) -> torch.Tensor:
-    """(..., D) bool -> (..., W) int32 words (bit d of word d//32)."""
+def pack_bits_ref(mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of the `pack_bits` kernel: (..., D) bool -> (..., W)
+    int32 words (bit d of word d//32), an int64 weighted sum."""
     D = mask.shape[-1]
     W = cell_words(D)
     pad = W * 32 - D
@@ -76,6 +79,17 @@ def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     weights = torch.ones(32, dtype=torch.int64, device=mask.device) << \
         torch.arange(32, device=mask.device)
     return wrap_u32((m * weights).sum(-1))
+
+
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """(..., D) bool -> (..., W) int32 words (bit d of word d//32): the
+    `pack_bits` kernel for CUDA tensors (made contiguous), the plain
+    version for CPU tensors."""
+    if _on_device("pack_bits", mask) == "cuda":
+        from .kernels import pack_bits_cuda
+
+        return pack_bits_cuda(mask.contiguous())
+    return pack_bits_ref(mask)
 
 
 def unpack_bits(bits: torch.Tensor, cell_dim: int) -> torch.Tensor:

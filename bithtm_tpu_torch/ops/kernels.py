@@ -1,21 +1,24 @@
 """Build, binding and wrappers of the hand-written CUDA kernels.
 
 The sources in `csrc/` (`table_pass.cu`, `serving_pass.cu`,
-`small_take.cu`, `sp_pass.cu`, `overlap_pass.cu` and `count_pass.cu`;
-all include `launch.cuh`, `table_pass.cu`, `serving_pass.cu` and
-`sp_pass.cu` also `active_bitmap.cuh`) are compiled on first use with
+`small_take.cu`, `sp_pass.cu`, `overlap_pass.cu`, `count_pass.cu`,
+`grow_pass.cu` and `pack_pass.cu`; all include `launch.cuh`,
+`table_pass.cu`, `serving_pass.cu` and `sp_pass.cu` also
+`active_bitmap.cuh`) are compiled on first use with
 ``nvcc`` for ``sm_90a``, one process per source started together, and
 linked into a plain-C shared library under ``bithtm_tpu_torch/_build``
 (keyed by a hash of the sources and flags), loaded with ctypes. Nothing
 here runs when the module is imported.
 
 Each wrapper first chooses its kernel's path from the shapes alone
-(`_bitmap`, `_streams`, `_act_bytes`, `_delta`: the bitmap in shared or
-in global memory, the packed activity's type, the streams in grid y or
-folded into grid x, the SP delta row staged or read from global memory;
-README.md, port section) and reports it (`CudaKernel.path`) before any
-tensor is read. Only the stream-words limit (`_stream_words`: the
-kernels index a stream's words in int32) still raises. Then it checks
+(`_bitmap`, `_streams`, `_act_bytes`, `_delta`, `_grow_keys`,
+`_pack_path`: the bitmap in shared or in global memory, the packed
+activity's type, the streams in grid y or folded into grid x, the SP
+delta row staged or read from global memory, the growth keys' form and
+where they live, the pack's loads; README.md, port section) and
+reports it (`CudaKernel.path`) before any tensor is read. Only the
+stream-words limit (`_stream_words`: the kernels index a stream's words
+in int32) still raises. Then it checks
 device, dtype, shape, contiguity and alignment in one pass over its
 tensors (`_ptr`); allocates the output and any scratch, and calls the C
 entry point with the tensors' device index and the raw handle of that
@@ -47,7 +50,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("table_pass.cu", "serving_pass.cu", "small_take.cu",
-           "sp_pass.cu", "overlap_pass.cu", "count_pass.cu")
+           "sp_pass.cu", "overlap_pass.cu", "count_pass.cu", "grow_pass.cu",
+           "pack_pass.cu")
 HEADERS = ("active_bitmap.cuh", "launch.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -57,7 +61,8 @@ MAX_BITMAP_CELLS = 8 * MAX_SHARED_BYTES   # 1,859,584
 MAX_STREAM_WORDS = 1 << 30  # a stream's words, indexed in int32 on the card
 MAX_GRID_Y = 65_535         # streams of a kernel with one grid row a stream
 
-_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_longlong)
 # every entry point ends with (device, stream); `bitmaps` is the global
 # bitmap scratch (None: the bitmap in shared memory)
 _ARGTYPES = {
@@ -84,6 +89,12 @@ _ARGTYPES = {
     "sp_overlap": [_VP] * 3 + [_I] * 5 + [_I, _VP],
     # v, potential, connected, B, C, G, K, scale, act_bytes
     "seg_counts": [_VP] * 3 + [_I] * 6 + [_I, _VP],
+    # syn, act, lidx, lvalid, cand, cand_valid, n_eff, rnd, chosen,
+    # n_chosen, scratch, B, R, K, L, Wc, cand_stride, samp, bits,
+    # cell_form, global_keys
+    "grow_select": [_VP] * 11 + [_I] * 10 + [_I, _VP],
+    # mask, out, rows, D
+    "pack_bits": [_VP] * 2 + [_LL, _I] + [_I, _VP],
 }
 # the grid queries of the row-range kernels, which launch nothing:
 # table_pass_grid (punish, C, J, D, global, act_bytes, device, blocks
@@ -208,9 +219,11 @@ SMALL_TABLE_TAKE = CudaKernel("small_table_take")
 SP_UPDATE_PACK = CudaKernel("sp_update_pack")
 SP_OVERLAP = CudaKernel("sp_overlap")
 SEG_COUNTS = CudaKernel("seg_counts")
+GROW_SELECT = CudaKernel("grow_select")
+PACK_BITS = CudaKernel("pack_bits")
 KERNELS = (TABLE_UPDATE, ACT_CONN, SERVING_ACTIVATION, ACT_FROZEN,
            SYNAPSE_ACTIVATION, SMALL_TABLE_TAKE, SP_UPDATE_PACK, SP_OVERLAP,
-           SEG_COUNTS)
+           SEG_COUNTS, GROW_SELECT, PACK_BITS)
 
 
 def launch_counts() -> dict[str, int]:
@@ -272,11 +285,12 @@ def word_pass_grid(serving: bool, C: int, J: int, cell_dim: int,
 
 
 def _ptr(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
-         device: int, align: int = 1) -> int:
+         device: int, align: int = 1, view: bool = False) -> int:
     """The data pointer of ``t``, once it is a contiguous CUDA tensor on
     card ``device`` (the index of the call's first tensor; -1 off the
     card), of ``dtype`` and ``shape`` (None: any), ``align``-byte
-    aligned."""
+    aligned. A ``view`` is a row view that `_row_view` has checked, and
+    need not be contiguous."""
     if device < 0 or t.get_device() != device:
         on = f" on cuda:{device}" if device >= 0 else ""
         raise ValueError(f"{name} must be a CUDA tensor{on}, got {t.device}")
@@ -286,10 +300,25 @@ def _ptr(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
         raise ValueError(f"{name} must have shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
     ptr = t.data_ptr()
-    if ptr % align or not t.is_contiguous():
+    if ptr % align or not (view or t.is_contiguous()):
         raise ValueError(f"{name} must be contiguous and {align}-byte "
                          f"aligned")
     return ptr
+
+
+def _row_view(name: str, t: torch.Tensor, B: int, n: int) -> int:
+    """The row stride of a (B, n) ``t`` whose rows may be a strided view:
+    unit stride within a row, rows that do not overlap, a row stride
+    below 2^31. Checked from the shape and strides alone."""
+    if t.dim() != 2 or tuple(t.shape) != (B, n):
+        raise ValueError(f"{name} must have shape {(B, n)}, got "
+                         f"{tuple(t.shape)}")
+    row, lane = t.stride()
+    if lane != 1 or not (n <= row < 1 << 31 or B == 1):
+        raise ValueError(f"{name} rows must have unit stride and not "
+                         f"overlap, got strides {t.stride()} for shape "
+                         f"{tuple(t.shape)}")
+    return row
 
 
 # ---- the paths, chosen from shapes before any tensor is read
@@ -338,6 +367,25 @@ def _delta(C: int, I_pad: int) -> str:
     ("gmem_delta")."""
     smem = 4 * I_pad + (C + 31) // 32 * 4
     return "smem_delta" if smem <= MAX_SHARED_BYTES else "gmem_delta"
+
+
+def _grow_keys(cell_form: bool, Wc: int) -> tuple[str, str]:
+    """`grow_select`'s path: the key form ("cell" up to 2^16 cells, else
+    "index") and where a row's keys live: "smem", beside the candidate
+    list in shared memory, while a list and one key row (8*Wc bytes) fit
+    a block, else "global", in a (B, L, Wc) scratch."""
+    return ("cell" if cell_form else "index",
+            "smem" if 8 * Wc <= MAX_SHARED_BYTES else "global")
+
+
+def _pack_path(D: int) -> str:
+    """`pack_bits`' path at D bools a row: "ballot" where D is a multiple
+    of 32 (every word 32 whole bytes), else a thread a word reading V-byte
+    vectors, V the larger of 8 and 4 dividing D ("v8", "v4"), or single
+    bytes ("v1")."""
+    if D % 32 == 0:
+        return "ballot"
+    return next(f"v{v}" for v in (8, 4, 1) if D % v == 0)
 
 
 def _bitmap_scratch(path: str, B: int, C: int, cell_dim: int, device):
@@ -515,9 +563,7 @@ def small_table_take_cuda(table, keys, mask: int = -1,
     ...] & mask where 0 <= k < Wc, 0 elsewhere, for a (B, Wc) table of any
     width whose rows may be a strided view (unit stride within a row;
     see `active_set.take_small_table_ref`); ``in_place`` writes out over
-    ``keys`` and allocates nothing. Its kernel takes about 3 us, so this
-    path checks both tensors in one pass and does nothing else before the
-    launch."""
+    ``keys`` and allocates nothing."""
     shape, kshape = table.shape, keys.shape
     if (len(shape) != 2 or len(kshape) < 2 or kshape[0] != shape[0]
             or shape[1] < 1 or not -(1 << 31) <= mask < 1 << 31):
@@ -527,32 +573,16 @@ def small_table_take_cuda(table, keys, mask: int = -1,
     B, Wc = shape
     n = keys.numel() // B if B else 0
     _stream_words(n)
-    row, lane = table.stride()
+    row = _row_view("table", table, B, Wc)
     dev = table.get_device()
-    if (dev < 0 or keys.get_device() != dev or table.dtype != torch.int32
-            or keys.dtype != torch.int32 or lane != 1
-            or not (Wc <= row < 1 << 31 or B == 1)
-            or not keys.is_contiguous()):
-        _take_error(table, keys, dev)
+    table_p = _ptr("table", table, torch.int32, None, dev, view=True)
+    keys_p = _ptr("keys", keys, torch.int32, None, dev)
     out = keys if in_place else torch.empty_like(keys)
     if n:
-        keys_p = keys.data_ptr()
-        SMALL_TABLE_TAKE.launch(table.data_ptr(), row, keys_p,
+        SMALL_TABLE_TAKE.launch(table_p, row, keys_p,
                                 keys_p if in_place else out.data_ptr(), B,
                                 Wc, n, mask, dev, _stream(dev))
     return out
-
-
-def _take_error(table, keys, dev: int):
-    """Raises what `small_table_take_cuda`'s one-pass check refused."""
-    if dev < 0:
-        raise ValueError(f"table must be a CUDA tensor, got {table.device}")
-    if table.dtype != torch.int32:
-        raise TypeError(f"table must be torch.int32, got {table.dtype}")
-    _ptr("keys", keys, torch.int32, None, dev)
-    raise ValueError(f"table rows must have unit stride and not overlap, "
-                     f"got strides {table.stride()} for shape "
-                     f"{tuple(table.shape)}")
 
 
 def sp_update_pack_cuda(permanence, delta_row, active_cols, threshold
@@ -657,3 +687,82 @@ def seg_counts_cuda(packed, num_segments: int, synapses: int
     SEG_COUNTS.launch(v_p, potential.data_ptr(), connected.data_ptr(), B, C,
                       G, K, act_scale(K), dtype.itemsize, dev, _stream(dev))
     return potential, connected
+
+
+def grow_select_cuda(syn_rows, act_rows, lidx, lvalid, cand_cell,
+                     cand_valid, n_winners_eff, rnd, samp: int,
+                     key_bits: int, cell_form: bool
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA `grow_select`: the growth-candidate selection of `_grow` for
+    (B, R, K) int32 synapse rows and their bool activity, the (B, L)
+    int32 growing rows ``lidx`` (``lvalid``), the (B, Wc) candidate list
+    (valid entries first, ascending; its rows may be a strided view with
+    unit stride within a row), (B,) ``n_winners_eff`` and (B, L,
+    Wc) int32 random words -> (chosen (B, L, kk), n_chosen (B, L)) int32,
+    kk = min(samp, Wc): the cells (``cell_form``) or the index-form keys
+    of the n_chosen smallest keys, ascending (see
+    `temporal_memory.grow_select_ref`)."""
+    if syn_rows.dim() != 3 or lidx.dim() != 2 or cand_cell.dim() != 2:
+        raise ValueError(f"syn_rows must be (B, R, K), lidx (B, L) and "
+                         f"cand_cell (B, Wc), got {tuple(syn_rows.shape)}, "
+                         f"{tuple(lidx.shape)} and {tuple(cand_cell.shape)}")
+    B, R, K = syn_rows.shape
+    L, Wc = lidx.shape[1], cand_cell.shape[1]
+    shift = 1 if cell_form else 2
+    if R < 1 or K < 1 or Wc < 1 or samp < 1 or not \
+            1 <= key_bits <= 31 - shift:
+        raise ValueError(f"grow_select needs R, K, Wc, samp >= 1 and key "
+                         f"bits in [1, {31 - shift}], got R={R} K={K} "
+                         f"Wc={Wc} samp={samp} bits={key_bits}")
+    _stream_words(R * K)
+    _stream_words(L * Wc)
+    cand_stride = _row_view("cand_cell", cand_cell, B, Wc)
+    path = GROW_SELECT.choose(*_grow_keys(cell_form, Wc))
+    dev = syn_rows.get_device()
+    syn_p = _ptr("syn_rows", syn_rows, torch.int32, None, dev)
+    act_p = _ptr("act_rows", act_rows, torch.bool, (B, R, K), dev)
+    lidx_p = _ptr("lidx", lidx, torch.int32, (B, L), dev)
+    lvalid_p = _ptr("lvalid", lvalid, torch.bool, (B, L), dev)
+    cand_p = _ptr("cand_cell", cand_cell, torch.int32, None, dev, view=True)
+    cvalid_p = _ptr("cand_valid", cand_valid, torch.bool, (B, Wc), dev)
+    neff_p = _ptr("n_winners_eff", n_winners_eff, torch.int32, (B,), dev)
+    rnd_p = _ptr("rnd", rnd, torch.int32, (B, L, Wc), dev)
+    kk = min(samp, Wc)
+    chosen = torch.empty((B, L, kk), dtype=torch.int32,
+                         device=syn_rows.device)
+    n_chosen = torch.empty((B, L), dtype=torch.int32, device=syn_rows.device)
+    if n_chosen.numel() == 0:
+        return chosen, n_chosen
+    scratch = scratch_p = None
+    if path[1] == "global":
+        scratch = torch.empty((B, L, Wc), dtype=torch.int32,
+                              device=syn_rows.device)
+        scratch_p = scratch.data_ptr()
+    GROW_SELECT.launch(syn_p, act_p, lidx_p, lvalid_p, cand_p, cvalid_p,
+                       neff_p, rnd_p, chosen.data_ptr(), n_chosen.data_ptr(),
+                       scratch_p, B, R, K, L, Wc, cand_stride, samp,
+                       key_bits,
+                       int(cell_form), int(path[1] == "global"), dev,
+                       _stream(dev))
+    return chosen, n_chosen
+
+
+def pack_bits_cuda(mask) -> torch.Tensor:
+    """CUDA `pack_bits`: (..., D) bool, contiguous -> (..., W) int32
+    words, W = ceil(D/32), bit d of word d//32, zeros past D (see
+    `active_set.pack_bits_ref`)."""
+    if mask.dim() < 1:
+        raise ValueError("mask must have a last axis of D bools")
+    D = mask.shape[-1]
+    W = cell_words(D)
+    path = PACK_BITS.choose(_pack_path(D))
+    dev = mask.get_device()
+    align = 1 if path[0] in ("ballot", "v1") else int(path[0][1:])
+    mask_p = _ptr("mask", mask, torch.bool, None, dev, align=align)
+    out = torch.empty((*mask.shape[:-1], W), dtype=torch.int32,
+                      device=mask.device)
+    if out.numel() == 0:
+        return out
+    PACK_BITS.launch(mask_p, out.data_ptr(), mask.numel() // D, D, dev,
+                     _stream(dev))
+    return out

@@ -6,15 +6,18 @@ call sites carry `torch.profiler.record_function` ranges
 (`utils.profiling.site`: `sp_step`'s overlap, boost, k-winners, update
 and duty cycle; `tm_step`'s preparation, winner selection, activation,
 `_learn` with its `_allocate` and `_grow`, punishment, table pass, count
-decode, prediction words and outputs; `htm_step`'s draws and metrics).
+decode, prediction words and outputs; `htm_step`'s draws and metrics;
+the graph runner's `graph.buffers`).
 A CUDA graph's replay carries no host ranges, so ``--trace_steps`` steps
-of the loop (`graph.eager()`, `htm_step` one step at a time) are
+of the graph's own runner run eagerly (`graph.runner_eager()`: the
+captured function op by op, one step a call, the copies between the
+step and the graph's buffers under the range `graph.buffers`) are
 profiled with the ranges on; each range's device ms a step is the time
 of the kernels launched inside it. The same steps replayed as the
 scan's graph (the port's default on the card) are profiled too, and
 the ranges' sum is held to within 10% of the graph's device busy a step:
-the loop launches the graph's kernels, so its ranges attribute the
-graph's time. The ranges launch nothing and change no value.
+the eager runner launches the graph's kernels, so its ranges attribute
+the graph's time. The ranges launch nothing and change no value.
 
 On the CPU (``--device cpu``) the ranges' host time is reported instead,
 under ``"time": "cpu"``, and there is no graph.
@@ -35,7 +38,6 @@ import torch
 
 from .. import htm_init_batch, htm_scan, htm_serve_scan, make_htm_config
 from ..models import graph
-from ..models.htm import htm_step
 from ..rng import TorchDraws
 from ..utils.profiling import call_sites
 from . import add_device, pick_device, synchronize
@@ -84,7 +86,7 @@ def graph_busy(run, steps: int, dev: torch.device) -> tuple[float, float]:
     return busy / steps, launches / steps
 
 
-SITE_PREFIXES = ("sp_step.", "tm_step.", "htm_step.")
+SITE_PREFIXES = ("sp_step.", "tm_step.", "htm_step.", "graph.")
 
 
 def _kernels_by_site(events) -> dict[str, list]:
@@ -191,17 +193,16 @@ def main(argv=None) -> dict:
     state = htm_init_batch(cfg, B, gen, dev)
     draws = TorchDraws(cfg.tm, B, dev, gen)
     learn = not (args.inference or args.serve)
-    winner = not args.serve
     state, _ = htm_scan(cfg, state, seq[:warm], True, draws=draws)
     xs = seq[warm:]
     start, gen_start = copy.deepcopy(state), gen.get_state()
 
-    def scan(st):
+    def scan(st, x=xs):
         if args.serve:
-            return htm_serve_scan(cfg, st, xs,
+            return htm_serve_scan(cfg, st, x,
                                   detailed_metrics=args.detailed_metrics,
                                   draws=draws)
-        return htm_scan(cfg, st, xs, learn,
+        return htm_scan(cfg, st, x, learn,
                         detailed_metrics=args.detailed_metrics, draws=draws)
 
     busy = launches = None
@@ -213,15 +214,17 @@ def main(argv=None) -> dict:
         busy, launches = graph_busy(
             lambda: box.setdefault("state", scan(held)), T, dev)
         del box, held
-    gen.set_state(gen_start)
-    live = {"state": copy.deepcopy(start)}
+    with graph.runner_eager():
+        # the runner's warm-up step runs outside the profile, on the
+        # lineage the profiled steps then start over on
+        gen.set_state(gen_start)
+        live = {"state": scan(copy.deepcopy(start), xs[:1])[0]}
+        gen.set_state(gen_start)
+        live["state"] = graph.restore_into(live["state"], start)
 
-    def step(t):
-        live["state"], _ = htm_step(
-            cfg, live["state"], xs[t], learn, winner, args.detailed_metrics,
-            draws, dense_outputs=False)
+        def step(t):
+            live["state"] = scan(live["state"], xs[t:t + 1])[0]
 
-    with graph.eager():
         sites, loop_busy = profile_sites(step, T, dev, args.top)
     top_level = {k: v for k, v in sites.items() if "/" not in k}
     total = sum(v["ms"] for v in top_level.values())

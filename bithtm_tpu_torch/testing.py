@@ -2,7 +2,9 @@
 `synapse_activation_conn`, `synapse_activation_frozen`,
 `serving_activation`) and their CUDA kernels against their plain
 versions, made with numpy from a seed at any shape; the check of the
-SP's boost on one device against the CPU (`boost_agreement`);
+SP's boost on one device against the CPU (`boost_agreement`); the
+growth selection's inputs at a TM geometry (`grow_inputs`,
+`same_choice`);
 `run_ranks`, which runs the ranks of a multi-process check as processes
 with a deadline; `step_launches`, the kernel launches HTM steps make;
 and the config-fuzz geometries (`FUZZ_CASES`,
@@ -84,9 +86,74 @@ def serving_rows(seed: int, B: int, R: int, C: int, D: int, G: int,
     return torch.from_numpy(words).to(device)
 
 
+def grow_inputs(seed: int, B: int, C: int, D: int, A: int, G: int, K: int,
+                Wc: int, L: int, samp: int, device="cpu") -> dict:
+    """The arguments of `grow_select` (`models/temporal_memory.py`) at a
+    TM geometry, built as `_grow` builds them, with numpy from ``seed``:
+    A sorted previous active columns a stream with 0.5-4 winner cells a
+    column (so some streams pass Wc), the candidate list compacted from
+    them (`compact_first_k`'s strided view), growing rows with 5-60% of
+    the A*G slots learning (some lists pass L), synapse rows whose live
+    share varies by row and whose targets are half candidates (nine in
+    ten active) and half random cells, so that some rows reach samp and
+    grow nothing, and random words."""
+    from .models.temporal_memory import growth_key_form
+    from .ops.active_set import compact_first_k
+
+    rng = np.random.default_rng(seed)
+    R = A * G
+
+    def t(x, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
+
+    cols = np.sort(np.argsort(rng.random((B, C)), axis=1)[:, :A], axis=1)
+    winners = rng.random((B, A, D)) < rng.uniform(0.5, 4.0, (B, 1, 1)) / D
+    grid_cell = (cols[..., None] * D + np.arange(D)).reshape(B, A * D)
+    cand_cell, cand_valid = compact_first_k(
+        t(winners.reshape(B, A * D)), t(grid_cell, np.int32), Wc)
+    n_eff = np.minimum(winners.sum((1, 2)), Wc)
+
+    cand = cand_cell.cpu().numpy()
+    n_cand = cand_valid.sum(-1).cpu().numpy()
+    live = rng.random((B, R, K)) < rng.uniform(0.1, 1.0, (B, R, 1))
+    pick = (rng.random((B, R * K)) * np.maximum(n_cand, 1)[:, None])
+    to_cand = (rng.random((B, R, K)) < 0.5) & (n_cand > 0)[:, None, None]
+    target = np.where(
+        to_cand,
+        np.take_along_axis(cand, pick.astype(np.int64), 1).reshape(B, R, K),
+        rng.integers(0, C * D, (B, R, K)))
+    act = live & (rng.random((B, R, K)) < np.where(to_cand, 0.9, 0.5))
+    learn = rng.random((B, R)) < rng.uniform(0.05, 0.6, (B, 1))
+    slots = torch.arange(R, dtype=torch.int32, device=device).expand(B, R)
+    lidx, lvalid = compact_first_k(t(learn), slots, L)
+    cell_form, key_bits = growth_key_form(C * D, Wc)
+    return dict(
+        syn_rows=t(np.where(live, target, -1), np.int32), act_rows=t(act),
+        lidx=torch.where(lvalid, lidx, R), lvalid=lvalid,
+        cand_cell=cand_cell, cand_valid=cand_valid,
+        n_winners_eff=t(n_eff, np.int32),
+        rnd=t(rng.integers(-(1 << 31), 1 << 31, (B, L, Wc), dtype=np.int32)),
+        samp=samp, key_bits=key_bits, cell_form=cell_form)
+
+
+def same_choice(got: tuple, want: tuple) -> bool:
+    """Two `grow_select` results agree: n_chosen equal, and chosen equal
+    up to n_chosen (past it only the kernel's fill is defined)."""
+    (c1, n1), (c2, n2) = got, want
+    if c1.shape != c2.shape or not torch.equal(n1, n2):
+        return False
+    upto = torch.arange(c1.shape[-1], device=c1.device) < n1[..., None]
+    return torch.equal(torch.where(upto, c1, 0), torch.where(upto, c2, 0))
+
+
 # the kernels that run a step's distal forward pass, one of them a step
 STEP_KERNELS = ("table_update", "act_conn", "act_frozen",
                 "serving_activation")
+
+
+# `pack_bits` launches of one `tm_step` in every mode: the active cells,
+# the winner cells and the matching flags
+STEP_PACKS = 3
 
 
 def step_launches(sp_steps: int | None = None, **counts) -> dict:
@@ -94,12 +161,18 @@ def step_launches(sp_steps: int | None = None, **counts) -> dict:
     after HTM steps that launched the given kernels ``counts``, every
     other kernel 0: beside them one `sp_overlap` a step (``sp_steps``, by
     default one for each launch of a kernel of STEP_KERNELS, as a step
-    runs the SP once) and one `seg_counts` after each kernel that writes
+    runs the SP once), one `seg_counts` after each kernel that writes
     the packed activity (all of STEP_KERNELS but `serving_activation`,
-    whose step counts from the serving table)."""
+    whose step counts from the serving table), one `grow_select` a
+    learning step (each `table_update`) and STEP_PACKS `pack_bits` a
+    step. A count given in ``counts`` overrides its default (a
+    `tm_resume` launches one `act_conn`, one `seg_counts` and one
+    `pack_bits`)."""
     n = sum(counts.get(k, 0) for k in STEP_KERNELS)
     counts = {"sp_overlap": n if sp_steps is None else sp_steps,
               "seg_counts": n - counts.get("serving_activation", 0),
+              "grow_select": counts.get("table_update", 0),
+              "pack_bits": STEP_PACKS * n,
               **counts}
     return {k.name: counts.get(k.name, 0) for k in kernels.KERNELS}
 

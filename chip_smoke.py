@@ -6,7 +6,11 @@ the 16K x 64 shapes with its index mask, and at Wc = 2049 and 4096;
 `sp_update_pack` also with inactive rows past the rail and -0.0;
 `sp_overlap` and `seg_counts`, the SP overlap and the per-segment count
 decode, also at the 16K x 64 shapes and in a CUDA graph of 20 calls,
-where `seg_counts` must be no slower than the int32 sum), with
+where `seg_counts` must be no slower than the int32 sum; `grow_select`
+and `pack_bits`, the growth selection and the bit pack, in the phase
+`check_grow_and_pack` at the bench, 16K x 64 (tuned and auto caps),
+reference-stack and anomaly shapes, each in a CUDA graph of 20 calls,
+and on every path their wrappers report), with
 its time, its plain version's, its bound and where one exists a single
 PyTorch call's (the table kernels and the row-range word kernels with
 the grid their launcher chose; `small_table_take` with its wrapper's
@@ -16,9 +20,10 @@ and that its CUDA run agrees bit for bit with its CPU run on a small
 input, then drives the main path: the bench configuration (2048 columns
 x 32 cells, G=4 x K=64, int16 SP, B=256 streams) through `htm_scan`, 768
 learning steps then inference, and checks that every kernel of that path
-was launched once a step (the table kernel, `sp_overlap` and
-`seg_counts`; `testing.step_launches` gives every count this script
-holds a run to), that the metrics are in range, that the graph
+was launched once a step (the table kernel, `sp_overlap`,
+`seg_counts` and at learning `grow_select`; `pack_bits` three times a
+step; `testing.step_launches` gives every count this script holds a
+run to), that the metrics are in range, that the graph
 learned to predict and that the state invariants hold. Then serves the
 next 64 steps from the learned state three ways (`htm_serve_scan` over
 the synapse tables, over a compact serving table, and the scan over the
@@ -127,6 +132,7 @@ import torch
 import bithtm_tpu_torch as bt
 from bithtm_tpu_torch.models import graph as bgraph
 from bithtm_tpu_torch.models import spatial_pooler as psp
+from bithtm_tpu_torch.models import temporal_memory as ptm
 from bithtm_tpu_torch.models.htm import _scan_impl, _step_metrics
 from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
@@ -184,6 +190,8 @@ SOURCES = {
     "sp_update_pack": "bithtm_tpu_torch/csrc/sp_pass.cu",
     "sp_overlap": "bithtm_tpu_torch/csrc/overlap_pass.cu",
     "seg_counts": "bithtm_tpu_torch/csrc/count_pass.cu",
+    "grow_select": "bithtm_tpu_torch/csrc/grow_pass.cu",
+    "pack_bits": "bithtm_tpu_torch/csrc/pack_pass.cu",
 }
 REPLACES = {
     "table_update": "bithtm_tpu/ops/pallas_kernels.py:489",
@@ -196,6 +204,8 @@ REPLACES = {
     # no Pallas kernel: the JAX functions that XLA fuses into one pass
     "sp_overlap": "bithtm_tpu/ops/overlap.py:85",
     "seg_counts": "bithtm_tpu/ops/active_set.py:588",
+    "grow_select": "bithtm_tpu/models/temporal_memory.py:350",
+    "pack_bits": "bithtm_tpu/ops/active_set.py:85",
 }
 
 
@@ -487,6 +497,151 @@ def check_overlap_and_counts(dev) -> dict:
             else:
                 out[name]["16k"] = row
     return out
+
+
+# `grow_select` at the main paths' geometries (tag: B, C, D, A, G, K, Wc,
+# L, samp; the bench, the 16K tuned and auto caps, the reference and the
+# anomaly stacks) and past them (samp = K, K = 128, Wc = 2049, one key
+# row a block, keys in global memory in both forms)
+GROW_MAIN = {
+    "bench": (BATCH, 2048, 32, 41, 4, 64, 128, 88, 32),
+    "16k tuned": (BATCH_16K, 16384, 64, 328, 4, 64, 384, 336, 32),
+    "16k auto": (BATCH_16K, 16384, 64, 328, 4, 64, 768, 824, 32),
+    "reference stack": (BATCH, 2048, 32, 41, 8, 48, 128, 88, 32),
+    "anomaly stack": (BATCH, 512, 8, 16, 8, 48, 128, 64, 32),
+}
+GROW_PATHS = {
+    "samp=K": (64, 2048, 32, 41, 2, 32, 128, 88, 32),
+    "K=128": (64, 2048, 32, 41, 2, 128, 128, 88, 32),
+    "Wc=2049": (16, 4096, 32, 128, 2, 64, 2049, 128, 32),
+    "one key row a block": (2, 4096, 32, 1024, 1, 16, 20_000, 16, 32),
+    "global, cell": (2, 2048, 32, 2048, 1, 16, 29_057, 8, 32),
+    "global, index": (2, 4096, 32, 1024, 1, 16, 29_057, 8, 32),
+}
+# `pack_bits` at the main paths' (B, rows, D): the active and winner
+# cells (B, A, D) and the matching flags (B, C, G); then D = 1, 33, 48
+PACK_MAIN = {
+    "bench": (BATCH, 2048, 4), "bench cells": (BATCH, 41, 32),
+    "16k": (BATCH_16K, 16384, 4), "16k cells": (BATCH_16K, 328, 64),
+    "reference stack": (BATCH, 2048, 8),
+    "anomaly stack": (BATCH, 512, 8), "anomaly cells": (BATCH, 16, 8),
+}
+PACK_PATHS = {"D=1": (64, 1000, 1), "D=33": (64, 1000, 33),
+              "D=48": (64, 1000, 48)}
+
+
+def grow_row(geo: tuple, dev, graph: bool = True) -> dict:
+    """`grow_select` at ``geo`` (`testing.grow_inputs`) against
+    `grow_select_ref` (n_chosen and the chosen cells or keys up to it
+    equal), with `kernel_row`'s times and bound: the random words of the
+    rows that grow (their valid candidates only), the K slots (5 bytes)
+    of every valid row, the row list, the candidate lists and both
+    outputs, each once. Its library call is `torch.topk(largest=False)`
+    over the same masked keys. With ``graph``, the kernel's and the
+    library's ms a call in a CUDA graph of 20."""
+    B, C, D, A, G, K, Wc, L, samp = geo
+    x = testing.grow_inputs(sum(geo), *geo, device=dev)
+    want = ptm.grow_select_ref(**x)
+    got = kernels.grow_select_cuda(**x)
+    torch.cuda.synchronize()
+    at = f"B={B} C={C} D={D} A={A} G={G} K={K} Wc={Wc} L={L} samp={samp}"
+    require(testing.same_choice(got, want) and bool((want[1] > 0).any()),
+            f"grow_select == plain at {at}")
+    path = kernels._grow_keys(x["cell_form"], Wc)
+    require(kernels.GROW_SELECT.path == path, f"grow_select at {at} takes "
+            f"{path}, got {kernels.GROW_SELECT.path}")
+    pkey, valid, n_grow = ptm.growth_keys_ref(**x)
+    keys = torch.where(valid, pkey, (1 << 32) - 1 if x["cell_form"]
+                       else ptm.PACKED_IDX_SENTINEL)
+    del pkey, valid
+    kk = min(samp, Wc)
+    n_cand = x["cand_valid"].sum(-1, dtype=torch.int64)
+    moved = (4 * int(((n_grow > 0) * n_cand[:, None]).sum())
+             + 5 * K * int(x["lvalid"].sum()) + 5 * B * L + nbytes(*want)
+             + 5 * B * Wc + 4 * B)
+
+    def library():
+        return torch.topk(keys, kk, dim=-1, largest=False)
+
+    row = kernel_row(f"grow_select [{'+'.join(path)}]",
+                     lambda: kernels.grow_select_cuda(**x),
+                     lambda: ptm.grow_select_ref(**x), moved, at,
+                     library=library, path=list(path),
+                     growing_rows=int((n_grow > 0).sum()))
+    if graph:
+        row["graph_ms"] = graph_ms(lambda: kernels.grow_select_cuda(**x))
+        row["library_graph_ms"] = graph_ms(library)
+        print(f"  grow_select in a CUDA graph of 20 calls: "
+              f"{row['graph_ms']:.4f} ms a call, torch.topk "
+              f"{row['library_graph_ms']:.4f}")
+    return row
+
+
+def pack_row(shape: tuple, dev, graph: bool = True) -> dict:
+    """`pack_bits` of a (B, rows, D) bool tensor (density 0.3) against
+    `pack_bits_ref`, bit for bit, with `kernel_row`'s times and bound (the
+    bools read once, the words written once) and, with ``graph``, its ms
+    a call in a CUDA graph of 20. No PyTorch call packs bits into words
+    (torch has no bit-pack operator and no uint32 sum): no library
+    time."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    mask = torch.rand(shape, generator=g, device=dev) < 0.3
+    want = pas.pack_bits_ref(mask)
+    got = kernels.pack_bits_cuda(mask)
+    torch.cuda.synchronize()
+    at = "B={} rows={} D={}".format(*shape)
+    require(torch.equal(got, want), f"pack_bits == plain at {at}")
+    path = (kernels._pack_path(shape[-1]),)
+    require(kernels.PACK_BITS.path == path, f"pack_bits at {at} takes "
+            f"{path}, got {kernels.PACK_BITS.path}")
+    row = kernel_row(f"pack_bits [{path[0]}]",
+                     lambda: kernels.pack_bits_cuda(mask),
+                     lambda: pas.pack_bits_ref(mask), nbytes(mask, want),
+                     at, path=list(path))
+    if graph:
+        row["graph_ms"] = graph_ms(lambda: kernels.pack_bits_cuda(mask))
+        print(f"  pack_bits in a CUDA graph of 20 calls: "
+              f"{row['graph_ms']:.4f} ms a call; no library call (torch "
+              f"has no bit pack)")
+    return row
+
+
+def check_grow_and_pack(dev) -> tuple[dict, dict]:
+    """`grow_select` and `pack_bits` held bit-equal to their plain
+    versions and timed (`grow_row`, `pack_row`) at the main paths'
+    geometries, each also in a CUDA graph of 20 calls, and on every path
+    the wrappers report. The geometries' caps are the configurations'
+    own. Returns ({kernel: the bench row, the other main rows under
+    their tags}, {kernel: {case: row}} of every row, for the paths)."""
+    for tag, cfg in (("bench", bt.make_htm_config(**BENCH).tm),
+                     ("16k tuned", bt.make_htm_config(**GEOM_16K,
+                                                      **TUNED_16K).tm),
+                     ("16k auto", bt.make_htm_config(**GEOM_16K).tm)):
+        _, C, D, A, G, K, Wc, L, samp = GROW_MAIN[tag]
+        require((C, D, A, G, K, Wc, L, samp) == (
+            cfg.column_dim, cfg.cell_dim, cfg.active_columns,
+            cfg.segments_per_column, cfg.synapse_capacity,
+            cfg.resolved_winner_capacity, cfg.resolved_growth_capacity,
+            cfg.segment_sampling_synapses), f"GROW_MAIN[{tag}] is the "
+            f"configuration's geometry")
+    rows = {"grow_select": {}, "pack_bits": {}}
+    for tag, geo in GROW_MAIN.items():
+        rows["grow_select"][tag] = grow_row(geo, dev)
+        torch.cuda.empty_cache()
+    for tag, geo in GROW_PATHS.items():
+        rows["grow_select"][tag] = grow_row(geo, dev, graph=False)
+    for tag, shape in PACK_MAIN.items():
+        rows["pack_bits"][tag] = pack_row(shape, dev)
+    for tag, shape in PACK_PATHS.items():
+        rows["pack_bits"][tag] = pack_row(shape, dev, graph=False)
+    torch.cuda.empty_cache()
+    main = {}
+    for name, by_tag in rows.items():
+        main[name] = dict(by_tag["bench"])
+        main[name].update({tag: row for tag, row in by_tag.items()
+                           if tag in (GROW_MAIN if name == "grow_select"
+                                      else PACK_MAIN) and tag != "bench"})
+    return main, rows
 
 
 def sp_inputs(cfg, B: int, g: torch.Generator, dev):
@@ -1279,8 +1434,9 @@ def run_serving(cfg, state, gen, xs) -> dict:
     kernels.reset_launch_counts()
     s_r = bt.resume_learning(cfg, s_p)
     resumed = kernels.launch_counts()
-    require(resumed == steps(act_conn=1, sp_steps=0),
-            f"resume_learning launches act_conn and seg_counts once, got "
+    require(resumed == steps(act_conn=1, sp_steps=0, pack_bits=1),
+            f"resume_learning launches act_conn, seg_counts and pack_bits "
+            f"once, got "
             f"{resumed}")
     diff = differing_leaves(s_r, s_u)
     require(not diff, f"resumed leaves == unpacked-served, differ: {diff}")
@@ -1430,7 +1586,9 @@ def time_phases(snap: Snapshot, xs) -> None:
 # the device names of the port's own kernels (csrc/*.cu)
 PORT_KERNELS = ("table_pass_kernel", "word_range_kernel", "word_pass_kernel",
                 "small_take_kernel", "sp_update_pack_kernel",
-                "sp_overlap_kernel", "seg_counts_kernel")
+                "sp_overlap_kernel", "seg_counts_kernel",
+                "grow_select_kernel", "pack_ballot_kernel",
+                "pack_vec_kernel")
 
 
 def device_profile(run, n: int, top: int) -> tuple[float, float]:
@@ -3260,6 +3418,10 @@ def main() -> None:
     path_rows = check_paths(dev)
     print("kernel paths: " + json.dumps(path_rows))
     phase("check_kernels")
+    grow_pack, grow_pack_paths = check_grow_and_pack(dev)
+    checks.update(grow_pack)
+    path_rows.update(grow_pack_paths)
+    phase("check_grow_and_pack")
     check_learning(dev)
     check_cpu_agreement(dev)
     launches, snap, _, (state, gen, serve_xs) = run_main_path(dev)

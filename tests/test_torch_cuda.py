@@ -21,6 +21,7 @@ from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
 from bithtm_tpu_torch.ops import overlap as pov
 from bithtm_tpu_torch.ops import serving as psv
+from bithtm_tpu_torch import testing
 from bithtm_tpu_torch.testing import (boost_agreement, serving_rows,
                                       table_inputs)
 from bithtm_tpu_torch.testing import step_launches as steps
@@ -505,11 +506,70 @@ def test_grow_matches_cpu_above_2048_candidates(Wc, cuda):
         t = {k: torch.from_numpy(v).to(where) for k, v in inputs.items()}
         before = kernels.launch_counts()
         outs.append([o.cpu() for o in ptm._grow(cfg, **t)])
-        assert launched(before) == only(
-            small_table_take=int(where != "cpu"))
+        on_card = int(where != "cpu")
+        assert launched(before) == only(small_table_take=on_card,
+                                        grow_select=on_card)
     for got, want in zip(*outs[::-1]):
         assert torch.equal(got, want)
     assert int(outs[0][2].sum()) > 0               # synapses grew
+
+
+# B, C, D, A, G, K, Wc, L, samp of `grow_select` on the card: the bench
+# and 16K geometries (cell and index keys), samp = K, K = 128, narrow and
+# odd widths, one key row a block, keys in global memory in both forms
+GROW_GEOMS = [
+    (4, 2048, 32, 41, 4, 64, 128, 88, 32),
+    (2, 16384, 64, 328, 4, 64, 768, 824, 32),
+    (3, 2048, 32, 41, 2, 32, 128, 88, 32),
+    (3, 2048, 32, 41, 2, 128, 128, 88, 32),
+    (3, 2048, 32, 41, 4, 64, 4, 40, 32),
+    (3, 4096, 32, 41, 4, 64, 130, 40, 32),
+    (2, 2048, 32, 41, 4, 48, 700, 40, 40),
+    (2, 4096, 32, 128, 2, 64, 2049, 128, 32),
+    (1, 4096, 32, 1024, 1, 16, 20_000, 16, 32),
+    (1, 2048, 32, 2048, 1, 16, 29_057, 8, 32),
+    (1, 4096, 32, 1024, 1, 16, 29_057, 8, 32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo", GROW_GEOMS)
+def test_grow_select_matches_plain(geo, cuda):
+    """`grow_select` against `grow_select_ref` on the same CUDA tensors
+    (`testing.grow_inputs`): n_chosen and the chosen cells or keys up to
+    it equal, on the path its wrapper reports; the dispatcher launches
+    the kernel once."""
+    x = testing.grow_inputs(sum(geo), *geo, device=cuda)
+    want = ptm.grow_select_ref(**x)
+    before = kernels.launch_counts()
+    got = ptm.grow_select(**x)
+    torch.cuda.synchronize()
+    assert launched(before) == only(grow_select=1)
+    assert kernels.GROW_SELECT.path == kernels._grow_keys(x["cell_form"],
+                                                          geo[6])
+    assert testing.same_choice(got, want)
+    assert bool((want[1] > 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 4, 8, 32, 33, 48, 64, 70])
+def test_pack_bits_matches_plain(D, cuda):
+    """`pack_bits` against `pack_bits_ref` at every path (ballot, v8,
+    v4, v1), bit for bit; the dispatcher launches the kernel once,
+    also for a non-contiguous input, which it makes contiguous."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    mask = torch.rand((5, 300, D), generator=g, device=cuda) < 0.4
+    want = pas.pack_bits_ref(mask)
+    before = kernels.launch_counts()
+    got = pas.pack_bits(mask)
+    torch.cuda.synchronize()
+    assert launched(before) == only(pack_bits=1)
+    assert kernels.PACK_BITS.path == (kernels._pack_path(D),)
+    assert torch.equal(got, want)
+    strided = mask.transpose(0, 1)
+    assert torch.equal(pas.pack_bits(strided), pas.pack_bits_ref(strided))
+    assert torch.equal(kernels.pack_bits_cuda(mask[:0]),
+                       pas.pack_bits_ref(mask[:0]))
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """The port's compile layer (`bithtm_tpu_torch/models/graph.py`) on the
 CPU, where its "step into buffers" function runs eagerly.
 
-Inside `graph.buffers_on_cpu()` the entry points (`htm_scan`,
+Inside `graph.runner_eager()` the entry points (`htm_scan`,
 `htm_serve_scan`, `htm_scan_autocap`, `stack_scan`, the wrappers'
 `process`) run a CPU state through the same runner whose graph they
 replay on the card: static state buffers, a (rows, ...) input block read
@@ -34,6 +34,7 @@ from bithtm_tpu.ops import serving as jsv
 import bithtm_tpu_torch as bt
 from bithtm_tpu_torch import networks as pnet
 from bithtm_tpu_torch.models import graph
+from bithtm_tpu_torch.utils.profiling import call_sites
 
 from . import test_torch_api as api
 from . import test_torch_geometry as geometry
@@ -88,7 +89,7 @@ def test_learning_through_buffers_matches_jax(trained):  # noqa: F811
     p0 = bt.htm_state_from_numpy(j0, "cpu")
     draws = th.ReplayDraws(pcfg.tm, th.copy_keys(j0.key))
     jgot, jm = jax_htm_scan(jcfg, j0, jnp.asarray(train), True, 1)
-    with graph.buffers_on_cpu():
+    with graph.runner_eager():
         pgot, pm = bt.htm_scan(pcfg, p0, torch.from_numpy(train), True,
                                draws=draws)
     th.assert_metrics_equal(jm, pm, "learning")
@@ -102,7 +103,7 @@ def test_serving_forms_through_buffers_match_jax(trained, form):  # noqa: F811
     over a frozen word table, through the runner: JAX's leaves (the
     packed form's stale ones included) and metrics, and the unpacked
     form's predictions."""
-    with graph.buffers_on_cpu():
+    with graph.runner_eager():
         serving.test_serve_scan_matches_jax(trained, form)
 
 
@@ -111,7 +112,7 @@ def test_autocap_through_buffers_matches_jax():
     escalation step, metrics and leaves; the escalated chunk restored
     into the tuned graph's buffers and re-run by the safe config's graph
     with the JAX draws of the safe config."""
-    with graph.buffers_on_cpu():
+    with graph.runner_eager():
         geometry.test_htm_scan_autocap_matches_jax(
             dict(growth_capacity=8), 4, 24, True)
 
@@ -119,7 +120,7 @@ def test_autocap_through_buffers_matches_jax():
 def test_stack_through_buffers_matches_jax():
     """`stack_scan` of the two-layer stack through the runner, 30
     learning then 6 inference steps: every leaf and metric of JAX's."""
-    with graph.buffers_on_cpu():
+    with graph.runner_eager():
         stack.test_stack_scan_matches_jax()
 
 
@@ -127,7 +128,7 @@ def test_htm_wrapper_through_buffers_matches_jax():
     """A B=1 wrapper epoch and more (20 `process` calls, learning and
     inference, with and without winner cells) through the runner: every
     output, leaf and `last_metrics` value of the JAX wrapper's."""
-    with graph.buffers_on_cpu():
+    with graph.runner_eager():
         api.test_htm_wrapper_matches_jax("reference")
 
 
@@ -164,10 +165,10 @@ def test_htm_step_batch_matches_jax(trained, form):  # noqa: F811
 
 def _both(run):
     """``run()`` inside `graph.eager()` and inside
-    `graph.buffers_on_cpu()`."""
+    `graph.runner_eager()`."""
     with graph.eager():
         loop = run()
-    with graph.buffers_on_cpu():
+    with graph.runner_eager():
         buffers = run()
     return loop, buffers
 
@@ -219,6 +220,36 @@ def test_scans_through_buffers_equal_the_loop(cfg_kw):
         assert_dicts_equal(ml, mb, "serving metrics")
         assert_states_equal(sl, sb, "served state")
     assert int(loop_served[0][1]["correct"].sum()) > 0
+
+
+def test_runner_eager_equals_the_loop_and_ranges_its_copies():
+    """`graph.runner_eager()` runs the "step into buffers" runner eagerly
+    on any device (on the card, what `scripts/profile_step` profiles: the
+    graph's work op by op). A learning scan through it equals the loop in
+    every leaf and metric and in the generator's state, and under
+    `call_sites()` the copies between the step and the buffers run under
+    the range `graph.buffers`, beside the step's own ranges."""
+    cfg = bt.make_htm_config(**SMALL)
+    B = 2
+    x = sequence(8, B, 1)
+
+    def run():
+        gen = torch.Generator().manual_seed(3)
+        state = bt.htm_init_batch(cfg, B, gen, "cpu")
+        draws = bt.TorchDraws(cfg.tm, B, "cpu", gen)
+        state, m = bt.htm_scan(cfg, state, x, True, draws=draws)
+        return state, m, gen.get_state()
+
+    with graph.eager():
+        loop = run()
+    with graph.runner_eager(), call_sites(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        runner = run()
+    assert_states_equal(loop[0], runner[0], "runner state")
+    assert_dicts_equal(loop[1], runner[1], "runner metrics")
+    assert torch.equal(loop[2], runner[2]), "the generator's state"
+    names = {e.name for e in prof.events()}
+    assert {"graph.buffers", "tm_step._learn/_grow"} <= names
 
 
 def test_autocap_escalation_through_buffers_equals_the_loop():
@@ -298,7 +329,7 @@ def test_wrapper_outputs_survive_the_next_step():
     writes the runner's output block again, leaves them as they were."""
     htm = pnet.HierarchicalTemporalMemory(device="cpu", **SMALL)
     pats = np.random.RandomState(0).rand(2, 64) < 0.2
-    with graph.buffers_on_cpu():
+    with graph.runner_eager():
         _, tm0 = htm.process(pats[0])
         kept = tm0.active_mask.clone()
         htm.process(pats[1])
@@ -311,7 +342,7 @@ def test_host_tm_runs_the_loop():
     assert bt.HostTemporalMemory.capturable is False
     x = torch.zeros(1, 64, dtype=torch.bool)
     hook = bt.HostTemporalMemory(lambda cols, learning: (0, 0, 0))
-    with graph.buffers_on_cpu():
+    with graph.runner_eager():
         assert graph.replays(x)
         assert not graph.replays(x, hooks=(None, hook))
     with graph.eager():
@@ -393,7 +424,7 @@ def test_donation_copies_nothing_for_a_returned_state(monkeypatch):
         real(bufs, new)
 
     n0 = len(graph._LINEAGES)
-    with graph.buffers_on_cpu():
+    with graph.runner_eager():
         s1, _ = bt.htm_scan(cfg, state, x[:3], True, draws=draws)
         assert len(graph._LINEAGES) == n0 + 1
         ptrs = [t.data_ptr() for t in leaves(s1).values()]
@@ -423,7 +454,7 @@ def test_another_state_never_overwrites_a_returned_one():
         return (bt.htm_init_batch(cfg, 2, gen, "cpu"),
                 bt.TorchDraws(cfg.tm, 2, "cpu", gen))
 
-    with graph.buffers_on_cpu():
+    with graph.runner_eager():
         sa, da = init(1)
         sa, _ = bt.htm_scan(cfg, sa, x, True, draws=da)
         kept = {k: v.clone() for k, v in leaves(sa).items()}
@@ -498,7 +529,7 @@ def test_scan_equals_python_loop():
         state_a, out = bt.htm_step(cfg, state_a, x, True, draws=draws)
         loop.append(out.metrics["bursting"])
     state_b, draws = init()
-    with graph.buffers_on_cpu():
+    with graph.runner_eager():
         state_b, metrics = bt.htm_scan(cfg, state_b, seq, True, draws=draws)
     assert torch.equal(metrics["bursting"], torch.stack(loop))
     assert_states_equal(state_a, state_b, "scan vs loop")
@@ -517,7 +548,7 @@ def test_batched_streams_are_independent():
                          for p in (batch.sp, batch.tm)))
     seq = torch.from_numpy(np.random.RandomState(2).rand(8, B, 64) < 0.2)
     solo_gen = torch.Generator().manual_seed(41)
-    with graph.buffers_on_cpu():
+    with graph.runner_eager():
         final_batch, _ = bt.htm_scan(cfg, batch, seq, True,
                                      draws=PerStreamDraws(cfg.tm, gens))
         final_solo, _ = bt.htm_scan(cfg, solo, seq[:, 1:2], True,
@@ -533,7 +564,7 @@ def test_learning_converges():
     htm = pnet.HierarchicalTemporalMemory(device="cpu", **SMALL)
     pats = np.random.RandomState(0).rand(6, 64) < 0.2
     epochs = []
-    with graph.buffers_on_cpu():
+    with graph.runner_eager():
         for _ in range(10):
             burst = correct = 0
             for p in pats:

@@ -19,7 +19,7 @@ import torch
 import bithtm_tpu_torch as bt
 from bithtm_tpu_torch.scripts import (parity_check, profile_step,
                                       soak_16k_autocap, soak_evict_pressure,
-                                      soak_fast_stack)
+                                      soak_fast_stack, wrapper_ab)
 from bithtm_tpu_torch.utils import checkpoint
 
 REPO = Path(__file__).resolve().parent.parent
@@ -193,6 +193,17 @@ def test_scripts_need_the_card_unless_told(script, capsys):
     with pytest.raises(SystemExit, match="--device cpu") as exit_:
         script.main([])
     assert isinstance(exit_.value.code, str)   # printed, status 1
+    assert not capsys.readouterr().out
+
+
+def test_wrapper_ab_needs_the_card(capsys):
+    """`scripts/wrapper_ab.py` times the card only: without one it exits
+    with a message before it builds or runs anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(SystemExit, match="no CUDA device") as exit_:
+        wrapper_ab.main(["--part", "pack"])
+    assert isinstance(exit_.value.code, str)
     assert not capsys.readouterr().out
 
 
