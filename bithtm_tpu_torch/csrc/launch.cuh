@@ -51,6 +51,66 @@ int allow_shared(Kernel kernel, size_t smem) {
   return err;
 }
 
+// The streaming multiprocessors of the current device (cached for each
+// device), or 0 where the query fails.
+inline int sm_count() {
+  constexpr int kDevices = 64;
+  static std::mutex mu;
+  static int sms[kDevices] = {};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> lock(mu);
+  if (device < kDevices && sms[device]) return sms[device];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
+      cudaSuccess)
+    return 0;
+  if (device < kDevices) sms[device] = n;
+  return n;
+}
+
+// The blocks of `threads` threads and `smem` bytes of dynamic shared
+// memory that one SM of the current device holds at once (the occupancy
+// query, cached for each kernel, device and size), into *per_sm. Returns
+// a cudaError_t as int.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads, size_t smem, int* per_sm) {
+  struct Entry {
+    const void* kernel;
+    int device, threads;
+    size_t smem;
+    int per_sm;
+  };
+  constexpr int kEntries = 64;
+  static std::mutex mu;
+  static Entry cache[kEntries];
+  static int used = 0;
+  int device = 0;
+  if (cudaError_t err = cudaGetDevice(&device)) return (int)err;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used && i < kEntries; ++i) {
+    const Entry& e = cache[i];
+    if (e.kernel == key && e.device == device && e.threads == threads &&
+        e.smem == smem) {
+      *per_sm = e.per_sm;
+      return 0;
+    }
+  }
+  if (smem > 48 * 1024) {
+    if (int err = (int)cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+      return err;
+  }
+  int n = 0;
+  if (cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kernel, threads, smem))
+    return (int)err;
+  cache[used++ % kEntries] = Entry{key, device, threads, smem, n};
+  *per_sm = n;
+  return 0;
+}
+
 // Run-time choices to template arguments: each calls f with a
 // std::integral_constant of the value chosen (read it in f as
 // decltype(arg)::value) and returns what f returns, a cudaError_t as int.

@@ -332,46 +332,132 @@ def growth_keys_ref(syn_rows, act_rows, lidx, lvalid, cand_cell,
     return pkey, valid, n_grow
 
 
-def grow_select_ref(syn_rows, act_rows, lidx, lvalid, cand_cell,
-                    cand_valid, n_winners_eff, rnd, samp: int,
-                    key_bits: int, cell_form: bool
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the `grow_select` kernel, `_grow`'s selection:
-    for (B, R, K) synapse rows ``syn_rows`` (int32, -1 free) and their
-    bool activity ``act_rows``, the (B, L) growing rows ``lidx`` (int32,
-    ``lvalid``), the (B, Wc) candidate list ``cand_cell`` (valid entries
-    first, ascending cell id), (B,) ``n_winners_eff`` and (B, L, Wc)
-    int32 random words ``rnd``: each row grows n_grow = clip(samp -
-    active potential, 0, min(samp, n_winners_eff)) candidates it does not
-    already target. Returns (chosen (B, L, kk) int32, kk = min(samp, Wc):
-    the cells of the kk smallest keys, ascending, in the cell form
-    (``cell_form``, ``key_bits`` cell bits), the keys themselves in the
-    index form; n_chosen (B, L) int32 = min(n_grow, valid count)). Only
-    chosen[..., :n_chosen] is defined: the kernel writes the sentinel's
-    decode past it."""
+class GrowSelection(NamedTuple):
+    """What `grow_select` gives `_grow`: the selection (chosen (B, L, kk)
+    int32, kk = min(samp, Wc): the cells, or the index-form keys, of each
+    row's n_chosen smallest keys, ascending, defined up to n_chosen (B, L)
+    int32), the lists it selected from (lidx (B, L) int32, the growing
+    rows' slot ids, the row count R past the valid ones; lvalid (B, L)
+    bool; cand_cell (B, Wc) int32, the candidates, 0 past the valid ones)
+    and counts (4, B) int32: 0 and 0 (`grow_fill` adds the slots grown
+    and the overflow), the winners past Wc and the growing rows past
+    L."""
+
+    chosen: torch.Tensor
+    n_chosen: torch.Tensor
+    lidx: torch.Tensor
+    lvalid: torch.Tensor
+    cand_cell: torch.Tensor
+    counts: torch.Tensor
+
+
+# the rows of GrowSelection.counts, in `_grow`'s order
+N_GROWN, OVERFLOW, WINNERS_DROPPED, GROWTH_DROPPED = range(4)
+
+
+def grow_select_ref(syn_rows, act_rows, learn_rows, prev_cols,
+                    prev_winner_bits, rnd, cell_dim: int, samp: int,
+                    key_bits: int, cell_form: bool) -> GrowSelection:
+    """Plain version of the `grow_select` kernel, `_grow` up to its fill:
+    for (B, R, K) synapse rows ``syn_rows`` (int32, -1 free) and their bool
+    activity ``act_rows``, the (B, R) bool learning flags ``learn_rows``,
+    the (B, A) previous active columns ``prev_cols`` (ascending) and their
+    (B, A, W) int32 winner words, and (B, L, Wc) int32 random words
+    ``rnd``: the candidate list (the first Wc previous winner cells,
+    ascending), the growing rows (the first L learning flags) and, for
+    each, n_grow = clip(samp - active potential, 0, min(samp, n_winners
+    capped at Wc)) candidates it does not already target, the n_grow
+    smallest by packed key (``cell_form`` with ``key_bits`` cell bits,
+    else the index form). Returns `GrowSelection`."""
+    B, R, _ = syn_rows.shape
+    A = prev_cols.shape[1]
+    L, Wc = rnd.shape[1:]
+    D, dev = cell_dim, syn_rows.device
+    n_winners = popcount32(prev_winner_bits).sum((1, 2), dtype=torch.int32)
+    grid_cell = (prev_cols[..., None] * D
+                 + torch.arange(D, dtype=torch.int32, device=dev)
+                 ).reshape(B, A * D)
+    grid_valid = unpack_bits(prev_winner_bits, D).reshape(B, A * D)
+    cand_cell, cand_valid = compact_first_k(grid_valid, grid_cell, Wc)
+    n_winners_eff = torch.clamp(n_winners, max=Wc)
+    slots = torch.arange(R, dtype=torch.int32, device=dev).expand(B, R)
+    lidx, lvalid = compact_first_k(learn_rows, slots, L)
+    lidx = torch.where(lvalid, lidx, R)
     pkey, valid, n_grow = growth_keys_ref(
         syn_rows, act_rows, lidx, lvalid, cand_cell, cand_valid,
         n_winners_eff, rnd, samp, key_bits, cell_form)
-    sorted_key, n_chosen = _select_keys(pkey, valid, n_grow, samp,
-                                        not cell_form)
+    chosen, n_chosen = _select_keys(pkey, valid, n_grow, samp,
+                                    not cell_form)
     if cell_form:
-        sorted_key = (sorted_key & ((1 << key_bits) - 1)).to(torch.int32)
-    return sorted_key, n_chosen
+        chosen = (chosen & ((1 << key_bits) - 1)).to(torch.int32)
+    zero = torch.zeros_like(n_winners)
+    counts = torch.stack([
+        zero, zero, n_winners - n_winners_eff,
+        learn_rows.sum(-1, dtype=torch.int32)
+        - lvalid.sum(-1, dtype=torch.int32)])
+    return GrowSelection(chosen, n_chosen, lidx, lvalid,
+                         cand_cell.contiguous(), counts)
 
 
-def grow_select(syn_rows, act_rows, lidx, lvalid, cand_cell, cand_valid,
-                n_winners_eff, rnd, samp: int, key_bits: int,
-                cell_form: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """`_grow`'s candidate selection: the `grow_select` kernel for CUDA
+def grow_select(syn_rows, act_rows, learn_rows, prev_cols,
+                prev_winner_bits, rnd, cell_dim: int, samp: int,
+                key_bits: int, cell_form: bool) -> GrowSelection:
+    """`_grow`'s lists and selection: the `grow_select` kernel for CUDA
     tensors, the plain version for CPU tensors (arguments and results as
     `grow_select_ref`'s; chosen is defined up to n_chosen)."""
-    args = (syn_rows, act_rows, lidx, lvalid, cand_cell, cand_valid,
-            n_winners_eff, rnd, samp, key_bits, cell_form)
+    args = (syn_rows, act_rows, learn_rows, prev_cols, prev_winner_bits,
+            rnd, cell_dim, samp, key_bits, cell_form)
     if _on_device("grow_select", syn_rows) == "cuda":
         from ..ops.kernels import grow_select_cuda
 
-        return grow_select_cuda(*args)
+        return GrowSelection(*grow_select_cuda(*args))
     return grow_select_ref(*args)
+
+
+def grow_fill_ref(syn_rows, perm_rows, lidx, lvalid, chosen, n_chosen,
+                  counts, permanence_initial: float) -> torch.Tensor:
+    """Plain version of the `grow_fill` kernel, `_grow`'s fill: slot k of
+    growing row l (``lidx``, ``lvalid``) takes chosen[l, free_rank[k]]
+    where the row is valid, the slot is free (``syn_rows`` < 0) and
+    free_rank[k] < n_chosen[l]; those slots of the (B, R, K) ``syn_rows`` and
+    ``perm_rows`` are written in place (the cell, ``permanence_initial``),
+    and rows `N_GROWN` and `OVERFLOW` of ``counts`` gain the slots
+    written and sum(max(n_chosen - free slots, 0)) over the valid rows.
+    Returns the (B, R, K) bool mask of the slots written."""
+    B, R, K = syn_rows.shape
+    L = lidx.shape[1]
+    lidx = lidx.long()
+    take = lidx.clamp(max=R - 1)[..., None].expand(B, L, K)      # clipped
+    free = syn_rows.gather(1, take) < 0
+    gathered, wrote_l = _fill(chosen, n_chosen, free)
+    wrote_l &= lvalid[..., None]
+    # invalid rows land in a padding row that is sliced off
+    idx = lidx[..., None].expand(B, L, K)
+    wrote = syn_rows.new_zeros((B, R + 1, K), dtype=torch.bool).scatter_(
+        1, idx, wrote_l)[:, :R]
+    cells = syn_rows.new_zeros((B, R + 1, K)).scatter_(
+        1, idx, gathered)[:, :R]
+    syn_rows.copy_(torch.where(wrote, cells, syn_rows))
+    perm_rows.masked_fill_(wrote, permanence_initial)
+    n_free = free.sum(-1, dtype=torch.int32)
+    counts[N_GROWN] += wrote_l.sum((1, 2), dtype=torch.int32)
+    counts[OVERFLOW] += (torch.clamp(n_chosen - n_free, min=0)
+                         * lvalid).sum(-1, dtype=torch.int32)
+    return wrote.contiguous()
+
+
+def grow_fill(syn_rows, perm_rows, lidx, lvalid, chosen, n_chosen, counts,
+              permanence_initial: float) -> torch.Tensor:
+    """`_grow`'s fill: the `grow_fill` kernel for CUDA tensors, the plain
+    version for CPU tensors (arguments and results as
+    `grow_fill_ref`'s)."""
+    args = (syn_rows, perm_rows, lidx, lvalid, chosen, n_chosen, counts,
+            permanence_initial)
+    if _on_device("grow_fill", syn_rows) == "cuda":
+        from ..ops.kernels import grow_fill_cuda
+
+        return grow_fill_cuda(*args)
+    return grow_fill_ref(*args)
 
 
 def _grow(cfg: TMConfig, rnd, syn_rows, perm_rows, learn_rows,
@@ -380,72 +466,35 @@ def _grow(cfg: TMConfig, rnd, syn_rows, perm_rows, learn_rows,
     (`temporal_memory.py:350-498`, `projections.py:111-161`): each
     learning segment grows clip(samp - active potential, 0,
     min(samp, n_winners)) random candidates that it does not already
-    target, into its free slots. The growing segments are compacted to
-    an L-wide list first; `grow_select` picks each row's candidates,
-    `take_small_table` decodes the index-form keys (above 2^16 cells) and
-    `_fill` writes them into the free slots, as JAX's `_select_and_fill`
-    selects, decodes and fills. Returns (syn_rows, perm_rows, wrote (B,
-    A, G, K) the slots grown, n_grown, overflow, n_winners_dropped,
-    n_growth_dropped), counts (B,)."""
+    target, into its free slots. `grow_select` builds the candidate list
+    and the L-wide list of growing segments and picks each row's
+    candidates, `take_small_table` decodes the index-form keys (above
+    2^16 cells) and `grow_fill` writes them into the free slots, as JAX's
+    `_grow` compacts and `_select_and_fill` selects, decodes and fills.
+    ``syn_rows`` and ``perm_rows`` (B, A, G, K) are updated in place.
+    Returns (syn_rows, perm_rows, wrote (B, A, G, K) the slots grown,
+    n_grown, overflow, n_winners_dropped, n_growth_dropped), counts
+    (B,)."""
     C, D, G, K = (cfg.column_dim, cfg.cell_dim, cfg.segments_per_column,
                   cfg.synapse_capacity)
-    Wc, L = cfg.resolved_winner_capacity, cfg.resolved_growth_capacity
-    samp = cfg.segment_sampling_synapses
     B, A = prev_cols.shape
-    dev = syn_rows.device
-
-    n_winners = popcount32(prev_winner_bits).sum((1, 2), dtype=torch.int32)
-
-    # candidates: previous winner cells, ascending id, the Wc lowest
-    grid_cell = (prev_cols[..., None] * D
-                 + torch.arange(D, dtype=torch.int32, device=dev)
-                 ).reshape(B, A * D)
-    grid_valid = unpack_bits(prev_winner_bits, D).reshape(B, A * D)
-    cand_cell, cand_valid = compact_first_k(grid_valid, grid_cell, Wc)
-    n_winners_eff = torch.clamp(n_winners, max=Wc)
-
-    # the growing segments, compacted to L rows (ascending slot id);
-    # invalid rows point at the padding row A*G
-    learn_flat = learn_rows.reshape(B, A * G)
-    slots = torch.arange(A * G, dtype=torch.int32,
-                         device=dev).expand(B, A * G)
-    lidx, lvalid = compact_first_k(learn_flat, slots, L)
-    lidx = torch.where(lvalid, lidx, A * G)
     syn_flat = syn_rows.reshape(B, A * G, K)
-    cell_form, key_bits = growth_key_form(C * D, Wc)
-    chosen, n_chosen = grow_select(
-        syn_flat, act_prev_rows.reshape(B, A * G, K), lidx, lvalid,
-        cand_cell, cand_valid, n_winners_eff, rnd, samp, key_bits,
-        cell_form)
+    perm_flat = perm_rows.reshape(B, A * G, K)
+    cell_form, key_bits = growth_key_form(C * D, rnd.shape[-1])
+    sel = grow_select(syn_flat, act_prev_rows.reshape(B, A * G, K),
+                      learn_rows.reshape(B, A * G), prev_cols,
+                      prev_winner_bits, rnd, D,
+                      cfg.segment_sampling_synapses, key_bits, cell_form)
+    chosen = sel.chosen
     if not cell_form:
         # the index-form keys -> cells, in place
-        chosen = take_small_table(cand_cell, chosen, (1 << key_bits) - 1,
-                                  in_place=True)
-    lidx = lidx.long()
-    take = lidx.clamp(max=A * G - 1)[..., None].expand(B, L, K)  # clipped
-    syn_l = syn_flat.gather(1, take)
-    free = syn_l < 0
-    gathered, wrote_l = _fill(chosen, n_chosen, free)
-    new_syn_l = torch.where(wrote_l, gathered, syn_l)
-
-    # scatter the L rows back; invalid rows land in the padding row
-    idx = lidx[..., None].expand(B, L, K)
-    syn_pad = torch.cat(
-        [syn_flat, syn_rows.new_full((B, 1, K), -1)], 1)
-    syn_rows = syn_pad.scatter_(1, idx, new_syn_l)[:, :A * G].reshape(
-        B, A, G, K)
-    wrote = torch.zeros((B, A * G + 1, K), dtype=torch.bool, device=dev)
-    wrote = wrote.scatter_(1, idx, wrote_l)[:, :A * G].reshape(B, A, G, K)
-    perm_rows = torch.where(wrote, cfg.permanence_initial, perm_rows)
-
-    n_free = free.sum(-1, dtype=torch.int32)
-    overflow = (torch.clamp(n_chosen - n_free, min=0) * lvalid).sum(
-        -1, dtype=torch.int32)
-    n_growth_dropped = (learn_flat.sum(-1, dtype=torch.int32)
-                        - lvalid.sum(-1, dtype=torch.int32))
-    return (syn_rows, perm_rows, wrote,
-            wrote_l.sum((1, 2), dtype=torch.int32), overflow,
-            n_winners - n_winners_eff, n_growth_dropped)
+        chosen = take_small_table(sel.cand_cell, chosen,
+                                  (1 << key_bits) - 1, in_place=True)
+    wrote = grow_fill(syn_flat, perm_flat, sel.lidx, sel.lvalid, chosen,
+                      sel.n_chosen, sel.counts, cfg.permanence_initial)
+    shape = (B, A, G, K)
+    return (syn_flat.view(shape), perm_flat.view(shape), wrote.view(shape),
+            *sel.counts)
 
 
 def _learn(cfg: TMConfig, state: TMState, take, put, draws: Draws,

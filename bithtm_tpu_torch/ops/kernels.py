@@ -2,7 +2,7 @@
 
 The sources in `csrc/` (`table_pass.cu`, `serving_pass.cu`,
 `small_take.cu`, `sp_pass.cu`, `overlap_pass.cu`, `count_pass.cu`,
-`grow_pass.cu` and `pack_pass.cu`; all include `launch.cuh`,
+`grow_pass.cu`, `grow_fill.cu` and `pack_pass.cu`; all include `launch.cuh`,
 `table_pass.cu`, `serving_pass.cu` and `sp_pass.cu` also
 `active_bitmap.cuh`) are compiled on first use with
 ``nvcc`` for ``sm_90a``, one process per source started together, and
@@ -12,10 +12,11 @@ here runs when the module is imported.
 
 Each wrapper first chooses its kernel's path from the shapes alone
 (`_bitmap`, `_streams`, `_act_bytes`, `_delta`, `_grow_keys`,
-`_pack_path`: the bitmap in shared or in global memory, the packed
-activity's type, the streams in grid y or folded into grid x, the SP
-delta row staged or read from global memory, the growth keys' form and
-where they live, the pack's loads; README.md, port section) and
+`_fill_path`, `_pack_path`: the bitmap in shared or in global memory,
+the packed activity's type, the streams in grid y or folded into grid
+x, the SP delta row staged or read from global memory, the growth keys'
+form and where they live, how the fill reads its cells, the pack's
+loads; README.md, port section) and
 reports it (`CudaKernel.path`) before any tensor is read. Only the
 stream-words limit (`_stream_words`: the kernels index a stream's words
 in int32) still raises. Then it checks
@@ -51,7 +52,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("table_pass.cu", "serving_pass.cu", "small_take.cu",
            "sp_pass.cu", "overlap_pass.cu", "count_pass.cu", "grow_pass.cu",
-           "pack_pass.cu")
+           "grow_fill.cu", "pack_pass.cu")
 HEADERS = ("active_bitmap.cuh", "launch.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -89,10 +90,13 @@ _ARGTYPES = {
     "sp_overlap": [_VP] * 3 + [_I] * 5 + [_I, _VP],
     # v, potential, connected, B, C, G, K, scale, act_bytes
     "seg_counts": [_VP] * 3 + [_I] * 6 + [_I, _VP],
-    # syn, act, lidx, lvalid, cand, cand_valid, n_eff, rnd, chosen,
-    # n_chosen, scratch, B, R, K, L, Wc, cand_stride, samp, bits,
+    # syn, act, learn, cols, bits, rnd, chosen, n_chosen, lidx, lvalid,
+    # cand, counts, scratch, B, R, K, A, D, L, Wc, samp, key_bits,
     # cell_form, global_keys
-    "grow_select": [_VP] * 11 + [_I] * 10 + [_I, _VP],
+    "grow_select": [_VP] * 13 + [_I] * 11 + [_I, _VP],
+    # syn, perm, wrote, lidx, lvalid, chosen, n_chosen, counts, B, R, K,
+    # L, kk, perm_init
+    "grow_fill": [_VP] * 8 + [_I] * 5 + [_F, _I, _VP],
     # mask, out, rows, D
     "pack_bits": [_VP] * 2 + [_LL, _I] + [_I, _VP],
 }
@@ -220,10 +224,11 @@ SP_UPDATE_PACK = CudaKernel("sp_update_pack")
 SP_OVERLAP = CudaKernel("sp_overlap")
 SEG_COUNTS = CudaKernel("seg_counts")
 GROW_SELECT = CudaKernel("grow_select")
+GROW_FILL = CudaKernel("grow_fill")
 PACK_BITS = CudaKernel("pack_bits")
 KERNELS = (TABLE_UPDATE, ACT_CONN, SERVING_ACTIVATION, ACT_FROZEN,
            SYNAPSE_ACTIVATION, SMALL_TABLE_TAKE, SP_UPDATE_PACK, SP_OVERLAP,
-           SEG_COUNTS, GROW_SELECT, PACK_BITS)
+           SEG_COUNTS, GROW_SELECT, GROW_FILL, PACK_BITS)
 
 
 def launch_counts() -> dict[str, int]:
@@ -376,6 +381,13 @@ def _grow_keys(cell_form: bool, Wc: int) -> tuple[str, str]:
     a block, else "global", in a (B, L, Wc) scratch."""
     return ("cell" if cell_form else "index",
             "smem" if 8 * Wc <= MAX_SHARED_BYTES else "global")
+
+
+def _fill_path(kk: int) -> str:
+    """`grow_fill`'s path at kk chosen cells a row: "shfl" up to 32 (a
+    row's cells read once, one a lane, and passed to their slots by
+    shuffles), else "load" (each written slot reads its cell)."""
+    return "shfl" if kk <= 32 else "load"
 
 
 def _pack_path(D: int) -> str:
@@ -689,62 +701,106 @@ def seg_counts_cuda(packed, num_segments: int, synapses: int
     return potential, connected
 
 
-def grow_select_cuda(syn_rows, act_rows, lidx, lvalid, cand_cell,
-                     cand_valid, n_winners_eff, rnd, samp: int,
-                     key_bits: int, cell_form: bool
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """CUDA `grow_select`: the growth-candidate selection of `_grow` for
-    (B, R, K) int32 synapse rows and their bool activity, the (B, L)
-    int32 growing rows ``lidx`` (``lvalid``), the (B, Wc) candidate list
-    (valid entries first, ascending; its rows may be a strided view with
-    unit stride within a row), (B,) ``n_winners_eff`` and (B, L,
-    Wc) int32 random words -> (chosen (B, L, kk), n_chosen (B, L)) int32,
-    kk = min(samp, Wc): the cells (``cell_form``) or the index-form keys
-    of the n_chosen smallest keys, ascending (see
-    `temporal_memory.grow_select_ref`)."""
-    if syn_rows.dim() != 3 or lidx.dim() != 2 or cand_cell.dim() != 2:
-        raise ValueError(f"syn_rows must be (B, R, K), lidx (B, L) and "
-                         f"cand_cell (B, Wc), got {tuple(syn_rows.shape)}, "
-                         f"{tuple(lidx.shape)} and {tuple(cand_cell.shape)}")
+def grow_select_cuda(syn_rows, act_rows, learn_rows, prev_cols,
+                     prev_winner_bits, rnd, cell_dim: int, samp: int,
+                     key_bits: int, cell_form: bool) -> tuple:
+    """CUDA `grow_select`: `_grow`'s lists and candidate selection for
+    (B, R, K) int32 synapse rows and their bool activity, the (B, R) bool
+    learning flags, the (B, A) previous active columns and their (B, A,
+    ceil(D/32)) int32 winner words, and (B, L, Wc) int32 random words ->
+    (chosen (B, L, kk), n_chosen (B, L), lidx (B, L), lvalid (B, L) bool,
+    cand_cell (B, Wc), counts (4, B)) int32 but lvalid, kk = min(samp,
+    Wc): the cells (``cell_form``) or the index-form keys of the n_chosen
+    smallest keys, ascending (see `temporal_memory.grow_select_ref`)."""
+    if (syn_rows.dim() != 3 or prev_cols.dim() != 2 or rnd.dim() != 3
+            or learn_rows.dim() != 2):
+        raise ValueError(f"syn_rows must be (B, R, K), learn_rows (B, R), "
+                         f"prev_cols (B, A) and rnd (B, L, Wc), got "
+                         f"{tuple(syn_rows.shape)}, "
+                         f"{tuple(learn_rows.shape)}, "
+                         f"{tuple(prev_cols.shape)} and {tuple(rnd.shape)}")
     B, R, K = syn_rows.shape
-    L, Wc = lidx.shape[1], cand_cell.shape[1]
+    A = prev_cols.shape[1]
+    L, Wc = rnd.shape[1:]
     shift = 1 if cell_form else 2
-    if R < 1 or K < 1 or Wc < 1 or samp < 1 or not \
+    if R < 1 or K < 1 or Wc < 1 or samp < 1 or cell_dim < 1 or not \
             1 <= key_bits <= 31 - shift:
-        raise ValueError(f"grow_select needs R, K, Wc, samp >= 1 and key "
+        raise ValueError(f"grow_select needs R, K, Wc, samp, D >= 1 and key "
                          f"bits in [1, {31 - shift}], got R={R} K={K} "
-                         f"Wc={Wc} samp={samp} bits={key_bits}")
+                         f"Wc={Wc} samp={samp} D={cell_dim} bits={key_bits}")
+    W = cell_words(cell_dim)
+    if tuple(prev_winner_bits.shape) != (B, A, W):
+        raise ValueError(f"prev_winner_bits must hold the winner words of "
+                         f"the (B, A) columns, (B, A, ceil(D/32)) = "
+                         f"{(B, A, W)}, got {tuple(prev_winner_bits.shape)}")
     _stream_words(R * K)
     _stream_words(L * Wc)
-    cand_stride = _row_view("cand_cell", cand_cell, B, Wc)
+    _stream_words(A * W)
     path = GROW_SELECT.choose(*_grow_keys(cell_form, Wc))
     dev = syn_rows.get_device()
     syn_p = _ptr("syn_rows", syn_rows, torch.int32, None, dev)
     act_p = _ptr("act_rows", act_rows, torch.bool, (B, R, K), dev)
-    lidx_p = _ptr("lidx", lidx, torch.int32, (B, L), dev)
-    lvalid_p = _ptr("lvalid", lvalid, torch.bool, (B, L), dev)
-    cand_p = _ptr("cand_cell", cand_cell, torch.int32, None, dev, view=True)
-    cvalid_p = _ptr("cand_valid", cand_valid, torch.bool, (B, Wc), dev)
-    neff_p = _ptr("n_winners_eff", n_winners_eff, torch.int32, (B,), dev)
+    learn_p = _ptr("learn_rows", learn_rows, torch.bool, (B, R), dev)
+    cols_p = _ptr("prev_cols", prev_cols, torch.int32, (B, A), dev)
+    bits_p = _ptr("prev_winner_bits", prev_winner_bits, torch.int32,
+                  (B, A, W), dev)
     rnd_p = _ptr("rnd", rnd, torch.int32, (B, L, Wc), dev)
     kk = min(samp, Wc)
-    chosen = torch.empty((B, L, kk), dtype=torch.int32,
-                         device=syn_rows.device)
-    n_chosen = torch.empty((B, L), dtype=torch.int32, device=syn_rows.device)
-    if n_chosen.numel() == 0:
-        return chosen, n_chosen
+
+    def new(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=syn_rows.device)
+
+    out = (new(B, L, kk), new(B, L), new(B, L), new(B, L, dtype=torch.bool),
+           new(B, Wc), new(4, B))
+    if B == 0:
+        return out
     scratch = scratch_p = None
     if path[1] == "global":
-        scratch = torch.empty((B, L, Wc), dtype=torch.int32,
-                              device=syn_rows.device)
+        scratch = new(B, L, Wc)
         scratch_p = scratch.data_ptr()
-    GROW_SELECT.launch(syn_p, act_p, lidx_p, lvalid_p, cand_p, cvalid_p,
-                       neff_p, rnd_p, chosen.data_ptr(), n_chosen.data_ptr(),
-                       scratch_p, B, R, K, L, Wc, cand_stride, samp,
-                       key_bits,
-                       int(cell_form), int(path[1] == "global"), dev,
-                       _stream(dev))
-    return chosen, n_chosen
+    GROW_SELECT.launch(syn_p, act_p, learn_p, cols_p, bits_p, rnd_p,
+                       *(t.data_ptr() for t in out), scratch_p, B, R, K, A,
+                       cell_dim, L, Wc, samp, key_bits, int(cell_form),
+                       int(path[1] == "global"), dev, _stream(dev))
+    return out
+
+
+def grow_fill_cuda(syn_rows, perm_rows, lidx, lvalid, chosen, n_chosen,
+                   counts, permanence_initial: float) -> torch.Tensor:
+    """CUDA `grow_fill`: writes the chosen cells of each growing row
+    (``lidx``, ``lvalid``; ``chosen`` (B, L, kk) cells, ``n_chosen``) into
+    its free slots of the (B, R, K) int32 ``syn_rows`` in place, sets
+    ``perm_rows`` (float32) there to ``permanence_initial``, adds the
+    slots written and the overflow to rows 0 and 1 of the (4, B) int32
+    ``counts`` and returns the (B, R, K) bool mask of the slots written
+    (see `temporal_memory.grow_fill_ref`)."""
+    if syn_rows.dim() != 3 or chosen.dim() != 3 or lidx.dim() != 2:
+        raise ValueError(f"syn_rows must be (B, R, K), lidx (B, L) and "
+                         f"chosen (B, L, kk), got {tuple(syn_rows.shape)}, "
+                         f"{tuple(lidx.shape)} and {tuple(chosen.shape)}")
+    B, R, K = syn_rows.shape
+    L, kk = chosen.shape[1:]
+    if R < 1 or K < 1 or kk < 1 or tuple(lidx.shape) != (B, L):
+        raise ValueError(f"grow_fill needs R, K, kk >= 1 and lidx (B, L) = "
+                         f"{(B, L)}, got R={R} K={K} kk={kk} lidx "
+                         f"{tuple(lidx.shape)}")
+    _stream_words(R * K)
+    _stream_words(L * kk)
+    GROW_FILL.choose(_fill_path(kk))
+    dev = syn_rows.get_device()
+    syn_p = _ptr("syn_rows", syn_rows, torch.int32, None, dev)
+    perm_p = _ptr("perm_rows", perm_rows, torch.float32, (B, R, K), dev)
+    lidx_p = _ptr("lidx", lidx, torch.int32, (B, L), dev)
+    lvalid_p = _ptr("lvalid", lvalid, torch.bool, (B, L), dev)
+    chosen_p = _ptr("chosen", chosen, torch.int32, None, dev)
+    n_p = _ptr("n_chosen", n_chosen, torch.int32, (B, L), dev)
+    counts_p = _ptr("counts", counts, torch.int32, (4, B), dev)
+    wrote = torch.zeros((B, R, K), dtype=torch.bool, device=syn_rows.device)
+    if B * L:
+        GROW_FILL.launch(syn_p, perm_p, wrote.data_ptr(), lidx_p, lvalid_p,
+                         chosen_p, n_p, counts_p, B, R, K, L, kk,
+                         float(permanence_initial), dev, _stream(dev))
+    return wrote
 
 
 def pack_bits_cuda(mask) -> torch.Tensor:

@@ -9,6 +9,8 @@ defaults, on the card unless ``--device cpu`` is given, and each has a
   soak_fast_stack      convergence soak of the bench fast stack
   soak_16k_autocap     16K x 64 learning under `htm_scan_autocap`
   soak_evict_pressure  sustained column-pool pressure under "evict"
+  grow_variants        what holds `grow_select` back: variants of its
+                       source timed in turns (card only)
 """
 
 from __future__ import annotations

@@ -13,9 +13,12 @@ of the graph's own runner run eagerly (`graph.runner_eager()`: the
 captured function op by op, one step a call, the copies between the
 step and the graph's buffers under the range `graph.buffers`) are
 profiled with the ranges on; each range's device ms a step is the time
-of the kernels launched inside it. The same steps replayed as the
+of the kernels launched inside it, and its launches a step their
+count. The same steps replayed as the
 scan's graph (the port's default on the card) are profiled too, and
-the ranges' sum is held to within 10% of the graph's device busy a step:
+the ranges' sum is held to within 10% of the graph's device busy a step
+(the graph's ms a step, host clock, the median of three runs, is
+reported beside it):
 the eager runner launches the graph's kernels, so its ranges attribute
 the graph's time. The ranges launch nothing and change no value.
 
@@ -32,6 +35,8 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import statistics
+import time
 
 import numpy as np
 import torch
@@ -120,8 +125,10 @@ def profile_sites(step, steps: int, dev: torch.device, top: int) -> dict:
     """Runs ``step(t)`` for t < ``steps`` with the call-site ranges on,
     under `torch.profiler`; returns {range: {"ms": a step, "top": [(op,
     ms a step)]}} with device time on the card (`_kernels_by_site`) and
-    host time on the CPU, and the device ms a step no range holds
-    (None on the CPU)."""
+    host time on the CPU, and "launches": the kernels a step launched in
+    it on the card (memory copies and sets left out, as `graph_busy`
+    counts them; None on the CPU); and the device ms a step no range
+    holds (None on the CPU)."""
     with call_sites(), torch.profiler.profile(
             activities=_activities(dev), acc_events=True) as prof:
         for t in range(steps):
@@ -150,7 +157,10 @@ def profile_sites(step, steps: int, dev: torch.device, top: int) -> dict:
         for op, k_ms in ks:
             ops[op] = ops.get(op, 0.0) + k_ms
         ranked = sorted(ops.items(), key=lambda kv: -kv[1])[:top]
-        out[name] = {"ms": ms / steps, "top": [
+        launches = (sum(not op.startswith(("Memcpy", "Memset"))
+                        for op, _ in ks) / steps
+                    if dev.type == "cuda" else None)
+        out[name] = {"ms": ms / steps, "launches": launches, "top": [
             (op[:90], k_ms / steps) for op, k_ms in ranked]}
     return out, None if total is None else total / steps
 
@@ -205,9 +215,19 @@ def main(argv=None) -> dict:
         return htm_scan(cfg, st, x, learn,
                         detailed_metrics=args.detailed_metrics, draws=draws)
 
-    busy = launches = None
+    busy = launches = graph_ms = None
     if dev.type == "cuda":
         held = scan(copy.deepcopy(start))[0]     # captures the graph
+        runs = []
+        for _ in range(3):   # the graph's ms a step, host clock
+            gen.set_state(gen_start)
+            held = graph.restore_into(held, start)
+            synchronize(dev)
+            t0 = time.perf_counter()
+            held = scan(held)[0]
+            synchronize(dev)
+            runs.append(1e3 * (time.perf_counter() - t0) / T)
+        graph_ms = statistics.median(runs)
         gen.set_state(gen_start)
         held = graph.restore_into(held, start)
         box = {}
@@ -233,16 +253,20 @@ def main(argv=None) -> dict:
            "batch": B, "steps": T, "mode": mode,
            "time": "device" if dev.type == "cuda" else "cpu",
            "sites": {k: v["ms"] for k, v in sites.items()},
+           "launches": {k: v["launches"] for k, v in sites.items()},
            "top": {k: v["top"] for k, v in sites.items()},
            "ranges_ms": total, "loop_busy_ms": loop_busy,
-           "graph_busy_ms": busy, "graph_launches": launches}
+           "graph_busy_ms": busy, "graph_launches": launches,
+           "graph_ms_per_step": graph_ms}
     print(f"# config: fast={args.fast} B={B} steps={T} "
           f"{args.column_dim}x{args.cell_dim} mode={mode}; "
           f"{out['time']} ms a step by call site (loop, ranges on)")
     for name, site in sites.items():
         ops = "; ".join(f"{op} {ms:.3f}" for op, ms in site["top"])
         indent = "    " if "/" in name else "  "
-        print(f"{indent}{site['ms']:8.3f} ms/step  {name:28s} {ops}")
+        n = ("" if site["launches"] is None
+             else f"{site['launches']:6.1f} launches  ")
+        print(f"{indent}{site['ms']:8.3f} ms/step  {n}{name:28s} {ops}")
     print(f"# ranges sum {total:.3f} ms/step", end="")
     if loop_busy is not None:
         print(f"; the loop's device busy {loop_busy:.3f} ms/step "
@@ -250,7 +274,8 @@ def main(argv=None) -> dict:
     if busy is not None:
         out["ranges_vs_busy"] = total / busy
         print(f"; graph busy {busy:.3f} ms/step, {launches:.1f} kernel "
-              f"launches a step; ranges / busy {total / busy:.3f}")
+              f"launches a step; ranges / busy {total / busy:.3f}; graph "
+              f"{graph_ms:.3f} ms/step (host clock, median of 3 runs)")
         if abs(total - busy) > TOLERANCE * busy:
             raise RuntimeError(
                 f"the ranges sum to {total:.3f} ms a step, more than "

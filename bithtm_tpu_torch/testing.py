@@ -89,16 +89,13 @@ def serving_rows(seed: int, B: int, R: int, C: int, D: int, G: int,
 def grow_inputs(seed: int, B: int, C: int, D: int, A: int, G: int, K: int,
                 Wc: int, L: int, samp: int, device="cpu") -> dict:
     """The arguments of `grow_select` (`models/temporal_memory.py`) at a
-    TM geometry, built as `_grow` builds them, with numpy from ``seed``:
-    A sorted previous active columns a stream with 0.5-4 winner cells a
-    column (so some streams pass Wc), the candidate list compacted from
-    them (`compact_first_k`'s strided view), growing rows with 5-60% of
-    the A*G slots learning (some lists pass L), synapse rows whose live
-    share varies by row and whose targets are half candidates (nine in
-    ten active) and half random cells, so that some rows reach samp and
-    grow nothing, and random words."""
+    TM geometry, with numpy from ``seed``: A sorted previous active
+    columns a stream with 0.5-4 winner cells a column (so some streams
+    pass Wc), learning flags on 5-60% of the A*G rows (some pass L),
+    synapse rows whose live share varies by row and whose targets are
+    half candidates (nine in ten active) and half random cells, so that
+    some rows reach samp and grow nothing, and random words."""
     from .models.temporal_memory import growth_key_form
-    from .ops.active_set import compact_first_k
 
     rng = np.random.default_rng(seed)
     R = A * G
@@ -109,38 +106,34 @@ def grow_inputs(seed: int, B: int, C: int, D: int, A: int, G: int, K: int,
     cols = np.sort(np.argsort(rng.random((B, C)), axis=1)[:, :A], axis=1)
     winners = rng.random((B, A, D)) < rng.uniform(0.5, 4.0, (B, 1, 1)) / D
     grid_cell = (cols[..., None] * D + np.arange(D)).reshape(B, A * D)
-    cand_cell, cand_valid = compact_first_k(
-        t(winners.reshape(B, A * D)), t(grid_cell, np.int32), Wc)
-    n_eff = np.minimum(winners.sum((1, 2)), Wc)
-
-    cand = cand_cell.cpu().numpy()
-    n_cand = cand_valid.sum(-1).cpu().numpy()
+    cand = [g[w.reshape(-1)][:Wc] for g, w in zip(grid_cell, winners)]
+    n_cand = np.array([len(c) for c in cand])
     live = rng.random((B, R, K)) < rng.uniform(0.1, 1.0, (B, R, 1))
-    pick = (rng.random((B, R * K)) * np.maximum(n_cand, 1)[:, None])
+    pick = rng.random((B, R * K)) * np.maximum(n_cand, 1)[:, None]
     to_cand = (rng.random((B, R, K)) < 0.5) & (n_cand > 0)[:, None, None]
     target = np.where(
         to_cand,
-        np.take_along_axis(cand, pick.astype(np.int64), 1).reshape(B, R, K),
+        np.stack([np.append(c, 0)[p.astype(np.int64)]
+                  for c, p in zip(cand, pick)]).reshape(B, R, K),
         rng.integers(0, C * D, (B, R, K)))
     act = live & (rng.random((B, R, K)) < np.where(to_cand, 0.9, 0.5))
     learn = rng.random((B, R)) < rng.uniform(0.05, 0.6, (B, 1))
-    slots = torch.arange(R, dtype=torch.int32, device=device).expand(B, R)
-    lidx, lvalid = compact_first_k(t(learn), slots, L)
     cell_form, key_bits = growth_key_form(C * D, Wc)
     return dict(
         syn_rows=t(np.where(live, target, -1), np.int32), act_rows=t(act),
-        lidx=torch.where(lvalid, lidx, R), lvalid=lvalid,
-        cand_cell=cand_cell, cand_valid=cand_valid,
-        n_winners_eff=t(n_eff, np.int32),
+        learn_rows=t(learn), prev_cols=t(cols, np.int32),
+        prev_winner_bits=pack_bits(torch.from_numpy(winners)).to(device),
         rnd=t(rng.integers(-(1 << 31), 1 << 31, (B, L, Wc), dtype=np.int32)),
-        samp=samp, key_bits=key_bits, cell_form=cell_form)
+        cell_dim=D, samp=samp, key_bits=key_bits, cell_form=cell_form)
 
 
 def same_choice(got: tuple, want: tuple) -> bool:
-    """Two `grow_select` results agree: n_chosen equal, and chosen equal
-    up to n_chosen (past it only the kernel's fill is defined)."""
-    (c1, n1), (c2, n2) = got, want
-    if c1.shape != c2.shape or not torch.equal(n1, n2):
+    """Two `grow_select` results agree: n_chosen, the lists and the counts
+    equal, and chosen equal up to n_chosen (past it only the kernel's fill
+    is defined)."""
+    (c1, n1, *rest1), (c2, n2, *rest2) = got, want
+    if c1.shape != c2.shape or not torch.equal(n1, n2) or not all(
+            torch.equal(a, b) for a, b in zip(rest1, rest2)):
         return False
     upto = torch.arange(c1.shape[-1], device=c1.device) < n1[..., None]
     return torch.equal(torch.where(upto, c1, 0), torch.where(upto, c2, 0))
@@ -163,15 +156,16 @@ def step_launches(sp_steps: int | None = None, **counts) -> dict:
     default one for each launch of a kernel of STEP_KERNELS, as a step
     runs the SP once), one `seg_counts` after each kernel that writes
     the packed activity (all of STEP_KERNELS but `serving_activation`,
-    whose step counts from the serving table), one `grow_select` a
-    learning step (each `table_update`) and STEP_PACKS `pack_bits` a
-    step. A count given in ``counts`` overrides its default (a
+    whose step counts from the serving table), one `grow_select` and one
+    `grow_fill` a learning step (each `table_update`) and STEP_PACKS
+    `pack_bits` a step. A count given in ``counts`` overrides its default (a
     `tm_resume` launches one `act_conn`, one `seg_counts` and one
     `pack_bits`)."""
     n = sum(counts.get(k, 0) for k in STEP_KERNELS)
     counts = {"sp_overlap": n if sp_steps is None else sp_steps,
               "seg_counts": n - counts.get("serving_activation", 0),
               "grow_select": counts.get("table_update", 0),
+              "grow_fill": counts.get("table_update", 0),
               "pack_bits": STEP_PACKS * n,
               **counts}
     return {k.name: counts.get(k.name, 0) for k in kernels.KERNELS}

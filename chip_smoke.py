@@ -6,11 +6,11 @@ the 16K x 64 shapes with its index mask, and at Wc = 2049 and 4096;
 `sp_update_pack` also with inactive rows past the rail and -0.0;
 `sp_overlap` and `seg_counts`, the SP overlap and the per-segment count
 decode, also at the 16K x 64 shapes and in a CUDA graph of 20 calls,
-where `seg_counts` must be no slower than the int32 sum; `grow_select`
-and `pack_bits`, the growth selection and the bit pack, in the phase
-`check_grow_and_pack` at the bench, 16K x 64 (tuned and auto caps),
-reference-stack and anomaly shapes, each in a CUDA graph of 20 calls,
-and on every path their wrappers report), with
+where `seg_counts` must be no slower than the int32 sum; `grow_select`,
+`grow_fill` and `pack_bits`, the growth's lists and selection, its fill
+and the bit pack, in the phase `check_grow_and_pack` at the bench, 16K x
+64 (tuned and auto caps), reference-stack and anomaly shapes, each in a
+CUDA graph of 20 calls, and on every path their wrappers report), with
 its time, its plain version's, its bound and where one exists a single
 PyTorch call's (the table kernels and the row-range word kernels with
 the grid their launcher chose; `small_table_take` with its wrapper's
@@ -21,9 +21,9 @@ input, then drives the main path: the bench configuration (2048 columns
 x 32 cells, G=4 x K=64, int16 SP, B=256 streams) through `htm_scan`, 768
 learning steps then inference, and checks that every kernel of that path
 was launched once a step (the table kernel, `sp_overlap`,
-`seg_counts` and at learning `grow_select`; `pack_bits` three times a
-step; `testing.step_launches` gives every count this script holds a
-run to), that the metrics are in range, that the graph
+`seg_counts` and at learning `grow_select` and `grow_fill`; `pack_bits`
+three times a step; `testing.step_launches` gives every count this
+script holds a run to), that the metrics are in range, that the graph
 learned to predict and that the state invariants hold. Then serves the
 next 64 steps from the learned state three ways (`htm_serve_scan` over
 the synapse tables, over a compact serving table, and the scan over the
@@ -137,6 +137,7 @@ from bithtm_tpu_torch.models.htm import _scan_impl, _step_metrics
 from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
 from bithtm_tpu_torch.ops import serving as psv
+from bithtm_tpu_torch.ops.bitops import popcount32
 from bithtm_tpu_torch.ops.overlap import (input_words, overlaps,
                                           overlaps_ref, padded_input_dim)
 from bithtm_tpu_torch.parallel import mesh as pmesh
@@ -191,6 +192,7 @@ SOURCES = {
     "sp_overlap": "bithtm_tpu_torch/csrc/overlap_pass.cu",
     "seg_counts": "bithtm_tpu_torch/csrc/count_pass.cu",
     "grow_select": "bithtm_tpu_torch/csrc/grow_pass.cu",
+    "grow_fill": "bithtm_tpu_torch/csrc/grow_fill.cu",
     "pack_bits": "bithtm_tpu_torch/csrc/pack_pass.cu",
 }
 REPLACES = {
@@ -205,6 +207,7 @@ REPLACES = {
     "sp_overlap": "bithtm_tpu/ops/overlap.py:85",
     "seg_counts": "bithtm_tpu/ops/active_set.py:588",
     "grow_select": "bithtm_tpu/models/temporal_memory.py:350",
+    "grow_fill": "bithtm_tpu/models/temporal_memory.py:221",
     "pack_bits": "bithtm_tpu/ops/active_set.py:85",
 }
 
@@ -499,10 +502,11 @@ def check_overlap_and_counts(dev) -> dict:
     return out
 
 
-# `grow_select` at the main paths' geometries (tag: B, C, D, A, G, K, Wc,
-# L, samp; the bench, the 16K tuned and auto caps, the reference and the
-# anomaly stacks) and past them (samp = K, K = 128, Wc = 2049, one key
-# row a block, keys in global memory in both forms)
+# `grow_select` and `grow_fill` at the main paths' geometries (tag: B, C,
+# D, A, G, K, Wc, L, samp; the bench, the 16K tuned and auto caps, the
+# reference and the anomaly stacks) and past them (samp = K, K = 128, Wc
+# = 2049, one key row a block, keys in global memory in both forms, kk
+# past 32)
 GROW_MAIN = {
     "bench": (BATCH, 2048, 32, 41, 4, 64, 128, 88, 32),
     "16k tuned": (BATCH_16K, 16384, 64, 328, 4, 64, 384, 336, 32),
@@ -517,6 +521,8 @@ GROW_PATHS = {
     "one key row a block": (2, 4096, 32, 1024, 1, 16, 20_000, 16, 32),
     "global, cell": (2, 2048, 32, 2048, 1, 16, 29_057, 8, 32),
     "global, index": (2, 4096, 32, 1024, 1, 16, 29_057, 8, 32),
+    # kk = 40: `grow_fill` reads each written slot's cell ("load")
+    "samp=40": (16, 2048, 32, 41, 4, 48, 700, 40, 40),
 }
 # `pack_bits` at the main paths' (B, rows, D): the active and winner
 # cells (B, A, D) and the matching flags (B, C, G); then D = 1, 33, 48
@@ -530,19 +536,21 @@ PACK_PATHS = {"D=1": (64, 1000, 1), "D=33": (64, 1000, 33),
               "D=48": (64, 1000, 48)}
 
 
-def grow_row(geo: tuple, dev, graph: bool = True) -> dict:
+def grow_row(geo: tuple, dev, graph: bool = True) -> tuple[dict, dict]:
     """`grow_select` at ``geo`` (`testing.grow_inputs`) against
-    `grow_select_ref` (n_chosen and the chosen cells or keys up to it
-    equal), with `kernel_row`'s times and bound: the random words of the
+    `grow_select_ref` (every output equal, chosen up to n_chosen), then
+    `grow_fill` on that selection against `grow_fill_ref` (`fill_row`),
+    with `kernel_row`'s times and bound for `grow_select`: each stream's
+    winner words, columns and learning flags, the random words of the
     rows that grow (their valid candidates only), the K slots (5 bytes)
-    of every valid row, the row list, the candidate lists and both
-    outputs, each once. Its library call is `torch.topk(largest=False)`
-    over the same masked keys. With ``graph``, the kernel's and the
-    library's ms a call in a CUDA graph of 20."""
+    of every valid row and the outputs, each once. Its library call is
+    `torch.topk(largest=False)` over the same masked keys. With
+    ``graph``, the kernel's and the library's ms a call in a CUDA graph
+    of 20. Returns (the `grow_select` row, the `grow_fill` row)."""
     B, C, D, A, G, K, Wc, L, samp = geo
     x = testing.grow_inputs(sum(geo), *geo, device=dev)
     want = ptm.grow_select_ref(**x)
-    got = kernels.grow_select_cuda(**x)
+    got = ptm.GrowSelection(*kernels.grow_select_cuda(**x))
     torch.cuda.synchronize()
     at = f"B={B} C={C} D={D} A={A} G={G} K={K} Wc={Wc} L={L} samp={samp}"
     require(testing.same_choice(got, want) and bool((want[1] > 0).any()),
@@ -550,15 +558,12 @@ def grow_row(geo: tuple, dev, graph: bool = True) -> dict:
     path = kernels._grow_keys(x["cell_form"], Wc)
     require(kernels.GROW_SELECT.path == path, f"grow_select at {at} takes "
             f"{path}, got {kernels.GROW_SELECT.path}")
-    pkey, valid, n_grow = ptm.growth_keys_ref(**x)
-    keys = torch.where(valid, pkey, (1 << 32) - 1 if x["cell_form"]
-                       else ptm.PACKED_IDX_SENTINEL)
-    del pkey, valid
+    keys, n_grow, n_cand = grow_keys(x, want)
     kk = min(samp, Wc)
-    n_cand = x["cand_valid"].sum(-1, dtype=torch.int64)
     moved = (4 * int(((n_grow > 0) * n_cand[:, None]).sum())
-             + 5 * K * int(x["lvalid"].sum()) + 5 * B * L + nbytes(*want)
-             + 5 * B * Wc + 4 * B)
+             + 5 * K * int(want.lvalid.sum())
+             + nbytes(x["prev_winner_bits"], x["prev_cols"], x["learn_rows"])
+             + nbytes(*want))
 
     def library():
         return torch.topk(keys, kk, dim=-1, largest=False)
@@ -574,6 +579,130 @@ def grow_row(geo: tuple, dev, graph: bool = True) -> dict:
         print(f"  grow_select in a CUDA graph of 20 calls: "
               f"{row['graph_ms']:.4f} ms a call, torch.topk "
               f"{row['library_graph_ms']:.4f}")
+    del keys
+    return row, fill_row(x, want, at, graph)
+
+
+def grow_keys(x: dict, sel) -> tuple:
+    """The masked growth keys of `grow_select`'s inputs ``x`` at the lists
+    of its selection ``sel`` (the form's sentinel where invalid), each
+    row's n_grow and each stream's candidate count."""
+    Wc = x["rnd"].shape[-1]
+    n_cand = torch.clamp(popcount32(x["prev_winner_bits"]).sum(
+        (1, 2), dtype=torch.int32), max=Wc)
+    cand_valid = torch.arange(Wc, device=n_cand.device) < n_cand[:, None]
+    pkey, valid, n_grow = ptm.growth_keys_ref(
+        x["syn_rows"], x["act_rows"], sel.lidx, sel.lvalid, sel.cand_cell,
+        cand_valid, n_cand, x["rnd"], x["samp"], x["key_bits"],
+        x["cell_form"])
+    keys = torch.where(valid, pkey, (1 << 32) - 1 if x["cell_form"]
+                       else ptm.PACKED_IDX_SENTINEL)
+    return keys, n_grow, n_cand.to(torch.int64)
+
+
+def fresh_ms(calls, restore, graph: bool = False, reps: int = 5) -> float:
+    """ms a call of an in-place function, each of ``calls`` on its own
+    copy of the inputs, which ``restore()`` resets: CUDA events around
+    each call (its launch included), or with ``graph`` around replays of
+    a CUDA graph of the calls; the resets run outside the events."""
+    restore()
+    for call in calls[:3]:
+        call()
+    restore()
+    torch.cuda.synchronize()
+    if not graph:
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in calls]
+        for (start, end), call in zip(ev, calls):
+            start.record()
+            call()
+            end.record()
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in ev) / len(calls)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for call in calls:
+            call()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        restore()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    del g
+    return total / (len(calls) * reps)
+
+
+def fill_row(x: dict, sel, at: str, graph: bool) -> dict:
+    """`grow_fill` on the selection ``sel`` of ``x`` (the index-form keys
+    decoded first, as `_grow` does) against `grow_fill_ref` on copies of
+    the same rows: the synapse and permanence rows, the mask and the
+    counts equal, and cells written. Timed on 20 fresh copies of the rows
+    (`fresh_ms`: the wrapper's call, its zeroing of the mask included),
+    plain and, with ``graph``, in a CUDA graph of 20. Bound: the list
+    (9 bytes a row), the K slots and n_chosen cells of each row that
+    takes one, 8 bytes a slot written and the mask, each once; no
+    PyTorch call computes the fill: no library time."""
+    syn = x["syn_rows"]
+    g = torch.Generator(device=syn.device).manual_seed(syn.shape[0])
+    perm = torch.where(syn >= 0, torch.rand(syn.shape, generator=g,
+                                            device=syn.device), -1.0)
+    cells = sel.chosen
+    if not x["cell_form"]:
+        cells = pas.take_small_table_ref(sel.cand_cell, cells,
+                                         (1 << x["key_bits"]) - 1)
+    pinit = 0.21
+    args = (sel.lidx, sel.lvalid, cells, sel.n_chosen)
+    out = []
+    for fill in (ptm.grow_fill_ref, kernels.grow_fill_cuda):
+        s, p, c = syn.clone(), perm.clone(), sel.counts.clone()
+        out.append((s, p, fill(s, p, *args, c, pinit), c))
+    torch.cuda.synchronize()
+    (s1, p1, w1, c1), (s2, p2, w2, c2) = out
+    require(torch.equal(s1, s2) and torch.equal(p1, p2)
+            and torch.equal(w1, w2) and torch.equal(c1, c2)
+            and bool(w1.any()), f"grow_fill == plain at {at}")
+    path = (kernels._fill_path(cells.shape[-1]),)
+    require(kernels.GROW_FILL.path == path, f"grow_fill at {at} takes "
+            f"{path}, got {kernels.GROW_FILL.path}")
+    K = syn.shape[-1]
+    takes = sel.lvalid & (sel.n_chosen > 0)
+    moved = (9 * sel.lidx.numel() + 4 * K * int(takes.sum())
+             + 4 * int(sel.n_chosen.sum()) + 8 * int(w1.sum())
+             + nbytes(w1, c1))
+    del out, s1, p1, w1, c1, s2, p2, w2, c2
+    copies = [(syn.clone(), perm.clone(), sel.counts.clone())
+              for _ in range(20)]
+
+    def restore():
+        for s, p, c in copies:
+            s.copy_(syn)
+            p.copy_(perm)
+            c.copy_(sel.counts)
+
+    def calls(fill):
+        return [lambda s=s, p=p, c=c: fill(s, p, *args, c, pinit)
+                for s, p, c in copies]
+
+    row = {"ms": fresh_ms(calls(kernels.grow_fill_cuda), restore),
+           "plain_ms": fresh_ms(calls(ptm.grow_fill_ref), restore),
+           "max_abs_err": 0.0, "bound_ms": 1e3 * moved / HBM_BYTES_PER_S,
+           "bound_by": "bytes", "library_ms": None, "at": at,
+           "path": list(path)}
+    if graph:
+        row["graph_ms"] = fresh_ms(calls(kernels.grow_fill_cuda), restore,
+                                   graph=True)
+    print(f"kernel grow_fill [{path[0]}]: {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({moved / 1e6:.1f} MB), library call none, at {at}"
+          + (f"; in a CUDA graph of 20 calls {row['graph_ms']:.4f} ms a "
+             f"call" if graph else "") + "; bit-equal")
+    del copies
     return row
 
 
@@ -624,12 +753,14 @@ def check_grow_and_pack(dev) -> tuple[dict, dict]:
             cfg.resolved_winner_capacity, cfg.resolved_growth_capacity,
             cfg.segment_sampling_synapses), f"GROW_MAIN[{tag}] is the "
             f"configuration's geometry")
-    rows = {"grow_select": {}, "pack_bits": {}}
+    rows = {"grow_select": {}, "grow_fill": {}, "pack_bits": {}}
     for tag, geo in GROW_MAIN.items():
-        rows["grow_select"][tag] = grow_row(geo, dev)
+        rows["grow_select"][tag], rows["grow_fill"][tag] = grow_row(
+            geo, dev)
         torch.cuda.empty_cache()
     for tag, geo in GROW_PATHS.items():
-        rows["grow_select"][tag] = grow_row(geo, dev, graph=False)
+        rows["grow_select"][tag], rows["grow_fill"][tag] = grow_row(
+            geo, dev, graph=False)
     for tag, shape in PACK_MAIN.items():
         rows["pack_bits"][tag] = pack_row(shape, dev)
     for tag, shape in PACK_PATHS.items():
@@ -639,8 +770,8 @@ def check_grow_and_pack(dev) -> tuple[dict, dict]:
     for name, by_tag in rows.items():
         main[name] = dict(by_tag["bench"])
         main[name].update({tag: row for tag, row in by_tag.items()
-                           if tag in (GROW_MAIN if name == "grow_select"
-                                      else PACK_MAIN) and tag != "bench"})
+                           if tag in (PACK_MAIN if name == "pack_bits"
+                                      else GROW_MAIN) and tag != "bench"})
     return main, rows
 
 
@@ -1587,8 +1718,8 @@ def time_phases(snap: Snapshot, xs) -> None:
 PORT_KERNELS = ("table_pass_kernel", "word_range_kernel", "word_pass_kernel",
                 "small_take_kernel", "sp_update_pack_kernel",
                 "sp_overlap_kernel", "seg_counts_kernel",
-                "grow_select_kernel", "pack_ballot_kernel",
-                "pack_vec_kernel")
+                "grow_select_kernel", "grow_fill_kernel",
+                "pack_ballot_kernel", "pack_vec_kernel")
 
 
 def device_profile(run, n: int, top: int) -> tuple[float, float]:
@@ -2684,6 +2815,13 @@ PARITY_SIZES = (("tiny", 80), ("mid", 60), ("bisect", 40))
 PARITY_FROM_STATE = (2, 24, 4)
 PROFILE_ARGS = ["--fast", "--batch", str(BATCH), "--trace_steps", "16",
                 "--warmup_steps", "384"]
+PROFILE_16K_ARGS = ["--fast", "--batch", str(BATCH_16K), "--column_dim",
+                    "16384", "--cell_dim", "64", "--trace_steps", "16",
+                    "--warmup_steps", "256"]
+# the kernels a learning step launches in the range `_learn/_grow`, at
+# most: `grow_select`, the mask's zeroing and `grow_fill`, with the
+# index form's `small_table_take` at 16K, and one to spare
+GROW_RANGE_LAUNCHES = {"bench": 5, "16k": 6}
 SOAK_16K_TO = 2048      # the step the learned 16K state is carried on to
 SOAK_16K_CHUNK = 256
 SOAK_EVICT = ["--steps", "1024", "--batch", "64", "--window", "256"]
@@ -2779,9 +2917,13 @@ def run_parity(dev, learned_bench, tmp: str) -> dict:
 def run_profile(graph_launches: float) -> dict:
     """`scripts.profile_step` at bench learning (fast stack, B=256) over
     16 loop steps from a state warmed 384 steps: each call site's device
-    ms a step, its sum within 10% of the graph's busy a step (the script
-    raises otherwise); printed beside the kernel launches a step of the
-    main path's graph (``graph_launches``, from `run_graph_bench`)."""
+    ms and launches a step, its sum within 10% of the graph's busy a step
+    (the script raises otherwise); printed beside the kernel launches a
+    step of the main path's graph (``graph_launches``, from
+    `run_graph_bench`). Then at 16K x 64 (B=64, tuned caps, warmed 256
+    steps). At both, the range `_learn/_grow` launches at most
+    GROW_RANGE_LAUNCHES kernels a step. Returns the bench profile, the
+    16K one under "16k"."""
     from bithtm_tpu_torch.scripts import profile_step
 
     out = profile_step.main(PROFILE_ARGS)
@@ -2790,6 +2932,17 @@ def run_profile(graph_launches: float) -> dict:
           f"{out['graph_busy_ms']:.3f}; the graph launches "
           f"{out['graph_launches']:.1f} kernels a step here and "
           f"{graph_launches:.1f} on the main path's learned state")
+    torch.cuda.empty_cache()
+    out["16k"] = profile_step.main(PROFILE_16K_ARGS)
+    torch.cuda.empty_cache()
+    for tag, prof in (("bench", out), ("16k", out["16k"])):
+        site = "tm_step._learn/_grow"
+        n = prof["launches"][site]
+        require(n <= GROW_RANGE_LAUNCHES[tag], f"{site} launches {n} "
+                f"kernels a {tag} learning step, at most "
+                f"{GROW_RANGE_LAUNCHES[tag]}")
+        print(f"profile {tag}: {site} {prof['sites'][site]:.3f} ms and "
+              f"{n:.1f} launches a step")
     return out
 
 
@@ -3476,9 +3629,10 @@ def main() -> None:
         "fuzz": {k: v["paths"] for k, v in fuzz.items()},
         "parity": {k: {f: v.get(f) for f in ("port_s", "oracle_s")}
                    for k, v in parity.items() if k != "sp"},
-        "profile": {k: profile[k] for k in (
-            "sites", "ranges_ms", "loop_busy_ms", "graph_busy_ms",
-            "graph_launches")},
+        "profile": {tag: {k: prof[k] for k in (
+            "sites", "launches", "ranges_ms", "loop_busy_ms",
+            "graph_busy_ms", "graph_launches")}
+            for tag, prof in (("bench", profile), ("16k", profile["16k"]))},
         "soaks": {"16k": {k: soaks["16k"][k] for k in (
             "escalated_at_step", "banked_drops", "end_to_end_ms_per_step",
             "tuned_steady_ms_per_step", "safe_steady_ms_per_step")},

@@ -503,12 +503,15 @@ def test_grow_matches_cpu_above_2048_candidates(Wc, cuda):
         prev_winner_bits=pas.pack_bits(torch.from_numpy(winners)).numpy())
     outs = []
     for where in ("cpu", cuda):
-        t = {k: torch.from_numpy(v).to(where) for k, v in inputs.items()}
+        # _grow updates the rows in place: each run takes its own copy
+        t = {k: torch.from_numpy(v.copy()).to(where)
+             for k, v in inputs.items()}
         before = kernels.launch_counts()
         outs.append([o.cpu() for o in ptm._grow(cfg, **t)])
         on_card = int(where != "cpu")
         assert launched(before) == only(small_table_take=on_card,
-                                        grow_select=on_card)
+                                        grow_select=on_card,
+                                        grow_fill=on_card)
     for got, want in zip(*outs[::-1]):
         assert torch.equal(got, want)
     assert int(outs[0][2].sum()) > 0               # synapses grew
@@ -549,6 +552,37 @@ def test_grow_select_matches_plain(geo, cuda):
                                                           geo[6])
     assert testing.same_choice(got, want)
     assert bool((want[1] > 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo", GROW_GEOMS)
+def test_grow_fill_matches_plain(geo, cuda):
+    """`grow_fill` against `grow_fill_ref` on copies of the same rows and
+    the same selection (`grow_select_ref` on `testing.grow_inputs`, the
+    index-form keys decoded): the synapse and permanence rows, the mask
+    of the slots written and the counts equal, on the path its wrapper
+    reports; the dispatcher launches the kernel once."""
+    x = testing.grow_inputs(sum(geo), *geo, device=cuda)
+    sel = ptm.grow_select_ref(**x)
+    cells = sel.chosen
+    if not x["cell_form"]:
+        cells = pas.take_small_table_ref(sel.cand_cell, cells,
+                                         (1 << x["key_bits"]) - 1)
+    syn = x["syn_rows"]
+    perm = torch.where(syn >= 0, 0.5, -1.0)
+    out = []
+    for on_card in (False, True):
+        s, p, c = syn.clone(), perm.clone(), sel.counts.clone()
+        before = kernels.launch_counts()
+        fill = ptm.grow_fill if on_card else ptm.grow_fill_ref
+        w = fill(s, p, sel.lidx, sel.lvalid, cells, sel.n_chosen, c, 0.21)
+        torch.cuda.synchronize()
+        assert launched(before) == only(grow_fill=int(on_card))
+        out.append((s, p, w, c))
+    assert kernels.GROW_FILL.path == (kernels._fill_path(cells.shape[-1]),)
+    for got, want in zip(out[1], out[0]):
+        assert torch.equal(got, want)
+    assert bool(out[0][2].any()) and int(out[0][3][ptm.N_GROWN].sum()) > 0
 
 
 @pytest.mark.cuda

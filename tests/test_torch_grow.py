@@ -1,6 +1,7 @@
-"""The port's growth selection (`grow_select_ref`, and through it `_grow`)
-and bit pack (`pack_bits_ref`) against the JAX package, and the
-wrappers of their CUDA kernels (`grow_select`, `pack_bits`) on the CPU.
+"""The port's growth selection and fill (`grow_select_ref`, `grow_fill_ref`,
+and through them `_grow`) and bit pack (`pack_bits_ref`) against the JAX
+package, and the wrappers of their CUDA kernels (`grow_select`,
+`grow_fill`, `pack_bits`) on the CPU.
 
 Inputs are made with numpy from a seed. The random words of the growth
 come from JAX keys (`jax.random.bits`), as `tests/test_torch_htm.py`
@@ -80,8 +81,8 @@ GROW_CASES = ([(Wc, form, "samp<K") for Wc in WIDTHS for form in FORM_C]
 
 @pytest.mark.parametrize("Wc,form,samp", GROW_CASES)
 def test_grow_matches_jax(Wc, form, samp):
-    """The port's `_grow` (its selection `grow_select_ref` on the CPU)
-    against JAX `_grow` in both key forms, with samp < K and samp = K,
+    """The port's `_grow` (`grow_select_ref` and `grow_fill_ref` on the
+    CPU) against JAX `_grow` in both key forms, with samp < K and samp = K,
     at every listed candidate width: all seven outputs equal, for rows
     that grow, rows at samp potential (n_grow = 0) and invalid list
     rows."""
@@ -106,23 +107,26 @@ def test_grow_matches_jax(Wc, form, samp):
     assert int(got[3].sum()) > 0                      # synapses grew
 
 
-def numpy_keys(x: dict):
-    """The growth keys of `grow_select`'s inputs, built in numpy from the
-    JAX step's definition (`temporal_memory.py:400-480`): uint32 keys
-    with the invalid ones at the form's sentinel, and each row's
-    n_grow."""
+def numpy_keys(x: dict, sel):
+    """The growth keys of `grow_select`'s inputs ``x`` at the lists of its
+    selection ``sel``, built in numpy from the JAX step's definition
+    (`temporal_memory.py:400-480`): uint32 keys with the invalid ones at
+    the form's sentinel, and each row's n_grow."""
     syn, act = x["syn_rows"].numpy(), x["act_rows"].numpy()
-    lidx, lvalid = x["lidx"].numpy(), x["lvalid"].numpy()
-    cand, cvalid = x["cand_cell"].numpy(), x["cand_valid"].numpy()
+    lidx, lvalid = sel.lidx.numpy(), sel.lvalid.numpy()
+    cand = sel.cand_cell.numpy()
     rnd = x["rnd"].numpy().view(np.uint32)
     samp, bits, cell = x["samp"], x["key_bits"], x["cell_form"]
     Bx, R, Kx = syn.shape
     Lx, Wc = lidx.shape[1], cand.shape[1]
+    n_eff = np.minimum(np.unpackbits(
+        x["prev_winner_bits"].numpy().view(np.uint8), axis=-1).reshape(
+            Bx, -1).sum(-1), Wc)[:, None]
+    cvalid = np.arange(Wc) < n_eff
     rows = np.minimum(lidx, R - 1)
     syn_l = np.take_along_axis(syn, rows[..., None], 1)      # (B, L, K)
     act_l = np.take_along_axis(act, rows[..., None], 1) & (syn_l >= 0)
     potential = act_l.sum(-1)
-    n_eff = x["n_winners_eff"].numpy()[:, None]
     n_grow = np.where(lvalid, np.minimum(np.maximum(samp - potential, 0),
                                          np.minimum(n_eff, samp)), 0)
     if samp < Kx:   # the first samp active live targets
@@ -155,11 +159,12 @@ def test_grow_select_ref_matches_jax_select_and_fill(form, Wc):
     C = {"cell": 2048, "index": 16384}[form]
     x = testing.grow_inputs(Wc, 3, C, 32, 41, 4, 32, Wc, 40, 24)
     assert x["cell_form"] == (form == "cell")
-    chosen, n_chosen = ptm.grow_select_ref(**x)
+    sel = ptm.grow_select_ref(**x)
+    chosen, n_chosen = sel.chosen, sel.n_chosen
     if not x["cell_form"]:
         chosen = pas.take_small_table_ref(
-            x["cand_cell"], chosen, (1 << x["key_bits"]) - 1)
-    keys, n_grow = numpy_keys(x)
+            sel.cand_cell, chosen, (1 << x["key_bits"]) - 1)
+    keys, n_grow = numpy_keys(x, sel)
     kk = chosen.shape[-1]
     free = jnp.ones((keys.shape[1], kk), bool)
     method = ("sortfill_packed_cell" if x["cell_form"]
@@ -168,12 +173,149 @@ def test_grow_select_ref_matches_jax_select_and_fill(form, Wc):
     jg, _, jn = jax.device_get(jax.jit(jax.vmap(
         lambda p, n, c: jax_tm._select_and_fill(
             p, n, c, free, x["samp"], method, idx_bits=x["key_bits"])))(
-        pri, n_grow, x["cand_cell"].numpy()))
+        pri, n_grow, sel.cand_cell.numpy()))
     np.testing.assert_array_equal(n_chosen.numpy(), jn)
     upto = np.arange(kk) < jn[..., None]
     np.testing.assert_array_equal(np.where(upto, chosen.numpy(), 0),
                                   np.where(upto, jg, 0))
     assert int(n_chosen.sum()) > 0 and bool((n_chosen == 0).any())
+
+
+# (Wc, L) against the two streams of `grow_rows` (about 2,300 and 260
+# winner cells, about 48 and 8 learning rows of A*G = 160): below both,
+# above both, and between them
+PROLOGUE_CASES = {"Wc, L below": (4, 4), "Wc, L above": (3000, 200),
+                  "Wc, L between": (700, 24)}
+
+
+@pytest.mark.parametrize("case", PROLOGUE_CASES)
+def test_grow_select_ref_lists_match_jax(case):
+    """The lists `grow_select_ref` builds, held to JAX `_grow`'s
+    intermediates (`temporal_memory.py:376-395`) on the same inputs: the
+    candidate list and its validity (`compact_first_k` of the winner
+    cells; the port's validity is the first n_winners_eff entries, 0
+    past them), the growing rows' slot ids and validity (the padding row
+    A*G past them), n_winners - n_winners_eff and the learning rows past
+    L, with the winner count and the learning count on both sides of
+    Wc and L."""
+    Wc, Lc = PROLOGUE_CASES[case]
+    _, pcfg = configs(FORM_C["cell"], Wc, 6)
+    x = grow_rows(Wc + Lc, FORM_C["cell"])
+    rnd = np.zeros((B, Lc, Wc), np.int32)
+    sel = ptm.grow_select_ref(
+        torch.from_numpy(x["syn_rows"].reshape(B, A * G, K)),
+        torch.from_numpy(x["act_prev_rows"].reshape(B, A * G, K)),
+        torch.from_numpy(x["learn_rows"].reshape(B, A * G)),
+        torch.from_numpy(x["prev_cols"]),
+        torch.from_numpy(np.array(x["prev_winner_bits"]).view(np.int32)),
+        torch.from_numpy(rnd), D, 6, *ptm.growth_key_form(
+            pcfg.column_dim * D, Wc))
+
+    def jax_lists(cols, words, learn):
+        grid_cell = (cols[:, None] * D + jnp.arange(D)).reshape(A * D)
+        grid_valid = jas.unpack_bits(words, D).reshape(A * D)
+        cand, cvalid = jas.compact_first_k(grid_valid, grid_cell, Wc)
+        n_winners = jax.lax.population_count(words).sum().astype(jnp.int32)
+        lidx, lvalid = jas.compact_first_k(
+            learn.reshape(A * G), jnp.arange(A * G, dtype=jnp.int32), Lc)
+        return (cand, cvalid, jnp.where(lvalid, lidx, A * G), lvalid,
+                n_winners - jnp.minimum(n_winners, Wc),
+                learn.sum(dtype=jnp.int32) - lvalid.sum(dtype=jnp.int32))
+
+    cand, cvalid, lidx, lvalid, w_drop, g_drop = jax.device_get(
+        jax.jit(jax.vmap(jax_lists))(x["prev_cols"], x["prev_winner_bits"],
+                                     x["learn_rows"]))
+    n_eff = np.minimum(cvalid.sum(-1), Wc)[:, None]
+    np.testing.assert_array_equal(np.arange(Wc) < n_eff, cvalid)
+    np.testing.assert_array_equal(sel.cand_cell.numpy(),
+                                  np.where(cvalid, cand, 0))
+    np.testing.assert_array_equal(sel.lidx.numpy(), lidx)
+    np.testing.assert_array_equal(sel.lvalid.numpy(), lvalid)
+    np.testing.assert_array_equal(sel.counts.numpy(), np.stack(
+        [np.zeros(B, np.int32), np.zeros(B, np.int32), w_drop, g_drop]))
+    n_win = cvalid.sum(-1) + w_drop
+    n_learn = lvalid.sum(-1) + g_drop
+    above = {"Wc, L below": [False, False], "Wc, L above": [True, True],
+             "Wc, L between": [False, True]}[case]
+    assert (n_win < Wc).tolist() == (n_learn < Lc).tolist() == above
+
+
+def old_fill(syn_rows, perm_rows, lidx, lvalid, chosen, n_chosen,
+             permanence_initial):
+    """The fill `_grow` ran as torch ops before `grow_fill`: `_fill` on the
+    gathered rows, the rows scattered back through a padding row, the
+    mask scattered alike, the permanences set where written, and the
+    counts reduced. Returns (syn, perm, wrote, n_grown, overflow)."""
+    B, R, K = syn_rows.shape
+    L = lidx.shape[1]
+    lidx = lidx.long()
+    take = lidx.clamp(max=R - 1)[..., None].expand(B, L, K)
+    syn_l = syn_rows.gather(1, take)
+    free = syn_l < 0
+    gathered, wrote_l = ptm._fill(chosen, n_chosen, free)
+    new_syn_l = torch.where(wrote_l, gathered, syn_l)
+    idx = lidx[..., None].expand(B, L, K)
+    syn_pad = torch.cat([syn_rows, syn_rows.new_full((B, 1, K), -1)], 1)
+    syn = syn_pad.scatter_(1, idx, new_syn_l)[:, :R]
+    wrote = torch.zeros((B, R + 1, K), dtype=torch.bool).scatter_(
+        1, idx, wrote_l)[:, :R]
+    perm = torch.where(wrote, permanence_initial, perm_rows)
+    n_free = free.sum(-1, dtype=torch.int32)
+    overflow = (torch.clamp(n_chosen - n_free, min=0) * lvalid).sum(
+        -1, dtype=torch.int32)
+    return syn, perm, wrote, wrote_l.sum((1, 2), dtype=torch.int32), overflow
+
+
+# rows with every slot live, rows offered more cells than free slots,
+# rows invalid past each stream's list, and all three at random
+FILL_CASES = ("no free slot", "overflow", "invalid rows", "mixed")
+
+
+@pytest.mark.parametrize("case", FILL_CASES)
+def test_grow_fill_ref_matches_the_old_fill(case):
+    """`grow_fill_ref` (in place, counts added to rows 0 and 1) against
+    the scatter path it replaced (`old_fill`): the synapse and permanence
+    rows, the mask of the slots written, the slots grown and the
+    overflow equal, and rows 2 and 3 of the counts untouched."""
+    Bf, R, Kf, Lf, kk = 3, 12, 16, 6, 5
+    rng = np.random.default_rng(FILL_CASES.index(case))
+    live_share = {"no free slot": 1.0, "overflow": 0.85,
+                  "invalid rows": 0.5, "mixed": 0.6}[case]
+    live = rng.random((Bf, R, Kf)) < live_share
+    syn = np.where(live, rng.integers(0, 4096, (Bf, R, Kf)), -1)
+    perm = np.where(live, rng.random((Bf, R, Kf)), -1.0)
+    lidx = np.sort(np.stack([rng.choice(R, Lf, replace=False)
+                             for _ in range(Bf)]), -1)
+    n_valid = {"invalid rows": [2, 0, 4]}.get(
+        case, [Lf, Lf, Lf] if case != "mixed" else [Lf, 3, 1])
+    lvalid = np.arange(Lf) < np.array(n_valid)[:, None]
+    lidx = np.where(lvalid, lidx, R)
+    n_chosen = np.where(lvalid, rng.integers(1, kk + 1, (Bf, Lf)), 0)
+    if case == "overflow":
+        n_chosen = np.where(lvalid, kk, 0)
+    chosen = rng.integers(0, 4096, (Bf, Lf, kk))
+    t = {k: torch.from_numpy(np.ascontiguousarray(v, d)) for k, v, d in (
+        ("syn", syn, np.int32), ("perm", perm, np.float32),
+        ("lidx", lidx, np.int32), ("chosen", chosen, np.int32),
+        ("n_chosen", n_chosen, np.int32))}
+    lv = torch.from_numpy(lvalid)
+    want = old_fill(t["syn"], t["perm"], t["lidx"], lv, t["chosen"],
+                    t["n_chosen"], 0.21)
+    counts = torch.tensor([[0] * Bf, [0] * Bf, [7] * Bf, [9] * Bf],
+                          dtype=torch.int32)
+    s, p = t["syn"].clone(), t["perm"].clone()
+    wrote = ptm.grow_fill_ref(s, p, t["lidx"], lv, t["chosen"],
+                              t["n_chosen"], counts, 0.21)
+    for got, w in zip((s, p, wrote, counts[0], counts[1]), want):
+        assert torch.equal(got, w)
+    assert torch.equal(counts[2:], torch.tensor([[7] * Bf, [9] * Bf],
+                                                dtype=torch.int32))
+    if case == "no free slot":
+        assert not bool(wrote.any())
+    elif case == "overflow":
+        assert int(counts[1].sum()) > 0 and bool(wrote.any())
+    else:
+        assert bool(wrote.any())
 
 
 @pytest.mark.parametrize("D", [1, 4, 8, 32, 33, 64])
@@ -197,14 +339,24 @@ def _view(*shape, dtype=torch.int32):
     return torch.zeros((1,) * len(shape), dtype=dtype).expand(*shape)
 
 
-def _grow_call(Wc: int, cell_form: bool, bits: int = 10):
-    Bv, R, Kv, Lv = 2, 8, 16, 4
+def _grow_call(Wc: int, cell_form: bool, bits: int = 10, samp: int = 8,
+               syn=(2, 8, 16), words=(2, 4, 1)):
+    """`grow_select_cuda` on CPU views: B=2 streams of R=8 rows of K=16
+    slots, A=4 columns of D=32 cells, L=4 rows of Wc random words."""
+    Bv, Lv = 2, 4
     return lambda: kernels.grow_select_cuda(
-        _view(Bv, R, Kv), _view(Bv, R, Kv, dtype=torch.bool), _view(Bv, Lv),
-        _view(Bv, Lv, dtype=torch.bool), torch.zeros((Bv, Wc),
-                                                     dtype=torch.int32),
-        _view(Bv, Wc, dtype=torch.bool), _view(Bv), _view(Bv, Lv, Wc), 8,
-        bits, cell_form)
+        _view(*syn), _view(Bv, 8, 16, dtype=torch.bool),
+        _view(Bv, 8, dtype=torch.bool), _view(Bv, 4), _view(*words),
+        _view(Bv, Lv, Wc), 32, samp, bits, cell_form)
+
+
+def _fill_call(kk: int, lidx=(2, 4)):
+    """`grow_fill_cuda` on CPU views: B=2 streams of R=8 rows of K=16
+    slots, L=4 growing rows of kk chosen cells."""
+    return lambda: kernels.grow_fill_cuda(
+        _view(2, 8, 16), _view(2, 8, 16, dtype=torch.float32), _view(*lidx),
+        _view(2, 4, dtype=torch.bool), _view(2, 4, kk), _view(2, 4),
+        _view(4, 2), 0.21)
 
 
 @pytest.mark.parametrize("call,kernel,path", [
@@ -226,10 +378,13 @@ def _grow_call(Wc: int, cell_form: bool, bits: int = 10):
      "pack_bits", ("v4",)),
     (lambda: kernels.pack_bits_cuda(_view(2, 3, 33, dtype=torch.bool)),
      "pack_bits", ("v1",)),
+    (_fill_call(32), "grow_fill", ("shfl",)),
+    (_fill_call(33), "grow_fill", ("load",)),
 ])
 def test_grow_and_pack_choose_a_path_from_shapes(call, kernel, path):
-    """`grow_select` reports its key form and where its keys live, and
-    `pack_bits` its loads, from the shapes alone (`CudaKernel.path`): the
+    """`grow_select` reports its key form and where its keys live,
+    `grow_fill` how it reads its cells and `pack_bits` its loads, from
+    the shapes alone (`CudaKernel.path`): the
     tensors here are CPU views of one element, which the wrapper then
     refuses as off the card. Nothing launches."""
     k = next(k for k in kernels.KERNELS if k.name == kernel)
@@ -245,28 +400,15 @@ def test_grow_and_pack_choose_a_path_from_shapes(call, kernel, path):
                                  "syn rank"])
 def test_grow_select_cuda_checks_shapes_first(bad):
     """`grow_select_cuda` refuses bad geometry before it reports a path:
-    key bits that leave no random bit, samp 0, overlapping candidate
-    rows (a row stride below Wc, as a broadcast list has) and rows that
-    are not (B, R, K)."""
-    args = {"key bits": (_grow_call(128, False, bits=30), "key bits"),
-            "samp": (lambda: kernels.grow_select_cuda(
-                _view(2, 8, 16), _view(2, 8, 16, dtype=torch.bool),
-                _view(2, 4), _view(2, 4, dtype=torch.bool),
-                torch.zeros((2, 128), dtype=torch.int32),
-                _view(2, 128, dtype=torch.bool), _view(2),
-                _view(2, 4, 128), 0, 10, True), "samp"),
-            "cand rows": (lambda: kernels.grow_select_cuda(
-                _view(2, 8, 16), _view(2, 8, 16, dtype=torch.bool),
-                _view(2, 4), _view(2, 4, dtype=torch.bool), _view(2, 128),
-                _view(2, 128, dtype=torch.bool), _view(2),
-                _view(2, 4, 128), 8, 10, True), "not overlap"),
-            "syn rank": (lambda: kernels.grow_select_cuda(
-                _view(2, 8), _view(2, 8, dtype=torch.bool), _view(2, 4),
-                _view(2, 4, dtype=torch.bool),
-                torch.zeros((2, 128), dtype=torch.int32),
-                _view(2, 128, dtype=torch.bool), _view(2),
-                _view(2, 4, 128), 8, 10, True), "must be")}
-    call, match = args[bad]
+    key bits that leave no random bit, samp 0, candidate rows whose
+    winner words do not span D (two words a column at D=32) and rows
+    that are not (B, R, K)."""
+    call, match = {
+        "key bits": (_grow_call(128, False, bits=30), "key bits"),
+        "samp": (_grow_call(128, True, samp=0), "samp"),
+        "cand rows": (_grow_call(128, True, words=(2, 4, 2)),
+                      "winner words"),
+        "syn rank": (_grow_call(128, True, syn=(2, 8)), "must be")}[bad]
     kernels.GROW_SELECT.path = ()
     before = kernels.launch_counts()
     with pytest.raises(ValueError, match=match):
@@ -275,44 +417,69 @@ def test_grow_select_cuda_checks_shapes_first(bad):
     assert kernels.launch_counts() == before
 
 
+@pytest.mark.parametrize("bad", ["list rows", "cells"])
+def test_grow_fill_cuda_checks_shapes_first(bad):
+    """`grow_fill_cuda` refuses a growing-row list that is not (B, L) and
+    rows of no chosen cell before it reports a path."""
+    call = {"list rows": _fill_call(8, lidx=(2, 5)),
+            "cells": _fill_call(0)}[bad]
+    kernels.GROW_FILL.path = ()
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="grow_fill needs"):
+        call()
+    assert kernels.GROW_FILL.path == ()
+    assert kernels.launch_counts() == before
+
+
 def test_grow_select_dispatch_runs_the_plain_version_on_the_cpu():
-    """`grow_select` on CPU tensors is `grow_select_ref`, with the
-    compacted list's strided view as `_grow` passes it; nothing
-    launches."""
+    """`grow_select` and `grow_fill` on CPU tensors are `grow_select_ref`
+    and `grow_fill_ref`, at the bench geometry; nothing launches."""
     x = testing.grow_inputs(5, 2, 2048, 32, 41, 4, 64, 128, 88, 32)
-    assert x["cand_cell"].stride() == (129, 1)
     before = kernels.launch_counts()
     got = ptm.grow_select(**x)
+    want = ptm.grow_select_ref(**x)
+    assert testing.same_choice(got, want)
+    assert torch.equal(got.chosen, want.chosen)
+    filled = []
+    for fill in (ptm.grow_fill, ptm.grow_fill_ref):
+        s, c = x["syn_rows"].clone(), want.counts.clone()
+        p = torch.where(s >= 0, 0.5, -1.0)
+        w = fill(s, p, want.lidx, want.lvalid, want.chosen, want.n_chosen,
+                 c, 0.21)
+        filled.append((s, p, w, c))
+    for a, b in zip(*filled):
+        assert torch.equal(a, b)
+    assert bool(filled[0][2].any())
     assert kernels.launch_counts() == before
-    assert testing.same_choice(got, ptm.grow_select_ref(**x))
-    assert torch.equal(got[0], ptm.grow_select_ref(**x)[0])
 
 
 def test_step_launches_count_growth_and_packs():
-    """A learning step launches one `grow_select`, and every step three
-    `pack_bits` (active cells, winner cells, matching flags;
-    `testing.step_launches`, which the card's checks compare exactly); a
-    `tm_resume` packs once."""
+    """A learning step launches one `grow_select` and one `grow_fill`, and
+    every step three `pack_bits` (active cells, winner cells, matching
+    flags; `testing.step_launches`, which the card's checks compare
+    exactly); a `tm_resume` packs once."""
     got = testing.step_launches(table_update=5, act_conn=2, act_frozen=1,
                                 serving_activation=4)
-    assert got["grow_select"] == 5
+    assert got["grow_select"] == got["grow_fill"] == 5
     assert got["pack_bits"] == 3 * 12 == testing.STEP_PACKS * 12
     resumed = testing.step_launches(act_conn=1, sp_steps=0, pack_bits=1)
     assert (resumed["pack_bits"], resumed["seg_counts"],
-            resumed["grow_select"]) == (1, 1, 0)
+            resumed["grow_select"], resumed["grow_fill"]) == (1, 1, 0, 0)
     assert set(got) == {k.name for k in kernels.KERNELS}
 
 
 def test_grow_and_pack_sources_name_what_they_replace():
-    """The two sources are built with the others, name the JAX functions
+    """The three sources are built with the others, name the JAX functions
     they stand for, and bind entry points ending in (device, stream)."""
     src = {n: (kernels.CSRC / n).read_text()
-           for n in ("grow_pass.cu", "pack_pass.cu")}
+           for n in ("grow_pass.cu", "grow_fill.cu", "pack_pass.cu")}
     assert set(src) <= set(kernels.SOURCES)
-    assert "bithtm_tpu/models/temporal_memory.py:350-498" in \
-        src["grow_pass.cu"]
+    for name in ("grow_pass.cu", "grow_fill.cu"):
+        assert "bithtm_tpu/models/temporal_memory.py:350-498" in src[name]
+        assert ":221-347" in src[name]
     assert "bithtm_tpu/ops/active_set.py:85" in src["pack_pass.cu"]
     for name, file in (("grow_select", "grow_pass.cu"),
+                       ("grow_fill", "grow_fill.cu"),
                        ("pack_bits", "pack_pass.cu")):
         assert f'extern "C" int {name}(' in src[file]
         assert kernels._ARGTYPES[name][-2:] == [kernels._I, kernels._VP]

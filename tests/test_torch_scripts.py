@@ -19,7 +19,9 @@ import torch
 import bithtm_tpu_torch as bt
 from bithtm_tpu_torch.scripts import (parity_check, profile_step,
                                       soak_16k_autocap, soak_evict_pressure,
-                                      soak_fast_stack, wrapper_ab)
+                                      soak_fast_stack, wrapper_ab,
+                                      grow_variants)
+from bithtm_tpu_torch.ops import kernels
 from bithtm_tpu_torch.utils import checkpoint
 
 REPO = Path(__file__).resolve().parent.parent
@@ -205,6 +207,28 @@ def test_wrapper_ab_needs_the_card(capsys):
         wrapper_ab.main(["--part", "pack"])
     assert isinstance(exit_.value.code, str)
     assert not capsys.readouterr().out
+
+
+def test_grow_variants_needs_the_card(capsys):
+    """`scripts/grow_variants.py` times the card only: without one it
+    exits with a message before it builds or runs anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(SystemExit, match="no CUDA device") as exit_:
+        grow_variants.main(["--variants", "base"])
+    assert isinstance(exit_.value.code, str)
+    assert not capsys.readouterr().out
+
+
+def test_grow_variants_patch_the_current_source():
+    """Every variant of the current `grow_select` (the `new_` ones) finds
+    the text it patches in `csrc/grow_pass.cu`, so none of them silently
+    turns into the unpatched kernel; the variants of the earlier kernel
+    (successive warp minima) do not apply to it."""
+    src = (kernels.CSRC / "grow_pass.cu").read_text()
+    for name, patches in grow_variants.VARIANTS.items():
+        found = all(old in src for old, _ in patches)
+        assert found == (name == "base" or name.startswith("new_")), name
 
 
 def _imported_roots(path: Path) -> set[str]:
