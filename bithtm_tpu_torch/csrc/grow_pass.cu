@@ -7,24 +7,38 @@
 // which XLA runs as two rank/one-hot compactions, a compare tensor, a
 // sort of packed keys and a slice. The TPU package has no Pallas kernel
 // for it. Plain PyTorch version: bithtm_tpu_torch/models/
-// temporal_memory.py (grow_select_ref). The fill is grow_fill.cu.
+// temporal_memory.py (grow_select_ref). The fill is learn_rows
+// (learn_pass.cu).
 //
 // Per stream b (A previous active columns cols, their (A, W) winner
-// words bits, the (R = A*G) learning flags learn):
+// words bits, the R learning flags learn of the active rows):
 //   n_winners  = the set bits of bits; n_eff = min(n_winners, Wc)
 //   cand       = the first Wc winner cells cols[a]*D + d (bit d < D of
 //                column a's words), ascending, 0 past the n_cand valid
 //   lidx       = the slot ids of the first L learning flags, ascending,
-//                R past them; lvalid = the list entry is one
+//                R past them; lvalid = the list entry is one; lpos[r] =
+//                row r's place in the list, -1 where it has none
 //   counts     = (0, 0, n_winners - n_eff, the flags past L), a row each
-//                of (4, B); grow_fill adds n_grown and overflow to rows
-//                0 and 1
-// and per row l of the list (its K slots syn[b, lidx[l]], act[b, ...]):
+//                of (4, B); learn_rows (learn_pass.cu) adds n_grown and
+//                overflow to rows 0 and 1
+// and per row l of the list (its K slots syn[b, lidx[l]], act[b, ...],
+// read where they lie: row r = a*G + g is segment g of column
+// row_cols[b, a] of the (B, Ct, G*K) tables, or of column a of gathered
+// rows where row_cols is null; a row of a new segment, fresh[b, r], reads
+// as empty. act is the packed activity in its own type, nonzero where
+// active. Where fresh is given these are the rows before the step's stale
+// cleanup, new-segment reset and death, which change only slots with act
+// = 0 (a stale slot's activity is 0, and only an inactive slot dies) or
+// rows that read as empty; and every live slot that targets a candidate
+// is active (the candidates are previous active cells, and the activity
+// was computed on this table), so the active live slots are the targets
+// whatever samp, and the selection is the one on the updated rows):
 //   potential  = the row's active live slots (act && syn >= 0)
 //   n_grow     = lvalid ? min(max(samp - potential, 0), min(n_eff, samp))
 //                       : 0
-//   targets    = the first samp active live slots' cells where samp < K,
-//                else every live slot's cell
+//   targets    = the first samp active live slots' cells where samp < K
+//                or the rows are read before the learning pass (fresh
+//                given), else every live slot's cell
 //   valid[i]   = i < n_cand and no target is cand[i]
 //   key[i]     = cell form (up to 2^16 cells, bits = cell bits):
 //                  ((rnd >>> (bits + 1)) << bits) | cand[i]
@@ -37,15 +51,15 @@
 // A valid key is below 2^31 and keys compare as uint32, so the order is
 // the plain version's; valid keys never tie (their low bits differ).
 // Past n_chosen, chosen holds the sentinel's decode (cell form: the low
-// bits of 0xFFFFFFFF; index form: 0x7FFFFFFF), which grow_fill never
+// bits of 0xFFFFFFFF; index form: 0x7FFFFFFF), which learn_rows never
 // writes into a slot.
 //
 // Bound: bytes. Each stream's winner words, columns and flags once, and
-// for each growing row its K slots (5 bytes a slot) and the random words
-// of its valid candidates; the outputs once. At the bench (B=256, L=88,
-// Wc=128, K=64) about 11 MB, 3.3 us at the H100's 3.35 TB/s; at the 16K
-// tuned caps (B=64, L=336, Wc=384) about 26 MB, 7.8 us. The selection
-// is a few integer operations a key.
+// for each growing row its K slots (syn and activity: 5 bytes a slot at
+// u8) and the random words of its valid candidates; the outputs once.
+// At the bench (B=256, L=88, Wc=128, K=64) about 11 MB, 3.3 us at the
+// H100's 3.35 TB/s; at the 16K tuned caps (B=64, L=336, Wc=384) about
+// 26 MB, 7.8 us. The selection is a few integer operations a key.
 //
 // What held the kernel it replaces back (PERF.md section 6, measured by
 // scripts/grow_variants.py: copies of the source with one stage cut, in
@@ -270,6 +284,16 @@ __device__ __forceinline__ void lower_bounds(const int* list, int n, int top,
   }
 }
 
+// Whether value k of an activity row of ebytes-byte values is not 0 (the
+// bits below the sign: -0.0 reads as 0).
+__device__ __forceinline__ bool act_nz(const uint8_t* act_r, int k,
+                                       int ebytes) {
+  if (ebytes == 1) return act_r[k] != 0;
+  if (ebytes == 2)
+    return (reinterpret_cast<const uint16_t*>(act_r)[k] & 0x7fffu) != 0;
+  return (reinterpret_cast<const uint32_t*>(act_r)[k] & 0x7fffffffu) != 0;
+}
+
 __device__ __forceinline__ uint32_t hash_cell(int t, int bits) {
   return (static_cast<uint32_t>(t) * 0x9E3779B1u) >> (32 - bits);
 }
@@ -321,34 +345,39 @@ __device__ __forceinline__ int strike(uint32_t* keys, int i, uint32_t guess,
 
 // One growing row: its keys (in keys[0, n_cand)), its targets struck out,
 // its selection into out; returns n_chosen. The row's first 128 slots are
-// read once, their targets searched while its random words are in flight.
+// read once, their targets searched while its random words are in flight;
+// an empty row (a new segment's) reads none. all_live: every live slot
+// is a target (samp >= K on updated rows), else the first samp active
+// live slots.
 template <bool kCell, bool kSmem>
-__device__ int grow_row(const int* syn_r, const uint8_t* act_r,
-                        const int* rnd_r, const int* list,
-                        const uint32_t* table, int hash_bits, uint32_t* keys,
-                        int n_cand, int K, int samp, int cap_grow, int cap,
-                        int bits, bool vec, int* out, int lane) {
+__device__ int grow_row(const int* syn_r, const uint8_t* act_r, int ebytes,
+                        bool empty, bool all_live, const int* rnd_r,
+                        const int* list, const uint32_t* table,
+                        int hash_bits, uint32_t* keys, int n_cand, int K,
+                        int samp, int cap_grow, int cap, int bits, bool vec,
+                        int* out, int lane) {
   if constexpr (kSmem) fetch_rnd(keys, rnd_r, n_cand, vec, lane);
-  // existing targets: every live slot's cell where samp >= K, else the
-  // first samp active live slots' (ranked by ballot)
+  const int Kr = empty ? 0 : K;  // the slots read
+  // existing targets: every live slot's cell (all_live), else the first
+  // samp active live slots' (ranked by ballot)
   const unsigned below = (1u << lane) - 1u;
   int s[4], pos[4], ranked = 0;
   bool target[4];
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int k = 32 * u + lane;
-    s[u] = k < K ? syn_r[k] : -1;
-    const bool av = k < K && act_r[k] != 0 && s[u] >= 0;
+    s[u] = k < Kr ? syn_r[k] : -1;
+    const bool av = k < Kr && act_nz(act_r, k, ebytes) && s[u] >= 0;
     const unsigned ballot = __ballot_sync(kFull, av);
     const int rank = ranked + __popc(ballot & below);
-    target[u] = s[u] >= 0 && (samp >= K || (av && rank < samp));
+    target[u] = s[u] >= 0 && (all_live || (av && rank < samp));
     ranked += __popc(ballot);
   }
   const int ranked128 = ranked;
-  for (int k0 = 128; k0 < K; k0 += 32) {
+  for (int k0 = 128; k0 < Kr; k0 += 32) {
     const int k = k0 + lane;
     ranked += __popc(__ballot_sync(
-        kFull, k < K && act_r[k] != 0 && syn_r[k] >= 0));
+        kFull, k < Kr && act_nz(act_r, k, ebytes) && syn_r[k] >= 0));
   }
   const int n_grow = min(max(samp - ranked, 0), cap_grow);
   if (n_grow == 0 || n_cand == 0) {
@@ -403,13 +432,13 @@ __device__ int grow_row(const int* syn_r, const uint8_t* act_r,
   for (int u = 0; u < 4; ++u)
     if (pos[u] >= 0) struck += strike(keys, pos[u], guess, c_guess);
   ranked = ranked128;
-  for (int k0 = 128; k0 < K; k0 += 32) {  // slots past 128, searched alone
+  for (int k0 = 128; k0 < Kr; k0 += 32) {  // slots past 128, searched alone
     const int k = k0 + lane;
-    const int t = k < K ? syn_r[k] : -1;
-    const bool av = k < K && act_r[k] != 0 && t >= 0;
+    const int t = k < Kr ? syn_r[k] : -1;
+    const bool av = k < Kr && act_nz(act_r, k, ebytes) && t >= 0;
     const unsigned ballot = __ballot_sync(kFull, av);
     const int rank = ranked + __popc(ballot & below);
-    if (t >= 0 && (samp >= K || (av && rank < samp))) {
+    if (t >= 0 && (all_live || (av && rank < samp))) {
       const int i = find_cell(list, table, hash_bits, n_cand, t);
       if (i >= 0) struck += strike(keys, i, guess, c_guess);
     }
@@ -425,10 +454,12 @@ __device__ int grow_row(const int* syn_r, const uint8_t* act_r,
 template <bool kCell, bool kSmem>
 __global__ void __launch_bounds__(kWarps * 32) grow_select_kernel(
     const int* __restrict__ syn, const uint8_t* __restrict__ act,
-    const uint8_t* __restrict__ learn, const int* __restrict__ cols,
-    const int* __restrict__ bits, const int* __restrict__ rnd,
-    int* __restrict__ chosen, int* __restrict__ n_chosen, int* lidx,
-    uint8_t* __restrict__ lvalid, int* cand, int* __restrict__ counts,
+    int ebytes, const int* __restrict__ row_cols, int Ct, int G,
+    const uint8_t* __restrict__ fresh, const uint8_t* __restrict__ learn,
+    const int* __restrict__ cols, const int* __restrict__ bits,
+    const int* __restrict__ rnd, int* __restrict__ chosen,
+    int* __restrict__ n_chosen, int* lidx, uint8_t* __restrict__ lvalid,
+    int* __restrict__ lpos, int* cand, int* __restrict__ counts,
     uint32_t* __restrict__ scratch, int B, int R, int K, int A, int D,
     int L, int Wc, int samp, int kk, int key_bits, int rows_per_block,
     int groups, int vec, int hash_bits) {
@@ -499,6 +530,16 @@ __global__ void __launch_bounds__(kWarps * 32) grow_select_kernel(
         (uint64_t)__popc(f) | ((uint64_t)in_d << 12) | ((uint64_t)all << 32),
         scan, total);
     int rank = n_learn + (int)(pre & 0xfff);
+    if (group == 0) {  // every row's place in the list, or -1
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (f0 + j < R) {
+          const int at = rank + __popc(f & ((1u << j) - 1u));
+          lpos[(long long)b * R + f0 + j] =
+              (f >> j) & 1u && at < L ? at : -1;
+        }
+      }
+    }
     for (; f; f &= f - 1, ++rank) {
       if (rank >= row0 && rank < row_end) {
         const int slot = f0 + __ffs(f) - 1;
@@ -565,9 +606,14 @@ __global__ void __launch_bounds__(kWarps * 32) grow_select_kernel(
       int* out = chosen + row * kk;
       int m = 0;
       if (r < R && cap_grow > 0) {
-        const long long slot = ((long long)b * R + r) * K;
+        // row r = a*G + g: segment g of its column in the tables
+        const int a = r / G, g = r - a * G;
+        const int col = row_cols ? row_cols[(long long)b * (R / G) + a] : a;
+        const long long slot = (((long long)b * Ct + col) * G + g) * K;
         m = grow_row<kCell, kSmem>(
-            syn + slot, act + slot, rnd + row * Wc, list, table, hash_bits,
+            syn + slot, act + slot * ebytes, ebytes,
+            fresh && fresh[(long long)b * R + r], samp >= K && !fresh,
+            rnd + row * Wc, list, table, hash_bits,
             kSmem ? keys_s : scratch + row * Wc, n_cand, K, samp, cap_grow,
             cap, key_bits, vec != 0, out, lane);
       }
@@ -586,12 +632,13 @@ int smem_warps(int Wc) {
 }
 
 template <bool kCell, bool kSmem>
-int launch(const int* syn, const uint8_t* act, const uint8_t* learn,
-           const int* cols, const int* bits, const int* rnd, int* chosen,
-           int* n_chosen, int* lidx, uint8_t* lvalid, int* cand,
-           int* counts, uint32_t* scratch, int B, int R, int K, int A,
-           int D, int L, int Wc, int samp, int kk, int key_bits,
-           cudaStream_t stream) {
+int launch(const int* syn, const uint8_t* act, int ebytes,
+           const int* row_cols, int Ct, int G, const uint8_t* fresh,
+           const uint8_t* learn, const int* cols, const int* bits,
+           const int* rnd, int* chosen, int* n_chosen, int* lidx,
+           uint8_t* lvalid, int* lpos, int* cand, int* counts,
+           uint32_t* scratch, int B, int R, int K, int A, int D, int L,
+           int Wc, int samp, int kk, int key_bits, cudaStream_t stream) {
   const int nw = kSmem ? smem_warps(Wc) : kWarps;
   if (nw < 1) return (int)cudaErrorInvalidValue;
   auto kernel = grow_select_kernel<kCell, kSmem>;
@@ -640,33 +687,43 @@ int launch(const int* syn, const uint8_t* act, const uint8_t* learn,
   const int vec = Wc % 4 == 0 && reinterpret_cast<uintptr_t>(rnd) % 16 == 0;
   if (int err = bithtm::allow_shared(kernel, smem)) return err;
   kernel<<<(unsigned)blocks, nw * 32, smem, stream>>>(
-      syn, act, learn, cols, bits, rnd, chosen, n_chosen, lidx, lvalid, cand,
-      counts, scratch, B, R, K, A, D, L, Wc, samp, kk, key_bits, rows, groups,
-      vec, hash_bits);
+      syn, act, ebytes, row_cols, Ct, G, fresh, learn, cols, bits, rnd,
+      chosen, n_chosen, lidx, lvalid, lpos, cand, counts, scratch, B, R, K, A,
+      D, L, Wc, samp, kk, key_bits, rows, groups, vec, hash_bits);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// syn (B, R, K) int32 and act (B, R, K) bool rows; learn (B, R) bool, the
-// learning flags; cols (B, A) int32 and bits (B, A, ceil(D/32)) int32, the
+// syn (B, Ct, G*K) int32 and act (B, Ct, G*K) activity tables of
+// act_bytes bytes a value (1: bool or u8, 2: bf16, 4: float32); row_cols
+// (B, R/G) int32, the column of each of the R = (R/G)*G rows' group, or
+// null for tables of gathered rows (Ct = R/G); fresh (B, R) bool, the
+// rows that read as empty, given where the rows are read before the
+// step's learning pass, or null; learn (B, R) bool, the learning
+// flags; cols (B, A) int32 and bits (B, A, ceil(D/32)) int32, the
 // previous active columns and winner words; rnd (B, L, Wc) int32 random
 // words -> chosen (B, L, kk) and n_chosen (B, L) int32, kk = min(samp,
-// Wc); lidx (B, L) int32 and lvalid (B, L) bool; cand (B, Wc) int32;
-// counts (4, B) int32. cell_form selects the key form, key_bits its low
-// bits; global_keys the path whose keys live in scratch (B, L, Wc) (else
-// None). Launches on the given stream of the given device, allocates
-// nothing and returns cudaGetLastError() after the launch (0 = success).
-extern "C" int grow_select(const int* syn, const void* act, const void* learn,
+// Wc); lidx (B, L) int32 and lvalid (B, L) bool; lpos (B, R) int32; cand
+// (B, Wc) int32; counts (4, B) int32. cell_form selects the key form,
+// key_bits its low bits; global_keys the path whose keys live in scratch
+// (B, L, Wc) (else None). Launches on the given stream of the given
+// device, allocates nothing and returns cudaGetLastError() after the
+// launch (0 = success).
+extern "C" int grow_select(const int* syn, const void* act, int act_bytes,
+                           const int* row_cols, int Ct, int G,
+                           const void* fresh, const void* learn,
                            const int* cols, const int* bits, const int* rnd,
                            int* chosen, int* n_chosen, int* lidx,
-                           void* lvalid, int* cand, int* counts,
+                           void* lvalid, int* lpos, int* cand, int* counts,
                            void* scratch, int B, int R, int K, int A, int D,
                            int L, int Wc, int samp, int key_bits,
                            int cell_form, int global_keys, int device,
                            void* stream) {
   if (B < 0 || R < 1 || K < 1 || A < 0 || D < 1 || L < 0 || Wc < 1 ||
       samp < 1 || key_bits < 1 || key_bits + (cell_form ? 1 : 2) > 31 ||
+      G < 1 || R % G || Ct < 1 || (!row_cols && Ct != R / G) ||
+      (act_bytes != 1 && act_bytes != 2 && act_bytes != 4) ||
       (global_keys && !scratch) || (!global_keys && smem_warps(Wc) < 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
@@ -675,14 +732,16 @@ extern "C" int grow_select(const int* syn, const void* act, const void* learn,
   if (int err = guard.error()) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* a = static_cast<const uint8_t*>(act);
+  const uint8_t* fr = static_cast<const uint8_t*>(fresh);
   const uint8_t* lf = static_cast<const uint8_t*>(learn);
   uint8_t* lv = static_cast<uint8_t*>(lvalid);
   uint32_t* sc = static_cast<uint32_t*>(scratch);
   return bithtm::with_bool(cell_form != 0, [&](auto cell) {
     return bithtm::with_bool(global_keys == 0, [&](auto in_smem) {
       return launch<decltype(cell)::value, decltype(in_smem)::value>(
-          syn, a, lf, cols, bits, rnd, chosen, n_chosen, lidx, lv, cand,
-          counts, sc, B, R, K, A, D, L, Wc, samp, kk, key_bits, s);
+          syn, a, act_bytes, row_cols, Ct, G, fr, lf, cols, bits, rnd,
+          chosen, n_chosen, lidx, lv, lpos, cand, counts, sc, B, R, K, A, D,
+          L, Wc, samp, kk, key_bits, s);
     });
   });
 }

@@ -61,11 +61,11 @@ from ..ops.active_set import (
     prediction_dense,
     prediction_words,
     rank_ascending,
-    seg_counts_packed,
+    seg_counts_flags,
     seg_counts_packed_rows,
     synapse_activation_conn,
     synapse_activation_frozen,
-    table_update,
+    table_update_words,
     take_percell,
     take_small_table,
     unpack_bits,
@@ -137,22 +137,15 @@ def _dense(cols: torch.Tensor, rows: torch.Tensor,
     return _put_rows(out, cols, rows)
 
 
-def _winner_selection(cfg: TMConfig, take, draws: Draws, active_cols,
-                      pred_rows):
-    """Steps 1-2 in active-column space (`temporal_memory.py:106-161`);
-    ``take(leaf)`` gives a C-indexed state leaf's rows at the active
-    columns. Returns (col_burst (B, A), winner_rows (B, A, D), cell_max_j
-    (B, A, D), seg_j (B, A, G))."""
-    D, G, K = cfg.cell_dim, cfg.segments_per_column, cfg.synapse_capacity
-    B, A = active_cols.shape
+def _winner_selection(cfg: TMConfig, draws: Draws, pred_rows, pot_rows,
+                      segcell_rows):
+    """Steps 1-2 in active-column space (`temporal_memory.py:106-161`),
+    from the (B, A, G) potential of the active rows (`row_counts`) and
+    their owner cells. Returns (col_burst (B, A), winner_rows (B, A, D),
+    cell_max_j (B, A, D), seg_j (B, A, G))."""
+    D = cfg.cell_dim
     col_burst = ~pred_rows.any(-1)
-
-    # per-segment potential at the active rows, re-derived from the
-    # activity the previous forward pass cached (the table is unchanged)
-    pot_rows, _ = seg_counts_packed_rows(
-        take("synapse_act").reshape(B, A, G, K), K)
     match_rows = pot_rows >= cfg.segment_matching_threshold
-    segcell_rows = take("seg_cell")
 
     # jittered best matching segment per cell (networks.py:73-82)
     seg_j = torch.where(match_rows,
@@ -173,18 +166,18 @@ def _winner_selection(cfg: TMConfig, take, draws: Draws, active_cols,
     return col_burst, winner_rows, cell_max_j, seg_j
 
 
-def _allocate(cfg: TMConfig, segcell_rows, syn_rows, match_rows, unacc):
+def _allocate(cfg: TMConfig, segcell_rows, syn_count, match_rows, unacc):
     """Segment allocation for unaccounted winner cells, by deterministic
     rank pairing (`temporal_memory.py:164-218`): eligible slots ordered
     recyclable-allocated, then unallocated, then (policy "evict") mature
-    non-matching slots by ascending live count; the i-th unaccounted cell
-    takes the i-th slot. Returns (new_seg (B, A, G), new_owner
-    (B, A, G), n_dropped (B,), n_evicted (B,))."""
+    non-matching slots by ascending live count ``syn_count`` (B, A, G),
+    the live slots after the stale cleanup (`row_counts`); the i-th
+    unaccounted cell takes the i-th slot. Returns (new_seg (B, A, G),
+    new_owner (B, A, G), n_dropped (B,), n_evicted (B,))."""
     D, G = cfg.cell_dim, cfg.segments_per_column
-    syn_count = (syn_rows >= 0).sum(-1, dtype=torch.int32)      # (B, A, G)
     recyclable = syn_count < cfg.segment_matching_threshold
     unallocated = segcell_rows >= D
-    g = torch.arange(G, dtype=torch.int32, device=syn_rows.device)
+    g = torch.arange(G, dtype=torch.int32, device=syn_count.device)
     key = g + G * unallocated.to(torch.int32)
     if cfg.allocation_policy == "evict":
         evictable = ~match_rows & ~recyclable
@@ -203,7 +196,7 @@ def _allocate(cfg: TMConfig, segcell_rows, syn_rows, match_rows, unacc):
     assign = (eligible[..., :, None] & unacc[..., None, :]
               & (elig_rank[..., :, None] == un_rank[..., None, :]))
     new_seg = assign.any(-1)
-    d = torch.arange(D, dtype=torch.int32, device=syn_rows.device)
+    d = torch.arange(D, dtype=torch.int32, device=syn_count.device)
     new_owner = (assign * d).sum(-1, dtype=torch.int32)
     n_dropped = (unacc.sum((1, 2), dtype=torch.int32)
                  - assign.sum((1, 2, 3), dtype=torch.int32))
@@ -286,12 +279,14 @@ def growth_key_form(n_cells: int, Wc: int) -> tuple[bool, int]:
 
 def growth_keys_ref(syn_rows, act_rows, lidx, lvalid, cand_cell,
                     cand_valid, n_winners_eff, rnd, samp: int,
-                    key_bits: int, cell_form: bool):
+                    key_bits: int, cell_form: bool, raw: bool = False):
     """The packed growth keys of `grow_select_ref` (JAX `_grow`,
     `temporal_memory.py:350-498`): per growing row, the (B, L, Wc) keys
     (int64 in the cell form, int32 in the index form), which of them are
     valid (in the list and not already a target of the row) and the
-    row's n_grow (B, L). Arguments as `grow_select_ref`'s."""
+    row's n_grow (B, L). Arguments as `grow_select_ref`'s; ``raw``: the
+    rows are read before the learning pass, so the existing targets are
+    the active live slots whatever samp."""
     B, R, K = syn_rows.shape
     L, Wc = lidx.shape[-1], cand_cell.shape[-1]
     take = lidx.long().clamp(max=R - 1)[..., None].expand(B, L, K)
@@ -308,7 +303,7 @@ def growth_keys_ref(syn_rows, act_rows, lidx, lvalid, cand_cell,
     # existing targets: only active live synapses can target a candidate,
     # and only rows with potential < samp grow, so the first samp active
     # targets suffice (temporal_memory.py:425-449)
-    if samp < K:
+    if samp < K or raw:
         act_valid = act_l & live_l
         r_act = rank_ascending(act_valid)
         r_act = torch.where(act_valid & (r_act < samp), r_act, samp)
@@ -333,20 +328,22 @@ def growth_keys_ref(syn_rows, act_rows, lidx, lvalid, cand_cell,
 
 
 class GrowSelection(NamedTuple):
-    """What `grow_select` gives `_grow`: the selection (chosen (B, L, kk)
-    int32, kk = min(samp, Wc): the cells, or the index-form keys, of each
-    row's n_chosen smallest keys, ascending, defined up to n_chosen (B, L)
-    int32), the lists it selected from (lidx (B, L) int32, the growing
-    rows' slot ids, the row count R past the valid ones; lvalid (B, L)
-    bool; cand_cell (B, Wc) int32, the candidates, 0 past the valid ones)
-    and counts (4, B) int32: 0 and 0 (`grow_fill` adds the slots grown
-    and the overflow), the winners past Wc and the growing rows past
-    L."""
+    """What `grow_select` gives `learn_rows`: the selection (chosen (B,
+    L, kk) int32, kk = min(samp, Wc): the cells, or the index-form keys,
+    of each row's n_chosen smallest keys, ascending, defined up to
+    n_chosen (B, L) int32), the lists it selected from (lidx (B, L)
+    int32, the growing rows' slot ids, the row count R past the valid
+    ones; lvalid (B, L) bool; lpos (B, R) int32, each row's place in the
+    list, -1 where it has none; cand_cell (B, Wc) int32, the candidates,
+    0 past the valid ones) and counts (4, B) int32: 0 and 0 (`learn_rows`
+    adds the slots grown and the overflow), the winners past Wc and the
+    growing rows past L."""
 
     chosen: torch.Tensor
     n_chosen: torch.Tensor
     lidx: torch.Tensor
     lvalid: torch.Tensor
+    lpos: torch.Tensor
     cand_cell: torch.Tensor
     counts: torch.Tensor
 
@@ -355,21 +352,48 @@ class GrowSelection(NamedTuple):
 N_GROWN, OVERFLOW, WINNERS_DROPPED, GROWTH_DROPPED = range(4)
 
 
+def _active_rows(table: torch.Tensor, cols, R: int) -> torch.Tensor:
+    """The R = A*G active rows (B, R, K) of a (B, Ct, G*K) table: at the
+    (B, A) columns ``cols``, or the table's own rows where ``cols`` is
+    None (gathered rows, Ct = A)."""
+    rows = table if cols is None else _rows(table, cols)
+    return rows.reshape(rows.shape[0], R, -1)
+
+
 def grow_select_ref(syn_rows, act_rows, learn_rows, prev_cols,
                     prev_winner_bits, rnd, cell_dim: int, samp: int,
-                    key_bits: int, cell_form: bool) -> GrowSelection:
+                    key_bits: int, cell_form: bool, row_cols=None,
+                    new_seg=None) -> GrowSelection:
     """Plain version of the `grow_select` kernel, `_grow` up to its fill:
-    for (B, R, K) synapse rows ``syn_rows`` (int32, -1 free) and their bool
-    activity ``act_rows``, the (B, R) bool learning flags ``learn_rows``,
-    the (B, A) previous active columns ``prev_cols`` (ascending) and their
-    (B, A, W) int32 winner words, and (B, L, Wc) int32 random words
-    ``rnd``: the candidate list (the first Wc previous winner cells,
-    ascending), the growing rows (the first L learning flags) and, for
-    each, n_grow = clip(samp - active potential, 0, min(samp, n_winners
-    capped at Wc)) candidates it does not already target, the n_grow
-    smallest by packed key (``cell_form`` with ``key_bits`` cell bits,
-    else the index form). Returns `GrowSelection`."""
-    B, R, _ = syn_rows.shape
+    for the R active rows of a (B, Ct, J) synapse table ``syn_rows``
+    (int32, -1 free) and its activity ``act_rows`` (bool or the packed
+    activity; nonzero = active), at the (B, R/G) columns ``row_cols`` or
+    the table's own rows where it is None (a (B, R, K) table of rows),
+    the rows of ``new_seg`` (B, R) read as empty, the (B, R) bool learning
+    flags ``learn_rows``, the (B, A) previous active columns
+    ``prev_cols`` (ascending) and their (B, A, W) int32 winner words, and
+    (B, L, Wc) int32 random words ``rnd``: the candidate list (the first
+    Wc previous winner cells, ascending), the growing rows (the first L
+    learning flags) and, for each, n_grow = clip(samp - active potential,
+    0, min(samp, n_winners capped at Wc)) candidates it does not already
+    target, the n_grow smallest by packed key (``cell_form`` with
+    ``key_bits`` cell bits, else the index form). Returns
+    `GrowSelection`.
+
+    With ``new_seg`` the rows are the table's before the step's stale
+    cleanup and death: those change only slots with no activity (a stale
+    slot's activity is 0, and death follows a decrement, which only an
+    inactive slot takes), and only active live slots count here: where
+    samp >= K, where JAX counts every live slot as a target, too, since
+    every live slot that targets a candidate (a previous active cell) is
+    active in the activity computed on the same table."""
+    R = learn_rows.shape[1]
+    syn_rows = _active_rows(syn_rows, row_cols, R)
+    act_rows = _active_rows(act_rows, row_cols, R) != 0
+    if new_seg is not None:
+        syn_rows = torch.where(new_seg[..., None], -1, syn_rows)
+        act_rows = act_rows & ~new_seg[..., None]
+    B = syn_rows.shape[0]
     A = prev_cols.shape[1]
     L, Wc = rnd.shape[1:]
     D, dev = cell_dim, syn_rows.device
@@ -383,9 +407,12 @@ def grow_select_ref(syn_rows, act_rows, learn_rows, prev_cols,
     slots = torch.arange(R, dtype=torch.int32, device=dev).expand(B, R)
     lidx, lvalid = compact_first_k(learn_rows, slots, L)
     lidx = torch.where(lvalid, lidx, R)
+    rank = rank_ascending(learn_rows)
+    lpos = torch.where(learn_rows & (rank < L), rank, -1)
     pkey, valid, n_grow = growth_keys_ref(
         syn_rows, act_rows, lidx, lvalid, cand_cell, cand_valid,
-        n_winners_eff, rnd, samp, key_bits, cell_form)
+        n_winners_eff, rnd, samp, key_bits, cell_form,
+        raw=new_seg is not None)
     chosen, n_chosen = _select_keys(pkey, valid, n_grow, samp,
                                     not cell_form)
     if cell_form:
@@ -395,18 +422,19 @@ def grow_select_ref(syn_rows, act_rows, learn_rows, prev_cols,
         zero, zero, n_winners - n_winners_eff,
         learn_rows.sum(-1, dtype=torch.int32)
         - lvalid.sum(-1, dtype=torch.int32)])
-    return GrowSelection(chosen, n_chosen, lidx, lvalid,
+    return GrowSelection(chosen, n_chosen, lidx, lvalid, lpos,
                          cand_cell.contiguous(), counts)
 
 
 def grow_select(syn_rows, act_rows, learn_rows, prev_cols,
                 prev_winner_bits, rnd, cell_dim: int, samp: int,
-                key_bits: int, cell_form: bool) -> GrowSelection:
+                key_bits: int, cell_form: bool, row_cols=None,
+                new_seg=None) -> GrowSelection:
     """`_grow`'s lists and selection: the `grow_select` kernel for CUDA
     tensors, the plain version for CPU tensors (arguments and results as
     `grow_select_ref`'s; chosen is defined up to n_chosen)."""
     args = (syn_rows, act_rows, learn_rows, prev_cols, prev_winner_bits,
-            rnd, cell_dim, samp, key_bits, cell_form)
+            rnd, cell_dim, samp, key_bits, cell_form, row_cols, new_seg)
     if _on_device("grow_select", syn_rows) == "cuda":
         from ..ops.kernels import grow_select_cuda
 
@@ -414,115 +442,129 @@ def grow_select(syn_rows, act_rows, learn_rows, prev_cols,
     return grow_select_ref(*args)
 
 
-def grow_fill_ref(syn_rows, perm_rows, lidx, lvalid, chosen, n_chosen,
-                  counts, permanence_initial: float) -> torch.Tensor:
-    """Plain version of the `grow_fill` kernel, `_grow`'s fill: slot k of
-    growing row l (``lidx``, ``lvalid``) takes chosen[l, free_rank[k]]
-    where the row is valid, the slot is free (``syn_rows`` < 0) and
-    free_rank[k] < n_chosen[l]; those slots of the (B, R, K) ``syn_rows`` and
-    ``perm_rows`` are written in place (the cell, ``permanence_initial``),
-    and rows `N_GROWN` and `OVERFLOW` of ``counts`` gain the slots
-    written and sum(max(n_chosen - free slots, 0)) over the valid rows.
-    Returns the (B, R, K) bool mask of the slots written."""
-    B, R, K = syn_rows.shape
-    L = lidx.shape[1]
-    lidx = lidx.long()
-    take = lidx.clamp(max=R - 1)[..., None].expand(B, L, K)      # clipped
-    free = syn_rows.gather(1, take) < 0
-    gathered, wrote_l = _fill(chosen, n_chosen, free)
-    wrote_l &= lvalid[..., None]
-    # invalid rows land in a padding row that is sliced off
-    idx = lidx[..., None].expand(B, L, K)
-    wrote = syn_rows.new_zeros((B, R + 1, K), dtype=torch.bool).scatter_(
-        1, idx, wrote_l)[:, :R]
-    cells = syn_rows.new_zeros((B, R + 1, K)).scatter_(
-        1, idx, gathered)[:, :R]
-    syn_rows.copy_(torch.where(wrote, cells, syn_rows))
-    perm_rows.masked_fill_(wrote, permanence_initial)
-    n_free = free.sum(-1, dtype=torch.int32)
-    counts[N_GROWN] += wrote_l.sum((1, 2), dtype=torch.int32)
-    counts[OVERFLOW] += (torch.clamp(n_chosen - n_free, min=0)
-                         * lvalid).sum(-1, dtype=torch.int32)
-    return wrote.contiguous()
+def row_counts_ref(syn, perm, act, cols, num_segments: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the `row_counts` kernel: the (B, A, G) int32
+    counts of the active rows of the (B, Ct, G*K) synapse tables (syn,
+    perm and the packed activity act) at the (B, A) columns ``cols``, or
+    of gathered rows (``cols`` None, Ct = A): the potential and connected
+    counts (the exact decode of the activity, `seg_counts_packed_rows`)
+    and the live count, the slots with syn >= 0 and not perm < 0 (those
+    live after the stale cleanup). Returns (potential, connected,
+    live)."""
+    B, Ct = syn.shape[:2]
+    A = Ct if cols is None else cols.shape[1]
+    R = A * num_segments
+    syn_r, perm_r, act_r = (_active_rows(t, cols, R).reshape(
+        B, A, num_segments, -1) for t in (syn, perm, act))
+    potential, connected = seg_counts_packed_rows(act_r, act_r.shape[-1])
+    live = ((syn_r >= 0) & ~(perm_r < 0.0)).sum(-1, dtype=torch.int32)
+    return potential, connected, live
 
 
-def grow_fill(syn_rows, perm_rows, lidx, lvalid, chosen, n_chosen, counts,
-              permanence_initial: float) -> torch.Tensor:
-    """`_grow`'s fill: the `grow_fill` kernel for CUDA tensors, the plain
-    version for CPU tensors (arguments and results as
-    `grow_fill_ref`'s)."""
-    args = (syn_rows, perm_rows, lidx, lvalid, chosen, n_chosen, counts,
-            permanence_initial)
-    if _on_device("grow_fill", syn_rows) == "cuda":
-        from ..ops.kernels import grow_fill_cuda
+def row_counts(syn, perm, act, cols, num_segments: int
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The active rows' (potential, connected, live) counts: the
+    `row_counts` kernel for CUDA tensors, the plain version for CPU
+    tensors (arguments and results as `row_counts_ref`'s)."""
+    if _on_device("row_counts", syn) == "cuda":
+        from ..ops.kernels import row_counts_cuda
 
-        return grow_fill_cuda(*args)
-    return grow_fill_ref(*args)
+        return row_counts_cuda(syn, perm, act, cols, num_segments)
+    return row_counts_ref(syn, perm, act, cols, num_segments)
 
 
-def _grow(cfg: TMConfig, rnd, syn_rows, perm_rows, learn_rows,
-          act_prev_rows, prev_cols, prev_winner_bits):
-    """Synapse growth toward the previous winner cells
-    (`temporal_memory.py:350-498`, `projections.py:111-161`): each
-    learning segment grows clip(samp - active potential, 0,
-    min(samp, n_winners)) random candidates that it does not already
-    target, into its free slots. `grow_select` builds the candidate list
-    and the L-wide list of growing segments and picks each row's
-    candidates, `take_small_table` decodes the index-form keys (above
-    2^16 cells) and `grow_fill` writes them into the free slots, as JAX's
-    `_grow` compacts and `_select_and_fill` selects, decodes and fills.
-    ``syn_rows`` and ``perm_rows`` (B, A, G, K) are updated in place.
-    Returns (syn_rows, perm_rows, wrote (B, A, G, K) the slots grown,
-    n_grown, overflow, n_winners_dropped, n_growth_dropped), counts
-    (B,)."""
-    C, D, G, K = (cfg.column_dim, cfg.cell_dim, cfg.segments_per_column,
-                  cfg.synapse_capacity)
-    B, A = prev_cols.shape
-    syn_flat = syn_rows.reshape(B, A * G, K)
-    perm_flat = perm_rows.reshape(B, A * G, K)
-    cell_form, key_bits = growth_key_form(C * D, rnd.shape[-1])
-    sel = grow_select(syn_flat, act_prev_rows.reshape(B, A * G, K),
-                      learn_rows.reshape(B, A * G), prev_cols,
-                      prev_winner_bits, rnd, D,
-                      cfg.segment_sampling_synapses, key_bits, cell_form)
-    chosen = sel.chosen
-    if not cell_form:
-        # the index-form keys -> cells, in place
-        chosen = take_small_table(sel.cand_cell, chosen,
-                                  (1 << key_bits) - 1, in_place=True)
-    wrote = grow_fill(syn_flat, perm_flat, sel.lidx, sel.lvalid, chosen,
-                      sel.n_chosen, sel.counts, cfg.permanence_initial)
-    shape = (B, A, G, K)
-    return (syn_flat.view(shape), perm_flat.view(shape), wrote.view(shape),
-            *sel.counts)
+def learn_rows_ref(syn, perm, act, cols, learn, new_seg, lpos, chosen,
+                   n_chosen, counts, increment: float, decrement: float,
+                   permanence_initial: float, want_mask: bool = False):
+    """Plain version of the `learn_rows` kernel: the learning pass over
+    the R = A*G active rows of the (B, Ct, G*K) synapse tables ``syn``
+    (int32) and ``perm`` (float32), updated in place, at the (B, A)
+    columns ``cols`` or of gathered rows (``cols`` None, Ct = A), with
+    the packed activity ``act`` of the same rows (`_learn`, JAX
+    `temporal_memory.py:501-643`): the stale slots (perm < 0) and the
+    rows of ``new_seg`` (B, R) emptied to (-1, -1.0); perm += (learn &
+    syn >= 0) * (act != 0 ? increment : -decrement), a float32 add of
+    delta or of +-0.0 on every row; live slots with perm < 0 killed; then
+    `_grow`'s fill: slot k of the row at list place l = ``lpos`` (B, R)
+    (-1: none) takes chosen[l, free_rank[k]] where the slot is free and
+    free_rank[k] < n_chosen[l], at ``permanence_initial``, and rows
+    `N_GROWN` and `OVERFLOW` of ``counts`` gain the slots written and
+    sum(max(n_chosen - free slots, 0)). Returns the (B, R, K) bool mask
+    of the slots grown with ``want_mask``, else None."""
+    B, Ct, J = syn.shape
+    R = learn.shape[1]
+    A = Ct if cols is None else cols.shape[1]
+    syn_r, perm_r = (_active_rows(t, cols, R) for t in (syn, perm))
+    act_r = _active_rows(act, cols, R) != 0
+    empty = (perm_r < 0.0) | new_seg[..., None]
+    syn_r = torch.where(empty, -1, syn_r)
+    perm_r = torch.where(empty, -1.0, perm_r)
+    live = syn_r >= 0
+    delta = torch.where(act_r, increment, -decrement).to(torch.float32)
+    perm_r = perm_r + (learn[..., None] & live) * delta
+    dead = live & (perm_r < 0.0)
+    syn_r = torch.where(dead, -1, syn_r)
+    perm_r = torch.where(dead, -1.0, perm_r)
+
+    free = syn_r < 0
+    at = lpos.clamp(min=0).long()
+    cells = chosen.gather(1, at[..., None].expand(B, R, chosen.shape[-1]))
+    n = torch.where(lpos >= 0, n_chosen.gather(1, at), 0)
+    gathered, wrote = _fill(cells, n, free)
+    syn_r = torch.where(wrote, gathered, syn_r)
+    perm_r = perm_r.masked_fill(wrote, permanence_initial)
+    counts[N_GROWN] += wrote.sum((1, 2), dtype=torch.int32)
+    counts[OVERFLOW] += torch.clamp(
+        n - free.sum(-1, dtype=torch.int32), min=0).sum(-1,
+                                                         dtype=torch.int32)
+    if cols is None:
+        syn.copy_(syn_r.reshape(B, Ct, J))
+        perm.copy_(perm_r.reshape(B, Ct, J))
+    else:
+        _put_rows(syn, cols, syn_r.reshape(B, A, J))
+        _put_rows(perm, cols, perm_r.reshape(B, A, J))
+    return wrote if want_mask else None
 
 
-def _learn(cfg: TMConfig, state: TMState, take, put, draws: Draws,
+def learn_rows(syn, perm, act, cols, learn, new_seg, lpos, chosen, n_chosen,
+               counts, increment: float, decrement: float,
+               permanence_initial: float, want_mask: bool = False):
+    """The learning pass over the active rows, in place: the `learn_rows`
+    kernel for CUDA tensors, the plain version for CPU tensors (arguments
+    and results as `learn_rows_ref`'s)."""
+    args = (syn, perm, act, cols, learn, new_seg, lpos, chosen, n_chosen,
+            counts, increment, decrement, permanence_initial, want_mask)
+    if _on_device("learn_rows", syn) == "cuda":
+        from ..ops.kernels import learn_rows_cuda
+
+        return learn_rows_cuda(*args)
+    return learn_rows_ref(*args)
+
+
+def _learn(cfg: TMConfig, state: TMState, tables, put, draws: Draws,
            active_cols, pred_rows, winner_rows, cell_max_j, seg_j,
+           pot_rows, conn_rows, syn_count, segcell_rows,
            return_debug: bool = False):
     """Step 3 minus punishment, in active-column row space
     (`temporal_memory.py:501-643`, `projections.py:257-293`). A no-op on
-    step 0 (`projections.py:258-259`). ``take(leaf)`` gives a C-indexed
-    leaf's rows at the active columns, ``put(table, cols, rows)`` writes
-    rows back in place. Writes the rows back into
-    ``state.synapse_cell`` / ``state.synapse_perm`` in place and returns
-    (seg_cell, metrics, debug): ``debug`` is None unless
-    ``return_debug``, else the (B, C, G) ``learning_segments`` and
-    ``new_segments`` and the (B, C, G, K) ``grown_mask``."""
-    D, G, K = cfg.cell_dim, cfg.segments_per_column, cfg.synapse_capacity
+    step 0 (`projections.py:258-259`). ``tables`` = (syn, perm, act,
+    cols): the state's synapse tables and the active columns, or, under a
+    column shard, the rows gathered from their owners and None, which
+    ``put(table, cols, rows)`` writes back into the state's own tables.
+    ``pot_rows``, ``conn_rows`` and ``syn_count`` are the active rows'
+    `row_counts`, ``segcell_rows`` their owners. The decisions are torch
+    ops; `grow_select` then picks each growing row's candidates from the
+    rows where they lie, and `learn_rows` runs the stale cleanup, the new
+    segments' reset, the permanence update, death and the fill in one
+    pass over the rows, in place. Returns (seg_cell, metrics, debug):
+    ``debug`` is None unless ``return_debug``, else the (B, C, G)
+    ``learning_segments`` and ``new_segments`` and the (B, C, G, K)
+    ``grown_mask``."""
+    C, D, G, K = (cfg.column_dim, cfg.cell_dim, cfg.segments_per_column,
+                  cfg.synapse_capacity)
     B, A = active_cols.shape
     has_prev = (state.step > 0)[:, None, None]
-
-    segcell_rows = take("seg_cell")
-    syn_rows = take("synapse_cell").reshape(B, A, G, K)
-    perm_rows = take("synapse_perm").reshape(B, A, G, K)
-    # slots killed by punishment keep a stale target; clean them here
-    stale = perm_rows < 0.0
-    syn_rows = torch.where(stale, -1, syn_rows)
-    perm_rows = torch.where(stale, -1.0, perm_rows)
-    act_prev_raw = take("synapse_act").reshape(B, A, G, K)
-    act_prev_rows = act_prev_raw != 0
-    pot_rows, conn_rows = seg_counts_packed_rows(act_prev_raw, K)
     match_rows = pot_rows >= cfg.segment_matching_threshold
     active_seg_rows = match_rows & (
         conn_rows >= cfg.segment_activation_threshold)
@@ -531,44 +573,49 @@ def _learn(cfg: TMConfig, state: TMState, take, put, draws: Draws,
     owner_winner = take_percell(winner_rows, segcell_rows, D, False)
     owner_max = take_percell(cell_max_j, segcell_rows, D, 0.0)
     seg_best = match_rows & ((seg_j - owner_max).abs() < cfg.epsilon)
-    learn_rows = (match_rows & owner_winner
-                  & (active_seg_rows | (~owner_pred & seg_best))
-                  & has_prev)
+    learn_rows_ = (match_rows & owner_winner
+                   & (active_seg_rows | (~owner_pred & seg_best))
+                   & has_prev)
 
     # segment allocation for unaccounted winners (recycle first)
     unacc = winner_rows & (cell_max_j < cfg.epsilon) & has_prev
     with site("tm_step._learn/_allocate"):
         new_seg, new_owner, n_dropped, n_evicted = _allocate(
-            cfg, segcell_rows, syn_rows, match_rows, unacc)
+            cfg, segcell_rows, syn_count, match_rows, unacc)
     segcell_rows = torch.where(new_seg, new_owner, segcell_rows)
-    syn_rows = torch.where(new_seg[..., None], -1, syn_rows)
-    perm_rows = torch.where(new_seg[..., None], -1.0, perm_rows)
-    learn_rows = learn_rows | new_seg
+    learn_rows_ = learn_rows_ | new_seg
 
-    # permanence update and death on learning rows
-    live_rows = syn_rows >= 0
-    delta = torch.where(act_prev_rows, cfg.permanence_increment,
-                        -cfg.permanence_decrement).to(torch.float32)
-    perm_rows = perm_rows + (learn_rows[..., None] & live_rows) * delta
-    dead_rows = live_rows & (perm_rows < 0.0)
-    syn_rows = torch.where(dead_rows, -1, syn_rows)
-    perm_rows = torch.where(dead_rows, -1.0, perm_rows)
-
+    syn, perm, act, cols = tables
+    learn_flat = learn_rows_.reshape(B, A * G)
+    new_flat = new_seg.reshape(B, A * G)
     with site("tm_step._learn/_grow"):
-        (syn_rows, perm_rows, wrote, n_grown, overflow, winners_dropped,
-         growth_dropped) = _grow(cfg, draws.rnd, syn_rows, perm_rows,
-                                 learn_rows, act_prev_rows,
-                                 state.active_cols, state.winner_bits)
-
-    # write the rows back (the punishment pass touches only other columns)
-    put(state.synapse_cell, active_cols, syn_rows.reshape(B, A, -1))
-    put(state.synapse_perm, active_cols, perm_rows.reshape(B, A, -1))
+        cell_form, key_bits = growth_key_form(C * D, draws.rnd.shape[-1])
+        sel = grow_select(syn, act, learn_flat, state.active_cols,
+                          state.winner_bits, draws.rnd, D,
+                          cfg.segment_sampling_synapses, key_bits, cell_form,
+                          row_cols=cols, new_seg=new_flat)
+        chosen = sel.chosen
+        if not cell_form:
+            # the index-form keys -> cells, in place
+            chosen = take_small_table(sel.cand_cell, chosen,
+                                      (1 << key_bits) - 1, in_place=True)
+    with site("tm_step._learn/learn_rows"):
+        wrote = learn_rows(syn, perm, act, cols, learn_flat, new_flat,
+                           sel.lpos, chosen, sel.n_chosen, sel.counts,
+                           cfg.permanence_increment,
+                           cfg.permanence_decrement,
+                           cfg.permanence_initial, want_mask=return_debug)
+        if cols is None:
+            # a column shard writes back the rows it owns
+            put(state.synapse_cell, active_cols, syn)
+            put(state.synapse_perm, active_cols, perm)
     seg_cell = put(state.seg_cell.clone(), active_cols, segcell_rows)
+    n_grown, overflow, winners_dropped, growth_dropped = sel.counts
 
     metrics = {
         "tm_new_segments": new_seg.sum((1, 2), dtype=torch.int32),
         "tm_grown_synapses": n_grown,
-        "tm_learning_segments": learn_rows.sum((1, 2), dtype=torch.int32),
+        "tm_learning_segments": learn_rows_.sum((1, 2), dtype=torch.int32),
         "tm_dropped_new_segments": n_dropped,
         "tm_evicted_segments": n_evicted,
         "tm_dropped_synapses": overflow,
@@ -577,10 +624,10 @@ def _learn(cfg: TMConfig, state: TMState, take, put, draws: Draws,
     }
     debug = None
     if return_debug:
-        C = cfg.column_dim
-        debug = dict(learning_segments=_dense(active_cols, learn_rows, C),
+        debug = dict(learning_segments=_dense(active_cols, learn_rows_, C),
                      new_segments=_dense(active_cols, new_seg, C),
-                     grown_mask=_dense(active_cols, wrote, C))
+                     grown_mask=_dense(active_cols,
+                                       wrote.reshape(B, A, G, K), C))
     return seg_cell, metrics, debug
 
 
@@ -621,15 +668,17 @@ def tm_resume(cfg: TMConfig, state: TMState) -> TMState:
     (`temporal_memory.py:684-710`): ``synapse_act`` and ``matching_word``
     from the frozen tables and the state's own previous active set, as
     the unpacked inference forward pass would have left them. No input is
-    consumed and no step is taken; one `act_conn` launch on the card."""
-    G, K = cfg.segments_per_column, cfg.synapse_capacity
+    consumed and no step is taken; one `act_conn` and one `seg_counts`
+    (flags form) launch on the card."""
+    K = cfg.synapse_capacity
     act_now = synapse_activation_conn(
         state.synapse_cell, state.synapse_perm, state.active_cols,
         state.active_bits, cfg.cell_dim, cfg.permanence_threshold, K)
-    potential, _ = seg_counts_packed(act_now, G, K)
-    matching = potential >= cfg.segment_matching_threshold
+    _, _, matching_word, _ = seg_counts_flags(
+        act_now, state.seg_cell, K, cfg.segment_matching_threshold,
+        cfg.segment_activation_threshold, cfg.cell_dim, prediction=False)
     return dataclasses.replace(state, synapse_act=act_now,
-                               matching_word=pack_bits(matching)[..., 0])
+                               matching_word=matching_word)
 
 
 def tm_segment_observables(cfg: TMConfig, state: TMState) -> dict:
@@ -717,36 +766,48 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
 
         prev_prediction = state.prediction                      # (B, W, C)
         W = prev_prediction.shape[1]
+        need_rows = learning or compute_winner
         if shard is None:
             pred_words = prev_prediction.gather(
                 2, active_cols.long()[:, None, :].expand(B, W, A))
-
-            def take(leaf):
-                return _rows(getattr(state, leaf), active_cols)
-
+            # the active rows are read where they lie in the tables
+            tables = (state.synapse_cell, state.synapse_perm,
+                      state.synapse_act, active_cols)
+            segcell_rows = (_rows(state.seg_cell, active_cols)
+                            if need_rows else None)
             put = _put_rows
             if col_active is None:
                 col_active = column_mask_from_cols(active_cols, C)
         else:
             # the active rows this step reads, from their owners at once
-            leaves = ((("synapse_act", "seg_cell")
-                       if learning or compute_winner else ())
+            leaves = ((("synapse_act", "seg_cell") if need_rows else ())
                       + (("synapse_cell", "synapse_perm")
                          if learning else ()))
             pred_words, *got = shard.rows(
                 active_cols,
                 [prev_prediction, *(getattr(state, n) for n in leaves)],
                 [2] + [1] * len(leaves))
-            take = dict(zip(leaves, got)).__getitem__
+            got = dict(zip(leaves, got))
+            tables = (got.get("synapse_cell"), got.get("synapse_perm"),
+                      got.get("synapse_act"), None)
+            segcell_rows = got.get("seg_cell")
             put = shard.put_rows
             if col_active is None:
                 col_active = shard.column_mask(active_cols)
         pred_rows = unpack_bits(pred_words.transpose(1, 2), D)  # (B, A, D)
 
     with site("tm_step.winner_selection"):
-        if learning or compute_winner:
+        if learning:
+            # the active rows' counts, decoded once for both phases
+            pot_rows, conn_rows, syn_count = row_counts(*tables, G)
+        elif compute_winner:
+            act, cols = tables[2:]
+            act_rows = act if cols is None else _rows(act, cols)
+            pot_rows, _ = seg_counts_packed_rows(
+                act_rows.reshape(B, A, G, K), K)
+        if need_rows:
             col_burst, winner_rows, cell_max_j, seg_j = _winner_selection(
-                cfg, take, draws, active_cols, pred_rows)
+                cfg, draws, pred_rows, pot_rows, segcell_rows)
         else:
             col_burst = ~pred_rows.any(-1)
             winner_rows = torch.zeros_like(pred_rows)
@@ -760,16 +821,16 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
     if learning:
         with site("tm_step._learn"):
             seg_cell, learn_metrics, debug = _learn(
-                cfg, state, take, put, draws, active_cols, pred_rows,
-                winner_rows, cell_max_j, seg_j, return_debug)
+                cfg, state, tables, put, draws, active_cols, pred_rows,
+                winner_rows, cell_max_j, seg_j, pot_rows, conn_rows,
+                syn_count, segcell_rows, return_debug)
         # punish the matching segments of inactive columns
         # (projections.py:269,290-293), fused into the table pass
         with site("tm_step.punish"):
             pun_word = torch.where(
                 col_active | (state.step <= 0)[:, None], 0,
                 state.matching_word)
-        (perm_full, act_now, _, _, matching, _,
-         prediction) = table_update(
+        perm_full, act_now, matching_word, prediction = table_update_words(
             state.synapse_cell, state.synapse_perm, state.synapse_act,
             pun_word, active_cols, act_bits, seg_cell, D,
             cfg.permanence_punishment, cfg.permanence_threshold,
@@ -799,6 +860,7 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             matching = conn_cnt >= cfg.segment_matching_threshold
             seg_active = conn_cnt >= cfg.segment_activation_threshold
             prediction = prediction_words(seg_cell, seg_active, D)
+            matching_word = pack_bits(matching)[..., 0]           # G <= 32
         act_now = state.synapse_act                   # passed through, stale
     else:
         # inference: the tables are frozen; only the forward pass runs
@@ -807,6 +869,12 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
         if distal_forward is not None:
             act_now, potential, connected = distal_forward(
                 cfg, state, active_cols, act_bits)
+            with site("tm_step.prediction_words"):
+                matching = potential >= cfg.segment_matching_threshold
+                seg_active = matching & (
+                    connected >= cfg.segment_activation_threshold)
+                prediction = prediction_words(seg_cell, seg_active, D)
+                matching_word = pack_bits(matching)[..., 0]       # G <= 32
         else:
             with site("tm_step.table_pass"):
                 if frozen_word is not None:
@@ -818,12 +886,11 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
                         act_bits, D, cfg.permanence_threshold, K,
                         column_dim=C)
             with site("tm_step.count_decode"):
-                potential, connected = seg_counts_packed(act_now, G, K)
-        with site("tm_step.prediction_words"):
-            matching = potential >= cfg.segment_matching_threshold
-            seg_active = matching & (
-                connected >= cfg.segment_activation_threshold)
-            prediction = prediction_words(seg_cell, seg_active, D)
+                # the counts' thresholds, matching word and prediction
+                # words in the decode's own pass
+                _, _, matching_word, prediction = seg_counts_flags(
+                    act_now, seg_cell, K, cfg.segment_matching_threshold,
+                    cfg.segment_activation_threshold, D)
 
     with site("tm_step.outputs"):
         new_state = TMState(
@@ -835,7 +902,7 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             winner_bits=pack_bits(winner_rows),
             synapse_act=act_now,
             prediction=prediction,
-            matching_word=pack_bits(matching)[..., 0],  # G <= 32
+            matching_word=matching_word,
             step=state.step + 1,
         )
 
@@ -849,7 +916,8 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             metrics.update(
                 tm_predicted_cells=popcount32(prediction).sum(
                     (1, 2), dtype=torch.int32),
-                tm_matching_segments=matching.sum((1, 2), dtype=torch.int32),
+                tm_matching_segments=popcount32(matching_word).sum(
+                    -1, dtype=torch.int32),
                 tm_pool_occupancy=(seg_cell < D).sum((1, 2),
                                                      dtype=torch.int32),
             )

@@ -18,10 +18,12 @@ versions gather from a dense (B, C*D) active-cell mask; the kernels
 build the same mask as a bitmap in shared memory. `take_small_table`,
 the index -> cell decode of the growth keys above 2^16 cells, and
 `seg_counts_packed`, the per-segment count decode of the packed activity
-those passes write, and `pack_bits`, the bit pack of the active, winner
-and matching flags, follow the same rule (`small_table_take` kernel,
-`take_small_table_ref`; `seg_counts` kernel, `seg_counts_packed_ref`;
-`pack_bits` kernel, `pack_bits_ref`).
+those passes write (with its flags form `seg_counts_flags`, which also
+gives the matching word and the prediction words), and `pack_bits`, the
+bit pack of the active and winner cells, follow the same rule
+(`small_table_take` kernel, `take_small_table_ref`; `seg_counts` kernel,
+`seg_counts_packed_ref` and `seg_counts_flags_ref`; `pack_bits` kernel,
+`pack_bits_ref`).
 """
 
 from __future__ import annotations
@@ -385,40 +387,69 @@ def synapse_activation_frozen(frozen_word, cols, bits, cell_dim: int,
                                          synapses)
 
 
+def _table_pass(syn, perm, act_prev, pun_word, cols, bits, cell_dim: int,
+                synapses: int, punishment: float, perm_threshold: float,
+                column_dim: int | None):
+    """The `table_update` kernel for CUDA tensors, its plain version for
+    CPU tensors: punishes ``perm`` in place, returns the packed
+    activity."""
+    args = (syn, perm, act_prev, pun_word, cols, bits, cell_dim, synapses,
+            punishment, perm_threshold, column_dim)
+    with site("tm_step.table_pass"):
+        if _on_device("table_update", syn) == "cuda":
+            from .kernels import table_update_cuda
+
+            return table_update_cuda(*args)
+        return table_update_ref(*args)
+
+
 def table_update(syn, perm, act_prev, pun_word, cols, bits, seg_cell,
                  cell_dim: int, punishment: float, perm_threshold: float,
                  matching_threshold: int, activation_threshold: int,
                  column_dim: int | None = None):
-    """The full-table part of a learning TM step: punishment + implicit
-    death + activation (the `table_update` kernel for CUDA tensors, the
-    plain version for CPU tensors; perm is updated in place), then the
-    per-segment counts, flags and packed prediction as torch ops. Every
-    output is per row, so a column shard of the tables gives its rows of
-    the whole-table result when ``column_dim`` names the global column
-    count (default: the table's rows).
+    """The full-table part of a learning TM step as JAX
+    `table_update_xla` returns it: punishment + implicit death +
+    activation (the `table_update` kernel for CUDA tensors, the plain
+    version for CPU tensors; perm is updated in place), then the
+    per-segment counts (`seg_counts_packed`), flags and packed prediction.
+    Every output is per row, so a column shard of the tables gives its
+    rows of the whole-table result when ``column_dim`` names the global
+    column count (default: the table's rows). The step itself takes
+    `table_update_words`.
 
     Returns (perm', act packed, potential, connected, matching,
     seg_active, prediction (B, W, C))."""
     G = seg_cell.shape[-1]
     K = syn.shape[-1] // G
-    with site("tm_step.table_pass"):
-        if _on_device("table_update", syn) == "cuda":
-            from .kernels import table_update_cuda
-
-            act = table_update_cuda(syn, perm, act_prev, pun_word, cols,
-                                    bits, cell_dim, K, punishment,
-                                    perm_threshold, column_dim)
-        else:
-            act = table_update_ref(syn, perm, act_prev, pun_word, cols,
-                                   bits, cell_dim, K, punishment,
-                                   perm_threshold, column_dim)
+    act = _table_pass(syn, perm, act_prev, pun_word, cols, bits, cell_dim, K,
+                      punishment, perm_threshold, column_dim)
     with site("tm_step.count_decode"):
         potential, connected = seg_counts_packed(act, G, K)
-    with site("tm_step.prediction_words"):
-        matching = potential >= matching_threshold
-        seg_active = matching & (connected >= activation_threshold)
-        prediction = prediction_words(seg_cell, seg_active, cell_dim)
+    matching = potential >= matching_threshold
+    seg_active = matching & (connected >= activation_threshold)
+    prediction = prediction_words(seg_cell, seg_active, cell_dim)
     return perm, act, potential, connected, matching, seg_active, prediction
+
+
+def table_update_words(syn, perm, act_prev, pun_word, cols, bits, seg_cell,
+                       cell_dim: int, punishment: float,
+                       perm_threshold: float, matching_threshold: int,
+                       activation_threshold: int,
+                       column_dim: int | None = None):
+    """`table_update` as the learning step takes it: the table pass, then
+    the flags form of the count decode (`seg_counts_flags`), which gives
+    the matching word and the prediction words in its own pass and no
+    counts. Arguments as `table_update`'s. Returns (perm', act packed,
+    matching_word (B, C), prediction (B, W, C))."""
+    G = seg_cell.shape[-1]
+    K = syn.shape[-1] // G
+    act = _table_pass(syn, perm, act_prev, pun_word, cols, bits, cell_dim, K,
+                      punishment, perm_threshold, column_dim)
+    with site("tm_step.count_decode"):
+        _, _, word, prediction = seg_counts_flags(
+            act, seg_cell, K, matching_threshold, activation_threshold,
+            cell_dim)
+    return perm, act, word, prediction
 
 
 def seg_counts_packed_ref(packed: torch.Tensor, num_segments: int,
@@ -441,6 +472,47 @@ def seg_counts_packed(packed: torch.Tensor, num_segments: int,
 
         return seg_counts_cuda(packed, num_segments, synapses)
     return seg_counts_packed_ref(packed, num_segments, synapses)
+
+
+def seg_counts_flags_ref(packed: torch.Tensor, seg_cell: torch.Tensor,
+                         synapses: int, matching_threshold: int,
+                         activation_threshold: int, cell_dim: int,
+                         counts: bool = False, prediction: bool = True):
+    """Plain version of the `seg_counts` kernel's flags form: the
+    counts of the (B, C, G*K) packed activity (`seg_counts_packed_ref`),
+    their thresholds, the matching word (`pack_bits` of potential >=
+    ``matching_threshold``) and the prediction words (`prediction_words`
+    of the segments that match and have connected >=
+    ``activation_threshold``, owned by ``seg_cell`` (B, C, G)). Returns
+    (potential, connected, matching_word (B, C), prediction (B, W, C)),
+    the counts only with ``counts`` and the prediction only with
+    ``prediction`` (else None)."""
+    G = seg_cell.shape[-1]
+    potential, connected = seg_counts_packed_ref(packed, G, synapses)
+    matching = potential >= matching_threshold
+    pred = None
+    if prediction:
+        seg_active = matching & (connected >= activation_threshold)
+        pred = prediction_words(seg_cell, seg_active, cell_dim)
+    if not counts:
+        potential = connected = None
+    return potential, connected, pack_bits_ref(matching)[..., 0], pred
+
+
+def seg_counts_flags(packed: torch.Tensor, seg_cell: torch.Tensor,
+                     synapses: int, matching_threshold: int,
+                     activation_threshold: int, cell_dim: int,
+                     counts: bool = False, prediction: bool = True):
+    """The flags form of the count decode: the `seg_counts` kernel for
+    CUDA tensors, the plain version for CPU tensors (arguments and
+    results as `seg_counts_flags_ref`'s)."""
+    args = (packed, seg_cell, synapses, matching_threshold,
+            activation_threshold, cell_dim, counts, prediction)
+    if _on_device("seg_counts_flags", packed) == "cuda":
+        from .kernels import seg_flags_cuda
+
+        return seg_flags_cuda(*args)
+    return seg_counts_flags_ref(*args)
 
 
 def seg_counts_packed_rows(act_rows: torch.Tensor, synapses: int

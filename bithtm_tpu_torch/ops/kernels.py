@@ -2,7 +2,7 @@
 
 The sources in `csrc/` (`table_pass.cu`, `serving_pass.cu`,
 `small_take.cu`, `sp_pass.cu`, `overlap_pass.cu`, `count_pass.cu`,
-`grow_pass.cu`, `grow_fill.cu` and `pack_pass.cu`; all include `launch.cuh`,
+`grow_pass.cu`, `learn_pass.cu` and `pack_pass.cu`; all include `launch.cuh`,
 `table_pass.cu`, `serving_pass.cu` and `sp_pass.cu` also
 `active_bitmap.cuh`) are compiled on first use with
 ``nvcc`` for ``sm_90a``, one process per source started together, and
@@ -12,11 +12,12 @@ here runs when the module is imported.
 
 Each wrapper first chooses its kernel's path from the shapes alone
 (`_bitmap`, `_streams`, `_act_bytes`, `_delta`, `_grow_keys`,
-`_fill_path`, `_pack_path`: the bitmap in shared or in global memory,
-the packed activity's type, the streams in grid y or folded into grid
-x, the SP delta row staged or read from global memory, the growth keys'
-form and where they live, how the fill reads its cells, the pack's
-loads; README.md, port section) and
+`_rows_mode`, `_fill_path`, `_pack_path`: the bitmap in shared or in
+global memory, the packed activity's type, the streams in grid y or
+folded into grid x, the SP delta row staged or read from global memory,
+the growth keys' form and where they live, whether the active rows are
+read where they lie in the tables or from gathered rows, how the fill
+reads its cells, the pack's loads; README.md, port section) and
 reports it (`CudaKernel.path`) before any tensor is read. Only the
 stream-words limit (`_stream_words`: the kernels index a stream's words
 in int32) still raises. Then it checks
@@ -52,7 +53,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("table_pass.cu", "serving_pass.cu", "small_take.cu",
            "sp_pass.cu", "overlap_pass.cu", "count_pass.cu", "grow_pass.cu",
-           "grow_fill.cu", "pack_pass.cu")
+           "learn_pass.cu", "pack_pass.cu")
 HEADERS = ("active_bitmap.cuh", "launch.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -88,15 +89,20 @@ _ARGTYPES = {
     "sp_update_pack": [_VP] * 5 + [_I] * 5 + [_F, _I, _I, _I, _VP],
     # connected, bits, out, B, C, S, I, fold
     "sp_overlap": [_VP] * 3 + [_I] * 5 + [_I, _VP],
-    # v, potential, connected, B, C, G, K, scale, act_bytes
-    "seg_counts": [_VP] * 3 + [_I] * 6 + [_I, _VP],
-    # syn, act, learn, cols, bits, rnd, chosen, n_chosen, lidx, lvalid,
-    # cand, counts, scratch, B, R, K, A, D, L, Wc, samp, key_bits,
-    # cell_form, global_keys
-    "grow_select": [_VP] * 13 + [_I] * 11 + [_I, _VP],
-    # syn, perm, wrote, lidx, lvalid, chosen, n_chosen, counts, B, R, K,
-    # L, kk, perm_init
-    "grow_fill": [_VP] * 8 + [_I] * 5 + [_F, _I, _VP],
+    # v, potential, connected, seg_cell, matching_word, prediction, B, C,
+    # G, K, scale, act_bytes, D, theta_m, theta_a
+    "seg_counts": [_VP] * 6 + [_I] * 9 + [_I, _VP],
+    # syn, act, act_bytes, row_cols, Ct, G, fresh, learn, cols, bits, rnd,
+    # chosen, n_chosen, lidx, lvalid, lpos, cand, counts, scratch, B, R,
+    # K, A, D, L, Wc, samp, key_bits, cell_form, global_keys
+    "grow_select": [_VP, _VP, _I, _VP, _I, _I] + [_VP] * 13 + [_I] * 11
+    + [_I, _VP],
+    # syn, perm, act, cols, potential, connected, live, B, Ct, A, G, K,
+    # scale, act_bytes
+    "row_counts": [_VP] * 7 + [_I] * 7 + [_I, _VP],
+    # syn, perm, act, cols, learn, fresh, lpos, chosen, n_chosen, counts,
+    # wrote, B, Ct, A, G, K, L, kk, inc, dec, perm_init, act_bytes
+    "learn_rows": [_VP] * 11 + [_I] * 7 + [_F] * 3 + [_I, _I, _VP],
     # mask, out, rows, D
     "pack_bits": [_VP] * 2 + [_LL, _I] + [_I, _VP],
 }
@@ -224,11 +230,12 @@ SP_UPDATE_PACK = CudaKernel("sp_update_pack")
 SP_OVERLAP = CudaKernel("sp_overlap")
 SEG_COUNTS = CudaKernel("seg_counts")
 GROW_SELECT = CudaKernel("grow_select")
-GROW_FILL = CudaKernel("grow_fill")
+ROW_COUNTS = CudaKernel("row_counts")
+LEARN_ROWS = CudaKernel("learn_rows")
 PACK_BITS = CudaKernel("pack_bits")
 KERNELS = (TABLE_UPDATE, ACT_CONN, SERVING_ACTIVATION, ACT_FROZEN,
            SYNAPSE_ACTIVATION, SMALL_TABLE_TAKE, SP_UPDATE_PACK, SP_OVERLAP,
-           SEG_COUNTS, GROW_SELECT, GROW_FILL, PACK_BITS)
+           SEG_COUNTS, GROW_SELECT, ROW_COUNTS, LEARN_ROWS, PACK_BITS)
 
 
 def launch_counts() -> dict[str, int]:
@@ -383,8 +390,15 @@ def _grow_keys(cell_form: bool, Wc: int) -> tuple[str, str]:
             "smem" if 8 * Wc <= MAX_SHARED_BYTES else "global")
 
 
+def _rows_mode(cols) -> str:
+    """Where `row_counts`, `learn_rows` and `grow_select` read the active
+    rows: "table", at the active columns ``cols`` of the state's tables,
+    or "rows", gathered rows (``cols`` None: a column shard's rows)."""
+    return "rows" if cols is None else "table"
+
+
 def _fill_path(kk: int) -> str:
-    """`grow_fill`'s path at kk chosen cells a row: "shfl" up to 32 (a
+    """`learn_rows`' fill at kk chosen cells a row: "shfl" up to 32 (a
     row's cells read once, one a lane, and passed to their slots by
     shuffles), else "load" (each written slot reads its cell)."""
     return "shfl" if kk <= 32 else "load"
@@ -696,19 +710,93 @@ def seg_counts_cuda(packed, num_segments: int, synapses: int
     connected = torch.empty_like(potential)
     if potential.numel() == 0:
         return potential, connected
-    SEG_COUNTS.launch(v_p, potential.data_ptr(), connected.data_ptr(), B, C,
-                      G, K, act_scale(K), dtype.itemsize, dev, _stream(dev))
+    SEG_COUNTS.launch(v_p, potential.data_ptr(), connected.data_ptr(), None,
+                      None, None, B, C, G, K, act_scale(K), dtype.itemsize, 0,
+                      0, 0, dev, _stream(dev))
     return potential, connected
+
+
+def seg_flags_cuda(packed, seg_cell, synapses: int, matching_threshold: int,
+                   activation_threshold: int, cell_dim: int,
+                   counts: bool = False, prediction: bool = True) -> tuple:
+    """CUDA `seg_counts`, flags form: the (B, C, G*K) packed activity and
+    the (B, C, G) int32 owner cells -> (potential, connected (B, C, G)
+    int32, only with ``counts``, else None; matching_word (B, C) int32,
+    bit g where potential >= ``matching_threshold``; the (B, W, C) int32
+    prediction words, only with ``prediction``, else None), W =
+    ceil(D/32): bit d of word w where a matching segment with connected
+    >= ``activation_threshold`` is owned by cell 32w + d (see
+    `active_set.seg_counts_flags_ref`)."""
+    if packed.dim() != 3 or seg_cell.dim() != 3:
+        raise ValueError(f"packed must be (B, C, G*K) and seg_cell (B, C, "
+                         f"G), got {tuple(packed.shape)} and "
+                         f"{tuple(seg_cell.shape)}")
+    B, C, J = packed.shape
+    G, K = seg_cell.shape[-1], synapses
+    if K < 1 or G < 1 or G > 32 or J != G * K or cell_dim < 1:
+        raise ValueError(f"packed rows of J={J} values are not G={G} <= 32 "
+                         f"segments of K={K}, or D={cell_dim} < 1")
+    dtype = act_dtype(K)
+    _stream_words(C * J * dtype.itemsize // 4)
+    SEG_COUNTS.choose(_act_name(K), "flags")
+    dev = packed.get_device()
+    v_p = _ptr("packed", packed, dtype, None, dev, align=16)
+    cell_p = _ptr("seg_cell", seg_cell, torch.int32, (B, C, G), dev)
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=packed.device)
+
+    pot = conn = pred = None
+    if counts:
+        pot, conn = new(B, C, G), new(B, C, G)
+    if prediction:
+        pred = new(B, cell_words(cell_dim), C)
+    word = new(B, C)
+    if word.numel():
+        SEG_COUNTS.launch(v_p, *(None if t is None else t.data_ptr()
+                                 for t in (pot, conn)),
+                          cell_p, word.data_ptr(),
+                          None if pred is None else pred.data_ptr(), B, C, G,
+                          K, act_scale(K), dtype.itemsize, cell_dim,
+                          int(matching_threshold), int(activation_threshold),
+                          dev, _stream(dev))
+    return pot, conn, word, pred
+
+
+def _active_rows(name: str, table, learn, cols):
+    """The geometry of the active rows of a (B, Ct, J) ``table`` with (B,
+    R) ``learn`` flags: at the (B, A) columns ``cols`` ("table" mode) or,
+    with ``cols`` None, the table's own Ct = A columns ("rows" mode); R =
+    A*G. Returns (B, Ct, A, G, K)."""
+    if table.dim() != 3 or learn.dim() != 2 or learn.shape[0] != \
+            table.shape[0]:
+        raise ValueError(f"{name} must be (B, Ct, G*K) and the rows' flags "
+                         f"(B, R), got {tuple(table.shape)} and "
+                         f"{tuple(learn.shape)}")
+    B, Ct, J = table.shape
+    R = learn.shape[1]
+    A = Ct if cols is None else cols.shape[-1]
+    G = R // A if A else 0
+    if G < 1 or R != A * G or J % G:
+        raise ValueError(f"{R} rows are not G segments of each of A={A} "
+                         f"columns of J={J} slots")
+    return B, Ct, A, G, J // G
 
 
 def grow_select_cuda(syn_rows, act_rows, learn_rows, prev_cols,
                      prev_winner_bits, rnd, cell_dim: int, samp: int,
-                     key_bits: int, cell_form: bool) -> tuple:
+                     key_bits: int, cell_form: bool, row_cols=None,
+                     new_seg=None) -> tuple:
     """CUDA `grow_select`: `_grow`'s lists and candidate selection for
-    (B, R, K) int32 synapse rows and their bool activity, the (B, R) bool
-    learning flags, the (B, A) previous active columns and their (B, A,
-    ceil(D/32)) int32 winner words, and (B, L, Wc) int32 random words ->
-    (chosen (B, L, kk), n_chosen (B, L), lidx (B, L), lvalid (B, L) bool,
+    the active rows of the (B, Ct, J) int32 synapse table ``syn_rows``
+    and its activity ``act_rows`` (bool, or the packed activity in its
+    own type; nonzero = active), the (B, R) bool learning flags, the (B,
+    A) previous active columns and their (B, A, ceil(D/32)) int32 winner
+    words, and (B, L, Wc) int32 random words. The rows lie at the columns
+    ``row_cols`` (B, R/G) of the tables, or, where it is None, are the
+    table's own (a (B, R, K) table of rows, or gathered (B, R/G, G*K)
+    rows); ``new_seg`` (B, R) bool rows read as empty -> (chosen (B, L,
+    kk), n_chosen (B, L), lidx (B, L), lvalid (B, L) bool, lpos (B, R),
     cand_cell (B, Wc), counts (4, B)) int32 but lvalid, kk = min(samp,
     Wc): the cells (``cell_form``) or the index-form keys of the n_chosen
     smallest keys, ascending (see `temporal_memory.grow_select_ref`)."""
@@ -719,10 +807,14 @@ def grow_select_cuda(syn_rows, act_rows, learn_rows, prev_cols,
                          f"{tuple(syn_rows.shape)}, "
                          f"{tuple(learn_rows.shape)}, "
                          f"{tuple(prev_cols.shape)} and {tuple(rnd.shape)}")
-    B, R, K = syn_rows.shape
+    B, Ct, J = syn_rows.shape
+    R = learn_rows.shape[1]
     A = prev_cols.shape[1]
     L, Wc = rnd.shape[1:]
     shift = 1 if cell_form else 2
+    A_rows = Ct if row_cols is None else row_cols.shape[-1]
+    G = R // A_rows if A_rows and R % A_rows == 0 else 0
+    K = J // G if G and J % G == 0 else 0
     if R < 1 or K < 1 or Wc < 1 or samp < 1 or cell_dim < 1 or not \
             1 <= key_bits <= 31 - shift:
         raise ValueError(f"grow_select needs R, K, Wc, samp, D >= 1 and key "
@@ -733,14 +825,22 @@ def grow_select_cuda(syn_rows, act_rows, learn_rows, prev_cols,
         raise ValueError(f"prev_winner_bits must hold the winner words of "
                          f"the (B, A) columns, (B, A, ceil(D/32)) = "
                          f"{(B, A, W)}, got {tuple(prev_winner_bits.shape)}")
-    _stream_words(R * K)
+    _stream_words(Ct * J)
     _stream_words(L * Wc)
     _stream_words(A * W)
     path = GROW_SELECT.choose(*_grow_keys(cell_form, Wc))
     dev = syn_rows.get_device()
     syn_p = _ptr("syn_rows", syn_rows, torch.int32, None, dev)
-    act_p = _ptr("act_rows", act_rows, torch.bool, (B, R, K), dev)
+    if act_rows.dtype not in (torch.bool, torch.uint8, torch.bfloat16,
+                              torch.float32):
+        raise TypeError(f"act_rows must be bool or a packed activity type, "
+                        f"got {act_rows.dtype}")
+    act_p = _ptr("act_rows", act_rows, act_rows.dtype, (B, Ct, J), dev)
     learn_p = _ptr("learn_rows", learn_rows, torch.bool, (B, R), dev)
+    rcols_p = None if row_cols is None else _ptr(
+        "row_cols", row_cols, torch.int32, (B, A_rows), dev)
+    fresh_p = None if new_seg is None else _ptr(
+        "new_seg", new_seg, torch.bool, (B, R), dev)
     cols_p = _ptr("prev_cols", prev_cols, torch.int32, (B, A), dev)
     bits_p = _ptr("prev_winner_bits", prev_winner_bits, torch.int32,
                   (B, A, W), dev)
@@ -751,55 +851,102 @@ def grow_select_cuda(syn_rows, act_rows, learn_rows, prev_cols,
         return torch.empty(shape, dtype=dtype, device=syn_rows.device)
 
     out = (new(B, L, kk), new(B, L), new(B, L), new(B, L, dtype=torch.bool),
-           new(B, Wc), new(4, B))
+           new(B, R), new(B, Wc), new(4, B))
     if B == 0:
         return out
     scratch = scratch_p = None
     if path[1] == "global":
         scratch = new(B, L, Wc)
         scratch_p = scratch.data_ptr()
-    GROW_SELECT.launch(syn_p, act_p, learn_p, cols_p, bits_p, rnd_p,
+    GROW_SELECT.launch(syn_p, act_p, act_rows.element_size(), rcols_p, Ct, G,
+                       fresh_p, learn_p, cols_p, bits_p, rnd_p,
                        *(t.data_ptr() for t in out), scratch_p, B, R, K, A,
                        cell_dim, L, Wc, samp, key_bits, int(cell_form),
                        int(path[1] == "global"), dev, _stream(dev))
     return out
 
 
-def grow_fill_cuda(syn_rows, perm_rows, lidx, lvalid, chosen, n_chosen,
-                   counts, permanence_initial: float) -> torch.Tensor:
-    """CUDA `grow_fill`: writes the chosen cells of each growing row
-    (``lidx``, ``lvalid``; ``chosen`` (B, L, kk) cells, ``n_chosen``) into
-    its free slots of the (B, R, K) int32 ``syn_rows`` in place, sets
-    ``perm_rows`` (float32) there to ``permanence_initial``, adds the
-    slots written and the overflow to rows 0 and 1 of the (4, B) int32
-    ``counts`` and returns the (B, R, K) bool mask of the slots written
-    (see `temporal_memory.grow_fill_ref`)."""
-    if syn_rows.dim() != 3 or chosen.dim() != 3 or lidx.dim() != 2:
-        raise ValueError(f"syn_rows must be (B, R, K), lidx (B, L) and "
-                         f"chosen (B, L, kk), got {tuple(syn_rows.shape)}, "
-                         f"{tuple(lidx.shape)} and {tuple(chosen.shape)}")
-    B, R, K = syn_rows.shape
+def row_counts_cuda(syn, perm, act, cols, num_segments: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """CUDA `row_counts`: the (potential, connected, live) int32 (B, A, G)
+    counts of the active rows of the (B, Ct, G*K) synapse tables (int32
+    syn, float32 perm, act in `act_dtype(K)`), at the (B, A) columns
+    ``cols`` or, with ``cols`` None, of gathered rows (Ct = A); see
+    `temporal_memory.row_counts_ref`."""
+    G = num_segments
+    if syn.dim() != 3 or G < 1 or syn.shape[-1] % G:
+        raise ValueError(f"syn must be (B, Ct, G*K) with G={G}, got "
+                         f"{tuple(syn.shape)}")
+    B, Ct, J = syn.shape
+    K = J // G
+    A = Ct if cols is None else cols.shape[-1]
+    _stream_words(Ct * J)
+    dtype = act_dtype(K)
+    ROW_COUNTS.choose(_act_name(K), _rows_mode(cols))
+    dev = syn.get_device()
+    syn_p = _ptr("syn", syn, torch.int32, None, dev)
+    perm_p = _ptr("perm", perm, torch.float32, (B, Ct, J), dev)
+    act_p = _ptr("act", act, dtype, (B, Ct, J), dev)
+    cols_p = None if cols is None else _ptr("cols", cols, torch.int32,
+                                            (B, A), dev)
+    out = tuple(torch.empty((B, A, G), dtype=torch.int32, device=syn.device)
+                for _ in range(3))
+    if out[0].numel():
+        ROW_COUNTS.launch(syn_p, perm_p, act_p, cols_p,
+                          *(t.data_ptr() for t in out), B, Ct, A, G, K,
+                          act_scale(K), dtype.itemsize, dev, _stream(dev))
+    return out
+
+
+def learn_rows_cuda(syn, perm, act, cols, learn, new_seg, lpos, chosen,
+                    n_chosen, counts, increment: float, decrement: float,
+                    permanence_initial: float, want_mask: bool = False):
+    """CUDA `learn_rows`: the learning pass over the active rows of the
+    (B, Ct, G*K) synapse tables, syn (int32) and perm (float32) updated
+    in place, act in `act_dtype(K)` read, at the (B, A) columns ``cols``
+    or, with ``cols`` None, of gathered rows (Ct = A); ``learn`` and
+    ``new_seg`` (B, R) bool, R = A*G; ``lpos`` (B, R) int32 each row's
+    place in `grow_select`'s list; ``chosen`` (B, L, kk) cells and
+    ``n_chosen`` (B, L) int32; rows 0 and 1 of the (4, B) int32
+    ``counts`` gain the slots grown and the overflow. Returns the (B, R,
+    K) bool mask of the slots grown with ``want_mask``, else None (see
+    `temporal_memory.learn_rows_ref`)."""
+    if chosen.dim() != 3 or n_chosen.dim() != 2:
+        raise ValueError(f"chosen must be (B, L, kk) and n_chosen (B, L), "
+                         f"got {tuple(chosen.shape)} and "
+                         f"{tuple(n_chosen.shape)}")
+    B, Ct, A, G, K = _active_rows("syn", syn, learn, cols)
+    R = A * G
     L, kk = chosen.shape[1:]
-    if R < 1 or K < 1 or kk < 1 or tuple(lidx.shape) != (B, L):
-        raise ValueError(f"grow_fill needs R, K, kk >= 1 and lidx (B, L) = "
-                         f"{(B, L)}, got R={R} K={K} kk={kk} lidx "
-                         f"{tuple(lidx.shape)}")
-    _stream_words(R * K)
+    if kk < 1 or tuple(n_chosen.shape) != (B, L):
+        raise ValueError(f"learn_rows needs kk >= 1 chosen cells a row and "
+                         f"n_chosen (B, L) = {(B, L)}, got kk={kk} and "
+                         f"{tuple(n_chosen.shape)}")
+    _stream_words(Ct * G * K)
     _stream_words(L * kk)
-    GROW_FILL.choose(_fill_path(kk))
-    dev = syn_rows.get_device()
-    syn_p = _ptr("syn_rows", syn_rows, torch.int32, None, dev)
-    perm_p = _ptr("perm_rows", perm_rows, torch.float32, (B, R, K), dev)
-    lidx_p = _ptr("lidx", lidx, torch.int32, (B, L), dev)
-    lvalid_p = _ptr("lvalid", lvalid, torch.bool, (B, L), dev)
+    dtype = act_dtype(K)
+    LEARN_ROWS.choose(_act_name(K), _rows_mode(cols), _fill_path(kk))
+    dev = syn.get_device()
+    syn_p = _ptr("syn", syn, torch.int32, None, dev)
+    cols_p = None if cols is None else _ptr("cols", cols, torch.int32,
+                                            (B, A), dev)
+    perm_p = _ptr("perm", perm, torch.float32, (B, Ct, G * K), dev)
+    act_p = _ptr("act", act, dtype, (B, Ct, G * K), dev)
+    learn_p = _ptr("learn", learn, torch.bool, (B, R), dev)
+    fresh_p = _ptr("new_seg", new_seg, torch.bool, (B, R), dev)
+    lpos_p = _ptr("lpos", lpos, torch.int32, (B, R), dev)
     chosen_p = _ptr("chosen", chosen, torch.int32, None, dev)
     n_p = _ptr("n_chosen", n_chosen, torch.int32, (B, L), dev)
     counts_p = _ptr("counts", counts, torch.int32, (4, B), dev)
-    wrote = torch.zeros((B, R, K), dtype=torch.bool, device=syn_rows.device)
-    if B * L:
-        GROW_FILL.launch(syn_p, perm_p, wrote.data_ptr(), lidx_p, lvalid_p,
-                         chosen_p, n_p, counts_p, B, R, K, L, kk,
-                         float(permanence_initial), dev, _stream(dev))
+    wrote = (torch.empty((B, R, K), dtype=torch.bool, device=syn.device)
+             if want_mask else None)
+    if B * R:
+        LEARN_ROWS.launch(syn_p, perm_p, act_p, cols_p, learn_p, fresh_p,
+                          lpos_p, chosen_p, n_p, counts_p,
+                          None if wrote is None else wrote.data_ptr(), B, Ct,
+                          A, G, K, L, kk, float(increment), float(decrement),
+                          float(permanence_initial), dtype.itemsize, dev,
+                          _stream(dev))
     return wrote
 
 

@@ -1,11 +1,16 @@
-"""What holds `grow_select` back: variants of its source timed in turns.
+"""What holds a kernel back: variants of its source timed in turns.
 
 `ncu` and `nsys` do not run where the card is, so a kernel's time is
-taken apart by timing variants of it: copies of `csrc/grow_pass.cu`, each
-with one part cut out or changed by a text patch (`VARIANTS`), built
-with nvcc into libraries of their own and called through the tree's own
-wrapper (`ops.kernels.grow_select_cuda`, on `testing.grow_inputs` at the
-main paths' geometries). A variant whose patch does not match the
+taken apart by timing variants of it: copies of its source, each with
+one part cut out or changed by a text patch, built with nvcc into
+libraries of their own and called through the tree's own wrapper at the
+main paths' geometries: ``--kernel grow_select`` (`csrc/grow_pass.cu`,
+`VARIANTS`, on `testing.grow_inputs`), ``learn_rows``
+(`csrc/learn_pass.cu`, `LEARN_VARIANTS`, on `testing.learn_inputs` and
+its selection, the tables restored before each replay, since the pass
+writes in place) or ``seg_flags`` (`csrc/count_pass.cu`,
+`FLAG_VARIANTS`: `seg_counts`' flags form, and its counts form on the
+same activity as "reference"). A variant whose patch does not match the
 source is reported as not applicable. Variants that cut a part out give
 wrong results; they are timed, never checked. Each variant's ms a call
 is the median of ``--rounds`` rounds, the variants in turns within a
@@ -16,8 +21,8 @@ round, each a CUDA graph of 20 calls replayed 10 times (CUDA events).
 Run on the card from the root of the tree to study (whose package is
 the one imported):
 
-  python -m bithtm_tpu_torch.scripts.grow_variants [--ptxas]
-      [--shapes bench,16k_tuned] [--rounds 5] [--variants a,b]
+  python -m bithtm_tpu_torch.scripts.grow_variants [--kernel learn_rows]
+      [--ptxas] [--shapes bench,16k_tuned] [--rounds 5] [--variants a,b]
 
 Prints one JSON line: {shape: {variant: ms}}.
 """
@@ -34,6 +39,8 @@ import subprocess
 import torch
 
 from .. import testing
+from ..models import temporal_memory as ptm
+from ..ops import active_set as pas
 from ..ops import kernels
 
 # B, C, D, A, G, K, Wc, L, samp (chip_smoke.py GROW_MAIN)
@@ -89,29 +96,80 @@ VARIANTS = {
 }
 
 
-def build(name: str, patches, flags, ptxas: bool) -> tuple[str, object]:
+# `learn_rows`: the write-back cut; the fill cut (no row takes a cell,
+# no list entry read); the indexed addressing cut (rows at the
+# gathered-rows offsets, no column read); one or four rows a warp, loaded
+# together, in place of two
+_NO_STORES = ("    if (in) {\n      if (s1 != x.s[u])",
+              "    if (false) {\n      if (s1 != x.s[u])")
+_NO_FILL = ("    s_n[j] = l >= 0 ? __ldg(n_chosen + (long long)b * L + l) : 0;",
+            "    s_n[j] = 0;")
+LEARN_VARIANTS = {
+    "base": [],
+    "no_stores": [_NO_STORES],
+    "no_fill": [_NO_FILL],
+    "loads_only": [_NO_STORES, _NO_FILL],
+    "no_cols": [("    s_base[j] = rows.slot(b, row0 + j);",
+                 "    s_base[j] = ((long long)b * R + row0 + j) * K;")],
+    "one_row_a_warp": [("constexpr int kRows = 2;",
+                        "constexpr int kRows = 1;")],
+    "four_rows_a_warp": [("constexpr int kRows = 2;",
+                          "constexpr int kRows = 4;")],
+}
+# `seg_counts`' flags form (the shuffle path the bench and 16K take): no
+# prediction words; no owner cells read; no matching word stored; all
+# three (what is left is the count kernel's loop and sums)
+_NO_PRED = ("if (lead) matching_word[col] = static_cast<int>(word);\n"
+            "      if (prediction) {",
+            "if (lead) matching_word[col] = static_cast<int>(word);\n"
+            "      if (false) {")
+_NO_CELL = ("      cell[u] = sub == 0 && seg[u] < nseg ? __ldg(seg_cell + seg[u]) "
+            ": -1;\n    }\n    segment_sums",
+            "      cell[u] = -1;\n    }\n    segment_sums")
+_NO_WORD = ("      if (lead) matching_word[col] = static_cast<int>(word);",
+            "")
+FLAG_VARIANTS = {
+    "base": [],
+    "no_pred": [_NO_PRED],
+    "no_cell": [_NO_CELL],
+    "no_word": [_NO_WORD],
+    "sums_only": [_NO_PRED, _NO_CELL, _NO_WORD],
+}
+# kernel: (source, variants, shapes)
+STUDIES = {
+    "grow_select": ("grow_pass.cu", VARIANTS, SHAPES),
+    "learn_rows": ("learn_pass.cu", LEARN_VARIANTS, SHAPES),
+    "seg_flags": ("count_pass.cu", FLAG_VARIANTS,     # B, C, G, K, D
+                  {"bench": (256, 2048, 4, 64, 32),
+                   "16k_tuned": (64, 16384, 4, 64, 64)}),
+}
+
+
+def build(name: str, patches, flags, ptxas: bool,
+          source: str = "grow_pass.cu") -> tuple[str, object]:
     """The variant's library path and its nvcc process (None where a
     patch does not match)."""
-    src = (kernels.CSRC / "grow_pass.cu").read_text()
+    src = (kernels.CSRC / source).read_text()
     for old, new in patches:
         if old not in src:
             return "", None
         src = src.replace(old, new)
-    out = kernels.BUILD_DIR / "variants" / name
+    out = kernels.BUILD_DIR / "variants" / source.split(".")[0] / name
     out.mkdir(parents=True, exist_ok=True)
     for header in kernels.HEADERS:
         shutil.copy(kernels.CSRC / header, out / header)
-    (out / "grow_pass.cu").write_text(src)
-    lib = out / "libgrow.so"
+    (out / source).write_text(src)
+    lib = out / "libvariant.so"
     cmd = [kernels._nvcc(), *flags, *(["-Xptxas", "-v"] if ptxas else []),
-           "-shared", "-o", str(lib), str(out / "grow_pass.cu")]
+           "-shared", "-o", str(lib), str(out / source)]
     return str(lib), subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
 
 
-def graph_ms(fn, n: int = 20, reps: int = 10) -> float:
+def graph_ms(fn, n: int = 20, reps: int = 10, restore=None) -> float:
     """ms a call of ``fn`` in a CUDA graph of n calls (CUDA events over
-    ``reps`` replays after one)."""
+    ``reps`` replays after one; with ``restore``, called before each
+    replay outside the events, each replay timed alone)."""
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
@@ -122,20 +180,76 @@ def graph_ms(fn, n: int = 20, reps: int = 10) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    if restore is None:
+        start.record()
+        for _ in range(reps):
+            g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (n * reps)
+    total = 0.0
     for _ in range(reps):
+        restore()
+        torch.cuda.synchronize()
+        start.record()
         g.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (n * reps)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / (n * reps)
+
+
+def study_calls(kernel: str, geo: tuple, dev) -> tuple:
+    """The wrapper call a variant is timed on at ``geo``, the restore
+    before each replay (or None), the `CudaKernel` whose bound function
+    each variant's library replaces, and a reference call timed beside
+    the variants with the tree's own library (or None)."""
+    if kernel == "grow_select":
+        x = testing.grow_inputs(sum(geo), *geo, device=dev)
+        return (lambda: kernels.grow_select_cuda(**x)), None, \
+            kernels.GROW_SELECT, None
+    if kernel == "seg_flags":
+        B, C, G, K, D = geo
+        g = torch.Generator(device=dev).manual_seed(sum(geo))
+        act = torch.rand((B, C, G * K), generator=g, device=dev) < 0.5
+        conn = act & (torch.rand((B, C, G * K), generator=g,
+                                 device=dev) < 0.4)
+        v = pas.pack_act_conn(act, conn, K)
+        cell = torch.randint(0, D + 1, (B, C, G), generator=g, device=dev,
+                             dtype=torch.int32)
+        return (lambda: kernels.seg_flags_cuda(v, cell, K, K // 2, K // 5,
+                                               D)), None, kernels.SEG_COUNTS, \
+            (lambda: kernels.seg_counts_cuda(v, G, K))
+    x = testing.learn_inputs(sum(geo), *geo, device=dev)
+    s = x["select"]
+    sel = ptm.grow_select_ref(**s)
+    cells = sel.chosen
+    if not s["cell_form"]:
+        cells = pas.take_small_table_ref(sel.cand_cell, cells,
+                                         (1 << s["key_bits"]) - 1)
+    syn, perm = s["syn_rows"].clone(), x["perm"].clone()
+    counts = sel.counts.clone()
+
+    def restore():
+        syn.copy_(s["syn_rows"])
+        perm.copy_(x["perm"])
+        counts.copy_(sel.counts)
+
+    return (lambda: kernels.learn_rows_cuda(
+        syn, perm, s["act_rows"], x["cols"], x["learn"], x["new_seg"],
+        sel.lpos, cells, sel.n_chosen, counts, x["increment"],
+        x["decrement"], x["permanence_initial"])), restore, \
+        kernels.LEARN_ROWS, None
 
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(
         prog="python -m bithtm_tpu_torch.scripts.grow_variants",
         description=__doc__.split("\n")[0])
+    p.add_argument("--kernel", default="grow_select", choices=list(STUDIES))
     p.add_argument("--shapes", default="bench,16k_tuned")
-    p.add_argument("--variants", default=",".join(VARIANTS))
+    p.add_argument("--variants", default=None,
+                   help="comma-separated (default: every variant)")
     p.add_argument("--rounds", type=int, default=5)
     p.add_argument("--ptxas", action="store_true")
     args = p.parse_args(argv)
@@ -143,9 +257,10 @@ def main(argv=None) -> dict:
         raise SystemExit("grow_variants times the card only: no CUDA device "
                          "(torch.cuda.is_available() is false)")
     dev = torch.device("cuda")
-    names = args.variants.split(",")
-    procs = {n: build(n, VARIANTS[n], kernels.NVCC_FLAGS, args.ptxas)
-             for n in names}
+    source, variants, shapes = STUDIES[args.kernel]
+    names = (args.variants or ",".join(variants)).split(",")
+    procs = {n: build(n, variants[n], kernels.NVCC_FLAGS, args.ptxas,
+                      source) for n in names}
     libs = {}
     for n, (lib, proc) in procs.items():
         if proc is None:
@@ -162,28 +277,36 @@ def main(argv=None) -> dict:
         libs[n] = ctypes.CDLL(lib)
     out = {}
     library = kernels._library
+    kernel = None
     try:
         for shape in args.shapes.split(","):
-            geo = SHAPES[shape]
-            x = testing.grow_inputs(sum(geo), *geo, device=dev)
+            geo = shapes[shape]
+            call, restore, kernel, reference = study_calls(args.kernel, geo,
+                                                           dev)
             times = {n: [] for n in libs}
+            if reference is not None:
+                times["reference"] = []
             for r in range(args.rounds):
                 order = list(libs)[r % len(libs):] + list(libs)[
                     :r % len(libs)]
                 for n in order:
                     kernels._library = lambda lib=libs[n]: lib
-                    kernels.GROW_SELECT._fn = None
-                    times[n].append(graph_ms(
-                        lambda: kernels.grow_select_cuda(**x)))
+                    kernel._fn = None
+                    times[n].append(graph_ms(call, restore=restore))
+                if reference is not None:
+                    kernels._library = library
+                    kernel._fn = None
+                    times["reference"].append(graph_ms(reference))
             out[shape] = {n: statistics.median(t) for n, t in times.items()}
             print(f"{shape} {geo}: " + ", ".join(
                 f"{n} {ms:.4f}" for n, ms in out[shape].items())
                   + " ms a call in a graph of 20")
-            del x
+            del call, restore, reference
             torch.cuda.empty_cache()
     finally:
         kernels._library = library
-        kernels.GROW_SELECT._fn = None
+        if kernel is not None:
+            kernel._fn = None
     print(json.dumps(out))
     return out
 

@@ -5,8 +5,9 @@ per-op device time a step out of a `jax.profiler` trace. Here the step's
 call sites carry `torch.profiler.record_function` ranges
 (`utils.profiling.site`: `sp_step`'s overlap, boost, k-winners, update
 and duty cycle; `tm_step`'s preparation, winner selection, activation,
-`_learn` with its `_allocate` and `_grow`, punishment, table pass, count
-decode, prediction words and outputs; `htm_step`'s draws and metrics;
+`_learn` with its `_allocate`, `_grow` and `learn_rows`, punishment,
+table pass, count decode, prediction words (serving) and outputs;
+`htm_step`'s draws and metrics;
 the graph runner's `graph.buffers`).
 A CUDA graph's replay carries no host ranges, so ``--trace_steps`` steps
 of the graph's own runner run eagerly (`graph.runner_eager()`: the

@@ -127,6 +127,83 @@ def grow_inputs(seed: int, B: int, C: int, D: int, A: int, G: int, K: int,
         cell_dim=D, samp=samp, key_bits=key_bits, cell_form=cell_form)
 
 
+def learn_inputs(seed: int, B: int, C: int, D: int, A: int, G: int, K: int,
+                 Wc: int, L: int, samp: int, device="cpu") -> dict:
+    """The arguments of a learning step's `grow_select` and `learn_rows`
+    (`models/temporal_memory.py`) at a TM geometry, with numpy from
+    ``seed``: (B, C, G*K) synapse tables whose A active columns a stream
+    hold `grow_inputs`' rows (the other columns random), with stale slots
+    (syn >= 0, perm < 0, no activity), live slots with no activity a
+    decrement kills, permanences of +0.0 and -0.0, the packed activity in
+    `act_dtype(K)` (connected at perm >= 0.5; as the table pass writes
+    it, every live slot that targets a previous winner cell is active),
+    learning flags with a few new segments among them (every new segment
+    learns, as `_learn` sets it) and the previous step's columns, winner
+    words and random words.
+
+    Returns {"select": `grow_select`'s keyword arguments (the tables'
+    rows at ``row_cols``, ``new_seg``), "perm": the (B, C, G*K) float32
+    permanences, "cols", "learn", "new_seg", "increment", "decrement",
+    "permanence_initial"}."""
+    x = grow_inputs(seed, B, C, D, A, G, K, Wc, L, samp, device="cpu")
+    rng = np.random.default_rng(seed + 1)
+    R, J = A * G, G * K
+
+    def u(*shape):
+        return rng.random(shape, dtype=np.float32)
+
+    cols = np.sort(np.argsort(u(B, C), axis=1)[:, :A], axis=1)
+    live = u(B, C, J) < 0.5
+    syn = np.where(live, rng.integers(0, C * D, (B, C, J)), -1)
+    act = live & (u(B, C, J) < 0.3)
+    rows = (np.arange(B)[:, None], cols)
+    syn[rows] = x["syn_rows"].numpy().reshape(B, A, J)
+    act[rows] = x["act_rows"].numpy().reshape(B, A, J)
+    live = syn >= 0
+    # as the table pass leaves it: a live slot that targets a previous
+    # winner cell (a previous active cell) is active
+    words = x["prev_winner_bits"].numpy().view(np.uint32)
+    d = np.arange(D)
+    won = (words[..., d // 32] >> (d % 32).astype(np.uint32)) & 1 != 0
+    is_winner = np.zeros((B, C * D), bool)
+    np.put_along_axis(is_winner, (x["prev_cols"].numpy()[..., None] * D
+                                  + d).reshape(B, -1)[:, :],
+                      won.reshape(B, -1), axis=1)
+    hit = np.take_along_axis(is_winner, np.maximum(syn, 0).reshape(B, -1),
+                             1).reshape(syn.shape)
+    act |= live & hit
+    perm = np.where(live, u(B, C, J), np.float32(-1.0))
+    # stale slots, slots a decrement kills, and +-0.0, all inactive but
+    # the zeros, half of which are active
+    kind = u(B, C, J)
+    idle = live & ~act
+    perm = np.where(idle & (kind < 0.03), np.float32(-0.005), perm)
+    perm = np.where(idle & (kind >= 0.03) & (kind < 0.1), u(B, C, J) * 0.05,
+                    perm)
+    zero = live & (kind >= 0.1) & (kind < 0.12)
+    perm = np.where(zero, np.where(u(B, C, J) < 0.5, np.float32(0.0),
+                                   np.float32(-0.0)), perm)
+    act &= ~(perm < 0)
+    scale = act_scale(K)
+    packed = np.where(act, np.where(perm >= 0.5, 1 + scale, 1), 0)
+    learn = x["learn_rows"].numpy()
+    new_seg = learn & (rng.random((B, R)) < 0.05)
+    new_seg[np.arange(B), learn.argmax(1)] |= learn.any(1)  # one at least
+
+    def t(v, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(v, dtype)).to(device)
+
+    sel = {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
+           for k, v in x.items()}
+    sel.update(syn_rows=t(syn, np.int32),
+               act_rows=t(packed, np.int32).to(act_dtype(K)),
+               row_cols=t(cols, np.int32), new_seg=t(new_seg))
+    return {"select": sel, "perm": t(perm, np.float32),
+            "cols": sel["row_cols"], "learn": sel["learn_rows"],
+            "new_seg": sel["new_seg"], "increment": 0.1003,
+            "decrement": 0.0997, "permanence_initial": 0.21}
+
+
 def same_choice(got: tuple, want: tuple) -> bool:
     """Two `grow_select` results agree: n_chosen, the lists and the counts
     equal, and chosen equal up to n_chosen (past it only the kernel's fill
@@ -144,9 +221,10 @@ STEP_KERNELS = ("table_update", "act_conn", "act_frozen",
                 "serving_activation")
 
 
-# `pack_bits` launches of one `tm_step` in every mode: the active cells,
-# the winner cells and the matching flags
-STEP_PACKS = 3
+# `pack_bits` launches of one `tm_step`: the active cells and the winner
+# cells (the matching flags come packed from `seg_counts`' flags form; a
+# serving step, which has no `seg_counts`, packs them too)
+STEP_PACKS = 2
 
 
 def step_launches(sp_steps: int | None = None, **counts) -> dict:
@@ -156,17 +234,21 @@ def step_launches(sp_steps: int | None = None, **counts) -> dict:
     default one for each launch of a kernel of STEP_KERNELS, as a step
     runs the SP once), one `seg_counts` after each kernel that writes
     the packed activity (all of STEP_KERNELS but `serving_activation`,
-    whose step counts from the serving table), one `grow_select` and one
-    `grow_fill` a learning step (each `table_update`) and STEP_PACKS
-    `pack_bits` a step. A count given in ``counts`` overrides its default (a
-    `tm_resume` launches one `act_conn`, one `seg_counts` and one
+    whose step counts from the serving table), one `row_counts`, one
+    `grow_select` and one `learn_rows` a learning step (each
+    `table_update`) and STEP_PACKS `pack_bits` a step, one more a serving
+    step. A count given in ``counts`` overrides its default (a
+    `tm_resume` launches one `act_conn`, one `seg_counts` and no
     `pack_bits`)."""
     n = sum(counts.get(k, 0) for k in STEP_KERNELS)
+    learning = counts.get("table_update", 0)
+    serving = counts.get("serving_activation", 0)
     counts = {"sp_overlap": n if sp_steps is None else sp_steps,
-              "seg_counts": n - counts.get("serving_activation", 0),
-              "grow_select": counts.get("table_update", 0),
-              "grow_fill": counts.get("table_update", 0),
-              "pack_bits": STEP_PACKS * n,
+              "seg_counts": n - serving,
+              "row_counts": learning,
+              "grow_select": learning,
+              "learn_rows": learning,
+              "pack_bits": STEP_PACKS * n + serving,
               **counts}
     return {k.name: counts.get(k.name, 0) for k in kernels.KERNELS}
 

@@ -6,11 +6,16 @@ the 16K x 64 shapes with its index mask, and at Wc = 2049 and 4096;
 `sp_update_pack` also with inactive rows past the rail and -0.0;
 `sp_overlap` and `seg_counts`, the SP overlap and the per-segment count
 decode, also at the 16K x 64 shapes and in a CUDA graph of 20 calls,
-where `seg_counts` must be no slower than the int32 sum; `grow_select`,
-`grow_fill` and `pack_bits`, the growth's lists and selection, its fill
-and the bit pack, in the phase `check_grow_and_pack` at the bench, 16K x
-64 (tuned and auto caps), reference-stack and anomaly shapes, each in a
-CUDA graph of 20 calls, and on every path their wrappers report), with
+where `seg_counts` must be no slower than the int32 sum, and its flags
+form, which also writes the matching word and the prediction words, at
+those shapes, K = 125-128 and D = 8, 33, 48, 64; `grow_select`,
+`row_counts`, `learn_rows` and `pack_bits`, the growth's lists and
+selection read from the tables, the active rows' counts, the learning
+pass over the active rows (cleanup, update, death and the fill, in
+place) and the bit pack, in the phase `check_grow_and_pack` at the
+bench, 16K x 64 (tuned and auto caps), reference-stack and anomaly
+shapes, each in a CUDA graph of 20 calls, and on every path their
+wrappers report), with
 its time, its plain version's, its bound and where one exists a single
 PyTorch call's (the table kernels and the row-range word kernels with
 the grid their launcher chose; `small_table_take` with its wrapper's
@@ -21,8 +26,9 @@ input, then drives the main path: the bench configuration (2048 columns
 x 32 cells, G=4 x K=64, int16 SP, B=256 streams) through `htm_scan`, 768
 learning steps then inference, and checks that every kernel of that path
 was launched once a step (the table kernel, `sp_overlap`,
-`seg_counts` and at learning `grow_select` and `grow_fill`; `pack_bits`
-three times a step; `testing.step_launches` gives every count this
+`seg_counts` and at learning `row_counts`, `grow_select` and
+`learn_rows`; `pack_bits` twice a step, three times a serving step;
+`testing.step_launches` gives every count this
 script holds a run to), that the metrics are in range, that the graph
 learned to predict and that the state invariants hold. Then serves the
 next 64 steps from the learned state three ways (`htm_serve_scan` over
@@ -192,7 +198,8 @@ SOURCES = {
     "sp_overlap": "bithtm_tpu_torch/csrc/overlap_pass.cu",
     "seg_counts": "bithtm_tpu_torch/csrc/count_pass.cu",
     "grow_select": "bithtm_tpu_torch/csrc/grow_pass.cu",
-    "grow_fill": "bithtm_tpu_torch/csrc/grow_fill.cu",
+    "row_counts": "bithtm_tpu_torch/csrc/learn_pass.cu",
+    "learn_rows": "bithtm_tpu_torch/csrc/learn_pass.cu",
     "pack_bits": "bithtm_tpu_torch/csrc/pack_pass.cu",
 }
 REPLACES = {
@@ -207,7 +214,8 @@ REPLACES = {
     "sp_overlap": "bithtm_tpu/ops/overlap.py:85",
     "seg_counts": "bithtm_tpu/ops/active_set.py:588",
     "grow_select": "bithtm_tpu/models/temporal_memory.py:350",
-    "grow_fill": "bithtm_tpu/models/temporal_memory.py:221",
+    "row_counts": "bithtm_tpu/models/temporal_memory.py:106",
+    "learn_rows": "bithtm_tpu/models/temporal_memory.py:501",
     "pack_bits": "bithtm_tpu/ops/active_set.py:85",
 }
 
@@ -482,17 +490,65 @@ def counts_row(B: int, C: int, G: int, K: int, dev,
     return row
 
 
+def flags_row(B: int, C: int, G: int, K: int, D: int, dev,
+              graph: bool = True) -> dict:
+    """The flags form of `seg_counts` at (B, C, G, K) with owner cells
+    over D cells a column, against `seg_counts_flags_ref` bit for bit
+    (the matching word and the prediction words; the counts too in a
+    second call), with `kernel_row`'s times and bound (the activity and
+    the owners read once, the words written once; thresholds K/2 and
+    K/5, where about half the segments pass each). No PyTorch call
+    computes the flags or packs bits: no library time. With ``graph``,
+    its ms a call in a CUDA graph of 20."""
+    v = count_inputs(B, C, G, K, dev, B + C + G + K + D)
+    g = torch.Generator(device=dev).manual_seed(D)
+    seg_cell = torch.randint(0, D + 1, (B, C, G), generator=g, device=dev,
+                             dtype=torch.int32)
+    th = (K // 2, K // 5)
+    act = kernels._act_name(K)
+    at = f"B={B} C={C} G={G} K={K} D={D} {act}"
+    for counts in (False, True):
+        want = pas.seg_counts_flags_ref(v, seg_cell, K, *th, D, counts)
+        got = kernels.seg_flags_cuda(v, seg_cell, K, *th, D, counts)
+        torch.cuda.synchronize()
+        require(all((a is None and b is None) or torch.equal(a, b)
+                    for a, b in zip(got, want))
+                and bool((want[2] != 0).any())
+                and bool((want[3] != 0).any()),
+                f"seg_counts flags form == plain at {at}")
+    require(kernels.SEG_COUNTS.path == (act, "flags"),
+            f"seg_counts flags at K={K} takes ({act}, flags), got "
+            f"{kernels.SEG_COUNTS.path}")
+    row = kernel_row(f"seg_counts [{act}+flags]",
+                     lambda: kernels.seg_flags_cuda(v, seg_cell, K, *th, D),
+                     lambda: pas.seg_counts_flags_ref(v, seg_cell, K, *th,
+                                                      D),
+                     nbytes(v, seg_cell, want[2], want[3]), at,
+                     path=[act, "flags"])
+    if graph:
+        row["graph_ms"] = graph_ms(
+            lambda: kernels.seg_flags_cuda(v, seg_cell, K, *th, D))
+        print(f"  seg_counts flags form in a CUDA graph of 20 calls: "
+              f"{row['graph_ms']:.4f} ms a call; no library call")
+    return row
+
+
 def check_overlap_and_counts(dev) -> dict:
     """`sp_overlap` and `seg_counts` at the bench shapes (B=256, C=2048,
-    I=1000, G=4, K=64), each row with the 16K x 64 shapes' row (B=64,
-    C=16384) under "16k"."""
+    I=1000, G=4, K=64, D=32), each row with the 16K x 64 shapes' row
+    (B=64, C=16384, D=64) under "16k". The `seg_counts` row is its flags
+    form, which the step launches, with the counts form under
+    "counts_form"."""
     I, G, K = (BENCH[k] for k in ("input_dim", "segments_per_column",
                                   "synapse_capacity"))
     out = {}
-    for tag, B, C in (("bench", BATCH, BENCH["column_dim"]),
-                      ("16k", BATCH_16K, GEOM_16K["column_dim"])):
+    for tag, B, C, D in (
+            ("bench", BATCH, BENCH["column_dim"], BENCH["cell_dim"]),
+            ("16k", BATCH_16K, GEOM_16K["column_dim"],
+             GEOM_16K["cell_dim"])):
         rows = {"sp_overlap": overlap_row(B, C, I, dev, ("grid_y",)),
-                "seg_counts": counts_row(B, C, G, K, dev)}
+                "seg_counts": flags_row(B, C, G, K, D, dev)}
+        rows["seg_counts"]["counts_form"] = counts_row(B, C, G, K, dev)
         torch.cuda.empty_cache()
         for name, row in rows.items():
             if tag == "bench":
@@ -502,11 +558,11 @@ def check_overlap_and_counts(dev) -> dict:
     return out
 
 
-# `grow_select` and `grow_fill` at the main paths' geometries (tag: B, C,
-# D, A, G, K, Wc, L, samp; the bench, the 16K tuned and auto caps, the
-# reference and the anomaly stacks) and past them (samp = K, K = 128, Wc
-# = 2049, one key row a block, keys in global memory in both forms, kk
-# past 32)
+# `grow_select`, `row_counts` and `learn_rows` at the main paths'
+# geometries (tag: B, C, D, A, G, K, Wc, L, samp; the bench, the 16K tuned
+# and auto caps, the reference and the anomaly stacks) and past them (samp
+# = K, K = 128, Wc = 2049, one key row a block, keys in global memory in
+# both forms, kk past 32)
 GROW_MAIN = {
     "bench": (BATCH, 2048, 32, 41, 4, 64, 128, 88, 32),
     "16k tuned": (BATCH_16K, 16384, 64, 328, 4, 64, 384, 336, 32),
@@ -521,11 +577,12 @@ GROW_PATHS = {
     "one key row a block": (2, 4096, 32, 1024, 1, 16, 20_000, 16, 32),
     "global, cell": (2, 2048, 32, 2048, 1, 16, 29_057, 8, 32),
     "global, index": (2, 4096, 32, 1024, 1, 16, 29_057, 8, 32),
-    # kk = 40: `grow_fill` reads each written slot's cell ("load")
+    # kk = 40: `learn_rows` reads each written slot's cell ("load")
     "samp=40": (16, 2048, 32, 41, 4, 48, 700, 40, 40),
 }
 # `pack_bits` at the main paths' (B, rows, D): the active and winner
-# cells (B, A, D) and the matching flags (B, C, G); then D = 1, 33, 48
+# cells (B, A, D) and the serving step's matching flags (B, C, G); then D
+# = 1, 33, 48
 PACK_MAIN = {
     "bench": (BATCH, 2048, 4), "bench cells": (BATCH, 41, 32),
     "16k": (BATCH_16K, 16384, 4), "16k cells": (BATCH_16K, 328, 64),
@@ -536,68 +593,111 @@ PACK_PATHS = {"D=1": (64, 1000, 1), "D=33": (64, 1000, 33),
               "D=48": (64, 1000, 48)}
 
 
-def grow_row(geo: tuple, dev, graph: bool = True) -> tuple[dict, dict]:
-    """`grow_select` at ``geo`` (`testing.grow_inputs`) against
-    `grow_select_ref` (every output equal, chosen up to n_chosen), then
-    `grow_fill` on that selection against `grow_fill_ref` (`fill_row`),
-    with `kernel_row`'s times and bound for `grow_select`: each stream's
-    winner words, columns and learning flags, the random words of the
-    rows that grow (their valid candidates only), the K slots (5 bytes)
-    of every valid row and the outputs, each once. Its library call is
-    `torch.topk(largest=False)` over the same masked keys. With
-    ``graph``, the kernel's and the library's ms a call in a CUDA graph
-    of 20. Returns (the `grow_select` row, the `grow_fill` row)."""
+def grow_row(geo: tuple, dev, graph: bool = True) -> tuple[dict, ...]:
+    """`grow_select` at ``geo`` on a learning step's tables
+    (`testing.learn_inputs`: the rows read where they lie, before the
+    learning pass, new segments empty) against `grow_select_ref` (every
+    output equal, chosen up to n_chosen), then `row_counts` on the same
+    tables (`counts_rows_row`) and `learn_rows` on that selection
+    (`learn_row`), with `kernel_row`'s times and bound for `grow_select`:
+    each stream's winner words, columns and flags, the random words of
+    the rows that grow (their valid candidates only), the K slots (syn
+    and activity) of every valid row and the outputs, each once. Its
+    library call is `torch.topk(largest=False)` over the same masked
+    keys. With ``graph``, the kernel's and the library's ms a call in a
+    CUDA graph of 20. Returns (the `grow_select` row, the `row_counts`
+    row, the `learn_rows` row)."""
     B, C, D, A, G, K, Wc, L, samp = geo
-    x = testing.grow_inputs(sum(geo), *geo, device=dev)
-    want = ptm.grow_select_ref(**x)
-    got = ptm.GrowSelection(*kernels.grow_select_cuda(**x))
+    x = testing.learn_inputs(sum(geo), *geo, device=dev)
+    s = x["select"]
+    want = ptm.grow_select_ref(**s)
+    got = ptm.GrowSelection(*kernels.grow_select_cuda(**s))
     torch.cuda.synchronize()
     at = f"B={B} C={C} D={D} A={A} G={G} K={K} Wc={Wc} L={L} samp={samp}"
     require(testing.same_choice(got, want) and bool((want[1] > 0).any()),
             f"grow_select == plain at {at}")
-    path = kernels._grow_keys(x["cell_form"], Wc)
+    path = kernels._grow_keys(s["cell_form"], Wc)
     require(kernels.GROW_SELECT.path == path, f"grow_select at {at} takes "
             f"{path}, got {kernels.GROW_SELECT.path}")
-    keys, n_grow, n_cand = grow_keys(x, want)
+    keys, n_grow, n_cand = grow_keys(s, want)
     kk = min(samp, Wc)
+    slot = 4 + s["act_rows"].element_size()
     moved = (4 * int(((n_grow > 0) * n_cand[:, None]).sum())
-             + 5 * K * int(want.lvalid.sum())
-             + nbytes(x["prev_winner_bits"], x["prev_cols"], x["learn_rows"])
+             + slot * K * int(want.lvalid.sum())
+             + nbytes(s["prev_winner_bits"], s["prev_cols"], s["learn_rows"],
+                      s["new_seg"], s["row_cols"])
              + nbytes(*want))
 
     def library():
         return torch.topk(keys, kk, dim=-1, largest=False)
 
     row = kernel_row(f"grow_select [{'+'.join(path)}]",
-                     lambda: kernels.grow_select_cuda(**x),
-                     lambda: ptm.grow_select_ref(**x), moved, at,
+                     lambda: kernels.grow_select_cuda(**s),
+                     lambda: ptm.grow_select_ref(**s), moved, at,
                      library=library, path=list(path),
                      growing_rows=int((n_grow > 0).sum()))
     if graph:
-        row["graph_ms"] = graph_ms(lambda: kernels.grow_select_cuda(**x))
+        row["graph_ms"] = graph_ms(lambda: kernels.grow_select_cuda(**s))
         row["library_graph_ms"] = graph_ms(library)
         print(f"  grow_select in a CUDA graph of 20 calls: "
               f"{row['graph_ms']:.4f} ms a call, torch.topk "
               f"{row['library_graph_ms']:.4f}")
     del keys
-    return row, fill_row(x, want, at, graph)
+    return (row, counts_rows_row(x, G, at, graph),
+            learn_row(x, want, at, graph))
 
 
-def grow_keys(x: dict, sel) -> tuple:
-    """The masked growth keys of `grow_select`'s inputs ``x`` at the lists
-    of its selection ``sel`` (the form's sentinel where invalid), each
-    row's n_grow and each stream's candidate count."""
-    Wc = x["rnd"].shape[-1]
-    n_cand = torch.clamp(popcount32(x["prev_winner_bits"]).sum(
+def grow_keys(s: dict, sel) -> tuple:
+    """The masked growth keys of `grow_select`'s arguments ``s`` (on the
+    tables, before the learning pass) at the lists of its selection
+    ``sel`` (the form's sentinel where invalid), each row's n_grow and
+    each stream's candidate count."""
+    Wc = s["rnd"].shape[-1]
+    R = s["learn_rows"].shape[1]
+    fresh = s["new_seg"][..., None]
+    syn = torch.where(fresh, -1, ptm._active_rows(s["syn_rows"],
+                                                  s["row_cols"], R))
+    act = (ptm._active_rows(s["act_rows"], s["row_cols"], R) != 0) & ~fresh
+    n_cand = torch.clamp(popcount32(s["prev_winner_bits"]).sum(
         (1, 2), dtype=torch.int32), max=Wc)
     cand_valid = torch.arange(Wc, device=n_cand.device) < n_cand[:, None]
     pkey, valid, n_grow = ptm.growth_keys_ref(
-        x["syn_rows"], x["act_rows"], sel.lidx, sel.lvalid, sel.cand_cell,
-        cand_valid, n_cand, x["rnd"], x["samp"], x["key_bits"],
-        x["cell_form"])
-    keys = torch.where(valid, pkey, (1 << 32) - 1 if x["cell_form"]
+        syn, act, sel.lidx, sel.lvalid, sel.cand_cell, cand_valid, n_cand,
+        s["rnd"], s["samp"], s["key_bits"], s["cell_form"], raw=True)
+    keys = torch.where(valid, pkey, (1 << 32) - 1 if s["cell_form"]
                        else ptm.PACKED_IDX_SENTINEL)
     return keys, n_grow, n_cand.to(torch.int64)
+
+
+def counts_rows_row(x: dict, G: int, at: str, graph: bool) -> dict:
+    """`row_counts` on the tables of ``x`` at its active columns against
+    `row_counts_ref`, the three counts equal, with `kernel_row`'s times
+    and bound: the active rows' slots (syn, perm and activity) and the
+    columns read once, the three (B, A, G) counts written once; no
+    PyTorch call computes them: no library time."""
+    s = x["select"]
+    args = (s["syn_rows"], x["perm"], s["act_rows"], x["cols"], G)
+    want = ptm.row_counts_ref(*args)
+    got = kernels.row_counts_cuda(*args)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, want))
+            and bool((want[2] > 0).any()) and bool((want[0] > 0).any()),
+            f"row_counts == plain at {at}")
+    act = kernels._act_name(s["syn_rows"].shape[-1] // G)
+    require(kernels.ROW_COUNTS.path == (act, "table"),
+            f"row_counts at {at} takes ({act}, table), got "
+            f"{kernels.ROW_COUNTS.path}")
+    slot = 8 + s["act_rows"].element_size()
+    row = kernel_row(f"row_counts [{act}+table]",
+                     lambda: kernels.row_counts_cuda(*args),
+                     lambda: ptm.row_counts_ref(*args),
+                     slot * want[0].numel() * (s["syn_rows"].shape[-1] // G)
+                     + nbytes(x["cols"], *want), at, path=[act, "table"])
+    if graph:
+        row["graph_ms"] = graph_ms(lambda: kernels.row_counts_cuda(*args))
+        print(f"  row_counts in a CUDA graph of 20 calls: "
+              f"{row['graph_ms']:.4f} ms a call")
+    return row
 
 
 def fresh_ms(calls, restore, graph: bool = False, reps: int = 5) -> float:
@@ -638,71 +738,120 @@ def fresh_ms(calls, restore, graph: bool = False, reps: int = 5) -> float:
     return total / (len(calls) * reps)
 
 
-def fill_row(x: dict, sel, at: str, graph: bool) -> dict:
-    """`grow_fill` on the selection ``sel`` of ``x`` (the index-form keys
-    decoded first, as `_grow` does) against `grow_fill_ref` on copies of
-    the same rows: the synapse and permanence rows, the mask and the
-    counts equal, and cells written. Timed on 20 fresh copies of the rows
-    (`fresh_ms`: the wrapper's call, its zeroing of the mask included),
-    plain and, with ``graph``, in a CUDA graph of 20. Bound: the list
-    (9 bytes a row), the K slots and n_chosen cells of each row that
-    takes one, 8 bytes a slot written and the mask, each once; no
-    PyTorch call computes the fill: no library time."""
-    syn = x["syn_rows"]
-    g = torch.Generator(device=syn.device).manual_seed(syn.shape[0])
-    perm = torch.where(syn >= 0, torch.rand(syn.shape, generator=g,
-                                            device=syn.device), -1.0)
+def disjoint_cols(B: int, C: int, A: int, n: int, dev, seed: int) -> list:
+    """n sets of A sorted columns a stream, no column in two sets."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    order = torch.argsort(torch.rand((B, C), generator=g, device=dev),
+                          dim=1)[:, :n * A].reshape(B, n, A)
+    return [c.sort(-1).values.to(torch.int32).contiguous()
+            for c in order.unbind(1)]
+
+
+def learn_row(x: dict, sel, at: str, graph: bool) -> dict:
+    """`learn_rows` on the selection ``sel`` of ``x`` (the index-form
+    keys decoded first, as `_learn` does) against `learn_rows_ref` on
+    fresh copies of the tables, at the active columns and on gathered
+    rows, with and without the mask: the synapse and permanence tables
+    (bit for bit), the mask and the counts equal, and cells written.
+    Timed on up to 20 calls (`fresh_ms`), each on its own copy of the
+    active rows, put at its own columns of one copy of the tables (the
+    rows are restored between runs), plain and, with ``graph``, in a
+    CUDA graph of 20. Bound: the active rows' slots (syn, perm and
+    activity) read once, the syn and perm slots that change written once,
+    the columns, flags and list places of the rows, the list entries of
+    the rows in the list and the cells written read once; no PyTorch call
+    computes the pass: no library time."""
+    s = x["select"]
     cells = sel.chosen
-    if not x["cell_form"]:
+    if not s["cell_form"]:
         cells = pas.take_small_table_ref(sel.cand_cell, cells,
-                                         (1 << x["key_bits"]) - 1)
-    pinit = 0.21
-    args = (sel.lidx, sel.lvalid, cells, sel.n_chosen)
-    out = []
-    for fill in (ptm.grow_fill_ref, kernels.grow_fill_cuda):
-        s, p, c = syn.clone(), perm.clone(), sel.counts.clone()
-        out.append((s, p, fill(s, p, *args, c, pinit), c))
-    torch.cuda.synchronize()
-    (s1, p1, w1, c1), (s2, p2, w2, c2) = out
-    require(torch.equal(s1, s2) and torch.equal(p1, p2)
-            and torch.equal(w1, w2) and torch.equal(c1, c2)
-            and bool(w1.any()), f"grow_fill == plain at {at}")
-    path = (kernels._fill_path(cells.shape[-1]),)
-    require(kernels.GROW_FILL.path == path, f"grow_fill at {at} takes "
-            f"{path}, got {kernels.GROW_FILL.path}")
-    K = syn.shape[-1]
-    takes = sel.lvalid & (sel.n_chosen > 0)
-    moved = (9 * sel.lidx.numel() + 4 * K * int(takes.sum())
-             + 4 * int(sel.n_chosen.sum()) + 8 * int(w1.sum())
-             + nbytes(w1, c1))
-    del out, s1, p1, w1, c1, s2, p2, w2, c2
-    copies = [(syn.clone(), perm.clone(), sel.counts.clone())
-              for _ in range(20)]
+                                         (1 << s["key_bits"]) - 1)
+    syn0, perm0, act0, cols = s["syn_rows"], x["perm"], s["act_rows"], \
+        x["cols"]
+    hyper = (x["increment"], x["decrement"], x["permanence_initial"])
+    lists = (x["learn"], x["new_seg"], sel.lpos, cells, sel.n_chosen)
+    for gathered in (False, True):
+        for mask in (False, True):
+            out = []
+            for learn in (ptm.learn_rows_ref, kernels.learn_rows_cuda):
+                syn, perm, act, c = (syn0.clone(), perm0.clone(), act0,
+                                     sel.counts.clone())
+                where = cols
+                if gathered:
+                    syn, perm, act = (ptm._rows(t, cols)
+                                      for t in (syn, perm, act))
+                    where = None
+                w = learn(syn, perm, act, where, *lists, c, *hyper, mask)
+                out.append((syn, perm.view(torch.int32), c)
+                           + (() if w is None else (w,)))
+            torch.cuda.synchronize()
+            (s1, p1, c1, *w1), (s2, p2, c2, *w2) = out
+            require(torch.equal(s1, s2) and torch.equal(p1, p2)
+                    and torch.equal(c1, c2)
+                    and all(torch.equal(a, b) for a, b in zip(w1, w2))
+                    and int(c1[ptm.N_GROWN].sum()) > 0,
+                    f"learn_rows == plain at {at}, "
+                    f"{'gathered rows' if gathered else 'the columns'}"
+                    f"{', mask' if mask else ''}")
+            path = (kernels._act_name(syn0.shape[-1] // (
+                x["learn"].shape[1] // cols.shape[1])),
+                "rows" if gathered else "table",
+                kernels._fill_path(cells.shape[-1]))
+            require(kernels.LEARN_ROWS.path == path, f"learn_rows at {at} "
+                    f"takes {path}, got {kernels.LEARN_ROWS.path}")
+    # the main path's call: at the columns, no mask
+    path = list(kernels.LEARN_ROWS.path[:1]) + ["table"] + [
+        kernels._fill_path(cells.shape[-1])]
+    syn1, perm1 = syn0.clone(), perm0.clone()
+    c1 = sel.counts.clone()
+    ptm.learn_rows_ref(syn1, perm1, act0, cols, *lists, c1, *hyper)
+    B, C, J = syn0.shape
+    A, R = cols.shape[1], x["learn"].shape[1]
+    K = J // (R // A)
+    in_list = sel.lpos >= 0
+    moved = (B * R * K * (8 + act0.element_size())
+             + 4 * int((syn1 != syn0).sum())
+             + 4 * int((perm1.view(torch.int32)
+                        != perm0.view(torch.int32)).sum())
+             + nbytes(cols, x["learn"], x["new_seg"], sel.lpos)
+             + 4 * int(in_list.sum())
+             + 4 * int(c1[ptm.N_GROWN].sum()) + 8 * B)
+    changed = int((syn1 != syn0).sum())
+    del syn1, perm1
+    n = max(1, min(20, C // A))
+    sets = disjoint_cols(B, C, A, n, syn0.device, C + A)
+    syn_w, perm_w, act_w = syn0.clone(), perm0.clone(), act0.clone()
+    rows = [ptm._rows(t, cols) for t in (syn0, perm0, act0)]
+    for where in sets:
+        ptm._put_rows(act_w, where, rows[2])
+    counts = [sel.counts.clone() for _ in sets]
 
     def restore():
-        for s, p, c in copies:
-            s.copy_(syn)
-            p.copy_(perm)
+        for where, c in zip(sets, counts):
+            ptm._put_rows(syn_w, where, rows[0])
+            ptm._put_rows(perm_w, where, rows[1])
             c.copy_(sel.counts)
 
-    def calls(fill):
-        return [lambda s=s, p=p, c=c: fill(s, p, *args, c, pinit)
-                for s, p, c in copies]
+    def calls(learn):
+        return [lambda where=where, c=c: learn(syn_w, perm_w, act_w, where,
+                                               *lists, c, *hyper)
+                for where, c in zip(sets, counts)]
 
-    row = {"ms": fresh_ms(calls(kernels.grow_fill_cuda), restore),
-           "plain_ms": fresh_ms(calls(ptm.grow_fill_ref), restore),
+    row = {"ms": fresh_ms(calls(kernels.learn_rows_cuda), restore),
+           "plain_ms": fresh_ms(calls(ptm.learn_rows_ref), restore),
            "max_abs_err": 0.0, "bound_ms": 1e3 * moved / HBM_BYTES_PER_S,
            "bound_by": "bytes", "library_ms": None, "at": at,
-           "path": list(path)}
+           "path": path, "calls": n, "slots_changed": changed}
     if graph:
-        row["graph_ms"] = fresh_ms(calls(kernels.grow_fill_cuda), restore,
+        row["graph_ms"] = fresh_ms(calls(kernels.learn_rows_cuda), restore,
                                    graph=True)
-    print(f"kernel grow_fill [{path[0]}]: {row['ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+    print(f"kernel learn_rows [{'+'.join(path)}]: {row['ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
           f"({moved / 1e6:.1f} MB), library call none, at {at}"
-          + (f"; in a CUDA graph of 20 calls {row['graph_ms']:.4f} ms a "
-             f"call" if graph else "") + "; bit-equal")
-    del copies
+          + (f"; in a CUDA graph of {n} calls {row['graph_ms']:.4f} ms a "
+             f"call" if graph else "") + "; bit-equal at the columns and "
+          f"on gathered rows, with and without the mask")
+    del syn_w, perm_w, act_w, rows
     return row
 
 
@@ -736,12 +885,13 @@ def pack_row(shape: tuple, dev, graph: bool = True) -> dict:
 
 
 def check_grow_and_pack(dev) -> tuple[dict, dict]:
-    """`grow_select` and `pack_bits` held bit-equal to their plain
-    versions and timed (`grow_row`, `pack_row`) at the main paths'
-    geometries, each also in a CUDA graph of 20 calls, and on every path
-    the wrappers report. The geometries' caps are the configurations'
-    own. Returns ({kernel: the bench row, the other main rows under
-    their tags}, {kernel: {case: row}} of every row, for the paths)."""
+    """`grow_select`, `row_counts`, `learn_rows` and `pack_bits` held
+    bit-equal to their plain versions and timed (`grow_row`, `pack_row`)
+    at the main paths' geometries, each also in a CUDA graph of 20 calls,
+    and on every path the wrappers report. The geometries' caps are the
+    configurations' own. Returns ({kernel: the bench row, the other main
+    rows under their tags}, {kernel: {case: row}} of every row, for the
+    paths)."""
     for tag, cfg in (("bench", bt.make_htm_config(**BENCH).tm),
                      ("16k tuned", bt.make_htm_config(**GEOM_16K,
                                                       **TUNED_16K).tm),
@@ -753,14 +903,13 @@ def check_grow_and_pack(dev) -> tuple[dict, dict]:
             cfg.resolved_winner_capacity, cfg.resolved_growth_capacity,
             cfg.segment_sampling_synapses), f"GROW_MAIN[{tag}] is the "
             f"configuration's geometry")
-    rows = {"grow_select": {}, "grow_fill": {}, "pack_bits": {}}
-    for tag, geo in GROW_MAIN.items():
-        rows["grow_select"][tag], rows["grow_fill"][tag] = grow_row(
-            geo, dev)
-        torch.cuda.empty_cache()
-    for tag, geo in GROW_PATHS.items():
-        rows["grow_select"][tag], rows["grow_fill"][tag] = grow_row(
-            geo, dev, graph=False)
+    names = ("grow_select", "row_counts", "learn_rows")
+    rows = {name: {} for name in (*names, "pack_bits")}
+    for geos, graph in ((GROW_MAIN, True), (GROW_PATHS, False)):
+        for tag, geo in geos.items():
+            for name, row in zip(names, grow_row(geo, dev, graph)):
+                rows[name][tag] = row
+            torch.cuda.empty_cache()
     for tag, shape in PACK_MAIN.items():
         rows["pack_bits"][tag] = pack_row(shape, dev)
     for tag, shape in PACK_PATHS.items():
@@ -1565,8 +1714,8 @@ def run_serving(cfg, state, gen, xs) -> dict:
     kernels.reset_launch_counts()
     s_r = bt.resume_learning(cfg, s_p)
     resumed = kernels.launch_counts()
-    require(resumed == steps(act_conn=1, sp_steps=0, pack_bits=1),
-            f"resume_learning launches act_conn, seg_counts and pack_bits "
+    require(resumed == steps(act_conn=1, sp_steps=0, pack_bits=0),
+            f"resume_learning launches act_conn and seg_counts (flags) "
             f"once, got "
             f"{resumed}")
     diff = differing_leaves(s_r, s_u)
@@ -1718,7 +1867,8 @@ def time_phases(snap: Snapshot, xs) -> None:
 PORT_KERNELS = ("table_pass_kernel", "word_range_kernel", "word_pass_kernel",
                 "small_take_kernel", "sp_update_pack_kernel",
                 "sp_overlap_kernel", "seg_counts_kernel",
-                "grow_select_kernel", "grow_fill_kernel",
+                "seg_flags", "grow_select_kernel",
+                "row_counts_kernel", "learn_rows_kernel",
                 "pack_ballot_kernel", "pack_vec_kernel")
 
 
@@ -2592,6 +2742,7 @@ def check_anomaly_kernels(dev) -> dict:
 
 PATH_KS = (126, 127, 128)      # bf16, bf16 and float32 packed activity
 COUNT_KS = (125, 126, 127, 128)  # seg_counts: u8, bf16, bf16, float32
+FLAG_DS = (8, 33, 48, 64)      # the flags form's cells a column (D=8: G=8)
 PATH_KS_AT = (64, 2048, 32, 2, 41)   # B, C, D, G, A of those tables
 GLOBAL_CS = (32_768, 29_057)   # 2,097,152 cells; one column past the limit
 GLOBAL_AT = (4, 64, 4, 64)     # B, D, G, K of the global-bitmap tables
@@ -2751,7 +2902,8 @@ def check_paths(dev) -> dict:
     at 32,768 x 64 and one column past the limit, B=4; `table_update` on
     a column shard of 32,768 columns; `act_frozen`, `sp_update_pack` and
     `sp_overlap` at B = 65,536 with C=2; `seg_counts` on u8, bf16 and
-    float32 activity at K = 125-128; `sp_update_pack` past its shared
+    float32 activity at K = 125-128, and its flags form there and at D =
+    8 (G = 8), 33, 48 and 64; `sp_update_pack` past its shared
     memory (I_pad = 59,392, C=64, B=2). Returns {kernel: {case: row}}."""
     out: dict[str, dict] = {k.name: {} for k in kernels.KERNELS}
 
@@ -2792,10 +2944,15 @@ def check_paths(dev) -> dict:
         "sp_overlap": overlap_row(WIDE_B, 2, BENCH["input_dim"], dev,
                                   ("grid_x_streams",), graph=False)})
     del x, word, cols, bits, f_ref, f_k
-    B, C, _, G, _ = PATH_KS_AT
+    B, C, D, G, _ = PATH_KS_AT
     for K in COUNT_KS:
         add(f"K={K}", {"seg_counts": counts_row(B, C, G, K, dev,
                                                 graph=False)})
+        add(f"K={K} flags", {"seg_counts": flags_row(B, C, G, K, D, dev,
+                                                     graph=False)})
+    for D in FLAG_DS:
+        add(f"D={D} flags", {"seg_counts": flags_row(
+            B, C, 8 if D == 8 else G, 64, D, dev, graph=False)})
     B, C, I_pad = GMEM_SP
     add("gmem delta int16", {"sp_update_pack": check_sp_paths(
         dev, B, C, I_pad, True)})
@@ -2819,9 +2976,10 @@ PROFILE_16K_ARGS = ["--fast", "--batch", str(BATCH_16K), "--column_dim",
                     "16384", "--cell_dim", "64", "--trace_steps", "16",
                     "--warmup_steps", "256"]
 # the kernels a learning step launches in the range `_learn/_grow`, at
-# most: `grow_select`, the mask's zeroing and `grow_fill`, with the
-# index form's `small_table_take` at 16K, and one to spare
-GROW_RANGE_LAUNCHES = {"bench": 5, "16k": 6}
+# most: `grow_select`, with the index form's `small_table_take` at 16K,
+# and one to spare; the range `_learn/learn_rows` launches `learn_rows`
+# alone
+GROW_RANGE_LAUNCHES = {"bench": 2, "16k": 3}
 SOAK_16K_TO = 2048      # the step the learned 16K state is carried on to
 SOAK_16K_CHUNK = 256
 SOAK_EVICT = ["--steps", "1024", "--batch", "64", "--window", "256"]
@@ -2922,7 +3080,8 @@ def run_profile(graph_launches: float) -> dict:
     step of the main path's graph (``graph_launches``, from
     `run_graph_bench`). Then at 16K x 64 (B=64, tuned caps, warmed 256
     steps). At both, the range `_learn/_grow` launches at most
-    GROW_RANGE_LAUNCHES kernels a step. Returns the bench profile, the
+    GROW_RANGE_LAUNCHES kernels a step and `_learn/learn_rows` one.
+    Returns the bench profile, the
     16K one under "16k"."""
     from bithtm_tpu_torch.scripts import profile_step
 
@@ -2941,8 +3100,12 @@ def run_profile(graph_launches: float) -> dict:
         require(n <= GROW_RANGE_LAUNCHES[tag], f"{site} launches {n} "
                 f"kernels a {tag} learning step, at most "
                 f"{GROW_RANGE_LAUNCHES[tag]}")
+        pass_site = "tm_step._learn/learn_rows"
+        require(prof["launches"][pass_site] == 1, f"{pass_site} launches "
+                f"learn_rows alone, got {prof['launches'][pass_site]}")
         print(f"profile {tag}: {site} {prof['sites'][site]:.3f} ms and "
-              f"{n:.1f} launches a step")
+              f"{n:.1f} launches a step; {pass_site} "
+              f"{prof['sites'][pass_site]:.3f} ms")
     return out
 
 

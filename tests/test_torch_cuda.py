@@ -473,48 +473,49 @@ def test_small_table_take_matches_plain(B, Wc, L, kk, masked, cuda):
         assert torch.equal(keys, want)
 
 
+def _grow_and_learn(x: dict, where, want_mask: bool = True) -> list:
+    """`grow_select`, the index-form decode and `learn_rows` on copies of
+    `testing.learn_inputs`' tables on ``where`` (CPU or card), as `_learn`
+    runs them. Returns the selection, the tables, the mask and the
+    counts, on the CPU."""
+    s = {k: (v.to(where) if isinstance(v, torch.Tensor) else v)
+         for k, v in x["select"].items()}
+    s["syn_rows"] = s["syn_rows"].clone()
+    perm = x["perm"].to(where, copy=True)
+    sel = ptm.grow_select(**s)
+    chosen = sel.chosen
+    if not s["cell_form"]:
+        chosen = pas.take_small_table(sel.cand_cell, chosen,
+                                      (1 << s["key_bits"]) - 1,
+                                      in_place=True)
+    wrote = ptm.learn_rows(s["syn_rows"], perm, s["act_rows"],
+                           s["row_cols"], s["learn_rows"], s["new_seg"],
+                           sel.lpos, chosen, sel.n_chosen, sel.counts,
+                           x["increment"], x["decrement"],
+                           x["permanence_initial"], want_mask=want_mask)
+    return [t.cpu() for t in (*sel[1:], s["syn_rows"], perm,
+                              *(() if wrote is None else (wrote,)))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Wc", [2049, 4096])
 def test_grow_matches_cpu_above_2048_candidates(Wc, cuda):
-    """`_grow` above 2^16 cells (4096 x 32, the index-keyed selection)
-    with a candidate list wider than 2048 words, on the card and on the
-    CPU from the same rows and draws: every output equal, and the decode
-    launched once."""
-    B, A, G, K, D, C, L = 2, 80, 2, 16, 32, 4096, 40
-    cfg = bt.make_htm_config(64, C, D, active_columns=A,
-                             segments_per_column=G, synapse_capacity=K,
-                             segment_sampling_synapses=8,
-                             winner_capacity=Wc, growth_capacity=L).tm
-    rng = np.random.default_rng(Wc)
-    cols = np.stack([np.sort(rng.choice(C, A, replace=False))
-                     for _ in range(B)]).astype(np.int32)
-    winners = rng.random((B, A, D)) < 0.9        # about 2300 candidates
-    live = rng.random((B, A, G, K)) < 0.5
-    syn = np.where(live, rng.integers(0, C * D, (B, A, G, K)), -1)
-    inputs = dict(
-        rnd=rng.integers(-(1 << 31), 1 << 31, (B, L, Wc), dtype=np.int64
-                         ).astype(np.int32),
-        syn_rows=syn.astype(np.int32),
-        perm_rows=np.where(live, rng.random((B, A, G, K)), -1.0).astype(
-            np.float32),
-        learn_rows=rng.random((B, A, G)) < 0.3,
-        act_prev_rows=live & (rng.random((B, A, G, K)) < 0.2),
-        prev_cols=cols,
-        prev_winner_bits=pas.pack_bits(torch.from_numpy(winners)).numpy())
+    """`grow_select`, its decode and `learn_rows` above 2^16 cells (4096
+    x 32, the index-keyed selection) with a candidate list wider than
+    2048 words, on the card and on the CPU from the same tables and
+    draws: every output equal, each kernel launched once."""
+    x = testing.learn_inputs(Wc, 2, 4096, 32, 80, 2, 16, Wc, 40, 8)
     outs = []
     for where in ("cpu", cuda):
-        # _grow updates the rows in place: each run takes its own copy
-        t = {k: torch.from_numpy(v.copy()).to(where)
-             for k, v in inputs.items()}
         before = kernels.launch_counts()
-        outs.append([o.cpu() for o in ptm._grow(cfg, **t)])
+        outs.append(_grow_and_learn(x, where))
         on_card = int(where != "cpu")
         assert launched(before) == only(small_table_take=on_card,
                                         grow_select=on_card,
-                                        grow_fill=on_card)
+                                        learn_rows=on_card)
     for got, want in zip(*outs[::-1]):
         assert torch.equal(got, want)
-    assert int(outs[0][2].sum()) > 0               # synapses grew
+    assert bool(outs[0][-1].any())               # synapses grew
 
 
 # B, C, D, A, G, K, Wc, L, samp of `grow_select` on the card: the bench
@@ -536,13 +537,17 @@ GROW_GEOMS = [
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tables", [False, True])
 @pytest.mark.parametrize("geo", GROW_GEOMS)
-def test_grow_select_matches_plain(geo, cuda):
-    """`grow_select` against `grow_select_ref` on the same CUDA tensors
-    (`testing.grow_inputs`): n_chosen and the chosen cells or keys up to
-    it equal, on the path its wrapper reports; the dispatcher launches
-    the kernel once."""
-    x = testing.grow_inputs(sum(geo), *geo, device=cuda)
+def test_grow_select_matches_plain(geo, tables, cuda):
+    """`grow_select` against `grow_select_ref` on the same CUDA tensors:
+    gathered rows (`testing.grow_inputs`) or, with ``tables``, the rows
+    where they lie in the tables, before the learning pass, new segments
+    empty (`testing.learn_inputs`): n_chosen, the lists and the chosen
+    cells or keys up to n_chosen equal, on the path its wrapper reports;
+    the dispatcher launches the kernel once."""
+    x = (testing.learn_inputs(sum(geo), *geo, device=cuda)["select"]
+         if tables else testing.grow_inputs(sum(geo), *geo, device=cuda))
     want = ptm.grow_select_ref(**x)
     before = kernels.launch_counts()
     got = ptm.grow_select(**x)
@@ -554,35 +559,100 @@ def test_grow_select_matches_plain(geo, cuda):
     assert bool((want[1] > 0).any())
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bits (so that -0.0 and 0.0 differ), else t."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("want_mask", [False, True])
 @pytest.mark.parametrize("geo", GROW_GEOMS)
-def test_grow_fill_matches_plain(geo, cuda):
-    """`grow_fill` against `grow_fill_ref` on copies of the same rows and
-    the same selection (`grow_select_ref` on `testing.grow_inputs`, the
-    index-form keys decoded): the synapse and permanence rows, the mask
-    of the slots written and the counts equal, on the path its wrapper
-    reports; the dispatcher launches the kernel once."""
-    x = testing.grow_inputs(sum(geo), *geo, device=cuda)
-    sel = ptm.grow_select_ref(**x)
+def test_learn_rows_matches_plain(geo, want_mask, cuda):
+    """`learn_rows` against `learn_rows_ref` on copies of the same tables
+    and the same selection (`grow_select_ref` on `testing.learn_inputs`,
+    the index-form keys decoded): the synapse and permanence tables
+    (stale slots, new segments, the update with its +-0.0, death and the
+    fill), the mask of the slots grown and the counts equal, on the path
+    its wrapper reports, at the columns and on gathered rows; the
+    dispatcher launches the kernel once. `row_counts` against
+    `row_counts_ref` on the same tables."""
+    x = testing.learn_inputs(sum(geo), *geo, device=cuda)
+    s = x["select"]
+    sel = ptm.grow_select_ref(**s)
     cells = sel.chosen
-    if not x["cell_form"]:
+    if not s["cell_form"]:
         cells = pas.take_small_table_ref(sel.cand_cell, cells,
-                                         (1 << x["key_bits"]) - 1)
-    syn = x["syn_rows"]
-    perm = torch.where(syn >= 0, 0.5, -1.0)
-    out = []
-    for on_card in (False, True):
-        s, p, c = syn.clone(), perm.clone(), sel.counts.clone()
-        before = kernels.launch_counts()
-        fill = ptm.grow_fill if on_card else ptm.grow_fill_ref
-        w = fill(s, p, sel.lidx, sel.lvalid, cells, sel.n_chosen, c, 0.21)
-        torch.cuda.synchronize()
-        assert launched(before) == only(grow_fill=int(on_card))
-        out.append((s, p, w, c))
-    assert kernels.GROW_FILL.path == (kernels._fill_path(cells.shape[-1]),)
-    for got, want in zip(out[1], out[0]):
+                                         (1 << s["key_bits"]) - 1)
+    B, A = x["cols"].shape
+    for gathered in (False, True):
+        out = []
+        for on_card in (False, True):
+            syn, perm = s["syn_rows"].clone(), x["perm"].clone()
+            cols = x["cols"]
+            if gathered:
+                syn, perm = ptm._rows(syn, cols), ptm._rows(perm, cols)
+                act, cols = ptm._rows(s["act_rows"], cols), None
+            else:
+                act = s["act_rows"]
+            c = sel.counts.clone()
+            before = kernels.launch_counts()
+            learn = ptm.learn_rows if on_card else ptm.learn_rows_ref
+            w = learn(syn, perm, act, cols, x["learn"], x["new_seg"],
+                      sel.lpos, cells, sel.n_chosen, c, x["increment"],
+                      x["decrement"], x["permanence_initial"], want_mask)
+            torch.cuda.synchronize()
+            assert launched(before) == only(learn_rows=int(on_card))
+            out.append((syn, perm, c) + (() if w is None else (w,)))
+        assert kernels.LEARN_ROWS.path == (
+            kernels._act_name(geo[5]), "rows" if gathered else "table",
+            kernels._fill_path(cells.shape[-1]))
+        for got, want in zip(out[1], out[0]):   # -0.0 apart from 0.0
+            assert torch.equal(_bits(got), _bits(want))
+        assert int(out[0][2][ptm.N_GROWN].sum()) > 0
+    G = geo[4]
+    counts = [f(s["syn_rows"], x["perm"], s["act_rows"], x["cols"], G)
+              for f in (ptm.row_counts, ptm.row_counts_ref)]
+    assert kernels.ROW_COUNTS.path == (kernels._act_name(geo[5]), "table")
+    for got, want in zip(*counts):
         assert torch.equal(got, want)
-    assert bool(out[0][2].any()) and int(out[0][3][ptm.N_GROWN].sum()) > 0
+
+
+# B, C, G, K, D of the flags form: the bench and 16K geometries, G = 1-8,
+# K = 125-128 (u8, bf16, float32), D off the word and past it (D = 100:
+# four words a column on the shuffle path)
+FLAG_SHAPES = [(3, 2048, 4, 64, 32), (2, 1000, 4, 64, 64),
+               (3, 300, 8, 48, 8), (2, 300, 1, 125, 33),
+               (2, 200, 2, 126, 48), (2, 200, 3, 127, 5),
+               (2, 200, 2, 128, 64), (2, 100, 8, 128, 70),
+               (2, 50, 32, 4, 40), (2, 77, 5, 13, 1), (2, 300, 4, 64, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLAG_SHAPES)
+def test_seg_counts_flags_match_plain(shape, cuda):
+    """The flags form of `seg_counts` equals `seg_counts_flags_ref` bit
+    for bit (matching word, prediction words and, where asked, the
+    counts), in one launch on its path; without the prediction it
+    writes the word alone."""
+    B, C, G, K, D = shape
+    v = _count_inputs(B, C, G, K, K + C, cuda)
+    g = torch.Generator(device=cuda).manual_seed(C)
+    seg_cell = torch.randint(0, D + 1, (B, C, G), generator=g, device=cuda,
+                             dtype=torch.int32)
+    th = (2, 3)
+    for counts, prediction in ((False, True), (True, True), (False, False)):
+        before = kernels.launch_counts()
+        got = pas.seg_counts_flags(v, seg_cell, K, *th, D, counts,
+                                   prediction)
+        assert launched(before) == only(seg_counts=1)
+        assert kernels.SEG_COUNTS.path == (kernels._act_name(K), "flags")
+        want = pas.seg_counts_flags_ref(v, seg_cell, K, *th, D, counts,
+                                        prediction)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            assert a is None or torch.equal(a, b)
+    assert bool((want[2] != 0).any())
 
 
 @pytest.mark.cuda
@@ -1157,8 +1227,10 @@ def test_capture_makes_no_host_sync(cuda, monkeypatch):
 @pytest.mark.cuda
 def test_profiler_sees_one_kernel_a_replayed_step(cuda):
     """A `torch.profiler` trace of 8 replayed learning steps holds 8
-    launches of `table_update`'s kernel, 8 of `sp_overlap`'s and 8 of
-    `seg_counts`', as the launch counts say."""
+    launches of `table_update`'s kernel, 8 of `sp_overlap`'s, 8 of
+    `seg_counts`' (its flags form, `seg_flags_*kernel` on the card) and 8
+    each of `row_counts`', `grow_select`'s and `learn_rows`', as the
+    launch counts say."""
     cfg = bt.make_htm_config(**GRAPH_CFG)
     gen = torch.Generator(device=cuda).manual_seed(0)
     state = bt.htm_init_batch(cfg, 4, gen, cuda)
@@ -1175,7 +1247,8 @@ def test_profiler_sees_one_kernel_a_replayed_step(cuda):
                       if e.device_type == torch.autograd.DeviceType.CUDA
                       and name in e.name)
             for name in ("table_pass_kernel", "sp_overlap_kernel",
-                         "seg_counts_kernel")}
+                         "seg_flags", "row_counts_kernel",
+                         "grow_select_kernel", "learn_rows_kernel")}
     assert launched(before) == steps(table_update=8)
     assert seen == dict.fromkeys(seen, 8)
 

@@ -1,13 +1,15 @@
-"""The port's growth selection and fill (`grow_select_ref`, `grow_fill_ref`,
-and through them `_grow`) and bit pack (`pack_bits_ref`) against the JAX
-package, and the wrappers of their CUDA kernels (`grow_select`,
-`grow_fill`, `pack_bits`) on the CPU.
+"""The port's growth selection and fill (`grow_select_ref`, the fill of
+`learn_rows_ref`, and through them JAX `_grow`) and bit pack
+(`pack_bits_ref`) against the JAX package, and the wrappers of their CUDA
+kernels (`grow_select`, `learn_rows`, `pack_bits`) on the CPU.
 
 Inputs are made with numpy from a seed. The random words of the growth
 come from JAX keys (`jax.random.bits`), as `tests/test_torch_htm.py`
 replays them, so the port and JAX draw the same bits. Every comparison
 is exact. The kernels themselves run only on the card
 (`tests/test_torch_cuda.py`, `chip_smoke.py` `check_grow_and_pack`).
+`tests/test_torch_learn.py` holds the whole row pass, `learn_rows_ref`,
+to JAX `_learn`.
 """
 
 import jax
@@ -73,6 +75,43 @@ def grow_rows(seed: int, C: int):
         prev_winner_bits=np.asarray(jas.pack_bits(jnp.asarray(winners))))
 
 
+def port_grow(cfg, rnd, syn_rows, perm_rows, learn_rows, act_prev_rows,
+              prev_cols, prev_winner_bits):
+    """JAX `_grow`'s outputs from the port's growth: `grow_select` and
+    the fill of `learn_rows` (the index-form keys decoded between them,
+    as `_learn` runs them) on `_grow`'s (B, A, G, K) rows, which are
+    already cleaned, reset and updated: `learn_rows` takes them as
+    gathered rows with no new segment and a zero increment and
+    decrement, so that it only fills (perm + 0.0 * +-0.0 is perm for
+    every perm but -0.0, which these rows do not hold). Returns (syn,
+    perm, wrote, n_grown, overflow, n_winners_dropped,
+    n_growth_dropped)."""
+    B, A, G, K = syn_rows.shape
+    C, D = cfg.column_dim, cfg.cell_dim
+    assert not bool(torch.signbit(perm_rows[perm_rows == 0]).any())
+    cell_form, key_bits = ptm.growth_key_form(C * D, rnd.shape[-1])
+    syn = syn_rows.reshape(B, A, G * K).clone()
+    perm = perm_rows.reshape(B, A, G * K).clone()
+    act = act_prev_rows.reshape(B, A, G * K).to(torch.uint8)
+    learn = learn_rows.reshape(B, A * G)
+    sel = ptm.grow_select(syn, act, learn, prev_cols, prev_winner_bits, rnd,
+                          D, cfg.segment_sampling_synapses, key_bits,
+                          cell_form)
+    chosen = sel.chosen
+    if not cell_form:
+        chosen = pas.take_small_table(sel.cand_cell, chosen,
+                                      (1 << key_bits) - 1, in_place=True)
+    # the packed activity's type at K, which learn_rows reads
+    act = act.to(pas.act_dtype(K))
+    wrote = ptm.learn_rows(syn, perm, act, None, learn,
+                           torch.zeros_like(learn), sel.lpos, chosen,
+                           sel.n_chosen, sel.counts, 0.0, 0.0,
+                           cfg.permanence_initial, want_mask=True)
+    shape = (B, A, G, K)
+    return (syn.view(shape), perm.view(shape), wrote.view(shape),
+            *sel.counts)
+
+
 # every width in both forms with samp < K; samp = K at four of them
 GROW_CASES = ([(Wc, form, "samp<K") for Wc in WIDTHS for form in FORM_C]
               + [(4, "index", "samp=K"), (128, "cell", "samp=K"),
@@ -81,11 +120,11 @@ GROW_CASES = ([(Wc, form, "samp<K") for Wc in WIDTHS for form in FORM_C]
 
 @pytest.mark.parametrize("Wc,form,samp", GROW_CASES)
 def test_grow_matches_jax(Wc, form, samp):
-    """The port's `_grow` (`grow_select_ref` and `grow_fill_ref` on the
-    CPU) against JAX `_grow` in both key forms, with samp < K and samp = K,
-    at every listed candidate width: all seven outputs equal, for rows
-    that grow, rows at samp potential (n_grow = 0) and invalid list
-    rows."""
+    """The port's growth (`port_grow`: `grow_select` and the fill of
+    `learn_rows`, their plain versions on the CPU) against JAX `_grow` in
+    both key forms, with samp < K and samp = K, at every listed candidate
+    width: all seven outputs equal, for rows that grow, rows at samp
+    potential (n_grow = 0) and invalid list rows."""
     n_samp = 6 if samp == "samp<K" else K
     jcfg, pcfg = configs(FORM_C[form], Wc, n_samp)
     assert ptm.growth_key_form(pcfg.column_dim * D, Wc)[0] == (
@@ -101,7 +140,7 @@ def test_grow_matches_jax(Wc, form, samp):
                            "prev_winner_bits"))))
     t = {k: torch.from_numpy(np.array(v)) for k, v in x.items()}
     t["prev_winner_bits"] = t["prev_winner_bits"].view(torch.int32)
-    got = ptm._grow(pcfg, torch.from_numpy(rnd), **t)
+    got = port_grow(pcfg, torch.from_numpy(rnd), **t)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w)
     assert int(got[3].sum()) > 0                      # synapses grew
@@ -242,7 +281,7 @@ def test_grow_select_ref_lists_match_jax(case):
 
 def old_fill(syn_rows, perm_rows, lidx, lvalid, chosen, n_chosen,
              permanence_initial):
-    """The fill `_grow` ran as torch ops before `grow_fill`: `_fill` on the
+    """The fill `_grow` ran as torch ops before a kernel took it: `_fill` on the
     gathered rows, the rows scattered back through a padding row, the
     mask scattered alike, the permanences set where written, and the
     counts reduced. Returns (syn, perm, wrote, n_grown, overflow)."""
@@ -271,12 +310,23 @@ def old_fill(syn_rows, perm_rows, lidx, lvalid, chosen, n_chosen,
 FILL_CASES = ("no free slot", "overflow", "invalid rows", "mixed")
 
 
+def list_places(lidx, lvalid, R: int) -> torch.Tensor:
+    """`grow_select`'s lpos from its lidx and lvalid: each row's place in
+    the list, -1 where it has none."""
+    Bl, L = lidx.shape
+    lpos = torch.full((Bl, R + 1), -1, dtype=torch.int32)
+    at = torch.where(lvalid, lidx, R).long()
+    lpos.scatter_(1, at, torch.arange(L, dtype=torch.int32).expand(Bl, L))
+    return lpos[:, :R].contiguous()
+
+
 @pytest.mark.parametrize("case", FILL_CASES)
-def test_grow_fill_ref_matches_the_old_fill(case):
-    """`grow_fill_ref` (in place, counts added to rows 0 and 1) against
-    the scatter path it replaced (`old_fill`): the synapse and permanence
-    rows, the mask of the slots written, the slots grown and the
-    overflow equal, and rows 2 and 3 of the counts untouched."""
+def test_learn_rows_fill_matches_the_old_fill(case):
+    """The fill of `learn_rows_ref` (in place, counts added to rows 0
+    and 1), on rows that neither learn nor hold a stale slot, against the
+    scatter path the kernels replaced (`old_fill`): the synapse and
+    permanence rows, the mask of the slots written, the slots grown and
+    the overflow equal, and rows 2 and 3 of the counts untouched."""
     Bf, R, Kf, Lf, kk = 3, 12, 16, 6, 5
     rng = np.random.default_rng(FILL_CASES.index(case))
     live_share = {"no free slot": 1.0, "overflow": 0.85,
@@ -304,8 +354,12 @@ def test_grow_fill_ref_matches_the_old_fill(case):
     counts = torch.tensor([[0] * Bf, [0] * Bf, [7] * Bf, [9] * Bf],
                           dtype=torch.int32)
     s, p = t["syn"].clone(), t["perm"].clone()
-    wrote = ptm.grow_fill_ref(s, p, t["lidx"], lv, t["chosen"],
-                              t["n_chosen"], counts, 0.21)
+    none = torch.zeros((Bf, R), dtype=torch.bool)
+    act = torch.zeros((Bf, R, Kf), dtype=torch.uint8)
+    wrote = ptm.learn_rows_ref(s, p, act, None, none, none,
+                               list_places(t["lidx"], lv, R), t["chosen"],
+                               t["n_chosen"], counts, 0.1, 0.1, 0.21,
+                               want_mask=True)
     for got, w in zip((s, p, wrote, counts[0], counts[1]), want):
         assert torch.equal(got, w)
     assert torch.equal(counts[2:], torch.tensor([[7] * Bf, [9] * Bf],
@@ -350,13 +404,17 @@ def _grow_call(Wc: int, cell_form: bool, bits: int = 10, samp: int = 8,
         _view(Bv, Lv, Wc), 32, samp, bits, cell_form)
 
 
-def _fill_call(kk: int, lidx=(2, 4)):
-    """`grow_fill_cuda` on CPU views: B=2 streams of R=8 rows of K=16
-    slots, L=4 growing rows of kk chosen cells."""
-    return lambda: kernels.grow_fill_cuda(
-        _view(2, 8, 16), _view(2, 8, 16, dtype=torch.float32), _view(*lidx),
-        _view(2, 4, dtype=torch.bool), _view(2, 4, kk), _view(2, 4),
-        _view(4, 2), 0.21)
+def _learn_call(kk: int, n_chosen=(2, 4), K: int = 16, cols: bool = False):
+    """`learn_rows_cuda` on CPU views: B=2 streams of 8 rows (4 columns
+    of G=2 segments) of K slots, gathered or (``cols``) at 4 of 6
+    columns of the tables; L=4 growing rows of kk chosen cells."""
+    Ct = 6 if cols else 4
+    return lambda: kernels.learn_rows_cuda(
+        _view(2, Ct, 2 * K), _view(2, Ct, 2 * K, dtype=torch.float32),
+        _view(2, Ct, 2 * K, dtype=pas.act_dtype(K)),
+        _view(2, 4) if cols else None, _view(2, 8, dtype=torch.bool),
+        _view(2, 8, dtype=torch.bool), _view(2, 8), _view(2, 4, kk),
+        _view(*n_chosen), _view(4, 2), 0.1, 0.1, 0.21)
 
 
 @pytest.mark.parametrize("call,kernel,path", [
@@ -378,13 +436,18 @@ def _fill_call(kk: int, lidx=(2, 4)):
      "pack_bits", ("v4",)),
     (lambda: kernels.pack_bits_cuda(_view(2, 3, 33, dtype=torch.bool)),
      "pack_bits", ("v1",)),
-    (_fill_call(32), "grow_fill", ("shfl",)),
-    (_fill_call(33), "grow_fill", ("load",)),
+    (_learn_call(32), "learn_rows", ("u8", "rows", "shfl")),
+    (_learn_call(33), "learn_rows", ("u8", "rows", "load")),
+    (_learn_call(8, cols=True), "learn_rows", ("u8", "table", "shfl")),
+    (_learn_call(8, K=126), "learn_rows", ("bf16", "rows", "shfl")),
+    (_learn_call(40, K=128, cols=True), "learn_rows",
+     ("f32", "table", "load")),
 ])
 def test_grow_and_pack_choose_a_path_from_shapes(call, kernel, path):
     """`grow_select` reports its key form and where its keys live,
-    `grow_fill` how it reads its cells and `pack_bits` its loads, from
-    the shapes alone (`CudaKernel.path`): the
+    `learn_rows` the activity's type, where it reads its rows and how it
+    reads its cells, and `pack_bits` its loads, from the shapes alone
+    (`CudaKernel.path`): the
     tensors here are CPU views of one element, which the wrapper then
     refuses as off the card. Nothing launches."""
     k = next(k for k in kernels.KERNELS if k.name == kernel)
@@ -418,35 +481,39 @@ def test_grow_select_cuda_checks_shapes_first(bad):
 
 
 @pytest.mark.parametrize("bad", ["list rows", "cells"])
-def test_grow_fill_cuda_checks_shapes_first(bad):
-    """`grow_fill_cuda` refuses a growing-row list that is not (B, L) and
+def test_learn_rows_cuda_checks_shapes_first(bad):
+    """`learn_rows_cuda` refuses chosen counts that are not (B, L) and
     rows of no chosen cell before it reports a path."""
-    call = {"list rows": _fill_call(8, lidx=(2, 5)),
-            "cells": _fill_call(0)}[bad]
-    kernels.GROW_FILL.path = ()
+    call = {"list rows": _learn_call(8, n_chosen=(2, 5)),
+            "cells": _learn_call(0)}[bad]
+    kernels.LEARN_ROWS.path = ()
     before = kernels.launch_counts()
-    with pytest.raises(ValueError, match="grow_fill needs"):
+    with pytest.raises(ValueError, match="learn_rows needs"):
         call()
-    assert kernels.GROW_FILL.path == ()
+    assert kernels.LEARN_ROWS.path == ()
     assert kernels.launch_counts() == before
 
 
 def test_grow_select_dispatch_runs_the_plain_version_on_the_cpu():
-    """`grow_select` and `grow_fill` on CPU tensors are `grow_select_ref`
-    and `grow_fill_ref`, at the bench geometry; nothing launches."""
-    x = testing.grow_inputs(5, 2, 2048, 32, 41, 4, 64, 128, 88, 32)
+    """`grow_select` and `learn_rows` on CPU tensors are `grow_select_ref`
+    and `learn_rows_ref`, at the bench geometry on the tables; nothing
+    launches."""
+    x = testing.learn_inputs(5, 2, 2048, 32, 41, 4, 64, 128, 88, 32)
+    s = x["select"]
     before = kernels.launch_counts()
-    got = ptm.grow_select(**x)
-    want = ptm.grow_select_ref(**x)
+    got = ptm.grow_select(**s)
+    want = ptm.grow_select_ref(**s)
     assert testing.same_choice(got, want)
     assert torch.equal(got.chosen, want.chosen)
     filled = []
-    for fill in (ptm.grow_fill, ptm.grow_fill_ref):
-        s, c = x["syn_rows"].clone(), want.counts.clone()
-        p = torch.where(s >= 0, 0.5, -1.0)
-        w = fill(s, p, want.lidx, want.lvalid, want.chosen, want.n_chosen,
-                 c, 0.21)
-        filled.append((s, p, w, c))
+    for learn in (ptm.learn_rows, ptm.learn_rows_ref):
+        syn, p, c = s["syn_rows"].clone(), x["perm"].clone(), \
+            want.counts.clone()
+        w = learn(syn, p, s["act_rows"], x["cols"], x["learn"],
+                  x["new_seg"], want.lpos, want.chosen, want.n_chosen, c,
+                  x["increment"], x["decrement"], x["permanence_initial"],
+                  want_mask=True)
+        filled.append((syn, p, w, c))
     for a, b in zip(*filled):
         assert torch.equal(a, b)
     assert bool(filled[0][2].any())
@@ -454,17 +521,21 @@ def test_grow_select_dispatch_runs_the_plain_version_on_the_cpu():
 
 
 def test_step_launches_count_growth_and_packs():
-    """A learning step launches one `grow_select` and one `grow_fill`, and
-    every step three `pack_bits` (active cells, winner cells, matching
-    flags; `testing.step_launches`, which the card's checks compare
-    exactly); a `tm_resume` packs once."""
+    """A learning step launches one `row_counts`, one `grow_select` and
+    one `learn_rows`, and every step two `pack_bits` (active and winner
+    cells; the matching flags come from `seg_counts`' flags form), a
+    serving step one more (its matching flags; `testing.step_launches`,
+    which the card's checks compare exactly); a `tm_resume` packs
+    nothing."""
     got = testing.step_launches(table_update=5, act_conn=2, act_frozen=1,
                                 serving_activation=4)
-    assert got["grow_select"] == got["grow_fill"] == 5
-    assert got["pack_bits"] == 3 * 12 == testing.STEP_PACKS * 12
-    resumed = testing.step_launches(act_conn=1, sp_steps=0, pack_bits=1)
+    assert got["grow_select"] == got["learn_rows"] == got["row_counts"] == 5
+    assert testing.STEP_PACKS == 2
+    assert got["pack_bits"] == 2 * 12 + 4
+    assert "grow_fill" not in got
+    resumed = testing.step_launches(act_conn=1, sp_steps=0, pack_bits=0)
     assert (resumed["pack_bits"], resumed["seg_counts"],
-            resumed["grow_select"], resumed["grow_fill"]) == (1, 1, 0, 0)
+            resumed["grow_select"], resumed["learn_rows"]) == (0, 1, 0, 0)
     assert set(got) == {k.name for k in kernels.KERNELS}
 
 
@@ -472,14 +543,19 @@ def test_grow_and_pack_sources_name_what_they_replace():
     """The three sources are built with the others, name the JAX functions
     they stand for, and bind entry points ending in (device, stream)."""
     src = {n: (kernels.CSRC / n).read_text()
-           for n in ("grow_pass.cu", "grow_fill.cu", "pack_pass.cu")}
+           for n in ("grow_pass.cu", "learn_pass.cu", "pack_pass.cu")}
     assert set(src) <= set(kernels.SOURCES)
-    for name in ("grow_pass.cu", "grow_fill.cu"):
-        assert "bithtm_tpu/models/temporal_memory.py:350-498" in src[name]
-        assert ":221-347" in src[name]
+    assert not (kernels.CSRC / "grow_fill.cu").exists()
+    assert "bithtm_tpu/models/temporal_memory.py:350-498" in src[
+        "grow_pass.cu"]
+    assert "bithtm_tpu/models/temporal_memory.py:501-643" in src[
+        "learn_pass.cu"]
+    for name in ("grow_pass.cu", "learn_pass.cu"):
+        assert ":350-498" in src[name] and ":221-347" in src[name]
     assert "bithtm_tpu/ops/active_set.py:85" in src["pack_pass.cu"]
     for name, file in (("grow_select", "grow_pass.cu"),
-                       ("grow_fill", "grow_fill.cu"),
+                       ("row_counts", "learn_pass.cu"),
+                       ("learn_rows", "learn_pass.cu"),
                        ("pack_bits", "pack_pass.cu")):
         assert f'extern "C" int {name}(' in src[file]
         assert kernels._ARGTYPES[name][-2:] == [kernels._I, kernels._VP]

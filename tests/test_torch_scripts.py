@@ -109,9 +109,12 @@ def test_profile_step_reports_each_call_site(capsys):
     for site in ("sp_step.overlap", "sp_step.boost", "sp_step.k_winners",
                  "sp_step.update", "tm_step.winner_selection",
                  "tm_step._learn", "tm_step._learn/_grow",
+                 "tm_step._learn/learn_rows",
                  "tm_step.table_pass", "tm_step.count_decode",
-                 "tm_step.prediction_words", "htm_step.metrics"):
+                 "htm_step.metrics"):
         assert out["sites"][site] > 0, site
+    # the learning step's prediction words come from the count decode
+    assert "tm_step.prediction_words" not in out["sites"]
     top = sum(ms for name, ms in out["sites"].items() if "/" not in name)
     assert out["ranges_ms"] == pytest.approx(top)
 
@@ -229,6 +232,18 @@ def test_grow_variants_patch_the_current_source():
     for name, patches in grow_variants.VARIANTS.items():
         found = all(old in src for old, _ in patches)
         assert found == (name == "base" or name.startswith("new_")), name
+
+
+@pytest.mark.parametrize("kernel", ["learn_rows", "seg_flags"])
+def test_variants_patch_the_studied_source(kernel):
+    """Every variant of the `learn_rows` and flags-form studies finds the
+    text it patches in its source, so none silently times the unpatched
+    kernel."""
+    source, variants, _ = grow_variants.STUDIES[kernel]
+    src = (kernels.CSRC / source).read_text()
+    for name, patches in variants.items():
+        assert all(old in src for old, _ in patches), name
+        assert all(src.count(old) == 1 for old, _ in patches), name
 
 
 def _imported_roots(path: Path) -> set[str]:
