@@ -58,8 +58,8 @@
 // elsewhere (G=3, or G past the run at large K) a warp takes whole
 // columns an iteration, each segment's matching bit and predicted cell
 // meet in shared memory and one lane a column ORs them into its words.
-// Its bound adds seg_cell read once and the (B, C) + (B, W, C) words
-// written once, and drops the counts where the caller reads none.
+// The flags form writes no counts: its bound is the activity and seg_cell
+// read once and the (B, C) + (B, W, C) words written once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -197,7 +197,6 @@ __global__ void __launch_bounds__(kThreads) seg_counts_kernel(
 template <int ELEM, bool kVec, bool kOne>
 __global__ void __launch_bounds__(kThreads) seg_flags_shfl_kernel(
     const uint8_t* __restrict__ v, const int* __restrict__ seg_cell,
-    int* __restrict__ potential, int* __restrict__ connected,
     int* __restrict__ matching_word, int* __restrict__ prediction,
     long long nseg, int C, double inv_c, int g_log2, int D, int W,
     int seg_bytes, int lanes_log2, int scale, int theta_m, int theta_a) {
@@ -224,10 +223,6 @@ __global__ void __launch_bounds__(kThreads) seg_flags_shfl_kernel(
       const int conn = acc[u] / scale;
       const int pot = acc[u] - scale * conn;
       const bool in = sub == 0 && seg[u] < nseg;
-      if (potential && in) {
-        potential[seg[u]] = pot;
-        connected[seg[u]] = conn;
-      }
       const bool match = pot >= theta_m;
       const bool active = match && conn >= theta_a && cell[u] >= 0 &&
                           cell[u] < D;
@@ -283,15 +278,13 @@ __global__ void __launch_bounds__(kThreads) seg_flags_shfl_kernel(
 // The flags form for any other G: a warp takes whole columns an
 // iteration (n_cols = max(1, slots / G) of the slots = per_warp * kUnroll
 // segments a round of segment_sums, in as many rounds as their G
-// segments need). Each
-// segment's first lane decodes its counts, writes them where potential is
-// not null, and leaves its matching bit and its predicted cell (or -1) in
-// the warp's shared memory; then lane j ORs column j's G entries into its
+// segments need). Each segment's first lane decodes its counts and
+// leaves its matching bit and its predicted cell (or -1) in the warp's
+// shared memory; then lane j ORs column j's G entries into its
 // matching word and W prediction words (coalesced over the columns).
 template <int ELEM, bool kVec, bool kOne>
 __global__ void __launch_bounds__(kThreads) seg_flags_kernel(
     const uint8_t* __restrict__ v, const int* __restrict__ seg_cell,
-    int* __restrict__ potential, int* __restrict__ connected,
     int* __restrict__ matching_word, int* __restrict__ prediction,
     long long n_cols, int C, int G, int D, int W, int seg_bytes,
     int lanes_log2, int scale, int theta_m, int theta_a) {
@@ -327,10 +320,6 @@ __global__ void __launch_bounds__(kThreads) seg_flags_kernel(
         if (sub == 0 && seg[u] < nseg) {
           const int conn = acc[u] / scale;
           const int pot = acc[u] - scale * conn;
-          if (potential) {
-            potential[seg[u]] = pot;
-            connected[seg[u]] = conn;
-          }
           const bool match = pot >= theta_m;
           mine[seg[u] - seg0] = make_int2(
               match, match && conn >= theta_a && cell[u] >= 0 && cell[u] < D
@@ -397,10 +386,10 @@ int launch(const uint8_t* v, int* potential, int* connected, long long nseg,
 }
 
 template <int ELEM, bool kVec>
-int launch_flags(const uint8_t* v, const int* seg_cell, int* potential,
-                 int* connected, int* matching_word, int* prediction,
-                 long long n_cols, int C, int G, int D, int seg_bytes,
-                 int scale, int theta_m, int theta_a, cudaStream_t stream) {
+int launch_flags(const uint8_t* v, const int* seg_cell, int* matching_word,
+                 int* prediction, long long n_cols, int C, int G, int D,
+                 int seg_bytes, int scale, int theta_m, int theta_a,
+                 cudaStream_t stream) {
   const int chunks = chunks_of<kVec>(seg_bytes);
   const int lanes_log2 = lanes_log2_of(chunks);
   const int W = (D + 31) / 32;
@@ -417,15 +406,13 @@ int launch_flags(const uint8_t* v, const int* seg_cell, int* potential,
     if (one)
       seg_flags_shfl_kernel<ELEM, kVec, true>
           <<<(unsigned)blocks, kThreads, 0, stream>>>(
-              v, seg_cell, potential, connected, matching_word, prediction,
-              nseg, C, 1.0 / C, g_log2, D, W, seg_bytes, lanes_log2, scale,
-              theta_m, theta_a);
+              v, seg_cell, matching_word, prediction, nseg, C, 1.0 / C,
+              g_log2, D, W, seg_bytes, lanes_log2, scale, theta_m, theta_a);
     else
       seg_flags_shfl_kernel<ELEM, kVec, false>
           <<<(unsigned)blocks, kThreads, 0, stream>>>(
-              v, seg_cell, potential, connected, matching_word, prediction,
-              nseg, C, 1.0 / C, g_log2, D, W, seg_bytes, lanes_log2, scale,
-              theta_m, theta_a);
+              v, seg_cell, matching_word, prediction, nseg, C, 1.0 / C,
+              g_log2, D, W, seg_bytes, lanes_log2, scale, theta_m, theta_a);
     return (int)cudaGetLastError();
   }
   const int slots = (32 >> lanes_log2) * kUnroll;
@@ -436,13 +423,13 @@ int launch_flags(const uint8_t* v, const int* seg_cell, int* potential,
   if (one)
     seg_flags_kernel<ELEM, kVec, true><<<(unsigned)blocks, kThreads, 0,
                                           stream>>>(
-        v, seg_cell, potential, connected, matching_word, prediction, n_cols,
-        C, G, D, W, seg_bytes, lanes_log2, scale, theta_m, theta_a);
+        v, seg_cell, matching_word, prediction, n_cols, C, G, D, W,
+        seg_bytes, lanes_log2, scale, theta_m, theta_a);
   else
     seg_flags_kernel<ELEM, kVec, false><<<(unsigned)blocks, kThreads, 0,
                                            stream>>>(
-        v, seg_cell, potential, connected, matching_word, prediction, n_cols,
-        C, G, D, W, seg_bytes, lanes_log2, scale, theta_m, theta_a);
+        v, seg_cell, matching_word, prediction, n_cols, C, G, D, W,
+        seg_bytes, lanes_log2, scale, theta_m, theta_a);
   return (int)cudaGetLastError();
 }
 
@@ -451,12 +438,12 @@ int launch_flags(const uint8_t* v, const int* seg_cell, int* potential,
 // v (B, C, G*K) packed activity of act_bytes bytes a value (1: u8, 2:
 // bf16, 4: float32), 16-byte aligned -> potential and connected (B, C, G)
 // int32, decoded with scale > K. The flags form, where seg_cell (B, C, G)
-// int32 (the segments' owner cells, D = none) is not null, also writes
-// matching_word (B, C) int32, bit g where potential >= theta_m (G <= 32),
-// and, where prediction is not null, the (B, ceil(D/32), C) int32
-// prediction words, bit d of word w where a matching segment of the
-// column with connected >= theta_a is owned by cell 32 w + d; it writes
-// the counts only where potential is not null. Launches on the given
+// int32 (the segments' owner cells, D = none) is not null, writes no
+// counts (potential and connected null) but matching_word (B, C) int32,
+// bit g where potential >= theta_m (G <= 32), and, where prediction is
+// not null, the (B, ceil(D/32), C) int32 prediction words, bit d of word
+// w where a matching segment of the column with connected >= theta_a is
+// owned by cell 32 w + d. Launches on the given
 // stream of the given device, allocates nothing and returns
 // cudaGetLastError() after the launch (0 = success).
 extern "C" int seg_counts(const void* v, int* potential, int* connected,
@@ -467,8 +454,7 @@ extern "C" int seg_counts(const void* v, int* potential, int* connected,
   const bool flags = seg_cell != nullptr;
   if (B < 0 || C < 0 || G < 0 || K < 1 || scale <= K ||
       reinterpret_cast<uintptr_t>(v) % 16 != 0 ||
-      (flags ? G > 32 || D < 1 || !matching_word ||
-                   (potential != nullptr) != (connected != nullptr)
+      (flags ? G > 32 || D < 1 || !matching_word || potential || connected
              : !potential || !connected))
     return (int)cudaErrorInvalidValue;
   const long long nseg = (long long)B * C * G;
@@ -483,11 +469,10 @@ extern "C" int seg_counts(const void* v, int* potential, int* connected,
     return bithtm::with_bool(seg_bytes % 16 == 0, [&](auto vec) {
       constexpr bool kVec = decltype(vec)::value;
       if (flags)
-        return launch_flags<ELEM, kVec>(p, seg_cell, potential, connected,
-                                        matching_word, prediction,
-                                        (long long)B * C, C, G, D,
-                                        seg_bytes, scale, theta_m, theta_a,
-                                        s);
+        return launch_flags<ELEM, kVec>(p, seg_cell, matching_word,
+                                        prediction, (long long)B * C, C, G,
+                                        D, seg_bytes, scale, theta_m,
+                                        theta_a, s);
       return launch<ELEM, kVec>(p, potential, connected, nseg, seg_bytes,
                                 scale, s);
     });

@@ -65,7 +65,7 @@ from ..ops.active_set import (
     seg_counts_packed_rows,
     synapse_activation_conn,
     synapse_activation_frozen,
-    table_update_words,
+    table_update,
     take_percell,
     take_small_table,
     unpack_bits,
@@ -286,7 +286,10 @@ def growth_keys_ref(syn_rows, act_rows, lidx, lvalid, cand_cell,
     valid (in the list and not already a target of the row) and the
     row's n_grow (B, L). Arguments as `grow_select_ref`'s; ``raw``: the
     rows are read before the learning pass, so the existing targets are
-    the active live slots whatever samp."""
+    the active live slots whatever samp. That equals JAX's every live
+    slot at samp >= K only where ``act_rows`` is the activity that the
+    previous table pass computed on these tables (see
+    `grow_select_ref`)."""
     B, R, K = syn_rows.shape
     L, Wc = lidx.shape[-1], cand_cell.shape[-1]
     take = lidx.long().clamp(max=R - 1)[..., None].expand(B, L, K)
@@ -386,7 +389,14 @@ def grow_select_ref(syn_rows, act_rows, learn_rows, prev_cols,
     inactive slot takes), and only active live slots count here: where
     samp >= K, where JAX counts every live slot as a target, too, since
     every live slot that targets a candidate (a previous active cell) is
-    active in the activity computed on the same table."""
+    active in the activity computed on the same table.
+
+    Precondition: ``act_rows`` is that activity, the one the previous
+    step's table pass (or `tm_resume`) wrote for these tables and the
+    previous active cells. A state served from a compact table
+    (`htm_serve_scan` with a ``serving_table``) carries a stale activity,
+    so it must go through `resume_learning` before it learns, as in the
+    JAX package; without it the selection may differ from JAX's."""
     R = learn_rows.shape[1]
     syn_rows = _active_rows(syn_rows, row_cols, R)
     act_rows = _active_rows(act_rows, row_cols, R) != 0
@@ -674,7 +684,7 @@ def tm_resume(cfg: TMConfig, state: TMState) -> TMState:
     act_now = synapse_activation_conn(
         state.synapse_cell, state.synapse_perm, state.active_cols,
         state.active_bits, cfg.cell_dim, cfg.permanence_threshold, K)
-    _, _, matching_word, _ = seg_counts_flags(
+    matching_word, _ = seg_counts_flags(
         act_now, state.seg_cell, K, cfg.segment_matching_threshold,
         cfg.segment_activation_threshold, cfg.cell_dim, prediction=False)
     return dataclasses.replace(state, synapse_act=act_now,
@@ -830,7 +840,7 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             pun_word = torch.where(
                 col_active | (state.step <= 0)[:, None], 0,
                 state.matching_word)
-        perm_full, act_now, matching_word, prediction = table_update_words(
+        perm_full, act_now, matching_word, prediction = table_update(
             state.synapse_cell, state.synapse_perm, state.synapse_act,
             pun_word, active_cols, act_bits, seg_cell, D,
             cfg.permanence_punishment, cfg.permanence_threshold,
@@ -888,7 +898,7 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             with site("tm_step.count_decode"):
                 # the counts' thresholds, matching word and prediction
                 # words in the decode's own pass
-                _, _, matching_word, prediction = seg_counts_flags(
+                matching_word, prediction = seg_counts_flags(
                     act_now, seg_cell, K, cfg.segment_matching_threshold,
                     cfg.segment_activation_threshold, D)
 

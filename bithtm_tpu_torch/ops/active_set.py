@@ -407,46 +407,26 @@ def table_update(syn, perm, act_prev, pun_word, cols, bits, seg_cell,
                  cell_dim: int, punishment: float, perm_threshold: float,
                  matching_threshold: int, activation_threshold: int,
                  column_dim: int | None = None):
-    """The full-table part of a learning TM step as JAX
-    `table_update_xla` returns it: punishment + implicit death +
-    activation (the `table_update` kernel for CUDA tensors, the plain
-    version for CPU tensors; perm is updated in place), then the
-    per-segment counts (`seg_counts_packed`), flags and packed prediction.
-    Every output is per row, so a column shard of the tables gives its
-    rows of the whole-table result when ``column_dim`` names the global
-    column count (default: the table's rows). The step itself takes
-    `table_update_words`.
+    """The full-table part of a learning TM step (JAX `table_update_xla`):
+    punishment + implicit death + activation (the `table_update` kernel
+    for CUDA tensors, the plain version for CPU tensors; perm is updated
+    in place), then the flags form of the count decode
+    (`seg_counts_flags`), which gives the matching word and the
+    prediction words in its own pass. JAX's per-segment leaves are
+    functions of these: potential and connected are `seg_counts_packed`
+    of the activity, matching the bits of the matching word. Every
+    output is per row, so a column shard of the tables gives its rows of
+    the whole-table result when ``column_dim`` names the global column
+    count (default: the table's rows).
 
-    Returns (perm', act packed, potential, connected, matching,
-    seg_active, prediction (B, W, C))."""
+    Returns (perm', act packed, matching_word (B, C), prediction (B, W,
+    C))."""
     G = seg_cell.shape[-1]
     K = syn.shape[-1] // G
     act = _table_pass(syn, perm, act_prev, pun_word, cols, bits, cell_dim, K,
                       punishment, perm_threshold, column_dim)
     with site("tm_step.count_decode"):
-        potential, connected = seg_counts_packed(act, G, K)
-    matching = potential >= matching_threshold
-    seg_active = matching & (connected >= activation_threshold)
-    prediction = prediction_words(seg_cell, seg_active, cell_dim)
-    return perm, act, potential, connected, matching, seg_active, prediction
-
-
-def table_update_words(syn, perm, act_prev, pun_word, cols, bits, seg_cell,
-                       cell_dim: int, punishment: float,
-                       perm_threshold: float, matching_threshold: int,
-                       activation_threshold: int,
-                       column_dim: int | None = None):
-    """`table_update` as the learning step takes it: the table pass, then
-    the flags form of the count decode (`seg_counts_flags`), which gives
-    the matching word and the prediction words in its own pass and no
-    counts. Arguments as `table_update`'s. Returns (perm', act packed,
-    matching_word (B, C), prediction (B, W, C))."""
-    G = seg_cell.shape[-1]
-    K = syn.shape[-1] // G
-    act = _table_pass(syn, perm, act_prev, pun_word, cols, bits, cell_dim, K,
-                      punishment, perm_threshold, column_dim)
-    with site("tm_step.count_decode"):
-        _, _, word, prediction = seg_counts_flags(
+        word, prediction = seg_counts_flags(
             act, seg_cell, K, matching_threshold, activation_threshold,
             cell_dim)
     return perm, act, word, prediction
@@ -466,7 +446,10 @@ def seg_counts_packed(packed: torch.Tensor, num_segments: int,
                       synapses: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, C, G*K) packed activity -> (potential, connected) int32 (B, C,
     G) per-segment counts: the `seg_counts` kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. The step reads only the counts'
+    thresholds (`seg_counts_flags`); this is the decode for a caller that
+    reads the counts themselves, such as a `distal_forward` hook of
+    `tm_step`, which returns them."""
     if _on_device("seg_counts_packed", packed) == "cuda":
         from .kernels import seg_counts_cuda
 
@@ -477,16 +460,15 @@ def seg_counts_packed(packed: torch.Tensor, num_segments: int,
 def seg_counts_flags_ref(packed: torch.Tensor, seg_cell: torch.Tensor,
                          synapses: int, matching_threshold: int,
                          activation_threshold: int, cell_dim: int,
-                         counts: bool = False, prediction: bool = True):
+                         prediction: bool = True):
     """Plain version of the `seg_counts` kernel's flags form: the
-    counts of the (B, C, G*K) packed activity (`seg_counts_packed_ref`),
-    their thresholds, the matching word (`pack_bits` of potential >=
-    ``matching_threshold``) and the prediction words (`prediction_words`
-    of the segments that match and have connected >=
+    thresholds of the counts of the (B, C, G*K) packed activity
+    (`seg_counts_packed_ref`), as the matching word (`pack_bits` of
+    potential >= ``matching_threshold``) and the prediction words
+    (`prediction_words` of the segments that match and have connected >=
     ``activation_threshold``, owned by ``seg_cell`` (B, C, G)). Returns
-    (potential, connected, matching_word (B, C), prediction (B, W, C)),
-    the counts only with ``counts`` and the prediction only with
-    ``prediction`` (else None)."""
+    (matching_word (B, C), prediction (B, W, C)), the prediction only
+    with ``prediction`` (else None)."""
     G = seg_cell.shape[-1]
     potential, connected = seg_counts_packed_ref(packed, G, synapses)
     matching = potential >= matching_threshold
@@ -494,20 +476,18 @@ def seg_counts_flags_ref(packed: torch.Tensor, seg_cell: torch.Tensor,
     if prediction:
         seg_active = matching & (connected >= activation_threshold)
         pred = prediction_words(seg_cell, seg_active, cell_dim)
-    if not counts:
-        potential = connected = None
-    return potential, connected, pack_bits_ref(matching)[..., 0], pred
+    return pack_bits_ref(matching)[..., 0], pred
 
 
 def seg_counts_flags(packed: torch.Tensor, seg_cell: torch.Tensor,
                      synapses: int, matching_threshold: int,
                      activation_threshold: int, cell_dim: int,
-                     counts: bool = False, prediction: bool = True):
+                     prediction: bool = True):
     """The flags form of the count decode: the `seg_counts` kernel for
     CUDA tensors, the plain version for CPU tensors (arguments and
     results as `seg_counts_flags_ref`'s)."""
     args = (packed, seg_cell, synapses, matching_threshold,
-            activation_threshold, cell_dim, counts, prediction)
+            activation_threshold, cell_dim, prediction)
     if _on_device("seg_counts_flags", packed) == "cuda":
         from .kernels import seg_flags_cuda
 

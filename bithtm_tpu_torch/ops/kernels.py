@@ -718,15 +718,14 @@ def seg_counts_cuda(packed, num_segments: int, synapses: int
 
 def seg_flags_cuda(packed, seg_cell, synapses: int, matching_threshold: int,
                    activation_threshold: int, cell_dim: int,
-                   counts: bool = False, prediction: bool = True) -> tuple:
+                   prediction: bool = True) -> tuple:
     """CUDA `seg_counts`, flags form: the (B, C, G*K) packed activity and
-    the (B, C, G) int32 owner cells -> (potential, connected (B, C, G)
-    int32, only with ``counts``, else None; matching_word (B, C) int32,
-    bit g where potential >= ``matching_threshold``; the (B, W, C) int32
+    the (B, C, G) int32 owner cells -> (matching_word (B, C) int32, bit g
+    where potential >= ``matching_threshold``; the (B, W, C) int32
     prediction words, only with ``prediction``, else None), W =
     ceil(D/32): bit d of word w where a matching segment with connected
     >= ``activation_threshold`` is owned by cell 32w + d (see
-    `active_set.seg_counts_flags_ref`)."""
+    `active_set.seg_counts_flags_ref`). It writes no counts."""
     if packed.dim() != 3 or seg_cell.dim() != 3:
         raise ValueError(f"packed must be (B, C, G*K) and seg_cell (B, C, "
                          f"G), got {tuple(packed.shape)} and "
@@ -742,25 +741,16 @@ def seg_flags_cuda(packed, seg_cell, synapses: int, matching_threshold: int,
     dev = packed.get_device()
     v_p = _ptr("packed", packed, dtype, None, dev, align=16)
     cell_p = _ptr("seg_cell", seg_cell, torch.int32, (B, C, G), dev)
-
-    def new(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=packed.device)
-
-    pot = conn = pred = None
-    if counts:
-        pot, conn = new(B, C, G), new(B, C, G)
-    if prediction:
-        pred = new(B, cell_words(cell_dim), C)
-    word = new(B, C)
+    word = torch.empty((B, C), dtype=torch.int32, device=packed.device)
+    pred = torch.empty((B, cell_words(cell_dim), C), dtype=torch.int32,
+                       device=packed.device) if prediction else None
     if word.numel():
-        SEG_COUNTS.launch(v_p, *(None if t is None else t.data_ptr()
-                                 for t in (pot, conn)),
-                          cell_p, word.data_ptr(),
+        SEG_COUNTS.launch(v_p, None, None, cell_p, word.data_ptr(),
                           None if pred is None else pred.data_ptr(), B, C, G,
                           K, act_scale(K), dtype.itemsize, cell_dim,
                           int(matching_threshold), int(activation_threshold),
                           dev, _stream(dev))
-    return pot, conn, word, pred
+    return word, pred
 
 
 def _active_rows(name: str, table, learn, cols):

@@ -494,8 +494,8 @@ def flags_row(B: int, C: int, G: int, K: int, D: int, dev,
               graph: bool = True) -> dict:
     """The flags form of `seg_counts` at (B, C, G, K) with owner cells
     over D cells a column, against `seg_counts_flags_ref` bit for bit
-    (the matching word and the prediction words; the counts too in a
-    second call), with `kernel_row`'s times and bound (the activity and
+    (the matching word and the prediction words; the word alone in a
+    second call, as `tm_resume` asks), with `kernel_row`'s times and bound (the activity and
     the owners read once, the words written once; thresholds K/2 and
     K/5, where about half the segments pass each). No PyTorch call
     computes the flags or packs bits: no library time. With ``graph``,
@@ -507,15 +507,14 @@ def flags_row(B: int, C: int, G: int, K: int, D: int, dev,
     th = (K // 2, K // 5)
     act = kernels._act_name(K)
     at = f"B={B} C={C} G={G} K={K} D={D} {act}"
-    for counts in (False, True):
-        want = pas.seg_counts_flags_ref(v, seg_cell, K, *th, D, counts)
-        got = kernels.seg_flags_cuda(v, seg_cell, K, *th, D, counts)
-        torch.cuda.synchronize()
-        require(all((a is None and b is None) or torch.equal(a, b)
-                    for a, b in zip(got, want))
-                and bool((want[2] != 0).any())
-                and bool((want[3] != 0).any()),
-                f"seg_counts flags form == plain at {at}")
+    words = pas.seg_counts_flags_ref(v, seg_cell, K, *th, D)
+    got = kernels.seg_flags_cuda(v, seg_cell, K, *th, D)
+    word = kernels.seg_flags_cuda(v, seg_cell, K, *th, D, prediction=False)
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], words[0]) and torch.equal(got[1], words[1])
+            and torch.equal(word[0], words[0]) and word[1] is None
+            and bool((words[0] != 0).any()) and bool((words[1] != 0).any()),
+            f"seg_counts flags form == plain at {at}")
     require(kernels.SEG_COUNTS.path == (act, "flags"),
             f"seg_counts flags at K={K} takes ({act}, flags), got "
             f"{kernels.SEG_COUNTS.path}")
@@ -523,7 +522,7 @@ def flags_row(B: int, C: int, G: int, K: int, D: int, dev,
                      lambda: kernels.seg_flags_cuda(v, seg_cell, K, *th, D),
                      lambda: pas.seg_counts_flags_ref(v, seg_cell, K, *th,
                                                       D),
-                     nbytes(v, seg_cell, want[2], want[3]), at,
+                     nbytes(v, seg_cell, *words), at,
                      path=[act, "flags"])
     if graph:
         row["graph_ms"] = graph_ms(
@@ -537,7 +536,8 @@ def check_overlap_and_counts(dev) -> dict:
     """`sp_overlap` and `seg_counts` at the bench shapes (B=256, C=2048,
     I=1000, G=4, K=64, D=32), each row with the 16K x 64 shapes' row
     (B=64, C=16384, D=64) under "16k". The `seg_counts` row is its flags
-    form, which the step launches, with the counts form under
+    form, which the step launches, with the counts form (the decode of
+    `seg_counts_packed`, for callers that read the counts) under
     "counts_form"."""
     I, G, K = (BENCH[k] for k in ("input_dim", "segments_per_column",
                                   "synapse_capacity"))

@@ -631,28 +631,25 @@ FLAG_SHAPES = [(3, 2048, 4, 64, 32), (2, 1000, 4, 64, 64),
 @pytest.mark.parametrize("shape", FLAG_SHAPES)
 def test_seg_counts_flags_match_plain(shape, cuda):
     """The flags form of `seg_counts` equals `seg_counts_flags_ref` bit
-    for bit (matching word, prediction words and, where asked, the
-    counts), in one launch on its path; without the prediction it
-    writes the word alone."""
+    for bit (matching word and prediction words), in one launch on its
+    path; without the prediction it writes the word alone."""
     B, C, G, K, D = shape
     v = _count_inputs(B, C, G, K, K + C, cuda)
     g = torch.Generator(device=cuda).manual_seed(C)
     seg_cell = torch.randint(0, D + 1, (B, C, G), generator=g, device=cuda,
                              dtype=torch.int32)
     th = (2, 3)
-    for counts, prediction in ((False, True), (True, True), (False, False)):
+    for prediction in (True, False):
         before = kernels.launch_counts()
-        got = pas.seg_counts_flags(v, seg_cell, K, *th, D, counts,
-                                   prediction)
+        got = pas.seg_counts_flags(v, seg_cell, K, *th, D, prediction)
         assert launched(before) == only(seg_counts=1)
         assert kernels.SEG_COUNTS.path == (kernels._act_name(K), "flags")
-        want = pas.seg_counts_flags_ref(v, seg_cell, K, *th, D, counts,
-                                        prediction)
+        want = pas.seg_counts_flags_ref(v, seg_cell, K, *th, D, prediction)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert (a is None) == (b is None)
             assert a is None or torch.equal(a, b)
-    assert bool((want[2] != 0).any())
+    assert bool((want[0] != 0).any())
 
 
 @pytest.mark.cuda
@@ -1490,7 +1487,8 @@ def test_overlap_and_counts_launch_on_the_current_stream(cuda):
 def test_overlap_and_count_dispatch_launch_each_kernel_once(cuda):
     """On CUDA tensors `overlaps` and `seg_counts_packed` launch their
     kernels once a call, and `table_update`'s dispatcher its kernel and
-    the count decode's once each; the results equal the CPU's."""
+    the count decode's flags form once each; the results equal the
+    CPU's."""
     conn, x = _overlap_inputs(3, 100, 1000, 5, cuda)
     v = _count_inputs(3, 100, 4, 64, 6, cuda)
     before = kernels.launch_counts()
@@ -1508,8 +1506,10 @@ def test_overlap_and_count_dispatch_launch_each_kernel_once(cuda):
     assert torch.equal(ov.cpu(), pov.overlaps(conn.cpu(), x.cpu()))
     rp, rc = pas.seg_counts_packed(v.cpu(), 4, 64)
     assert torch.equal(pot.cpu(), rp) and torch.equal(con.cpu(), rc)
-    cp, cc = pas.seg_counts_packed(out[1].cpu(), 4, 64)
-    assert torch.equal(out[2].cpu(), cp) and torch.equal(out[3].cpu(), cc)
+    word, pred = pas.seg_counts_flags(out[1].cpu(), t["seg_cell"].cpu(), 64,
+                                      3, 2, 32)
+    assert torch.equal(out[2].cpu(), word) and torch.equal(out[3].cpu(),
+                                                           pred)
 
 
 @pytest.mark.cuda

@@ -37,10 +37,12 @@ SHAPES = [  # B, C, G, K, D, A
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plain_table_pass_matches_jax(shape):
-    """`table_update` (plain version + counts + prediction) equals JAX
-    `table_update_xla` in all seven outputs, and
-    `synapse_activation_conn` equals JAX `synapse_activation_conn`
-    (vmapped over the streams)."""
+    """`table_update` (plain version + the flags form) holds JAX
+    `table_update_xla`'s seven outputs: the permanences, the activity and
+    the prediction words as they are, the potential and connected counts
+    as `seg_counts_packed` of the activity, the matching and active flags
+    through the matching word; and `synapse_activation_conn` equals JAX
+    `synapse_activation_conn` (vmapped over the streams)."""
     B, C, G, K, D, A = shape
     x = table_inputs(sum(shape), *shape)
     n = {k: v.numpy() for k, v in x.items()}
@@ -57,6 +59,11 @@ def test_plain_table_pass_matches_jax(shape):
             s, p, a, w, c, bb, sc, D, *args)))(
         n["syn"], n["perm"], n["act_prev"], n["pun_word"], n["cols"], bits,
         n["seg_cell"])
+    perm_, act, word, pred = got
+    pot, con = pas.seg_counts_packed(act, G, K)
+    matching = torch.from_numpy(pas.matching_dense_host(word, G))
+    got = (perm_, act, pot, con, matching, matching & (con >= args[3]),
+           pred)
     for i, (g, w) in enumerate(zip(got, want)):
         w = np.asarray(w)
         w = w.view(np.int32) if w.dtype == np.uint32 else w

@@ -282,8 +282,8 @@ def test_seg_counts_flags_ref_matches_jax(shape):
     """The flags form's plain version (and its dispatcher on the CPU):
     the matching word equals `pack_bits_ref` of the matching flags and
     JAX `pack_bits`, the prediction words equal `prediction_words` and
-    JAX `prediction_words`, the counts `seg_counts_packed_ref`; nothing
-    launches."""
+    JAX `prediction_words`; asked for no prediction, it gives the same
+    word alone; nothing launches."""
     Bf, C, G, K, D = shape
     rng = np.random.default_rng(sum(shape))
     act = rng.random((Bf, C, G * K)) < 0.5
@@ -297,13 +297,11 @@ def test_seg_counts_flags_ref_matches_jax(shape):
     active = matching & (con >= th[1])
     before = kernels.launch_counts()
     for fn in (pas.seg_counts_flags_ref, pas.seg_counts_flags):
-        p, c, word, pred = fn(v, seg_cell, K, *th, D, counts=True)
-        assert torch.equal(p, pot) and torch.equal(c, con)
+        word, pred = fn(v, seg_cell, K, *th, D)
         assert torch.equal(word, pas.pack_bits_ref(matching)[..., 0])
         assert torch.equal(pred, pas.prediction_words(seg_cell, active, D))
-        none = fn(v, seg_cell, K, *th, D, prediction=False)
-        assert none[0] is none[1] is none[3] is None
-        assert torch.equal(none[2], word)
+        alone, none = fn(v, seg_cell, K, *th, D, prediction=False)
+        assert none is None and torch.equal(alone, word)
     assert kernels.launch_counts() == before
     jword = np.asarray(jas.pack_bits(jnp.asarray(matching.numpy())))
     np.testing.assert_array_equal(word.numpy(), jword[..., 0].view(np.int32))
