@@ -58,6 +58,14 @@
 //     `act_dtype` gives K (BYTES: u8 at K <= 125, bf16 at K = 126-127,
 //     float32 from K = 128), as the plain versions hold it.
 // The shared-memory u8 kernel at the main path's shapes is the one it was.
+//
+// In place. The step passes its activity buffer as both act_prev and
+// v_out (ops/kernels.py table_update_cuda): the new activity replaces the
+// previous one, and the step copies no (B, C, J) table. Each thread loads
+// the act_prev values of its groups before it stores a v at the same
+// index, and no other thread touches that index (the row ranges of the
+// blocks are disjoint, and on the GLOBAL path the bitmap is built by a
+// launch before), so the two pointers may alias: neither is __restrict__.
 
 #include "active_bitmap.cuh"
 #include "launch.cuh"
@@ -82,10 +90,10 @@ __device__ __forceinline__ typename Act<BYTES>::T slot_value(
 template <bool PUNISH, int VEC, int THREADS, bool GLOBAL, int BYTES>
 __global__ void __launch_bounds__(THREADS) table_pass_kernel(
     const int* __restrict__ syn, float* __restrict__ perm,
-    const typename Act<BYTES>::T* __restrict__ act_prev,
+    const typename Act<BYTES>::T* act_prev,
     const int* __restrict__ pun_word, const int* __restrict__ cols,
     const int* __restrict__ bits, uint32_t* __restrict__ bms,
-    typename Act<BYTES>::T* __restrict__ v_out, int B, int C,
+    typename Act<BYTES>::T* v_out, int B, int C,
     int column_dim, int J, int A, int W, int D, int K, float punishment,
     float threshold, int scale) {
   using T = typename Act<BYTES>::T;
@@ -256,7 +264,7 @@ int grid_dispatch(int C, int J, int D, int global, int act_bytes, int device,
 // shared-memory bitmap, else a scratch of B * bitmap_stride(column_dim,
 // D) words (16-byte aligned) that receives every stream's bitmap first.
 // act_prev and v_out hold the packed activity in act_bytes bytes a value
-// (1: u8, 2: bf16, 4: float32).
+// (1: u8, 2: bf16, 4: float32); they may be one buffer (in place).
 extern "C" int table_update(const int* syn, float* perm,
                             const void* act_prev, const int* pun_word,
                             const int* cols, const int* bits,

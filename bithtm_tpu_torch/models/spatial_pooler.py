@@ -14,13 +14,20 @@ overlaps are exchanged into the (B, C) array before `k_winners`, and the
 rest (overlap, boost, Hebbian rows, duty EMA) runs on the rank's own
 columns.
 
-`sp_update_pack` is the fused update + re-pack of the whole table, an
-entry point of its own with the CUDA kernel of the same name
-(`ops/kernels.py`) and its plain version `sp_update_pack_ref`.
+The learning step updates the A active rows only (the JAX step's
+sparse-row form): `sp_rows`, the CUDA kernel of the same name
+(`ops/kernels.py`) on the card and its plain version `sp_rows_ref`, the
+gather, update and scatter of the rows, on the CPU. A column shard and
+a `proximal_update` hook keep their own update. `sp_update_pack` is the
+fused update + re-pack of the whole table, an entry point of its own
+with the CUDA kernel of the same name and its plain version
+`sp_update_pack_ref`, which no step dispatches.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -66,6 +73,20 @@ def hebbian_delta(cfg: SPConfig, input_bits: torch.Tensor, I_pad: int
     return torch.where(in_range, delta, 0.0), cfg.permanence_threshold
 
 
+@functools.cache
+def hebbian_steps(cfg: SPConfig) -> tuple[int | float, int | float,
+                                          int | float]:
+    """(the delta of an active input lane, of an inactive one, the
+    connected threshold), in the table's units: `hebbian_delta`'s own
+    expression evaluated on the host for one active and one inactive
+    input, so that the `sp_rows` kernel adds exactly the plain version's
+    values."""
+    two = dataclasses.replace(cfg, input_dim=2)
+    delta, thr = hebbian_delta(two, torch.tensor([[True, False]]), 2)
+    d_on, d_off = delta[0].tolist()
+    return d_on, d_off, thr
+
+
 def _hebbian_rows(cfg: SPConfig, rows: torch.Tensor,
                   input_bits: torch.Tensor):
     """Hebbian update of gathered rows (B, A, I_pad) toward the inputs.
@@ -78,6 +99,42 @@ def _hebbian_rows(cfg: SPConfig, rows: torch.Tensor,
             -32000, 32000).to(torch.int16)
         return rows, thr
     return rows + delta[:, None], thr
+
+
+def sp_rows_ref(cfg: SPConfig, permanence: torch.Tensor,
+                connected: torch.Tensor, input_bits: torch.Tensor,
+                active_cols: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the `sp_rows` kernel: the Hebbian update of the
+    (B, A) ``active_cols`` rows of the (B, C, I_pad) ``permanence``
+    toward the (B, I) ``input_bits`` (`_hebbian_rows`) and the strided
+    pack of their connected bits into the (B, C, I_pad/8) ``connected``,
+    in place (gather, update, scatter: the JAX step's sparse-row form);
+    every other row keeps its bits. A column listed twice is written
+    twice with the same row. Returns (permanence, connected)."""
+    idx = active_cols.long()
+    rows = permanence.gather(
+        1, idx[:, :, None].expand(-1, -1, permanence.shape[-1]))
+    rows, thr = _hebbian_rows(cfg, rows, input_bits)
+    for table, new in ((permanence, rows),
+                       (connected, pack_input(rows >= thr))):
+        table.scatter_(1, idx[:, :, None].expand(-1, -1, new.shape[-1]),
+                       new)
+    return permanence, connected
+
+
+def sp_rows(cfg: SPConfig, permanence: torch.Tensor, connected: torch.Tensor,
+            input_bits: torch.Tensor, active_cols: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The learning step's update of the active rows and their connected
+    words, in place: the `sp_rows` kernel for CUDA tensors, the plain
+    version for CPU tensors (arguments and results as `sp_rows_ref`'s)."""
+    if _on_device("sp_rows", permanence) == "cuda":
+        from ..ops.kernels import sp_rows_cuda
+
+        return sp_rows_cuda(permanence, connected, input_bits, active_cols,
+                            *hebbian_steps(cfg))
+    return sp_rows_ref(cfg, permanence, connected, input_bits, active_cols)
 
 
 def sp_update_pack_ref(permanence: torch.Tensor, delta_row: torch.Tensor,
@@ -185,19 +242,16 @@ def _update(cfg: SPConfig, state: SPState, input_bits, learning: bool,
     if learning and proximal_update is not None:
         permanence, connected = proximal_update(cfg, state, input_bits,
                                                 active_columns)
+    elif learning and shard is None:
+        permanence, connected = sp_rows(cfg, permanence, connected,
+                                        input_bits, active_columns)
     elif learning:
-        if shard is None:
-            idx = active_columns.long()
-        else:
-            idx, _ = shard.local(active_columns)
+        # the rank's rows among the active columns, written back by it
+        idx, _ = shard.local(active_columns)
         rows = permanence.gather(
             1, idx[:, :, None].expand(-1, -1, permanence.shape[-1]))
         rows, thr = _hebbian_rows(cfg, rows, input_bits)
         for table, new in ((permanence, rows),
                            (connected, pack_input(rows >= thr))):
-            if shard is None:
-                table.scatter_(
-                    1, idx[:, :, None].expand(-1, -1, new.shape[-1]), new)
-            else:
-                shard.put_rows(table, active_columns, new)
+            shard.put_rows(table, active_columns, new)
     return permanence, connected

@@ -619,7 +619,8 @@ def _learn(cfg: TMConfig, state: TMState, tables, put, draws: Draws,
             # a column shard writes back the rows it owns
             put(state.synapse_cell, active_cols, syn)
             put(state.synapse_perm, active_cols, perm)
-    seg_cell = put(state.seg_cell.clone(), active_cols, segcell_rows)
+    # in place: the step read the owners it needs (segcell_rows) above
+    seg_cell = put(state.seg_cell, active_cols, segcell_rows)
     n_grown, overflow, winners_dropped, growth_dropped = sel.counts
 
     metrics = {
@@ -887,14 +888,17 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
                 matching_word = pack_bits(matching)[..., 0]       # G <= 32
         else:
             with site("tm_step.table_pass"):
+                # into the state's activity buffer, as the learning
+                # step's table pass writes it
                 if frozen_word is not None:
                     act_now = synapse_activation_frozen(
-                        frozen_word, active_cols, act_bits, D, K)
+                        frozen_word, active_cols, act_bits, D, K,
+                        out=state.synapse_act)
                 else:
                     act_now = synapse_activation_conn(
                         state.synapse_cell, perm_full, active_cols,
                         act_bits, D, cfg.permanence_threshold, K,
-                        column_dim=C)
+                        column_dim=C, out=state.synapse_act)
             with site("tm_step.count_decode"):
                 # the counts' thresholds, matching word and prediction
                 # words in the decode's own pass

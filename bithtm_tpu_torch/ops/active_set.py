@@ -208,16 +208,23 @@ def _slot_active(syn: torch.Tensor, perm: torch.Tensor, cols, bits,
     return cells_active(syn, cols, bits, width, cell_dim) & (perm >= 0.0)
 
 
+def _into(out, v: torch.Tensor) -> torch.Tensor:
+    """``v`` written into ``out`` (a state's activity buffer), or ``v``
+    itself where there is none."""
+    return v if out is None else out.copy_(v)
+
+
 def synapse_activation_conn_ref(syn, perm, cols, bits, cell_dim: int,
                                 perm_threshold: float, synapses: int,
-                                column_dim: int | None = None
+                                column_dim: int | None = None, out=None
                                 ) -> torch.Tensor:
     """Plain version of the `act_conn` kernel: packed activity
     v = act + scale*(perm >= threshold) over a read-only table, whose
-    presynaptic cells lie in ``column_dim`` columns (`_slot_active`)."""
+    presynaptic cells lie in ``column_dim`` columns (`_slot_active`),
+    written into ``out`` where given."""
     thr = torch.tensor(perm_threshold, dtype=torch.float32)
     act = _slot_active(syn, perm, cols, bits, cell_dim, column_dim)
-    return pack_act_conn(act, perm >= thr, synapses)
+    return _into(out, pack_act_conn(act, perm >= thr, synapses))
 
 
 def table_update_ref(syn, perm, act_prev, pun_word, cols, bits,
@@ -226,17 +233,19 @@ def table_update_ref(syn, perm, act_prev, pun_word, cols, bits,
                      column_dim: int | None = None) -> torch.Tensor:
     """Plain version of the `table_update` kernel. Punishes in place:
     perm -= punishment where bit g = j // K of the column's ``pun_word``
-    is set and ``act_prev != 0``; then returns the packed activity of
-    the punished table over ``column_dim`` columns (`_slot_active`). A
-    slot is dead iff perm < 0, so a slot the punishment kills drops out
-    of the activity without a syn write."""
+    is set and ``act_prev != 0``; then writes the packed activity of the
+    punished table over ``column_dim`` columns (`_slot_active`) over
+    ``act_prev``, in place, and returns it. A slot is dead iff perm < 0,
+    so a slot the punishment kills drops out of the activity without a
+    syn write."""
     J = syn.shape[-1]
     g_lane = torch.arange(J, device=syn.device) // synapses
     pen = (((pun_word[:, :, None] >> g_lane) & 1) == 1) & (act_prev != 0)
     pun = torch.tensor(punishment, dtype=torch.float32)
     perm.copy_(torch.where(pen, perm - pun, perm))
     return synapse_activation_conn_ref(syn, perm, cols, bits, cell_dim,
-                                       perm_threshold, synapses, column_dim)
+                                       perm_threshold, synapses, column_dim,
+                                       out=act_prev)
 
 
 def _on_device(name: str, t: torch.Tensor) -> str:
@@ -249,18 +258,21 @@ def _on_device(name: str, t: torch.Tensor) -> str:
 
 def synapse_activation_conn(syn, perm, cols, bits, cell_dim: int,
                             perm_threshold: float, synapses: int,
-                            column_dim: int | None = None) -> torch.Tensor:
+                            column_dim: int | None = None, out=None
+                            ) -> torch.Tensor:
     """Activation + connected activity over a frozen table (the
     inference forward): the `act_conn` kernel for CUDA tensors, the
     plain version for CPU tensors. ``column_dim`` (default: the table's
-    rows) is the column count of the cell space, for a column shard."""
+    rows) is the column count of the cell space, for a column shard;
+    ``out``, where given, receives the activity (the step passes its
+    state's buffer)."""
+    args = (syn, perm, cols, bits, cell_dim, perm_threshold, synapses,
+            column_dim, out)
     if _on_device("synapse_activation_conn", syn) == "cuda":
         from .kernels import act_conn_cuda
 
-        return act_conn_cuda(syn, perm, cols, bits, cell_dim,
-                             perm_threshold, synapses, column_dim)
-    return synapse_activation_conn_ref(syn, perm, cols, bits, cell_dim,
-                                       perm_threshold, synapses, column_dim)
+        return act_conn_cuda(*args)
+    return synapse_activation_conn_ref(*args)
 
 
 def synapse_activation_ref(syn, cols, bits, column_dim: int,
@@ -362,37 +374,39 @@ def pack_frozen_table(syn_cell: torch.Tensor, syn_perm: torch.Tensor,
 
 
 def synapse_activation_frozen_ref(frozen_word, cols, bits, cell_dim: int,
-                                  synapses: int) -> torch.Tensor:
+                                  synapses: int, out=None) -> torch.Tensor:
     """Plain version of the `act_frozen` kernel: the packed activity of
     `synapse_activation_conn_ref` over a `pack_frozen_table` word table
-    (bit-equal to it on the table the words were packed from)."""
+    (bit-equal to it on the table the words were packed from), written
+    into ``out`` where given."""
     live = frozen_word >= 0
     cell = torch.where(live, frozen_word & ((1 << FROZEN_CELL_BITS) - 1), -1)
     # the cell space of the table's own rows: a frozen table is whole,
     # never a column shard
     act = cells_active(cell, cols, bits, frozen_word.shape[1], cell_dim)
     conn = (frozen_word >> FROZEN_CELL_BITS) == 1
-    return pack_act_conn(act & live, conn, synapses)
+    return _into(out, pack_act_conn(act & live, conn, synapses))
 
 
 def synapse_activation_frozen(frozen_word, cols, bits, cell_dim: int,
-                              synapses: int) -> torch.Tensor:
+                              synapses: int, out=None) -> torch.Tensor:
     """The inference forward over a frozen word table: the `act_frozen`
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors, the plain version for CPU tensors; ``out``
+    as for `synapse_activation_conn`."""
+    args = (frozen_word, cols, bits, cell_dim, synapses, out)
     if _on_device("synapse_activation_frozen", frozen_word) == "cuda":
         from .kernels import act_frozen_cuda
 
-        return act_frozen_cuda(frozen_word, cols, bits, cell_dim, synapses)
-    return synapse_activation_frozen_ref(frozen_word, cols, bits, cell_dim,
-                                         synapses)
+        return act_frozen_cuda(*args)
+    return synapse_activation_frozen_ref(*args)
 
 
 def _table_pass(syn, perm, act_prev, pun_word, cols, bits, cell_dim: int,
                 synapses: int, punishment: float, perm_threshold: float,
                 column_dim: int | None):
     """The `table_update` kernel for CUDA tensors, its plain version for
-    CPU tensors: punishes ``perm`` in place, returns the packed
-    activity."""
+    CPU tensors: punishes ``perm`` in place, writes the packed activity
+    over ``act_prev`` and returns it."""
     args = (syn, perm, act_prev, pun_word, cols, bits, cell_dim, synapses,
             punishment, perm_threshold, column_dim)
     with site("tm_step.table_pass"):
@@ -410,7 +424,8 @@ def table_update(syn, perm, act_prev, pun_word, cols, bits, seg_cell,
     """The full-table part of a learning TM step (JAX `table_update_xla`):
     punishment + implicit death + activation (the `table_update` kernel
     for CUDA tensors, the plain version for CPU tensors; perm is updated
-    in place), then the flags form of the count decode
+    in place and the new activity is written over ``act_prev``, which
+    the step's state holds), then the flags form of the count decode
     (`seg_counts_flags`), which gives the matching word and the
     prediction words in its own pass. JAX's per-segment leaves are
     functions of these: potential and connected are `seg_counts_packed`
@@ -419,8 +434,8 @@ def table_update(syn, perm, act_prev, pun_word, cols, bits, seg_cell,
     the whole-table result when ``column_dim`` names the global column
     count (default: the table's rows).
 
-    Returns (perm', act packed, matching_word (B, C), prediction (B, W,
-    C))."""
+    Returns (perm', act packed (``act_prev`` itself), matching_word (B,
+    C), prediction (B, W, C))."""
     G = seg_cell.shape[-1]
     K = syn.shape[-1] // G
     act = _table_pass(syn, perm, act_prev, pun_word, cols, bits, cell_dim, K,

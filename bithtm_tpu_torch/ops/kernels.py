@@ -87,6 +87,9 @@ _ARGTYPES = {
     # perm, delta, cols, col_bitmaps, pack, B, C, I_pad, A, quantized,
     # threshold_f, threshold_i, fold
     "sp_update_pack": [_VP] * 5 + [_I] * 5 + [_F, _I, _I, _I, _VP],
+    # perm, pack, bits, cols, B, C, I, I_pad, A, quantized, on_f, off_f,
+    # threshold_f, on_i, off_i, threshold_i, fold
+    "sp_rows": [_VP] * 4 + [_I] * 6 + [_F] * 3 + [_I] * 4 + [_I, _VP],
     # connected, bits, out, B, C, S, I, fold
     "sp_overlap": [_VP] * 3 + [_I] * 5 + [_I, _VP],
     # v, potential, connected, seg_cell, matching_word, prediction, B, C,
@@ -227,6 +230,7 @@ ACT_FROZEN = CudaKernel("act_frozen")
 SYNAPSE_ACTIVATION = CudaKernel("synapse_activation")
 SMALL_TABLE_TAKE = CudaKernel("small_table_take")
 SP_UPDATE_PACK = CudaKernel("sp_update_pack")
+SP_ROWS = CudaKernel("sp_rows")
 SP_OVERLAP = CudaKernel("sp_overlap")
 SEG_COUNTS = CudaKernel("seg_counts")
 GROW_SELECT = CudaKernel("grow_select")
@@ -234,8 +238,9 @@ ROW_COUNTS = CudaKernel("row_counts")
 LEARN_ROWS = CudaKernel("learn_rows")
 PACK_BITS = CudaKernel("pack_bits")
 KERNELS = (TABLE_UPDATE, ACT_CONN, SERVING_ACTIVATION, ACT_FROZEN,
-           SYNAPSE_ACTIVATION, SMALL_TABLE_TAKE, SP_UPDATE_PACK, SP_OVERLAP,
-           SEG_COUNTS, GROW_SELECT, ROW_COUNTS, LEARN_ROWS, PACK_BITS)
+           SYNAPSE_ACTIVATION, SMALL_TABLE_TAKE, SP_UPDATE_PACK, SP_ROWS,
+           SP_OVERLAP, SEG_COUNTS, GROW_SELECT, ROW_COUNTS, LEARN_ROWS,
+           PACK_BITS)
 
 
 def launch_counts() -> dict[str, int]:
@@ -353,9 +358,9 @@ def _bitmap(C: int, cell_dim: int) -> str:
 
 
 def _streams(B: int) -> str:
-    """`act_frozen`, `sp_update_pack` and `sp_overlap` run one grid row a
-    stream ("grid_y") up to the grid's y extent, and fold the streams
-    into grid x past it ("grid_x_streams")."""
+    """`act_frozen`, `sp_update_pack`, `sp_rows` and `sp_overlap` run one
+    grid row a stream ("grid_y") up to the grid's y extent, and fold the
+    streams into grid x past it ("grid_x_streams")."""
     return "grid_y" if B <= MAX_GRID_Y else "grid_x_streams"
 
 
@@ -473,9 +478,9 @@ def table_update_cuda(syn, perm, act_prev, pun_word, cols, bits,
                       cell_dim: int, synapses: int, punishment: float,
                       perm_threshold: float,
                       column_dim: int | None = None) -> torch.Tensor:
-    """CUDA `table_update`: punishes ``perm`` in place and returns the
-    packed activity (B, C, J) in `act_dtype(synapses)` (see
-    `active_set.table_update_ref`), as ``act_prev`` holds it.
+    """CUDA `table_update`: punishes ``perm`` in place and writes the
+    packed activity (B, C, J) in `act_dtype(synapses)` over
+    ``act_prev``, which it returns (see `active_set.table_update_ref`).
     ``column_dim`` (default C): the columns of the cell space the active
     set spans, for a column shard of C rows."""
     B, C, J, A, W, dev, syn_p, cols_p, bits_p, _scratch, bm_p, _ = _table(
@@ -485,29 +490,39 @@ def table_update_cuda(syn, perm, act_prev, pun_word, cols, bits,
     perm_p = _ptr("perm", perm, torch.float32, syn.shape, dev, align=16)
     act_p = _ptr("act_prev", act_prev, dtype, syn.shape, dev, align=16)
     pun_p = _ptr("pun_word", pun_word, torch.int32, (B, C), dev)
-    v = torch.empty((B, C, J), dtype=dtype, device=syn.device)
     TABLE_UPDATE.launch(syn_p, perm_p, act_p, pun_p, cols_p, bits_p, bm_p,
-                        v.data_ptr(), B, C, column_dim or C, J, A, W,
-                        cell_dim, synapses, punishment, perm_threshold,
+                        act_p, B, C, column_dim or C, J, A, W, cell_dim,
+                        synapses, punishment, perm_threshold,
                         act_scale(synapses), dtype.itemsize, dev,
                         _stream(dev))
-    return v
+    return act_prev
+
+
+def _act_out(out, shape, dtype, device: torch.device
+             ) -> tuple[torch.Tensor, int]:
+    """The packed activity's output on ``device`` and its pointer:
+    ``out`` (a state's activity buffer, checked) or a new tensor."""
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        return out, out.data_ptr()
+    return out, _ptr("out", out, dtype, shape, device.index, align=16)
 
 
 def act_conn_cuda(syn, perm, cols, bits, cell_dim: int,
                   perm_threshold: float, synapses: int,
-                  column_dim: int | None = None) -> torch.Tensor:
+                  column_dim: int | None = None, out=None) -> torch.Tensor:
     """CUDA `act_conn`: packed activity (B, C, J) in
     `act_dtype(synapses)` over a read-only table (see
-    `active_set.synapse_activation_conn_ref`); ``column_dim`` as for
-    `table_update_cuda`."""
+    `active_set.synapse_activation_conn_ref`), written into ``out`` where
+    given (the state's activity buffer) else into a new tensor;
+    ``column_dim`` as for `table_update_cuda`."""
     B, C, J, A, W, dev, syn_p, cols_p, bits_p, _scratch, bm_p, _ = _table(
         ACT_CONN, "syn", syn, torch.int32, cols, bits, cell_dim, synapses,
         column_dim=column_dim)
     dtype = act_dtype(synapses)
     perm_p = _ptr("perm", perm, torch.float32, syn.shape, dev, align=16)
-    v = torch.empty((B, C, J), dtype=dtype, device=syn.device)
-    ACT_CONN.launch(syn_p, perm_p, cols_p, bits_p, bm_p, v.data_ptr(), B, C,
+    v, v_p = _act_out(out, syn.shape, dtype, syn.device)
+    ACT_CONN.launch(syn_p, perm_p, cols_p, bits_p, bm_p, v_p, B, C,
                     column_dim or C, J, A, W, cell_dim, synapses,
                     perm_threshold, act_scale(synapses), dtype.itemsize, dev,
                     _stream(dev))
@@ -540,19 +555,20 @@ def serving_activation_cuda(rows, cols, bits, column_dim: int,
 
 
 def act_frozen_cuda(frozen_word, cols, bits, cell_dim: int,
-                    synapses: int) -> torch.Tensor:
+                    synapses: int, out=None) -> torch.Tensor:
     """CUDA `act_frozen`: packed activity (B, C, J) in
     `act_dtype(synapses)` over a frozen word table (see
-    `active_set.synapse_activation_frozen_ref`)."""
+    `active_set.synapse_activation_frozen_ref`), written into ``out``
+    where given, else into a new tensor."""
     (B, C, J, A, W, dev, word_p, cols_p, bits_p, _scratch, bm_p,
      path) = _table(
         ACT_FROZEN, "frozen_word", frozen_word, torch.int32, cols, bits,
         cell_dim, synapses, stream_rows=True)
     dtype = act_dtype(synapses)
-    v = torch.empty((B, C, J), dtype=dtype, device=frozen_word.device)
+    v, v_p = _act_out(out, frozen_word.shape, dtype, frozen_word.device)
     if v.numel() == 0:
         return v
-    ACT_FROZEN.launch(word_p, cols_p, bits_p, bm_p, v.data_ptr(), B, C, J, A,
+    ACT_FROZEN.launch(word_p, cols_p, bits_p, bm_p, v_p, B, C, J, A,
                       W, cell_dim, act_scale(synapses), dtype.itemsize,
                       int(path[-1] == "grid_x_streams"), dev,
                       _stream(dev))
@@ -656,6 +672,52 @@ def sp_update_pack_cuda(permanence, delta_row, active_cols, threshold
                           int(path[1] == "grid_x_streams"), dev,
                           _stream(dev))
     return permanence, pack
+
+
+def sp_rows_cuda(permanence, connected, input_bits, active_cols, d_on,
+                 d_off, threshold) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA `sp_rows`: the Hebbian update of the active rows of
+    ``permanence`` (B, C, I_pad), int16 units or float32, and of their
+    packed rows in ``connected`` (B, C, I_pad/8) u8, in place, toward the
+    (B, I) bool ``input_bits``; ``d_on`` / ``d_off`` are the delta of an
+    active / inactive input lane and ``threshold`` the connected
+    threshold, in the table's units (`spatial_pooler.hebbian_steps`; see
+    `spatial_pooler.sp_rows_ref`). Returns (permanence, connected)."""
+    if permanence.dim() != 3 or input_bits.dim() != 2:
+        raise ValueError(f"permanence must be (B, C, I_pad) and input_bits "
+                         f"(B, I), got {tuple(permanence.shape)} and "
+                         f"{tuple(input_bits.shape)}")
+    B, C, I_pad = permanence.shape
+    I = input_bits.shape[-1]
+    if permanence.dtype not in (torch.int16, torch.float32):
+        raise TypeError(f"permanence must be int16 or float32, got "
+                        f"{permanence.dtype}")
+    quantized = permanence.dtype == torch.int16
+    if I_pad % 1024 or I > I_pad:
+        raise ValueError(f"I_pad={I_pad} must be 8*S with S a multiple of "
+                         f"128 (ops/overlap.py input_words) and hold "
+                         f"I={I} inputs")
+    if quantized and not all(v == int(v) for v in (d_on, d_off, threshold)):
+        raise ValueError(f"an int16 table takes integer deltas and "
+                         f"threshold in units, got {d_on}, {d_off} and "
+                         f"{threshold}")
+    path = SP_ROWS.choose(_streams(B))
+    dev = permanence.get_device()
+    perm_p = _ptr("permanence", permanence, permanence.dtype, None, dev,
+                  align=16)
+    conn_p = _ptr("connected", connected, torch.uint8, (B, C, I_pad // 8),
+                  dev, align=16)
+    bits_p = _ptr("input_bits", input_bits, torch.bool, (B, I), dev)
+    A = active_cols.shape[-1]
+    cols_p = _ptr("active_cols", active_cols, torch.int32, (B, A), dev)
+    if B * C * A:
+        units = [int(v) if quantized else 0 for v in (d_on, d_off,
+                                                      threshold)]
+        SP_ROWS.launch(perm_p, conn_p, bits_p, cols_p, B, C, I, I_pad, A,
+                       int(quantized), float(d_on), float(d_off),
+                       float(threshold), *units,
+                       int(path[0] == "grid_x_streams"), dev, _stream(dev))
+    return permanence, connected
 
 
 def sp_overlap_cuda(connected, input_bits) -> torch.Tensor:

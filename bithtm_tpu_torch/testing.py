@@ -235,11 +235,12 @@ def step_launches(sp_steps: int | None = None, **counts) -> dict:
     runs the SP once), one `seg_counts` after each kernel that writes
     the packed activity (all of STEP_KERNELS but `serving_activation`,
     whose step counts from the serving table), one `row_counts`, one
-    `grow_select` and one `learn_rows` a learning step (each
-    `table_update`) and STEP_PACKS `pack_bits` a step, one more a serving
-    step. A count given in ``counts`` overrides its default (a
-    `tm_resume` launches one `act_conn`, one `seg_counts` and no
-    `pack_bits`)."""
+    `grow_select`, one `learn_rows` and one `sp_rows` (the SP's update of
+    its active rows) a learning step (each `table_update`) and
+    STEP_PACKS `pack_bits` a step, one more a serving step. A count
+    given in ``counts`` overrides its default (a `tm_resume` launches one
+    `act_conn`, one `seg_counts` and no `pack_bits`; a column shard's SP
+    updates its rows without `sp_rows`)."""
     n = sum(counts.get(k, 0) for k in STEP_KERNELS)
     learning = counts.get("table_update", 0)
     serving = counts.get("serving_activation", 0)
@@ -248,6 +249,7 @@ def step_launches(sp_steps: int | None = None, **counts) -> dict:
               "row_counts": learning,
               "grow_select": learning,
               "learn_rows": learning,
+              "sp_rows": learning,
               "pack_bits": STEP_PACKS * n + serving,
               **counts}
     return {k.name: counts.get(k.name, 0) for k in kernels.KERNELS}

@@ -15,7 +15,15 @@ pass over the active rows (cleanup, update, death and the fill, in
 place) and the bit pack, in the phase `check_grow_and_pack` at the
 bench, 16K x 64 (tuned and auto caps), reference-stack and anomaly
 shapes, each in a CUDA graph of 20 calls, and on every path their
-wrappers report), with
+wrappers report; `sp_rows`, the SP's update of its active rows and
+their connected words in place, in the phase `check_sp_rows` at the SP
+of every learning path (bench, 16K x 64, the B=1 reference stack, both
+anomaly-stack layers), at 65,536 streams and past a block's input tile,
+on tables whose rows hold values past the rail and -0.0 and with a
+column listed twice, timed on disjoint columns a call; `table_update`,
+which writes its activity over its `act_prev`, against its plain
+version and its out-of-place form, each on its own copy, and timed on
+a fresh copy a call), with
 its time, its plain version's, its bound and where one exists a single
 PyTorch call's (the table kernels and the row-range word kernels with
 the grid their launcher chose; `small_table_take` with its wrapper's
@@ -26,8 +34,8 @@ input, then drives the main path: the bench configuration (2048 columns
 x 32 cells, G=4 x K=64, int16 SP, B=256 streams) through `htm_scan`, 768
 learning steps then inference, and checks that every kernel of that path
 was launched once a step (the table kernel, `sp_overlap`,
-`seg_counts` and at learning `row_counts`, `grow_select` and
-`learn_rows`; `pack_bits` twice a step, three times a serving step;
+`seg_counts` and at learning `row_counts`, `grow_select`, `learn_rows`
+and `sp_rows`; `pack_bits` twice a step, three times a serving step;
 `testing.step_launches` gives every count this
 script holds a run to), that the metrics are in range, that the graph
 learned to predict and that the state invariants hold. Then serves the
@@ -124,6 +132,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -144,7 +153,7 @@ from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
 from bithtm_tpu_torch.ops import serving as psv
 from bithtm_tpu_torch.ops.bitops import popcount32
-from bithtm_tpu_torch.ops.overlap import (input_words, overlaps,
+from bithtm_tpu_torch.ops.overlap import (input_words, overlaps, pack_input,
                                           overlaps_ref, padded_input_dim)
 from bithtm_tpu_torch.parallel import mesh as pmesh
 from bithtm_tpu_torch import testing
@@ -195,6 +204,7 @@ SOURCES = {
     "synapse_activation": "bithtm_tpu_torch/csrc/serving_pass.cu",
     "small_table_take": "bithtm_tpu_torch/csrc/small_take.cu",
     "sp_update_pack": "bithtm_tpu_torch/csrc/sp_pass.cu",
+    "sp_rows": "bithtm_tpu_torch/csrc/sp_pass.cu",
     "sp_overlap": "bithtm_tpu_torch/csrc/overlap_pass.cu",
     "seg_counts": "bithtm_tpu_torch/csrc/count_pass.cu",
     "grow_select": "bithtm_tpu_torch/csrc/grow_pass.cu",
@@ -212,6 +222,7 @@ REPLACES = {
     "sp_update_pack": "bithtm_tpu/ops/pallas_kernels.py:598",
     # no Pallas kernel: the JAX functions that XLA fuses into one pass
     "sp_overlap": "bithtm_tpu/ops/overlap.py:85",
+    "sp_rows": "bithtm_tpu/models/spatial_pooler.py:81",
     "seg_counts": "bithtm_tpu/ops/active_set.py:588",
     "grow_select": "bithtm_tpu/models/temporal_memory.py:350",
     "row_counts": "bithtm_tpu/models/temporal_memory.py:106",
@@ -263,6 +274,54 @@ def cuda_ms(fn, n: int = 20) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fresh(t: torch.Tensor, n: int = 23):
+    """A callable that hands out n copies of ``t`` in turn: each of the 3
+    warm-up and 20 timed calls of `cuda_ms` gets a copy that no call has
+    written yet. `table_update` writes its activity over ``act_prev``,
+    so a timed loop that passed one tensor would punish by the last
+    call's activity; with copies each call does the work of the first.
+    Give the kernel and its plain version a `fresh` each."""
+    copies = itertools.cycle([t.clone() for _ in range(n)])
+    return lambda: next(copies)
+
+
+def table_update_in_place(syn, perm, act_prev, pun_word, cols, bits, D: int,
+                          K: int, pun: float, thr: float, what: str,
+                          **shard) -> tuple[torch.Tensor, torch.Tensor]:
+    """`table_update_cuda` and `table_update_ref`, each on its own copies
+    of ``perm`` and ``act_prev``: both return the ``act_prev`` they were
+    given, holding the activity, and agree bit for bit with each other
+    and with the kernel's out-of-place form (act_prev and v_out two
+    buffers, the entry point called directly). Returns (activity,
+    punished permanences) of the plain version."""
+    p_ref, p_k, p_o = perm.clone(), perm.clone(), perm.clone()
+    a_ref, a_k = act_prev.clone(), act_prev.clone()
+    v_ref = pas.table_update_ref(syn, p_ref, a_ref, pun_word, cols, bits, D,
+                                 K, pun, thr, **shard)
+    v_k = kernels.table_update_cuda(syn, p_k, a_k, pun_word, cols, bits, D,
+                                    K, pun, thr, **shard)
+    B, C, J = syn.shape
+    column_dim = shard.get("column_dim", C)
+    out = torch.empty_like(act_prev)
+    _scratch, bm_p = kernels._bitmap_scratch(kernels.TABLE_UPDATE.path[0], B,
+                                             column_dim, D, syn.device)
+    dev = syn.get_device()
+    kernels.TABLE_UPDATE.bind()(
+        syn.data_ptr(), p_o.data_ptr(), act_prev.data_ptr(),
+        pun_word.data_ptr(), cols.data_ptr(), bits.data_ptr(), bm_p,
+        out.data_ptr(), B, C, column_dim, J, cols.shape[-1], bits.shape[-1],
+        D, K, pun, thr, pas.act_scale(K), act_prev.element_size(), dev,
+        kernels._stream(dev))
+    torch.cuda.synchronize()
+    require(v_ref is a_ref and v_k is a_k,
+            f"table_update writes its activity over act_prev at {what}")
+    require(same_bits(v_k, v_ref) and same_bits(p_k, p_ref),
+            f"table_update == plain at {what}, bit for bit")
+    require(same_bits(v_k, out) and same_bits(p_k, p_o),
+            f"table_update in place == its out-of-place form at {what}")
+    return v_ref, p_ref
 
 
 def kernel_row(name: str, kernel, plain, moved: int, at: str,
@@ -322,23 +381,24 @@ def check_kernels(dev) -> dict:
     syn, act_prev, pun_word, cols, bits = args
     at = f"B={B} C={C} G={G} K={K} D={D} A={A}"
 
-    p_ref, p_k = x["perm"].clone(), x["perm"].clone()
-    v_ref = pas.table_update_ref(syn, p_ref, act_prev, pun_word, cols, bits,
-                                 D, K, pun, thr)
-    v_k = kernels.table_update_cuda(syn, p_k, act_prev, pun_word, cols,
-                                    bits, D, K, pun, thr)
+    v_ref, p_ref = table_update_in_place(syn, x["perm"], act_prev,
+                                         pun_word, cols, bits, D, K, pun,
+                                         thr, at)
     c_ref = pas.synapse_activation_conn_ref(syn, x["perm"], cols, bits, D,
                                             thr, K)
     c_k = kernels.act_conn_cuda(syn, x["perm"], cols, bits, D, thr, K)
+    # the step's form: into the state's activity buffer
+    c_out = torch.full_like(act_prev, 7)
+    c_into = kernels.act_conn_cuda(syn, x["perm"], cols, bits, D, thr, K,
+                                   out=c_out)
     a_ref = pas.synapse_activation_ref(syn, cols, bits, C, D)
     a_k = kernels.synapse_activation_cuda(syn, cols, bits, C, D)
     torch.cuda.synchronize()
     require(bool((v_ref > 1).any()) and bool((p_ref != x["perm"]).any()),
             "the bench-shape inputs exercise connected and punished slots")
-    require(torch.equal(v_k, v_ref), "table_update v == plain")
-    require(torch.equal(p_k.view(torch.int32), p_ref.view(torch.int32)),
-            "table_update perm' == plain, bit for bit")
     require(torch.equal(c_k, c_ref), "act_conn v == plain")
+    require(c_into is c_out and torch.equal(c_out, c_ref),
+            "act_conn into a buffer == plain")
     require(torch.equal(a_k, a_ref), "synapse_activation == plain")
     require(torch.equal((a_ref != 0) & (x["perm"] >= 0), c_ref != 0),
             "synapse_activation on live slots == act_conn's activity")
@@ -349,22 +409,27 @@ def check_kernels(dev) -> dict:
     rows = serving_rows(0, B, C + 8, C, D, G, device=dev)
     f_ref = pas.synapse_activation_frozen_ref(word, cols, bits, D, K)
     f_k = kernels.act_frozen_cuda(word, cols, bits, D, K)
+    f_out = torch.full_like(act_prev, 7)
+    f_into = kernels.act_frozen_cuda(word, cols, bits, D, K, out=f_out)
     s_ref = psv.serving_activation_ref(rows, cols, bits, C, D)
     s_k = kernels.serving_activation_cuda(rows, cols, bits, C, D)
     torch.cuda.synchronize()
     require(bool((f_ref > 1).any()) and bool((s_ref > 0).any()),
             "the bench-shape inputs exercise active and connected words")
     require(torch.equal(f_k, f_ref), "act_frozen v == plain")
+    require(f_into is f_out and torch.equal(f_out, f_ref),
+            "act_frozen into a buffer == plain")
     require(torch.equal(f_ref, c_ref), "act_frozen plain == act_conn plain")
     require(torch.equal(s_k, s_ref), "serving_activation == plain")
 
     p = x["perm"].clone()
+    act_k, act_p = fresh(act_prev), fresh(act_prev)
     out = {
         "table_update": kernel_row(
             "table_update",
-            lambda: kernels.table_update_cuda(syn, p, act_prev, pun_word,
+            lambda: kernels.table_update_cuda(syn, p, act_k(), pun_word,
                                               cols, bits, D, K, pun, thr),
-            lambda: pas.table_update_ref(syn, p, act_prev, pun_word, cols,
+            lambda: pas.table_update_ref(syn, p, act_p(), pun_word, cols,
                                          bits, D, K, pun, thr),
             nbytes(syn, x["perm"], act_prev, pun_word, cols, bits, v_ref)
             + 4 * punished, at, grid=table_grid(True, syn, D)),
@@ -396,8 +461,8 @@ def check_kernels(dev) -> dict:
             nbytes(syn, cols, bits, a_ref), at,
             grid=word_grid(False, syn, C, D)),
     }
-    del x, p, p_ref, p_k, v_ref, v_k, c_ref, c_k, a_ref, a_k, word, rows
-    del f_ref, f_k, s_ref, s_k
+    del x, p, p_ref, v_ref, c_ref, c_k, a_ref, a_k, word, rows, act_k, act_p
+    del f_ref, f_k, s_ref, s_k, c_out, c_into, f_out, f_into
     out["sp_update_pack"] = check_sp_update_pack(dev)
     out.update(check_overlap_and_counts(dev))
     out["small_table_take"] = check_small_table_take(dev)
@@ -1017,6 +1082,131 @@ def check_sp_update_pack(dev) -> dict:
               f"rows changed (past the rail or -0.0)")
         del perm, edge, e_ref, e_k, epack_ref, epack_k
     return rows[torch.int16]
+
+
+# `sp_rows` at the SP of every learning path (tag: B, C, I, A, the
+# permanence type): the bench, 16K x 64, the B=1 reference stack, the
+# anomaly stack's two layers (352 and 512 x 8 = 4,096 inputs); then past
+# them: 65,536 streams (grid x) and rows wider than a block's tile
+SP_ROWS_MAIN = {
+    "bench": (BATCH, 2048, 1000, 41, "int16"),
+    "16k": (BATCH_16K, 16384, 1000, 328, "int16"),
+    "reference B=1": (1, 2048, 1000, 41, "float32"),
+    "anomaly": (BATCH, 512, 352, 16, "float32"),
+    "stack layer 2": (BATCH, 512, 4096, 16, "float32"),
+}
+SP_ROWS_PATHS = {
+    "B=65536": (65_536, 2, 1000, 1, "int16"),
+    "two tiles int16": (2, 64, 40_000, 5, "int16"),
+    "two tiles float32": (2, 64, 40_000, 5, "float32"),
+}
+
+
+def sp_rows_grid(B: int, I_pad: int, A: int) -> str:
+    """The grid `sp_rows` launches (csrc/sp_pass.cu `RowGrid`): blocks
+    of 256 threads, a row tile of min(S, 4096) packed bytes, 8 a
+    thread."""
+    S = I_pad // 8
+    groups = min(S, 4096) // 8
+    rows = 256 // groups if groups < 256 else 1
+    per_stream = -(-A // rows) * -(-S // 4096)
+    return (f"{per_stream}x{B}" if B <= kernels.MAX_GRID_Y
+            else f"{per_stream * B}") + " blocks of 256"
+
+
+def sp_rows_row(tag: str, geo: tuple, dev, graph: bool = True) -> dict:
+    """`sp_rows` at ``geo`` against `sp_rows_ref`, each on its own copy:
+    on an `sp_init`-like table and its connected words, on one whose
+    every row holds values that change without learning (`with_edges`,
+    and the padding lanes too), and with a column listed twice. Both
+    tables bit-equal, rows outside the active columns unchanged, the
+    path the shapes choose. Timed on up to 20 calls (`fresh_ms`), each on
+    its own disjoint set of columns, so that no call finds its rows in
+    the L2 cache (their work does not depend on the values: no restore),
+    plain and, with ``graph``, in a CUDA graph of 20. Bound: the active
+    rows read and written once, their packed rows written, the inputs
+    and columns read; no PyTorch call updates, clips and packs rows: no
+    library time."""
+    B, C, I, A, dtype = geo
+    cfg = bt.make_htm_config(I, C, 4, active_columns=A, sp_overrides={
+        "permanence_dtype": dtype}).sp
+    g = torch.Generator(device=dev).manual_seed(B + C + I)
+    perm, _, cols, thr = sp_inputs(cfg, B, g, dev)
+    conn = pack_input(perm >= thr)
+    x = torch.rand((B, I), generator=g, device=dev) < 0.2
+    steps_ = psp.hebbian_steps(cfg)
+    at = f"B={B} C={C} I={I} I_pad={perm.shape[-1]} A={A} {dtype}, {tag}"
+    dup = cols.clone()
+    if A > 2:
+        dup[:, -1] = dup[:, 1]
+    edge = with_edges(perm)
+    edge[..., I:] = -0.0 if dtype == "float32" else 32767
+    for table, where, what in ((perm, cols, "sp_init-like"),
+                               (edge, cols, "with_edges"),
+                               (edge, dup, "a column listed twice")):
+        want = psp.sp_rows_ref(cfg, table.clone(), conn.clone(), x, where)
+        got = kernels.sp_rows_cuda(table.clone(), conn.clone(), x, where,
+                                   *steps_)
+        torch.cuda.synchronize()
+        inactive = ~pas.column_mask_from_cols(where, C)
+        require(same_bits(got[0], want[0]) and same_bits(got[1], want[1]),
+                f"sp_rows == plain at {at}, {what}, bit for bit")
+        require(same_bits(want[0][inactive], table[inactive])
+                and same_bits(want[1][inactive], conn[inactive])
+                and not torch.equal(want[0], table),
+                f"sp_rows at {at}, {what}: the active rows learn, the "
+                f"others keep their bits")
+        del want, got, inactive
+    path = ("grid_x_streams",) if B > kernels.MAX_GRID_Y else ("grid_y",)
+    require(kernels.SP_ROWS.path == path, f"sp_rows at {at} takes {path}, "
+            f"got {kernels.SP_ROWS.path}")
+    del edge, dup
+    I_pad = perm.shape[-1]
+    moved = (B * A * (2 * I_pad * perm.element_size() + I_pad // 8)
+             + nbytes(x, cols))
+    n = max(1, min(20, C // A))
+    sets = disjoint_cols(B, C, A, n, dev, C + A)
+
+    def calls(fn):
+        return [lambda where=where: fn(perm, conn, x, where)
+                for where in sets]
+
+    kernel = calls(lambda *a: kernels.sp_rows_cuda(*a, *steps_))
+    plain = calls(lambda *a: psp.sp_rows_ref(cfg, *a))
+    row = {"ms": fresh_ms(kernel, lambda: None),
+           "plain_ms": fresh_ms(plain, lambda: None), "max_abs_err": 0.0,
+           "bound_ms": 1e3 * moved / HBM_BYTES_PER_S, "bound_by": "bytes",
+           "library_ms": None, "at": at, "path": list(path), "calls": n,
+           "grid": sp_rows_grid(B, I_pad, A)}
+    if graph:
+        row["graph_ms"] = fresh_ms(kernel, lambda: None, graph=True)
+    print(f"kernel sp_rows [{'+'.join(path)}]: {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({moved / 1e6:.1f} MB), library call none, at {at}, grid "
+          f"{row['grid']}, {n} calls on disjoint columns"
+          + (f"; in a CUDA graph of {n}: {row['graph_ms']:.4f} ms a call"
+             if graph else "") + "; bit-equal")
+    return row
+
+
+def check_sp_rows(dev) -> tuple[dict, dict]:
+    """`sp_rows`, the SP's update of its active rows (`sp_rows_row`), at
+    the SP of every learning path, each also in a CUDA graph of 20
+    calls, and on the paths past them. Returns (the bench row, the
+    other main rows under their tags; {case: row} of every row)."""
+    bench = bt.make_htm_config(**BENCH).sp
+    require(SP_ROWS_MAIN["bench"][1:4] == (
+        bench.column_dim, bench.input_dim, bench.active_columns),
+        "SP_ROWS_MAIN['bench'] is the configuration's SP")
+    rows = {}
+    for geos, graph in ((SP_ROWS_MAIN, True), (SP_ROWS_PATHS, False)):
+        for tag, geo in geos.items():
+            rows[tag] = sp_rows_row(tag, geo, dev, graph)
+            torch.cuda.empty_cache()
+    main = dict(rows["bench"])
+    main.update({tag: row for tag, row in rows.items()
+                 if tag in SP_ROWS_MAIN and tag != "bench"})
+    return main, rows
 
 
 def growth_keys(Wc: int, shape, g: torch.Generator, dev):
@@ -1786,9 +1976,10 @@ def run_entry_points(cfg, state, xs) -> dict:
     """The two entry points that no scan calls, on the learned bench
     state, with the launch counts set to 0 just before and read just
     after: ENTRY_STEPS learning steps of `sp_step` on a copy of the SP
-    state, each held against `hebbian_delta` + `sp_update_pack` over the
-    whole table from the step's starting permanences (the same
-    permanences and the connected bits of every row), and
+    state (its `sp_rows` kernel), each held against `hebbian_delta` +
+    `sp_update_pack` over the whole table from the step's starting
+    permanences (the same permanences and the connected bits of every
+    row), and
     `synapse_activation` over the learned synapse table, whose activity
     on live slots must be the state's own (the last forward pass's).
     Returns the launch counts."""
@@ -1813,7 +2004,8 @@ def run_entry_points(cfg, state, xs) -> dict:
                         tm.synapse_act != 0),
             "synapse_activation on live slots == the state's activity")
     require(launches == only(sp_update_pack=ENTRY_STEPS,
-                             sp_overlap=ENTRY_STEPS, synapse_activation=1),
+                             sp_overlap=ENTRY_STEPS, sp_rows=ENTRY_STEPS,
+                             synapse_activation=1),
             f"the entry points launch their kernels, got {launches}")
     print(f"entry points on the learned bench state: {ENTRY_STEPS} SP "
           f"learning steps == sp_update_pack over the whole table; "
@@ -2083,10 +2275,12 @@ def run_16k(dev) -> tuple[dict, dict, tuple, dict, tuple]:
     # the punishment words of a learning step whose active set is this one
     pun_word = torch.where(pas.column_mask_from_cols(cols, C), 0,
                            tm.matching_word)
-    p_ref, p_k = tm.synapse_perm.clone(), tm.synapse_perm.clone()
-    args = (tm.synapse_cell, tm.synapse_act, pun_word, cols, bits)
-    v_ref = pas.table_update_ref(args[0], p_ref, *args[1:], D, K, pun, thr)
-    v_k = kernels.table_update_cuda(args[0], p_k, *args[1:], D, K, pun, thr)
+    at = f"B={B} C={C} G={cfg.tm.segments_per_column} K={K} D={D} A={A}, " \
+         f"the learned 16K state"
+    # each side on its own copies: the state's activity stays as it is
+    v_ref, p_ref = table_update_in_place(
+        tm.synapse_cell, tm.synapse_perm, tm.synapse_act, pun_word, cols,
+        bits, D, K, pun, thr, at)
     c_ref = pas.synapse_activation_conn_ref(tm.synapse_cell, tm.synapse_perm,
                                             cols, bits, D, thr, K)
     c_k = kernels.act_conn_cuda(tm.synapse_cell, tm.synapse_perm, cols, bits,
@@ -2096,25 +2290,24 @@ def run_16k(dev) -> tuple[dict, dict, tuple, dict, tuple]:
     s_ref = psv.serving_activation_ref(tab.rows, cols, bits, C, D)
     s_k = kernels.serving_activation_cuda(tab.rows, cols, bits, C, D)
     torch.cuda.synchronize()
-    require(torch.equal(v_k, v_ref) and torch.equal(
-        p_k.view(torch.int32), p_ref.view(torch.int32)),
-        "table_update == plain on the learned 16K state")
     require(torch.equal(c_k, c_ref) and torch.equal(c_ref, tm.synapse_act),
             "act_conn == plain == the state's activity at 16K")
     require(torch.equal(a_k, a_ref), "synapse_activation == plain at 16K")
     require(torch.equal(s_k, s_ref) and bool((s_ref > 0).any()),
             "serving_activation == plain on the learned 16K serving table")
     punished = int((p_ref != tm.synapse_perm).sum())
-    at = f"B={B} C={C} G={cfg.tm.segments_per_column} K={K} D={D} A={A}, " \
-         f"the learned 16K state"
     p = tm.synapse_perm.clone()
+    act_k, act_p = fresh(tm.synapse_act), fresh(tm.synapse_act)
     rows = {
         "table_update": kernel_row(
             "table_update", lambda: kernels.table_update_cuda(
-                args[0], p, *args[1:], D, K, pun, thr),
-            lambda: pas.table_update_ref(args[0], p, *args[1:], D, K, pun,
+                tm.synapse_cell, p, act_k(), pun_word, cols, bits, D, K, pun,
+                thr),
+            lambda: pas.table_update_ref(tm.synapse_cell, p, act_p(),
+                                         pun_word, cols, bits, D, K, pun,
                                          thr),
-            nbytes(tm.synapse_cell, tm.synapse_perm, *args[1:], v_ref)
+            nbytes(tm.synapse_cell, tm.synapse_perm, tm.synapse_act,
+                   pun_word, cols, bits, v_ref)
             + 4 * punished, at, grid=table_grid(True, tm.synapse_cell, D)),
         "act_conn": kernel_row(
             "act_conn", lambda: kernels.act_conn_cuda(
@@ -2140,7 +2333,7 @@ def run_16k(dev) -> tuple[dict, dict, tuple, dict, tuple]:
             grid=word_grid(True, tab.rows, C, D)),
     }
     perf["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    del p, p_ref, p_k, v_ref, v_k, c_ref, c_k, a_ref, a_k, args, pun_word
+    del p, p_ref, v_ref, c_ref, c_k, a_ref, a_k, pun_word, act_k, act_p
     del tab, s_ref, s_k
 
     # where a learning step's time goes: phases and a device profile of
@@ -2442,17 +2635,18 @@ def shard_table_rows(dev, leaves: dict, cfg) -> dict:
     pun_word = torch.where(pas.column_mask_from_cols(cols, C), 0,
                            leaves["tm.matching_word"].to(dev))
     p_full = perm.clone()
-    v_full = kernels.table_update_cuda(syn, p_full, act, pun_word, cols, bits,
-                                       D, K, pun, thr)
+    v_full = kernels.table_update_cuda(syn, p_full, act.clone(), pun_word,
+                                       cols, bits, D, K, pun, thr)
     c_full = kernels.act_conn_cuda(syn, perm, cols, bits, D, thr, K)
     s_syn, s_perm, s_act = (t[:, :half].contiguous() for t in (syn, perm,
                                                                act))
     s_pun = pun_word[:, :half].contiguous()
-    p_ref, p_k = s_perm.clone(), s_perm.clone()
-    v_ref = pas.table_update_ref(s_syn, p_ref, s_act, s_pun, cols, bits, D, K,
-                                 pun, thr, column_dim=C)
-    v_k = kernels.table_update_cuda(s_syn, p_k, s_act, s_pun, cols, bits, D,
-                                    K, pun, thr, column_dim=C)
+    B = syn.shape[0]
+    at = (f"B={B}, a column shard of {half} rows over column_dim={C}, D={D}, "
+          f"K={K}, the learned 16K streams")
+    v_ref, p_ref = table_update_in_place(s_syn, s_perm, s_act, s_pun, cols,
+                                         bits, D, K, pun, thr, at,
+                                         column_dim=C)
     c_ref = pas.synapse_activation_conn_ref(s_syn, s_perm, cols, bits, D, thr,
                                             K, column_dim=C)
     c_k = kernels.act_conn_cuda(s_syn, s_perm, cols, bits, D, thr, K,
@@ -2461,27 +2655,22 @@ def shard_table_rows(dev, leaves: dict, cfg) -> dict:
     other = s_syn >= half * D
     require(bool((other & (v_ref > 0)).any()),
             "the shard's synapses reach active cells of the other shard")
-    require(torch.equal(v_k, v_ref) and torch.equal(
-        p_k.view(torch.int32), p_ref.view(torch.int32)),
-        "table_update on a column shard == plain")
-    require(torch.equal(v_k, v_full[:, :half]) and torch.equal(
-        p_k.view(torch.int32), p_full[:, :half].contiguous().view(
+    require(torch.equal(v_ref, v_full[:, :half]) and torch.equal(
+        p_ref.view(torch.int32), p_full[:, :half].contiguous().view(
             torch.int32)), "table_update on a column shard == the whole "
             "table's rows")
     require(torch.equal(c_k, c_ref) and torch.equal(c_k, c_full[:, :half]),
             "act_conn on a column shard == plain == the whole table's rows")
     punished = int((p_ref != s_perm).sum())
-    B = syn.shape[0]
-    at = (f"B={B}, a column shard of {half} rows over column_dim={C}, D={D}, "
-          f"K={K}, the learned 16K streams")
     p = s_perm.clone()
+    act_k, act_p = fresh(s_act), fresh(s_act)
     rows = {
         "table_update": kernel_row(
             "table_update (column shard)", lambda: kernels.table_update_cuda(
-                s_syn, p, s_act, s_pun, cols, bits, D, K, pun, thr,
+                s_syn, p, act_k(), s_pun, cols, bits, D, K, pun, thr,
                 column_dim=C),
-            lambda: pas.table_update_ref(s_syn, p, s_act, s_pun, cols, bits,
-                                         D, K, pun, thr, column_dim=C),
+            lambda: pas.table_update_ref(s_syn, p, act_p(), s_pun, cols,
+                                         bits, D, K, pun, thr, column_dim=C),
             nbytes(s_syn, s_perm, s_act, s_pun, cols, bits, v_ref)
             + 4 * punished, at, grid=table_grid(True, syn, D)),
         "act_conn": kernel_row(
@@ -2609,11 +2798,15 @@ def run_parallel(dev, learned16, bench_path: str, tmp: str) -> dict:
         group_s = time.perf_counter() - t0
         check_parallel_run(what, job, ranks, ref, ref_m)
         n_model = job["mesh"][1]
+        # a column shard's SP writes back its own rows without `sp_rows`
+        want = dict(ref_counts[0], **({"sp_rows": 0} if n_model > 1
+                                      else {}))
         for r in ranks:
-            require(r["learn_launches"] == ref_counts[0],
+            require(r["learn_launches"] == want,
                     f"{what}: rank {r['rank']} launches each kernel as the "
-                    f"unsharded step does while learning "
-                    f"({r['learn_launches']} vs {ref_counts[0]})")
+                    f"unsharded step does while learning, `sp_rows` only "
+                    f"where the SP is whole ({r['learn_launches']} vs "
+                    f"{want})")
             if job["serve"]:
                 require(r["serve_launches"] == steps(act_conn=job["serve"]),
                         f"{what}: rank {r['rank']} launches act_conn, "
@@ -2669,11 +2862,9 @@ def table_kernel_rows(dev, C: int, D: int, G: int, K: int, A: int,
         x = table_inputs(B + 48, B, C, G, K, D, A, device=dev)
         syn, act_prev, pun_word = x["syn"], x["act_prev"], x["pun_word"]
         cols, bits, perm = x["cols"], x["bits"], x["perm"]
-        p_ref, p_k = perm.clone(), perm.clone()
-        v_ref = pas.table_update_ref(syn, p_ref, act_prev, pun_word, cols,
-                                     bits, D, K, pun, thr)
-        v_k = kernels.table_update_cuda(syn, p_k, act_prev, pun_word, cols,
-                                        bits, D, K, pun, thr)
+        at = f"B={B} C={C} G={G} K={K} D={D} A={A}, {what}"
+        v_ref, p_ref = table_update_in_place(syn, perm, act_prev, pun_word,
+                                             cols, bits, D, K, pun, thr, at)
         c_ref = pas.synapse_activation_conn_ref(syn, perm, cols, bits, D,
                                                 thr, K)
         c_k = kernels.act_conn_cuda(syn, perm, cols, bits, D, thr, K)
@@ -2681,27 +2872,29 @@ def table_kernel_rows(dev, C: int, D: int, G: int, K: int, A: int,
         require(bool((v_ref > 1).any()) and bool((p_ref != perm).any()),
                 f"the inputs of {what} at B={B} exercise connected and "
                 f"punished slots")
-        require(torch.equal(v_k, v_ref) and torch.equal(
-            p_k.view(torch.int32), p_ref.view(torch.int32)),
-            f"table_update == plain at {what}, B={B}")
         require(torch.equal(c_k, c_ref), f"act_conn == plain at {what}, B={B}")
         punished = int((p_ref != perm).sum())
-        at = f"B={B} C={C} G={G} K={K} D={D} A={A}, {what}"
         p = perm.clone()
+        act_k, act_p = fresh(act_prev), fresh(act_prev)
         rows[f"table_update B={B}"] = kernel_row(
             "table_update",
-            lambda: kernels.table_update_cuda(syn, p, act_prev, pun_word,
+            lambda: kernels.table_update_cuda(syn, p, act_k(), pun_word,
                                               cols, bits, D, K, pun, thr),
-            lambda: pas.table_update_ref(syn, p, act_prev, pun_word, cols,
+            lambda: pas.table_update_ref(syn, p, act_p(), pun_word, cols,
                                          bits, D, K, pun, thr),
             nbytes(syn, perm, act_prev, pun_word, cols, bits, v_ref)
             + 4 * punished, at, grid=table_grid(True, syn, D))
         if B == 1:
             # the single-stream step's launch, without host issue between
-            # calls: inside a CUDA graph of 20
-            rows[f"table_update B={B}"]["graph_ms"] = graph_ms(
-                lambda: kernels.table_update_cuda(
-                    syn, p, act_prev, pun_word, cols, bits, D, K, pun, thr))
+            # calls: inside a CUDA graph of 20, each call on its own copy
+            # of act_prev, restored before each replay (`fresh_ms`)
+            acts = [act_prev.clone() for _ in range(20)]
+            rows[f"table_update B={B}"]["graph_ms"] = fresh_ms(
+                [lambda a=a: kernels.table_update_cuda(
+                    syn, p, a, pun_word, cols, bits, D, K, pun, thr)
+                 for a in acts],
+                lambda: [a.copy_(act_prev) for a in acts], graph=True)
+            del acts
             print(f"kernel table_update at B=1 inside a CUDA graph of 20 "
                   f"calls: {rows[f'table_update B={B}']['graph_ms']:.4f} ms "
                   f"a call")
@@ -2712,8 +2905,8 @@ def table_kernel_rows(dev, C: int, D: int, G: int, K: int, A: int,
                                                     thr, K),
             nbytes(syn, perm, cols, bits, c_ref), at,
             grid=table_grid(False, syn, D))
-        del x, syn, act_prev, pun_word, cols, bits, perm, p, p_ref, p_k
-        del v_ref, v_k, c_ref, c_k
+        del x, syn, act_prev, pun_word, cols, bits, perm, p, p_ref
+        del v_ref, c_ref, c_k, act_k, act_p
     print(f"{what} kernels: " + json.dumps(rows))
     return rows
 
@@ -2787,28 +2980,23 @@ def check_table_paths(dev, B, C, D, G, K, A, what, column_rows=None):
            torch.float32: "f32"}[pas.act_dtype(K)]
     at = (f"B={B} C={C} G={G} K={K} D={D} A={A}" if column_rows is None
           else f"B={B}, rows {R} of C={C}, G={G} K={K} D={D} A={A}")
-    p_ref, p_k = perm.clone(), perm.clone()
-    v_ref = pas.table_update_ref(syn, p_ref, act_prev, pun_word, cols, bits,
-                                 D, K, pun, thr, **shard)
-    v_k = kernels.table_update_cuda(syn, p_k, act_prev, pun_word, cols, bits,
-                                    D, K, pun, thr, **shard)
-    torch.cuda.synchronize()
+    v_ref, p_ref = table_update_in_place(syn, perm, act_prev, pun_word, cols,
+                                         bits, D, K, pun, thr, what, **shard)
     require(bool((v_ref > 1).any()) and bool((p_ref != perm).any()),
             f"the inputs at {what} exercise connected and punished slots")
-    require(same_bits(v_k, v_ref) and same_bits(p_k, p_ref),
-            f"table_update == plain at {what}, bit for bit")
     punished = int((p_ref != perm).sum())
     want = (bitmap, act)
     p = perm.clone()
+    act_k, act_p = fresh(act_prev), fresh(act_prev)
     rows = {"table_update": path_row(
         kernels.TABLE_UPDATE, want,
-        lambda: kernels.table_update_cuda(syn, p, act_prev, pun_word, cols,
+        lambda: kernels.table_update_cuda(syn, p, act_k(), pun_word, cols,
                                           bits, D, K, pun, thr, **shard),
-        lambda: pas.table_update_ref(syn, p, act_prev, pun_word, cols, bits,
+        lambda: pas.table_update_ref(syn, p, act_p(), pun_word, cols, bits,
                                      D, K, pun, thr, **shard),
         nbytes(syn, perm, act_prev, pun_word, cols, bits, v_ref)
         + 4 * punished, at)}
-    del p, p_ref, p_k, v_ref, v_k
+    del p, p_ref, v_ref, act_k, act_p
     if column_rows is not None:
         return rows
     c_ref = pas.synapse_activation_conn_ref(syn, perm, cols, bits, D, thr, K)
@@ -3080,7 +3268,8 @@ def run_profile(graph_launches: float) -> dict:
     step of the main path's graph (``graph_launches``, from
     `run_graph_bench`). Then at 16K x 64 (B=64, tuned caps, warmed 256
     steps). At both, the range `_learn/_grow` launches at most
-    GROW_RANGE_LAUNCHES kernels a step and `_learn/learn_rows` one.
+    GROW_RANGE_LAUNCHES kernels a step, `_learn/learn_rows` one and
+    `sp_step.update` at most one, `sp_rows`.
     Returns the bench profile, the
     16K one under "16k"."""
     from bithtm_tpu_torch.scripts import profile_step
@@ -3103,6 +3292,13 @@ def run_profile(graph_launches: float) -> dict:
         pass_site = "tm_step._learn/learn_rows"
         require(prof["launches"][pass_site] == 1, f"{pass_site} launches "
                 f"learn_rows alone, got {prof['launches'][pass_site]}")
+        # at most one launch a step: the ranges attribute a kernel by
+        # its time, and one of 16 can fall outside (0.9375)
+        sp_site = "sp_step.update"
+        require(prof["launches"][sp_site] <= 1 and all(
+            "sp_rows_kernel" in op for op, _ in prof["top"][sp_site]),
+            f"{sp_site} launches sp_rows alone, got "
+            f"{prof['launches'][sp_site]}: {prof['top'][sp_site]}")
         print(f"profile {tag}: {site} {prof['sites'][site]:.3f} ms and "
               f"{n:.1f} launches a step; {pass_site} "
               f"{prof['sites'][pass_site]:.3f} ms")
@@ -3738,6 +3934,8 @@ def main() -> None:
     checks.update(grow_pack)
     path_rows.update(grow_pack_paths)
     phase("check_grow_and_pack")
+    checks["sp_rows"], path_rows["sp_rows"] = check_sp_rows(dev)
+    phase("check_sp_rows")
     check_learning(dev)
     check_cpu_agreement(dev)
     launches, snap, _, (state, gen, serve_xs) = run_main_path(dev)

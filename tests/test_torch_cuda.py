@@ -71,10 +71,10 @@ def test_kernels_match_plain(shape, cuda):
     x = table_inputs(sum(shape), *shape, device=cuda)
     p_ref, p_k = x["perm"].clone(), x["perm"].clone()
     before = kernels.launch_counts()
-    v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"],
+    v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"].clone(),
                                  x["pun_word"], x["cols"], x["bits"], D, K,
                                  0.01, 0.5)
-    v_k = kernels.table_update_cuda(x["syn"], p_k, x["act_prev"],
+    v_k = kernels.table_update_cuda(x["syn"], p_k, x["act_prev"].clone(),
                                     x["pun_word"], x["cols"], x["bits"], D,
                                     K, 0.01, 0.5)
     c_ref = pas.synapse_activation_conn_ref(x["syn"], x["perm"], x["cols"],
@@ -110,9 +110,9 @@ def test_table_kernels_take_repeated_cols(shape, repeat, cuda):
         cols.zero_()
         bits.zero_()
     p_ref, p_k = x["perm"].clone(), x["perm"].clone()
-    v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"],
+    v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"].clone(),
                                  x["pun_word"], cols, bits, D, K, 0.01, 0.5)
-    v_k = kernels.table_update_cuda(x["syn"], p_k, x["act_prev"],
+    v_k = kernels.table_update_cuda(x["syn"], p_k, x["act_prev"].clone(),
                                     x["pun_word"], cols, bits, D, K, 0.01,
                                     0.5)
     c_ref = pas.synapse_activation_conn_ref(x["syn"], x["perm"], cols, bits,
@@ -139,10 +139,10 @@ def test_table_kernels_alternate_bitmap_sizes(middle, cuda):
         x = table_inputs(sum(shape) + 5, *shape, device=cuda)
         cols, bits = x["cols"], x["bits"]
         p_ref, p_k = x["perm"].clone(), x["perm"].clone()
-        v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"],
+        v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"].clone(),
                                      x["pun_word"], cols, bits, D, K, 0.01,
                                      0.5)
-        v_k = kernels.table_update_cuda(x["syn"], p_k, x["act_prev"],
+        v_k = kernels.table_update_cuda(x["syn"], p_k, x["act_prev"].clone(),
                                         x["pun_word"], cols, bits, D, K,
                                         0.01, 0.5)
         c_k = kernels.act_conn_cuda(x["syn"], x["perm"], cols, bits, D, 0.5,
@@ -191,7 +191,7 @@ def test_kernels_launch_on_the_current_stream(cuda):
         p_k.copy_(x["perm"])
         idx_late.copy_(idx)
         rows_late.copy_(rows)
-        v_k = kernels.table_update_cuda(syn, p_k, x["act_prev"],
+        v_k = kernels.table_update_cuda(syn, p_k, x["act_prev"].clone(),
                                         x["pun_word"], x["cols"], x["bits"],
                                         D, K, 0.01, 0.5)
         c_k = kernels.act_conn_cuda(syn, x["perm"], x["cols"], x["bits"], D,
@@ -203,7 +203,7 @@ def test_kernels_launch_on_the_current_stream(cuda):
                                               D)
     side.synchronize()
     p_ref = x["perm"].clone()
-    v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"],
+    v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"].clone(),
                                  x["pun_word"], x["cols"], x["bits"], D, K,
                                  0.01, 0.5)
     c_ref = pas.synapse_activation_conn_ref(x["syn"], x["perm"], x["cols"],
@@ -870,16 +870,16 @@ def test_table_kernels_on_a_column_shard(shape, cuda):
     syn, perm, act, pun = (x[k][:, rows].contiguous()
                            for k in ("syn", "perm", "act_prev", "pun_word"))
     p_full = x["perm"].clone()
-    v_full = pas.table_update_ref(x["syn"], p_full, x["act_prev"],
+    v_full = pas.table_update_ref(x["syn"], p_full, x["act_prev"].clone(),
                                   x["pun_word"], cols, bits, D, K, 0.01, 0.5)
     c_full = pas.synapse_activation_conn_ref(x["syn"], x["perm"], cols, bits,
                                              D, 0.5, K)
     p_ref, p_k = perm.clone(), perm.clone()
     before = kernels.launch_counts()
-    v_ref = pas.table_update_ref(syn, p_ref, act, pun, cols, bits, D, K,
-                                 0.01, 0.5, column_dim=C)
-    v_k = kernels.table_update_cuda(syn, p_k, act, pun, cols, bits, D, K,
-                                    0.01, 0.5, column_dim=C)
+    v_ref = pas.table_update_ref(syn, p_ref, act.clone(), pun, cols, bits, D,
+                                 K, 0.01, 0.5, column_dim=C)
+    v_k = kernels.table_update_cuda(syn, p_k, act.clone(), pun, cols, bits,
+                                    D, K, 0.01, 0.5, column_dim=C)
     c_ref = pas.synapse_activation_conn_ref(syn, perm, cols, bits, D, 0.5, K,
                                             column_dim=C)
     c_k = kernels.act_conn_cuda(syn, perm, cols, bits, D, 0.5, K,
@@ -1275,9 +1275,9 @@ def test_kernel_paths_match_plain(case, cuda):
     x = table_inputs(sum(shape), *shape, device=cuda)
     cols, bits = x["cols"], x["bits"]
     p_ref, p_k = x["perm"].clone(), x["perm"].clone()
-    v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"],
+    v_ref = pas.table_update_ref(x["syn"], p_ref, x["act_prev"].clone(),
                                  x["pun_word"], cols, bits, D, K, 0.01, 0.5)
-    v_k = kernels.table_update_cuda(x["syn"], p_k, x["act_prev"],
+    v_k = kernels.table_update_cuda(x["syn"], p_k, x["act_prev"].clone(),
                                     x["pun_word"], cols, bits, D, K, 0.01,
                                     0.5)
     assert kernels.TABLE_UPDATE.path == path
@@ -1310,10 +1310,10 @@ def test_kernel_paths_match_plain(case, cuda):
         sh = {k: x[k][:, :R].contiguous()
               for k in ("syn", "perm", "act_prev", "pun_word")}
         p_ref, p_k = sh["perm"].clone(), sh["perm"].clone()
-        v_ref = pas.table_update_ref(sh["syn"], p_ref, sh["act_prev"],
+        v_ref = pas.table_update_ref(sh["syn"], p_ref, sh["act_prev"].clone(),
                                      sh["pun_word"], cols, bits, D, K, 0.01,
                                      0.5, column_dim=C)
-        v_k = kernels.table_update_cuda(sh["syn"], p_k, sh["act_prev"],
+        v_k = kernels.table_update_cuda(sh["syn"], p_k, sh["act_prev"].clone(),
                                         sh["pun_word"], cols, bits, D, K,
                                         0.01, 0.5, column_dim=C)
         assert kernels.TABLE_UPDATE.path == path
@@ -1543,3 +1543,218 @@ def test_overlap_and_count_wrappers_reject_bad_inputs(bad, cuda):
         with pytest.raises(err):
             call()
     assert launched(before) == only()
+
+
+# ---- the SP's update of its active rows (csrc/sp_pass.cu sp_rows) and
+# the step's activity written in place
+
+SP_ROWS_SHAPES = {  # B, C, I, A, permanence dtype
+    "bench": (256, 2048, 1000, 41, torch.int16),
+    "16k": (64, 16384, 1000, 328, torch.int16),
+    "reference B=1": (1, 2048, 1000, 41, torch.float32),
+    "anomaly": (256, 512, 352, 16, torch.float32),
+    "stack layer 2": (256, 512, 4096, 16, torch.float32),
+    "two tiles": (2, 64, 40_000, 5, torch.int16),
+    "two tiles f32": (2, 64, 40_000, 5, torch.float32),
+    "streams": (65_536, 2, 1000, 1, torch.int16),
+}
+
+
+def _sp_rows_inputs(B, C, I, A, dtype, seed, dev, duplicate=True):
+    """Tables with values that change without learning in every row
+    (int16 past the rail, float32 -0.0, also on padding lanes), rows at
+    the rail that learn, a density-0.2 input and A columns a stream, one
+    of them listed twice where A > 2."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    I_pad = pov.padded_input_dim(I)
+    if dtype == torch.int16:
+        perm = torch.randint(-300, 300, (B, C, I_pad), generator=g,
+                             device=dev, dtype=torch.int16)
+        perm[..., I:] = -32000
+        perm[..., :4], perm[..., 4:8] = 32000, -32000
+        perm[..., 8:16], perm[..., 16:24] = 32767, -32768
+    else:
+        perm = (torch.rand((B, C, I_pad), generator=g, device=dev) - 0.5) \
+            * 0.2
+        perm[..., :16] = -0.0
+        perm[..., I:] = -0.0
+    conn = torch.randint(0, 256, (B, C, I_pad // 8), generator=g,
+                         device=dev, dtype=torch.uint8)
+    x = torch.rand((B, I), generator=g, device=dev) < 0.2
+    cols = torch.rand((B, C), generator=g, device=dev).topk(
+        A, -1).indices.to(torch.int32)
+    if duplicate and A > 2:
+        cols[:, -1] = cols[:, 1]
+    return perm, conn, x, cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SP_ROWS_SHAPES))
+def test_sp_rows_matches_plain(case, cuda):
+    """`sp_rows` == `sp_rows_ref` bit for bit on both tables at the
+    bench, 16K, reference-stack, anomaly and stack shapes, a row wider
+    than a block's tile and 65,536 streams, with a column listed twice;
+    rows outside the active columns keep every bit."""
+    B, C, I, A, dtype = SP_ROWS_SHAPES[case]
+    cfg = bt.make_htm_config(I, C, 4, active_columns=A, sp_overrides={
+        "permanence_dtype": "int16" if dtype == torch.int16 else "float32"})
+    perm, conn, x, cols = _sp_rows_inputs(B, C, I, A, dtype, C + A, cuda)
+    p_ref, c_ref = perm.clone(), conn.clone()
+    psp.sp_rows_ref(cfg.sp, p_ref, c_ref, x, cols)
+    before = kernels.launch_counts()
+    got = psp.sp_rows(cfg.sp, perm.clone(), conn.clone(), x, cols)
+    torch.cuda.synchronize()
+    assert launched(before) == only(sp_rows=1)
+    assert kernels.SP_ROWS.path == (
+        ("grid_x_streams",) if B > 65_535 else ("grid_y",))
+    assert torch.equal(got[0].view(torch.uint8), p_ref.view(torch.uint8))
+    assert torch.equal(got[1], c_ref)
+    inactive = ~pas.column_mask_from_cols(cols, C)
+    assert torch.equal(p_ref.view(torch.uint8)[inactive],
+                       perm.view(torch.uint8)[inactive])
+    assert torch.equal(c_ref[inactive], conn[inactive])
+    assert not torch.equal(p_ref, perm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A", [0, 1])
+def test_sp_rows_takes_no_or_one_column(A, cuda):
+    """No active column leaves the tables as they were and launches
+    nothing; one column at B=1 equals the plain version."""
+    cfg = bt.make_htm_config(1000, 64, 4, active_columns=1)
+    perm, conn, x, cols = _sp_rows_inputs(1, 64, 1000, 1, torch.float32, A,
+                                          cuda)
+    cols = cols[:, :A].contiguous()
+    p, c = perm.clone(), conn.clone()
+    p_ref, c_ref = perm.clone(), conn.clone()
+    psp.sp_rows_ref(cfg.sp, p_ref, c_ref, x, cols)
+    before = kernels.launch_counts()
+    kernels.sp_rows_cuda(p, c, x, cols, *psp.hebbian_steps(cfg.sp))
+    torch.cuda.synchronize()
+    assert launched(before) == only(sp_rows=A)
+    assert torch.equal(p.view(torch.int32), p_ref.view(torch.int32))
+    assert torch.equal(c, c_ref)
+    assert torch.equal(p.view(torch.int32), perm.view(torch.int32)) == (A == 0)
+
+
+@pytest.mark.cuda
+def test_sp_step_launches_sp_rows_once_a_learning_step(cuda):
+    """A learning `sp_step` launches `sp_overlap` and `sp_rows` once
+    each and equals the CPU's step; an inference step launches no
+    `sp_rows`; a column shard's step keeps its own update (no
+    `sp_rows`)."""
+    hcfg = bt.make_htm_config(1000, 2048, 32, active_columns=41,
+                              sp_overrides={"permanence_dtype": "int16"})
+    state = bt.htm_init_batch(hcfg, 4, torch.Generator().manual_seed(2),
+                              "cpu").sp
+    x = torch.rand((4, 1000), generator=torch.Generator().manual_seed(3)) \
+        < 0.2
+    on = dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).to(cuda)
+        for f in dataclasses.fields(state)})
+    before = kernels.launch_counts()
+    got, _ = psp.sp_step(hcfg.sp, on, x.to(cuda), True)
+    torch.cuda.synchronize()
+    assert launched(before) == only(sp_overlap=1, sp_rows=1)
+    want, _ = psp.sp_step(hcfg.sp, state, x, True)
+    for f in dataclasses.fields(want):
+        assert torch.equal(getattr(got, f.name).cpu(),
+                           getattr(want, f.name)), f.name
+    before = kernels.launch_counts()
+    psp.sp_step(hcfg.sp, got, x.to(cuda), False)
+    torch.cuda.synchronize()
+    assert launched(before) == only(sp_overlap=1)
+
+
+def _table_update_into(x, act_prev, v_out, D, K, path_global):
+    """The `table_update` entry point with separate act_prev and v_out
+    buffers (the out-of-place form the wrapper no longer takes)."""
+    syn, perm = x["syn"], x["perm"]
+    B, C, J = syn.shape
+    A, W = x["cols"].shape[-1], x["bits"].shape[-1]
+    dev = syn.get_device()
+    _scratch, bm_p = kernels._bitmap_scratch(
+        "global" if path_global else "smem", B, C, D, syn.device)
+    kernels.TABLE_UPDATE.bind()(
+        syn.data_ptr(), perm.data_ptr(), act_prev.data_ptr(),
+        x["pun_word"].data_ptr(), x["cols"].data_ptr(),
+        x["bits"].data_ptr(), bm_p, v_out.data_ptr(), B, C, C, J, A, W, D,
+        K, 0.01, 0.5, pas.act_scale(K), act_prev.element_size(), dev,
+        kernels._stream(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (256, 2048, 4, 64, 32, 41),   # the bench's
+    (64, 2048, 2, 126, 32, 41),   # bf16 activity
+    (64, 2048, 2, 128, 32, 41),   # float32 activity
+    (2, 7, 2, 8, 4, 3),           # J % 4 != 0
+    (4, 32_768, 1, 64, 64, 20),   # the global bitmap
+])
+def test_table_update_in_place_equals_out_of_place(shape, cuda):
+    """`table_update_cuda` writes the activity over ``act_prev`` and
+    returns it; the result, and the punished permanences, equal the
+    kernel's out-of-place form (separate buffers) on a copy and the
+    plain version, which writes in place too. `act_conn` and
+    `act_frozen` with ``out`` fill the buffer given with what they
+    return otherwise."""
+    B, C, G, K, D, A = shape
+    x = table_inputs(sum(shape), *shape, device=cuda)
+    act = x["act_prev"].clone()
+    p_k = x["perm"].clone()
+    v = kernels.table_update_cuda(x["syn"], p_k, act, x["pun_word"],
+                                  x["cols"], x["bits"], D, K, 0.01, 0.5)
+    assert v is act
+    out_of_place = torch.empty_like(act)
+    y = dict(x, perm=x["perm"].clone())
+    _table_update_into(y, x["act_prev"], out_of_place, D, K,
+                       kernels.TABLE_UPDATE.path[0] == "global")
+    p_ref, a_ref = x["perm"].clone(), x["act_prev"].clone()
+    v_ref = pas.table_update_ref(x["syn"], p_ref, a_ref, x["pun_word"],
+                                 x["cols"], x["bits"], D, K, 0.01, 0.5)
+    torch.cuda.synchronize()
+    assert v_ref is a_ref
+    assert torch.equal(act, out_of_place) and torch.equal(act, v_ref)
+    assert torch.equal(p_k.view(torch.int32), y["perm"].view(torch.int32))
+    assert torch.equal(p_k.view(torch.int32), p_ref.view(torch.int32))
+    assert not torch.equal(act, x["act_prev"])
+    buf = torch.full_like(act, 7)
+    c = kernels.act_conn_cuda(x["syn"], x["perm"], x["cols"], x["bits"], D,
+                              0.5, K, out=buf)
+    assert c is buf and torch.equal(c, kernels.act_conn_cuda(
+        x["syn"], x["perm"], x["cols"], x["bits"], D, 0.5, K))
+    word = pas.pack_frozen_table(x["syn"], x["perm"], 0.5)
+    buf = torch.full_like(act, 7)
+    f = kernels.act_frozen_cuda(word, x["cols"], x["bits"], D, K, out=buf)
+    torch.cuda.synchronize()
+    assert f is buf and torch.equal(f, pas.synapse_activation_frozen_ref(
+        word, x["cols"], x["bits"], D, K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learning", [True, False])
+def test_loop_step_writes_the_state_buffers_on_the_card(learning, cuda):
+    """On the card a loop step writes the activity (and, learning, the
+    owners) into the buffers of the state it was given, and one
+    learning step launches one `sp_rows`."""
+    from bithtm_tpu_torch.models import graph as bgraph
+
+    cfg = bt.make_htm_config(64, 64, 4, active_columns=4,
+                             segment_activation_threshold=2,
+                             segment_matching_threshold=2,
+                             segment_sampling_synapses=8)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    state = bt.htm_init_batch(cfg, 2, gen, cuda)
+    xs = torch.rand((4, 2, 64), generator=gen, device=cuda) < 0.2
+    draws = bt.TorchDraws(cfg.tm, 2, cuda, gen)
+    with bgraph.eager():
+        state, _ = bt.htm_scan(cfg, state, xs, True, draws=draws)
+        act, seg_cell = state.tm.synapse_act, state.tm.seg_cell
+        before = kernels.launch_counts()
+        new, _ = bt.htm_scan(cfg, state, xs[:2], learning, draws=draws)
+    torch.cuda.synchronize()
+    assert new.tm.synapse_act is act
+    assert new.tm.seg_cell is seg_cell
+    want = (steps(table_update=2) if learning else steps(act_conn=2))
+    assert launched(before) == want
+    assert want["sp_rows"] == (2 if learning else 0)

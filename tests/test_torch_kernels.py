@@ -22,6 +22,8 @@ import torch
 from bithtm_tpu.ops import active_set as jas
 from bithtm_tpu.ops.pallas_kernels import table_update_tpu
 
+import bithtm_tpu_torch as bt
+from bithtm_tpu_torch.models import spatial_pooler as psp
 from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
 from bithtm_tpu_torch.ops import overlap as pov
@@ -47,10 +49,11 @@ def test_plain_table_pass_matches_jax(shape):
     x = table_inputs(sum(shape), *shape)
     n = {k: v.numpy() for k, v in x.items()}
     args = (0.01, 0.5, 3, 2)  # punishment, threshold, theta_m, theta_a
-    perm = x["perm"].clone()
-    got = pas.table_update(x["syn"], perm, x["act_prev"], x["pun_word"],
+    perm, act_prev = x["perm"].clone(), x["act_prev"].clone()
+    got = pas.table_update(x["syn"], perm, act_prev, x["pun_word"],
                            x["cols"], x["bits"], x["seg_cell"], D, *args)
     assert got[0] is perm  # punished in place
+    assert got[1] is act_prev  # the activity written over the previous
     conn = pas.synapse_activation_conn(x["syn"], x["perm"], x["cols"],
                                        x["bits"], D, 0.5, K)
     bits = jnp.asarray(n["bits"].view(np.uint32))
@@ -82,8 +85,9 @@ def test_plain_table_update_matches_pallas_interpret():
     x = table_inputs(7, B, C, G, K, D, A, threshold=0.05)
     n = {k: v[0].numpy() for k, v in x.items()}
     perm = x["perm"].clone()
-    v = pas.table_update_ref(x["syn"], perm, x["act_prev"], x["pun_word"],
-                             x["cols"], x["bits"], D, K, 0.03, 0.05)
+    v = pas.table_update_ref(x["syn"], perm, x["act_prev"].clone(),
+                             x["pun_word"], x["cols"], x["bits"], D, K, 0.03,
+                             0.05)
     want_perm, want_v = table_update_tpu(
         jnp.asarray(n["syn"]), jnp.asarray(n["perm"]),
         jnp.asarray(n["act_prev"]), jnp.asarray(n["pun_word"]),
@@ -136,9 +140,10 @@ def test_cuda_wrappers_reject_cpu_tensors():
 
 @pytest.mark.parametrize("wrapper", [
     "serving_activation", "act_frozen", "synapse_activation",
-    "small_table_take", "sp_update_pack", "sp_overlap", "seg_counts"])
+    "small_table_take", "sp_update_pack", "sp_rows", "sp_overlap",
+    "seg_counts"])
 def test_every_wrapper_rejects_cpu_tensors(wrapper):
-    """The other seven wrappers, too, raise on CPU tensors before they
+    """The other eight wrappers, too, raise on CPU tensors before they
     build or launch anything."""
     B, C, G, K, D, A = SHAPES[0]
     x = table_inputs(1, *SHAPES[0])
@@ -156,6 +161,10 @@ def test_every_wrapper_rejects_cpu_tensors(wrapper):
         "sp_update_pack": lambda: kernels.sp_update_pack_cuda(
             torch.zeros((B, 8, 1024), dtype=torch.int16),
             torch.zeros((B, 1024), dtype=torch.int32), x["cols"], 0),
+        "sp_rows": lambda: kernels.sp_rows_cuda(
+            torch.zeros((B, 8, 1024), dtype=torch.int16),
+            torch.zeros((B, 8, 128), dtype=torch.uint8),
+            torch.zeros((B, 1000), dtype=torch.bool), x["cols"], 6, -3, 0),
         "sp_overlap": lambda: kernels.sp_overlap_cuda(
             torch.zeros((B, C, 128), dtype=torch.uint8),
             torch.zeros((B, 1000), dtype=torch.bool)),
@@ -232,6 +241,8 @@ def test_cuda_source_names_both_entry_points():
     # that XLA fuses into one pass
     assert "bithtm_tpu/ops/overlap.py:85" in src["overlap_pass.cu"]
     assert "bithtm_tpu/ops/active_set.py:588" in src["count_pass.cu"]
+    # sp_rows: the JAX step's sparse-row update, which has none either
+    assert "bithtm_tpu/models/spatial_pooler.py:81" in src["sp_pass.cu"]
     for name in kernels.SOURCES:
         assert ('#include "active_bitmap.cuh"' in src[name]) == (
             name in ("table_pass.cu", "serving_pass.cu", "sp_pass.cu"))
@@ -279,6 +290,16 @@ PATH_CALLS = {
         _view(65_536, 2, 1024, dtype=torch.int16), _view(65_536, 1024),
         _view(65_536, 3), 0), "sp_update_pack",
         ("smem_delta", "grid_x_streams")),
+    "streams, sp_rows": (lambda: kernels.sp_rows_cuda(
+        _view(65_536, 2, 1024, dtype=torch.int16),
+        _view(65_536, 2, 128, dtype=torch.uint8),
+        _view(65_536, 1000, dtype=torch.bool), _view(65_536, 3), 6, -3, 0),
+        "sp_rows", ("grid_x_streams",)),
+    "streams below, sp_rows": (lambda: kernels.sp_rows_cuda(
+        _view(65_535, 2, 2048, dtype=torch.float32),
+        _view(65_535, 2, 256, dtype=torch.uint8),
+        _view(65_535, 1500, dtype=torch.bool), _view(65_535, 3), 0.03,
+        -0.015, 0.0), "sp_rows", ("grid_y",)),
     "shared memory, sp_update_pack": (lambda: kernels.sp_update_pack_cuda(
         _view(1, 1_827_000, 1024, dtype=torch.int16), _view(1, 1024),
         _view(1, 3), 0), "sp_update_pack", ("gmem_delta", "grid_y")),
@@ -369,9 +390,10 @@ def test_overlap_and_count_wrappers_check_shapes(bad):
 
 def test_step_launches_count_the_overlap_and_the_decode():
     """An HTM step launches its table kernel, one `sp_overlap` and, after
-    every kernel that writes the packed activity, one `seg_counts`
-    (`testing.step_launches`, which the card's checks compare exactly);
-    on CPU tensors the dispatchers launch nothing."""
+    every kernel that writes the packed activity, one `seg_counts`, and
+    a learning step one `sp_rows` (`testing.step_launches`, which the
+    card's checks compare exactly); on CPU tensors the dispatchers launch
+    nothing."""
     from bithtm_tpu_torch.testing import step_launches
 
     got = step_launches(table_update=5, act_conn=2, small_table_take=5)
@@ -380,9 +402,17 @@ def test_step_launches_count_the_overlap_and_the_decode():
     assert step_launches(serving_activation=4)["seg_counts"] == 0
     assert step_launches(serving_activation=4)["sp_overlap"] == 4
     assert step_launches(act_conn=1, sp_steps=0)["sp_overlap"] == 0
+    assert got["sp_rows"] == 5
+    assert step_launches(act_conn=3)["sp_rows"] == 0
+    assert step_launches(table_update=2, sp_rows=0)["sp_rows"] == 0
     before = kernels.launch_counts()
     x = table_inputs(2, *SHAPES[0])
     pas.seg_counts_packed(x["act_prev"], SHAPES[0][2], SHAPES[0][3])
     pov.overlaps(torch.zeros((2, 3, 128), dtype=torch.uint8),
                  torch.ones((2, 1000), dtype=torch.bool))
+    sp = bt.make_htm_config(1000, 3, 4, active_columns=2).sp
+    psp.sp_rows(sp, torch.zeros((2, 3, 1024)),
+                torch.zeros((2, 3, 128), dtype=torch.uint8),
+                torch.ones((2, 1000), dtype=torch.bool),
+                torch.tensor([[0, 2], [1, 0]], dtype=torch.int32))
     assert kernels.launch_counts() == before

@@ -233,7 +233,7 @@ def test_plain_table_update_on_a_column_shard(shape):
     x = table_inputs(sum(shape) + 1, *shape)
     rows = slice(C // 4, C // 2)
     p_full = x["perm"].clone()
-    v_full = pas.table_update_ref(x["syn"], p_full, x["act_prev"],
+    v_full = pas.table_update_ref(x["syn"], p_full, x["act_prev"].clone(),
                                   x["pun_word"], x["cols"], x["bits"], D, K,
                                   0.01, 0.5)
     syn = x["syn"][:, rows].contiguous()
