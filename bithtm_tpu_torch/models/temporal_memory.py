@@ -14,6 +14,12 @@ leading stream axis B instead of vmapped. The order of one step:
      (`networks.py:121-127`); `ops.active_set.table_update` runs it
      through the CUDA kernel on the card.
 
+Steps 1-2, step 4's words and the decisions of step 3 (the learning
+flags and the segment allocation) are one pass over the active columns,
+`column_decide` (the `column_decide` kernel on the card), between the
+active rows' counts (`row_counts`) and the rows' own passes
+(`grow_select`, `learn_rows`).
+
 Growth picks its random candidates by one packed integer key a
 candidate: the cell id below the random bits up to 2^16 cells, the
 candidate's list index above (16K x 64), decoded after the selection by
@@ -56,6 +62,7 @@ from ..ops.active_set import (
     column_mask_from_cols,
     compact_first_k,
     pack_bits,
+    pack_bits_ref,
     percell_max,
     percell_sum,
     prediction_dense,
@@ -202,6 +209,115 @@ def _allocate(cfg: TMConfig, segcell_rows, syn_count, match_rows, unacc):
                  - assign.sum((1, 2, 3), dtype=torch.int32))
     n_evicted = (new_seg & evictable).sum((1, 2), dtype=torch.int32)
     return new_seg, new_owner, n_dropped, n_evicted
+
+
+# the per-stream counts of `column_decide`, in the order of its counts'
+# rows: the first three in every mode, all seven in a learning step
+DECIDE_COUNTS = ("tm_bursting_columns", "tm_active_cells", "tm_winner_cells",
+                 "tm_new_segments", "tm_learning_segments",
+                 "tm_dropped_new_segments", "tm_evicted_segments")
+
+
+class ColumnDecisions(NamedTuple):
+    """What `column_decide` gives the step: the activity words (predicted
+    | bursting) and the winner words (B, A, W) int32, the bursting columns
+    (B, A) bool, the learning and new-segment flags (B, A*G) bool (a
+    learning step's, else None) and the per-stream counts of
+    DECIDE_COUNTS, (7 or 3, B) int32."""
+
+    act_bits: torch.Tensor
+    winner_bits: torch.Tensor
+    col_burst: torch.Tensor
+    learn: torch.Tensor | None
+    new_seg: torch.Tensor | None
+    counts: torch.Tensor
+
+
+def column_decide_ref(cfg: TMConfig, prediction, seg_cell, cols, pot, conn,
+                      live, draws: Draws | None, step,
+                      mode: str) -> ColumnDecisions:
+    """Plain version of the `column_decide` kernel: steps 1-2 and the
+    decisions of step 3 in active-column space, from the previous
+    prediction words ``prediction`` (B, W, Ct) and the owners ``seg_cell``
+    (B, Ct, G) at the (B, A) columns ``cols``, or of gathered rows
+    (``cols`` None, Ct = A), the active rows' `row_counts` ``pot``,
+    ``conn`` and ``live`` (B, A, G), the ``draws`` and the streams'
+    ``step`` (B,). ``mode`` (`kernels.DECIDE_MODES`): "burst", the
+    bursting columns and the activity only (no winner cells); "winner",
+    `_winner_selection` too; "learn", also `_learn`'s flags and
+    `_allocate` (`temporal_memory.py:106-218`, `:501-596`), the new owners
+    written over ``seg_cell`` in place (a no-op on step 0,
+    `projections.py:258-259`). Returns `ColumnDecisions`."""
+    D = cfg.cell_dim
+    B = prediction.shape[0]
+    if cols is None:
+        pred_words, segcell_rows = prediction, seg_cell
+    else:
+        W, A = prediction.shape[1], cols.shape[1]
+        pred_words = prediction.gather(
+            2, cols.long()[:, None, :].expand(B, W, A))
+        segcell_rows = None if mode == "burst" else _rows(seg_cell, cols)
+    pred_rows = unpack_bits(pred_words.transpose(1, 2), D)      # (B, A, D)
+    if mode == "burst":
+        col_burst = ~pred_rows.any(-1)
+        winner_rows = torch.zeros_like(pred_rows)
+    else:
+        col_burst, winner_rows, cell_max_j, seg_j = _winner_selection(
+            cfg, draws, pred_rows, pot, segcell_rows)
+    # activation: predicted cells + whole bursting columns
+    act_rows = pred_rows | col_burst[..., None]
+    counts = [col_burst.sum(-1, dtype=torch.int32),
+              act_rows.sum((1, 2), dtype=torch.int32),
+              winner_rows.sum((1, 2), dtype=torch.int32)]
+    learn = new_seg = None
+    if mode == "learn":
+        has_prev = (step > 0)[:, None, None]
+        match_rows = pot >= cfg.segment_matching_threshold
+        active_seg_rows = match_rows & (
+            conn >= cfg.segment_activation_threshold)
+        owner_pred = take_percell(pred_rows, segcell_rows, D, False)
+        owner_winner = take_percell(winner_rows, segcell_rows, D, False)
+        owner_max = take_percell(cell_max_j, segcell_rows, D, 0.0)
+        seg_best = match_rows & ((seg_j - owner_max).abs() < cfg.epsilon)
+        learn = (match_rows & owner_winner
+                 & (active_seg_rows | (~owner_pred & seg_best)) & has_prev)
+        # segment allocation for unaccounted winners (recycle first)
+        unacc = winner_rows & (cell_max_j < cfg.epsilon) & has_prev
+        new_seg, new_owner, n_dropped, n_evicted = _allocate(
+            cfg, segcell_rows, live, match_rows, unacc)
+        segcell_rows = torch.where(new_seg, new_owner, segcell_rows)
+        learn = learn | new_seg
+        if cols is None:
+            seg_cell.copy_(segcell_rows)
+        else:
+            _put_rows(seg_cell, cols, segcell_rows)
+        counts += [new_seg.sum((1, 2), dtype=torch.int32),
+                   learn.sum((1, 2), dtype=torch.int32), n_dropped,
+                   n_evicted]
+        learn, new_seg = learn.reshape(B, -1), new_seg.reshape(B, -1)
+    return ColumnDecisions(pack_bits_ref(act_rows), pack_bits_ref(winner_rows),
+                           col_burst, learn, new_seg, torch.stack(counts))
+
+
+def column_decide(cfg: TMConfig, prediction, seg_cell, cols, pot, conn,
+                  live, draws: Draws | None, step,
+                  mode: str) -> ColumnDecisions:
+    """The column decisions of a step: the `column_decide` kernel for
+    CUDA tensors, the plain version for CPU tensors (arguments and
+    results as `column_decide_ref`'s)."""
+    if _on_device("column_decide", prediction) == "cuda":
+        from ..ops.kernels import column_decide_cuda
+
+        u_seg, u_least = ((None, None) if draws is None else
+                          (draws.u_seg.contiguous(),
+                           draws.u_least.contiguous()))
+        return ColumnDecisions(*column_decide_cuda(
+            prediction, seg_cell, cols, pot, conn, live, u_seg, u_least,
+            step, cfg.cell_dim, mode, cfg.segment_matching_threshold,
+            cfg.segment_activation_threshold, cfg.epsilon,
+            cfg.allocation_policy == "evict"))
+    return column_decide_ref(cfg, prediction, seg_cell, cols, pot, conn,
+                             live, draws, step, mode)
 
 
 def _select_keys(pkey, valid, n_grow, samp: int, index_form: bool):
@@ -553,64 +669,37 @@ def learn_rows(syn, perm, act, cols, learn, new_seg, lpos, chosen, n_chosen,
 
 
 def _learn(cfg: TMConfig, state: TMState, tables, put, draws: Draws,
-           active_cols, pred_rows, winner_rows, cell_max_j, seg_j,
-           pot_rows, conn_rows, syn_count, segcell_rows,
-           return_debug: bool = False):
-    """Step 3 minus punishment, in active-column row space
-    (`temporal_memory.py:501-643`, `projections.py:257-293`). A no-op on
-    step 0 (`projections.py:258-259`). ``tables`` = (syn, perm, act,
-    cols): the state's synapse tables and the active columns, or, under a
-    column shard, the rows gathered from their owners and None, which
-    ``put(table, cols, rows)`` writes back into the state's own tables.
-    ``pot_rows``, ``conn_rows`` and ``syn_count`` are the active rows'
-    `row_counts`, ``segcell_rows`` their owners. The decisions are torch
-    ops; `grow_select` then picks each growing row's candidates from the
-    rows where they lie, and `learn_rows` runs the stale cleanup, the new
-    segments' reset, the permanence update, death and the fill in one
-    pass over the rows, in place. Returns (seg_cell, metrics, debug):
-    ``debug`` is None unless ``return_debug``, else the (B, C, G)
-    ``learning_segments`` and ``new_segments`` and the (B, C, G, K)
+           active_cols, dec: ColumnDecisions, return_debug: bool = False):
+    """Step 3 minus punishment and the decisions, in active-column row
+    space (`temporal_memory.py:501-643`, `projections.py:257-293`), on
+    the learning and new-segment flags of `column_decide` ``dec``.
+    ``tables`` = (syn, perm, act, cols): the state's synapse tables and
+    the active columns, or, under a column shard, the rows gathered from
+    their owners and None, which ``put(table, cols, rows)`` writes back
+    into the state's own tables. `grow_select` picks each growing row's
+    candidates from the rows where they lie, and `learn_rows` runs the
+    stale cleanup, the new segments' reset, the permanence update, death
+    and the fill in one pass over the rows, in place. Returns (metrics,
+    debug): ``debug`` is None unless ``return_debug``, else the (B, C,
+    G) ``learning_segments`` and ``new_segments`` and the (B, C, G, K)
     ``grown_mask``."""
     C, D, G, K = (cfg.column_dim, cfg.cell_dim, cfg.segments_per_column,
                   cfg.synapse_capacity)
     B, A = active_cols.shape
-    has_prev = (state.step > 0)[:, None, None]
-    match_rows = pot_rows >= cfg.segment_matching_threshold
-    active_seg_rows = match_rows & (
-        conn_rows >= cfg.segment_activation_threshold)
-
-    owner_pred = take_percell(pred_rows, segcell_rows, D, False)
-    owner_winner = take_percell(winner_rows, segcell_rows, D, False)
-    owner_max = take_percell(cell_max_j, segcell_rows, D, 0.0)
-    seg_best = match_rows & ((seg_j - owner_max).abs() < cfg.epsilon)
-    learn_rows_ = (match_rows & owner_winner
-                   & (active_seg_rows | (~owner_pred & seg_best))
-                   & has_prev)
-
-    # segment allocation for unaccounted winners (recycle first)
-    unacc = winner_rows & (cell_max_j < cfg.epsilon) & has_prev
-    with site("tm_step._learn/_allocate"):
-        new_seg, new_owner, n_dropped, n_evicted = _allocate(
-            cfg, segcell_rows, syn_count, match_rows, unacc)
-    segcell_rows = torch.where(new_seg, new_owner, segcell_rows)
-    learn_rows_ = learn_rows_ | new_seg
-
     syn, perm, act, cols = tables
-    learn_flat = learn_rows_.reshape(B, A * G)
-    new_flat = new_seg.reshape(B, A * G)
     with site("tm_step._learn/_grow"):
         cell_form, key_bits = growth_key_form(C * D, draws.rnd.shape[-1])
-        sel = grow_select(syn, act, learn_flat, state.active_cols,
+        sel = grow_select(syn, act, dec.learn, state.active_cols,
                           state.winner_bits, draws.rnd, D,
                           cfg.segment_sampling_synapses, key_bits, cell_form,
-                          row_cols=cols, new_seg=new_flat)
+                          row_cols=cols, new_seg=dec.new_seg)
         chosen = sel.chosen
         if not cell_form:
             # the index-form keys -> cells, in place
             chosen = take_small_table(sel.cand_cell, chosen,
                                       (1 << key_bits) - 1, in_place=True)
     with site("tm_step._learn/learn_rows"):
-        wrote = learn_rows(syn, perm, act, cols, learn_flat, new_flat,
+        wrote = learn_rows(syn, perm, act, cols, dec.learn, dec.new_seg,
                            sel.lpos, chosen, sel.n_chosen, sel.counts,
                            cfg.permanence_increment,
                            cfg.permanence_decrement,
@@ -619,14 +708,13 @@ def _learn(cfg: TMConfig, state: TMState, tables, put, draws: Draws,
             # a column shard writes back the rows it owns
             put(state.synapse_cell, active_cols, syn)
             put(state.synapse_perm, active_cols, perm)
-    # in place: the step read the owners it needs (segcell_rows) above
-    seg_cell = put(state.seg_cell, active_cols, segcell_rows)
     n_grown, overflow, winners_dropped, growth_dropped = sel.counts
+    n_new, n_learning, n_dropped, n_evicted = dec.counts[3:]
 
     metrics = {
-        "tm_new_segments": new_seg.sum((1, 2), dtype=torch.int32),
+        "tm_new_segments": n_new,
         "tm_grown_synapses": n_grown,
-        "tm_learning_segments": learn_rows_.sum((1, 2), dtype=torch.int32),
+        "tm_learning_segments": n_learning,
         "tm_dropped_new_segments": n_dropped,
         "tm_evicted_segments": n_evicted,
         "tm_dropped_synapses": overflow,
@@ -635,11 +723,13 @@ def _learn(cfg: TMConfig, state: TMState, tables, put, draws: Draws,
     }
     debug = None
     if return_debug:
-        debug = dict(learning_segments=_dense(active_cols, learn_rows_, C),
-                     new_segments=_dense(active_cols, new_seg, C),
-                     grown_mask=_dense(active_cols,
-                                       wrote.reshape(B, A, G, K), C))
-    return seg_cell, metrics, debug
+        debug = dict(
+            learning_segments=_dense(active_cols,
+                                     dec.learn.reshape(B, A, G), C),
+            new_segments=_dense(active_cols, dec.new_seg.reshape(B, A, G),
+                                C),
+            grown_mask=_dense(active_cols, wrote.reshape(B, A, G, K), C))
+    return metrics, debug
 
 
 def _check_forward_options(learning: bool, compute_winner: bool,
@@ -776,16 +866,14 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
         active_cols = torch.sort(active_cols.to(torch.int32), dim=-1).values
 
         prev_prediction = state.prediction                      # (B, W, C)
-        W = prev_prediction.shape[1]
         need_rows = learning or compute_winner
         if shard is None:
-            pred_words = prev_prediction.gather(
-                2, active_cols.long()[:, None, :].expand(B, W, A))
-            # the active rows are read where they lie in the tables
+            # the active rows, the prediction words and the owners are
+            # read where they lie
             tables = (state.synapse_cell, state.synapse_perm,
                       state.synapse_act, active_cols)
-            segcell_rows = (_rows(state.seg_cell, active_cols)
-                            if need_rows else None)
+            pred_src, owners, where = (prev_prediction, state.seg_cell,
+                                       active_cols)
             put = _put_rows
             if col_active is None:
                 col_active = column_mask_from_cols(active_cols, C)
@@ -794,47 +882,45 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             leaves = ((("synapse_act", "seg_cell") if need_rows else ())
                       + (("synapse_cell", "synapse_perm")
                          if learning else ()))
-            pred_words, *got = shard.rows(
+            pred_src, *got = shard.rows(
                 active_cols,
                 [prev_prediction, *(getattr(state, n) for n in leaves)],
                 [2] + [1] * len(leaves))
             got = dict(zip(leaves, got))
             tables = (got.get("synapse_cell"), got.get("synapse_perm"),
                       got.get("synapse_act"), None)
-            segcell_rows = got.get("seg_cell")
+            owners, where = got.get("seg_cell"), None
             put = shard.put_rows
             if col_active is None:
                 col_active = shard.column_mask(active_cols)
-        pred_rows = unpack_bits(pred_words.transpose(1, 2), D)  # (B, A, D)
 
-    with site("tm_step.winner_selection"):
+    pot = conn = live = None
+    with site("tm_step.row_counts"):
         if learning:
             # the active rows' counts, decoded once for both phases
-            pot_rows, conn_rows, syn_count = row_counts(*tables, G)
+            pot, conn, live = row_counts(*tables, G)
         elif compute_winner:
             act, cols = tables[2:]
             act_rows = act if cols is None else _rows(act, cols)
-            pot_rows, _ = seg_counts_packed_rows(
-                act_rows.reshape(B, A, G, K), K)
-        if need_rows:
-            col_burst, winner_rows, cell_max_j, seg_j = _winner_selection(
-                cfg, draws, pred_rows, pot_rows, segcell_rows)
-        else:
-            col_burst = ~pred_rows.any(-1)
-            winner_rows = torch.zeros_like(pred_rows)
-
-    # activation: predicted cells + whole bursting columns
-    with site("tm_step.activation"):
-        act_rows = pred_rows | col_burst[..., None]
-        act_bits = pack_bits(act_rows)                          # (B, A, W)
+            pot, _ = seg_counts_packed_rows(act_rows.reshape(B, A, G, K), K)
+    # steps 1-2 and the decisions of step 3, with the activity and winner
+    # words (a learning step writes the new owners over `owners`)
+    with site("tm_step.column_decide"):
+        mode = "learn" if learning else "winner" if compute_winner \
+            else "burst"
+        dec = column_decide(cfg, pred_src, owners, where, pot, conn, live,
+                            draws, state.step, mode)
+    act_bits = dec.act_bits
 
     debug = None
     if learning:
         with site("tm_step._learn"):
-            seg_cell, learn_metrics, debug = _learn(
-                cfg, state, tables, put, draws, active_cols, pred_rows,
-                winner_rows, cell_max_j, seg_j, pot_rows, conn_rows,
-                syn_count, segcell_rows, return_debug)
+            learn_metrics, debug = _learn(cfg, state, tables, put, draws,
+                                          active_cols, dec, return_debug)
+            if shard is not None:
+                # a column shard writes back the owners it holds
+                put(state.seg_cell, active_cols, owners)
+        seg_cell = state.seg_cell
         # punish the matching segments of inactive columns
         # (projections.py:269,290-293), fused into the table pass
         with site("tm_step.punish"):
@@ -913,19 +999,15 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
             seg_cell=seg_cell,
             active_cols=active_cols,
             active_bits=act_bits,
-            winner_bits=pack_bits(winner_rows),
+            winner_bits=dec.winner_bits,
             synapse_act=act_now,
             prediction=prediction,
             matching_word=matching_word,
             step=state.step + 1,
         )
 
-        metrics = {
-            "tm_bursting_columns": col_burst.sum(-1, dtype=torch.int32),
-            "tm_active_cells": act_rows.sum((1, 2), dtype=torch.int32),
-            "tm_winner_cells": winner_rows.sum((1, 2), dtype=torch.int32),
-            **learn_metrics,
-        }
+        metrics = {**dict(zip(DECIDE_COUNTS[:3], dec.counts)),
+                   **learn_metrics}
         if detailed_metrics:
             metrics.update(
                 tm_predicted_cells=popcount32(prediction).sum(
@@ -939,18 +1021,19 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
         dense = {k: None for k in ("active_mask", "winner_mask", "prediction",
                                    "prev_prediction")}
         if dense_outputs or return_debug:
-            dense["winner_mask"] = _dense(active_cols, winner_rows,
-                                          C).reshape(B, N)
+            dense["winner_mask"] = _dense(
+                active_cols, unpack_bits(dec.winner_bits, D), C).reshape(B, N)
         if dense_outputs:
             dense.update(
-                active_mask=_dense(active_cols, act_rows, C).reshape(B, N),
+                active_mask=_dense(active_cols, unpack_bits(act_bits, D),
+                                   C).reshape(B, N),
                 prediction=prediction_dense(prediction, D).reshape(B, N),
                 prev_prediction=prediction_dense(prev_prediction,
                                                  D).reshape(B, N),
             )
         out = TMOutput(
             prev_col_prediction=(prev_prediction != 0).any(-2),
-            bursting_columns=_dense(active_cols, col_burst, C),
+            bursting_columns=_dense(active_cols, dec.col_burst, C),
             metrics=metrics,
             **dense,
         )

@@ -20,7 +20,7 @@ the index -> cell decode of the growth keys above 2^16 cells, and
 `seg_counts_packed`, the per-segment count decode of the packed activity
 those passes write (with its flags form `seg_counts_flags`, which also
 gives the matching word and the prediction words), and `pack_bits`, the
-bit pack of the active and winner cells, follow the same rule
+bit pack of a serving step's matching flags, follow the same rule
 (`small_table_take` kernel, `take_small_table_ref`; `seg_counts` kernel,
 `seg_counts_packed_ref` and `seg_counts_flags_ref`; `pack_bits` kernel,
 `pack_bits_ref`).

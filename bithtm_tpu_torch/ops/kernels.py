@@ -2,7 +2,8 @@
 
 The sources in `csrc/` (`table_pass.cu`, `serving_pass.cu`,
 `small_take.cu`, `sp_pass.cu`, `overlap_pass.cu`, `count_pass.cu`,
-`grow_pass.cu`, `learn_pass.cu` and `pack_pass.cu`; all include `launch.cuh`,
+`grow_pass.cu`, `learn_pass.cu`, `decide_pass.cu` and `pack_pass.cu`; all
+include `launch.cuh`,
 `table_pass.cu`, `serving_pass.cu` and `sp_pass.cu` also
 `active_bitmap.cuh`) are compiled on first use with
 ``nvcc`` for ``sm_90a``, one process per source started together, and
@@ -12,7 +13,8 @@ here runs when the module is imported.
 
 Each wrapper first chooses its kernel's path from the shapes alone
 (`_bitmap`, `_streams`, `_act_bytes`, `_delta`, `_grow_keys`,
-`_rows_mode`, `_fill_path`, `_pack_path`: the bitmap in shared or in
+`_rows_mode`, `_fill_path`, `_pack_path`, the decisions' mode: the
+bitmap in shared or in
 global memory, the packed activity's type, the streams in grid y or
 folded into grid x, the SP delta row staged or read from global memory,
 the growth keys' form and where they live, whether the active rows are
@@ -53,7 +55,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("table_pass.cu", "serving_pass.cu", "small_take.cu",
            "sp_pass.cu", "overlap_pass.cu", "count_pass.cu", "grow_pass.cu",
-           "learn_pass.cu", "pack_pass.cu")
+           "learn_pass.cu", "decide_pass.cu", "pack_pass.cu")
 HEADERS = ("active_bitmap.cuh", "launch.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -106,6 +108,10 @@ _ARGTYPES = {
     # syn, perm, act, cols, learn, fresh, lpos, chosen, n_chosen, counts,
     # wrote, B, Ct, A, G, K, L, kk, inc, dec, perm_init, act_bytes
     "learn_rows": [_VP] * 11 + [_I] * 7 + [_F] * 3 + [_I, _I, _VP],
+    # pred, seg_cell, cols, pot, conn, live, u_seg, u_least, step,
+    # act_bits, winner_bits, col_burst, learn, new_seg, counts, B, Ct, A,
+    # G, D, mode, theta_m, theta_a, eps, evict
+    "column_decide": [_VP] * 15 + [_I] * 8 + [_F, _I] + [_I, _VP],
     # mask, out, rows, D
     "pack_bits": [_VP] * 2 + [_LL, _I] + [_I, _VP],
 }
@@ -236,11 +242,12 @@ SEG_COUNTS = CudaKernel("seg_counts")
 GROW_SELECT = CudaKernel("grow_select")
 ROW_COUNTS = CudaKernel("row_counts")
 LEARN_ROWS = CudaKernel("learn_rows")
+COLUMN_DECIDE = CudaKernel("column_decide")
 PACK_BITS = CudaKernel("pack_bits")
 KERNELS = (TABLE_UPDATE, ACT_CONN, SERVING_ACTIVATION, ACT_FROZEN,
            SYNAPSE_ACTIVATION, SMALL_TABLE_TAKE, SP_UPDATE_PACK, SP_ROWS,
            SP_OVERLAP, SEG_COUNTS, GROW_SELECT, ROW_COUNTS, LEARN_ROWS,
-           PACK_BITS)
+           COLUMN_DECIDE, PACK_BITS)
 
 
 def launch_counts() -> dict[str, int]:
@@ -1000,6 +1007,78 @@ def learn_rows_cuda(syn, perm, act, cols, learn, new_seg, lpos, chosen,
                           float(permanence_initial), dtype.itemsize, dev,
                           _stream(dev))
     return wrote
+
+
+# `column_decide`'s modes, by what a step asks of it: the bursting columns
+# and the activity words only (no winner cells), the winner selection too,
+# or the learning step's decisions too (`temporal_memory.column_decide_ref`)
+DECIDE_MODES = ("burst", "winner", "learn")
+
+
+def column_decide_cuda(prediction, seg_cell, cols, pot, conn, live, u_seg,
+                       u_least, step, cell_dim: int, mode: str,
+                       matching_threshold: int, activation_threshold: int,
+                       epsilon: float, evict: bool) -> tuple:
+    """CUDA `column_decide`: the column decisions of a step, per stream
+    and active column, from the previous prediction words ``prediction``
+    (B, W, Ct) int32, W = ceil(D/32), the owners ``seg_cell`` (B, Ct, G)
+    int32 (``mode`` "learn": the new owners written over it in place),
+    at the (B, A) columns ``cols`` or, with ``cols`` None, of gathered
+    rows (Ct = A); the row counts ``pot``, ``conn``, ``live`` (B, A, G)
+    int32, the draws ``u_seg`` (B, A, G) and ``u_least`` (B, A, D) float32
+    and ``step`` (B,) int32, as far as ``mode`` reads them (`DECIDE_MODES`;
+    "burst" reads the words alone). ``epsilon`` is rounded to float32 once.
+    Returns (act_bits, winner_bits (B, A, W) int32, col_burst (B, A) bool,
+    learn, new_seg (B, A*G) bool or None, counts (7 with "learn", else 3,
+    B) int32); see `temporal_memory.column_decide_ref`."""
+    if mode not in DECIDE_MODES:
+        raise ValueError(f"mode must be one of {DECIDE_MODES}, got {mode!r}")
+    if prediction.dim() != 3:
+        raise ValueError(f"prediction must be (B, W, Ct), got "
+                         f"{tuple(prediction.shape)}")
+    B, W, Ct = prediction.shape
+    A = Ct if cols is None else cols.shape[-1]
+    D = cell_dim
+    G = 1 if mode == "burst" else seg_cell.shape[-1]
+    if D < 1 or W != cell_words(D) or not 1 <= G <= 32:
+        raise ValueError(f"prediction words of W={W} do not hold D={D} "
+                         f"cells, or G={G} is not in [1, 32]")
+    _stream_words(W * Ct)
+    COLUMN_DECIDE.choose(mode, _rows_mode(cols))
+    dev = prediction.get_device()
+    pred_p = _ptr("prediction", prediction, torch.int32, None, dev)
+    cols_p = None if cols is None else _ptr("cols", cols, torch.int32,
+                                            (B, A), dev)
+    rows = (B, A, G)
+    cell_p = pot_p = conn_p = live_p = useg_p = uleast_p = step_p = None
+    if mode != "burst":
+        cell_p = _ptr("seg_cell", seg_cell, torch.int32, (B, Ct, G), dev)
+        pot_p = _ptr("pot", pot, torch.int32, rows, dev)
+        useg_p = _ptr("u_seg", u_seg, torch.float32, rows, dev)
+        uleast_p = _ptr("u_least", u_least, torch.float32, (B, A, D), dev)
+    if mode == "learn":
+        conn_p = _ptr("conn", conn, torch.int32, rows, dev)
+        live_p = _ptr("live", live, torch.int32, rows, dev)
+        step_p = _ptr("step", step, torch.int32, (B,), dev)
+
+    def new(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=prediction.device)
+
+    learning = mode == "learn"
+    out = (new(B, A, W), new(B, A, W), new(B, A, dtype=torch.bool),
+           new(B, A * G, dtype=torch.bool) if learning else None,
+           new(B, A * G, dtype=torch.bool) if learning else None,
+           new(7 if learning else 3, B))
+    if B * A == 0:
+        out[-1].zero_()
+        return out
+    COLUMN_DECIDE.launch(pred_p, cell_p, cols_p, pot_p, conn_p, live_p,
+                         useg_p, uleast_p, step_p,
+                         *(None if t is None else t.data_ptr() for t in out),
+                         B, Ct, A, G, D, DECIDE_MODES.index(mode),
+                         int(matching_threshold), int(activation_threshold),
+                         float(epsilon), int(evict), dev, _stream(dev))
+    return out
 
 
 def pack_bits_cuda(mask) -> torch.Tensor:

@@ -8,9 +8,11 @@ main paths' geometries: ``--kernel grow_select`` (`csrc/grow_pass.cu`,
 `VARIANTS`, on `testing.grow_inputs`), ``learn_rows``
 (`csrc/learn_pass.cu`, `LEARN_VARIANTS`, on `testing.learn_inputs` and
 its selection, the tables restored before each replay, since the pass
-writes in place) or ``seg_flags`` (`csrc/count_pass.cu`,
+writes in place), ``seg_flags`` (`csrc/count_pass.cu`,
 `FLAG_VARIANTS`: `seg_counts`' flags form, and its counts form on the
-same activity as "reference"). A variant whose patch does not match the
+same activity as "reference") or ``column_decide``
+(`csrc/decide_pass.cu`, `DECIDE_VARIANTS`: the learning mode on
+`testing.decide_inputs`, its owners updated by each call). A variant whose patch does not match the
 source is reported as not applicable. Variants that cut a part out give
 wrong results; they are timed, never checked. Each variant's ms a call
 is the median of ``--rounds`` rounds, the variants in turns within a
@@ -39,6 +41,7 @@ import subprocess
 import torch
 
 from .. import testing
+from ..config import TMConfig
 from ..models import temporal_memory as ptm
 from ..ops import active_set as pas
 from ..ops import kernels
@@ -135,6 +138,20 @@ FLAG_VARIANTS = {
     "no_word": [_NO_WORD],
     "sums_only": [_NO_PRED, _NO_CELL, _NO_WORD],
 }
+# `column_decide` (learning mode): no cap of 32 registers a thread (one
+# block of 1,024 threads an SM); the first argmax cut; the eligible
+# slots' ranks cut. (Its clusters of 8-32-warp blocks a stream, with the
+# blocks' counts met in distributed shared memory, were variants of the
+# kernel they replaced and measured slower than a block a stream.)
+DECIDE_VARIANTS = {
+    "base": [],
+    "no_register_cap": [("__launch_bounds__(kMaxWarps * 32, 2)",
+                         "__launch_bounds__(kMaxWarps * 32)")],
+    "no_argmax": [("  if (MODE >= 1) {\n    cells.fill(",
+                   "  if (false) {\n    cells.fill(")],
+    "no_ranks": [("    for (int g = 0; g < G; ++g) {\n      const int kg",
+                  "    for (int g = 0; g < 0; ++g) {\n      const int kg")],
+}
 # kernel: (source, variants, shapes)
 STUDIES = {
     "grow_select": ("grow_pass.cu", VARIANTS, SHAPES),
@@ -142,6 +159,9 @@ STUDIES = {
     "seg_flags": ("count_pass.cu", FLAG_VARIANTS,     # B, C, G, K, D
                   {"bench": (256, 2048, 4, 64, 32),
                    "16k_tuned": (64, 16384, 4, 64, 64)}),
+    "column_decide": ("decide_pass.cu", DECIDE_VARIANTS,  # B, C, D, A, G, K
+                      {"bench": (256, 2048, 32, 41, 4, 64),
+                       "16k_tuned": (64, 16384, 64, 328, 4, 64)}),
 }
 
 
@@ -220,6 +240,14 @@ def study_calls(kernel: str, geo: tuple, dev) -> tuple:
         return (lambda: kernels.seg_flags_cuda(v, cell, K, K // 2, K // 5,
                                                D)), None, kernels.SEG_COUNTS, \
             (lambda: kernels.seg_counts_cuda(v, G, K))
+    if kernel == "column_decide":
+        B, C, D, A, G, K = geo
+        cfg = TMConfig(column_dim=C, cell_dim=D, active_columns=A,
+                       segments_per_column=G, synapse_capacity=K)
+        x = testing.decide_inputs(sum(geo), cfg, B, device=dev)
+        args = testing.decide_args(cfg, x)
+        return (lambda: ptm.column_decide(*args)), None, \
+            kernels.COLUMN_DECIDE, None
     x = testing.learn_inputs(sum(geo), *geo, device=dev)
     s = x["select"]
     sel = ptm.grow_select_ref(**s)

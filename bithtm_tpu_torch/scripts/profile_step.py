@@ -4,9 +4,10 @@ Counterpart of the JAX package's `scripts/profile_step.py`, which reads
 per-op device time a step out of a `jax.profiler` trace. Here the step's
 call sites carry `torch.profiler.record_function` ranges
 (`utils.profiling.site`: `sp_step`'s overlap, boost, k-winners, update
-and duty cycle; `tm_step`'s preparation, winner selection, activation,
-`_learn` with its `_allocate`, `_grow` and `learn_rows`, punishment,
-table pass, count decode, prediction words (serving) and outputs;
+and duty cycle; `tm_step`'s preparation, row counts, column decisions
+(`column_decide`), `_learn` with its `_grow` and `learn_rows`,
+punishment, table pass, count decode, prediction words (serving) and
+outputs;
 `htm_step`'s draws and metrics;
 the graph runner's `graph.buffers`).
 A CUDA graph's replay carries no host ranges, so ``--trace_steps`` steps

@@ -204,6 +204,127 @@ def learn_inputs(seed: int, B: int, C: int, D: int, A: int, G: int, K: int,
             "decrement": 0.0997, "permanence_initial": 0.21}
 
 
+def decide_inputs(seed: int, cfg: TMConfig, B: int, device="cpu",
+                  ties: bool = False, first_steps: int = 1) -> dict:
+    """A TM state and one step's columns and draws for the column
+    decisions (`temporal_memory.column_decide`) at ``cfg``, with numpy
+    from ``seed``. Each column of each stream is one of three kinds: its
+    G segments drawn at random (live, active and connected counts, owners
+    or unallocated), crowded (every slot live and active: matching, so no
+    slot is eligible under either policy) or sparse (every segment
+    recyclable, below the matching threshold, some unallocated). Half the
+    columns hold a prediction of about half their cells (more unaccounted
+    cells than a column has slots), the rest burst; some slots are stale
+    (syn >= 0, perm < 0, inactive). The first ``first_steps`` streams are
+    at step 0, the others past it. With ``ties``, the draws take the
+    values 0.0 and 0.5 only, so scores tie exactly.
+
+    Returns {"state": a `TMState` on ``device``, "cols": (B, A) int32
+    sorted, "draws": `rng.Draws` (B, A, G), (B, A, D) and (B, L, Wc)}."""
+    from .rng import Draws
+    from .state import TMState
+
+    rng = np.random.default_rng(seed)
+    C, D, A, G, K = (cfg.column_dim, cfg.cell_dim, cfg.active_columns,
+                     cfg.segments_per_column, cfg.synapse_capacity)
+    m = cfg.segment_matching_threshold
+    W, J = (D + 31) // 32, G * K
+
+    def u(*shape):
+        return rng.random(shape, dtype=np.float32)
+
+    kind = rng.integers(0, 3, (B, C, 1))
+    live_n = np.where(kind == 1, K, np.where(
+        kind == 2, rng.integers(0, max(m, 1), (B, C, G)),
+        rng.integers(0, K + 1, (B, C, G))))
+    act_n = np.where(kind == 1, live_n,
+                     (u(B, C, G) * (live_n + 1)).astype(np.int64))
+    conn_n = (u(B, C, G) * (act_n + 1)).astype(np.int64)
+    k = np.arange(K)
+    live = (k < live_n[..., None]).reshape(B, C, J)
+    act = (k < act_n[..., None]).reshape(B, C, J)
+    conn = (k < conn_n[..., None]).reshape(B, C, J)
+    stale = live & ~act & (u(B, C, J) < 0.1)
+    syn = np.where(live, rng.integers(0, C * D, (B, C, J)), -1)
+    perm = np.where(live, np.where(conn, 0.5 + 0.5 * u(B, C, J),
+                                   0.5 * u(B, C, J)), np.float32(-1.0))
+    perm = np.where(stale, np.float32(-0.005), perm).astype(np.float32)
+    scale = act_scale(K)
+    packed = np.where(act, np.where(conn, 1 + scale, 1), 0)
+    owner = rng.integers(0, D, (B, C, G))
+    unalloc = u(B, C, G) < np.where(kind == 2, 0.5, 0.15)
+    seg_cell = np.where(unalloc & (kind != 1), D, owner)
+    cells = (u(B, C, W * 32) < 0.5) & (np.arange(W * 32) < D)
+    cells &= u(B, C, 1) < 0.5
+    words = (cells.reshape(B, C, W, 32).astype(np.uint64)
+             << np.arange(32, dtype=np.uint64)).sum(-1)
+    prediction = words.astype(np.uint32).view(np.int32).transpose(0, 2, 1)
+    step = np.where(np.arange(B) < first_steps, 0,
+                    rng.integers(1, 1000, B))
+
+    def columns():
+        return np.sort(np.argsort(u(B, C), axis=1)[:, :A], axis=1)
+
+    prev = columns()
+    prev_bits = (rng.integers(0, 1 << 31, (B, A, W))
+                 & rng.integers(0, 1 << 31, (B, A, W)))
+    if D % 32:
+        prev_bits[..., -1] &= (1 << (D % 32)) - 1
+    winner_bits = prev_bits & rng.integers(0, 1 << 31, (B, A, W))
+    L, Wc = cfg.resolved_growth_capacity, cfg.resolved_winner_capacity
+    u_seg, u_least = u(B, A, G), u(B, A, D)
+    if ties:
+        u_seg = np.floor(2 * u_seg) / 2
+        u_least = np.floor(2 * u_least) / 2
+
+    def t(v, dtype):
+        return torch.from_numpy(np.ascontiguousarray(v, dtype)).to(device)
+
+    state = TMState(
+        synapse_cell=t(syn, np.int32), synapse_perm=t(perm, np.float32),
+        seg_cell=t(seg_cell, np.int32), active_cols=t(prev, np.int32),
+        active_bits=t(prev_bits, np.int32),
+        winner_bits=t(winner_bits, np.int32),
+        synapse_act=t(packed, np.int32).to(act_dtype(K)),
+        prediction=t(prediction, np.int32),
+        matching_word=torch.zeros((B, C), dtype=torch.int32, device=device),
+        step=t(step, np.int32))
+    rnd = rng.integers(-(1 << 31), 1 << 31, (B, L, Wc))
+    return {"state": state, "cols": t(columns(), np.int32),
+            "draws": Draws(t(u_seg, np.float32), t(u_least, np.float32),
+                           t(rnd, np.int32))}
+
+
+def decide_args(cfg: TMConfig, x: dict, mode: str = "learn") -> tuple:
+    """`temporal_memory.column_decide`'s arguments for ``x``
+    (`decide_inputs`) in ``mode``: the state's prediction words and a
+    copy of its owners (a learning mode writes the new owners over it) at
+    its columns, the columns' `row_counts_ref` counts, the draws and the
+    streams' steps."""
+    from .models.temporal_memory import row_counts_ref
+
+    s, cols = x["state"], x["cols"]
+    pot, conn, live = row_counts_ref(s.synapse_cell, s.synapse_perm,
+                                     s.synapse_act, cols,
+                                     cfg.segments_per_column)
+    return (cfg, s.prediction, s.seg_cell.clone(), cols, pot, conn, live,
+            x["draws"], s.step, mode)
+
+
+def gathered_decide_args(args: tuple) -> tuple:
+    """`column_decide`'s arguments at the columns -> on the rows gathered
+    there, as a column shard's step gathers them: the prediction words
+    and the owners of the columns, no columns."""
+    from .models.temporal_memory import _rows
+
+    cfg, pred, owners, cols, *rest = args
+    B, W = pred.shape[:2]
+    pred = pred.gather(2, cols.long()[:, None, :].expand(
+        B, W, cols.shape[1])).contiguous()
+    return (cfg, pred, None if owners is None else _rows(owners, cols), None,
+            *rest)
+
+
 def same_choice(got: tuple, want: tuple) -> bool:
     """Two `grow_select` results agree: n_chosen, the lists and the counts
     equal, and chosen equal up to n_chosen (past it only the kernel's fill
@@ -221,36 +342,33 @@ STEP_KERNELS = ("table_update", "act_conn", "act_frozen",
                 "serving_activation")
 
 
-# `pack_bits` launches of one `tm_step`: the active cells and the winner
-# cells (the matching flags come packed from `seg_counts`' flags form; a
-# serving step, which has no `seg_counts`, packs them too)
-STEP_PACKS = 2
-
-
 def step_launches(sp_steps: int | None = None, **counts) -> dict:
     """The launch count of every kernel (`kernels.launch_counts`'s keys)
     after HTM steps that launched the given kernels ``counts``, every
     other kernel 0: beside them one `sp_overlap` a step (``sp_steps``, by
     default one for each launch of a kernel of STEP_KERNELS, as a step
-    runs the SP once), one `seg_counts` after each kernel that writes
-    the packed activity (all of STEP_KERNELS but `serving_activation`,
-    whose step counts from the serving table), one `row_counts`, one
-    `grow_select`, one `learn_rows` and one `sp_rows` (the SP's update of
-    its active rows) a learning step (each `table_update`) and
-    STEP_PACKS `pack_bits` a step, one more a serving step. A count
-    given in ``counts`` overrides its default (a `tm_resume` launches one
-    `act_conn`, one `seg_counts` and no `pack_bits`; a column shard's SP
-    updates its rows without `sp_rows`)."""
+    runs the SP once), one `column_decide` a step (the column decisions,
+    which also write the active and winner cells' words), one
+    `seg_counts` after each kernel that writes the packed activity (all
+    of STEP_KERNELS but `serving_activation`, whose step counts from the
+    serving table), one `row_counts`, one `grow_select`, one `learn_rows`
+    and one `sp_rows` (the SP's update of its active rows) a learning
+    step (each `table_update`) and one `pack_bits` a serving step (its
+    matching flags; the other steps' come from `seg_counts`' flags form).
+    A count given in ``counts`` overrides its default (a `tm_resume`
+    launches one `act_conn`, one `seg_counts` and no `column_decide`; a
+    column shard's SP updates its rows without `sp_rows`)."""
     n = sum(counts.get(k, 0) for k in STEP_KERNELS)
     learning = counts.get("table_update", 0)
     serving = counts.get("serving_activation", 0)
     counts = {"sp_overlap": n if sp_steps is None else sp_steps,
+              "column_decide": n,
               "seg_counts": n - serving,
               "row_counts": learning,
               "grow_select": learning,
               "learn_rows": learning,
               "sp_rows": learning,
-              "pack_bits": STEP_PACKS * n + serving,
+              "pack_bits": serving,
               **counts}
     return {k.name: counts.get(k.name, 0) for k in kernels.KERNELS}
 

@@ -20,7 +20,13 @@ their connected words in place, in the phase `check_sp_rows` at the SP
 of every learning path (bench, 16K x 64, the B=1 reference stack, both
 anomaly-stack layers), at 65,536 streams and past a block's input tile,
 on tables whose rows hold values past the rail and -0.0 and with a
-column listed twice, timed on disjoint columns a call; `table_update`,
+column listed twice, timed on disjoint columns a call; `column_decide`,
+the TM's column decisions (the winner selection, `_learn`'s flags and
+`_allocate`, with the active and winner cells' words), in the phase
+`check_column_decide` on the calls that eager steps from the learned
+states made (bench, 16K x 64, the reference stack at B=1 and B=256, the
+anomaly stack and the fuzz geometries, each learning, inferring with
+winners and serving), at the columns and on gathered rows; `table_update`,
 which writes its activity over its `act_prev`, against its plain
 version and its out-of-place form, each on its own copy, and timed on
 a fresh copy a call), with
@@ -34,8 +40,9 @@ input, then drives the main path: the bench configuration (2048 columns
 x 32 cells, G=4 x K=64, int16 SP, B=256 streams) through `htm_scan`, 768
 learning steps then inference, and checks that every kernel of that path
 was launched once a step (the table kernel, `sp_overlap`,
-`seg_counts` and at learning `row_counts`, `grow_select`, `learn_rows`
-and `sp_rows`; `pack_bits` twice a step, three times a serving step;
+`column_decide`, `seg_counts` and at learning `row_counts`,
+`grow_select`, `learn_rows` and `sp_rows`; `pack_bits` once a packed
+serving step and at no other step;
 `testing.step_launches` gives every count this
 script holds a run to), that the metrics are in range, that the graph
 learned to predict and that the state invariants hold. Then serves the
@@ -210,6 +217,7 @@ SOURCES = {
     "grow_select": "bithtm_tpu_torch/csrc/grow_pass.cu",
     "row_counts": "bithtm_tpu_torch/csrc/learn_pass.cu",
     "learn_rows": "bithtm_tpu_torch/csrc/learn_pass.cu",
+    "column_decide": "bithtm_tpu_torch/csrc/decide_pass.cu",
     "pack_bits": "bithtm_tpu_torch/csrc/pack_pass.cu",
 }
 REPLACES = {
@@ -227,6 +235,8 @@ REPLACES = {
     "grow_select": "bithtm_tpu/models/temporal_memory.py:350",
     "row_counts": "bithtm_tpu/models/temporal_memory.py:106",
     "learn_rows": "bithtm_tpu/models/temporal_memory.py:501",
+    # `_winner_selection`, `_allocate` and `_learn`'s decisions
+    "column_decide": "bithtm_tpu/models/temporal_memory.py:106,164,501",
     "pack_bits": "bithtm_tpu/ops/active_set.py:85",
 }
 
@@ -645,17 +655,17 @@ GROW_PATHS = {
     # kk = 40: `learn_rows` reads each written slot's cell ("load")
     "samp=40": (16, 2048, 32, 41, 4, 48, 700, 40, 40),
 }
-# `pack_bits` at the main paths' (B, rows, D): the active and winner
-# cells (B, A, D) and the serving step's matching flags (B, C, G); then D
-# = 1, 33, 48
+# `pack_bits` at the main paths' (B, rows, D): a serving step's matching
+# flags (B, C, G); then the cells (B, A, D) that the steps packed before
+# `column_decide` wrote their words, and D = 1, 33, 48
 PACK_MAIN = {
-    "bench": (BATCH, 2048, 4), "bench cells": (BATCH, 41, 32),
-    "16k": (BATCH_16K, 16384, 4), "16k cells": (BATCH_16K, 328, 64),
-    "reference stack": (BATCH, 2048, 8),
-    "anomaly stack": (BATCH, 512, 8), "anomaly cells": (BATCH, 16, 8),
+    "bench": (BATCH, 2048, 4), "16k": (BATCH_16K, 16384, 4),
+    "reference stack": (BATCH, 2048, 8), "anomaly stack": (BATCH, 512, 8),
 }
-PACK_PATHS = {"D=1": (64, 1000, 1), "D=33": (64, 1000, 33),
-              "D=48": (64, 1000, 48)}
+PACK_PATHS = {"bench cells": (BATCH, 41, 32),
+              "16k cells": (BATCH_16K, 328, 64),
+              "anomaly cells": (BATCH, 16, 8), "D=1": (64, 1000, 1),
+              "D=33": (64, 1000, 33), "D=48": (64, 1000, 48)}
 
 
 def grow_row(geo: tuple, dev, graph: bool = True) -> tuple[dict, ...]:
@@ -986,6 +996,151 @@ def check_grow_and_pack(dev) -> tuple[dict, dict]:
         main[name].update({tag: row for tag, row in by_tag.items()
                            if tag in (PACK_MAIN if name == "pack_bits"
                                       else GROW_MAIN) and tag != "bench"})
+    return main, rows
+
+
+# `column_decide`'s arguments as the learned states give them
+# (`record_decisions`): (tag, mode, "table") -> the arguments of its last
+# call there
+DECIDE_CALLS: dict = {}
+# the tags timed; the fuzz geometries' calls are held equal only
+DECIDE_TIMED = ("bench", "16k", "reference B=1", "reference B=256",
+                "anomaly stack")
+
+
+def _clone(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, bt.Draws):
+        return bt.Draws(*(t.clone() for t in v))
+    return v
+
+
+@contextlib.contextmanager
+def recording(tag: str):
+    """Inside it, each `column_decide` call of `tm_step` keeps a copy of
+    its arguments in DECIDE_CALLS under (``tag``, its mode, "table"),
+    then runs."""
+    real = ptm.column_decide
+
+    def record(*args):
+        where = "rows" if args[3] is None else "table"
+        DECIDE_CALLS[(tag, args[-1], where)] = tuple(map(_clone, args))
+        return real(*args)
+
+    ptm.column_decide = record
+    try:
+        yield
+    finally:
+        ptm.column_decide = real
+
+
+def record_decisions(tag: str, cfg, state, x, step=None) -> None:
+    """Three eager steps from copies of a learned ``state`` on the input
+    rows ``x`` (B, I), recording their column decisions' arguments: a
+    learning step, an inference step with winner cells and one without
+    (a serving step's bursting-only decisions). ``step(cfg, state,
+    learning, compute_winner)`` runs a step (default `htm_step` on
+    ``x`` with draws of a seeded generator)."""
+    def htm(cfg, st, learning, winners):
+        gen = torch.Generator(device=x.device).manual_seed(x.shape[0])
+        bt.htm_step(cfg, st, x, learning, winners, dense_outputs=False,
+                    draws=bt.TorchDraws(cfg.tm, x.shape[0], x.device, gen))
+
+    for learning, winners in ((True, True), (False, True), (False, False)):
+        with bgraph.eager(), recording(tag):
+            (step or htm)(cfg, copy.deepcopy(state), learning, winners)
+    torch.cuda.synchronize()
+
+
+def tile_state(state, n: int):
+    """A B=1 HTMState repeated into n streams."""
+    def tile(part):
+        return type(part)(**{f.name: getattr(part, f.name).expand(
+            n, *getattr(part, f.name).shape[1:]).contiguous()
+            for f in dataclasses.fields(part)})
+
+    return bt.HTMState(sp=tile(state.sp), tm=tile(state.tm))
+
+
+def decide_bytes(args, dec) -> int:
+    """`column_decide`'s bound in bytes: the prediction words at the
+    columns and the columns, by mode the owners, counts and draws of the
+    active rows and the steps, each read once; its outputs written once,
+    and the owners that change."""
+    cfg, pred, owners, cols, pot, conn, live, draws, step, mode = args
+    B, A, W = dec.act_bits.shape
+    moved = 4 * B * A * W + (0 if cols is None else nbytes(cols))
+    if mode != "burst":
+        moved += 4 * pot.numel() + nbytes(pot, draws.u_seg, draws.u_least)
+    if mode == "learn":
+        moved += nbytes(conn, live, step) + 4 * int(dec.counts[3].sum())
+    return moved + nbytes(*(t for t in dec if t is not None))
+
+
+def check_column_decide() -> tuple[dict, dict]:
+    """`column_decide` against `column_decide_ref` on every call recorded
+    (DECIDE_CALLS: the learned states' rows and draws at the bench, 16K,
+    the reference stack at B=1 and B=256, the anomaly stack and the fuzz
+    geometries, in each mode), at the columns and on the rows gathered
+    there: every output and the new owners bit for bit, each side on its
+    own copy of the owners, on the path its wrapper reports. At the
+    DECIDE_TIMED tags, its time (CUDA events over 20 calls and in a CUDA
+    graph of 20, on one copy of the owners, which the first call of a
+    learning mode updates, so the later calls decide on the owners it
+    left) beside the plain version's and its bound (`decide_bytes`); no
+    PyTorch call computes the decisions: no library time. Returns ({the
+    bench learning row, the other timed rows under their cases}, {case:
+    row} of every check)."""
+    for tag in DECIDE_TIMED:
+        for mode in kernels.DECIDE_MODES:
+            require((tag, mode, "table") in DECIDE_CALLS,
+                    f"column_decide recorded at {tag}, {mode}")
+    rows = {}
+    for (tag, mode, _), table_args in sorted(DECIDE_CALLS.items()):
+        for where, args in (("table", table_args),
+                            ("rows", testing.gathered_decide_args(
+                                table_args))):
+            outs = []
+            for decide in (ptm.column_decide_ref, ptm.column_decide):
+                a = list(args)
+                a[2] = _clone(args[2])
+                outs.append((*decide(*a), a[2]))
+            torch.cuda.synchronize()
+            case = f"{tag}, {mode}" + (", rows" if where == "rows" else "")
+            require(all((g is None) == (w is None) and (
+                g is None or torch.equal(g, w))
+                for g, w in zip(outs[1], outs[0])),
+                f"column_decide == plain at {case}")
+            require(kernels.COLUMN_DECIDE.path == (mode, where),
+                    f"column_decide at {case} takes ({mode}, {where}), got "
+                    f"{kernels.COLUMN_DECIDE.path}")
+            if tag not in DECIDE_TIMED or where == "rows":
+                rows[case] = {"path": [mode, where]}
+                continue
+            dec = ptm.ColumnDecisions(*outs[0][:6])
+            B, A, _ = dec.act_bits.shape
+            cfg = args[0]
+            at = (f"{tag}: B={B} A={A} G={cfg.segments_per_column} "
+                  f"D={cfg.cell_dim}, {mode}")
+            a_k, a_p = list(args), list(args)
+            a_k[2], a_p[2] = _clone(args[2]), _clone(args[2])
+            row = kernel_row(f"column_decide [{mode}+{where}]",
+                             lambda: ptm.column_decide(*a_k),
+                             lambda: ptm.column_decide_ref(*a_p),
+                             decide_bytes(args, dec), at,
+                             path=[mode, where])
+            row["graph_ms"] = graph_ms(lambda: ptm.column_decide(*a_k))
+            print(f"  column_decide in a CUDA graph of 20 calls: "
+                  f"{row['graph_ms']:.4f} ms a call; "
+                  + ", ".join(f"{k} {int(v.sum())}" for k, v in zip(
+                      ptm.DECIDE_COUNTS, dec.counts)))
+            rows[case] = row
+    print(f"column_decide == plain, bit for bit, at {len(rows)} cases: "
+          + "; ".join(rows))
+    main = dict(rows["bench, learn"])
+    main.update({case: row for case, row in rows.items()
+                 if "ms" in row and case != "bench, learn"})
     return main, rows
 
 
@@ -1734,6 +1889,7 @@ def run_main_path(dev):
 
     require(launches == steps(table_update=LEARN_STEPS, act_conn=INFER_STEPS),
             f"one launch per step of each kernel, got {launches}")
+    print("main path launches by path: " + json.dumps(kernels.path_counts()))
     m_learn = {k: torch.cat([c[3][k] for c in chunks]) for k in chunks[0][3]}
     for phase, m, n in (("learning", m_learn, LEARN_STEPS),
                         ("inference", m_inf, INFER_STEPS)):
@@ -1828,7 +1984,8 @@ def run_serving(cfg, state, gen, xs) -> dict:
     gives the unpacked state in every leaf, and RESUME_STEPS learning
     steps from one generator snapshot leave both equal. The forms' times
     (graph against loop) are `run_graph_bench`'s. Returns the launch
-    counts of the packed and frozen runs."""
+    counts of the packed and frozen runs' own kernels and of the packed
+    run's `pack_bits`."""
     dev = state.tm.step.device
     B, N, A = state.batch, len(xs), cfg.sp.active_columns
     C, K = cfg.tm.column_dim, cfg.tm.synapse_capacity
@@ -1904,7 +2061,7 @@ def run_serving(cfg, state, gen, xs) -> dict:
     kernels.reset_launch_counts()
     s_r = bt.resume_learning(cfg, s_p)
     resumed = kernels.launch_counts()
-    require(resumed == steps(act_conn=1, sp_steps=0, pack_bits=0),
+    require(resumed == steps(act_conn=1, sp_steps=0, column_decide=0),
             f"resume_learning launches act_conn and seg_counts (flags) "
             f"once, got "
             f"{resumed}")
@@ -1930,8 +2087,11 @@ def run_serving(cfg, state, gen, xs) -> dict:
           f"packed -> resume_learning (act_conn x1) -> {RESUME_STEPS} "
           f"learning steps == unpacked -> learning, every leaf and metric")
 
+    # a packed serving step packs its matching flags: the one path on
+    # which `pack_bits` still runs
     return {"serving_activation": launches["packed"]["serving_activation"],
-            "act_frozen": launches["frozen"]["act_frozen"]}
+            "act_frozen": launches["frozen"]["act_frozen"],
+            "pack_bits": launches["packed"]["pack_bits"]}
 
 
 def run_graph_bench(cfg, state, gen, xs) -> dict:
@@ -2061,7 +2221,8 @@ PORT_KERNELS = ("table_pass_kernel", "word_range_kernel", "word_pass_kernel",
                 "sp_overlap_kernel", "seg_counts_kernel",
                 "seg_flags", "grow_select_kernel",
                 "row_counts_kernel", "learn_rows_kernel",
-                "pack_ballot_kernel", "pack_vec_kernel")
+                "column_decide_kernel", "pack_ballot_kernel",
+                "pack_vec_kernel")
 
 
 def device_profile(run, n: int, top: int) -> tuple[float, float]:
@@ -2142,6 +2303,8 @@ def run_16k(dev) -> tuple[dict, dict, tuple, dict, tuple]:
         require(tuple(v.shape) == (T, B) and bool(torch.isfinite(
             v.float()).all()), f"16K learning {k}: (T, B), finite")
     check_tm_invariants(state.tm)
+    record_decisions("16k", dataclasses.replace(
+        cfg, tm=dataclasses.replace(cfg.tm, **TUNED_16K)), state, seq[T])
 
     def mean(m, k, a=0, b=None):
         return m[k][a:b].double().mean().item()
@@ -3201,6 +3364,14 @@ def run_fuzz_on_card(dev) -> dict:
             results.append((bt.htm_state_to_numpy(bt.HTMState(
                 sp=bt.SPState(*[torch.zeros(1)] * 3), tm=state))["tm"],
                 metrics, kernels.path_counts()))
+            if where == dev:
+                # the column decisions on the learned state, for
+                # `check_column_decide`
+                step_cols = cols.to(dev)
+                record_decisions(
+                    f"fuzz {name}", cfg, state, step_cols,
+                    lambda c, st, learning, winners: bt.tm_step(
+                        c, st, draws.step(), step_cols, learning, winners))
         (s_cpu, m_cpu, _), (s_gpu, m_gpu, paths) = results
         diff = [k for k in s_cpu if not np.array_equal(
             s_cpu[k].view(np.uint8), s_gpu[k].view(np.uint8))]
@@ -3268,8 +3439,9 @@ def run_profile(graph_launches: float) -> dict:
     step of the main path's graph (``graph_launches``, from
     `run_graph_bench`). Then at 16K x 64 (B=64, tuned caps, warmed 256
     steps). At both, the range `_learn/_grow` launches at most
-    GROW_RANGE_LAUNCHES kernels a step, `_learn/learn_rows` one and
-    `sp_step.update` at most one, `sp_rows`.
+    GROW_RANGE_LAUNCHES kernels a step, `_learn/learn_rows` one,
+    `tm_step.column_decide` one, `column_decide`, and `sp_step.update`
+    at most one, `sp_rows`.
     Returns the bench profile, the
     16K one under "16k"."""
     from bithtm_tpu_torch.scripts import profile_step
@@ -3294,6 +3466,11 @@ def run_profile(graph_launches: float) -> dict:
                 f"learn_rows alone, got {prof['launches'][pass_site]}")
         # at most one launch a step: the ranges attribute a kernel by
         # its time, and one of 16 can fall outside (0.9375)
+        decide_site = "tm_step.column_decide"
+        require(prof["launches"][decide_site] == 1 and all(
+            "column_decide_kernel" in op for op, _ in prof["top"][decide_site]),
+            f"{decide_site} launches column_decide alone, got "
+            f"{prof['launches'][decide_site]}: {prof['top'][decide_site]}")
         sp_site = "sp_step.update"
         require(prof["launches"][sp_site] <= 1 and all(
             "sp_rows_kernel" in op for op, _ in prof["top"][sp_site]),
@@ -3301,7 +3478,8 @@ def run_profile(graph_launches: float) -> dict:
             f"{prof['launches'][sp_site]}: {prof['top'][sp_site]}")
         print(f"profile {tag}: {site} {prof['sites'][site]:.3f} ms and "
               f"{n:.1f} launches a step; {pass_site} "
-              f"{prof['sites'][pass_site]:.3f} ms")
+              f"{prof['sites'][pass_site]:.3f} ms; {decide_site} "
+              f"{prof['sites'][decide_site]:.3f} ms")
     return out
 
 
@@ -3508,6 +3686,10 @@ def run_reference_api(dev) -> dict:
     require(out["b1"] == steps(table_update=T, act_conn=B1_INFER),
             f"B=1 learning launches table_update once a learning step and "
             f"act_conn once an inference step, got {out['b1']}")
+    record_decisions("reference B=1", cfg, learned, xs[T][None])
+    record_decisions("reference B=256", cfg, tile_state(learned, BATCH),
+                     xs[T][None].expand(BATCH, -1).contiguous())
+    torch.cuda.empty_cache()
 
     def epoch_mean(k, e):
         return statistics.mean(m[k] for m in
@@ -3724,6 +3906,7 @@ def run_anomaly(dev) -> dict:
     torch.cuda.synchronize()
     scan_s = time.perf_counter() - t0
     out["anomaly"] = kernels.launch_counts()
+    record_decisions("anomaly stack", cfg, state, x[-1])
     require(out["anomaly"] == steps(table_update=T),
             f"the anomaly scan launches table_update, sp_overlap and "
             f"seg_counts once a step and no other kernel, got "
@@ -3939,6 +4122,7 @@ def main() -> None:
     check_learning(dev)
     check_cpu_agreement(dev)
     launches, snap, _, (state, gen, serve_xs) = run_main_path(dev)
+    record_decisions("bench", snap.cfg, state, serve_xs[0])
     phase("run_main_path")
     fuzz = run_fuzz_on_card(dev)
     phase("run_fuzz_on_card")
@@ -3985,6 +4169,11 @@ def main() -> None:
     graph_paths["anomaly"] = anomaly["anomaly_graph_vs_loop"]
     graph_paths["stack"] = anomaly["stack_graph_vs_loop"]
     phase("run_anomaly")
+    checks["column_decide"], path_rows["column_decide"] = \
+        check_column_decide()
+    DECIDE_CALLS.clear()
+    torch.cuda.empty_cache()
+    phase("check_column_decide")
     print("graph vs loop: " + json.dumps(graph_paths))
     print("tools: " + json.dumps({
         "fuzz": {k: v["paths"] for k, v in fuzz.items()},

@@ -559,6 +559,65 @@ def test_grow_select_matches_plain(geo, tables, cuda):
     assert bool((want[1] > 0).any())
 
 
+# `column_decide` on the card: (config overrides on `testing.FUZZ_BASE`,
+# B, ties): the bench's D, G and A (two columns a warp past 32), D=33 (two
+# words), the anomaly stack's D=8 with G=8, D=64 with A=70, G=1 under
+# "reference" with ties, G=32, D=70 (three words: the cells recomputed
+# a word at a time)
+DECIDE_GEOMS = [
+    (dict(column_dim=2048, cell_dim=32, active_columns=41,
+          segments_per_column=4, synapse_capacity=64), 16, False),
+    (dict(cell_dim=33, segments_per_column=2), 8, False),
+    (dict(column_dim=512, cell_dim=8, active_columns=16,
+          segments_per_column=8, synapse_capacity=48), 16, False),
+    (dict(column_dim=1024, cell_dim=64, active_columns=70,
+          synapse_capacity=16), 4, False),
+    (dict(cell_dim=6, segments_per_column=1, allocation_policy="reference"),
+     8, True),
+    (dict(cell_dim=40, segments_per_column=32, synapse_capacity=4), 4,
+     False),
+    (dict(cell_dim=70, segments_per_column=3), 4, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo", DECIDE_GEOMS)
+def test_column_decide_matches_plain(geo, cuda):
+    """`column_decide` against `column_decide_ref` on the same inputs
+    (`testing.decide_inputs`: random, crowded and sparse columns, step 0
+    beside later steps), in each mode, at the columns and on gathered
+    rows: the words, the bursting columns, the flags, the counts and the
+    new owners bit for bit, on the path its wrapper reports; the
+    dispatcher launches the kernel once."""
+    overrides, B, ties = geo
+    cfg = testing.fuzz_config(**overrides)
+    x = testing.decide_inputs(sum(B * v for v in overrides.values()
+                                  if isinstance(v, int)), cfg, B,
+                              device=cuda, ties=ties)
+    for mode in kernels.DECIDE_MODES:
+        for gathered in (False, True):
+            out = []
+            for on_card in (False, True):
+                args = testing.decide_args(cfg, x, mode)
+                if gathered:
+                    args = testing.gathered_decide_args(args)
+                before = kernels.launch_counts()
+                decide = ptm.column_decide if on_card else \
+                    ptm.column_decide_ref
+                dec = decide(*args)
+                torch.cuda.synchronize()
+                assert launched(before) == only(column_decide=int(on_card))
+                out.append((*dec, args[2]))
+            assert kernels.COLUMN_DECIDE.path == (
+                mode, "rows" if gathered else "table")
+            for got, want in zip(out[1], out[0]):
+                assert (got is None) == (want is None)
+                assert got is None or torch.equal(got, want)
+    counts = dict(zip(ptm.DECIDE_COUNTS, out[0][5]))
+    assert int(counts["tm_new_segments"].sum()) > 0
+    assert int(counts["tm_dropped_new_segments"].sum()) > 0
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """A float32 tensor's bits (so that -0.0 and 0.0 differ), else t."""
     return t.view(torch.int32) if t.dtype == torch.float32 else t

@@ -417,6 +417,18 @@ def _learn_call(kk: int, n_chosen=(2, 4), K: int = 16, cols: bool = False):
         _view(*n_chosen), _view(4, 2), 0.1, 0.1, 0.21)
 
 
+def _decide_call(mode: str, cols: bool = True, D: int = 32):
+    """`column_decide_cuda` on CPU views: B=2 streams, A=4 active columns
+    of 6 (``cols``) or gathered, G=2 segments of D cells."""
+    Ct, W = (6 if cols else 4), (D + 31) // 32
+    return lambda: kernels.column_decide_cuda(
+        _view(2, W, Ct), _view(2, Ct, 2), _view(2, 4) if cols else None,
+        _view(2, 4, 2), _view(2, 4, 2), _view(2, 4, 2),
+        _view(2, 4, 2, dtype=torch.float32),
+        _view(2, 4, D, dtype=torch.float32), _view(2), D, mode, 2, 3, 1e-8,
+        True)
+
+
 @pytest.mark.parametrize("call,kernel,path", [
     (_grow_call(128, True), "grow_select", ("cell", "smem")),
     (_grow_call(768, False), "grow_select", ("index", "smem")),
@@ -442,11 +454,16 @@ def _learn_call(kk: int, n_chosen=(2, 4), K: int = 16, cols: bool = False):
     (_learn_call(8, K=126), "learn_rows", ("bf16", "rows", "shfl")),
     (_learn_call(40, K=128, cols=True), "learn_rows",
      ("f32", "table", "load")),
+    (_decide_call("learn"), "column_decide", ("learn", "table")),
+    (_decide_call("winner", cols=False, D=33), "column_decide",
+     ("winner", "rows")),
+    (_decide_call("burst", D=8), "column_decide", ("burst", "table")),
 ])
 def test_grow_and_pack_choose_a_path_from_shapes(call, kernel, path):
     """`grow_select` reports its key form and where its keys live,
     `learn_rows` the activity's type, where it reads its rows and how it
-    reads its cells, and `pack_bits` its loads, from the shapes alone
+    reads its cells, `column_decide` its mode and where it reads its
+    rows, and `pack_bits` its loads, from the shapes alone
     (`CudaKernel.path`): the
     tensors here are CPU views of one element, which the wrapper then
     refuses as off the card. Nothing launches."""
@@ -522,20 +539,21 @@ def test_grow_select_dispatch_runs_the_plain_version_on_the_cpu():
 
 def test_step_launches_count_growth_and_packs():
     """A learning step launches one `row_counts`, one `grow_select` and
-    one `learn_rows`, and every step two `pack_bits` (active and winner
-    cells; the matching flags come from `seg_counts`' flags form), a
-    serving step one more (its matching flags; `testing.step_launches`,
-    which the card's checks compare exactly); a `tm_resume` packs
-    nothing."""
+    one `learn_rows`, every step one `column_decide` (which writes the
+    active and winner cells' words) and no `pack_bits` but a serving
+    step's one (its matching flags; the other steps' come from
+    `seg_counts`' flags form; `testing.step_launches`, which the card's
+    checks compare exactly); a `tm_resume` decides and packs nothing."""
     got = testing.step_launches(table_update=5, act_conn=2, act_frozen=1,
                                 serving_activation=4)
     assert got["grow_select"] == got["learn_rows"] == got["row_counts"] == 5
-    assert testing.STEP_PACKS == 2
-    assert got["pack_bits"] == 2 * 12 + 4
+    assert got["column_decide"] == 12
+    assert got["pack_bits"] == 4
     assert "grow_fill" not in got
-    resumed = testing.step_launches(act_conn=1, sp_steps=0, pack_bits=0)
-    assert (resumed["pack_bits"], resumed["seg_counts"],
-            resumed["grow_select"], resumed["learn_rows"]) == (0, 1, 0, 0)
+    resumed = testing.step_launches(act_conn=1, sp_steps=0, column_decide=0)
+    assert (resumed["pack_bits"], resumed["column_decide"],
+            resumed["seg_counts"], resumed["grow_select"],
+            resumed["learn_rows"]) == (0, 0, 1, 0, 0)
     assert set(got) == {k.name for k in kernels.KERNELS}
 
 

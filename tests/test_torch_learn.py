@@ -110,12 +110,16 @@ def port_tm_state(jstate) -> TMState:
 
 @pytest.mark.parametrize("case", LEARN_CASES)
 def test_learn_matches_jax(case):
-    """The port's `_learn` (`row_counts_ref`, the decisions, then
-    `grow_select_ref` on the rows where they lie and `learn_rows_ref` in
-    place) against JAX `_learn` on one learned state, with JAX's winner
-    selection and growth draws: the synapse tables (permanences bit for
-    bit), the owners, every metric and the debug masks equal, and the
-    port's winner selection on `row_counts`' potential equals JAX's."""
+    """The port's column decisions and `_learn` (`row_counts_ref`,
+    `column_decide_ref`, then `grow_select_ref` on the rows where they lie
+    and `learn_rows_ref` in place) against JAX `_winner_selection` and
+    `_learn` on one learned state, with JAX's draws: the port's winner
+    selection on `row_counts`' potential equals JAX's; `column_decide_ref`
+    gives JAX's bursting columns, the JAX `pack_bits` of its winner and
+    active cells, their counts, and (through `_allocate` and `_learn`'s
+    flags) its owners, learning and new segments and their metrics; then
+    the synapse tables (permanences bit for bit), every metric and the
+    debug masks equal."""
     overrides, steps, period = LEARN_CASES[case]
     cfg = testing.fuzz_config(**overrides)
     jcfg = JaxTMConfig(**dataclasses.asdict(cfg))
@@ -142,6 +146,8 @@ def test_learn_matches_jax(case):
     pred_rows, sel, learned, draws = jax.device_get(
         jax.jit(jax.vmap(jax_one))(jstate, keys, cols))
     syn_full, perm_full, seg_cell, metrics, debug = learned
+    col_burst, winner_rows = np.asarray(sel[0]), np.asarray(sel[1])
+    act_rows = np.asarray(pred_rows) | col_burst[..., None]
 
     state = port_tm_state(jstate)
     t = torch.from_numpy
@@ -156,17 +162,28 @@ def test_learn_matches_jax(case):
     for got, want in zip(winner, sel):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     before = kernels.launch_counts()
+    dec = ptm.column_decide_ref(cfg, state.prediction, state.seg_cell,
+                                active, pot, conn, live, draw, state.step,
+                                "learn")
+    np.testing.assert_array_equal(dec.col_burst.numpy(), col_burst)
+    for got, rows in ((dec.winner_bits, winner_rows),
+                      (dec.act_bits, act_rows)):
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jas.pack_bits(jnp.asarray(rows))).view(
+                np.int32))
+    np.testing.assert_array_equal(
+        dec.counts[:3].numpy(),
+        [col_burst.sum(-1), act_rows.sum((1, 2)), winner_rows.sum((1, 2))])
     tables = (state.synapse_cell, state.synapse_perm, state.synapse_act,
               active)
-    got_cell, got_metrics, got_debug = ptm._learn(
-        cfg, state, tables, ptm._put_rows, draw, active, pred,
-        *(t(np.array(x)) for x in sel[1:]), pot, conn, live,
-        segcell_rows, return_debug=True)
+    got_metrics, got_debug = ptm._learn(
+        cfg, state, tables, ptm._put_rows, draw, active, dec,
+        return_debug=True)
     assert kernels.launch_counts() == before
     np.testing.assert_array_equal(state.synapse_cell.numpy(), syn_full)
     np.testing.assert_array_equal(state.synapse_perm.numpy().view(np.int32),
                                   np.asarray(perm_full).view(np.int32))
-    np.testing.assert_array_equal(got_cell.numpy(), seg_cell)
+    np.testing.assert_array_equal(state.seg_cell.numpy(), seg_cell)
     assert set(got_metrics) == set(metrics)
     for k, v in metrics.items():
         np.testing.assert_array_equal(got_metrics[k].numpy(), v, err_msg=k)
@@ -204,26 +221,29 @@ def test_learn_on_gathered_rows_matches_the_tables(case):
     for gathered in (False, True):
         state = port_tm_state(jstate)
         tables = (state.synapse_cell, state.synapse_perm, state.synapse_act)
+        pred, owners, where = state.prediction, state.seg_cell, active
         if gathered:
             tables = (*(ptm._rows(x, active) for x in tables), None)
+            pred = state.prediction.gather(2, active.long()[:, None, :].expand(
+                B, state.prediction.shape[1], A))
+            owners, where = ptm._rows(state.seg_cell, active), None
         else:
             tables = (*tables, active)
         pot, conn, live = ptm.row_counts(*tables, G)
-        segcell_rows = ptm._rows(state.seg_cell, active)
-        pred = pas.unpack_bits(state.prediction.gather(
-            2, active.long()[:, None, :].expand(
-                B, state.prediction.shape[1], A)).transpose(1, 2), D)
-        winner = ptm._winner_selection(cfg, draw, pred, pot, segcell_rows)
+        dec = ptm.column_decide(cfg, pred, owners, where, pot, conn, live,
+                                draw, state.step, "learn")
         res = ptm._learn(cfg, state, tables, ptm._put_rows, draw, active,
-                         pred, *winner[1:], pot, conn, live, segcell_rows,
-                         return_debug=True)
+                         dec, return_debug=True)
+        if gathered:
+            ptm._put_rows(state.seg_cell, active, owners)
         out.append((state.synapse_cell, state.synapse_perm.view(torch.int32),
-                    res[0], res[1], res[2]))
-    (s1, p1, c1, m1, d1), (s2, p2, c2, m2, d2) = out
+                    state.seg_cell, res[0], res[1], dec))
+    (s1, p1, c1, m1, d1, e1), (s2, p2, c2, m2, d2, e2) = out
     assert torch.equal(s1, s2) and torch.equal(p1, p2)
     assert torch.equal(c1, c2)
     assert all(torch.equal(m1[k], m2[k]) for k in m1)
     assert all(torch.equal(d1[k], d2[k]) for k in d1)
+    assert all(torch.equal(a, b) for a, b in zip(e1, e2))
     assert int(m1["tm_grown_synapses"].sum()) > 0
 
 
@@ -379,23 +399,25 @@ def test_entry_points_take_what_ctypes_passes():
 
 def test_learn_step_gathers_no_synapse_rows():
     """An unsharded learning step reads the active rows where they lie:
-    outside the kernels' plain versions (`row_counts`, `grow_select` and
-    `learn_rows`, which stand for kernels that read and write the tables
-    in place), no (B, A, G*K) row copy of `synapse_cell` or
-    `synapse_perm` is gathered or scattered back; the owners' (B, A, G)
-    rows are."""
+    outside the kernels' plain versions (`row_counts`, `column_decide`,
+    `grow_select` and `learn_rows`, which stand for kernels that read and
+    write the tables in place), no (B, A, G*K) row copy of
+    `synapse_cell` or `synapse_perm` is gathered or scattered back, and
+    no (B, A, G) row copy of the owners (`column_decide` reads them and
+    writes the new ones in place)."""
     cfg = testing.fuzz_config()
     state = bt.tm_init(cfg, B, "cpu")
     draws = bt.TorchDraws(cfg, B, "cpu", torch.Generator().manual_seed(1))
     rng = np.random.RandomState(1)
     seen, inside = [], []
     real = {n: getattr(ptm, n) for n in ("_rows", "_put_rows", "row_counts",
-                                         "grow_select", "learn_rows")}
+                                         "column_decide", "grow_select",
+                                         "learn_rows")}
 
     def record(what):
         def call(table, *args):
             if not inside:
-                seen.append((what, tuple(table.shape)))
+                seen.append((what, tuple(table.shape), table.dtype))
             return real[what](table, *args)
         return call
 
@@ -411,7 +433,7 @@ def test_learn_step_gathers_no_synapse_rows():
     J = cfg.segments_per_column * cfg.synapse_capacity
     for name in ("_rows", "_put_rows"):
         setattr(ptm, name, record(name))
-    for name in ("row_counts", "grow_select", "learn_rows"):
+    for name in ("row_counts", "column_decide", "grow_select", "learn_rows"):
         setattr(ptm, name, kernel(name))
     try:
         for _ in range(6):
@@ -421,5 +443,7 @@ def test_learn_step_gathers_no_synapse_rows():
         for name, fn in real.items():
             setattr(ptm, name, fn)
     assert not [s for s in seen if s[1][-1] == J], seen
-    assert ("_rows", (B, cfg.column_dim, cfg.segments_per_column)) in seen
+    owners = ((B, cfg.column_dim, cfg.segments_per_column), torch.int32)
+    assert not [s for s in seen if s[1:] == owners], seen
+    assert inside == [] and seen
     assert int(out.metrics["tm_grown_synapses"].sum()) > 0

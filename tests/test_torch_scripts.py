@@ -107,7 +107,8 @@ def test_profile_step_reports_each_call_site(capsys):
     assert printed_report(capsys)["sites"] == out["sites"]
     assert out["time"] == "cpu" and out["graph_busy_ms"] is None
     for site in ("sp_step.overlap", "sp_step.boost", "sp_step.k_winners",
-                 "sp_step.update", "tm_step.winner_selection",
+                 "sp_step.update", "tm_step.row_counts",
+                 "tm_step.column_decide",
                  "tm_step._learn", "tm_step._learn/_grow",
                  "tm_step._learn/learn_rows",
                  "tm_step.table_pass", "tm_step.count_decode",
@@ -234,11 +235,12 @@ def test_grow_variants_patch_the_current_source():
         assert found == (name == "base" or name.startswith("new_")), name
 
 
-@pytest.mark.parametrize("kernel", ["learn_rows", "seg_flags"])
+@pytest.mark.parametrize("kernel", ["learn_rows", "seg_flags",
+                                    "column_decide"])
 def test_variants_patch_the_studied_source(kernel):
-    """Every variant of the `learn_rows` and flags-form studies finds the
-    text it patches in its source, so none silently times the unpatched
-    kernel."""
+    """Every variant of the `learn_rows`, flags-form and `column_decide`
+    studies finds the text it patches in its source, so none silently
+    times the unpatched kernel."""
     source, variants, _ = grow_variants.STUDIES[kernel]
     src = (kernels.CSRC / source).read_text()
     for name, patches in variants.items():
