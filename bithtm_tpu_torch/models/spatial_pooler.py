@@ -3,7 +3,11 @@
 Counterpart of `bithtm_tpu/models/spatial_pooler.py` (reference
 `networks.py:26-35`): overlaps -> boosting -> global inhibition -> (when
 learning) the Hebbian update of the A active rows; the duty-cycle EMA
-updates whether or not the model learns (`networks.py:33`).
+updates whether or not the model learns (`networks.py:33`). With the
+built-in boosting and inhibition, the boost, the inhibition and the EMA
+are one call, `regularization.sp_select` (the CUDA kernel of the same
+name on the card, the torch chain on the CPU); a hook or a column shard
+keeps the chain's ops.
 
 The permanence and connected tables are updated in place: the state
 passed in is consumed, as the JAX scan donates its carry.
@@ -12,7 +16,7 @@ Under a column shard (`ops/shard.py`, a model-parallel rank holding C/n
 columns) only the inhibition crosses the column axis: the boosted
 overlaps are exchanged into the (B, C) array before `k_winners`, and the
 rest (overlap, boost, Hebbian rows, duty EMA) runs on the rank's own
-columns.
+columns, as torch ops.
 
 The learning step updates the A active rows only (the JAX step's
 sparse-row form): `sp_rows`, the CUDA kernel of the same name
@@ -35,7 +39,8 @@ import torch
 from ..config import SPConfig
 from ..ops.active_set import _on_device, column_mask_from_cols
 from ..ops.overlap import overlaps as _overlaps, pack_input
-from ..ops.regularization import boost, duty_cycle_update, k_winners
+from ..ops.regularization import (boost, duty_cycle_update, k_winners,
+                                  sp_select)
 from ..ops.shard import ColumnShard
 from ..state import SPState
 from ..utils.profiling import site
@@ -202,25 +207,35 @@ def sp_step(cfg: SPConfig, state: SPState, input_bits: torch.Tensor,
             ov = _overlaps(state.connected, input_bits)
         else:
             ov = overlap(cfg, state, input_bits)
-    with site("sp_step.boost"):
-        if boosting is None:
-            boosted = boost(ov, state.duty_cycle, cfg.boosting_intensity,
-                            cfg.density)
-        else:
-            boosted = boosting(cfg, ov, state.duty_cycle)
-    with site("sp_step.k_winners"):
-        active_columns, active_mask = _inhibit(cfg, boosted, inhibition,
-                                               shard)
+    with site("sp_step.select"):
+        boosted, active_columns, active_mask, duty = _select(
+            cfg, ov, state.duty_cycle, boosting, inhibition, shard)
     with site("sp_step.update"):
         permanence, connected = _update(cfg, state, input_bits, learning,
                                         active_columns, proximal_update,
                                         shard)
-    with site("sp_step.duty_cycle"):
-        duty = duty_cycle_update(state.duty_cycle, active_mask,
-                                 cfg.duty_cycle_momentum)
     new_state = SPState(permanence=permanence, connected=connected,
                         duty_cycle=duty)
     return new_state, SPOutput(active_columns, active_mask, ov, boosted)
+
+
+def _select(cfg: SPConfig, ov, duty_cycle, boosting, inhibition, shard):
+    """`sp_step`'s boost, inhibition and duty-cycle EMA: (boosted, (B, A)
+    columns, (B, C) mask, new duty cycles). `sp_select` with the built-in
+    rules; a hook replaces its own part of the chain, and a column shard
+    exchanges the boosted overlaps before the inhibition."""
+    if boosting is None and inhibition is None and shard is None:
+        return sp_select(ov, duty_cycle, cfg.active_columns,
+                         cfg.boosting_intensity, cfg.density,
+                         cfg.duty_cycle_momentum)
+    if boosting is None:
+        boosted = boost(ov, duty_cycle, cfg.boosting_intensity, cfg.density)
+    else:
+        boosted = boosting(cfg, ov, duty_cycle)
+    active_columns, active_mask = _inhibit(cfg, boosted, inhibition, shard)
+    duty = duty_cycle_update(duty_cycle, active_mask,
+                             cfg.duty_cycle_momentum)
+    return boosted, active_columns, active_mask, duty
 
 
 def _inhibit(cfg: SPConfig, boosted, inhibition, shard):

@@ -13,11 +13,13 @@ here runs when the module is imported.
 
 Each wrapper first chooses its kernel's path from the shapes alone
 (`_bitmap`, `_streams`, `_act_bytes`, `_delta`, `_grow_keys`,
-`_rows_mode`, `_fill_path`, `_pack_path`, the decisions' mode: the
+`_rows_mode`, `_fill_path`, `_pack_path`, `_select_path`, the
+decisions' mode: the
 bitmap in shared or in
 global memory, the packed activity's type, the streams in grid y or
 folded into grid x, the SP delta row staged or read from global memory,
-the growth keys' form and where they live, whether the active rows are
+the growth keys' form and where they live, where the SP's selection
+keeps its keys and its winners, whether the active rows are
 read where they lie in the tables or from gathered rows, how the fill
 reads its cells, the pack's loads; README.md, port section) and
 reports it (`CudaKernel.path`) before any tensor is read. Only the
@@ -55,7 +57,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("table_pass.cu", "serving_pass.cu", "small_take.cu",
            "sp_pass.cu", "overlap_pass.cu", "count_pass.cu", "grow_pass.cu",
-           "learn_pass.cu", "decide_pass.cu", "pack_pass.cu")
+           "learn_pass.cu", "decide_pass.cu", "pack_pass.cu",
+           "select_pass.cu")
 HEADERS = ("active_bitmap.cuh", "launch.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -64,6 +67,10 @@ MAX_SHARED_BYTES = 232_448  # what one Hopper block may opt in to
 MAX_BITMAP_CELLS = 8 * MAX_SHARED_BYTES   # 1,859,584
 MAX_STREAM_WORDS = 1 << 30  # a stream's words, indexed in int32 on the card
 MAX_GRID_Y = 65_535         # streams of a kernel with one grid row a stream
+# `sp_select`: the columns whose keys a block of 1,024 threads holds in
+# registers (16 a thread), and the winners' pairs it keeps in shared memory
+SELECT_REG_COLUMNS = 16_384
+SELECT_LIST_BYTES = 200 * 1024
 
 _VP, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                     ctypes.c_longlong)
@@ -114,6 +121,9 @@ _ARGTYPES = {
     "column_decide": [_VP] * 15 + [_I] * 8 + [_F, _I] + [_I, _VP],
     # mask, out, rows, D
     "pack_bits": [_VP] * 2 + [_LL, _I] + [_I, _VP],
+    # ov, duty, boosted, cols, mask, duty_out, list, B, C, A, scale,
+    # momentum, one_minus
+    "sp_select": [_VP] * 7 + [_I] * 3 + [_F] * 3 + [_I, _VP],
 }
 # the grid queries of the row-range kernels, which launch nothing:
 # table_pass_grid (punish, C, J, D, global, act_bytes, device, blocks
@@ -244,10 +254,11 @@ ROW_COUNTS = CudaKernel("row_counts")
 LEARN_ROWS = CudaKernel("learn_rows")
 COLUMN_DECIDE = CudaKernel("column_decide")
 PACK_BITS = CudaKernel("pack_bits")
+SP_SELECT = CudaKernel("sp_select")
 KERNELS = (TABLE_UPDATE, ACT_CONN, SERVING_ACTIVATION, ACT_FROZEN,
            SYNAPSE_ACTIVATION, SMALL_TABLE_TAKE, SP_UPDATE_PACK, SP_ROWS,
            SP_OVERLAP, SEG_COUNTS, GROW_SELECT, ROW_COUNTS, LEARN_ROWS,
-           COLUMN_DECIDE, PACK_BITS)
+           COLUMN_DECIDE, PACK_BITS, SP_SELECT)
 
 
 def launch_counts() -> dict[str, int]:
@@ -424,6 +435,16 @@ def _pack_path(D: int) -> str:
     if D % 32 == 0:
         return "ballot"
     return next(f"v{v}" for v in (8, 4, 1) if D % v == 0)
+
+
+def _select_path(C: int, A: int) -> tuple[str, str]:
+    """`sp_select`'s path for C columns and A winners a stream: where a
+    thread keeps its columns' keys, "regs" up to SELECT_REG_COLUMNS
+    columns, else "global" (read again from the boosted values it wrote);
+    where the block keeps its A winners' (key, column) pairs, "smem" up
+    to SELECT_LIST_BYTES, else "global", in a (B, A) int64 scratch."""
+    return ("regs" if C <= SELECT_REG_COLUMNS else "global",
+            "smem" if 8 * A <= SELECT_LIST_BYTES else "global")
 
 
 def _bitmap_scratch(path: str, B: int, C: int, cell_dim: int, device):
@@ -1099,4 +1120,40 @@ def pack_bits_cuda(mask) -> torch.Tensor:
         return out
     PACK_BITS.launch(mask_p, out.data_ptr(), mask.numel() // D, D, dev,
                      _stream(dev))
+    return out
+
+
+def sp_select_cuda(overlaps, duty_cycle, k: int, scale: float,
+                   momentum: float, one_minus: float) -> tuple:
+    """CUDA `sp_select`: the SP's column selection of a step for the
+    (B, C) int32 ``overlaps`` and float32 ``duty_cycle``: the boosted
+    overlaps, the ``k`` winners (B, k) int32 in the order of a stable
+    descending sort, their (B, C) bool mask and the new duty cycles, each
+    a new tensor; ``scale``, ``momentum`` and ``one_minus`` are the
+    float32 scalars of `regularization.select_scalars` (see
+    `regularization.sp_select_ref`)."""
+    if overlaps.dim() != 2:
+        raise ValueError(f"overlaps must be (B, C), got "
+                         f"{tuple(overlaps.shape)}")
+    B, C = overlaps.shape
+    if not 0 <= k <= C:
+        raise ValueError(f"k={k} winners must be in [0, C={C}]")
+    path = SP_SELECT.choose(*_select_path(C, k))
+    dev = overlaps.get_device()
+    ov_p = _ptr("overlaps", overlaps, torch.int32, None, dev, align=16)
+    duty_p = _ptr("duty_cycle", duty_cycle, torch.float32, (B, C), dev,
+                  align=16)
+
+    def new(n, dtype):
+        return torch.empty((B, n), dtype=dtype, device=overlaps.device)
+
+    out = (new(C, torch.float32), new(k, torch.int32), new(C, torch.bool),
+           new(C, torch.float32))
+    if B * C == 0:
+        return out
+    scratch = new(k, torch.int64) if path[1] == "global" else None
+    SP_SELECT.launch(ov_p, duty_p, *(t.data_ptr() for t in out[:3]),
+                     out[3].data_ptr(),
+                     None if scratch is None else scratch.data_ptr(),
+                     B, C, k, scale, momentum, one_minus, dev, _stream(dev))
     return out

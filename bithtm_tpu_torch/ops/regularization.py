@@ -1,12 +1,18 @@
 """Boosting and global inhibition (reference `regularizations.py:4-29`),
-counterpart of `bithtm_tpu/ops/regularization.py`."""
+counterpart of `bithtm_tpu/ops/regularization.py`.
+
+`sp_select` is the SP's column selection of a step (the boost, the top-A
+inhibition and the duty-cycle EMA): the CUDA kernel of the same name
+(`ops/kernels.py`, `csrc/select_pass.cu`) on the card, and on the CPU its
+plain version `sp_select_ref`, the chain of `boost`, `k_winners` and
+`duty_cycle_update`."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .active_set import column_mask_from_cols
+from .active_set import _on_device, column_mask_from_cols
 
 
 def boost_factor(duty_cycle: torch.Tensor, intensity: float,
@@ -80,3 +86,43 @@ def k_winners(boosted: torch.Tensor, k: int):
     idx = torch.sort(boosted, dim=-1, descending=True,
                      stable=True).indices[..., :k].to(torch.int32)
     return idx, column_mask_from_cols(idx, boosted.shape[-1])
+
+
+def select_scalars(intensity: float, density: float, momentum: float
+                   ) -> tuple[float, float, float]:
+    """The float32 scalars of `sp_select_ref`'s chain: -(intensity /
+    density), the momentum and 1 - momentum, each taken in Python and
+    rounded once to float32, as torch rounds a Python scalar against a
+    float32 tensor."""
+    return tuple(float(np.float32(v)) for v in (
+        -(intensity / density), momentum, 1.0 - momentum))
+
+
+def sp_select_ref(overlaps: torch.Tensor, duty_cycle: torch.Tensor, k: int,
+                  intensity: float, density: float, momentum: float
+                  ) -> tuple[torch.Tensor, ...]:
+    """Plain version of the `sp_select` kernel: the (B, C) boosted
+    overlaps (`boost`), the ``k`` winners (B, k) int32 in descending value
+    order and their (B, C) bool mask (`k_winners`), and the new (B, C)
+    duty cycles (`duty_cycle_update`)."""
+    boosted = boost(overlaps, duty_cycle, intensity, density)
+    cols, mask = k_winners(boosted, k)
+    return boosted, cols, mask, duty_cycle_update(duty_cycle, mask,
+                                                  momentum)
+
+
+def sp_select(overlaps: torch.Tensor, duty_cycle: torch.Tensor, k: int,
+              intensity: float, density: float, momentum: float
+              ) -> tuple[torch.Tensor, ...]:
+    """The SP's column selection of a step, (boosted, columns, mask, new
+    duty cycles): the `sp_select` kernel for CUDA tensors, the plain
+    version for CPU tensors (arguments and results as
+    `sp_select_ref`'s). The state's duty cycles are not written."""
+    if _on_device("sp_select", overlaps) == "cuda":
+        from .kernels import sp_select_cuda
+
+        return sp_select_cuda(overlaps.contiguous(), duty_cycle.contiguous(),
+                              k, *select_scalars(intensity, density,
+                                                 momentum))
+    return sp_select_ref(overlaps, duty_cycle, k, intensity, density,
+                         momentum)

@@ -12,7 +12,9 @@ writes in place), ``seg_flags`` (`csrc/count_pass.cu`,
 `FLAG_VARIANTS`: `seg_counts`' flags form, and its counts form on the
 same activity as "reference") or ``column_decide``
 (`csrc/decide_pass.cu`, `DECIDE_VARIANTS`: the learning mode on
-`testing.decide_inputs`, its owners updated by each call). A variant whose patch does not match the
+`testing.decide_inputs`, its owners updated by each call) or
+``sp_select`` (`csrc/select_pass.cu`, `SELECT_VARIANTS`, on
+`testing.select_inputs`). A variant whose patch does not match the
 source is reported as not applicable. Variants that cut a part out give
 wrong results; they are timed, never checked. Each variant's ms a call
 is the median of ``--rounds`` rounds, the variants in turns within a
@@ -45,6 +47,7 @@ from ..config import TMConfig
 from ..models import temporal_memory as ptm
 from ..ops import active_set as pas
 from ..ops import kernels
+from ..ops import regularization as preg
 
 # B, C, D, A, G, K, Wc, L, samp (chip_smoke.py GROW_MAIN)
 SHAPES = {
@@ -152,6 +155,26 @@ DECIDE_VARIANTS = {
     "no_ranks": [("    for (int g = 0; g < G; ++g) {\n      const int kg",
                   "    for (int g = 0; g < 0; ++g) {\n      const int kg")],
 }
+# `sp_select`: the float64 exp as float32 `__expf` (wrong bits); the
+# bin's pairs ranked only up to 64 or 256 of them (else more passes); 16
+# columns a thread with 4-byte loads, not 16-byte ones; the winners'
+# places cut, or counted by one thread a winner (not kThreads / A of
+# them); 1,024 threads a block at the bench's C (8 columns a thread,
+# as at 4,096-8,192 columns), not 256
+SELECT_VARIANTS = {
+    "base": [],
+    "f32_exp": [("(float)exp((double)__fmul_rn(scale, duty))",
+                 "__expf(__fmul_rn(scale, duty))")],
+    "rank_64": [("if (count <= kThreads) {", "if (count <= 64) {")],
+    "rank_256": [("if (count <= kThreads) {", "if (count <= 256) {")],
+    "scalar_16": [("kKeys > 0 && p.C % 4 == 0", "kKeys == 8 && p.C % 4 == 0")],
+    "no_places": [(
+        "      for (int j = part; j < A; j += parts) r += list[j] > pair;",
+        "      r = part ? 0 : i;")],
+    "one_thread_a_place": [("const int parts = A > 0 && A <= kThreads ?",
+                            "const int parts = false ?")],
+    "threads_1024": [("if (C <= 256 * 8) return", "if (C <= 0) return")],
+}
 # kernel: (source, variants, shapes)
 STUDIES = {
     "grow_select": ("grow_pass.cu", VARIANTS, SHAPES),
@@ -162,6 +185,9 @@ STUDIES = {
     "column_decide": ("decide_pass.cu", DECIDE_VARIANTS,  # B, C, D, A, G, K
                       {"bench": (256, 2048, 32, 41, 4, 64),
                        "16k_tuned": (64, 16384, 64, 328, 4, 64)}),
+    "sp_select": ("select_pass.cu", SELECT_VARIANTS,  # B, C, A
+                  {"bench": (256, 2048, 41),
+                   "16k_tuned": (64, 16384, 328)}),
 }
 
 
@@ -240,6 +266,12 @@ def study_calls(kernel: str, geo: tuple, dev) -> tuple:
         return (lambda: kernels.seg_flags_cuda(v, cell, K, K // 2, K // 5,
                                                D)), None, kernels.SEG_COUNTS, \
             (lambda: kernels.seg_counts_cuda(v, G, K))
+    if kernel == "sp_select":
+        B, C, A = geo
+        ov, duty = testing.select_inputs(sum(geo), B, C, device=dev)
+        args = (A, testing.SELECT_INTENSITY, A / C, testing.SELECT_MOMENTUM)
+        return (lambda: preg.sp_select(ov, duty, *args)), None, \
+            kernels.SP_SELECT, None
     if kernel == "column_decide":
         B, C, D, A, G, K = geo
         cfg = TMConfig(column_dim=C, cell_dim=D, active_columns=A,

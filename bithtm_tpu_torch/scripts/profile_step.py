@@ -3,9 +3,10 @@
 Counterpart of the JAX package's `scripts/profile_step.py`, which reads
 per-op device time a step out of a `jax.profiler` trace. Here the step's
 call sites carry `torch.profiler.record_function` ranges
-(`utils.profiling.site`: `sp_step`'s overlap, boost, k-winners, update
-and duty cycle; `tm_step`'s preparation, row counts, column decisions
-(`column_decide`), `_learn` with its `_grow` and `learn_rows`,
+(`utils.profiling.site`: `sp_step`'s overlap, selection (the boost,
+inhibition and duty cycle: `sp_select`) and update; `tm_step`'s
+preparation, row counts, column decisions (`column_decide`), `_learn`
+with its `_grow` and `learn_rows`,
 punishment, table pass, count decode, prediction words (serving) and
 outputs;
 `htm_step`'s draws and metrics;
@@ -46,13 +47,14 @@ import torch
 from .. import htm_init_batch, htm_scan, htm_serve_scan, make_htm_config
 from ..models import graph
 from ..rng import TorchDraws
-from ..utils.profiling import call_sites
+from ..utils.profiling import call_sites, device_events, warm_profile
 from . import add_device, pick_device, synchronize
 
 # bench.py's tuned list widths at 16384 x 64 (`--winner_capacity 384
 # --growth_capacity 336`)
 TUNED_16K = dict(winner_capacity=384, growth_capacity=336)
 TOLERANCE = 0.10   # the ranges' sum against the graph's busy
+PROFILE_ATTEMPTS = 3   # profiles of the steps, while one drops a kernel
 
 
 def make_config(args):
@@ -71,25 +73,16 @@ def make_config(args):
                            cell_dim=args.cell_dim, **overrides, **caps)
 
 
-def _activities(dev: torch.device):
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return acts
-
-
 def graph_busy(run, steps: int, dev: torch.device) -> tuple[float, float]:
     """(device busy ms, kernel launches) a step of ``run()``, which runs
-    ``steps`` steps, from `torch.profiler`'s device events."""
-    with torch.profiler.profile(activities=_activities(dev),
-                                acc_events=True) as prof:
+    ``steps`` steps, from `torch.profiler`'s device events
+    (`warm_profile`)."""
+    with warm_profile(dev) as prof:
         run()
-        synchronize(dev)
     busy = launches = 0.0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy += e.time_range.elapsed_us() / 1e3
-            launches += not e.name.startswith(("Memcpy", "Memset"))
+    for e in device_events(prof):
+        busy += e.time_range.elapsed_us() / 1e3
+        launches += not e.name.startswith(("Memcpy", "Memset"))
     return busy / steps, launches / steps
 
 
@@ -115,7 +108,7 @@ def _kernels_by_site(events) -> dict[str, list]:
     for e in events:
         t = launched_at.get(e.id)
         if (e.device_type != cuda or t is None
-                or e.name.startswith(SITE_PREFIXES)):
+                or e.name.startswith(SITE_PREFIXES + ("ProfilerStep",))):
             continue
         for s0, s1, name in ranges:
             if s0 <= t <= s1:
@@ -123,27 +116,47 @@ def _kernels_by_site(events) -> dict[str, list]:
     return out
 
 
-def profile_sites(step, steps: int, dev: torch.device, top: int) -> dict:
-    """Runs ``step(t)`` for t < ``steps`` with the call-site ranges on,
-    under `torch.profiler`; returns {range: {"ms": a step, "top": [(op,
-    ms a step)]}} with device time on the card (`_kernels_by_site`) and
-    host time on the CPU, and "launches": the kernels a step launched in
-    it on the card (memory copies and sets left out, as `graph_busy`
-    counts them; None on the CPU); and the device ms a step no range
-    holds (None on the CPU)."""
-    with call_sites(), torch.profiler.profile(
-            activities=_activities(dev), acc_events=True) as prof:
-        for t in range(steps):
-            step(t)
-        synchronize(dev)
-    events = prof.events()
+def lost_launches(events) -> int:
+    """Kernel launches on the host (`cudaLaunchKernel`) that have no
+    device event of the same correlation id: kernels the profiler
+    dropped."""
+    cpu = torch.autograd.DeviceType.CPU
+    launched = {e.id for e in events if e.device_type == cpu
+                and e.name.startswith("cudaLaunchKernel")}
+    ran = {e.id for e in events if e.device_type != cpu}
+    return len(launched - ran)
+
+
+def profile_sites(step, steps: int, dev: torch.device, top: int,
+                  warmup=None) -> dict:
+    """Runs ``warmup()``, then ``step(t)`` for t < ``steps``, with the
+    call-site ranges on, under `torch.profiler`, whose warm-up phase
+    takes ``warmup()`` and drops its events (`warm_profile`); on the
+    card again, up to PROFILE_ATTEMPTS times, while the profile lacks a
+    launched kernel (`lost_launches`: the warm-up phase makes that rare,
+    not impossible), so ``warmup()`` must also start the steps' lineage
+    over. Returns {range: {"ms": a step, "top": [(op, ms a step)]}} with
+    device time on the card (`_kernels_by_site`) and host time on the
+    CPU, and "launches": the kernels a step launched in it on the card
+    (memory copies and sets left out, as `graph_busy` counts them; None
+    on the CPU); and the device ms a step no range holds (None on the
+    CPU)."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with call_sites(), warm_profile(dev, warmup) as prof:
+            for t in range(steps):
+                step(t)
+        events = prof.events()
+        lost = lost_launches(events) if dev.type == "cuda" else 0
+        if not lost:
+            break
+        print(f"# profile {attempt}: the profiler dropped {lost} of the "
+              f"steps' kernels; profiling them again")
     if dev.type == "cuda":
         launched = _kernels_by_site(events)
         per_site = {name: (sum(ms for _, ms in ks), ks)
                     for name, ks in launched.items()}
-        total = sum(e.time_range.elapsed_us() / 1e3 for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not e.name.startswith(SITE_PREFIXES))
+        total = sum(e.time_range.elapsed_us() / 1e3
+                    for e in device_events(prof, SITE_PREFIXES))
     else:
         per_site = {}
         for e in events:
@@ -237,17 +250,20 @@ def main(argv=None) -> dict:
             lambda: box.setdefault("state", scan(held)), T, dev)
         del box, held
     with graph.runner_eager():
-        # the runner's warm-up step runs outside the profile, on the
-        # lineage the profiled steps then start over on
-        gen.set_state(gen_start)
-        live = {"state": scan(copy.deepcopy(start), xs[:1])[0]}
-        gen.set_state(gen_start)
-        live["state"] = graph.restore_into(live["state"], start)
+        # the runner's warm-up step, in the profiler's warm-up phase, on
+        # the lineage the profiled steps then start over on
+        live = {}
+
+        def warmup():
+            gen.set_state(gen_start)
+            live["state"] = scan(copy.deepcopy(start), xs[:1])[0]
+            gen.set_state(gen_start)
+            live["state"] = graph.restore_into(live["state"], start)
 
         def step(t):
             live["state"] = scan(live["state"], xs[t:t + 1])[0]
 
-        sites, loop_busy = profile_sites(step, T, dev, args.top)
+        sites, loop_busy = profile_sites(step, T, dev, args.top, warmup)
     top_level = {k: v for k, v in sites.items() if "/" not in k}
     total = sum(v["ms"] for v in top_level.values())
     mode = "serve" if args.serve else ("learning" if learn else "inference")

@@ -23,7 +23,7 @@ import torch
 from .config import TMConfig
 from .ops import kernels
 from .ops.active_set import act_dtype, act_scale, pack_bits
-from .ops.regularization import boost, boost_factor, k_winners
+from .ops.regularization import sp_select
 from .ops.serving import SERVING_G_BITS
 
 
@@ -345,7 +345,8 @@ STEP_KERNELS = ("table_update", "act_conn", "act_frozen",
 def step_launches(sp_steps: int | None = None, **counts) -> dict:
     """The launch count of every kernel (`kernels.launch_counts`'s keys)
     after HTM steps that launched the given kernels ``counts``, every
-    other kernel 0: beside them one `sp_overlap` a step (``sp_steps``, by
+    other kernel 0: beside them one `sp_overlap` and one `sp_select` (the
+    boost, inhibition and duty-cycle EMA) a step (``sp_steps``, by
     default one for each launch of a kernel of STEP_KERNELS, as a step
     runs the SP once), one `column_decide` a step (the column decisions,
     which also write the active and winner cells' words), one
@@ -357,11 +358,14 @@ def step_launches(sp_steps: int | None = None, **counts) -> dict:
     matching flags; the other steps' come from `seg_counts`' flags form).
     A count given in ``counts`` overrides its default (a `tm_resume`
     launches one `act_conn`, one `seg_counts` and no `column_decide`; a
-    column shard's SP updates its rows without `sp_rows`)."""
+    column shard's SP updates its rows without `sp_rows` and selects its
+    columns without `sp_select`)."""
     n = sum(counts.get(k, 0) for k in STEP_KERNELS)
     learning = counts.get("table_update", 0)
     serving = counts.get("serving_activation", 0)
-    counts = {"sp_overlap": n if sp_steps is None else sp_steps,
+    sp = n if sp_steps is None else sp_steps
+    counts = {"sp_overlap": sp,
+              "sp_select": sp,
               "column_decide": n,
               "seg_counts": n - serving,
               "row_counts": learning,
@@ -387,9 +391,12 @@ def float_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def boost_agreement(duty_cycle: torch.Tensor, overlaps: torch.Tensor,
                     intensity: float, density: float, k: int,
                     device) -> dict:
-    """The SP's `boost_factor`, `boost` and `k_winners` computed on
-    ``device`` and on the CPU from the same (B, C) float32 duty cycles and
-    int32 overlaps, held to the contract of ROADMAP fault g: the factors
+    """The SP's boost factor, boosted overlaps and k winners as
+    `sp_select` computes them on ``device`` (the kernel on the card) and on
+    the CPU (its plain version: `boost_factor`, `boost`, `k_winners`) from
+    the same (B, C) float32 duty cycles and int32 overlaps (the factor as
+    the boosted value of an overlap of 1), held to the contract of ROADMAP
+    fault g: the factors
     within 1 ulp, the boosted overlaps within 2, and the same k-winner
     set in every stream whose top-k boundary gap (between the k-th and
     the (k+1)-th boosted value on the CPU) exceeds 4 ulp. Returns the
@@ -399,9 +406,10 @@ def boost_agreement(duty_cycle: torch.Tensor, overlaps: torch.Tensor,
     got = []
     for where in ("cpu", device):
         duty, ov = duty_cycle.to(where), overlaps.to(where)
-        factor = boost_factor(duty, intensity, density)
-        boosted = boost(ov, duty, intensity, density)
-        idx, mask = k_winners(boosted, k)
+        factor = sp_select(torch.ones_like(ov), duty, k, intensity, density,
+                           0.0)[0]
+        boosted, idx, mask, _ = sp_select(ov, duty, k, intensity, density,
+                                          0.0)
         got.append([t.cpu() for t in (factor, boosted, idx, mask)])
     (f_c, v_c, i_c, m_c), (f_d, v_d, i_d, m_d) = got
     top = torch.sort(v_c, dim=-1, descending=True).values
@@ -427,6 +435,37 @@ def boost_agreement(duty_cycle: torch.Tensor, overlaps: torch.Tensor,
                  and out["boosted_ulps"][">2"] == 0
                  and out["sets_differ"] == 0)
     return out
+
+
+# the SP's defaults (config.SPConfig): boosting intensity, duty-cycle momentum
+SELECT_INTENSITY, SELECT_MOMENTUM = 0.3, 0.99
+
+
+def select_inputs(seed: int, B: int, C: int, kind: str = "random",
+                  device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, C) int32 overlaps and float32 duty cycles for the SP's column
+    selection (`regularization.sp_select`), from a generator seeded with
+    ``seed`` on ``device``. "random": duty cycles uniform in [0, 0.06]
+    (one in ten 0) and overlaps binomial(200, 0.1) as a bench step's;
+    "ties": every duty cycle 0 (the first step) and overlaps 0-3, so that
+    each stream's top-A boundary falls inside a run of equal values;
+    "negative": overlaps in [-40, 40] (an overlap hook's), every seventh
+    column's duty cycle 1e4, whose factor is 0 and value -0.0 where its
+    overlap is negative."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    duty = torch.rand((B, C), generator=g, device=device) * 0.06
+    duty[torch.rand((B, C), generator=g, device=device) < 0.1] = 0.0
+    if kind == "ties":
+        duty.zero_()
+        ov = torch.randint(0, 4, (B, C), generator=g, device=device)
+    elif kind == "negative":
+        ov = torch.randint(-40, 41, (B, C), generator=g, device=device)
+        duty[:, ::7] = 1e4
+    else:
+        ov = torch.binomial(torch.full((B, C), 200.0, device=device),
+                            torch.full((B, C), 0.1, device=device),
+                            generator=g)
+    return ov.to(torch.int32), duty
 
 
 def run_ranks(commands: list[list[str]], log_dir: str, timeout: float,

@@ -20,7 +20,13 @@ their connected words in place, in the phase `check_sp_rows` at the SP
 of every learning path (bench, 16K x 64, the B=1 reference stack, both
 anomaly-stack layers), at 65,536 streams and past a block's input tile,
 on tables whose rows hold values past the rail and -0.0 and with a
-column listed twice, timed on disjoint columns a call; `column_decide`,
+column listed twice, timed on disjoint columns a call; `sp_select`, the
+SP's boost, top-A inhibition and duty-cycle EMA, in the phase
+`check_sp_select` at the SP of every path (bench, 16K x 64, anomaly, the
+B=1 reference), on tie-heavy streams, -0.0, C off a multiple of 4, A =
+1 and A = C, the keys and the winners' list in global memory and 65,536
+streams, the main ones also in a CUDA graph of 20 beside `torch.topk`
+(`check_boost` holds its factor to the CPU's); `column_decide`,
 the TM's column decisions (the winner selection, `_learn`'s flags and
 `_allocate`, with the active and winner cells' words), in the phase
 `check_column_decide` on the calls that eager steps from the learned
@@ -39,7 +45,7 @@ and that its CUDA run agrees bit for bit with its CPU run on a small
 input, then drives the main path: the bench configuration (2048 columns
 x 32 cells, G=4 x K=64, int16 SP, B=256 streams) through `htm_scan`, 768
 learning steps then inference, and checks that every kernel of that path
-was launched once a step (the table kernel, `sp_overlap`,
+was launched once a step (the table kernel, `sp_overlap`, `sp_select`,
 `column_decide`, `seg_counts` and at learning `row_counts`,
 `grow_select`, `learn_rows` and `sp_rows`; `pack_bits` once a packed
 serving step and at no other step;
@@ -158,6 +164,7 @@ from bithtm_tpu_torch.models import temporal_memory as ptm
 from bithtm_tpu_torch.models.htm import _scan_impl, _step_metrics
 from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
+from bithtm_tpu_torch.ops import regularization as preg
 from bithtm_tpu_torch.ops import serving as psv
 from bithtm_tpu_torch.ops.bitops import popcount32
 from bithtm_tpu_torch.ops.overlap import (input_words, overlaps, pack_input,
@@ -166,6 +173,7 @@ from bithtm_tpu_torch.parallel import mesh as pmesh
 from bithtm_tpu_torch import testing
 from bithtm_tpu_torch.testing import serving_rows, table_inputs
 from bithtm_tpu_torch.testing import step_launches as steps
+from bithtm_tpu_torch.utils.profiling import device_events, warm_profile
 
 BENCH = dict(input_dim=1000, column_dim=2048, cell_dim=32,
              segments_per_column=4, synapse_capacity=64,
@@ -219,6 +227,7 @@ SOURCES = {
     "learn_rows": "bithtm_tpu_torch/csrc/learn_pass.cu",
     "column_decide": "bithtm_tpu_torch/csrc/decide_pass.cu",
     "pack_bits": "bithtm_tpu_torch/csrc/pack_pass.cu",
+    "sp_select": "bithtm_tpu_torch/csrc/select_pass.cu",
 }
 REPLACES = {
     "table_update": "bithtm_tpu/ops/pallas_kernels.py:489",
@@ -238,6 +247,8 @@ REPLACES = {
     # `_winner_selection`, `_allocate` and `_learn`'s decisions
     "column_decide": "bithtm_tpu/models/temporal_memory.py:106,164,501",
     "pack_bits": "bithtm_tpu/ops/active_set.py:85",
+    # `boost`, `duty_cycle_update` and `k_winners`
+    "sp_select": "bithtm_tpu/ops/regularization.py:20,28,37",
 }
 
 
@@ -1364,6 +1375,102 @@ def check_sp_rows(dev) -> tuple[dict, dict]:
     return main, rows
 
 
+# `sp_select` at the SP of every path (tag: B, C, A, the inputs'
+# kind of `testing.select_inputs`): the bench (and the reference stack at
+# B=256), 16K x 64, the anomaly stack's two layers (512 columns, A=16)
+# and the single-stream reference; past them: tie-heavy streams (the
+# first step: every duty cycle 0, overlaps 0-3) at the bench and 16K,
+# negative overlaps with -0.0, C off a multiple of 4, A = 1 and A = C,
+# the keys in global memory (C past 16,384), the winners' list in global
+# memory (A = C = 30,000) and 65,536 streams
+SELECT_MAIN = {
+    "bench": (BATCH, 2048, 41, "random"),
+    "16k": (BATCH_16K, 16384, 328, "random"),
+    "anomaly": (BATCH, 512, 16, "random"),
+    "reference B=1": (1, 2048, 41, "random"),
+}
+SELECT_PATHS = {
+    "bench ties": (BATCH, 2048, 41, "ties"),
+    "16k ties": (BATCH_16K, 16384, 328, "ties"),
+    "negative": (BATCH, 2048, 41, "negative"),
+    "C=37": (2, 37, 5, "random"),
+    "C=250 A=1": (2, 250, 1, "random"),
+    "C=250 A=C": (2, 250, 250, "ties"),
+    "global keys": (4, 20_000, 400, "random"),
+    "global list": (2, 30_000, 30_000, "random"),
+    "B=65536": (65_536, 64, 5, "random"),
+}
+
+
+def sp_select_row(tag: str, geo: tuple, dev, graph: bool = True) -> dict:
+    """`sp_select` at ``geo`` through its dispatcher against
+    `sp_select_ref` on the card, on the same inputs: the boosted values,
+    the winners in order, the mask and the new duty cycles bit for bit,
+    one launch, the path the shapes choose. Timed (CUDA events over 20
+    calls, and with ``graph`` in a CUDA graph of 20) beside the plain
+    version, its bound (the overlaps and duty cycles read once, the four
+    outputs written once) and `torch.topk(boosted, A)`, the nearest
+    PyTorch call (a top-A with no tie order, no boost and no EMA)."""
+    B, C, A, kind = geo
+    ov, duty = testing.select_inputs(B + C + A, B, C, kind, device=dev)
+    args = (A, testing.SELECT_INTENSITY, A / C, testing.SELECT_MOMENTUM)
+    before = kernels.SP_SELECT.launches
+    got = preg.sp_select(ov, duty, *args)
+    n = kernels.SP_SELECT.launches - before
+    want = preg.sp_select_ref(ov, duty, *args)
+    torch.cuda.synchronize()
+    at = f"B={B} C={C} A={A} {kind}, {tag}"
+    require(n == 1, f"sp_select at {at} launches its kernel once, got {n}")
+    require(all(same_bits(g, w) for g, w in zip(got, want)),
+            f"sp_select == plain at {at}, bit for bit")
+    path = kernels._select_path(C, A)
+    require(kernels.SP_SELECT.path == path, f"sp_select at {at} takes "
+            f"{path}, got {kernels.SP_SELECT.path}")
+    boosted = want[0]
+    if kind == "negative":
+        require(bool(((boosted == 0) & torch.signbit(boosted)).any()),
+                f"-0.0 among the boosted values at {at}")
+    if kind == "ties" and A < C:
+        top = torch.sort(boosted, -1, descending=True).values
+        require(bool((top[:, A - 1] == top[:, A]).all()),
+                f"every stream's top-A boundary is a tie at {at}")
+    del got, want
+    moved = nbytes(ov, duty) + 2 * nbytes(boosted) + B * C + 4 * B * A
+    row = kernel_row(f"sp_select [{'+'.join(path)}]",
+                     lambda: preg.sp_select(ov, duty, *args),
+                     lambda: preg.sp_select_ref(ov, duty, *args), moved, at,
+                     library=lambda: torch.topk(boosted, A), path=list(path))
+    if graph:
+        row["graph_ms"] = graph_ms(lambda: preg.sp_select(ov, duty, *args))
+        row["library_graph_ms"] = graph_ms(lambda: torch.topk(boosted, A))
+        print(f"  sp_select in a CUDA graph of 20 calls: "
+              f"{row['graph_ms']:.4f} ms a call; torch.topk "
+              f"{row['library_graph_ms']:.4f}")
+    return row
+
+
+def check_sp_select(dev) -> tuple[dict, dict]:
+    """`sp_select`, the SP's boost, top-A inhibition and duty-cycle EMA
+    (`sp_select_row`), at the SP of every path, each also in a CUDA graph
+    of 20 calls, and on the paths past them. Returns (the bench row, the
+    other main rows under their tags; {case: row} of every row)."""
+    bench = bt.make_htm_config(**BENCH).sp
+    require(SELECT_MAIN["bench"][1:3] == (bench.column_dim,
+                                          bench.active_columns)
+            and (bench.boosting_intensity, bench.duty_cycle_momentum) == (
+                testing.SELECT_INTENSITY, testing.SELECT_MOMENTUM),
+            "SELECT_MAIN['bench'] is the configuration's SP")
+    rows = {}
+    for geos, graph in ((SELECT_MAIN, True), (SELECT_PATHS, False)):
+        for tag, geo in geos.items():
+            rows[tag] = sp_select_row(tag, geo, dev, graph)
+            torch.cuda.empty_cache()
+    main = dict(rows["bench"])
+    main.update({tag: row for tag, row in rows.items()
+                 if tag in SELECT_MAIN and tag != "bench"})
+    return main, rows
+
+
 def growth_keys(Wc: int, shape, g: torch.Generator, dev):
     """Index-keyed growth keys over a list of Wc candidates, as `_grow`
     makes them above 2^16 cells: random bits above the list index, 15%
@@ -1638,13 +1745,15 @@ def check_cpu_agreement(dev) -> None:
 
 def check_boost(dev, sp, xs) -> None:
     """ROADMAP fault k: the SP's boost factor, boosted overlaps and
-    k-winner sets on the card against the CPU from the same inputs, at the
-    bench shapes (B=256, C=2048, A=41, boosting intensity 0.3, density
-    41/2048), held to fault g's contract (`testing.boost_agreement`):
-    duty cycles drawn from a seeded generator (uniform in [0, 3 x
-    density], 10% at 0) with binomial overlaps, and the learned state's
-    own duty cycles with the overlaps of its next input. Prints how many
-    values are 0, 1 and 2 ulp apart and how many streams are near-ties."""
+    k-winner sets on the card (the `sp_select` kernel, the factor as the
+    boosted value of an overlap of 1) against the CPU (its plain version)
+    from the same inputs, at the bench shapes (B=256, C=2048, A=41,
+    boosting intensity 0.3, density 41/2048), held to fault g's contract
+    (`testing.boost_agreement`): duty cycles drawn from a seeded
+    generator (uniform in [0, 3 x density], 10% at 0) with binomial
+    overlaps, and the learned state's own duty cycles with the overlaps
+    of its next input. Prints how many values are 0, 1 and 2 ulp apart
+    and how many streams are near-ties."""
     cfg = bt.make_htm_config(**BENCH).sp
     B, C, A = BATCH, cfg.column_dim, cfg.active_columns
     rng = np.random.default_rng(7)
@@ -1659,7 +1768,8 @@ def check_boost(dev, sp, xs) -> None:
     for name, (d, ov) in cases.items():
         got = testing.boost_agreement(d, ov, cfg.boosting_intensity,
                                       cfg.density, A, dev)
-        print(f"boost on the card vs the CPU, {name} (B={B}, C={C}, A={A}, "
+        print(f"boost on the card (sp_select) vs the CPU, {name} (B={B}, "
+              f"C={C}, A={A}, "
               f"intensity {cfg.boosting_intensity}): factor ulps "
               f"{got['factor_ulps']}, boosted ulps {got['boosted_ulps']} of "
               f"{got['values']} values; {got['near_ties']} of {got['streams']}"
@@ -2165,7 +2275,7 @@ def run_entry_points(cfg, state, xs) -> dict:
             "synapse_activation on live slots == the state's activity")
     require(launches == only(sp_update_pack=ENTRY_STEPS,
                              sp_overlap=ENTRY_STEPS, sp_rows=ENTRY_STEPS,
-                             synapse_activation=1),
+                             sp_select=ENTRY_STEPS, synapse_activation=1),
             f"the entry points launch their kernels, got {launches}")
     print(f"entry points on the learned bench state: {ENTRY_STEPS} SP "
           f"learning steps == sp_update_pack over the whole table; "
@@ -2226,20 +2336,19 @@ PORT_KERNELS = ("table_pass_kernel", "word_range_kernel", "word_pass_kernel",
 
 
 def device_profile(run, n: int, top: int) -> tuple[float, float]:
-    """torch.profiler over ``run()``, which takes n steps: prints the top
-    device ops a step, then the port's own kernels outside the top, and
-    returns (device busy ms, kernel launches) a step."""
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA], acc_events=True) as prof:
+    """torch.profiler over ``run()``, which takes n steps, after a
+    warm-up phase (`warm_profile`: a session's first launches go
+    unrecorded): prints the top device ops a step, then the port's own
+    kernels outside the top, and returns (device busy ms, kernel
+    launches) a step."""
+    with warm_profile(torch.device("cuda", torch.cuda.current_device())
+                      ) as prof:
         run()
-        torch.cuda.synchronize()
     per_op: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            c = per_op.setdefault(e.name, [0, 0.0])
-            c[0] += 1
-            c[1] += e.time_range.elapsed_us() / 1e3
+    for e in device_events(prof):
+        c = per_op.setdefault(e.name, [0, 0.0])
+        c[0] += 1
+        c[1] += e.time_range.elapsed_us() / 1e3
     busy = sum(c[1] for c in per_op.values()) / n
     launches = sum(c[0] for name, c in per_op.items()
                    if not name.startswith(("Memcpy", "Memset"))) / n
@@ -2962,19 +3071,22 @@ def run_parallel(dev, learned16, bench_path: str, tmp: str) -> dict:
         check_parallel_run(what, job, ranks, ref, ref_m)
         n_model = job["mesh"][1]
         # a column shard's SP writes back its own rows without `sp_rows`
-        want = dict(ref_counts[0], **({"sp_rows": 0} if n_model > 1
-                                      else {}))
+        # and selects its columns with the torch chain, without `sp_select`
+        whole = {} if n_model == 1 else {"sp_rows": 0, "sp_select": 0}
+        want = dict(ref_counts[0], **whole)
         for r in ranks:
             require(r["learn_launches"] == want,
                     f"{what}: rank {r['rank']} launches each kernel as the "
-                    f"unsharded step does while learning, `sp_rows` only "
-                    f"where the SP is whole ({r['learn_launches']} vs "
-                    f"{want})")
+                    f"unsharded step does while learning, `sp_rows` and "
+                    f"`sp_select` only where the SP is whole "
+                    f"({r['learn_launches']} vs {want})")
             if job["serve"]:
-                require(r["serve_launches"] == steps(act_conn=job["serve"]),
+                require(r["serve_launches"] == dict(
+                    steps(act_conn=job["serve"]), **whole),
                         f"{what}: rank {r['rank']} launches act_conn, "
-                        f"sp_overlap and seg_counts once a serving step and "
-                        f"nothing else")
+                        f"sp_overlap, seg_counts, column_decide and, where "
+                        f"the SP is whole, sp_select once a serving step "
+                        f"and nothing else")
             if n_model == 1:
                 require(r["learn_collectives_per_step"] == 0,
                         f"{what}: no exchange during a data-parallel step")
@@ -3440,8 +3552,8 @@ def run_profile(graph_launches: float) -> dict:
     `run_graph_bench`). Then at 16K x 64 (B=64, tuned caps, warmed 256
     steps). At both, the range `_learn/_grow` launches at most
     GROW_RANGE_LAUNCHES kernels a step, `_learn/learn_rows` one,
-    `tm_step.column_decide` one, `column_decide`, and `sp_step.update`
-    at most one, `sp_rows`.
+    `tm_step.column_decide` one, `column_decide`, `sp_step.update`
+    at most one, `sp_rows`, and `sp_step.select` one, `sp_select`.
     Returns the bench profile, the
     16K one under "16k"."""
     from bithtm_tpu_torch.scripts import profile_step
@@ -3476,10 +3588,16 @@ def run_profile(graph_launches: float) -> dict:
             "sp_rows_kernel" in op for op, _ in prof["top"][sp_site]),
             f"{sp_site} launches sp_rows alone, got "
             f"{prof['launches'][sp_site]}: {prof['top'][sp_site]}")
+        select_site = "sp_step.select"
+        require(prof["launches"][select_site] == 1 and all(
+            "sp_select_kernel" in op for op, _ in prof["top"][select_site]),
+            f"{select_site} launches sp_select alone, got "
+            f"{prof['launches'][select_site]}: {prof['top'][select_site]}")
         print(f"profile {tag}: {site} {prof['sites'][site]:.3f} ms and "
               f"{n:.1f} launches a step; {pass_site} "
               f"{prof['sites'][pass_site]:.3f} ms; {decide_site} "
-              f"{prof['sites'][decide_site]:.3f} ms")
+              f"{prof['sites'][decide_site]:.3f} ms; {select_site} "
+              f"{prof['sites'][select_site]:.3f} ms")
     return out
 
 
@@ -4119,6 +4237,8 @@ def main() -> None:
     phase("check_grow_and_pack")
     checks["sp_rows"], path_rows["sp_rows"] = check_sp_rows(dev)
     phase("check_sp_rows")
+    checks["sp_select"], path_rows["sp_select"] = check_sp_select(dev)
+    phase("check_sp_select")
     check_learning(dev)
     check_cpu_agreement(dev)
     launches, snap, _, (state, gen, serve_xs) = run_main_path(dev)

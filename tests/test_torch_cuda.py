@@ -20,6 +20,7 @@ from bithtm_tpu_torch.models import temporal_memory as ptm
 from bithtm_tpu_torch.ops import active_set as pas
 from bithtm_tpu_torch.ops import kernels
 from bithtm_tpu_torch.ops import overlap as pov
+from bithtm_tpu_torch.ops import regularization as preg
 from bithtm_tpu_torch.ops import serving as psv
 from bithtm_tpu_torch import testing
 from bithtm_tpu_torch.testing import (boost_agreement, serving_rows,
@@ -1698,9 +1699,9 @@ def test_sp_rows_takes_no_or_one_column(A, cuda):
 
 @pytest.mark.cuda
 def test_sp_step_launches_sp_rows_once_a_learning_step(cuda):
-    """A learning `sp_step` launches `sp_overlap` and `sp_rows` once
-    each and equals the CPU's step; an inference step launches no
-    `sp_rows`; a column shard's step keeps its own update (no
+    """A learning `sp_step` launches `sp_overlap`, `sp_select` and
+    `sp_rows` once each and equals the CPU's step; an inference step
+    launches no `sp_rows`; a column shard's step keeps its own update (no
     `sp_rows`)."""
     hcfg = bt.make_htm_config(1000, 2048, 32, active_columns=41,
                               sp_overrides={"permanence_dtype": "int16"})
@@ -1714,7 +1715,7 @@ def test_sp_step_launches_sp_rows_once_a_learning_step(cuda):
     before = kernels.launch_counts()
     got, _ = psp.sp_step(hcfg.sp, on, x.to(cuda), True)
     torch.cuda.synchronize()
-    assert launched(before) == only(sp_overlap=1, sp_rows=1)
+    assert launched(before) == only(sp_overlap=1, sp_rows=1, sp_select=1)
     want, _ = psp.sp_step(hcfg.sp, state, x, True)
     for f in dataclasses.fields(want):
         assert torch.equal(getattr(got, f.name).cpu(),
@@ -1722,7 +1723,7 @@ def test_sp_step_launches_sp_rows_once_a_learning_step(cuda):
     before = kernels.launch_counts()
     psp.sp_step(hcfg.sp, got, x.to(cuda), False)
     torch.cuda.synchronize()
-    assert launched(before) == only(sp_overlap=1)
+    assert launched(before) == only(sp_overlap=1, sp_select=1)
 
 
 def _table_update_into(x, act_prev, v_out, D, K, path_global):
@@ -1817,3 +1818,78 @@ def test_loop_step_writes_the_state_buffers_on_the_card(learning, cuda):
     want = (steps(table_update=2) if learning else steps(act_conn=2))
     assert launched(before) == want
     assert want["sp_rows"] == (2 if learning else 0)
+
+
+# ---- the SP's column selection (csrc/select_pass.cu sp_select): B, C, A
+# and the inputs' kind (`testing.select_inputs`) at the SP of each path,
+# tie-heavy streams, -0.0, C off a multiple of 4, A = 0, 1 and C, each
+# thread count and key count, the keys and the winners' list in global
+# memory, and 65,536 streams
+
+SELECT_SHAPES = {
+    "bench": (256, 2048, 41, "random"),
+    "16k": (64, 16384, 328, "random"),
+    "anomaly": (256, 512, 16, "random"),
+    "reference B=1": (1, 2048, 41, "random"),
+    "bench ties": (8, 2048, 41, "ties"),
+    "16k ties": (2, 16384, 328, "ties"),
+    "negative": (8, 2048, 41, "negative"),
+    "C=37": (3, 37, 5, "random"),
+    "C=250 A=1": (2, 250, 1, "random"),
+    "C=250 A=C": (2, 250, 250, "ties"),
+    "C=37 A=0": (2, 37, 0, "random"),
+    "C=4096": (2, 4096, 80, "random"),
+    "C=9001": (2, 9001, 180, "ties"),
+    "global keys": (2, 20_000, 400, "random"),
+    "global keys ties": (2, 20_000, 400, "ties"),
+    "global list": (1, 30_000, 30_000, "random"),
+    "B=65536": (65_536, 64, 5, "random"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SELECT_SHAPES))
+def test_sp_select_matches_plain(case, cuda):
+    """`sp_select` on the card (one launch of its kernel, on the path its
+    shapes choose) == `sp_select_ref` on the card, bit for bit: the
+    boosted values, the winners in order, the mask and the new duty
+    cycles; the duty cycles given keep their values."""
+    B, C, A, kind = SELECT_SHAPES[case]
+    ov, duty = testing.select_inputs(B + C + A, B, C, kind, device=cuda)
+    args = (A, testing.SELECT_INTENSITY, max(A, 1) / C,
+            testing.SELECT_MOMENTUM)
+    kept = duty.clone()
+    before = kernels.launch_counts()
+    got = preg.sp_select(ov, duty, *args)
+    want = preg.sp_select_ref(ov, duty, *args)
+    torch.cuda.synchronize()
+    assert launched(before) == only(sp_select=1)
+    assert kernels.SP_SELECT.path == kernels._select_path(C, A)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+    assert torch.equal(duty, kept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["dtype", "shape", "k", "align"])
+def test_sp_select_rejects_bad_inputs(bad, cuda):
+    """The `sp_select` wrapper raises on int64 overlaps, duty cycles of
+    another shape, more winners than columns and a misaligned tensor,
+    and launches nothing."""
+    ov, duty = testing.select_inputs(1, 2, 64, device=cuda)
+    k = 5
+    if bad == "dtype":
+        ov = ov.long()
+    elif bad == "shape":
+        duty = duty[:, :32].contiguous()
+    elif bad == "k":
+        k = 65
+    else:
+        flat = torch.empty(ov.numel() + 1, dtype=torch.int32, device=cuda)
+        ov = flat[1:].view(ov.shape)
+    before = kernels.launch_counts()
+    with pytest.raises((TypeError, ValueError)):
+        kernels.sp_select_cuda(ov, duty, k, *preg.select_scalars(
+            0.3, 5 / 64, 0.99))
+    assert launched(before) == only()

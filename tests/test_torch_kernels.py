@@ -389,7 +389,8 @@ def test_overlap_and_count_wrappers_check_shapes(bad):
 
 
 def test_step_launches_count_the_overlap_and_the_decode():
-    """An HTM step launches its table kernel, one `sp_overlap` and, after
+    """An HTM step launches its table kernel, one `sp_overlap`, one
+    `sp_select` and, after
     every kernel that writes the packed activity, one `seg_counts`, and
     a learning step one `sp_rows` (`testing.step_launches`, which the
     card's checks compare exactly); on CPU tensors the dispatchers launch
@@ -402,6 +403,8 @@ def test_step_launches_count_the_overlap_and_the_decode():
     assert step_launches(serving_activation=4)["seg_counts"] == 0
     assert step_launches(serving_activation=4)["sp_overlap"] == 4
     assert step_launches(act_conn=1, sp_steps=0)["sp_overlap"] == 0
+    assert got["sp_select"] == got["sp_overlap"] == 7
+    assert step_launches(act_conn=1, sp_steps=0)["sp_select"] == 0
     assert got["sp_rows"] == 5
     assert step_launches(act_conn=3)["sp_rows"] == 0
     assert step_launches(table_update=2, sp_rows=0)["sp_rows"] == 0

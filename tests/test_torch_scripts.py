@@ -106,9 +106,8 @@ def test_profile_step_reports_each_call_site(capsys):
                              "--input_dim", "64", "--trace_steps", "2"])
     assert printed_report(capsys)["sites"] == out["sites"]
     assert out["time"] == "cpu" and out["graph_busy_ms"] is None
-    for site in ("sp_step.overlap", "sp_step.boost", "sp_step.k_winners",
-                 "sp_step.update", "tm_step.row_counts",
-                 "tm_step.column_decide",
+    for site in ("sp_step.overlap", "sp_step.select", "sp_step.update",
+                 "tm_step.row_counts", "tm_step.column_decide",
                  "tm_step._learn", "tm_step._learn/_grow",
                  "tm_step._learn/learn_rows",
                  "tm_step.table_pass", "tm_step.count_decode",
@@ -118,6 +117,55 @@ def test_profile_step_reports_each_call_site(capsys):
     assert "tm_step.prediction_words" not in out["sites"]
     top = sum(ms for name, ms in out["sites"].items() if "/" not in name)
     assert out["ranges_ms"] == pytest.approx(top)
+
+
+def test_lost_launches_counts_kernels_with_no_device_event():
+    """`profile_step.lost_launches`: a host `cudaLaunchKernel` whose
+    correlation id no device event carries is a kernel the profiler
+    dropped (profile_step then profiles the steps again); other runtime
+    calls and launches that ran count for nothing."""
+    import types
+
+    cpu = torch.autograd.DeviceType.CPU
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def event(name, device, i):
+        return types.SimpleNamespace(name=name, device_type=device, id=i)
+
+    ran = [event("cudaLaunchKernel", cpu, 1), event("table_pass", cuda, 1),
+           event("cudaMemcpyAsync", cpu, 2), event("Memcpy DtoD", cuda, 2),
+           event("cudaStreamIsCapturing", cpu, 3)]
+    assert profile_step.lost_launches(ran) == 0
+    dropped = ran + [event("cudaLaunchKernel", cpu, 4),
+                     event("cudaLaunchKernelExC", cpu, 5)]
+    assert profile_step.lost_launches(dropped) == 2
+
+
+def test_device_events_keep_the_work_the_profile_issued():
+    """`utils.profiling.device_events`: device events whose host runtime
+    call (launch, copy, graph launch) is in the profile, less the names
+    skipped; a device event with no such call (the warm-up phase's work
+    that outlasted it, the profiler's step ranges) is left out."""
+    import types
+
+    from bithtm_tpu_torch.utils.profiling import device_events
+
+    cpu = torch.autograd.DeviceType.CPU
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def event(name, device, i):
+        return types.SimpleNamespace(name=name, device_type=device, id=i)
+
+    events = [
+        event("cudaLaunchKernel", cpu, 1), event("table_pass", cuda, 1),
+        event("cudaGraphLaunch", cpu, 2), event("sp_select", cuda, 2),
+        event("seg_flags", cuda, 2), event("cudaMemcpyAsync", cpu, 3),
+        event("Memcpy DtoD", cuda, 3), event("gemm", cuda, 4),
+        event("ProfilerStep#1", cpu, 5), event("ProfilerStep#1", cuda, 5),
+        event("cudaLaunchKernel", cpu, 6), event("sp_step.select", cuda, 6)]
+    prof = types.SimpleNamespace(events=lambda: events)
+    names = [e.name for e in device_events(prof, ("sp_step.",))]
+    assert names == ["table_pass", "sp_select", "seg_flags", "Memcpy DtoD"]
 
 
 def test_call_site_ranges_change_no_bit():
@@ -236,11 +284,11 @@ def test_grow_variants_patch_the_current_source():
 
 
 @pytest.mark.parametrize("kernel", ["learn_rows", "seg_flags",
-                                    "column_decide"])
+                                    "column_decide", "sp_select"])
 def test_variants_patch_the_studied_source(kernel):
-    """Every variant of the `learn_rows`, flags-form and `column_decide`
-    studies finds the text it patches in its source, so none silently
-    times the unpatched kernel."""
+    """Every variant of the `learn_rows`, flags-form, `column_decide` and
+    `sp_select` studies finds the text it patches in its source, so none
+    silently times the unpatched kernel."""
     source, variants, _ = grow_variants.STUDIES[kernel]
     src = (kernels.CSRC / source).read_text()
     for name, patches in variants.items():
