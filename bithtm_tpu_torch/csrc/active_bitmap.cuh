@@ -243,15 +243,16 @@ struct Grid {
 // (kThreads) and `wide` (kWideThreads), holding `smem` bytes of bitmap:
 // the narrow block where kMinResidentThreads or more of its threads fit
 // on an SM, else the wide one, so that one block an SM (the 128 KB
-// bitmap) still keeps enough loads in flight; and kWaves x (SMs x
-// resident blocks an SM) blocks. Queried once per (kernel, device, smem)
-// and cached; the cache holds kEntries pairs (the four table and word
-// kernels' variants at two or three bitmap sizes fill about 14) and a
-// miss only queries again. The caller has made `device` current. Returns
+// bitmap) still keeps enough loads in flight; and `waves` (default
+// kWaves) x (SMs x resident blocks an SM) blocks. Queried once per
+// (kernel, device, smem) and cached; the cache holds kEntries pairs (the
+// four table and word kernels' variants at two or three bitmap sizes
+// fill about 14, `serving_counts`' about 8 more) and a miss only
+// queries again. The caller has made `device` current. Returns
 // a cudaError_t as int (0 = success).
 template <typename Kernel>
 int range_grid(Kernel narrow, Kernel wide, size_t smem, int device,
-                    Grid* grid) {
+               Grid* grid, int waves = kWaves) {
   struct Entry {
     const void* kernel;
     int device;
@@ -293,7 +294,7 @@ int range_grid(Kernel narrow, Kernel wide, size_t smem, int device,
     if (err != cudaSuccess) return (int)err;
   }
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  g.blocks = kWaves * sms * per_sm;
+  g.blocks = waves * sms * per_sm;
   cache[used % kEntries] = Entry{key, device, smem, g};
   ++used;
   *grid = g;

@@ -78,7 +78,7 @@ from ..ops.active_set import (
     unpack_bits,
 )
 from ..ops.bitops import lsr32, popcount32
-from ..ops.serving import ServingTable, serving_counts
+from ..ops.serving import ServingTable, serving_flags
 from ..ops.shard import ColumnShard
 from ..rng import Draws
 from ..state import TMState
@@ -951,13 +951,12 @@ def tm_step(cfg: TMConfig, state: TMState, draws: Draws | None,
         perm_full, seg_cell, learn_metrics = (
             state.synapse_perm, state.seg_cell, {})
         with site("tm_step.serving_counts"):
-            conn_cnt = serving_counts(serving_table, active_cols, act_bits, C,
-                                      D, G)                         # (B, C, G)
-        with site("tm_step.prediction_words"):
-            matching = conn_cnt >= cfg.segment_matching_threshold
-            seg_active = conn_cnt >= cfg.segment_activation_threshold
-            prediction = prediction_words(seg_cell, seg_active, D)
-            matching_word = pack_bits(matching)[..., 0]           # G <= 32
+            # the counts' thresholds as the matching word and the
+            # prediction words, in the table pass itself
+            matching_word, prediction = serving_flags(
+                serving_table, active_cols, act_bits, seg_cell, C, D,
+                cfg.segment_matching_threshold,
+                cfg.segment_activation_threshold)
         act_now = state.synapse_act                   # passed through, stale
     else:
         # inference: the tables are frozen; only the forward pass runs

@@ -2,10 +2,10 @@
 
 The sources in `csrc/` (`table_pass.cu`, `serving_pass.cu`,
 `small_take.cu`, `sp_pass.cu`, `overlap_pass.cu`, `count_pass.cu`,
-`grow_pass.cu`, `learn_pass.cu`, `decide_pass.cu` and `pack_pass.cu`; all
-include `launch.cuh`,
-`table_pass.cu`, `serving_pass.cu` and `sp_pass.cu` also
-`active_bitmap.cuh`) are compiled on first use with
+`grow_pass.cu`, `learn_pass.cu`, `decide_pass.cu`, `pack_pass.cu`,
+`select_pass.cu` and `serving_count_pass.cu`; all include `launch.cuh`,
+`table_pass.cu`, `serving_pass.cu`, `sp_pass.cu` and
+`serving_count_pass.cu` also `active_bitmap.cuh`) are compiled on first use with
 ``nvcc`` for ``sm_90a``, one process per source started together, and
 linked into a plain-C shared library under ``bithtm_tpu_torch/_build``
 (keyed by a hash of the sources and flags), loaded with ctypes. Nothing
@@ -13,13 +13,14 @@ here runs when the module is imported.
 
 Each wrapper first chooses its kernel's path from the shapes alone
 (`_bitmap`, `_streams`, `_act_bytes`, `_delta`, `_grow_keys`,
-`_rows_mode`, `_fill_path`, `_pack_path`, `_select_path`, the
-decisions' mode: the
+`_rows_mode`, `_fill_path`, `_pack_path`, `_select_path`,
+`_segment_regs`, the decisions' mode: the
 bitmap in shared or in
 global memory, the packed activity's type, the streams in grid y or
 folded into grid x, the SP delta row staged or read from global memory,
 the growth keys' form and where they live, where the SP's selection
-keeps its keys and its winners, whether the active rows are
+keeps its keys and its winners, the registers a lane tallies a
+compact serving row's segments in, whether the active rows are
 read where they lie in the tables or from gathered rows, how the fill
 reads its cells, the pack's loads; README.md, port section) and
 reports it (`CudaKernel.path`) before any tensor is read. Only the
@@ -58,7 +59,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("table_pass.cu", "serving_pass.cu", "small_take.cu",
            "sp_pass.cu", "overlap_pass.cu", "count_pass.cu", "grow_pass.cu",
            "learn_pass.cu", "decide_pass.cu", "pack_pass.cu",
-           "select_pass.cu")
+           "select_pass.cu", "serving_count_pass.cu")
 HEADERS = ("active_bitmap.cuh", "launch.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -124,14 +125,19 @@ _ARGTYPES = {
     # ov, duty, boosted, cols, mask, duty_out, list, B, C, A, scale,
     # momentum, one_minus
     "sp_select": [_VP] * 7 + [_I] * 3 + [_F] * 3 + [_I, _VP],
+    # rows, ext_col, cols, bits, seg_cell, bitmaps, counts, matching_word,
+    # prediction, B, R, E, A, W, C, D, G, theta_m, theta_a
+    "serving_counts": [_VP] * 9 + [_I] * 10 + [_I, _VP],
 }
 # the grid queries of the row-range kernels, which launch nothing:
 # table_pass_grid (punish, C, J, D, global, act_bytes, device, blocks
 # out, threads out), word_pass_grid (serving, C, J, D, global, device,
-# blocks out, threads out)
+# blocks out, threads out), serving_counts_grid (C, D, G, global, flags,
+# device, blocks out, threads out)
 _GRID_ARGTYPES = {
     "table_pass_grid": [_I] * 7 + [ctypes.POINTER(_I)] * 2,
     "word_pass_grid": [_I] * 6 + [ctypes.POINTER(_I)] * 2,
+    "serving_counts_grid": [_I] * 6 + [ctypes.POINTER(_I)] * 2,
 }
 
 
@@ -255,10 +261,11 @@ LEARN_ROWS = CudaKernel("learn_rows")
 COLUMN_DECIDE = CudaKernel("column_decide")
 PACK_BITS = CudaKernel("pack_bits")
 SP_SELECT = CudaKernel("sp_select")
+SERVING_COUNTS = CudaKernel("serving_counts")
 KERNELS = (TABLE_UPDATE, ACT_CONN, SERVING_ACTIVATION, ACT_FROZEN,
            SYNAPSE_ACTIVATION, SMALL_TABLE_TAKE, SP_UPDATE_PACK, SP_ROWS,
            SP_OVERLAP, SEG_COUNTS, GROW_SELECT, ROW_COUNTS, LEARN_ROWS,
-           COLUMN_DECIDE, PACK_BITS, SP_SELECT)
+           COLUMN_DECIDE, PACK_BITS, SP_SELECT, SERVING_COUNTS)
 
 
 def launch_counts() -> dict[str, int]:
@@ -316,6 +323,19 @@ def word_pass_grid(serving: bool, C: int, J: int, cell_dim: int,
     path = (_bitmap(C, cell_dim),)
     blocks, threads = _grid("word_pass_grid", int(serving), C, J, cell_dim,
                             int(path[0] == "global"), device)
+    return blocks, threads, path
+
+
+def serving_counts_grid(flags: bool, C: int, cell_dim: int, G: int,
+                        device: int = 0) -> tuple[int, int, tuple[str, ...]]:
+    """(blocks, threads a block, path) of the row-range grid that
+    `serving_counts` launches on card ``device`` for G segments over
+    C*cell_dim cells, in its flags form (``flags``) or counts form; the
+    path is the wrappers' (bitmap, form, tally)."""
+    path = (_bitmap(C, cell_dim), "flags" if flags else "counts",
+            _segment_regs(G))
+    blocks, threads = _grid("serving_counts_grid", C, cell_dim, G,
+                            int(path[0] == "global"), int(flags), device)
     return blocks, threads, path
 
 
@@ -445,6 +465,13 @@ def _select_path(C: int, A: int) -> tuple[str, str]:
     to SELECT_LIST_BYTES, else "global", in a (B, A) int64 scratch."""
     return ("regs" if C <= SELECT_REG_COLUMNS else "global",
             "smem" if 8 * A <= SELECT_LIST_BYTES else "global")
+
+
+def _segment_regs(G: int) -> str:
+    """`serving_counts`' tally at G segments: "g4", "g8", "g16" or "g32",
+    the byte fields (four a register) in which a lane counts a row's
+    words by segment before the warp sums them."""
+    return next(f"g{n}" for n in (4, 8, 16, 32) if G <= n)
 
 
 def _bitmap_scratch(path: str, B: int, C: int, cell_dim: int, device):
@@ -580,6 +607,86 @@ def serving_activation_cuda(rows, cols, bits, column_dim: int,
                               B, R, A, W, column_dim, cell_dim, dev,
                               _stream(dev))
     return out
+
+
+def _serving_table(kernel: CudaKernel, form: str, rows, ext_col, cols,
+                   bits, column_dim: int, cell_dim: int, G: int):
+    """A compact serving table's (B, R, 128) ``rows`` and (B, E)
+    ``ext_col`` with R = C*M + E for C = ``column_dim``, its active set
+    and G segments. Reports ``kernel``'s path (bitmap, ``form``, tally)
+    before it reads a tensor. Returns (B, R, E, A, W, device, rows,
+    ext_col, cols and bits pointers, bitmap scratch and its pointer)."""
+    if rows.dim() != 3 or rows.shape[-1] != 128 or ext_col.dim() != 2:
+        raise ValueError(f"rows must be (B, R, 128) and ext_col (B, E), "
+                         f"got {tuple(rows.shape)} and "
+                         f"{tuple(ext_col.shape)}")
+    B, R, _ = rows.shape
+    E = ext_col.shape[1]
+    if (column_dim < 1 or cell_dim < 1 or not 1 <= G <= 32 or R < E
+            or (R - E) % column_dim):
+        raise ValueError(f"a serving table of {R} rows and {E} extension "
+                         f"rows does not fit {column_dim} columns, or D="
+                         f"{cell_dim} < 1, or G={G} is not in [1, 32]")
+    _stream_words(R * 128)
+    path = kernel.choose(_bitmap(column_dim, cell_dim), form,
+                         _segment_regs(G))
+    dev = rows.get_device()
+    rows_p = _ptr("rows", rows, torch.int32, None, dev, align=16)
+    ext_p = _ptr("ext_col", ext_col, torch.int32, (B, E), dev)
+    A, W, cols_p, bits_p = _active_set(cols, bits, B, cell_dim, dev)
+    scratch, bm_p = _bitmap_scratch(path[0], B, column_dim, cell_dim,
+                                    rows.device)
+    return B, R, E, A, W, dev, rows_p, ext_p, cols_p, bits_p, scratch, bm_p
+
+
+def serving_counts_cuda(rows, ext_col, cols, bits, column_dim: int,
+                        cell_dim: int, num_segments: int) -> torch.Tensor:
+    """CUDA `serving_counts`, counts form: the (B, C, G) int32 connected-
+    active counts of a compact serving table's ``rows`` and ``ext_col``
+    (see `serving.serving_counts_ref`), in one pass over the words."""
+    G = num_segments
+    (B, R, E, A, W, dev, rows_p, ext_p, cols_p, bits_p, _scratch,
+     bm_p) = _serving_table(SERVING_COUNTS, "counts", rows, ext_col, cols,
+                            bits, column_dim, cell_dim, G)
+    counts = torch.empty((B, column_dim, G), dtype=torch.int32,
+                         device=rows.device)
+    if B:
+        SERVING_COUNTS.launch(rows_p, ext_p, cols_p, bits_p, None, bm_p,
+                              counts.data_ptr(), None, None, B, R, E, A, W,
+                              column_dim, cell_dim, G, 0, 0, dev,
+                              _stream(dev))
+    return counts
+
+
+def serving_flags_cuda(rows, ext_col, cols, bits, seg_cell, column_dim: int,
+                       cell_dim: int, matching_threshold: int,
+                       activation_threshold: int) -> tuple:
+    """CUDA `serving_counts`, flags form: from a compact serving table's
+    ``rows`` and ``ext_col`` and the (B, C, G) int32 owner cells, the
+    matching word (B, C) int32 (bit g where the count >= ``matching_
+    threshold``) and the (B, W, C) int32 prediction words, W =
+    ceil(D/32) (bit d of word w where a segment with count >= ``activation_
+    threshold`` is owned by cell 32w + d); it writes no counts (see
+    `serving.serving_flags_ref`)."""
+    if seg_cell.dim() != 3:
+        raise ValueError(f"seg_cell must be (B, C, G), got "
+                         f"{tuple(seg_cell.shape)}")
+    G = seg_cell.shape[-1]
+    (B, R, E, A, W, dev, rows_p, ext_p, cols_p, bits_p, _scratch,
+     bm_p) = _serving_table(SERVING_COUNTS, "flags", rows, ext_col, cols,
+                            bits, column_dim, cell_dim, G)
+    cell_p = _ptr("seg_cell", seg_cell, torch.int32, (B, column_dim, G),
+                  dev)
+    word = torch.empty((B, column_dim), dtype=torch.int32, device=rows.device)
+    pred = torch.empty((B, W, column_dim), dtype=torch.int32,
+                       device=rows.device)
+    if B:
+        SERVING_COUNTS.launch(rows_p, ext_p, cols_p, bits_p, cell_p, bm_p,
+                              None, word.data_ptr(), pred.data_ptr(), B, R,
+                              E, A, W, column_dim, cell_dim, G,
+                              int(matching_threshold),
+                              int(activation_threshold), dev, _stream(dev))
+    return word, pred
 
 
 def act_frozen_cuda(frozen_word, cols, bits, cell_dim: int,

@@ -14,10 +14,15 @@ packed per column into `rows` (B, C*M + E, 128): column c owns the M
 main rows c*M .. c*M+M-1; the E extension rows at the bottom take the
 connected synapses of the rare columns that exceed 128*M, and
 ``ext_col[b, e]`` names the column that owns extension row e (C =
-unused). The forward pass emits one byte per word, g+1 where the cell is
-active (`serving_activation`: the CUDA kernel for CUDA tensors, the
-plain version for CPU tensors), and `serving_counts` decodes the
-per-(column, segment) connected-active counts from it.
+unused). `serving_counts` gives the per-(column, segment)
+connected-active counts and `serving_flags`, which the serving step
+calls, their thresholds as the matching word and the prediction words:
+each one launch of the `serving_counts` kernel for CUDA tensors, the
+plain versions (`serving_counts_ref`, `serving_flags_ref`) for CPU
+tensors. The plain versions run the activation pass
+(`serving_activation_ref`: one byte per word, g+1 where the cell is
+active; the `serving_activation` kernel for a caller of the activation
+itself) and decode the counts from it.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .active_set import _on_device, cells_active
+from .active_set import (_on_device, cells_active, pack_bits_ref,
+                         prediction_words)
 
 SERVING_G_BITS = 5          # segment field of the packed word (G <= 32)
 _SERVING_CELL_MAX = 1 << 26  # the cell id must fit bits 5..30
@@ -196,10 +202,11 @@ def serving_activation(rows, cols, bits, column_dim: int,
     return serving_activation_ref(rows, cols, bits, column_dim, cell_dim)
 
 
-def serving_counts(table: ServingTable, cols, bits, column_dim: int,
-                   cell_dim: int, num_segments: int) -> torch.Tensor:
-    """Per-(column, segment) connected-active counts of B streams: the
-    whole compact forward pass. Returns (B, C, G) int32.
+def serving_counts_ref(table: ServingTable, cols, bits, column_dim: int,
+                       cell_dim: int, num_segments: int) -> torch.Tensor:
+    """Plain version of the `serving_counts` kernel: per-(column,
+    segment) connected-active counts of B streams, the whole compact
+    forward pass. Returns (B, C, G) int32.
 
     One activation pass over all R rows, main and extension; then
     count[b, r, g] = |{lanes of row r with value g+1}| (one u8 compare
@@ -214,7 +221,7 @@ def serving_counts(table: ServingTable, cols, bits, column_dim: int,
     if C * M + E != R:
         raise ValueError(f"serving table of {R} rows and {E} extension "
                          f"rows does not fit {C} columns")
-    act = serving_activation(rows, cols, bits, column_dim, cell_dim)
+    act = serving_activation_ref(rows, cols, bits, column_dim, cell_dim)
     # a row's count is at most 128, so it is summed in u8: an int32 sum
     # would first cast each (B, R, 128) compare to int32
     cnt = torch.stack([(act == g + 1).view(torch.uint8).sum(
@@ -225,3 +232,51 @@ def serving_counts(table: ServingTable, cols, bits, column_dim: int,
     ext = main.new_zeros((B, C + 1, G)).scatter_add_(
         1, ext_col.long()[..., None].expand(B, E, G), cnt[:, C * M:])
     return main + ext[:, :C]
+
+
+def serving_counts(table: ServingTable, cols, bits, column_dim: int,
+                   cell_dim: int, num_segments: int) -> torch.Tensor:
+    """(B, C, G) int32 connected-active counts of a compact serving
+    table (arguments as `serving_counts_ref`'s): the `serving_counts`
+    kernel's counts form for CUDA tensors, the plain version for CPU
+    tensors."""
+    args = (cols, bits, column_dim, cell_dim, num_segments)
+    if _on_device("serving_counts", table.rows) == "cuda":
+        from .kernels import serving_counts_cuda
+
+        return serving_counts_cuda(table.rows, table.ext_col, *args)
+    return serving_counts_ref(table, *args)
+
+
+def serving_flags_ref(table: ServingTable, cols, bits, seg_cell,
+                      column_dim: int, cell_dim: int,
+                      matching_threshold: int, activation_threshold: int):
+    """Plain version of the `serving_counts` kernel's flags form: the
+    thresholds of `serving_counts_ref`'s counts as the compact serving
+    step reads them. Returns (matching_word (B, C) int32, bit g where
+    count >= ``matching_threshold`` (`pack_bits` of the flags, G <= 32);
+    prediction (B, W, C) int32, `prediction_words` of the segments with
+    count >= ``activation_threshold``, owned by ``seg_cell`` (B, C,
+    G))."""
+    counts = serving_counts_ref(table, cols, bits, column_dim, cell_dim,
+                                seg_cell.shape[-1])
+    matching = counts >= matching_threshold
+    prediction = prediction_words(seg_cell, counts >= activation_threshold,
+                                  cell_dim)
+    return pack_bits_ref(matching)[..., 0], prediction
+
+
+def serving_flags(table: ServingTable, cols, bits, seg_cell,
+                  column_dim: int, cell_dim: int, matching_threshold: int,
+                  activation_threshold: int):
+    """The matching word and prediction words of a compact serving step
+    (arguments and results as `serving_flags_ref`'s): one launch of the
+    `serving_counts` kernel's flags form for CUDA tensors, the plain
+    version for CPU tensors."""
+    args = (cols, bits, seg_cell, column_dim, cell_dim, matching_threshold,
+            activation_threshold)
+    if _on_device("serving_flags", table.rows) == "cuda":
+        from .kernels import serving_flags_cuda
+
+        return serving_flags_cuda(table.rows, table.ext_col, *args)
+    return serving_flags_ref(table, *args)

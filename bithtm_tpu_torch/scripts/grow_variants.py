@@ -14,7 +14,11 @@ same activity as "reference") or ``column_decide``
 (`csrc/decide_pass.cu`, `DECIDE_VARIANTS`: the learning mode on
 `testing.decide_inputs`, its owners updated by each call) or
 ``sp_select`` (`csrc/select_pass.cu`, `SELECT_VARIANTS`, on
-`testing.select_inputs`). A variant whose patch does not match the
+`testing.select_inputs`) or ``serving_counts`` (`csrc/
+serving_count_pass.cu`, `SERVING_VARIANTS`: the flags form on
+`testing.serving_inputs` at the learned tables' share of active words,
+and `serving_activation` over the same rows as "reference"). A variant
+whose patch does not match the
 source is reported as not applicable. Variants that cut a part out give
 wrong results; they are timed, never checked. Each variant's ms a call
 is the median of ``--rounds`` rounds, the variants in turns within a
@@ -175,6 +179,19 @@ SELECT_VARIANTS = {
                             "const int parts = false ?")],
     "threads_1024": [("if (C <= 256 * 8) return", "if (C <= 0) return")],
 }
+# `serving_counts` (flags form): eight or two waves of blocks in the range
+# grid, not one; two or eight columns a warp at once, not four; the sums
+# of rows with no active word not skipped
+SERVING_VARIANTS = {
+    "base": [],
+    "waves8": [("constexpr int kRangeWaves = 1;",
+                "constexpr int kRangeWaves = 8;")],
+    "waves2": [("constexpr int kRangeWaves = 1;",
+                "constexpr int kRangeWaves = 2;")],
+    "cols2": [("constexpr int kCols = 4;", "constexpr int kCols = 2;")],
+    "cols8": [("constexpr int kCols = 4;", "constexpr int kCols = 8;")],
+    "no_skip": [("if (__any_sync(kAll, any)) {", "if (true) {")],
+}
 # kernel: (source, variants, shapes)
 STUDIES = {
     "grow_select": ("grow_pass.cu", VARIANTS, SHAPES),
@@ -188,6 +205,10 @@ STUDIES = {
     "sp_select": ("select_pass.cu", SELECT_VARIANTS,  # B, C, A
                   {"bench": (256, 2048, 41),
                    "16k_tuned": (64, 16384, 328)}),
+    "serving_counts": ("serving_count_pass.cu", SERVING_VARIANTS,
+                       # B, C, D, A, G, M, E
+                       {"bench": (256, 2048, 32, 41, 4, 1, 0),
+                        "16k_tuned": (64, 16384, 64, 328, 4, 1, 0)}),
 }
 
 
@@ -266,6 +287,17 @@ def study_calls(kernel: str, geo: tuple, dev) -> tuple:
         return (lambda: kernels.seg_flags_cuda(v, cell, K, K // 2, K // 5,
                                                D)), None, kernels.SEG_COUNTS, \
             (lambda: kernels.seg_counts_cuda(v, G, K))
+    if kernel == "serving_counts":
+        # the learned tables' share of active words, about 0.5%: no lane
+        # aimed at the active set, a third empty
+        B, C, D, A, G, M, E = geo
+        x = testing.serving_inputs(sum(geo), *geo, device=dev, empty=0.35,
+                                   hit=0.0)
+        args = (x["rows"], x["ext_col"], x["cols"], x["bits"])
+        return (lambda: kernels.serving_flags_cuda(
+            *args, x["seg_cell"], C, D, 10, 13)), None, \
+            kernels.SERVING_COUNTS, (lambda: kernels.serving_activation_cuda(
+                x["rows"], x["cols"], x["bits"], C, D))
     if kernel == "sp_select":
         B, C, A = geo
         ov, duty = testing.select_inputs(sum(geo), B, C, device=dev)

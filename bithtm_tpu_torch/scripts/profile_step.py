@@ -7,8 +7,9 @@ call sites carry `torch.profiler.record_function` ranges
 inhibition and duty cycle: `sp_select`) and update; `tm_step`'s
 preparation, row counts, column decisions (`column_decide`), `_learn`
 with its `_grow` and `learn_rows`,
-punishment, table pass, count decode, prediction words (serving) and
-outputs;
+punishment, table pass, count decode, the compact serving table's
+counts and words (`serving_counts`), prediction words (a
+`distal_forward` hook's) and outputs;
 `htm_step`'s draws and metrics;
 the graph runner's `graph.buffers`).
 A CUDA graph's replay carries no host ranges, so ``--trace_steps`` steps
@@ -25,12 +26,18 @@ reported beside it):
 the eager runner launches the graph's kernels, so its ranges attribute
 the graph's time. The ranges launch nothing and change no value.
 
+``--serve`` profiles `htm_serve_scan` over the synapse tables (the
+unpacked form); with ``--serve_table packed`` over a compact serving
+table (`make_serving_table` of the warmed state), with ``--serve_table
+frozen`` the serving scan over the frozen word table
+(`pack_frozen_table`).
+
 On the CPU (``--device cpu``) the ranges' host time is reported instead,
 under ``"time": "cpu"``, and there is no graph.
 
 Run: python -m bithtm_tpu_torch.scripts.profile_step [--fast] [--batch
-256] [--trace_steps 8] [--inference | --serve] [--column_dim 16384
---cell_dim 64] [--device cuda|cpu]
+256] [--trace_steps 8] [--inference | --serve [--serve_table
+packed|frozen]] [--column_dim 16384 --cell_dim 64] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -44,8 +51,10 @@ import time
 import numpy as np
 import torch
 
-from .. import htm_init_batch, htm_scan, htm_serve_scan, make_htm_config
+from .. import (htm_init_batch, htm_scan, htm_serve_scan, make_htm_config,
+                make_serving_table, pack_frozen_table)
 from ..models import graph
+from ..models.htm import _scan_impl
 from ..rng import TorchDraws
 from ..utils.profiling import call_sites, device_events, warm_profile
 from . import add_device, pick_device, synchronize
@@ -198,6 +207,10 @@ def main(argv=None) -> dict:
     p.add_argument("--serve", action="store_true",
                    help="profile htm_serve_scan (learning and the winner "
                         "pass off)")
+    p.add_argument("--serve_table", choices=("packed", "frozen"),
+                   help="with --serve: serve from a compact serving table "
+                        "(packed) or the frozen word table (frozen) "
+                        "instead of the synapse tables")
     p.add_argument("--detailed_metrics", action="store_true",
                    help="include the full-table occupancy metrics")
     p.add_argument("--winner_capacity", type=int, default=0)
@@ -207,6 +220,8 @@ def main(argv=None) -> dict:
     p.add_argument("--seed", type=int, default=0)
     add_device(p)
     args = p.parse_args(argv)
+    if args.serve_table and not args.serve:
+        p.error("--serve_table needs --serve")
     dev = pick_device(args.device)
     cfg = make_config(args)
     B, T = args.batch, args.trace_steps
@@ -221,10 +236,22 @@ def main(argv=None) -> dict:
     state, _ = htm_scan(cfg, state, seq[:warm], True, draws=draws)
     xs = seq[warm:]
     start, gen_start = copy.deepcopy(state), gen.get_state()
+    table = word = None
+    if args.serve_table == "packed":
+        table = make_serving_table(cfg.tm, state.tm)
+    elif args.serve_table == "frozen":
+        word = pack_frozen_table(state.tm.synapse_cell,
+                                 state.tm.synapse_perm,
+                                 cfg.tm.permanence_threshold,
+                                 num_cells=cfg.tm.num_cells)
 
     def scan(st, x=xs):
+        if word is not None:
+            return _scan_impl(cfg, st, x, False, False,
+                              args.detailed_metrics, draws,
+                              frozen_word=word)
         if args.serve:
-            return htm_serve_scan(cfg, st, x,
+            return htm_serve_scan(cfg, st, x, serving_table=table,
                                   detailed_metrics=args.detailed_metrics,
                                   draws=draws)
         return htm_scan(cfg, st, x, learn,
@@ -267,6 +294,8 @@ def main(argv=None) -> dict:
     top_level = {k: v for k, v in sites.items() if "/" not in k}
     total = sum(v["ms"] for v in top_level.values())
     mode = "serve" if args.serve else ("learning" if learn else "inference")
+    if args.serve_table:
+        mode += f" {args.serve_table}"
     out = {"config": f"{args.column_dim}x{args.cell_dim}", "fast": args.fast,
            "batch": B, "steps": T, "mode": mode,
            "time": "device" if dev.type == "cuda" else "cpu",

@@ -1,6 +1,7 @@
 """Synthetic inputs for checking the forward passes (`table_update`,
 `synapse_activation_conn`, `synapse_activation_frozen`,
-`serving_activation`) and their CUDA kernels against their plain
+`serving_activation`, the compact serving table's counts and flags:
+`serving_inputs`) and their CUDA kernels against their plain
 versions, made with numpy from a seed at any shape; the check of the
 SP's boost on one device against the CPU (`boost_agreement`); the
 growth selection's inputs at a TM geometry (`grow_inputs`,
@@ -84,6 +85,57 @@ def serving_rows(seed: int, B: int, R: int, C: int, D: int, G: int,
     words = np.where(rng.random((B, R, 128)) < empty, -1,
                      (cell << SERVING_G_BITS) | g).astype(np.int32)
     return torch.from_numpy(words).to(device)
+
+
+def serving_inputs(seed: int, B: int, C: int, D: int, A: int, G: int,
+                   M: int, E: int, device="cpu", empty: float = 0.4,
+                   hit: float = 0.5, ordered: bool = False,
+                   empty_stream: bool = False) -> dict:
+    """The arguments of `serving_counts` / `serving_flags` with numpy from
+    ``seed``: a compact serving table of B streams, C columns of M main
+    rows and E extension rows (``rows`` (B, C*M + E, 128), ``ext_col``
+    (B, E)), a (B, A) active set at 40% of its columns' cells, and owners
+    ``seg_cell`` (B, C, G) in [0, D] (a fifth the unallocated D). A
+    share ``empty`` of the lanes is -1 and of the others a share ``hit``
+    targets an active cell, so that segment counts fall on both sides of
+    thresholds near their median. A quarter of the extension rows are
+    unused (ext_col = C); the others belong to random columns, the first
+    two to one column, in random order (``ordered``: in column order, as
+    `pack_serving_rows` writes them). ``empty_stream``: the last
+    stream's lanes are all empty."""
+    rng = np.random.default_rng(seed)
+    R, N = C * M + E, C * D
+    cols = np.sort(np.argsort(rng.random((B, C)), axis=1)[:, :A], axis=1)
+    act = rng.random((B, A, D)) < 0.4
+    # each stream's active cells, padded with random ones to A*D
+    cells = cols[..., None] * D + np.arange(D)
+    pool = np.where(act, cells, rng.integers(0, N, (B, A, D))).reshape(B, -1)
+    pool = np.take_along_axis(pool, np.argsort(~act.reshape(B, -1), 1), 1)
+    n_act = np.maximum(act.reshape(B, -1).sum(1), 1)
+    pick = (rng.random((B, R * 128)) * n_act[:, None]).astype(np.int64)
+    cell = np.where(rng.random((B, R * 128)) < hit,
+                    np.take_along_axis(pool, pick, 1),
+                    rng.integers(0, N, (B, R * 128))).reshape(B, R, 128)
+    g = rng.integers(0, G, (B, R, 128))
+    words = np.where(rng.random((B, R, 128)) < empty, -1,
+                     (cell << SERVING_G_BITS) | g)
+    if empty_stream:
+        words[-1] = -1
+    ext_col = np.where(rng.random((B, E)) < 0.75, rng.integers(0, C, (B, E)),
+                       C)
+    if E >= 2:
+        ext_col[:, 1] = ext_col[:, 0] = rng.integers(0, C, B)
+    if ordered:
+        ext_col = np.sort(ext_col, 1)
+    seg_cell = np.where(rng.random((B, C, G)) < 0.2, D,
+                        rng.integers(0, D, (B, C, G)))
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
+
+    return dict(rows=t(words), ext_col=t(ext_col), cols=t(cols),
+                bits=pack_bits(torch.from_numpy(act)).to(device),
+                seg_cell=t(seg_cell))
 
 
 def grow_inputs(seed: int, B: int, C: int, D: int, A: int, G: int, K: int,
@@ -339,7 +391,7 @@ def same_choice(got: tuple, want: tuple) -> bool:
 
 # the kernels that run a step's distal forward pass, one of them a step
 STEP_KERNELS = ("table_update", "act_conn", "act_frozen",
-                "serving_activation")
+                "serving_counts")
 
 
 def step_launches(sp_steps: int | None = None, **counts) -> dict:
@@ -351,18 +403,20 @@ def step_launches(sp_steps: int | None = None, **counts) -> dict:
     runs the SP once), one `column_decide` a step (the column decisions,
     which also write the active and winner cells' words), one
     `seg_counts` after each kernel that writes the packed activity (all
-    of STEP_KERNELS but `serving_activation`, whose step counts from the
-    serving table), one `row_counts`, one `grow_select`, one `learn_rows`
-    and one `sp_rows` (the SP's update of its active rows) a learning
-    step (each `table_update`) and one `pack_bits` a serving step (its
-    matching flags; the other steps' come from `seg_counts`' flags form).
-    A count given in ``counts`` overrides its default (a `tm_resume`
-    launches one `act_conn`, one `seg_counts` and no `column_decide`; a
-    column shard's SP updates its rows without `sp_rows` and selects its
-    columns without `sp_select`)."""
+    of STEP_KERNELS but `serving_counts`, the packed serving step's one
+    kernel after the SP, which writes the matching and prediction words
+    from the compact table itself: no `serving_activation`, `pack_bits`
+    or `seg_counts`), and one `row_counts`, one `grow_select`, one
+    `learn_rows` and one `sp_rows` (the SP's update of its active rows) a
+    learning step (each `table_update`). No step launches `pack_bits`:
+    every step's matching word comes from `seg_counts`' or
+    `serving_counts`' flags form. A count given in ``counts`` overrides
+    its default (a `tm_resume` launches one `act_conn`, one `seg_counts`
+    and no `column_decide`; a column shard's SP updates its rows without
+    `sp_rows` and selects its columns without `sp_select`)."""
     n = sum(counts.get(k, 0) for k in STEP_KERNELS)
     learning = counts.get("table_update", 0)
-    serving = counts.get("serving_activation", 0)
+    serving = counts.get("serving_counts", 0)
     sp = n if sp_steps is None else sp_steps
     counts = {"sp_overlap": sp,
               "sp_select": sp,
@@ -372,7 +426,6 @@ def step_launches(sp_steps: int | None = None, **counts) -> dict:
               "grow_select": learning,
               "learn_rows": learning,
               "sp_rows": learning,
-              "pack_bits": serving,
               **counts}
     return {k.name: counts.get(k.name, 0) for k in kernels.KERNELS}
 

@@ -26,7 +26,15 @@ SP's boost, top-A inhibition and duty-cycle EMA, in the phase
 B=1 reference), on tie-heavy streams, -0.0, C off a multiple of 4, A =
 1 and A = C, the keys and the winners' list in global memory and 65,536
 streams, the main ones also in a CUDA graph of 20 beside `torch.topk`
-(`check_boost` holds its factor to the CPU's); `column_decide`,
+(`check_boost` holds its factor to the CPU's); `serving_counts`, the
+compact serving table's counts and, in its flags form, the packed
+serving step's matching and prediction words, in one pass over the
+table, both forms in the phase `check_serving_counts` at G = 1, 8 and
+32, two prediction words a column, M = 2 and 3, no extension rows,
+extension rows in column order, empty lanes, the global bitmap and
+65,537 streams, and on the learned bench and 16K serving tables (in
+`run_serving` and `run_16k`, also in a CUDA graph of 20);
+`column_decide`,
 the TM's column decisions (the winner selection, `_learn`'s flags and
 `_allocate`, with the active and winner cells' words), in the phase
 `check_column_decide` on the calls that eager steps from the learned
@@ -47,8 +55,9 @@ x 32 cells, G=4 x K=64, int16 SP, B=256 streams) through `htm_scan`, 768
 learning steps then inference, and checks that every kernel of that path
 was launched once a step (the table kernel, `sp_overlap`, `sp_select`,
 `column_decide`, `seg_counts` and at learning `row_counts`,
-`grow_select`, `learn_rows` and `sp_rows`; `pack_bits` once a packed
-serving step and at no other step;
+`grow_select`, `learn_rows` and `sp_rows`; a packed serving step
+`serving_counts` in place of the table pass and `seg_counts`, and no
+step `serving_activation` or `pack_bits`;
 `testing.step_launches` gives every count this
 script holds a run to), that the metrics are in range, that the graph
 learned to predict and that the state invariants hold. Then serves the
@@ -56,9 +65,12 @@ next 64 steps from the learned state three ways (`htm_serve_scan` over
 the synapse tables, over a compact serving table, and the scan over the
 frozen word table), checks that they predict alike and launch only
 their own kernel, and that serve -> `resume_learning` -> learn equals
-learning after the unpacked serve. Then drives the two entry points
+learning after the unpacked serve. Then drives the entry points
 that no scan calls (`sp_update_pack` against `sp_step`'s learning,
-`synapse_activation` against the state's own activity), holds the SP's
+`synapse_activation` against the state's own activity,
+`serving_activation` against its plain version, and an inference step
+with a `distal_forward` hook, whose matching word `pack_bits` packs,
+against the stock step), holds the SP's
 boost on the card against the CPU's (seeded and learned duty cycles,
 ROADMAP fault k), measures the
 steady window (the last 128 learning steps) three times from one
@@ -228,6 +240,7 @@ SOURCES = {
     "column_decide": "bithtm_tpu_torch/csrc/decide_pass.cu",
     "pack_bits": "bithtm_tpu_torch/csrc/pack_pass.cu",
     "sp_select": "bithtm_tpu_torch/csrc/select_pass.cu",
+    "serving_counts": "bithtm_tpu_torch/csrc/serving_count_pass.cu",
 }
 REPLACES = {
     "table_update": "bithtm_tpu/ops/pallas_kernels.py:489",
@@ -249,6 +262,9 @@ REPLACES = {
     "pack_bits": "bithtm_tpu/ops/active_set.py:85",
     # `boost`, `duty_cycle_update` and `k_winners`
     "sp_select": "bithtm_tpu/ops/regularization.py:20,28,37",
+    # `serving_counts` (its activation the Pallas serving kernel, :835)
+    # and the compact branch of `tm_step` after it
+    "serving_counts": "bithtm_tpu/ops/serving.py:205",
 }
 
 
@@ -666,9 +682,9 @@ GROW_PATHS = {
     # kk = 40: `learn_rows` reads each written slot's cell ("load")
     "samp=40": (16, 2048, 32, 41, 4, 48, 700, 40, 40),
 }
-# `pack_bits` at the main paths' (B, rows, D): a serving step's matching
-# flags (B, C, G); then the cells (B, A, D) that the steps packed before
-# `column_decide` wrote their words, and D = 1, 33, 48
+# `pack_bits` at the main paths' (B, rows, D): the matching flags (B, C,
+# G) of a `distal_forward` step; then the cells (B, A, D) that the steps
+# packed before `column_decide` wrote their words, and D = 1, 33, 48
 PACK_MAIN = {
     "bench": (BATCH, 2048, 4), "16k": (BATCH_16K, 16384, 4),
     "reference stack": (BATCH, 2048, 8), "anomaly stack": (BATCH, 512, 8),
@@ -1471,6 +1487,121 @@ def check_sp_select(dev) -> tuple[dict, dict]:
     return main, rows
 
 
+# `serving_counts` past the learned tables of the main paths (tag: B, C,
+# D, A, G, M, E, `testing.serving_inputs` keywords): one segment a column,
+# eight and 32 (each byte-field tally), two prediction words a column (D =
+# 64) with two main rows, no extension rows, extension rows in column
+# order, lanes nearly all empty with an empty stream, the global bitmap
+# and 65,537 streams
+SERVING_PATHS = {
+    "G=1": (64, 2048, 32, 41, 1, 1, 8, {}),
+    "G=8": (64, 2048, 32, 41, 8, 1, 8, {}),
+    "G=32 M=3": (16, 1024, 32, 41, 32, 3, 8, {}),
+    "W=2 M=2": (16, 4096, 64, 82, 4, 2, 16, {}),
+    "E=0": (64, 2048, 32, 41, 4, 1, 0, {}),
+    "ordered": (64, 2048, 32, 41, 4, 1, 64, {"ordered": True}),
+    "empty": (16, 2048, 32, 41, 4, 1, 8, {"empty": 0.97,
+                                          "empty_stream": True}),
+    "global bitmap": (4, 32_768, 64, 656, 4, 1, 8, {}),
+    "B=65537": (65_537, 4, 32, 2, 4, 1, 8, {}),
+}
+
+
+def serving_counts_row(x: dict, C: int, D: int, th: tuple, at: str,
+                       graph: bool = True) -> dict:
+    """`serving_counts` over the compact table ``x`` (rows, ext_col, cols,
+    bits, seg_cell) through its dispatchers against the plain versions on
+    the card: the flags form's matching and prediction words at the
+    thresholds ``th`` and the counts form's counts, bit for bit, one
+    launch each, the path the shapes choose. Timed (CUDA events over 20
+    calls, and with ``graph`` in a CUDA graph of 20) beside the plain
+    version and its bound (the words, ext_col, the active set and, in
+    the flags form, the owners read once; the outputs written once);
+    the counts form's row under "counts_form". No PyTorch call computes
+    either: no library time."""
+    tab = psv.ServingTable(x["rows"], x["ext_col"])
+    G = x["seg_cell"].shape[-1]
+    flags = (tab, x["cols"], x["bits"], x["seg_cell"], C, D, *th)
+    counts = (tab, x["cols"], x["bits"], C, D, G)
+    n0 = kernels.SERVING_COUNTS.launches
+    got_f = psv.serving_flags(*flags)
+    path_f = kernels.SERVING_COUNTS.path
+    got_c = psv.serving_counts(*counts)
+    path_c = kernels.SERVING_COUNTS.path
+    n = kernels.SERVING_COUNTS.launches - n0
+    want_f = psv.serving_flags_ref(*flags)
+    want_c = psv.serving_counts_ref(*counts)
+    torch.cuda.synchronize()
+    require(n == 2, f"serving_counts at {at} launches its kernel once a "
+            f"form, got {n}")
+    require(same_bits(got_f[0], want_f[0]) and same_bits(got_f[1], want_f[1])
+            and same_bits(got_c, want_c),
+            f"serving_counts == plain at {at}, both forms, bit for bit")
+    path = (kernels._bitmap(C, D), "flags", kernels._segment_regs(G))
+    require(path_f == path and path_c == (path[0], "counts", path[2]),
+            f"serving_counts at {at} takes {path}, got {path_f}, {path_c}")
+    require(bool((want_c > 0).any()), f"some counts at {at}")
+    inputs = nbytes(x["rows"], x["ext_col"], x["cols"], x["bits"])
+    blocks, threads, _ = kernels.serving_counts_grid(
+        True, C, D, G, x["rows"].get_device())
+    row = kernel_row(f"serving_counts [{'+'.join(path)}]",
+                     lambda: psv.serving_flags(*flags),
+                     lambda: psv.serving_flags_ref(*flags),
+                     inputs + nbytes(x["seg_cell"], *want_f), at,
+                     path=list(path), grid=f"{blocks}x{threads}")
+    form = kernel_row(f"serving_counts [{path[0]}+counts+{path[2]}]",
+                      lambda: psv.serving_counts(*counts),
+                      lambda: psv.serving_counts_ref(*counts),
+                      inputs + nbytes(want_c), at,
+                      path=[path[0], "counts", path[2]])
+    if graph:
+        row["graph_ms"] = graph_ms(lambda: psv.serving_flags(*flags))
+        form["graph_ms"] = graph_ms(lambda: psv.serving_counts(*counts))
+        print(f"  serving_counts in a CUDA graph of 20 calls: flags form "
+              f"{row['graph_ms']:.4f} ms a call, counts form "
+              f"{form['graph_ms']:.4f}; no library call")
+    row["counts_form"] = form
+    return row
+
+
+def learned_table_row(cfg, tm, tab, what: str) -> dict:
+    """`serving_counts_row` on a learned state's own serving table
+    ``tab``, its last active set, owners and thresholds, in a CUDA graph
+    too. (The learned bench and 16K tables have no extension rows:
+    SERVING_PATHS holds them, in and out of column order.)"""
+    C, D = cfg.column_dim, cfg.cell_dim
+    B, R, _ = tab.rows.shape
+    E = tab.ext_col.shape[1]
+    return serving_counts_row(
+        dict(rows=tab.rows, ext_col=tab.ext_col, cols=tm.active_cols,
+             bits=tm.active_bits, seg_cell=tm.seg_cell), C, D,
+        (cfg.segment_matching_threshold, cfg.segment_activation_threshold),
+        f"B={B} R={R} (M={(R - E) // C}, E={E}) D={D} "
+        f"G={cfg.segments_per_column}, {what}")
+
+
+def check_serving_counts(dev) -> dict:
+    """`serving_counts` at SERVING_PATHS (`serving_counts_row`, timed with
+    events only), thresholds at the counts' median and one below.
+    Returns {case: row}; the learned tables' rows come from `run_serving`
+    and `run_16k`."""
+    rows = {}
+    for tag, (B, C, D, A, G, M, E, kw) in SERVING_PATHS.items():
+        x = testing.serving_inputs(B + C + G + M + E, B, C, D, A, G, M, E,
+                                   device=dev, **kw)
+        counts = psv.serving_counts_ref(psv.ServingTable(
+            x["rows"], x["ext_col"]), x["cols"], x["bits"], C, D, G)
+        theta_a = max(1, int(counts[counts > 0].float().median()))
+        del counts
+        rows[tag] = serving_counts_row(
+            x, C, D, (theta_a - 1, theta_a),
+            f"B={B} C={C} M={M} E={E} D={D} G={G} A={A}, {tag}",
+            graph=False)
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
 def growth_keys(Wc: int, shape, g: torch.Generator, dev):
     """Index-keyed growth keys over a list of Wc candidates, as `_grow`
     makes them above 2^16 cells: random bits above the list index, 15%
@@ -2093,9 +2224,10 @@ def run_serving(cfg, state, gen, xs) -> dict:
     Then `resume_learning` on the packed state (one `act_conn` launch)
     gives the unpacked state in every leaf, and RESUME_STEPS learning
     steps from one generator snapshot leave both equal. The forms' times
-    (graph against loop) are `run_graph_bench`'s. Returns the launch
-    counts of the packed and frozen runs' own kernels and of the packed
-    run's `pack_bits`."""
+    (graph against loop) are `run_graph_bench`'s. Before the runs,
+    `serving_counts` is held to its plain versions and timed on the
+    learned table (`learned_table_row`). Returns (the launch counts of
+    the packed and frozen runs' own kernels, the `serving_counts` row)."""
     dev = state.tm.step.device
     B, N, A = state.batch, len(xs), cfg.sp.active_columns
     C, K = cfg.tm.column_dim, cfg.tm.synapse_capacity
@@ -2132,12 +2264,14 @@ def run_serving(cfg, state, gen, xs) -> dict:
                                           tm.active_bits, cfg.tm.cell_dim,
                                           K)),
         "act_frozen == plain on the learned table")
+    counts_row = learned_table_row(cfg.tm, tm, tab,
+                                   "the learned bench serving table")
 
     forms = {
         "unpacked": (lambda st: bt.htm_serve_scan(
             cfg, st, xs, detailed_metrics=False), "act_conn"),
         "packed": (lambda st: bt.htm_serve_scan(
-            cfg, st, xs, serving_table=tab), "serving_activation"),
+            cfg, st, xs, serving_table=tab), "serving_counts"),
         "frozen": (lambda st: _scan_impl(
             cfg, st, xs, False, False, False, frozen_word=word),
             "act_frozen"),
@@ -2150,9 +2284,9 @@ def run_serving(cfg, state, gen, xs) -> dict:
         out[name] = fn(st)
         launches[name] = kernels.launch_counts()
         require(launches[name] == steps(**{kernel: N}),
-                f"{name} serving launches {kernel}, sp_overlap and (but "
-                f"packed) seg_counts once a step and no other kernel, got "
-                f"{launches[name]}")
+                f"{name} serving launches {kernel}, sp_overlap, sp_select, "
+                f"column_decide and (but packed) seg_counts once a step and "
+                f"no other kernel, got {launches[name]}")
     s_u, m_u = out["unpacked"]
     for name, (st, m) in out.items():
         require(set(m) == set(m_u) and all(torch.equal(m[k], m_u[k])
@@ -2197,11 +2331,8 @@ def run_serving(cfg, state, gen, xs) -> dict:
           f"packed -> resume_learning (act_conn x1) -> {RESUME_STEPS} "
           f"learning steps == unpacked -> learning, every leaf and metric")
 
-    # a packed serving step packs its matching flags: the one path on
-    # which `pack_bits` still runs
-    return {"serving_activation": launches["packed"]["serving_activation"],
-            "act_frozen": launches["frozen"]["act_frozen"],
-            "pack_bits": launches["packed"]["pack_bits"]}
+    return {"serving_counts": launches["packed"]["serving_counts"],
+            "act_frozen": launches["frozen"]["act_frozen"]}, counts_row
 
 
 def run_graph_bench(cfg, state, gen, xs) -> dict:
@@ -2242,25 +2373,47 @@ def run_graph_bench(cfg, state, gen, xs) -> dict:
     return out
 
 
+def distal_forward_stock(cfg, state, active_cols, act_bits):
+    """A `distal_forward` hook of `tm_step` that computes what the stock
+    forward pass does: the activity (`act_conn`) and the counts of the
+    `seg_counts` decode's counts form; `tm_step` then takes the
+    thresholds, `prediction_words` and the matching word's `pack_bits`
+    itself."""
+    act = pas.synapse_activation_conn(
+        state.synapse_cell, state.synapse_perm, active_cols, act_bits,
+        cfg.cell_dim, cfg.permanence_threshold, cfg.synapse_capacity)
+    return (act, *pas.seg_counts_packed(act, cfg.segments_per_column,
+                                        cfg.synapse_capacity))
+
+
 def run_entry_points(cfg, state, xs) -> dict:
-    """The two entry points that no scan calls, on the learned bench
-    state, with the launch counts set to 0 just before and read just
-    after: ENTRY_STEPS learning steps of `sp_step` on a copy of the SP
-    state (its `sp_rows` kernel), each held against `hebbian_delta` +
+    """The entry points that no scan calls, on the learned bench state,
+    with the launch counts set to 0 just before and read just after:
+    ENTRY_STEPS learning steps of `sp_step` on a copy of the SP state
+    (its `sp_rows` kernel), each held against `hebbian_delta` +
     `sp_update_pack` over the whole table from the step's starting
     permanences (the same permanences and the connected bits of every
-    row), and
-    `synapse_activation` over the learned synapse table, whose activity
-    on live slots must be the state's own (the last forward pass's).
+    row); `synapse_activation` over the learned synapse table, whose
+    activity on live slots must be the state's own (the last forward
+    pass's); `serving_activation` over the learned compact serving table
+    against its plain version; and an inference `htm_step` with a
+    `distal_forward` hook (`distal_forward_stock`), the one step that
+    packs its matching word with `pack_bits`, equal to the stock
+    inference step in its prediction, matching word and metrics.
     Returns the launch counts."""
     sp, tm = copy.deepcopy(state.sp), state.tm
     C, D = cfg.tm.column_dim, cfg.tm.cell_dim
+    tab = bt.make_serving_table(cfg.tm, tm)
+    x = xs[ENTRY_STEPS]
+    stock = bt.htm_step(cfg, copy.deepcopy(state), x, learning=False,
+                        compute_winner=False, detailed_metrics=False,
+                        dense_outputs=False)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    for x in xs[:ENTRY_STEPS]:
+    for x_sp in xs[:ENTRY_STEPS]:
         before = sp.permanence.clone()
-        sp, out = bt.sp_step(cfg.sp, sp, x, True)
-        delta, thr = psp.hebbian_delta(cfg.sp, x, before.shape[-1])
+        sp, out = bt.sp_step(cfg.sp, sp, x_sp, True)
+        delta, thr = psp.hebbian_delta(cfg.sp, x_sp, before.shape[-1])
         perm, pack = psp.sp_update_pack(before, delta, out.active_columns,
                                         thr)
         require(torch.equal(perm, sp.permanence)
@@ -2269,18 +2422,40 @@ def run_entry_points(cfg, state, xs) -> dict:
         del before, perm, pack
     act = pas.synapse_activation(tm.synapse_cell, tm.active_cols,
                                  tm.active_bits, C, D)
+    served = psv.serving_activation(tab.rows, tm.active_cols, tm.active_bits,
+                                    C, D)
+    hooked = bt.htm_step(cfg, copy.deepcopy(state), x, learning=False,
+                         compute_winner=False, detailed_metrics=False,
+                         dense_outputs=False,
+                         distal_forward=distal_forward_stock)
     launches = kernels.launch_counts()
     require(torch.equal((act != 0) & (tm.synapse_perm >= 0),
                         tm.synapse_act != 0),
             "synapse_activation on live slots == the state's activity")
+    require(torch.equal(served, psv.serving_activation_ref(
+        tab.rows, tm.active_cols, tm.active_bits, C, D))
+        and bool((served > 0).any()),
+        "serving_activation == plain on the learned serving table")
+    (s_h, o_h), (s_s, o_s) = hooked, stock
+    require(torch.equal(s_h.tm.prediction, s_s.tm.prediction)
+            and torch.equal(s_h.tm.matching_word, s_s.tm.matching_word)
+            and all(torch.equal(o_h.metrics[k], o_s.metrics[k])
+                    for k in o_s.metrics),
+            "a distal_forward step == the stock inference step")
     require(launches == only(sp_update_pack=ENTRY_STEPS,
-                             sp_overlap=ENTRY_STEPS, sp_rows=ENTRY_STEPS,
-                             sp_select=ENTRY_STEPS, synapse_activation=1),
+                             sp_overlap=ENTRY_STEPS + 1,
+                             sp_rows=ENTRY_STEPS,
+                             sp_select=ENTRY_STEPS + 1, synapse_activation=1,
+                             serving_activation=1, act_conn=1, seg_counts=1,
+                             column_decide=1, pack_bits=1),
             f"the entry points launch their kernels, got {launches}")
     print(f"entry points on the learned bench state: {ENTRY_STEPS} SP "
           f"learning steps == sp_update_pack over the whole table; "
           f"synapse_activation == the state's activity on live slots "
-          f"({int((act != 0).sum())} active slots); launches {launches}")
+          f"({int((act != 0).sum())} active slots); serving_activation == "
+          f"plain ({int((served != 0).sum())} active words); a "
+          f"distal_forward step == the stock step; launches {launches}")
+    del tab, served, hooked, stock
     return launches
 
 
@@ -2372,10 +2547,11 @@ def run_16k(dev) -> tuple[dict, dict, tuple, dict, tuple]:
     run (a chunk re-run after an escalation runs its steps again), grown
     synapses, no counted cap drop in the produced trajectory, the state
     invariants and bursting falling from the first chunk to the last;
-    then holds the table kernels, `serving_activation` over the learned
-    serving table and `synapse_activation` against their plain versions
-    on the learned state and times them (`kernel_row`, with the grid of
-    each row-range kernel). Returns (launch
+    then holds the table kernels, `serving_activation` and
+    `serving_counts` over the learned serving table and
+    `synapse_activation` against their plain versions on the learned
+    state and times them (`kernel_row`, with the grid of each row-range
+    kernel; `serving_counts` also in a CUDA graph). Returns (launch
     counts of the learning run, the kernel rows at this geometry, the
     first PAR_16K_BATCH streams of the learned state as host leaves with
     the caps in force, the graph-against-loop numbers, and a copy of the
@@ -2446,7 +2622,7 @@ def run_16k(dev) -> tuple[dict, dict, tuple, dict, tuple]:
     serve_xs = seq[T + INFER_16K:]
     tab = bt.make_serving_table(cfg.tm, state.tm)
     forms = {"unpacked": ({"detailed_metrics": False}, "act_conn"),
-             "packed": ({"serving_table": tab}, "serving_activation")}
+             "packed": ({"serving_table": tab}, "serving_counts")}
     served, runs = {}, {name: [] for name in forms}
     # each form's graph captured (two steps) before the timed runs, which
     # restore the learned state into its buffers
@@ -2604,6 +2780,8 @@ def run_16k(dev) -> tuple[dict, dict, tuple, dict, tuple]:
             f"learned 16K serving table",
             grid=word_grid(True, tab.rows, C, D)),
     }
+    rows["serving_counts"] = learned_table_row(
+        cfg.tm, tm, tab, "the learned 16K serving table")
     perf["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
     del p, p_ref, v_ref, c_ref, c_k, a_ref, a_k, pun_word, act_k, act_p
     del tab, s_ref, s_k
@@ -4239,6 +4417,8 @@ def main() -> None:
     phase("check_sp_rows")
     checks["sp_select"], path_rows["sp_select"] = check_sp_select(dev)
     phase("check_sp_select")
+    path_rows["serving_counts"] = check_serving_counts(dev)
+    phase("check_serving_counts")
     check_learning(dev)
     check_cpu_agreement(dev)
     launches, snap, _, (state, gen, serve_xs) = run_main_path(dev)
@@ -4251,7 +4431,9 @@ def main() -> None:
     torch.save(host_leaves(state), bench_path)
     parity = run_parity(dev, (state, serve_xs), tmp.name)
     phase("run_parity")
-    launches.update(run_serving(snap.cfg, state, gen, serve_xs))
+    served, checks["serving_counts"] = run_serving(snap.cfg, state, gen,
+                                                   serve_xs)
+    launches.update(served)
     phase("run_serving")
     graph_paths = {"bench": run_graph_bench(snap.cfg, state, gen, serve_xs)}
     phase("run_graph_bench")
@@ -4260,15 +4442,18 @@ def main() -> None:
     phase("run_profile")
     entry = run_entry_points(snap.cfg, state, serve_xs)
     check_boost(dev, state.sp, serve_xs)
-    launches.update(sp_update_pack=entry["sp_update_pack"],
-                    synapse_activation=entry["synapse_activation"])
+    launches.update({k: entry[k] for k in (
+        "sp_update_pack", "synapse_activation", "serving_activation",
+        "pack_bits")})
     del state
     time_phases(snap, snap.xs[:PROFILED_STEPS])
     del snap
     torch.cuda.empty_cache()
     phase("entry points, boost, phases, profile")
-    launches_16k, _, learned16, graph_paths["16k"], carry16 = run_16k(dev)
+    launches_16k, rows_16k, learned16, graph_paths["16k"], carry16 = \
+        run_16k(dev)
     launches["small_table_take"] = launches_16k["small_table_take"]
+    checks["serving_counts"]["16k"] = rows_16k["serving_counts"]
     torch.cuda.empty_cache()
     phase("run_16k")
     soaks = run_soaks(dev, carry16)
@@ -4315,7 +4500,8 @@ def main() -> None:
           f"{time.perf_counter() - began:.1f} s")
 
     paths = {name: sorted(main_paths[name].union(*(
-        row["path"] for row in path_rows.get(name, {}).values())))
+        [*row["path"], *row.get("counts_form", {}).get("path", ())]
+        for row in path_rows.get(name, {}).values())))
         for name in REPLACES}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

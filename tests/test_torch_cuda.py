@@ -290,10 +290,11 @@ def test_serving_kernels_match_plain(shape, R, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("spill", [False, True])
 def test_serving_dispatch_launches_the_kernels(spill, cuda):
-    """On CUDA tensors `serving_counts` and `synapse_activation_frozen`
-    go through the kernels, and agree with the same calls on the CPU
-    (the plain versions); with ``spill`` three dense columns fill
-    extension rows, without it the table has none."""
+    """On CUDA tensors `serving_counts` (the `serving_counts` kernel's
+    counts form, with no `serving_activation`) and
+    `synapse_activation_frozen` go through the kernels, and agree with
+    the same calls on the CPU (the plain versions); with ``spill`` three
+    dense columns fill extension rows, without it the table has none."""
     shape = B, C, G, K, D, A = (2, 512, 4, 64, 32, 5)
     x = table_inputs(5, *shape, device=cuda)
     perm = x["perm"].clone()
@@ -313,7 +314,8 @@ def test_serving_dispatch_launches_the_kernels(spill, cuda):
     counts = psv.serving_counts(tab, x["cols"], x["bits"], C, D, G)
     v = pas.synapse_activation_frozen(word, x["cols"], x["bits"], D, K)
     after = kernels.launch_counts()
-    assert after["serving_activation"] == before["serving_activation"] + 1
+    assert after["serving_counts"] == before["serving_counts"] + 1
+    assert after["serving_activation"] == before["serving_activation"]
     assert after["act_frozen"] == before["act_frozen"] + 1
     cpu = psv.ServingTable(*(t.cpu() for t in tab))
     assert torch.equal(counts.cpu(), psv.serving_counts(
@@ -1106,7 +1108,7 @@ def test_graph_replays_equal_the_loop(seeded, cuda):
     replay = _scan_paths(cfg, 4, cuda, seeded)
     want = {"learning": steps(table_update=150),
             "inference": steps(act_conn=10), "unpacked": steps(act_conn=20),
-            "packed": steps(serving_activation=20),
+            "packed": steps(serving_counts=20),
             "frozen": steps(act_frozen=20)}
     for name, (s, m, n, g) in replay.items():
         ls, lm, ln, lg = loop[name]
@@ -1892,4 +1894,93 @@ def test_sp_select_rejects_bad_inputs(bad, cuda):
     with pytest.raises((TypeError, ValueError)):
         kernels.sp_select_cuda(ov, duty, k, *preg.select_scalars(
             0.3, 5 / 64, 0.99))
+    assert launched(before) == only()
+
+
+# ---- the compact serving table's counts and words (csrc/
+# serving_count_pass.cu serving_counts): B, C, D, A, G, M, E and
+# `testing.serving_inputs` keywords; the bench and 16K tables' shapes, D =
+# 8, 33, 64, G = 1, 8, 32, M = 2, 3, no extension rows, extension rows in
+# column order and out of it, empty lanes and an empty stream, 1,024
+# threads a block (the 128 KB bitmap), the global bitmap and 65,537
+# streams
+
+SERVING_SHAPES = {
+    "bench": (16, 2048, 32, 41, 4, 1, 8, {}),
+    "16k": (4, 16384, 64, 328, 4, 1, 8, {}),
+    "D8": (8, 512, 8, 16, 8, 1, 8, {}),
+    "D33 M2": (4, 250, 33, 9, 4, 2, 16, {}),
+    "G1": (4, 300, 32, 9, 1, 1, 8, {}),
+    "G32 M3": (3, 100, 32, 5, 32, 3, 8, {}),
+    "E0": (4, 256, 32, 9, 4, 1, 0, {}),
+    "ordered": (4, 256, 32, 9, 4, 1, 40, {"ordered": True}),
+    "empty": (3, 256, 32, 9, 4, 1, 8, {"empty": 0.95,
+                                       "empty_stream": True}),
+    "global bitmap": (2, 32_768, 64, 300, 4, 1, 8, {}),
+    "B=65537": (65_537, 4, 32, 2, 4, 1, 8, {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["flags", "counts"])
+@pytest.mark.parametrize("case", list(SERVING_SHAPES))
+def test_serving_counts_match_plain(case, form, cuda):
+    """`serving_counts` on the card (one launch of its kernel, on the path
+    its shapes choose) == the plain versions on the card, bit for bit:
+    the counts, or the matching and prediction words at theta_m one below
+    theta_a and at theta_m = theta_a."""
+    B, C, D, A, G, M, E, kw = SERVING_SHAPES[case]
+    x = testing.serving_inputs(B + C + G + M + E, B, C, D, A, G, M, E,
+                               device=cuda, **kw)
+    tab = psv.ServingTable(x["rows"], x["ext_col"])
+    args = (x["cols"], x["bits"])
+    want = psv.serving_counts_ref(tab, *args, C, D, G)
+    path = (kernels._bitmap(C, D), form, kernels._segment_regs(G))
+    if form == "counts":
+        before = kernels.launch_counts()
+        got = psv.serving_counts(tab, *args, C, D, G)
+        torch.cuda.synchronize()
+        assert launched(before) == only(serving_counts=1)
+        assert kernels.SERVING_COUNTS.path == path
+        assert torch.equal(got, want)
+        assert bool((want > 0).any())
+        return
+    theta_a = max(1, int(want[want > 0].float().median()))
+    for theta_m in (theta_a - 1, theta_a):
+        th = (theta_m, theta_a)
+        ref = psv.serving_flags_ref(tab, *args, x["seg_cell"], C, D, *th)
+        before = kernels.launch_counts()
+        got = psv.serving_flags(tab, *args, x["seg_cell"], C, D, *th)
+        torch.cuda.synchronize()
+        assert launched(before) == only(serving_counts=1)
+        assert kernels.SERVING_COUNTS.path == path
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert bool((ref[0] != 0).any()) and bool((ref[1] != 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["dtype", "ext_col", "seg_cell", "align",
+                                 "rows"])
+def test_serving_counts_rejects_bad_inputs(bad, cuda):
+    """The `serving_counts` wrappers raise on int64 words, an ext_col of
+    another stream count, owners of another shape, misaligned rows and a
+    table whose rows do not fit C columns, and launch nothing."""
+    x = testing.serving_inputs(1, 2, 64, 32, 5, 4, 1, 8, device=cuda)
+    C = 64
+    if bad == "dtype":
+        x["rows"] = x["rows"].long()
+    elif bad == "ext_col":
+        x["ext_col"] = x["ext_col"][:1]
+    elif bad == "seg_cell":
+        x["seg_cell"] = x["seg_cell"][:, :32].contiguous()
+    elif bad == "align":
+        flat = torch.empty(x["rows"].numel() + 1, dtype=torch.int32,
+                           device=cuda)
+        x["rows"] = flat[1:].view(x["rows"].shape)
+    else:
+        C = 63
+    before = kernels.launch_counts()
+    with pytest.raises((TypeError, ValueError)):
+        kernels.serving_flags_cuda(x["rows"], x["ext_col"], x["cols"],
+                                   x["bits"], x["seg_cell"], C, 32, 2, 3)
     assert launched(before) == only()

@@ -540,15 +540,17 @@ def test_grow_select_dispatch_runs_the_plain_version_on_the_cpu():
 def test_step_launches_count_growth_and_packs():
     """A learning step launches one `row_counts`, one `grow_select` and
     one `learn_rows`, every step one `column_decide` (which writes the
-    active and winner cells' words) and no `pack_bits` but a serving
-    step's one (its matching flags; the other steps' come from
-    `seg_counts`' flags form; `testing.step_launches`, which the card's
-    checks compare exactly); a `tm_resume` decides and packs nothing."""
+    active and winner cells' words) and no step a `pack_bits` (the
+    matching flags come from `seg_counts`' flags form, and a packed
+    serving step's from `serving_counts`'; `testing.step_launches`,
+    which the card's checks compare exactly); a `tm_resume` decides and
+    packs nothing."""
     got = testing.step_launches(table_update=5, act_conn=2, act_frozen=1,
-                                serving_activation=4)
+                                serving_counts=4)
     assert got["grow_select"] == got["learn_rows"] == got["row_counts"] == 5
     assert got["column_decide"] == 12
-    assert got["pack_bits"] == 4
+    assert got["pack_bits"] == 0
+    assert got["seg_counts"] == 8 and got["serving_counts"] == 4
     assert "grow_fill" not in got
     resumed = testing.step_launches(act_conn=1, sp_steps=0, column_decide=0)
     assert (resumed["pack_bits"], resumed["column_decide"],

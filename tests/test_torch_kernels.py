@@ -208,7 +208,8 @@ def test_table_entry_points_take_column_dim():
         assert kernels._ARGTYPES[name][n_ptr:n_ptr + 8] == [ctypes.c_int] * 8
 
 
-@pytest.mark.parametrize("name", ["table_pass_grid", "word_pass_grid"])
+@pytest.mark.parametrize("name", ["table_pass_grid", "word_pass_grid",
+                                  "serving_counts_grid"])
 def test_grid_queries_match_their_signatures(name):
     """Each row-range grid query is named in the sources with the C
     parameter types its ctypes argument types give, and stays out of
@@ -241,11 +242,17 @@ def test_cuda_source_names_both_entry_points():
     # that XLA fuses into one pass
     assert "bithtm_tpu/ops/overlap.py:85" in src["overlap_pass.cu"]
     assert "bithtm_tpu/ops/active_set.py:588" in src["count_pass.cu"]
+    # serving_counts: the JAX serving_counts, whose activation is the
+    # Pallas serving kernel
+    assert "bithtm_tpu/ops/serving.py\n// :205" in src[
+        "serving_count_pass.cu"]
+    assert "pallas_kernels.py:835" in src["serving_count_pass.cu"]
     # sp_rows: the JAX step's sparse-row update, which has none either
     assert "bithtm_tpu/models/spatial_pooler.py:81" in src["sp_pass.cu"]
     for name in kernels.SOURCES:
         assert ('#include "active_bitmap.cuh"' in src[name]) == (
-            name in ("table_pass.cu", "serving_pass.cu", "sp_pass.cu"))
+            name in ("table_pass.cu", "serving_pass.cu", "sp_pass.cu",
+                     "serving_count_pass.cu"))
     assert Path(kernels.library_path()).parent == kernels.BUILD_DIR
 
 
@@ -331,6 +338,22 @@ PATH_CALLS = {
     "streams below, sp_overlap": (lambda: kernels.sp_overlap_cuda(
         _view(65_535, 2, 128, dtype=torch.uint8),
         _view(65_535, 1000, dtype=torch.bool)), "sp_overlap", ("grid_y",)),
+    # the compact serving pass: the bitmap, the form and the tally's
+    # registers from the shapes (G on both sides of each line), rows C*M
+    # + E of any M
+    "bitmap, serving counts": (lambda: kernels.serving_counts_cuda(
+        _view(1, 4 * 32_768 + 8, 128), _view(1, 8), *_active(1, W=2),
+        32_768, 64, 4), "serving_counts", ("global", "counts", "g4")),
+    **{f"serving flags G{G}": (
+        lambda G=G: kernels.serving_flags_cuda(
+            _view(2, 3 * 64, 128), _view(2, 0), *_active(2),
+            _view(2, 64, G), 64, 32, 2, 3),
+        "serving_counts", ("smem", "flags", name))
+       for G, name in ((1, "g4"), (4, "g4"), (5, "g8"), (8, "g8"),
+                       (9, "g16"), (16, "g16"), (17, "g32"), (32, "g32"))},
+    "serving words": (lambda: kernels.serving_counts_cuda(
+        _view(1, (1 << 23) + 1, 128), _view(1, 1), *_active(1), 1 << 23, 4,
+        4), "serving_counts", None),
     # the count decode reads the activity in its type on both sides of
     # each act_dtype line
     **{f"counts K{K}": (
@@ -392,16 +415,20 @@ def test_step_launches_count_the_overlap_and_the_decode():
     """An HTM step launches its table kernel, one `sp_overlap`, one
     `sp_select` and, after
     every kernel that writes the packed activity, one `seg_counts`, and
-    a learning step one `sp_rows` (`testing.step_launches`, which the
-    card's checks compare exactly); on CPU tensors the dispatchers launch
-    nothing."""
+    a learning step one `sp_rows`; a packed serving step's one kernel
+    after the SP is `serving_counts`, with no `seg_counts`,
+    `serving_activation` or `pack_bits` (`testing.step_launches`, which
+    the card's checks compare exactly); on CPU tensors the dispatchers
+    launch nothing."""
     from bithtm_tpu_torch.testing import step_launches
 
     got = step_launches(table_update=5, act_conn=2, small_table_take=5)
     assert set(got) == {k.name for k in kernels.KERNELS}
     assert got["sp_overlap"] == got["seg_counts"] == 7
-    assert step_launches(serving_activation=4)["seg_counts"] == 0
-    assert step_launches(serving_activation=4)["sp_overlap"] == 4
+    assert step_launches(serving_counts=4)["seg_counts"] == 0
+    assert step_launches(serving_counts=4)["sp_overlap"] == 4
+    assert step_launches(serving_counts=4)["serving_activation"] == 0
+    assert step_launches(serving_counts=4)["pack_bits"] == 0
     assert step_launches(act_conn=1, sp_steps=0)["sp_overlap"] == 0
     assert got["sp_select"] == got["sp_overlap"] == 7
     assert step_launches(act_conn=1, sp_steps=0)["sp_select"] == 0

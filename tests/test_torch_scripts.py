@@ -119,6 +119,31 @@ def test_profile_step_reports_each_call_site(capsys):
     assert out["ranges_ms"] == pytest.approx(top)
 
 
+@pytest.mark.parametrize("table", ["packed", "frozen"])
+def test_profile_step_serves_from_a_table(table, capsys):
+    """``--serve --serve_table``: the packed form's counts and words run
+    under the one site `tm_step.serving_counts` (no table pass, no count
+    decode, no prediction words); the frozen form's under the table pass
+    and the count decode; the mode names the form."""
+    out = profile_step.main(["--device", "cpu", "--batch", "2",
+                             "--column_dim", "64", "--cell_dim", "4",
+                             "--input_dim", "64", "--trace_steps", "2",
+                             "--serve", "--serve_table", table])
+    assert printed_report(capsys)["sites"] == out["sites"]
+    assert out["mode"] == f"serve {table}"
+    served = {"tm_step.serving_counts"}
+    forward = {"tm_step.table_pass", "tm_step.count_decode"}
+    want, absent = (served, forward) if table == "packed" else (forward,
+                                                                 served)
+    for site in want | {"sp_step.overlap", "sp_step.select",
+                        "tm_step.column_decide"}:
+        assert out["sites"][site] > 0, site
+    assert not (absent | {"tm_step.prediction_words", "tm_step._learn"}
+                ) & set(out["sites"])
+    with pytest.raises(SystemExit):
+        profile_step.main(["--device", "cpu", "--serve_table", table])
+
+
 def test_lost_launches_counts_kernels_with_no_device_event():
     """`profile_step.lost_launches`: a host `cudaLaunchKernel` whose
     correlation id no device event carries is a kernel the profiler
@@ -284,11 +309,12 @@ def test_grow_variants_patch_the_current_source():
 
 
 @pytest.mark.parametrize("kernel", ["learn_rows", "seg_flags",
-                                    "column_decide", "sp_select"])
+                                    "column_decide", "sp_select",
+                                    "serving_counts"])
 def test_variants_patch_the_studied_source(kernel):
-    """Every variant of the `learn_rows`, flags-form, `column_decide` and
-    `sp_select` studies finds the text it patches in its source, so none
-    silently times the unpatched kernel."""
+    """Every variant of the `learn_rows`, flags-form, `column_decide`,
+    `sp_select` and `serving_counts` studies finds the text it patches in
+    its source, so none silently times the unpatched kernel."""
     source, variants, _ = grow_variants.STUDIES[kernel]
     src = (kernels.CSRC / source).read_text()
     for name, patches in variants.items():
