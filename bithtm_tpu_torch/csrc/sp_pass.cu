@@ -70,20 +70,35 @@
 // B=256, C=2048, I_pad=1024, A=41 in int16 about 44.3 MB, 0.0132 ms at
 // 3.35 TB/s; at 16384 x 64 (B=64, A=328) about 88.7 MB, 0.026 ms.
 //
-// Design. The grid is (blocks of rows of one stream, B), or with FOLD
-// the streams folded into grid x. A block stages a tile of its stream's
-// input, packed in the strided layout (up to kTile bytes, which hold
-// 8 * kTile lanes), in shared memory, and marks which of its rows repeat
-// a column that comes earlier in the stream's list. Each thread owns 8
-// neighbouring packed bytes of one row: it loads the 8 strided 16-byte
-// (int16) or 32-byte (float32) slices of those lanes together, before
-// the block stages its input, updates them with the deltas that the
-// packed input's bits select, stores them back as vectors and writes its
-// 8 packed bytes as one 8-byte store. A row of I_pad = 1024 lanes is 16
-// threads, a block 16 rows; a row wider than the tile is split across
-// blocks, one tile each. No atomics.
+// Design (an earlier one held each thread's 8 slices of a row in registers,
+// 115 to 174 a thread, 16 rows a block). The work is cut into units: 128
+// packed bytes of one row, its 8 slices of 128 lanes (the whole row where
+// I_pad = 1024), a stream's units in tile-major order. A block takes a run
+// of one stream's units: about kFillBlocks blocks over the launch, or runs
+// of at most kRunUnits units where that makes more (a stream a block at the
+// bench's 256 streams, seven at 16K's 64); the grid is (runs, B), or with
+// FOLD the streams folded into grid x. Each warp first starts its first
+// units' copies, then the block stages the input of its run's tiles once,
+// packed in the strided layout, and marks its stream's columns once in a
+// C-bit bitmap in shared memory: every entry sets its column's bit, and a
+// column whose bit was already set is marked repeated. A unit updates its
+// row unless its column is out of range, or repeated and held by an earlier
+// entry of the list (the warp checks those entries): so each row is written
+// once, by the first entry that lists it, in every block that holds a tile
+// of it. Each warp streams its units through its own stages of a ring in
+// shared memory: one lane starts a unit's TMA bulk copy (the row in one
+// copy, or its 8 slices), completion on the stage's mbarrier, kStages units
+// ahead, so the bytes in flight are the ring's and not registers. A lane
+// updates 4 lanes of each slice from the stage with the deltas the staged
+// input's bits select, stores them back to the table as a vector, and writes
+// its 4 packed bytes as one 4-byte store (a TMA bulk store of the updated
+// stage measured no faster). Past kBitmapCols columns the bitmap is not kept
+// and every unit checks the entries before its own. No atomics outside the
+// bitmaps. What holds it: the row stores (a third of the time at 16K) and
+// reads of scattered 2 KB rows at about half the card's rate.
 
 #include <climits>
+#include <type_traits>
 
 #include "active_bitmap.cuh"
 #include "launch.cuh"
@@ -295,24 +310,97 @@ int dispatch(void* perm, const void* delta, const int* cols,
 
 // ---- sp_rows
 
-constexpr int kTile = 4096;    // packed input bytes a block stages
-constexpr int kMaxRows = kThreads / (128 / kVec);   // 16 rows a block
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kRowWarps = kThreads / 32;  // 8 warps a block
+// a unit: 128 packed bytes of one row, its 8 slices of 128 lanes (the
+// whole row where S = 128), 4 packed bytes a lane
+constexpr int kUnitBytes = 128;
+constexpr int kUnitLanes = 8 * kUnitBytes;
+// a block's ring of units in shared memory, its stages split among its
+// warps: 4 a warp in int16 (2 KB a unit), 2 in float32 (4 KB)
+constexpr int kRingBytes = 64 * 1024;
+// the blocks a launch aims at (two on each of the H100's 132 SMs), and
+// the units a run of a stream holds at most where that makes more runs
+constexpr int kFillBlocks = 264;
+constexpr int kRunUnits = 48;
+// the packed input a block stages: a run's units span at most this many
+// tiles
+constexpr int kXsTiles = kRunUnits + 1;
+// the first-claim bitmaps in shared memory up to this many columns; past
+// it each unit checks its column against the entries before it
+constexpr int kBitmapCols = 65536;
 
-// The block's rows and tiles: a tile of a row is min(S, kTile) packed
-// bytes, kVec a thread, and a block takes as many rows of one tile as
-// its threads cover (at least one; I_pad is a multiple of 1024, so S is
-// a multiple of 128 and a tile at least 16 threads).
+// A stream's units, tile-major (unit u: tile u / A of entry u % A), split
+// into runs of `per` units, `per_stream` runs a stream: about kFillBlocks
+// blocks over the streams, or runs of at most kRunUnits units where that
+// makes more.
 struct RowGrid {
-  int rows, tiles, per_stream;
-  __host__ __device__ RowGrid(int S, int A) {
-    const int groups = (S < kTile ? S : kTile) / kVec;
-    rows = groups < kThreads ? kThreads / groups : 1;
-    tiles = (S + kTile - 1) / kTile;
-    per_stream = (A + rows - 1) / rows * tiles;
+  int tiles, per, per_stream;
+  __host__ __device__ RowGrid(int S, int A, int B) {
+    tiles = S / kUnitBytes;
+    const long long units = (long long)A * tiles;
+    long long runs = B > 0 ? kFillBlocks / B : 1;
+    const long long by_units = (units + kRunUnits - 1) / kRunUnits;
+    runs = runs > by_units ? runs : by_units;
+    runs = runs < 1 ? 1 : runs > units ? units : runs;
+    const long long p = (units + runs - 1) / runs;
+    per = (int)p;
+    per_stream = (int)((units + p - 1) / p);
   }
 };
 
-template <class Op, bool FOLD>
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// The bulk copy of `bytes` (a multiple of 16) from global src to shared
+// dst, its completion counted on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 4 lanes of type T: 8 bytes of int16, 16 of float32.
+template <typename T>
+struct Quad {
+  using V = typename std::conditional<sizeof(T) == 2, uint2, uint4>::type;
+  V v;
+  __device__ __forceinline__ T& operator[](int e) {
+    return reinterpret_cast<T*>(&v)[e];
+  }
+};
+
+template <class Op, bool FOLD, bool BITMAP>
 __global__ void __launch_bounds__(kThreads) sp_rows_kernel(
     typename Op::T* __restrict__ perm, uint8_t* __restrict__ pack,
     const uint8_t* __restrict__ bits, const int* __restrict__ cols, int C,
@@ -320,84 +408,153 @@ __global__ void __launch_bounds__(kThreads) sp_rows_kernel(
     Op op) {
   using T = typename Op::T;
   using D = typename Op::D;
-  __shared__ __align__(16) uint8_t xs[kTile];
-  __shared__ int skip[kMaxRows];
+  constexpr int kStages = kRingBytes / (kRowWarps * kUnitLanes * sizeof(T));
+  // the ring, the staged input, the bitmaps (seen, then repeated)
+  extern __shared__ __align__(128) uint8_t rows_buf[];
+  __shared__ uint64_t full[kRowWarps * kStages];
   const int S = I_pad >> 3;
-  const RowGrid grid(S, A);
+  const RowGrid grid(S, A, FOLD ? 0 : (int)gridDim.y);
   const size_t b = FOLD ? blockIdx.x / grid.per_stream : blockIdx.y;
-  const int blk = FOLD ? blockIdx.x - (int)(b * grid.per_stream)
+  const int run = FOLD ? blockIdx.x - (int)(b * grid.per_stream)
                        : (int)blockIdx.x;
-  const int rb = blk / grid.tiles;
-  const int t0 = (blk - rb * grid.tiles) * kTile;
-  const int tn = min(kTile, S - t0);
-  const int groups = tn / kVec;              // threads a row of this tile
-  const int a0 = rb * grid.rows;
-  const int rows = min(grid.rows, A - a0);
-  const int items = rows * groups;
+  const int u0 = run * grid.per;
+  const int u1 = min(A * grid.tiles, u0 + grid.per);
+  const int t_lo = u0 / A;
+  const int n_xs = ((u1 - 1) / A - t_lo + 1) * kUnitBytes;
+  T* ring = reinterpret_cast<T*>(rows_buf);
+  uint8_t* xs = rows_buf + kRingBytes;
+  uint32_t* seen = reinterpret_cast<uint32_t*>(
+      xs + kXsTiles * kUnitBytes);
+  uint32_t* repeated = seen + ((C + 31) >> 5);
   const int* cb = cols + b * A;
   const uint8_t* xb = bits + b * I;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  // the first item's slices are in flight while the block stages x
-  int item = threadIdx.x;
-  int c = -1;
-  Lanes<T> p[8];
-  auto load = [&](int r, int w) {
-    c = __ldg(cb + a0 + r);
-    if (c < 0 || c >= C) return;
-    const T* row = perm + ((size_t)b * C + c) * I_pad + t0 + w;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) p[j].load(row + (size_t)j * S);
+  // the unit's tile and column (-1: an entry out of range)
+  auto unit_col = [&](int u, int* tile) -> int {
+    const int t = u / A, r = u - t * A;
+    *tile = t;
+    const int c = __ldg(cb + r);
+    return c >= 0 && c < C ? c : -1;
   };
-  if (item < items) load(item / groups, item % groups * kVec);
+  // the warp's k-th unit (u0 + warp + k * kRowWarps) into its stage
+  // k % kStages, where its entry is in range: one bulk copy of the row
+  // where it is one tile, else one a slice
+  const int n_mine = u0 + warp < u1 ? (u1 - u0 - warp - 1) / kRowWarps + 1
+                                    : 0;
+  auto fetch = [&](int k) {
+    int t;
+    const int c = unit_col(u0 + warp + k * kRowWarps, &t);
+    if (c < 0 || lane != 0) return;
+    const int s = k % kStages;
+    T* dst = ring + (warp * kStages + s) * kUnitLanes;
+    const T* src = perm + ((size_t)b * C + c) * I_pad + t * kUnitBytes;
+    uint64_t* bar = full + warp * kStages + s;
+    bar_expect(bar, kUnitLanes * sizeof(T));
+    if (S == kUnitBytes) {
+      bulk_load(dst, src, kUnitLanes * sizeof(T), bar);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        bulk_load(dst + j * kUnitBytes, src + (size_t)j * S,
+                  kUnitBytes * sizeof(T), bar);
+    }
+  };
+  // each warp's stages, and its first units' copies in flight before the
+  // block stages its input and marks its columns (a unit whose row an
+  // earlier entry holds loads it too, and drops it)
+  if (lane == 0) {
+    for (int s = 0; s < kStages; ++s) bar_init(full + warp * kStages + s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  for (int k = 0; k < kStages && k < n_mine; ++k) fetch(k);
 
-  if (threadIdx.x < rows) skip[threadIdx.x] = 0;
-  __syncthreads();
-  for (int w = threadIdx.x; w < tn; w += kThreads) {
+  if constexpr (BITMAP) {
+    for (int i = threadIdx.x; i < 2 * ((C + 31) >> 5); i += kThreads)
+      seen[i] = 0u;
+  }
+  // the input of the run's tiles, packed as the table is: bit j of byte w
+  // is input j * S + w
+  for (int w = threadIdx.x; w < n_xs; w += kThreads) {
+    const int at = t_lo * kUnitBytes + w;
     unsigned byte = 0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const long long i = (long long)j * S + t0 + w;
+      const long long i = (long long)j * S + at;
       if (i < I) byte |= (xb[i] != 0 ? 1u : 0u) << j;
     }
     xs[w] = static_cast<uint8_t>(byte);
   }
-  // a row whose column comes earlier in the list is another's: each of
-  // the block's rows against the entries before it
-  const int span = a0 + rows - 1;
-  for (int q = threadIdx.x; q < rows * span; q += kThreads) {
-    const int r = q / span, e = q - r * span;
-    if (e < a0 + r && __ldg(cb + e) == __ldg(cb + a0 + r)) skip[r] = 1;
-  }
   __syncthreads();
-
-  for (; item < items; item += kThreads) {
-    const int r = item / groups;
-    const int w = (item - r * groups) * kVec;
-    if (item != (int)threadIdx.x) load(r, w);
-    if (c < 0 || c >= C || skip[r]) continue;
-    const uint2 xw = *reinterpret_cast<const uint2*>(xs + w);
-    const uint64_t x = (uint64_t)xw.y << 32 | xw.x;
-    T* row = perm + ((size_t)b * C + c) * I_pad + t0 + w;
-    uint8_t byte[kVec] = {0, 0, 0, 0, 0, 0, 0, 0};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int lane0 = j * S + t0 + w;
-      Lanes<T> q;
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        const D d = lane0 + e >= I ? D(0)
-                    : ((x >> (8 * e + j)) & 1u) ? d_on : d_off;
-        bool conn;
-        q[e] = op.add(p[j][e], d, &conn);
-        byte[e] |= static_cast<uint8_t>(conn) << j;
+  if constexpr (BITMAP) {
+    // every entry of the stream marks its column; a column marked twice
+    // is repeated
+    for (int a = threadIdx.x; a < A; a += kThreads) {
+      const int c = __ldg(cb + a);
+      if (c >= 0 && c < C) {
+        const uint32_t bit = 1u << (c & 31);
+        if (atomicOr(seen + (c >> 5), bit) & bit)
+          atomicOr(repeated + (c >> 5), bit);
       }
-      q.store(row + (size_t)j * S);
     }
-    uint2 out;
-    out.x = byte[0] | byte[1] << 8 | byte[2] << 16 | (uint32_t)byte[3] << 24;
-    out.y = byte[4] | byte[5] << 8 | byte[6] << 16 | (uint32_t)byte[7] << 24;
-    *reinterpret_cast<uint2*>(pack + ((size_t)b * C + c) * S + t0 + w) = out;
+    __syncthreads();
   }
+  // whether entry r's unit updates column c's row: c is not repeated, or
+  // no earlier entry lists it. Every lane of the warp calls it.
+  auto owns = [&](int r, int c) -> bool {
+    if (BITMAP && !((repeated[c >> 5] >> (c & 31)) & 1u)) return true;
+    bool earlier = false;
+    for (int e = lane; e < r; e += 32) earlier |= __ldg(cb + e) == c;
+    return !__any_sync(kAll, earlier);
+  };
+
+  uint32_t phase = 0;  // bit s: the parity stage s waits for
+  for (int k = 0; k < n_mine; ++k) {
+    const int s = k % kStages;
+    const int u = u0 + warp + k * kRowWarps;
+    int t;
+    const int c = unit_col(u, &t);
+    if (c >= 0) {
+      bar_wait(full + warp * kStages + s, (phase >> s) & 1u);
+      phase ^= 1u << s;
+    }
+    if (c >= 0 && owns(u - t * A, c)) {
+      const T* st = ring + (warp * kStages + s) * kUnitLanes;
+      const int w = 4 * lane;  // the lane's packed bytes in the tile
+      const uint32_t x = *reinterpret_cast<const uint32_t*>(
+          xs + (t - t_lo) * kUnitBytes + w);
+      T* row = perm + ((size_t)b * C + c) * I_pad + t * kUnitBytes + w;
+      uint32_t packed = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        Quad<T> q;
+        q.v = *reinterpret_cast<const typename Quad<T>::V*>(
+            st + j * kUnitBytes + w);
+        const int lane0 = j * S + t * kUnitBytes + w;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const D d = lane0 + e >= I ? D(0)
+                      : ((x >> (8 * e + j)) & 1u) ? d_on : d_off;
+          bool conn;
+          q[e] = op.add(q[e], d, &conn);
+          packed |= static_cast<uint32_t>(conn) << (8 * e + j);
+        }
+        *reinterpret_cast<typename Quad<T>::V*>(row + (size_t)j * S) = q.v;
+      }
+      *reinterpret_cast<uint32_t*>(pack + ((size_t)b * C + c) * S +
+                                   t * kUnitBytes + w) = packed;
+    }
+    __syncwarp();  // every lane is done with the stage
+    if (k + kStages < n_mine) fetch(k + kStages);
+  }
+}
+
+// The dynamic shared memory of sp_rows_kernel: the ring, the staged input
+// and, on the bitmap path, two bitmaps of C bits.
+inline size_t rows_smem(int C, bool bitmap) {
+  return kRingBytes + kXsTiles * kUnitBytes +
+         (bitmap ? 8 * (size_t)((C + 31) >> 5) : 0);
 }
 
 template <class Op>
@@ -405,18 +562,26 @@ int launch_rows(void* perm, uint8_t* pack, const uint8_t* bits,
                 const int* cols, int B, int C, int I, int I_pad, int A,
                 typename Op::D d_on, typename Op::D d_off, int fold, Op op,
                 cudaStream_t stream) {
-  const RowGrid g(I_pad / 8, A);
+  const RowGrid g(I_pad / 8, A, fold ? 0 : B);
   auto* p = static_cast<typename Op::T*>(perm);
-  if (fold) {
-    const long long blocks = (long long)g.per_stream * B;
-    if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-    sp_rows_kernel<Op, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        p, pack, bits, cols, C, I, I_pad, A, d_on, d_off, op);
-  } else {
-    sp_rows_kernel<Op, false><<<dim3(g.per_stream, B), kThreads, 0, stream>>>(
-        p, pack, bits, cols, C, I, I_pad, A, d_on, d_off, op);
-  }
-  return (int)cudaGetLastError();
+  const bool bitmap = C <= kBitmapCols;
+  const size_t smem = rows_smem(C, bitmap);
+  return bithtm::with_bool(fold != 0, [&](auto folded) {
+    return bithtm::with_bool(bitmap, [&](auto bm) {
+      constexpr bool kFold = decltype(folded)::value;
+      auto kernel = sp_rows_kernel<Op, kFold, decltype(bm)::value>;
+      if (int err = bithtm::allow_shared(kernel, smem)) return err;
+      dim3 grid(g.per_stream, B);
+      if constexpr (kFold) {
+        const long long blocks = (long long)g.per_stream * B;
+        if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+        grid = dim3((unsigned)blocks, 1);
+      }
+      kernel<<<grid, kThreads, smem, stream>>>(p, pack, bits, cols, C, I,
+                                               I_pad, A, d_on, d_off, op);
+      return (int)cudaGetLastError();
+    });
+  });
 }
 
 }  // namespace

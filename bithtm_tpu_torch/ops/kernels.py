@@ -14,12 +14,13 @@ here runs when the module is imported.
 Each wrapper first chooses its kernel's path from the shapes alone
 (`_bitmap`, `_streams`, `_act_bytes`, `_delta`, `_grow_keys`,
 `_rows_mode`, `_fill_path`, `_pack_path`, `_select_path`,
-`_segment_regs`, the decisions' mode: the
+`_row_claims`, `_segment_regs`, the decisions' mode: the
 bitmap in shared or in
 global memory, the packed activity's type, the streams in grid y or
 folded into grid x, the SP delta row staged or read from global memory,
-the growth keys' form and where they live, where the SP's selection
-keeps its keys and its winners, the registers a lane tallies a
+the growth keys' form and where they live, the SP selection's grid, where
+it keeps its keys and its winners and how it places them, how the SP's
+row update finds repeated columns, the registers a lane tallies a
 compact serving row's segments in, whether the active rows are
 read where they lie in the tables or from gathered rows, how the fill
 reads its cells, the pack's loads; README.md, port section) and
@@ -68,10 +69,27 @@ MAX_SHARED_BYTES = 232_448  # what one Hopper block may opt in to
 MAX_BITMAP_CELLS = 8 * MAX_SHARED_BYTES   # 1,859,584
 MAX_STREAM_WORDS = 1 << 30  # a stream's words, indexed in int32 on the card
 MAX_GRID_Y = 65_535         # streams of a kernel with one grid row a stream
-# `sp_select`: the columns whose keys a block of 1,024 threads holds in
-# registers (16 a thread), and the winners' pairs it keeps in shared memory
+# `sp_select`: a warp a stream up to 64 winners and 128 columns; the
+# columns whose keys a block of 1,024 threads holds in registers (16 a
+# thread; a cluster of two blocks, 8 a thread, past 8,192 columns at up to
+# 132 streams and 512 winners); the winners placed by counting up to 512
+# of them, else by the LSD radix sort, whose two lists (16 bytes a winner)
+# a block keeps in shared memory up to SELECT_LIST_BYTES, else a cluster
+# of 8 blocks a stream sorts them in global memory
+SELECT_WARP_COLUMNS = 128
+SELECT_WARP_WINNERS = 64
 SELECT_REG_COLUMNS = 16_384
-SELECT_LIST_BYTES = 200 * 1024
+SELECT_CLUSTER_COLUMNS = 8192
+SELECT_CLUSTER_STREAMS = 132
+SELECT_RANK_WINNERS = 512
+SELECT_LIST_BYTES = 160 * 1024
+SELECT_SORT_BLOCKS = 8
+# `sp_rows`: the columns whose first-claim bitmaps a block keeps in shared
+# memory; the blocks a launch aims at (two on each of the H100's 132 SMs)
+# and the units a run holds at most where that makes more runs
+SP_ROWS_BITMAP_COLUMNS = 65_536
+SP_ROWS_FILL_BLOCKS = 264
+SP_ROWS_RUN_UNITS = 48
 
 _VP, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                     ctypes.c_longlong)
@@ -457,14 +475,58 @@ def _pack_path(D: int) -> str:
     return next(f"v{v}" for v in (8, 4, 1) if D % v == 0)
 
 
-def _select_path(C: int, A: int) -> tuple[str, str]:
-    """`sp_select`'s path for C columns and A winners a stream: where a
-    thread keeps its columns' keys, "regs" up to SELECT_REG_COLUMNS
-    columns, else "global" (read again from the boosted values it wrote);
-    where the block keeps its A winners' (key, column) pairs, "smem" up
-    to SELECT_LIST_BYTES, else "global", in a (B, A) int64 scratch."""
-    return ("regs" if C <= SELECT_REG_COLUMNS else "global",
-            "smem" if 8 * A <= SELECT_LIST_BYTES else "global")
+def _select_path(B: int, C: int, A: int) -> tuple[str, str, str]:
+    """`sp_select`'s path for B streams of C columns and A winners: the
+    grid and where the keys live: "warp" (a warp a stream, its keys in
+    registers) up to SELECT_WARP_WINNERS winners and SELECT_WARP_COLUMNS
+    columns; "cluster" (two blocks a stream, its keys in their registers)
+    past SELECT_CLUSTER_COLUMNS up to SELECT_REG_COLUMNS columns at up to
+    SELECT_CLUSTER_STREAMS streams and SELECT_RANK_WINNERS winners; else a
+    block a stream with its keys in registers ("regs") up to
+    SELECT_REG_COLUMNS columns, else read again from the boosted values it
+    wrote ("global"). How the winners are placed: "rank" (by counting the
+    pairs above each) up to SELECT_RANK_WINNERS, else "lsd" (a stable LSD
+    radix sort of the list by the block), or "cluster_lsd" (by a cluster
+    of SELECT_SORT_BLOCKS blocks a stream) where the lists live in global
+    memory. Where their (key, column) lists live: "smem", or "global" (a
+    (B, 2A) int64 scratch) where the sort's two lists pass
+    SELECT_LIST_BYTES."""
+    if A <= SELECT_WARP_WINNERS and C <= SELECT_WARP_COLUMNS:
+        grid = "warp"
+    elif (SELECT_CLUSTER_COLUMNS < C <= SELECT_REG_COLUMNS
+          and B <= SELECT_CLUSTER_STREAMS and A <= SELECT_RANK_WINNERS):
+        grid = "cluster"
+    else:
+        grid = "regs" if C <= SELECT_REG_COLUMNS else "global"
+    places = "rank" if A <= SELECT_RANK_WINNERS else "lsd"
+    if places == "lsd" and 16 * A > SELECT_LIST_BYTES:
+        return grid, "global", "cluster_lsd"
+    return grid, "smem", places
+
+
+def sp_rows_runs(B: int, I_pad: int, A: int) -> tuple[int, int, int]:
+    """`sp_rows`' grid from the shapes (csrc/sp_pass.cu `RowGrid`):
+    (tiles a row, units a run, runs a stream). A unit is a tile of 128
+    packed bytes of one row; a stream's A * tiles units, tile-major, are
+    cut into runs of one block each, about SP_ROWS_FILL_BLOCKS over the B
+    streams, or runs of at most SP_ROWS_RUN_UNITS units where that makes
+    more."""
+    tiles = I_pad // 1024
+    units = A * tiles
+    if units == 0:
+        return tiles, 0, 0
+    runs = min(max(1, SP_ROWS_FILL_BLOCKS // max(B, 1),
+                   -(-units // SP_ROWS_RUN_UNITS)), units)
+    per = -(-units // runs)
+    return tiles, per, -(-units // per)
+
+
+def _row_claims(C: int) -> str:
+    """How `sp_rows` finds the entries that repeat an earlier entry's
+    column: "bitmap", each block marking its stream's columns in two
+    C-bit bitmaps in shared memory, up to SP_ROWS_BITMAP_COLUMNS columns,
+    else "scan" (each unit checks the entries before its own)."""
+    return "bitmap" if C <= SP_ROWS_BITMAP_COLUMNS else "scan"
 
 
 def _segment_regs(G: int) -> str:
@@ -836,7 +898,7 @@ def sp_rows_cuda(permanence, connected, input_bits, active_cols, d_on,
         raise ValueError(f"an int16 table takes integer deltas and "
                          f"threshold in units, got {d_on}, {d_off} and "
                          f"{threshold}")
-    path = SP_ROWS.choose(_streams(B))
+    path = SP_ROWS.choose(_streams(B), _row_claims(C))
     dev = permanence.get_device()
     perm_p = _ptr("permanence", permanence, permanence.dtype, None, dev,
                   align=16)
@@ -1245,7 +1307,7 @@ def sp_select_cuda(overlaps, duty_cycle, k: int, scale: float,
     B, C = overlaps.shape
     if not 0 <= k <= C:
         raise ValueError(f"k={k} winners must be in [0, C={C}]")
-    path = SP_SELECT.choose(*_select_path(C, k))
+    path = SP_SELECT.choose(*_select_path(B, C, k))
     dev = overlaps.get_device()
     ov_p = _ptr("overlaps", overlaps, torch.int32, None, dev, align=16)
     duty_p = _ptr("duty_cycle", duty_cycle, torch.float32, (B, C), dev,
@@ -1258,7 +1320,7 @@ def sp_select_cuda(overlaps, duty_cycle, k: int, scale: float,
            new(C, torch.float32))
     if B * C == 0:
         return out
-    scratch = new(k, torch.int64) if path[1] == "global" else None
+    scratch = new(2 * k, torch.int64) if path[1] == "global" else None
     SP_SELECT.launch(ov_p, duty_p, *(t.data_ptr() for t in out[:3]),
                      out[3].data_ptr(),
                      None if scratch is None else scratch.data_ptr(),

@@ -14,7 +14,9 @@ same activity as "reference") or ``column_decide``
 (`csrc/decide_pass.cu`, `DECIDE_VARIANTS`: the learning mode on
 `testing.decide_inputs`, its owners updated by each call) or
 ``sp_select`` (`csrc/select_pass.cu`, `SELECT_VARIANTS`, on
-`testing.select_inputs`) or ``serving_counts`` (`csrc/
+`testing.select_inputs`) or ``sp_rows`` (`csrc/sp_pass.cu`,
+`ROWS_VARIANTS`, on int16 and float32 tables, each of the 20 calls of a
+graph at its own disjoint columns) or ``serving_counts`` (`csrc/
 serving_count_pass.cu`, `SERVING_VARIANTS`: the flags form on
 `testing.serving_inputs` at the learned tables' share of active words,
 and `serving_activation` over the same rows as "reference"). A variant
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import shutil
 import statistics
@@ -47,11 +50,13 @@ import subprocess
 import torch
 
 from .. import testing
-from ..config import TMConfig
+from ..config import TMConfig, make_htm_config
+from ..models import spatial_pooler as psp
 from ..models import temporal_memory as ptm
 from ..ops import active_set as pas
 from ..ops import kernels
 from ..ops import regularization as preg
+from ..ops.overlap import padded_input_dim
 
 # B, C, D, A, G, K, Wc, L, samp (chip_smoke.py GROW_MAIN)
 SHAPES = {
@@ -160,24 +165,73 @@ DECIDE_VARIANTS = {
                   "    for (int g = 0; g < 0; ++g) {\n      const int kg")],
 }
 # `sp_select`: the float64 exp as float32 `__expf` (wrong bits); the
-# bin's pairs ranked only up to 64 or 256 of them (else more passes); 16
-# columns a thread with 4-byte loads, not 16-byte ones; the winners'
-# places cut, or counted by one thread a winner (not kThreads / A of
-# them); 1,024 threads a block at the bench's C (8 columns a thread,
-# as at 4,096-8,192 columns), not 256
+# winners placed by the LSD sort past 128 of them (16K's 328 too), or at
+# any count (the bench's 41 too); the places cut; their count's loop not
+# unrolled; a block a stream where a warp a stream takes the streams
+# (65,536 streams of 64 columns), or a warp a stream up to 512 columns
+# (the anomaly stack's 256 of 512 columns); the lists in global memory
+# sorted by the stream's one block, not a cluster of 8; 512 threads of 4
+# columns at the bench's 2,048, not 256 of 8; a block a stream at 16K,
+# not a cluster of two
 SELECT_VARIANTS = {
     "base": [],
     "f32_exp": [("(float)exp((double)__fmul_rn(scale, duty))",
                  "__expf(__fmul_rn(scale, duty))")],
-    "rank_64": [("if (count <= kThreads) {", "if (count <= 64) {")],
-    "rank_256": [("if (count <= kThreads) {", "if (count <= 256) {")],
-    "scalar_16": [("kKeys > 0 && p.C % 4 == 0", "kKeys == 8 && p.C % 4 == 0")],
-    "no_places": [(
-        "      for (int j = part; j < A; j += parts) r += list[j] > pair;",
-        "      r = part ? 0 : i;")],
-    "one_thread_a_place": [("const int parts = A > 0 && A <= kThreads ?",
-                            "const int parts = false ?")],
-    "threads_1024": [("if (C <= 256 * 8) return", "if (C <= 0) return")],
+    "lsd_past_128": [("constexpr int kRankMax = 512;",
+                      "constexpr int kRankMax = 128;")],
+    "lsd_always": [("constexpr int kRankMax = 512;",
+                    "constexpr int kRankMax = 0;")],
+    "no_places": [
+        ("#pragma unroll 4\n      for (int j = part; j < A; j += parts) r += "
+         "list[j] > pair;", "      r = part ? 0 : first + k * step;"),
+        ("lsd_sort<kCluster>(list, list + A, A, diff, counts, sh)", "list")],
+    "no_warp_grid": [("  const bool warp = A <= kWarpList && C <= "
+                      "kWarpCols;", "  const bool warp = false;")],
+    "warp_grid_to_512": [("constexpr int kWarpCols = 128;",
+                          "constexpr int kWarpCols = 512;")],
+    "rank_rolled": [("#pragma unroll 4\n      for (int j = part; j < A; "
+                     "j += parts)", "      for (int j = part; j < A; "
+                     "j += parts)")],
+    "sort_one_block": [("constexpr int kSortBlocks = 8;",
+                        "constexpr int kSortBlocks = 1;")],
+    "threads_512": [(
+        "  if (C <= 256 * 8) return launch<256, 8>(p, B, smem, s);",
+        "  if (C <= 256 * 4) return launch<256, 8>(p, B, smem, s);\n"
+        "  if (C <= 512 * 4) return launch<512, 4>(p, B, smem, s);")],
+    "no_cluster": [("  if (C <= kSplitBlocks * kMaxThreads * 8 && B <= "
+                    "kSplitStreams && !lsd)",
+                    "  if (false)")],
+}
+# `sp_rows`: the input staging cut; the first-claim marks cut; the row
+# stores cut; the packed bytes' store cut; the update's arithmetic cut (a
+# compare kept); runs of any size or of at most 24 units, not 48; a ring of
+# 32 KB or 128 KB a block, not 64 KB (2 or 8 units in flight a warp in
+# int16); half or twice the blocks a launch
+_RING = ("constexpr int kRingBytes = 64 * 1024;",)
+_FILL = ("constexpr int kFillBlocks = 264;",)
+ROWS_VARIANTS = {
+    "base": [],
+    "no_staging": [("  for (int w = threadIdx.x; w < n_xs; w += kThreads) {",
+                    "  for (int w = threadIdx.x; w < 0; w += kThreads) {")],
+    "no_claims": [("    for (int a = threadIdx.x; a < A; a += kThreads) {\n"
+                   "      const int c = __ldg(cb + a);",
+                   "    for (int a = threadIdx.x; a < 0; a += kThreads) {\n"
+                   "      const int c = __ldg(cb + a);")],
+    "no_stores": [("        *reinterpret_cast<typename Quad<T>::V*>(row + "
+                   "(size_t)j * S) = q.v;\n", "")],
+    "no_pack": [("      *reinterpret_cast<uint32_t*>(pack + ((size_t)b * C + c)"
+                 " * S +\n                                   t * kUnitBytes + "
+                 "w) = packed;", "")],
+    "no_math": [("          q[e] = op.add(q[e], d, &conn);",
+                 "          conn = q[e] > d;")],
+    "run_units_any": [("constexpr int kRunUnits = 48;",
+                       "constexpr int kRunUnits = 1 << 30;")],
+    "run_units_24": [("constexpr int kRunUnits = 48;",
+                      "constexpr int kRunUnits = 24;")],
+    "ring_32k": [(_RING[0], "constexpr int kRingBytes = 32 * 1024;")],
+    "ring_128k": [(_RING[0], "constexpr int kRingBytes = 128 * 1024;")],
+    "fill_132": [(_FILL[0], "constexpr int kFillBlocks = 132;")],
+    "fill_528": [(_FILL[0], "constexpr int kFillBlocks = 528;")],
 }
 # `serving_counts` (flags form): eight or two waves of blocks in the range
 # grid, not one; two or eight columns a warp at once, not four; the sums
@@ -192,6 +246,12 @@ SERVING_VARIANTS = {
     "cols8": [("constexpr int kCols = 4;", "constexpr int kCols = 8;")],
     "no_skip": [("if (__any_sync(kAll, any)) {", "if (true) {")],
 }
+# B, C, I, A, the permanence type (chip_smoke.py SP_ROWS_MAIN)
+ROWS_SHAPES = {
+    "bench": (256, 2048, 1000, 41, "int16"),
+    "16k_tuned": (64, 16384, 1000, 328, "int16"),
+    "anomaly": (256, 512, 352, 16, "float32"),
+}
 # kernel: (source, variants, shapes)
 STUDIES = {
     "grow_select": ("grow_pass.cu", VARIANTS, SHAPES),
@@ -204,11 +264,18 @@ STUDIES = {
                        "16k_tuned": (64, 16384, 64, 328, 4, 64)}),
     "sp_select": ("select_pass.cu", SELECT_VARIANTS,  # B, C, A
                   {"bench": (256, 2048, 41),
-                   "16k_tuned": (64, 16384, 328)}),
+                   "16k_tuned": (64, 16384, 328),
+                   "16k_b8": (8, 16384, 328),
+                   "16k_b32": (32, 16384, 328),
+                   "c250_a1": (2, 250, 1),
+                   "anomaly": (256, 512, 16),
+                   "streams": (65_536, 64, 5),
+                   "global_list": (2, 30_000, 30_000)}),
     "serving_counts": ("serving_count_pass.cu", SERVING_VARIANTS,
                        # B, C, D, A, G, M, E
                        {"bench": (256, 2048, 32, 41, 4, 1, 0),
                         "16k_tuned": (64, 16384, 64, 328, 4, 1, 0)}),
+    "sp_rows": ("sp_pass.cu", ROWS_VARIANTS, ROWS_SHAPES),
 }
 
 
@@ -304,6 +371,32 @@ def study_calls(kernel: str, geo: tuple, dev) -> tuple:
         args = (A, testing.SELECT_INTENSITY, A / C, testing.SELECT_MOMENTUM)
         return (lambda: preg.sp_select(ov, duty, *args)), None, \
             kernels.SP_SELECT, None
+    if kernel == "sp_rows":
+        # 20 sets of A columns a stream, no column in two sets: each call
+        # of a graph of 20 finds its rows out of the L2 cache (the work
+        # does not depend on the values: no restore)
+        B, C, I, A, dtype = geo
+        cfg = make_htm_config(I, C, 4, active_columns=A, sp_overrides={
+            "permanence_dtype": dtype}).sp
+        g = torch.Generator(device=dev).manual_seed(B + C + I + A)
+        shape = (B, C, padded_input_dim(I))
+        if dtype == "int16":
+            perm = torch.randint(-300, 300, shape, generator=g, device=dev,
+                                 dtype=torch.int16)
+        else:
+            perm = (torch.rand(shape, generator=g, device=dev) - 0.5) * 0.2
+        conn = torch.zeros(shape[:2] + (shape[2] // 8,), dtype=torch.uint8,
+                           device=dev)
+        x = torch.rand((B, I), generator=g, device=dev) < 0.2
+        n = max(1, min(20, C // A))
+        order = torch.argsort(torch.rand((B, C), generator=g, device=dev),
+                              dim=1)[:, :n * A].reshape(B, n, A)
+        sets = itertools.cycle([c.to(torch.int32).contiguous()
+                                for c in order.unbind(1)])
+        steps = psp.hebbian_steps(cfg)
+        return (lambda: kernels.sp_rows_cuda(perm, conn, x, next(sets),
+                                             *steps)), None, \
+            kernels.SP_ROWS, None
     if kernel == "column_decide":
         B, C, D, A, G, K = geo
         cfg = TMConfig(column_dim=C, cell_dim=D, active_columns=A,

@@ -18,15 +18,19 @@ shapes, each in a CUDA graph of 20 calls, and on every path their
 wrappers report; `sp_rows`, the SP's update of its active rows and
 their connected words in place, in the phase `check_sp_rows` at the SP
 of every learning path (bench, 16K x 64, the B=1 reference stack, both
-anomaly-stack layers), at 65,536 streams and past a block's input tile,
-on tables whose rows hold values past the rail and -0.0 and with a
-column listed twice, timed on disjoint columns a call; `sp_select`, the
-SP's boost, top-A inhibition and duty-cycle EMA, in the phase
-`check_sp_select` at the SP of every path (bench, 16K x 64, anomaly, the
-B=1 reference), on tie-heavy streams, -0.0, C off a multiple of 4, A =
-1 and A = C, the keys and the winners' list in global memory and 65,536
-streams, the main ones also in a CUDA graph of 20 beside `torch.topk`
-(`check_boost` holds its factor to the CPU's); `serving_counts`, the
+anomaly-stack layers), at 65,536 streams, rows of 40 tiles and past the
+first-claim bitmaps' 65,536 columns, on tables whose rows hold values
+past the rail and -0.0 and with a column listed twice, timed on
+disjoint columns a call, also in a CUDA graph; `sp_select`, the SP's
+boost, top-A inhibition and duty-cycle EMA, in the phase
+`check_sp_select` at the SP of every path (bench, 16K x 64 (a cluster of
+two blocks a stream), anomaly, the B=1 reference), on tie-heavy streams,
+-0.0, C off a multiple of 4, A = 1 and A = C, the keys read again from
+global memory, a warp a stream (65,536 streams; ties), the LSD sort of the
+winners in shared memory and, by a cluster of eight blocks a stream, in
+global memory (A = 12,000 and A = C = 30,000), every row also in a CUDA
+graph of 20 beside `torch.topk` in one (`check_boost` holds its factor
+to the CPU's); `serving_counts`, the
 compact serving table's counts and, in its flags form, the packed
 serving step's matching and prediction words, in one pass over the
 table, both forms in the phase `check_serving_counts` at G = 1, 8 and
@@ -1269,7 +1273,8 @@ def check_sp_update_pack(dev) -> dict:
 # `sp_rows` at the SP of every learning path (tag: B, C, I, A, the
 # permanence type): the bench, 16K x 64, the B=1 reference stack, the
 # anomaly stack's two layers (352 and 512 x 8 = 4,096 inputs); then past
-# them: 65,536 streams (grid x) and rows wider than a block's tile
+# them: 65,536 streams (grid x), rows of 40 tiles, and past the
+# first-claim bitmaps' 65,536 columns
 SP_ROWS_MAIN = {
     "bench": (BATCH, 2048, 1000, 41, "int16"),
     "16k": (BATCH_16K, 16384, 1000, 328, "int16"),
@@ -1281,22 +1286,20 @@ SP_ROWS_PATHS = {
     "B=65536": (65_536, 2, 1000, 1, "int16"),
     "two tiles int16": (2, 64, 40_000, 5, "int16"),
     "two tiles float32": (2, 64, 40_000, 5, "float32"),
+    "scan claims": (1, 65_537, 1000, 41, "int16"),
 }
 
 
 def sp_rows_grid(B: int, I_pad: int, A: int) -> str:
-    """The grid `sp_rows` launches (csrc/sp_pass.cu `RowGrid`): blocks
-    of 256 threads, a row tile of min(S, 4096) packed bytes, 8 a
-    thread."""
-    S = I_pad // 8
-    groups = min(S, 4096) // 8
-    rows = 256 // groups if groups < 256 else 1
-    per_stream = -(-A // rows) * -(-S // 4096)
-    return (f"{per_stream}x{B}" if B <= kernels.MAX_GRID_Y
-            else f"{per_stream * B}") + " blocks of 256"
+    """The grid `sp_rows` launches (`kernels.sp_rows_runs`, csrc/
+    sp_pass.cu `RowGrid`): a block of 256 threads a run of one stream's
+    units (128 packed bytes of a row)."""
+    tiles, per, runs = kernels.sp_rows_runs(B, I_pad, A)
+    return (f"{runs}x{B}" if B <= kernels.MAX_GRID_Y else f"{runs * B}") \
+        + f" blocks of 256, {per} units a block, {tiles} a row"
 
 
-def sp_rows_row(tag: str, geo: tuple, dev, graph: bool = True) -> dict:
+def sp_rows_row(tag: str, geo: tuple, dev) -> dict:
     """`sp_rows` at ``geo`` against `sp_rows_ref`, each on its own copy:
     on an `sp_init`-like table and its connected words, on one whose
     every row holds values that change without learning (`with_edges`,
@@ -1305,7 +1308,7 @@ def sp_rows_row(tag: str, geo: tuple, dev, graph: bool = True) -> dict:
     path the shapes choose. Timed on up to 20 calls (`fresh_ms`), each on
     its own disjoint set of columns, so that no call finds its rows in
     the L2 cache (their work does not depend on the values: no restore),
-    plain and, with ``graph``, in a CUDA graph of 20. Bound: the active
+    plain and in a CUDA graph of 20. Bound: the active
     rows read and written once, their packed rows written, the inputs
     and columns read; no PyTorch call updates, clips and packs rows: no
     library time."""
@@ -1339,7 +1342,8 @@ def sp_rows_row(tag: str, geo: tuple, dev, graph: bool = True) -> dict:
                 f"sp_rows at {at}, {what}: the active rows learn, the "
                 f"others keep their bits")
         del want, got, inactive
-    path = ("grid_x_streams",) if B > kernels.MAX_GRID_Y else ("grid_y",)
+    path = ("grid_x_streams" if B > kernels.MAX_GRID_Y else "grid_y",
+            "scan" if C > kernels.SP_ROWS_BITMAP_COLUMNS else "bitmap")
     require(kernels.SP_ROWS.path == path, f"sp_rows at {at} takes {path}, "
             f"got {kernels.SP_ROWS.path}")
     del edge, dup
@@ -1360,30 +1364,28 @@ def sp_rows_row(tag: str, geo: tuple, dev, graph: bool = True) -> dict:
            "bound_ms": 1e3 * moved / HBM_BYTES_PER_S, "bound_by": "bytes",
            "library_ms": None, "at": at, "path": list(path), "calls": n,
            "grid": sp_rows_grid(B, I_pad, A)}
-    if graph:
-        row["graph_ms"] = fresh_ms(kernel, lambda: None, graph=True)
+    row["graph_ms"] = fresh_ms(kernel, lambda: None, graph=True)
     print(f"kernel sp_rows [{'+'.join(path)}]: {row['ms']:.4f} ms, plain "
           f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
           f"({moved / 1e6:.1f} MB), library call none, at {at}, grid "
-          f"{row['grid']}, {n} calls on disjoint columns"
-          + (f"; in a CUDA graph of {n}: {row['graph_ms']:.4f} ms a call"
-             if graph else "") + "; bit-equal")
+          f"{row['grid']}, {n} calls on disjoint columns; in a CUDA graph "
+          f"of {n}: {row['graph_ms']:.4f} ms a call; bit-equal")
     return row
 
 
 def check_sp_rows(dev) -> tuple[dict, dict]:
     """`sp_rows`, the SP's update of its active rows (`sp_rows_row`), at
-    the SP of every learning path, each also in a CUDA graph of 20
-    calls, and on the paths past them. Returns (the bench row, the
-    other main rows under their tags; {case: row} of every row)."""
+    the SP of every learning path and on the paths past them, each also
+    in a CUDA graph of 20 calls. Returns (the bench row, the other main
+    rows under their tags; {case: row} of every row)."""
     bench = bt.make_htm_config(**BENCH).sp
     require(SP_ROWS_MAIN["bench"][1:4] == (
         bench.column_dim, bench.input_dim, bench.active_columns),
         "SP_ROWS_MAIN['bench'] is the configuration's SP")
     rows = {}
-    for geos, graph in ((SP_ROWS_MAIN, True), (SP_ROWS_PATHS, False)):
+    for geos in (SP_ROWS_MAIN, SP_ROWS_PATHS):
         for tag, geo in geos.items():
-            rows[tag] = sp_rows_row(tag, geo, dev, graph)
+            rows[tag] = sp_rows_row(tag, geo, dev)
             torch.cuda.empty_cache()
     main = dict(rows["bench"])
     main.update({tag: row for tag, row in rows.items()
@@ -1394,11 +1396,16 @@ def check_sp_rows(dev) -> tuple[dict, dict]:
 # `sp_select` at the SP of every path (tag: B, C, A, the inputs'
 # kind of `testing.select_inputs`): the bench (and the reference stack at
 # B=256), 16K x 64, the anomaly stack's two layers (512 columns, A=16)
-# and the single-stream reference; past them: tie-heavy streams (the
-# first step: every duty cycle 0, overlaps 0-3) at the bench and 16K,
-# negative overlaps with -0.0, C off a multiple of 4, A = 1 and A = C,
-# the keys in global memory (C past 16,384), the winners' list in global
-# memory (A = C = 30,000) and 65,536 streams
+# and the single-stream reference; past them: tie-heavy streams (the first
+# step: every duty cycle 0, overlaps 0-3) at the bench and 16K, negative
+# overlaps with -0.0, C off a multiple of 4, A = 1 and A = C, the keys in
+# global memory (C past 16,384), a warp a stream (65,536 streams of 64
+# columns; ties at 128 columns, in about half the streams more than 32
+# equal keys at the A-th value), a block a stream past 64 winners at 512
+# columns, a cluster of two blocks a stream off a multiple of 4 columns
+# with ties, and the winners placed by the LSD sort (past 512 of them),
+# its lists in shared memory and in global memory (A = 12,000, and A = C
+# = 30,000: a cluster of eight blocks a stream)
 SELECT_MAIN = {
     "bench": (BATCH, 2048, 41, "random"),
     "16k": (BATCH_16K, 16384, 328, "random"),
@@ -1415,18 +1422,24 @@ SELECT_PATHS = {
     "global keys": (4, 20_000, 400, "random"),
     "global list": (2, 30_000, 30_000, "random"),
     "B=65536": (65_536, 64, 5, "random"),
+    "warp ties": (BATCH, 128, 10, "ties"),
+    "C=512 A=65": (BATCH, 512, 65, "random"),
+    "cluster C=9001 ties": (2, 9001, 180, "ties"),
+    "lsd smem": (4, 4096, 1000, "random"),
+    "lsd smem ties": (2, 9001, 2000, "ties"),
+    "lsd global": (2, 30_000, 12_000, "random"),
 }
 
 
-def sp_select_row(tag: str, geo: tuple, dev, graph: bool = True) -> dict:
+def sp_select_row(tag: str, geo: tuple, dev) -> dict:
     """`sp_select` at ``geo`` through its dispatcher against
     `sp_select_ref` on the card, on the same inputs: the boosted values,
     the winners in order, the mask and the new duty cycles bit for bit,
     one launch, the path the shapes choose. Timed (CUDA events over 20
-    calls, and with ``graph`` in a CUDA graph of 20) beside the plain
-    version, its bound (the overlaps and duty cycles read once, the four
-    outputs written once) and `torch.topk(boosted, A)`, the nearest
-    PyTorch call (a top-A with no tie order, no boost and no EMA)."""
+    calls, and in a CUDA graph of 20) beside the plain version, its bound
+    (the overlaps and duty cycles read once, the four outputs written
+    once) and `torch.topk(boosted, A)`, the nearest PyTorch call (a top-A
+    with no tie order, no boost and no EMA), also in a graph of 20."""
     B, C, A, kind = geo
     ov, duty = testing.select_inputs(B + C + A, B, C, kind, device=dev)
     args = (A, testing.SELECT_INTENSITY, A / C, testing.SELECT_MOMENTUM)
@@ -1439,7 +1452,7 @@ def sp_select_row(tag: str, geo: tuple, dev, graph: bool = True) -> dict:
     require(n == 1, f"sp_select at {at} launches its kernel once, got {n}")
     require(all(same_bits(g, w) for g, w in zip(got, want)),
             f"sp_select == plain at {at}, bit for bit")
-    path = kernels._select_path(C, A)
+    path = kernels._select_path(B, C, A)
     require(kernels.SP_SELECT.path == path, f"sp_select at {at} takes "
             f"{path}, got {kernels.SP_SELECT.path}")
     boosted = want[0]
@@ -1456,20 +1469,21 @@ def sp_select_row(tag: str, geo: tuple, dev, graph: bool = True) -> dict:
                      lambda: preg.sp_select(ov, duty, *args),
                      lambda: preg.sp_select_ref(ov, duty, *args), moved, at,
                      library=lambda: torch.topk(boosted, A), path=list(path))
-    if graph:
-        row["graph_ms"] = graph_ms(lambda: preg.sp_select(ov, duty, *args))
-        row["library_graph_ms"] = graph_ms(lambda: torch.topk(boosted, A))
-        print(f"  sp_select in a CUDA graph of 20 calls: "
-              f"{row['graph_ms']:.4f} ms a call; torch.topk "
-              f"{row['library_graph_ms']:.4f}")
+    row["graph_ms"] = graph_ms(lambda: preg.sp_select(ov, duty, *args))
+    row["library_graph_ms"] = graph_ms(lambda: torch.topk(boosted, A))
+    print(f"  sp_select in a CUDA graph of 20 calls: "
+          f"{row['graph_ms']:.4f} ms a call; torch.topk "
+          f"{row['library_graph_ms']:.4f}")
     return row
 
 
 def check_sp_select(dev) -> tuple[dict, dict]:
     """`sp_select`, the SP's boost, top-A inhibition and duty-cycle EMA
-    (`sp_select_row`), at the SP of every path, each also in a CUDA graph
-    of 20 calls, and on the paths past them. Returns (the bench row, the
-    other main rows under their tags; {case: row} of every row)."""
+    (`sp_select_row`), at the SP of every path and on the paths past
+    them, each also in a CUDA graph of 20 calls beside `torch.topk` in
+    one (the rows where the kernel is the slower printed). Returns (the
+    bench row, the other main rows under their tags; {case: row} of every
+    row)."""
     bench = bt.make_htm_config(**BENCH).sp
     require(SELECT_MAIN["bench"][1:3] == (bench.column_dim,
                                           bench.active_columns)
@@ -1477,10 +1491,16 @@ def check_sp_select(dev) -> tuple[dict, dict]:
                 testing.SELECT_INTENSITY, testing.SELECT_MOMENTUM),
             "SELECT_MAIN['bench'] is the configuration's SP")
     rows = {}
-    for geos, graph in ((SELECT_MAIN, True), (SELECT_PATHS, False)):
+    for geos in (SELECT_MAIN, SELECT_PATHS):
         for tag, geo in geos.items():
-            rows[tag] = sp_select_row(tag, geo, dev, graph)
+            rows[tag] = sp_select_row(tag, geo, dev)
             torch.cuda.empty_cache()
+    slower = {tag: (round(row["graph_ms"], 4),
+                    round(row["library_graph_ms"], 4))
+              for tag, row in rows.items()
+              if row["graph_ms"] > row["library_graph_ms"]}
+    print(f"sp_select rows slower in a CUDA graph than torch.topk in one "
+          f"(ms, ms): {json.dumps(slower)}")
     main = dict(rows["bench"])
     main.update({tag: row for tag, row in rows.items()
                  if tag in SELECT_MAIN and tag != "bench"})

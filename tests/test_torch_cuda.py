@@ -1619,6 +1619,10 @@ SP_ROWS_SHAPES = {  # B, C, I, A, permanence dtype
     "two tiles": (2, 64, 40_000, 5, torch.int16),
     "two tiles f32": (2, 64, 40_000, 5, torch.float32),
     "streams": (65_536, 2, 1000, 1, torch.int16),
+    # a run of units spanning tiles of several rows (B=1: 264 runs)
+    "runs across tiles": (1, 64, 40_000, 7, torch.float32),
+    # past the first-claim bitmaps: each unit checks the entries before it
+    "scan claims": (1, 65_537, 1000, 41, torch.int16),
 }
 
 
@@ -1668,7 +1672,8 @@ def test_sp_rows_matches_plain(case, cuda):
     torch.cuda.synchronize()
     assert launched(before) == only(sp_rows=1)
     assert kernels.SP_ROWS.path == (
-        ("grid_x_streams",) if B > 65_535 else ("grid_y",))
+        "grid_x_streams" if B > 65_535 else "grid_y",
+        "scan" if C > 65_536 else "bitmap")
     assert torch.equal(got[0].view(torch.uint8), p_ref.view(torch.uint8))
     assert torch.equal(got[1], c_ref)
     inactive = ~pas.column_mask_from_cols(cols, C)
@@ -1676,6 +1681,32 @@ def test_sp_rows_matches_plain(case, cuda):
                        perm.view(torch.uint8)[inactive])
     assert torch.equal(c_ref[inactive], conn[inactive])
     assert not torch.equal(p_ref, perm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,A", [(8, 300, 200), (64, 16384, 328),
+                                   (2, 65_537, 60)])
+def test_sp_rows_skips_repeats_and_ids_out_of_range(B, C, A, cuda):
+    """Columns drawn with replacement (repeats within a block and across
+    a stream's blocks) and ids outside [0, C): `sp_rows` updates each
+    listed row once and skips the others, as the plain version does with
+    each bad id replaced by a repeat of the stream's first column."""
+    cfg = bt.make_htm_config(1000, C, 4, active_columns=A)
+    perm, conn, x, _ = _sp_rows_inputs(B, C, 1000, 1, torch.float32, C + A,
+                                       cuda)
+    g = torch.Generator(device=cuda).manual_seed(A)
+    cols = torch.randint(0, min(C, 3 * A), (B, A), generator=g, device=cuda,
+                         dtype=torch.int32)
+    cols[:, 3::7] = -1
+    cols[:, 5::11] = C
+    good = torch.where((cols >= 0) & (cols < C), cols, cols[:, :1])
+    p_ref, c_ref = perm.clone(), conn.clone()
+    psp.sp_rows_ref(cfg.sp, p_ref, c_ref, x, good)
+    got = kernels.sp_rows_cuda(perm.clone(), conn.clone(), x, cols,
+                               *psp.hebbian_steps(cfg.sp))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.uint8), p_ref.view(torch.uint8))
+    assert torch.equal(got[1], c_ref)
 
 
 @pytest.mark.cuda
@@ -1840,12 +1871,29 @@ SELECT_SHAPES = {
     "C=250 A=1": (2, 250, 1, "random"),
     "C=250 A=C": (2, 250, 250, "ties"),
     "C=37 A=0": (2, 37, 0, "random"),
+    "C=1999": (3, 1999, 40, "ties"),
     "C=4096": (2, 4096, 80, "random"),
     "C=9001": (2, 9001, 180, "ties"),
     "global keys": (2, 20_000, 400, "random"),
     "global keys ties": (2, 20_000, 400, "ties"),
     "global list": (1, 30_000, 30_000, "random"),
     "B=65536": (65_536, 64, 5, "random"),
+    # a warp a stream: several streams a block, C off a multiple of 32,
+    # 64 winners, ties (in about half the streams more than 32 equal keys
+    # at the A-th value) and -0.0
+    "warp C=64": (300, 64, 5, "random"),
+    "warp ties": (2048, 128, 40, "ties"),
+    "warp A=64": (2048, 100, 64, "random"),
+    "warp negative": (2048, 120, 12, "negative"),
+    # past 64 winners or 128 columns: a block a stream
+    "C=512 A=65": (4, 512, 65, "ties"),
+    "C=129": (4, 129, 16, "ties"),
+    # the winners placed by the LSD radix sort: lists in shared memory,
+    # in global memory, ties
+    "lsd smem": (2, 4096, 1000, "random"),
+    "lsd smem ties": (2, 9001, 2000, "ties"),
+    "lsd global": (2, 30_000, 12_000, "random"),
+    "lsd global ties": (1, 20_000, 15_000, "ties"),
 }
 
 
@@ -1866,7 +1914,7 @@ def test_sp_select_matches_plain(case, cuda):
     want = preg.sp_select_ref(ov, duty, *args)
     torch.cuda.synchronize()
     assert launched(before) == only(sp_select=1)
-    assert kernels.SP_SELECT.path == kernels._select_path(C, A)
+    assert kernels.SP_SELECT.path == kernels._select_path(B, C, A)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))

@@ -301,12 +301,29 @@ PATH_CALLS = {
         _view(65_536, 2, 1024, dtype=torch.int16),
         _view(65_536, 2, 128, dtype=torch.uint8),
         _view(65_536, 1000, dtype=torch.bool), _view(65_536, 3), 6, -3, 0),
-        "sp_rows", ("grid_x_streams",)),
+        "sp_rows", ("grid_x_streams", "bitmap")),
     "streams below, sp_rows": (lambda: kernels.sp_rows_cuda(
         _view(65_535, 2, 2048, dtype=torch.float32),
         _view(65_535, 2, 256, dtype=torch.uint8),
         _view(65_535, 1500, dtype=torch.bool), _view(65_535, 3), 0.03,
-        -0.015, 0.0), "sp_rows", ("grid_y",)),
+        -0.015, 0.0), "sp_rows", ("grid_y", "bitmap")),
+    # past 65,536 columns: no first-claim bitmaps
+    "claims, sp_rows": (lambda: kernels.sp_rows_cuda(
+        _view(1, 65_537, 1024, dtype=torch.int16),
+        _view(1, 65_537, 128, dtype=torch.uint8),
+        _view(1, 1000, dtype=torch.bool), _view(1, 3), 6, -3, 0),
+        "sp_rows", ("grid_y", "scan")),
+    # a warp a stream; the LSD sort's lists past 160 KiB; the keys read
+    # again past 16,384 columns
+    "warp, sp_select": (lambda: kernels.sp_select_cuda(
+        _view(65_536, 64), _view(65_536, 64, dtype=torch.float32), 5,
+        -15.0, 0.99, 0.01), "sp_select", ("warp", "smem", "rank")),
+    "lists, sp_select": (lambda: kernels.sp_select_cuda(
+        _view(2, 30_000), _view(2, 30_000, dtype=torch.float32), 12_000,
+        -15.0, 0.99, 0.01), "sp_select", ("global", "global", "cluster_lsd")),
+    "keys, sp_select": (lambda: kernels.sp_select_cuda(
+        _view(2, 16_385), _view(2, 16_385, dtype=torch.float32), 5,
+        -15.0, 0.99, 0.01), "sp_select", ("global", "smem", "rank")),
     "shared memory, sp_update_pack": (lambda: kernels.sp_update_pack_cuda(
         _view(1, 1_827_000, 1024, dtype=torch.int16), _view(1, 1024),
         _view(1, 3), 0), "sp_update_pack", ("gmem_delta", "grid_y")),

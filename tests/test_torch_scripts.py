@@ -310,11 +310,11 @@ def test_grow_variants_patch_the_current_source():
 
 @pytest.mark.parametrize("kernel", ["learn_rows", "seg_flags",
                                     "column_decide", "sp_select",
-                                    "serving_counts"])
+                                    "serving_counts", "sp_rows"])
 def test_variants_patch_the_studied_source(kernel):
     """Every variant of the `learn_rows`, flags-form, `column_decide`,
-    `sp_select` and `serving_counts` studies finds the text it patches in
-    its source, so none silently times the unpatched kernel."""
+    `sp_select`, `serving_counts` and `sp_rows` studies finds the text it
+    patches in its source, so none silently times the unpatched kernel."""
     source, variants, _ = grow_variants.STUDIES[kernel]
     src = (kernels.CSRC / source).read_text()
     for name, patches in variants.items():

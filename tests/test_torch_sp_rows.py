@@ -168,6 +168,134 @@ def test_kernel_arithmetic_matches_plain_version(case, dtype):
     np.testing.assert_array_equal(c.numpy(), want[1])
 
 
+def _unit_update(perm, conn, x, b, c, t, d_on, d_off, thr):
+    """One unit of the kernel, in place: tile t (128 packed bytes) of row
+    c of stream b, its 8 slices of 128 lanes updated as
+    `_kernel_emulation` updates a lane, and its packed bytes written."""
+    S = perm.shape[-1] // 8
+    I = x.shape[1]
+    lanes = (np.arange(8)[:, None] * S + t * 128 + np.arange(128)).ravel()
+    on = np.zeros(len(lanes), bool)
+    on[lanes < I] = x[b, lanes[lanes < I]]
+    if perm.dtype == np.int16:
+        d = np.where(lanes < I, np.where(on, d_on, d_off), 0)
+        perm[b, c, lanes] = np.clip(perm[b, c, lanes].astype(np.int32) + d,
+                                    -32000, 32000).astype(np.int16)
+    else:
+        d = np.where(lanes < I, np.where(on, np.float32(d_on),
+                                         np.float32(d_off)), np.float32(0.0))
+        perm[b, c, lanes] = perm[b, c, lanes] + d.astype(np.float32)
+    bit = (perm[b, c, lanes] >= np.asarray(thr, perm.dtype)).reshape(8, 128)
+    conn[b, c, t * 128:(t + 1) * 128] = (
+        bit.astype(np.uint8) << np.arange(8)[:, None]).sum(0).astype(np.uint8)
+
+
+def _grid_units(B: int, C: int, I_pad: int, cols: np.ndarray, claims: str):
+    """csrc/sp_pass.cu `sp_rows`' grid in numpy: the (stream, column,
+    tile) of every unit that updates a row. A stream's units run
+    tile-major (unit u: tile u // A, entry u % A), cut into the runs of
+    `kernels.sp_rows_runs`, a block each. A block marks every entry's
+    column (claims "bitmap": a column marked twice is repeated; "scan":
+    every column might be); a unit whose entry is out of range, or whose
+    column is repeated and listed by an earlier entry, updates nothing."""
+    A = cols.shape[1]
+    tiles, per, runs = kernels.sp_rows_runs(B, I_pad, A)
+    units = []
+    for b in range(B):
+        for run in range(runs):
+            u0, u1 = run * per, min(A * tiles, (run + 1) * per)
+            assert (u1 - 1) // A - u0 // A < 49   # the staged input
+            seen, repeated = set(), set()
+            for c in cols[b]:
+                if 0 <= c < C:
+                    (repeated if c in seen else seen).add(int(c))
+            for u in range(u0, u1):
+                t, r = divmod(u, A)
+                c = int(cols[b, r])
+                if not 0 <= c < C:
+                    continue
+                if (claims == "scan" or c in repeated) and c in cols[b, :r]:
+                    continue
+                units.append((b, c, t))
+    return units
+
+
+# B, C, I, A: a unit a block (264 runs over one stream), four runs a stream
+# (64 streams), rows of three tiles, and rows of 64 tiles in runs of 48
+# units across them
+GRID_CASES = {
+    "a unit a block": (1, 64, 1000, 20),
+    "four runs a stream": (64, 100, 300, 40),
+    "three tiles": (2, 40, 3000, 9),
+    "runs across 64-tile rows": (2, 100, 65_000, 100),
+}
+
+
+@pytest.mark.parametrize("claims", ["bitmap", "scan"])
+@pytest.mark.parametrize("case", list(GRID_CASES))
+def test_kernel_grid_updates_every_listed_row_once(case, claims):
+    """`sp_rows`' grid and first claims, emulated, on columns drawn with
+    replacement (repeats within a run and across a stream's runs) and
+    ids outside [0, C): every tile of every listed row is updated by
+    exactly one unit, and nothing else; where the tables are small, the
+    units' updates equal `sp_rows_ref` (each bad id replaced by a repeat
+    of the stream's first column) bit for bit, in int16 and float32."""
+    B, C, I, A = GRID_CASES[case]
+    I_pad = padded_input_dim(I)
+    rng = np.random.RandomState(A + C)
+    cols = rng.randint(0, min(C, 2 * A), size=(B, A)).astype(np.int32)
+    cols[:, 3::7] = -1
+    cols[:, 5::11] = C
+    units = _grid_units(B, C, I_pad, cols, claims)
+    tiles = I_pad // 1024
+    count = np.zeros((B, C, tiles), np.int64)
+    np.add.at(count, tuple(np.array(units).T), 1)
+    listed = np.zeros((B, C), bool)
+    for b in range(B):
+        listed[b, cols[b][(cols[b] >= 0) & (cols[b] < C)]] = True
+    np.testing.assert_array_equal(count, np.repeat(
+        listed[..., None].astype(np.int64), tiles, axis=2))
+    if B * C * I_pad > 1 << 23:
+        return
+    good = np.where((cols >= 0) & (cols < C), cols, cols[:, :1])
+    for dtype in ("int16", "float32"):
+        perm, conn, x, _ = _tables(dtype, B, C, I, A, seed=B + C)
+        _, pcfg = _configs(dtype, I, C, A)
+        steps = psp.hebbian_steps(pcfg)
+        got_p, got_c = perm.copy(), conn.copy()
+        for b, c, t in units:
+            _unit_update(got_p, got_c, x, b, c, t, *steps)
+        p, c = torch.from_numpy(perm.copy()), torch.from_numpy(conn.copy())
+        psp.sp_rows_ref(pcfg, p, c, torch.from_numpy(x),
+                        torch.from_numpy(good))
+        np.testing.assert_array_equal(_bits(got_p), _bits(p.numpy()))
+        np.testing.assert_array_equal(got_c, c.numpy())
+
+
+@pytest.mark.parametrize("B,I_pad,A,want", [
+    (256, 1024, 41, (1, 41, 1)),      # the bench: a stream a block
+    (64, 1024, 328, (1, 47, 7)),      # 16K: runs of at most 48 units
+    (1, 1024, 41, (1, 1, 41)),        # one stream: a unit a run
+    (256, 4096, 16, (4, 32, 2)),      # the stack's second layer
+    (2, 40_960, 5, (40, 2, 100)),     # two streams of 40-tile rows
+    (65_536, 1024, 1, (1, 1, 1)),     # streams past the grid's y extent
+    (300, 65_536, 2, (64, 43, 3)),    # 64-tile rows
+    (300, 65_536, 200, (64, 48, 267)),
+])
+def test_sp_rows_runs_from_shapes(B, I_pad, A, want):
+    """`sp_rows`' runs from the shapes alone: (tiles a row, units a run,
+    runs a stream): about 264 blocks a launch, or runs of at most 48
+    units where that makes more."""
+    assert kernels.sp_rows_runs(B, I_pad, A) == want
+
+
+@pytest.mark.parametrize("C,want", [(2048, "bitmap"), (65_536, "bitmap"),
+                                    (65_537, "scan")])
+def test_sp_rows_claims_from_shapes(C, want):
+    """The first-claim bitmaps in shared memory up to 65,536 columns."""
+    assert kernels._row_claims(C) == want
+
+
 @pytest.mark.parametrize("dtype", ["int16", "float32"])
 @pytest.mark.parametrize("steps", [(0.03, 0.015), (0.1, 0.0), (0.015, 0.05)])
 def test_hebbian_steps_are_hebbian_deltas_values(dtype, steps):

@@ -43,9 +43,11 @@ INTENSITY, DENSITY, MOMENTUM = 0.3, 41 / 2048, 0.99
 # B, C, A, inputs: "random" duty cycles in [0, 3 density] (10% at 0) and
 # binomial overlaps; "zero duty" every duty cycle 0 (the first step: each
 # boosted value is its overlap, ties everywhere); "zero overlaps" half the
-# overlaps 0; "few values" every duty cycle 0 and overlaps 0-3 (some 500
-# columns share each value); "negative" overlaps in [-40, 40] (an overlap
-# hook's), some duty cycles so large that the factor is 0 and the value -0.0
+# overlaps 0; "few values" every duty cycle 0 and overlaps 0-3 (a quarter
+# of the columns share each value); "two values" every duty cycle 0 and overlaps
+# 0-1 (half the columns share each value); "negative" overlaps in [-40, 40]
+# (an overlap hook's), some duty cycles so large that the factor is 0 and
+# the value -0.0
 CASES = {
     "C=37": (3, 37, 5, "random"),
     "C=250 A=1": (2, 250, 1, "random"),
@@ -58,6 +60,18 @@ CASES = {
     # past a block of equal keys at the A-th value: four passes, then the
     # k-th lowest column among them
     "ties past a block": (2, 2048, 41, "few values"),
+    # a warp a stream past 32 equal keys at the A-th value (some 64 of 128
+    # columns share it), at its 64 winners, and with -0.0
+    "warp ties past a warp": (2, 128, 40, "two values"),
+    "warp A=64": (3, 100, 64, "random"),
+    "warp few values": (4, 128, 40, "few values"),
+    "warp negative": (3, 120, 12, "negative"),
+    # past 512 winners: places by the LSD radix sort, distinct keys and
+    # ties (passes skipped where every winner shares the byte)
+    "lsd": (2, 2048, 600, "random"),
+    "lsd ties": (2, 2048, 900, "few values"),
+    # past 160 KiB of lists: sorted by a cluster of 8 blocks
+    "cluster lsd": (1, 12_000, 10_500, "zero duty"),
 }
 
 
@@ -68,9 +82,10 @@ def _inputs(B: int, C: int, kind: str, seed: int):
     ov = rng.binomial(60, 0.1, (B, C)).astype(np.int32)
     if kind == "zero duty":
         duty[:] = 0.0
-    elif kind == "few values":
+    elif kind in ("few values", "two values"):
         duty[:] = 0.0
-        ov = rng.integers(0, 4, (B, C)).astype(np.int32)
+        ov = rng.integers(0, 4 if kind == "few values" else 2,
+                          (B, C)).astype(np.int32)
     elif kind == "zero overlaps":
         ov[rng.random((B, C)) < 0.5] = 0
     elif kind == "negative":
@@ -168,30 +183,80 @@ def _threshold(key: np.ndarray, A: int, threads: int) -> int:
     return int(_pairs(key)[np.nonzero(key == prefix)[0][k - 1]])
 
 
+def _lsd_places(listed: np.ndarray, warps: int,
+                blocks: int = 1) -> np.ndarray:
+    """csrc/select_pass.cu `lsd_sort` on the winners' pairs in column
+    order: 8-bit passes from the key's lowest byte, a pass skipped where
+    every key shares its byte; in a pass each of the cluster's ``blocks``
+    takes a run of the pairs and each of its warps a run of whole 32-pair
+    slots of it, counts its digits, the (digit, block, warp) counts are
+    scanned digit-major (largest digit first), then by block and warp,
+    and each pair goes to its entry's next place, in slot and lane order.
+    Returns the pairs in their places."""
+    n = len(listed)
+    keys = (listed >> np.uint64(32)).astype(np.uint32)
+    diff = int(np.bitwise_or.reduce(keys, initial=0)
+               ^ np.bitwise_and.reduce(keys, initial=0xFFFFFFFF))
+    per = -(-n // blocks)
+    owner = np.zeros(n, np.int64)   # the (block, warp) entry of a pair
+    for blk in range(blocks):
+        lo, hi = min(n, blk * per), min(n, (blk + 1) * per)
+        chunk = -(-(hi - lo) // (32 * warps)) * 32
+        owner[lo:hi] = blk * warps + np.arange(hi - lo) // max(chunk, 1)
+    src = listed.copy()
+    for shift in (0, 8, 16, 24):
+        if not (diff >> shift) & 0xFF:
+            continue
+        bins = 255 - ((src >> np.uint64(32 + shift)) & np.uint64(255)).astype(
+            np.int64)
+        counts = np.zeros((blocks * warps, 256), np.int64)
+        np.add.at(counts, (owner, bins), 1)
+        first = np.concatenate([[0], np.cumsum(counts.T.ravel())])[:-1]
+        first = first.reshape(256, blocks * warps).T.copy()
+        dst = np.zeros_like(src)
+        for i in range(n):
+            dst[first[owner[i], bins[i]]] = src[i]
+            first[owner[i], bins[i]] += 1
+        src = dst
+    return src
+
+
 def _kernel_emulation(ov, duty, A: int):
     """The `sp_select` kernel's algorithm in numpy, stream by stream: the
-    boost in float32 with a float64 exp; the threshold (`_threshold`, at
-    the kernel's 256 threads a block up to 2,048 columns, else 1,024);
-    the winners, the pairs at or above it; each winner's place the count
-    of pairs above it; the EMA as one FMA (`_fma_f32`)."""
+    boost in float32 with a float64 exp; the path from the shapes
+    (`kernels._select_path`); the threshold (`_threshold`, at 32 keys a
+    warp on the warp path, else at the block's 256 threads up to 2,048
+    columns, 1,024 past them, as many over a cluster's two blocks; A = C:
+    every pair); the winners, the pairs
+    at or above it, listed in column order; each winner's place the count
+    of pairs above it ("rank") or its place after the LSD sort ("lsd",
+    "cluster_lsd": `_lsd_places` over one block or eight); the EMA as one
+    FMA (`_fma_f32`)."""
     scale, momentum, one_minus = preg.select_scalars(INTENSITY, DENSITY,
                                                      MOMENTUM)
     factor = np.exp((np.float32(scale) * duty).astype(np.float64)).astype(
         np.float32)
     boosted = factor * ov.astype(np.float32)
     B, C = ov.shape
+    grid, _, places = kernels._select_path(B, C, A)
+    threads = 32 if grid == "warp" else 256 if C <= 2048 else 1024
     cols = np.zeros((B, A), np.int32)
     mask = np.zeros((B, C), bool)
     for b in range(B):
         key = _order_keys(boosted[b])
         if A:
             pairs = _pairs(key)
-            won = pairs >= np.uint64(_threshold(key, A,
-                                                 256 if C <= 2048 else 1024))
+            threshold = 0 if A == C else _threshold(key, A, threads)
+            won = pairs >= np.uint64(threshold)
             mask[b] = won
             listed = pairs[won]
-            rank = (listed[None, :] > listed[:, None]).sum(1)
-            cols[b, rank] = np.nonzero(won)[0]
+            if places == "rank":
+                rank = (listed[None, :] > listed[:, None]).sum(1)
+                cols[b, rank] = np.nonzero(won)[0]
+            else:
+                placed = _lsd_places(listed, threads // 32,
+                                     8 if places == "cluster_lsd" else 1)
+                cols[b] = ~(placed & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     t = torch.from_numpy
     new_duty = preg._fma_f32(t(duty), momentum,
                              t(mask).to(torch.float32) * one_minus)
@@ -208,6 +273,8 @@ def test_kernel_algorithm_matches_plain_version(case):
     want = preg.sp_select_ref(torch.from_numpy(ov), torch.from_numpy(duty),
                               A, INTENSITY, DENSITY, MOMENTUM)
     got = _kernel_emulation(ov, duty, A)
+    if kind == "two values":   # more than 32 equal keys at the A-th value
+        assert ((ov == 1).sum(-1) >= max(A, 33)).all()
     if kind == "negative":
         assert (np.signbit(got[0]) & (got[0] == 0)).any()
     for g, w in zip(got, want):
@@ -228,19 +295,59 @@ def test_select_scalars_are_the_chains_float32_roundings():
                        float(np.float32(1.0 - MOMENTUM)))
 
 
-@pytest.mark.parametrize("C,A,want", [
-    (37, 5, ("regs", "smem")),
-    (2048, 41, ("regs", "smem")),
-    (16384, 328, ("regs", "smem")),
-    (16384, 16384, ("regs", "smem")),    # 128 KB of pairs
-    (16385, 1, ("global", "smem")),
-    (30000, 30000, ("global", "global")),
+@pytest.mark.parametrize("B,C,A,want", [
+    (2, 37, 5, ("warp", "smem", "rank")),
+    (2, 128, 64, ("warp", "smem", "rank")),
+    (2, 128, 65, ("regs", "smem", "rank")),
+    (2047, 512, 16, ("regs", "smem", "rank")),
+    (2048, 512, 16, ("regs", "smem", "rank")),
+    (65_536, 64, 5, ("warp", "smem", "rank")),
+    (65_536, 513, 5, ("regs", "smem", "rank")),
+    (256, 2048, 41, ("regs", "smem", "rank")),
+    (64, 16384, 328, ("cluster", "smem", "rank")),
+    (132, 8193, 512, ("cluster", "smem", "rank")),
+    (133, 16384, 328, ("regs", "smem", "rank")),
+    (64, 8192, 328, ("regs", "smem", "rank")),
+    (64, 16384, 513, ("regs", "smem", "lsd")),
+    (4, 16384, 10_240, ("regs", "smem", "lsd")),     # 160 KiB of lists
+    (4, 16384, 10_241, ("regs", "global", "cluster_lsd")),
+    (4, 16385, 1, ("global", "smem", "rank")),
+    (4, 20_000, 400, ("global", "smem", "rank")),
+    (2, 30_000, 2_740, ("global", "smem", "lsd")),
+    (2, 30_000, 2_741, ("global", "smem", "lsd")),
+    (2, 30_000, 30_000, ("global", "global", "cluster_lsd")),
+    (2, 32_768, 1, ("global", "smem", "rank")),
+    (2, 32_769, 1, ("global", "smem", "rank")),
 ])
-def test_select_path_from_shapes(C, A, want):
-    """`sp_select`'s path from C and A alone: the keys in registers up to
-    16,384 columns a stream, the winners' pairs in shared memory up to
-    200 KiB."""
-    assert kernels._select_path(C, A) == want
+def test_select_path_from_shapes(B, C, A, want):
+    """`sp_select`'s path from B, C and A alone: a warp a stream up to 64
+    winners and 128 columns, at any count of streams; two blocks a stream
+    past 8,192 columns at up to 132 streams and 512 winners; else a block
+    with its keys in registers up to 16,384 columns, else read again from
+    the boosted values; the winners placed by counting up to 512 of them,
+    else by the LSD sort, whose two lists stay in shared memory up to 160
+    KiB, else in global memory, sorted by a cluster of 8 blocks a
+    stream."""
+    assert kernels._select_path(B, C, A) == want
+
+
+def test_lsd_places_are_the_stable_descending_sort():
+    """The LSD sort's places (`_lsd_places`, at 1 to 32 warps, in one
+    block or a cluster of 8) equal a stable sort of the column-ordered
+    pairs by key, descending: value down, column up, through keys equal
+    in some bytes and in all."""
+    rng = np.random.default_rng(11)
+    for n, spread in ((1, 3), (31, 3), (600, 2**8), (2049, 2**20),
+                      (700, 2**32 - 1)):
+        key = rng.integers(0, spread, n, dtype=np.uint64) * np.uint64(
+            0x01010101 if spread == 3 else 1)
+        key = np.minimum(key, np.uint64(0xFFFFFFFF))
+        pairs = (key << np.uint64(32)) | (~np.arange(
+            n, dtype=np.uint32)).astype(np.uint64)
+        want = pairs[np.argsort(-key.astype(np.int64), kind="stable")]
+        for warps, blocks in ((1, 1), (8, 1), (32, 1), (32, 8), (1, 8)):
+            np.testing.assert_array_equal(
+                _lsd_places(pairs, warps, blocks), want)
 
 
 @pytest.mark.parametrize("dtype", ["int16", "float32"])
