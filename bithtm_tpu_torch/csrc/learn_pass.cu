@@ -43,22 +43,37 @@
 // 0.007-0.014 ms at the H100's 3.35 TB/s, by how many slots change.
 // row_counts reads the same rows and writes three (B, R) int32 counts.
 //
-// Design. A warp takes a row: lane i holds slots i, i+32, ..., and loads
-// a round of 32-slot chunks of all three tables (two up to K = 64, else
-// four) before it uses any, so that a row up to K = 128 is one round of
-// loads; a warp loads the first rounds of its two rows together. A
-// ballot over each chunk ranks the free slots; the fill's cells come
-// from the row's list entry, read once, one a lane and passed to the
-// slot by a shuffle (path "shfl", kk <= 32 chosen cells a row), or read
-// by each grown slot ("load").
-// The row's list position comes from grow_select (lpos), so the pass
-// needs no search. learn_rows runs a block of 8 warps on 16 rows of a
-// stream: one thread a row first reads where the row lies, its flags,
-// its list place and its chosen count into shared memory, so that a
-// warp's two rows then cost one round of loads (their slots, and their
-// cells beside them); the counts meet in shared memory (one atomic a
-// block and count). One row a warp took 1.1-1.2x the time, four the same
-// (scripts/grow_variants.py --kernel learn_rows, PERF.md).
+// Design. Two paths, chosen from the shapes (ops/kernels.py
+// `_learn_loads`).
+// "v16" (u8 activity, K a multiple of 8: every shipped configuration): a
+// warp takes a column, whose G rows lie side by side, G*K slots of each
+// table (at the bench 1 KB of syn, 1 KB of perm and 256 B of activity).
+// Lane i takes slots 8i..8i+7 of each round of 256, which lie in one row:
+// two 16-byte loads of syn, two of perm and one 8-byte load of the
+// activity, where the earlier schedule took six scalar loads a row. A
+// free slot's rank in its row is the lane's exclusive count of free
+// slots within the row (one scan over the warp, the row's first lane's
+// subtracted, plus the row's count carried from the round before) and
+// the popcount of the lane's free slots before it. The fill's cells come
+// from the row's list entry: read one a lane and passed to the slots by
+// shuffles up to kk = 32 ("shfl"; the first growing row's read with the
+// slots), else read by each grown slot ("load"). No block prologue: the
+// blocks of 4 warps are persistent, about one wave, and each warp walks a
+// run of (stream, column) pairs, reading each column's index, flags and
+// list places itself (read a column ahead, they cost registers and
+// measured slower: PERF.md); its counts meet in one atomic a count and
+// stream it walked. A 16-byte vector is stored only where one of its
+// slots changed or grew; the mask, where asked for, for every slot.
+// "scalar" (K = 125 and 127 at G = 2 in the fuzz geometries, the bf16
+// and f32 activity): a warp takes a row: lane i holds slots i, i+32, ...,
+// and loads a round of 32-slot chunks of all three tables (two up to K =
+// 64, else four); a ballot over each chunk ranks the free slots; a block
+// of 8 warps takes 16 rows of a stream behind a prologue that reads where
+// each row lies, its flags, its list place and its chosen count into
+// shared memory, so that a warp's two rows cost one round of loads.
+// What held the scalar schedule at the bench (PERF.md): its loads, 79%
+// of its time, in three dependent rounds (column, list place, slots) a
+// block of 16 rows, 2.7 waves of blocks.
 // row_counts strides over the rows, a warp a row.
 
 #include <cuda_runtime.h>
@@ -336,6 +351,288 @@ int launch_learn(int* syn, float* perm, const void* act, Rows rows,
   return (int)cudaGetLastError();
 }
 
+// ---- learn_rows, path "v16" (u8 activity, K a multiple of 8): a warp a
+// column. The G rows of a column lie side by side, G*K slots of each
+// table, so lane i takes slots 8i..8i+7 of each round of 256 (two 16-byte
+// loads of syn, two of perm, one 8-byte load of the activity), all in one
+// row. A free slot's rank in its row is its lane's exclusive count within
+// the row (a scan over the warp, its row's first lane subtracted, plus
+// the row's count in the rounds before) and the popcount of the lane's
+// free slots before it.
+
+constexpr int kColWarps = 4;
+// at most 128 registers a thread (four blocks an SM at the cap)
+constexpr int kColMinBlocks = 4;
+
+// A column's header, read a column ahead: where its slots lie (base) and,
+// lane g for row g, its flags (bit 0 learning, bit 1 a new segment's) and
+// its list place.
+struct ColHead {
+  long long base;
+  int flags, l;
+};
+
+__device__ __forceinline__ ColHead col_head(
+    const int* cols, const uint8_t* learn, const uint8_t* fresh,
+    const int* lpos, long long q, int b, int a, int Ct, int G, int K,
+    int lane) {
+  ColHead h;
+  const int col = cols ? __ldg(cols + q) : a;
+  h.base = ((long long)b * Ct + col) * G * K;
+  h.flags = 0;
+  h.l = -1;
+  if (lane < G) {
+    const long long r = q * G + lane;
+    h.flags = (__ldg(learn + r) != 0) | (__ldg(fresh + r) != 0) << 1;
+    h.l = __ldg(lpos + r);
+  }
+  return h;
+}
+
+// Eight slots of a lane: syn, perm and the activity bytes, updated in
+// place.
+struct Slots8 {
+  int4 s[2];
+  float4 p[2];
+  uint2 a;
+
+  // the slots from at where in, else empty (never stored)
+  __device__ __forceinline__ void load_if(bool in, const int* syn,
+                                          const float* perm,
+                                          const uint8_t* act, long long at) {
+    if (!in) {
+      s[0] = s[1] = make_int4(-1, -1, -1, -1);
+      p[0] = p[1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      a = make_uint2(0u, 0u);
+      return;
+    }
+    s[0] = *reinterpret_cast<const int4*>(syn + at);
+    s[1] = *reinterpret_cast<const int4*>(syn + at + 4);
+    p[0] = *reinterpret_cast<const float4*>(perm + at);
+    p[1] = *reinterpret_cast<const float4*>(perm + at + 4);
+    a = __ldg(reinterpret_cast<const uint2*>(act + at));
+  }
+  __device__ __forceinline__ int& syn_at(int j) {
+    return reinterpret_cast<int*>(s)[j];
+  }
+  __device__ __forceinline__ float& perm_at(int j) {
+    return reinterpret_cast<float*>(p)[j];
+  }
+  __device__ __forceinline__ bool act_at(int j) const {
+    return ((j < 4 ? a.x : a.y) >> (8 * (j & 3))) & 0xffu;
+  }
+};
+
+// Persistent blocks of kColWarps warps, about one wave; warp w takes the
+// (stream, column) pairs [w * chunk, (w + 1) * chunk), q = b * A + a.
+template <bool kShfl, bool kMask>
+__global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks)
+    learn_rows_kernel_v16(
+        int* __restrict__ syn, float* __restrict__ perm,
+        const uint8_t* __restrict__ act, const int* __restrict__ cols,
+        int Ct, int A, int G, int K, const uint8_t* __restrict__ learn,
+        const uint8_t* __restrict__ fresh, const int* __restrict__ lpos,
+        const int* __restrict__ chosen, const int* __restrict__ n_chosen,
+        int* __restrict__ counts, uint8_t* __restrict__ wrote, int B, int L,
+        int kk, float inc, float dec, float perm_init, long long n_pairs,
+        long long chunk) {
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long q0 = warp * chunk;
+  const long long q1 = min(q0 + chunk, n_pairs);
+  if (q0 >= q1) return;
+  const int J = G * K;
+  // (b, a) of q, and of the next column's header (nb, na): stepped, not
+  // divided
+  int b = (int)(q0 / A), a = (int)(q0 - (long long)b * A);
+  int nb = b, na = a;
+  int grown = 0, over = 0;  // this lane's sums for stream b
+  ColHead h = col_head(cols, learn, fresh, lpos, q0, b, a, Ct, G, K, lane);
+  for (long long q = q0; q < q1; ++q) {
+    if (++na == A) {
+      na = 0;
+      ++nb;
+    }
+    if (q > q0 && ++a == A) {  // the warp's sums for stream b, then b + 1
+      a = 0;
+      grown = __reduce_add_sync(kFull, grown);
+      over = __reduce_add_sync(kFull, over);
+      if (lane == 0) {
+        if (grown) atomicAdd(counts + b, grown);
+        if (over) atomicAdd(counts + B + b, over);
+      }
+      grown = over = 0;
+      ++b;
+    }
+    // this column's first round and its rows' chosen counts and first
+    // cells, then the next column's header, before any of them is used
+    Slots8 x;
+    x.load_if(8 * lane < J, syn, perm, act, h.base + 8 * lane);
+    const int n_row =
+        h.l >= 0 ? __ldg(n_chosen + (long long)b * L + h.l) : 0;
+    const unsigned grows = __ballot_sync(kFull, h.l >= 0);
+    int cell0 = 0;
+    if (kShfl && grows) {
+      const int l0 = __shfl_sync(kFull, h.l, __ffs(grows) - 1);
+      if (lane < kk)
+        cell0 = __ldg(chosen + ((long long)b * L + l0) * kk + lane);
+    }
+    const ColHead cur = h;
+    int carry = 0, carry_row = -1;
+    for (int k0 = 0; k0 < J; k0 += 256) {
+      const int k = k0 + 8 * lane;
+      const bool in = k < J;
+      if (k0 > 0) x.load_if(in, syn, perm, act, cur.base + k);
+      const int g = in ? k / K : 0;
+      const int fl = __shfl_sync(kFull, cur.flags, g);
+      const int nr = __shfl_sync(kFull, n_row, g);
+      const int lr = __shfl_sync(kFull, cur.l, g);
+      const bool row_learn = fl & 1, row_empty = fl & 2;
+      // the update and death in place; which slots changed and are free
+      unsigned fmask = 0, schg = 0, pchg = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        int& s = x.syn_at(j);
+        float& pv = x.perm_at(j);
+        const int s0 = s;
+        const unsigned p0 = __float_as_uint(pv);
+        if (pv < 0.0f || row_empty) {  // stale, or a new segment's row
+          s = -1;
+          pv = -1.0f;
+        }
+        const bool live = s >= 0;
+        const float delta = x.act_at(j) ? inc : -dec;
+        pv = __fadd_rn(pv,
+                       __fmul_rn(row_learn && live ? 1.0f : 0.0f, delta));
+        if (live && pv < 0.0f) {  // death
+          s = -1;
+          pv = -1.0f;
+        }
+        schg |= (unsigned)(s != s0) << j;
+        pchg |= (unsigned)(__float_as_uint(pv) != p0) << j;
+        fmask |= (unsigned)(in && s < 0) << j;
+      }
+      // the lane's free slots' first rank in its row
+      const int cnt = __popc(fmask);
+      int incl = cnt;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += t;
+      }
+      const int excl = incl - cnt;
+      const int start = g * K > k0 ? (g * K - k0) >> 3 : 0;
+      const int rank0 = excl - __shfl_sync(kFull, excl, start) +
+                        (g == carry_row ? carry : 0);
+      // the round's last lane carries its row's count into the next round
+      const int last = min(31, ((J - k0) >> 3) - 1);
+      carry = __shfl_sync(kFull, rank0 + cnt, last);
+      carry_row = __shfl_sync(kFull, g, last);
+      if (in && lr >= 0 && k + 8 == (g + 1) * K) {  // the row's last lane
+        grown += min(rank0 + cnt, nr);
+        over += max(nr - (rank0 + cnt), 0);
+      }
+      // the fill: free slot j of rank fr < n takes chosen[l, fr]
+      unsigned gmask = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int fr = rank0 + __popc(fmask & ((1u << j) - 1u));
+        gmask |= (unsigned)(((fmask >> j) & 1u) && fr < nr) << j;
+      }
+      if constexpr (kShfl) {
+        // a growing row at a time (the first's cells read ahead): its
+        // cells one a lane, passed to the slots by shuffles
+        for (unsigned rows = grows; rows; rows &= rows - 1) {
+          const int gg = __ffs(rows) - 1;
+          if (!__any_sync(kFull, gmask && g == gg)) continue;
+          int cg = cell0;
+          if (gg != __ffs(grows) - 1) {
+            const int lg = __shfl_sync(kFull, cur.l, gg);
+            cg = lane < kk
+                     ? __ldg(chosen + ((long long)b * L + lg) * kk + lane)
+                     : 0;
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int fr = rank0 + __popc(fmask & ((1u << j) - 1u));
+            const int c = __shfl_sync(kFull, cg, fr & 31);
+            if (g == gg && ((gmask >> j) & 1u)) {
+              x.syn_at(j) = c;
+              x.perm_at(j) = perm_init;
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if ((gmask >> j) & 1u) {
+            const int fr = rank0 + __popc(fmask & ((1u << j) - 1u));
+            x.syn_at(j) = __ldg(chosen + ((long long)b * L + lr) * kk + fr);
+            x.perm_at(j) = perm_init;
+          }
+      }
+      // a 16-byte vector stored where one of its slots changed or grew
+      schg |= gmask;
+      pchg |= gmask;
+      if (in) {
+        const long long at = cur.base + k;
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          if ((schg >> (4 * v)) & 0xfu)
+            *reinterpret_cast<int4*>(syn + at + 4 * v) = x.s[v];
+          if ((pchg >> (4 * v)) & 0xfu)
+            *reinterpret_cast<float4*>(perm + at + 4 * v) = x.p[v];
+        }
+        if constexpr (kMask) {
+          uint2 m;
+          m.x = (gmask & 1u) | (gmask & 2u) << 7 | (gmask & 4u) << 14 |
+                (gmask & 8u) << 21;
+          m.y = (gmask >> 4 & 1u) | (gmask >> 4 & 2u) << 7 |
+                (gmask >> 4 & 4u) << 14 | (gmask >> 4 & 8u) << 21;
+          *reinterpret_cast<uint2*>(wrote + q * J + k) = m;
+        }
+      }
+    }
+    // the next column's header, read after this one's work (read before
+    // it, it cost registers and measured slower: PERF.md)
+    if (q + 1 < q1)
+      h = col_head(cols, learn, fresh, lpos, q + 1, nb, na, Ct, G, K, lane);
+  }
+  grown = __reduce_add_sync(kFull, grown);
+  over = __reduce_add_sync(kFull, over);
+  if (lane == 0) {
+    if (grown) atomicAdd(counts + b, grown);
+    if (over) atomicAdd(counts + B + b, over);
+  }
+}
+
+template <bool kShfl, bool kMask>
+int launch_learn_v16(int* syn, float* perm, const uint8_t* act,
+                     const int* cols, int Ct, int A, int G, int K,
+                     const uint8_t* learn, const uint8_t* fresh,
+                     const int* lpos, const int* chosen, const int* n_chosen,
+                     int* counts, uint8_t* wrote, int B, int L, int kk,
+                     float inc, float dec, float perm_init,
+                     cudaStream_t stream) {
+  auto kernel = learn_rows_kernel_v16<kShfl, kMask>;
+  constexpr int threads = kColWarps * 32;
+  int per_sm = 0;
+  if (int err = bithtm::resident_blocks(kernel, threads, 0, &per_sm))
+    return err;
+  const long long n_pairs = (long long)B * A;
+  const long long slots =
+      (long long)kColWarps * (per_sm > 0 ? per_sm : 1) * bithtm::sm_count();
+  const long long chunk = (n_pairs + slots - 1) / (slots > 0 ? slots : 1);
+  const long long warps = (n_pairs + chunk - 1) / chunk;
+  const long long blocks = (warps + kColWarps - 1) / kColWarps;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+      syn, perm, act, cols, Ct, A, G, K, learn, fresh, lpos, chosen,
+      n_chosen, counts, wrote, B, L, kk, inc, dec, perm_init, n_pairs, chunk);
+  return (int)cudaGetLastError();
+}
+
 bool bad_rows(int B, int Ct, int A, int G, int K, const int* cols) {
   return B < 0 || A < 0 || G < 1 || K < 1 || Ct < 1 ||
          (!cols && Ct != A);
@@ -379,7 +676,9 @@ extern "C" int row_counts(const int* syn, const float* perm, const void* act,
 // row's place in the growing-row list or -1; chosen (B, L, kk) int32
 // cells and n_chosen (B, L) int32, the selection; counts (4, B) int32,
 // rows 0 and 1 zero on entry (grow_select); wrote (B, R, K) bool, the
-// slots grown, or null. Launches on the given stream of the given device,
+// slots grown, or null; vec: the path "v16" (act_bytes 1, K a multiple of
+// 8; syn and perm 16-byte and act 8-byte aligned), else "scalar".
+// Launches on the given stream of the given device,
 // allocates nothing and returns cudaGetLastError() after the launch (0 =
 // success).
 extern "C" int learn_rows(int* syn, float* perm, const void* act,
@@ -388,9 +687,10 @@ extern "C" int learn_rows(int* syn, float* perm, const void* act,
                           const int* chosen, const int* n_chosen,
                           int* counts, void* wrote, int B, int Ct, int A,
                           int G, int K, int L, int kk, float inc, float dec,
-                          float perm_init, int act_bytes, int device,
-                          void* stream) {
-  if (bad_rows(B, Ct, A, G, K, cols) || L < 0 || kk < 1)
+                          float perm_init, int act_bytes, int vec,
+                          int device, void* stream) {
+  if (bad_rows(B, Ct, A, G, K, cols) || L < 0 || kk < 1 ||
+      (vec && (act_bytes != 1 || K % 8)))
     return (int)cudaErrorInvalidValue;
   const int R = A * G;
   if ((long long)B * R == 0) return 0;
@@ -401,7 +701,17 @@ extern "C" int learn_rows(int* syn, float* perm, const void* act,
   const uint8_t* lf = static_cast<const uint8_t*>(learn);
   const uint8_t* fr = static_cast<const uint8_t*>(fresh);
   uint8_t* w = static_cast<uint8_t*>(wrote);
-  // rounds of 64 slots up to K = 64, else of 128
+  if (vec)
+    return bithtm::with_bool(kk <= 32, [&](auto shfl) {
+      return bithtm::with_bool(w != nullptr, [&](auto mask) {
+        return launch_learn_v16<decltype(shfl)::value,
+                                decltype(mask)::value>(
+            syn, perm, static_cast<const uint8_t*>(act), cols, Ct, A, G, K,
+            lf, fr, lpos, chosen, n_chosen, counts, w, B, L, kk, inc, dec,
+            perm_init, s);
+      });
+    });
+  // path "scalar": rounds of 64 slots up to K = 64, else of 128
   return bithtm::with_bytes(act_bytes, [&](auto bytes) {
     return bithtm::with_bool(K <= 64, [&](auto narrow) {
       return bithtm::with_bool(kk <= 32, [&](auto shfl) {

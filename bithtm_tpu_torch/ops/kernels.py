@@ -13,7 +13,8 @@ here runs when the module is imported.
 
 Each wrapper first chooses its kernel's path from the shapes alone
 (`_bitmap`, `_streams`, `_act_bytes`, `_delta`, `_grow_keys`,
-`_rows_mode`, `_fill_path`, `_pack_path`, `_select_path`,
+`_rows_mode`, `_fill_path`, `_learn_loads`, `decide_split`,
+`_pack_path`, `_select_path`,
 `_row_claims`, `_segment_regs`, the decisions' mode: the
 bitmap in shared or in
 global memory, the packed activity's type, the streams in grid y or
@@ -23,7 +24,9 @@ it keeps its keys and its winners and how it places them, how the SP's
 row update finds repeated columns, the registers a lane tallies a
 compact serving row's segments in, whether the active rows are
 read where they lie in the tables or from gathered rows, how the fill
-reads its cells, the pack's loads; README.md, port section) and
+reads its cells, whether the learning pass takes a column in 16-byte
+vectors, the decisions' blocks a stream, the pack's loads; README.md,
+port section) and
 reports it (`CudaKernel.path`) before any tensor is read. Only the
 stream-words limit (`_stream_words`: the kernels index a stream's words
 in int32) still raises. Then it checks
@@ -90,6 +93,15 @@ SELECT_SORT_BLOCKS = 8
 SP_ROWS_BITMAP_COLUMNS = 65_536
 SP_ROWS_FILL_BLOCKS = 264
 SP_ROWS_RUN_UNITS = 48
+# `column_decide`: the warps a block holds (a column each at a time), the
+# blocks a launch aims to keep resident (two of 1,024 threads on each of
+# the H100's 132 SMs), the columns a warp takes before a stream is split
+# over more blocks, and the streams a split launch takes at most (the
+# rows of its meeting place, `g_meet` in csrc/decide_pass.cu)
+DECIDE_WARPS = 32
+DECIDE_FILL_BLOCKS = 264
+DECIDE_WARP_COLUMNS = 2
+DECIDE_SPLIT_STREAMS = 1024
 
 _VP, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                     ctypes.c_longlong)
@@ -132,12 +144,12 @@ _ARGTYPES = {
     # scale, act_bytes
     "row_counts": [_VP] * 7 + [_I] * 7 + [_I, _VP],
     # syn, perm, act, cols, learn, fresh, lpos, chosen, n_chosen, counts,
-    # wrote, B, Ct, A, G, K, L, kk, inc, dec, perm_init, act_bytes
-    "learn_rows": [_VP] * 11 + [_I] * 7 + [_F] * 3 + [_I, _I, _VP],
+    # wrote, B, Ct, A, G, K, L, kk, inc, dec, perm_init, act_bytes, vec
+    "learn_rows": [_VP] * 11 + [_I] * 7 + [_F] * 3 + [_I, _I] + [_I, _VP],
     # pred, seg_cell, cols, pot, conn, live, u_seg, u_least, step,
     # act_bits, winner_bits, col_burst, learn, new_seg, counts, B, Ct, A,
-    # G, D, mode, theta_m, theta_a, eps, evict
-    "column_decide": [_VP] * 15 + [_I] * 8 + [_F, _I] + [_I, _VP],
+    # G, D, mode, theta_m, theta_a, eps, evict, split
+    "column_decide": [_VP] * 15 + [_I] * 8 + [_F, _I, _I] + [_I, _VP],
     # mask, out, rows, D
     "pack_bits": [_VP] * 2 + [_LL, _I] + [_I, _VP],
     # ov, duty, boosted, cols, mask, duty_out, list, B, C, A, scale,
@@ -463,6 +475,28 @@ def _fill_path(kk: int) -> str:
     row's cells read once, one a lane, and passed to their slots by
     shuffles), else "load" (each written slot reads its cell)."""
     return "shfl" if kk <= 32 else "load"
+
+
+def _learn_loads(K: int) -> str:
+    """`learn_rows`' loads at K slots a row: "v16" (a warp a column, eight
+    slots a lane in 16-byte vectors) where the activity is u8 and K a
+    multiple of 8, so that each lane's slots lie in one row and each
+    column's in whole vectors; else "scalar" (a warp a row, a slot a
+    lane): K = 125 and 127, the bf16 and f32 activity."""
+    return "v16" if act_dtype(K) == torch.uint8 and K % 8 == 0 else "scalar"
+
+
+def decide_split(B: int, A: int) -> int:
+    """`column_decide`'s blocks a stream (csrc/decide_pass.cu): one where
+    B streams of A columns fill DECIDE_FILL_BLOCKS blocks or a block's
+    DECIDE_WARPS warps take every column at DECIDE_WARP_COLUMNS a warp
+    (path "stream"); else ("split") as many as fill the blocks, up to one
+    a DECIDE_WARPS * DECIDE_WARP_COLUMNS columns, at up to
+    DECIDE_SPLIT_STREAMS streams."""
+    if B > DECIDE_SPLIT_STREAMS:
+        return 1
+    most = -(-A // (DECIDE_WARPS * DECIDE_WARP_COLUMNS))
+    return max(1, min(most, DECIDE_FILL_BLOCKS // max(B, 1)))
 
 
 def _pack_path(D: int) -> str:
@@ -1174,13 +1208,17 @@ def learn_rows_cuda(syn, perm, act, cols, learn, new_seg, lpos, chosen,
     _stream_words(Ct * G * K)
     _stream_words(L * kk)
     dtype = act_dtype(K)
-    LEARN_ROWS.choose(_act_name(K), _rows_mode(cols), _fill_path(kk))
+    path = LEARN_ROWS.choose(_act_name(K), _rows_mode(cols), _fill_path(kk),
+                             _learn_loads(K))
+    vec = path[3] == "v16"
     dev = syn.get_device()
-    syn_p = _ptr("syn", syn, torch.int32, None, dev)
+    syn_p = _ptr("syn", syn, torch.int32, None, dev, align=16 if vec else 1)
     cols_p = None if cols is None else _ptr("cols", cols, torch.int32,
                                             (B, A), dev)
-    perm_p = _ptr("perm", perm, torch.float32, (B, Ct, G * K), dev)
-    act_p = _ptr("act", act, dtype, (B, Ct, G * K), dev)
+    perm_p = _ptr("perm", perm, torch.float32, (B, Ct, G * K), dev,
+                  align=16 if vec else 1)
+    act_p = _ptr("act", act, dtype, (B, Ct, G * K), dev,
+                 align=8 if vec else 1)
     learn_p = _ptr("learn", learn, torch.bool, (B, R), dev)
     fresh_p = _ptr("new_seg", new_seg, torch.bool, (B, R), dev)
     lpos_p = _ptr("lpos", lpos, torch.int32, (B, R), dev)
@@ -1194,8 +1232,8 @@ def learn_rows_cuda(syn, perm, act, cols, learn, new_seg, lpos, chosen,
                           lpos_p, chosen_p, n_p, counts_p,
                           None if wrote is None else wrote.data_ptr(), B, Ct,
                           A, G, K, L, kk, float(increment), float(decrement),
-                          float(permanence_initial), dtype.itemsize, dev,
-                          _stream(dev))
+                          float(permanence_initial), dtype.itemsize, int(vec),
+                          dev, _stream(dev))
     return wrote
 
 
@@ -1234,7 +1272,9 @@ def column_decide_cuda(prediction, seg_cell, cols, pot, conn, live, u_seg,
         raise ValueError(f"prediction words of W={W} do not hold D={D} "
                          f"cells, or G={G} is not in [1, 32]")
     _stream_words(W * Ct)
-    COLUMN_DECIDE.choose(mode, _rows_mode(cols))
+    split = decide_split(B, A)
+    COLUMN_DECIDE.choose(mode, _rows_mode(cols),
+                         "split" if split > 1 else "stream")
     dev = prediction.get_device()
     pred_p = _ptr("prediction", prediction, torch.int32, None, dev)
     cols_p = None if cols is None else _ptr("cols", cols, torch.int32,
@@ -1267,7 +1307,8 @@ def column_decide_cuda(prediction, seg_cell, cols, pot, conn, live, u_seg,
                          *(None if t is None else t.data_ptr() for t in out),
                          B, Ct, A, G, D, DECIDE_MODES.index(mode),
                          int(matching_threshold), int(activation_threshold),
-                         float(epsilon), int(evict), dev, _stream(dev))
+                         float(epsilon), int(evict), split, dev,
+                         _stream(dev))
     return out
 
 

@@ -11,8 +11,9 @@ its selection, the tables restored before each replay, since the pass
 writes in place), ``seg_flags`` (`csrc/count_pass.cu`,
 `FLAG_VARIANTS`: `seg_counts`' flags form, and its counts form on the
 same activity as "reference") or ``column_decide``
-(`csrc/decide_pass.cu`, `DECIDE_VARIANTS`: the learning mode on
-`testing.decide_inputs`, its owners updated by each call) or
+(`csrc/decide_pass.cu`, `DECIDE_VARIANTS`: the learning mode, or the
+mode a shape names, on `testing.decide_inputs`, a learning mode's owners
+updated by each call) or
 ``sp_select`` (`csrc/select_pass.cu`, `SELECT_VARIANTS`, on
 `testing.select_inputs`) or ``sp_rows`` (`csrc/sp_pass.cu`,
 `ROWS_VARIANTS`, on int16 and float32 tables, each of the 20 calls of a
@@ -111,25 +112,42 @@ VARIANTS = {
 }
 
 
-# `learn_rows`: the write-back cut; the fill cut (no row takes a cell,
-# no list entry read); the indexed addressing cut (rows at the
-# gathered-rows offsets, no column read); one or four rows a warp, loaded
-# together, in place of two
-_NO_STORES = ("    if (in) {\n      if (s1 != x.s[u])",
-              "    if (false) {\n      if (s1 != x.s[u])")
-_NO_FILL = ("    s_n[j] = l >= 0 ? __ldg(n_chosen + (long long)b * L + l) : 0;",
-            "    s_n[j] = 0;")
+# `learn_rows` (its "v16" path, which the bench and 16K take): the body
+# emptied at the same grid (a launch's floor); the earlier schedule (a
+# warp a row behind a block prologue, now the "scalar" path); the
+# write-back cut; every vector stored, changed or not; the fill cut (no
+# row takes a cell); the next column's header read before this column's
+# work, not after it; a warp a column, not a run of them; 8 warps a
+# block, not 4 (at most 64 registers a thread); at most 64 registers a
+# thread, not 128
 LEARN_VARIANTS = {
     "base": [],
-    "no_stores": [_NO_STORES],
-    "no_fill": [_NO_FILL],
-    "loads_only": [_NO_STORES, _NO_FILL],
-    "no_cols": [("    s_base[j] = rows.slot(b, row0 + j);",
-                 "    s_base[j] = ((long long)b * R + row0 + j) * K;")],
-    "one_row_a_warp": [("constexpr int kRows = 2;",
-                        "constexpr int kRows = 1;")],
-    "four_rows_a_warp": [("constexpr int kRows = 2;",
-                          "constexpr int kRows = 4;")],
+    "empty": [("  if (q0 >= q1) return;\n  const int J = G * K;",
+               "  if (q0 >= q1 || B > 0) return;\n  const int J = G * K;")],
+    "scalar": [("  if (vec)\n    return bithtm::with_bool(kk <= 32",
+                "  if (false)\n    return bithtm::with_bool(kk <= 32")],
+    "no_stores": [("      if (in) {\n        const long long at = cur.base "
+                   "+ k;", "      if (false) {\n        const long long at "
+                   "= cur.base + k;")],
+    "store_all": [("          if ((schg >> (4 * v)) & 0xfu)",
+                   "          if (true)"),
+                  ("          if ((pchg >> (4 * v)) & 0xfu)",
+                   "          if (true)")],
+    "no_fill": [("    const int n_row =\n        h.l >= 0 ? __ldg(n_chosen "
+                 "+ (long long)b * L + h.l) : 0;", "    const int n_row = 0;")],
+    "ahead": [("    const ColHead cur = h;\n",
+               "    const ColHead cur = h;\n    if (q + 1 < q1)\n"
+               "      h = col_head(cols, learn, fresh, lpos, q + 1, nb, na, "
+               "Ct, G, K, lane);\n"),
+              ("    if (q + 1 < q1)\n      h = col_head(cols, learn, fresh, "
+               "lpos, q + 1, nb, na, Ct, G, K, lane);\n  }", "  }")],
+    "one_column_a_warp": [("  const long long chunk = (n_pairs + slots - 1) "
+                           "/ (slots > 0 ? slots : 1);",
+                           "  const long long chunk = 1;")],
+    "warps_8": [("constexpr int kColWarps = 4;",
+                 "constexpr int kColWarps = 8;")],
+    "regs_64": [("constexpr int kColMinBlocks = 4;",
+                 "constexpr int kColMinBlocks = 8;")],
 }
 # `seg_counts`' flags form (the shuffle path the bench and 16K take): no
 # prediction words; no owner cells read; no matching word stored; all
@@ -150,19 +168,74 @@ FLAG_VARIANTS = {
     "no_word": [_NO_WORD],
     "sums_only": [_NO_PRED, _NO_CELL, _NO_WORD],
 }
-# `column_decide` (learning mode): no cap of 32 registers a thread (one
-# block of 1,024 threads an SM); the first argmax cut; the eligible
-# slots' ranks cut. (Its clusters of 8-32-warp blocks a stream, with the
-# blocks' counts met in distributed shared memory, were variants of the
-# kernel they replaced and measured slower than a block a stream.)
+# `column_decide`: the body emptied at the same grid (a launch's floor);
+# one block a stream, not split (the earlier grid); at least two blocks a
+# stream (the bench's 41 columns a warp each); split over twice the
+# blocks; the bursting columns' key argmax cut (the matching column's min
+# reduce kept); the evictable slots' ranks cut; the body emptied at the
+# kernel's first line, and the split streams' meeting cut (the launch
+# floor's parts); no cap of 32 registers a thread (one block of 1,024
+# threads an SM); the split grid met by a cluster, not a ticket. (The clusters of 8-32-warp
+# blocks a stream, met in distributed shared memory, were variants of the
+# kernel this one replaced.)
 DECIDE_VARIANTS = {
     "base": [],
-    "no_register_cap": [("__launch_bounds__(kMaxWarps * 32, 2)",
-                         "__launch_bounds__(kMaxWarps * 32)")],
-    "no_argmax": [("  if (MODE >= 1) {\n    cells.fill(",
-                   "  if (false) {\n    cells.fill(")],
-    "no_ranks": [("    for (int g = 0; g < G; ++g) {\n      const int kg",
-                  "    for (int g = 0; g < 0; ++g) {\n      const int kg")],
+    "empty": [("  const bool has_prev = MODE == 2 && __ldg(p.step + b) > 0;",
+               "  if (p.B > 0) return;\n"
+               "  const bool has_prev = MODE == 2 && __ldg(p.step + b) > 0;")],
+    "one_block_a_stream": [("evict != 0, split,\n"
+                            "                 (A + split - 1) / split};",
+                            "evict != 0, 1, A};")],
+    "split_2_at_least": [("evict != 0, split,\n"
+                          "                 (A + split - 1) / split};",
+                          "evict != 0, max(split, min(A, 2)),\n"
+                          "                 (A + max(split, min(A, 2)) - 1) "
+                          "/ max(split, min(A, 2))};")],
+    "split_x2": [("evict != 0, split,\n"
+                  "                 (A + split - 1) / split};",
+                  "evict != 0, split > 1 ? min(A, 2 * split) : 1,\n"
+                  "                 (A + (split > 1 ? min(A, 2 * split) : 1) "
+                  "- 1) / (split > 1 ? min(A, 2 * split) : 1)};")],
+    "no_key_argmax": [("    if (col_max >= (float)p.theta_m) {",
+                       "    if (true) {")],
+    "no_evict_ranks": [("    if (ev && n_unacc > n_rec) {",
+                        "    if (false) {")],
+    "empty_top": [("    column_decide_kernel(Decide p) {\n",
+                   "    column_decide_kernel(Decide p) {\n"
+                   "  if (p.B > 0) return;\n")],
+    "no_meet": [("  // a split stream: add the totals, then the last block "
+                 "reads them out\n", "  if (p.B > 0) return;\n")],
+    "no_register_cap": [("constexpr int kMinBlocks = 2;",
+                         "constexpr int kMinBlocks = 1;")],
+    # the split grid met by a cluster a stream in distributed shared
+    # memory (block 0 sums the blocks' totals), not by the ticket
+    "cluster": [
+        ('#include "launch.cuh"',
+         '#include "launch.cuh"\n#include <cooperative_groups.h>'),
+        ("  if (threadIdx.x < nc && total) atomicAdd(&g_meet[b][threadIdx.x]"
+         ", total);\n  __threadfence();\n  __syncthreads();\n"
+         "  if (threadIdx.x == 0)\n"
+         "    last_block = atomicAdd(&g_meet[b][kCounts], 1) == p.split - 1;"
+         "\n  __syncthreads();\n  if (last_block) {",
+         "  __shared__ int block_total[kCounts];\n"
+         "  if (threadIdx.x < nc) block_total[threadIdx.x] = total;\n"
+         "  cooperative_groups::cluster_group cl =\n"
+         "      cooperative_groups::this_cluster();\n  cl.sync();\n"
+         "  if (cl.block_rank() == 0 && threadIdx.x < nc) {\n"
+         "    int t = 0;\n    for (int r = 0; r < p.split; ++r)\n"
+         "      t += *cl.map_shared_rank(&block_total[threadIdx.x], r);\n"
+         "    p.counts[(long long)threadIdx.x * p.B + b] = t;\n  }\n"
+         "  cl.sync();\n  if (false) {"),
+        ("  column_decide_kernel<MODE, NW><<<grid, threads, 0, s>>>(p);",
+         "  cudaLaunchConfig_t cfg = {};\n  cfg.gridDim = grid;\n"
+         "  cfg.blockDim = dim3(threads);\n  cfg.stream = s;\n"
+         "  cudaLaunchAttribute attr[1];\n"
+         "  attr[0].id = cudaLaunchAttributeClusterDimension;\n"
+         "  attr[0].val.clusterDim.x = 1;\n"
+         "  attr[0].val.clusterDim.y = p.split;\n"
+         "  attr[0].val.clusterDim.z = 1;\n  cfg.attrs = attr;\n"
+         "  cfg.numAttrs = 1;\n"
+         "  cudaLaunchKernelEx(&cfg, column_decide_kernel<MODE, NW>, p);")],
 }
 # `sp_select`: the float64 exp as float32 `__expf` (wrong bits); the
 # winners placed by the LSD sort past 128 of them (16K's 328 too), or at
@@ -259,9 +332,17 @@ STUDIES = {
     "seg_flags": ("count_pass.cu", FLAG_VARIANTS,     # B, C, G, K, D
                   {"bench": (256, 2048, 4, 64, 32),
                    "16k_tuned": (64, 16384, 4, 64, 64)}),
-    "column_decide": ("decide_pass.cu", DECIDE_VARIANTS,  # B, C, D, A, G, K
+    "column_decide": ("decide_pass.cu", DECIDE_VARIANTS,
+                      # B, C, D, A, G, K[, the mode: "learn" if none]
                       {"bench": (256, 2048, 32, 41, 4, 64),
-                       "16k_tuned": (64, 16384, 64, 328, 4, 64)}),
+                       "16k_tuned": (64, 16384, 64, 328, 4, 64),
+                       "bench_winner": (256, 2048, 32, 41, 4, 64, "winner"),
+                       "16k_winner": (64, 16384, 64, 328, 4, 64, "winner"),
+                       "bench_burst": (256, 2048, 32, 41, 4, 64, "burst"),
+                       "16k_burst": (64, 16384, 64, 328, 4, 64, "burst"),
+                       "anomaly": (256, 512, 8, 16, 8, 48),
+                       "anomaly_winner": (256, 512, 8, 16, 8, 48, "winner"),
+                       "anomaly_burst": (256, 512, 8, 16, 8, 48, "burst")}),
     "sp_select": ("select_pass.cu", SELECT_VARIANTS,  # B, C, A
                   {"bench": (256, 2048, 41),
                    "16k_tuned": (64, 16384, 328),
@@ -398,11 +479,11 @@ def study_calls(kernel: str, geo: tuple, dev) -> tuple:
                                              *steps)), None, \
             kernels.SP_ROWS, None
     if kernel == "column_decide":
-        B, C, D, A, G, K = geo
+        B, C, D, A, G, K, *mode = geo
         cfg = TMConfig(column_dim=C, cell_dim=D, active_columns=A,
                        segments_per_column=G, synapse_capacity=K)
-        x = testing.decide_inputs(sum(geo), cfg, B, device=dev)
-        args = testing.decide_args(cfg, x)
+        x = testing.decide_inputs(sum(geo[:6]), cfg, B, device=dev)
+        args = testing.decide_args(cfg, x, *mode)
         return (lambda: ptm.column_decide(*args)), None, \
             kernels.COLUMN_DECIDE, None
     x = testing.learn_inputs(sum(geo), *geo, device=dev)

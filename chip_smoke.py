@@ -667,8 +667,8 @@ def check_overlap_and_counts(dev) -> dict:
 # `grow_select`, `row_counts` and `learn_rows` at the main paths'
 # geometries (tag: B, C, D, A, G, K, Wc, L, samp; the bench, the 16K tuned
 # and auto caps, the reference and the anomaly stacks) and past them (samp
-# = K, K = 128, Wc = 2049, one key row a block, keys in global memory in
-# both forms, kk past 32)
+# = K, K = 125 and 128, Wc = 2049, one key row a block, keys in global
+# memory in both forms, kk past 32)
 GROW_MAIN = {
     "bench": (BATCH, 2048, 32, 41, 4, 64, 128, 88, 32),
     "16k tuned": (BATCH_16K, 16384, 64, 328, 4, 64, 384, 336, 32),
@@ -678,6 +678,8 @@ GROW_MAIN = {
 }
 GROW_PATHS = {
     "samp=K": (64, 2048, 32, 41, 2, 32, 128, 88, 32),
+    # K = 125: u8 activity off 16-byte vectors (`learn_rows` "scalar")
+    "K=125": (64, 2048, 32, 41, 2, 125, 128, 88, 32),
     "K=128": (64, 2048, 32, 41, 2, 128, 128, 88, 32),
     "Wc=2049": (16, 4096, 32, 128, 2, 64, 2049, 128, 32),
     "one key row a block": (2, 4096, 32, 1024, 1, 16, 20_000, 16, 32),
@@ -899,15 +901,15 @@ def learn_row(x: dict, sel, at: str, graph: bool) -> dict:
                     f"learn_rows == plain at {at}, "
                     f"{'gathered rows' if gathered else 'the columns'}"
                     f"{', mask' if mask else ''}")
-            path = (kernels._act_name(syn0.shape[-1] // (
-                x["learn"].shape[1] // cols.shape[1])),
-                "rows" if gathered else "table",
-                kernels._fill_path(cells.shape[-1]))
+            K = syn0.shape[-1] // (x["learn"].shape[1] // cols.shape[1])
+            path = (kernels._act_name(K), "rows" if gathered else "table",
+                    kernels._fill_path(cells.shape[-1]),
+                    kernels._learn_loads(K))
             require(kernels.LEARN_ROWS.path == path, f"learn_rows at {at} "
                     f"takes {path}, got {kernels.LEARN_ROWS.path}")
     # the main path's call: at the columns, no mask
     path = list(kernels.LEARN_ROWS.path[:1]) + ["table"] + [
-        kernels._fill_path(cells.shape[-1])]
+        kernels._fill_path(cells.shape[-1]), kernels.LEARN_ROWS.path[3]]
     syn1, perm1 = syn0.clone(), perm0.clone()
     c1 = sel.counts.clone()
     ptm.learn_rows_ref(syn1, perm1, act0, cols, *lists, c1, *hyper)
@@ -1143,11 +1145,13 @@ def check_column_decide() -> tuple[dict, dict]:
                 g is None or torch.equal(g, w))
                 for g, w in zip(outs[1], outs[0])),
                 f"column_decide == plain at {case}")
-            require(kernels.COLUMN_DECIDE.path == (mode, where),
-                    f"column_decide at {case} takes ({mode}, {where}), got "
-                    f"{kernels.COLUMN_DECIDE.path}")
+            B, A, _ = outs[0][0].shape
+            grid = "split" if kernels.decide_split(B, A) > 1 else "stream"
+            require(kernels.COLUMN_DECIDE.path == (mode, where, grid),
+                    f"column_decide at {case} takes ({mode}, {where}, "
+                    f"{grid}), got {kernels.COLUMN_DECIDE.path}")
             if tag not in DECIDE_TIMED or where == "rows":
-                rows[case] = {"path": [mode, where]}
+                rows[case] = {"path": [mode, where, grid]}
                 continue
             dec = ptm.ColumnDecisions(*outs[0][:6])
             B, A, _ = dec.act_bits.shape
@@ -1156,11 +1160,11 @@ def check_column_decide() -> tuple[dict, dict]:
                   f"D={cfg.cell_dim}, {mode}")
             a_k, a_p = list(args), list(args)
             a_k[2], a_p[2] = _clone(args[2]), _clone(args[2])
-            row = kernel_row(f"column_decide [{mode}+{where}]",
+            row = kernel_row(f"column_decide [{mode}+{where}+{grid}]",
                              lambda: ptm.column_decide(*a_k),
                              lambda: ptm.column_decide_ref(*a_p),
                              decide_bytes(args, dec), at,
-                             path=[mode, where])
+                             path=[mode, where, grid])
             row["graph_ms"] = graph_ms(lambda: ptm.column_decide(*a_k))
             print(f"  column_decide in a CUDA graph of 20 calls: "
                   f"{row['graph_ms']:.4f} ms a call; "

@@ -580,6 +580,14 @@ DECIDE_GEOMS = [
     (dict(cell_dim=40, segments_per_column=32, synapse_capacity=4), 4,
      False),
     (dict(cell_dim=70, segments_per_column=3), 4, False),
+    # split over blocks: 16K's A=328 at D=64 (six blocks a stream at B=4),
+    # an uneven split (A=130 in three), and ties
+    (dict(column_dim=2048, cell_dim=64, active_columns=328,
+          segments_per_column=4, synapse_capacity=16), 4, False),
+    (dict(column_dim=512, cell_dim=33, active_columns=130,
+          segments_per_column=2), 2, False),
+    (dict(column_dim=1024, cell_dim=32, active_columns=200,
+          segments_per_column=4, synapse_capacity=16), 3, True),
 ]
 
 
@@ -611,8 +619,10 @@ def test_column_decide_matches_plain(geo, cuda):
                 torch.cuda.synchronize()
                 assert launched(before) == only(column_decide=int(on_card))
                 out.append((*dec, args[2]))
+            B, A = dec.act_bits.shape[:2]
             assert kernels.COLUMN_DECIDE.path == (
-                mode, "rows" if gathered else "table")
+                mode, "rows" if gathered else "table",
+                "split" if kernels.decide_split(B, A) > 1 else "stream")
             for got, want in zip(out[1], out[0]):
                 assert (got is None) == (want is None)
                 assert got is None or torch.equal(got, want)
@@ -626,9 +636,21 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+# `learn_rows` also past the vector path's shapes: K = 125 (u8) and 127
+# (bf16), whose columns leave 16-byte vectors, K = 120 (a round of 240
+# slots), K = 40 at G = 8 (rows across two rounds) and G = 32 of K = 8
+LEARN_GEOMS = GROW_GEOMS + [
+    (3, 2048, 32, 41, 2, 125, 128, 88, 32),
+    (3, 2048, 32, 41, 2, 127, 128, 88, 32),
+    (3, 2048, 32, 41, 2, 120, 128, 88, 32),
+    (3, 2048, 32, 41, 8, 40, 128, 88, 32),
+    (2, 1024, 32, 41, 32, 8, 128, 88, 8),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("want_mask", [False, True])
-@pytest.mark.parametrize("geo", GROW_GEOMS)
+@pytest.mark.parametrize("geo", LEARN_GEOMS)
 def test_learn_rows_matches_plain(geo, want_mask, cuda):
     """`learn_rows` against `learn_rows_ref` on copies of the same tables
     and the same selection (`grow_select_ref` on `testing.learn_inputs`,
@@ -667,7 +689,8 @@ def test_learn_rows_matches_plain(geo, want_mask, cuda):
             out.append((syn, perm, c) + (() if w is None else (w,)))
         assert kernels.LEARN_ROWS.path == (
             kernels._act_name(geo[5]), "rows" if gathered else "table",
-            kernels._fill_path(cells.shape[-1]))
+            kernels._fill_path(cells.shape[-1]),
+            kernels._learn_loads(geo[5]))
         for got, want in zip(out[1], out[0]):   # -0.0 apart from 0.0
             assert torch.equal(_bits(got), _bits(want))
         assert int(out[0][2][ptm.N_GROWN].sum()) > 0

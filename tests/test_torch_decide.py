@@ -251,3 +251,191 @@ def test_inference_decisions_match_jax(compute_winner):
     assert torch.equal(part.winner_bits, full.winner_bits
                        if compute_winner else torch.zeros_like(
                            full.winner_bits))
+
+
+# ---- the kernel's new reductions, emulated in numpy (csrc/decide_pass.cu)
+
+def order_key(v: np.ndarray) -> np.ndarray:
+    """`order_key`: float32 -> uint32, larger value larger key, -0.0
+    keyed as +0.0."""
+    u = v.astype(np.float32).view(np.uint32).copy()
+    u[(u << np.uint32(1)) == 0] = 0
+    return np.where(u & np.uint32(0x80000000), ~u,
+                    u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def emulate_column_decide(cfg, args) -> tuple:
+    """The kernel's column decisions, its way, in segment space: the
+    column max a max of the owned segments' seg_j bits; a matching
+    bursting column's winner the lowest owner at that max, else the
+    largest order-preserving key of -(owned + u) and its lowest cell, an
+    unowned cell's key -(0 + u), an owned cell's from its segments (its
+    owned count the segments with its owner) only where -(1 + u) could
+    reach the unowned cells' best; a winner unaccounted where no segment
+    it owns has seg_j >= eps; seg_best against the column max (the
+    bursting winner's cell max where it counts); the recyclable slots
+    ranked by two ballots' popcounts, the evictable ones by (live, g)
+    only where the unaccounted cells reach them; the unaccounted cells
+    assigned word by word; each stream's counts summed over its blocks'
+    column ranges (`kernels.decide_split`), as the split grid meets
+    them. Returns (act words, winner words, col_burst, learn, new_seg,
+    counts, new owners at the columns) as numpy."""
+    _, pred, owners, cols, pot, conn, live, draws, step, mode = args
+    G, D = cfg.segments_per_column, cfg.cell_dim
+    m_th, a_th = cfg.segment_matching_threshold, \
+        cfg.segment_activation_threshold
+    eps = np.float32(cfg.epsilon)
+    B, W, _ = pred.shape
+    A = cols.shape[1]
+    big = np.iinfo(np.int32).max
+    ix = (np.arange(B)[:, None], cols.numpy())
+    words_ = pred.numpy().transpose(0, 2, 1)[ix].view(np.uint32)  # (B,A,W)
+    o = owners.numpy()[ix].copy()                                 # (B,A,G)
+    pot, conn, live = pot.numpy(), conn.numpy(), live.numpy()
+    u_seg = draws.u_seg.numpy()
+    u_least = draws.u_least.numpy()
+    has_prev = (step.numpy() > 0)[:, None]
+    d = np.arange(D)
+    bits = (words_[..., d // 32] >> (d % 32).astype(np.uint32)) & 1
+    pred_rows = bits.astype(bool)                                 # (B,A,D)
+    burst = ~pred_rows.any(-1)
+
+    owned = (o >= 0) & (o < D)
+    match = pot >= m_th
+    sj = np.where(match, pot.astype(np.float32) + u_seg,
+                  np.float32(0)).astype(np.float32)
+    sj_bits = np.where(owned, sj.view(np.int32), 0)
+    peers = owned[..., :, None] & owned[..., None, :] & (
+        o[..., :, None] == o[..., None, :])                       # (B,A,G,G)
+    owns = owned[..., None] & (o[..., None] == d)                 # (B,A,G,D)
+    col_max = sj_bits.max(-1).view(np.float32)
+    lowest = np.where(owned & (sj == col_max[..., None]), o, big).min(-1)
+    best_m = np.where(col_max > 0, lowest, 0)
+    key_u = np.where(owns.any(-2), 0, order_key(-(np.float32(0) + u_least)))
+    u_o = np.take_along_axis(u_least, np.clip(o, 0, D - 1), -1)
+    need = (owned & (order_key(-(np.float32(1) + u_o))
+                     >= key_u.max(-1, keepdims=True))).any(-1)
+    key_o = np.where(owned & need[..., None],
+                     order_key(-(peers.sum(-1).astype(np.float32) + u_o)),
+                     0).astype(np.uint32)
+    top = np.maximum(key_o.max(-1), key_u.max(-1))
+    first_u = np.where((key_u == top[..., None]).any(-1),
+                       (key_u == top[..., None]).argmax(-1), big)
+    best_k = np.minimum(
+        np.where(owned & (key_o == top[..., None]), o, big).min(-1), first_u)
+    best = np.where(col_max >= np.float32(m_th), best_m, best_k)
+    win = (pred_rows | (burst[..., None] & (d == best[..., None]))
+           if mode != "burst" else np.zeros_like(pred_rows))
+    act = pred_rows | burst[..., None]
+
+    def pack(rows):
+        out = np.zeros((B, A, W), np.uint32)
+        for w in range(W):
+            for i in range(min(32, D - 32 * w)):
+                out[..., w] |= rows[..., 32 * w + i].astype(np.uint32) << \
+                    np.uint32(i)
+        return out.view(np.int32)
+
+    counts = [burst, act.sum(-1), win.sum(-1)]
+    learn = new_seg = None
+    if mode == "learn":
+        hot = (owns & ~(sj < eps)[..., None]).any(-2)
+        un = win & ~hot & has_prev[..., None] & (np.float32(0) < eps)
+        n_unacc = un.sum(-1)
+        recyclable = live < m_th
+        unalloc = o >= D
+        evictable = (cfg.allocation_policy == "evict") & ~match & ~recyclable
+        ra, ru = recyclable & ~unalloc, recyclable & unalloc
+        n_rec = ra.sum(-1, keepdims=True) + ru.sum(-1, keepdims=True)
+        er = np.where(~recyclable, n_rec, np.where(
+            unalloc, ra.sum(-1, keepdims=True) + np.cumsum(ru, -1) - ru,
+            np.cumsum(ra, -1) - ra))
+        need = evictable.any(-1) & (n_unacc > n_rec[..., 0])
+        ekey = live * G + np.arange(G)
+        below = (evictable[..., None, :]
+                 & (ekey[..., None, :] < ekey[..., :, None])).sum(-1)
+        er = np.where(need[..., None] & evictable, er + below, er)
+        eligible = recyclable | evictable
+        fresh = np.zeros((B, A, G), bool)
+        new_owner = np.zeros((B, A, G), np.int32)
+        before = np.zeros((B, A, 1), np.int64)
+        for w in range(W):
+            un_w = un[..., 32 * w:32 * (w + 1)]
+            r = er - before
+            got = eligible & (r >= 0) & (r < un_w.sum(-1, keepdims=True))
+            for b, a, g in zip(*np.nonzero(got)):
+                fresh[b, a, g] = True
+                new_owner[b, a, g] = 32 * w + np.flatnonzero(
+                    un_w[b, a])[r[b, a, g]]
+            before = before + un_w.sum(-1, keepdims=True)
+        oc = np.clip(o, 0, D - 1)
+        take = np.take_along_axis
+        owner_pred = owned & take(pred_rows, oc, -1)
+        owner_win = owned & take(win, oc, -1)
+        # the kernel forms the column max in bursting columns alone
+        cm = np.where(burst, col_max, np.float32(0))[..., None]
+        seg_best = match & (np.abs(sj - cm) < eps)
+        learn = (match & owner_win & ((match & (conn >= a_th))
+                                      | (~owner_pred & seg_best))
+                 & has_prev[..., None]) | fresh
+        o = np.where(fresh, new_owner, o)
+        counts += [fresh.sum(-1), learn.sum(-1), n_unacc - fresh.sum(-1),
+                   (fresh & evictable).sum(-1)]
+        learn, new_seg = learn.reshape(B, -1), fresh.reshape(B, -1)
+    split = kernels.decide_split(B, A)
+    per = -(-A // split)
+    blocks = [np.stack([c[:, i:i + per].sum(-1) for c in counts])
+              for i in range(0, A, per)]
+    return (pack(act), pack(win), burst, learn, new_seg,
+            np.sum(blocks, 0).astype(np.int32), o)
+
+
+# name: (config overrides, `decide_inputs` options, zero draws): G = 1,
+# 2, 4 and 32 at D = 32, 33 and 64 under both policies, ties, every draw
+# 0 (-0.0 scores), a stream split over blocks (A = 130 at B = 4)
+EMULATED = {
+    "G1_D32_evict": (dict(segments_per_column=1, cell_dim=32,
+                          allocation_policy="evict"), {}, False),
+    "G2_D33_reference": (dict(segments_per_column=2, cell_dim=33,
+                              allocation_policy="reference"), {}, False),
+    "G4_D64_evict": (dict(segments_per_column=4, cell_dim=64,
+                          allocation_policy="evict"), {}, False),
+    "G32_D33_evict": (dict(segments_per_column=32, cell_dim=33,
+                           synapse_capacity=4, allocation_policy="evict"),
+                      {}, False),
+    "G2_D8_drops": (dict(segments_per_column=2, cell_dim=8,
+                         allocation_policy="evict"), {}, False),
+    "ties_D64_reference": (dict(segments_per_column=4, cell_dim=64,
+                                allocation_policy="reference"),
+                           dict(ties=True), False),
+    "zero_draws_D32": (dict(segments_per_column=4, cell_dim=32,
+                            allocation_policy="evict"), {}, True),
+    "split_A130": (dict(segments_per_column=2, cell_dim=32,
+                        column_dim=256, active_columns=130,
+                        allocation_policy="evict"),
+                   dict(first_steps=2), False),
+}
+
+
+@pytest.mark.parametrize("case", EMULATED)
+def test_kernel_reductions_match_the_plain_version(case):
+    """The kernel's reductions (`emulate_column_decide`) against
+    `column_decide_ref` on `testing.decide_inputs`, in each mode: the
+    words, the bursting columns, the flags, the counts (met across the
+    split grid's blocks) and the new owners exactly."""
+    overrides, opts, zero = EMULATED[case]
+    cfg = testing.fuzz_config(**overrides)
+    x = testing.decide_inputs(len(case), cfg, B, **opts)
+    if zero:
+        x["draws"] = type(x["draws"])(*(torch.zeros_like(t)
+                                        for t in x["draws"]))
+    for mode in kernels.DECIDE_MODES:
+        args = testing.decide_args(cfg, x, mode)
+        got = emulate_column_decide(cfg, args)
+        want = ptm.column_decide_ref(*args)
+        ix = (torch.arange(B)[:, None], x["cols"].long())
+        for g, w in zip(got, (*want, args[2][ix])):
+            assert (g is None) == (w is None)
+            assert g is None or np.array_equal(g, w.numpy()), mode
+        if mode == "learn":
+            assert int(want.counts[3].sum()) > 0

@@ -417,15 +417,16 @@ def _learn_call(kk: int, n_chosen=(2, 4), K: int = 16, cols: bool = False):
         _view(*n_chosen), _view(4, 2), 0.1, 0.1, 0.21)
 
 
-def _decide_call(mode: str, cols: bool = True, D: int = 32):
+def _decide_call(mode: str, cols: bool = True, D: int = 32, B: int = 2,
+                 A: int = 4):
     """`column_decide_cuda` on CPU views: B=2 streams, A=4 active columns
-    of 6 (``cols``) or gathered, G=2 segments of D cells."""
-    Ct, W = (6 if cols else 4), (D + 31) // 32
+    of A + 2 (``cols``) or gathered, G=2 segments of D cells."""
+    Ct, W = (A + 2 if cols else A), (D + 31) // 32
     return lambda: kernels.column_decide_cuda(
-        _view(2, W, Ct), _view(2, Ct, 2), _view(2, 4) if cols else None,
-        _view(2, 4, 2), _view(2, 4, 2), _view(2, 4, 2),
-        _view(2, 4, 2, dtype=torch.float32),
-        _view(2, 4, D, dtype=torch.float32), _view(2), D, mode, 2, 3, 1e-8,
+        _view(B, W, Ct), _view(B, Ct, 2), _view(B, A) if cols else None,
+        _view(B, A, 2), _view(B, A, 2), _view(B, A, 2),
+        _view(B, A, 2, dtype=torch.float32),
+        _view(B, A, D, dtype=torch.float32), _view(B), D, mode, 2, 3, 1e-8,
         True)
 
 
@@ -448,16 +449,34 @@ def _decide_call(mode: str, cols: bool = True, D: int = 32):
      "pack_bits", ("v4",)),
     (lambda: kernels.pack_bits_cuda(_view(2, 3, 33, dtype=torch.bool)),
      "pack_bits", ("v1",)),
-    (_learn_call(32), "learn_rows", ("u8", "rows", "shfl")),
-    (_learn_call(33), "learn_rows", ("u8", "rows", "load")),
-    (_learn_call(8, cols=True), "learn_rows", ("u8", "table", "shfl")),
-    (_learn_call(8, K=126), "learn_rows", ("bf16", "rows", "shfl")),
+    (_learn_call(32), "learn_rows", ("u8", "rows", "shfl", "v16")),
+    (_learn_call(33), "learn_rows", ("u8", "rows", "load", "v16")),
+    (_learn_call(8, cols=True), "learn_rows",
+     ("u8", "table", "shfl", "v16")),
+    (_learn_call(8, K=126), "learn_rows", ("bf16", "rows", "shfl", "scalar")),
     (_learn_call(40, K=128, cols=True), "learn_rows",
-     ("f32", "table", "load")),
-    (_decide_call("learn"), "column_decide", ("learn", "table")),
+     ("f32", "table", "load", "scalar")),
+    (_decide_call("learn"), "column_decide", ("learn", "table", "stream")),
     (_decide_call("winner", cols=False, D=33), "column_decide",
-     ("winner", "rows")),
-    (_decide_call("burst", D=8), "column_decide", ("burst", "table")),
+     ("winner", "rows", "stream")),
+    (_decide_call("burst", D=8), "column_decide",
+     ("burst", "table", "stream")),
+    # u8 activity with K off a multiple of 8, and the reference stacks' K
+    (_learn_call(8, K=60), "learn_rows", ("u8", "rows", "shfl", "scalar")),
+    (_learn_call(8, K=125, cols=True), "learn_rows",
+     ("u8", "table", "shfl", "scalar")),
+    (_learn_call(40, K=48, cols=True), "learn_rows",
+     ("u8", "table", "load", "v16")),
+    # a stream split over blocks where the streams leave SMs idle; not
+    # where they fill them, nor past the meeting place's streams
+    (_decide_call("learn", B=2, A=200), "column_decide",
+     ("learn", "table", "split")),
+    (_decide_call("winner", cols=False, B=64, A=328), "column_decide",
+     ("winner", "rows", "split")),
+    (_decide_call("learn", B=256, A=200), "column_decide",
+     ("learn", "table", "stream")),
+    (_decide_call("burst", B=1025, A=2000), "column_decide",
+     ("burst", "table", "stream")),
 ])
 def test_grow_and_pack_choose_a_path_from_shapes(call, kernel, path):
     """`grow_select` reports its key form and where its keys live,
@@ -474,6 +493,18 @@ def test_grow_and_pack_choose_a_path_from_shapes(call, kernel, path):
         call()
     assert k.path == path
     assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("B,A,split", [
+    (256, 41, 1), (64, 328, 4), (1, 41, 1), (256, 16, 1), (2, 64, 1),
+    (2, 65, 2), (2, 20_000, 132), (132, 2000, 2), (133, 2000, 1),
+    (1024, 65, 1), (1025, 65, 1), (0, 5, 1)])
+def test_decide_split_fills_the_card_from_shapes(B, A, split):
+    """`column_decide`'s blocks a stream: one where the streams fill
+    DECIDE_FILL_BLOCKS (the bench, 256 x 41) or two columns a warp cover
+    the stream (B=1, A=41); at 16K (64 x 328) four, 82 columns a block;
+    never more than the blocks to fill nor one a 64 columns."""
+    assert kernels.decide_split(B, A) == split
 
 
 @pytest.mark.parametrize("bad", ["key bits", "samp", "cand rows",

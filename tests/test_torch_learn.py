@@ -447,3 +447,157 @@ def test_learn_step_gathers_no_synapse_rows():
     assert not [s for s in seen if s[1:] == owners], seen
     assert inside == [] and seen
     assert int(out.metrics["tm_grown_synapses"].sum()) > 0
+
+
+# ---- `learn_rows`' paths, emulated in numpy (csrc/learn_pass.cu)
+
+def _row_pass(s, p, a, learn_r, empty_r):
+    """The update and death of slots (numpy, float32), as the kernel
+    orders them: stale or a new segment's slots emptied, perm += (learn
+    & live) * delta, live slots with perm < 0 killed."""
+    s, p = s.copy(), p.astype(np.float32)
+    gone = (p < 0) | empty_r
+    s, p = np.where(gone, -1, s), np.where(gone, np.float32(-1), p)
+    live = s >= 0
+    delta = np.where(a, np.float32(0.1), np.float32(-0.05))
+    p = (p + (learn_r & live).astype(np.float32) * delta).astype(np.float32)
+    dead = live & (p < 0)
+    return np.where(dead, -1, s), np.where(dead, np.float32(-1), p)
+
+
+def emulate_learn_rows(x: dict, sel) -> tuple:
+    """`learn_rows` on `testing.learn_inputs` ``x`` and its selection
+    ``sel`` (cell form), the kernel's way, column by column: the "v16"
+    path (u8, K a multiple of 8) in rounds of 256 slots, 8 a lane, each
+    free slot ranked by the lane's exclusive count within its row (a scan
+    over the lanes, the row's first lane subtracted, plus the row's
+    count carried from the round before) and the popcount of the lane's
+    free slots before it; else the "scalar" path, a row at a time in
+    32-slot chunks ranked by ballots, the row's last chunk cut at K.
+    Returns (syn, perm bits, the grown mask (B, R, K), counts)."""
+    s = x["select"]
+    syn = s["syn_rows"].numpy().copy()
+    perm = x["perm"].numpy().copy()
+    act = (s["act_rows"] != 0).numpy()
+    cols = x["cols"].numpy()
+    learn, fresh = x["learn"].numpy(), x["new_seg"].numpy()
+    lpos, chosen = sel.lpos.numpy(), sel.chosen.numpy()
+    n_chosen = sel.n_chosen.numpy()
+    counts = sel.counts.numpy().copy()
+    Bn, _, J = syn.shape
+    R = learn.shape[1]
+    A = cols.shape[1]
+    G = R // A
+    K = J // G
+    v16 = s["act_rows"].dtype == torch.uint8 and K % 8 == 0
+    assert v16 == (kernels._learn_loads(K) == "v16")
+    wrote = np.zeros((Bn, R, K), bool)
+    x_inc = np.float32(x["increment"])
+    assert x_inc == np.float32(0.1) and np.float32(x["decrement"]) == \
+        np.float32(0.05)
+    for b in range(Bn):
+        for a in range(A):
+            c = cols[b, a]
+            rows = a * G + np.arange(G)
+            l = lpos[b, rows]
+            n = np.where(l >= 0, n_chosen[b, np.maximum(l, 0)], 0)
+            s0, p0 = syn[b, c].copy(), perm[b, c].copy()
+            s1, p1 = s0.copy(), p0.copy()
+            grew = np.zeros(J, bool)
+            free_total = np.zeros(G, np.int64)
+            if v16:
+                carry, carry_row = 0, -1
+                for k0 in range(0, J, 256):
+                    k = k0 + 8 * np.arange(32)
+                    inn = k < J
+                    g = np.where(inn, k // K, 0)
+                    slots = np.minimum(k[:, None] + np.arange(8), J - 1)
+                    ns, npm = _row_pass(s0[slots], p0[slots],
+                                        act[b, c][slots],
+                                        learn[b, rows][g][:, None],
+                                        fresh[b, rows][g][:, None])
+                    free = (ns < 0) & inn[:, None]
+                    cnt = free.sum(1)
+                    excl = np.cumsum(cnt) - cnt
+                    start = np.where(g * K > k0, (g * K - k0) // 8, 0)
+                    rank0 = excl - excl[start] + np.where(g == carry_row,
+                                                          carry, 0)
+                    last = min(31, (J - k0) // 8 - 1)
+                    carry, carry_row = rank0[last] + cnt[last], g[last]
+                    ends = inn & (k + 8 == (g + 1) * K)
+                    free_total[g[ends]] = rank0[ends] + cnt[ends]
+                    fr = rank0[:, None] + np.cumsum(free, 1) - free
+                    grow = free & (fr < n[g][:, None])
+                    cells = chosen[b, np.maximum(l[g], 0)[:, None],
+                                   np.minimum(fr, chosen.shape[2] - 1)]
+                    ns = np.where(grow, cells, ns)
+                    npm = np.where(grow, np.float32(x["permanence_initial"]),
+                                   npm)
+                    at = slots[inn]
+                    s1[at], p1[at] = ns[inn], npm[inn]
+                    grew[at] = grow[inn]
+            else:
+                for gi in range(G):
+                    ranked = 0
+                    for k0 in range(0, K, 32):
+                        k = k0 + np.arange(32)
+                        inn = k < K
+                        at = gi * K + np.minimum(k, K - 1)
+                        ns, npm = _row_pass(s0[at], p0[at], act[b, c][at],
+                                            learn[b, rows[gi]],
+                                            fresh[b, rows[gi]])
+                        free = (ns < 0) & inn
+                        fr = ranked + np.cumsum(free) - free
+                        ranked += int(free.sum())
+                        grow = free & (fr < n[gi])
+                        cells = chosen[b, max(l[gi], 0),
+                                       np.minimum(fr, chosen.shape[2] - 1)]
+                        ns = np.where(grow, cells, ns)
+                        npm = np.where(grow,
+                                       np.float32(x["permanence_initial"]),
+                                       npm)
+                        s1[at[inn]], p1[at[inn]] = ns[inn], npm[inn]
+                        grew[at[inn]] = grow[inn]
+                    free_total[gi] = ranked
+            syn[b, c], perm[b, c] = s1, p1
+            wrote[b, rows] = grew.reshape(G, K)
+            counts[ptm.N_GROWN, b] += int(np.where(
+                l >= 0, np.minimum(free_total, n), 0).sum())
+            counts[ptm.OVERFLOW, b] += int(np.maximum(
+                n - free_total, 0).sum())
+    return syn, perm.view(np.int32), wrote, counts
+
+
+# B, C, D, A, G, K, Wc, L, samp: the bench (one round a column), the
+# reference stack's G = 8, K = 48 (rows across two rounds), G = 32 of K =
+# 8 (a lane a row), and the tails of the scalar path at K = 125 (u8) and
+# 127 (bf16)
+EMULATED_GEOMS = [(2, 2048, 32, 41, 4, 64, 128, 88, 32),
+                  (2, 2048, 32, 41, 8, 48, 128, 88, 32),
+                  (2, 1024, 32, 20, 32, 8, 128, 88, 8),
+                  (2, 2048, 32, 20, 2, 125, 128, 88, 32),
+                  (2, 2048, 32, 20, 2, 127, 128, 88, 32)]
+
+
+@pytest.mark.parametrize("geo", EMULATED_GEOMS)
+def test_learn_rows_paths_match_the_plain_version(geo):
+    """`emulate_learn_rows` (the kernel's vector path where the wrapper
+    takes it, else its scalar path) against `learn_rows_ref` on
+    `testing.learn_inputs` and its selection: the tables bit for bit,
+    the mask of the slots grown and the counts."""
+    x = testing.learn_inputs(sum(geo), *geo)
+    x["increment"], x["decrement"] = 0.1, 0.05
+    s = x["select"]
+    sel = ptm.grow_select_ref(**s)
+    got = emulate_learn_rows(x, sel)
+    syn, perm, counts = s["syn_rows"].clone(), x["perm"].clone(), \
+        sel.counts.clone()
+    wrote = ptm.learn_rows_ref(syn, perm, s["act_rows"], x["cols"],
+                               x["learn"], x["new_seg"], sel.lpos,
+                               sel.chosen, sel.n_chosen, counts, 0.1, 0.05,
+                               x["permanence_initial"], want_mask=True)
+    want = (syn.numpy(), perm.view(torch.int32).numpy(), wrote.numpy(),
+            counts.numpy())
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    assert int(counts[ptm.N_GROWN].sum()) > 0
