@@ -204,31 +204,44 @@ def anomaly_likelihood_init(window: int = 500, batch: int = 1,
     )
 
 
-def anomaly_likelihood_update(
-    state: AnomalyLikelihoodState,
-    score,
-    short_momentum: float = 0.9,
-    exclude_recent: int = 10,
-) -> tuple[AnomalyLikelihoodState, torch.Tensor]:
-    """Push one raw anomaly score a stream ((B,)); returns (new_state,
-    likelihood (B,) in [0, 1]). Likelihood ~0.5 for in-distribution
-    scores, -> 1 when the recent short-term mean sits far in the upper
-    tail of the stream's own running score distribution. Threshold
-    around 0.99999 for NAB-style alerts (``-log10(1 - L) >= 5``).
-
-    The distribution is estimated EXCLUDING the newest
-    ``exclude_recent`` samples (the Numenta construction), so an anomaly
-    burst does not contaminate the baseline it is judged against. Until
-    enough history exists the likelihood is held at 0.5 (undecided).
-    The state passed in is not changed."""
-    B, W = state.scores.shape
+def _check_window(window: int, exclude_recent: int) -> None:
     R = exclude_recent
-    if W < R + 10:
+    if window < R + 10:
         raise ValueError(
-            f"anomaly-likelihood window ({W}) must be at least "
+            f"anomaly-likelihood window ({window}) must be at least "
             f"exclude_recent + 10 ({R + 10}); otherwise the warm-up "
             f"gate never opens and the likelihood stays 0.5 forever"
         )
+
+
+def _series(values, device=None) -> torch.Tensor:
+    """A stage's input series as a tensor on its device (or ``device``):
+    float32, or a float64 tensor as it is, which the kernels round to
+    float32 as they read it (as `_f32` rounds it), so that no conversion
+    launches."""
+    if isinstance(values, torch.Tensor) and values.dtype == torch.float64:
+        return values.to(_on(values, device))
+    return _f32(values, device)
+
+
+def _step_series(value, B: int, dev: torch.device) -> torch.Tensor:
+    """One step's value a stream (a scalar, (1,) or (B,)) as a (1, B)
+    series on ``dev``: a float32 or float64 tensor broadcast by its
+    strides, anything else rounded to float32 on the host, so that a
+    streaming update on the card launches nothing but its kernel."""
+    if not isinstance(value, torch.Tensor):
+        value = torch.as_tensor(np.asarray(value, dtype=np.float32))
+    elif value.dtype not in (torch.float32, torch.float64):
+        value = value.to(torch.float32)
+    return value.to(dev).expand(B)[None]
+
+
+def _likelihood_step(state: AnomalyLikelihoodState, score,
+                     short_momentum: float, exclude_recent: int
+                     ) -> tuple[AnomalyLikelihoodState, torch.Tensor]:
+    """One step of the plain version: a (B,) score a stream."""
+    B, W = state.scores.shape
+    R = exclude_recent
     dev = state.scores.device
     score = _f32(score, dev).expand(B)
     scores = state.scores.scatter(1, state.pos.long()[:, None],
@@ -260,11 +273,87 @@ def anomaly_likelihood_update(
     )
 
 
+def anomaly_likelihood_steps_ref(
+    state: AnomalyLikelihoodState, scores, short_momentum: float = 0.9,
+    exclude_recent: int = 10,
+) -> tuple[AnomalyLikelihoodState, torch.Tensor]:
+    """Plain version of the `anomaly_likelihood` kernel: the update over
+    the (T, B) ``scores``, a loop of its step; returns (new_state, the
+    (T, B) likelihoods)."""
+    out = []
+    for s in scores:
+        state, lik = _likelihood_step(state, s, short_momentum,
+                                      exclude_recent)
+        out.append(lik)
+    if not out:
+        return state, torch.empty(tuple(scores.shape), dtype=torch.float32,
+                                  device=state.scores.device)
+    return state, torch.stack(out)
+
+
+def anomaly_likelihood_steps(
+    state: AnomalyLikelihoodState | None, scores,
+    short_momentum: float = 0.9, exclude_recent: int = 10,
+    window: int | None = None,
+) -> tuple[AnomalyLikelihoodState, torch.Tensor]:
+    """The update over the (T, B) ``scores`` in one call: the kernel
+    (`kernels.anomaly_likelihood_cuda`, one launch) where the state (or,
+    with ``state`` None, the scores) lies on the card, else its plain
+    version. ``state`` None is a fresh state of ``window`` slots, which
+    the kernel starts from without a fill. Returns (new_state, the (T, B)
+    likelihoods); the state passed in is not changed."""
+    dev = scores.device if state is None else state.scores.device
+    scores = _series(scores, dev)
+    B = scores.shape[1]
+    W = window if state is None else state.scores.shape[1]
+    _check_window(W, exclude_recent)
+    if dev.type != "cuda":
+        if state is None:
+            state = anomaly_likelihood_init(W, B, dev)
+        return anomaly_likelihood_steps_ref(state, scores, short_momentum,
+                                            exclude_recent)
+    from .ops import kernels
+
+    *st, lik = kernels.anomaly_likelihood_cuda(
+        state, scores, W, short_momentum, exclude_recent)
+    return AnomalyLikelihoodState(*st), lik
+
+
+def anomaly_likelihood_update(
+    state: AnomalyLikelihoodState,
+    score,
+    short_momentum: float = 0.9,
+    exclude_recent: int = 10,
+) -> tuple[AnomalyLikelihoodState, torch.Tensor]:
+    """Push one raw anomaly score a stream ((B,)); returns (new_state,
+    likelihood (B,) in [0, 1]). Likelihood ~0.5 for in-distribution
+    scores, -> 1 when the recent short-term mean sits far in the upper
+    tail of the stream's own running score distribution. Threshold
+    around 0.99999 for NAB-style alerts (``-log10(1 - L) >= 5``).
+
+    The distribution is estimated EXCLUDING the newest
+    ``exclude_recent`` samples (the Numenta construction), so an anomaly
+    burst does not contaminate the baseline it is judged against. Until
+    enough history exists the likelihood is held at 0.5 (undecided).
+    The state passed in is not changed. On the card one launch of the
+    `anomaly_likelihood` kernel (`anomaly_likelihood_steps`, T = 1)."""
+    x = _step_series(score, state.scores.shape[0], state.scores.device)
+    state, lik = anomaly_likelihood_steps(state, x, short_momentum,
+                                          exclude_recent)
+    return state, lik[0]
+
+
 # ---- windowed z-score residual stage (pre-encoder / side detector) -----
 # r[t] = v[t] - median(v[t - period], ...) cancels seasonality and slow
 # drift; a causal windowed z-score of r flags the point and level
 # anomalies that chronic noise or drift hide from the likelihood
 # (`examples/anomaly_benchmark.py` unions it with the likelihood alerts).
+
+
+def _check_lags(lags: int) -> None:
+    if lags < 1 or lags % 2 == 0:
+        raise ValueError(f"lags must be odd >= 1, got {lags} (the "
+                         f"seasonal baseline is a median over lags)")
 
 
 class SeasonalZScoreState(NamedTuple):
@@ -276,9 +365,7 @@ class SeasonalZScoreState(NamedTuple):
 def seasonal_zscore_init(period: int, window: int = 96, lags: int = 3,
                          batch: int = 1, device=None
                          ) -> SeasonalZScoreState:
-    if lags < 1 or lags % 2 == 0:
-        raise ValueError(f"lags must be odd >= 1, got {lags} (the "
-                         f"seasonal baseline is a median over lags)")
+    _check_lags(lags)
     dev = _on(None, device)
     return SeasonalZScoreState(
         lag=torch.zeros((batch, lags * period), dtype=torch.float32,
@@ -288,18 +375,9 @@ def seasonal_zscore_init(period: int, window: int = 96, lags: int = 3,
     )
 
 
-def seasonal_zscore_update(
-    state: SeasonalZScoreState, value, period: int,
-    eps: float = 1e-6,
-) -> tuple[SeasonalZScoreState, torch.Tensor]:
-    """Streaming form of `seasonal_zscore`: push one value a stream
-    ((B,)), get its z (B,).
-
-    The seasonal baseline is the MEDIAN of the last `lags` same-phase
-    values (``v[t - period], v[t - 2*period], ...``): a single anomalous
-    cycle cannot move it, which kills the "seasonal echo" false alert
-    one period after a spike. The median of an odd count is one of the
-    values, so it is exact. The state passed in is not changed."""
+def _zscore_step(state: SeasonalZScoreState, value, period: int,
+                 eps: float) -> tuple[SeasonalZScoreState, torch.Tensor]:
+    """One step of the plain version: a (B,) value a stream."""
     B, L = state.lag.shape
     W = state.resid.shape[1]
     k = L // period
@@ -328,6 +406,70 @@ def seasonal_zscore_update(
     ), z
 
 
+def seasonal_zscore_steps_ref(
+    state: SeasonalZScoreState, values, period: int, eps: float = 1e-6,
+) -> tuple[SeasonalZScoreState, torch.Tensor]:
+    """Plain version of the `seasonal_zscore` kernel: the update over the
+    (T, B) ``values``, a loop of its step; returns (new_state, the (T, B)
+    z-scores)."""
+    out = []
+    for x in values:
+        state, z = _zscore_step(state, x, period, eps)
+        out.append(z)
+    if not out:
+        return state, torch.empty(tuple(values.shape), dtype=torch.float32,
+                                  device=state.lag.device)
+    return state, torch.stack(out)
+
+
+def seasonal_zscore_steps(
+    state: SeasonalZScoreState | None, values, period: int,
+    eps: float = 1e-6, window: int = 96, lags: int = 3,
+) -> tuple[SeasonalZScoreState, torch.Tensor]:
+    """The update over the (T, B) ``values`` in one call: the kernel
+    (`kernels.seasonal_zscore_cuda`, one launch) where the state (or,
+    with ``state`` None, the values) lies on the card, else its plain
+    version. ``state`` None is a fresh state of ``window`` residuals and
+    ``lags`` periods, which the kernel starts from without a fill.
+    Returns (new_state, the (T, B) z-scores); the state passed in is not
+    changed."""
+    dev = values.device if state is None else state.lag.device
+    values = _series(values, dev)
+    if state is None:
+        _check_lags(lags)
+        L, W = lags * period, window
+    else:
+        L, W = state.lag.shape[1], state.resid.shape[1]
+    if dev.type != "cuda":
+        if state is None:
+            state = seasonal_zscore_init(period, window, lags,
+                                         values.shape[1], dev)
+        return seasonal_zscore_steps_ref(state, values, period, eps)
+    from .ops import kernels
+
+    *st, z = kernels.seasonal_zscore_cuda(state, values, period, L, W, eps)
+    return SeasonalZScoreState(*st), z
+
+
+def seasonal_zscore_update(
+    state: SeasonalZScoreState, value, period: int,
+    eps: float = 1e-6,
+) -> tuple[SeasonalZScoreState, torch.Tensor]:
+    """Streaming form of `seasonal_zscore`: push one value a stream
+    ((B,)), get its z (B,).
+
+    The seasonal baseline is the MEDIAN of the last `lags` same-phase
+    values (``v[t - period], v[t - 2*period], ...``): a single anomalous
+    cycle cannot move it, which kills the "seasonal echo" false alert
+    one period after a spike. The median of an odd count is one of the
+    values, so it is exact. The state passed in is not changed. On the
+    card one launch of the `seasonal_zscore` kernel
+    (`seasonal_zscore_steps`, T = 1)."""
+    x = _step_series(value, state.lag.shape[0], state.lag.device)
+    state, z = seasonal_zscore_steps(state, x, period, eps)
+    return state, z[0]
+
+
 def seasonal_zscore(values, period: int, window: int = 96,
                     lags: int = 3, eps: float = 1e-6,
                     device=None) -> torch.Tensor:
@@ -339,16 +481,13 @@ def seasonal_zscore(values, period: int, window: int = 96,
     PRECEDING ``window`` residuals (excluding ``r[t]`` itself, so a
     spike cannot deflate its own z). The first
     ``lags * period + window`` steps emit 0 (insufficient history).
-    A loop of `seasonal_zscore_update`, so the streaming form is
-    bit-identical by construction."""
-    v = _f32(values, device)
-    flat = v.reshape(v.shape[0], -1)
-    st = seasonal_zscore_init(period, window, lags, flat.shape[1], v.device)
-    out = []
-    for x in flat:
-        st, z = seasonal_zscore_update(st, x, period, eps)
-        out.append(z)
-    return torch.stack(out).reshape(v.shape)
+    `seasonal_zscore_steps` from a fresh state: on the card one launch of
+    the `seasonal_zscore` kernel, on the CPU a loop of the update's step,
+    so the streaming form is bit-identical by construction there."""
+    v = _series(values, device)
+    _, z = seasonal_zscore_steps(None, v.reshape(v.shape[0], -1), period,
+                                 eps, window, lags)
+    return z.reshape(v.shape)
 
 
 # ---- alerting + task-level scoring (host-side, NAB protocol) -----------

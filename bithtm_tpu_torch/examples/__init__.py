@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..encoders import anomaly_likelihood_init, anomaly_likelihood_update
+from ..encoders import anomaly_likelihood_steps
 
 
 def example_device(cpu: bool, prog: str) -> torch.device:
@@ -31,14 +31,12 @@ def likelihood_series(scores: torch.Tensor, window: int,
                       short_momentum: float,
                       exclude_recent: int) -> torch.Tensor:
     """`anomaly_likelihood_update` over (T, B) raw scores from a fresh
-    state, on their device: the (T, B) likelihoods."""
-    st = anomaly_likelihood_init(window, scores.shape[1], scores.device)
-    out = []
-    for s in scores:
-        st, lik = anomaly_likelihood_update(st, s, short_momentum,
-                                            exclude_recent)
-        out.append(lik)
-    return torch.stack(out)
+    state, on their device: the (T, B) likelihoods. On the card one
+    launch of the `anomaly_likelihood` kernel, on the CPU the loop of
+    the update (`encoders.anomaly_likelihood_steps`)."""
+    _, lik = anomaly_likelihood_steps(None, scores, short_momentum,
+                                      exclude_recent, window)
+    return lik
 
 
 def nlog10(likelihood: torch.Tensor) -> np.ndarray:

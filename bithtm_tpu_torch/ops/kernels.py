@@ -3,7 +3,8 @@
 The sources in `csrc/` (`table_pass.cu`, `serving_pass.cu`,
 `small_take.cu`, `sp_pass.cu`, `overlap_pass.cu`, `count_pass.cu`,
 `grow_pass.cu`, `learn_pass.cu`, `decide_pass.cu`, `pack_pass.cu`,
-`select_pass.cu` and `serving_count_pass.cu`; all include `launch.cuh`,
+`select_pass.cu`, `serving_count_pass.cu` and `anomaly_pass.cu`; all
+include `launch.cuh`,
 `table_pass.cu`, `serving_pass.cu`, `sp_pass.cu` and
 `serving_count_pass.cu` also `active_bitmap.cuh`) are compiled on first use with
 ``nvcc`` for ``sm_90a``, one process per source started together, and
@@ -15,7 +16,7 @@ Each wrapper first chooses its kernel's path from the shapes alone
 (`_bitmap`, `_streams`, `_act_bytes`, `_delta`, `_grow_keys`,
 `_rows_mode`, `_fill_path`, `_learn_loads`, `decide_split`,
 `_pack_path`, `_select_path`,
-`_row_claims`, `_segment_regs`, the decisions' mode: the
+`_row_claims`, `_segment_regs`, `_ring`, the decisions' mode: the
 bitmap in shared or in
 global memory, the packed activity's type, the streams in grid y or
 folded into grid x, the SP delta row staged or read from global memory,
@@ -25,7 +26,8 @@ row update finds repeated columns, the registers a lane tallies a
 compact serving row's segments in, whether the active rows are
 read where they lie in the tables or from gathered rows, how the fill
 reads its cells, whether the learning pass takes a column in 16-byte
-vectors, the decisions' blocks a stream, the pack's loads; README.md,
+vectors, the decisions' blocks a stream, the pack's loads, where the
+anomaly stages keep their rings; README.md,
 port section) and
 reports it (`CudaKernel.path`) before any tensor is read. Only the
 stream-words limit (`_stream_words`: the kernels index a stream's words
@@ -63,7 +65,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("table_pass.cu", "serving_pass.cu", "small_take.cu",
            "sp_pass.cu", "overlap_pass.cu", "count_pass.cu", "grow_pass.cu",
            "learn_pass.cu", "decide_pass.cu", "pack_pass.cu",
-           "select_pass.cu", "serving_count_pass.cu")
+           "select_pass.cu", "serving_count_pass.cu", "anomaly_pass.cu")
 HEADERS = ("active_bitmap.cuh", "launch.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -102,6 +104,12 @@ DECIDE_WARPS = 32
 DECIDE_FILL_BLOCKS = 264
 DECIDE_WARP_COLUMNS = 2
 DECIDE_SPLIT_STREAMS = 1024
+# the anomaly stages (`anomaly_likelihood`, `seasonal_zscore`): a warp a
+# stream, ANOMALY_WARPS streams a block, each stream's rings in shared
+# memory while the block's fit in MAX_SHARED_BYTES (58,112 floats a
+# stream), else in global memory
+ANOMALY_WARPS = 1
+ANOMALY_RING_FLOATS = MAX_SHARED_BYTES // (4 * ANOMALY_WARPS)
 
 _VP, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                     ctypes.c_longlong)
@@ -158,6 +166,15 @@ _ARGTYPES = {
     # rows, ext_col, cols, bits, seg_cell, bitmaps, counts, matching_word,
     # prediction, B, R, E, A, W, C, D, G, theta_m, theta_a
     "serving_counts": [_VP] * 9 + [_I] * 10 + [_I, _VP],
+    # scores_in, pos_in, count_in, short_in, x, x_ts, x_bs, x_f64,
+    # scores_out, pos_out, count_out, short_out, lik, T, B, W, R, m,
+    # one_minus
+    "anomaly_likelihood": [_VP] * 5 + [_LL, _LL, _I] + [_VP] * 5 + [_I] * 4
+    + [_F, _F] + [_I, _VP],
+    # lag_in, resid_in, pos_in, x, x_ts, x_bs, x_f64, lag_out, resid_out,
+    # pos_out, z, T, B, L, W, P, eps
+    "seasonal_zscore": [_VP] * 4 + [_LL, _LL, _I] + [_VP] * 4 + [_I] * 5
+    + [_F] + [_I, _VP],
 }
 # the grid queries of the row-range kernels, which launch nothing:
 # table_pass_grid (punish, C, J, D, global, act_bytes, device, blocks
@@ -292,10 +309,13 @@ COLUMN_DECIDE = CudaKernel("column_decide")
 PACK_BITS = CudaKernel("pack_bits")
 SP_SELECT = CudaKernel("sp_select")
 SERVING_COUNTS = CudaKernel("serving_counts")
+ANOMALY_LIKELIHOOD = CudaKernel("anomaly_likelihood")
+SEASONAL_ZSCORE = CudaKernel("seasonal_zscore")
 KERNELS = (TABLE_UPDATE, ACT_CONN, SERVING_ACTIVATION, ACT_FROZEN,
            SYNAPSE_ACTIVATION, SMALL_TABLE_TAKE, SP_UPDATE_PACK, SP_ROWS,
            SP_OVERLAP, SEG_COUNTS, GROW_SELECT, ROW_COUNTS, LEARN_ROWS,
-           COLUMN_DECIDE, PACK_BITS, SP_SELECT, SERVING_COUNTS)
+           COLUMN_DECIDE, PACK_BITS, SP_SELECT, SERVING_COUNTS,
+           ANOMALY_LIKELIHOOD, SEASONAL_ZSCORE)
 
 
 def launch_counts() -> dict[str, int]:
@@ -568,6 +588,28 @@ def _segment_regs(G: int) -> str:
     the byte fields (four a register) in which a lane counts a row's
     words by segment before the warp sums them."""
     return next(f"g{n}" for n in (4, 8, 16, 32) if G <= n)
+
+
+def _ring(floats: int) -> str:
+    """Where the anomaly stages keep a stream's rings of ``floats``
+    float32 values: "smem" while ANOMALY_WARPS of them fit a block's
+    shared memory (ANOMALY_RING_FLOATS), else "global" (the output
+    state's rings, worked on in place)."""
+    return "smem" if floats <= ANOMALY_RING_FLOATS else "global"
+
+
+_SERIES_NAMES = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _series_name(x) -> str:
+    """The type of an anomaly stage's (T, B) input series: "f32", or
+    "f64", which the kernel rounds to float32 as it reads it."""
+    if x.dim() != 2:
+        raise ValueError(f"the series must be (T, B), got {tuple(x.shape)}")
+    if x.dtype not in _SERIES_NAMES:
+        raise TypeError(f"the series must be float32 or float64, got "
+                        f"{x.dtype}")
+    return _SERIES_NAMES[x.dtype]
 
 
 def _bitmap_scratch(path: str, B: int, C: int, cell_dim: int, device):
@@ -1366,4 +1408,86 @@ def sp_select_cuda(overlaps, duty_cycle, k: int, scale: float,
                      out[3].data_ptr(),
                      None if scratch is None else scratch.data_ptr(),
                      B, C, k, scale, momentum, one_minus, dev, _stream(dev))
+    return out
+
+
+def _series_state(names, state, shapes, device: int) -> list:
+    """The pointers of an anomaly stage's input state (None: a fresh
+    state, which the kernel starts from zeros: null pointers), each
+    tensor checked against its (dtype, shape)."""
+    if state is None:
+        return [None] * len(names)
+    return [_ptr(n, t, dtype, shape, device, align=4)
+            for n, t, (dtype, shape) in zip(names, state, shapes)]
+
+
+def anomaly_likelihood_cuda(state, scores, window: int,
+                            short_momentum: float, exclude_recent: int
+                            ) -> tuple:
+    """CUDA `anomaly_likelihood`: the likelihood over the (T, B) series
+    ``scores`` (float32 or float64, any strides) from ``state``, the
+    tuple (scores (B, window) float32, pos, count (B,) int32, short_mean
+    (B,) float32), or None for a fresh state. Returns the new state's
+    four tensors and the (T, B) float32 likelihoods, each a new tensor
+    (see `encoders.anomaly_likelihood_steps_ref`)."""
+    typ = _series_name(scores)
+    path = ANOMALY_LIKELIHOOD.choose(_ring(window), typ)
+    T, B = scores.shape
+    dev = scores.get_device()
+    x_p = _ptr("scores", scores, scores.dtype, None, dev, view=True)
+    ring = (torch.float32, (B, window))
+    vec_i, vec_f = (torch.int32, (B,)), (torch.float32, (B,))
+    in_p = _series_state(("state.scores", "state.pos", "state.count",
+                          "state.short_mean"), state,
+                         (ring, vec_i, vec_i, vec_f), dev)
+
+    def new(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=scores.device)
+
+    out = (new((B, window), torch.float32), new((B,), torch.int32),
+           new((B,), torch.int32), new((B,), torch.float32),
+           new((T, B), torch.float32))
+    if B == 0:
+        return out
+    ts, bs = scores.stride()
+    ANOMALY_LIKELIHOOD.launch(*in_p, x_p, ts, bs, int(path[1] == "f64"),
+                              *(t.data_ptr() for t in out), T, B, window,
+                              exclude_recent, short_momentum,
+                              1.0 - short_momentum, dev, _stream(dev))
+    return out
+
+
+def seasonal_zscore_cuda(state, values, period: int, lag_len: int,
+                         window: int, eps: float) -> tuple:
+    """CUDA `seasonal_zscore`: the z-scores over the (T, B) series
+    ``values`` (float32 or float64, any strides) from ``state``, the tuple
+    (lag (B, lag_len), resid (B, window) float32, pos (B,) int32), or None
+    for a fresh state; the median runs over lag_len // period lags.
+    Returns the new state's three tensors and the (T, B) float32
+    z-scores, each a new tensor (see `encoders.seasonal_zscore_steps_ref`)."""
+    typ = _series_name(values)
+    if not 1 <= period <= lag_len:
+        raise ValueError(f"period must be in [1, {lag_len}] (the lag ring's "
+                         f"length), got {period}")
+    path = SEASONAL_ZSCORE.choose(_ring(lag_len + window), typ)
+    T, B = values.shape
+    dev = values.get_device()
+    x_p = _ptr("values", values, values.dtype, None, dev, view=True)
+    in_p = _series_state(("state.lag", "state.resid", "state.pos"), state,
+                         ((torch.float32, (B, lag_len)),
+                          (torch.float32, (B, window)),
+                          (torch.int32, (B,))), dev)
+
+    def new(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=values.device)
+
+    out = (new((B, lag_len), torch.float32),
+           new((B, window), torch.float32), new((B,), torch.int32),
+           new((T, B), torch.float32))
+    if B == 0:
+        return out
+    ts, bs = values.stride()
+    SEASONAL_ZSCORE.launch(*in_p, x_p, ts, bs, int(path[1] == "f64"),
+                           *(t.data_ptr() for t in out), T, B, lag_len,
+                           window, period, eps, dev, _stream(dev))
     return out

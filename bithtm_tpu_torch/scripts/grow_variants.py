@@ -20,7 +20,10 @@ updated by each call) or
 graph at its own disjoint columns) or ``serving_counts`` (`csrc/
 serving_count_pass.cu`, `SERVING_VARIANTS`: the flags form on
 `testing.serving_inputs` at the learned tables' share of active words,
-and `serving_activation` over the same rows as "reference"). A variant
+and `serving_activation` over the same rows as "reference") or
+``anomaly_likelihood`` / ``seasonal_zscore`` (`csrc/anomaly_pass.cu`,
+`STAGE_VARIANTS`, at the cases of `testing.LIKELIHOOD_CASES` /
+`testing.ZSCORE_CASES`, e.g. ``--shapes bench``). A variant
 whose patch does not match the
 source is reported as not applicable. Variants that cut a part out give
 wrong results; they are timed, never checked. Each variant's ms a call
@@ -319,6 +322,23 @@ SERVING_VARIANTS = {
     "cols8": [("constexpr int kCols = 4;", "constexpr int kCols = 8;")],
     "no_skip": [("if (__any_sync(kAll, any)) {", "if (true) {")],
 }
+# the anomaly stages (`anomaly_likelihood`, `seasonal_zscore`): one
+# running sum a lane (no blocks of kBlock slots); the warp's butterflies
+# cut (each lane's own total taken); the likelihood's erff and its
+# division cut; the z-score's median cut; four streams a block, not one
+STAGE_VARIANTS = {
+    "base": [],
+    "one_block": [("constexpr int kBlock = 16;",
+                   "constexpr int kBlock = 1 << 30;")],
+    "no_butterfly": [
+        ("float warp_sum(float v) {", "float warp_sum(float v) {\n"
+         "  return v;"),
+        ("void warp_sum2(float& a, float& b) {",
+         "void warp_sum2(float& a, float& b) {\n  return;")],
+    "no_erf": [("erff(__fdiv_rn(z, kSqrt2))", "z")],
+    "no_median": [("r = __fsub_rn(v, median(lag, tl, L, P, k));", "r = v;")],
+    "warps_4": [("constexpr int kWarps = 1;", "constexpr int kWarps = 4;")],
+}
 # B, C, I, A, the permanence type (chip_smoke.py SP_ROWS_MAIN)
 ROWS_SHAPES = {
     "bench": (256, 2048, 1000, 41, "int16"),
@@ -357,6 +377,11 @@ STUDIES = {
                        {"bench": (256, 2048, 32, 41, 4, 1, 0),
                         "16k_tuned": (64, 16384, 64, 328, 4, 1, 0)}),
     "sp_rows": ("sp_pass.cu", ROWS_VARIANTS, ROWS_SHAPES),
+    # the cases of `testing.LIKELIHOOD_CASES` / `testing.ZSCORE_CASES`
+    "anomaly_likelihood": ("anomaly_pass.cu", STAGE_VARIANTS,
+                           testing.LIKELIHOOD_CASES),
+    "seasonal_zscore": ("anomaly_pass.cu", STAGE_VARIANTS,
+                        testing.ZSCORE_CASES),
 }
 
 
@@ -478,6 +503,23 @@ def study_calls(kernel: str, geo: tuple, dev) -> tuple:
         return (lambda: kernels.sp_rows_cuda(perm, conn, x, next(sets),
                                              *steps)), None, \
             kernels.SP_ROWS, None
+    if kernel == "anomaly_likelihood":
+        from ..encoders import AnomalyLikelihoodState, anomaly_likelihood_steps
+
+        T, B, W, R, carried = geo
+        st, x = testing.likelihood_inputs(sum(map(int, geo)), *geo,
+                                          device=dev)
+        st = None if st is None else AnomalyLikelihoodState(*st)
+        return (lambda: anomaly_likelihood_steps(st, x, 0.7, R, W)), None, \
+            kernels.ANOMALY_LIKELIHOOD, None
+    if kernel == "seasonal_zscore":
+        from ..encoders import SeasonalZScoreState, seasonal_zscore_steps
+
+        T, B, P, W, lags, carried, f64 = geo
+        st, x = testing.zscore_inputs(sum(map(int, geo)), *geo, device=dev)
+        st = None if st is None else SeasonalZScoreState(*st)
+        return (lambda: seasonal_zscore_steps(st, x, P, 1e-6, W, lags)), \
+            None, kernels.SEASONAL_ZSCORE, None
     if kernel == "column_decide":
         B, C, D, A, G, K, *mode = geo
         cfg = TMConfig(column_dim=C, cell_dim=D, active_columns=A,

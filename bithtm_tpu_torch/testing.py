@@ -6,6 +6,8 @@ versions, made with numpy from a seed at any shape; the check of the
 SP's boost on one device against the CPU (`boost_agreement`); the
 growth selection's inputs at a TM geometry (`grow_inputs`,
 `same_choice`);
+the anomaly stages' states and series (`likelihood_inputs`,
+`zscore_inputs`, at the cases `LIKELIHOOD_CASES` and `ZSCORE_CASES`);
 `run_ranks`, which runs the ranks of a multi-process check as processes
 with a deadline; `step_launches`, the kernel launches HTM steps make;
 and the config-fuzz geometries (`FUZZ_CASES`,
@@ -519,6 +521,93 @@ def select_inputs(seed: int, B: int, C: int, kind: str = "random",
                             torch.full((B, C), 0.1, device=device),
                             generator=g)
     return ov.to(torch.int32), duty
+
+
+# The anomaly stages' kernels against their plain versions on the card
+# (`chip_smoke.check_anomaly_stages`, tests/test_torch_cuda.py): the
+# anomaly benchmark's shapes (examples/anomaly_benchmark.py: 1,440 steps,
+# 8 tasks x 32 seeds, the likelihood's window 300 and exclude 24, the
+# z-score's period 24, window 96, 3 lags, its values in float64 as the
+# benchmark passes them), a step from a carried mid-ring state, a window
+# off a multiple of 32 with exclude 0 (count saturating, the gates
+# crossed), one stream, 65,537 streams, rings past shared memory
+# (`kernels._ring`: the "global" path) and 5 lags.
+# likelihood: name -> (T, B, W, R, carried)
+LIKELIHOOD_CASES = {
+    "bench": (1440, 256, 300, 24, False),
+    "T=1 carried": (1, 256, 300, 24, True),
+    "W=75 exclude 0": (300, 64, 75, 0, False),
+    "B=1": (400, 1, 300, 24, False),
+    "B=65,537 carried": (40, 65_537, 40, 10, True),
+    "global ring carried": (60, 4, 60_000, 24, True),
+}
+# z-score: name -> (T, B, P, W, lags, carried, float64 values)
+ZSCORE_CASES = {
+    "bench": (1440, 256, 24, 96, 3, False, True),
+    "T=1 carried": (1, 256, 24, 96, 3, True, True),
+    "W=50 f32": (200, 64, 12, 50, 3, False, False),
+    "5 lags": (200, 16, 6, 40, 5, False, False),
+    "B=1": (300, 1, 24, 96, 3, False, True),
+    "B=65,537 carried": (40, 65_537, 4, 20, 3, True, False),
+    "global ring carried": (60, 4, 24, 58_100, 3, True, False),
+}
+ANOMALY_A = 16  # the anomaly benchmark's active columns: scores k / 16
+
+
+def likelihood_inputs(seed: int, T: int, B: int, W: int, R: int,
+                      carried: bool, device="cpu") -> tuple:
+    """(state or None, (T, B) float32 scores) for the likelihood. The
+    scores take the values an HTM step gives at A = 16 active columns,
+    k * f32(1/16): steady streams of low scores with bursts and single
+    spikes. A carried state holds such scores in its ring, pos anywhere
+    in [0, W), count anywhere in [0, W] (stream 0 one step from
+    saturating, stream 1 one step from the warm-up gate R + 10, stream 2
+    saturated) and any short mean."""
+    rng = np.random.RandomState(seed)
+    unit = np.float32(1.0 / ANOMALY_A)
+
+    def scores(*shape):
+        k = rng.binomial(3, 0.3, shape)
+        k = np.where(rng.rand(*shape) < 0.03, ANOMALY_A, k)
+        return k.astype(np.float32) * unit
+
+    x = scores(T, B)
+    for b in range(min(B, 64)):
+        at = rng.randint(0, max(T - 10, 1))
+        x[at:at + rng.randint(3, 20), b] = unit * rng.randint(8, 17)
+    state = None
+    if carried:
+        count = rng.randint(0, W + 1, B).astype(np.int32)
+        count[:3] = (W - 1, R + 9, W)[:B]
+        state = tuple(torch.from_numpy(a).to(device) for a in (
+            scores(B, W), rng.randint(0, W, B).astype(np.int32), count,
+            rng.uniform(0, 1, B).astype(np.float32)))
+    return state, torch.from_numpy(x).to(device)
+
+
+def zscore_inputs(seed: int, T: int, B: int, P: int, W: int, lags: int,
+                  carried: bool, f64: bool, device="cpu") -> tuple:
+    """(state or None, (T, B) values) for the seasonal z-score: a sine of
+    period P with noise, drift, a spike and a level shift, in float64
+    where ``f64``. A carried state holds such values and residuals, its
+    pos anywhere in [0, L + W + T) (stream 0 one step before L, stream 1
+    one before L + W)."""
+    rng = np.random.RandomState(seed)
+    L = lags * P
+    t = np.arange(T)[:, None] + rng.randint(0, P, B)
+    v = (np.sin(2 * np.pi * t / P) + rng.normal(0, 0.1, (T, B))
+         + np.linspace(0, 0.5, T)[:, None])
+    v[T // 2, ::7] += 1.9
+    v[2 * T // 3:, 1::5] += 0.4
+    state = None
+    if carried:
+        pos = rng.randint(0, L + W + T, B).astype(np.int32)
+        pos[:2] = (L - 1, L + W - 1)[:B]
+        state = tuple(torch.from_numpy(a).to(device) for a in (
+            rng.normal(0, 1, (B, L)).astype(np.float32),
+            rng.normal(0, 0.3, (B, W)).astype(np.float32), pos))
+    return state, torch.from_numpy(v if f64 else v.astype(np.float32)).to(
+        device)
 
 
 def run_ranks(commands: list[list[str]], log_dir: str, timeout: float,

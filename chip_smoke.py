@@ -38,6 +38,15 @@ table, both forms in the phase `check_serving_counts` at G = 1, 8 and
 extension rows in column order, empty lanes, the global bitmap and
 65,537 streams, and on the learned bench and 16K serving tables (in
 `run_serving` and `run_16k`, also in a CUDA graph of 20);
+`anomaly_likelihood` and `seasonal_zscore`, the anomaly pipeline's two
+stages over a whole (T, B) series in one launch each, in the phase
+`check_anomaly_stages` at the anomaly benchmark's shapes (1,440 steps,
+B=256), one step from a carried mid-ring state, a window off a multiple
+of 32 with exclude 0, count saturating and t crossing L and L + W, one
+stream, 65,537 streams, 5 lags and rings past shared memory (the
+"global" path), the new state bit for bit and L and z within the CPU
+tests' tolerances, each also in a CUDA graph of 20, each public call of
+the stages one device kernel under the profiler;
 `column_decide`,
 the TM's column decisions (the winner selection, `_learn`'s flags and
 `_allocate`, with the active and winner cells' words), in the phase
@@ -108,8 +117,9 @@ inputs from the scalar and time-of-day encoders -> 512 columns x 8
 cells, A=16, G=8, K=48; `run_anomaly`): the anomaly benchmark's 8 tasks
 x 32 seeds as B=256 streams (the encoders on the card equal to the
 CPU's, one 1,440-step learning scan launching `table_update` once a
-step, the likelihood and z-score on the card within tolerance of the
-CPU's, mean F1 >= 0.9 on the spike and frequency-change tasks), a
+step, the likelihood and z-score on the card one kernel launch each
+and within tolerance of the CPU's, mean F1 >= 0.9 on the spike and
+frequency-change tasks), a
 two-layer stack at B=256 (both layers learn, two table kernels a step,
 `stack_scan` equal to a loop of `stack_step`), the sequence-prediction
 and anomaly-detection example scripts, and a scan fed by
@@ -186,6 +196,7 @@ from bithtm_tpu_torch.ops.bitops import popcount32
 from bithtm_tpu_torch.ops.overlap import (input_words, overlaps, pack_input,
                                           overlaps_ref, padded_input_dim)
 from bithtm_tpu_torch.parallel import mesh as pmesh
+from bithtm_tpu_torch import encoders as penc
 from bithtm_tpu_torch import testing
 from bithtm_tpu_torch.testing import serving_rows, table_inputs
 from bithtm_tpu_torch.testing import step_launches as steps
@@ -226,6 +237,7 @@ GRAPH_LEARN, GRAPH_INFER, GRAPH_SERVE = 64, 16, 64   # bench
 GRAPH_16K, GRAPH_ESCALATE = 128, 32   # 16K under autocap; forced escalation
 GRAPH_ANOMALY, GRAPH_STACK = 128, 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+F32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {
     "table_update": "bithtm_tpu_torch/csrc/table_pass.cu",
@@ -245,6 +257,8 @@ SOURCES = {
     "pack_bits": "bithtm_tpu_torch/csrc/pack_pass.cu",
     "sp_select": "bithtm_tpu_torch/csrc/select_pass.cu",
     "serving_counts": "bithtm_tpu_torch/csrc/serving_count_pass.cu",
+    "anomaly_likelihood": "bithtm_tpu_torch/csrc/anomaly_pass.cu",
+    "seasonal_zscore": "bithtm_tpu_torch/csrc/anomaly_pass.cu",
 }
 REPLACES = {
     "table_update": "bithtm_tpu/ops/pallas_kernels.py:489",
@@ -269,6 +283,9 @@ REPLACES = {
     # `serving_counts` (its activation the Pallas serving kernel, :835)
     # and the compact branch of `tm_step` after it
     "serving_counts": "bithtm_tpu/ops/serving.py:205",
+    # the anomaly stages' updates, which the JAX package runs as a lax.scan
+    "anomaly_likelihood": "bithtm_tpu/encoders.py:171",
+    "seasonal_zscore": "bithtm_tpu/encoders.py:255,291",
 }
 
 
@@ -299,8 +316,8 @@ def gpu_info(dev: torch.device) -> dict:
             "count": torch.cuda.device_count()}
 
 
-def cuda_ms(fn, n: int = 20) -> float:
-    for _ in range(3):
+def cuda_ms(fn, n: int = 20, warm: int = 3) -> float:
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1511,6 +1528,205 @@ def check_sp_select(dev) -> tuple[dict, dict]:
     return main, rows
 
 
+# the anomaly stages (`testing.LIKELIHOOD_CASES`, `testing.ZSCORE_CASES`):
+# the benchmark's momentum and eps; the plain versions loop T steps of
+# eager torch ops, so a case of STAGE_SLOW_T steps or more is timed in
+# one call after one (the kernel always over 20, and in a graph of 20)
+STAGE_MOMENTUM, STAGE_EPS = 0.7, 1e-6
+STAGE_SLOW_T = 100
+STAGE_UNIFORM = (400, BATCH, 300, 24)  # T, B, W, R of the uniform scores
+
+
+def stage_ops(kind: str, state, T: int, B: int, W: int, more: int) -> int:
+    """The float32 operations the reference's sums take over the slots
+    that enter them in this run, from the state's count (likelihood) or
+    position (z-score) and the steps: the likelihood 6 a slot of the
+    estimate (the masked sum, the difference, its square, the masked sum
+    again; ``more`` = R), the z-score 5 a live residual (the two masked
+    sums and the square) and lags^2 compares for the median (``more`` =
+    lags), and about 20 a stream-step around them."""
+    t = np.arange(T)[:, None]
+    at = (np.zeros(B, np.int64) if state is None
+          else state[2].cpu().numpy().astype(np.int64))
+    if kind == "likelihood":
+        n = np.clip(np.minimum(at + t + 1, W) - max(more, 0), 0, None)
+        return int(6 * n.sum() + 20 * T * B)
+    n = np.clip(at + t, 0, W)
+    return int(5 * n.sum() + (20 + more * more) * T * B)
+
+
+def stage_row(kind: str, tag: str, case: tuple, dev) -> dict:
+    """One anomaly stage kernel (`anomaly_likelihood` or `seasonal_zscore`)
+    through its dispatcher against its plain version on the card, on the
+    same inputs: one launch, the path from the shapes, the new state bit
+    for bit, the state passed in unchanged, L within LIK_TOL or z within
+    2e-6 + 1e-6|z|. Timed by CUDA events and in a CUDA graph of 20 calls
+    beside the plain version; its bound the larger of its bytes (the
+    series and state read once, the new state and outputs written once)
+    over the memory rate and `stage_ops` over the float32 rate."""
+    if kind == "likelihood":
+        T, B, W, R, carried = case
+        st, x = testing.likelihood_inputs(sum(map(int, case)), T, B, W, R,
+                                          carried, dev)
+        state = None if st is None else bt.AnomalyLikelihoodState(*st)
+        start = state or bt.anomaly_likelihood_init(W, B, dev)
+        kobj, floats, at = (kernels.ANOMALY_LIKELIHOOD, W,
+                            f"T={T} B={B} W={W} R={R}")
+
+        def kernel():
+            return penc.anomaly_likelihood_steps(state, x, STAGE_MOMENTUM,
+                                                 R, window=W)
+
+        def plain():
+            return penc.anomaly_likelihood_steps_ref(start, x,
+                                                     STAGE_MOMENTUM, R)
+
+        def within(got, want):
+            return (got - want).abs() <= LIK_TOL
+        ops = stage_ops(kind, st, T, B, W, R)
+    else:
+        T, B, P, W, lags, carried, f64 = case
+        st, x = testing.zscore_inputs(sum(map(int, case)), T, B, P, W, lags,
+                                      carried, f64, dev)
+        state = None if st is None else bt.SeasonalZScoreState(*st)
+        start = state or bt.seasonal_zscore_init(P, W, lags, B, dev)
+        floats = lags * P + W
+        kobj, at = (kernels.SEASONAL_ZSCORE,
+                    f"T={T} B={B} P={P} W={W} lags={lags} "
+                    f"{'f64' if f64 else 'f32'}")
+
+        def kernel():
+            return penc.seasonal_zscore_steps(state, x, P, STAGE_EPS, W,
+                                              lags)
+
+        def plain():
+            return penc.seasonal_zscore_steps_ref(start, x, P, STAGE_EPS)
+
+        def within(got, want):
+            return (got - want).abs() <= z_tol(want)
+        ops = stage_ops(kind, st, T, B, W, lags)
+    at = f"{at}{' carried' if carried else ''}, {tag}"
+    kept = None if st is None else [t.clone() for t in st]
+    before = kobj.launches
+    got_st, got = kernel()
+    n = kobj.launches - before
+    want_st, want = plain()
+    torch.cuda.synchronize()
+    require(n == 1, f"{kobj.name} at {at} launches its kernel once, got {n}")
+    path = (kernels._ring(floats), kernels._series_name(x))
+    require(kobj.path == path, f"{kobj.name} at {at} takes {path}, got "
+            f"{kobj.path}")
+    require(all(same_bits(g, w) for g, w in zip(got_st, want_st)),
+            f"{kobj.name} state == plain at {at}, bit for bit")
+    require(kept is None or all(same_bits(a, b) for a, b in zip(st, kept)),
+            f"{kobj.name} leaves the state passed in unchanged at {at}")
+    ok = within(got, want)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    require(bool(ok.all()), f"{kobj.name} within tolerance of plain at "
+            f"{at}: max |d| {err}")
+    moved = nbytes(x, *([] if st is None else st), *want_st, want)
+    bound = (1e3 * moved / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S)
+    row = {"ms": cuda_ms(kernel), "graph_ms": graph_ms(kernel),
+           "plain_ms": (cuda_ms(plain, 1, 1) if T >= STAGE_SLOW_T
+                        else cuda_ms(plain)),
+           "max_abs_err": err, "bound_ms": max(bound),
+           "bound_by": "bytes" if bound[0] >= bound[1] else "operations",
+           "library_ms": None, "at": at, "path": list(path)}
+    print(f"kernel {kobj.name} [{'+'.join(path)}]: {row['ms']:.4f} ms, in "
+          f"a CUDA graph of 20 {row['graph_ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {moved / 1e6:.2f} MB, {ops / 1e6:.1f} M "
+          f"float32 operations), library call none, at {at}; state "
+          f"bit-equal, max |d| {err!r}")
+    return row
+
+
+def stage_calls_launch_one_kernel(dev) -> None:
+    """Each public call of the stages on card tensors, under
+    `torch.profiler`, issues one device kernel, its stage's, and no torch
+    op: `anomaly_likelihood_update` and `seasonal_zscore_update` (a (B,)
+    float32 tensor), `likelihood_series` and `seasonal_zscore` (a float64
+    series, as the benchmark passes it)."""
+    from bithtm_tpu_torch.examples import likelihood_series
+
+    T, B, W, R, _ = testing.LIKELIHOOD_CASES["bench"]
+    _, scores = testing.likelihood_inputs(1, T, B, W, R, False, dev)
+    _, values = testing.zscore_inputs(2, *testing.ZSCORE_CASES["bench"][:5],
+                                      False, True, dev)
+    lst = bt.anomaly_likelihood_init(W, B, dev)
+    zst = bt.seasonal_zscore_init(24, 96, 3, B, dev)
+    row = values[0].float()
+    calls = {
+        "anomaly_likelihood_update": ("likelihood_kernel", lambda:
+                                      bt.anomaly_likelihood_update(
+                                          lst, scores[0], STAGE_MOMENTUM,
+                                          R)),
+        "likelihood_series": ("likelihood_kernel", lambda: likelihood_series(
+            scores, W, STAGE_MOMENTUM, R)),
+        "seasonal_zscore_update": ("zscore_kernel", lambda:
+                                   bt.seasonal_zscore_update(zst, row, 24)),
+        "seasonal_zscore": ("zscore_kernel", lambda: bt.seasonal_zscore(
+            values, 24, window=96)),
+    }
+    seen = {}
+    for name, (kernel, fn) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with warm_profile(dev) as prof:
+            fn()
+        ran = [e.name for e in device_events(prof)
+               if not e.name.startswith(("Memcpy", "Memset"))]
+        seen[name] = ran
+        require(len(ran) == 1 and kernel in ran[0],
+                f"{name} on the card runs one kernel, its stage's: {ran}")
+    print("anomaly stages, device kernels a call: " + json.dumps(
+        {k: [n[:60] for n in v] for k, v in seen.items()}))
+
+
+def check_anomaly_stages(dev) -> tuple[dict, dict, dict]:
+    """The anomaly stages' kernels against their plain versions on the
+    card (`stage_row`) at every case of `testing.LIKELIHOOD_CASES` and
+    `testing.ZSCORE_CASES`: the anomaly benchmark's shapes (T = 1,440, B =
+    256), one step from a carried mid-ring state, a window off a multiple
+    of 32 and exclude 0, count saturating and t crossing L and L + W, one
+    stream, 65,537 streams, 5 lags and rings in global memory; each public
+    call one kernel (`stage_calls_launch_one_kernel`); and, not held to a
+    tolerance, the likelihood on uniform scores (not the k/16 an HTM
+    step gives), where float32 sums in any two orders move L by up to
+    about the tolerance: the kernel against the plain version on the card,
+    and the plain version on the card against the CPU's. Returns (the
+    likelihood's bench row, the z-score's; {kernel: {case: row}})."""
+    print(f"anomaly stages on {gpu_line(dev)}: each kernel against its "
+          f"plain version on the card")
+    rows = {"anomaly_likelihood": {}, "seasonal_zscore": {}}
+    for tag, case in testing.LIKELIHOOD_CASES.items():
+        rows["anomaly_likelihood"][tag] = stage_row("likelihood", tag, case,
+                                                    dev)
+        torch.cuda.empty_cache()
+    for tag, case in testing.ZSCORE_CASES.items():
+        rows["seasonal_zscore"][tag] = stage_row("zscore", tag, case, dev)
+        torch.cuda.empty_cache()
+    stage_calls_launch_one_kernel(dev)
+    T, B, W, R = STAGE_UNIFORM
+    rng = np.random.RandomState(11)
+    u = torch.from_numpy(rng.uniform(0, 0.25, (T, B)).astype(np.float32))
+    u[rng.rand(T, B) < 0.02] = 1.0
+    got = penc.anomaly_likelihood_steps(None, u.to(dev), STAGE_MOMENTUM, R,
+                                        window=W)[1].cpu()
+    card = penc.anomaly_likelihood_steps_ref(
+        bt.anomaly_likelihood_init(W, B, dev), u.to(dev), STAGE_MOMENTUM,
+        R)[1].cpu()
+    host = penc.anomaly_likelihood_steps_ref(
+        bt.anomaly_likelihood_init(W, B, "cpu"), u, STAGE_MOMENTUM, R)[1]
+    print(f"likelihood on uniform scores (T={T} B={B} W={W} R={R}; not held "
+          f"to LIK_TOL {LIK_TOL}): kernel - plain on the card max |dL| "
+          f"{float((got - card).abs().max())!r}, kernel - CPU "
+          f"{float((got - host).abs().max())!r}, plain on the card - CPU "
+          f"{float((card - host).abs().max())!r}")
+    return (dict(rows["anomaly_likelihood"]["bench"]),
+            dict(rows["seasonal_zscore"]["bench"]), rows)
+
+
 # `serving_counts` past the learned tables of the main paths (tag: B, C,
 # D, A, G, M, E, `testing.serving_inputs` keywords): one segment a column,
 # eight and 32 (each byte-field tally), two prediction words a column (D =
@@ -2534,17 +2750,29 @@ PORT_KERNELS = ("table_pass_kernel", "word_range_kernel", "word_pass_kernel",
                 "pack_vec_kernel")
 
 
+PROFILE_ATTEMPTS = 3  # `device_profile`'s sessions while one sees no work
+
+
 def device_profile(run, n: int, top: int) -> tuple[float, float]:
     """torch.profiler over ``run()``, which takes n steps, after a
     warm-up phase (`warm_profile`: a session's first launches go
     unrecorded): prints the top device ops a step, then the port's own
     kernels outside the top, and returns (device busy ms, kernel
-    launches) a step."""
-    with warm_profile(torch.device("cuda", torch.cuda.current_device())
-                      ) as prof:
-        run()
+    launches) a step. A session that recorded no device work at all (on
+    an H100 a run of this script once lost a whole graph profile) is
+    run again, up to PROFILE_ATTEMPTS sessions, as
+    `scripts/profile_step.py` profiles again on lost launches."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with warm_profile(torch.device("cuda", torch.cuda.current_device())
+                          ) as prof:
+            run()
+        events = device_events(prof)
+        if events:
+            break
+        print(f"  profile {attempt}: the profiler recorded no device work; "
+              f"profiling again")
     per_op: dict[str, list] = {}
-    for e in device_events(prof):
+    for e in events:
         c = per_op.setdefault(e.name, [0, 0.0])
         c[0] += 1
         c[1] += e.time_range.elapsed_us() / 1e3
@@ -4174,9 +4402,12 @@ def run_anomaly(dev) -> dict:
         1,440-step `htm_scan(learning=True)` launching `table_update`
         once a step and nothing else, the likelihood (window 300,
         momentum 0.7, exclude 24) and `seasonal_zscore` (window 96) on
-        the card within the CPU tests' tolerances of the CPU's on the
-        same scores and values, alerts and window scores per stream on
-        the host: mean F1 >= 0.9 on spike and freq_change.
+        the card, one launch of `anomaly_likelihood` and one of
+        `seasonal_zscore` and nothing else, within the CPU tests'
+        tolerances of the CPU's on the same scores and values (timed
+        beside the parent's loop of eager ops, the plain versions on the
+        card), alerts and window scores per stream on the host: mean F1
+        >= 0.9 on spike and freq_change.
     (b) the stack 352 -> 512x8 -> 512x8 at B=256 over the spike trace:
         STACK_LEARN learning steps (two `table_update` a step, both
         layers' bursting falls), STACK_INFER inference steps (two
@@ -4188,7 +4419,8 @@ def run_anomaly(dev) -> dict:
         scan over the whole tensor, every leaf and metric.
 
     Prints wall time, ms/step, launches a step and the busy share of
-    (a) and (b). Returns the launch counts of (a) and (b)."""
+    (a) and (b). Returns the launch counts of (a), its stages and (b)
+    and the stages' seconds."""
     from bithtm_tpu_torch.examples import anomaly_benchmark as ab
     from bithtm_tpu_torch.examples import likelihood_series, nlog10
     from bithtm_tpu_torch.utils.data import prefetch_to_device
@@ -4235,11 +4467,28 @@ def run_anomaly(dev) -> dict:
     require(bool(torch.isfinite(raw).all()) and bool((raw >= 0).all())
             and bool((raw <= 1).all()), "raw anomaly scores in [0, 1]")
     vals = torch.from_numpy(values)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     lik = likelihood_series(raw, ab.LIK_WINDOW, ab.LIK_MOMENTUM, ab.PERIOD)
     z = bt.seasonal_zscore(vals.to(dev), ab.PERIOD, window=4 * ab.PERIOD)
     torch.cuda.synchronize()
     stage_s = time.perf_counter() - t0
+    out["stages"] = kernels.launch_counts()
+    require(out["stages"] == only(anomaly_likelihood=1, seasonal_zscore=1),
+            f"the stages launch one anomaly_likelihood and one "
+            f"seasonal_zscore and nothing else, got {out['stages']}")
+    # the parent's stages: the loop of eager torch ops (the plain
+    # versions) on the card, on the same scores and values
+    t0 = time.perf_counter()
+    penc.anomaly_likelihood_steps_ref(
+        bt.anomaly_likelihood_init(ab.LIK_WINDOW, B, dev), raw,
+        ab.LIK_MOMENTUM, ab.PERIOD)
+    penc.seasonal_zscore_steps_ref(
+        bt.seasonal_zscore_init(ab.PERIOD, 4 * ab.PERIOD, 3, B, dev),
+        vals.to(dev), ab.PERIOD)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
     lik_cpu = likelihood_series(raw.cpu(), ab.LIK_WINDOW, ab.LIK_MOMENTUM,
                                 ab.PERIOD)
     z_cpu = bt.seasonal_zscore(vals, ab.PERIOD, window=4 * ab.PERIOD)
@@ -4268,10 +4517,13 @@ def run_anomaly(dev) -> dict:
     f1 = {name: f for name, _, _, f, _ in table}
     print(f"anomaly scan: {scan_s:.2f} s, {1e3 * scan_s / T:.3f} ms/step, "
           f"launches {out['anomaly']}; encoders {1e3 * enc_s:.1f} ms, "
-          f"likelihood + z on the card {stage_s:.2f} s (max |dL| {dl!r}, "
+          f"likelihood + z on the card {1e3 * stage_s:.2f} ms in one launch "
+          f"each (the parent's loop of eager ops, the plain versions on the "
+          f"card: {loop_s:.2f} s; max |dL| {dl!r}, "
           f"max |dz| {float(dz.max())!r} against the CPU; {n_near} "
           f"decisions within tolerance of a threshold), alerts and scores "
           f"on the host {1e3 * host_s:.1f} ms")
+    out["stage_s"], out["stage_loop_s"] = stage_s, loop_s
     require(f1["spike"] >= 0.9 and f1["freq_change"] >= 0.9,
             f"mean F1 >= 0.9 on spike and freq_change: {f1}")
     start = Start(state, gen, lambda g: bt.TorchDraws(cfg.tm, B, g.device,
@@ -4497,7 +4749,14 @@ def main() -> None:
     anomaly = run_anomaly(dev)
     graph_paths["anomaly"] = anomaly["anomaly_graph_vs_loop"]
     graph_paths["stack"] = anomaly["stack_graph_vs_loop"]
+    launches.update({k: anomaly["stages"][k]
+                     for k in ("anomaly_likelihood", "seasonal_zscore")})
     phase("run_anomaly")
+    (checks["anomaly_likelihood"], checks["seasonal_zscore"],
+     stage_rows) = check_anomaly_stages(dev)
+    path_rows.update(stage_rows)
+    torch.cuda.empty_cache()
+    phase("check_anomaly_stages")
     checks["column_decide"], path_rows["column_decide"] = \
         check_column_decide()
     DECIDE_CALLS.clear()

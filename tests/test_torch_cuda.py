@@ -902,11 +902,14 @@ def test_prefetch_and_encoders_on_the_card(cuda):
         np.float32))
     scores[150:160] = 1.0
     lik_cpu = likelihood_series(scores, 100, 0.7, 24)
+    before = kernels.launch_counts()
     lik_gpu = likelihood_series(scores.to(cuda), 100, 0.7, 24).cpu()
     assert (lik_gpu - lik_cpu).abs().max() <= 2.4e-7
     z_cpu = bt.seasonal_zscore(v, 8, window=24)
     z_gpu = bt.seasonal_zscore(v.to(cuda), 8, window=24).cpu()
     assert bool(((z_gpu - z_cpu).abs() <= 2e-6 + 1e-6 * z_cpu.abs()).all())
+    # each stage one launch of its kernel (csrc/anomaly_pass.cu)
+    assert launched(before) == only(anomaly_likelihood=1, seasonal_zscore=1)
 
     cfg = bt.make_htm_config(64, 64, 4, 4, segment_activation_threshold=2,
                              segment_matching_threshold=2,
@@ -2055,3 +2058,94 @@ def test_serving_counts_rejects_bad_inputs(bad, cuda):
         kernels.serving_flags_cuda(x["rows"], x["ext_col"], x["cols"],
                                    x["bits"], x["seg_cell"], C, 32, 2, 3)
     assert launched(before) == only()
+
+
+# ---- the anomaly stages (csrc/anomaly_pass.cu) against their plain
+# versions on the card, at the cases of chip_smoke.check_anomaly_stages
+# (`testing.LIKELIHOOD_CASES`, `testing.ZSCORE_CASES`): the states bit
+# for bit, L within 2.4e-7 and z within 2e-6 + 1e-6|z| (the sums' order,
+# erff; tests/test_torch_encoders.py models the kernels' sums against
+# JAX)
+
+
+def _same_state(got, want) -> bool:
+    return all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(got, want, strict=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(testing.LIKELIHOOD_CASES))
+def test_anomaly_likelihood_kernel_matches_plain(case, cuda):
+    from bithtm_tpu_torch import encoders as enc
+
+    T, B, W, R, carried = testing.LIKELIHOOD_CASES[case]
+    st, x = testing.likelihood_inputs(7, T, B, W, R, carried, cuda)
+    state = None if st is None else bt.AnomalyLikelihoodState(*st)
+    kept = None if st is None else [t.clone() for t in st]
+    start = state or bt.anomaly_likelihood_init(W, B, cuda)
+    want_st, want = enc.anomaly_likelihood_steps_ref(start, x, 0.7, R)
+    before = kernels.launch_counts()
+    got_st, got = enc.anomaly_likelihood_steps(state, x, 0.7, R, window=W)
+    torch.cuda.synchronize()
+    assert launched(before) == only(anomaly_likelihood=1)
+    assert kernels.ANOMALY_LIKELIHOOD.path == (kernels._ring(W), "f32")
+    assert _same_state(got_st, want_st)
+    assert float((got - want).abs().max()) <= 2.4e-7
+    assert bool((want != 0.5).any())
+    if kept is not None:  # the state passed in is not changed
+        assert _same_state(st, kept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(testing.ZSCORE_CASES))
+def test_seasonal_zscore_kernel_matches_plain(case, cuda):
+    from bithtm_tpu_torch import encoders as enc
+
+    T, B, P, W, lags, carried, f64 = testing.ZSCORE_CASES[case]
+    st, x = testing.zscore_inputs(8, T, B, P, W, lags, carried, f64, cuda)
+    state = None if st is None else bt.SeasonalZScoreState(*st)
+    kept = None if st is None else [t.clone() for t in st]
+    start = state or bt.seasonal_zscore_init(P, W, lags, B, cuda)
+    want_st, want = enc.seasonal_zscore_steps_ref(start, x, P)
+    before = kernels.launch_counts()
+    got_st, got = enc.seasonal_zscore_steps(state, x, P, window=W,
+                                            lags=lags)
+    torch.cuda.synchronize()
+    assert launched(before) == only(seasonal_zscore=1)
+    assert kernels.SEASONAL_ZSCORE.path == (
+        kernels._ring(lags * P + W), "f64" if f64 else "f32")
+    assert _same_state(got_st, want_st)
+    assert bool(((got - want).abs() <= 2e-6 + 1e-6 * want.abs()).all())
+    if kept is not None:
+        assert _same_state(st, kept)
+
+
+@pytest.mark.cuda
+def test_streaming_anomaly_updates_launch_one_kernel(cuda):
+    """`anomaly_likelihood_update` and `seasonal_zscore_update` on the card
+    are one launch each (T = 1), for a (B,) tensor and a Python scalar,
+    and a loop of them equals the series call bit for bit."""
+    from bithtm_tpu_torch.examples import likelihood_series
+
+    st, x = testing.likelihood_inputs(9, 60, 8, 40, 10, False, cuda)
+    state, liks = bt.anomaly_likelihood_init(40, 8, cuda), []
+    for s in x:
+        before = kernels.launch_counts()
+        state, lik = bt.anomaly_likelihood_update(state, s, 0.7, 10)
+        assert launched(before) == only(anomaly_likelihood=1)
+        liks.append(lik)
+    assert torch.equal(torch.stack(liks), likelihood_series(x, 40, 0.7, 10))
+    before = kernels.launch_counts()
+    bt.anomaly_likelihood_update(state, 0.25, 0.7, 10)
+    assert launched(before) == only(anomaly_likelihood=1)
+    _, v = testing.zscore_inputs(9, 80, 8, 6, 20, 3, False, False, cuda)
+    zst, zs = bt.seasonal_zscore_init(6, 20, 3, 8, cuda), []
+    for row in v:
+        before = kernels.launch_counts()
+        zst, z = bt.seasonal_zscore_update(zst, row, 6)
+        assert launched(before) == only(seasonal_zscore=1)
+        zs.append(z)
+    assert torch.equal(torch.stack(zs), bt.seasonal_zscore(v, 6, window=20))
+    before = kernels.launch_counts()
+    bt.seasonal_zscore_update(zst, 0.5, 6)
+    assert launched(before) == only(seasonal_zscore=1)

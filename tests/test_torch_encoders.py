@@ -453,3 +453,246 @@ def test_nab_pipeline_matches_jax():
     windows = [(NAB_T - 2, NAB_T + 10)]
     assert (bt.score_alert_windows(p_eps, windows)
             == jenc.score_alert_windows(j_eps, windows))
+
+
+# ---- the anomaly stages' kernels (csrc/anomaly_pass.cu): the dispatchers
+# on the CPU, their plain versions, and a numpy model of the kernels'
+# summation order against JAX's scan
+
+
+def launches():
+    from bithtm_tpu_torch.ops import kernels
+
+    return kernels.launch_counts()
+
+
+def test_anomaly_stage_dispatchers_take_the_plain_version_on_the_cpu():
+    """On CPU tensors the streaming updates, `likelihood_series`,
+    `seasonal_zscore` and both `_steps` dispatchers run the plain version:
+    no launch. The `_steps` names stay out of the public surface, which is
+    the JAX package's."""
+    from bithtm_tpu_torch.encoders import (anomaly_likelihood_steps,
+                                           seasonal_zscore_steps)
+    from bithtm_tpu_torch.examples import likelihood_series
+
+    rng = np.random.RandomState(21)
+    scores = cpu(rng.uniform(0, 0.3, (40, 3)).astype(np.float32))
+    values = cpu(rng.normal(0, 1, (40, 3)))          # float64
+    before = launches()
+    st = bt.anomaly_likelihood_init(30, 3, "cpu")
+    st, _ = bt.anomaly_likelihood_update(st, scores[0], 0.7, 5)
+    st, _ = bt.anomaly_likelihood_update(st, 0.25, 0.7, 5)
+    likelihood_series(scores, 30, 0.7, 5)
+    anomaly_likelihood_steps(st, scores, 0.7, 5)
+    zs = bt.seasonal_zscore_init(4, 10, batch=3, device="cpu")
+    zs, _ = bt.seasonal_zscore_update(zs, values[0], 4)
+    bt.seasonal_zscore(values, 4, window=10)
+    seasonal_zscore_steps(zs, values, 4)
+    assert launches() == before
+    assert not any(name.endswith("_steps") or name.endswith("_steps_ref")
+                   for name in bt.__all__)
+    with pytest.raises(ValueError, match="exclude_recent"):
+        anomaly_likelihood_steps(None, scores, 0.7, 25, window=30)
+    with pytest.raises(ValueError, match="odd"):
+        seasonal_zscore_steps(None, values, 4, window=10, lags=2)
+
+
+@pytest.mark.parametrize("carried", [False, True])
+def test_anomaly_steps_refs_equal_the_update_loops(carried):
+    """`anomaly_likelihood_steps_ref` and `seasonal_zscore_steps_ref` (the
+    kernels' plain versions) equal the loop of the streaming updates bit
+    for bit, from a fresh state and from a carried one (converted from
+    JAX's state mid-ring); from a fresh state so do `likelihood_series`
+    and `seasonal_zscore`."""
+    from bithtm_tpu_torch.encoders import (anomaly_likelihood_steps_ref,
+                                           seasonal_zscore_steps_ref)
+    from bithtm_tpu_torch.examples import likelihood_series
+
+    B, T, W, R, P, ZW = 4, 120, 70, 8, 6, 20
+    scores = regime_scores(B, T, 22)
+    rng = np.random.RandomState(23)
+    values = (np.sin(2 * np.pi * np.arange(T) / P)[:, None]
+              + rng.normal(0, 0.1, (T, B))).astype(np.float32)
+    if carried:
+        jst, _ = jax_likelihoods(regime_scores(B, 95, 24), W, 0.7, R)
+        lst = named_state_from_numpy(bt.AnomalyLikelihoodState, jst, "cpu")
+        zj = jax.vmap(lambda _: jenc.seasonal_zscore_init(P, ZW))(
+            jnp.arange(B))
+        step = jax.jit(jax.vmap(
+            lambda st, x: jenc.seasonal_zscore_update(st, x, P)))
+        for x in jnp.asarray(rng.normal(0, 1, (45, B)), jnp.float32):
+            zj, _ = step(zj, x)
+        zst = named_state_from_numpy(bt.SeasonalZScoreState, zj, "cpu")
+        assert 0 < int(lst.pos[0]) < W and int(zst.pos[0]) == 45
+    else:
+        lst = bt.anomaly_likelihood_init(W, B, "cpu")
+        zst = bt.seasonal_zscore_init(P, ZW, batch=B, device="cpu")
+    st, want = lst, []
+    for s in cpu(scores):
+        st, lik = bt.anomaly_likelihood_update(st, s, 0.7, R)
+        want.append(lik)
+    got_st, got = anomaly_likelihood_steps_ref(lst, cpu(scores), 0.7, R)
+    assert torch.equal(got, torch.stack(want))
+    for a, b in zip(got_st, st):
+        assert torch.equal(a, b)
+    zt, zwant = zst, []
+    for x in cpu(values):
+        zt, z = bt.seasonal_zscore_update(zt, x, P)
+        zwant.append(z)
+    zgot_st, zgot = seasonal_zscore_steps_ref(zst, cpu(values), P)
+    assert torch.equal(zgot, torch.stack(zwant))
+    for a, b in zip(zgot_st, zt):
+        assert torch.equal(a, b)
+    if not carried:
+        assert torch.equal(likelihood_series(cpu(scores), W, 0.7, R), got)
+        assert torch.equal(bt.seasonal_zscore(cpu(values), P, window=ZW),
+                           zgot)
+
+
+def lane_sum(vals: np.ndarray) -> np.ndarray:
+    """The kernels' sum of (B, W) float32 values a stream
+    (csrc/anomaly_pass.cu `lane_sum`, `warp_sum`): lane l adds its slots
+    l, l + 32, ... in turn, in blocks of 16 slots each summed from zero
+    and then added to the lane's total; then lane i adds lane i ^ d's
+    total for d = 16, 8, 4, 2, 1."""
+    tot = np.zeros((32, vals.shape[0]), np.float32)
+    slots = -(-vals.shape[1] // 32)
+    for b0 in range(0, slots, 16):
+        blk = np.zeros_like(tot)
+        for k in range(b0, min(b0 + 16, slots)):
+            x = vals[:, 32 * k:32 * (k + 1)].T
+            blk[:len(x)] += x
+        tot = tot + blk
+    for d in (16, 8, 4, 2, 1):
+        tot = tot + tot[np.arange(32) ^ d]
+    return tot[0]
+
+
+def model_likelihood(state: dict, scores, m: float, R: int):
+    """numpy model of the `anomaly_likelihood` kernel: its rounding step
+    by step (the EMA by the port's one-rounding `_fma_f32`, the product
+    m * prev alone), its sums in `lane_sum`'s order, and `torch.erf`
+    standing for the card's `erff`. Returns (state, (T, B) L)."""
+    from bithtm_tpu_torch.ops.regularization import _fma_f32
+
+    f32 = np.float32
+    ring = np.array(state["scores"], np.float32)
+    pos, count = (np.array(state[k], np.int32) for k in ("pos", "count"))
+    short = np.array(state["short_mean"], np.float32)
+    B, W = ring.shape
+    slot, lo, out = np.arange(W), max(R, 0), []
+    for s in np.asarray(scores, np.float32):
+        ring[np.arange(B), pos] = s
+        newpos = (pos + 1) % W
+        nc = np.minimum(count + 1, W)
+        prev = np.where(count > 0, short, s)
+        short = _fma_f32(torch.from_numpy(s), 1.0 - m, torch.from_numpy(
+            f32(m) * prev)).numpy()
+        nf = np.maximum(nc - lo, 1).astype(np.float32)
+        age = (newpos[:, None] - 1 - slot) % W
+        est = (age >= R) & (age < nc[:, None])
+        mean = lane_sum(np.where(est, ring, f32(0))) / nf
+        d = ring - mean[:, None]
+        var = lane_sum(np.where(est, d * d, f32(0))) / nf
+        sd = np.sqrt(np.where(var < f32(1e-8), f32(1e-8), var))
+        q = ((short - mean) / sd) / f32(np.sqrt(2.0))
+        lik = f32(0.5) * (f32(1) + torch.erf(torch.from_numpy(q)).numpy())
+        out.append(np.where(nc >= R + 10, lik, f32(0.5)))
+        pos, count = newpos.astype(np.int32), nc.astype(np.int32)
+    return (dict(scores=ring, pos=pos, count=count, short_mean=short),
+            np.stack(out))
+
+
+def model_zscore(state: dict, values, P: int, eps: float = 1e-6):
+    """numpy model of the `seasonal_zscore` kernel: the median of the k
+    lags, each operation rounded as the kernel rounds it, the two sums in
+    `lane_sum`'s order. Returns (state, (T, B) z)."""
+    f32 = np.float32
+    lag = np.array(state["lag"], np.float32)
+    resid = np.array(state["resid"], np.float32)
+    t = np.array(state["pos"], np.int32)
+    B, L = lag.shape
+    W, k, rows, out = resid.shape[1], L // P, np.arange(B), []
+    for v in np.asarray(values, np.float32):
+        idx = (t[:, None] - P * np.arange(1, k + 1)) % L
+        med = np.sort(lag[rows[:, None], idx], axis=1)[:, (k - 1) // 2]
+        r = np.where(t >= L, v - med, f32(0))
+        live = np.arange(W) < np.minimum(t, W)[:, None]
+        nf = np.clip(t, 1, W).astype(np.float32)
+        mean = lane_sum(np.where(live, resid, f32(0))) / nf
+        dv = lane_sum(np.where(live, resid * resid, f32(0))) / nf \
+            - mean * mean
+        var = np.where(dv < f32(eps), f32(eps), dv)
+        out.append(np.where(t >= L + W, (r - mean) / np.sqrt(var), f32(0)))
+        lag[rows, t % L] = v
+        resid[rows, t % W] = r
+        t = t + 1
+    return dict(lag=lag, resid=resid, pos=t), np.stack(out)
+
+
+def jax_state(st) -> dict:
+    return {k: np.asarray(v) for k, v in st._asdict().items()}
+
+
+@pytest.mark.parametrize("W,R,carried", [(75, 0, False), (75, 24, True),
+                                         (128, 10, True)])
+def test_likelihood_kernel_order_meets_the_jax_tolerance(W, R, carried):
+    """The `anomaly_likelihood` kernel's summation order (the numpy model)
+    keeps L within LIK_TOL of JAX's scan of the update, and the ring, pos,
+    count and short_mean bit-equal to JAX's state, before the card runs
+    it: W off a multiple of 32, exclude 0, count saturating, from a fresh
+    state and from JAX's state carried mid-ring."""
+    B, T = 6, 200
+    scores = regime_scores(B, T, 30 + W + R)
+    jst0 = None
+    if carried:
+        jst0, _ = jax_likelihoods(regime_scores(B, W + 37, 31), W, 0.7, R)
+        start = jax_state(jst0)
+        assert 0 < start["pos"][0] < W and start["count"][0] == W
+    else:
+        start = {k: np.asarray(v) for k, v in bt.anomaly_likelihood_init(
+            W, B, "cpu")._asdict().items()}
+    jst, want = jax_likelihoods(scores, W, 0.7, R, jst0)
+    got_st, got = model_likelihood(start, scores, 0.7, R)
+    for name, arr in jax_state(jst).items():
+        np.testing.assert_array_equal(got_st[name], arr, err_msg=name)
+    err = np.abs(got - want)
+    assert err.max() <= LIK_TOL, (err.max(), np.unravel_index(err.argmax(),
+                                                              err.shape))
+    assert (got == 0.5).any() != carried and want.max() > 0.99
+
+
+@pytest.mark.parametrize("P,W,lags,carried", [(8, 40, 3, False),
+                                              (6, 50, 5, False),
+                                              (24, 96, 3, True)])
+def test_zscore_kernel_order_meets_the_jax_tolerance(P, W, lags, carried):
+    """The `seasonal_zscore` kernel's order (the numpy model) keeps z
+    within 2e-6 + 1e-6|z| of JAX's update, and lag, resid and pos
+    bit-equal to JAX's state: t crossing L and L + W from a fresh state
+    (W off a multiple of 32, 3 and 5 lags) and the benchmark's widths
+    from JAX's state carried past L + W."""
+    B, T = 5, 200
+    rng = np.random.RandomState(40 + W)
+    t = np.arange(400)
+    v = (np.sin(2 * np.pi * t / P)[:, None] + rng.normal(0, 0.1, (400, B))
+         + np.linspace(0, 0.5, 400)[:, None]).astype(np.float32)
+    v[300, 1] = 1.9
+    v[330:, 2] += 0.4
+    jst = jax.vmap(lambda _: jenc.seasonal_zscore_init(P, W, lags))(
+        jnp.arange(B))
+    step = jax.jit(jax.vmap(
+        lambda st, x: jenc.seasonal_zscore_update(st, x, P)))
+    first = 200 if carried else 0
+    for x in jnp.asarray(v[:first]):
+        jst, _ = step(jst, x)
+    start, want = jax_state(jst), []
+    for x in jnp.asarray(v[first:first + T]):
+        jst, z = step(jst, x)
+        want.append(np.asarray(z))
+    want = np.stack(want)
+    got_st, got = model_zscore(start, v[first:first + T], P)
+    for name, arr in jax_state(jst).items():
+        np.testing.assert_array_equal(got_st[name], arr, err_msg=name)
+    assert np.all(np.abs(got - want) <= z_tol(want)), \
+        np.abs(got - want).max()
+    assert (want != 0).any() and (carried or (want[:lags * P + W] == 0).all())

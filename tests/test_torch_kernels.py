@@ -371,6 +371,19 @@ PATH_CALLS = {
     "serving words": (lambda: kernels.serving_counts_cuda(
         _view(1, (1 << 23) + 1, 128), _view(1, 1), *_active(1), 1 << 23, 4,
         4), "serving_counts", None),
+    # the anomaly stages keep a stream's rings in shared memory up to
+    # ANOMALY_RING_FLOATS (58,112) floats, past it in global memory; the
+    # series is read as float32 or float64
+    **{f"ring {floats}, anomaly_likelihood": (
+        lambda floats=floats: kernels.anomaly_likelihood_cuda(
+            None, _view(3, 2, dtype=torch.float32), floats, 0.7, 24),
+        "anomaly_likelihood", (ring, "f32"))
+       for floats, ring in ((58_112, "smem"), (58_113, "global"))},
+    **{f"ring {24 * 3 + W}, seasonal_zscore": (
+        lambda W=W: kernels.seasonal_zscore_cuda(
+            None, _view(3, 2, dtype=torch.float64), 24, 72, W, 1e-6),
+        "seasonal_zscore", (ring, "f64"))
+       for W, ring in ((58_040, "smem"), (58_041, "global"))},
     # the count decode reads the activity in its type on both sides of
     # each act_dtype line
     **{f"counts K{K}": (
@@ -462,4 +475,28 @@ def test_step_launches_count_the_overlap_and_the_decode():
                 torch.zeros((2, 3, 128), dtype=torch.uint8),
                 torch.ones((2, 1000), dtype=torch.bool),
                 torch.tensor([[0, 2], [1, 0]], dtype=torch.int32))
+    assert kernels.launch_counts() == before
+
+
+def test_anomaly_stage_wrappers_check_series_and_name_the_jax_functions():
+    """`anomaly_pass.cu` names the JAX updates it stands for; the stage
+    wrappers take a (T, B) float32 or float64 series of any strides and a
+    period within the lag ring, and raise before anything launches
+    otherwise."""
+    src = (kernels.CSRC / "anomaly_pass.cu").read_text()
+    assert "bithtm_tpu/encoders.py:171, :255" in src
+    assert '#include "launch.cuh"' in src
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match=r"\(T, B\)"):
+        kernels.anomaly_likelihood_cuda(None, _view(3, dtype=torch.float32),
+                                        40, 0.7, 10)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        kernels.seasonal_zscore_cuda(None, _view(3, 2, dtype=torch.int32),
+                                     4, 12, 20, 1e-6)
+    with pytest.raises(ValueError, match="period"):
+        kernels.seasonal_zscore_cuda(None, _view(3, 2, dtype=torch.float32),
+                                     13, 12, 20, 1e-6)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        kernels.seasonal_zscore_cuda(None, _view(3, 2, dtype=torch.float32),
+                                     4, 12, 20, 1e-6)
     assert kernels.launch_counts() == before

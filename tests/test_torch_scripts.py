@@ -310,11 +310,13 @@ def test_grow_variants_patch_the_current_source():
 
 @pytest.mark.parametrize("kernel", ["learn_rows", "seg_flags",
                                     "column_decide", "sp_select",
-                                    "serving_counts", "sp_rows"])
+                                    "serving_counts", "sp_rows",
+                                    "anomaly_likelihood"])
 def test_variants_patch_the_studied_source(kernel):
     """Every variant of the `learn_rows`, flags-form, `column_decide`,
-    `sp_select`, `serving_counts` and `sp_rows` studies finds the text it
-    patches in its source, so none silently times the unpatched kernel."""
+    `sp_select`, `serving_counts`, `sp_rows` and anomaly-stage studies
+    finds the text it patches in its source, so none silently times the
+    unpatched kernel."""
     source, variants, _ = grow_variants.STUDIES[kernel]
     src = (kernels.CSRC / source).read_text()
     for name, patches in variants.items():
