@@ -16,7 +16,7 @@ Each wrapper first chooses its kernel's path from the shapes alone
 (`_bitmap`, `_streams`, `_act_bytes`, `_delta`, `_grow_keys`,
 `_rows_mode`, `_fill_path`, `_learn_loads`, `decide_split`,
 `_pack_path`, `_select_path`,
-`_row_claims`, `_segment_regs`, `_ring`, the decisions' mode: the
+`_row_claims`, `_segment_regs`, `_steps`, the decisions' mode: the
 bitmap in shared or in
 global memory, the packed activity's type, the streams in grid y or
 folded into grid x, the SP delta row staged or read from global memory,
@@ -26,8 +26,8 @@ row update finds repeated columns, the registers a lane tallies a
 compact serving row's segments in, whether the active rows are
 read where they lie in the tables or from gathered rows, how the fill
 reads its cells, whether the learning pass takes a column in 16-byte
-vectors, the decisions' blocks a stream, the pack's loads, where the
-anomaly stages keep their rings; README.md,
+vectors, the decisions' blocks a stream, the pack's loads, the lanes
+the anomaly stages give a step; README.md,
 port section) and
 reports it (`CudaKernel.path`) before any tensor is read. Only the
 stream-words limit (`_stream_words`: the kernels index a stream's words
@@ -104,12 +104,12 @@ DECIDE_WARPS = 32
 DECIDE_FILL_BLOCKS = 264
 DECIDE_WARP_COLUMNS = 2
 DECIDE_SPLIT_STREAMS = 1024
-# the anomaly stages (`anomaly_likelihood`, `seasonal_zscore`): a warp a
-# stream, ANOMALY_WARPS streams a block, each stream's rings in shared
-# memory while the block's fit in MAX_SHARED_BYTES (58,112 floats a
-# stream), else in global memory
-ANOMALY_WARPS = 1
-ANOMALY_RING_FLOATS = MAX_SHARED_BYTES // (4 * ANOMALY_WARPS)
+# the anomaly stages (`anomaly_likelihood`, `seasonal_zscore`): a thread
+# a step up to a window of ANOMALY_LANE_WINDOW slots (a block a stream,
+# the windows' history in shared memory), a warp a step past it (a
+# stream's steps over several blocks, the windows read from the inputs);
+# the order of a step's sums follows from the path
+ANOMALY_LANE_WINDOW = 4096
 
 _VP, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                     ctypes.c_longlong)
@@ -590,12 +590,14 @@ def _segment_regs(G: int) -> str:
     return next(f"g{n}" for n in (4, 8, 16, 32) if G <= n)
 
 
-def _ring(floats: int) -> str:
-    """Where the anomaly stages keep a stream's rings of ``floats``
-    float32 values: "smem" while ANOMALY_WARPS of them fit a block's
-    shared memory (ANOMALY_RING_FLOATS), else "global" (the output
-    state's rings, worked on in place)."""
-    return "smem" if floats <= ANOMALY_RING_FLOATS else "global"
+def _steps(window: int) -> str:
+    """How the anomaly stages take a step of a ``window``-slot window:
+    "lane" (a thread a step, the window's history in shared memory) up
+    to ANOMALY_LANE_WINDOW slots, else "warp" (a warp a step, the window
+    read from the series and the carried rings). The path fixes the
+    order in which a step's sums add, so it depends on the window
+    alone."""
+    return "lane" if window <= ANOMALY_LANE_WINDOW else "warp"
 
 
 _SERIES_NAMES = {torch.float32: "f32", torch.float64: "f64"}
@@ -1431,7 +1433,7 @@ def anomaly_likelihood_cuda(state, scores, window: int,
     four tensors and the (T, B) float32 likelihoods, each a new tensor
     (see `encoders.anomaly_likelihood_steps_ref`)."""
     typ = _series_name(scores)
-    path = ANOMALY_LIKELIHOOD.choose(_ring(window), typ)
+    path = ANOMALY_LIKELIHOOD.choose(_steps(window), typ)
     T, B = scores.shape
     dev = scores.get_device()
     x_p = _ptr("scores", scores, scores.dtype, None, dev, view=True)
@@ -1469,7 +1471,7 @@ def seasonal_zscore_cuda(state, values, period: int, lag_len: int,
     if not 1 <= period <= lag_len:
         raise ValueError(f"period must be in [1, {lag_len}] (the lag ring's "
                          f"length), got {period}")
-    path = SEASONAL_ZSCORE.choose(_ring(lag_len + window), typ)
+    path = SEASONAL_ZSCORE.choose(_steps(window), typ)
     T, B = values.shape
     dev = values.get_device()
     x_p = _ptr("values", values, values.dtype, None, dev, view=True)

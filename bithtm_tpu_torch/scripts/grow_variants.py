@@ -322,22 +322,59 @@ SERVING_VARIANTS = {
     "cols8": [("constexpr int kCols = 4;", "constexpr int kCols = 8;")],
     "no_skip": [("if (__any_sync(kAll, any)) {", "if (true) {")],
 }
-# the anomaly stages (`anomaly_likelihood`, `seasonal_zscore`): one
-# running sum a lane (no blocks of kBlock slots); the warp's butterflies
-# cut (each lane's own total taken); the likelihood's erff and its
-# division cut; the z-score's median cut; four streams a block, not one
+# the anomaly stages (`anomaly_likelihood`, `seasonal_zscore`), the
+# design's choices: lanes a step (a warp a step at every window, not a
+# thread up to 4,096 slots; a thread a step at every T, not a warp a
+# step up to 8 steps); steps a block (a lane block's warps 4 or 16,
+# not 8: tiles of 128 or 512 steps; a warp block's at most 8 steps, not
+# 16; a short series' 1 warp, not 4) and the blocks a stream (the warp
+# path's aim of 132 or 1,056 blocks, not 264); the EMA producer (its
+# chain before the sums, not beside them; the chain cut); and what a step
+# costs: a thread's or a warp's sums cut, the windows' rebuild from the
+# inputs cut, the new ring's write cut, erff cut, the median cut (wrong
+# results, timed)
 STAGE_VARIANTS = {
     "base": [],
-    "one_block": [("constexpr int kBlock = 16;",
-                   "constexpr int kBlock = 1 << 30;")],
-    "no_butterfly": [
-        ("float warp_sum(float v) {", "float warp_sum(float v) {\n"
-         "  return v;"),
-        ("void warp_sum2(float& a, float& b) {",
-         "void warp_sum2(float& a, float& b) {\n  return;")],
+    "warp_steps": [("constexpr int kLaneWindow = 4096;",
+                    "constexpr int kLaneWindow = 0;")],
+    "no_wide": [("constexpr int kWideSteps = 8;",
+                 "constexpr int kWideSteps = 0;")],
+    "lane_warps_4": [("constexpr int kLaneWarps = 8;",
+                      "constexpr int kLaneWarps = 4;")],
+    "lane_warps_16": [("constexpr int kLaneWarps = 8;",
+                       "constexpr int kLaneWarps = 16;")],
+    "warp_steps_8": [("constexpr int kWarpSteps = 16;",
+                      "constexpr int kWarpSteps = 8;")],
+    "fill_132": [("constexpr int kFillBlocks = 264;",
+                  "constexpr int kFillBlocks = 132;")],
+    "fill_1056": [("constexpr int kFillBlocks = 264;",
+                   "constexpr int kFillBlocks = 1056;")],
+    "serial_ema": [("        shorts[i] = sm;\n      }\n",
+                    "        shorts[i] = sm;\n      }\n"
+                    "    if (!kWide) __syncthreads();\n")],
+    "no_ema": [("sm = __fmaf_rn(s, one_minus, __fmul_rn(m, count0 > -t ? sm"
+                " : s));", "sm = s;"),
+               ("sm = __fmaf_rn(s, one_minus, __fmul_rn(m, count0 > -(t + i)"
+                " ? sm : s));", "sm = s;")],
+    "no_sums": [("  for (int c6 = 0; c6 < n; c6 += 4096) {",
+                 "  for (int c6 = 0; c6 < 0; c6 += 4096) {")],
+    "no_fill": [("if (u - first >= 0 && u - first < split) vals[u - first]"
+                 " = v;", "if (false) vals[u - first] = v;"),
+                ("vals[h] = first + h < T ? score.series(first + h) : 0.0f;",
+                 "vals[h] = 0.0f;"),
+                ("vals[h] = first + h < tau0 ? res.carried(first + h) : 0.0f;",
+                 "vals[h] = 0.0f;"),
+                ("if (s >= tau0 && s < end) vals[h] = res.fresh(s);",
+                 "if (false) vals[h] = 0.0f;")],
     "no_erf": [("erff(__fdiv_rn(z, kSqrt2))", "z")],
-    "no_median": [("r = __fsub_rn(v, median(lag, tl, L, P, k));", "r = v;")],
-    "warps_4": [("constexpr int kWarps = 1;", "constexpr int kWarps = 4;")],
+    "wide_warps_1": [("constexpr int kWideWarps = 4;",
+                      "constexpr int kWideWarps = 1;")],
+    "no_new_ring": [("ring_out[b * W + j] = vals[T - 1 - wrap(last - j, W) -"
+                     " first];", "ring_out[b * W + j] = 0.0f;")],
+    "no_warp_sums": [("const int rounds = (n + 511) / 512;",
+                      "const int rounds = 0;")],
+    "no_median": [("const float med = median([&](int a) { return "
+                   "value(s - a * P); }, k);", "const float med = 0.0f;")],
 }
 # B, C, I, A, the permanence type (chip_smoke.py SP_ROWS_MAIN)
 ROWS_SHAPES = {

@@ -530,8 +530,12 @@ def select_inputs(seed: int, B: int, C: int, kind: str = "random",
 # z-score's period 24, window 96, 3 lags, its values in float64 as the
 # benchmark passes them), a step from a carried mid-ring state, a window
 # off a multiple of 32 with exclude 0 (count saturating, the gates
-# crossed), one stream, 65,537 streams, rings past shared memory
-# (`kernels._ring`: the "global" path) and 5 lags.
+# crossed), one stream, 65,537 streams, windows past the lane path's
+# (`kernels._steps`: the "warp" path, a warp a step) and 5 lags; then
+# what stresses the steps in parallel: a long series whose EMA crosses
+# many tiles (T = 20,000), a carried state over a T that is no multiple
+# of the tile (256 steps) and a window of 4,096 slots, far above the
+# tile and the lane path's largest.
 # likelihood: name -> (T, B, W, R, carried)
 LIKELIHOOD_CASES = {
     "bench": (1440, 256, 300, 24, False),
@@ -540,6 +544,9 @@ LIKELIHOOD_CASES = {
     "B=1": (400, 1, 300, 24, False),
     "B=65,537 carried": (40, 65_537, 40, 10, True),
     "global ring carried": (60, 4, 60_000, 24, True),
+    "T=20,000 B=16": (20_000, 16, 300, 24, False),
+    "T=300 carried": (300, 32, 300, 24, True),
+    "W=4096 carried": (600, 8, 4096, 24, True),
 }
 # z-score: name -> (T, B, P, W, lags, carried, float64 values)
 ZSCORE_CASES = {
@@ -550,6 +557,9 @@ ZSCORE_CASES = {
     "B=1": (300, 1, 24, 96, 3, False, True),
     "B=65,537 carried": (40, 65_537, 4, 20, 3, True, False),
     "global ring carried": (60, 4, 24, 58_100, 3, True, False),
+    "T=20,000 B=16": (20_000, 16, 24, 96, 3, False, True),
+    "T=300 carried": (300, 32, 24, 96, 3, True, False),
+    "W=4096 carried": (600, 8, 24, 4096, 3, True, False),
 }
 ANOMALY_A = 16  # the anomaly benchmark's active columns: scores k / 16
 

@@ -43,10 +43,12 @@ stages over a whole (T, B) series in one launch each, in the phase
 `check_anomaly_stages` at the anomaly benchmark's shapes (1,440 steps,
 B=256), one step from a carried mid-ring state, a window off a multiple
 of 32 with exclude 0, count saturating and t crossing L and L + W, one
-stream, 65,537 streams, 5 lags and rings past shared memory (the
-"global" path), the new state bit for bit and L and z within the CPU
-tests' tolerances, each also in a CUDA graph of 20, each public call of
-the stages one device kernel under the profiler;
+stream, 65,537 streams, 5 lags, windows past the lane path (the "warp"
+path, a warp a step), 20,000 steps, a carried state over a T off the
+tile and a window of 4,096 slots, the new state bit for bit and L and z
+within the CPU tests' tolerances, each also in a CUDA graph of 20 with
+its path, each public call of the stages one device kernel under the
+profiler;
 `column_decide`,
 the TM's column decisions (the winner selection, `_learn`'s flags and
 `_allocate`, with the active and winner cells' words), in the phase
@@ -237,7 +239,10 @@ GRAPH_LEARN, GRAPH_INFER, GRAPH_SERVE = 64, 16, 64   # bench
 GRAPH_16K, GRAPH_ESCALATE = 128, 32   # 16K under autocap; forced escalation
 GRAPH_ANOMALY, GRAPH_STACK = 128, 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-F32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
+# H100 SXM float32 adds, subtracts or products issued alone a second (132
+# SMs x 128 lanes x the 1,980 MHz of `nvidia-smi --query-gpu=
+# clocks.max.sm`; the 67 TFLOP/s of the data sheet counts an FMA as two)
+F32_ADDS_PER_S = 132 * 128 * 1.98e9
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {
     "table_update": "bithtm_tpu_torch/csrc/table_pass.cu",
@@ -1530,29 +1535,38 @@ def check_sp_select(dev) -> tuple[dict, dict]:
 
 # the anomaly stages (`testing.LIKELIHOOD_CASES`, `testing.ZSCORE_CASES`):
 # the benchmark's momentum and eps; the plain versions loop T steps of
-# eager torch ops, so a case of STAGE_SLOW_T steps or more is timed in
-# one call after one (the kernel always over 20, and in a graph of 20)
+# eager torch ops, so in a case of STAGE_SLOW_T steps or more the plain
+# version's time is that of one call after the comparison's, and past
+# STAGE_WARM_T steps (the anomaly benchmark's length) that of the
+# comparison's call alone (the kernel always over 20, and in a graph of 20)
 STAGE_MOMENTUM, STAGE_EPS = 0.7, 1e-6
-STAGE_SLOW_T = 100
+STAGE_SLOW_T, STAGE_WARM_T = 100, 1440
 STAGE_UNIFORM = (400, BATCH, 300, 24)  # T, B, W, R of the uniform scores
 
 
 def stage_ops(kind: str, state, T: int, B: int, W: int, more: int) -> int:
-    """The float32 operations the reference's sums take over the slots
-    that enter them in this run, from the state's count (likelihood) or
-    position (z-score) and the steps: the likelihood 6 a slot of the
-    estimate (the masked sum, the difference, its square, the masked sum
-    again; ``more`` = R), the z-score 5 a live residual (the two masked
-    sums and the square) and lags^2 compares for the median (``more`` =
-    lags), and about 20 a stream-step around them."""
+    """The float32 operations the function needs over the slots that enter
+    its sums in this run, from the state's count (likelihood) or position
+    (z-score) and the steps, each counted once whatever it costs to issue
+    (a division, a root, erf): the likelihood 4 a slot of the estimate
+    (the sum, the difference, its square, the sum again; ``more`` = R)
+    and 12 a step (the EMA's product and FMA, the two means, the floor,
+    the root, the difference, the quotient, the scaling, erf, its add and
+    product); the z-score 3 a live residual (the two sums and the square),
+    9 a step (the residual, the two means, the square, the difference,
+    the floor, the root, the difference, the quotient) and the median of
+    ``more`` = lags values (4 min and max at three lags, else lags - 1,
+    the fewest compares that can pick a rank). The masks of the plain
+    version's sums are not the function's: they are not counted."""
     t = np.arange(T)[:, None]
     at = (np.zeros(B, np.int64) if state is None
           else state[2].cpu().numpy().astype(np.int64))
     if kind == "likelihood":
         n = np.clip(np.minimum(at + t + 1, W) - max(more, 0), 0, None)
-        return int(6 * n.sum() + 20 * T * B)
+        return int(4 * n.sum() + 12 * T * B)
     n = np.clip(at + t, 0, W)
-    return int(5 * n.sum() + (20 + more * more) * T * B)
+    median = 4 if more == 3 else max(more - 1, 0)
+    return int(3 * n.sum() + (9 + median) * T * B)
 
 
 def stage_row(kind: str, tag: str, case: tuple, dev) -> dict:
@@ -1563,15 +1577,19 @@ def stage_row(kind: str, tag: str, case: tuple, dev) -> dict:
     2e-6 + 1e-6|z|. Timed by CUDA events and in a CUDA graph of 20 calls
     beside the plain version; its bound the larger of its bytes (the
     series and state read once, the new state and outputs written once)
-    over the memory rate and `stage_ops` over the float32 rate."""
+    over the memory rate and `stage_ops` over the rate of float32 adds
+    issued alone (F32_ADDS_PER_S). From STAGE_SLOW_T steps the plain
+    version is timed by one call after a warm-up beyond the comparison's,
+    past STAGE_WARM_T steps by the comparison's call alone. The row names
+    the path, "lane" or "warp" (`kernels._steps`: a thread or a warp a
+    step)."""
     if kind == "likelihood":
         T, B, W, R, carried = case
         st, x = testing.likelihood_inputs(sum(map(int, case)), T, B, W, R,
                                           carried, dev)
         state = None if st is None else bt.AnomalyLikelihoodState(*st)
         start = state or bt.anomaly_likelihood_init(W, B, dev)
-        kobj, floats, at = (kernels.ANOMALY_LIKELIHOOD, W,
-                            f"T={T} B={B} W={W} R={R}")
+        kobj, at = kernels.ANOMALY_LIKELIHOOD, f"T={T} B={B} W={W} R={R}"
 
         def kernel():
             return penc.anomaly_likelihood_steps(state, x, STAGE_MOMENTUM,
@@ -1590,7 +1608,6 @@ def stage_row(kind: str, tag: str, case: tuple, dev) -> dict:
                                       carried, f64, dev)
         state = None if st is None else bt.SeasonalZScoreState(*st)
         start = state or bt.seasonal_zscore_init(P, W, lags, B, dev)
-        floats = lags * P + W
         kobj, at = (kernels.SEASONAL_ZSCORE,
                     f"T={T} B={B} P={P} W={W} lags={lags} "
                     f"{'f64' if f64 else 'f32'}")
@@ -1610,10 +1627,15 @@ def stage_row(kind: str, tag: str, case: tuple, dev) -> dict:
     before = kobj.launches
     got_st, got = kernel()
     n = kobj.launches - before
-    want_st, want = plain()
     torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record()
+    want_st, want = plain()
+    events[1].record()
+    torch.cuda.synchronize()
+    plain_once = events[0].elapsed_time(events[1])
     require(n == 1, f"{kobj.name} at {at} launches its kernel once, got {n}")
-    path = (kernels._ring(floats), kernels._series_name(x))
+    path = (kernels._steps(W), kernels._series_name(x))
     require(kobj.path == path, f"{kobj.name} at {at} takes {path}, got "
             f"{kobj.path}")
     require(all(same_bits(g, w) for g, w in zip(got_st, want_st)),
@@ -1625,9 +1647,10 @@ def stage_row(kind: str, tag: str, case: tuple, dev) -> dict:
     require(bool(ok.all()), f"{kobj.name} within tolerance of plain at "
             f"{at}: max |d| {err}")
     moved = nbytes(x, *([] if st is None else st), *want_st, want)
-    bound = (1e3 * moved / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S)
+    bound = (1e3 * moved / HBM_BYTES_PER_S, 1e3 * ops / F32_ADDS_PER_S)
     row = {"ms": cuda_ms(kernel), "graph_ms": graph_ms(kernel),
-           "plain_ms": (cuda_ms(plain, 1, 1) if T >= STAGE_SLOW_T
+           "plain_ms": (plain_once if T > STAGE_WARM_T
+                        else cuda_ms(plain, 1, 1) if T >= STAGE_SLOW_T
                         else cuda_ms(plain)),
            "max_abs_err": err, "bound_ms": max(bound),
            "bound_by": "bytes" if bound[0] >= bound[1] else "operations",
@@ -1662,16 +1685,16 @@ def stage_calls_launch_one_kernel(dev) -> None:
     row = values[0].float()
     lik_k, z_k = kernels.ANOMALY_LIKELIHOOD, kernels.SEASONAL_ZSCORE
     calls = {
-        "anomaly_likelihood_update": ("likelihood_kernel", lik_k, lambda:
+        "anomaly_likelihood_update": ("likelihood_lane", lik_k, lambda:
                                       bt.anomaly_likelihood_update(
                                           lst, scores[0], STAGE_MOMENTUM,
                                           R)),
-        "likelihood_series": ("likelihood_kernel", lik_k,
+        "likelihood_series": ("likelihood_lane", lik_k,
                               lambda: likelihood_series(
                                   scores, W, STAGE_MOMENTUM, R)),
-        "seasonal_zscore_update": ("zscore_kernel", z_k, lambda:
+        "seasonal_zscore_update": ("zscore_lane", z_k, lambda:
                                    bt.seasonal_zscore_update(zst, row, 24)),
-        "seasonal_zscore": ("zscore_kernel", z_k, lambda: bt.seasonal_zscore(
+        "seasonal_zscore": ("zscore_lane", z_k, lambda: bt.seasonal_zscore(
             values, 24, window=96)),
     }
     seen = {}
@@ -1707,12 +1730,16 @@ def check_anomaly_stages(dev) -> tuple[dict, dict, dict]:
     `testing.ZSCORE_CASES`: the anomaly benchmark's shapes (T = 1,440, B =
     256), one step from a carried mid-ring state, a window off a multiple
     of 32 and exclude 0, count saturating and t crossing L and L + W, one
-    stream, 65,537 streams, 5 lags and rings in global memory; each public
-    call one kernel (`stage_calls_launch_one_kernel`); and, not held to a
-    tolerance, the likelihood on uniform scores (not the k/16 an HTM
-    step gives), where float32 sums in any two orders move L by up to
-    about the tolerance: the kernel against the plain version on the card,
-    and the plain version on the card against the CPU's. Returns (the
+    stream, 65,537 streams, 5 lags, windows past the lane path (a warp a
+    step, a stream's steps over several blocks), a series of 20,000
+    steps, a carried state over a T off the tile and a 4,096-slot
+    window; each public call one kernel (`stage_calls_launch_one_kernel`);
+    and, not
+    held to a tolerance, the likelihood on uniform scores (not the k/16
+    an HTM step gives), where float32 sums in any two orders move L by
+    up to about the tolerance: the kernel against the plain version on
+    the card, and the plain version on the card against the CPU's.
+    Returns (the
     likelihood's bench row, the z-score's; {kernel: {case: row}})."""
     print(f"anomaly stages on {gpu_line(dev)}: each kernel against its "
           f"plain version on the card")
@@ -4496,6 +4523,16 @@ def run_anomaly(dev) -> dict:
     require(out["stages"] == only(anomaly_likelihood=1, seasonal_zscore=1),
             f"the stages launch one anomaly_likelihood and one "
             f"seasonal_zscore and nothing else, got {out['stages']}")
+    # the same two calls again, warm, and the values' copy alone
+    t0 = time.perf_counter()
+    likelihood_series(raw, ab.LIK_WINDOW, ab.LIK_MOMENTUM, ab.PERIOD)
+    bt.seasonal_zscore(vals.to(dev), ab.PERIOD, window=4 * ab.PERIOD)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vals.to(dev)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
     # the parent's stages: the loop of eager torch ops (the plain
     # versions) on the card, on the same scores and values
     t0 = time.perf_counter()
@@ -4536,12 +4573,15 @@ def run_anomaly(dev) -> dict:
     print(f"anomaly scan: {scan_s:.2f} s, {1e3 * scan_s / T:.3f} ms/step, "
           f"launches {out['anomaly']}; encoders {1e3 * enc_s:.1f} ms, "
           f"likelihood + z on the card {1e3 * stage_s:.2f} ms in one launch "
-          f"each (the parent's loop of eager ops, the plain versions on the "
-          f"card: {loop_s:.2f} s; max |dL| {dl!r}, "
+          f"each (again, warm: {1e3 * warm_s:.2f} ms; the values' copy to "
+          f"the card alone {1e3 * copy_s:.2f} ms; the parent's loop of "
+          f"eager ops, the plain versions on the card: {loop_s:.2f} s; "
+          f"max |dL| {dl!r}, "
           f"max |dz| {float(dz.max())!r} against the CPU; {n_near} "
           f"decisions within tolerance of a threshold), alerts and scores "
           f"on the host {1e3 * host_s:.1f} ms")
     out["stage_s"], out["stage_loop_s"] = stage_s, loop_s
+    out["stage_warm_s"], out["stage_copy_s"] = warm_s, copy_s
     require(f1["spike"] >= 0.9 and f1["freq_change"] >= 0.9,
             f"mean F1 >= 0.9 on spike and freq_change: {f1}")
     start = Start(state, gen, lambda g: bt.TorchDraws(cfg.tm, B, g.device,

@@ -2088,7 +2088,7 @@ def test_anomaly_likelihood_kernel_matches_plain(case, cuda):
     got_st, got = enc.anomaly_likelihood_steps(state, x, 0.7, R, window=W)
     torch.cuda.synchronize()
     assert launched(before) == only(anomaly_likelihood=1)
-    assert kernels.ANOMALY_LIKELIHOOD.path == (kernels._ring(W), "f32")
+    assert kernels.ANOMALY_LIKELIHOOD.path == (kernels._steps(W), "f32")
     assert _same_state(got_st, want_st)
     assert float((got - want).abs().max()) <= 2.4e-7
     assert bool((want != 0.5).any())
@@ -2113,7 +2113,7 @@ def test_seasonal_zscore_kernel_matches_plain(case, cuda):
     torch.cuda.synchronize()
     assert launched(before) == only(seasonal_zscore=1)
     assert kernels.SEASONAL_ZSCORE.path == (
-        kernels._ring(lags * P + W), "f64" if f64 else "f32")
+        kernels._steps(W), "f64" if f64 else "f32")
     assert _same_state(got_st, want_st)
     assert bool(((got - want).abs() <= 2e-6 + 1e-6 * want.abs()).all())
     if kept is not None:

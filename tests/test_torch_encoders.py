@@ -549,30 +549,59 @@ def test_anomaly_steps_refs_equal_the_update_loops(carried):
                            zgot)
 
 
-def lane_sum(vals: np.ndarray) -> np.ndarray:
-    """The kernels' sum of (B, W) float32 values a stream
-    (csrc/anomaly_pass.cu `lane_sum`, `warp_sum`): lane l adds its slots
-    l, l + 32, ... in turn, in blocks of 16 slots each summed from zero
-    and then added to the lane's total; then lane i adds lane i ^ d's
-    total for d = 16, 8, 4, 2, 1."""
-    tot = np.zeros((32, vals.shape[0]), np.float32)
-    slots = -(-vals.shape[1] // 32)
-    for b0 in range(0, slots, 16):
-        blk = np.zeros_like(tot)
-        for k in range(b0, min(b0 + 16, slots)):
-            x = vals[:, 32 * k:32 * (k + 1)].T
-            blk[:len(x)] += x
-        tot = tot + blk
+def _fours(x: np.ndarray) -> np.ndarray:
+    """The sums of x's last axis in blocks of 4 (zeros padding the last),
+    each summed from zero in turn."""
+    pad = -x.shape[-1] % 4
+    if pad:
+        x = np.concatenate([x, np.zeros(x.shape[:-1] + (pad,), x.dtype)],
+                           -1)
+    x = x.reshape(x.shape[:-1] + (-1, 4))
+    s = np.zeros(x.shape[:-1], np.float32)
+    for j in range(4):
+        s = s + x[..., j]
+    return s
+
+
+def tree_sum(vals: np.ndarray) -> np.ndarray:
+    """The kernels' sum of a step's terms in turn along the last axis
+    (csrc/anomaly_pass.cu `tree_sum`): a tree of fours six levels deep,
+    each sum of four taken from zero in turn, then the trees of 4,096
+    terms in turn. Zeros past a window's last term change no partial
+    sum, so the windows of several streams pad to one length."""
+    x = np.asarray(vals, np.float32)
+    for _ in range(6):
+        x = _fours(x)
+    s = np.zeros(x.shape[:-1], np.float32)
+    for j in range(x.shape[-1]):
+        s = s + x[..., j]
+    return s
+
+
+def order_sum(vals: np.ndarray, W: int) -> np.ndarray:
+    """The kernels' sum of (B, n) float32 terms a stream, oldest last (a
+    step's window in age order), on the path a W-slot window takes
+    (`kernels._steps`): "lane", one thread's `tree_sum`; "warp", lane l
+    taking the terms l, l + 32, ... in `tree_sum`'s order, then lane i
+    adding lane i ^ d's total for d = 16, 8, 4, 2, 1."""
+    from bithtm_tpu_torch.ops import kernels
+
+    if kernels._steps(W) == "lane":
+        return tree_sum(vals)
+    B, n = vals.shape
+    vals = np.concatenate([vals, np.zeros((B, -n % 32), np.float32)], 1)
+    tot = tree_sum(vals.reshape(B, -1, 32).transpose(0, 2, 1))
     for d in (16, 8, 4, 2, 1):
-        tot = tot + tot[np.arange(32) ^ d]
-    return tot[0]
+        tot = tot + tot[:, np.arange(32) ^ d]
+    return tot[:, 0]
 
 
 def model_likelihood(state: dict, scores, m: float, R: int):
     """numpy model of the `anomaly_likelihood` kernel: its rounding step
     by step (the EMA by the port's one-rounding `_fma_f32`, the product
-    m * prev alone), its sums in `lane_sum`'s order, and `torch.erf`
-    standing for the card's `erff`. Returns (state, (T, B) L)."""
+    m * prev alone), its sums over the ages R .. count' - 1 in
+    `order_sum`'s order, and `torch.erf` standing for the card's `erff`.
+    Returns (state, (T, B) L)."""
     from bithtm_tpu_torch.ops.regularization import _fma_f32
 
     f32 = np.float32
@@ -580,20 +609,21 @@ def model_likelihood(state: dict, scores, m: float, R: int):
     pos, count = (np.array(state[k], np.int32) for k in ("pos", "count"))
     short = np.array(state["short_mean"], np.float32)
     B, W = ring.shape
-    slot, lo, out = np.arange(W), max(R, 0), []
+    lo, out, rows = max(R, 0), [], np.arange(B)
+    ages = np.arange(lo, W)
     for s in np.asarray(scores, np.float32):
-        ring[np.arange(B), pos] = s
+        ring[rows, pos] = s
         newpos = (pos + 1) % W
         nc = np.minimum(count + 1, W)
         prev = np.where(count > 0, short, s)
         short = _fma_f32(torch.from_numpy(s), 1.0 - m, torch.from_numpy(
             f32(m) * prev)).numpy()
         nf = np.maximum(nc - lo, 1).astype(np.float32)
-        age = (newpos[:, None] - 1 - slot) % W
-        est = (age >= R) & (age < nc[:, None])
-        mean = lane_sum(np.where(est, ring, f32(0))) / nf
-        d = ring - mean[:, None]
-        var = lane_sum(np.where(est, d * d, f32(0))) / nf
+        win = ring[rows[:, None], (newpos[:, None] - 1 - ages) % W]
+        est = ages < nc[:, None]
+        mean = order_sum(np.where(est, win, f32(0)), W) / nf
+        d = win - mean[:, None]
+        var = order_sum(np.where(est, d * d, f32(0)), W) / nf
         sd = np.sqrt(np.where(var < f32(1e-8), f32(1e-8), var))
         q = ((short - mean) / sd) / f32(np.sqrt(2.0))
         lik = f32(0.5) * (f32(1) + torch.erf(torch.from_numpy(q)).numpy())
@@ -605,22 +635,25 @@ def model_likelihood(state: dict, scores, m: float, R: int):
 
 def model_zscore(state: dict, values, P: int, eps: float = 1e-6):
     """numpy model of the `seasonal_zscore` kernel: the median of the k
-    lags, each operation rounded as the kernel rounds it, the two sums in
-    `lane_sum`'s order. Returns (state, (T, B) z)."""
+    lags, each operation rounded as the kernel rounds it, the two sums
+    over the ages 1 .. min(t, W) in `order_sum`'s order. Returns (state,
+    (T, B) z)."""
     f32 = np.float32
     lag = np.array(state["lag"], np.float32)
     resid = np.array(state["resid"], np.float32)
     t = np.array(state["pos"], np.int32)
     B, L = lag.shape
     W, k, rows, out = resid.shape[1], L // P, np.arange(B), []
+    ages = np.arange(1, W + 1)
     for v in np.asarray(values, np.float32):
         idx = (t[:, None] - P * np.arange(1, k + 1)) % L
         med = np.sort(lag[rows[:, None], idx], axis=1)[:, (k - 1) // 2]
         r = np.where(t >= L, v - med, f32(0))
-        live = np.arange(W) < np.minimum(t, W)[:, None]
+        win = resid[rows[:, None], (t[:, None] - ages) % W]
+        live = ages <= np.minimum(t, W)[:, None]
         nf = np.clip(t, 1, W).astype(np.float32)
-        mean = lane_sum(np.where(live, resid, f32(0))) / nf
-        dv = lane_sum(np.where(live, resid * resid, f32(0))) / nf \
+        mean = order_sum(np.where(live, win, f32(0)), W) / nf
+        dv = order_sum(np.where(live, win * win, f32(0)), W) / nf \
             - mean * mean
         var = np.where(dv < f32(eps), f32(eps), dv)
         out.append(np.where(t >= L + W, (r - mean) / np.sqrt(var), f32(0)))
@@ -634,20 +667,92 @@ def jax_state(st) -> dict:
     return {k: np.asarray(v) for k, v in st._asdict().items()}
 
 
+def tree_sum_warp(vals: np.ndarray) -> np.ndarray:
+    """The kernels' `tree_sum_warp` (a warp a step, for a short series):
+    in each round lane l sums the group of 16 terms l + 32 round as
+    `tree_sum` does, and the warp adds the groups up by shuffles: 4 lanes
+    a run of 64, 16 lanes a run of 256, a round's two halves and the next
+    round's (1,024), four of those (4,096), then those in turn."""
+    x = np.asarray(vals, np.float32)
+    n = x.shape[-1]
+    zero = np.zeros(x.shape[:-1], np.float32)
+    rounds = -(-n // 512)
+    total, s6, s5 = zero, zero, zero
+    for r in range(rounds):
+        g = []  # the lanes' groups of 16
+        for lane in range(32):
+            c = 16 * (lane + 32 * r)
+            g.append(_fours(_fours(np.concatenate(
+                [x[..., c:min(c + 16, n)],
+                 np.zeros(x.shape[:-1] + (16 - max(0, min(16, n - c)),),
+                          np.float32)], -1)))[..., 0])
+        s3 = [zero + g[4 * (lane // 4)] + g[4 * (lane // 4) + 1]
+              + g[4 * (lane // 4) + 2] + g[4 * (lane // 4) + 3]
+              for lane in range(32)]
+        s4 = [zero + s3[16 * (lane // 16)] + s3[16 * (lane // 16) + 4]
+              + s3[16 * (lane // 16) + 8] + s3[16 * (lane // 16) + 12]
+              for lane in range(32)]
+        if r % 2 == 0:
+            s5 = zero
+        s5 = s5 + s4[0] + s4[16]
+        if r % 2 == 1 or r == rounds - 1:
+            if r % 8 < 2:
+                s6 = zero
+            s6 = s6 + s5
+            if r % 8 >= 6 or r == rounds - 1:
+                total = total + s6
+    return total
+
+
+@pytest.mark.parametrize("n", [1, 20, 64, 65, 276, 1000, 1024, 4096,
+                               5000])
+def test_the_warp_sum_of_a_short_series_keeps_the_tree_order(n):
+    """A warp a step (the lane path's form for T <= 8) adds a window's runs
+    of 64 in `tree_sum`'s order: bit-equal to one thread's `tree_sum`, so
+    a T = 1 update equals the same step of a long series."""
+    rng = np.random.RandomState(n)
+    vals = (rng.uniform(0, 1, (64, n)) * 10.0 ** rng.randint(
+        -3, 3, (64, n))).astype(np.float32)
+    np.testing.assert_array_equal(tree_sum_warp(vals), tree_sum(vals))
+
+
+def carried_likelihood(B: int, W: int, seed: int) -> dict:
+    """A saturated likelihood state of W regime scores a stream, pos
+    mid-ring (the state a long history leaves, without its scan)."""
+    rng = np.random.RandomState(seed)
+    pos = rng.randint(1, W, B).astype(np.int32)
+    return dict(scores=regime_scores(B, W, seed).T.copy(), pos=pos,
+                count=np.full(B, W, np.int32),
+                short_mean=rng.uniform(0, 0.2, B).astype(np.float32))
+
+
+# W, R, carried; the last two the largest window of each path: the lane
+# path's (kernels.ANOMALY_LANE_WINDOW) and the warp path's largest on the
+# card (testing.LIKELIHOOD_CASES "global ring carried")
 @pytest.mark.parametrize("W,R,carried", [(75, 0, False), (75, 24, True),
-                                         (128, 10, True)])
+                                         (128, 10, True), (4096, 24, True),
+                                         (60_000, 24, True)])
 def test_likelihood_kernel_order_meets_the_jax_tolerance(W, R, carried):
     """The `anomaly_likelihood` kernel's summation order (the numpy model)
     keeps L within LIK_TOL of JAX's scan of the update, and the ring, pos,
     count and short_mean bit-equal to JAX's state, before the card runs
     it: W off a multiple of 32, exclude 0, count saturating, from a fresh
-    state and from JAX's state carried mid-ring."""
-    B, T = 6, 200
+    state and from JAX's state carried mid-ring, and each path's order at
+    the largest window it takes (a saturated state made directly)."""
+    big = W > 1000
+    B, T = (3, 64) if big else (6, 200)
     scores = regime_scores(B, T, 30 + W + R)
     jst0 = None
     if carried:
-        jst0, _ = jax_likelihoods(regime_scores(B, W + 37, 31), W, 0.7, R)
-        start = jax_state(jst0)
+        if big:
+            start = carried_likelihood(B, W, 31)
+            jst0 = jenc.AnomalyLikelihoodState(
+                *(jnp.asarray(start[k]) for k in ("scores", "pos", "count",
+                                                  "short_mean")))
+        else:
+            jst0, _ = jax_likelihoods(regime_scores(B, W + 37, 31), W, 0.7,
+                                      R)
+            start = jax_state(jst0)
         assert 0 < start["pos"][0] < W and start["count"][0] == W
     else:
         start = {k: np.asarray(v) for k, v in bt.anomaly_likelihood_init(
@@ -662,30 +767,64 @@ def test_likelihood_kernel_order_meets_the_jax_tolerance(W, R, carried):
     assert (got == 0.5).any() != carried and want.max() > 0.99
 
 
+def seasonal_values(T: int, B: int, P: int, seed: int) -> np.ndarray:
+    """(T, B) float32: a sine of period P with noise and drift, a spike
+    at step 300 of stream 1 and a level shift from step 330 of stream 2
+    (where T reaches them)."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(T)
+    v = (np.sin(2 * np.pi * t / P)[:, None] + rng.normal(0, 0.1, (T, B))
+         + np.linspace(0, 0.5 * T / 400, T)[:, None]).astype(np.float32)
+    if T > 330:
+        v[300, 1] = 1.9
+        v[330:, 2] += 0.4
+    return v
+
+
+# P, W, lags, carried; the last two the largest window of each path (the
+# warp path's testing.ZSCORE_CASES "global ring carried")
 @pytest.mark.parametrize("P,W,lags,carried", [(8, 40, 3, False),
                                               (6, 50, 5, False),
-                                              (24, 96, 3, True)])
+                                              (24, 96, 3, True),
+                                              (24, 4096, 3, True),
+                                              (24, 58_100, 3, True)])
 def test_zscore_kernel_order_meets_the_jax_tolerance(P, W, lags, carried):
     """The `seasonal_zscore` kernel's order (the numpy model) keeps z
     within 2e-6 + 1e-6|z| of JAX's update, and lag, resid and pos
     bit-equal to JAX's state: t crossing L and L + W from a fresh state
-    (W off a multiple of 32, 3 and 5 lags) and the benchmark's widths
-    from JAX's state carried past L + W."""
-    B, T = 5, 200
-    rng = np.random.RandomState(40 + W)
-    t = np.arange(400)
-    v = (np.sin(2 * np.pi * t / P)[:, None] + rng.normal(0, 0.1, (400, B))
-         + np.linspace(0, 0.5, 400)[:, None]).astype(np.float32)
-    v[300, 1] = 1.9
-    v[330:, 2] += 0.4
+    (W off a multiple of 32, 3 and 5 lags), the benchmark's widths from
+    JAX's state carried past L + W, and each path's order at the largest
+    window it takes (from a state past L + W made directly: lags of the
+    same sine, residuals of its noise)."""
+    big = W > 1000
+    B, T = (3, 64) if big else (5, 200)
+    L = lags * P
     jst = jax.vmap(lambda _: jenc.seasonal_zscore_init(P, W, lags))(
         jnp.arange(B))
     step = jax.jit(jax.vmap(
         lambda st, x: jenc.seasonal_zscore_update(st, x, P)))
-    first = 200 if carried else 0
-    for x in jnp.asarray(v[:first]):
-        jst, _ = step(jst, x)
-    start, want = jax_state(jst), []
+    if big:
+        rng = np.random.RandomState(W)
+        pos = L + W + rng.randint(0, 5 * W, B)
+        lags_at = pos[:, None] - L + np.arange(L)  # the ring's last L steps
+        lag = np.zeros((B, L), np.float32)
+        np.put_along_axis(lag, lags_at % L, np.sin(
+            2 * np.pi * lags_at / P).astype(np.float32), 1)
+        start = dict(lag=lag, pos=pos.astype(np.int32),
+                     resid=rng.normal(0, 0.1, (B, W)).astype(np.float32))
+        jst = jenc.SeasonalZScoreState(
+            *(jnp.asarray(start[k]) for k in ("lag", "resid", "pos")))
+        v = seasonal_values(T, B, P, 40 + W)
+        v += np.sin(2 * np.pi * pos / P)[None] - v[:1]  # in phase
+        v[T // 2, 1] += 1.9
+        first = 0
+    else:
+        v = seasonal_values(400, B, P, 40 + W)
+        first = 200 if carried else 0
+        for x in jnp.asarray(v[:first]):
+            jst, _ = step(jst, x)
+        start = jax_state(jst)
+    want = []
     for x in jnp.asarray(v[first:first + T]):
         jst, z = step(jst, x)
         want.append(np.asarray(z))
@@ -696,3 +835,289 @@ def test_zscore_kernel_order_meets_the_jax_tolerance(P, W, lags, carried):
     assert np.all(np.abs(got - want) <= z_tol(want)), \
         np.abs(got - want).max()
     assert (want != 0).any() and (carried or (want[:lags * P + W] == 0).all())
+
+
+# ---- how the kernels rebuild a step's window (csrc/anomaly_pass.cu): a
+# numpy model of each path's index arithmetic, which reads only the
+# inputs (the series, the carried rings) and the tile in shared memory or
+# the warp path's ring in global memory, held equal at every step to the
+# ring the plain version keeps step by step
+
+
+def _ring_slot(s: int, W: int) -> int:
+    """The kernel's `s < 0 ? s + W : s` for s in (-W, W)."""
+    return s + W if s < 0 else s
+
+
+def rebuild_likelihood(state: dict, scores: np.ndarray, R: int, m: float,
+                       path: str, tile: int, blocks: int = 1):
+    """The `anomaly_likelihood` kernel's windows: for each step (a list
+    over t) and stream, the scores of ages lo .. count' - 1 in turn (the
+    terms of its sums), the step's own score and its short mean as the
+    producer warp carries the EMA over the tiles (the warp path's
+    ``blocks`` blocks a stream each taking every ``blocks``-th tile of
+    ``tile`` steps); and the new ring, pos and count."""
+    from bithtm_tpu_torch.ops.regularization import _fma_f32
+
+    ring_in = np.asarray(state["scores"], np.float32)
+    B, W = ring_in.shape
+    T, lo = len(scores), max(R, 0)
+    wins = [[None] * B for _ in range(T)]
+    out = np.zeros_like(ring_in)
+    pos_out = np.zeros(B, np.int32)
+    count_out = np.zeros(B, np.int32)
+
+    def ema(sm, s, t, count0):
+        prev = sm if count0 > -t else s
+        return _fma_f32(torch.tensor([s]), 1.0 - m, torch.tensor(
+            [np.float32(m) * prev])).numpy()[0]
+
+    for b in range(B):
+        pos0, count0 = int(state["pos"][b]) % W, int(state["count"][b])
+
+        def carried(u):
+            return ring_in[b, _ring_slot(pos0 + u, W)]
+
+        def score(u):
+            return scores[u, b] if u >= 0 else carried(u)
+
+        def count_after(t):
+            return W if count0 >= W - t - 1 else count0 + t + 1
+
+        last = pos0 + T - 1
+        if path == "lane":
+            sm, first = np.float32(state["short_mean"][b]), 0
+            for t0 in range(0, T, tile):
+                first = t0 - W + 1
+                H = W - 1 + tile
+                split = min(H, max(-first, 0))
+                vals = np.array([scores[first + h, b] if split <= h and
+                                 first + h < T else 0.0 for h in range(H)],
+                                np.float32)
+                for j in range(W):  # the carried ring in slot order
+                    u = j - pos0 if j - pos0 < 0 else j - pos0 - W
+                    if 0 <= u - first < split:
+                        vals[u - first] = ring_in[b, j]
+                for i in range(min(tile, T - t0)):
+                    t = t0 + i
+                    sm = ema(sm, vals[W - 1 + i], t, count0)
+                    n = max(count_after(t) - lo, 0)
+                    wins[t][b] = (np.array([vals[t - first - lo - k]
+                                            for k in range(n)], np.float32),
+                                  vals[W - 1 + i], sm)
+            for j in range(W):
+                u = T - 1 - (last - j) % W
+                out[b, j] = vals[u - first] if T > 0 else score(u)
+        else:
+            for g in range(blocks):
+                sm, at = np.float32(state["short_mean"][b]), 0
+                for t0 in range(g * tile, T, blocks * tile):
+                    for t in range(at, t0 + min(tile, T - t0)):
+                        sm = ema(sm, scores[t, b], t, count0)
+                        if t < t0:
+                            continue
+                        n = max(count_after(t) - lo, 0)
+                        win = [None] * n
+                        for lane in range(min(n, 32)):
+                            ul = t - lo - lane
+                            for q in range((n - lane + 31) // 32):
+                                win[lane + 32 * q] = score(ul - 32 * q)
+                        wins[t][b] = (np.array(win, np.float32),
+                                      scores[t, b], sm)
+                    at = t0 + min(tile, T - t0)
+            for j in range(W):
+                out[b, j] = score(T - 1 - (last - j) % W)
+        pos_out[b] = (pos0 + T) % W if T > 0 else state["pos"][b]
+        count_out[b] = count0 if T == 0 else count_after(T - 1)
+    return wins, dict(scores=out, pos=pos_out, count=count_out)
+
+
+def rebuild_zscore(state: dict, values: np.ndarray, P: int, path: str,
+                   tile: int, blocks: int = 1):
+    """The `seasonal_zscore` kernel's windows: for each step and stream,
+    the residuals of ages 1 .. min(t, W) in turn and the step's own
+    residual (the lane path from its tiles' residuals in shared memory,
+    the warp path's ``blocks`` blocks each from the inputs); and the new
+    lag ring, residual ring and pos."""
+    lag_in = np.asarray(state["lag"], np.float32)
+    resid_in = np.asarray(state["resid"], np.float32)
+    B, L = lag_in.shape
+    W, T, k = resid_in.shape[1], len(values), L // P
+    wins = [[None] * B for _ in range(T)]
+    lag_out, resid_out = np.zeros_like(lag_in), np.zeros_like(resid_in)
+    pos_out = np.zeros(B, np.int32)
+    for b in range(B):
+        tau0 = int(state["pos"][b])
+        end = tau0 + T
+
+        def value(s):
+            return values[s - tau0, b] if s >= tau0 else lag_in[b, s % L]
+
+        def carried(s):
+            return resid_in[b, s % W]
+
+        def fresh(s):
+            if s < L:
+                return np.float32(0)
+            lags = np.sort([value(s - a * P) for a in range(1, k + 1)])
+            return np.float32(value(s) - lags[(k - 1) // 2])
+
+        def res(s):
+            return carried(s) if s < tau0 else fresh(s)
+
+        for j in range(L):
+            lag_out[b, j] = value(end - 1 - (end - 1 - j) % L)
+        if path == "lane":
+            first = 0
+            for t0 in range(0, T, tile):
+                start = tau0 + t0
+                first = start - W
+                vals = np.zeros(W + tile, np.float32)
+                for h in range(W + tile):
+                    s = first + h
+                    if h < W and s < tau0:
+                        vals[h] = carried(s)
+                    elif tau0 <= s < end:
+                        vals[h] = fresh(s)
+                for i in range(min(tile, T - t0)):
+                    t = start + i
+                    live = W if t >= W else max(t, 0)
+                    wins[t0 + i][b] = (
+                        np.array([vals[t - 1 - first - q]
+                                  for q in range(live)], np.float32),
+                        vals[t - first])
+            for j in range(W):
+                s = end - 1 - (end - 1 - j) % W
+                resid_out[b, j] = vals[s - first] if T > 0 else res(s)
+        else:
+            for g in range(blocks):
+                for t0 in range(g * tile, T, blocks * tile):
+                    for w in range(min(tile, T - t0)):
+                        t = tau0 + t0 + w
+                        live = W if t >= W else max(t, 0)
+                        win = [None] * live
+                        for lane in range(min(live, 32)):
+                            ul = t - 1 - lane
+                            for q in range((live - lane + 31) // 32):
+                                win[lane + 32 * q] = res(ul - 32 * q)
+                        wins[t0 + w][b] = (np.array(win, np.float32),
+                                           res(t))
+            for j in range(W):
+                resid_out[b, j] = res(end - 1 - (end - 1 - j) % W)
+        pos_out[b] = end
+    return wins, dict(lag=lag_out, resid=resid_out, pos=pos_out)
+
+
+# path, W, R, T, the tile (the lane path's threads on the steps, or the
+# warp path's warps), the warp path's blocks a stream, the start: None
+# fresh, else (pos, count) a stream of a carried ring (one saturating,
+# one crossing the gate R + 10)
+LIK_REBUILDS = {
+    "lane, mid-ring, count saturating, tile < W, T off the tile": (
+        "lane", 75, 24, 100, 32, 1, ((40, 72), (3, 30), (74, 75))),
+    "lane, exclude 0, fresh": ("lane", 40, 0, 70, 64, 1, None),
+    "lane, W < 32": ("lane", 20, 5, 50, 32, 1, ((7, 18), (19, 12), (0, 20))),
+    "lane, a warp a step (T <= 8), tiles of 4": (
+        "lane", 75, 24, 7, 4, 1, ((40, 72), (3, 30), (74, 75))),
+    "warp, mid-ring, count saturating, 3 blocks": (
+        "warp", 75, 24, 37, 4, 3, ((40, 72), (3, 30), (74, 75))),
+    "warp, exclude 0, fresh, W < 32": ("warp", 20, 0, 45, 16, 1, None),
+    "warp, W off 32, a block a step": (
+        "warp", 40, 10, 50, 1, 50, ((39, 38), (5, 19), (0, 40))),
+}
+
+
+@pytest.mark.parametrize("case", list(LIK_REBUILDS))
+def test_likelihood_kernel_rebuilds_each_window_from_its_inputs(case):
+    """Each path's index arithmetic (the numpy model `rebuild_likelihood`)
+    gives every step the very scores, in age order, that the plain
+    version's ring holds at ages lo .. count' - 1 after that step writes,
+    the EMA the step's own score and the plain version's short mean
+    however the tiles fall over the blocks; and the new state the plain
+    version's: a carried mid-ring start, count saturating and crossing
+    the warm-up gate, exclude 0, W off a multiple of 32 and below it, T
+    not a multiple of the tile, a tile shorter than W."""
+    from bithtm_tpu_torch.encoders import _likelihood_step
+
+    path, W, R, T, tile, blocks, start = LIK_REBUILDS[case]
+    B, lo = 3, max(R, 0)
+    scores = (regime_scores(B, T, W + T) if T > 40 else np.random.RandomState(
+        T).randint(0, 17, (T, B)).astype(np.float32) / np.float32(16))
+    st = bt.anomaly_likelihood_init(W, B, "cpu")
+    if start is not None:
+        pos, count = (np.array(c, np.int32) for c in zip(*start))
+        ring = np.random.RandomState(W).randint(0, 17, (B, W)) / 16
+        st = st._replace(scores=cpu(ring.astype(np.float32)),
+                         pos=cpu(pos), count=cpu(count))
+    state = {k: v.numpy() for k, v in st._asdict().items()}
+    wins, got = rebuild_likelihood(state, scores, R, 0.7, path, tile,
+                                   blocks)
+    for t in range(T):
+        st, _ = _likelihood_step(st, cpu(scores[t]), 0.7, R)
+        ring, p, c, sm = (x.numpy() for x in (st.scores, st.pos, st.count,
+                                              st.short_mean))
+        for b in range(B):
+            ages = np.arange(lo, c[b])
+            want = ring[b, (p[b] - 1 - ages) % W]
+            win, own, short = wins[t][b]
+            np.testing.assert_array_equal(win, want, err_msg=f"{t} {b}")
+            assert own == scores[t, b] and short == sm[b], (t, b)
+    for name in ("scores", "pos", "count"):
+        np.testing.assert_array_equal(got[name], getattr(st, name).numpy(),
+                                      err_msg=name)
+
+
+# path, P, W, lags, T, the tile, the warp path's blocks a stream, the
+# start: None fresh, else each stream's pos (one crossing L, one crossing
+# L + W, one past both)
+Z_REBUILDS = {
+    "lane, fresh, t crossing L and L + W, W < 32": (
+        "lane", 4, 20, 3, 100, 32, 1, None),
+    "lane, carried, 5 lags, tile < W, T off the tile": (
+        "lane", 6, 50, 5, 90, 32, 1, (27, 75, 300)),
+    "lane, W off 32, carried": ("lane", 12, 75, 3, 70, 64, 1,
+                                (33, 109, 500)),
+    "lane, a warp a step (T <= 8), tiles of 4": (
+        "lane", 6, 50, 5, 7, 4, 1, (27, 75, 300)),
+    "warp, fresh, 3 blocks": ("warp", 4, 20, 3, 45, 4, 3, None),
+    "warp, carried, 5 lags": ("warp", 6, 50, 5, 37, 16, 1, (27, 75, 300)),
+}
+
+
+@pytest.mark.parametrize("case", list(Z_REBUILDS))
+def test_zscore_kernel_rebuilds_each_window_from_its_inputs(case):
+    """Each path's index arithmetic (the numpy model `rebuild_zscore`:
+    every residual from the series and its lags, or the carried rings)
+    gives every step the residuals, in age order, that the plain
+    version's ring holds at ages 1 .. min(t, W) before that step writes,
+    and the residual the step writes; and the new state the plain
+    version's: t crossing L and L + W, 3 and 5 lags, a carried start, W
+    off a multiple of 32 and below it, T not a multiple of the tile, a
+    tile shorter than W."""
+    from bithtm_tpu_torch.encoders import _zscore_step
+
+    path, P, W, lags, T, tile, blocks, start = Z_REBUILDS[case]
+    B, L = 3, lags * P
+    values = seasonal_values(T, B, P, W + T)
+    st = bt.seasonal_zscore_init(P, W, lags, B, "cpu")
+    if start is not None:
+        rng = np.random.RandomState(W)
+        st = st._replace(
+            lag=cpu(rng.normal(0, 1, (B, L)).astype(np.float32)),
+            resid=cpu(rng.normal(0, 0.3, (B, W)).astype(np.float32)),
+            pos=cpu(np.array(start, np.int32)))
+    state = {k: v.numpy() for k, v in st._asdict().items()}
+    wins, got = rebuild_zscore(state, values, P, path, tile, blocks)
+    for t in range(T):
+        pos = st.pos.numpy()
+        ring = st.resid.numpy()
+        st, _ = _zscore_step(st, cpu(values[t]), P, 1e-6)
+        for b in range(B):
+            ages = np.arange(1, min(max(pos[b], 0), W) + 1)
+            win, own = wins[t][b]
+            np.testing.assert_array_equal(win, ring[b, (pos[b] - ages) % W],
+                                          err_msg=f"{t} {b}")
+            assert own == st.resid.numpy()[b, pos[b] % W]
+    for name in ("lag", "resid", "pos"):
+        np.testing.assert_array_equal(got[name], getattr(st, name).numpy(),
+                                      err_msg=name)

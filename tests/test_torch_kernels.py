@@ -371,19 +371,26 @@ PATH_CALLS = {
     "serving words": (lambda: kernels.serving_counts_cuda(
         _view(1, (1 << 23) + 1, 128), _view(1, 1), *_active(1), 1 << 23, 4,
         4), "serving_counts", None),
-    # the anomaly stages keep a stream's rings in shared memory up to
-    # ANOMALY_RING_FLOATS (58,112) floats, past it in global memory; the
-    # series is read as float32 or float64
-    **{f"ring {floats}, anomaly_likelihood": (
-        lambda floats=floats: kernels.anomaly_likelihood_cuda(
-            None, _view(3, 2, dtype=torch.float32), floats, 0.7, 24),
-        "anomaly_likelihood", (ring, "f32"))
-       for floats, ring in ((58_112, "smem"), (58_113, "global"))},
-    **{f"ring {24 * 3 + W}, seasonal_zscore": (
+    # the anomaly stages take a step with a thread up to a window of
+    # ANOMALY_LANE_WINDOW (4,096) slots, with a warp past it (the rings
+    # of 58,112 floats and more that once left shared memory among them),
+    # whatever the lag ring; the series is read as float32 or float64
+    **{f"{tag} {W}, anomaly_likelihood": (
+        lambda W=W: kernels.anomaly_likelihood_cuda(
+            None, _view(3, 2, dtype=torch.float32), W, 0.7, 24),
+        "anomaly_likelihood", (steps, "f32"))
+       for tag, W, steps in (("window", 4096, "lane"),
+                             ("window", 4097, "warp"),
+                             ("ring", 58_112, "warp"),
+                             ("ring", 58_113, "warp"))},
+    **{f"{tag} {24 * 3 + W}, seasonal_zscore": (
         lambda W=W: kernels.seasonal_zscore_cuda(
             None, _view(3, 2, dtype=torch.float64), 24, 72, W, 1e-6),
-        "seasonal_zscore", (ring, "f64"))
-       for W, ring in ((58_040, "smem"), (58_041, "global"))},
+        "seasonal_zscore", (steps, "f64"))
+       for tag, W, steps in (("window", 4096, "lane"),
+                             ("window", 4097, "warp"),
+                             ("ring", 58_040, "warp"),
+                             ("ring", 58_041, "warp"))},
     # the count decode reads the activity in its type on both sides of
     # each act_dtype line
     **{f"counts K{K}": (
@@ -486,6 +493,7 @@ def test_anomaly_stage_wrappers_check_series_and_name_the_jax_functions():
     src = (kernels.CSRC / "anomaly_pass.cu").read_text()
     assert "bithtm_tpu/encoders.py:171, :255" in src
     assert '#include "launch.cuh"' in src
+    assert f"kLaneWindow = {kernels.ANOMALY_LANE_WINDOW};" in src
     before = kernels.launch_counts()
     with pytest.raises(ValueError, match=r"\(T, B\)"):
         kernels.anomaly_likelihood_cuda(None, _view(3, dtype=torch.float32),
